@@ -1,0 +1,33 @@
+"""Global process flags.
+
+A copy of the JAX package's `core/flags.py` mechanism (a typed global
+key/value store), holding the flags the port reads.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+_DEFAULTS: dict[str, Any] = {
+    # distributed tracing (obs/tracing.py): serving traces every
+    # request that arrives WITH a carrier, plus every Nth anonymous
+    # request when trace_serve_period > 0 (0 = carrier-bearing only)
+    "trace_serve_period": 0,
+}
+
+_flags: dict[str, Any] = dict(_DEFAULTS)
+
+
+def get_flag(name: str) -> Any:
+    if name not in _flags:
+        raise KeyError(f"unknown flag {name!r}")
+    return _flags[name]
+
+
+def set_flag(name: str, value: Any) -> None:
+    _flags[name] = value
+
+
+def reset_flags() -> None:
+    _flags.clear()
+    _flags.update(_DEFAULTS)
