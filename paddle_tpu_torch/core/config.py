@@ -1,0 +1,217 @@
+"""Config IR — the serializable model/trainer configuration.
+
+The reference's IR is protobuf (proto/ModelConfig.proto:326,608 LayerConfig/
+ModelConfig, proto/TrainerConfig.proto, proto/ParameterConfig.proto) emitted
+by a Python DSL (python/paddle/trainer/config_parser.py:3724). We keep the
+same three-tier design — user DSL -> serializable IR -> executor — but the IR
+is plain dataclasses with JSON round-trip: the executor is jit-compiled JAX,
+so there is no cross-language boundary that would require protobuf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+
+@dataclass
+class ParameterConf:
+    """Per-parameter config (reference: proto/ParameterConfig.proto,
+    paddle/parameter/Parameter.h:46)."""
+
+    name: str = ""
+    dims: tuple = ()
+    learning_rate: float = 1.0  # per-parameter LR multiplier
+    momentum: Optional[float] = None
+    decay_rate: Optional[float] = None  # L2; None = use global
+    decay_rate_l1: Optional[float] = None
+    initial_mean: float = 0.0
+    initial_std: Optional[float] = None  # None => 1/sqrt(fan_in)
+    initial_strategy: str = "normal"  # normal | uniform | zero | constant
+    initial_value: float = 0.0  # for constant strategy
+    is_static: bool = False  # frozen parameter
+    is_shared: bool = False
+    sparse_update: bool = False  # row-sparse gradient (embeddings)
+    sparse_remote_update: bool = False  # sharded-across-mesh table
+    gradient_clipping_threshold: float = 0.0
+    # static pruning hook (ParameterUpdaterHook.cpp:39): fraction of
+    # weights zero-masked by initial magnitude; None = no pruning
+    sparsity_ratio: Optional[float] = None
+    # MoE expert weight [E, ...]: shard the leading expert dim over the
+    # mesh model axis (expert parallelism)
+    expert_sharded: bool = False
+    # user callback name -> ndarray (reference ParameterAttribute
+    # initializer, python/paddle/v2/attr + parameters.py:update hooks)
+    initializer: Optional[object] = None
+
+    def to_dict(self):
+        d = dataclasses.asdict(self)
+        d["dims"] = list(self.dims)
+        return d
+
+
+@dataclass
+class InputConf:
+    """One input edge of a layer (reference: proto/ModelConfig.proto
+    LayerInputConfig)."""
+
+    name: str  # producing layer name
+    parameter: Optional[ParameterConf] = None  # weight on this edge, if any
+    attrs: dict = field(default_factory=dict)  # conv/pool/proj specifics
+
+
+@dataclass
+class LayerConf:
+    """One layer (reference: proto/ModelConfig.proto:326 LayerConfig).
+
+    `attrs` carries layer-type-specific settings (kernel sizes, pool type,
+    beam size, ...) that the proto kept in dedicated sub-messages.
+    """
+
+    name: str
+    type: str
+    size: int = 0
+    inputs: list = field(default_factory=list)  # list[InputConf]
+    active_type: str = ""  # "" = linear
+    bias: bool = True
+    bias_parameter: Optional[ParameterConf] = None
+    drop_rate: float = 0.0
+    device: Optional[int] = None  # model-parallel placement hint
+    attrs: dict = field(default_factory=dict)
+
+    def input_names(self):
+        return [i.name for i in self.inputs]
+
+
+@dataclass
+class SubModelConf:
+    """Recurrent-group sub-network (reference: proto/ModelConfig.proto:579
+    SubModelConfig): layer names belonging to the group, in/out links and
+    memory wiring."""
+
+    name: str
+    layer_names: list = field(default_factory=list)
+    in_links: list = field(default_factory=list)  # [{layer_name, link_name}]
+    out_links: list = field(default_factory=list)
+    memories: list = field(default_factory=list)  # [{layer_name, link_name, boot_*}]
+    reversed: bool = False
+    is_generating: bool = False
+    attrs: dict = field(default_factory=dict)
+
+
+@dataclass
+class ModelConf:
+    """Whole-network config (reference: proto/ModelConfig.proto:608)."""
+
+    layers: list = field(default_factory=list)  # list[LayerConf], topo order
+    input_layer_names: list = field(default_factory=list)
+    output_layer_names: list = field(default_factory=list)
+    sub_models: list = field(default_factory=list)  # list[SubModelConf]
+
+    def layer(self, name: str) -> LayerConf:
+        for lc in self.layers:
+            if lc.name == name:
+                return lc
+        raise KeyError(f"no layer named {name!r}")
+
+    # ---- JSON round-trip ----
+    def to_json(self) -> str:
+        return json.dumps(_to_jsonable(self), indent=1, sort_keys=True)
+
+    @staticmethod
+    def from_json(s: str) -> "ModelConf":
+        return _model_from_dict(json.loads(s))
+
+
+@dataclass
+class OptimizationConf:
+    """Optimizer settings (reference: proto/TrainerConfig.proto
+    OptimizationConfig; python/paddle/trainer_config_helpers/optimizers.py)."""
+
+    batch_size: int = 1
+    learning_method: str = "sgd"
+    learning_rate: float = 0.01
+    learning_rate_decay_a: float = 0.0
+    learning_rate_decay_b: float = 0.0
+    learning_rate_schedule: str = "constant"
+    learning_rate_args: str = ""
+    momentum: float = 0.0
+    use_nesterov: bool = False
+    l1_rate: float = 0.0
+    l2_rate: float = 0.0
+    ada_epsilon: float = 1e-6
+    ada_rou: float = 0.95
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_epsilon: float = 1e-8
+    gradient_clipping_threshold: float = 0.0
+    average_window: float = 0.0
+    max_average_window: int = 0
+    num_batches_per_send_parameter: int = 1
+    batches_per_pass: int = 0  # for pass_manual LR scheduling
+
+
+@dataclass
+class TrainerConf:
+    """Top-level trainer config (reference: proto/TrainerConfig.proto)."""
+
+    model: ModelConf = field(default_factory=ModelConf)
+    opt: OptimizationConf = field(default_factory=OptimizationConf)
+    num_passes: int = 1
+    save_dir: Optional[str] = None
+
+
+# ---- serialization helpers ----
+
+_CLASSES = {
+    "ParameterConf": ParameterConf,
+    "InputConf": InputConf,
+    "LayerConf": LayerConf,
+    "SubModelConf": SubModelConf,
+    "ModelConf": ModelConf,
+    "OptimizationConf": OptimizationConf,
+    "TrainerConf": TrainerConf,
+}
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        d = {"__cls__": type(obj).__name__}
+        for f in dataclasses.fields(obj):
+            d[f.name] = _to_jsonable(getattr(obj, f.name))
+        return d
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(x) for x in obj]
+    if isinstance(obj, dict):
+        return {k: _to_jsonable(v) for k, v in obj.items()}
+    if callable(obj):
+        # session-only callbacks (ParameterConf.initializer, beam
+        # hooks) don't persist — values they produced already live in
+        # the checkpoint; a reloaded config falls back to the default
+        # initialization path
+        return None
+    return obj
+
+
+def _from_jsonable(obj: Any) -> Any:
+    if isinstance(obj, dict):
+        if "__cls__" in obj:
+            cls = _CLASSES[obj["__cls__"]]
+            kwargs = {
+                k: _from_jsonable(v) for k, v in obj.items() if k != "__cls__"
+            }
+            if "dims" in kwargs:
+                kwargs["dims"] = tuple(kwargs["dims"])
+            return cls(**kwargs)
+        return {k: _from_jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_from_jsonable(x) for x in obj]
+    return obj
+
+
+def _model_from_dict(d: dict) -> ModelConf:
+    out = _from_jsonable(d)
+    assert isinstance(out, ModelConf)
+    return out

@@ -13,6 +13,14 @@ _DEFAULTS: dict[str, Any] = {
     # request that arrives WITH a carrier, plus every Nth anonymous
     # request when trace_serve_period > 0 (0 = carrier-bearing only)
     "trace_serve_period": 0,
+    # training (trainer/trainer.py, network.py): log every Nth batch;
+    # the trainer's seed when SGD gets none (0 = from the OS); the
+    # on-device non-finite skip; the matmul precision ("default" =
+    # f32 — the port has no bf16 cast rule yet and refuses it)
+    "log_period": 100,
+    "seed": 0,
+    "watchdog": True,
+    "matmul_precision": "default",
 }
 
 _flags: dict[str, Any] = dict(_DEFAULTS)

@@ -11,12 +11,15 @@ The same pure functions over the same flat parameter dict (`_lm_emb.w0`,
   (slot s of the context is absolute position s).
 - `greedy_decode_recompute` — the full-recompute reference: every new
   token re-runs the whole prefix through `lm_forward`.
+- `transformer_lm` — the train conf, through the port's copy of the
+  DSL: the same ModelConf the JAX package builds, run by the port's
+  `Network` and `trainer.SGD`.
 
 All of it is f32. The projections are plain `torch.matmul`, as the JAX
 package left them to XLA; TF32 is off on the card (core/device.py).
-`lm_init_params` initializes directly (there is no DSL `Network` in
-the port): same names and shapes as `Network.init_params` gives the
-JAX conf, weights normal with std 1/sqrt(fan_in), biases zero.
+`lm_init_params` draws through `Network(transformer_lm(spec))`, so the
+functional paths and the trainer share one flat parameter dict:
+weights normal with std 1/sqrt(fan_in), biases zero.
 """
 
 from __future__ import annotations
@@ -27,7 +30,9 @@ import math
 import numpy as np
 import torch
 
-from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch import dsl
+from paddle_tpu_torch.core.config import ModelConf
+from paddle_tpu_torch.network import Network
 from paddle_tpu_torch.parallel import ring
 
 
@@ -65,19 +70,39 @@ def lm_param_shapes(spec: LMSpec) -> dict:
     return shapes
 
 
+def transformer_lm(spec: LMSpec) -> ModelConf:
+    """Trainer config from the DSL layer inventory. Teacher forcing:
+    `ids` is the BOS-prefixed input, `label` the next-token target; the
+    causal mask keeps position t blind to t+1 exactly like the
+    generation programs."""
+    d, h = spec.d_model, spec.num_heads
+    with dsl.model() as g:
+        ids = dsl.data("ids", dim=(), is_ids=True, is_seq=True)
+        lbl = dsl.data("label", dim=(), is_ids=True, is_seq=True)
+        x = dsl.embedding(ids, size=d, vocab_size=spec.vocab,
+                          name="lm_emb")
+        for i in range(spec.num_layers):
+            att = dsl._add(
+                "multi_head_attention", [x], size=d, num_heads=h,
+                causal=True, attn_impl=spec.attn_impl,
+                name=f"lm_att{i}",
+            )
+            x = dsl.addto(att, dsl.fc(att, size=d, act="relu",
+                                      name=f"lm_ff{i}"),
+                          name=f"lm_blk{i}")
+        out = dsl.fc(x, size=spec.vocab, act="", name="lm_head")
+        dsl.classification_cost(out, lbl, name="lm_cost")
+        g.conf.output_layer_names.append("lm_head")
+    return g.conf
+
+
 def lm_init_params(spec: LMSpec, generator: torch.Generator = None,
                    device=None) -> dict:
-    """Random f32 params: 2-D weights ~ N(0, 1/fan_in), 1-D zeros."""
-    dev = resolve_device(device)
-    out = {}
-    for name, shape in lm_param_shapes(spec).items():
-        if len(shape) == 1:
-            t = torch.zeros(shape, dtype=torch.float32)
-        else:
-            t = torch.randn(shape, generator=generator,
-                            dtype=torch.float32) / math.sqrt(shape[0])
-        out[name] = t.to(dev)
-    return out
+    """Random f32 params through the DSL graph's own initializer
+    (sorted names from one generator): 2-D weights ~ N(0, 1/fan_in),
+    1-D zeros."""
+    gen = generator if generator is not None else torch.Generator()
+    return Network(transformer_lm(spec)).init_params(gen, device)
 
 
 # ---- functional forward (same params, same math) -------------------
@@ -245,3 +270,26 @@ def lm_prefix_token_recompute_bytes(spec: LMSpec,
     d, l = spec.d_model, spec.num_layers
     per_layer = 8 * d * dtype_bytes      # x,q,k,v,att,wo-out,ff,res
     return d * dtype_bytes + l * per_layer
+
+
+def lm_train_flops_per_batch(spec: LMSpec, bs: int, t: int) -> int:
+    """Model FLOPs per optimizer step (2/MAC, train ~ 3x fwd): per layer
+    the QKVO projections + the [T,T] score/value matmuls (full square)
+    + the d->d relu fc, plus the vocab head."""
+    d, l = spec.d_model, spec.num_layers
+    per_layer = (
+        4 * 2 * bs * t * d * d          # wq/wk/wv/wo
+        + 2 * 2 * bs * t * t * d        # QK^T and attn@V
+        + 2 * bs * t * d * d            # residual fc
+    )
+    head = 2 * bs * t * d * spec.vocab
+    return 3 * (l * per_layer + head)
+
+
+def lm_param_bytes(spec: LMSpec, dtype_bytes: int = 4) -> int:
+    d, l, v = spec.d_model, spec.num_layers, spec.vocab
+    n = v * d                            # embedding
+    n += l * (4 * d * d + d)             # attention (+ bias)
+    n += l * (d * d + d)                 # residual fc
+    n += d * v + v                       # head
+    return n * dtype_bytes

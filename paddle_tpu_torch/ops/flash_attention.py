@@ -1,9 +1,10 @@
-"""Flash-attention forward: the Hopper kernel, its plain version, and
-the launch counter.
+"""Flash attention forward and backward: the Hopper kernels, their plain
+versions, the autograd Function and the launch counters.
 
-Replaces the TPU kernel behind `paddle_tpu/parallel/ring.py::
-_pallas_flash` (the Pallas flash-attention forward); the contract is
-`ring.py::_blocked_fwd`'s:
+Replaces the TPU kernels behind `paddle_tpu/parallel/ring.py::
+_pallas_flash` — the Pallas flash-attention forward and its two
+backward calls (dkv and dq). The contract is the blocked oracle's,
+`ring.py::_blocked_fwd` and `ring.py::_flash_blocked_bwd`:
 
 - q [B, Tq, H, D], k and v [B, Tk, H, D], f32, the JAX layout;
 - `causal` (key j visible to query i only when j <= i);
@@ -12,15 +13,27 @@ _pallas_flash` (the Pallas flash-attention forward); the contract is
   key at all;
 - `scale`, default 1/sqrt(D).
 
-Returns (out [B, Tq, H, D] f32, lse [B, H, Tq] f32). A row with no
-visible key gets out = 0 and lse = +1e30, so a backward that
-recomputes p = exp(s - lse) gets p = 0 there.
+The forward returns (out [B, Tq, H, D] f32, lse [B, H, Tq] f32). A row
+with no visible key gets out = 0 and lse = +1e30. The backward takes
+(q, k, v, out, lse, dout) and returns (dq, dk, dv) with
 
-`flash_attention` launches the CUDA kernel (`csrc/flash_attn_fwd.cu`)
-on a CUDA tensor, or raises — it never falls back. On a CPU tensor it
-takes `attention_plain`, the straightforward masked softmax that states
-the contract; the CPU tests use it and the chip smoke holds the kernel
-against it on the card.
+    p     = exp(s * scale - lse), exactly 0 at masked pairs
+    delta = sum_d dout * out                (per query row)
+    ds    = p * (dout . v - delta) * scale
+    dq = ds @ k,  dk = ds^T @ q,  dv = p^T @ dout
+
+so a row with no visible key has dq = 0 and adds nothing to dk, dv.
+A padded query row of self-attention (q_len unset, i >= kv_len) still
+sees the valid keys: its output is garbage the layer zeroes, its dout
+is 0, and the backward treats it as any other row.
+
+A CUDA tensor goes through the kernels (`csrc/flash_attn_fwd.cu`,
+`csrc/flash_attn_bwd.cu`) or the call raises — never a fallback. A CPU
+tensor goes through `attention_plain` / `attention_bwd_plain`, the
+straightforward versions that state the contract; the CPU tests use
+them and the chip smoke holds the kernels against them on the card.
+`FlashAttention` (an autograd Function) ties the two directions
+together; `parallel/ring.py::flash_dense_attention` calls it.
 """
 
 from __future__ import annotations
@@ -33,31 +46,45 @@ import torch
 from paddle_tpu_torch.ops import _build
 
 KERNEL = "flash_attn_fwd"
+BWD_KERNEL = "flash_attn_bwd"
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
 LSE_MASKED = 1e30
 
-# kernel launches since the last reset (the chip smoke zeroes it just
-# before driving the serving path and reads it just after)
-launches = 0
+# kernel launches since the last reset, one counter per kernel (the
+# chip smoke zeroes them just before driving a path and reads them just
+# after)
+launches = 0            # forward
+bwd_dkv_launches = 0    # backward, dk and dv
+bwd_dq_launches = 0     # backward, dq
+
+
+def _visible(B, Tq, Tk, causal, kv_len, q_len, device):
+    """[B, 1, Tq, Tk] bool: query i may see key j."""
+    qpos = torch.arange(Tq, device=device)[:, None]
+    kpos = torch.arange(Tk, device=device)[None, :]
+    valid = torch.ones((B, 1, Tq, Tk), dtype=torch.bool, device=device)
+    if kv_len is not None:
+        valid = valid & (kpos < kv_len.to(device).view(B, 1, 1, 1))
+    if q_len is not None:
+        valid = valid & (qpos < q_len.to(device).view(B, 1, 1, 1))
+    if causal:
+        valid = valid & (kpos <= qpos)
+    return valid
+
+
+def _scale(scale, D):
+    return float(scale) if scale is not None else 1.0 / math.sqrt(D)
 
 
 def attention_plain(q, k, v, causal=False, kv_len=None, q_len=None,
                     scale=None):
-    """The plain PyTorch version: masked softmax in f32 over the
+    """The plain PyTorch forward: masked softmax in f32 over the
     [B, H, Tq, Tk] scores. Same inputs and outputs as flash_attention."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    scale = _scale(scale, D)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    qpos = torch.arange(Tq, device=q.device)[:, None]
-    kpos = torch.arange(Tk, device=q.device)[None, :]
-    valid = torch.ones((B, 1, Tq, Tk), dtype=torch.bool, device=q.device)
-    if kv_len is not None:
-        valid = valid & (kpos < kv_len.to(q.device).view(B, 1, 1, 1))
-    if q_len is not None:
-        valid = valid & (qpos < q_len.to(q.device).view(B, 1, 1, 1))
-    if causal:
-        valid = valid & (kpos <= qpos)
+    valid = _visible(B, Tq, Tk, causal, kv_len, q_len, q.device)
     s = s.masked_fill(~valid, float("-inf"))
     alive = valid.any(dim=-1)                      # [B, 1|H, Tq]
     m = torch.where(alive, s.amax(dim=-1), 0.0)    # [B, H, Tq]
@@ -71,17 +98,45 @@ def attention_plain(q, k, v, causal=False, kv_len=None, q_len=None,
     return out, lse
 
 
-def _bind():
-    lib = _build.load(KERNEL)
-    fn = lib.flash_attn_fwd
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, p, p] + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, p,
-        ]
-        fn.restype = ctypes.c_int
-        lib.flash_attn_error_string.argtypes = [ctypes.c_int]
-        lib.flash_attn_error_string.restype = ctypes.c_char_p
+def attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
+                        kv_len=None, q_len=None, scale=None):
+    """The plain PyTorch backward: recomputes p from lse over the
+    [B, H, Tq, Tk] scores. Returns (dq, dk, dv) f32; see the module
+    docstring for the contract."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = _scale(scale, D)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    valid = _visible(B, Tq, Tk, causal, kv_len, q_len, q.device)
+    p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
+    delta = torch.einsum("bqhd,bqhd->bhq", dof, out.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq, dk, dv
+
+
+def _bind(name):
+    lib = _build.load(name)
+    p = ctypes.c_void_p
+    i = ctypes.c_int
+    if name == KERNEL:
+        fns = {"flash_attn_fwd": [p] * 7 + [i] * 6 + [ctypes.c_float, i, p]}
+    else:
+        fns = {
+            "flash_attn_bwd_dkv": [p] * 10 + [i] * 6 + [ctypes.c_float, i, p],
+            "flash_attn_bwd_dq": [p] * 9 + [i] * 6 + [ctypes.c_float, i, p],
+        }
+    for fn, argtypes in fns.items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+    lib.flash_attn_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attn_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -97,6 +152,49 @@ def _check_lens(x, B, name, device):
     return x
 
 
+def _check_cuda(where, q, tensors):
+    """Validate the kernels' inputs on a CUDA device; returns the dims
+    (B, Tq, Tk, H, D)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{where}: unsupported device {q.device}")
+    B, Tq, H, D = q.shape
+    Tk = tensors["k"].shape[1]
+    for name, x in tensors.items():
+        t = Tk if name in ("k", "v") else Tq
+        if (x.dtype != torch.float32 or x.device != q.device
+                or tuple(x.shape) != (B, t, H, D)
+                or not x.is_contiguous()):
+            raise ValueError(
+                f"{where}: {name} must be contiguous f32 "
+                f"[{B},{t},{H},{D}] on {q.device}, got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}"
+            )
+    if D not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(
+            f"{where}: head dim {D} not in {SUPPORTED_HEAD_DIMS}"
+        )
+    return B, Tq, Tk, H, D
+
+
+def _launch(lib, fn, *args):
+    rc = getattr(lib, fn)(*args)
+    if rc != 0:
+        msg = lib.flash_attn_error_string(rc).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
+
+
+def _device_and_stream(q):
+    # the caller's thread may be a serving worker: launch on ITS
+    # current stream of q's device
+    index = (q.device.index if q.device.index is not None
+             else torch.cuda.current_device())
+    return index, torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _ptr(x):
+    return x.data_ptr() if x is not None else None
+
+
 def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
                     scale=None):
     """(out, lse) of masked attention; see the module docstring. A
@@ -106,44 +204,117 @@ def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                q_len=q_len, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
-    B, Tq, H, D = q.shape
-    Tk = k.shape[1]
-    for name, x, t in (("q", q, Tq), ("k", k, Tk), ("v", v, Tk)):
-        if (x.dtype != torch.float32 or x.device != q.device
-                or tuple(x.shape) != (B, t, H, D)
-                or not x.is_contiguous()):
-            raise ValueError(
-                f"flash_attention: {name} must be contiguous f32 "
-                f"[{B},{t},{H},{D}] on {q.device}, got {x.dtype} "
-                f"{tuple(x.shape)} on {x.device}"
-            )
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"flash_attention: head dim {D} not in {SUPPORTED_HEAD_DIMS}"
-        )
+    B, Tq, Tk, H, D = _check_cuda("flash_attention", q,
+                                  {"q": q, "k": k, "v": v})
     kv_len = _check_lens(kv_len, B, "kv_len", q.device)
     q_len = _check_lens(q_len, B, "q_len", q.device)
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    lib = _bind()
+    scale = _scale(scale, D)
+    lib = _bind(KERNEL)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    # the caller's thread may be a serving worker: launch on ITS
-    # current stream of q's device
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(),
-        kv_len.data_ptr() if kv_len is not None else None,
-        q_len.data_ptr() if q_len is not None else None,
-        B, Tq, Tk, H, D, int(bool(causal)), scale,
-        q.device.index if q.device.index is not None
-        else torch.cuda.current_device(),
-        stream,
-    )
-    if rc != 0:
-        msg = lib.flash_attn_error_string(rc).decode()
-        raise RuntimeError(f"flash_attn_fwd launch failed: {msg} ({rc})")
+    _launch(lib, "flash_attn_fwd", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_len),
+            _ptr(q_len), B, Tq, Tk, H, D, int(bool(causal)), scale,
+            *_device_and_stream(q))
     launches += 1
     return out, lse
+
+
+def _check_rows(where, name, x, B, H, Tq, device):
+    if (x.dtype != torch.float32 or tuple(x.shape) != (B, H, Tq)
+            or x.device != device or not x.is_contiguous()):
+        raise ValueError(
+            f"{where}: {name} must be contiguous f32 [{B},{H},{Tq}] on "
+            f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}"
+        )
+
+
+def _bwd_launch_args(where, q, k, v, dout, lse, delta, causal, kv_len,
+                     q_len, scale):
+    """Validate one backward kernel's inputs; returns (lib, lens, dims)
+    where dims are the trailing int/float/stream arguments."""
+    B, Tq, Tk, H, D = _check_cuda(where, q,
+                                  {"q": q, "k": k, "v": v, "dout": dout})
+    _check_rows(where, "lse", lse, B, H, Tq, q.device)
+    _check_rows(where, "delta", delta, B, H, Tq, q.device)
+    kv_len = _check_lens(kv_len, B, "kv_len", q.device)
+    q_len = _check_lens(q_len, B, "q_len", q.device)
+    dims = (B, Tq, Tk, H, D, int(bool(causal)), _scale(scale, D),
+            *_device_and_stream(q))
+    return _bind(BWD_KERNEL), (_ptr(kv_len), _ptr(q_len)), dims
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
+                            kv_len=None, q_len=None, scale=None):
+    """(dk, dv) from the dkv kernel (CUDA tensors only); `delta` is
+    sum_d dout * out, [B, H, Tq]."""
+    global bwd_dkv_launches
+    lib, lens, dims = _bwd_launch_args(
+        "flash_attention_bwd_dkv", q, k, v, dout, lse, delta, causal,
+        kv_len, q_len, scale)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch(lib, "flash_attn_bwd_dkv", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *lens, *dims)
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
+                           kv_len=None, q_len=None, scale=None):
+    """dq from the dq kernel (CUDA tensors only)."""
+    global bwd_dq_launches
+    lib, lens, dims = _bwd_launch_args(
+        "flash_attention_bwd_dq", q, k, v, dout, lse, delta, causal,
+        kv_len, q_len, scale)
+    dq = torch.empty_like(q)
+    _launch(lib, "flash_attn_bwd_dq", q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), *lens, *dims)
+    bwd_dq_launches += 1
+    return dq
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
+                        kv_len=None, q_len=None, scale=None):
+    """(dq, dk, dv) of masked attention from the forward's out and lse;
+    see the module docstring. A CUDA tensor goes through the two
+    Hopper kernels (dkv, then dq), a CPU tensor through
+    attention_bwd_plain."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
+                                   kv_len=kv_len, q_len=q_len, scale=scale)
+    _check_cuda("flash_attention_bwd", q, {"q": q, "out": out, "k": k})
+    # the softmax-jacobian row term, a plain reduction as in the JAX
+    # package (the library computes it outside its kernels too)
+    delta = torch.einsum("bqhd,bqhd->bhq", dout, out).contiguous()
+    kw = dict(causal=causal, kv_len=kv_len, q_len=q_len, scale=scale)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """out = flash attention of (q, k, v), differentiable in q, k, v.
+    The forward saves q, k, v, out and lse; the backward recomputes p
+    from lse (flash_attention_bwd). kv_len / q_len are int32 [B] or
+    None; causal and scale are plain values."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, q_len, causal, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                                   q_len=q_len, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse, kv_len, q_len)
+        ctx.causal = causal
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse, kv_len, q_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
+            kv_len=kv_len, q_len=q_len, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None

@@ -7,10 +7,11 @@ the same masked-attention contract (q, k, v [B, T, H, D], kv_len [B]):
   [B, H, Tq, Tk] scores and masks with an additive NEG_INF, exactly
   as the JAX function does (so a fully-masked row attends uniformly,
   as there).
-- `flash_dense_attention`: flash attention. On the card it is the
-  hand-written Hopper kernel (`ops/flash_attention.py`, replacing the
-  Pallas kernel); on a CPU tensor the kernel's plain version. A row
-  with no visible key yields 0.
+- `flash_dense_attention`: flash attention, forward and backward. On
+  the card they are the hand-written Hopper kernels
+  (`ops/flash_attention.py`, replacing the Pallas kernels); on a CPU
+  tensor the kernels' plain versions. A row with no visible key
+  yields 0 and gets no gradient.
 
 Ring and Ulysses attention (the mesh `seq` axis) come with the
 multi-GPU part of the port.
@@ -51,14 +52,15 @@ def flash_dense_attention(q, k, v, *, causal=False, kv_len=None,
                           q_len=None, scale=None):
     """Flash attention with dense_attention's contract, plus `q_len`
     (query rows at or past it are fully masked and return 0). Never
-    materializes the [B, H, T, T] scores on the card. kv_len and q_len
-    are cast to the int32 the kernel takes."""
+    materializes the [B, H, T, T] scores on the card. Differentiable
+    in q, k and v: the backward is the flash backward (the Hopper dkv
+    and dq kernels on the card). kv_len and q_len are cast to the int32
+    the kernels take."""
     if kv_len is not None:
         kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     if q_len is not None:
         q_len = q_len.to(device=q.device, dtype=torch.int32).contiguous()
-    out, _lse = _fa.flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
-        kv_len=kv_len, q_len=q_len, scale=scale,
+    return _fa.FlashAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), kv_len, q_len,
+        bool(causal), scale,
     )
-    return out

@@ -3,8 +3,9 @@
 - An AST scan proves no file of `paddle_tpu_torch/` (nor
   `chip_smoke.py`) imports `jax`, `jaxlib` or `paddle_tpu`.
 - A subprocess with those import-blocked imports every port module.
-- An entry point called without `device` on a machine without CUDA
-  raises instead of running on the CPU.
+- An entry point (serving and training: params, caches, `Network`
+  init, `TrainStep`, `SGD`) called without `device` on a machine
+  without CUDA raises instead of running on the CPU.
 - `chip_smoke.py` fails without a card and alone in a directory.
 """
 
@@ -19,9 +20,14 @@ import pytest
 import torch
 
 from paddle_tpu_torch.core import device as tdevice
+from paddle_tpu_torch.core.config import OptimizationConf
 from paddle_tpu_torch.decoding.kv_cache import PagedKVCache
 from paddle_tpu_torch.models import lm as tlm
-from paddle_tpu_torch.weights import params_from_numpy
+from paddle_tpu_torch.network import Network
+from paddle_tpu_torch.optimizers import create_optimizer
+from paddle_tpu_torch.parallel.dp import TrainStep
+from paddle_tpu_torch.trainer.trainer import SGD
+from paddle_tpu_torch.weights import opt_state_from_numpy, params_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "paddle_tpu_torch")
@@ -90,17 +96,25 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = tlm.LMSpec(vocab=16, d_model=8, num_heads=2, num_layers=1)
     params = {"w": np.zeros((2, 2), np.float32)}
+    conf = tlm.transformer_lm(spec)
+    net = Network(conf)
+    opt_conf = OptimizationConf(learning_method="adam")
     for call in (
         lambda: tdevice.resolve_device(None),
         lambda: tdevice.resolve_device("cuda"),
         lambda: params_from_numpy(params),
+        lambda: opt_state_from_numpy({"w": params}),
         lambda: tlm.lm_init_params(spec),
         lambda: PagedKVCache(spec, num_pages=4),
+        lambda: net.init_params(torch.Generator()),
+        lambda: TrainStep(net, create_optimizer(opt_conf, net.param_confs)),
+        lambda: SGD(conf, opt_conf, seed=1),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
     assert params_from_numpy(params, device="cpu")["w"].device.type == "cpu"
+    assert SGD(conf, opt_conf, seed=1, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_card_and_without_the_repo(tmp_path):
