@@ -5,7 +5,7 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in seven phases, and any failure exits non-zero:
+`paddle_tpu` — in ten phases, and any failure exits non-zero:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA
    versions; TF32 off;
@@ -47,7 +47,30 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    random walk over the vocabulary); every loss finite, (b) falls to
    at most half its first value, and each flash kernel launched once
    per layer per step;
-7. prints the kernels' JSON line and, last, the device line.
+7. holds the fused BN->ReLU->1x1-conv kernels (B1 forward, B2 and B3
+   backward, `csrc/bn_act_conv1x1.cu`) against their plain PyTorch
+   versions at the nine ResNet-50 site shapes at batch 32 and four
+   ragged shapes, each with act relu or linear and with or without a
+   residual (max |diff| / max |plain| <= 1e-4 for y, ssum, ssq, du,
+   dscale, dshift, dres and dw, with non-zero cotangents of ssum and
+   ssq), then times them at the sites' batch-64 shapes beside the
+   plain versions, the bare GEMM in torch.matmul (a yardstick only)
+   and their bounds;
+8. runs ResNet-50 (224x224x3, 1000 classes, weights from a seed)
+   through `Inferencer` on [8, 224, 224, 3], plain and fused from the
+   same weights and running statistics (advanced by three train-mode
+   forwards): logits within 1e-4 of the largest, 29 B1 launches a
+   fused forward;
+9. trains it through the port's trainer with momentum (lr 0.001,
+   mu 0.9): (a) one fused step against one plain step at B=8 (loss
+   and new BN state within 1e-4; gradients held where no ReLU gate
+   between them and the loss flipped), and the same for the two-block
+   net of the CPU tests, where every gradient is held; (b) 30 fused
+   steps of `SGD.train` on one fixed batch at B=64: every loss
+   finite, the last below the first, 29 launches of each fused kernel
+   a step; then 10 plain steps for their step time; each run profiled
+   for 5 more steps;
+10. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -599,6 +622,428 @@ def train_lm(torch, fa):
     return parity, runs
 
 
+# ---- ResNet-50 and the fused BN->ReLU->1x1-conv kernels (B1-B3) ---------
+
+# the 29 fused sites of a ResNet-50 forward: (name, rows an image, Cin,
+# Cout, act, sites)
+FUSED_SITES = [
+    ("res2a_a", 3136, 64, 64, "", 1),
+    ("res2bc_a", 3136, 256, 64, "", 2),
+    ("res3bcd_a", 784, 512, 128, "", 3),
+    ("res4b-f_a", 196, 1024, 256, "", 5),
+    ("res5bc_a", 49, 2048, 512, "", 2),
+    ("res2_tail", 3136, 64, 256, "relu", 3),
+    ("res3_tail", 784, 128, 512, "relu", 4),
+    ("res4_tail", 196, 256, 1024, "relu", 6),
+    ("res5_tail", 49, 512, 2048, "relu", 3),
+]
+# ragged against the 128-row tile and the 64/128-column tiles
+FUSED_RAGGED = [("n100_24_16", 100, 24, 16), ("n1_24_16", 1, 24, 16),
+                ("n517_70_130", 517, 70, 130), ("n300_200_72", 300, 200, 72)]
+RESNET_OPT = dict(learning_method="momentum", learning_rate=0.001,
+                  momentum=0.9)
+RESNET_STEPS = 30
+
+
+def fused_inputs(torch, gen, n, cin, cout, with_res):
+    """u, scale, shift, w, residual and the cotangents dy, d1, d2 of one
+    case, on the card (the scale of d2 keeps 2*y*d2 near dy's)."""
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    u, scale, shift = rnd(n, cin), rnd(cin), rnd(cin)
+    w = rnd(cin, cout, s=(2.0 / cin) ** 0.5)
+    res = rnd(n, cin) if with_res else None
+    return u, scale, shift, w, res, rnd(n, cout), rnd(cout), rnd(cout, s=0.1)
+
+
+def check_fused(torch, op, name, inputs, act):
+    """The three fused kernels against their plain versions on one
+    case's inputs: max |diff| / max |plain| <= TOL for y, ssum, ssq, du,
+    dscale, dshift, dres and dw. Returns {output: (relative,
+    absolute)}."""
+    u, scale, shift, w, res, dy, d1, d2 = inputs
+    got = op.bn_act_conv1x1_fwd(u, scale, shift, w, res, act)
+    ref = op.bn_act_conv1x1_plain(u, scale, shift, w, res, act)
+    y = ref[0]
+    got += op.bn_act_conv1x1_bwd_dx(u, scale, shift, w, res, y, dy, d1, d2,
+                                    act)
+    ref += op.bn_act_conv1x1_bwd_dx_plain(u, scale, shift, w, res, y, dy, d1,
+                                          d2, act)
+    got += (op.bn_act_conv1x1_bwd_dw(u, scale, shift, res, y, dy, d1, d2,
+                                     act),)
+    ref += (op.bn_act_conv1x1_bwd_dw_plain(u, scale, shift, res, y, dy, d1,
+                                           d2, act),)
+    torch.cuda.synchronize()
+    errs = {}
+    for out, g, r in zip(("y", "ssum", "ssq", "du", "dscale", "dshift",
+                          "dres", "dw"), got, ref):
+        if r is None:
+            assert g is None, f"{name}: {out} should be None"
+            continue
+        assert torch.isfinite(g).all().item(), f"{name}: {out} not finite"
+        errs[out] = rel_err(g, r)
+        assert errs[out][0] <= TOL, (
+            f"{name} act={act!r} res={res is not None}: kernel vs plain "
+            f"{out} relative error {errs[out][0]:.3g} > {TOL}")
+    return errs
+
+
+def time_fused(torch, op, site, batch, gen):
+    """Kernel, plain, GEMM-alone (torch.matmul, f32, TF32 off: a
+    yardstick the port never calls) and bound ms of B1, B2 and B3 at one
+    site of the path (act as the layers call it, no residual)."""
+    name, rows, cin, cout, act, count = site
+    n = rows * batch
+    inputs = fused_inputs(torch, gen, n, cin, cout, False)
+    errs = check_fused(torch, op, f"{name}_b{batch}", inputs, act)
+    u, scale, shift, w, _res, dy, d1, d2 = inputs
+    y = op.bn_act_conv1x1_plain(u, scale, shift, w, None, act)[0]
+    z = u * scale + shift
+    if act == "relu":
+        z = torch.clamp_min(z, 0.0)
+    f32 = 4
+    flops = 2 * n * cin * cout
+
+    def bound(nbytes):
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    nu, ny, nw = n * cin * f32, n * cout * f32, cin * cout * f32
+    vin, vout = 2 * cin * f32, 2 * cout * f32
+    kern = {
+        # u, scale, shift, w read; y, ssum, ssq written
+        "fwd": (lambda: op.bn_act_conv1x1_fwd(u, scale, shift, w, None, act),
+                lambda: op.bn_act_conv1x1_plain(u, scale, shift, w, None,
+                                                act),
+                lambda: torch.matmul(z, w), bound(nu + vin + nw + ny + vout)),
+        # u, scale, shift, w, y, dy, d1, d2 read; du, dscale, dshift
+        # written
+        "bwd_dx": (lambda: op.bn_act_conv1x1_bwd_dx(
+            u, scale, shift, w, None, y, dy, d1, d2, act),
+            lambda: op.bn_act_conv1x1_bwd_dx_plain(
+                u, scale, shift, w, None, y, dy, d1, d2, act),
+            lambda: torch.matmul(dy, w.t()),
+            bound(nu + vin + nw + 2 * ny + vout + nu + vin)),
+        # u, scale, shift, y, dy, d1, d2 read; dw written
+        "bwd_dw": (lambda: op.bn_act_conv1x1_bwd_dw(
+            u, scale, shift, None, y, dy, d1, d2, act),
+            lambda: op.bn_act_conv1x1_bwd_dw_plain(
+                u, scale, shift, None, y, dy, d1, d2, act),
+            lambda: torch.matmul(z.t(), dy),
+            bound(nu + vin + 2 * ny + vout + nw)),
+    }
+    res = {"site": name, "n": n, "cin": cin, "cout": cout, "act": act,
+           "sites": count, "flops": flops,
+           "max_abs_err": max(e[1] for e in errs.values())}
+    for k, (kfn, pfn, lfn, (b_ms, b_by)) in kern.items():
+        res[k] = {"ms": time_ms(torch, kfn), "plain_ms": time_ms(torch, pfn),
+                  "library_ms": time_ms(torch, lfn), "bound_ms": b_ms,
+                  "bound_by": b_by}
+    print("fused timing " + json.dumps(res), flush=True)
+    return res
+
+
+def fused_kernels(torch, op):
+    """Phase 7: every site shape at batch 32 and the ragged shapes, each
+    with act in {relu, ""} x residual in {none, given}; then times at
+    the training shapes (batch 64). Returns (max abs error per kernel,
+    timings)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    worst = {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0}
+    which = {"y": "fwd", "ssum": "fwd", "ssq": "fwd", "du": "bwd_dx",
+             "dscale": "bwd_dx", "dshift": "bwd_dx", "dres": "bwd_dx",
+             "dw": "bwd_dw"}
+    cases = [(f"{s[0]}_b32", s[1] * 32, s[2], s[3]) for s in FUSED_SITES]
+    cases += FUSED_RAGGED
+    n_checked = 0
+    for name, n, cin, cout in cases:
+        rels = {}
+        for act in ("relu", ""):
+            for with_res in (False, True):
+                errs = check_fused(torch, op, name, fused_inputs(
+                    torch, gen, n, cin, cout, with_res), act)
+                n_checked += 1
+                for out, (rel, ab) in errs.items():
+                    worst[which[out]] = max(worst[which[out]], ab)
+                    rels[out] = max(rels.get(out, 0.0), rel)
+        print(f"fused {name} N={n} {cin}->{cout}: max relative error "
+              + json.dumps(rels), flush=True)
+    print(f"fused kernels equal their plain versions in {n_checked} cases",
+          flush=True)
+    timings = [time_fused(torch, op, site, 64, gen) for site in FUSED_SITES]
+    per_step = {k: {m: sum(t["sites"] * t[k][m] for t in timings)
+                    for m in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for k in ("fwd", "bwd_dx", "bwd_dw")}
+    print("fused kernels, sum over the 29 sites of one step at batch 64 "
+          "(ms) " + json.dumps(per_step), flush=True)
+    return worst, timings
+
+
+def image_feed(batch, seed):
+    """bench.py::_image_feed on the card: N(0, 1) images, random labels."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+
+    rng = np.random.default_rng(seed)
+    image = rng.standard_normal((batch, 224, 224, 3)).astype(np.float32)
+    label = rng.integers(0, 1000, batch).astype(np.int32)
+    return {"image": non_seq(image, device="cuda"),
+            "label": id_arg(label, device="cuda")}
+
+
+def resnet_nets(torch):
+    """The plain and fused ResNet-50 networks, the plain weights from a
+    seed, and the plain state advanced by three train-mode forwards (so
+    the running statistics are not their initial values)."""
+    from paddle_tpu_torch.models.image import resnet
+    from paddle_tpu_torch.network import Network
+
+    plain = Network(resnet(50, (224, 224, 3), 1000, fused=False))
+    fused = Network(resnet(50, (224, 224, 3), 1000, fused=True))
+    params = plain.init_params(torch.Generator().manual_seed(SEED),
+                               device="cuda")
+    state = plain.init_state("cuda")
+    with torch.no_grad():
+        for i in range(3):
+            feed = image_feed(8, SEED + 10 + i)
+            _o, state = plain.forward(params, feed, state=state, train=True,
+                                      outputs=["output"])
+    return plain, fused, params, state
+
+
+def resnet_infer(torch, op, plain, fused, params, state):
+    """Phase 8: the [8, 224, 224, 3] forward of __graft_entry__.entry()
+    through Inferencer, plain and fused from mapped weights and state;
+    logits within TOL of the largest, 29 B1 launches a fused forward."""
+    from paddle_tpu_torch.trainer.trainer import Inferencer
+    from paddle_tpu_torch.weights import fused_resnet_from_plain
+
+    fparams, fstate = fused_resnet_from_plain(fused, params, state)
+    feed = {"image": image_feed(8, SEED + 20)["image"]}
+    out = {}
+    for name, net, p, st in (("plain", plain, params, state),
+                             ("fused", fused, fparams, fstate)):
+        inf = Inferencer(net, p, st, outputs=["output"], device="cuda")
+        inf.infer(feed)                       # warm: cuDNN picks its algos
+        torch.cuda.synchronize()
+        op.fwd_launches = 0
+        t0 = time.perf_counter()
+        logits = inf.infer(feed)["output"]
+        ms = (time.perf_counter() - t0) * 1e3
+        out[name] = (logits, ms, op.fwd_launches)
+    (lp, ms_p, _), (lf, ms_f, launches) = out["plain"], out["fused"]
+    rel = float(np.abs(lf - lp).max() / np.abs(lp).max())
+    r = {"shape": list(lp.shape), "finite": bool(np.isfinite(lf).all()),
+         "logits_rel": rel, "plain_ms": ms_p, "fused_ms": ms_f,
+         "fused_images_per_s": 8 / (ms_f / 1e3), "b1_launches": launches}
+    print("resnet50 inference " + json.dumps(r), flush=True)
+    assert r["shape"] == [8, 1000] and r["finite"]
+    assert rel <= TOL, f"fused and plain logits differ by {rel:.3g}"
+    assert launches == 29, f"{launches} B1 launches in a fused forward"
+    return r
+
+
+def relu_gates(torch, plain, fused, params, fparams, state, fstate, feed):
+    """ReLU gate flips between the two graphs on one train-mode forward,
+    per gate site of the fused graph: {fused layer: flips}. The tail's
+    in-gate is recomputed from its input as the layer computes it."""
+    from paddle_tpu_torch.layers.fused import bn_affine, in_moments
+
+    with torch.no_grad():
+        po, _ = plain.forward(params, feed, state=state, train=True)
+        fo, _ = fused.forward(fparams, feed, state=fstate, train=True)
+        flips = {}
+        for name in fused.order:
+            lc = fused.conf.layer(name)
+            if lc.type == "batch_norm" and lc.active_type == "relu":
+                pairs = [(fo[name].value, po[name].value)]
+            elif lc.type == "fused_conv1x1_bn":
+                pairs = [(fo[name].value, po[f"{name}_bn"].value)]
+            elif lc.type == "fused_bottleneck_tail":
+                blk = name[:-len("_tail")]
+                x = fo[lc.input_names()[0]].value
+                g = fparams[f"_{name}.bnig"], fparams[f"_{name}.bnib"]
+                scale, shift = bn_affine(*g, *in_moments(x), 1e-5)
+                pairs = [(fo[name].value, po[f"{blk}_add"].value),
+                         (x * scale + shift, po[f"{blk}_b_bn"].value)]
+            else:
+                continue
+            flips[name] = sum(int(((a > 0) != (b > 0)).sum().item())
+                              for a, b in pairs)
+    return flips
+
+
+def held_step(torch, plain, fused, params, state, feed, name):
+    """One momentum TrainStep of the fused graph against the plain graph
+    from mapped weights and state: loss, the new BN state and every
+    gradient (from the new momentum, -lr * grad) within TOL of the
+    largest entry. A flipped ReLU gate moves every gradient below it
+    (PR 2's lesson), so a gradient is held only when its layer comes
+    after every gate that flipped."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+    from paddle_tpu_torch.weights import fused_resnet_from_plain, \
+        fused_resnet_map
+
+    fparams, fstate = fused_resnet_from_plain(fused, params, state)
+    pmap, smap = fused_resnet_map(fused)
+    got = {}
+    for arm, net, p, st in (("plain", plain, params, state),
+                            ("fused", fused, fparams, fstate)):
+        opt = create_optimizer(OptimizationConf(**RESNET_OPT),
+                               net.param_confs)
+        step = TrainStep(net, opt, watchdog=True, device="cuda")
+        _p, mom, new_state, health, _o = step(p, opt.init_state(p), st, feed,
+                                              0, None)
+        got[arm] = (health, mom, new_state)
+    (hp, mp, sp), (hf, mf, sf) = got["plain"], got["fused"]
+    loss_rel = abs(hf[0].item() - hp[0].item()) / abs(hp[0].item())
+    flips = relu_gates(torch, plain, fused, params, fparams, state, fstate,
+                       feed)
+    index = {n: i for i, n in enumerate(fused.order)}
+    highest_flip = max((index[n] for n, f in flips.items() if f),
+                       default=-1)
+    owner = {g: layer for layer, slots in fused.layer_params.items()
+             for g in slots.values()}
+    held, free = {}, {}
+    for k, src in pmap.items():
+        e = rel_err(mf[k]["mom"].reshape(mp[src]["mom"].shape),
+                    mp[src]["mom"])[0]
+        (held if index[owner[k]] > highest_flip else free)[k] = e
+    state_rel = max(rel_err(sf[layer][s], sp[pl][ps])[0]
+                    for layer, slots in smap.items()
+                    for s, (pl, ps) in slots.items())
+    r = {"loss_plain": hp[0].item(), "loss_fused": hf[0].item(),
+         "loss_rel": loss_rel, "finite": bool(hp[1].item() and hf[1].item()),
+         "relu_gate_flips": sum(flips.values()),
+         "flips_by_site": {n: f for n, f in flips.items() if f},
+         "grads_held": len(held), "grads_total": len(pmap),
+         "grad_rel_held_max": max(held.values(), default=0.0),
+         "grad_rel_unheld_max": max(free.values(), default=0.0),
+         "state_rel_max": state_rel}
+    print(f"fused vs plain train step {name} " + json.dumps(r), flush=True)
+    assert r["finite"] and loss_rel <= TOL, f"{name}: losses disagree: {r}"
+    assert state_rel <= TOL, f"{name}: the new BN state disagrees: {r}"
+    assert r["grad_rel_held_max"] <= TOL, f"{name}: gradients disagree: {r}"
+    return r
+
+
+def tiny_resnet(fused):
+    """test_layers_extras.py::TestFusedBottleneck's two-block net: few
+    enough ReLU gates that none flips, so every gradient is held."""
+    from paddle_tpu_torch import dsl
+    from paddle_tpu_torch.models.image import _bottleneck
+    from paddle_tpu_torch.network import Network
+
+    with dsl.model() as g:
+        img = dsl.data("image", (8, 8, 16))
+        lbl = dsl.data("label", (1,), is_ids=True)
+        h = _bottleneck("blk_a", img, 4, 1, project=True, fused=fused)
+        h = _bottleneck("blk_b", h, 4, 1, project=False, fused=fused)
+        h = dsl.pool(h, 8, 1, pool_type="avg")
+        out = dsl.fc(h, size=3, name="output", act="softmax")
+        dsl.classification_cost(out, lbl, name="cost")
+    return Network(g.conf)
+
+
+def resnet_train(torch, op, conf, batch, steps, name):
+    """Phase 9(b): SGD.train (momentum 0.001 / 0.9) on one fixed batch;
+    returns the run's numbers (launch counts read just after)."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.trainer.events import EndIteration
+    from paddle_tpu_torch.trainer.trainer import SGD
+
+    sgd = SGD(conf, OptimizationConf(**RESNET_OPT), seed=SEED + 1,
+              device="cuda")
+    feed = image_feed(batch, SEED + 40)
+    stamps, costs = [], []
+
+    def on_event(e):
+        if isinstance(e, EndIteration):
+            costs.append(e.cost)          # fetched: the step is done
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    op.fwd_launches = op.bwd_dx_launches = op.bwd_dw_launches = 0
+    t0 = time.perf_counter()
+    sgd.train(reader=lambda: iter([feed] * steps), feeder=lambda b: b,
+              num_passes=1, event_handler=on_event)
+    torch.cuda.synchronize()
+    counts = (op.fwd_launches, op.bwd_dx_launches, op.bwd_dw_launches)
+    steady = float(np.median(np.diff(stamps))) * 1e3
+    r = {"steps": steps, "batch": batch, "wall_s": time.perf_counter() - t0,
+         "ms_first_step": (stamps[0] - t0) * 1e3,
+         "ms_per_step_median": steady,
+         "images_per_s": batch / (steady / 1e3),
+         "loss_first": costs[0], "loss_last": costs[-1],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "launches_fwd": counts[0], "launches_bwd_dx": counts[1],
+         "launches_bwd_dw": counts[2]}
+    print(f"train {name} " + json.dumps(r), flush=True)
+    assert np.isfinite(costs).all(), f"{name}: a loss is not finite"
+    prof = profile_steps(torch, sgd, feed)
+    if prof is not None:
+        prof["idle_share"] = 1 - prof["device_ms_per_step"] / steady
+    print(f"profile {name} " + json.dumps(prof), flush=True)
+    r["profile"] = prof
+    return r
+
+
+def resnet_training(torch, op, plain, fused, params, state):
+    """Phase 9: (a) the held step: ResNet-50 at B=8, and the two-block
+    net of the CPU tests, where every gradient is held; (b) 30 steps of
+    the fused graph at B=64 (and 10 of the plain graph, for its step
+    time)."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+
+    held = held_step(torch, plain, fused, params, state,
+                     image_feed(8, SEED + 30), "resnet50_b8")
+    tp, tf = tiny_resnet(False), tiny_resnet(True)
+    rng = np.random.default_rng(SEED + 31)
+    tiny = held_step(
+        torch, tp, tf,
+        tp.init_params(torch.Generator().manual_seed(SEED), device="cuda"),
+        tp.init_state("cuda"),
+        {"image": non_seq(rng.standard_normal((4, 8, 8, 16)).astype(
+            np.float32), device="cuda"),
+         "label": id_arg(rng.integers(0, 3, 4).astype(np.int32),
+                         device="cuda")}, "two_blocks_b4")
+    assert tiny["relu_gate_flips"] == 0 and (
+        tiny["grads_held"] == tiny["grads_total"]), (
+        "the two-block held step needs a feed whose ReLU gates agree")
+    b = resnet_train(torch, op, fused.conf, 64, RESNET_STEPS,
+                     "resnet50_fused_b64")
+    assert b["loss_last"] < b["loss_first"], (
+        f"loss rose from {b['loss_first']:.4g} to {b['loss_last']:.4g}")
+    want = 29 * RESNET_STEPS
+    got = (b["launches_fwd"], b["launches_bwd_dx"], b["launches_bwd_dw"])
+    assert got == (want, want, want), (
+        f"launches {got}, want {want} of each fused kernel")
+    p = resnet_train(torch, op, plain.conf, 64, 10, "resnet50_plain_b64")
+    assert p["launches_fwd"] == 0
+    return (held, tiny), b, p
+
+
+def ptxas_report(log):
+    """One line a kernel of an nvcc -Xptxas -v log: its name, registers,
+    shared memory and spills."""
+    import re
+
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                    if k else m.group(1))
+        elif name and ("registers" in line or "spill" in line):
+            print(f"ptxas {name}: {line.split(':')[-1].strip()}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -608,6 +1053,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.core.device import resolve_device
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import bn_act_conv1x1 as fop
     from paddle_tpu_torch.ops import flash_attention as fa
 
     phase("1. card")
@@ -686,7 +1132,19 @@ def main() -> int:
     _parity, runs = train_lm(torch, fa)
     train_fwd = sum(r["launches_fwd"] for r in runs.values())
 
-    phase("7. result")
+    phase("7. fused BN-ReLU-1x1 kernels vs plain version")
+    ptxas_report(_build.build_log(fop.KERNEL))
+    fused_err, fused_times = fused_kernels(torch, fop)
+
+    phase("8. ResNet-50 inference through Inferencer")
+    plain, fused, rparams, rstate = resnet_nets(torch)
+    infer = resnet_infer(torch, fop, plain, fused, rparams, rstate)
+
+    phase("9. ResNet-50 training through SGD")
+    _held, train_b, _train_plain = resnet_training(torch, fop, plain, fused,
+                                                   rparams, rstate)
+
+    phase("10. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -709,6 +1167,21 @@ def main() -> int:
             "library_ms": train["library_ms"],
         }
 
+    # the fused kernels' numbers at the res2 tail site at batch 64 (the
+    # largest N of the training path)
+    tail = next(t for t in fused_times if t["site"] == "res2_tail")
+
+    def fused_row(kernel, tpu_line, launched):
+        return {
+            "name": f"bn_act_conv1x1_{kernel}",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/bn_act_conv1x1.cu",
+            "replaces": f"paddle_tpu/ops/pallas_fused.py:{tpu_line}",
+            "launches": launched,
+            "max_abs_err": fused_err[kernel],
+            **tail[kernel],
+        }
+
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -722,7 +1195,10 @@ def main() -> int:
         "bound_ms": served["bound_ms"],
         "bound_by": served["bound_by"],
         "library_ms": served["library_ms"],
-    }, bwd_row("dkv", ("dk", "dv")), bwd_row("dq", ("dq",))]}),
+    }, bwd_row("dkv", ("dk", "dv")), bwd_row("dq", ("dq",)),
+        fused_row("fwd", 71, infer["b1_launches"] + train_b["launches_fwd"]),
+        fused_row("bwd_dx", 155, train_b["launches_bwd_dx"]),
+        fused_row("bwd_dw", 203, train_b["launches_bwd_dw"])]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

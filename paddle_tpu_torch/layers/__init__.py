@@ -5,5 +5,9 @@ from paddle_tpu_torch.layers import (  # noqa: F401
     attention,
     base,
     basic,
+    conv,
     cost,
+    fused,
+    norm,
+    pool,
 )

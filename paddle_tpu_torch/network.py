@@ -7,6 +7,10 @@ that order for the forward. There is no hand-written backward walk:
 Parameters are a flat {global name: tensor} dict, the JAX package's
 names, so one numpy dict feeds both packages (`weights.py`).
 
+Layer state (BatchNorm's running statistics) is a {layer: {slot:
+tensor}} dict beside the parameters: `init_state` makes it on a device,
+`forward` returns the new one, and it is never differentiated.
+
 Left out, still to port: the mixed-precision cast rule (the
 `matmul_precision` flag asking for bf16 raises here), per-layer
 `out_sharding` placement, and extra outputs of layer groups.
@@ -118,8 +122,12 @@ class Network:
             for name in sorted(self.param_confs)
         }
 
-    def init_state(self) -> dict:
-        return {name: layer.init_state()
+    def init_state(self, device=None) -> dict:
+        """{stateful layer: {slot: tensor on `device`}} — BatchNorm's
+        running mean and variance, resolved as `init_params` resolves
+        its device."""
+        dev = resolve_device(device)
+        return {name: layer.init_state(dev)
                 for name, layer in self._stateful.items()}
 
     def _layer_param_view(self, name: str, params: dict) -> dict:
@@ -147,7 +155,10 @@ class Network:
                 "matmul_precision flag to 'default')"
             )
         if state is None:
-            state = self.init_state()
+            # a stateful layer has parameters: its state starts on their
+            # device
+            state = (self.init_state(next(iter(params.values())).device)
+                     if self._stateful else {})
         ctx = Ctx(train=train, rng=rng, state=state)
         outs: dict[str, Arg] = {}
         if outputs is not None:

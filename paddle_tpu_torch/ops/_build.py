@@ -8,7 +8,9 @@ the source and the flags: a changed source builds anew, an unchanged
 one loads what is there. A failed build raises with nvcc's output.
 
 `build_all()` starts one nvcc per source, all at once, and waits for
-them — what a cold process (the chip smoke) calls first.
+them — what a cold process (the chip smoke) calls first. `launch`,
+`device_and_stream` and `ptr` are what every kernel wrapper passes to
+and checks from a C entry point.
 """
 
 from __future__ import annotations
@@ -135,3 +137,29 @@ def build_log(name: str) -> str:
         return ""
     with open(log) as f:
         return f.read()
+
+
+def launch(lib, fn: str, error_fn: str, *args) -> None:
+    """Call C entry point `fn` of `lib`, which returns the launch's
+    cudaError_t, and raise with `error_fn`'s text when it is not 0 (a
+    refused launch never runs, and no later synchronize reports it)."""
+    rc = getattr(lib, fn)(*args)
+    if rc != 0:
+        msg = getattr(lib, error_fn)(rc).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
+
+
+def device_and_stream(x) -> tuple:
+    """(device index, current stream handle) of tensor x's CUDA device:
+    the caller's thread may be a serving worker, so the kernel goes on
+    ITS current stream."""
+    import torch
+
+    index = (x.device.index if x.device.index is not None
+             else torch.cuda.current_device())
+    return index, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def ptr(x):
+    """x's data pointer, or None (a null pointer) for an absent tensor."""
+    return x.data_ptr() if x is not None else None

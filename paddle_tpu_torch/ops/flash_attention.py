@@ -177,22 +177,7 @@ def _check_cuda(where, q, tensors):
 
 
 def _launch(lib, fn, *args):
-    rc = getattr(lib, fn)(*args)
-    if rc != 0:
-        msg = lib.flash_attn_error_string(rc).decode()
-        raise RuntimeError(f"{fn} launch failed: {msg} ({rc})")
-
-
-def _device_and_stream(q):
-    # the caller's thread may be a serving worker: launch on ITS
-    # current stream of q's device
-    index = (q.device.index if q.device.index is not None
-             else torch.cuda.current_device())
-    return index, torch.cuda.current_stream(q.device).cuda_stream
-
-
-def _ptr(x):
-    return x.data_ptr() if x is not None else None
+    _build.launch(lib, fn, "flash_attn_error_string", *args)
 
 
 def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
@@ -213,9 +198,9 @@ def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch(lib, "flash_attn_fwd", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), _ptr(kv_len),
-            _ptr(q_len), B, Tq, Tk, H, D, int(bool(causal)), scale,
-            *_device_and_stream(q))
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            _build.ptr(kv_len), _build.ptr(q_len), B, Tq, Tk, H, D,
+            int(bool(causal)), scale, *_build.device_and_stream(q))
     launches += 1
     return out, lse
 
@@ -240,8 +225,8 @@ def _bwd_launch_args(where, q, k, v, dout, lse, delta, causal, kv_len,
     kv_len = _check_lens(kv_len, B, "kv_len", q.device)
     q_len = _check_lens(q_len, B, "q_len", q.device)
     dims = (B, Tq, Tk, H, D, int(bool(causal)), _scale(scale, D),
-            *_device_and_stream(q))
-    return _bind(BWD_KERNEL), (_ptr(kv_len), _ptr(q_len)), dims
+            *_build.device_and_stream(q))
+    return _bind(BWD_KERNEL), (_build.ptr(kv_len), _build.ptr(q_len)), dims
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,

@@ -22,6 +22,15 @@ import torch
 from paddle_tpu_torch.core.device import resolve_device
 
 
+def _tree_map(fn, tree, *others):
+    """fn over the tensor leaves of nested dicts (others: the same
+    nesting)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
+
+
 class TrainStep:
     """Forward + grad + optimizer update, on the device of `device`.
     Call with (params, opt_state, state, feed, step_i, rng, lr_scale);
@@ -55,6 +64,10 @@ class TrainStep:
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, got)}
         loss = loss.detach()
+        # layer state is never differentiated (the JAX step carries it
+        # as aux): a running mean kept attached would chain autograd
+        # nodes from step to step
+        new_state = _tree_map(torch.Tensor.detach, new_state)
         new_params, new_opt_state = self.opt.update(
             grads, params, opt_state, step_i,
             lr_scale=None if lr_scale is None else float(lr_scale),
@@ -76,7 +89,9 @@ class TrainStep:
                     for slot, t in new_opt_state[k].items()}
                 for k in names
             }
-            new_state = {k: keep(new_state[k], state[k]) if k in state
-                         else new_state[k] for k in new_state}
+            # a layer's state is a dict of slots ({"mean", "var"}): keep
+            # each slot, as the JAX step's tree_map does
+            new_state = {k: _tree_map(keep, new_state[k], state[k])
+                         if k in state else new_state[k] for k in new_state}
             health = torch.stack([loss.float(), finite.float()])
         return new_params, new_opt_state, new_state, health, outs

@@ -13,10 +13,14 @@ batch whose loss or any gradient is non-finite is skipped on the
 device (`parallel/dp.py::TrainStep`): the model and optimizer state
 keep their old values and the batch's cost stays out of the pass mean.
 
+`Inferencer(net, params, state)` runs the forward in test mode (layer
+state read, never advanced) and returns numpy outputs.
+
 Left out, still to port (ROADMAP A7; the mesh A8): evaluators,
 multi-step dispatch, checkpoints (sync and async), resume and
 preemption, the watchdog's escalation ladder beyond the skip (LR
-backoff, rollback, abort), the step timeline and spans, and `test()`.
+backoff, rollback, abort), the step timeline and spans, `test()`, and
+`Inferencer.from_merged` (it reads merged checkpoints).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import logging
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.core import rng as _rng
@@ -72,7 +77,7 @@ class SGD:
                            for k, v in params.items()}
         else:
             self.params = self.net.init_params(init_gen, self.device)
-        self.state = self.net.init_state()
+        self.state = self.net.init_state(self.device)
         self.opt_state = self.opt.init_state(self.params)
         self.step_fn = TrainStep(self.net, self.opt,
                                  watchdog=bool(watchdog), device=self.device)
@@ -133,3 +138,33 @@ class SGD:
                         if costs else float("nan"),
                     )
             event_handler(EndPass(pass_id, {}))
+
+
+class Inferencer:
+    """Inference runner: `paddle_tpu/trainer/trainer.py::Inferencer` on
+    one device. `params` and `state` ({name: tensor}, {layer: {slot:
+    tensor}}) are moved to the device; `state` defaults to the
+    network's initial state. `infer(feed)` runs the forward with
+    train=False under no_grad, pruned to `outputs` (default the
+    network's), and returns {name: numpy array}."""
+
+    def __init__(self, net: Network, params: dict, state=None, outputs=None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.net = net
+        self.params = {k: v.detach().to(self.device)
+                       for k, v in params.items()}
+        self.state = ({k: {s: t.to(self.device) for s, t in slots.items()}
+                       for k, slots in state.items()}
+                      if state is not None else net.init_state(self.device))
+        self.output_names = list(outputs or net.output_names)
+
+    def infer(self, feed: dict) -> dict:
+        feed = {k: a.to(self.device) for k, a in feed.items()}
+        with torch.no_grad():
+            outs, _ = self.net.forward(self.params, feed, state=self.state,
+                                       train=False,
+                                       outputs=self.output_names)
+        return {n: (outs[n].value if outs[n].value is not None
+                    else outs[n].ids).cpu().numpy()
+                for n in self.output_names}

@@ -42,3 +42,64 @@ def opt_state_from_numpy(np_state: dict, device=None) -> dict:
 def opt_state_to_numpy(state: dict) -> dict:
     """{param name: {slot: tensor}} -> numpy on the host."""
     return {name: params_to_numpy(slots) for name, slots in state.items()}
+
+
+def state_from_numpy(np_state: dict, device=None) -> dict:
+    """{layer: {slot: array-like}} -> the same nesting of tensors on
+    `device` — a network's layer state (`Network.init_state`'s shape:
+    BatchNorm's running mean and var), e.g. the JAX package's, carried
+    across bit for bit."""
+    return opt_state_from_numpy(np_state, device=device)
+
+
+def state_to_numpy(state: dict) -> dict:
+    """{layer: {slot: tensor}} -> numpy on the host."""
+    return opt_state_to_numpy(state)
+
+
+def fused_resnet_map(fused_net) -> tuple:
+    """Where each parameter and state slot of a fused ResNet graph
+    (`models/image.py::resnet(fused=True)`) lives in the plain graph of
+    the same depth: ({fused param: plain param}, {fused layer: {slot:
+    (plain layer, slot)}}). `_bottleneck` names the plain chain a block
+    replaces: `fused_conv1x1_bn` X = conv X + batch_norm X_bn;
+    `fused_bottleneck_tail` B_tail = batch_norm B_b_bn (in) + conv B_c +
+    batch_norm B_c_bn (out). Everything else keeps its name."""
+    bn = ("mean", "var")
+    pmap, smap = {}, {}
+    for name, layer in fused_net.layers.items():
+        slots = fused_net.layer_params[name]
+        kind = fused_net.conf.layer(name).type
+        if kind == "fused_conv1x1_bn":
+            src = {"w0": f"_{name}.w0", "g": f"_{name}_bn.w0",
+                   "b": f"_{name}_bn.wbias"}
+            smap[name] = {s: (f"{name}_bn", s) for s in bn}
+        elif kind == "fused_bottleneck_tail":
+            blk = name[:-len("_tail")]
+            src = {"w0": f"_{blk}_c.w0", "gi": f"_{blk}_b_bn.w0",
+                   "bi": f"_{blk}_b_bn.wbias", "go": f"_{blk}_c_bn.w0",
+                   "bo": f"_{blk}_c_bn.wbias"}
+            smap[name] = {f"{io}_{s}": (f"{blk}_{c}_bn", s)
+                          for io, c in (("in", "b"), ("out", "c"))
+                          for s in bn}
+        else:
+            src = dict(slots)
+            if hasattr(layer, "init_state"):
+                smap[name] = {s: (name, s) for s in bn}
+        for slot, g in slots.items():
+            pmap[g] = src[slot]
+    return pmap, smap
+
+
+def fused_resnet_from_plain(fused_net, params: dict, state=None) -> tuple:
+    """(params, state) of a fused ResNet graph from the plain graph's
+    (tensors or numpy arrays; see `fused_resnet_map`). A plain 1x1 conv
+    weight [1, 1, Cin, Cout] becomes the fused [Cin, Cout]."""
+    pmap, smap = fused_resnet_map(fused_net)
+    new_params = {k: params[src].reshape(fused_net.param_confs[k].dims)
+                  for k, src in pmap.items()}
+    if state is None:
+        return new_params, None
+    return new_params, {layer: {s: state[pl][ps]
+                                for s, (pl, ps) in slots.items()}
+                        for layer, slots in smap.items()}

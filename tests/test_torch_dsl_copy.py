@@ -3,8 +3,9 @@
 The port imports nothing of `paddle_tpu`, so it keeps its own copy of
 the DSL, the config IR, the registries and the trainer events. Each
 copy must equal the original's text with the package name rewritten
-(`paddle_tpu.` -> `paddle_tpu_torch.`), and the DSL must build the
-same ModelConf in both packages.
+(`paddle_tpu.` -> `paddle_tpu_torch.`, `from paddle_tpu import` ->
+`from paddle_tpu_torch import`), and the DSL must build the same
+ModelConf in both packages.
 """
 
 import dataclasses
@@ -19,7 +20,7 @@ from paddle_tpu_torch.models import lm as tlm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["core/config.py", "dsl.py", "core/registry.py",
-          "trainer/events.py"]
+          "trainer/events.py", "models/image.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -28,7 +29,8 @@ def test_copy_equals_original_with_package_renamed(rel):
         original = f.read()
     with open(os.path.join(REPO, "paddle_tpu_torch", rel)) as f:
         copy = f.read()
-    assert copy == original.replace("paddle_tpu.", "paddle_tpu_torch.")
+    assert copy == original.replace("paddle_tpu.", "paddle_tpu_torch.").replace(
+        "from paddle_tpu import", "from paddle_tpu_torch import")
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])
@@ -49,9 +51,11 @@ def test_port_has_its_own_registries():
     for name in ("LAYERS", "ACTIVATIONS", "OPTIMIZERS", "LR_SCHEDULERS"):
         assert getattr(tregistry, name) is not getattr(jregistry, name)
     assert tregistry.LAYERS.names() == sorted([
-        "addto", "attention", "classification_cost", "cross_entropy",
-        "data", "embedding", "fc", "mse", "multi-class-cross-entropy",
-        "multi_head_attention", "softmax_with_cross_entropy",
+        "addto", "attention", "batch_norm", "classification_cost", "conv",
+        "cross_entropy", "cudnn_batch_norm", "cudnn_conv", "cudnn_pool",
+        "data", "embedding", "exconv", "fc", "fused_bottleneck_tail",
+        "fused_conv1x1_bn", "mse", "multi-class-cross-entropy",
+        "multi_head_attention", "pool", "softmax_with_cross_entropy",
         "square_error", "sum_of_squares"])
     assert tregistry.OPTIMIZERS.names() == ["adam", "momentum", "sgd"]
     assert tregistry.LR_SCHEDULERS.names() == jregistry.LR_SCHEDULERS.names()

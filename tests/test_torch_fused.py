@@ -1,0 +1,255 @@
+"""The port's fused BN->ReLU->1x1-conv op against the JAX package's.
+
+The same numpy u, scale, shift, w and residual (a numpy seed) go
+through `paddle_tpu/ops/pallas_fused.py::bn_act_conv1x1` (its Pallas
+kernels in interpret mode on the CPU, as
+`test_pallas_kernels.py::TestFusedBnActConv` runs them) and through the
+port's `ops/bn_act_conv1x1`: the plain forward, and the autograd
+Function whose backward on a CPU tensor is the plain B2 and B3. f32
+against f32 on the CPU: every output within 1e-5 of the JAX value,
+relative to the output's largest entry (the summation orders differ).
+
+Cases: act in {relu, ""} x residual in {none, given}; N = 100 (the JAX
+test's shape, ragged against any tile), N = 1; shift > 0, where a
+padded row would leak relu(shift) into the statistics; gradients of
+u, scale, shift, w and residual under the JAX test's loss, which
+weights y, ssum and ssq.
+
+`TestOnCard` (marked `cuda`) holds the three Hopper kernels against
+their plain versions on the card and shows that one autograd step
+launches each once. It skips here; on a machine with an H100 and no
+JAX: `python -m pytest --noconftest -m cuda tests/test_torch_fused.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+try:  # the CPU parity tests need JAX; the on-card tests do not
+    import jax
+    import jax.numpy as jnp
+
+    from paddle_tpu.ops.pallas_fused import bn_act_conv1x1 as jfused
+except ImportError:
+    jax = None
+
+from paddle_tpu_torch.ops import bn_act_conv1x1 as op
+
+TOL = 1e-5
+
+# name: (N, Cin, Cout, act, with_res, positive_shift)
+CASES = {
+    "relu_n100": (100, 24, 16, "relu", False, False),
+    "relu_res_n100": (100, 24, 16, "relu", True, False),
+    "linear_n100": (100, 24, 16, "", False, False),
+    "linear_res_n100": (100, 24, 16, "", True, False),
+    "relu_n1": (1, 24, 16, "relu", False, False),
+    "linear_res_n1": (1, 24, 16, "", True, False),
+    "relu_positive_shift_n100": (100, 24, 16, "relu", False, True),
+    "relu_res_odd_widths": (37, 19, 33, "relu", True, False),
+}
+
+
+def _inputs(n, cin, cout, positive_shift=False, seed=0):
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((n, cin)).astype(np.float32)
+    sc = rng.standard_normal(cin).astype(np.float32)
+    sh = rng.standard_normal(cin).astype(np.float32)
+    if positive_shift:
+        sh = np.abs(sh) + 1.0
+    w = (rng.standard_normal((cin, cout)) * 0.1).astype(np.float32)
+    r = rng.standard_normal((n, cin)).astype(np.float32)
+    return u, sc, sh, w, r
+
+
+def _close(got, ref, name):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape, name
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    err = float(np.abs(got - ref).max()) / scale
+    assert err <= TOL, f"{name}: {err:.3g} relative to max > {TOL}"
+
+
+def _loss_weights(y, s1, s2):
+    # test_pallas_kernels.py::TestFusedBnActConv.test_grad_parity's loss
+    return (y * 0.3).sum() + (s1 * 0.1).sum() + (s2 * 0.01).sum()
+
+
+needs_jax = pytest.mark.skipif(jax is None, reason="needs JAX (CPU parity)")
+
+
+@needs_jax
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_forward_matches_jax(name):
+    n, cin, cout, act, with_res, pos = CASES[name]
+    u, sc, sh, w, r = _inputs(n, cin, cout, pos)
+    res = r if with_res else None
+    jy, js1, js2 = jfused(*(jnp.asarray(x) for x in (u, sc, sh, w)),
+                          residual=None if res is None else jnp.asarray(res),
+                          act=act)
+    t = [torch.from_numpy(x) for x in (u, sc, sh, w)]
+    tres = None if res is None else torch.from_numpy(res)
+    before = op.fwd_launches
+    for fn in (op.bn_act_conv1x1_plain, op.bn_act_conv1x1):
+        y, s1, s2 = fn(*t, residual=tres, act=act)
+        _close(y.detach(), jy, f"{name} y")
+        _close(s1.detach(), js1, f"{name} ssum")
+        _close(s2.detach(), js2, f"{name} ssq")
+    assert op.fwd_launches == before    # the CPU path launches no kernel
+
+
+@needs_jax
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_gradients_match_jax(name):
+    n, cin, cout, act, with_res, pos = CASES[name]
+    u, sc, sh, w, r = _inputs(n, cin, cout, pos, seed=1)
+    args = [u, sc, sh, w] + ([r] if with_res else [])
+
+    def jloss(u, sc, sh, w, *rest):
+        y, s1, s2 = jfused(u, sc, sh, w, residual=rest[0] if rest else None,
+                           act=act)
+        return _loss_weights(y, s1, s2)
+
+    jgrads = jax.grad(jloss, argnums=tuple(range(len(args))))(
+        *(jnp.asarray(x) for x in args))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in args]
+    before = (op.bwd_dx_launches, op.bwd_dw_launches)
+    y, s1, s2 = op.bn_act_conv1x1(*leaves[:4], residual=(
+        leaves[4] if with_res else None), act=act)
+    _loss_weights(y, s1, s2).backward()
+    for nm, leaf, g in zip(("u", "scale", "shift", "w", "residual"),
+                           leaves, jgrads):
+        _close(leaf.grad, g, f"{name} d{nm}")
+    assert (op.bwd_dx_launches, op.bwd_dw_launches) == before
+
+
+@pytest.mark.parametrize("with_res", [False, True])
+def test_plain_backward_is_autograd_of_plain_forward(with_res):
+    """bn_act_conv1x1_bwd_{dx,dw}_plain equal autograd through
+    bn_act_conv1x1_plain, with non-zero cotangents of y, ssum and ssq."""
+    u, sc, sh, w, r = _inputs(50, 12, 20, seed=2)
+    rng = np.random.default_rng(3)
+    dy = torch.from_numpy(rng.standard_normal((50, 20)).astype(np.float32))
+    d1 = torch.from_numpy(rng.standard_normal(20).astype(np.float32))
+    d2 = torch.from_numpy(rng.standard_normal(20).astype(np.float32))
+    leaves = [torch.from_numpy(x).requires_grad_(True)
+              for x in (u, sc, sh, w, r)]
+    res = leaves[4] if with_res else None
+    y, s1, s2 = op.bn_act_conv1x1_plain(*leaves[:4], residual=res)
+    ((y * dy).sum() + (s1 * d1).sum() + (s2 * d2).sum()).backward()
+    t = [x.detach() for x in leaves]
+    tres = t[4] if with_res else None
+    du, dsc, dsh, dres = op.bn_act_conv1x1_bwd_dx_plain(
+        *t[:4], tres, y.detach(), dy, d1, d2)
+    dw = op.bn_act_conv1x1_bwd_dw_plain(*t[:3], tres, y.detach(), dy, d1, d2)
+    for nm, got, leaf in (("u", du, leaves[0]), ("scale", dsc, leaves[1]),
+                          ("shift", dsh, leaves[2]), ("w", dw, leaves[3])):
+        _close(got, leaf.grad, nm)
+    if with_res:
+        _close(dres, leaves[4].grad, "residual")
+    else:
+        assert dres is None and leaves[4].grad is None
+
+
+def test_unused_statistics_take_zero_cotangents():
+    """Only y feeds the loss: ssum and ssq's cotangents arrive as zeros
+    and the gradient is that of y alone."""
+    u, sc, sh, w, _r = (torch.from_numpy(x) for x in _inputs(30, 8, 6))
+    w1 = w.clone().requires_grad_(True)
+    y, _s1, _s2 = op.bn_act_conv1x1(u, sc, sh, w1)
+    y.sum().backward()
+    w2 = w.clone().requires_grad_(True)
+    op.bn_act_conv1x1_plain(u, sc, sh, w2)[0].sum().backward()
+    torch.testing.assert_close(w1.grad, w2.grad)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    u, sc, sh, w, _r = (torch.from_numpy(x) for x in _inputs(10, 4, 4))
+    with pytest.raises(ValueError, match="act must be"):
+        op.bn_act_conv1x1(u, sc, sh, w, act="tanh")
+    # the kernel wrappers take CUDA tensors only; the CPU path is the
+    # autograd Function's, through the plain versions
+    with pytest.raises(ValueError, match="unsupported device"):
+        op.bn_act_conv1x1_fwd(u, sc, sh, w)
+    y = torch.zeros((10, 4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        op.bn_act_conv1x1_bwd_dx(u, sc, sh, w, None, y, y, sc, sc)
+    with pytest.raises(ValueError, match="unsupported device"):
+        op.bn_act_conv1x1_bwd_dw(u, sc, sh, None, y, y, sc, sc)
+
+
+# ---- on the card --------------------------------------------------------
+
+# (N, Cin, Cout): ragged against the 128-row tile and the 64/128-column
+# tiles, N = 1, and two ResNet-50 sites at batch 2
+CARD_SHAPES = {
+    "n100_24_16": (100, 24, 16),
+    "n1_24_16": (1, 24, 16),
+    "n517_70_130": (517, 70, 130),
+    "res2_tail_b2": (6272, 64, 256),
+    "res4_a_b2": (392, 1024, 256),
+}
+
+
+@pytest.mark.cuda
+class TestOnCard:
+    """The kernels against their plain versions on the card: max |diff|
+    / max |plain| <= 1e-4 for every output (f32, other summation
+    orders)."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+    @staticmethod
+    def _rel(got, ref):
+        return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+                ).item()
+
+    @pytest.mark.parametrize("act", ["relu", ""])
+    @pytest.mark.parametrize("with_res", [False, True])
+    @pytest.mark.parametrize("shape", sorted(CARD_SHAPES))
+    def test_kernels_match_plain(self, shape, act, with_res):
+        n, cin, cout = CARD_SHAPES[shape]
+        u, sc, sh, w, r = (torch.from_numpy(x).cuda() for x in
+                           _inputs(n, cin, cout, positive_shift=True))
+        res = r if with_res else None
+        g = torch.Generator(device="cuda").manual_seed(0)
+        dy = torch.randn((n, cout), generator=g, device="cuda")
+        d1 = torch.randn((cout,), generator=g, device="cuda")
+        d2 = torch.randn((cout,), generator=g, device="cuda") * 0.01
+        got = op.bn_act_conv1x1_fwd(u, sc, sh, w, res, act)
+        ref = op.bn_act_conv1x1_plain(u, sc, sh, w, res, act)
+        y = ref[0]
+        got += op.bn_act_conv1x1_bwd_dx(u, sc, sh, w, res, y, dy, d1, d2,
+                                        act)
+        got += (op.bn_act_conv1x1_bwd_dw(u, sc, sh, res, y, dy, d1, d2, act),)
+        ref += op.bn_act_conv1x1_bwd_dx_plain(u, sc, sh, w, res, y, dy, d1,
+                                              d2, act)
+        ref += (op.bn_act_conv1x1_bwd_dw_plain(u, sc, sh, res, y, dy, d1, d2,
+                                               act),)
+        torch.cuda.synchronize()
+        names = ("y", "ssum", "ssq", "du", "dscale", "dshift", "dres", "dw")
+        for nm, a, b in zip(names, got, ref):
+            if b is None:
+                assert a is None, nm
+                continue
+            assert torch.isfinite(a).all(), nm
+            assert self._rel(a, b) <= 1e-4, (nm, self._rel(a, b))
+
+    def test_autograd_step_launches_each_kernel_once(self):
+        u, sc, sh, w, r = (torch.from_numpy(x).cuda().requires_grad_(True)
+                           for x in _inputs(300, 64, 96))
+        before = (op.fwd_launches, op.bwd_dx_launches, op.bwd_dw_launches)
+        y, s1, s2 = op.bn_act_conv1x1(u, sc, sh, w, residual=r)
+        _loss_weights(y, s1, s2).backward()
+        torch.cuda.synchronize()
+        assert (op.fwd_launches, op.bwd_dx_launches, op.bwd_dw_launches) == (
+            before[0] + 1, before[1] + 1, before[2] + 1)
+        leaves = [x.detach().requires_grad_(True) for x in (u, sc, sh, w, r)]
+        yp, s1p, s2p = op.bn_act_conv1x1_plain(*leaves[:4],
+                                               residual=leaves[4])
+        _loss_weights(yp, s1p, s2p).backward()
+        for a, b in zip((u, sc, sh, w, r), leaves):
+            assert self._rel(a.grad, b.grad) <= 1e-4
