@@ -5,7 +5,7 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in ten phases, and any failure exits non-zero:
+`paddle_tpu` — in fourteen phases, and any failure exits non-zero:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA
    versions; TF32 off;
@@ -70,7 +70,34 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    finite, the last below the first, 29 launches of each fused kernel
    a step; then 10 plain steps for their step time; each run profiled
    for 5 more steps;
-10. prints the kernels' JSON line and, last, the device line.
+10. holds the LSTM and GRU sequence kernels (B5 forward with and
+    without the cell sequence, B6 backward, `csrc/lstm_seq.cu`; B7
+    forward and B8 backward, `csrc/gru_seq.cu`) against their plain
+    PyTorch versions at the path shapes (the classifier's layers, B=64,
+    T=100, h=256; the NMT encoder, B=256, T=32, h=256), at the bench's
+    other widths h=512 and 1280, and at ragged lengths with a 0 and a 1
+    (max |diff| / max |plain| <= 1e-4 for every output, exactly 0 past
+    each row's length), and times kernel, plain version and cuDNN's
+    torch.nn.LSTM/GRU (another function: a reference point only) with
+    the bounds;
+11. runs the IMDB stacked-LSTM classifier (vocab 30000, emb 128, two
+    layers of h=256; weights from a seed) through `Inferencer` on
+    [64, 100] ids, the kernel arm against the scan arm
+    (use_pallas_rnn=False): probabilities within 1e-5, two B5 launches;
+12. one adam train step of the classifier (lr 2e-3) and of the
+    attention NMT (vocab 30000, emb 512, hidden 512, GRU h=256 a
+    direction; lr 1e-3), kernel arm against scan arm from one weight
+    map at ragged lengths, with the scan arm in f64 as the exact
+    reference: the loss within 1e-4, every gradient within 1e-4 (of its
+    largest entry) plus twice the scan arm's own f32 error against f64,
+    and the kernel arm as close to f64 as the scan arm, within 1e-4;
+13. trains both through `SGD.train` at the bench's full lengths on one
+    fixed batch — the classifier 30 steps at B=64, T=100, the NMT 20
+    steps at B=256, T=32 — then 10 steps of each on the scan arm: every
+    loss falls, ms/step, tokens/s, peak memory and the profile table,
+    and the kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
+    (NMT) a step;
+14. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -1028,6 +1055,415 @@ def resnet_training(torch, op, plain, fused, params, state):
     return (held, tiny), b, p
 
 
+# ---- the sequence slice: LSTM/GRU kernels (B5-B8), classifier, NMT -------
+
+# the bench rows at their published widths (bench.py bench_lstm, bench_nmt)
+CLS = dict(vocab_size=30000, emb_dim=128, hidden=256, num_layers=2,
+           num_classes=2)
+CLS_B, CLS_T, CLS_STEPS, CLS_LR = 64, 100, 30, 2e-3
+NMT = dict(src_vocab=30000, trg_vocab=30000, emb_dim=512, hidden=512)
+NMT_B, NMT_T, NMT_STEPS, NMT_LR = 256, 32, 20, 1e-3
+SCAN_STEPS = 10
+# (name, cell, B, T, h, lens or None for full): the path shapes (both
+# classifier layers; the NMT encoder, h = 512 / 2 a direction), the bench's
+# other LSTM widths, and ragged cases with a zero length and a length of 1
+RAGGED = [37, 0, 1, 20, 36, 5, 37, 2, 11]
+RNN_CASES = [
+    ("classifier_b64_t100_h256", "lstm", CLS_B, CLS_T, 256, None),
+    ("nmt_enc_b256_t32_h256", "gru", NMT_B, NMT_T, 256, None),
+    ("lstm_b64_t100_h512", "lstm", CLS_B, CLS_T, 512, None),
+    ("lstm_b64_t100_h1280", "lstm", CLS_B, CLS_T, 1280, None),
+    ("gru_b256_t32_h512", "gru", NMT_B, NMT_T, 512, None),
+    ("gru_b256_t32_h1280", "gru", NMT_B, NMT_T, 1280, None),
+    ("lstm_ragged_b9_t37_h256", "lstm", 9, 37, 256, RAGGED),
+    ("gru_ragged_b9_t37_h256", "gru", 9, 37, 256, RAGGED),
+]
+RNN_COUNTERS = ("lstm_fwd_launches", "lstm_fwd_infer_launches",
+                "lstm_bwd_launches", "gru_fwd_launches", "gru_bwd_launches")
+
+
+def zero_rnn_counts(rnn):
+    for c in RNN_COUNTERS:
+        setattr(rnn, c, 0)
+
+
+def rnn_counts(rnn):
+    return {c: getattr(rnn, c) for c in RNN_COUNTERS}
+
+
+def rnn_inputs(torch, gen, cell, b, t, h, lens):
+    """x, the weights at the layers' init scale (1/sqrt(h)), biases, lens
+    and dy of one case, on the card."""
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * s
+
+    live = np.full(b, t) if lens is None else np.asarray(lens)
+    lens_t = torch.as_tensor(live, dtype=torch.int32, device="cuda")
+    if cell == "lstm":
+        ws = (rnd(h, 4 * h, s=h ** -0.5), rnd(7 * h, s=0.1))
+        x = rnd(b, t, 4 * h)
+    else:
+        ws = (rnd(h, 2 * h, s=h ** -0.5), rnd(h, h, s=h ** -0.5),
+              rnd(3 * h, s=0.1))
+        x = rnd(b, t, 3 * h)
+    return x, ws, lens_t, rnd(b, t, h), int(live.sum())
+
+
+def check_rnn(torch, rnn, case, gen):
+    """B5 (both variants) and B6, or B7 and B8, against their plain
+    versions at one case: max |diff| / max |plain| <= TOL for every
+    output, exactly 0 past each row's length; then kernel, plain and
+    cuDNN (torch.nn.LSTM/GRU: another function — no peepholes, its own
+    input GEMM, no masks; a reference point only) times and the bounds.
+    Returns the case's numbers."""
+    name, cell, b, t, h, lens = case
+    x, ws, lens_t, dy, live = rnn_inputs(torch, gen, cell, b, t, h, lens)
+    dead = torch.arange(t, device="cuda")[None, :] >= lens_t[:, None]
+    f32 = 4
+    if cell == "lstm":
+        w, b7 = ws
+        parts = torch.split(b7, [4 * h, h, h, h])
+        y, c = rnn.lstm_seq_fwd(x, w, b7, lens_t, want_c=True)
+        y_noc, _ = rnn.lstm_seq_fwd(x, w, b7, lens_t, want_c=False)
+        yp, cp = rnn.lstm_plain(x, w, *parts, lens_t, want_c=True)
+        got = (y, c) + rnn.lstm_seq_bwd(x, w, b7, lens_t, yp, cp, dy)
+        ref = (yp, cp) + rnn.lstm_bwd_plain(x, w, b7, lens_t, yp, cp, dy)
+        names = ("y", "c", "dx", "dw", "db7")
+        which = {"y": "fwd", "c": "fwd", "dx": "bwd", "dw": "bwd",
+                 "db7": "bwd"}
+        kern = {
+            "fwd": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t, want_c=True),
+            "fwd_infer": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t,
+                                                  want_c=False),
+            "bwd": lambda: rnn.lstm_seq_bwd(x, w, b7, lens_t, yp, cp, dy)}
+        plain = {
+            "fwd": lambda: rnn.lstm_plain(x, w, *parts, lens_t, want_c=True),
+            "fwd_infer": lambda: rnn.lstm_plain(x, w, *parts, lens_t),
+            "bwd": lambda: rnn.lstm_bwd_plain(x, w, b7, lens_t, yp, cp, dy)}
+        mac = live * h * 4 * h           # one [h] @ [h, 4h] a live step
+        seq = b * t * h * f32
+        io = x.numel() * f32 + (w.numel() + b7.numel() + b) * f32
+        # fwd: x, w, b7, lens read, y (and c) written; bwd: + y, c, dy
+        # read, dx, dw, db7 written; 2 flops a MAC: fwd one product a
+        # step, bwd three (the recomputed gates, dh = dg w^T, dW)
+        work = {"fwd": (2 * mac, io + 2 * seq),
+                "fwd_infer": (2 * mac, io + seq),
+                "bwd": (6 * mac, io + 3 * seq + x.numel() * f32
+                        + (w.numel() + b7.numel()) * f32)}
+        cudnn = torch.nn.LSTM(h, h, batch_first=True).cuda()
+        assert bool(torch.equal(y, y_noc)), f"{name}: the variants differ"
+    else:
+        w_g, w_c, bias = ws
+        y = rnn.gru_seq_fwd(x, w_g, w_c, bias, lens_t)
+        yp = rnn.gru_plain(x, w_g, w_c, bias, lens_t)
+        got = (y,) + rnn.gru_seq_bwd(x, w_g, w_c, bias, lens_t, yp, dy)
+        ref = (yp,) + rnn.gru_bwd_plain(x, w_g, w_c, bias, lens_t, yp, dy)
+        names = ("y", "dx", "dw_g", "dw_c", "db")
+        which = {"y": "fwd", "dx": "bwd", "dw_g": "bwd", "dw_c": "bwd",
+                 "db": "bwd"}
+        kern = {"fwd": lambda: rnn.gru_seq_fwd(x, w_g, w_c, bias, lens_t),
+                "bwd": lambda: rnn.gru_seq_bwd(x, w_g, w_c, bias, lens_t, yp,
+                                               dy)}
+        plain = {"fwd": lambda: rnn.gru_plain(x, w_g, w_c, bias, lens_t),
+                 "bwd": lambda: rnn.gru_bwd_plain(x, w_g, w_c, bias, lens_t,
+                                                  yp, dy)}
+        mac = live * h * h               # [h] @ [h, h] a live step
+        seq = b * t * h * f32
+        wts = (w_g.numel() + w_c.numel() + bias.numel()) * f32
+        io = x.numel() * f32 + wts + b * f32
+        # fwd: 3 h^2 MACs a step (u, r and c); bwd: 9 (the recomputed
+        # gates 3, d(rh) 1, dh 2, dW_g 2, dW_c 1)
+        work = {"fwd": (6 * mac, io + seq),
+                "bwd": (18 * mac, io + 2 * seq + x.numel() * f32 + wts)}
+        cudnn = torch.nn.GRU(h, h, batch_first=True).cuda()
+    torch.cuda.synchronize()
+    errs = {}
+    for n, g, r in zip(names, got, ref):
+        assert torch.isfinite(g).all().item(), f"{name}: {n} not finite"
+        errs[n] = rel_err(g, r)
+        assert errs[n][0] <= TOL, (
+            f"{name}: kernel vs plain {n} relative error {errs[n][0]:.3g} "
+            f"> {TOL}")
+    assert bool((got[0][dead] == 0).all().item()), f"{name}: y past len"
+    dx = got[2] if cell == "lstm" else got[1]
+    assert bool((dx[dead] == 0).all().item()), f"{name}: dx past len"
+
+    slow = h >= 1280
+    res = {"name": name, "cell": cell, "B": b, "T": t, "h": h,
+           "live_steps": live,
+           "rel_err": {n: e[0] for n, e in errs.items()}}
+    for k in kern:
+        flops, nbytes = work[k]
+        t_ops = flops / H100_F32_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        res[k] = {
+            "ms": time_ms(torch, kern[k], reps=5 if slow else 20),
+            "plain_ms": time_ms(torch, plain[k], reps=3 if slow else 5,
+                                warmup=1),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "flops": flops, "bytes": nbytes,
+            "max_abs_err": max((e[1] for n, e in errs.items()
+                                if which[n] == k[:3]), default=0.0),
+        }
+    # cuDNN's LSTM/GRU over [B, T, h] (its input GEMM included): forward,
+    # and forward+backward minus forward
+    xin = torch.randn((b, t, h), generator=gen, device="cuda",
+                      requires_grad=True)
+
+    def cudnn_fwd():
+        with torch.no_grad():
+            cudnn(xin)
+
+    def cudnn_fwd_bwd():
+        out, _ = cudnn(xin)
+        out.backward(dy)
+
+    res["cudnn_fwd_ms"] = time_ms(torch, cudnn_fwd)
+    res["cudnn_bwd_ms"] = time_ms(torch, cudnn_fwd_bwd) - res["cudnn_fwd_ms"]
+    print("rnn kernel " + json.dumps(res), flush=True)
+    return res
+
+
+def rnn_kernels(torch, rnn):
+    """Phase 10: every case of RNN_CASES. Returns the results by name."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    out = {case[0]: check_rnn(torch, rnn, case, gen) for case in RNN_CASES}
+    print(f"rnn kernels equal their plain versions in {len(out)} cases",
+          flush=True)
+    return out
+
+
+def text_feeds(seed, ragged):
+    """The classifier's and the NMT's feeds, bench.py's (random ids, full
+    lengths) or with ragged lengths (1 .. T, so that no row is empty)."""
+    from paddle_tpu_torch.core.arg import id_arg
+
+    rng = np.random.default_rng(seed)
+    cl = (rng.integers(1, CLS_T + 1, CLS_B) if ragged
+          else np.full(CLS_B, CLS_T)).astype(np.int32)
+    nl = (rng.integers(1, NMT_T + 1, NMT_B) if ragged
+          else np.full(NMT_B, NMT_T)).astype(np.int32)
+    cls = {"words": id_arg(rng.integers(0, CLS["vocab_size"], (CLS_B, CLS_T))
+                           .astype(np.int32), cl, device="cuda"),
+           "label": id_arg(rng.integers(0, 2, CLS_B).astype(np.int32),
+                           device="cuda")}
+    nmt = {k: id_arg(rng.integers(2, NMT["src_vocab"], (NMT_B, NMT_T))
+                     .astype(np.int32), nl, device="cuda")
+           for k in ("src", "trg_in", "trg_out")}
+    return cls, nmt
+
+
+def set_rnn_arm(arm):
+    """"kernels": the default policy (None: the kernels on the card);
+    "scan": use_pallas_rnn = False."""
+    from paddle_tpu_torch.core import flags
+
+    flags.set_flag("use_pallas_rnn", None if arm == "kernels" else False)
+
+
+def classifier_infer(torch, rnn):
+    """Phase 11: the classifier through Inferencer at [64, 100] ids, the
+    kernel arm (B5 without c) against the scan arm from the same weights:
+    probabilities within 1e-5; two B5 launches a forward."""
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.trainer.trainer import Inferencer
+
+    net = Network(stacked_lstm_classifier(**CLS))
+    params = net.init_params(torch.Generator().manual_seed(SEED),
+                             device="cuda")
+    cls, _nmt = text_feeds(SEED + 60, ragged=True)
+    feed = {"words": cls["words"]}
+    out = {}
+    for arm in ("kernels", "scan"):
+        set_rnn_arm(arm)
+        inf = Inferencer(net, params, outputs=["output"], device="cuda")
+        inf.infer(feed)
+        torch.cuda.synchronize()
+        zero_rnn_counts(rnn)
+        t0 = time.perf_counter()
+        logits = inf.infer(feed)["output"]
+        ms = (time.perf_counter() - t0) * 1e3
+        out[arm] = (logits, ms, rnn_counts(rnn))
+    set_rnn_arm("kernels")
+    (lk, ms_k, counts), (ls, ms_s, counts_s) = out["kernels"], out["scan"]
+
+    def probs(z):
+        e = np.exp(z - z.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+    diff = float(np.abs(probs(lk) - probs(ls)).max())
+    r = {"shape": list(lk.shape), "finite": bool(np.isfinite(lk).all()),
+         "prob_max_abs_diff": diff, "kernel_ms": ms_k, "scan_ms": ms_s,
+         "kernel_sequences_per_s": CLS_B / (ms_k / 1e3),
+         "b5_infer_launches": counts["lstm_fwd_infer_launches"],
+         "launches": counts, "scan_launches": counts_s}
+    print("classifier inference " + json.dumps(r), flush=True)
+    assert r["shape"] == [CLS_B, 2] and r["finite"]
+    assert diff <= 1e-5, f"kernel and scan probabilities differ by {diff:.3g}"
+    assert counts["lstm_fwd_infer_launches"] == 2, counts
+    assert sum(counts_s.values()) == 0, counts_s
+    return r
+
+
+def text_confs():
+    from paddle_tpu_torch.models.text import seq2seq_attention, \
+        stacked_lstm_classifier
+
+    return stacked_lstm_classifier(**CLS), seq2seq_attention(**NMT)
+
+
+def held_text_step(torch, conf, feed, lr, name):
+    """One adam TrainStep of the kernel arm against the scan arm from one
+    weight map, and of the scan arm in f64 (the exact reference): the
+    loss within TOL, and every gradient (from the new first moment,
+    (1 - beta1) * grad) within TOL + 2 * noise of the scan arm's, noise
+    being the scan arm's own f32 error against f64. Where a gradient is
+    well conditioned the noise is ~1e-6 and the bound is TOL; where
+    f32 rounding alone moves it (a sum that cancels to a small
+    remainder: the attention's score path at init), the bound widens by
+    what f32 arithmetic itself gives there. The kernel arm must also be
+    as close to the f64 gradient as the scan arm, within TOL."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+
+    net = Network(conf)
+    params = net.init_params(torch.Generator().manual_seed(SEED + 1),
+                             device="cuda")
+    got = {}
+    for arm, dtype in (("kernels", torch.float32), ("scan", torch.float32),
+                       ("f64", torch.float64)):
+        set_rnn_arm("kernels" if arm == "kernels" else "scan")
+        p = {k: v.to(dtype) for k, v in params.items()}
+        opt = create_optimizer(OptimizationConf(learning_method="adam",
+                                                learning_rate=lr),
+                               net.param_confs)
+        step = TrainStep(net, opt, watchdog=True, device="cuda")
+        _p, st, _s, health, _o = step(p, opt.init_state(p), {}, feed, 0,
+                                      None)
+        got[arm] = (health, st)
+    set_rnn_arm("kernels")
+    (hk, sk), (hs, ss), (_h64, s64) = (got["kernels"], got["scan"],
+                                       got["f64"])
+    loss_rel = abs(hk[0].item() - hs[0].item()) / abs(hs[0].item())
+    per = {}
+    for k in ss:
+        ref = s64[k]["m"]
+        per[k] = {"kernels_vs_scan": rel_err(sk[k]["m"], ss[k]["m"])[0],
+                  "kernels_vs_f64": rel_err(sk[k]["m"].double(), ref)[0],
+                  "scan_vs_f64": rel_err(ss[k]["m"].double(), ref)[0]}
+    bad = {k: e for k, e in per.items()
+           if e["kernels_vs_scan"] > TOL + 2 * e["scan_vs_f64"]
+           or e["kernels_vs_f64"] > TOL + e["scan_vs_f64"]}
+    noisy = {k: e for k, e in per.items() if e["scan_vs_f64"] > TOL / 10}
+    r = {"loss_kernels": hk[0].item(), "loss_scan": hs[0].item(),
+         "loss_rel": loss_rel, "finite": bool(hk[1].item() and hs[1].item()),
+         "grads": len(per),
+         "kernels_vs_scan_max": max(e["kernels_vs_scan"]
+                                    for e in per.values()),
+         "kernels_vs_scan_max_where_f32_noise_below_1e-5": max(
+             (e["kernels_vs_scan"] for k, e in per.items()
+              if k not in noisy), default=0.0),
+         "kernels_vs_f64_max": max(e["kernels_vs_f64"] for e in per.values()),
+         "scan_vs_f64_max": max(e["scan_vs_f64"] for e in per.values()),
+         "f32_noisy_grads": noisy, "failing": bad}
+    print(f"kernel vs scan train step {name} " + json.dumps(r), flush=True)
+    assert r["finite"] and loss_rel <= TOL, f"{name}: losses disagree: {r}"
+    assert not bad, f"{name}: gradients disagree: {bad}"
+    return r
+
+
+def text_train(torch, rnn, conf, feed, lr, steps, tokens, name):
+    """SGD.train (adam) on one fixed batch; returns the run's numbers
+    (launch counts read just after the run, before the profile)."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.trainer.events import EndIteration
+    from paddle_tpu_torch.trainer.trainer import SGD
+
+    sgd = SGD(conf, OptimizationConf(learning_method="adam",
+                                     learning_rate=lr),
+              seed=SEED + 1, device="cuda")
+    stamps, costs = [], []
+
+    def on_event(e):
+        if isinstance(e, EndIteration):
+            costs.append(e.cost)          # fetched: the step is done
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_rnn_counts(rnn)
+    t0 = time.perf_counter()
+    sgd.train(reader=lambda: iter([feed] * steps), feeder=lambda b: b,
+              num_passes=1, event_handler=on_event)
+    torch.cuda.synchronize()
+    counts = rnn_counts(rnn)
+    steady = float(np.median(np.diff(stamps))) * 1e3
+    r = {"steps": steps, "wall_s": time.perf_counter() - t0,
+         "ms_first_step": (stamps[0] - t0) * 1e3,
+         "ms_per_step_median": steady,
+         "tokens_per_step": tokens,
+         "tokens_per_s": tokens / (steady / 1e3),
+         "loss_first": costs[0], "loss_last": costs[-1],
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+         "launches": counts}
+    print(f"train {name} " + json.dumps(r), flush=True)
+    assert np.isfinite(costs).all(), f"{name}: a loss is not finite"
+    prof = profile_steps(torch, sgd, feed)
+    if prof is not None:
+        prof["idle_share"] = 1 - prof["device_ms_per_step"] / steady
+    print(f"profile {name} " + json.dumps(prof), flush=True)
+    r["profile"] = prof
+    return r
+
+
+def text_training(torch, rnn):
+    """Phases 12 and 13: the held steps at ragged lengths, then the
+    training runs at the bench's full lengths, kernel arm then scan arm.
+    Each kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
+    (NMT) a step, and its loss falls."""
+    cls_conf, nmt_conf = text_confs()
+    cls_r, nmt_r = text_feeds(SEED + 70, ragged=True)
+    held = (held_text_step(torch, cls_conf, cls_r, CLS_LR, "classifier"),
+            held_text_step(torch, nmt_conf, nmt_r, NMT_LR, "nmt"))
+    phase("13. train the classifier and the NMT through SGD")
+    cls_f, nmt_f = text_feeds(SEED + 80, ragged=False)
+    cls_tok = CLS_B * CLS_T
+    nmt_tok = NMT_B * NMT_T                # target tokens, as bench_nmt
+    runs = {}
+    for arm in ("kernels", "scan"):
+        set_rnn_arm(arm)
+        n_cls = CLS_STEPS if arm == "kernels" else SCAN_STEPS
+        n_nmt = NMT_STEPS if arm == "kernels" else SCAN_STEPS
+        runs[f"classifier_{arm}"] = text_train(
+            torch, rnn, cls_conf, cls_f, CLS_LR, n_cls, cls_tok,
+            f"classifier_{arm}_b{CLS_B}_t{CLS_T}")
+        runs[f"nmt_{arm}"] = text_train(
+            torch, rnn, nmt_conf, nmt_f, NMT_LR, n_nmt, nmt_tok,
+            f"nmt_{arm}_b{NMT_B}_t{NMT_T}")
+    set_rnn_arm("kernels")
+    for name, r in runs.items():
+        assert r["loss_last"] < r["loss_first"], (
+            f"{name}: loss rose from {r['loss_first']:.4g} to "
+            f"{r['loss_last']:.4g}")
+    c, n = runs["classifier_kernels"]["launches"], runs["nmt_kernels"][
+        "launches"]
+    want_c = dict.fromkeys(RNN_COUNTERS, 0)
+    want_c.update(lstm_fwd_launches=2 * CLS_STEPS,
+                  lstm_bwd_launches=2 * CLS_STEPS)
+    want_n = dict.fromkeys(RNN_COUNTERS, 0)
+    want_n.update(gru_fwd_launches=2 * NMT_STEPS,
+                  gru_bwd_launches=2 * NMT_STEPS)
+    assert c == want_c, f"classifier launches {c}, want {want_c}"
+    assert n == want_n, f"nmt launches {n}, want {want_n}"
+    for arm in ("classifier_scan", "nmt_scan"):
+        assert sum(runs[arm]["launches"].values()) == 0, runs[arm]
+    return held, runs
+
+
 def ptxas_report(log):
     """One line a kernel of an nvcc -Xptxas -v log: its name, registers,
     shared memory and spills."""
@@ -1055,6 +1491,7 @@ def main() -> int:
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import bn_act_conv1x1 as fop
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import rnn
 
     phase("1. card")
     smi = subprocess.run(
@@ -1143,8 +1580,20 @@ def main() -> int:
     phase("9. ResNet-50 training through SGD")
     _held, train_b, _train_plain = resnet_training(torch, fop, plain, fused,
                                                    rparams, rstate)
+    del plain, fused, rparams, rstate
 
-    phase("10. result")
+    phase("10. LSTM/GRU sequence kernels vs plain version")
+    for kernel in (rnn.LSTM_KERNEL, rnn.GRU_KERNEL):
+        ptxas_report(_build.build_log(kernel))
+    rnn_res = rnn_kernels(torch, rnn)
+
+    phase("11. IMDB classifier inference through Inferencer")
+    cls_infer = classifier_infer(torch, rnn)
+
+    phase("12. held classifier and NMT train steps, kernels vs scan")
+    _held_text, text_runs = text_training(torch, rnn)
+
+    phase("14. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -1182,6 +1631,33 @@ def main() -> int:
             **tail[kernel],
         }
 
+    # the sequence kernels' numbers at the path shapes (classifier layers,
+    # NMT encoder); max_abs_err over every case of phase 10
+    path = {"lstm": rnn_res["classifier_b64_t100_h256"],
+            "gru": rnn_res["nmt_enc_b256_t32_h256"]}
+    cls_launches = text_runs["classifier_kernels"]["launches"]
+    nmt_launches = text_runs["nmt_kernels"]["launches"]
+
+    def rnn_row(name, cell, tpu_line, kind, launched):
+        at = path[cell][kind]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{cell}_seq.cu",
+            "replaces": f"paddle_tpu/ops/pallas_rnn.py:{tpu_line}",
+            "launches": launched,
+            "max_abs_err": max(r[kind]["max_abs_err"]
+                               for r in rnn_res.values()
+                               if r["cell"] == cell),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            # no single PyTorch call computes these functions (peepholes,
+            # the reset before the candidate product, masked carry);
+            # cuDNN's LSTM/GRU time is printed in phase 10 as a
+            # reference point of another function
+            "library_ms": None,
+        }
+
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -1198,7 +1674,17 @@ def main() -> int:
     }, bwd_row("dkv", ("dk", "dv")), bwd_row("dq", ("dq",)),
         fused_row("fwd", 71, infer["b1_launches"] + train_b["launches_fwd"]),
         fused_row("bwd_dx", 155, train_b["launches_bwd_dx"]),
-        fused_row("bwd_dw", 203, train_b["launches_bwd_dw"])]}),
+        fused_row("bwd_dw", 203, train_b["launches_bwd_dw"]),
+        rnn_row("lstm_seq_fwd", "lstm", 311, "fwd",
+                cls_launches["lstm_fwd_launches"]),
+        rnn_row("lstm_seq_fwd_infer", "lstm", 311, "fwd_infer",
+                cls_infer["launches"]["lstm_fwd_infer_launches"]),
+        rnn_row("lstm_seq_bwd", "lstm", 358, "bwd",
+                cls_launches["lstm_bwd_launches"]),
+        rnn_row("gru_seq_fwd", "gru", 724, "fwd",
+                nmt_launches["gru_fwd_launches"]),
+        rnn_row("gru_seq_bwd", "gru", 657, "bwd",
+                nmt_launches["gru_bwd_launches"])]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

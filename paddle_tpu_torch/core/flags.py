@@ -21,6 +21,11 @@ _DEFAULTS: dict[str, Any] = {
     "seed": 0,
     "watchdog": True,
     "matmul_precision": "default",
+    # the LSTM/GRU layers (layers/recurrent.py): None = the hand-written
+    # sequence kernels for a CUDA input with the default activations,
+    # the masked scan otherwise; True = the kernels' path (their plain
+    # versions on a CPU input); False = always the scan
+    "use_pallas_rnn": None,
 }
 
 _flags: dict[str, Any] = dict(_DEFAULTS)

@@ -10,4 +10,7 @@ from paddle_tpu_torch.layers import (  # noqa: F401
     fused,
     norm,
     pool,
+    recurrent,
+    recurrent_group,
+    sequence,
 )

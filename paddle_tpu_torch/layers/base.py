@@ -26,6 +26,7 @@ from paddle_tpu_torch.core import rng as _rng
 from paddle_tpu_torch.core.config import LayerConf, ModelConf, ParameterConf
 from paddle_tpu_torch.core.registry import LAYERS
 from paddle_tpu_torch.ops import activations
+from paddle_tpu_torch.ops.sequence_ops import masked_softmax
 
 
 @dataclass(frozen=True)
@@ -90,7 +91,7 @@ class Layer:
             assert seq_lens is not None, "sequence_softmax needs sequence input"
             sq = y.shape[-1] == 1
             y2 = y[..., 0] if sq else y
-            y2 = activations.masked_softmax(y2, seq_lens)
+            y2 = masked_softmax(y2, seq_lens)
             y = y2[..., None] if sq else y2
         else:
             y = self.activation()(y)

@@ -1,7 +1,7 @@
-"""Core dense layers, the four of `paddle_tpu/layers/basic.py` the
-Transformer LM runs: data, fc, embedding, addto. The other twelve
-types of that module are still to port, each with the slice whose
-path runs it (ROADMAP A2-A4, A9).
+"""Core dense layers of `paddle_tpu/layers/basic.py`: data, fc,
+embedding and addto (the Transformer LM's), concat and scaling (the
+sequence models'). The other ten types of that module are still to
+port, each with the slice whose path runs it (ROADMAP A2-A4, A9).
 """
 
 from __future__ import annotations
@@ -133,3 +133,64 @@ class AddtoLayer(Layer):
             y = y + params["b"]
         y = self.apply_activation_and_dropout(y, ctx, inputs[0].seq_lens)
         return inputs[0].with_value(y)
+
+
+@LAYERS.register("concat", "concat2")
+class ConcatLayer(Layer):
+    """Feature-axis concat (gserver/layers/ConcatenateLayer.cpp). When all
+    inputs are same-H,W image specs, concatenates channels and keeps the
+    spatial shape; otherwise flattens."""
+
+    def build(self, in_specs):
+        seq = any(s.is_seq for s in in_specs)
+        sub = any(s.has_subseq for s in in_specs)
+        self._image = (
+            all(len(s.dim) == 3 for s in in_specs)
+            and len({s.dim[:2] for s in in_specs}) == 1
+        )
+        pcs = {}
+        if self._image:
+            h, w = in_specs[0].dim[:2]
+            c = sum(s.dim[2] for s in in_specs)
+            self._in_dims = [s.dim for s in in_specs]
+            dim = (h, w, c)
+        else:
+            dim = (sum(s.size for s in in_specs),)
+        b = self.bias_conf((Spec(dim=dim).size,))
+        if b is not None:
+            pcs["b"] = b
+        return Spec(dim=dim, is_seq=seq, has_subseq=sub), pcs
+
+    def forward(self, params, inputs, ctx):
+        flat = []
+        seq_lens = None
+        subseq_lens = None
+        for i, a in enumerate(inputs):
+            x = a.value
+            lead = 2 if a.is_seq else 1
+            if a.is_seq:
+                seq_lens = a.seq_lens
+                subseq_lens = a.subseq_lens
+            if self._image:
+                x = x.reshape(x.shape[:lead] + tuple(self._in_dims[i]))
+            else:
+                x = x.reshape(x.shape[:lead] + (-1,))
+            flat.append(x)
+        y = torch.cat(flat, dim=-1)
+        if "b" in params:
+            b = params["b"]
+            y = y + (b.reshape(y.shape[-3:]) if self._image else b)
+        y = self.apply_activation_and_dropout(y, ctx, seq_lens)
+        return Arg(value=y, seq_lens=seq_lens, subseq_lens=subseq_lens)
+
+
+@LAYERS.register("scaling")
+class ScalingLayer(Layer):
+    """y = scalar_input * vector_input (gserver/layers/ScalingLayer.cpp).
+    inputs: [weight (dim 1), x]."""
+
+    def build(self, in_specs):
+        return in_specs[1], {}
+
+    def forward(self, params, inputs, ctx):
+        return inputs[1].with_value(inputs[0].value * inputs[1].value)

@@ -77,14 +77,6 @@ def reciprocal(x):
 def sequence_softmax_unmasked(x):
     """Placeholder registration, as in the JAX package: the masked
     softmax over the time axis needs the lengths, and
-    Layer.apply_activation_and_dropout routes there (masked_softmax)."""
+    Layer.apply_activation_and_dropout routes there
+    (ops/sequence_ops.py::masked_softmax)."""
     return torch.softmax(x, dim=-1)
-
-
-def masked_softmax(x, seq_lens):
-    """Softmax over the time axis of [B, T] with padding masked out
-    (the sequence_softmax activation)."""
-    pos = torch.arange(x.shape[1], device=x.device)
-    m = (pos[None, :] < seq_lens[:, None]).to(x.dtype)
-    z = torch.where(m > 0, x, torch.full_like(x, -1e30))
-    return torch.softmax(z, dim=1) * m

@@ -15,12 +15,14 @@ import pytest
 
 from paddle_tpu.core import registry as jregistry
 from paddle_tpu.models import lm as jlm
+from paddle_tpu.models import text as jtext
 from paddle_tpu_torch.core import registry as tregistry
 from paddle_tpu_torch.models import lm as tlm
+from paddle_tpu_torch.models import text as ttext
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["core/config.py", "dsl.py", "core/registry.py",
-          "trainer/events.py", "models/image.py"]
+          "trainer/events.py", "models/image.py", "models/text.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -44,6 +46,29 @@ def test_transformer_lm_conf_is_the_same(impl):
         dataclasses.asdict(lc) for lc in jconf.layers]
 
 
+# the two bench confs at their published widths (bench.py bench_lstm,
+# bench_nmt), and the tagger the sequence slice runs too
+TEXT_CONFS = {
+    "classifier_h256": ("stacked_lstm_classifier",
+                        dict(vocab_size=30000, emb_dim=128, hidden=256)),
+    "classifier_h1280": ("stacked_lstm_classifier",
+                         dict(vocab_size=30000, emb_dim=128, hidden=1280)),
+    "nmt": ("seq2seq_attention", dict(src_vocab=30000, trg_vocab=30000,
+                                      emb_dim=512, hidden=512)),
+    "tagger": ("bidi_lstm_tagger", {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TEXT_CONFS))
+def test_text_conf_is_the_same(name):
+    fn, kw = TEXT_CONFS[name]
+    jconf = getattr(jtext, fn)(**kw)
+    tconf = getattr(ttext, fn)(**kw)
+    assert tconf.to_json() == jconf.to_json()
+    assert [dataclasses.asdict(lc) for lc in tconf.layers] == [
+        dataclasses.asdict(lc) for lc in jconf.layers]
+
+
 def test_port_has_its_own_registries():
     import paddle_tpu_torch.layers  # noqa: F401
     import paddle_tpu_torch.optimizers  # noqa: F401
@@ -51,12 +76,16 @@ def test_port_has_its_own_registries():
     for name in ("LAYERS", "ACTIVATIONS", "OPTIMIZERS", "LR_SCHEDULERS"):
         assert getattr(tregistry, name) is not getattr(jregistry, name)
     assert tregistry.LAYERS.names() == sorted([
-        "addto", "attention", "batch_norm", "classification_cost", "conv",
+        "addto", "attention", "average", "batch_norm",
+        "classification_cost", "concat", "concat2", "conv",
         "cross_entropy", "cudnn_batch_norm", "cudnn_conv", "cudnn_pool",
-        "data", "embedding", "exconv", "fc", "fused_bottleneck_tail",
-        "fused_conv1x1_bn", "mse", "multi-class-cross-entropy",
-        "multi_head_attention", "pool", "softmax_with_cross_entropy",
-        "square_error", "sum_of_squares"])
+        "data", "embedding", "exconv", "expand", "fc",
+        "fused_bottleneck_tail", "fused_conv1x1_bn", "gated_recurrent",
+        "gru", "grumemory", "last_seq", "lstm", "lstmemory", "max", "mse",
+        "multi-class-cross-entropy", "multi_head_attention", "pool",
+        "recurrent", "recurrent_group", "recurrent_layer_group", "scaling",
+        "seqlastins", "seqpool", "sequence_pool",
+        "softmax_with_cross_entropy", "square_error", "sum_of_squares"])
     assert tregistry.OPTIMIZERS.names() == ["adam", "momentum", "sgd"]
     assert tregistry.LR_SCHEDULERS.names() == jregistry.LR_SCHEDULERS.names()
     assert tregistry.ACTIVATIONS.names() == jregistry.ACTIVATIONS.names()

@@ -1,0 +1,370 @@
+"""The port's LSTM/GRU sequence ops (`paddle_tpu_torch/ops/rnn.py`) and
+sequence ops against the JAX package's, on the CPU.
+
+The same numpy inputs (a numpy seed; B = 5, T = 13, h = 32, lengths
+[13, 0, 1, 7, 12]) go through `paddle_tpu/ops/pallas_rnn.py` — its scan
+references `lstm_ref`/`gru_ref` and its Pallas kernels in interpret
+mode, as `test_pallas_kernels.py` runs them, once with the default VMEM
+budget (one time block) and once with the budget patched down so that
+the kernels walk two time blocks and carry h/c across the boundary —
+and through the port's plain versions and autograd Functions:
+
+- forward: `lstm_plain` (y and the cell sequence c) and `gru_plain`
+  within 1e-5 (atol) of both JAX versions;
+- backward: `lstm_bwd_plain`/`gru_bwd_plain` and autograd through
+  `LstmSeq`/`GruSeq` within 2e-4 (atol) of `jax.vjp` of the
+  interpret-mode kernels;
+- every function of `ops/sequence_ops.py` against the JAX original
+  (exact up to f32 summation order, 1e-6).
+
+`TestOnCard` (marked `cuda`) holds the four Hopper kernels against
+their plain versions on the card and shows that one autograd step
+launches each once. It skips here; on a machine with an H100 and no
+JAX: `python -m pytest --noconftest -m cuda tests/test_torch_rnn.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+try:  # the CPU parity tests need JAX; the on-card tests do not
+    import jax
+    import jax.numpy as jnp
+
+    import paddle_tpu.ops.pallas_rnn as pr
+    from paddle_tpu.ops import sequence_ops as jsops
+except ImportError:
+    jax = None
+
+from paddle_tpu_torch.ops import rnn
+from paddle_tpu_torch.ops import sequence_ops as tsops
+
+B, T, H = 5, 13, 32
+LENS = np.asarray([13, 0, 1, 7, 12], np.int32)
+# the patched budgets put the JAX kernels' T = 13 in two time blocks of 8
+# (forward and backward, LSTM and GRU; checked by test_small_budget_...)
+SMALL_BUDGET, SMALL_BUDGET_BWD = 120_000, 300_000
+
+needs_jax = pytest.mark.skipif(jax is None, reason="needs JAX (CPU parity)")
+
+
+def _lstm_inputs(seed=0, b=B, t=T, h=H, w_scale=0.3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, 4 * h)).astype(np.float32)
+    w = (rng.standard_normal((h, 4 * h)) * w_scale).astype(np.float32)
+    gb = (rng.standard_normal(4 * h) * 0.1).astype(np.float32)
+    peep = [(rng.standard_normal(h) * 0.1).astype(np.float32)
+            for _ in range(3)]
+    dy = rng.standard_normal((b, t, h)).astype(np.float32)
+    return [x, w, gb, *peep], dy
+
+
+def _gru_inputs(seed=1, b=B, t=T, h=H, w_scale=0.3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, 3 * h)).astype(np.float32)
+    w_g = (rng.standard_normal((h, 2 * h)) * w_scale).astype(np.float32)
+    w_c = (rng.standard_normal((h, h)) * w_scale).astype(np.float32)
+    bias = (rng.standard_normal(3 * h) * 0.1).astype(np.float32)
+    dy = rng.standard_normal((b, t, h)).astype(np.float32)
+    return [x, w_g, w_c, bias], dy
+
+
+def _t(arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _b7(args):
+    return torch.cat(_t(args[2:6]))
+
+
+@pytest.fixture(params=["default_budget", "small_budget"])
+def budget(request, monkeypatch):
+    if request.param == "small_budget":
+        monkeypatch.setattr(pr, "_VMEM_BUDGET", SMALL_BUDGET)
+        monkeypatch.setattr(pr, "_VMEM_BUDGET_BWD", SMALL_BUDGET_BWD)
+    return request.param
+
+
+@needs_jax
+def test_small_budget_splits_time_into_two_blocks(monkeypatch):
+    monkeypatch.setattr(pr, "_VMEM_BUDGET", SMALL_BUDGET)
+    monkeypatch.setattr(pr, "_VMEM_BUDGET_BWD", SMALL_BUDGET_BWD)
+    for plan in (pr._lstm_plan, pr._lstm_bwd_plan, pr._gru_plan,
+                 pr._gru_bwd_plan):
+        _bb, tb, _bp, tp = plan(B, T, H)
+        assert tp // tb == 2, plan.__name__
+
+
+@needs_jax
+def test_lstm_forward_matches_jax(budget):
+    args, _ = _lstm_inputs()
+    ja = [jnp.asarray(a) for a in args]
+    jl = jnp.asarray(LENS)
+    ref = np.asarray(pr.lstm_ref(*ja, jl))
+    kern = np.asarray(pr.lstm_fused(*ja, jl, True))
+    b7 = jnp.concatenate(ja[2:6])[None, :]
+    _y, jc = pr._lstm_fwd_pallas(ja[0], ja[1], b7, jl[:, None],
+                                 interpret=True, want_c=True)
+    y, c = rnn.lstm_plain(*_t(args), torch.from_numpy(LENS), want_c=True)
+    np.testing.assert_allclose(y.numpy(), ref, atol=1e-5)
+    np.testing.assert_allclose(y.numpy(), kern, atol=1e-5)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=1e-5)
+    np.testing.assert_array_equal(y.numpy()[1], 0.0)     # len 0
+
+
+@needs_jax
+def test_gru_forward_matches_jax(budget):
+    args, _ = _gru_inputs()
+    ja = [jnp.asarray(a) for a in args]
+    jl = jnp.asarray(LENS)
+    y = rnn.gru_plain(*_t(args), torch.from_numpy(LENS)).numpy()
+    np.testing.assert_allclose(y, np.asarray(pr.gru_ref(*ja, jl)), atol=1e-5)
+    np.testing.assert_allclose(y, np.asarray(pr.gru_fused(*ja, jl, True)),
+                               atol=1e-5)
+    np.testing.assert_array_equal(y[1], 0.0)
+
+
+@needs_jax
+def test_lstm_backward_matches_jax(budget):
+    args, dy = _lstm_inputs(seed=2)
+    jl = jnp.asarray(LENS)
+    _y, vjp = jax.vjp(lambda *a: pr.lstm_fused(*a, jl, True),
+                      *(jnp.asarray(a) for a in args))
+    jx, jw, jgb, jci, jcf, jco = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    jb7 = np.concatenate([jgb, jci, jcf, jco])
+    x, w = _t(args[:2])
+    b7, lens, tdy = _b7(args), torch.from_numpy(LENS), torch.from_numpy(dy)
+    y, c = rnn.lstm_plain(x, w, *_t(args[2:6]), lens, want_c=True)
+    for name, got in zip(("dx", "dw", "db7"),
+                         rnn.lstm_bwd_plain(x, w, b7, lens, y, c, tdy)):
+        np.testing.assert_allclose(got.numpy(), {"dx": jx, "dw": jw,
+                                                 "db7": jb7}[name],
+                                   atol=2e-4, err_msg=name)
+    leaves = [v.clone().requires_grad_(True) for v in (x, w, b7)]
+    before = (rnn.lstm_fwd_launches, rnn.lstm_bwd_launches)
+    rnn.LstmSeq.apply(*leaves, lens).backward(tdy)
+    assert (rnn.lstm_fwd_launches, rnn.lstm_bwd_launches) == before
+    for leaf, want in zip(leaves, (jx, jw, jb7)):
+        np.testing.assert_allclose(leaf.grad.numpy(), want, atol=2e-4)
+
+
+@needs_jax
+def test_gru_backward_matches_jax(budget):
+    args, dy = _gru_inputs(seed=3)
+    jl = jnp.asarray(LENS)
+    _y, vjp = jax.vjp(lambda *a: pr.gru_fused(*a, jl, True),
+                      *(jnp.asarray(a) for a in args))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    targs = _t(args)
+    lens, tdy = torch.from_numpy(LENS), torch.from_numpy(dy)
+    y = rnn.gru_plain(*targs, lens)
+    for name, got, w in zip(("dx", "dw_g", "dw_c", "db"),
+                            rnn.gru_bwd_plain(*targs, lens, y, tdy), want):
+        np.testing.assert_allclose(got.numpy(), w, atol=2e-4, err_msg=name)
+    leaves = [v.clone().requires_grad_(True) for v in targs]
+    before = (rnn.gru_fwd_launches, rnn.gru_bwd_launches)
+    rnn.GruSeq.apply(*leaves, lens).backward(tdy)
+    assert (rnn.gru_fwd_launches, rnn.gru_bwd_launches) == before
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), w, atol=2e-4)
+
+
+def test_entry_points_take_the_plain_versions_on_the_cpu():
+    """lstm_fused without gradients is the plain forward; with them the
+    autograd Function, whose gradient is autograd's through the plain
+    forward. gru_fused likewise. No kernel is counted."""
+    args, dy = _lstm_inputs(seed=4, h=8)
+    lens = torch.from_numpy(LENS)
+    counters = ("lstm_fwd_launches", "lstm_fwd_infer_launches",
+                "lstm_bwd_launches", "gru_fwd_launches", "gru_bwd_launches")
+    before = [getattr(rnn, c) for c in counters]
+    with torch.no_grad():
+        y = rnn.lstm_fused(*_t(args), lens)
+    torch.testing.assert_close(y, rnn.lstm_plain(*_t(args), lens))
+    leaves = [a.requires_grad_(True) for a in _t(args)]
+    rnn.lstm_fused(*leaves, lens).backward(torch.from_numpy(dy))
+    ref = [a.requires_grad_(True) for a in _t(args)]
+    rnn.lstm_plain(*ref, lens).backward(torch.from_numpy(dy))
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-5)
+    gargs, gdy = _gru_inputs(seed=5, h=8)
+    leaves = [a.requires_grad_(True) for a in _t(gargs)]
+    rnn.gru_fused(*leaves, lens).backward(torch.from_numpy(gdy))
+    ref = [a.requires_grad_(True) for a in _t(gargs)]
+    rnn.gru_plain(*ref, lens).backward(torch.from_numpy(gdy))
+    for a, b in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=1e-5)
+    assert [getattr(rnn, c) for c in counters] == before
+
+
+def test_kernel_wrappers_refuse_the_cpu():
+    args, dy = _lstm_inputs(h=4)
+    x, w = _t(args[:2])
+    lens = torch.from_numpy(LENS)
+    b7, y = _b7(args), torch.from_numpy(dy)
+    for call in (lambda: rnn.lstm_seq_fwd(x, w, b7, lens),
+                 lambda: rnn.lstm_seq_bwd(x, w, b7, lens, y, y, y)):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+    gargs, gdy = _gru_inputs(h=4)
+    g = _t(gargs)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rnn.gru_seq_fwd(*g, lens)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rnn.gru_seq_bwd(*g, lens, torch.from_numpy(gdy),
+                        torch.from_numpy(gdy))
+
+
+# ---- sequence ops ---------------------------------------------------------
+
+def _seq_case(name):
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((B, T, 6)).astype(np.float32)
+    v = rng.standard_normal((B, 6)).astype(np.float32)
+    sub = np.asarray([[5, 7, 0], [0, 0, 0], [1, 0, 0], [3, 3, 1],
+                      [2, 4, 6]], np.int32)
+    lens2 = np.asarray([2, 4, 0, 9, 1], np.int32)
+    cases = {
+        "seq_sum": ("seq_sum", (x, LENS)),
+        "seq_avg": ("seq_avg", (x, LENS)),
+        "seq_sqrt_avg": ("seq_sqrt_avg", (x, LENS)),
+        "seq_max": ("seq_max", (x, LENS)),
+        "seq_last": ("seq_last", (x, LENS)),
+        "seq_first": ("seq_first", (x, LENS)),
+        "expand_to_seq": ("expand_to_seq", (v, LENS, T)),
+        "masked_softmax": ("masked_softmax", (x[..., 0], LENS)),
+        "reverse_seq": ("reverse_seq", (x, LENS)),
+        "seq_concat": ("seq_concat", (x, LENS, x[:, :9] * 2, lens2)),
+        "seq_shift_fwd": ("seq_shift", (x, LENS, 2)),
+        "seq_shift_back": ("seq_shift", (x, LENS, -3)),
+        "seq_slice_window": ("seq_slice_window", (x, LENS, 3, 6)),
+        "subseq_to_seq_lens": ("subseq_to_seq_lens", (sub,)),
+    }
+    for op in ("sum", "avg", "sqrt_avg", "max", "last", "first"):
+        cases[f"subseq_pool_{op}"] = ("subseq_pool", (x, sub, op))
+    return cases[name]
+
+
+SEQ_CASES = ["seq_sum", "seq_avg", "seq_sqrt_avg", "seq_max", "seq_last",
+             "seq_first", "expand_to_seq", "masked_softmax", "reverse_seq",
+             "seq_concat", "seq_shift_fwd", "seq_shift_back",
+             "seq_slice_window", "subseq_to_seq_lens"] + [
+    f"subseq_pool_{op}" for op in ("sum", "avg", "sqrt_avg", "max", "last",
+                                   "first")]
+
+
+@needs_jax
+@pytest.mark.parametrize("name", SEQ_CASES)
+def test_sequence_op_matches_jax(name):
+    fn, args = _seq_case(name)
+    jout = getattr(jsops, fn)(*(jnp.asarray(a) if isinstance(a, np.ndarray)
+                                else a for a in args))
+    tout = getattr(tsops, fn)(*(torch.from_numpy(a)
+                                if isinstance(a, np.ndarray) else a
+                                for a in args))
+    if not isinstance(jout, tuple):
+        jout, tout = (jout,), (tout,)
+    for j, t in zip(jout, tout):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+
+
+# ---- on the card --------------------------------------------------------
+
+# (B, T, h, lens): the chip smoke's path shapes cut in T, the bench's
+# other widths, and a ragged case with a zero length and a length of 1.
+# The recurrent weights have the layers' init scale 1/sqrt(h): at a fixed
+# 0.3 the recurrence of a wide GRU amplifies f32 rounding step by step
+# (both the kernel's and the plain version's) past the tolerance.
+CARD_CASES = {
+    "b64_t12_h256": (64, 12, 256, None),
+    "b20_t9_h512": (20, 9, 512, None),
+    "b9_t5_h1280": (9, 5, 1280, None),
+    "ragged_b5_t13_h32": (5, 13, 32, LENS),
+    "ragged_b11_t7_h100": (11, 7, 100, [7, 0, 1, 3, 7, 2, 6, 5, 4, 1, 7]),
+}
+
+
+@pytest.mark.cuda
+class TestOnCard:
+    """The kernels against their plain versions on the card: max |diff|
+    / max |plain| <= 1e-4 for every output (f32, other summation
+    orders), and exactly 0 past each row's length."""
+
+    @pytest.fixture(autouse=True)
+    def _card(self):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+
+    @staticmethod
+    def _rel(got, ref):
+        return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)
+                ).item()
+
+    @staticmethod
+    def _lens(b, t, lens):
+        lens = np.full(b, t, np.int32) if lens is None else np.asarray(
+            lens, np.int32)
+        return torch.from_numpy(lens).cuda()
+
+    @pytest.mark.parametrize("case", sorted(CARD_CASES))
+    def test_lstm_kernels_match_plain(self, case):
+        b, t, h, lens = CARD_CASES[case]
+        args, dy = _lstm_inputs(b=b, t=t, h=h, w_scale=h ** -0.5)
+        x, w, gb, ci, cf, co = (a.cuda() for a in _t(args))
+        b7, dy, lens = torch.cat([gb, ci, cf, co]), torch.from_numpy(
+            dy).cuda(), self._lens(b, t, lens)
+        y, c = rnn.lstm_seq_fwd(x, w, b7, lens, want_c=True)
+        y_noc, none = rnn.lstm_seq_fwd(x, w, b7, lens, want_c=False)
+        yp, cp = rnn.lstm_plain(x, w, gb, ci, cf, co, lens, want_c=True)
+        got = rnn.lstm_seq_bwd(x, w, b7, lens, yp, cp, dy)
+        ref = rnn.lstm_bwd_plain(x, w, b7, lens, yp, cp, dy)
+        torch.cuda.synchronize()
+        assert none is None and torch.equal(y, y_noc)
+        dead = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+        assert (y[dead] == 0).all()
+        for name, a, r in zip(("y", "c", "dx", "dw", "db7"),
+                              (y, c) + got, (yp, cp) + ref):
+            assert torch.isfinite(a).all(), name
+            assert self._rel(a, r) <= 1e-4, (name, self._rel(a, r))
+        assert (got[0][dead] == 0).all()
+
+    @pytest.mark.parametrize("case", sorted(CARD_CASES))
+    def test_gru_kernels_match_plain(self, case):
+        b, t, h, lens = CARD_CASES[case]
+        args, dy = _gru_inputs(b=b, t=t, h=h, w_scale=h ** -0.5)
+        x, w_g, w_c, bias = (a.cuda() for a in _t(args))
+        dy, lens = torch.from_numpy(dy).cuda(), self._lens(b, t, lens)
+        y = rnn.gru_seq_fwd(x, w_g, w_c, bias, lens)
+        yp = rnn.gru_plain(x, w_g, w_c, bias, lens)
+        got = rnn.gru_seq_bwd(x, w_g, w_c, bias, lens, yp, dy)
+        ref = rnn.gru_bwd_plain(x, w_g, w_c, bias, lens, yp, dy)
+        torch.cuda.synchronize()
+        dead = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
+        assert (y[dead] == 0).all()
+        for name, a, r in zip(("y", "dx", "dw_g", "dw_c", "db"),
+                              (y,) + got, (yp,) + ref):
+            assert torch.isfinite(a).all(), name
+            assert self._rel(a, r) <= 1e-4, (name, self._rel(a, r))
+        assert (got[0][dead] == 0).all()
+
+    def test_autograd_step_launches_each_kernel_once(self):
+        lens = torch.from_numpy(LENS).cuda()
+        args, dy = _lstm_inputs()
+        leaves = [a.cuda().requires_grad_(True) for a in _t(args)]
+        gargs, gdy = _gru_inputs()
+        gleaves = [a.cuda().requires_grad_(True) for a in _t(gargs)]
+        before = (rnn.lstm_fwd_launches, rnn.lstm_bwd_launches,
+                  rnn.gru_fwd_launches, rnn.gru_bwd_launches)
+        rnn.lstm_fused(*leaves, lens).backward(torch.from_numpy(dy).cuda())
+        rnn.gru_fused(*gleaves, lens).backward(torch.from_numpy(gdy).cuda())
+        torch.cuda.synchronize()
+        assert (rnn.lstm_fwd_launches, rnn.lstm_bwd_launches,
+                rnn.gru_fwd_launches, rnn.gru_bwd_launches) == tuple(
+            n + 1 for n in before)
+        for fn, ls, d in ((rnn.lstm_plain, leaves, dy),
+                          (rnn.gru_plain, gleaves, gdy)):
+            ref = [a.detach().requires_grad_(True) for a in ls]
+            fn(*ref, lens).backward(torch.from_numpy(d).cuda())
+            for a, r in zip(ls, ref):
+                assert self._rel(a.grad, r.grad) <= 1e-4
