@@ -5,7 +5,7 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in fourteen phases, and any failure exits non-zero:
+`paddle_tpu` — in nineteen phases, and any failure exits non-zero:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA
    versions; TF32 off;
@@ -97,7 +97,33 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
     loss falls, ms/step, tokens/s, peak memory and the profile table,
     and the kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
     (NMT) a step;
-14. prints the kernels' JSON line and, last, the device line.
+14. holds the sparse-row kernels (B9, `csrc/sparse_rows.cu`: the rule
+    kernel and the generic route's gather and scatter) against their
+    plain PyTorch version at the two bench shapes (V = 2^20 x 64, N =
+    65 536 and 16 384, momentum), SGD, adagrad, a user's function,
+    overflow, 16 384 occurrences on 100 ids, D = 4/16/128 and ids >= V:
+    the touched rows and slots within 1e-6 of the largest, every other
+    row bit-equal to the start, the kernel bit-identical run to run;
+    times kernel, torch.sort, the plain version, SGD's index_add_ (a
+    yardstick only) and the bounds;
+15. the standalone update as bench.py::bench_sparse_ctr: momentum
+    tables of 2^20 and 2^22 x 64, 65 536 ids a step, 20 steps a
+    `SparseUpdater.run_steps`, held against 20 plain steps (rtol 1e-5,
+    atol 1e-6), ms a step and the V ratio; at 2^20 the bench's own
+    update function through the generic route too;
+16. the wide&deep large-table train step as
+    bench.py::bench_ctr_widedeep_sparse (bs 256, t 64, tower 64/32/2,
+    dense SGD 0.05, row momentum 0.01/0.9) at V = 2^20 and 2^22: one
+    step kernel route vs plain route within 1e-6, then 5 warm and 5 x
+    10 timed steps, examples/s, the V ratio and a profile;
+17. the sharded embedding tier (2^30 logical rows x 64, 2^18 cached,
+    adagrad) for 40 steps of 256 x 64 ids from a hot set of 2^20 ids,
+    one shard, then 5 steps with 8 shards and hash placement, each held
+    against the same steps of a CPU table through the export payloads;
+18. the CTR models through SGD: ctr_wide_deep at its defaults, adam
+    0.02, 30 steps on one batch of 256 x 64 features (the loss halves),
+    and one ctr_linear step with adagrad;
+19. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -494,20 +520,18 @@ def lm_feed(batch):
             "label": id_arg(lbl, lens, device="cuda")}
 
 
-def profile_steps(torch, sgd, feed, steps=5):
-    """Where a train step's time goes: `steps` steps under
-    torch.profiler, after the counted run (these launches are not the
-    main path's). Returns the device's kernel ms per step and the eight
-    kernels with the most device time; None when the profiler sees no
-    device time."""
+def profile_fn(torch, fn, steps=5):
+    """Where the time of fn() goes: `steps` calls under torch.profiler.
+    Returns the device's kernel ms per call and the eight kernels with
+    the most device time; None when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    sgd.train_batch(feed)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            sgd.train_batch(feed)
+            fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages()
@@ -523,6 +547,13 @@ def profile_steps(torch, sgd, feed, steps=5):
                  e.self_device_time_total / steps / 1e3,
                  "calls_per_step": e.count / steps} for e in top],
     }
+
+
+def profile_steps(torch, sgd, feed, steps=5):
+    """Where a train step's time goes: `steps` steps under
+    torch.profiler, after the counted run (these launches are not the
+    main path's)."""
+    return profile_fn(torch, lambda: sgd.train_batch(feed), steps)
 
 
 def train_lm(torch, fa):
@@ -1464,6 +1495,623 @@ def text_training(torch, rnn):
     return held, runs
 
 
+# ---- the sparse CTR slice: B9, SparseUpdater, the sharded tier, CTR ------
+
+# bench.py::bench_sparse_ctr (:771) and bench_ctr_widedeep_sparse (:835)
+SP_D = 64
+SP_TOUCHED = 65536
+SP_INNER = 20
+SP_V = (1 << 20, 1 << 22)
+SP_LR, SP_MU = 0.01, 0.9
+WD_BS, WD_T, WD_H1, WD_H2 = 256, 64, 64, 32
+WD_DENSE_LR = 0.05
+WD_WARM, WD_WINDOWS, WD_INNER = 5, 5, 10
+WD_DENSE = ("w1", "b1", "w2", "b2", "wo")
+# the sharded tier (phase 17)
+TIER = dict(rows_total=1 << 30, dim=64, capacity=1 << 18, num_slots=16384)
+TIER_HOT, TIER_STEPS, TIER_SHARDED_STEPS = 1 << 20, 40, 5
+# the CTR models (phase 18): models/ctr.py's defaults, adam 0.02 as
+# tests/test_compat_ctr.py; a label is 1 when a feature id < CTR_CLICK,
+# which makes about half of the 64-feature examples 1
+CTR_B, CTR_F, CTR_STEPS, CTR_CLICK = 256, 64, 30, 1080
+SPARSE_TOL = 1e-6
+SPARSE_COUNTERS = ("sparse_row_update_launches",
+                   "sparse_row_gather_launches",
+                   "sparse_row_scatter_launches")
+
+
+def zero_sparse_counts(sr):
+    for name in SPARSE_COUNTERS:
+        setattr(sr, name, 0)
+
+
+def sparse_counts(sr):
+    return {name: getattr(sr, name) for name in SPARSE_COUNTERS}
+
+
+def momentum_upd(p, g, m):
+    """bench.py's `upd` (:790-792) as a user's function: the generic
+    route."""
+    m2 = 0.9 * m + g
+    return p - 0.01 * m2, m2
+
+
+def sparse_rules(tss):
+    return {"sgd": (tss.sgd_row_update(0.5), 0),
+            "momentum": (tss.momentum_row_update(SP_LR, SP_MU), 1),
+            "adagrad": (tss.adagrad_row_update(0.1), 1),
+            "lambda_state": (momentum_upd, 1),
+            "lambda": (lambda p, g: p * 0.99 - 0.25 * g, 0)}
+
+
+# (name, rule, V, D, N, num_slots or None, id range or None for V,
+#  number of distinct ids or None): the two bench shapes, every rule and
+# route, overflow, heavy duplication, D of 4/16/128 and ids >= V
+SPARSE_CASES = [
+    ("bench_momentum_v1m_d64_n65536", "momentum", 1 << 20, 64, 65536, None,
+     None, None),
+    ("widedeep_momentum_v1m_d64_n16384", "momentum", 1 << 20, 64, 16384,
+     None, None, None),
+    ("bench_sgd_v1m_d64_n65536", "sgd", 1 << 20, 64, 65536, None, None,
+     None),
+    ("adagrad_v1m_d64_n16384", "adagrad", 1 << 20, 64, 16384, None, None,
+     None),
+    ("bench_lambda_state_v1m_d64_n65536", "lambda_state", 1 << 20, 64,
+     65536, None, None, None),
+    ("lambda_v100k_d16_n4096", "lambda", 100000, 16, 4096, None, None,
+     None),
+    ("overflow_momentum_v64k_d64_n8192_k1024", "momentum", 1 << 16, 64,
+     8192, 1024, None, None),
+    ("heavy_dup_momentum_v1m_d64_n16384_100ids", "momentum", 1 << 20, 64,
+     16384, None, None, 100),
+    ("sgd_v64k_d4_n8192", "sgd", 1 << 16, 4, 8192, None, None, None),
+    ("adagrad_v64k_d16_n8192", "adagrad", 1 << 16, 16, 8192, None, None,
+     None),
+    ("momentum_v64k_d128_n8192", "momentum", 1 << 16, 128, 8192, None,
+     None, None),
+    ("ids_past_v_adagrad_v1000_d5_n4000", "adagrad", 1000, 5, 4000, None,
+     1300, None),
+]
+
+
+def sparse_inputs(torch, gen, v, d, n, n_state, high, distinct):
+    dev = torch.device("cuda")
+    p = torch.randn((v, d), generator=gen, device=dev)
+    # adagrad's accumulator is never negative
+    s = [torch.rand((v, d), generator=gen, device=dev)
+         for _ in range(n_state)]
+    if distinct:
+        pick = torch.randperm(v, generator=gen, device=dev)[:distinct]
+        ids = pick[torch.randint(0, distinct, (n,), generator=gen,
+                                 device=dev)]
+    else:
+        ids = torch.randint(0, high or v, (n,), generator=gen, device=dev)
+    g = torch.randn((n, d), generator=gen, device=dev)
+    return [p, *s], ids.to(torch.int32), g
+
+
+def sparse_bytes(n, k, kv, d, n_tables):
+    """Bytes a B9 step must move: the N gradient rows, the int32
+    perm/uids/off once, each valid touched row of each table read and
+    written once."""
+    return n * d * 4 + (n + 2 * k + 1) * 4 + 2 * n_tables * kv * d * 4
+
+
+def check_sparse(torch, sr, tss, case, gen):
+    """Kernel route vs plain version on the card at one case: the touched
+    rows within SPARSE_TOL of the largest, every other row bit-equal to
+    the start, the kernel bit-identical over two runs."""
+    name, rule_name, v, d, n, k, high, distinct = case
+    fn, n_state = sparse_rules(tss)[rule_name]
+    start, ids, g = sparse_inputs(torch, gen, v, d, n, n_state, high,
+                                  distinct)
+    k = k or n
+    runs = []
+    for _ in range(2):
+        tabs = [t.clone() for t in start]
+        sr.sparse_rows(fn, tabs, ids, g, k, v)
+        runs.append(tabs)
+    plain = [t.clone() for t in start]
+    sr.sparse_rows_plain(fn, plain, ids, g, k, v)
+    torch.cuda.synchronize()
+    uids, _perm, _off = sr.kernel_indices(ids, k)
+    valid = uids[(uids >= 0) & (uids < v)].long()
+    touched = torch.zeros(v, dtype=torch.bool, device="cuda")
+    touched[valid] = True
+    errs, diffs = [], []
+    for got, again, ref, s in zip(runs[0], runs[1], plain, start):
+        assert torch.equal(got, again), f"{name}: not bit-identical run to run"
+        assert torch.equal(got[~touched], s[~touched]), (
+            f"{name}: a row not touched changed")
+        rel, diff = rel_err(got[touched], ref[touched])
+        assert np.isfinite(rel) and rel <= SPARSE_TOL, (
+            f"{name}: {rel:.3g} > {SPARSE_TOL}")
+        errs.append(rel)
+        diffs.append(diff)
+    r = {"case": name, "rule": rule_name, "V": v, "D": d, "N": n, "k": k,
+         "touched": int(valid.numel()), "rel_err": max(errs),
+         "max_abs_err": max(diffs)}
+    print("sparse " + json.dumps(r), flush=True)
+    return r
+
+
+def time_sparse(torch, sr, tss, case, gen):
+    """Times at one shape: the B9 launch alone (kernel_indices done
+    once), torch.sort alone, the whole preparation, the plain version,
+    and — for SGD — `index_add_` (the one PyTorch call computing the
+    same function); for the generic route the gather and scatter
+    kernels. Warm, CUDA events, the same inputs every rep."""
+    name, rule_name, v, d, n, k, high, distinct = case
+    fn, n_state = sparse_rules(tss)[rule_name]
+    tabs, ids, g = sparse_inputs(torch, gen, v, d, n, n_state, high,
+                                 distinct)
+    k = k or n
+    uids, perm, off = sr.kernel_indices(ids, k)
+    kv = int(((uids >= 0) & (uids < v)).sum())
+    flat = ids.long()
+    r = {"case": name, "V": v, "D": d, "N": n, "k": k, "touched": kv,
+         "sort_ms": time_ms(torch, lambda: torch.sort(flat, stable=True)),
+         "prep_ms": time_ms(torch, lambda: sr.kernel_indices(ids, k)),
+         "plain_ms": time_ms(torch, lambda: sr.sparse_rows_plain(
+             fn, tabs, ids, g, k, v), reps=5)}
+    if isinstance(fn, sr.RowRule):
+        r["ms"] = time_ms(torch, lambda: sr.update_kernel(
+            fn, tabs, g, uids, perm, off, v))
+        r["wrapper_ms"] = time_ms(torch, lambda: sr.sparse_rows(
+            fn, tabs, ids, g, k, v))
+        nbytes = sparse_bytes(n, k, kv, d, len(tabs))
+        if rule_name == "sgd":
+            r["library_ms"] = time_ms(torch, lambda: tabs[0].index_add_(
+                0, flat, g, alpha=-fn.lr))
+    else:
+        gsum, rows = sr.gather_kernel(tabs, g, uids, perm, off, v)
+        r["gather_ms"] = time_ms(torch, lambda: sr.gather_kernel(
+            tabs, g, uids, perm, off, v))
+        r["scatter_ms"] = time_ms(torch, lambda: sr.scatter_kernel(
+            tabs, rows, uids, v))
+        r["wrapper_ms"] = time_ms(torch, lambda: sr.sparse_rows(
+            fn, tabs, ids, g, k, v))
+        # gather: grads, indices, table rows read; gsum and rows written
+        gb = (n * d * 4 + (n + 2 * k + 1) * 4
+              + len(tabs) * (kv + k) * d * 4 + k * d * 4)
+        # scatter: uids and rows read, table rows written
+        sb = k * 4 + len(tabs) * (k + kv) * d * 4
+        r["gather_bound_ms"] = gb / H100_BYTES_PER_S * 1e3
+        r["scatter_bound_ms"] = sb / H100_BYTES_PER_S * 1e3
+        nbytes = gb + sb
+    r["bound_ms"] = nbytes / H100_BYTES_PER_S * 1e3
+    r["bound_by"] = "bytes"
+    print("sparse_time " + json.dumps(r), flush=True)
+    return r
+
+
+def sparse_kernels(torch, sr, tss):
+    """Phase 14: every case held, then the times at the bench shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 140)
+    checks = [check_sparse(torch, sr, tss, c, gen) for c in SPARSE_CASES]
+    times = {c[0]: time_sparse(torch, sr, tss, c, gen)
+             for c in SPARSE_CASES if c[0].startswith(("bench_",
+                                                       "widedeep_"))}
+    return checks, times
+
+
+def sparse_standalone(torch, sr, tsp, tss):
+    """Phase 15, as bench_sparse_ctr: momentum tables at V = 2^20 and
+    2^22 x 64, 65 536 touched ids a step, 20 steps a `run_steps`; the
+    first run counted and held against 20 plain steps from the same
+    start; at 2^20 also the bench's own `upd` as a user function (the
+    generic route). Then the step times, in turns 2^20, 2^22, 2^22,
+    2^20 (2 warm + best of 5 runs each), with the host's enqueue time
+    apart from the wait for the device."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    dev = torch.device("cuda")
+    rule = tss.momentum_row_update(SP_LR, SP_MU)
+    res, state, launches = {}, {}, dict.fromkeys(SPARSE_COUNTERS, 0)
+    for v in SP_V:
+        upd = tsp.SparseUpdater(rule)
+        param = upd.place(torch.zeros((v, SP_D), device=dev))
+        mom = upd.place(torch.zeros((v, SP_D), device=dev))
+        ids_seq = torch.randint(0, v, (SP_INNER, SP_TOUCHED), generator=gen,
+                                device=dev, dtype=torch.int32)
+        grads_seq = torch.randn((SP_INNER, SP_TOUCHED, SP_D), generator=gen,
+                                device=dev)
+        start = (param.clone(), mom.clone())
+        torch.cuda.synchronize()
+        zero_sparse_counts(sr)
+        t0 = time.perf_counter()
+        param, (mom,) = upd.run_steps(param, ids_seq, grads_seq, (mom,))
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3 / SP_INNER
+        counts = sparse_counts(sr)
+        assert counts["sparse_row_update_launches"] == SP_INNER, counts
+        for key in SPARSE_COUNTERS:
+            launches[key] += counts[key]
+        ref = [t.clone() for t in start]
+        for i in range(SP_INNER):
+            sr.sparse_rows_plain(rule, ref, ids_seq[i], grads_seq[i],
+                                 SP_TOUCHED, v)
+        for got, want in zip((param, mom), ref):
+            assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), (
+                f"V={v}: 20 kernel steps differ from 20 plain steps by "
+                f"{(got - want).abs().max().item():.3g}")
+        held = max((got - want).abs().max().item()
+                   for got, want in zip((param, mom), ref))
+        del ref
+        res[v] = {"V": v, "first_run_ms_per_step": first_ms,
+                  "held_max_abs_diff": held, "launches": counts}
+        if v == SP_V[0]:
+            gp, gm = (t.clone() for t in start)
+            generic = tsp.SparseUpdater(momentum_upd)
+            zero_sparse_counts(sr)
+            gp, (gm,) = generic.run_steps(gp, ids_seq, grads_seq, (gm,))
+            torch.cuda.synchronize()
+            gcounts = sparse_counts(sr)
+            assert gcounts == {"sparse_row_update_launches": 0,
+                               "sparse_row_gather_launches": SP_INNER,
+                               "sparse_row_scatter_launches": SP_INNER}, (
+                gcounts)
+            for key in SPARSE_COUNTERS:
+                launches[key] += gcounts[key]
+            for got, want in zip((gp, gm), (param, mom)):
+                assert torch.allclose(got, want, rtol=1e-5, atol=1e-6), (
+                    "generic route differs from the momentum rule")
+            res[v].update(
+                generic_bit_equal=bool(torch.equal(gp, param)
+                                       and torch.equal(gm, mom)),
+                generic_ms_per_step=best_run_ms(
+                    torch, lambda: generic.run_steps(
+                        gp, ids_seq, grads_seq, (gm,)))[0] / SP_INNER,
+                generic_launches=gcounts)
+            del gp, gm
+        del start
+        # the device's share: B9 alone on step 0's indices, and the
+        # kernel time of one profiled run_steps
+        uids, perm, off = sr.kernel_indices(ids_seq[0], SP_TOUCHED)
+        views = [param.view(-1, SP_D), mom.view(-1, SP_D)]
+        res[v]["kernel_ms"] = time_ms(torch, lambda: sr.update_kernel(
+            rule, views, grads_seq[0], uids, perm, off, v))
+        prof = profile_fn(torch, lambda: upd.run_steps(
+            param, ids_seq, grads_seq, (mom,)), steps=1)
+        res[v]["device_ms_per_step"] = (prof["device_ms_per_step"]
+                                        / SP_INNER if prof else None)
+        state[v] = (upd, param, mom, ids_seq, grads_seq)
+    # the host's clock moves between moments on a shared host: time the
+    # two tables in turns
+    for v in (SP_V[0], SP_V[1], SP_V[1], SP_V[0]):
+        upd, param, mom, ids_seq, grads_seq = state[v]
+        total, enqueue = best_run_ms(torch, lambda: upd.run_steps(
+            param, ids_seq, grads_seq, (mom,)))
+        res[v].setdefault("turns_ms_per_step", []).append(total / SP_INNER)
+        res[v].setdefault("turns_enqueue_ms_per_step", []).append(
+            enqueue / SP_INNER)
+    for v in SP_V:
+        res[v]["ms_per_step"] = float(np.mean(res[v]["turns_ms_per_step"]))
+        print("standalone " + json.dumps(res[v]), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    ratio = res[SP_V[1]]["ms_per_step"] / res[SP_V[0]]["ms_per_step"]
+    print(f"standalone time(2^22)/time(2^20) = {ratio:.4f}", flush=True)
+    return {"runs": res, "ratio": ratio, "launches": launches}
+
+
+def best_run_ms(torch, fn, warm=2, reps=5):
+    """(best host-clock ms of fn() followed by a synchronize, the ms
+    that run took to return from fn(): the host's enqueue), after warm
+    calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    best = (float("inf"), None)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        best = min(best, ((time.perf_counter() - t0) * 1e3,
+                          (t1 - t0) * 1e3))
+    return best
+
+
+def widedeep_step(torch, dense, table, ids, labels, apply_rows):
+    """One wide&deep train step as bench_ctr_widedeep_sparse: rows
+    gathered from the placed table, the dense tower (mean pool, 64 -> 64
+    -> 32 -> 2, relu) forward and backward through autograd, SGD 0.05 on
+    the dense weights, then the per-occurrence row gradients applied by
+    `apply_rows(flat ids, grads [N, D])`. Returns the loss."""
+    flat = ids.reshape(-1)
+    rows = table.view(-1, SP_D).index_select(0, flat).view(
+        WD_BS, WD_T, SP_D).requires_grad_(True)
+    params = [dense[k].requires_grad_(True) for k in WD_DENSE]
+    w1, b1, w2, b2, wo = params
+    h = torch.relu(rows.mean(1) @ w1 + b1)
+    h = torch.relu(h @ w2 + b2)
+    logp = torch.log_softmax(h @ wo, dim=-1)
+    loss = -logp.gather(1, labels[:, None]).mean()
+    grads = torch.autograd.grad(loss, [rows, *params])
+    with torch.no_grad():
+        for key, g in zip(WD_DENSE, grads[1:]):
+            dense[key] = dense[key].detach() - WD_DENSE_LR * g
+    apply_rows(flat, grads[0].reshape(-1, SP_D))
+    return loss.detach()
+
+
+def widedeep(torch, sr, tsp, tss):
+    """Phase 16, as bench_ctr_widedeep_sparse at V = 2^20 and 2^22: a
+    held step (kernel route vs plain route) at 2^20, then 5 warm steps
+    and 5 windows of 10 timed steps (sync on the table at each window's
+    end), counted, and a profile of 5 more steps."""
+    dev = torch.device("cuda")
+    rule = tss.momentum_row_update(SP_LR, SP_MU)
+    n = WD_BS * WD_T
+    res, launches, held = {}, 0, None
+    for v in SP_V:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+        upd = tsp.SparseUpdater(rule)
+        table = upd.place(torch.randn((v, SP_D), generator=gen, device=dev)
+                          * 0.01)
+        mom = upd.place(torch.zeros((v, SP_D), device=dev))
+        dense = {
+            "w1": torch.randn((SP_D, WD_H1), generator=gen, device=dev) * 0.05,
+            "b1": torch.zeros(WD_H1, device=dev),
+            "w2": torch.randn((WD_H1, WD_H2), generator=gen, device=dev)
+            * 0.05,
+            "b2": torch.zeros(WD_H2, device=dev),
+            "wo": torch.randn((WD_H2, 2), generator=gen, device=dev) * 0.05,
+        }
+        ids = torch.randint(0, v, (WD_BS, WD_T), generator=gen, device=dev,
+                            dtype=torch.int32)
+        labels = torch.randint(0, 2, (WD_BS,), generator=gen, device=dev)
+
+        def kernel_rows(flat, g, table=table, mom=mom, upd=upd):
+            upd(table, flat, g, (mom,))
+
+        if v == SP_V[0]:
+            start = (table.clone(), mom.clone(), dict(dense))
+            pt, pm, pd = start[0].clone(), start[1].clone(), dict(start[2])
+            kt, km, kd = start[0].clone(), start[1].clone(), dict(start[2])
+            lp = widedeep_step(torch, pd, pt, ids, labels, lambda f, g:
+                               sr.sparse_rows_plain(rule, [pt, pm], f, g, n,
+                                                    v))
+            lk = widedeep_step(torch, kd, kt, ids, labels, lambda f, g:
+                               upd(kt, f, g, (km,)))
+            torch.cuda.synchronize()
+            rel_loss = abs(lk.item() - lp.item()) / abs(lp.item())
+            errs = [rel_err(a, b)[0] for a, b in ((kt, pt), (km, pm))]
+            errs += [rel_err(kd[key], pd[key])[0] for key in WD_DENSE]
+            held = {"loss": lk.item(), "loss_rel_err": rel_loss,
+                    "table_rel_err": errs[0], "mom_rel_err": errs[1],
+                    "dense_rel_err": max(errs[2:])}
+            print("widedeep_held " + json.dumps(held), flush=True)
+            assert rel_loss <= SPARSE_TOL and max(errs) <= SPARSE_TOL, held
+            del start, pt, pm, pd, kt, km, kd
+        torch.cuda.synchronize()
+        zero_sparse_counts(sr)
+        losses = [widedeep_step(torch, dense, table, ids, labels, kernel_rows)
+                  for _ in range(WD_WARM)]
+        best = float("inf")
+        for _ in range(WD_WINDOWS):
+            t0 = time.perf_counter()
+            for _ in range(WD_INNER):
+                losses.append(widedeep_step(torch, dense, table, ids, labels,
+                                            kernel_rows))
+            table[0].sum().item()      # the window ends when the table does
+            best = min(best, (time.perf_counter() - t0) * 1e3 / WD_INNER)
+        counts = sparse_counts(sr)
+        want = WD_WARM + WD_WINDOWS * WD_INNER
+        assert counts["sparse_row_update_launches"] == want, counts
+        launches += want
+        losses = torch.stack(losses).cpu().numpy()
+        assert np.isfinite(losses).all(), "a wide&deep loss is not finite"
+        prof = profile_fn(torch, lambda: widedeep_step(
+            torch, dense, table, ids, labels, kernel_rows))
+        if prof is not None:
+            prof["idle_share"] = 1 - prof["device_ms_per_step"] / best
+        res[v] = {"V": v, "ms_per_step": best,
+                  "examples_per_s": WD_BS / (best / 1e3),
+                  "loss_first": float(losses[0]),
+                  "loss_last": float(losses[-1]), "launches": counts,
+                  "profile": prof}
+        print("widedeep " + json.dumps(res[v]), flush=True)
+        del table, mom, upd
+        torch.cuda.empty_cache()
+    ratio = res[SP_V[1]]["ms_per_step"] / res[SP_V[0]]["ms_per_step"]
+    print(f"widedeep time(2^22)/time(2^20) = {ratio:.4f}", flush=True)
+    return {"runs": res, "ratio": ratio, "held": held, "launches": launches}
+
+
+def tier_steps(seed, steps):
+    """`steps` batches of 256 x 64 ids from a fixed hot set of ~2^20 ids
+    of the 2^30-row table, with their gradients (numpy seed)."""
+    rng = np.random.default_rng(seed)
+    hot = np.unique(rng.integers(0, TIER["rows_total"], TIER_HOT))
+    return [(hot[rng.integers(0, len(hot), (WD_BS, WD_T))],
+             rng.standard_normal((WD_BS * WD_T, TIER["dim"]))
+             .astype(np.float32)) for _ in range(steps)]
+
+
+def drive_tier(torch, table, batches, timed):
+    """lookup + update per batch; with `timed`, the host clock of each
+    step (synchronized) and of its residency work (`ensure_resident`:
+    the host maps and the spill copies)."""
+    host = [0.0]
+    resident = table.ensure_resident
+
+    def timed_resident(uids):
+        t0 = time.perf_counter()
+        resident(uids)
+        host[0] += time.perf_counter() - t0
+
+    if timed:
+        table.ensure_resident = timed_resident
+    steps_ms = []
+    try:
+        for ids, grads in batches:
+            t0 = time.perf_counter()
+            table.lookup(ids)
+            table.update(ids, grads)
+            if timed:
+                torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        table.ensure_resident = resident
+    return steps_ms, host[0] * 1e3
+
+
+def payloads_close(got, want, what):
+    """Export payloads: ids, slots and spill ids equal, every row and
+    slot within 1e-5 of the largest entry. Returns the largest error."""
+    worst = 0.0
+    assert len(got) == len(want), what
+    for a, b in zip(got, want):
+        assert sorted(a) == sorted(b), what
+        for key in ("ids", "slots", "spill_ids"):
+            assert np.array_equal(a[key], b[key]), f"{what}: {key} differ"
+        for key in a:
+            if key not in ("ids", "slots", "spill_ids") and len(b[key]):
+                scale = max(float(np.abs(b[key]).max()), 1e-30)
+                err = float(np.abs(a[key] - b[key]).max()) / scale
+                assert err <= 1e-5, f"{what}: {key} {err:.3g}"
+                worst = max(worst, err)
+    return worst
+
+
+def sharded_tier(torch, sr, tss):
+    """Phase 17: the 2^30-row tier on the card, one shard, adagrad — 40
+    steps timed and counted, held against the same steps of a CPU table
+    through the export payloads; then 5 steps with 8 shards and hash
+    placement, held the same way."""
+    rule = tss.adagrad_row_update(0.1)
+    out = {}
+    for name, shards, placement, steps in (
+            ("one_shard_range", 1, "range", TIER_STEPS),
+            ("eight_shards_hash", 8, "hash", TIER_SHARDED_STEPS)):
+        cfg = tss.ShardedTableConfig(placement=placement, **TIER)
+        batches = tier_steps(SEED + 170, steps)
+        card = tss.ShardedEmbeddingTable(cfg, num_shards=shards,
+                                         update_fn=rule, num_state=1,
+                                         device="cuda")
+        torch.cuda.synchronize()
+        zero_sparse_counts(sr)
+        t0 = time.perf_counter()
+        steps_ms, host_ms = drive_tier(torch, card, batches[:-3], True)
+        prof = profile_fn(torch, lambda it=iter(batches[-3:]): drive_tier(
+            torch, card, [next(it)], False), steps=2)
+        wall = time.perf_counter() - t0
+        counts = sparse_counts(sr)
+        assert counts["sparse_row_update_launches"] == steps, counts
+        cpu = tss.ShardedEmbeddingTable(cfg, num_shards=shards,
+                                        update_fn=rule, num_state=1,
+                                        device="cpu")
+        drive_tier(torch, cpu, batches, False)
+        assert card.stats == cpu.stats, (card.stats, cpu.stats)
+        err = payloads_close(card.export_shards(), cpu.export_shards(), name)
+        n = len(steps_ms)
+        r = {"shards": shards, "placement": placement, "steps": steps,
+             "wall_s": wall, "ms_per_step_median":
+             float(np.median(steps_ms[1:])) if n > 1 else steps_ms[0],
+             "residency_host_ms_per_step": host_ms / n,
+             "stats": card.stats, "rows_materialized":
+             card.rows_materialized, "cache_rows": card._S,
+             "export_max_rel_err": err, "launches": counts,
+             "profile": prof}
+        if prof is not None:
+            r["device_ms_per_step"] = prof["device_ms_per_step"]
+        print("tier " + json.dumps(r), flush=True)
+        if shards == 1:
+            assert card.stats["evictions"] > 0, "the cache never evicted"
+        out[name] = r
+        del card, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def ctr_models(torch):
+    """Phase 18: ctr_wide_deep at models/ctr.py's defaults through SGD
+    (adam 0.02) on one fixed batch for 30 steps — the loss falls below
+    half its first value — and one step of ctr_linear with adagrad."""
+    from paddle_tpu_torch.core.arg import id_arg
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models import ctr
+    from paddle_tpu_torch.trainer.events import EndIteration
+    from paddle_tpu_torch.trainer.trainer import SGD
+
+    rng = np.random.default_rng(SEED + 180)
+    feats = rng.integers(0, 100000, (CTR_B, CTR_F)).astype(np.int32)
+    label = (feats < CTR_CLICK).any(axis=1).astype(np.int32)
+    feed = {"features": id_arg(feats, np.full(CTR_B, CTR_F, np.int32),
+                               device="cuda"),
+            "label": id_arg(label, device="cuda")}
+    out = {"label_mean": float(label.mean())}
+    for name, conf, method, lr, steps in (
+            ("wide_deep_adam", ctr.ctr_wide_deep(), "adam", 0.02,
+             CTR_STEPS),
+            ("linear_adagrad", ctr.ctr_linear(), "adagrad", 0.1, 1)):
+        sgd = SGD(conf, OptimizationConf(learning_method=method,
+                                         learning_rate=lr),
+                  seed=SEED + 181, device="cuda")
+        stamps, costs = [], []
+
+        def on_event(e):
+            if isinstance(e, EndIteration):
+                costs.append(e.cost)
+                stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sgd.train(reader=lambda: iter([feed] * steps), feeder=lambda b: b,
+                  num_passes=1, event_handler=on_event)
+        assert np.isfinite(costs).all(), f"{name}: a loss is not finite"
+        ms = (float(np.median(np.diff(stamps))) * 1e3 if steps > 1
+              else (stamps[0] - t0) * 1e3)
+        out[name] = {"steps": steps, "loss_first": costs[0],
+                     "loss_last": costs[-1], "ms_per_step": ms,
+                     "examples_per_s": CTR_B / (ms / 1e3)}
+        print(f"ctr {name} " + json.dumps(out[name]), flush=True)
+    wd = out["wide_deep_adam"]
+    assert wd["loss_last"] < 0.5 * wd["loss_first"], (
+        f"wide&deep loss fell only from {wd['loss_first']:.4g} to "
+        f"{wd['loss_last']:.4g}")
+    return out
+
+
+def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
+    """The B9 kernels' rows of the kernels line, at the standalone bench
+    shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
+    (no single PyTorch call computes a momentum row update; SGD's
+    index_add_ is printed in phase 14) and the generic route's kernels
+    with the bench's own update function. Launches: phases 15-17."""
+    bench = times["bench_momentum_v1m_d64_n65536"]
+    generic = times["bench_lambda_state_v1m_d64_n65536"]
+    launches = standalone["launches"]
+    update = (launches["sparse_row_update_launches"] + wide_deep["launches"]
+              + sum(r["launches"]["sparse_row_update_launches"]
+                    for r in tier.values()))
+
+    def row(name, at, ms, bound, launched, rules):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/sparse_rows.cu",
+            "replaces": "paddle_tpu/parallel/sparse.py:330",
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"] for r in checks
+                               if r["rule"] in rules),
+            "ms": at[ms], "plain_ms": at["plain_ms"],
+            "bound_ms": at[bound], "bound_by": "bytes",
+            "library_ms": None,
+        }
+
+    rules, generic_rules = ("sgd", "momentum", "adagrad"), ("lambda",
+                                                           "lambda_state")
+    return [
+        row("sparse_row_update", bench, "ms", "bound_ms", update, rules),
+        row("sparse_row_gather", generic, "gather_ms", "gather_bound_ms",
+            launches["sparse_row_gather_launches"], generic_rules),
+        row("sparse_row_scatter", generic, "scatter_ms", "scatter_bound_ms",
+            launches["sparse_row_scatter_launches"], generic_rules),
+    ]
+
+
 def ptxas_report(log):
     """One line a kernel of an nvcc -Xptxas -v log: its name, registers,
     shared memory and spills."""
@@ -1492,6 +2140,9 @@ def main() -> int:
     from paddle_tpu_torch.ops import bn_act_conv1x1 as fop
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import rnn
+    from paddle_tpu_torch.ops import sparse_rows as sr
+    from paddle_tpu_torch.parallel import sparse as tsp
+    from paddle_tpu_torch.parallel import sparse_shard as tss
 
     phase("1. card")
     smi = subprocess.run(
@@ -1593,7 +2244,23 @@ def main() -> int:
     phase("12. held classifier and NMT train steps, kernels vs scan")
     _held_text, text_runs = text_training(torch, rnn)
 
-    phase("14. result")
+    phase("14. sparse-row kernels (B9) vs plain version")
+    ptxas_report(_build.build_log(sr.KERNEL))
+    sparse_checks, sparse_times = sparse_kernels(torch, sr, tss)
+
+    phase("15. standalone sparse update through SparseUpdater.run_steps")
+    standalone = sparse_standalone(torch, sr, tsp, tss)
+
+    phase("16. the wide&deep large-table train step")
+    wide_deep = widedeep(torch, sr, tsp, tss)
+
+    phase("17. the sharded embedding tier, 2^30 logical rows")
+    tier = sharded_tier(torch, sr, tss)
+
+    phase("18. the CTR models through SGD")
+    ctr_models(torch)
+
+    phase("19. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -1684,7 +2351,9 @@ def main() -> int:
         rnn_row("gru_seq_fwd", "gru", 724, "fwd",
                 nmt_launches["gru_fwd_launches"]),
         rnn_row("gru_seq_bwd", "gru", 657, "bwd",
-                nmt_launches["gru_bwd_launches"])]}),
+                nmt_launches["gru_bwd_launches"]),
+        *sparse_kernel_rows(sparse_checks, sparse_times, standalone,
+                            wide_deep, tier)]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

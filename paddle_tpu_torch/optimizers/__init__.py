@@ -6,9 +6,10 @@ returns new params and new state dicts (the inputs are not modified),
 with per-parameter static hyperparameters (`ParamHyper`) from the
 ParameterConfs. Ported: the base with clipping, L2 folded into the
 gradient and L1 shrinkage after the step; all eight LR schedules; sgd /
-momentum (+ Nesterov) and adam. Still to port (ROADMAP A7): adagrad,
-decayed_adagrad, adadelta, rmsprop, adamax, ParameterAverager and the
-static-pruning mask (a ParameterConf with sparsity_ratio raises).
+momentum (+ Nesterov), adagrad, decayed_adagrad, adadelta, rmsprop,
+adam and adamax, with the JAX formulas. Still to port (ROADMAP A7):
+ParameterAverager and the static-pruning mask (a ParameterConf with
+sparsity_ratio raises).
 
 The schedule is evaluated on the host for the step's integer counter,
 in double precision; the update then runs in f32 on the parameters'
@@ -218,6 +219,68 @@ class SgdOptimizer(Optimizer):
         return p_new, {"mom": v}
 
 
+@OPTIMIZERS.register("adagrad")
+class AdagradOptimizer(Optimizer):
+    """accum += g^2; p -= lr * g / (sqrt(accum) + eps)."""
+
+    def _init_one(self, p):
+        return {"accum": torch.zeros_like(p)}
+
+    def _apply_one(self, p, g, s, lr, h, step):
+        accum = s["accum"] + torch.square(g)
+        p_new = p - lr * g / (torch.sqrt(accum) + self.conf.ada_epsilon)
+        return p_new, {"accum": accum}
+
+
+@OPTIMIZERS.register("decayed_adagrad")
+class DecayedAdagradOptimizer(Optimizer):
+    """accum = rou*accum + (1-rou)*g^2; p -= lr * g / (sqrt(accum) +
+    eps)."""
+
+    def _init_one(self, p):
+        return {"accum": torch.zeros_like(p)}
+
+    def _apply_one(self, p, g, s, lr, h, step):
+        rou = self.conf.ada_rou
+        accum = rou * s["accum"] + (1 - rou) * torch.square(g)
+        p_new = p - lr * g / (torch.sqrt(accum) + self.conf.ada_epsilon)
+        return p_new, {"accum": accum}
+
+
+@OPTIMIZERS.register("adadelta")
+class AdadeltaOptimizer(Optimizer):
+    """Adadelta: the update scaled by sqrt((E[upd^2] + eps) / (E[g^2] +
+    eps))."""
+
+    def _init_one(self, p):
+        return {"accum": torch.zeros_like(p),
+                "accum_update": torch.zeros_like(p)}
+
+    def _apply_one(self, p, g, s, lr, h, step):
+        rou, eps = self.conf.ada_rou, self.conf.ada_epsilon
+        accum = rou * s["accum"] + (1 - rou) * torch.square(g)
+        upd = g * torch.sqrt((s["accum_update"] + eps) / (accum + eps))
+        accum_update = (rou * s["accum_update"]
+                        + (1 - rou) * torch.square(upd))
+        return p - lr * upd, {"accum": accum, "accum_update": accum_update}
+
+
+@OPTIMIZERS.register("rmsprop")
+class RMSPropOptimizer(Optimizer):
+    """g2 = rou*g2 + (1-rou)*g^2 and g1 = rou*g1 + (1-rou)*g; p -= lr * g
+    / sqrt(g2 - g1^2 + eps) (the mean-removal form)."""
+
+    def _init_one(self, p):
+        return {"g2": torch.zeros_like(p), "g1": torch.zeros_like(p)}
+
+    def _apply_one(self, p, g, s, lr, h, step):
+        rou, eps = self.conf.ada_rou, self.conf.ada_epsilon
+        g2 = rou * s["g2"] + (1 - rou) * torch.square(g)
+        g1 = rou * s["g1"] + (1 - rou) * g
+        denom = torch.sqrt(g2 - torch.square(g1) + eps)
+        return p - lr * g / denom, {"g2": g2, "g1": g1}
+
+
 @OPTIMIZERS.register("adam")
 class AdamOptimizer(Optimizer):
     """Adam with bias correction at t = step + 1."""
@@ -234,6 +297,23 @@ class AdamOptimizer(Optimizer):
         mhat = m / (1 - b1 ** t)
         vhat = v / (1 - b2 ** t)
         return p - lr * mhat / (torch.sqrt(vhat) + eps), {"m": m, "v": v}
+
+
+@OPTIMIZERS.register("adamax")
+class AdamaxOptimizer(Optimizer):
+    """m = b1*m + (1-b1)*g; u = max(b2*u, |g|); p -= lr / (1 - b1^t) * m
+    / (u + 1e-12), t = step + 1."""
+
+    def _init_one(self, p):
+        return {"m": torch.zeros_like(p), "u": torch.zeros_like(p)}
+
+    def _apply_one(self, p, g, s, lr, h, step):
+        b1, b2 = self.conf.adam_beta1, self.conf.adam_beta2
+        t = float(step) + 1.0
+        m = b1 * s["m"] + (1 - b1) * g
+        u = torch.maximum(b2 * s["u"], torch.abs(g))
+        p_new = p - (lr / (1 - b1 ** t)) * m / (u + 1e-12)
+        return p_new, {"m": m, "u": u}
 
 
 def create_optimizer(conf: OptimizationConf, param_confs: dict) -> Optimizer:

@@ -14,15 +14,18 @@ import os
 import pytest
 
 from paddle_tpu.core import registry as jregistry
+from paddle_tpu.models import ctr as jctr
 from paddle_tpu.models import lm as jlm
 from paddle_tpu.models import text as jtext
 from paddle_tpu_torch.core import registry as tregistry
+from paddle_tpu_torch.models import ctr as tctr
 from paddle_tpu_torch.models import lm as tlm
 from paddle_tpu_torch.models import text as ttext
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["core/config.py", "dsl.py", "core/registry.py",
-          "trainer/events.py", "models/image.py", "models/text.py"]
+          "trainer/events.py", "models/image.py", "models/text.py",
+          "models/ctr.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -69,6 +72,26 @@ def test_text_conf_is_the_same(name):
         dataclasses.asdict(lc) for lc in jconf.layers]
 
 
+# the CTR confs at models/ctr.py's defaults, and narrow and sharded
+CTR_CONFS = {
+    "linear": ("ctr_linear", {}),
+    "linear_sharded": ("ctr_linear", dict(feature_dim=1024, sharded=True)),
+    "wide_deep": ("ctr_wide_deep", {}),
+    "wide_deep_narrow": ("ctr_wide_deep", dict(feature_dim=1000, emb_dim=8,
+                                               hidden=(16,))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CTR_CONFS))
+def test_ctr_conf_is_the_same(name):
+    fn, kw = CTR_CONFS[name]
+    jconf = getattr(jctr, fn)(**kw)
+    tconf = getattr(tctr, fn)(**kw)
+    assert tconf.to_json() == jconf.to_json()
+    assert [dataclasses.asdict(lc) for lc in tconf.layers] == [
+        dataclasses.asdict(lc) for lc in jconf.layers]
+
+
 def test_port_has_its_own_registries():
     import paddle_tpu_torch.layers  # noqa: F401
     import paddle_tpu_torch.optimizers  # noqa: F401
@@ -86,6 +109,8 @@ def test_port_has_its_own_registries():
         "recurrent", "recurrent_group", "recurrent_layer_group", "scaling",
         "seqlastins", "seqpool", "sequence_pool",
         "softmax_with_cross_entropy", "square_error", "sum_of_squares"])
-    assert tregistry.OPTIMIZERS.names() == ["adam", "momentum", "sgd"]
+    assert tregistry.OPTIMIZERS.names() == [
+        "adadelta", "adagrad", "adam", "adamax", "decayed_adagrad",
+        "momentum", "rmsprop", "sgd"]
     assert tregistry.LR_SCHEDULERS.names() == jregistry.LR_SCHEDULERS.names()
     assert tregistry.ACTIVATIONS.names() == jregistry.ACTIVATIONS.names()

@@ -4,7 +4,8 @@
   `chip_smoke.py`) imports `jax`, `jaxlib` or `paddle_tpu`.
 - A subprocess with those import-blocked imports every port module.
 - An entry point (serving and training: params, caches, `Network`
-  init, `TrainStep`, `SGD`) called without `device` on a machine
+  init, `TrainStep`, `SGD`; the sparse CTR slice: `SparseUpdater.place`,
+  `ShardedEmbeddingTable`) called without `device` on a machine
   without CUDA raises instead of running on the CPU.
 - `chip_smoke.py` fails without a card and alone in a directory.
 """
@@ -26,6 +27,11 @@ from paddle_tpu_torch.models import lm as tlm
 from paddle_tpu_torch.network import Network
 from paddle_tpu_torch.optimizers import create_optimizer
 from paddle_tpu_torch.parallel.dp import TrainStep
+from paddle_tpu_torch.parallel.sparse import SparseUpdater
+from paddle_tpu_torch.parallel.sparse_shard import (
+    ShardedEmbeddingTable,
+    ShardedTableConfig,
+)
 from paddle_tpu_torch.trainer.trainer import SGD
 from paddle_tpu_torch.weights import opt_state_from_numpy, params_from_numpy
 
@@ -99,6 +105,8 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     conf = tlm.transformer_lm(spec)
     net = Network(conf)
     opt_conf = OptimizationConf(learning_method="adam")
+    sparse_conf = ShardedTableConfig(rows_total=1 << 30, dim=4, capacity=8,
+                                     num_slots=4)
     for call in (
         lambda: tdevice.resolve_device(None),
         lambda: tdevice.resolve_device("cuda"),
@@ -109,12 +117,38 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         lambda: net.init_params(torch.Generator()),
         lambda: TrainStep(net, create_optimizer(opt_conf, net.param_confs)),
         lambda: SGD(conf, opt_conf, seed=1),
+        lambda: SparseUpdater.place(np.zeros((4, 2), np.float32)),
+        lambda: ShardedEmbeddingTable(sparse_conf),
+        lambda: ShardedEmbeddingTable(sparse_conf, num_shards=8,
+                                      device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
     assert params_from_numpy(params, device="cpu")["w"].device.type == "cpu"
     assert SGD(conf, opt_conf, seed=1, device="cpu").device.type == "cpu"
+    assert SparseUpdater.place(np.zeros((4, 2), np.float32),
+                               device="cpu").shape == (5, 1, 2)
+    table = ShardedEmbeddingTable(sparse_conf, device="cpu")
+    assert table.lookup(np.arange(3)).device.type == "cpu"
+
+
+def test_sparse_slice_modules_import_with_jax_blocked():
+    """The sparse CTR slice's modules by name (the walk above covers them
+    too): the B9 wrapper, the updater, the tier and the CTR confs."""
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN),
+        names=["paddle_tpu_torch.ops.sparse_rows",
+               "paddle_tpu_torch.parallel.sparse",
+               "paddle_tpu_torch.parallel.sparse_shard",
+               "paddle_tpu_torch.models.ctr",
+               "paddle_tpu_torch.optimizers"])
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == "5"
 
 
 def test_chip_smoke_fails_without_card_and_without_the_repo(tmp_path):

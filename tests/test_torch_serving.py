@@ -1,9 +1,12 @@
 """The port's serving stack on the CPU: server + TCP front end + CLI.
 
 Answers served through `paddle_tpu_torch` over TCP must equal the JAX
-package's `PagedLM.generate` on the same params and prompts, cut at the
-first eos (the engine stops there; the server strips the trailing
-eos). Overload sheds explicitly, drain leaves nothing pending, a
+package's `greedy_decode_recompute` on the same params and prompts, cut
+at the first eos (the engine stops there; the server strips the
+trailing eos). The JAX `PagedLM.generate` is not a steady oracle under
+pytest (it returns other tokens in some runs, ROADMAP C1): the answers
+are compared with it only in a run where its tokens equal the
+recompute's. Overload sheds explicitly, drain leaves nothing pending, a
 failing model is quarantined, and `python -m paddle_tpu_torch serve`
 has the LISTENING / SIGTERM / DRAINED lifecycle.
 """
@@ -76,8 +79,12 @@ def test_tcp_answers_equal_jax_paged_generate():
     ids = rng.integers(2, JSPEC.vocab, (4, 11)).astype(np.int32)
     jcache = jkv.PagedKVCache(JSPEC, num_pages=64, page_size=4,
                               max_pages_per_seq=16)
-    ref, _ = jkv.PagedLM(JSPEC, jp, jcache, eos_id=EOS).generate(
+    ref, _ = jlm.greedy_decode_recompute(JSPEC, jp, ids, lens, MAX_NEW,
+                                         EOS)
+    paged, _ = jkv.PagedLM(JSPEC, jp, jcache, eos_id=EOS).generate(
         ids, lens, MAX_NEW)
+    paged_steady = all(_cut_at_eos(p) == _cut_at_eos(r)
+                       for p, r in zip(paged, ref))
 
     cache = tkv.PagedKVCache(TSPEC, num_pages=64, page_size=4,
                              max_pages_per_seq=16, device="cpu")
@@ -113,6 +120,8 @@ def test_tcp_answers_equal_jax_paged_generate():
     for i, a in enumerate(answers):
         assert a["ok"] and a["path"] == "paged" and a["trace_id"]
         assert a["tokens"] == _cut_at_eos(ref[i])
+        if paged_steady:
+            assert a["tokens"] == _cut_at_eos(paged[i])
     assert any(EOS in list(r) for r in ref)   # eos cut is exercised
     assert scrape["ok"] and scrape["stats"]["completed"] == len(lens)
     assert bad == {"ok": False, "error": "bad_request",
