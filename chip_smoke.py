@@ -53,9 +53,10 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    ragged shapes, each with act relu or linear and with or without a
    residual (max |diff| / max |plain| <= 1e-4 for y, ssum, ssq, du,
    dscale, dshift, dres and dw, with non-zero cotangents of ssum and
-   ssq), then times them at the sites' batch-64 shapes beside the
-   plain versions, the bare GEMM in torch.matmul (a yardstick only)
-   and their bounds;
+   ssq; B2 and B3 bit-identical on a repeat), then times them at the
+   sites' batch-64 shapes beside the plain versions, the bare GEMM in
+   torch.matmul (a yardstick only) and their bounds (B1 on the CUDA
+   cores; B2 and B3 on the tensor cores, three TF32 passes);
 8. runs ResNet-50 (224x224x3, 1000 classes, weights from a seed)
    through `Inferencer` on [8, 224, 224, 3], plain and fused from the
    same weights and running statistics (advanced by three train-mode
@@ -101,7 +102,8 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
     kernel and the generic route's gather and scatter) against their
     plain PyTorch version at the two bench shapes (V = 2^20 x 64, N =
     65 536 and 16 384, momentum), SGD, adagrad, a user's function,
-    overflow, 16 384 occurrences on 100 ids, D = 4/16/128 and ids >= V:
+    overflow, 16 384 occurrences on 100 ids, D = 4/16/128, ids >= V, and
+    140 000 distinct ids with one negative (past one slot a warp):
     the touched rows and slots within 1e-6 of the largest, every other
     row bit-equal to the start, the kernel bit-identical run to run;
     times kernel, torch.sort, the plain version, SGD's index_add_ (a
@@ -143,6 +145,7 @@ import numpy as np
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12
 H100_F32_FLOPS = 67e12
+H100_TF32_FLOPS = 495e12
 TOL = 1e-4
 SEED = 0
 EOS = 1
@@ -718,8 +721,8 @@ def fused_inputs(torch, gen, n, cin, cout, with_res):
 def check_fused(torch, op, name, inputs, act):
     """The three fused kernels against their plain versions on one
     case's inputs: max |diff| / max |plain| <= TOL for y, ssum, ssq, du,
-    dscale, dshift, dres and dw. Returns {output: (relative,
-    absolute)}."""
+    dscale, dshift, dres and dw, and B2's and B3's outputs bit-identical
+    on a repeat. Returns {output: (relative, absolute)}."""
     u, scale, shift, w, res, dy, d1, d2 = inputs
     got = op.bn_act_conv1x1_fwd(u, scale, shift, w, res, act)
     ref = op.bn_act_conv1x1_plain(u, scale, shift, w, res, act)
@@ -732,7 +735,15 @@ def check_fused(torch, op, name, inputs, act):
                                      act),)
     ref += (op.bn_act_conv1x1_bwd_dw_plain(u, scale, shift, res, y, dy, d1,
                                            d2, act),)
+    again = op.bn_act_conv1x1_bwd_dx(u, scale, shift, w, res, y, dy, d1, d2,
+                                     act)
+    again += (op.bn_act_conv1x1_bwd_dw(u, scale, shift, res, y, dy, d1, d2,
+                                       act),)
     torch.cuda.synchronize()
+    for out, a, b in zip(("du", "dscale", "dshift", "dres", "dw"), got[3:],
+                         again):
+        assert (a is None and b is None) or torch.equal(a, b), (
+            f"{name} act={act!r}: {out} not bit-identical on a repeat")
     errs = {}
     for out, g, r in zip(("y", "ssum", "ssq", "du", "dscale", "dshift",
                           "dres", "dw"), got, ref):
@@ -763,8 +774,11 @@ def time_fused(torch, op, site, batch, gen):
     f32 = 4
     flops = 2 * n * cin * cout
 
-    def bound(nbytes):
-        t_ops = flops / H100_F32_FLOPS * 1e3
+    def bound(nbytes, tensor_cores=True):
+        # B1 on the CUDA cores; B2 and B3 on the tensor cores in three
+        # TF32 passes (hi*hi + hi*lo + lo*hi)
+        t_ops = (3 * flops / H100_TF32_FLOPS if tensor_cores
+                 else flops / H100_F32_FLOPS) * 1e3
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                      else "operations")
@@ -776,7 +790,8 @@ def time_fused(torch, op, site, batch, gen):
         "fwd": (lambda: op.bn_act_conv1x1_fwd(u, scale, shift, w, None, act),
                 lambda: op.bn_act_conv1x1_plain(u, scale, shift, w, None,
                                                 act),
-                lambda: torch.matmul(z, w), bound(nu + vin + nw + ny + vout)),
+                lambda: torch.matmul(z, w),
+                bound(nu + vin + nw + ny + vout, tensor_cores=False)),
         # u, scale, shift, w, y, dy, d1, d2 read; du, dscale, dshift
         # written
         "bwd_dx": (lambda: op.bn_act_conv1x1_bwd_dx(
@@ -795,7 +810,9 @@ def time_fused(torch, op, site, batch, gen):
     }
     res = {"site": name, "n": n, "cin": cin, "cout": cout, "act": act,
            "sites": count, "flops": flops,
-           "max_abs_err": max(e[1] for e in errs.values())}
+           "max_abs_err": max(e[1] for e in errs.values()),
+           "max_rel_err": {k: v[0] for k, v in errs.items()},
+           "plan": op.launch_plan(n, cin, cout)}
     for k, (kfn, pfn, lfn, (b_ms, b_by)) in kern.items():
         res[k] = {"ms": time_ms(torch, kfn), "plain_ms": time_ms(torch, pfn),
                   "library_ms": time_ms(torch, lfn), "bound_ms": b_ms,
@@ -1605,7 +1622,13 @@ def check_sparse(torch, sr, tss, case, gen):
     fn, n_state = sparse_rules(tss)[rule_name]
     start, ids, g = sparse_inputs(torch, gen, v, d, n, n_state, high,
                                   distinct)
-    k = k or n
+    return hold_sparse(torch, sr, name, rule_name, fn, start, ids, g,
+                       k or n, v)
+
+
+def hold_sparse(torch, sr, name, rule_name, fn, start, ids, g, k, v):
+    """check_sparse's comparison on given tables, ids and gradients."""
+    d, n = start[0].shape[1], ids.numel()
     runs = []
     for _ in range(2):
         tabs = [t.clone() for t in start]
@@ -1685,10 +1708,28 @@ def time_sparse(torch, sr, tss, case, gen):
     return r
 
 
+def check_negative_id(torch, sr, tss, gen):
+    """A negative id past one slot a warp: k = N = 140 000 distinct ids
+    (momentum, D = 64), one of them -7. It sorts into slot 0; above
+    131 072 slots a warp walks more than one, and the id must not end
+    that walk (a fault of the first B9, repaired since)."""
+    v = n = 140_000
+    fn, _n_state = sparse_rules(tss)["momentum"]
+    start, _ids, g = sparse_inputs(torch, gen, v, SP_D, n, 1, None, None)
+    ids = torch.randperm(v, generator=gen, device="cuda").to(torch.int32)
+    ids[ids == 4321] = -7
+    r = hold_sparse(torch, sr, "negative_id_momentum_v140k_d64_k140000",
+                    "momentum", fn, start, ids, g, n, v)
+    assert r["touched"] == v - 1, r
+    return r
+
+
 def sparse_kernels(torch, sr, tss):
-    """Phase 14: every case held, then the times at the bench shapes."""
+    """Phase 14: every case held (and the negative id past one slot a
+    warp), then the times at the bench shapes."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 140)
     checks = [check_sparse(torch, sr, tss, c, gen) for c in SPARSE_CASES]
+    checks.append(check_negative_id(torch, sr, tss, gen))
     times = {c[0]: time_sparse(torch, sr, tss, c, gen)
              for c in SPARSE_CASES if c[0].startswith(("bench_",
                                                        "widedeep_"))}
@@ -2121,8 +2162,10 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", m.group(1))
-            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+            k = re.search(r"\d+([a-z_]+_kernel)", m.group(1))
+            # the template's int arguments (a Tile<...>'s among them)
+            ints = re.findall(r"Li(\d+)E", m.group(1))
+            name = (k.group(1) + (f"<{','.join(ints)}>" if ints else "")
                     if k else m.group(1))
         elif name and ("registers" in line or "spill" in line):
             print(f"ptxas {name}: {line.split(':')[-1].strip()}", flush=True)

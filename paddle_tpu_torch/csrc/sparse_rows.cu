@@ -16,7 +16,8 @@
 // For each slot whose id lies in [0, V), in place:
 //   g = grads[perm[off[i]]] + ... + grads[perm[off[i+1] - 1]], in that order
 //   (p, s...) = rule(p, g, s...) on the table row and its slot rows.
-// Fills and ids >= V are skipped: every row not touched stays bit-identical.
+// Fills, negative ids (they sort first) and ids >= V are skipped, slot by
+// slot: every row not touched stays bit-identical.
 //
 // Rules, each product and sum rounded on its own (no contraction into an
 // FMA, no fast math) as the plain PyTorch version computes them:
@@ -132,8 +133,9 @@ sparse_row_update_kernel(Tables tabs, const float* __restrict__ grads,
   const int stride = gridDim.x * WARPS;
   for (int i = blockIdx.x * WARPS + (threadIdx.x >> 5); i < k; i += stride) {
     const int id = uids[i];
-    if (id < 0) return;        // a fill: every later slot is one too
-    if (id >= V) continue;     // past the table: skipped
+    // a fill or a negative id (which sorts first), or past the table:
+    // skipped, and the warp walks on to its next slot
+    if (id < 0 || id >= V) continue;
     const int j0 = off[i], j1 = off[i + 1];
     const size_t row = (size_t)id * D;
     for (int c = lane * VEC; c < D; c += 32 * VEC) {
@@ -207,8 +209,7 @@ sparse_row_scatter_kernel(Tables tabs, Tables rows, int n_tables,
   const int stride = gridDim.x * WARPS;
   for (int i = blockIdx.x * WARPS + (threadIdx.x >> 5); i < k; i += stride) {
     const int id = uids[i];
-    if (id < 0) return;
-    if (id >= V) continue;
+    if (id < 0 || id >= V) continue;
     for (int c = lane * VEC; c < D; c += 32 * VEC) {
 #pragma unroll
       for (int t = 0; t < MAX_TABLES; ++t) {

@@ -111,7 +111,24 @@ def _bind():
     lib.bn_act_conv1x1_scratch_floats.restype = ctypes.c_longlong
     lib.bn_act_conv1x1_error_string.argtypes = [i]
     lib.bn_act_conv1x1_error_string.restype = ctypes.c_char_p
+    lib.bn_act_conv1x1_plan.argtypes = [i] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.bn_act_conv1x1_plan.restype = None
     return lib
+
+
+def launch_plan(n, cin, cout, residual=False):
+    """B2's and B3's launches at these widths, for reports: {"bwd_dx" or
+    "bwd_dw": {"tile", "blocks", "smem_bytes"}} (the tile in rows or Cin
+    by columns, the dynamic shared memory a block)."""
+    lib = _bind()
+    out = (ctypes.c_longlong * 4)()
+    plans = {}
+    for name, kind in (("bwd_dx", _BWD_DX), ("bwd_dw", _BWD_DW)):
+        lib.bn_act_conv1x1_plan(kind, n, cin, cout, int(residual), out)
+        plans[name] = {"tile": [out[0], out[1]], "blocks": out[2],
+                       "smem_bytes": out[3]}
+    return plans
 
 
 _SHAPES = {   # name -> its shape in (N, Cin, Cout)

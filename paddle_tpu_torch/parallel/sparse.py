@@ -139,12 +139,15 @@ class SparseUpdater:
     @staticmethod
     def place(table, device=None):
         """[V, D] (numpy or tensor) -> contiguous [V+1, 1, D] tensor on
-        the device, with a zero scratch row V appended."""
+        the device, with a zero scratch row V appended. A float64 table
+        is placed as float32, as the JAX `place` does with x64 off (and
+        as the kernels take)."""
         dev = resolve_device(device)
         t = table if torch.is_tensor(table) else torch.tensor(
             np.asarray(table))
         v, d = t.shape
-        out = torch.zeros((v + 1, 1, d), dtype=t.dtype, device=dev)
+        dtype = torch.float32 if t.dtype == torch.float64 else t.dtype
+        out = torch.zeros((v + 1, 1, d), dtype=dtype, device=dev)
         out[:v, 0].copy_(t)
         return out
 

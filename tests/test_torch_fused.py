@@ -15,10 +15,19 @@ padded row would leak relu(shift) into the statistics; gradients of
 u, scale, shift, w and residual under the JAX test's loss, which
 weights y, ssum and ssq.
 
+B2 and B3 run on the tensor cores at f32 accuracy (3xTF32: each
+operand split into hi = tf32(x) and lo = tf32(x - hi), the product
+hi*hi' + hi*lo' + lo*hi'). `test_three_tf32_*` emulates that split in
+numpy (round to nearest, ties away, as `cvt.rna.tf32` does) and holds it
+within 1e-5 of an f64 product at the kernels' depths, where one TF32
+pass is not.
+
 `TestOnCard` (marked `cuda`) holds the three Hopper kernels against
-their plain versions on the card and shows that one autograd step
-launches each once. It skips here; on a machine with an H100 and no
-JAX: `python -m pytest --noconftest -m cuda tests/test_torch_fused.py`.
+their plain versions on the card at the nine ResNet-50 site shapes
+(batch 2) and ragged ones, shows B2 and B3 bit-identical on a repeat,
+and that one autograd step launches each once. It skips here; on a
+machine with an H100 and no JAX: `python -m pytest --noconftest -m
+cuda tests/test_torch_fused.py`.
 """
 
 import numpy as np
@@ -163,6 +172,61 @@ def test_unused_statistics_take_zero_cotangents():
     torch.testing.assert_close(w1.grad, w2.grad)
 
 
+def _tf32(x):
+    """x (f32) rounded to TF32 as `cvt.rna.tf32.f32` rounds: 10 mantissa
+    bits, to nearest, ties away from zero (finite x)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _three_tf32(a, b):
+    """a @ b as B2 and B3 form it: hi/lo splits of both operands, the
+    three products accumulated in f32, small terms first."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+
+    def mm(x, y):
+        return (torch.from_numpy(x) @ torch.from_numpy(y)).numpy()
+
+    acc = mm(a_lo, b_hi)
+    acc = acc + mm(a_hi, b_lo)
+    return acc + mm(a_hi, b_hi)
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    one = np.float32(1.0)
+    ulp = np.float32(2.0 ** -10)         # a TF32 ulp at 1
+    x = np.asarray([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 * 0.999,
+                    one + 3 * ulp / 2], np.float32)
+    np.testing.assert_array_equal(
+        _tf32(x), np.asarray([one + ulp, -(one + ulp), one, one + 2 * ulp],
+                             np.float32))
+    # hi + lo keeps 21 of f32's 24 bits: |hi + lo - x| <= 2^-21 |x|
+    v = np.random.default_rng(5).standard_normal(1000).astype(np.float32)
+    hi = _tf32(v)
+    assert (np.abs(hi + _tf32(v - hi) - v) <= 2.0 ** -21 * np.abs(v)).all()
+
+
+@pytest.mark.parametrize("k", [256, 12544])
+def test_three_tf32_product_holds_f32_accuracy(k):
+    """At K = 256 (a site's Cout, B2's depth) and K = 12 544 (the res4
+    rows of a batch of 64, B3's depth) the 3xTF32 product of z (ReLU'd)
+    and dy_eff stays within 1e-5 of the f64 product, relative to its
+    largest entry; one TF32 pass does not."""
+    rng = np.random.default_rng(k)
+    a = np.maximum(rng.standard_normal((64, k)), 0).astype(np.float32)
+    b = rng.standard_normal((k, 48)).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(ref).max()
+    err3 = np.abs(_three_tf32(a, b) - ref).max() / scale
+    err1 = np.abs(
+        (torch.from_numpy(_tf32(a)) @ torch.from_numpy(_tf32(b))).numpy()
+        - ref).max() / scale
+    assert err3 <= 1e-5, err3
+    assert err1 > 1e-5, err1
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     u, sc, sh, w, _r = (torch.from_numpy(x) for x in _inputs(10, 4, 4))
     with pytest.raises(ValueError, match="act must be"):
@@ -180,14 +244,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 # ---- on the card --------------------------------------------------------
 
-# (N, Cin, Cout): ragged against the 128-row tile and the 64/128-column
-# tiles, N = 1, and two ResNet-50 sites at batch 2
+# (N, Cin, Cout): ragged against the tiles (widths not a multiple of 4
+# take the kernels' 4-byte copies), N = 1, and the nine ResNet-50 sites
+# at batch 2 (res4_a_b2 is the res4b-f_a site)
 CARD_SHAPES = {
     "n100_24_16": (100, 24, 16),
     "n1_24_16": (1, 24, 16),
     "n517_70_130": (517, 70, 130),
-    "res2_tail_b2": (6272, 64, 256),
+    "n300_200_72": (300, 200, 72),
+    "res2a_a_b2": (6272, 64, 64),
+    "res2bc_a_b2": (6272, 256, 64),
+    "res3bcd_a_b2": (1568, 512, 128),
     "res4_a_b2": (392, 1024, 256),
+    "res5bc_a_b2": (98, 2048, 512),
+    "res2_tail_b2": (6272, 64, 256),
+    "res3_tail_b2": (1568, 128, 512),
+    "res4_tail_b2": (392, 256, 1024),
+    "res5_tail_b2": (98, 512, 2048),
 }
 
 
@@ -237,6 +310,29 @@ class TestOnCard:
                 continue
             assert torch.isfinite(a).all(), nm
             assert self._rel(a, b) <= 1e-4, (nm, self._rel(a, b))
+
+    @pytest.mark.parametrize("with_res", [False, True])
+    @pytest.mark.parametrize("shape", ["n517_70_130", "res2_tail_b2",
+                                       "res5bc_a_b2", "res5_tail_b2"])
+    def test_backward_kernels_are_bit_identical_on_a_repeat(self, shape,
+                                                            with_res):
+        """B2's column sums and B3's split-K partials are summed in a
+        fixed order, without atomics."""
+        n, cin, cout = CARD_SHAPES[shape]
+        u, sc, sh, w, r = (torch.from_numpy(x).cuda() for x in
+                           _inputs(n, cin, cout, seed=4))
+        res = r if with_res else None
+        g = torch.Generator(device="cuda").manual_seed(1)
+        y = op.bn_act_conv1x1_plain(u, sc, sh, w, res)[0]
+        dy = torch.randn((n, cout), generator=g, device="cuda")
+        d1 = torch.randn((cout,), generator=g, device="cuda")
+        d2 = torch.randn((cout,), generator=g, device="cuda") * 0.01
+        runs = [op.bn_act_conv1x1_bwd_dx(u, sc, sh, w, res, y, dy, d1, d2)
+                + (op.bn_act_conv1x1_bwd_dw(u, sc, sh, res, y, dy, d1, d2),)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("du", "dscale", "dshift", "dres", "dw"), *runs):
+            assert (a is None and b is None) or torch.equal(a, b), nm
 
     def test_autograd_step_launches_each_kernel_once(self):
         u, sc, sh, w, r = (torch.from_numpy(x).cuda().requires_grad_(True)

@@ -308,6 +308,45 @@ def test_place_unplace_round_trip():
     np.testing.assert_array_equal(tsp.SparseUpdater.unplace(again), p0)
 
 
+@needs_jax
+def test_place_takes_float64_as_float32_like_jax():
+    """A float64 table (numpy's default) is placed as float32 in both
+    packages, with equal values."""
+    t64 = np.random.default_rng(12).standard_normal((9, 4))
+    for table in (np.zeros((9, 4)), t64):
+        jax_placed = jsp.SparseUpdater(_lambda).place(table)
+        placed = tsp.SparseUpdater.place(table, device="cpu")
+        assert str(jax_placed.dtype) == "float32"
+        assert placed.dtype == torch.float32
+        np.testing.assert_array_equal(placed.numpy(), np.asarray(jax_placed))
+    again = tsp.SparseUpdater.place(torch.from_numpy(t64), device="cpu")
+    assert again.dtype == torch.float32
+
+
+@needs_jax
+@pytest.mark.parametrize("rule", ["momentum", "lambda_state"])
+def test_sparse_updater_negative_id_matches_jax(rule):
+    """A negative id (a padding id) sorts into slot 0 and touches no
+    row; every other id is updated (the JAX step sends it to the
+    scratch row)."""
+    jfn, tfn, n_state = RULES[rule]
+    v, d = 24, 4
+    p0, s0, _i, _g = _inputs(13, v, d, 8, n_state)
+    ids = np.asarray([[5, -7, 3, 23, -7, 11, 0, 5]], np.int32)
+    grads = np.random.default_rng(14).standard_normal((1, 8, d)).astype(
+        np.float32)
+    jp, js = _jax_updater(jfn(), p0, s0, ids, grads)
+    tp, ts = _port_updater(tfn(), p0, s0, ids, grads)
+    np.testing.assert_allclose(tp, jp, rtol=RTOL, atol=ATOL)
+    for a, b in zip(ts, js):
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+    touched = {0, 3, 5, 11, 23}
+    assert all(not np.array_equal(tp[i], p0[i]) for i in touched)
+    _assert_untouched(tp, p0, touched)
+    for a, s in zip(ts, s0):
+        _assert_untouched(a, s, touched)
+
+
 @pytest.mark.parametrize("rule", ["momentum", "lambda_state"])
 def test_updates_the_placed_tensors_in_place(rule):
     _jfn, tfn, n_state = RULES[rule]
@@ -403,3 +442,30 @@ class TestOnCard:
             scale = ref[touched].abs().max().clamp_min(1e-30)
             err = ((got[touched] - ref[touched]).abs().max() / scale).item()
             assert err <= 1e-6, (case, err)
+
+    def test_negative_id_past_one_slot_a_warp(self):
+        """k = N = 140 000 distinct ids, one of them negative: past
+        131 072 slots a warp walks more than one slot, and the negative
+        id (slot 0) must not end its walk. Momentum, D = 64."""
+        v, d, n = 140_000, 64, 140_000
+        p0, s0, _i, grads = _inputs(15, v, d, n, 1)
+        ids = np.random.default_rng(16).permutation(v).astype(np.int32)
+        ids[ids == 4321] = -7       # row 4321 is the one left untouched
+        start = [torch.from_numpy(a).cuda() for a in (p0, *s0)]
+        ids_t = torch.from_numpy(ids).cuda()
+        g = torch.from_numpy(grads).cuda()
+        rule = tss.momentum_row_update(0.01, 0.9)
+        got = [t.clone() for t in start]
+        rows_op.sparse_rows(rule, got, ids_t, g, n, v)
+        plain = [t.clone() for t in start]
+        rows_op.sparse_rows_plain(rule, plain, ids_t, g, n, v)
+        torch.cuda.synchronize()
+        touched = torch.ones(v, dtype=torch.bool, device="cuda")
+        touched[4321] = False
+        for a, ref, s in zip(got, plain, start):
+            assert torch.equal(a[~touched], s[~touched])
+            scale = ref[touched].abs().max().clamp_min(1e-30)
+            err = ((a[touched] - ref[touched]).abs().max() / scale).item()
+            assert err <= 1e-6, err
+            # every valid row moved, the last slots of each warp too
+            assert not (a[touched] == s[touched]).all(dim=1).any()
