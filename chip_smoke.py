@@ -12,10 +12,11 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
 2. builds every kernel from `paddle_tpu_torch/csrc` (one nvcc per
    source, in parallel) and prints the build seconds and ptxas report;
 3. holds the flash-attention kernel against its plain PyTorch version
-   on the card at eight shapes, four of them the prefill shapes of
-   phase 4 (max |diff| <= 1e-4 on out and on the lse
-   of rows with a visible key: f32 with another summation order; rows
-   with no visible key exactly out == 0 and lse == 1e30), and times
+   on the card at ten shapes, four of them the prefill shapes of phase
+   4 and one LM (b)'s training forward of phase 6 (max |diff| <= 1e-4
+   on out and on the lse of rows with a visible key: f32 with another
+   summation order; rows with no visible key exactly out == 0 and lse
+   == 1e30; bit-identical on a repeat), and times
    kernel, plain version and `scaled_dot_product_attention` (a
    yardstick only — the port never calls it);
 4. serves the paged Transformer LM at the repo's served width
@@ -28,8 +29,8 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    the kernel (one launch per layer per prefill);
 5. holds the flash-attention backward kernels (dkv and dq) against
    their plain PyTorch version on the card at the training shapes of
-   phase 6 (B=32, T=128 full; B=8, T=1024 ragged) and three more (D=32
-   with odd T, D=128 cross-attention with q_len, a kv_len=0 row):
+   phase 6 (B=32, T=128 full; B=8, T=1024 ragged) and four more (D=32
+   with odd T, D=128 cross-attention with q_len, a kv_len=0 row, D=96):
    max |diff| / max |plain| <= 1e-4 for dq, dk and dv, dq of rows with
    no visible key exactly 0, every value finite; times the kernels, the
    plain version and the backward of `scaled_dot_product_attention` (a
@@ -53,10 +54,10 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    ragged shapes, each with act relu or linear and with or without a
    residual (max |diff| / max |plain| <= 1e-4 for y, ssum, ssq, du,
    dscale, dshift, dres and dw, with non-zero cotangents of ssum and
-   ssq; B2 and B3 bit-identical on a repeat), then times them at the
+   ssq; all three bit-identical on a repeat), then times them at the
    sites' batch-64 shapes beside the plain versions, the bare GEMM in
-   torch.matmul (a yardstick only) and their bounds (B1 on the CUDA
-   cores; B2 and B3 on the tensor cores, three TF32 passes);
+   torch.matmul (a yardstick only) and their bounds (on the tensor
+   cores, three TF32 passes), with each kernel's launch plan;
 8. runs ResNet-50 (224x224x3, 1000 classes, weights from a seed)
    through `Inferencer` on [8, 224, 224, 3], plain and fused from the
    same weights and running statistics (advanced by three train-mode
@@ -66,7 +67,8 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    mu 0.9): (a) one fused step against one plain step at B=8 (loss
    and new BN state within 1e-4; gradients held where no ReLU gate
    between them and the loss flipped), and the same for the two-block
-   net of the CPU tests, where every gradient is held; (b) 30 fused
+   net of the CPU tests, where every gradient is held (its ReLU gate
+   flips are printed; none may flip); (b) 30 fused
    steps of `SGD.train` on one fixed batch at B=64: every loss
    finite, the last below the first, 29 launches of each fused kernel
    a step; then 10 plain steps for their step time; each run profiled
@@ -230,8 +232,11 @@ def check_kernel(torch, fa, case, gen):
     q_len = lens_tensor(torch, case.get("q_len"))
     kw = dict(causal=case["causal"], kv_len=kv_len, q_len=q_len)
     out_k, lse_k = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
     out_p, lse_p = fa.attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
+    assert torch.equal(out_k, again[0]) and torch.equal(lse_k, again[1]), (
+        f"{case['name']}: kernel not bit-identical on a repeat")
     alive = lse_p < 1e29                               # [B, H, Tq]
     dead = ~alive
     err_out = (out_k - out_p).abs().max().item()
@@ -266,7 +271,8 @@ def check_kernel(torch, fa, case, gen):
                   + (B if kv_len is not None else 0)
                   + (B if q_len is not None else 0))
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
+    # three TF32 passes on the tensor cores (hi*hi + hi*lo + lo*hi)
+    t_ops = 3 * flops / H100_TF32_FLOPS * 1e3
     res = {
         "name": case["name"], "err_out": err_out, "err_lse": err_lse,
         "masked_rows": n_dead, "kernel_ms": kernel_ms,
@@ -523,10 +529,23 @@ def lm_feed(batch):
             "label": id_arg(lbl, lens, device="cuda")}
 
 
+# the port's kernels in a profile, by a piece of their (demangled) names:
+# every template instantiation of one kernel adds to its row
+PORT_KERNELS = {
+    "B1 bn_act_conv1x1_fwd": "namespace)::fwd_kernel<",
+    "B2 bn_act_conv1x1_bwd_dx": "bwd_dx_kernel<",
+    "B3 bn_act_conv1x1_bwd_dw": "bwd_dw_kernel<",
+    "B4f flash_attn_fwd": "flash_fwd_kernel<",
+    "B4b flash_attn_bwd_dkv": "flash_bwd_dkv_kernel<",
+    "B4b flash_attn_bwd_dq": "flash_bwd_dq_kernel<",
+}
+
+
 def profile_fn(torch, fn, steps=5):
     """Where the time of fn() goes: `steps` calls under torch.profiler.
-    Returns the device's kernel ms per call and the eight kernels with
-    the most device time; None when the profiler sees no device time."""
+    Returns the device's kernel ms per call, the eight kernels with the
+    most device time and the port's kernels' ms per call (all their
+    instantiations); None when the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -543,9 +562,15 @@ def profile_fn(torch, fn, steps=5):
         return None
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    port = {}
+    for label, piece in PORT_KERNELS.items():
+        us = sum(e.self_device_time_total for e in kernels if piece in e.key)
+        if us:
+            port[label] = us / steps / 1e3
     return {
         "device_ms_per_step": busy_us / steps / 1e3,
         "kernels_per_step": sum(e.count for e in kernels) / steps,
+        "port_kernels_ms_per_step": port,
         "top": [{"name": e.key[:60], "ms_per_step":
                  e.self_device_time_total / steps / 1e3,
                  "calls_per_step": e.count / steps} for e in top],
@@ -721,8 +746,8 @@ def fused_inputs(torch, gen, n, cin, cout, with_res):
 def check_fused(torch, op, name, inputs, act):
     """The three fused kernels against their plain versions on one
     case's inputs: max |diff| / max |plain| <= TOL for y, ssum, ssq, du,
-    dscale, dshift, dres and dw, and B2's and B3's outputs bit-identical
-    on a repeat. Returns {output: (relative, absolute)}."""
+    dscale, dshift, dres and dw, and every output bit-identical on a
+    repeat. Returns {output: (relative, absolute)}."""
     u, scale, shift, w, res, dy, d1, d2 = inputs
     got = op.bn_act_conv1x1_fwd(u, scale, shift, w, res, act)
     ref = op.bn_act_conv1x1_plain(u, scale, shift, w, res, act)
@@ -735,13 +760,14 @@ def check_fused(torch, op, name, inputs, act):
                                      act),)
     ref += (op.bn_act_conv1x1_bwd_dw_plain(u, scale, shift, res, y, dy, d1,
                                            d2, act),)
-    again = op.bn_act_conv1x1_bwd_dx(u, scale, shift, w, res, y, dy, d1, d2,
-                                     act)
+    again = op.bn_act_conv1x1_fwd(u, scale, shift, w, res, act)
+    again += op.bn_act_conv1x1_bwd_dx(u, scale, shift, w, res, y, dy, d1, d2,
+                                      act)
     again += (op.bn_act_conv1x1_bwd_dw(u, scale, shift, res, y, dy, d1, d2,
                                        act),)
     torch.cuda.synchronize()
-    for out, a, b in zip(("du", "dscale", "dshift", "dres", "dw"), got[3:],
-                         again):
+    for out, a, b in zip(("y", "ssum", "ssq", "du", "dscale", "dshift",
+                          "dres", "dw"), got, again):
         assert (a is None and b is None) or torch.equal(a, b), (
             f"{name} act={act!r}: {out} not bit-identical on a repeat")
     errs = {}
@@ -774,11 +800,9 @@ def time_fused(torch, op, site, batch, gen):
     f32 = 4
     flops = 2 * n * cin * cout
 
-    def bound(nbytes, tensor_cores=True):
-        # B1 on the CUDA cores; B2 and B3 on the tensor cores in three
-        # TF32 passes (hi*hi + hi*lo + lo*hi)
-        t_ops = (3 * flops / H100_TF32_FLOPS if tensor_cores
-                 else flops / H100_F32_FLOPS) * 1e3
+    def bound(nbytes):
+        # on the tensor cores in three TF32 passes (hi*hi + hi*lo + lo*hi)
+        t_ops = 3 * flops / H100_TF32_FLOPS * 1e3
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                      else "operations")
@@ -791,7 +815,7 @@ def time_fused(torch, op, site, batch, gen):
                 lambda: op.bn_act_conv1x1_plain(u, scale, shift, w, None,
                                                 act),
                 lambda: torch.matmul(z, w),
-                bound(nu + vin + nw + ny + vout, tensor_cores=False)),
+                bound(nu + vin + nw + ny + vout)),
         # u, scale, shift, w, y, dy, d1, d2 read; du, dscale, dshift
         # written
         "bwd_dx": (lambda: op.bn_act_conv1x1_bwd_dx(
@@ -1087,6 +1111,8 @@ def resnet_training(torch, op, plain, fused, params, state):
             np.float32), device="cuda"),
          "label": id_arg(rng.integers(0, 3, 4).astype(np.int32),
                          device="cuda")}, "two_blocks_b4")
+    print(f"two-block held step: {tiny['relu_gate_flips']} ReLU gates "
+          f"flipped", flush=True)
     assert tiny["relu_gate_flips"] == 0 and (
         tiny["grads_held"] == tiny["grads_total"]), (
         "the two-block held step needs a feed whose ReLU gates agree")
@@ -2232,6 +2258,12 @@ def main() -> int:
              expect_dead=True),
         dict(name="b2_t64_h2_d64_kvlen0", B=2, Tq=64, Tk=64, H=2, D=64,
              causal=True, kv_len=[0, 64], expect_dead=True),
+        # LM (b)'s training forward (phase 6)
+        dict(name="train_b8_t1024_h4_d64_ragged", B=8, Tq=1024, Tk=1024,
+             H=4, D=64, causal=True, kv_len=list(PROMPT_LENS)),
+        # a head dim the kernel instantiates beyond 32/64/128
+        dict(name="b2_t300_h3_d96_ragged", B=2, Tq=300, Tk=300, H=3, D=96,
+             causal=True, kv_len=[300, 151]),
     ]
     results = [check_kernel(torch, fa, c, gen) for c in cases]
 
@@ -2256,6 +2288,8 @@ def main() -> int:
              expect_dead=True),
         dict(name="b2_t64_h2_d64_kvlen0", B=2, Tq=64, Tk=64, H=2, D=64,
              causal=True, kv_len=[0, 64], expect_dead=True),
+        dict(name="b2_t300_h3_d96_ragged", B=2, Tq=300, Tk=300, H=3, D=96,
+             causal=True, kv_len=[300, 151]),
     ]
     bwd = [check_backward(torch, fa, c, gen) for c in bwd_cases]
 

@@ -13,8 +13,8 @@
 //
 // The TPU kernels walk row blocks in order and add the column sums (B1, B2)
 // and dw (B3) into one resident output block. Hopper's blocks run in any
-// order, so here every block writes its column partials (B1: one a row
-// tile; B2: one a block, over the row tiles it walks) to a scratch array,
+// order, so here every block writes its column partials (B1 and B2: one a
+// block, over the row tiles it walks) to a scratch array,
 // and B3 splits the rows into chunks (split-K) with partial dw [splits, Cin,
 // Cout]; a second small kernel of the same launch sums the partials in a
 // fixed order. No atomics: results are the same run to run.
@@ -26,215 +26,54 @@
 //
 // What bounds them on one H100 SXM. Each kernel is one GEMM of 2*N*Cin*Cout
 // operations that reads u and y/dy once (3.35 TB/s).
-// - B1 (unchanged since it was first written) is a register-tiled SIMT
-//   product on the CUDA cores (67 TFLOP/s): block tile 128 x 128 or 128 x 64,
-//   depth 16, an 8 x 8 micro-tile a thread; one shared-memory stage.
-// - B2 and B3 run on the tensor cores at f32 accuracy (3xTF32): each operand
+// - All three run on the tensor cores at f32 accuracy (3xTF32, the PTX and
+//   the split in tf32_mma.cuh): each operand
 //   x is split into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna), and
 //   hi*hi' + hi*lo' + lo*hi' is accumulated in f32 by mma.sync m16n8k8 TF32
 //   (495 TFLOP/s dense, so 3 passes cost 3 * 2*N*Cin*Cout / 495e12 s; the
 //   mma.sync form reached ~290-320 TFLOP/s on an H100 SXM at 700 W). One
 //   pass of TF32 keeps ~3 digits and is not used. At the ResNet-50 shapes
-//   these two are then bounded by bytes (the res2 tail at batch 64, N =
-//   200,704, Cin 64, Cout 256: 0.153 ms B2, 0.138 ms B3) or, at the res4 and
-//   res5 sites, by the three passes (0.040 ms).
+//   they are then bounded by bytes (the res2 tail at batch 64, N = 200,704,
+//   Cin 64, Cout 256: 0.077 ms B1, 0.153 ms B2, 0.138 ms B3; B1's y alone is
+//   205.5 of its 257 MB) or, at the res4 and res5 sites, by the three
+//   passes (0.040 ms).
 // - The tensor cores add each product sum into the accumulator with
 //   truncation, so the error grows with the adds an accumulator takes: B3
 //   flushes its accumulators into f32 sums in shared memory every DW_FLUSH
-//   stages; B2's chain is K = Cout deep (3 * Cout / 8 adds: ~1.6e-5 of the
+//   stages, B1 into f32 sums in registers every FWD_FLUSH stages where Cin >
+//   256; B2's chain is K = Cout deep (3 * Cout / 8 adds: ~1.6e-5 of the
 //   largest du at Cout 2048 on an H100, ~2e-6 at Cout 256).
 // What their design does about it:
 // - Loads never wait on math: a ring of STAGES shared-memory stages is
 //   filled by 16-byte cp.async (4-byte where a width is not a multiple of 4),
 //   STAGES - 1 stages ahead, one __syncthreads a stage.
-// - The elementwise prologue (z = act(pre) for B3's A, dy_eff for B2's A and
-//   B3's B) and the hi/lo split run as a fragment leaves shared memory, in
-//   registers; the shared rows are padded so that these fragment reads are
-//   free of bank conflicts.
+// - The elementwise prologue (z = act(pre) for B1's and B3's A, dy_eff for
+//   B2's A and B3's B) and the hi/lo split run as a fragment leaves shared
+//   memory, in registers; the shared rows are padded so that these fragment
+//   reads are free of bank conflicts.
 // - Tiles follow the site: B3 takes 64 x 64, 64 x 256, 256 x 64 or 128 x 128
 //   of Cin x Cout by the widths (no tile half zeros at Cin = 64, and the res2
 //   tail's whole dw in one block, so u, y and dy are read once), and splits
 //   the rows over ~132 blocks; B2 takes 256 x 64 rows x Cin (Cin <= 64, one
-//   block an SM) or 64 x 128 (two blocks an SM), and a persistent grid walks
-//   the row tiles, the next tile's loads and u in flight during a tile's
+//   block an SM) or 64 x 128 (two blocks an SM), B1 one of four tiles by
+//   (N, Cin, Cout) (fwd_plan); in both a persistent grid walks the row
+//   tiles, the next tile's loads (and for B2 u) in flight during a tile's
 //   epilogue.
-// - A warp owns a 32 x 64 (B3 64 x 64: 32 x 16) tile of 2 x 8 (2 x 2)
-//   mma tiles; the three passes are issued pass by pass over all of them, so
-//   no two dependent mma are adjacent.
+// - A warp owns a 32 x 64 (B3 64 x 64: 32 x 16; B1 32 x 32 to 64 x 64) tile
+//   of mma tiles; the three passes are issued pass by pass over all of
+//   them, so no two dependent mma are adjacent.
+// - B1 splits with split_tf32_alu (integer ops, no cvt) and takes 32-deep
+//   stages (half the barriers of 16); both measured faster on an H100.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int BM = 128;        // B1: rows (the GEMM's M) of a block tile
-constexpr int BK = 16;         // depth of one shared-memory stage
-constexpr int PAD = 4;         // floats of padding per shared row
-constexpr int TM = 8;          // a thread's micro-tile: TM rows ...
-constexpr int TN = 8;          // ... by TN columns
-constexpr int TY = BM / TM;    // 16 threads along the rows
 constexpr int RED = 32;        // partial-sum reduction block: RED x RED
-
-template <int BN>
-struct Cfg {
-  static constexpr int TX = BN / TN;           // threads along the columns
-  static constexpr int THREADS = TX * TY;      // 256 (BN 128) or 128 (BN 64)
-};
-// resident blocks an SM the register budget must allow: at 256 threads,
-// <= 128 registers a thread
-constexpr int MIN_BLOCKS = 2;
-
-// Rows and columns of a thread's micro-tile: two 4-wide halves, so that the
-// float4 reads of a warp from shared memory are contiguous.
-__device__ __forceinline__ int row_of(int ty, int i) {
-  return i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + (i - 4);
-}
-template <int BN>
-__device__ __forceinline__ int col_of(int tx, int j) {
-  return j < 4 ? tx * 4 + j : BN / 2 + tx * 4 + (j - 4);
-}
-
-// pre = u * scale + shift [+ res], rounded as PyTorch's elementwise ops
-__device__ __forceinline__ float preact(float u, float s, float t,
-                                       const float* res, size_t off) {
-  float p = __fadd_rn(__fmul_rn(u, s), t);
-  if (res != nullptr) p = __fadd_rn(p, res[off]);
-  return p;
-}
-
-// dy_eff = dy + d1 + 2 * y * d2, rounded as PyTorch's elementwise ops
-__device__ __forceinline__ float dy_eff(float dy, float y, float d1,
-                                       float d2) {
-  return __fadd_rn(__fadd_rn(dy, d1), __fmul_rn(__fmul_rn(2.f, y), d2));
-}
-
-__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-}
-
-// acc[i][j] += sum_k As[k][row_of(i)] * Bs[k][col_of(j)] over one stage
-template <int BN>
-__device__ __forceinline__ void mma_stage(float (*As)[BM + PAD],
-                                          float (*Bs)[BN + PAD],
-                                          float (&acc)[TM][TN], int tx,
-                                          int ty) {
-#pragma unroll
-  for (int k = 0; k < BK; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(&As[k][BM / 2 + ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(&Bs[k][BN / 2 + tx * 4]);
-    const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[TN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// The block's column sums of two per-thread partials (pa, pb: a thread's
-// sums over its rows, one per micro-tile column), summed over the TY row
-// threads in a fixed order and written as row `tile` of the [tiles, C]
-// scratch arrays part_a and part_b.
-template <int BN>
-__device__ __forceinline__ void block_col_sums(float (*red)[BN],
-                                               const float (&pa)[TN],
-                                               const float (&pb)[TN], int tx,
-                                               int ty, float* part_a,
-                                               float* part_b, int tile,
-                                               int col0, int C) {
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    red[ty][col_of<BN>(tx, j)] = pa[j];
-    red[TY + ty][col_of<BN>(tx, j)] = pb[j];
-  }
-  __syncthreads();
-  // THREADS == 2 * BN: one thread per (array, column)
-  const int tid = threadIdx.x;
-  const int which = tid / BN, c = tid % BN;
-  float s = 0.f;
-#pragma unroll
-  for (int r = 0; r < TY; ++r) s += red[which * TY + r][c];
-  const int col = col0 + c;
-  if (col < C) (which ? part_b : part_a)[(size_t)tile * C + col] = s;
-}
-
-// ------------------------------------------------------------------ B1
-// Grid (row tiles, column tiles of Cout). z is staged as the A tile, w as B.
-template <int BN>
-__global__ void __launch_bounds__(Cfg<BN>::THREADS, MIN_BLOCKS)
-fwd_kernel(const float* __restrict__ u, const float* __restrict__ scale,
-           const float* __restrict__ shift, const float* __restrict__ w,
-           const float* __restrict__ res, float* __restrict__ y,
-           float* __restrict__ part, int N, int Cin, int Cout, int relu) {
-  constexpr int THREADS = Cfg<BN>::THREADS;
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
-  __shared__ float red[2 * TY][BN];
-  const int tid = threadIdx.x, tx = tid % Cfg<BN>::TX, ty = tid / Cfg<BN>::TX;
-  const int tile = blockIdx.x;
-  const int row0 = tile * BM, col0 = blockIdx.y * BN;
-  float acc[TM][TN];
-  zero(acc);
-
-  for (int k0 = 0; k0 < Cin; k0 += BK) {
-    // A = z [BM rows, BK channels]: neighbouring threads read neighbouring
-    // channels of one row of u
-#pragma unroll
-    for (int it = 0; it < BM * BK / THREADS; ++it) {
-      const int e = tid + it * THREADS;
-      const int k = e % BK, m = e / BK;
-      const int row = row0 + m, c = k0 + k;
-      float z = 0.f;
-      if (row < N && c < Cin) {
-        const size_t off = (size_t)row * Cin + c;
-        z = preact(u[off], scale[c], shift[c], res, off);
-        if (relu) z = fmaxf(z, 0.f);
-      }
-      As[k][m] = z;
-    }
-    // B = w [BK channels, BN outputs]
-#pragma unroll
-    for (int it = 0; it < BK * BN / THREADS; ++it) {
-      const int e = tid + it * THREADS;
-      const int n = e % BN, k = e / BN;
-      const int c = k0 + k, col = col0 + n;
-      Bs[k][n] = (c < Cin && col < Cout) ? w[(size_t)c * Cout + col] : 0.f;
-    }
-    __syncthreads();
-    mma_stage<BN>(As, Bs, acc, tx, ty);
-    __syncthreads();
-  }
-
-  // y, and the tile's column partials of y and y^2 (masked rows hold z = 0,
-  // so y = 0 there; they are skipped all the same)
-  float ps[TN], pq[TN];
-#pragma unroll
-  for (int j = 0; j < TN; ++j) ps[j] = pq[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = row0 + row_of(ty, i);
-    if (row >= N) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + col_of<BN>(tx, j);
-      if (col >= Cout) continue;
-      const float v = acc[i][j];
-      y[(size_t)row * Cout + col] = v;
-      ps[j] += v;
-      pq[j] = fmaf(v, v, pq[j]);
-    }
-  }
-  block_col_sums<BN>(red, ps, pq, tx, ty, part,
-                     part + (size_t)gridDim.x * Cout, tile, col0, Cout);
-}
 
 // ------------------------------------------------- B2 and B3: tensor cores
 constexpr int TC_BK = 16;        // depth (rows of K) of one stage
@@ -247,57 +86,7 @@ constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory a block may use
 // a 1 536-row split on an H100); 8 stages (128 rows, 48 mma a fragment)
 // keep each chain short, and the flushes add in round-to-nearest.
 constexpr int DW_FLUSH = 8;
-
-// PTX wrappers
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16-byte copy global -> shared; src_bytes 0 writes 16 zero bytes
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-// 4-byte copy (a width that is not a multiple of 4)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// round to TF32 (10 mantissa bits), to nearest, ties away from zero
-__device__ __forceinline__ unsigned to_tf32(float x) {
-  unsigned r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-// c += a (16 x 8, row) * b (8 x 8, col), TF32 inputs, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// end of PTX wrappers
-
-// x = hi + lo: hi = tf32(x), lo = tf32(x - hi) (the difference is exact)
-__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
-                                           unsigned& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
+constexpr int FWD_BK = 32;       // B1: depth (channels) of one stage
 
 // A block tile of BM x BN outputs, WM x WN warps of MT x NT mma tiles
 // (16 x 8 each), its ring of STAGES shared-memory stages, and the blocks an
@@ -311,50 +100,217 @@ struct Tile {
   static_assert(MT * 16 * WM == BM && NT * 8 * WN == BN, "tile");
 };
 
-// The 3xTF32 product of one k-step (8 deep) for a warp's MT x NT mma tiles,
-// pass by pass: the small terms first, then hi*hi.
-template <int MT, int NT>
-__device__ __forceinline__ void mma3_step(float (&acc)[MT][NT][4],
-                                          const unsigned (&ahi)[MT][4],
-                                          const unsigned (&alo)[MT][4],
-                                          const unsigned (&bhi)[NT][2],
-                                          const unsigned (&blo)[NT][2]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], alo[i], bhi[j]);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ahi[i], blo[j]);
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ahi[i], bhi[j]);
-}
+// B1's stage: u (and res) [BM rows][FWD_BK channels], w [FWD_BK][BN] and
+// scale, shift [FWD_BK]; the column partials [WM][2][BN] after the ring
+template <class T>
+struct FwdSmem {
+  static constexpr int A = T::BM * (FWD_BK + 4);
+  static constexpr int W = FWD_BK * (T::BN + 8);
+  __host__ __device__ static constexpr int stage(bool has_res) {
+    return (has_res ? 2 : 1) * A + W + 2 * FWD_BK;
+  }
+  static constexpr size_t bytes(bool has_res) {
+    return sizeof(float) *
+           (T::STAGES * stage(has_res) + 2 * T::WM * T::BN);
+  }
+};
 
-// cp.async of the ROWS x COLS window at (r0, c0) of a row-major [*, gld]
-// array into shared memory (row stride sld); rows >= rlim and columns >=
-// clim are filled with zeros. VEC 4: 16-byte copies (gld, c0 and clim
-// multiples of 4, the base 16-byte aligned); VEC 1: 4-byte copies.
-template <int ROWS, int COLS, int VEC, int THREADS>
-__device__ __forceinline__ void load_window(float* s, int sld,
-                                            const float* __restrict__ g,
-                                            int gld, int r0, int rlim,
-                                            int c0, int clim) {
-  constexpr int PER_ROW = COLS / VEC;
-  constexpr int COUNT = ROWS * PER_ROW;
+// ------------------------------------------------------------------ B1
+// y = z @ w: M = rows, N = Cout, K = Cin. Grid (P, Cout tiles): block (p, c)
+// walks the row tiles p, p + P, ... of Cout tile c, one ring of stages over
+// all of them, so the next tile's first stages are in flight while a tile's
+// last products and its epilogue run. A fragment's z = act(pre) is formed
+// from u as it leaves shared memory (row stride FWD_BK + 4: reads of rows g,
+// channels t fall in 32 banks); w's fragment reads (k = t, n = g) take a
+// row stride of BN + 8. The epilogue stores y in c0/c1 pairs and adds y and
+// y^2 into the thread's column partials, which stay in registers over all
+// the tiles the block walks and are summed at its end, in a fixed order,
+// into part[p]. Rows past N compute relu(shift) @ w and are neither stored
+// nor summed. FLUSH > 0: every FLUSH stages the mma accumulators are added
+// into f32 sums (round to nearest), so the tensor cores' truncating adds
+// never chain over more than FLUSH * FWD_BK channels.
+template <class T, int VEC, int FLUSH>
+__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
+fwd_kernel(const float* __restrict__ u, const float* __restrict__ scale,
+           const float* __restrict__ shift, const float* __restrict__ w,
+           const float* __restrict__ res, float* __restrict__ y,
+           float* __restrict__ part, int N, int Cin, int Cout, int relu) {
+  constexpr int BM = T::BM, BN = T::BN, MT = T::MT, NT = T::NT;
+  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
+  constexpr int LD = FWD_BK + 4, WLD = BN + 8, AS = FwdSmem<T>::A;
+  extern __shared__ __align__(16) float smem[];
+  const bool has_res = res != nullptr;
+  const int wa_off = has_res ? 2 * AS : AS;    // w after u (and res)
+  const int stage = FwdSmem<T>::stage(has_res);
+  float* red = smem + STAGES * stage;          // [WM][2][BN]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % T::WM, wn = warp / T::WM;
+  const int wa = wm * MT * 16, wb = wn * NT * 8;
+  const int col0 = blockIdx.y * BN;
+  const int row_tiles = (N + BM - 1) / BM;
+  const int mine = (row_tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                   (int)gridDim.x;
+  const int KT = (Cin + FWD_BK - 1) / FWD_BK;
+  const int steps = mine * KT;
+
+  auto load = [&](int step) {
+    float* st = smem + (step % STAGES) * stage;
+    const int row0 = (blockIdx.x + (step / KT) * gridDim.x) * BM;
+    const int k0 = (step % KT) * FWD_BK;
+    load_window<BM, FWD_BK, VEC, THREADS>(st, LD, u, Cin, row0, N, k0, Cin);
+    if (has_res)
+      load_window<BM, FWD_BK, VEC, THREADS>(st + AS, LD, res, Cin, row0, N,
+                                           k0, Cin);
+    float* ws = st + wa_off;
+    load_window<FWD_BK, BN, VEC, THREADS>(ws, WLD, w, Cout, k0, Cin, col0,
+                                         Cout);
+    float* e = ws + FwdSmem<T>::W;
+    load_window<1, FWD_BK, VEC, THREADS>(e, 0, scale, 0, 0, 1, k0, Cin);
+    load_window<1, FWD_BK, VEC, THREADS>(e + FWD_BK, 0, shift, 0, 0, 1, k0,
+                                         Cin);
+  };
+
+  float acc[MT][NT][4], tot[FLUSH ? MT : 1][FLUSH ? NT : 1][4];
+  float ps[NT][2], pq[NT][2];  // the thread's columns' sums of y, y^2
 #pragma unroll
-  for (int e0 = 0; e0 < COUNT; e0 += THREADS) {
-    const int e = e0 + threadIdx.x;
-    if (COUNT % THREADS != 0 && e >= COUNT) break;
-    const int r = e / PER_ROW, c = (e % PER_ROW) * VEC;
-    const bool ok = r0 + r < rlim && c0 + c < clim;
-    const float* src = ok ? g + (size_t)(r0 + r) * gld + (c0 + c) : g;
-    if (VEC == 4)
-      cp_async16(s + r * sld + c, src, ok ? 16 : 0);
-    else
-      cp_async4(s + r * sld + c, src, ok ? 4 : 0);
+  for (int j = 0; j < NT; ++j) ps[j][0] = ps[j][1] = pq[j][0] = pq[j][1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[i][j][c] = 0.f;
+        if (FLUSH) tot[FLUSH ? i : 0][FLUSH ? j : 0][c] = 0.f;
+      }
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    const int kt = it % KT;
+    if (FLUSH && kt > 0 && kt % (FLUSH ? FLUSH : 1) == 0) {
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float& x = tot[FLUSH ? i : 0][FLUSH ? j : 0][c];
+            x = __fadd_rn(x, acc[i][j][c]);
+            acc[i][j][c] = 0.f;
+          }
+    }
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage it has landed; stage it - 1 is free
+    if (it + STAGES - 1 < steps) load(it + STAGES - 1);
+    cp_async_commit();
+    const float* us = smem + (it % STAGES) * stage;
+    const float* rs = us + AS;
+    const float* ws = us + wa_off;
+    const float* sc = ws + FwdSmem<T>::W;
+    const float* sh = sc + FWD_BK;
+#pragma unroll
+    for (int kk = 0; kk < FWD_BK; kk += 8) {
+      unsigned ahi[MT][4], alo[MT][4], bhi[NT][2], blo[NT][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // fragment k = t (q 0), t + 4 (q 1)
+        const int k = kk + t + 4 * q;
+        const float ck = sc[k], hk = sh[k];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // fragment row g (h 0), g + 8
+            const int m = wa + i * 16 + g + 8 * h;
+            // pre = u * scale + shift [+ res], rounded as PyTorch rounds
+            float z = __fadd_rn(__fmul_rn(us[m * LD + k], ck), hk);
+            if (has_res) z = __fadd_rn(z, rs[m * LD + k]);
+            if (relu) z = fmaxf(z, 0.f);
+            split_tf32_alu(z, ahi[i][2 * q + h], alo[i][2 * q + h]);
+          }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          split_tf32_alu(ws[k * WLD + wb + j * 8 + g], bhi[j][q], blo[j][q]);
+      }
+      mma3_step<MT, NT>(acc, ahi, alo, bhi, blo);
+    }
+    if (kt != KT - 1) continue;
+
+    // epilogue of the row tile at row0
+    const int row0 = (blockIdx.x + (it / KT) * gridDim.x) * BM;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wa + i * 16 + g + 8 * h;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = col0 + wb + j * 8 + 2 * t;  // and c + 1
+          float v[2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            v[q] = acc[i][j][2 * h + q];
+            if (FLUSH) {
+              float& x = tot[FLUSH ? i : 0][FLUSH ? j : 0][2 * h + q];
+              v[q] = __fadd_rn(x, v[q]);
+              x = 0.f;
+            }
+            acc[i][j][2 * h + q] = 0.f;
+          }
+          if (row >= N) continue;
+          const size_t off = (size_t)row * Cout + c;
+          // Cout % 4 == 0 on the 16-byte path: c and c + 1 both in or out
+          if (VEC == 4) {
+            if (c < Cout) *reinterpret_cast<float2*>(y + off) =
+                make_float2(v[0], v[1]);
+          } else {
+            if (c < Cout) y[off] = v[0];
+            if (c + 1 < Cout) y[off + 1] = v[1];
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (c + q >= Cout) continue;
+            ps[j][q] = __fadd_rn(ps[j][q], v[q]);
+            pq[j][q] = fmaf(v[q], v[q], pq[j][q]);
+          }
+        }
+      }
+  }
+  cp_async_wait<0>();
+
+  // the block's column partials: over the 8 lanes of one t (a fixed
+  // butterfly), then over the WM warps of one column in order
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int x = 4; x < 32; x <<= 1) {
+        ps[j][q] += __shfl_xor_sync(0xffffffffu, ps[j][q], x);
+        pq[j][q] += __shfl_xor_sync(0xffffffffu, pq[j][q], x);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = wb + j * 8 + 2 * t + q;
+        red[(wm * 2) * BN + c] = ps[j][q];
+        red[(wm * 2 + 1) * BN + c] = pq[j][q];
+      }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < 2 * BN; x += THREADS) {
+    const int which = x / BN, c = x % BN;
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < T::WM; ++r) s += red[(r * 2 + which) * BN + c];
+    if (col0 + c < Cout)
+      part[((size_t)which * gridDim.x + blockIdx.x) * Cout + col0 + c] = s;
   }
 }
 
@@ -867,13 +823,88 @@ DwPlan dw_plan(int N, int Cin, int Cout) {
   return p;
 }
 
-template <int BN>
-void launch_fwd(const float* u, const float* scale, const float* shift,
-                const float* w, const float* res, float* y, float* part,
-                int N, int Cin, int Cout, int relu, cudaStream_t st) {
-  const dim3 grid(cdiv(N, BM), cdiv(Cout, BN));
-  fwd_kernel<BN><<<grid, Cfg<BN>::THREADS, 0, st>>>(
+// B1's tiles of rows x Cout, chosen by the site (each measured against the
+// others at the nine ResNet-50 sites on an H100, fwd_kernels_probe.py):
+// - narrow, Cout <= 64: 128 x 64, 8 warps of 32 x 32, two blocks an SM (two
+//   stages, so that two fit with a residual);
+// - wide, N > FWD_LONG_N: 128 x 128, 8 warps of 32 x 64;
+// - deep, smaller N: 128 x 128, 4 warps of 64 x 64 (more mma a fragment
+//   read), two blocks an SM;
+// - short, where 128 x 128 tiles would not give every SM one: 64 x 64, 4
+//   warps of 32 x 32, four blocks an SM.
+// Where Cin > FWD_FLUSH_CIN the wide and short tiles flush their
+// accumulators every FWD_FLUSH stages (128 channels, 48 adds a chain): a
+// 2048-deep chain of truncating adds drifts ~2e-5. The deep tile has no
+// registers for it (1.3e-5 at Cin 1024).
+using FwdNarrow = Tile<128, 64, 4, 2, 2, 2>;
+using FwdWide = Tile<128, 128, 4, 2, 3>;
+using FwdDeep = Tile<128, 128, 2, 2, 3, 2>;
+using FwdShort = Tile<64, 64, 2, 2, 3, 4>;
+enum FwdTile { FWD_NARROW, FWD_WIDE, FWD_DEEP, FWD_SHORT };
+constexpr int FWD_LONG_N = 16384;
+constexpr int FWD_FLUSH = 4;
+constexpr int FWD_FLUSH_CIN = 256;
+
+// B1's tile and persistent grid: P blocks a Cout tile, each walking the same
+// number of row tiles (within one), the fewest that keep ~SM_COUNT * BLOCKS
+// blocks busy
+struct FwdPlan {
+  int tile, bm, bn, blocks, flush;
+};
+FwdPlan fwd_plan(int N, int Cin, int Cout) {
+  FwdPlan p;
+  int per_sm;
+  if (Cout <= 64) {
+    p.tile = FWD_NARROW, p.bm = FwdNarrow::BM, p.bn = FwdNarrow::BN;
+    per_sm = FwdNarrow::BLOCKS;
+  } else if ((long long)cdiv(N, FwdWide::BM) * cdiv(Cout, FwdWide::BN) <
+             SM_COUNT) {
+    p.tile = FWD_SHORT, p.bm = FwdShort::BM, p.bn = FwdShort::BN;
+    per_sm = FwdShort::BLOCKS;
+  } else if (N > FWD_LONG_N) {
+    p.tile = FWD_WIDE, p.bm = FwdWide::BM, p.bn = FwdWide::BN;
+    per_sm = FwdWide::BLOCKS;
+  } else {
+    p.tile = FWD_DEEP, p.bm = FwdDeep::BM, p.bn = FwdDeep::BN;
+    per_sm = FwdDeep::BLOCKS;
+  }
+  const int row_tiles = cdiv(N, p.bm), col_tiles = cdiv(Cout, p.bn);
+  const long long tiles = (long long)row_tiles * col_tiles;
+  const int each = cdiv(tiles, (long long)SM_COUNT * per_sm);
+  p.blocks = cdiv(row_tiles, each);
+  p.flush = (p.tile == FWD_WIDE || p.tile == FWD_SHORT) && Cin > FWD_FLUSH_CIN
+                ? FWD_FLUSH
+                : 0;
+  return p;
+}
+
+template <class T, int VEC, int FLUSH>
+cudaError_t launch_fwd(const float* u, const float* scale, const float* shift,
+                       const float* w, const float* res, float* y,
+                       float* part, int N, int Cin, int Cout, int relu,
+                       int blocks, cudaStream_t st) {
+  const size_t bytes = FwdSmem<T>::bytes(res != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_kernel<T, VEC, FLUSH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(blocks, cdiv(Cout, T::BN));
+  fwd_kernel<T, VEC, FLUSH><<<grid, T::THREADS, bytes, st>>>(
       u, scale, shift, w, res, y, part, N, Cin, Cout, relu);
+  return cudaGetLastError();
+}
+
+template <class T, int FLUSH>
+cudaError_t launch_fwd_vec(int vec, const float* u, const float* scale,
+                           const float* shift, const float* w,
+                           const float* res, float* y, float* part, int N,
+                           int Cin, int Cout, int relu, int blocks,
+                           cudaStream_t st) {
+  if (vec == 4)
+    return launch_fwd<T, 4, FLUSH>(u, scale, shift, w, res, y, part, N, Cin,
+                                   Cout, relu, blocks, st);
+  return launch_fwd<T, 1, FLUSH>(u, scale, shift, w, res, y, part, N, Cin,
+                                 Cout, relu, blocks, st);
 }
 
 template <class T, int VEC>
@@ -953,22 +984,36 @@ cudaError_t col_reduce(const float* part, float* out_a, float* out_b,
 
 }  // namespace
 
-// Floats of scratch a call needs: kind 0 = B1 ([2, row tiles, Cout]),
+// Floats of scratch a call needs: kind 0 = B1 ([2, blocks, Cout]),
 // 1 = B2 ([2, blocks, Cin]), 2 = B3 ([splits, Cin, Cout], 0 when one chunk
 // covers N and the kernel writes dw itself).
 extern "C" long long bn_act_conv1x1_scratch_floats(int kind, int N, int Cin,
                                                    int Cout) {
-  if (kind == 0) return 2LL * cdiv(N, BM) * Cout;
+  if (kind == 0) return 2LL * fwd_plan(N, Cin, Cout).blocks * Cout;
   if (kind == 1) return 2LL * dx_blocks(N, Cin) * Cin;
   const DwPlan plan = dw_plan(N, Cin, Cout);
   return plan.splits > 1 ? (long long)plan.splits * Cin * Cout : 0;
 }
 
-// The launch a call makes, for reports: kind 1 = B2, 2 = B3; writes the
-// tile (rows or Cin, columns), the grid's blocks and the dynamic shared
-// memory in bytes into out[0..3].
+// The launch a call makes, for reports: kind 0 = B1, 1 = B2, 2 = B3; writes
+// the tile (rows or Cin, columns), the grid's blocks and the dynamic shared
+// memory in bytes into out[0..3], and for B1 the stages between flushes of
+// its accumulators (0: none) into out[4].
 extern "C" void bn_act_conv1x1_plan(int kind, int N, int Cin, int Cout,
                                     int has_res, long long* out) {
+  if (kind == 0) {
+    const FwdPlan plan = fwd_plan(N, Cin, Cout);
+    const bool r = has_res != 0;
+    out[0] = plan.bm;
+    out[1] = plan.bn;
+    out[2] = (long long)plan.blocks * cdiv(Cout, plan.bn);
+    out[3] = plan.tile == FWD_NARROW ? FwdSmem<FwdNarrow>::bytes(r)
+             : plan.tile == FWD_WIDE ? FwdSmem<FwdWide>::bytes(r)
+             : plan.tile == FWD_DEEP ? FwdSmem<FwdDeep>::bytes(r)
+                                     : FwdSmem<FwdShort>::bytes(r);
+    out[4] = plan.flush;
+    return;
+  }
   if (kind == 1) {
     const bool narrow = Cin <= 64;
     out[0] = narrow ? DxNarrow::BM : DxWide::BM;
@@ -1000,15 +1045,42 @@ extern "C" int bn_act_conv1x1_fwd(const float* u, const float* scale,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (Cout <= 64)
-    launch_fwd<64>(u, scale, shift, w, res, y, scratch, N, Cin, Cout, relu,
-                   st);
-  else
-    launch_fwd<128>(u, scale, shift, w, res, y, scratch, N, Cin, Cout, relu,
-                    st);
-  err = cudaGetLastError();
+  const void* ptrs[] = {u, scale, shift, w, res, y};
+  const int vec = vec_for(Cin, Cout, ptrs, 6);
+  const FwdPlan plan = fwd_plan(N, Cin, Cout);
+  switch (plan.tile * 2 + (plan.flush != 0)) {
+    case FWD_NARROW * 2:
+      err = launch_fwd_vec<FwdNarrow, 0>(vec, u, scale, shift, w, res, y,
+                                         scratch, N, Cin, Cout, relu,
+                                         plan.blocks, st);
+      break;
+    case FWD_WIDE * 2:
+      err = launch_fwd_vec<FwdWide, 0>(vec, u, scale, shift, w, res, y,
+                                       scratch, N, Cin, Cout, relu,
+                                       plan.blocks, st);
+      break;
+    case FWD_WIDE * 2 + 1:
+      err = launch_fwd_vec<FwdWide, FWD_FLUSH>(vec, u, scale, shift, w, res,
+                                               y, scratch, N, Cin, Cout,
+                                               relu, plan.blocks, st);
+      break;
+    case FWD_DEEP * 2:
+      err = launch_fwd_vec<FwdDeep, 0>(vec, u, scale, shift, w, res, y,
+                                       scratch, N, Cin, Cout, relu,
+                                       plan.blocks, st);
+      break;
+    case FWD_SHORT * 2:
+      err = launch_fwd_vec<FwdShort, 0>(vec, u, scale, shift, w, res, y,
+                                        scratch, N, Cin, Cout, relu,
+                                        plan.blocks, st);
+      break;
+    default:
+      err = launch_fwd_vec<FwdShort, FWD_FLUSH>(vec, u, scale, shift, w, res,
+                                                y, scratch, N, Cin, Cout,
+                                                relu, plan.blocks, st);
+  }
   if (err != cudaSuccess) return (int)err;
-  return (int)col_reduce(scratch, ssum, ssq, cdiv(N, BM), Cout, st);
+  return (int)col_reduce(scratch, ssum, ssq, plan.blocks, Cout, st);
 }
 
 // B2. Inputs as B1's plus y, dy [N, Cout] and d1, d2 [Cout]; writes du

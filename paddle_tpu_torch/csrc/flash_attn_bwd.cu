@@ -276,9 +276,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// the dynamic shared memory a launch asks for, allowed beside the kernel's
+// static arrays (D = 96 asks for exactly 48 KB)
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
@@ -323,8 +324,9 @@ cudaError_t prologue(int B, int Tq, int Tk, int H, int device) {
 
 }  // namespace
 
-// Plain C entry points, loaded with ctypes. kv_len and q_len may be null (no
-// mask). Each launches one kernel on `stream` of `device`, does not
+// Plain C entry points, loaded with ctypes. D is 32, 64, 96 or 128 (the
+// wrapper pads any other D <= 128 with zero columns); q, k, v and dout
+// 16-byte aligned. kv_len and q_len may be null (no mask). Each launches one kernel on `stream` of `device`, does not
 // synchronise, and returns the launch's cudaError_t (0 = launched). dk and dv
 // are fully written (0 for masked keys); so is dq.
 extern "C" int flash_attn_bwd_dkv(const float* q, const float* k,
@@ -343,6 +345,9 @@ extern "C" int flash_attn_bwd_dkv(const float* q, const float* k,
                                  q_len, B, Tq, Tk, H, causal, scale, st);
     case 64:
       return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, kv_len,
+                                 q_len, B, Tq, Tk, H, causal, scale, st);
+    case 96:
+      return (int)launch_dkv<96>(q, k, v, dout, lse, delta, dk, dv, kv_len,
                                  q_len, B, Tq, Tk, H, causal, scale, st);
     case 128:
       return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_len,
@@ -368,6 +373,9 @@ extern "C" int flash_attn_bwd_dq(const float* q, const float* k,
                                 B, Tq, Tk, H, causal, scale, st);
     case 64:
       return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, kv_len, q_len,
+                                B, Tq, Tk, H, causal, scale, st);
+    case 96:
+      return (int)launch_dq<96>(q, k, v, dout, lse, delta, dq, kv_len, q_len,
                                 B, Tq, Tk, H, causal, scale, st);
     case 128:
       return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_len,

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), f32.
+// Flash-attention forward for Hopper (sm_90a), f32 accuracy on the tensor
+// cores.
 //
 // Replaces the TPU kernel behind paddle_tpu/parallel/ring.py::_pallas_flash
 // (jax.experimental.pallas.ops.tpu.flash_attention, forward). It computes
@@ -14,198 +15,378 @@
 // explicitly (p = 0), never through exp(NEG_INF - m). A row with no visible
 // key gets out = 0 and lse = +1e30, the rule of ring.py:155-158.
 //
-// Design (right and simple first): one block of 256 threads per (b, h,
-// 64-query tile). Four threads share a query row; each holds a quarter of
-// the row's q and of its accumulator, as interleaved float4 chunks so the
-// four read consecutive shared-memory words. K/V tiles of 64 rows are staged
-// in shared memory; each score is a quad reduction (two xor shuffles). The
-// online softmax runs in f32 registers with f32 FMA on the CUDA cores. A
-// causal tile stops at its last query row, and every tile stops at kv_len.
-// Tensor cores (TF32/bf16 mma or wgmma), TMA and a persistent schedule are
-// later work.
+// What bounds it on one H100 SXM: 4*D*H flops a visible (query, key) pair
+// (Q.K^T and P.V), done as three TF32 passes on the tensor cores (495
+// TFLOP/s dense): at the served prefill shape (B=1, H=4, T=1024, D=64,
+// causal) ~3.3 us, against ~1.25 us for q, k, v, out and lse at 3.35 TB/s.
+// That shape has only 16 query tiles x 4 heads, so it is bound by the
+// latency of its longest tile (16 key tiles in a row) well before either.
 //
-// Bound at the served prefill shape (B=1, H=4, T=1024, D=64, causal) on one
-// H100 SXM: ~0.54 GFLOP of QK^T and PV at the 67 TFLOP/s f32 CUDA-core rate
-// is ~8 us; q, k, v and out in f32 are ~4.2 MB, ~1.3 us at 3.35 TB/s. So it
-// is bound by operations. That shape launches only 16 x 4 = 64 blocks on 132
-// SMs, so this first version is bound by latency well before either.
+// Design:
+// - One block per (h, b, 64-query tile). A warp owns 16 query rows of one key
+//   group. Where the grid would not put two blocks on every SM and D <= 64
+//   (shared memory), two groups of 4 warps take the key tiles in turn, each
+//   with its own running max, sum and output, merged in order at the end:
+//   that halves the longest chain of tiles a warp walks, which bounds the
+//   served shape. Otherwise one group. The grid puts the
+//   query tile on its slowest axis and, when causal, reverses it, so the
+//   heaviest tiles (the most keys) are dispatched first.
+// - 3xTF32 on mma.sync m16n8k8 (tf32_mma.cuh): each operand x is split into
+//   hi = tf32(x) and lo = tf32(x - hi), and hi*hi' + hi*lo' + lo*hi' is
+//   accumulated in f32. Q is split once a block into hi/lo arrays in shared
+//   memory; K, V and P are split as their fragments are read, by integer
+//   ops (split_tf32_alu) rather than cvt, which runs at a quarter rate.
+// - S = Q.K^T: A = Q (k = D contiguous), B = K as it lies (D contiguous a
+//   key). P.V without a trip through shared memory: the f32 accumulator of S
+//   holds keys (2t, 2t+1) of rows g and g+8, and the A fragment of P.V wants
+//   k = t and t+4. P.V sums over keys, so inside each group of 8 keys A's
+//   k = t stands for key 2t and k = t+4 for key 2t+1, and V's B fragment is
+//   read at the same permuted rows: P goes from the softmax into the mma
+//   with no shuffle. Shared rows are padded to D+4 floats, so the Q, K (row
+//   g, column t) and V (row 2t or 2t+1, column g) fragment reads are free of
+//   bank conflicts.
+// - The online softmax runs on fragment rows: a row's max takes two quad
+//   shuffles a key tile; its sum is kept a thread and reduced once at the
+//   end. Only tiles that cross a mask (the diagonal tile, kv_len, q_len)
+//   test each (row, key) pair; a causal tile stops at its last visible key.
+// - Each key tile's P.V goes into a fresh accumulator that is added, in
+//   round-to-nearest f32, to the output scaled by the max's correction: the
+//   tensor cores' truncating adds then never chain over more than one tile.
+// - K and V arrive through a two-stage cp.async ring of tile sets (a tile a
+//   key group; 16-byte copies); rows at or past kv_len are zero-filled
+//   (source size 0). The next set's copies are in flight while this set's
+//   mma run.
+// - No atomics, a fixed order: bit-identical from run to run.
+//
+// wgmma would take Q.K^T (both operands K-major) but not P.V: TF32 wgmma
+// needs V K-major, i.e. transposed in shared memory. Later work.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int BLOCK_M = 64;               // query rows per block
-constexpr int BLOCK_N = 64;               // key rows per shared-memory tile
-constexpr int QUAD = 4;                   // threads per query row
-constexpr int THREADS = BLOCK_M * QUAD;   // 256
+constexpr int BLOCK_M = 64;              // query rows a block
+constexpr int BLOCK_N = 64;              // keys a shared-memory tile
+constexpr int WARPS = BLOCK_M / 16;      // a warp owns 16 query rows ...
+constexpr int STAGES = 2;                // K/V tile sets in flight
+constexpr int NT = BLOCK_N / 8;          // S's mma tiles a warp (keys)
 
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
+// ... of one key group: KG groups of WARPS warps take the key tiles in turn
+// (group g tiles g, g + KG, ...), each with its own running max, sum and
+// output, merged at the end. Two groups halve the longest chain of tiles a
+// warp walks, where the grid is too small to fill the card and D <= 64
+// (shared memory).
+constexpr int SM_COUNT = 132;            // H100 SXM
+template <int D, int KG_>
+struct Cfg {
+  static constexpr int KG = KG_;
+  static constexpr int THREADS = 32 * WARPS * KG;
+  static constexpr int LD = D + 4;            // row stride of Q, K, V
+  static constexpr int Q = BLOCK_M * LD;      // Q hi (then lo), as TF32 bits
+  static constexpr int KV = KG * BLOCK_N * LD;  // K (then V) of a stage
+  static constexpr size_t BYTES = sizeof(float) * (2 * Q + STAGES * 2 * KV);
+};
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int KG_>
+__global__ void __launch_bounds__(Cfg<D, KG_>::THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, const int* __restrict__ kv_len,
                  const int* __restrict__ q_len, int Tq, int Tk, int H,
                  int causal, float scale) {
-  constexpr int D4 = D / 4;        // float4 per row
-  constexpr int C = D4 / QUAD;     // float4 chunks per thread
-  extern __shared__ float4 smem[];
-  float4* ks = smem;                   // [BLOCK_N][D4]
-  float4* vs = smem + BLOCK_N * D4;    // [BLOCK_N][D4]
+  using C = Cfg<D, KG_>;
+  constexpr int LD = C::LD, KG = C::KG, THREADS = C::THREADS;
+  constexpr int DT = D / 8;          // P.V's mma tiles a warp (head dims)
+  constexpr int DH = DT <= 8 ? DT : DT / 2;   // ... of one pass over P
+  extern __shared__ __align__(16) float smem[];
+  unsigned* qhi = reinterpret_cast<unsigned*>(smem);
+  unsigned* qlo = qhi + C::Q;
+  float* ring = smem + 2 * C::Q;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BLOCK_M;
-  const int tid = threadIdx.x;
-  const int row = tid / QUAD;
-  const int lane = tid % QUAD;   // owns chunks lane + QUAD * i
-  const int qi = q0 + row;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tile = causal ? (int)gridDim.z - 1 - (int)blockIdx.z
+                          : (int)blockIdx.z;
+  const int q0 = tile * BLOCK_M;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp / WARPS;                  // the warp's key group
+  const int rw = (warp % WARPS) * 16;            // the warp's first row
+  const int qi[2] = {q0 + rw + g, q0 + rw + g + 8};
 
   const int klen = kv_len ? min(max(kv_len[b], 0), Tk) : Tk;
   const int qlen = q_len ? min(max(q_len[b], 0), Tq) : Tq;
-  const bool row_live = qi < qlen;
   // keys any row of this tile may see
   int kend = klen;
   if (causal) kend = min(kend, q0 + BLOCK_M);
   if (q0 >= qlen) kend = 0;
+  const int ntiles = (kend + BLOCK_N - 1) / BLOCK_N;
+  const int nsets = (ntiles + KG - 1) / KG;      // KG tiles a set
 
-  float4 qr[C];
+  const int ld = H * D;                          // a token's row in q, k, v
+  const float* kb = k + ((size_t)b * Tk * H + h) * D;
+  const float* vb = v + ((size_t)b * Tk * H + h) * D;
+  auto load = [&](int j) {          // the set of tiles j * KG, ...
+    float* st = ring + (j % STAGES) * 2 * C::KV;
+    load_window<KG * BLOCK_N, D, 4, THREADS>(st, LD, kb, ld,
+                                             j * KG * BLOCK_N, klen, 0, D);
+    load_window<KG * BLOCK_N, D, 4, THREADS>(st + C::KV, LD, vb, ld,
+                                             j * KG * BLOCK_N, klen, 0, D);
+  };
+  if (nsets > 0) load(0);
+  cp_async_commit();
+
+  // Q of the tile, split once into TF32 hi and lo (rows past Tq: zeros)
+  const float* qb = q + ((size_t)b * Tq * H + h) * D;
+  for (int e = threadIdx.x; e < BLOCK_M * D / 4; e += THREADS) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Tq)
+      x = *reinterpret_cast<const float4*>(qb + (size_t)(q0 + r) * ld + c);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int i = 0; i < C; ++i) {
-    qr[i] = zero4();
-    if (qi < Tq) {
-      const size_t off = ((size_t)(b * Tq + qi) * H + h) * D;
-      qr[i] = reinterpret_cast<const float4*>(q + off)[lane + QUAD * i];
-    }
+    for (int i = 0; i < 4; ++i)
+      split_tf32_alu(xs[i], qhi[r * LD + c + i], qlo[r * LD + c + i]);
   }
 
-  float m = -CUDART_INF_F;   // running max over visible keys
-  float l = 0.f;             // running denominator
-  float4 acc[C];
+  float o[1][DT][4];                 // the rows' unnormalised output
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};   // running max, rows g, g+8
+  float l[2] = {0.f, 0.f};           // the thread's part of the row sums
 #pragma unroll
-  for (int i = 0; i < C; ++i) acc[i] = zero4();
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[0][n][c] = 0.f;
 
-  for (int k0 = 0; k0 < kend; k0 += BLOCK_N) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int idx = tid; idx < BLOCK_N * D4; idx += THREADS) {
-      const int j = idx / D4;
-      const int c = idx % D4;
-      const int t = k0 + j;
-      float4 kk = zero4(), vv = zero4();
-      if (t < klen) {
-        const size_t off = ((size_t)(b * Tk + t) * H + h) * D;
-        kk = reinterpret_cast<const float4*>(k + off)[c];
-        vv = reinterpret_cast<const float4*>(v + off)[c];
+  for (int j = 0; j < nsets; ++j) {
+    __syncthreads();                 // every warp is done with set j - 1
+    if (j + 1 < nsets) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                 // set j (and Q) visible to all
+    const int tile_j = j * KG + grp;   // this warp's tile of the set
+    if (tile_j >= ntiles) continue;
+    const float* ks =
+        ring + (j % STAGES) * 2 * C::KV + grp * BLOCK_N * LD;
+    const float* vs = ks + C::KV;
+    const int k0 = tile_j * BLOCK_N;
+
+    // S = Q.K^T for the warp's 16 rows and the tile's 64 keys
+    float s[1][NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[0][n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 8) {
+      unsigned ahi[1][4], alo[1][4], bhi[NT][2], blo[NT][2];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {   // (row g + 8 (x & 1), col t + 4 (x >> 1))
+        const int at = (rw + g + 8 * (x & 1)) * LD + kk + t + 4 * (x >> 1);
+        ahi[0][x] = qhi[at];
+        alo[0][x] = qlo[at];
       }
-      ks[idx] = kk;
-      vs[idx] = vv;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)   // key 8n + g, dim kk + t + 4x
+          split_tf32_alu(ks[(8 * n + g) * LD + kk + t + 4 * x], bhi[n][x],
+                     blo[n][x]);
+      mma3_step<1, NT>(s, ahi, alo, bhi, blo);
+    }
+
+    // the online softmax on the fragment rows g (c 0, 1) and g + 8 (c 2, 3)
+    const bool masked = !(k0 + BLOCK_N <= klen && q0 + BLOCK_M <= qlen &&
+                          (!causal || k0 + BLOCK_N - 1 <= q0));
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[0][n][c] * scale;
+        if (masked) {
+          const int key = k0 + 8 * n + 2 * t + (c & 1);
+          const int row = qi[c >> 1];
+          if (!(row < qlen && key < klen && (!causal || key <= row)))
+            x = -CUDART_INF_F;
+        }
+        s[0][n][c] = x;
+        mx[c >> 1] = fmaxf(mx[c >> 1], x);
+      }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      // 0 on the row's first visible tile; 1 while it has seen no key
+      corr[r] = m_new == -CUDART_INF_F ? 1.f : expf(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float x = s[0][n][c];
+        const float p = x == -CUDART_INF_F ? 0.f : expf(x - m[c >> 1]);
+        s[0][n][c] = p;
+        psum[c >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
+
+    // this tile's P.V in a fresh accumulator, keys permuted in groups of 8,
+    // DH of the head dims' mma tiles at a time (registers)
+#pragma unroll
+    for (int d0 = 0; d0 < DT; d0 += DH) {
+      float ot[1][DH][4];
+#pragma unroll
+      for (int n = 0; n < DH; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) ot[0][n][c] = 0.f;
+#pragma unroll
+      for (int kg = 0; kg < NT; ++kg) {
+        unsigned ahi[1][4], alo[1][4], bhi[DH][2], blo[DH][2];
+        // A (row, k): k = t is key 2t (c0 / c2), k = t + 4 is key 2t + 1
+        split_tf32_alu(s[0][kg][0], ahi[0][0], alo[0][0]);
+        split_tf32_alu(s[0][kg][2], ahi[0][1], alo[0][1]);
+        split_tf32_alu(s[0][kg][1], ahi[0][2], alo[0][2]);
+        split_tf32_alu(s[0][kg][3], ahi[0][3], alo[0][3]);
+#pragma unroll
+        for (int n = 0; n < DH; ++n)
+#pragma unroll
+          for (int x = 0; x < 2; ++x)   // key 8kg + 2t + x, dim 8(d0+n) + g
+            split_tf32_alu(vs[(8 * kg + 2 * t + x) * LD + 8 * (d0 + n) + g],
+                       bhi[n][x], blo[n][x]);
+        mma3_step<1, DH>(ot, ahi, alo, bhi, blo);
+      }
+#pragma unroll
+      for (int n = 0; n < DH; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          o[0][d0 + n][c] = fmaf(o[0][d0 + n][c], corr[c >> 1], ot[0][n][c]);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (KG > 1) {
+    // groups 1.. hand their max, sum and output to group 0 through the
+    // ring, [value][thread of the group], and group 0 merges them in order
+    constexpr int GT = 32 * WARPS;
+    const int me = threadIdx.x % GT;
+    __syncthreads();                 // the ring is free
+    if (grp > 0) {
+      float* c = ring + (grp - 1) * (DT * 4 + 4) * GT;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        c[r * GT + me] = m[r];
+        c[(2 + r) * GT + me] = l[r];
+      }
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[(4 + n * 4 + e) * GT + me] = o[0][n][e];
     }
     __syncthreads();
-
-    float s[BLOCK_N];
-    float tmax = -CUDART_INF_F;
+    if (grp > 0) return;
 #pragma unroll
-    for (int j = 0; j < BLOCK_N; ++j) {
-      float part = 0.f;
+    for (int k = 1; k < KG; ++k) {
+      const float* c = ring + (k - 1) * (DT * 4 + 4) * GT;
+      float ca[2], cb[2];
 #pragma unroll
-      for (int i = 0; i < C; ++i) {
-        const float4 kk = ks[j * D4 + lane + QUAD * i];
-        part = fmaf(qr[i].x, kk.x, part);
-        part = fmaf(qr[i].y, kk.y, part);
-        part = fmaf(qr[i].z, kk.z, part);
-        part = fmaf(qr[i].w, kk.w, part);
-      }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
-      const int t = k0 + j;
-      const bool ok = row_live && t < klen && (!causal || t <= qi);
-      s[j] = ok ? part * scale : -CUDART_INF_F;
-      tmax = fmaxf(tmax, s[j]);
-    }
-
-    if (tmax > -CUDART_INF_F) {   // this row sees a key in this tile
-      const float m_new = fmaxf(m, tmax);
-      const float corr = expf(m - m_new);   // 0 on the first visible tile
-      float psum = 0.f;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        acc[i].x *= corr;
-        acc[i].y *= corr;
-        acc[i].z *= corr;
-        acc[i].w *= corr;
+      for (int r = 0; r < 2; ++r) {
+        const float mb = c[r * GT + me];
+        const float m_new = fmaxf(m[r], mb);
+        // a group that saw no key of the row adds nothing (its l, o are 0)
+        ca[r] = m[r] == -CUDART_INF_F ? 0.f : expf(m[r] - m_new);
+        cb[r] = mb == -CUDART_INF_F ? 0.f : expf(mb - m_new);
+        l[r] = l[r] * ca[r] + c[(2 + r) * GT + me] * cb[r];
+        m[r] = m_new;
       }
 #pragma unroll
-      for (int j = 0; j < BLOCK_N; ++j) {
-        const float p = s[j] > -CUDART_INF_F ? expf(s[j] - m_new) : 0.f;
-        psum += p;
+      for (int n = 0; n < DT; ++n)
 #pragma unroll
-        for (int i = 0; i < C; ++i) {
-          const float4 vv = vs[j * D4 + lane + QUAD * i];
-          acc[i].x = fmaf(p, vv.x, acc[i].x);
-          acc[i].y = fmaf(p, vv.y, acc[i].y);
-          acc[i].z = fmaf(p, vv.z, acc[i].z);
-          acc[i].w = fmaf(p, vv.w, acc[i].w);
-        }
-      }
-      l = l * corr + psum;
-      m = m_new;
+        for (int e = 0; e < 4; ++e)
+          o[0][n][e] = fmaf(o[0][n][e], ca[e >> 1],
+                            c[(4 + n * 4 + e) * GT + me] * cb[e >> 1]);
     }
   }
-
-  if (qi < Tq) {
-    const size_t off = ((size_t)(b * Tq + qi) * H + h) * D;
-    float4* o = reinterpret_cast<float4*>(out + off);
-    const bool alive = l > 0.f;
 #pragma unroll
-    for (int i = 0; i < C; ++i) {
-      float4 r = zero4();
+  for (int r = 0; r < 2; ++r) {
+    if (qi[r] >= Tq) continue;
+    const bool alive = l[r] > 0.f;
+    float* orow = out + ((size_t)(b * Tq + qi[r]) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      float2 x = make_float2(0.f, 0.f);
       if (alive) {
-        r.x = acc[i].x / l;
-        r.y = acc[i].y / l;
-        r.z = acc[i].z / l;
-        r.w = acc[i].w / l;
+        x.x = o[0][n][2 * r] / l[r];
+        x.y = o[0][n][2 * r + 1] / l[r];
       }
-      o[lane + QUAD * i] = r;
+      *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) = x;
     }
-    if (lane == 0) {
-      lse[((size_t)b * H + h) * Tq + qi] = alive ? m + logf(l) : 1e30f;
-    }
+    if (t == 0)
+      lse[((size_t)b * H + h) * Tq + qi[r]] =
+          alive ? m[r] + logf(l[r]) : 1e30f;
   }
 }
 
+template <int D, int KG>
+cudaError_t launch_kg(const float* q, const float* k, const float* v,
+                      float* out, float* lse, const int* kv_len,
+                      const int* q_len, int B, int Tq, int Tk, int H,
+                      int causal, float scale, cudaStream_t stream) {
+  using C = Cfg<D, KG>;
+  constexpr size_t smem = C::BYTES;
+  static_assert(smem <= 232448, "shared memory of a block");
+  static_assert((KG - 1) * (D / 2 + 4) * 32 * WARPS <= STAGES * 2 * C::KV,
+                "the key groups' merge fits in the ring");
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, KG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (Tq + BLOCK_M - 1) / BLOCK_M);
+  flash_fwd_kernel<D, KG><<<grid, C::THREADS, smem, stream>>>(
+      q, k, v, out, lse, kv_len, q_len, Tq, Tk, H, causal, scale);
+  return cudaGetLastError();
+}
+
+// two key groups where D <= 64 and one-group blocks would not put two
+// blocks on every SM
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    float* out, float* lse, const int* kv_len,
                    const int* q_len, int B, int Tq, int Tk, int H,
                    int causal, float scale, cudaStream_t stream) {
-  const size_t smem = 2 * BLOCK_N * D * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((Tq + BLOCK_M - 1) / BLOCK_M, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, out, lse, kv_len, q_len, Tq, Tk, H, causal, scale);
-  return cudaGetLastError();
+  const long long blocks = (long long)B * H * ((Tq + BLOCK_M - 1) / BLOCK_M);
+  if (D <= 64 && blocks < 2 * SM_COUNT)
+    return launch_kg<D, D <= 64 ? 2 : 1>(q, k, v, out, lse, kv_len, q_len,
+                                         B, Tq, Tk, H, causal, scale, stream);
+  return launch_kg<D, 1>(q, k, v, out, lse, kv_len, q_len, B, Tq, Tk, H,
+                         causal, scale, stream);
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. kv_len and q_len may be null
-// (no mask). Launches on `stream` of `device`, does not synchronise, and
-// returns the launch's cudaError_t (0 = launched).
+// Plain C entry point, loaded with ctypes. D is 32, 64, 96 or 128 (the
+// wrapper pads any other D <= 128 with zero columns); q, k, v 16-byte
+// aligned. kv_len and q_len may be null (no mask). Launches on `stream` of
+// `device`, does not synchronise, and returns the launch's cudaError_t
+// (0 = launched).
 extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
                               float* out, float* lse, const int* kv_len,
                               const int* q_len, int B, int Tq, int Tk, int H,
                               int D, int causal, float scale, int device,
                               void* stream) {
-  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || B > 65535 || H > 65535)
+  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || B > 65535 ||
+      (Tq + BLOCK_M - 1) / BLOCK_M > 65535)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -217,6 +398,10 @@ extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
       break;
     case 64:
       err = launch<64>(q, k, v, out, lse, kv_len, q_len, B, Tq, Tk, H,
+                       causal, scale, st);
+      break;
+    case 96:
+      err = launch<96>(q, k, v, out, lse, kv_len, q_len, B, Tq, Tk, H,
                        causal, scale, st);
       break;
     case 128:

@@ -118,16 +118,21 @@ def _bind():
 
 
 def launch_plan(n, cin, cout, residual=False):
-    """B2's and B3's launches at these widths, for reports: {"bwd_dx" or
-    "bwd_dw": {"tile", "blocks", "smem_bytes"}} (the tile in rows or Cin
-    by columns, the dynamic shared memory a block)."""
+    """B1's, B2's and B3's launches at these widths, for reports:
+    {"fwd", "bwd_dx" or "bwd_dw": {"tile", "blocks", "smem_bytes"}} (the
+    tile in rows or Cin by columns, the dynamic shared memory a block);
+    "fwd" also has "flush", the stages between B1's flushes of its
+    accumulators into f32 sums (0: none)."""
     lib = _bind()
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 5)()
     plans = {}
-    for name, kind in (("bwd_dx", _BWD_DX), ("bwd_dw", _BWD_DW)):
+    for name, kind in (("fwd", _FWD), ("bwd_dx", _BWD_DX),
+                       ("bwd_dw", _BWD_DW)):
         lib.bn_act_conv1x1_plan(kind, n, cin, cout, int(residual), out)
         plans[name] = {"tile": [out[0], out[1]], "blocks": out[2],
                        "smem_bytes": out[3]}
+        if kind == _FWD:
+            plans[name]["flush"] = out[4]
     return plans
 
 

@@ -11,7 +11,13 @@ backward calls (dkv and dq). The contract is the blocked oracle's,
 - optional `kv_len` [B] and `q_len` [B] int32: keys at or past
   kv_len[b] are masked, and a query row at or past q_len[b] sees no
   key at all;
-- `scale`, default 1/sqrt(D).
+- `scale`, default 1/sqrt(D);
+- any head dim D <= 128: the kernels instantiate D in KERNEL_HEAD_DIMS,
+  and `flash_attention` / `flash_attention_bwd` pad another D with zero
+  columns of q, k, v (and dout) up to the next one and slice the
+  padding off the results (zero columns add nothing to q.k and give
+  zero columns of out, dq, dk and dv); `scale` stays that of the
+  original D.
 
 The forward returns (out [B, Tq, H, D] f32, lse [B, H, Tq] f32). A row
 with no visible key gets out = 0 and lse = +1e30. The backward takes
@@ -47,7 +53,8 @@ from paddle_tpu_torch.ops import _build
 
 KERNEL = "flash_attn_fwd"
 BWD_KERNEL = "flash_attn_bwd"
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+KERNEL_HEAD_DIMS = (32, 64, 96, 128)   # the dims the kernels instantiate
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 LSE_MASKED = 1e30
 
 # kernel launches since the last reset, one counter per kernel (the
@@ -152,9 +159,35 @@ def _check_lens(x, B, name, device):
     return x
 
 
-def _check_cuda(where, q, tensors):
+def kernel_head_dim(D):
+    """The head dim the kernels run a call of head dim D at: the
+    smallest of KERNEL_HEAD_DIMS that is >= D."""
+    for d in KERNEL_HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}: the flash kernels "
+                     f"take head dims up to {MAX_HEAD_DIM}")
+
+
+def pad_head_dim(x, dk):
+    """x [..., D] with dk - D zero columns appended (x itself when D ==
+    dk), contiguous."""
+    D = x.shape[-1]
+    if D == dk:
+        return x
+    return torch.nn.functional.pad(x, (0, dk - D)).contiguous()
+
+
+def _aligned(x):
+    """x, or a copy of it when its data is not 16-byte aligned (the
+    kernels read q, k, v and dout in 16-byte pieces)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _check_cuda(where, q, tensors, kernel_dims=True):
     """Validate the kernels' inputs on a CUDA device; returns the dims
-    (B, Tq, Tk, H, D)."""
+    (B, Tq, Tk, H, D). D must be one of KERNEL_HEAD_DIMS, or with
+    kernel_dims=False at most MAX_HEAD_DIM (the caller pads it)."""
     if q.device.type != "cuda":
         raise ValueError(f"{where}: unsupported device {q.device}")
     B, Tq, H, D = q.shape
@@ -169,10 +202,13 @@ def _check_cuda(where, q, tensors):
                 f"[{B},{t},{H},{D}] on {q.device}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}"
             )
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(
-            f"{where}: head dim {D} not in {SUPPORTED_HEAD_DIMS}"
-        )
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{where}: head dim {D} > {MAX_HEAD_DIM}: the "
+                         f"flash kernels take head dims up to "
+                         f"{MAX_HEAD_DIM}")
+    if kernel_dims and D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{where}: head dim {D} not in {KERNEL_HEAD_DIMS} "
+                         f"(flash_attention pads other dims)")
     return B, Tq, Tk, H, D
 
 
@@ -190,19 +226,22 @@ def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
         return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                q_len=q_len, scale=scale)
     B, Tq, Tk, H, D = _check_cuda("flash_attention", q,
-                                  {"q": q, "k": k, "v": v})
+                                  {"q": q, "k": k, "v": v},
+                                  kernel_dims=False)
     kv_len = _check_lens(kv_len, B, "kv_len", q.device)
     q_len = _check_lens(q_len, B, "q_len", q.device)
     scale = _scale(scale, D)
+    dk = kernel_head_dim(D)
+    q, k, v = (_aligned(pad_head_dim(x, dk)) for x in (q, k, v))
     lib = _bind(KERNEL)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     _launch(lib, "flash_attn_fwd", q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _build.ptr(kv_len), _build.ptr(q_len), B, Tq, Tk, H, D,
+            _build.ptr(kv_len), _build.ptr(q_len), B, Tq, Tk, H, dk,
             int(bool(causal)), scale, *_build.device_and_stream(q))
     launches += 1
-    return out, lse
+    return (out if dk == D else out[..., :D].contiguous()), lse
 
 
 def _check_rows(where, name, x, B, H, Tq, device):
@@ -270,13 +309,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                    kv_len=kv_len, q_len=q_len, scale=scale)
-    _check_cuda("flash_attention_bwd", q, {"q": q, "out": out, "k": k})
+    D = _check_cuda("flash_attention_bwd", q, {"q": q, "out": out, "k": k},
+                    kernel_dims=False)[-1]
     # the softmax-jacobian row term, a plain reduction as in the JAX
     # package (the library computes it outside its kernels too)
     delta = torch.einsum("bqhd,bqhd->bhq", dout, out).contiguous()
-    kw = dict(causal=causal, kv_len=kv_len, q_len=q_len, scale=scale)
+    kw = dict(causal=causal, kv_len=kv_len, q_len=q_len,
+              scale=_scale(scale, D))
+    d_k = kernel_head_dim(D)
+    q, k, v, dout = (_aligned(pad_head_dim(x, d_k)) for x in (q, k, v, dout))
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    if d_k != D:
+        dq, dk, dv = (x[..., :D].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -8,6 +8,12 @@ CPU in both: atol 1e-5 on the rows that see at least one key (the
 summation order differs). Rows that see no key are the port's own
 rule: out exactly 0, lse exactly 1e30.
 
+`test_emulated_kernel_arithmetic_*` replays the kernel's tensor-core
+arithmetic (3xTF32 splits, 64-key tiles, the in-group key permutation
+of P.V) in numpy. `test_padded_head_dim_*` checks the zero-column
+padding the wrappers apply to a head dim the kernels do not
+instantiate.
+
 The kernel itself runs only on the card: `TestOnCard` is marked `cuda`
 and skips here; on a machine with an H100 and no JAX it runs alone
 (`python -m pytest -m cuda tests/test_torch_attention.py`).
@@ -35,16 +41,25 @@ CASES = {
     "causal_full": (1, 64, 64, 2, 32, True, None, None),
     "causal_kvlen_zero_row": (2, 19, 19, 2, 8, True, [0, 19], None),
     "cross_qlen_kvlen": (2, 21, 45, 2, 16, False, [45, 30], [13, 21]),
+    "causal_ragged_d48": (2, 37, 37, 2, 48, True, [37, 20], None),
 }
 
 
-# the kernel takes head dims 32, 64 and 128: the same masks at those
+# the kernel instantiates head dims 32, 64, 96 and 128 and the wrapper
+# pads the others (40, 48): the same masks at those, T not a multiple of
+# 16 or 64, kv_len 0 and 1, Tq != Tk
 CARD_CASES = {
     "causal_ragged_odd_t_d32": (2, 37, 37, 2, 32, True, [37, 20], None),
     "noncausal_kvlen_d64": (2, 29, 29, 3, 64, False, [29, 5], None),
     "causal_full_d32": (1, 64, 64, 2, 32, True, None, None),
     "causal_kvlen_zero_row_d64": (2, 19, 19, 2, 64, True, [0, 19], None),
     "cross_qlen_kvlen_d128": (2, 21, 45, 2, 128, False, [45, 30], [13, 21]),
+    "causal_ragged_t150_d40": (2, 150, 150, 2, 40, True, [150, 71], None),
+    "noncausal_kvlen_d48": (2, 29, 29, 3, 48, False, [29, 5], None),
+    "cross_qlen_kvlen_d96": (2, 70, 133, 2, 96, False, [133, 64], [70, 9]),
+    "causal_kvlen_0_and_1_t70_d64": (2, 70, 70, 2, 64, True, [0, 1], None),
+    "causal_tq100_tk37_d64": (1, 100, 37, 2, 64, True, [37], None),
+    "noncausal_tq7_tk300_d64": (2, 7, 300, 1, 64, False, [300, 129], None),
 }
 
 
@@ -151,6 +166,163 @@ def test_port_ring_matches_jax_ring():
     assert (out[~vis] == 0).all()
 
 
+@pytest.mark.parametrize("D", [8, 40, 48, 100])
+def test_padded_head_dim_gives_the_unpadded_result(D):
+    """What the wrappers do on the card for a head dim the kernels do
+    not instantiate: zero columns of q, k, v (and dout) up to
+    kernel_head_dim(D), the scale of D, the padding sliced off. With the
+    plain versions on the CPU it gives the unpadded call's out, lse, dq,
+    dk and dv."""
+    case = (2, 37, 45, 2, D, False, [45, 20], [37, 30])
+    q, k, v, causal, kv, ql = (_t(x) if isinstance(x, np.ndarray) else x
+                               for x in _inputs(case))
+    do = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        q.shape).astype(np.float32))
+    kw = dict(causal=causal, kv_len=kv, q_len=ql)
+    out, lse = fa.attention_plain(q, k, v, **kw)
+    grads = fa.attention_bwd_plain(q, k, v, out, lse, do, **kw)
+    dk = fa.kernel_head_dim(D)
+    assert dk in fa.KERNEL_HEAD_DIMS and dk > D
+    qp, kp, vp, dop = (fa.pad_head_dim(x, dk) for x in (q, k, v, do))
+    assert qp.shape[-1] == dk and (qp[..., D:] == 0).all()
+    scale = 1.0 / np.sqrt(D)
+    outp, lsep = fa.attention_plain(qp, kp, vp, scale=scale, **kw)
+    gradp = fa.attention_bwd_plain(qp, kp, vp, outp, lsep, dop, scale=scale,
+                                   **kw)
+    assert (outp[..., D:] == 0).all()
+    np.testing.assert_allclose(lsep.numpy(), lse.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    for got, ref in zip((outp, *gradp), (out, *grads)):
+        assert (got[..., D:] == 0).all()
+        np.testing.assert_allclose(got[..., :D].numpy(), ref.numpy(),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_kernel_head_dims():
+    """D <= 128 runs at the next instantiated dim; D > 128 raises."""
+    assert [fa.kernel_head_dim(d) for d in (1, 32, 33, 64, 65, 96, 97,
+                                            128)] == [32, 32, 64, 64, 96,
+                                                      96, 128, 128]
+    with pytest.raises(ValueError, match="head dim 129 > 128"):
+        fa.kernel_head_dim(129)
+
+
+def _tf32(x):
+    """x (f32) rounded to TF32 as `cvt.rna.tf32.f32` rounds: 10 mantissa
+    bits, to nearest, ties away from zero (finite x)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    """The kernel's split_tf32_alu: hi rounded to TF32 as cvt.rna rounds,
+    lo = x - hi truncated to TF32 (low 13 bits cleared)."""
+    hi = _tf32(x)
+    lo = (np.ascontiguousarray(x - hi, np.float32).view(np.uint32)
+          & np.uint32(0xFFFFE000)).view(np.float32)
+    return hi, lo
+
+
+def _mm3(a, b):
+    """a @ b (f32, 2-D) as the kernel forms it: hi/lo TF32 splits of both
+    operands, the three products summed in f32, small terms first."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+
+    def mm(x, y):
+        return (torch.from_numpy(x) @ torch.from_numpy(y)).numpy()
+
+    return (mm(a_lo, b_hi) + mm(a_hi, b_lo)) + mm(a_hi, b_hi)
+
+
+# inside each group of 8 keys, P.V's A fragment column k holds key
+# PERM[k]: k = t is key 2t, k = t + 4 is key 2t + 1
+PERM = np.asarray([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _flash_fwd_emulated(q, k, v, causal, kv_len, groups, block=64):
+    """csrc/flash_attn_fwd.cu's arithmetic in numpy for one (b, h): q
+    [T, D], k, v [Tk, D] f32. `groups` key groups take the 64-key tiles
+    in turn (group g tiles g, g + groups, ...), each running the online
+    softmax with the mask tested a pair (p = 0 exactly), S = Q.K^T and
+    P.V in 3xTF32 with the keys permuted in groups of 8 (A's columns and
+    V's rows alike) and each tile's P.V in a fresh accumulator added to
+    the corrected output; the groups' (max, sum, output) are then merged
+    in order. Returns (out [T, D], lse [T])."""
+    T, D = q.shape
+    scale = np.float32(1.0 / np.sqrt(D))
+    rows = np.arange(T)[:, None]
+    perm = (np.arange(block) // 8) * 8 + PERM[np.arange(block) % 8]
+    parts = []
+    for grp in range(groups):
+        m = np.full(T, -np.inf, np.float32)
+        l = np.zeros(T, np.float32)
+        o = np.zeros((T, D), np.float32)
+        for k0 in range(grp * block, kv_len, groups * block):
+            keys = k0 + np.arange(block)
+            kt = np.zeros((block, D), np.float32)
+            vt = np.zeros((block, D), np.float32)
+            live = keys < kv_len
+            kt[live], vt[live] = k[keys[live]], v[keys[live]]
+            s = _mm3(q, np.ascontiguousarray(kt.T)) * scale
+            vis = (keys[None, :] < kv_len) & (
+                (not causal) | (keys[None, :] <= rows))
+            s = np.where(vis, s, -np.inf).astype(np.float32)
+            m_new = np.maximum(m, s.max(axis=1))
+            seen = m_new > -np.inf
+            corr = np.where(seen, np.exp(m - np.where(seen, m_new, 0)),
+                            1).astype(np.float32)
+            p = np.where(vis, np.exp(s - np.where(seen, m_new, 0)[:, None]),
+                         0).astype(np.float32)
+            l = (l * corr + p.sum(axis=1)).astype(np.float32)
+            ot = _mm3(np.ascontiguousarray(p[:, perm]), vt[perm])
+            o = (o * corr[:, None] + ot).astype(np.float32)
+            m = m_new
+        parts.append((m, l, o))
+    m, l, o = parts[0]
+    for mb, lb, ob in parts[1:]:
+        m_new = np.maximum(m, mb)
+        ca = np.where(m > -np.inf, np.exp(m - np.where(m_new > -np.inf,
+                                                       m_new, 0)), 0)
+        cb = np.where(mb > -np.inf, np.exp(mb - np.where(m_new > -np.inf,
+                                                         m_new, 0)), 0)
+        l = (l * ca + lb * cb).astype(np.float32)
+        o = (o * ca[:, None] + ob * cb[:, None]).astype(np.float32)
+        m = m_new
+    alive = l > 0
+    out = np.where(alive[:, None], o / np.where(alive, l, 1)[:, None], 0)
+    lse = np.where(alive, m + np.log(np.where(alive, l, 1)), 1e30)
+    return out.astype(np.float32), lse.astype(np.float32)
+
+
+@pytest.mark.parametrize("D, groups", [(64, 2), (64, 1), (128, 1)])
+def test_emulated_kernel_arithmetic_holds_f32_accuracy(D, groups):
+    """The forward kernel's tensor-core arithmetic, emulated, at T = 1024
+    causal with a ragged kv_len, with the key groups the kernel takes at
+    this size (two at D = 64 on a small grid, one otherwise): within 1e-5
+    of the f64 result (relative to the largest |out|) and within 1e-4 of
+    attention_plain."""
+    B, T = 2, 1024
+    rng = np.random.default_rng(D)
+    q, k, v = (rng.standard_normal((B, T, 1, D)).astype(np.float32)
+               for _ in range(3))
+    kv = np.asarray([1000, 333], np.int32)
+    ref, ref_lse = fa.attention_plain(
+        *(torch.from_numpy(x).double() for x in (q, k, v)), causal=True,
+        kv_len=torch.from_numpy(kv))
+    plain, plain_lse = fa.attention_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=True,
+        kv_len=torch.from_numpy(kv))
+    for b in range(B):
+        out, lse = _flash_fwd_emulated(q[b, :, 0], k[b, :, 0], v[b, :, 0],
+                                       True, int(kv[b]), groups)
+        r = ref[b, :, 0].numpy()
+        assert np.abs(out - r).max() <= 1e-5 * np.abs(r).max()
+        assert np.abs(out - plain[b, :, 0].numpy()).max() <= 1e-4
+        np.testing.assert_allclose(lse, plain_lse[b, 0].numpy(), atol=1e-4)
+        np.testing.assert_allclose(lse, ref_lse[b, 0].numpy(), atol=1e-5)
+
+
 def test_wrapper_takes_plain_path_on_cpu_and_counts_nothing():
     q, k, v, causal, kv, ql = _inputs(CASES["cross_qlen_kvlen"])
     before = fa.launches
@@ -184,5 +356,26 @@ class TestOnCard:
         torch.cuda.synchronize()
         assert fa.launches == before + 1
         ref_out, ref_lse = _port(q, k, v, causal, kv, ql)
+        assert out.shape == ref_out.shape
         np.testing.assert_allclose(out.cpu().numpy(), ref_out, atol=1e-4)
         np.testing.assert_allclose(lse.cpu().numpy(), ref_lse, atol=1e-4)
+        # rows without a visible key: exactly out 0 and lse 1e30
+        dead = ref_lse >= fa.LSE_MASKED
+        assert (lse.cpu().numpy()[dead] == fa.LSE_MASKED).all()
+        assert (out.cpu().numpy().transpose(0, 2, 1, 3)[dead] == 0).all()
+
+    @pytest.mark.parametrize("name", ["causal_ragged_t150_d40",
+                                      "causal_kvlen_0_and_1_t70_d64",
+                                      "cross_qlen_kvlen_d128"])
+    def test_kernel_is_bit_identical_on_a_repeat(self, name):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        q, k, v, causal, kv, ql = (
+            None if x is None else torch.from_numpy(x).cuda()
+            if isinstance(x, np.ndarray) else x
+            for x in _inputs(CARD_CASES[name], seed=3))
+        runs = [fa.flash_attention(q, k, v, causal=causal, kv_len=kv,
+                                   q_len=ql) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)

@@ -49,13 +49,17 @@ CASES = {
     "noncausal_block_k_lt_t": (2, 33, 33, 2, 8, False, [9, 33], None, 8),
 }
 
-# the kernels take head dims 32, 64 and 128
+# the kernels instantiate head dims 32, 64, 96 and 128; the wrapper pads
+# the others (40, 48)
 CARD_CASES = {
     "causal_full_d64": (2, 128, 128, 2, 64, True, None, None),
     "causal_ragged_d64": (3, 150, 150, 2, 64, True, [150, 70, 1], None),
     "causal_odd_t_d32": (2, 77, 77, 3, 32, True, [77, 40], None),
     "noncausal_kvlen0_d32": (2, 64, 64, 2, 32, False, [0, 64], None),
     "cross_qlen_d128": (2, 64, 200, 2, 128, False, [200, 123], [50, 64]),
+    "causal_ragged_d40": (2, 150, 150, 2, 40, True, [150, 71], None),
+    "noncausal_kvlen0_d48": (2, 64, 64, 2, 48, False, [0, 64], None),
+    "cross_qlen_d96": (2, 70, 133, 2, 96, False, [133, 64], [70, 9]),
 }
 
 

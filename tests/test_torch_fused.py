@@ -15,7 +15,7 @@ padded row would leak relu(shift) into the statistics; gradients of
 u, scale, shift, w and residual under the JAX test's loss, which
 weights y, ssum and ssq.
 
-B2 and B3 run on the tensor cores at f32 accuracy (3xTF32: each
+B1, B2 and B3 run on the tensor cores at f32 accuracy (3xTF32: each
 operand split into hi = tf32(x) and lo = tf32(x - hi), the product
 hi*hi' + hi*lo' + lo*hi'). `test_three_tf32_*` emulates that split in
 numpy (round to nearest, ties away, as `cvt.rna.tf32` does) and holds it
@@ -24,8 +24,8 @@ pass is not.
 
 `TestOnCard` (marked `cuda`) holds the three Hopper kernels against
 their plain versions on the card at the nine ResNet-50 site shapes
-(batch 2) and ragged ones, shows B2 and B3 bit-identical on a repeat,
-and that one autograd step launches each once. It skips here; on a
+(batch 2) and ragged ones, shows B1, B2 and B3 bit-identical on a
+repeat, and that one autograd step launches each once. It skips here; on a
 machine with an H100 and no JAX: `python -m pytest --noconftest -m
 cuda tests/test_torch_fused.py`.
 """
@@ -208,10 +208,11 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     assert (np.abs(hi + _tf32(v - hi) - v) <= 2.0 ** -21 * np.abs(v)).all()
 
 
-@pytest.mark.parametrize("k", [256, 12544])
+@pytest.mark.parametrize("k", [256, 2048, 12544])
 def test_three_tf32_product_holds_f32_accuracy(k):
-    """At K = 256 (a site's Cout, B2's depth) and K = 12 544 (the res4
-    rows of a batch of 64, B3's depth) the 3xTF32 product of z (ReLU'd)
+    """At K = 256 (a site's Cout, B2's depth), K = 2048 (B1's deepest Cin,
+    res5bc_a) and K = 12 544 (the res4 rows of a batch of 64, B3's depth)
+    the 3xTF32 product of z (ReLU'd)
     and dy_eff stays within 1e-5 of the f64 product, relative to its
     largest entry; one TF32 pass does not."""
     rng = np.random.default_rng(k)
@@ -316,8 +317,9 @@ class TestOnCard:
                                        "res5bc_a_b2", "res5_tail_b2"])
     def test_backward_kernels_are_bit_identical_on_a_repeat(self, shape,
                                                             with_res):
-        """B2's column sums and B3's split-K partials are summed in a
-        fixed order, without atomics."""
+        """B1's and B2's column sums and B3's split-K partials are summed
+        in a fixed order, without atomics: B1, B2 and B3 repeat bit for
+        bit."""
         n, cin, cout = CARD_SHAPES[shape]
         u, sc, sh, w, r = (torch.from_numpy(x).cuda() for x in
                            _inputs(n, cin, cout, seed=4))
@@ -327,11 +329,13 @@ class TestOnCard:
         dy = torch.randn((n, cout), generator=g, device="cuda")
         d1 = torch.randn((cout,), generator=g, device="cuda")
         d2 = torch.randn((cout,), generator=g, device="cuda") * 0.01
-        runs = [op.bn_act_conv1x1_bwd_dx(u, sc, sh, w, res, y, dy, d1, d2)
+        runs = [op.bn_act_conv1x1_fwd(u, sc, sh, w, res)
+                + op.bn_act_conv1x1_bwd_dx(u, sc, sh, w, res, y, dy, d1, d2)
                 + (op.bn_act_conv1x1_bwd_dw(u, sc, sh, res, y, dy, d1, d2),)
                 for _ in range(2)]
         torch.cuda.synchronize()
-        for nm, a, b in zip(("du", "dscale", "dshift", "dres", "dw"), *runs):
+        for nm, a, b in zip(("y", "ssum", "ssq", "du", "dscale", "dshift",
+                             "dres", "dw"), *runs):
             assert (a is None and b is None) or torch.equal(a, b), nm
 
     def test_autograd_step_launches_each_kernel_once(self):
