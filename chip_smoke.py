@@ -80,7 +80,11 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
     T=100, h=256; the NMT encoder, B=256, T=32, h=256), at the bench's
     other widths h=512 and 1280, and at ragged lengths with a 0 and a 1
     (max |diff| / max |plain| <= 1e-4 for every output, exactly 0 past
-    each row's length), and times kernel, plain version and cuDNN's
+    each row's length), prints each case's B6/B8 route (the cluster
+    route where its weight slice fits a block, h <= 320, else the walk)
+    and holds the cluster route bit-identical on a repeat and its walk
+    against the plain version too, and times kernel, plain version,
+    B6/B8 on the walk where a case takes both routes, and cuDNN's
     torch.nn.LSTM/GRU (another function: a reference point only) with
     the bounds;
 11. runs the IMDB stacked-LSTM classifier (vocab 30000, emb 128, two
@@ -99,7 +103,7 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
     steps at B=256, T=32 — then 10 steps of each on the scan arm: every
     loss falls, ms/step, tokens/s, peak memory and the profile table,
     and the kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
-    (NMT) a step;
+    (NMT) a step, every B6 and B8 on the cluster route;
 14. holds the sparse-row kernels (B9, `csrc/sparse_rows.cu`: the rule
     kernel and the generic route's gather and scatter) against their
     plain PyTorch version at the two bench shapes (V = 2^20 x 64, N =
@@ -162,8 +166,12 @@ LR_B = 0.001
 STEPS_B = 300
 
 
+T_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -538,6 +546,15 @@ PORT_KERNELS = {
     "B4f flash_attn_fwd": "flash_fwd_kernel<",
     "B4b flash_attn_bwd_dkv": "flash_bwd_dkv_kernel<",
     "B4b flash_attn_bwd_dq": "flash_bwd_dq_kernel<",
+    "B5 lstm_seq_fwd": "lstm_fwd_kernel<",
+    "B6 lstm_seq_bwd cluster walk": "lstm_bwd_cluster_kernel<",
+    "B6 lstm_seq_bwd walk route": "lstm_bwd_kernel<",
+    "B7 gru_seq_fwd": "gru_fwd_kernel<",
+    "B8 gru_seq_bwd cluster walk": "gru_bwd_cluster_kernel<",
+    "B8 gru_seq_bwd walk route": "gru_bwd_kernel<",
+    # the cluster route's hoisted pre-activations and dW (B6's in the
+    # classifier's step, B8's in the NMT's)
+    "B6/B8 tc_kernel (hoisted products, dW)": "tc_kernel<",
 }
 
 
@@ -1153,7 +1170,9 @@ RNN_CASES = [
     ("gru_ragged_b9_t37_h256", "gru", 9, 37, 256, RAGGED),
 ]
 RNN_COUNTERS = ("lstm_fwd_launches", "lstm_fwd_infer_launches",
-                "lstm_bwd_launches", "gru_fwd_launches", "gru_bwd_launches")
+                "lstm_bwd_launches", "lstm_bwd_cluster_launches",
+                "gru_fwd_launches", "gru_bwd_launches",
+                "gru_bwd_cluster_launches")
 
 
 def zero_rnn_counts(rnn):
@@ -1186,10 +1205,12 @@ def rnn_inputs(torch, gen, cell, b, t, h, lens):
 def check_rnn(torch, rnn, case, gen):
     """B5 (both variants) and B6, or B7 and B8, against their plain
     versions at one case: max |diff| / max |plain| <= TOL for every
-    output, exactly 0 past each row's length; then kernel, plain and
-    cuDNN (torch.nn.LSTM/GRU: another function — no peepholes, its own
-    input GEMM, no masks; a reference point only) times and the bounds.
-    Returns the case's numbers."""
+    output, exactly 0 past each row's length; B6/B8 on the route of
+    their rule (`rnn.bwd_plan`) and, where that is the cluster route,
+    bit-identical on a repeat and on the walk too; then kernel, plain,
+    walk and cuDNN (torch.nn.LSTM/GRU: another function — no peepholes,
+    its own input GEMM, no masks; a reference point only) times and the
+    bounds. Returns the case's numbers."""
     name, cell, b, t, h, lens = case
     x, ws, lens_t, dy, live = rnn_inputs(torch, gen, cell, b, t, h, lens)
     dead = torch.arange(t, device="cuda")[None, :] >= lens_t[:, None]
@@ -1210,6 +1231,11 @@ def check_rnn(torch, rnn, case, gen):
             "fwd_infer": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t,
                                                   want_c=False),
             "bwd": lambda: rnn.lstm_seq_bwd(x, w, b7, lens_t, yp, cp, dy)}
+
+        def walk():
+            return rnn.lstm_seq_bwd(x, w, b7, lens_t, yp, cp, dy,
+                                    route="walk")
+
         plain = {
             "fwd": lambda: rnn.lstm_plain(x, w, *parts, lens_t, want_c=True),
             "fwd_infer": lambda: rnn.lstm_plain(x, w, *parts, lens_t),
@@ -1238,6 +1264,11 @@ def check_rnn(torch, rnn, case, gen):
         kern = {"fwd": lambda: rnn.gru_seq_fwd(x, w_g, w_c, bias, lens_t),
                 "bwd": lambda: rnn.gru_seq_bwd(x, w_g, w_c, bias, lens_t, yp,
                                                dy)}
+
+        def walk():
+            return rnn.gru_seq_bwd(x, w_g, w_c, bias, lens_t, yp, dy,
+                                   route="walk")
+
         plain = {"fwd": lambda: rnn.gru_plain(x, w_g, w_c, bias, lens_t),
                  "bwd": lambda: rnn.gru_bwd_plain(x, w_g, w_c, bias, lens_t,
                                                   yp, dy)}
@@ -1261,11 +1292,29 @@ def check_rnn(torch, rnn, case, gen):
     assert bool((got[0][dead] == 0).all().item()), f"{name}: y past len"
     dx = got[2] if cell == "lstm" else got[1]
     assert bool((dx[dead] == 0).all().item()), f"{name}: dx past len"
+    kernel = rnn.LSTM_KERNEL if cell == "lstm" else rnn.GRU_KERNEL
+    plan = rnn.bwd_plan(kernel, b, h, x.device)
+    both = plan["route"] == "cluster"
+    first = 2 if cell == "lstm" else 1           # B6/B8's outputs in got
+    walk_err = {}
+    if both:                 # bit-identical on a repeat; the walk holds too
+        again, by_walk = kern["bwd"](), walk()
+        torch.cuda.synchronize()
+        for n, g, a, wk, r in zip(names[first:], got[first:], again, by_walk,
+                                  ref[first:]):
+            assert bool(torch.equal(g, a)), f"{name}: {n} differs on a repeat"
+            walk_err[n] = rel_err(wk, r)[0]
+            assert walk_err[n] <= TOL, (
+                f"{name}: walk vs plain {n} relative error "
+                f"{walk_err[n]:.3g} > {TOL}")
+        assert bool((by_walk[0][dead] == 0).all().item()), (
+            f"{name}: walk dx past len")
 
     slow = h >= 1280
     res = {"name": name, "cell": cell, "B": b, "T": t, "h": h,
-           "live_steps": live,
-           "rel_err": {n: e[0] for n, e in errs.items()}}
+           "live_steps": live, "bwd_plan": plan,
+           "rel_err": {n: e[0] for n, e in errs.items()},
+           "walk_rel_err": walk_err}
     for k in kern:
         flops, nbytes = work[k]
         t_ops = flops / H100_F32_FLOPS * 1e3
@@ -1280,6 +1329,8 @@ def check_rnn(torch, rnn, case, gen):
             "max_abs_err": max((e[1] for n, e in errs.items()
                                 if which[n] == k[:3]), default=0.0),
         }
+    if both:    # the same function on the walk route
+        res["bwd_walk_ms"] = time_ms(torch, walk)
     # cuDNN's LSTM/GRU over [B, T, h] (its input GEMM included): forward,
     # and forward+backward minus forward
     xin = torch.randn((b, t, h), generator=gen, device="cuda",
@@ -1498,7 +1549,8 @@ def text_training(torch, rnn):
     """Phases 12 and 13: the held steps at ragged lengths, then the
     training runs at the bench's full lengths, kernel arm then scan arm.
     Each kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
-    (NMT) a step, and its loss falls."""
+    (NMT) a step, every B6 and B8 on the cluster route, and its loss
+    falls."""
     cls_conf, nmt_conf = text_confs()
     cls_r, nmt_r = text_feeds(SEED + 70, ragged=True)
     held = (held_text_step(torch, cls_conf, cls_r, CLS_LR, "classifier"),
@@ -1527,10 +1579,12 @@ def text_training(torch, rnn):
         "launches"]
     want_c = dict.fromkeys(RNN_COUNTERS, 0)
     want_c.update(lstm_fwd_launches=2 * CLS_STEPS,
-                  lstm_bwd_launches=2 * CLS_STEPS)
+                  lstm_bwd_launches=2 * CLS_STEPS,
+                  lstm_bwd_cluster_launches=2 * CLS_STEPS)
     want_n = dict.fromkeys(RNN_COUNTERS, 0)
     want_n.update(gru_fwd_launches=2 * NMT_STEPS,
-                  gru_bwd_launches=2 * NMT_STEPS)
+                  gru_bwd_launches=2 * NMT_STEPS,
+                  gru_bwd_cluster_launches=2 * NMT_STEPS)
     assert c == want_c, f"classifier launches {c}, want {want_c}"
     assert n == want_n, f"nmt launches {n}, want {want_n}"
     for arm in ("classifier_scan", "nmt_scan"):

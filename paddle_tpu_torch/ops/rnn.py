@@ -19,9 +19,17 @@ Replaces the TPU kernels of `paddle_tpu/ops/pallas_rnn.py` — B5
           out = u*h_{t-1} + (1-u)*c
 
 with masked carry: at t >= lens[b] the state carries through and
-y = 0 (the SequenceToBatch contract). f32 only: the kernels raise on
-other types. The kernels take the bias as one vector — b7 = [gb | wci |
-wcf | wco] for the LSTM.
+y = 0 (the SequenceToBatch contract).
+
+B6 and B8 take one of two routes, by shape alone (`bwd_plan`, whose
+rule lives in the C entry points `*_seq_bwd_plan`): the cluster route
+(the gate recompute hoisted onto the tensor cores, the reverse walk by
+thread-block clusters holding the weights in shared memory) wherever a
+block's shared memory holds its slice of the weights (h <= 320), else
+the walk (a block per few batch rows, the weights from L2).
+
+f32 only: the kernels raise on other types. The kernels take the bias
+as one vector — b7 = [gb | wci | wcf | wco] for the LSTM.
 
 A CUDA tensor goes through the kernels of `csrc/lstm_seq.cu` and
 `csrc/gru_seq.cu` or the call raises — never a fallback. A CPU tensor
@@ -49,9 +57,13 @@ GRU_KERNEL = "gru_seq"
 # smoke zeroes them just before driving a path and reads them just after)
 lstm_fwd_launches = 0        # B5 with the cell sequence c (training)
 lstm_fwd_infer_launches = 0  # B5 without c (inference)
-lstm_bwd_launches = 0        # B6
+lstm_bwd_launches = 0        # B6, either route
+lstm_bwd_cluster_launches = 0  # B6 on the cluster route
 gru_fwd_launches = 0         # B7
-gru_bwd_launches = 0         # B8
+gru_bwd_launches = 0         # B8, either route
+gru_bwd_cluster_launches = 0   # B8 on the cluster route
+
+ROUTES = ("walk", "cluster")   # B6/B8's routes, by their C numbers
 
 
 # ---------------------------------------------------------------- plain
@@ -187,10 +199,11 @@ def _bind(name):
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == LSTM_KERNEL:
         fns = {"lstm_seq_fwd": [p] * 6 + [i] * 4 + [p],
-               "lstm_seq_bwd": [p] * 11 + [i] * 4 + [p]}
+               "lstm_seq_bwd": [p] * 11 + [i] * 5 + [p]}
     else:
         fns = {"gru_seq_fwd": [p] * 6 + [i] * 4 + [p],
-               "gru_seq_bwd": [p] * 12 + [i] * 4 + [p]}
+               "gru_seq_bwd": [p] * 12 + [i] * 5 + [p]}
+    fns[f"{name}_bwd_plan"] = [i] * 4 + [p]
     for fn, argtypes in fns.items():
         f = getattr(lib, fn)
         if f.argtypes is None:
@@ -205,6 +218,26 @@ def _bind(name):
     return lib
 
 
+def bwd_plan(name, b, h, device, route=None):
+    """B6's (`name` LSTM_KERNEL) or B8's (GRU_KERNEL) plan at batch b and
+    width h on CUDA `device`: {"route": "cluster" or "walk", "rows": batch
+    rows a cluster or block takes, "blocks": clusters or blocks,
+    "active": the clusters the card holds at once (0 on the walk)}. `route`
+    None takes the rule (the cluster route wherever it holds h); "walk"
+    or "cluster" asks for that route, and raises where it does not take
+    h."""
+    lib = _bind(name)
+    request = -1 if route is None else ROUTES.index(route)
+    out = (ctypes.c_int * 4)()
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    _build.launch(lib, f"{name}_bwd_plan", f"{name}_error_string", b, h,
+                  index, request, out)
+    if out[0] < 0:
+        raise ValueError(f"{name} backward: h = {h} does not fit the "
+                         f"kernels' shared memory (B={b})")
+    return {"route": ROUTES[out[0]], "rows": out[1], "blocks": out[2],
+            "active": out[3]}
 
 
 def _check(where, x, width, lens, **shapes):
@@ -235,11 +268,12 @@ def _check(where, x, width, lens, **shapes):
     return b, t, h
 
 
-def _prepare(name, kind, where, b, t, h):
+def _prepare(name, where, b, t, h):
     """The bound library; raises naming the shape when a block of the
-    kernel cannot hold one batch row of width h in shared memory."""
+    forward kernel cannot hold one batch row of width h in shared
+    memory."""
     lib = _bind(name)
-    if getattr(lib, f"{name}_block_rows")(kind, h) == 0:
+    if getattr(lib, f"{name}_block_rows")(0, h) == 0:
         raise ValueError(f"{where}: h = {h} does not fit the kernel's "
                          f"shared memory (B={b}, T={t})")
     return lib
@@ -256,7 +290,7 @@ def lstm_seq_fwd(x, w, b7, lens, want_c=True):
     where = "lstm_seq_fwd"
     b, t, h = _check(where, x, 4, lens, w=(w, ("h", "4h")),
                      b7=(b7, ("7h",)))
-    lib = _prepare(LSTM_KERNEL, 0, where, b, t, h)
+    lib = _prepare(LSTM_KERNEL, where, b, t, h)
     y = _empty((b, t, h), x)
     c = _empty((b, t, h), x) if want_c else None
     _build.launch(lib, "lstm_seq_fwd", "lstm_seq_error_string", x.data_ptr(),
@@ -269,14 +303,16 @@ def lstm_seq_fwd(x, w, b7, lens, want_c=True):
     return y, c
 
 
-def lstm_seq_bwd(x, w, b7, lens, y, c, dy):
-    """B6 on the card: (dx [B,T,4h], dw [h,4h], db7 [7h])."""
-    global lstm_bwd_launches
+def lstm_seq_bwd(x, w, b7, lens, y, c, dy, route=None):
+    """B6 on the card: (dx [B,T,4h], dw [h,4h], db7 [7h]), on the route
+    of `bwd_plan` (`route` None: the rule)."""
+    global lstm_bwd_launches, lstm_bwd_cluster_launches
     where = "lstm_seq_bwd"
     seq = ("B", "T", "h")
     b, t, h = _check(where, x, 4, lens, w=(w, ("h", "4h")),
                      b7=(b7, ("7h",)), y=(y, seq), c=(c, seq), dy=(dy, seq))
-    lib = _prepare(LSTM_KERNEL, 1, where, b, t, h)
+    plan = bwd_plan(LSTM_KERNEL, b, h, x.device, route)
+    lib = _bind(LSTM_KERNEL)
     dx = _empty((b, t, 4 * h), x)
     dw = _empty((h, 4 * h), x)
     db7 = _empty((7 * h,), x)
@@ -285,8 +321,9 @@ def lstm_seq_bwd(x, w, b7, lens, y, c, dy):
                   w.data_ptr(), b7.data_ptr(), lens.data_ptr(), y.data_ptr(),
                   c.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
                   db7.data_ptr(), scratch.data_ptr(), b, t, h,
-                  *_build.device_and_stream(x))
+                  ROUTES.index(plan["route"]), *_build.device_and_stream(x))
     lstm_bwd_launches += 1
+    lstm_bwd_cluster_launches += plan["route"] == "cluster"
     return dx, dw, db7
 
 
@@ -296,7 +333,7 @@ def gru_seq_fwd(x, w_g, w_c, b, lens):
     where = "gru_seq_fwd"
     bsz, t, h = _check(where, x, 3, lens, w_g=(w_g, ("h", "2h")),
                        w_c=(w_c, ("h", "h")), b=(b, ("3h",)))
-    lib = _prepare(GRU_KERNEL, 0, where, bsz, t, h)
+    lib = _prepare(GRU_KERNEL, where, bsz, t, h)
     y = _empty((bsz, t, h), x)
     _build.launch(lib, "gru_seq_fwd", "gru_seq_error_string", x.data_ptr(),
                   w_g.data_ptr(), w_c.data_ptr(), b.data_ptr(),
@@ -306,15 +343,17 @@ def gru_seq_fwd(x, w_g, w_c, b, lens):
     return y
 
 
-def gru_seq_bwd(x, w_g, w_c, b, lens, y, dy):
-    """B8 on the card: (dx [B,T,3h], dw_g [h,2h], dw_c [h,h], db [3h])."""
-    global gru_bwd_launches
+def gru_seq_bwd(x, w_g, w_c, b, lens, y, dy, route=None):
+    """B8 on the card: (dx [B,T,3h], dw_g [h,2h], dw_c [h,h], db [3h]),
+    on the route of `bwd_plan` (`route` None: the rule)."""
+    global gru_bwd_launches, gru_bwd_cluster_launches
     where = "gru_seq_bwd"
     seq = ("B", "T", "h")
     bsz, t, h = _check(where, x, 3, lens, w_g=(w_g, ("h", "2h")),
                        w_c=(w_c, ("h", "h")), b=(b, ("3h",)), y=(y, seq),
                        dy=(dy, seq))
-    lib = _prepare(GRU_KERNEL, 1, where, bsz, t, h)
+    plan = bwd_plan(GRU_KERNEL, bsz, h, x.device, route)
+    lib = _bind(GRU_KERNEL)
     dx = _empty((bsz, t, 3 * h), x)
     dw_g = _empty((h, 2 * h), x)
     dw_c = _empty((h, h), x)
@@ -324,8 +363,10 @@ def gru_seq_bwd(x, w_g, w_c, b, lens, y, dy):
                   w_g.data_ptr(), w_c.data_ptr(), b.data_ptr(),
                   lens.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                   dw_g.data_ptr(), dw_c.data_ptr(), db.data_ptr(),
-                  scratch.data_ptr(), bsz, t, h, *_build.device_and_stream(x))
+                  scratch.data_ptr(), bsz, t, h, ROUTES.index(plan["route"]),
+                  *_build.device_and_stream(x))
     gru_bwd_launches += 1
+    gru_bwd_cluster_launches += plan["route"] == "cluster"
     return dx, dw_g, dw_c, db
 
 

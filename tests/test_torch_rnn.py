@@ -18,9 +18,12 @@ and through the port's plain versions and autograd Functions:
   (exact up to f32 summation order, 1e-6).
 
 `TestOnCard` (marked `cuda`) holds the four Hopper kernels against
-their plain versions on the card and shows that one autograd step
-launches each once. It skips here; on a machine with an H100 and no
-JAX: `python -m pytest --noconftest -m cuda tests/test_torch_rnn.py`.
+their plain versions on the card — B6 and B8 on the route their rule
+picks and on the walk, bit-identical on a repeat — pins the width at
+which the cluster route gives way to the walk, and shows that one
+autograd step launches each kernel once. It skips here; on a machine
+with an H100 and no JAX: `python -m pytest --noconftest -m cuda
+tests/test_torch_rnn.py`.
 """
 
 import numpy as np
@@ -282,7 +285,20 @@ CARD_CASES = {
     "b9_t5_h1280": (9, 5, 1280, None),
     "ragged_b5_t13_h32": (5, 13, 32, LENS),
     "ragged_b11_t7_h100": (11, 7, 100, [7, 0, 1, 3, 7, 2, 6, 5, 4, 1, 7]),
+    # the path shapes: the classifier's layers, the NMT encoder
+    "b64_t100_h256": (64, 100, 256, None),
+    "b256_t32_h256": (256, 32, 256, None),
+    # B = 37 is no multiple of the rows a cluster takes
+    "ragged_b37_t9_h256": (37, 9, 256, [9, 0, 1] + [(5 * i) % 9 + 1
+                                                      for i in range(34)]),
+    # either side of the cluster route's widest h (320)
+    "b6_t7_h320": (6, 7, 320, None),
+    "ragged_b6_t7_h328": (6, 7, 328, [7, 1, 0, 7, 3, 5]),
 }
+# the widest h each backward takes on the cluster route: its weight slice
+# and buffers at one batch row a cluster fill a block's 227 KB (csrc
+# lstm_seq.cu / gru_seq.cu WalkSmem); wider h takes the walk
+CLUSTER_MAX_H = {"lstm": 320, "gru": 320}
 
 
 @pytest.mark.cuda
@@ -317,17 +333,17 @@ class TestOnCard:
         y, c = rnn.lstm_seq_fwd(x, w, b7, lens, want_c=True)
         y_noc, none = rnn.lstm_seq_fwd(x, w, b7, lens, want_c=False)
         yp, cp = rnn.lstm_plain(x, w, gb, ci, cf, co, lens, want_c=True)
-        got = rnn.lstm_seq_bwd(x, w, b7, lens, yp, cp, dy)
         ref = rnn.lstm_bwd_plain(x, w, b7, lens, yp, cp, dy)
         torch.cuda.synchronize()
         assert none is None and torch.equal(y, y_noc)
         dead = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
         assert (y[dead] == 0).all()
-        for name, a, r in zip(("y", "c", "dx", "dw", "db7"),
-                              (y, c) + got, (yp, cp) + ref):
+        for name, a, r in zip(("y", "c"), (y, c), (yp, cp)):
             assert torch.isfinite(a).all(), name
             assert self._rel(a, r) <= 1e-4, (name, self._rel(a, r))
-        assert (got[0][dead] == 0).all()
+        self._hold_bwd("lstm", h, dead, ("dx", "dw", "db7"), ref,
+                       lambda route: rnn.lstm_seq_bwd(x, w, b7, lens, yp, cp,
+                                                      dy, route=route))
 
     @pytest.mark.parametrize("case", sorted(CARD_CASES))
     def test_gru_kernels_match_plain(self, case):
@@ -337,16 +353,48 @@ class TestOnCard:
         dy, lens = torch.from_numpy(dy).cuda(), self._lens(b, t, lens)
         y = rnn.gru_seq_fwd(x, w_g, w_c, bias, lens)
         yp = rnn.gru_plain(x, w_g, w_c, bias, lens)
-        got = rnn.gru_seq_bwd(x, w_g, w_c, bias, lens, yp, dy)
         ref = rnn.gru_bwd_plain(x, w_g, w_c, bias, lens, yp, dy)
         torch.cuda.synchronize()
         dead = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
         assert (y[dead] == 0).all()
-        for name, a, r in zip(("y", "dx", "dw_g", "dw_c", "db"),
-                              (y,) + got, (yp,) + ref):
-            assert torch.isfinite(a).all(), name
-            assert self._rel(a, r) <= 1e-4, (name, self._rel(a, r))
-        assert (got[0][dead] == 0).all()
+        assert torch.isfinite(y).all()
+        assert self._rel(y, yp) <= 1e-4, ("y", self._rel(y, yp))
+        self._hold_bwd("gru", h, dead, ("dx", "dw_g", "dw_c", "db"), ref,
+                       lambda route: rnn.gru_seq_bwd(x, w_g, w_c, bias, lens,
+                                                     yp, dy, route=route))
+
+    def _hold_bwd(self, cell, h, dead, names, ref, bwd):
+        """B6 or B8 (`bwd(route)`) against the plain version `ref` on the
+        route the rule picks, which must be the cluster route exactly
+        where h <= CLUSTER_MAX_H, and on the walk: every output within
+        1e-4, dx exactly 0 past len; the cluster route bit-identical on a
+        repeat, launches counted by route."""
+        counts = ("lstm_bwd_launches", "lstm_bwd_cluster_launches") \
+            if cell == "lstm" else ("gru_bwd_launches",
+                                    "gru_bwd_cluster_launches")
+        kernel = rnn.LSTM_KERNEL if cell == "lstm" else rnn.GRU_KERNEL
+        b = ref[0].shape[0]
+        plan = rnn.bwd_plan(kernel, b, h, ref[0].device)
+        cluster = h <= CLUSTER_MAX_H[cell]
+        assert plan["route"] == ("cluster" if cluster else "walk"), plan
+        before = [getattr(rnn, c) for c in counts]
+        got = bwd(None)
+        assert [getattr(rnn, c) for c in counts] == [
+            before[0] + 1, before[1] + cluster]
+        runs = [(plan["route"], got)]
+        if cluster:
+            again = bwd(None)
+            torch.cuda.synchronize()
+            for name, a, r in zip(names, got, again):
+                assert torch.equal(a, r), f"{name}: a repeat differs"
+            runs.append(("walk", bwd("walk")))
+        torch.cuda.synchronize()
+        for route, outs in runs:
+            for name, a, r in zip(names, outs, ref):
+                assert torch.isfinite(a).all(), (route, name)
+                assert self._rel(a, r) <= 1e-4, (route, name,
+                                                 self._rel(a, r))
+            assert (outs[0][dead] == 0).all(), route
 
     def test_autograd_step_launches_each_kernel_once(self):
         lens = torch.from_numpy(LENS).cuda()
