@@ -80,17 +80,19 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
     T=100, h=256; the NMT encoder, B=256, T=32, h=256), at the bench's
     other widths h=512 and 1280, and at ragged lengths with a 0 and a 1
     (max |diff| / max |plain| <= 1e-4 for every output, exactly 0 past
-    each row's length), prints each case's B6/B8 route (the cluster
-    route where its weight slice fits a block, h <= 320, else the walk)
-    and holds the cluster route bit-identical on a repeat and its walk
-    against the plain version too, and times kernel, plain version,
-    B6/B8 on the walk where a case takes both routes, and cuDNN's
+    each row's length), prints each case's routes (`fwd_plan`,
+    `bwd_plan`: the cluster route where the kernel's weight slice fits a
+    block, h <= 320, else the walk), holds each cluster route
+    bit-identical on a repeat and the walk against the plain version too
+    wherever a case takes both routes, and times kernel, plain version,
+    each kernel on the walk where a case takes both routes, and cuDNN's
     torch.nn.LSTM/GRU (another function: a reference point only) with
     the bounds;
 11. runs the IMDB stacked-LSTM classifier (vocab 30000, emb 128, two
     layers of h=256; weights from a seed) through `Inferencer` on
     [64, 100] ids, the kernel arm against the scan arm
-    (use_pallas_rnn=False): probabilities within 1e-5, two B5 launches;
+    (use_pallas_rnn=False): probabilities within 1e-5, two B5 launches,
+    both on the cluster route;
 12. one adam train step of the classifier (lr 2e-3) and of the
     attention NMT (vocab 30000, emb 512, hidden 512, GRU h=256 a
     direction; lr 1e-3), kernel arm against scan arm from one weight
@@ -103,7 +105,7 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
     steps at B=256, T=32 — then 10 steps of each on the scan arm: every
     loss falls, ms/step, tokens/s, peak memory and the profile table,
     and the kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
-    (NMT) a step, every B6 and B8 on the cluster route;
+    (NMT) a step, every one on the cluster route;
 14. holds the sparse-row kernels (B9, `csrc/sparse_rows.cu`: the rule
     kernel and the generic route's gather and scatter) against their
     plain PyTorch version at the two bench shapes (V = 2^20 x 64, N =
@@ -546,10 +548,12 @@ PORT_KERNELS = {
     "B4f flash_attn_fwd": "flash_fwd_kernel<",
     "B4b flash_attn_bwd_dkv": "flash_bwd_dkv_kernel<",
     "B4b flash_attn_bwd_dq": "flash_bwd_dq_kernel<",
-    "B5 lstm_seq_fwd": "lstm_fwd_kernel<",
+    "B5 lstm_seq_fwd cluster walk": "lstm_fwd_cluster_kernel<",
+    "B5 lstm_seq_fwd walk route": "lstm_fwd_kernel<",
     "B6 lstm_seq_bwd cluster walk": "lstm_bwd_cluster_kernel<",
     "B6 lstm_seq_bwd walk route": "lstm_bwd_kernel<",
-    "B7 gru_seq_fwd": "gru_fwd_kernel<",
+    "B7 gru_seq_fwd cluster walk": "gru_fwd_cluster_kernel<",
+    "B7 gru_seq_fwd walk route": "gru_fwd_kernel<",
     "B8 gru_seq_bwd cluster walk": "gru_bwd_cluster_kernel<",
     "B8 gru_seq_bwd walk route": "gru_bwd_kernel<",
     # the cluster route's hoisted pre-activations and dW (B6's in the
@@ -1169,10 +1173,11 @@ RNN_CASES = [
     ("lstm_ragged_b9_t37_h256", "lstm", 9, 37, 256, RAGGED),
     ("gru_ragged_b9_t37_h256", "gru", 9, 37, 256, RAGGED),
 ]
-RNN_COUNTERS = ("lstm_fwd_launches", "lstm_fwd_infer_launches",
+RNN_COUNTERS = ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
+                "lstm_fwd_infer_launches", "lstm_fwd_infer_cluster_launches",
                 "lstm_bwd_launches", "lstm_bwd_cluster_launches",
-                "gru_fwd_launches", "gru_bwd_launches",
-                "gru_bwd_cluster_launches")
+                "gru_fwd_launches", "gru_fwd_cluster_launches",
+                "gru_bwd_launches", "gru_bwd_cluster_launches")
 
 
 def zero_rnn_counts(rnn):
@@ -1205,12 +1210,12 @@ def rnn_inputs(torch, gen, cell, b, t, h, lens):
 def check_rnn(torch, rnn, case, gen):
     """B5 (both variants) and B6, or B7 and B8, against their plain
     versions at one case: max |diff| / max |plain| <= TOL for every
-    output, exactly 0 past each row's length; B6/B8 on the route of
-    their rule (`rnn.bwd_plan`) and, where that is the cluster route,
-    bit-identical on a repeat and on the walk too; then kernel, plain,
-    walk and cuDNN (torch.nn.LSTM/GRU: another function — no peepholes,
-    its own input GEMM, no masks; a reference point only) times and the
-    bounds. Returns the case's numbers."""
+    output, exactly 0 past each row's length; each kernel on the route
+    of its rule (`rnn.fwd_plan`, `rnn.bwd_plan`) and, where that is the
+    cluster route, bit-identical on a repeat and on the walk too; then
+    kernel, plain, walk and cuDNN (torch.nn.LSTM/GRU: another function —
+    no peepholes, its own input GEMM, no masks; a reference point only)
+    times and the bounds. Returns the case's numbers."""
     name, cell, b, t, h, lens = case
     x, ws, lens_t, dy, live = rnn_inputs(torch, gen, cell, b, t, h, lens)
     dead = torch.arange(t, device="cuda")[None, :] >= lens_t[:, None]
@@ -1231,6 +1236,11 @@ def check_rnn(torch, rnn, case, gen):
             "fwd_infer": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t,
                                                   want_c=False),
             "bwd": lambda: rnn.lstm_seq_bwd(x, w, b7, lens_t, yp, cp, dy)}
+        fwd_walk = {
+            "fwd": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t, want_c=True,
+                                            route="walk"),
+            "fwd_infer": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t,
+                                                  want_c=False, route="walk")}
 
         def walk():
             return rnn.lstm_seq_bwd(x, w, b7, lens_t, yp, cp, dy,
@@ -1261,9 +1271,11 @@ def check_rnn(torch, rnn, case, gen):
         names = ("y", "dx", "dw_g", "dw_c", "db")
         which = {"y": "fwd", "dx": "bwd", "dw_g": "bwd", "dw_c": "bwd",
                  "db": "bwd"}
-        kern = {"fwd": lambda: rnn.gru_seq_fwd(x, w_g, w_c, bias, lens_t),
+        kern = {"fwd": lambda: (rnn.gru_seq_fwd(x, w_g, w_c, bias, lens_t),),
                 "bwd": lambda: rnn.gru_seq_bwd(x, w_g, w_c, bias, lens_t, yp,
                                                dy)}
+        fwd_walk = {"fwd": lambda: (rnn.gru_seq_fwd(x, w_g, w_c, bias, lens_t,
+                                                    route="walk"),)}
 
         def walk():
             return rnn.gru_seq_bwd(x, w_g, w_c, bias, lens_t, yp, dy,
@@ -1294,9 +1306,28 @@ def check_rnn(torch, rnn, case, gen):
     assert bool((dx[dead] == 0).all().item()), f"{name}: dx past len"
     kernel = rnn.LSTM_KERNEL if cell == "lstm" else rnn.GRU_KERNEL
     plan = rnn.bwd_plan(kernel, b, h, x.device)
+    fplan = rnn.fwd_plan(kernel, b, h, x.device)
     both = plan["route"] == "cluster"
+    fboth = fplan["route"] == "cluster"
     first = 2 if cell == "lstm" else 1           # B6/B8's outputs in got
     walk_err = {}
+    if fboth:   # B5/B7: bit-identical on a repeat; the walk holds too
+        again, by_walk = kern["fwd"](), fwd_walk["fwd"]()
+        walks = [by_walk]
+        if cell == "lstm":
+            walks.append(fwd_walk["fwd_infer"]())
+        torch.cuda.synchronize()
+        for n, g, a, wk, r in zip(names[:first], got, again, by_walk, ref):
+            assert bool(torch.equal(g, a)), f"{name}: {n} differs on a repeat"
+            walk_err[n] = rel_err(wk, r)[0]
+            assert walk_err[n] <= TOL, (
+                f"{name}: walk vs plain {n} relative error "
+                f"{walk_err[n]:.3g} > {TOL}")
+        for wk in walks:
+            assert bool((wk[0][dead] == 0).all().item()), (
+                f"{name}: walk y past len")
+            assert bool(torch.equal(wk[0], by_walk[0])), (
+                f"{name}: the walk's variants differ")
     if both:                 # bit-identical on a repeat; the walk holds too
         again, by_walk = kern["bwd"](), walk()
         torch.cuda.synchronize()
@@ -1312,12 +1343,15 @@ def check_rnn(torch, rnn, case, gen):
 
     slow = h >= 1280
     res = {"name": name, "cell": cell, "B": b, "T": t, "h": h,
-           "live_steps": live, "bwd_plan": plan,
+           "live_steps": live, "fwd_plan": fplan, "bwd_plan": plan,
            "rel_err": {n: e[0] for n, e in errs.items()},
            "walk_rel_err": walk_err}
     for k in kern:
         flops, nbytes = work[k]
-        t_ops = flops / H100_F32_FLOPS * 1e3
+        # the card's f32-accurate peak whichever route runs: three TF32
+        # passes on the tensor cores (hi*hi + hi*lo + lo*hi), as the
+        # cluster routes compute their products
+        t_ops = 3 * flops / H100_TF32_FLOPS * 1e3
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         res[k] = {
             "ms": time_ms(torch, kern[k], reps=5 if slow else 20),
@@ -1329,7 +1363,10 @@ def check_rnn(torch, rnn, case, gen):
             "max_abs_err": max((e[1] for n, e in errs.items()
                                 if which[n] == k[:3]), default=0.0),
         }
-    if both:    # the same function on the walk route
+    if fboth:   # the same functions on the walk route
+        for k, fn in fwd_walk.items():
+            res[f"{k}_walk_ms"] = time_ms(torch, fn)
+    if both:
         res["bwd_walk_ms"] = time_ms(torch, walk)
     # cuDNN's LSTM/GRU over [B, T, h] (its input GEMM included): forward,
     # and forward+backward minus forward
@@ -1428,6 +1465,7 @@ def classifier_infer(torch, rnn):
     assert r["shape"] == [CLS_B, 2] and r["finite"]
     assert diff <= 1e-5, f"kernel and scan probabilities differ by {diff:.3g}"
     assert counts["lstm_fwd_infer_launches"] == 2, counts
+    assert counts["lstm_fwd_infer_cluster_launches"] == 2, counts
     assert sum(counts_s.values()) == 0, counts_s
     return r
 
@@ -1549,8 +1587,7 @@ def text_training(torch, rnn):
     """Phases 12 and 13: the held steps at ragged lengths, then the
     training runs at the bench's full lengths, kernel arm then scan arm.
     Each kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
-    (NMT) a step, every B6 and B8 on the cluster route, and its loss
-    falls."""
+    (NMT) a step, every one on the cluster route, and its loss falls."""
     cls_conf, nmt_conf = text_confs()
     cls_r, nmt_r = text_feeds(SEED + 70, ragged=True)
     held = (held_text_step(torch, cls_conf, cls_r, CLS_LR, "classifier"),
@@ -1579,10 +1616,12 @@ def text_training(torch, rnn):
         "launches"]
     want_c = dict.fromkeys(RNN_COUNTERS, 0)
     want_c.update(lstm_fwd_launches=2 * CLS_STEPS,
+                  lstm_fwd_cluster_launches=2 * CLS_STEPS,
                   lstm_bwd_launches=2 * CLS_STEPS,
                   lstm_bwd_cluster_launches=2 * CLS_STEPS)
     want_n = dict.fromkeys(RNN_COUNTERS, 0)
     want_n.update(gru_fwd_launches=2 * NMT_STEPS,
+                  gru_fwd_cluster_launches=2 * NMT_STEPS,
                   gru_bwd_launches=2 * NMT_STEPS,
                   gru_bwd_cluster_launches=2 * NMT_STEPS)
     assert c == want_c, f"classifier launches {c}, want {want_c}"

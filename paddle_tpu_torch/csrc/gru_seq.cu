@@ -12,7 +12,7 @@
 // At t >= len the state carries through and y = 0; a row of length 0 gives
 // zeros and gradients of 0. x [B, T, 3h] is pre-projected.
 //
-// B7, and B8's walk route (h past the cluster route's reach), as
+// The walk route of B7 and B8 (h past the cluster routes' reach), as
 // lstm_seq.cu's: one block owns BB batch rows and walks the whole sequence,
 // h_{t-1} in shared memory, w_g and w_c read from device memory (L2) every
 // step, a thread per hidden unit for the pointwise math. The forward has two
@@ -35,7 +35,7 @@
 //    units J_s and keeps w_g's u and r columns and w_c's columns of them in
 //    shared memory (h x 3U floats, 100 KB at h = 256). A step: the cell
 //    backward of the own units (dg_u, dg_c); P_s = dg_c[:, own] @
-//    w_c[:, own]^T on the tensor cores (rnn::slice_product); a cluster
+//    w_c[:, own]^T on the tensor cores (rnn::tile_product); a cluster
 //    barrier (dg_c's and dg_u's stores between its arrive and its wait);
 //    d(r h) summed in rank order from the peers' P, then dg_r and the
 //    r-term of dh; P'_s = dg_ur[:, own] @ w_g[:, own]^T; a second barrier
@@ -48,6 +48,32 @@
 // products, two cluster barriers and two exchanges, not the card-wide
 // bound the smoke reports. -DRNN_SERIAL_FLOOR keeps only the barriers and
 // exchanges (rnn_bwd_probe.py).
+//
+// B7's cluster route (every h whose slices of w_g and w_c and buffers fit a
+// block's shared memory), as lstm_seq.cu's B5: a cluster of CL = 8 blocks
+// owns R batch rows, block s the units J_s and, transposed, w_g's u and r
+// columns and w_c's columns of them ([3U][h], 98 KB at h = 256). A step
+// has two products and two exchanges, each product local to the block
+// (3xTF32 mma.sync, rnn::tile_product, the depth h in shares where the
+// columns make few tiles, the shares added in order):
+// 1. the u and r pre-activations h_{t-1} @ w_g[:, own], then u, r and
+//    r * h_{t-1} of the own (row, unit) pairs in B7's order ((x + b) +
+//    product); r * h_{t-1} of the own units pushed into every peer's rh
+//    buffer (rnn::push_to_peers); cluster barrier 1;
+// 2. the c pre-activation (r h_{t-1}) @ w_c[:, own], then c and h_t, h_t
+//    pushed into every peer's h buffer; barrier 2's arrive, y's stores,
+//    its wait.
+// One buffer each for h and rh is enough, because the two barriers
+// alternate: a block pushes into a peer's rh in step t + 1 only after
+// barrier 2 of step t, at which every peer has finished the c product of
+// step t (rh's last read); it pushes into a peer's h after barrier 1 of a
+// step, at which every peer has finished that step's u/r product and the
+// reads of r * h_{t-1} (h_{t-1}'s last reads but its own units', which
+// only the block itself writes). Once every row of a cluster is past its
+// length, the remaining steps store y = 0 with no product and no barrier.
+// What bounds it: the serial chain of T steps of two products, two cells,
+// two pushes and two cluster barriers; -DRNN_SERIAL_FLOOR keeps only the
+// pushes and the barriers (rnn_fwd_probe.py).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -480,7 +506,8 @@ gru_bwd_cluster_kernel(const float* __restrict__ w_g,
       continue;
     }
     // P_s[r][k] = sum over the own units c of dg_c[r][c] * w_c[k][c]
-    if (!kSerialFloor) rnn::slice_product<R>(wc, cst, dgcs, ds, U, pa, h);
+    if (!kSerialFloor)
+      rnn::tile_product<R>(wc, cst, dgcs, ds, rnn::slice_cols(U), h, pa, h, 1);
     rnn::cluster_arrive();
     store_dx(t, 2, 3);  // dg_c; dg_u below
     store_dx(t, 0, 1);
@@ -504,7 +531,8 @@ gru_bwd_cluster_kernel(const float* __restrict__ w_g,
     __syncthreads();  // dg_ur complete
     // P'_s[r][k] = sum over the own columns c of dg_ur[r][c] * w_g[k][c]
     if (!kSerialFloor)
-      rnn::slice_product<R>(wg, gst, dgurs, ds, 2 * U, pbb, h);
+      rnn::tile_product<R>(wg, gst, dgurs, ds, rnn::slice_cols(2 * U), h, pbb,
+                           h, 1);
     rnn::cluster_arrive();
     store_dx(t, 1, 2);  // dg_r
     rnn::cluster_wait();
@@ -528,6 +556,174 @@ gru_bwd_cluster_kernel(const float* __restrict__ w_g,
 #pragma unroll
     for (int r = 0; r < R; ++r) sum += dbs[q * RU + r * U + u];
     part_db[(size_t)cid * 3 * h + q * h + j0 + u] = sum;
+  }
+}
+
+// B7's cluster walk's shared memory, in floats from the base, at width h
+// and R rows a cluster
+struct FwdSmem {
+  int U, K, wst, ds, sg, sc, gs, wc, hb, rh, gp, st, us, b, len, total;
+  __host__ __device__ FwdSmem(int h, int R) {
+    U = (h + CL - 1) / CL;
+    const int Mg = (2 * U + 15) & ~15;  // the own u and r columns, tiles
+    const int Mc = (U + 15) & ~15;      // the own c columns
+    K = rnn::slice_cols(h);             // the products' depth, zeros past h
+    wst = K + 4;                        // a fragment's rows g, columns t
+    ds = rnn::grad_stride(R);           // fall in 32 banks
+    sg = rnn::k_shares(2 * U, K, R);
+    sc = rnn::k_shares(U, K, R);
+    gs = Mg + 4;
+    wc = Mg * wst;                      // wg [Mg][wst]; then wc [Mc][wst]
+    hb = wc + Mc * wst;                 // [K][ds] h_{t-1}
+    rh = hb + K * ds;                   // [K][ds] r * h_{t-1}
+    gp = rh + K * ds;                   // [shares][R][gs] either product
+    st = gp + (sg > sc ? sg : sc) * R * gs;  // [2][3][R U] staged x
+    us = st + 6 * R * U;                // [R U] u
+    b = us + R * U;                     // [3][U] the own units' b
+    len = b + 3 * U;                    // [R] int lengths
+    total = len + R;
+  }
+};
+
+size_t fwd_cluster_smem(int h, int R) {
+  return (size_t)FwdSmem(h, R).total * sizeof(float);
+}
+
+// B7's cluster route (see the head of this file)
+template <int R>
+__global__ void __launch_bounds__(rnn::NTC, 1)
+gru_fwd_cluster_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w_g,
+                       const float* __restrict__ w_c,
+                       const float* __restrict__ b,
+                       const int* __restrict__ lens, float* __restrict__ y,
+                       int B, int T, int h) {
+  constexpr int NTC = rnn::NTC;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const FwdSmem L(h, R);
+  const int U = L.U, ds = L.ds, gs = L.gs, RU = R * U, h3 = 3 * h;
+  const int s = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / CL) * R;
+  const int j0 = s * U, nu = max(0, min(U, h - j0));
+  // wg[q U + u][k] = w_g[k][q h + j0 + u] (q 0: u, 1: r); wc[u][k] =
+  // w_c[k][j0 + u]
+  float* wg = smem;
+  float* wc = smem + L.wc;
+  float* hb = smem + L.hb;
+  float* rh = smem + L.rh;
+  float* gp = smem + L.gp;
+  float* stg = smem + L.st;
+  float* us = smem + L.us;
+  float* sb = smem + L.b;
+  int* slen = reinterpret_cast<int*>(smem + L.len);
+
+  int live = 0;  // the steps until every row of the cluster is past its length
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    live = max(live, row0 + r < B ? min(lens[row0 + r], T) : 0);
+  // h_{-1} = 0, and every pad zero
+  for (int i = threadIdx.x; i < L.total; i += NTC) smem[i] = 0.f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < h * 2 * U; i += NTC) {
+    const int k = i / (2 * U), c = i % (2 * U), q = c / U, u = c % U;
+    if (u < nu) wg[c * L.wst + k] = w_g[(size_t)k * 2 * h + q * h + j0 + u];
+  }
+  for (int i = threadIdx.x; i < h * U; i += NTC) {
+    const int k = i / U, u = i % U;
+    if (u < nu) wc[u * L.wst + k] = w_c[(size_t)k * h + j0 + u];
+  }
+  for (int i = threadIdx.x; i < 3 * U; i += NTC) {
+    const int q = i / U, u = i % U;
+    sb[i] = u < nu ? b[q * h + j0 + u] : 0.f;
+  }
+  for (int r = threadIdx.x; r < R; r += NTC)
+    slen[r] = row0 + r < B ? lens[row0 + r] : 0;
+  // x of step t into slot t & 1: [3][R U] the gates u, r, c of the live
+  // (row, unit) pairs
+  auto stage = [&](int t) {
+    float* sx = stg + (t & 1) * 3 * RU;
+    for (int e = threadIdx.x; e < 3 * RU && !kSerialFloor; e += NTC) {
+      const int q = e / RU, pr = e % RU, r = pr / U, u = pr % U;
+      const int row = row0 + r;
+      const bool ok = u < nu && row < B && t < lens[row];
+      cp_async4(sx + e, ok ? x + ((size_t)row * T + t) * h3 + q * h + j0 + u
+                           : x, ok ? 4 : 0);
+    }
+  };
+  // y of step t (0 past len) from h_t, coalesced along the units
+  auto store = [&](int t) {
+    for (int e = threadIdx.x; e < RU && !kSerialFloor; e += NTC) {
+      const int r = e / U, u = e % U, row = row0 + r;
+      if (u >= nu || row >= B) continue;
+      y[((size_t)row * T + t) * h + j0 + u] =
+          t < slen[r] ? hb[(j0 + u) * ds + r] : 0.f;
+    }
+  };
+  // the sum of a product's shares for (row r, column m), in order
+  auto shares = [&](int r, int m, int n) {
+    float v = gp[r * gs + m];
+    for (int sh = 1; sh < n; ++sh) v += gp[(sh * R + r) * gs + m];
+    return v;
+  };
+  // every block of the cluster runs and is set before any peer pushes into
+  // its shared memory
+  cluster.sync();
+  if (live > 0) stage(0);
+  cp_async_commit();
+
+  for (int t = 0; t < live; ++t) {
+    if (t + 1 < live) stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step t's inputs (this thread's copies)
+    // G_s[r][q U + u] = sum_k h_{t-1}[r][k] w_g[k][q h + j0 + u], in shares
+    if (!kSerialFloor)
+      rnn::tile_product<R>(wg, L.wst, hb, ds, L.K, 2 * U, gp, gs, L.sg);
+    __syncthreads();  // the product and step t's inputs are complete
+    const float* sx = stg + (t & 1) * 3 * RU;
+    // u, r and r * h_{t-1} of the own (row, unit) pairs (0 past len)
+    for (int pr = threadIdx.x; pr < RU && !kSerialFloor; pr += NTC) {
+      const int r = pr / U, u = pr % U, k = (j0 + u) * ds + r;
+      if (u >= nu) continue;
+      float rhv = 0.f;
+      if (t < slen[r]) {
+        const float ug = rnn::sigm((sx[pr] + sb[u]) + shares(r, u, L.sg));
+        const float rg =
+            rnn::sigm((sx[RU + pr] + sb[U + u]) + shares(r, U + u, L.sg));
+        us[pr] = ug;
+        rhv = rg * hb[k];
+      }
+      rh[k] = rhv;
+    }
+    __syncthreads();  // r * h_{t-1} of the own units is in rh
+    rnn::push_to_peers(cluster, rh, j0 * ds, U * ds);
+    rnn::cluster_arrive();  // barrier 1: r * h_{t-1} is in every block
+    rnn::cluster_wait();
+    // C_s[r][u] = sum_k (r h_{t-1})[r][k] w_c[k][j0 + u], in shares
+    if (!kSerialFloor)
+      rnn::tile_product<R>(wc, L.wst, rh, ds, L.K, U, gp, gs, L.sc);
+    __syncthreads();
+    // c and h_t of the own pairs; past len h carries
+    for (int pr = threadIdx.x; pr < RU && !kSerialFloor; pr += NTC) {
+      const int r = pr / U, u = pr % U, k = (j0 + u) * ds + r;
+      if (u >= nu || t >= slen[r]) continue;
+      const float c =
+          tanhf((sx[2 * RU + pr] + sb[2 * U + u]) + shares(r, u, L.sc));
+      const float ug = us[pr];
+      hb[k] = ug * hb[k] + (1.f - ug) * c;
+    }
+    __syncthreads();  // h_t of the own units is in hb
+    rnn::push_to_peers(cluster, hb, j0 * ds, U * ds);
+    rnn::cluster_arrive();  // barrier 2: h_t is in every block
+    store(t);               // while the peers arrive
+    rnn::cluster_wait();
+  }
+  cp_async_wait<0>();
+  // past every row's length: y = 0
+  for (int e = threadIdx.x; e < (T - live) * RU && !kSerialFloor; e += NTC) {
+    const int t = live + e / RU, pr = e % RU, r = pr / U, u = pr % U;
+    const int row = row0 + r;
+    if (u < nu && row < B) y[((size_t)row * T + t) * h + j0 + u] = 0.f;
   }
 }
 
@@ -570,68 +766,34 @@ long long dw_floats(int B, int T, int h) {
   return g > c ? g : c;
 }
 
-// The clusters of R rows the card holds at once (negative: -cudaError_t)
-int active_clusters(int R, int h, int device) {
-  return rnn::with_rows(R, [&](auto rows) {
-    return rnn::max_active_clusters(
-        gru_bwd_cluster_kernel<decltype(rows)::value>, walk_smem(h, R),
-        device);
-  });
-}
-
-// B8's route at (B, h): `request` -1 takes the rule (the cluster route
-// wherever its shared memory holds h, else the walk), 0 the walk, 1 the
-// cluster route. Returns a cudaError_t; route -1 when no route takes h.
-int bwd_plan(int B, int h, int device, int request, rnn::BwdPlan* p) {
-  *p = {-1, 0, 0, 0};
-  if (request != 0) {
-    const int R = rnn::cluster_rows(
-        B, [&](int r) { return walk_smem(h, r); },
-        [&](int r) { return active_clusters(r, h, device); });
-    if (R < 0) return -R;
-    if (R > 0) {
-      *p = {1, R, rnn::cdiv(B, R), active_clusters(R, h, device)};
-      return 0;
-    }
-    if (request == 1) return (int)cudaErrorInvalidValue;
+// The two cluster walks of this file, for rnn_common.cuh's route rule and
+// launches
+struct Walks {
+  template <int KIND, int R>
+  static auto kernel() {
+    if constexpr (KIND == 0)
+      return &gru_fwd_cluster_kernel<R>;
+    else
+      return &gru_bwd_cluster_kernel<R>;
   }
-  const int bb = block_rows(1, h);
-  if (bb > 0) *p = {0, bb, rnn::cdiv(B, bb), 0};
-  return 0;
-}
-
-cudaError_t launch_cluster_bwd(int R, int clusters, const float* w_g,
-                               const float* w_c, const int* lens,
-                               const float* y, const float* dy, float* dx,
-                               float* part, int B, int T, int h,
-                               cudaStream_t st) {
-  return rnn::with_rows(R, [&](auto rows) {
-    return rnn::launch_clusters(
-        gru_bwd_cluster_kernel<decltype(rows)::value>, clusters,
-        walk_smem(h, R), st, w_g, w_c, lens, y, dy, dx, part, B, T, h);
-  });
-}
+  static size_t smem(int kind, int h, int R) {
+    return kind == 0 ? fwd_cluster_smem(h, R) : walk_smem(h, R);
+  }
+  static int walk_rows(int kind, int h) { return block_rows(kind, h); }
+};
 
 }  // namespace
 
-extern "C" int gru_seq_block_rows(int kind, int h) {
-  return block_rows(kind, h);
+// B7's (gru_seq_fwd_plan) or B8's (gru_seq_bwd_plan) route at (B, h) on
+// `device` (rnn::plan_entry). Returns a cudaError_t.
+extern "C" int gru_seq_fwd_plan(int B, int h, int device, int request,
+                                int* out) {
+  return rnn::plan_entry<Walks>(0, B, h, device, request, out);
 }
 
-// B8's route at (B, h) on `device` (see bwd_plan): out = {route (1
-// cluster, 0 walk, -1 none), rows a cluster or block, clusters or blocks,
-// the clusters the card holds at once}. Returns a cudaError_t.
 extern "C" int gru_seq_bwd_plan(int B, int h, int device, int request,
                                 int* out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  rnn::BwdPlan p;
-  const int rc = bwd_plan(B, h, device, request, &p);
-  out[0] = p.route;
-  out[1] = p.rows;
-  out[2] = p.blocks;
-  out[3] = p.active;
-  return rc;
+  return rnn::plan_entry<Walks>(1, B, h, device, request, out);
 }
 
 extern "C" long long gru_seq_bwd_scratch_floats(int B, int T, int h) {
@@ -639,15 +801,22 @@ extern "C" long long gru_seq_bwd_scratch_floats(int B, int T, int h) {
 }
 
 // B7. x [B, T, 3h], w_g [h, 2h], w_c [h, h], b [3h], lens [B] int32 ->
-// y [B, T, h]. Launches on `stream` of `device`; returns the launch's
-// cudaError_t (0 = launched).
+// y [B, T, h], on the route `route` asks for (rnn::make_plan), which it
+// writes into *taken (-1: that route does not take h, and nothing is
+// launched). Launches on `stream` of `device`; returns the launch's
+// cudaError_t (0 = launched or refused).
 extern "C" int gru_seq_fwd(const float* x, const float* w_g, const float* w_c,
                            const float* b, const int* lens, float* y, int B,
-                           int T, int h, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                           int T, int h, int route, int* taken, int device,
+                           void* stream) {
+  rnn::Plan p;
+  const int rc = rnn::launch_plan<Walks>(0, B, h, device, route, taken, &p);
+  if (rc != 0 || p.route < 0) return rc;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (block_rows(0, h)) {
+  if (p.route == 1)
+    return (int)rnn::launch_walk<Walks, 0>(p, h, st, x, w_g, w_c, b, lens, y,
+                                           B, T, h);
+  switch (p.rows) {
     case 8: return (int)launch_fwd<8>(x, w_g, w_c, b, lens, y, B, T, h, st);
     case 4: return (int)launch_fwd<4>(x, w_g, w_c, b, lens, y, B, T, h, st);
     case 2: return (int)launch_fwd<2>(x, w_g, w_c, b, lens, y, B, T, h, st);
@@ -657,25 +826,24 @@ extern "C" int gru_seq_fwd(const float* x, const float* w_g, const float* w_c,
 }
 
 // B8. Inputs as B7's plus y and dy [B, T, h]; writes dx [B, T, 3h],
-// dw_g [h, 2h], dw_c [h, h] and db [3h], on the route `route` asks for
-// (see bwd_plan).
+// dw_g [h, 2h], dw_c [h, h] and db [3h], on the route `route` asks for,
+// written into *taken as B7's is.
 extern "C" int gru_seq_bwd(const float* x, const float* w_g, const float* w_c,
                            const float* b, const int* lens, const float* y,
                            const float* dy, float* dx, float* dw_g,
                            float* dw_c, float* db, float* scratch, int B,
-                           int T, int h, int route, int device,
+                           int T, int h, int route, int* taken, int device,
                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  rnn::Plan p;
+  const int rc = rnn::launch_plan<Walks>(1, B, h, device, route, taken, &p);
+  if (rc != 0 || p.route < 0) return rc;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  rnn::BwdPlan plan;
-  const int rc = bwd_plan(B, h, device, route, &plan);
-  if (rc != 0) return rc;
+  cudaError_t err;
   float* part = scratch;
   float* rh_seq = part + (size_t)B * 3 * h;
   float* dw_part = rh_seq + (size_t)B * T * h;
   const int h3 = 3 * h;
-  if (plan.route == 1) {
+  if (p.route == 1) {
     // u, r: (x + b) + h_{t-1} @ w_g, and rh = r * h_{t-1}; then c:
     // (x_c + b_c) + rh @ w_c, all into dx
     err = rnn::pre_gemm<rnn::EPI_PRE_RH>(y, h, T, w_g, 2 * h, x, h3, b, dx,
@@ -686,10 +854,10 @@ extern "C" int gru_seq_bwd(const float* x, const float* w_g, const float* w_c,
                                       b + 2 * h, dx + 2 * h, h3, B * T, h, h,
                                       nullptr, nullptr, h, st);
     if (err != cudaSuccess) return (int)err;
-    err = launch_cluster_bwd(plan.rows, plan.blocks, w_g, w_c, lens, y, dy,
-                             dx, part, B, T, h, st);
+    err = rnn::launch_walk<Walks, 1>(p, h, st, w_g, w_c, lens, y, dy, dx, part,
+                                     B, T, h);
   } else {
-    switch (plan.rows) {
+    switch (p.rows) {
       case 8: err = launch_bwd<8>(x, w_g, w_c, b, lens, y, dy, dx, rh_seq, part, B, T, h, st); break;
       case 4: err = launch_bwd<4>(x, w_g, w_c, b, lens, y, dy, dx, rh_seq, part, B, T, h, st); break;
       case 2: err = launch_bwd<2>(x, w_g, w_c, b, lens, y, dy, dx, rh_seq, part, B, T, h, st); break;
@@ -698,7 +866,7 @@ extern "C" int gru_seq_bwd(const float* x, const float* w_g, const float* w_c,
     }
   }
   if (err != cudaSuccess) return (int)err;
-  err = rnn::block_sum(part, db, plan.blocks, h3, st);
+  err = rnn::block_sum(part, db, p.blocks, h3, st);
   if (err != cudaSuccess) return (int)err;
   // dW_g = sum h_{t-1}^T dg_ur (h_{t-1} = y shifted by one);
   // dW_c = sum (r h_{t-1})^T dg_c

@@ -11,7 +11,7 @@
 // At t >= len the state carries through and y = 0 (c carries too); a row of
 // length 0 gives zeros and gradients of 0. x [B, T, 4h] is pre-projected.
 //
-// B5, and B6's walk route (h past the cluster route's reach). The TPU
+// The walk route of B5 and B6 (h past the cluster routes' reach). The TPU
 // kernel's grid is (batch blocks, time blocks) with the h/c carry in VMEM
 // across the sequential time blocks. Here one block owns BB batch rows and
 // walks the whole sequence itself: h_{t-1} (double-buffered) and c_{t-1} of
@@ -42,7 +42,7 @@
 //    which serve every step. A step: the cell backward of the own units
 //    (inputs staged by cp.async a step ahead) into shared memory; the
 //    partial P_s = dg[:, own] @ w[:, own]^T [R, h] on the tensor cores
-//    (3xTF32 mma.sync, the batch rows as n: rnn::slice_product) into a
+//    (3xTF32 mma.sync, the batch rows as n: rnn::tile_product) into a
 //    double-buffered slot; the cluster barrier's arrive, dx's stores, its
 //    wait; then each block sums, in rank order (deterministic), its units'
 //    columns of every peer's P through distributed shared memory: dh_{t-1}.
@@ -57,6 +57,41 @@
 // 32 768 weights of the slice a block), a cluster barrier and an exchange.
 // Compiled with -DRNN_SERIAL_FLOOR the walk keeps only the barriers and the
 // exchanges (rnn_bwd_probe.py measures that floor).
+//
+// B5's cluster route (every h whose slice of w and buffers fit a block's
+// shared memory: h <= 320). The forward cannot hoist its product: step t's
+// h_{t-1} @ w needs the h just made. So the walk itself is spread over a
+// cluster, as B6's:
+// 1. A cluster of CL = 8 blocks of 512 threads owns R batch rows (the rows
+//    and clusters chosen as B6's, from the forward's shared memory); block
+//    s owns the units J_s and loads once the columns of w of its units'
+//    four gates, transposed ([4U][h], 130 KB at h = 256), which serve every
+//    step. Its product is local to the block: G_s = h_{t-1} [R, h] @ w[:,
+//    own] [h, 4U] on the tensor cores (3xTF32 mma.sync, the own gate
+//    columns as m and the batch rows as n: rnn::tile_product), h split in
+//    shares over warps where the 4U columns make fewer 16-row tiles than
+//    the block has warps (2 shares at h = 256), the shares added in order.
+//    No partial sum crosses blocks, so a repeat is bit-identical.
+// 2. A step: the product, from h_{t-1} [h][R] (every block holds all of
+//    it); the cell of the own (row, unit) pairs in B5's order ((x +
+//    product) + bias + peephole), x staged a step ahead by cp.async, c in
+//    shared memory; h_t of the own units into the block's next h buffer
+//    and pushed into every peer's (rnn::push_to_peers: 16-byte stores
+//    through distributed shared memory, an all-gather); the split cluster
+//    barrier's arrive, y's and c's stores, its wait.
+// 3. One barrier a step is enough, because h is double-buffered: step t
+//    reads buffer t & 1 and writes buffer (t + 1) & 1, its own units' rows
+//    and the peers'. A block writes buffer t & 1 again (for step t + 2)
+//    only in step t + 1, after barrier t, and every peer arrived at barrier
+//    t after its product of step t, that buffer's last read. c and the
+//    staged x are double-buffered too, so y and c of step t are stored
+//    from slots that step t + 1 does not write.
+// 4. Once every row of a cluster is past its length, the remaining steps
+//    store y = 0 and the carried c, with no product and no barrier.
+// What bounds it: the serial chain of T steps, each a product (768
+// mma.sync a block at h = 256 and R <= 8, and the split of its 32 768
+// weights), the cell, the push and a cluster barrier; -DRNN_SERIAL_FLOOR
+// keeps only the pushes and the barriers (rnn_fwd_probe.py).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -452,7 +487,9 @@ lstm_bwd_cluster_kernel(const float* __restrict__ w,
     }
     // P_s[r][k] = sum over the own columns c of dg[r][c] * w[k][c]
     float* pbt = pb + (t & 1) * R * h;
-    if (!kSerialFloor) rnn::slice_product<R>(ws, wst, dgs, ds, 4 * U, pbt, h);
+    if (!kSerialFloor)
+      rnn::tile_product<R>(ws, wst, dgs, ds, rnn::slice_cols(4 * U), h, pbt,
+                           h, 1);
     rnn::cluster_arrive();  // this block's P of step t is written
     store_dx(t);            // while the peers arrive
     rnn::cluster_wait();
@@ -477,6 +514,165 @@ lstm_bwd_cluster_kernel(const float* __restrict__ w,
 #pragma unroll
     for (int r = 0; r < R; ++r) sum += dbs[q * RU + r * U + u];
     part_db[(size_t)cid * 7 * h + q * h + j0 + u] = sum;
+  }
+}
+
+// B5's cluster walk's shared memory, in floats from the base, at width h
+// and R rows a cluster
+struct FwdSmem {
+  int U, K, wst, ds, shares, gs, hb, gp, st, cs, b7, len, total;
+  __host__ __device__ FwdSmem(int h, int R) {
+    U = (h + CL - 1) / CL;
+    const int M = (4 * U + 15) & ~15;  // the own gate columns, whole tiles
+    K = rnn::slice_cols(h);            // the product's depth, zeros past h
+    wst = K + 4;                       // a fragment's rows g, columns t
+    ds = rnn::grad_stride(R);          // fall in 32 banks
+    shares = rnn::k_shares(4 * U, K, R);
+    gs = M + 4;
+    hb = M * wst;                      // wt [M][wst]; then [2][K][ds] h
+    gp = hb + 2 * K * ds;              // [shares][R][gs] the product
+    st = gp + shares * R * gs;         // [2][4][R U] staged x
+    cs = st + 8 * R * U;               // [2][R U] c
+    b7 = cs + 2 * R * U;               // [7][U] the own units' b7
+    len = b7 + 7 * U;                  // [R] int lengths
+    total = len + R;
+  }
+};
+
+size_t fwd_cluster_smem(int h, int R) {
+  return (size_t)FwdSmem(h, R).total * sizeof(float);
+}
+
+// B5's cluster route (see the head of this file); c_out may be null
+template <int R>
+__global__ void __launch_bounds__(rnn::NTC, 1)
+lstm_fwd_cluster_kernel(const float* __restrict__ x,
+                        const float* __restrict__ w,
+                        const float* __restrict__ b7,
+                        const int* __restrict__ lens, float* __restrict__ y,
+                        float* __restrict__ c_out, int B, int T, int h) {
+  constexpr int NTC = rnn::NTC;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const FwdSmem L(h, R);
+  const int U = L.U, ds = L.ds, gs = L.gs, RU = R * U, h4 = 4 * h;
+  const int hsize = L.K * ds;
+  const int s = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / CL) * R;
+  const int j0 = s * U, nu = max(0, min(U, h - j0));
+  float* wt = smem;                  // wt[q U + u][k] = w[k][q h + j0 + u]
+  float* hb = smem + L.hb;
+  float* gp = smem + L.gp;
+  float* stg = smem + L.st;
+  float* cs = smem + L.cs;
+  float* sb = smem + L.b7;
+  int* slen = reinterpret_cast<int*>(smem + L.len);
+
+  int live = 0;  // the steps until every row of the cluster is past its length
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    live = max(live, row0 + r < B ? min(lens[row0 + r], T) : 0);
+  // h_{-1} = 0, c_{-1} = 0, and every pad zero
+  for (int i = threadIdx.x; i < L.total; i += NTC) smem[i] = 0.f;
+  __syncthreads();
+  for (int i = threadIdx.x; i < h * 4 * U; i += NTC) {
+    const int k = i / (4 * U), c = i % (4 * U), q = c / U, u = c % U;
+    if (u < nu) wt[c * L.wst + k] = w[(size_t)k * h4 + q * h + j0 + u];
+  }
+  for (int i = threadIdx.x; i < 7 * U; i += NTC) {
+    const int q = i / U, u = i % U;
+    sb[i] = u < nu ? b7[q * h + j0 + u] : 0.f;
+  }
+  for (int r = threadIdx.x; r < R; r += NTC)
+    slen[r] = row0 + r < B ? lens[row0 + r] : 0;
+  // x of step t into slot t & 1: [4][R U] the gates i, f, g, o of the live
+  // (row, unit) pairs
+  auto stage = [&](int t) {
+    float* sg = stg + (t & 1) * 4 * RU;
+    for (int e = threadIdx.x; e < 4 * RU && !kSerialFloor; e += NTC) {
+      const int q = e / RU, pr = e % RU, r = pr / U, u = pr % U;
+      const int row = row0 + r;
+      const bool ok = u < nu && row < B && t < lens[row];
+      cp_async4(sg + e, ok ? x + ((size_t)row * T + t) * h4 + q * h + j0 + u
+                           : x, ok ? 4 : 0);
+    }
+  };
+  // y (0 past len) and c of step t from the slots step t wrote, coalesced
+  // along the units
+  auto store = [&](int t) {
+    const float* hn = hb + ((t + 1) & 1) * hsize;
+    const float* cn = cs + ((t + 1) & 1) * RU;
+    for (int e = threadIdx.x; e < RU && !kSerialFloor; e += NTC) {
+      const int r = e / U, u = e % U, row = row0 + r;
+      if (u >= nu || row >= B) continue;
+      const size_t o = ((size_t)row * T + t) * h + j0 + u;
+      y[o] = t < slen[r] ? hn[(j0 + u) * ds + r] : 0.f;
+      if (c_out != nullptr) c_out[o] = cn[e];
+    }
+  };
+  // every block of the cluster runs and is set before any peer pushes into
+  // its shared memory
+  cluster.sync();
+  if (live > 0) stage(0);
+  cp_async_commit();
+
+  for (int t = 0; t < live; ++t) {
+    const float* hp = hb + (t & 1) * hsize;
+    float* hn = hb + ((t + 1) & 1) * hsize;
+    if (t + 1 < live) stage(t + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step t's inputs (this thread's copies)
+    // G_s[r][q U + u] = sum_k h_{t-1}[r][k] w[k][q h + j0 + u], in shares
+    if (!kSerialFloor)
+      rnn::tile_product<R>(wt, L.wst, hp, ds, L.K, 4 * U, gp, gs, L.shares);
+    __syncthreads();  // the product and step t's inputs are complete
+    const float* sg = stg + (t & 1) * 4 * RU;
+    const float* cp = cs + (t & 1) * RU;
+    float* cn = cs + ((t + 1) & 1) * RU;
+    // the cell of the own (row, unit) pairs; past len h and c carry
+    for (int pr = threadIdx.x; pr < RU && !kSerialFloor; pr += NTC) {
+      const int r = pr / U, u = pr % U, k = (j0 + u) * ds + r;
+      if (u >= nu) continue;
+      float hv = hp[k], cv = cp[pr];
+      if (t < slen[r]) {
+        float g[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          g[q] = gp[r * gs + q * U + u];
+          for (int sh = 1; sh < L.shares; ++sh)
+            g[q] += gp[(sh * R + r) * gs + q * U + u];
+        }
+        const float wci = sb[4 * U + u], wcf = sb[5 * U + u],
+                    wco = sb[6 * U + u];
+        const float ig = rnn::sigm((sg[pr] + g[0]) + sb[u] + wci * cv);
+        const float fg =
+            rnn::sigm((sg[RU + pr] + g[1]) + sb[U + u] + wcf * cv);
+        const float cand = tanhf((sg[2 * RU + pr] + g[2]) + sb[2 * U + u]);
+        const float c = fg * cv + ig * cand;
+        const float og =
+            rnn::sigm((sg[3 * RU + pr] + g[3]) + sb[3 * U + u] + wco * c);
+        hv = og * tanhf(c);
+        cv = c;
+      }
+      hn[k] = hv;
+      cn[pr] = cv;
+    }
+    __syncthreads();  // h_t of the own units is in hn
+    rnn::push_to_peers(cluster, hn, j0 * ds, U * ds);
+    rnn::cluster_arrive();  // h_t is in every block
+    store(t);               // while the peers arrive
+    rnn::cluster_wait();
+  }
+  cp_async_wait<0>();
+  // past every row's length: y = 0, c carries (c of the last live step)
+  const float* cl = cs + (live & 1) * RU;
+  for (int e = threadIdx.x; e < (T - live) * RU && !kSerialFloor; e += NTC) {
+    const int t = live + e / RU, pr = e % RU, r = pr / U, u = pr % U;
+    const int row = row0 + r;
+    if (u >= nu || row >= B) continue;
+    const size_t o = ((size_t)row * T + t) * h + j0 + u;
+    y[o] = 0.f;
+    if (c_out != nullptr) c_out[o] = cl[pr];
   }
 }
 
@@ -509,70 +705,34 @@ cudaError_t launch_bwd(const float* x, const float* w, const float* b7,
   return cudaGetLastError();
 }
 
-// The clusters of R rows the card holds at once (negative: -cudaError_t)
-int active_clusters(int R, int h, int device) {
-  return rnn::with_rows(R, [&](auto rows) {
-    return rnn::max_active_clusters(
-        lstm_bwd_cluster_kernel<decltype(rows)::value>, walk_smem(h, R),
-        device);
-  });
-}
-
-// B6's route at (B, h): `request` -1 takes the rule (the cluster route
-// wherever its shared memory holds h, else the walk), 0 the walk, 1 the
-// cluster route. Returns a cudaError_t; route -1 when no route takes h.
-int bwd_plan(int B, int h, int device, int request, rnn::BwdPlan* p) {
-  *p = {-1, 0, 0, 0};
-  if (request != 0) {
-    const int R = rnn::cluster_rows(
-        B, [&](int r) { return walk_smem(h, r); },
-        [&](int r) { return active_clusters(r, h, device); });
-    if (R < 0) return -R;
-    if (R > 0) {
-      *p = {1, R, rnn::cdiv(B, R), active_clusters(R, h, device)};
-      return 0;
-    }
-    if (request == 1) return (int)cudaErrorInvalidValue;
+// The two cluster walks of this file, for rnn_common.cuh's route rule and
+// launches
+struct Walks {
+  template <int KIND, int R>
+  static auto kernel() {
+    if constexpr (KIND == 0)
+      return &lstm_fwd_cluster_kernel<R>;
+    else
+      return &lstm_bwd_cluster_kernel<R>;
   }
-  const int bb = block_rows(1, h);
-  if (bb > 0) *p = {0, bb, rnn::cdiv(B, bb), 0};
-  return 0;
-}
-
-cudaError_t launch_cluster_bwd(int R, int clusters, const float* w,
-                               const float* b7, const int* lens,
-                               const float* c, const float* dy, float* dx,
-                               float* part, int B, int T, int h,
-                               cudaStream_t st) {
-  return rnn::with_rows(R, [&](auto rows) {
-    return rnn::launch_clusters(
-        lstm_bwd_cluster_kernel<decltype(rows)::value>, clusters,
-        walk_smem(h, R), st, w, b7, lens, c, dy, dx, part, B, T, h);
-  });
-}
+  static size_t smem(int kind, int h, int R) {
+    return kind == 0 ? fwd_cluster_smem(h, R) : walk_smem(h, R);
+  }
+  static int walk_rows(int kind, int h) { return block_rows(kind, h); }
+};
 
 }  // namespace
 
-// Batch rows a block takes (kind 0 forward, 1 backward) at width h; 0 means
-// the kernel does not take this h.
-extern "C" int lstm_seq_block_rows(int kind, int h) {
-  return block_rows(kind, h);
+// B5's (lstm_seq_fwd_plan) or B6's (lstm_seq_bwd_plan) route at (B, h) on
+// `device` (rnn::plan_entry). Returns a cudaError_t.
+extern "C" int lstm_seq_fwd_plan(int B, int h, int device, int request,
+                                 int* out) {
+  return rnn::plan_entry<Walks>(0, B, h, device, request, out);
 }
 
-// B6's route at (B, h) on `device` (see bwd_plan): out = {route (1
-// cluster, 0 walk, -1 none), rows a cluster or block, clusters or blocks,
-// the clusters the card holds at once}. Returns a cudaError_t.
 extern "C" int lstm_seq_bwd_plan(int B, int h, int device, int request,
                                  int* out) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  rnn::BwdPlan p;
-  const int rc = bwd_plan(B, h, device, request, &p);
-  out[0] = p.route;
-  out[1] = p.rows;
-  out[2] = p.blocks;
-  out[3] = p.active;
-  return rc;
+  return rnn::plan_entry<Walks>(1, B, h, device, request, out);
 }
 
 // Floats of scratch lstm_seq_bwd needs on either route: the db7 partials
@@ -583,15 +743,22 @@ extern "C" long long lstm_seq_bwd_scratch_floats(int B, int T, int h) {
 }
 
 // B5. x [B, T, 4h], w [h, 4h], b7 [7h], lens [B] int32 -> y [B, T, h] and,
-// when c is not null, the carried cell sequence c [B, T, h]. Launches on
-// `stream` of `device`; returns the launch's cudaError_t (0 = launched).
+// when c is not null, the carried cell sequence c [B, T, h], on the route
+// `route` asks for (rnn::make_plan), which it writes into *taken (-1: that
+// route does not take h, and nothing is launched). Launches on `stream` of
+// `device`; returns the launch's cudaError_t (0 = launched or refused).
 extern "C" int lstm_seq_fwd(const float* x, const float* w, const float* b7,
                             const int* lens, float* y, float* c, int B, int T,
-                            int h, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                            int h, int route, int* taken, int device,
+                            void* stream) {
+  rnn::Plan p;
+  const int rc = rnn::launch_plan<Walks>(0, B, h, device, route, taken, &p);
+  if (rc != 0 || p.route < 0) return rc;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  switch (block_rows(0, h)) {
+  if (p.route == 1)
+    return (int)rnn::launch_walk<Walks, 0>(p, h, st, x, w, b7, lens, y, c, B,
+                                           T, h);
+  switch (p.rows) {
     case 8: return (int)launch_fwd<8>(x, w, b7, lens, y, c, B, T, h, st);
     case 4: return (int)launch_fwd<4>(x, w, b7, lens, y, c, B, T, h, st);
     case 2: return (int)launch_fwd<2>(x, w, b7, lens, y, c, B, T, h, st);
@@ -601,30 +768,30 @@ extern "C" int lstm_seq_fwd(const float* x, const float* w, const float* b7,
 }
 
 // B6. Inputs as B5's plus y, c and dy [B, T, h]; writes dx [B, T, 4h],
-// dw [h, 4h] and db7 [7h], on the route `route` asks for (see bwd_plan).
+// dw [h, 4h] and db7 [7h], on the route `route` asks for, written into
+// *taken as B5's is.
 extern "C" int lstm_seq_bwd(const float* x, const float* w, const float* b7,
                             const int* lens, const float* y, const float* c,
                             const float* dy, float* dx, float* dw, float* db7,
                             float* scratch, int B, int T, int h, int route,
-                            int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+                            int* taken, int device, void* stream) {
+  rnn::Plan p;
+  const int rc = rnn::launch_plan<Walks>(1, B, h, device, route, taken, &p);
+  if (rc != 0 || p.route < 0) return rc;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  rnn::BwdPlan plan;
-  const int rc = bwd_plan(B, h, device, route, &plan);
-  if (rc != 0) return rc;
+  cudaError_t err;
   float* part = scratch;
   float* dw_part = scratch + (size_t)B * 7 * h;
-  if (plan.route == 1) {
+  if (p.route == 1) {
     // every step's x + h_{t-1} @ w (h_{t-1} = y shifted by one) into dx
     err = rnn::pre_gemm<rnn::EPI_PRE>(y, h, T, w, 4 * h, x, 4 * h, nullptr,
                                       dx, 4 * h, B * T, 4 * h, h, nullptr,
                                       nullptr, h, st);
     if (err != cudaSuccess) return (int)err;
-    err = launch_cluster_bwd(plan.rows, plan.blocks, w, b7, lens, c, dy, dx,
-                             part, B, T, h, st);
+    err = rnn::launch_walk<Walks, 1>(p, h, st, w, b7, lens, c, dy, dx, part,
+                                     B, T, h);
   } else {
-    switch (plan.rows) {
+    switch (p.rows) {
       case 8: err = launch_bwd<8>(x, w, b7, lens, y, c, dy, dx, part, B, T, h, st); break;
       case 4: err = launch_bwd<4>(x, w, b7, lens, y, c, dy, dx, part, B, T, h, st); break;
       case 2: err = launch_bwd<2>(x, w, b7, lens, y, c, dy, dx, part, B, T, h, st); break;
@@ -633,7 +800,7 @@ extern "C" int lstm_seq_bwd(const float* x, const float* w, const float* b7,
     }
   }
   if (err != cudaSuccess) return (int)err;
-  err = rnn::block_sum(part, db7, plan.blocks, 7 * h, st);
+  err = rnn::block_sum(part, db7, p.blocks, 7 * h, st);
   if (err != cudaSuccess) return (int)err;
   // dW = sum over the B*T rows of h_{t-1}^T dg, h_{t-1} = y shifted by one
   return (int)rnn::weight_grad(y, h, T, dx, 4 * h, dw, dw_part, B * T, h,

@@ -13,8 +13,11 @@
 //   A may be the output sequence y shifted by one step (h_{t-1}): the
 //   backward's hoisted gate pre-activations x + h_{t-1} @ w, and dW;
 // - the fixed-order sum of the per-block bias partials;
-// - the plan of the cluster route: how many clusters of CL blocks the card
-//   holds at once, and how many batch rows each takes.
+// - the cluster routes' pieces: the per-step product on the tensor cores
+//   (tile_product), the forward's push of a block's rows into its peers'
+//   shared memory, the split cluster barrier, and the plan: how many
+//   clusters of CL blocks the card holds at once, how many batch rows each
+//   takes, and which route takes a width (make_plan, over a file's Walks).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -406,26 +409,48 @@ inline __host__ __device__ int grad_stride(int R) {
   return rp % 32 == 0 || rp % 32 == 16 ? rp + 8 : rp;
 }
 
-// P[r][k] = sum over c < n of d[c][r] * wsl[k][c] for r < R, k < h, on the
-// tensor cores (3xTF32, tf32_mma.cuh): the walk's product of the step's
-// gradients d [slice_cols(n)][ds] (columns past R and rows past n zero)
-// with an own-column weight slice wsl [round16(h)][wst] (columns past n and
-// rows past h zero), into P [R][h]. M = the rows k of the slice, N = the
-// batch rows r, K = its columns c. A warp takes the 16-row tiles warp, warp
-// + NTC / 32, ..., all N tiles of each. SETS k-steps at a time: their
-// fragments are loaded and split first, then their mma issued pass by pass,
-// each into its own accumulator set (no two dependent mma adjacent); the
-// sets are added in a fixed order at the end.
+// The k-steps a product loads and splits before it issues their mma: the
+// fragments of SETS steps fit the registers at R batch rows
+__host__ __device__ constexpr int product_sets(int R) {
+  return (R + 7) / 8 <= 2 ? 4 : 2;
+}
+
+// The shares of the depth K a product of M rows is split into: where M has
+// fewer 16-row tiles than a block has warps, enough shares to give every
+// warp a job, but no share without a group of SETS k-steps
+__host__ __device__ inline int k_shares(int M, int K, int R) {
+  const int tiles = (M + 15) / 16, groups = K / (8 * product_sets(R));
+  int s = (NTC / 32) / tiles;
+  if (s > groups) s = groups;
+  return s < 1 ? 1 : s;
+}
+
+// C_s[r][m] = sum over the s-th share of the depth of A(m, k) B(k, r), for
+// r < R, m < M and s < shares, on the tensor cores (3xTF32, tf32_mma.cuh):
+// A(m, k) = a[m ast + k] over round16(M) rows, B(k, r) = b[k bs + r] (the
+// batch rows as n, padded to 8), both zero past the real depth, K a
+// multiple of 8 SETS; C_s[r][m] into out[(s R + r) os + m]. The walks'
+// per-step products: B6/B8's partial dh (A the own-column weight slice
+// read as [k][c], the depth its own columns, shares 1) and B5/B7's gate
+// pre-activations (A the own columns of w read as [c][k], the depth h).
+// The 16-row tiles and the shares of the depth (the k-groups s, s +
+// shares, ... of SETS k-steps each) make the jobs; warp w takes the jobs
+// w, w + NTC / 32, ... A job loads and splits the fragments of SETS
+// k-steps first, then issues their mma pass by pass, each into its own
+// accumulator set (no two dependent mma adjacent); the sets are added in a
+// fixed order at the end, and the caller adds the shares in order.
 template <int R>
-__device__ __forceinline__ void slice_product(const float* wsl, int wst,
-                                              const float* d, int ds, int n,
-                                              float* P, int h) {
+__device__ __forceinline__ void tile_product(const float* a, int ast,
+                                             const float* b, int bs, int K,
+                                             int M, float* out, int os,
+                                             int shares) {
   constexpr int NTL = (R + 7) / 8;
-  constexpr int SETS = NTL <= 2 ? 4 : 2;  // registers: fragments of SETS
+  constexpr int SETS = product_sets(R);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int K = slice_cols(n);
-  for (int m0 = warp * 16; m0 < h; m0 += NTC / 2) {
+  const int tiles = (M + 15) / 16;
+  for (int job = warp; job < tiles * shares; job += NTC / 32) {
+    const int m0 = (job % tiles) * 16, share = job / tiles;
     float acc[SETS][NTL][4];
 #pragma unroll
     for (int s = 0; s < SETS; ++s)
@@ -433,22 +458,22 @@ __device__ __forceinline__ void slice_product(const float* wsl, int wst,
       for (int j = 0; j < NTL; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[s][j][e] = 0.f;
-    const float* arow = wsl + (m0 + g) * wst + t;
-    for (int c0 = 0; c0 < K; c0 += 8 * SETS) {
+    const float* arow = a + (m0 + g) * ast + t;
+    for (int c0 = 8 * SETS * share; c0 < K; c0 += 8 * SETS * shares) {
       unsigned ahi[SETS][4], alo[SETS][4], bhi[SETS][NTL][2],
           blo[SETS][NTL][2];
 #pragma unroll
       for (int s = 0; s < SETS; ++s) {
-        const float* a = arow + c0 + 8 * s;
-        split_tf32_alu(a[0], ahi[s][0], alo[s][0]);             // (g, t)
-        split_tf32_alu(a[8 * wst], ahi[s][1], alo[s][1]);       // (g + 8, t)
-        split_tf32_alu(a[4], ahi[s][2], alo[s][2]);             // (g, t + 4)
-        split_tf32_alu(a[8 * wst + 4], ahi[s][3], alo[s][3]);   // (g + 8, t+4)
+        const float* ap = arow + c0 + 8 * s;
+        split_tf32_alu(ap[0], ahi[s][0], alo[s][0]);             // (g, t)
+        split_tf32_alu(ap[8 * ast], ahi[s][1], alo[s][1]);       // (g + 8, t)
+        split_tf32_alu(ap[4], ahi[s][2], alo[s][2]);             // (g, t + 4)
+        split_tf32_alu(ap[8 * ast + 4], ahi[s][3], alo[s][3]);   // (g + 8, t+4)
 #pragma unroll
         for (int j = 0; j < NTL; ++j) {
-          const float* b = d + (c0 + 8 * s + t) * ds + j * 8 + g;
-          split_tf32_alu(b[0], bhi[s][j][0], blo[s][j][0]);       // (k t, n g)
-          split_tf32_alu(b[4 * ds], bhi[s][j][1], blo[s][j][1]);  // (k t + 4)
+          const float* bp = b + (c0 + 8 * s + t) * bs + j * 8 + g;
+          split_tf32_alu(bp[0], bhi[s][j][0], blo[s][j][0]);       // (k t, n g)
+          split_tf32_alu(bp[4 * bs], bhi[s][j][1], blo[s][j][1]);  // (k t + 4)
         }
       }
 #pragma unroll
@@ -464,15 +489,33 @@ __device__ __forceinline__ void slice_product(const float* wsl, int wst,
 #pragma unroll
         for (int j = 0; j < NTL; ++j) mma_tf32(acc[s][j], ahi[s], bhi[s][j]);
     }
+    float* o = out + share * R * os;
 #pragma unroll
     for (int j = 0; j < NTL; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = j * 8 + 2 * t + (e & 1), k = m0 + g + 8 * (e >> 1);
+        const int r = j * 8 + 2 * t + (e & 1), m = m0 + g + 8 * (e >> 1);
         float v = acc[0][j][e] + acc[1][j][e];
         if (SETS == 4) v += acc[2][j][e] + acc[3][j][e];
-        if (r < R && k < h) P[r * h + k] = v;
+        if (r < R && m < M) o[r * os + m] = v;
       }
+  }
+}
+
+// The forward's exchange: floats [off, off + n) of the block's buffer
+// `buf` (off and n multiples of 4, buf 16-byte aligned) stored into the
+// same place of every other block of the cluster through distributed
+// shared memory, 16 bytes a store, coalesced along the floats; each block
+// starts at the rank after its own
+template <class Cluster>
+__device__ __forceinline__ void push_to_peers(Cluster& cluster, float* buf,
+                                              int off, int n) {
+  const int n4 = n / 4, me = (int)cluster.block_rank();
+  const float4* src = reinterpret_cast<const float4*>(buf + off);
+  for (int e = threadIdx.x; e < (CL - 1) * n4; e += NTC) {
+    const int rk = (me + 1 + e / n4) % CL, i = e % n4;
+    reinterpret_cast<float4*>(cluster.map_shared_rank(buf + off, rk))[i] =
+        src[i];
   }
 }
 
@@ -532,10 +575,10 @@ inline cudaError_t launch_clusters(Kern* kernel, int clusters, size_t smem,
   return cudaGetLastError();
 }
 
-// The plan of a backward: route 1 (cluster: `rows` batch rows a cluster,
+// The plan of a walk: route 1 (cluster: `rows` batch rows a cluster,
 // `blocks` clusters, of which the card holds `active` at once) or 0 (the
 // walk: `rows` rows a block, `blocks` blocks); route -1: neither takes h.
-struct BwdPlan {
+struct Plan {
   int route, rows, blocks, active;
 };
 
@@ -556,6 +599,104 @@ inline int cluster_rows(int B, Smem smem, Active active) {
     if (cdiv(B, R) <= n) break;
   }
   return best;
+}
+
+// A walk's plan at B batch rows (see Plan): `request` -1 takes the rule
+// (the cluster route wherever its shared memory holds the width, else the
+// walk), 0 the walk, 1 the cluster route; `smem`, `active` as for
+// cluster_rows, `walk_rows` the walk's rows a block (0: it does not take
+// the width). Route -1 when the route asked for does not take the width.
+// Returns a cudaError_t.
+template <class Smem, class Active>
+inline int make_plan(int B, int request, Smem smem, Active active,
+                     int walk_rows, Plan* p) {
+  *p = {-1, 0, 0, 0};
+  if (request != 0) {
+    const int R = cluster_rows(B, smem, active);
+    if (R < 0) return -R;
+    if (R > 0) {
+      *p = {1, R, cdiv(B, R), active(R)};
+      return 0;
+    }
+    if (request == 1) return 0;
+  }
+  if (walk_rows > 0) *p = {0, walk_rows, cdiv(B, walk_rows), 0};
+  return 0;
+}
+
+// The route rule and the cluster launches of a file's two walks, over its
+// `Walks`: Walks::kernel<KIND, R>() is the cluster kernel of the forward
+// (KIND 0) or the backward (KIND 1) at R rows a cluster, Walks::smem(kind,
+// h, R) its dynamic shared memory in bytes, and Walks::walk_rows(kind, h)
+// the walk's rows a block (0: the walk does not take h).
+
+// The clusters of R rows the card holds at once of the kind's cluster walk
+// (negative: -cudaError_t)
+template <class Walks>
+inline int walk_active(int kind, int R, int h, int device) {
+  return with_rows(R, [&](auto rows) {
+    constexpr int r = decltype(rows)::value;
+    return kind == 0 ? max_active_clusters(Walks::template kernel<0, r>(),
+                                           Walks::smem(0, h, r), device)
+                     : max_active_clusters(Walks::template kernel<1, r>(),
+                                           Walks::smem(1, h, r), device);
+  });
+}
+
+// The forward's (kind 0) or the backward's (kind 1) plan at (B, h) on
+// `device`, for make_plan's `request`. Returns a cudaError_t.
+template <class Walks>
+inline int walk_plan(int kind, int B, int h, int device, int request,
+                     Plan* p) {
+  return make_plan(
+      B, request, [&](int r) { return Walks::smem(kind, h, r); },
+      [&](int r) { return walk_active<Walks>(kind, r, h, device); },
+      Walks::walk_rows(kind, h), p);
+}
+
+// The C entry points *_fwd_plan (kind 0) and *_bwd_plan (kind 1): the plan
+// at (B, h) on `device` into out = {route (1 cluster, 0 walk, -1 none),
+// rows a cluster or block, clusters or blocks, the clusters the card holds
+// at once}. Returns a cudaError_t.
+template <class Walks>
+inline int plan_entry(int kind, int B, int h, int device, int request,
+                      int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Plan p;
+  const int rc = walk_plan<Walks>(kind, B, h, device, request, &p);
+  out[0] = p.route;
+  out[1] = p.rows;
+  out[2] = p.blocks;
+  out[3] = p.active;
+  return rc;
+}
+
+// The start of the C launch entry points: `device` set, and the plan at
+// (B, h) for `request` into p, its route written into *taken (1 cluster,
+// 0 walk; -1: the route asked for does not take h, nothing is launched).
+// Returns a cudaError_t.
+template <class Walks>
+inline int launch_plan(int kind, int B, int h, int device, int request,
+                       int* taken, Plan* p) {
+  *taken = -1;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int rc = walk_plan<Walks>(kind, B, h, device, request, p);
+  if (rc == 0) *taken = p->route;
+  return rc;
+}
+
+// Launch the KIND cluster walk of plan p (route 1) at width h, with the
+// kernel's arguments `args`
+template <class Walks, int KIND, class... Args>
+inline cudaError_t launch_walk(const Plan& p, int h, cudaStream_t st,
+                               Args... args) {
+  return with_rows(p.rows, [&](auto rows) {
+    constexpr int r = decltype(rows)::value;
+    return launch_clusters(Walks::template kernel<KIND, r>(), p.blocks,
+                           Walks::smem(KIND, h, r), st, args...);
+  });
 }
 
 }  // namespace rnn

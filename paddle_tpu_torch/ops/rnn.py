@@ -21,12 +21,17 @@ Replaces the TPU kernels of `paddle_tpu/ops/pallas_rnn.py` — B5
 with masked carry: at t >= lens[b] the state carries through and
 y = 0 (the SequenceToBatch contract).
 
-B6 and B8 take one of two routes, by shape alone (`bwd_plan`, whose
-rule lives in the C entry points `*_seq_bwd_plan`): the cluster route
-(the gate recompute hoisted onto the tensor cores, the reverse walk by
-thread-block clusters holding the weights in shared memory) wherever a
-block's shared memory holds its slice of the weights (h <= 320), else
-the walk (a block per few batch rows, the weights from L2).
+Each kernel takes one of two routes, by shape alone (`fwd_plan`,
+`bwd_plan`, whose rules live in the C entry points `*_seq_fwd_plan`
+and `*_seq_bwd_plan`): the cluster route wherever a block's shared
+memory holds its slice of the weights (h <= 320; B7: 352), else the
+walk (a block per few batch rows, the weights from L2). On the cluster route
+thread-block clusters keep the weights in shared memory and walk the
+sequence together: the forward (B5, B7) exchanges each step's h through
+distributed shared memory; the backward (B6, B8) hoists the gate
+recompute onto the tensor cores first. `route="walk"` or `"cluster"`
+on a kernel's wrapper asks for that route, and raises where it does not
+take the shape.
 
 f32 only: the kernels raise on other types. The kernels take the bias
 as one vector — b7 = [gb | wci | wcf | wco] for the LSTM.
@@ -57,13 +62,16 @@ GRU_KERNEL = "gru_seq"
 # smoke zeroes them just before driving a path and reads them just after)
 lstm_fwd_launches = 0        # B5 with the cell sequence c (training)
 lstm_fwd_infer_launches = 0  # B5 without c (inference)
+lstm_fwd_cluster_launches = 0        # B5 with c on the cluster route
+lstm_fwd_infer_cluster_launches = 0  # B5 without c on the cluster route
 lstm_bwd_launches = 0        # B6, either route
 lstm_bwd_cluster_launches = 0  # B6 on the cluster route
-gru_fwd_launches = 0         # B7
+gru_fwd_launches = 0         # B7, either route
+gru_fwd_cluster_launches = 0   # B7 on the cluster route
 gru_bwd_launches = 0         # B8, either route
 gru_bwd_cluster_launches = 0   # B8 on the cluster route
 
-ROUTES = ("walk", "cluster")   # B6/B8's routes, by their C numbers
+ROUTES = ("walk", "cluster")   # the kernels' routes, by their C numbers
 
 
 # ---------------------------------------------------------------- plain
@@ -197,20 +205,21 @@ def gru_bwd_plain(x, w_g, w_c, b, lens, y, dy):
 def _bind(name):
     lib = _build.load(name)
     p, i = ctypes.c_void_p, ctypes.c_int
+    # tensors, then B, T, h, route, the route taken (int *), device, stream
+    tail = [i] * 4 + [ctypes.POINTER(i), i, p]
     if name == LSTM_KERNEL:
-        fns = {"lstm_seq_fwd": [p] * 6 + [i] * 4 + [p],
-               "lstm_seq_bwd": [p] * 11 + [i] * 5 + [p]}
+        fns = {"lstm_seq_fwd": [p] * 6 + tail,
+               "lstm_seq_bwd": [p] * 11 + tail}
     else:
-        fns = {"gru_seq_fwd": [p] * 6 + [i] * 4 + [p],
-               "gru_seq_bwd": [p] * 12 + [i] * 5 + [p]}
-    fns[f"{name}_bwd_plan"] = [i] * 4 + [p]
+        fns = {"gru_seq_fwd": [p] * 6 + tail,
+               "gru_seq_bwd": [p] * 12 + tail}
+    for kind in ("fwd", "bwd"):
+        fns[f"{name}_{kind}_plan"] = [i] * 4 + [p]
     for fn, argtypes in fns.items():
         f = getattr(lib, fn)
         if f.argtypes is None:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-    getattr(lib, f"{name}_block_rows").argtypes = [i, i]
-    getattr(lib, f"{name}_block_rows").restype = ctypes.c_int
     getattr(lib, f"{name}_bwd_scratch_floats").argtypes = [i, i, i]
     getattr(lib, f"{name}_bwd_scratch_floats").restype = ctypes.c_longlong
     getattr(lib, f"{name}_error_string").argtypes = [i]
@@ -218,26 +227,68 @@ def _bind(name):
     return lib
 
 
-def bwd_plan(name, b, h, device, route=None):
-    """B6's (`name` LSTM_KERNEL) or B8's (GRU_KERNEL) plan at batch b and
+def _request(route):
+    """The C number of `route` (None: -1, the rule); raises ValueError on
+    a name that is not a route, before anything is built."""
+    if route is None:
+        return -1
+    if route not in ROUTES:
+        raise ValueError(f"route must be None or one of {ROUTES}, got "
+                         f"{route!r}")
+    return ROUTES.index(route)
+
+
+def _refused(name, kind, route, b, h):
+    which = "no route" if route is None else f"the {route} route"
+    return ValueError(f"{name} {kind}: {which} takes h = {h} (B={b}): a "
+                      f"block's shared memory does not hold it")
+
+
+def _plan(kind, name, b, h, device, route):
+    request = _request(route)
+    lib = _bind(name)
+    out = (ctypes.c_int * 4)()
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    _build.launch(lib, f"{name}_{kind}_plan", f"{name}_error_string", b, h,
+                  index, request, out)
+    if out[0] < 0:
+        raise _refused(name, kind, route, b, h)
+    return {"route": ROUTES[out[0]], "rows": out[1], "blocks": out[2],
+            "active": out[3]}
+
+
+def _run(name, kind, route, x, *args):
+    """Launch `name`'s forward or backward (`kind`) entry point on `args`
+    (its tensors' pointers, then B, T, h) at `route` on x's device and
+    current stream. Returns the route the entry point took (the rule's
+    where `route` is None); raises ValueError where `route` does not take
+    the width."""
+    lib = _bind(name)
+    taken = ctypes.c_int(-1)
+    _build.launch(lib, f"{name}_{kind}", f"{name}_error_string", *args,
+                  _request(route), ctypes.byref(taken),
+                  *_build.device_and_stream(x))
+    if taken.value < 0:
+        raise _refused(name, kind, route, args[-3], args[-1])
+    return ROUTES[taken.value]
+
+
+def fwd_plan(name, b, h, device, route=None):
+    """B5's (`name` LSTM_KERNEL) or B7's (GRU_KERNEL) plan at batch b and
     width h on CUDA `device`: {"route": "cluster" or "walk", "rows": batch
     rows a cluster or block takes, "blocks": clusters or blocks,
     "active": the clusters the card holds at once (0 on the walk)}. `route`
     None takes the rule (the cluster route wherever it holds h); "walk"
     or "cluster" asks for that route, and raises where it does not take
     h."""
-    lib = _bind(name)
-    request = -1 if route is None else ROUTES.index(route)
-    out = (ctypes.c_int * 4)()
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    _build.launch(lib, f"{name}_bwd_plan", f"{name}_error_string", b, h,
-                  index, request, out)
-    if out[0] < 0:
-        raise ValueError(f"{name} backward: h = {h} does not fit the "
-                         f"kernels' shared memory (B={b})")
-    return {"route": ROUTES[out[0]], "rows": out[1], "blocks": out[2],
-            "active": out[3]}
+    return _plan("fwd", name, b, h, device, route)
+
+
+def bwd_plan(name, b, h, device, route=None):
+    """B6's (`name` LSTM_KERNEL) or B8's (GRU_KERNEL) plan, as
+    `fwd_plan`'s."""
+    return _plan("bwd", name, b, h, device, route)
 
 
 def _check(where, x, width, lens, **shapes):
@@ -268,38 +319,31 @@ def _check(where, x, width, lens, **shapes):
     return b, t, h
 
 
-def _prepare(name, where, b, t, h):
-    """The bound library; raises naming the shape when a block of the
-    forward kernel cannot hold one batch row of width h in shared
-    memory."""
-    lib = _bind(name)
-    if getattr(lib, f"{name}_block_rows")(0, h) == 0:
-        raise ValueError(f"{where}: h = {h} does not fit the kernel's "
-                         f"shared memory (B={b}, T={t})")
-    return lib
-
-
 def _empty(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
-def lstm_seq_fwd(x, w, b7, lens, want_c=True):
+def lstm_seq_fwd(x, w, b7, lens, want_c=True, route=None):
     """B5 on the card: (y, c) with `want_c` (training: the backward
-    reads c), else (y, None)."""
+    reads c), else (y, None), on the route of `fwd_plan` (`route` None:
+    the rule)."""
     global lstm_fwd_launches, lstm_fwd_infer_launches
+    global lstm_fwd_cluster_launches, lstm_fwd_infer_cluster_launches
     where = "lstm_seq_fwd"
+    _request(route)
     b, t, h = _check(where, x, 4, lens, w=(w, ("h", "4h")),
                      b7=(b7, ("7h",)))
-    lib = _prepare(LSTM_KERNEL, where, b, t, h)
     y = _empty((b, t, h), x)
     c = _empty((b, t, h), x) if want_c else None
-    _build.launch(lib, "lstm_seq_fwd", "lstm_seq_error_string", x.data_ptr(),
-                  w.data_ptr(), b7.data_ptr(), lens.data_ptr(), y.data_ptr(),
-                  _build.ptr(c), b, t, h, *_build.device_and_stream(x))
+    cluster = _run(LSTM_KERNEL, "fwd", route, x, x.data_ptr(), w.data_ptr(),
+                   b7.data_ptr(), lens.data_ptr(), y.data_ptr(),
+                   _build.ptr(c), b, t, h) == "cluster"
     if want_c:
         lstm_fwd_launches += 1
+        lstm_fwd_cluster_launches += cluster
     else:
         lstm_fwd_infer_launches += 1
+        lstm_fwd_infer_cluster_launches += cluster
     return y, c
 
 
@@ -308,38 +352,38 @@ def lstm_seq_bwd(x, w, b7, lens, y, c, dy, route=None):
     of `bwd_plan` (`route` None: the rule)."""
     global lstm_bwd_launches, lstm_bwd_cluster_launches
     where = "lstm_seq_bwd"
+    _request(route)
     seq = ("B", "T", "h")
     b, t, h = _check(where, x, 4, lens, w=(w, ("h", "4h")),
                      b7=(b7, ("7h",)), y=(y, seq), c=(c, seq), dy=(dy, seq))
-    plan = bwd_plan(LSTM_KERNEL, b, h, x.device, route)
-    lib = _bind(LSTM_KERNEL)
     dx = _empty((b, t, 4 * h), x)
     dw = _empty((h, 4 * h), x)
     db7 = _empty((7 * h,), x)
-    scratch = _empty((lib.lstm_seq_bwd_scratch_floats(b, t, h),), x)
-    _build.launch(lib, "lstm_seq_bwd", "lstm_seq_error_string", x.data_ptr(),
-                  w.data_ptr(), b7.data_ptr(), lens.data_ptr(), y.data_ptr(),
-                  c.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                  db7.data_ptr(), scratch.data_ptr(), b, t, h,
-                  ROUTES.index(plan["route"]), *_build.device_and_stream(x))
+    scratch = _empty(
+        (_bind(LSTM_KERNEL).lstm_seq_bwd_scratch_floats(b, t, h),), x)
+    taken = _run(LSTM_KERNEL, "bwd", route, x, x.data_ptr(), w.data_ptr(),
+                 b7.data_ptr(), lens.data_ptr(), y.data_ptr(), c.data_ptr(),
+                 dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db7.data_ptr(),
+                 scratch.data_ptr(), b, t, h)
     lstm_bwd_launches += 1
-    lstm_bwd_cluster_launches += plan["route"] == "cluster"
+    lstm_bwd_cluster_launches += taken == "cluster"
     return dx, dw, db7
 
 
-def gru_seq_fwd(x, w_g, w_c, b, lens):
-    """B7 on the card: y [B,T,h]."""
-    global gru_fwd_launches
+def gru_seq_fwd(x, w_g, w_c, b, lens, route=None):
+    """B7 on the card: y [B,T,h], on the route of `fwd_plan` (`route`
+    None: the rule)."""
+    global gru_fwd_launches, gru_fwd_cluster_launches
     where = "gru_seq_fwd"
+    _request(route)
     bsz, t, h = _check(where, x, 3, lens, w_g=(w_g, ("h", "2h")),
                        w_c=(w_c, ("h", "h")), b=(b, ("3h",)))
-    lib = _prepare(GRU_KERNEL, where, bsz, t, h)
     y = _empty((bsz, t, h), x)
-    _build.launch(lib, "gru_seq_fwd", "gru_seq_error_string", x.data_ptr(),
-                  w_g.data_ptr(), w_c.data_ptr(), b.data_ptr(),
-                  lens.data_ptr(), y.data_ptr(), bsz, t, h,
-                  *_build.device_and_stream(x))
+    taken = _run(GRU_KERNEL, "fwd", route, x, x.data_ptr(), w_g.data_ptr(),
+                 w_c.data_ptr(), b.data_ptr(), lens.data_ptr(), y.data_ptr(),
+                 bsz, t, h)
     gru_fwd_launches += 1
+    gru_fwd_cluster_launches += taken == "cluster"
     return y
 
 
@@ -348,25 +392,24 @@ def gru_seq_bwd(x, w_g, w_c, b, lens, y, dy, route=None):
     on the route of `bwd_plan` (`route` None: the rule)."""
     global gru_bwd_launches, gru_bwd_cluster_launches
     where = "gru_seq_bwd"
+    _request(route)
     seq = ("B", "T", "h")
     bsz, t, h = _check(where, x, 3, lens, w_g=(w_g, ("h", "2h")),
                        w_c=(w_c, ("h", "h")), b=(b, ("3h",)), y=(y, seq),
                        dy=(dy, seq))
-    plan = bwd_plan(GRU_KERNEL, bsz, h, x.device, route)
-    lib = _bind(GRU_KERNEL)
     dx = _empty((bsz, t, 3 * h), x)
     dw_g = _empty((h, 2 * h), x)
     dw_c = _empty((h, h), x)
     db = _empty((3 * h,), x)
-    scratch = _empty((lib.gru_seq_bwd_scratch_floats(bsz, t, h),), x)
-    _build.launch(lib, "gru_seq_bwd", "gru_seq_error_string", x.data_ptr(),
-                  w_g.data_ptr(), w_c.data_ptr(), b.data_ptr(),
-                  lens.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                  dw_g.data_ptr(), dw_c.data_ptr(), db.data_ptr(),
-                  scratch.data_ptr(), bsz, t, h, ROUTES.index(plan["route"]),
-                  *_build.device_and_stream(x))
+    scratch = _empty(
+        (_bind(GRU_KERNEL).gru_seq_bwd_scratch_floats(bsz, t, h),), x)
+    taken = _run(GRU_KERNEL, "bwd", route, x, x.data_ptr(), w_g.data_ptr(),
+                 w_c.data_ptr(), b.data_ptr(), lens.data_ptr(), y.data_ptr(),
+                 dy.data_ptr(), dx.data_ptr(), dw_g.data_ptr(),
+                 dw_c.data_ptr(), db.data_ptr(), scratch.data_ptr(), bsz, t,
+                 h)
     gru_bwd_launches += 1
-    gru_bwd_cluster_launches += plan["route"] == "cluster"
+    gru_bwd_cluster_launches += taken == "cluster"
     return dx, dw_g, dw_c, db
 
 

@@ -4,11 +4,13 @@ another revision of the same files, the serial floor of the cluster walk,
 and where a call's device time goes.
 
     mkdir -p _archive
-    for f in lstm_seq.cu gru_seq.cu rnn_common.cuh; do
+    for f in lstm_seq.cu gru_seq.cu rnn_common.cuh tf32_mma.cuh; do
       git show <rev>:paddle_tpu_torch/csrc/$f > _archive/$f; done
     python3 rnn_bwd_probe.py _archive
 
-Needs one CUDA card and nvcc. At the two path shapes of `chip_smoke.py`'s
+Needs one CUDA card and nvcc. The other revision's entry points may take
+no route, the route alone, or the route and the route taken
+(`signature`). At the two path shapes of `chip_smoke.py`'s
 phase 10 (the classifier's LSTM layer, B=64, T=100, h=256; the NMT
 encoder's GRU, B=256, T=32, h=256) it prints one `case` JSON line each:
 - the plan of this revision (route, rows a cluster, clusters, and the
@@ -48,8 +50,8 @@ OUT = os.path.join("chiprun_out", "rnn_bwd_probe.txt")
 VARIANTS = {
     # the products of the walk do no arithmetic (their loads neither)
     "no_product": [("rnn_common.cuh",
-                    "for (int c0 = 0; c0 < K; c0 += 8 * SETS)",
-                    "for (int c0 = 0; c0 < 0; c0 += 8 * SETS)")],
+                    "for (int c0 = 8 * SETS * share; c0 < K;",
+                    "for (int c0 = 8 * SETS * share; c0 < 0;")],
     # no cell backward (no exp, tanh, dg)
     "no_cell": [(f, "for (int pr = threadIdx.x; pr < RU && !kSerialFloor; "
                  "pr += NTC) {", "for (int pr = threadIdx.x; pr < 0; "
@@ -68,7 +70,7 @@ VARIANTS = {
          "__device__ __forceinline__ void as_tf32(float x, unsigned& hi, "
          "unsigned& lo) { hi = __float_as_uint(x) & 0xffffe000u; lo = 0u; }"
          "\ninline __host__ __device__ int round8(int n)"),
-        ("rnn_common.cuh", "split_tf32_alu(a[", "as_tf32(a[")],
+        ("rnn_common.cuh", "split_tf32_alu(ap[", "as_tf32(ap[")],
     # dW split for two blocks an SM, not four
     "dw_264_blocks": [("rnn_common.cuh", "DW_TARGET_BLOCKS = 528;",
                        "DW_TARGET_BLOCKS = 264;")],
@@ -118,11 +120,42 @@ def variant_source(src_dir, out_dir, name, subs):
     return d
 
 
-def bind(lib, cell, with_route):
+def signature(lib, cell, kind):
+    """What a build's forward or backward (`kind`) launch entry point
+    takes after B, T, h: "taken" (the route asked for and an int * for
+    the route taken: the revisions with the forward's plan), "route"
+    (the route alone: the backward's, in the revisions with its plan
+    only) or "none" (the walk only)."""
+    if hasattr(lib, f"{cell}_seq_fwd_plan"):
+        return "taken"
+    if kind == "bwd" and hasattr(lib, f"{cell}_seq_bwd_plan"):
+        return "route"
+    return "none"
+
+
+def tail_types(lib, cell, kind):
+    """The argtypes of a launch entry point after its tensors."""
+    i = ctypes.c_int
+    sig = signature(lib, cell, kind)
+    return ([i] * 3 + [i] * (sig != "none")
+            + [ctypes.POINTER(i)] * (sig == "taken") + [i, ctypes.c_void_p])
+
+
+def tail_args(lib, cell, kind, route):
+    """What a launch entry point takes between h and the device: the
+    route and an int * for the route taken, the route, or nothing."""
+    sig = signature(lib, cell, kind)
+    if sig == "none":
+        return ()
+    return (route, ctypes.byref(ctypes.c_int(-1))) if sig == "taken" else (
+        route,)
+
+
+def bind(lib, cell):
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, f"{cell}_seq_bwd")
     fn.argtypes = ([p] * (11 if cell == "lstm" else 12)
-                   + [i] * (5 if with_route else 4) + [p])
+                   + tail_types(lib, cell, "bwd"))
     fn.restype = i
     scr = getattr(lib, f"{cell}_seq_bwd_scratch_floats")
     scr.argtypes, scr.restype = [i] * 3, ctypes.c_longlong
@@ -130,13 +163,14 @@ def bind(lib, cell, with_route):
 
 
 def call(torch, lib, cell, ins, b, t, h, route):
-    """A zero-argument call of `lib`'s backward at `route` (None: the old
-    signature, which has no route) into fresh outputs, and the outputs."""
+    """A zero-argument call of `lib`'s backward at `route` (ignored by a
+    build whose backward has no route) into fresh outputs, and the
+    outputs."""
     outs = [torch.empty_like(r) for r in ins["ref"]]
     floats = getattr(lib, f"{cell}_seq_bwd_scratch_floats")(b, t, h)
     scratch = torch.empty(max(floats, 1), device="cuda")
     ptrs = [a.data_ptr() for a in (*ins["args"], *outs, scratch)]
-    tail = () if route is None else (route,)
+    tail = tail_args(lib, cell, "bwd", route)
     fn = getattr(lib, f"{cell}_seq_bwd")
 
     def run():
@@ -196,8 +230,8 @@ def main() -> int:
                                       os.path.join(d, f"{kern}.cu"),
                                       os.path.join(out_dir, f"{kern}_{v}.so"))
     for _n, cell, _b, _t, _h in CASES:   # this revision, meanwhile
-        bind(_build.load(f"{cell}_seq"), cell, True)
-    libs = {k: bind(finish(st), k[0][:-4], k[1] != "other")
+        bind(_build.load(f"{cell}_seq"), cell)
+    libs = {k: bind(finish(st), k[0][:-4])
             for k, st in builds.items()}
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 5)
     dev = torch.device("cuda")
@@ -228,7 +262,7 @@ def main() -> int:
             names = ("dx", "dw_g", "dw_c", "db")
         plan = rnn.bwd_plan(kern, b, h, x.device)
         fns, outs = {}, {}
-        for k, lib, route in (("other", other, None), ("this", this, -1),
+        for k, lib, route in (("other", other, -1), ("this", this, -1),
                               ("this_walk", this, 0), ("floor", floor, 1)):
             fns[k], outs[k] = call(torch, lib, cell, ins, b, t, h, route)
             fns[k]()

@@ -18,10 +18,10 @@ and through the port's plain versions and autograd Functions:
   (exact up to f32 summation order, 1e-6).
 
 `TestOnCard` (marked `cuda`) holds the four Hopper kernels against
-their plain versions on the card — B6 and B8 on the route their rule
-picks and on the walk, bit-identical on a repeat — pins the width at
-which the cluster route gives way to the walk, and shows that one
-autograd step launches each kernel once. It skips here; on a machine
+their plain versions on the card — each on the route its rule picks
+and on the walk, the cluster route bit-identical on a repeat — pins
+the width at which each kernel's cluster route gives way to the walk,
+and shows that one autograd step launches each kernel once. It skips here; on a machine
 with an H100 and no JAX: `python -m pytest --noconftest -m cuda
 tests/test_torch_rnn.py`.
 """
@@ -200,22 +200,47 @@ def test_entry_points_take_the_plain_versions_on_the_cpu():
     assert [getattr(rnn, c) for c in counters] == before
 
 
-def test_kernel_wrappers_refuse_the_cpu():
+def _kernel_calls(route):
+    """Every kernel wrapper on CPU tensors (h = 4) with `route`."""
     args, dy = _lstm_inputs(h=4)
     x, w = _t(args[:2])
     lens = torch.from_numpy(LENS)
     b7, y = _b7(args), torch.from_numpy(dy)
-    for call in (lambda: rnn.lstm_seq_fwd(x, w, b7, lens),
-                 lambda: rnn.lstm_seq_bwd(x, w, b7, lens, y, y, y)):
-        with pytest.raises(ValueError, match="unsupported device"):
-            call()
     gargs, gdy = _gru_inputs(h=4)
-    g = _t(gargs)
-    with pytest.raises(ValueError, match="unsupported device"):
-        rnn.gru_seq_fwd(*g, lens)
-    with pytest.raises(ValueError, match="unsupported device"):
-        rnn.gru_seq_bwd(*g, lens, torch.from_numpy(gdy),
-                        torch.from_numpy(gdy))
+    g, gy = _t(gargs), torch.from_numpy(gdy)
+    return [lambda: rnn.lstm_seq_fwd(x, w, b7, lens, route=route),
+            lambda: rnn.lstm_seq_fwd(x, w, b7, lens, want_c=False,
+                                     route=route),
+            lambda: rnn.lstm_seq_bwd(x, w, b7, lens, y, y, y, route=route),
+            lambda: rnn.gru_seq_fwd(*g, lens, route=route),
+            lambda: rnn.gru_seq_bwd(*g, lens, gy, gy, route=route)]
+
+
+def test_kernel_wrappers_refuse_the_cpu():
+    for route in (None, "walk", "cluster"):
+        for call in _kernel_calls(route):
+            with pytest.raises(ValueError, match="unsupported device"):
+                call()
+
+
+@pytest.mark.parametrize("route", ["fast", "Cluster", 0])
+def test_unknown_route_is_refused_before_any_build(route, monkeypatch):
+    """A route name that is not one of rnn.ROUTES raises ValueError, on
+    any kernel's wrapper and plan, before a kernel is built or a device
+    is asked."""
+    def no_build(name):
+        raise AssertionError(f"built {name}")
+
+    monkeypatch.setattr(rnn._build, "load", no_build)
+    cuda = torch.device("cuda")
+    calls = _kernel_calls(route) + [
+        lambda: rnn.fwd_plan(kernel, 5, 32, cuda, route=route)
+        for kernel in (rnn.LSTM_KERNEL, rnn.GRU_KERNEL)] + [
+        lambda: rnn.bwd_plan(kernel, 5, 32, cuda, route=route)
+        for kernel in (rnn.LSTM_KERNEL, rnn.GRU_KERNEL)]
+    for call in calls:
+        with pytest.raises(ValueError, match="route must be"):
+            call()
 
 
 # ---- sequence ops ---------------------------------------------------------
@@ -291,14 +316,31 @@ CARD_CASES = {
     # B = 37 is no multiple of the rows a cluster takes
     "ragged_b37_t9_h256": (37, 9, 256, [9, 0, 1] + [(5 * i) % 9 + 1
                                                       for i in range(34)]),
-    # either side of the cluster route's widest h (320)
+    # either side of the cluster routes' widest h (320; B7's 352)
     "b6_t7_h320": (6, 7, 320, None),
     "ragged_b6_t7_h328": (6, 7, 328, [7, 1, 0, 7, 3, 5]),
+    "b5_t6_h352": (5, 6, 352, None),
+    "ragged_b5_t6_h360": (5, 6, 360, [6, 0, 1, 6, 4]),
+    # more clusters than the card holds at once: the cluster routes run
+    # in two waves (WAVE_CASE)
+    "b512_t6_h256": (512, 6, 256, None),
 }
-# the widest h each backward takes on the cluster route: its weight slice
-# and buffers at one batch row a cluster fill a block's 227 KB (csrc
-# lstm_seq.cu / gru_seq.cu WalkSmem); wider h takes the walk
-CLUSTER_MAX_H = {"lstm": 320, "gru": 320}
+WAVE_CASE = "b512_t6_h256"
+# the widest h each kernel takes on the cluster route: its slices of the
+# weights and buffers at one batch row a cluster fill a block's 227 KB
+# (csrc lstm_seq.cu / gru_seq.cu: FwdSmem, WalkSmem); wider h takes the
+# walk
+CLUSTER_MAX_H = {"lstm": 320, "gru": 320}          # B6, B8
+FWD_CLUSTER_MAX_H = {"lstm": 320, "gru": 352}      # B5, B7
+# the launch counters of each kernel: (either route, the cluster route)
+COUNTERS = {
+    ("fwd", "lstm"): ("lstm_fwd_launches", "lstm_fwd_cluster_launches"),
+    ("fwd_infer", "lstm"): ("lstm_fwd_infer_launches",
+                            "lstm_fwd_infer_cluster_launches"),
+    ("bwd", "lstm"): ("lstm_bwd_launches", "lstm_bwd_cluster_launches"),
+    ("fwd", "gru"): ("gru_fwd_launches", "gru_fwd_cluster_launches"),
+    ("bwd", "gru"): ("gru_bwd_launches", "gru_bwd_cluster_launches"),
+}
 
 
 @pytest.mark.cuda
@@ -330,20 +372,24 @@ class TestOnCard:
         x, w, gb, ci, cf, co = (a.cuda() for a in _t(args))
         b7, dy, lens = torch.cat([gb, ci, cf, co]), torch.from_numpy(
             dy).cuda(), self._lens(b, t, lens)
-        y, c = rnn.lstm_seq_fwd(x, w, b7, lens, want_c=True)
-        y_noc, none = rnn.lstm_seq_fwd(x, w, b7, lens, want_c=False)
         yp, cp = rnn.lstm_plain(x, w, gb, ci, cf, co, lens, want_c=True)
-        ref = rnn.lstm_bwd_plain(x, w, b7, lens, yp, cp, dy)
-        torch.cuda.synchronize()
-        assert none is None and torch.equal(y, y_noc)
         dead = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
-        assert (y[dead] == 0).all()
-        for name, a, r in zip(("y", "c"), (y, c), (yp, cp)):
-            assert torch.isfinite(a).all(), name
-            assert self._rel(a, r) <= 1e-4, (name, self._rel(a, r))
-        self._hold_bwd("lstm", h, dead, ("dx", "dw", "db7"), ref,
-                       lambda route: rnn.lstm_seq_bwd(x, w, b7, lens, yp, cp,
-                                                      dy, route=route))
+        y, _c = self._hold("fwd", "lstm", h, dead, ("y", "c"), (yp, cp),
+                           lambda route: rnn.lstm_seq_fwd(
+                               x, w, b7, lens, want_c=True, route=route))
+
+        def infer(route):
+            out = rnn.lstm_seq_fwd(x, w, b7, lens, want_c=False, route=route)
+            assert out[1] is None, "the inference variant returned a c"
+            return out[:1]
+
+        y_noc, = self._hold("fwd_infer", "lstm", h, dead, ("y",), (yp,),
+                            infer)
+        assert torch.equal(y, y_noc)
+        ref = rnn.lstm_bwd_plain(x, w, b7, lens, yp, cp, dy)
+        self._hold("bwd", "lstm", h, dead, ("dx", "dw", "db7"), ref,
+                   lambda route: rnn.lstm_seq_bwd(x, w, b7, lens, yp, cp, dy,
+                                                  route=route))
 
     @pytest.mark.parametrize("case", sorted(CARD_CASES))
     def test_gru_kernels_match_plain(self, case):
@@ -351,43 +397,51 @@ class TestOnCard:
         args, dy = _gru_inputs(b=b, t=t, h=h, w_scale=h ** -0.5)
         x, w_g, w_c, bias = (a.cuda() for a in _t(args))
         dy, lens = torch.from_numpy(dy).cuda(), self._lens(b, t, lens)
-        y = rnn.gru_seq_fwd(x, w_g, w_c, bias, lens)
         yp = rnn.gru_plain(x, w_g, w_c, bias, lens)
-        ref = rnn.gru_bwd_plain(x, w_g, w_c, bias, lens, yp, dy)
-        torch.cuda.synchronize()
         dead = torch.arange(t, device="cuda")[None, :] >= lens[:, None]
-        assert (y[dead] == 0).all()
-        assert torch.isfinite(y).all()
-        assert self._rel(y, yp) <= 1e-4, ("y", self._rel(y, yp))
-        self._hold_bwd("gru", h, dead, ("dx", "dw_g", "dw_c", "db"), ref,
-                       lambda route: rnn.gru_seq_bwd(x, w_g, w_c, bias, lens,
-                                                     yp, dy, route=route))
+        self._hold("fwd", "gru", h, dead, ("y",), (yp,),
+                   lambda route: (rnn.gru_seq_fwd(x, w_g, w_c, bias, lens,
+                                                  route=route),))
+        ref = rnn.gru_bwd_plain(x, w_g, w_c, bias, lens, yp, dy)
+        self._hold("bwd", "gru", h, dead, ("dx", "dw_g", "dw_c", "db"), ref,
+                   lambda route: rnn.gru_seq_bwd(x, w_g, w_c, bias, lens,
+                                                 yp, dy, route=route))
 
-    def _hold_bwd(self, cell, h, dead, names, ref, bwd):
-        """B6 or B8 (`bwd(route)`) against the plain version `ref` on the
-        route the rule picks, which must be the cluster route exactly
-        where h <= CLUSTER_MAX_H, and on the walk: every output within
-        1e-4, dx exactly 0 past len; the cluster route bit-identical on a
-        repeat, launches counted by route."""
-        counts = ("lstm_bwd_launches", "lstm_bwd_cluster_launches") \
-            if cell == "lstm" else ("gru_bwd_launches",
-                                    "gru_bwd_cluster_launches")
+    def _hold(self, kind, cell, h, dead, names, ref, call):
+        """A kernel (`call(route)`, its outputs `names`; `kind` "fwd",
+        "fwd_infer" or "bwd") against the plain version `ref` on the route
+        the rule picks, which must be the cluster route exactly where h <=
+        its FWD_CLUSTER_MAX_H / CLUSTER_MAX_H, and on the walk: every
+        output within 1e-4, the first (y or dx) exactly 0 past len; the
+        cluster route bit-identical on a repeat, launches counted by
+        route; where h is too wide for it, the cluster route refused with
+        nothing counted. Returns the rule's outputs."""
+        counts = COUNTERS[kind, cell]
         kernel = rnn.LSTM_KERNEL if cell == "lstm" else rnn.GRU_KERNEL
         b = ref[0].shape[0]
-        plan = rnn.bwd_plan(kernel, b, h, ref[0].device)
-        cluster = h <= CLUSTER_MAX_H[cell]
+        if kind == "bwd":
+            plan, limit = rnn.bwd_plan, CLUSTER_MAX_H[cell]
+        else:
+            plan, limit = rnn.fwd_plan, FWD_CLUSTER_MAX_H[cell]
+        plan = plan(kernel, b, h, ref[0].device)
+        cluster = h <= limit
         assert plan["route"] == ("cluster" if cluster else "walk"), plan
         before = [getattr(rnn, c) for c in counts]
-        got = bwd(None)
+        got = call(None)
         assert [getattr(rnn, c) for c in counts] == [
             before[0] + 1, before[1] + cluster]
         runs = [(plan["route"], got)]
         if cluster:
-            again = bwd(None)
+            again = call(None)
             torch.cuda.synchronize()
             for name, a, r in zip(names, got, again):
                 assert torch.equal(a, r), f"{name}: a repeat differs"
-            runs.append(("walk", bwd("walk")))
+            runs.append(("walk", call("walk")))
+        else:
+            before = [getattr(rnn, c) for c in counts]
+            with pytest.raises(ValueError, match="the cluster route takes"):
+                call("cluster")
+            assert [getattr(rnn, c) for c in counts] == before
         torch.cuda.synchronize()
         for route, outs in runs:
             for name, a, r in zip(names, outs, ref):
@@ -395,6 +449,15 @@ class TestOnCard:
                 assert self._rel(a, r) <= 1e-4, (route, name,
                                                  self._rel(a, r))
             assert (outs[0][dead] == 0).all(), route
+        return got
+
+    @pytest.mark.parametrize("cell", ["lstm", "gru"])
+    def test_wave_case_takes_more_clusters_than_the_card_holds(self, cell):
+        b, _t, h, _lens = CARD_CASES[WAVE_CASE]
+        kernel = rnn.LSTM_KERNEL if cell == "lstm" else rnn.GRU_KERNEL
+        for plan in (rnn.fwd_plan, rnn.bwd_plan):
+            p = plan(kernel, b, h, torch.device("cuda"))
+            assert p["route"] == "cluster" and p["blocks"] > p["active"], p
 
     def test_autograd_step_launches_each_kernel_once(self):
         lens = torch.from_numpy(LENS).cuda()
@@ -402,14 +465,15 @@ class TestOnCard:
         leaves = [a.cuda().requires_grad_(True) for a in _t(args)]
         gargs, gdy = _gru_inputs()
         gleaves = [a.cuda().requires_grad_(True) for a in _t(gargs)]
-        before = (rnn.lstm_fwd_launches, rnn.lstm_bwd_launches,
-                  rnn.gru_fwd_launches, rnn.gru_bwd_launches)
+        # h = 32: every kernel on the cluster route
+        counters = [c for kind in ("fwd", "bwd") for cell in ("lstm", "gru")
+                    for c in COUNTERS[kind, cell]]
+        before = [getattr(rnn, c) for c in counters]
         rnn.lstm_fused(*leaves, lens).backward(torch.from_numpy(dy).cuda())
         rnn.gru_fused(*gleaves, lens).backward(torch.from_numpy(gdy).cuda())
         torch.cuda.synchronize()
-        assert (rnn.lstm_fwd_launches, rnn.lstm_bwd_launches,
-                rnn.gru_fwd_launches, rnn.gru_bwd_launches) == tuple(
-            n + 1 for n in before)
+        assert [getattr(rnn, c) for c in counters] == [
+            n + 1 for n in before]
         for fn, ls, d in ((rnn.lstm_plain, leaves, dy),
                           (rnn.gru_plain, gleaves, gdy)):
             ref = [a.detach().requires_grad_(True) for a in ls]
