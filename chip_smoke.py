@@ -32,9 +32,12 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    phase 6 (B=32, T=128 full; B=8, T=1024 ragged) and four more (D=32
    with odd T, D=128 cross-attention with q_len, a kv_len=0 row, D=96):
    max |diff| / max |plain| <= 1e-4 for dq, dk and dv, dq of rows with
-   no visible key exactly 0, every value finite; times the kernels, the
-   plain version and the backward of `scaled_dot_product_attention` (a
-   yardstick only: forward+backward minus forward);
+   no visible key and dk, dv of keys past kv_len exactly 0, every value
+   finite, bit-identical on a repeat; times the kernels (CUDA events,
+   and their device time from torch.profiler, which the kernels line
+   gives beside as `device_ms`), the plain version and the backward of
+   `scaled_dot_product_attention` (a yardstick only: forward+backward
+   minus forward) beside their bounds (three TF32 passes, as phase 3's);
 6. trains the Transformer LM at the same width through the port's
    trainer (`SGD.train`, attn_impl="flash", weights from a numpy
    seed): first one train step (`TrainStep`) of the flash conf
@@ -152,7 +155,6 @@ import numpy as np
 
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12
-H100_F32_FLOPS = 67e12
 H100_TF32_FLOPS = 495e12
 TOL = 1e-4
 SEED = 0
@@ -419,6 +421,37 @@ def serve_lm(torch, fa):
     return launches
 
 
+def bwd_bounds(B, Tq, Tk, H, D, pairs, n_lens):
+    """{"bwd" | "dkv" | "dq": (bound ms, "bytes" | "operations")} of the
+    flash backward at one shape with `pairs` visible pairs a head and
+    `n_lens` int32 [B] masks: the larger of each input read once and
+    each output written once over 3.35 TB/s, and its flops as three
+    TF32 passes on the tensor cores (hi*hi + hi*lo + lo*hi) over 495
+    TFLOP/s."""
+    f32 = 4
+    qo = B * Tq * H * D * f32          # one [B, Tq, H, D] tensor
+    kv = B * Tk * H * D * f32          # one [B, Tk, H, D] tensor
+    rows = B * H * Tq * f32            # lse or delta
+    lens = f32 * B * n_lens
+
+    def bound(flops_per_pair, nbytes):
+        t_ops = 3 * flops_per_pair * D * H * pairs / H100_TF32_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    return {
+        # the whole backward: recomputed QK^T, dV, dP, dQ, dK (2 flops
+        # per MAC each); q, k, v, out, dO and lse read, dq, dk, dv written
+        "bwd": bound(10, 4 * qo + 4 * kv + rows + lens),
+        # dkv: QK^T, dP, dV, dK; q, k, v, dO, lse, delta read, dk, dv
+        # written
+        "dkv": bound(8, 2 * qo + 2 * kv + 2 * rows + 2 * kv + lens),
+        # dq: QK^T, dP, dQ; q, k, v, dO, lse, delta read, dq written
+        "dq": bound(6, 2 * qo + 2 * kv + 2 * rows + qo + lens),
+    }
+
+
 def check_backward(torch, fa, case, gen):
     """Backward kernels vs attention_bwd_plain on the card at one shape;
     returns the case's numbers."""
@@ -433,10 +466,17 @@ def check_backward(torch, fa, case, gen):
     kw = dict(causal=case["causal"], kv_len=kv_len, q_len=q_len)
     out, lse = fa.flash_attention(q, k, v, **kw)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     ref = fa.attention_bwd_plain(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+        f"{case['name']}: backward kernels not bit-identical on a repeat")
     errs = {n: rel_err(g, r) for n, g, r in zip(("dq", "dk", "dv"), got,
                                                  ref)}
+    for b, n in enumerate(case.get("kv_len") or []):
+        assert bool((got[1][b, n:] == 0).all().item()
+                    and (got[2][b, n:] == 0).all().item()), (
+            f"{case['name']}: dk, dv of keys past kv_len not exactly 0")
     dead = (lse >= fa.LSE_MASKED).permute(0, 2, 1)          # [B, Tq, H]
     n_dead = int(dead.sum().item())
     if case.get("expect_dead"):
@@ -450,10 +490,20 @@ def check_backward(torch, fa, case, gen):
             f"{errs[n][0]:.3g} > {TOL}")
 
     delta = torch.einsum("bqhd,bqhd->bhq", do, out).contiguous()
-    dkv_ms = time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
-        q, k, v, do, lse, delta, **kw))
-    dq_ms = time_ms(torch, lambda: fa.flash_attention_bwd_dq(
-        q, k, v, do, lse, delta, **kw))
+
+    def dkv():
+        fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+
+    def dq():
+        fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+
+    dkv_ms = time_ms(torch, dkv)
+    dq_ms = time_ms(torch, dq)
+    # the kernels' own device time: where a call's host work outlasts
+    # its kernel (LM (a)'s shape), back-to-back calls time the host
+    device_ms = {
+        n: profile_fn(torch, fn, steps=20)["port_kernels_ms_per_step"][
+            f"B4b flash_attn_bwd_{n}"] for n, fn in (("dkv", dkv), ("dq", dq))}
     bwd_ms = time_ms(torch, lambda: fa.flash_attention_bwd(
         q, k, v, out, lse, do, **kw))
     fwd_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw))
@@ -479,30 +529,17 @@ def check_backward(torch, fa, case, gen):
 
     pairs = visible_pairs(B, Tq, Tk, case["causal"], case.get("kv_len"),
                           case.get("q_len"))
-    f32 = 4
-    qo = B * Tq * H * D * f32          # one [B, Tq, H, D] tensor
-    kv = B * Tk * H * D * f32          # one [B, Tk, H, D] tensor
-    rows = B * H * Tq * f32            # lse or delta
-    lens = f32 * B * ((kv_len is not None) + (q_len is not None))
-
-    def bound(flops_per_pair, nbytes):
-        t_ops = flops_per_pair * D * H * pairs / H100_F32_FLOPS * 1e3
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-
-    # the whole backward: recomputed QK^T, dV, dP, dQ, dK (2 flops per
-    # MAC each); q, k, v, out, dO and lse read, dq, dk, dv written
-    bwd_bound = bound(10, 4 * qo + 4 * kv + rows + lens)
-    # dkv: QK^T, dP, dV, dK; q, k, v, dO, lse, delta read, dk, dv written
-    dkv_bound = bound(8, 2 * qo + 2 * kv + 2 * rows + 2 * kv + lens)
-    # dq: QK^T, dP, dQ; q, k, v, dO, lse, delta read, dq written
-    dq_bound = bound(6, 2 * qo + 2 * kv + 2 * rows + qo + lens)
+    bounds = bwd_bounds(B, Tq, Tk, H, D, pairs,
+                        (kv_len is not None) + (q_len is not None))
+    bwd_bound, dkv_bound, dq_bound = (bounds[n] for n in ("bwd", "dkv",
+                                                            "dq"))
     res = {
         "name": case["name"], "masked_rows": n_dead,
         "rel_err": {n: e[0] for n, e in errs.items()},
         "max_abs_err": {n: e[1] for n, e in errs.items()},
-        "dkv_ms": dkv_ms, "dq_ms": dq_ms, "bwd_ms": bwd_ms,
+        "dkv_ms": dkv_ms, "dq_ms": dq_ms,
+        "dkv_device_ms": device_ms["dkv"], "dq_device_ms": device_ms["dq"],
+        "bwd_ms": bwd_ms,
         "fwd_ms": fwd_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
         "dkv_bound_ms": dkv_bound[0], "dkv_bound_by": dkv_bound[1],
@@ -2447,6 +2484,9 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"][n] for r in bwd
                                for n in key),
             "ms": train[f"{kernel}_ms"],
+            # the kernel's own time from torch.profiler (ms, like every
+            # row's, is CUDA events over calls through the wrapper)
+            "device_ms": train[f"{kernel}_device_ms"],
             "plain_ms": train["plain_ms"],
             "bound_ms": train[f"{kernel}_bound_ms"],
             "bound_by": train[f"{kernel}_bound_by"],

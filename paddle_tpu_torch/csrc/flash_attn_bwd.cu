@@ -1,4 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), f32: two kernels, dkv and dq.
+// Flash-attention backward for Hopper (sm_90a), f32 accuracy on the tensor
+// cores: two kernels, dkv and dq.
 //
 // Replaces the TPU kernels behind paddle_tpu/parallel/ring.py::_pallas_flash's
 // gradient (jax.experimental.pallas.ops.tpu.flash_attention: the dkv and dq
@@ -16,65 +17,247 @@
 // forward's masks, tested explicitly (never through exp of a huge negative).
 // A row with no visible key (lse = 1e30) has every p = 0, so its dq is 0 and
 // it adds nothing to dk/dv. A padded query row of self-attention still sees
-// the valid keys and is handled like any other row (its dout is 0).
+// the valid keys and is handled like any other row (its dout is 0). dk and dv
+// of a key at or past kv_len, and dq of a row at or past q_len, are written
+// as exact zeros.
 //
-// Design (right and simple first). The split mirrors the library's: the dkv
-// kernel owns a 64-key tile and walks the query tiles that can see it; the dq
-// kernel owns a 64-query tile and walks the key tiles it can see. Each output
-// has exactly one writer, so there are no atomics and the result is
-// deterministic. Both use the forward's thread layout: 256 threads, four per
-// row, each holding a quarter of the row as interleaved float4 chunks so the
-// four read consecutive shared-memory words; dot products are quad reductions
-// (two xor shuffles). The walked tiles are staged in shared memory; the
-// accumulators (dk and dv, or dq) stay in registers. f32 FMA on the CUDA
-// cores. Tensor cores, TMA and a persistent schedule are later work.
+// What bounds it on one H100 SXM: 10*D*H flops a visible (query, key) pair
+// for the whole backward (S = Q.K^T and dP = dO.V^T recomputed, dV, dK, dQ),
+// run as three TF32 passes on the tensor cores (495 TFLOP/s dense). At LM
+// training's long shape (B=8, T=1024, H=4, D=64, causal, ragged kv_len, ~2.69
+// M visible pairs a head) that is ~0.033 ms for dkv (8*D*H a pair) and ~0.025
+// ms for dq (6*D*H), about twice the time of their bytes at 3.35 TB/s; at the
+// short shape (B=32, T=128) the bytes bound both.
 //
-// Bound at the training shape (B=32, H=4, T=128, D=64, causal) on one H100
-// SXM: 10*D*H flops per visible pair (the recomputed QK^T, dP, dV, dQ, dK),
-// ~0.68 GFLOP, ~10.1 us at the 67 TFLOP/s f32 CUDA-core rate; q, k, v, out,
-// dout, dq, dk, dv and lse ~33.6 MB, ~10.0 us at 3.35 TB/s — the two bounds
-// meet there; at T=1024 operations bound it. Each pair's score and dP are
-// recomputed in both kernels, so this design does 14*D*H flops per pair,
-// 1.4x the bound's operations.
+// Design:
+// - dkv: one block per (h, b, 64-key tile), a warp owning 16 keys as the M
+//   rows of its mma tiles. The tile's K and V stay in shared memory for the
+//   whole walk; the block walks the 64-query tiles that can see its keys,
+//   Q, dO, lse and delta arriving through a two-stage cp.async ring
+//   (zero-filled past Tq). Per query tile: S^T = K.Q^T and dP^T = V.dO^T
+//   with B = Q or dO as it lies (D contiguous a query); P^T and dS^T on the
+//   accumulator fragments; then dV += P^T.dO and dK += dS^T.Q with A taken
+//   straight from the registers that held S^T and dP^T: their accumulator
+//   holds queries (2t, 2t+1) of keys g and g+8, and the A fragment wants
+//   k = t and t+4, so inside each group of 8 queries k = t stands for query
+//   2t and k = t+4 for query 2t+1, and dO's and Q's B fragments are read at
+//   the same permuted rows (B4f's permutation). At D <= 64 four warps own
+//   the 64 keys; at D = 96 and 128 a warp's dK and dV (2 x 16 x D sums)
+//   would not fit its registers beside S^T and dP^T, so two groups of four
+//   warps own the same keys, each summing half of dK's and dV's columns,
+//   and each forms S^T and dP^T in full (1.5x the products; no spill).
+// - dq: one block per (h, b, 64-query tile), a warp owning 16 query rows, Q
+//   and dO in shared memory, K and V through the ring. Per key tile: S =
+//   Q.K^T, dP = dO.V^T, P, dS, then dQ += dS.K with A = dS from registers,
+//   permuted, and B = the same K tile at the permuted rows. The walk stops
+//   at the tile's last visible key.
+// - Walk groups: where a walk reaches KG_MIN_WALK tiles (and D <= 64, for
+//   shared memory), two groups of warps take its tiles in turn, each with
+//   its own sums, added in order at the end. With causal masks the first
+//   key tile's dkv walk and the last query tile's dq walk are the grid's
+//   longest chains (16 tiles at T = 1024, against ~11 tile visits a block
+//   slot on average at LM training's long shape); halving them took dkv
+//   20% and dq 9% off there. At T = 128 (2-tile walks) two groups were
+//   6-13% slower: one block an SM instead of two.
+// - Every operand stays f32 in shared memory and is split into TF32 hi/lo
+//   as its fragment is read. Splitting the block's own two operands once
+//   into hi/lo planes (twice their shared memory) was measured against
+//   this on one H100 (flash_bwd_probe.py): at D = 64 the planes leave room
+//   for one block an SM, the f32 tiles for two, and two were 22-24% faster
+//   at LM training's short shape (a grid of 256 blocks), 11% faster for dq
+//   and 4% slower for dkv at its long one.
+// - 3xTF32 on mma.sync m16n8k8 (tf32_mma.cuh): hi*hi' + hi*lo' + lo*hi',
+//   small terms first; every split by integer ops (split_tf32_alu), not cvt,
+//   which runs at a quarter rate (cvt was 26-30% slower at D = 64, 2.4-3.6x
+//   at D = 128). Shared rows are padded to D+4 floats, so the fragment reads
+//   of both patterns are free of bank conflicts.
+// - The mask is tested a pair only on tiles that cross the diagonal, kv_len
+//   or q_len; elsewhere every pair is visible.
+// - Each walked tile's contribution to dK, dV or dQ goes into a fresh
+//   accumulator that is added to the running sum in round-to-nearest f32:
+//   the tensor cores' truncating adds never chain over more than one tile (a
+//   key's dK sums over 16 query tiles at T = 1024).
+// - The grid puts the tile axis slowest and, when causal, dispatches the
+//   heaviest tiles first: dkv's low key tiles, dq's high query tiles.
+// - Why dq is not fused into dkv: a fused kernel (FlashAttention-2's) adds
+//   each key tile's dS.K into dq with atomics, whose order changes from run
+//   to run. Two kernels give every output one writer, so the result is
+//   bit-identical from run to run, at the price of S and dP computed in both
+//   (14*D*H flops a pair against the bound's 10).
 
 #include <cuda_runtime.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int BLOCK = 64;              // rows per tile, queries and keys
-constexpr int QUAD = 4;                // threads per row
-constexpr int THREADS = BLOCK * QUAD;  // 256
+constexpr int BLOCK = 64;               // rows of a block's and a walked tile
+constexpr int WARPS = BLOCK / 16;       // a warp owns 16 of the block's rows
+constexpr int THREADS = 32 * WARPS;     // 128 (dkv: a column group's)
+constexpr int STAGES = 2;               // walked tiles in flight
+constexpr int NT = BLOCK / 8;           // mma n-tiles over a walked tile
 
-__device__ __forceinline__ float4 zero4() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
+template <int D>
+struct Cfg {
+  static constexpr int LD = D + 4;        // row stride of every shared tile
+  static constexpr int TILE = BLOCK * LD;
+  // dkv's groups of WARPS warps owning the same keys, each summing D / CG
+  // of dK's and dV's columns (registers)
+  static constexpr int CG = D <= 64 ? 1 : 2;
+  static constexpr int DKV_THREADS = THREADS * CG;
+  // walk groups a block may take: two only where their rings fit
+  static constexpr int KG_MAX = D <= 64 ? 2 : 1;
+  // a stage: the two walked tiles, and for dkv the tile's lse and delta
+  static constexpr int STAGE_DKV = 2 * TILE + 2 * BLOCK;
+  static constexpr int STAGE_DQ = 2 * TILE;
+  // the block's own two tiles, then the ring (KG tiles a stage)
+  static constexpr size_t dkv_bytes(int kg) {
+    return sizeof(float) * (2 * TILE + STAGES * kg * STAGE_DKV);
+  }
+  static constexpr size_t dq_bytes(int kg) {
+    return sizeof(float) * (2 * TILE + STAGES * kg * STAGE_DQ);
+  }
+};
+
+// A walk of at least this many tiles is taken by two groups of warps in
+// turn (group g tiles g, g + 2, ...), each with its own sums, added in
+// order at the end: with causal masks the first key tile's dkv walk (the
+// last query tile's dq walk) is the longest chain of the grid, and two
+// groups halve it.
+constexpr int KG_MIN_WALK = 3;
+
+// groups 1.. of a block's KG walk groups hand their N sums a thread to group
+// 0 through shared memory `x` ([value][thread of a group]), and group 0 adds
+// them to its own in order; returns false for the threads of groups 1..
+template <int KG, int GT, int N>
+__device__ __forceinline__ bool merge_groups(float (&sum)[N][4], float* x) {
+  if (KG == 1) return true;
+  const int grp = threadIdx.x / GT, me = threadIdx.x % GT;
+  __syncthreads();                     // every group is done with x
+  if (grp > 0) {
+    float* c = x + (grp - 1) * 4 * N * GT;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[(4 * n + e) * GT + me] = sum[n][e];
+  }
+  __syncthreads();
+  if (grp > 0) return false;
+#pragma unroll
+  for (int k = 1; k < KG; ++k) {
+    const float* c = x + (k - 1) * 4 * N * GT;
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sum[n][e] = __fadd_rn(sum[n][e], c[(4 * n + e) * GT + me]);
+  }
+  return true;
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+template <int N>
+__device__ __forceinline__ void zero_acc(float (&a)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[n][c] = 0.f;
 }
 
-__device__ __forceinline__ void axpy4(float a, float4 x, float4& y) {
-  y.x = fmaf(a, x.x, y.x);
-  y.y = fmaf(a, x.y, y.y);
-  y.z = fmaf(a, x.z, y.z);
-  y.w = fmaf(a, x.w, y.w);
+// acc[n] (16 x 8 each, NT of them) += A.B^T over the D columns: A the warp's
+// 16 rows (from row `rw`) of the block's tile `a`, B the rows 8n + g of the
+// walked tile `bt` as they lie (D contiguous a row)
+template <int D>
+__device__ __forceinline__ void product_abt(float (&acc)[1][NT][4],
+                                            const float* a, int rw,
+                                            const float* bt) {
+  constexpr int LD = Cfg<D>::LD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 8) {
+    unsigned ahi[1][4], alo[1][4], bhi[NT][2], blo[NT][2];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)   // (row g + 8 (x & 1), col t + 4 (x >> 1))
+      split_tf32_alu(a[(rw + g + 8 * (x & 1)) * LD + kk + t + 4 * (x >> 1)],
+                     ahi[0][x], alo[0][x]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int x = 0; x < 2; ++x)   // row 8n + g, col kk + t + 4x
+        split_tf32_alu(bt[(8 * n + g) * LD + kk + t + 4 * x], bhi[n][x],
+                       blo[n][x]);
+    mma3_step<1, NT>(acc, ahi, alo, bhi, blo);
+  }
 }
 
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+// sum[n] += A.B over the 64 rows of a walked tile, for NC column tiles from
+// column tile c0, DH of them a pass, each pass into a fresh accumulator
+// added in round-to-nearest: A is the accumulator of an S-shaped product
+// (rows g, g + 8; columns 2t, 2t + 1 of each group of 8), read as the A
+// fragment with k = t for column 2t and k = t + 4 for 2t + 1, so B is read
+// at the same permuted rows of `bt`
+template <int D, int NC>
+__device__ __forceinline__ void product_ab(float (&sum)[NC][4],
+                                           const float (&a)[1][NT][4],
+                                           const float* bt, int c0) {
+  constexpr int LD = Cfg<D>::LD;
+  constexpr int DH = NC <= 8 ? NC : NC / 2;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int d0 = 0; d0 < NC; d0 += DH) {
+    float acc[1][DH][4];
+    zero_acc(acc[0]);
+#pragma unroll
+    for (int kg = 0; kg < NT; ++kg) {
+      unsigned ahi[1][4], alo[1][4], bhi[DH][2], blo[DH][2];
+      split_tf32_alu(a[0][kg][0], ahi[0][0], alo[0][0]);
+      split_tf32_alu(a[0][kg][2], ahi[0][1], alo[0][1]);
+      split_tf32_alu(a[0][kg][1], ahi[0][2], alo[0][2]);
+      split_tf32_alu(a[0][kg][3], ahi[0][3], alo[0][3]);
+#pragma unroll
+      for (int n = 0; n < DH; ++n)
+#pragma unroll
+        for (int x = 0; x < 2; ++x)   // row 8kg + 2t + x, col 8(c0+d0+n) + g
+          split_tf32_alu(bt[(8 * kg + 2 * t + x) * LD + 8 * (c0 + d0 + n) + g],
+                         bhi[n][x], blo[n][x]);
+      mma3_step<1, DH>(acc, ahi, alo, bhi, blo);
+    }
+#pragma unroll
+    for (int n = 0; n < DH; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        sum[d0 + n][c] = __fadd_rn(sum[d0 + n][c], acc[0][n][c]);
+  }
+}
+
+// rows r (fragment rows g, g + 8) of a warp's [16][8 NC] sum into out
+// [*, ld] at row `row[r]` (skipped at or past `rows`, zeros at or past
+// `live`)
+template <int NC>
+__device__ __forceinline__ void store_rows(float* __restrict__ out, int ld,
+                                           const float (&sum)[NC][4],
+                                           const int (&row)[2], int rows,
+                                           int live) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= rows) continue;
+    float* o = out + (size_t)row[r] * ld;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      float2 x = make_float2(0.f, 0.f);
+      if (row[r] < live) x = make_float2(sum[n][2 * r], sum[n][2 * r + 1]);
+      *reinterpret_cast<float2*>(o + 8 * n + 2 * t) = x;
+    }
+  }
 }
 
 __device__ __forceinline__ int clamp_len(const int* len, int b, int t) {
   return len ? min(max(len[b], 0), t) : t;
 }
 
-// One block per (b, h, 64-key tile): dk and dv of the tile's keys.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// One block per (h, b, 64-key tile): dk and dv of the tile's keys.
+template <int D, int KG>
+__global__ void __launch_bounds__(Cfg<D>::DKV_THREADS * KG)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ dout,
@@ -83,104 +266,118 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float* __restrict__ dv, const int* __restrict__ kv_len,
                      const int* __restrict__ q_len, int Tq, int Tk, int H,
                      int causal, float scale) {
-  constexpr int D4 = D / 4;      // float4 per row
-  constexpr int C = D4 / QUAD;   // float4 chunks per thread
-  extern __shared__ float4 smem[];
-  float4* qs = smem;                  // [BLOCK][D4]
-  float4* dos = smem + BLOCK * D4;    // [BLOCK][D4]
-  __shared__ float lse_s[BLOCK];
-  __shared__ float delta_s[BLOCK];
+  using C = Cfg<D>;
+  constexpr int LD = C::LD, GT = C::DKV_THREADS, THR = GT * KG;
+  constexpr int NC = D / 8 / C::CG;    // a warp's column tiles of dK and dV
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                    // the tile's K, V
+  float* vs = smem + C::TILE;
+  float* ring = smem + 2 * C::TILE;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int k0 = blockIdx.x * BLOCK;
-  const int tid = threadIdx.x;
-  const int row = tid / QUAD;
-  const int lane = tid % QUAD;   // owns chunks lane + QUAD * i
-  const int kj = k0 + row;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BLOCK;   // low key tiles, the heaviest, first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = threadIdx.x / GT;    // the warp's walk group
+  const int wg = warp % (GT / 32);     // its warp within the group
+  const int rw = (wg % WARPS) * 16;    // its first key of the tile
+  const int c0 = (wg / WARPS) * NC;    // ... and its first column tile
+  const int key[2] = {k0 + rw + g, k0 + rw + g + 8};
 
   const int klen = clamp_len(kv_len, b, Tk);
   const int qlen = clamp_len(q_len, b, Tq);
-  const bool key_live = kj < klen;
   // queries that may see a key of this tile: causal ones start at the
   // tile's first key (k0 is a multiple of BLOCK, so a tile boundary)
   const int qbeg = causal ? k0 : 0;
   const int qend = k0 < klen ? qlen : 0;
+  const int ntiles = qbeg < qend ? (qend - qbeg + BLOCK - 1) / BLOCK : 0;
+  const int nsets = (ntiles + KG - 1) / KG;   // KG query tiles a set
 
-  float4 kr[C], vr[C], dk_acc[C], dv_acc[C];
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    kr[i] = zero4();
-    vr[i] = zero4();
-    dk_acc[i] = zero4();
-    dv_acc[i] = zero4();
-    if (kj < Tk) {
-      const size_t off = ((size_t)(b * Tk + kj) * H + h) * D;
-      kr[i] = reinterpret_cast<const float4*>(k + off)[lane + QUAD * i];
-      vr[i] = reinterpret_cast<const float4*>(v + off)[lane + QUAD * i];
+  const int ld = H * D;                // a token's row in q, k, v, dout
+  const size_t kvb = ((size_t)b * Tk * H + h) * D;
+  const float* qb = q + ((size_t)b * Tq * H + h) * D;
+  const float* dob = dout + ((size_t)b * Tq * H + h) * D;
+  const float* lseb = lse + ((size_t)b * H + h) * Tq;
+  const float* deltab = delta + ((size_t)b * H + h) * Tq;
+  auto load = [&](int j) {   // set j's query tiles: Q, dO, lse, delta
+    for (int x = 0; x < KG && j * KG + x < ntiles; ++x) {
+      float* st = ring + ((j % STAGES) * KG + x) * C::STAGE_DKV;
+      const int i0 = qbeg + (j * KG + x) * BLOCK;
+      load_window<BLOCK, D, 4, THR>(st, LD, qb, ld, i0, Tq, 0, D);
+      load_window<BLOCK, D, 4, THR>(st + C::TILE, LD, dob, ld, i0, Tq, 0, D);
+      load_window<1, BLOCK, 1, THR>(st + 2 * C::TILE, 0, lseb, 0, 0, 1, i0,
+                                    Tq);
+      load_window<1, BLOCK, 1, THR>(st + 2 * C::TILE + BLOCK, 0, deltab, 0,
+                                    0, 1, i0, Tq);
     }
-  }
+  };
+  // the tile's K and V (keys at or past kv_len: zeros), with query set 0
+  load_window<BLOCK, D, 4, THR>(ks, LD, k + kvb, ld, k0, klen, 0, D);
+  load_window<BLOCK, D, 4, THR>(vs, LD, v + kvb, ld, k0, klen, 0, D);
+  if (nsets > 0) load(0);
+  cp_async_commit();
 
-  for (int i0 = qbeg; i0 < qend; i0 += BLOCK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int idx = tid; idx < BLOCK * D4; idx += THREADS) {
-      const int r = idx / D4;
-      const int c = idx % D4;
-      const int t = i0 + r;
-      float4 qq = zero4(), dd = zero4();
-      if (t < Tq) {
-        const size_t off = ((size_t)(b * Tq + t) * H + h) * D;
-        qq = reinterpret_cast<const float4*>(q + off)[c];
-        dd = reinterpret_cast<const float4*>(dout + off)[c];
+  float dks[NC][4], dvs[NC][4];        // the warp's part of dk, dv
+  zero_acc(dks);
+  zero_acc(dvs);
+
+  for (int j = 0; j < nsets; ++j) {
+    __syncthreads();                   // every warp is done with set j - 1
+    if (j + 1 < nsets) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                   // set j (and K, V) visible to all
+    const int tile_j = j * KG + grp;   // this warp's query tile of the set
+    if (tile_j >= ntiles) continue;
+    const float* qt = ring + ((j % STAGES) * KG + grp) * C::STAGE_DKV;
+    const float* dot = qt + C::TILE;
+    const float* lst = qt + 2 * C::TILE;
+    const float* dlt = lst + BLOCK;
+    const int i0 = qbeg + tile_j * BLOCK;
+    const bool masked = !(k0 + BLOCK <= klen && i0 + BLOCK <= qlen &&
+                          (!causal || k0 + BLOCK - 1 <= i0));
+
+    // S^T = K.Q^T and dP^T = V.dO^T: the warp's 16 keys x the tile's queries
+    float s[1][NT][4], dp[1][NT][4];
+    zero_acc(s[0]);
+    zero_acc(dp[0]);
+    product_abt<D>(s, ks, rw, qt);
+    product_abt<D>(dp, vs, rw, dot);
+
+    // P^T and dS^T in place: (key g + 8 (c >> 1), query 8n + 2t + (c & 1))
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int qc = 8 * n + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lst + qc);
+      const float2 d2 = *reinterpret_cast<const float2*>(dlt + qc);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float p = expf(s[0][n][c] * scale - ((c & 1) ? l2.y : l2.x));
+        if (masked) {
+          const int qi = i0 + qc + (c & 1), kj = key[c >> 1];
+          if (!(kj < klen && qi < qlen && (!causal || kj <= qi))) p = 0.f;
+        }
+        s[0][n][c] = p;
+        dp[0][n][c] = p * (dp[0][n][c] - ((c & 1) ? d2.y : d2.x)) * scale;
       }
-      qs[idx] = qq;
-      dos[idx] = dd;
     }
-    if (tid < BLOCK) {
-      const int t = i0 + tid;
-      const size_t off = ((size_t)b * H + h) * Tq + t;
-      lse_s[tid] = t < Tq ? lse[off] : 1e30f;
-      delta_s[tid] = t < Tq ? delta[off] : 0.f;
-    }
-    __syncthreads();
 
-    const int rend = min(BLOCK, qend - i0);
-    for (int r = 0; r < rend; ++r) {
-      const int qi = i0 + r;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        s = dot4(kr[i], qs[r * D4 + lane + QUAD * i], s);
-        dp = dot4(vr[i], dos[r * D4 + lane + QUAD * i], dp);
-      }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
-      const bool ok = key_live && (!causal || kj <= qi);
-      const float p = ok ? expf(s * scale - lse_s[r]) : 0.f;
-      const float ds = p * (dp - delta_s[r]) * scale;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        axpy4(p, dos[r * D4 + lane + QUAD * i], dv_acc[i]);
-        axpy4(ds, qs[r * D4 + lane + QUAD * i], dk_acc[i]);
-      }
-    }
+    // dV += P^T.dO and dK += dS^T.Q over the tile's queries
+    product_ab<D, NC>(dvs, s, dot, c0);
+    product_ab<D, NC>(dks, dp, qt, c0);
   }
+  cp_async_wait<0>();
 
-  if (kj < Tk) {
-    const size_t off = ((size_t)(b * Tk + kj) * H + h) * D;
-    float4* dko = reinterpret_cast<float4*>(dk + off);
-    float4* dvo = reinterpret_cast<float4*>(dv + off);
-#pragma unroll
-    for (int i = 0; i < C; ++i) {
-      dko[lane + QUAD * i] = dk_acc[i];
-      dvo[lane + QUAD * i] = dv_acc[i];
-    }
-  }
+  const bool lead = merge_groups<KG, GT>(dks, ring);
+  merge_groups<KG, GT>(dvs, ring);
+  if (!lead) return;
+  store_rows<NC>(dk + kvb + 8 * c0, ld, dks, key, Tk, klen);
+  store_rows<NC>(dv + kvb + 8 * c0, ld, dvs, key, Tk, klen);
 }
 
-// One block per (b, h, 64-query tile): dq of the tile's queries.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+// One block per (h, b, 64-query tile): dq of the tile's queries.
+template <int D, int KG>
+__global__ void __launch_bounds__(THREADS * KG)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
@@ -189,101 +386,156 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const int* __restrict__ kv_len,
                     const int* __restrict__ q_len, int Tq, int Tk, int H,
                     int causal, float scale) {
-  constexpr int D4 = D / 4;
-  constexpr int C = D4 / QUAD;
-  extern __shared__ float4 smem[];
-  float4* ks = smem;                  // [BLOCK][D4]
-  float4* vs = smem + BLOCK * D4;     // [BLOCK][D4]
+  using C = Cfg<D>;
+  constexpr int LD = C::LD, DT = D / 8, THR = THREADS * KG;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                    // the tile's Q, dO
+  float* dos = smem + C::TILE;
+  float* ring = smem + 2 * C::TILE;
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * BLOCK;
-  const int tid = threadIdx.x;
-  const int row = tid / QUAD;
-  const int lane = tid % QUAD;
-  const int qi = q0 + row;
+  const int h = blockIdx.x, b = blockIdx.y;
+  // high query tiles, the heaviest when causal, first
+  const int tile = causal ? (int)gridDim.z - 1 - (int)blockIdx.z
+                          : (int)blockIdx.z;
+  const int q0 = tile * BLOCK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = threadIdx.x / THREADS;   // the warp's walk group
+  const int rw = (warp % WARPS) * 16;  // its first row of the tile
+  const int qi[2] = {q0 + rw + g, q0 + rw + g + 8};
 
   const int klen = clamp_len(kv_len, b, Tk);
   const int qlen = clamp_len(q_len, b, Tq);
-  const bool row_live = qi < qlen;
   // keys any row of this tile may see
   int kend = klen;
   if (causal) kend = min(kend, q0 + BLOCK);
   if (q0 >= qlen) kend = 0;
+  const int ntiles = (kend + BLOCK - 1) / BLOCK;
+  const int nsets = (ntiles + KG - 1) / KG;   // KG key tiles a set
 
-  float4 qr[C], dor[C], acc[C];
-  float row_lse = 1e30f, row_delta = 0.f;
-#pragma unroll
-  for (int i = 0; i < C; ++i) {
-    qr[i] = zero4();
-    dor[i] = zero4();
-    acc[i] = zero4();
-    if (qi < Tq) {
-      const size_t off = ((size_t)(b * Tq + qi) * H + h) * D;
-      qr[i] = reinterpret_cast<const float4*>(q + off)[lane + QUAD * i];
-      dor[i] = reinterpret_cast<const float4*>(dout + off)[lane + QUAD * i];
+  const int ld = H * D;
+  const size_t qdb = ((size_t)b * Tq * H + h) * D;
+  const float* kb = k + ((size_t)b * Tk * H + h) * D;
+  const float* vb = v + ((size_t)b * Tk * H + h) * D;
+  auto load = [&](int j) {   // set j's key tiles: K, V (zeros past kv_len)
+    for (int x = 0; x < KG && j * KG + x < ntiles; ++x) {
+      float* st = ring + ((j % STAGES) * KG + x) * C::STAGE_DQ;
+      const int k0 = (j * KG + x) * BLOCK;
+      load_window<BLOCK, D, 4, THR>(st, LD, kb, ld, k0, klen, 0, D);
+      load_window<BLOCK, D, 4, THR>(st + C::TILE, LD, vb, ld, k0, klen, 0,
+                                    D);
     }
-  }
-  if (qi < Tq) {
-    const size_t off = ((size_t)b * H + h) * Tq + qi;
-    row_lse = lse[off];
-    row_delta = delta[off];
+  };
+  // the tile's Q and dO (rows past Tq: zeros), with key set 0
+  load_window<BLOCK, D, 4, THR>(qs, LD, q + qdb, ld, q0, Tq, 0, D);
+  load_window<BLOCK, D, 4, THR>(dos, LD, dout + qdb, ld, q0, Tq, 0, D);
+  if (nsets > 0) load(0);
+  cp_async_commit();
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t at = ((size_t)b * H + h) * Tq + qi[r];
+    row_lse[r] = qi[r] < Tq ? lse[at] : 1e30f;
+    row_delta[r] = qi[r] < Tq ? delta[at] : 0.f;
   }
 
-  for (int k0 = 0; k0 < kend; k0 += BLOCK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int idx = tid; idx < BLOCK * D4; idx += THREADS) {
-      const int j = idx / D4;
-      const int c = idx % D4;
-      const int t = k0 + j;
-      float4 kk = zero4(), vv = zero4();
-      if (t < klen) {
-        const size_t off = ((size_t)(b * Tk + t) * H + h) * D;
-        kk = reinterpret_cast<const float4*>(k + off)[c];
-        vv = reinterpret_cast<const float4*>(v + off)[c];
-      }
-      ks[idx] = kk;
-      vs[idx] = vv;
-    }
-    __syncthreads();
+  float dqs[DT][4];                    // the warp's rows' dq
+  zero_acc(dqs);
 
-    const int jend = min(BLOCK, kend - k0);
-    for (int j = 0; j < jend; ++j) {
-      const int t = k0 + j;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        s = dot4(qr[i], ks[j * D4 + lane + QUAD * i], s);
-        dp = dot4(dor[i], vs[j * D4 + lane + QUAD * i], dp);
-      }
-      s = quad_sum(s);
-      dp = quad_sum(dp);
-      const bool ok = row_live && (!causal || t <= qi);
-      const float p = ok ? expf(s * scale - row_lse) : 0.f;
-      const float ds = p * (dp - row_delta) * scale;
-#pragma unroll
-      for (int i = 0; i < C; ++i) {
-        axpy4(ds, ks[j * D4 + lane + QUAD * i], acc[i]);
-      }
-    }
-  }
+  for (int j = 0; j < nsets; ++j) {
+    __syncthreads();                   // every warp is done with set j - 1
+    if (j + 1 < nsets) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                   // set j (and Q, dO) visible to all
+    const int tile_j = j * KG + grp;   // this warp's key tile of the set
+    if (tile_j >= ntiles) continue;
+    const float* kt = ring + ((j % STAGES) * KG + grp) * C::STAGE_DQ;
+    const float* vt = kt + C::TILE;
+    const int k0 = tile_j * BLOCK;
+    const bool masked = !(k0 + BLOCK <= klen && q0 + BLOCK <= qlen &&
+                          (!causal || k0 + BLOCK - 1 <= q0));
 
-  if (qi < Tq) {
-    const size_t off = ((size_t)(b * Tq + qi) * H + h) * D;
-    float4* o = reinterpret_cast<float4*>(dq + off);
+    // S = Q.K^T and dP = dO.V^T: the warp's 16 rows x the tile's 64 keys
+    float s[1][NT][4], dp[1][NT][4];
+    zero_acc(s[0]);
+    zero_acc(dp[0]);
+    product_abt<D>(s, qs, rw, kt);
+    product_abt<D>(dp, dos, rw, vt);
+
+    // dS in place of S: (row g + 8 (c >> 1), key 8n + 2t + (c & 1))
 #pragma unroll
-    for (int i = 0; i < C; ++i) o[lane + QUAD * i] = acc[i];
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1;
+        float p = expf(s[0][n][c] * scale - row_lse[r]);
+        if (masked) {
+          const int kj = k0 + 8 * n + 2 * t + (c & 1);
+          if (!(qi[r] < qlen && kj < klen && (!causal || kj <= qi[r])))
+            p = 0.f;
+        }
+        s[0][n][c] = p * (dp[0][n][c] - row_delta[r]) * scale;
+      }
+
+    // dQ += dS.K over the tile's keys
+    product_ab<D, DT>(dqs, s, kt, 0);
   }
+  cp_async_wait<0>();
+
+  if (!merge_groups<KG, THREADS>(dqs, ring)) return;
+  store_rows<DT>(dq + qdb, ld, dqs, qi, Tq, qlen);
 }
 
-// the dynamic shared memory a launch asks for, allowed beside the kernel's
-// static arrays (D = 96 asks for exactly 48 KB)
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <int D, int KG>
+cudaError_t launch_dkv_kg(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse,
+                       const float* delta, float* dk, float* dv,
+                       const int* kv_len, const int* q_len, int B, int Tq,
+                       int Tk, int H, int causal, float scale,
+                       cudaStream_t stream) {
+  using C = Cfg<D>;
+  constexpr size_t smem = C::dkv_bytes(KG);
+  static_assert(smem <= 232448, "shared memory of a block");
+  static_assert((KG - 1) * 8 * (D / 8 / C::CG) * C::DKV_THREADS <=
+                    STAGES * KG * C::STAGE_DKV,
+                "the walk groups' merge fits in the ring");
+  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D, KG>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (Tk + BLOCK - 1) / BLOCK);
+  flash_bwd_dkv_kernel<D, KG><<<grid, C::DKV_THREADS * KG, smem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, kv_len, q_len, Tq, Tk, H, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+template <int D, int KG>
+cudaError_t launch_dq_kg(const float* q, const float* k, const float* v,
+                      const float* dout, const float* lse, const float* delta,
+                      float* dq, const int* kv_len, const int* q_len, int B,
+                      int Tq, int Tk, int H, int causal, float scale,
+                      cudaStream_t stream) {
+  using C = Cfg<D>;
+  constexpr size_t smem = C::dq_bytes(KG);
+  static_assert(smem <= 232448, "shared memory of a block");
+  static_assert((KG - 1) * 4 * D / 8 * THREADS <= STAGES * KG * C::STAGE_DQ,
+                "the walk groups' merge fits in the ring");
+  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D, KG>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (Tq + BLOCK - 1) / BLOCK);
+  flash_bwd_dq_kernel<D, KG><<<grid, THREADS * KG, smem, stream>>>(
+      q, k, v, dout, lse, delta, dq, kv_len, q_len, Tq, Tk, H, causal, scale);
+  return cudaGetLastError();
+}
+
+// two walk groups where a walk reaches KG_MIN_WALK tiles (dkv walks query
+// tiles, dq key tiles) and they fit
 template <int D>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse,
@@ -291,14 +543,12 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const int* kv_len, const int* q_len, int B, int Tq,
                        int Tk, int H, int causal, float scale,
                        cudaStream_t stream) {
-  const size_t smem = 2 * BLOCK * D * sizeof(float);
-  const cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tk + BLOCK - 1) / BLOCK, H, B);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, kv_len, q_len, Tq, Tk, H, causal,
-      scale);
-  return cudaGetLastError();
+  if ((Tq + BLOCK - 1) / BLOCK >= KG_MIN_WALK)
+    return launch_dkv_kg<D, Cfg<D>::KG_MAX>(q, k, v, dout, lse, delta, dk,
+                                            dv, kv_len, q_len, B, Tq, Tk, H,
+                                            causal, scale, stream);
+  return launch_dkv_kg<D, 1>(q, k, v, dout, lse, delta, dk, dv, kv_len,
+                             q_len, B, Tq, Tk, H, causal, scale, stream);
 }
 
 template <int D>
@@ -307,17 +557,17 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       float* dq, const int* kv_len, const int* q_len, int B,
                       int Tq, int Tk, int H, int causal, float scale,
                       cudaStream_t stream) {
-  const size_t smem = 2 * BLOCK * D * sizeof(float);
-  const cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BLOCK - 1) / BLOCK, H, B);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, dq, kv_len, q_len, Tq, Tk, H, causal, scale);
-  return cudaGetLastError();
+  if ((Tk + BLOCK - 1) / BLOCK >= KG_MIN_WALK)
+    return launch_dq_kg<D, Cfg<D>::KG_MAX>(q, k, v, dout, lse, delta, dq,
+                                           kv_len, q_len, B, Tq, Tk, H,
+                                           causal, scale, stream);
+  return launch_dq_kg<D, 1>(q, k, v, dout, lse, delta, dq, kv_len, q_len,
+                            B, Tq, Tk, H, causal, scale, stream);
 }
 
 cudaError_t prologue(int B, int Tq, int Tk, int H, int device) {
-  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || B > 65535 || H > 65535)
+  if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || B > 65535 ||
+      (Tq + BLOCK - 1) / BLOCK > 65535 || (Tk + BLOCK - 1) / BLOCK > 65535)
     return cudaErrorInvalidValue;
   return cudaSetDevice(device);
 }
@@ -326,9 +576,10 @@ cudaError_t prologue(int B, int Tq, int Tk, int H, int device) {
 
 // Plain C entry points, loaded with ctypes. D is 32, 64, 96 or 128 (the
 // wrapper pads any other D <= 128 with zero columns); q, k, v and dout
-// 16-byte aligned. kv_len and q_len may be null (no mask). Each launches one kernel on `stream` of `device`, does not
-// synchronise, and returns the launch's cudaError_t (0 = launched). dk and dv
-// are fully written (0 for masked keys); so is dq.
+// 16-byte aligned. kv_len and q_len may be null (no mask). Each launches one
+// kernel on `stream` of `device`, does not synchronise, and returns the
+// launch's cudaError_t (0 = launched). dk and dv are fully written (0 for
+// keys at or past kv_len); so is dq (0 for rows at or past q_len).
 extern "C" int flash_attn_bwd_dkv(const float* q, const float* k,
                                   const float* v, const float* dout,
                                   const float* lse, const float* delta,

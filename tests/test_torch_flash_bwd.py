@@ -13,10 +13,14 @@ gradient of rows at or past q_len is 0 there (the attention layer
 zeroes those rows), so dk and dv agree, dq agrees on the live rows,
 and the port's dq of the dead rows is exactly 0.
 
+`test_emulated_kernel_arithmetic_holds_f32_accuracy` runs the
+kernels' tensor-core arithmetic (`csrc/flash_attn_bwd.cu`) in numpy.
+
 `TestOnCard` (marked `cuda`) holds the Hopper kernels against
-attention_bwd_plain on the card and shows that `loss.backward()`
-through flash_dense_attention reaches q, k and v. It skips here; on a
-machine with an H100 and no JAX it runs alone:
+attention_bwd_plain on the card, checks that they are bit-identical on
+a repeat and shows that `loss.backward()` through
+flash_dense_attention reaches q, k and v. It skips here; on a machine
+with an H100 and no JAX it runs alone:
 `python -m pytest -m cuda tests/test_torch_flash_bwd.py`.
 """
 
@@ -60,6 +64,9 @@ CARD_CASES = {
     "causal_ragged_d40": (2, 150, 150, 2, 40, True, [150, 71], None),
     "noncausal_kvlen0_d48": (2, 64, 64, 2, 48, False, [0, 64], None),
     "cross_qlen_d96": (2, 70, 133, 2, 96, False, [133, 64], [70, 9]),
+    # LM training's long shape: a key's dk and dv sum over 16 query tiles
+    "causal_t1024_ragged_d64": (2, 1024, 1024, 2, 64, True, [1024, 333],
+                                None),
 }
 
 
@@ -162,6 +169,178 @@ def test_rows_without_keys_get_no_gradient():
     assert (dq[1, 20:] != 0).any()
 
 
+def _tf32(x):
+    """x (f32) rounded to TF32 as `cvt.rna.tf32.f32` rounds (a copy of
+    tests/test_torch_attention.py's helper)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    """The kernels' split_tf32_alu: hi rounded to TF32, lo = x - hi
+    truncated to TF32 (low 13 bits cleared)."""
+    hi = _tf32(x)
+    lo = (np.ascontiguousarray(x - hi, np.float32).view(np.uint32)
+          & np.uint32(0xFFFFE000)).view(np.float32)
+    return hi, lo
+
+
+def _trunc_add(acc, x):
+    """acc (f32) + x (f64) rounded toward zero to f32: the tensor cores'
+    add of a product into their accumulator, as modelled here."""
+    s = acc + x
+    r = s.astype(np.float32)
+    # rounded away from zero: one step back (sign and magnitude bits)
+    return (r.view(np.uint32) - (np.abs(r) > np.abs(s))).view(np.float32)
+
+
+def _mm3(a, b):
+    """a @ b (f32, 2-D, a's columns a multiple of 8) as the kernels form
+    it on mma.sync: hi/lo TF32 splits of both operands; for each k-step
+    of 8 the three products lo*hi, hi*lo, hi*hi (small terms first), each
+    summed exactly and added into one f32 accumulator that starts at 0,
+    rounded toward zero."""
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    M, K = a.shape
+
+    def steps(x, y):  # [K / 8, M, N] f64: each k-step's products
+        x3 = torch.from_numpy(x.astype(np.float64)).reshape(M, K // 8, 8)
+        y3 = torch.from_numpy(y.astype(np.float64)).reshape(K // 8, 8, -1)
+        return torch.bmm(x3.permute(1, 0, 2), y3).numpy()
+
+    parts = [steps(a_lo, b_hi), steps(a_hi, b_lo), steps(a_hi, b_hi)]
+    acc = np.zeros((M, b.shape[1]), np.float32)
+    for s in range(K // 8):
+        for p in parts:
+            acc = _trunc_add(acc, p[s])
+    return acc
+
+
+# inside each group of 8 of a product's k (queries for dV and dK, keys for
+# dQ), the A fragment's column k holds PERM[k]: k = t is 2t, k = t + 4 is
+# 2t + 1
+PERM = np.asarray([0, 2, 4, 6, 1, 3, 5, 7])
+
+
+def _flash_bwd_emulated(q, k, v, do, lse, delta, kv_len, block=64):
+    """csrc/flash_attn_bwd.cu's arithmetic in numpy for one (b, h),
+    causal: q, do [T, D], k, v [T, D], lse, delta [T] f32. dkv: each
+    64-key tile walks the query tiles from its own; dq: each 64-query
+    tile walks the key tiles up to its last one; at D <= 64 two walk
+    groups take a walk's tiles in turn (the walks here reach 16 tiles),
+    each with its own sums, added in order at the end. Every product in
+    3xTF32 with truncating adds (_mm3); P and dS with the mask tested a
+    pair (p = 0 exactly); the second products' k permuted in groups of 8
+    (A's columns and B's rows alike); each tile's product into a fresh
+    accumulator added to the running sum in round-to-nearest f32.
+    Returns (dq, dk, dv)."""
+    T, D = q.shape
+    groups = 2 if D <= 64 else 1
+    scale = np.float32(1.0 / np.sqrt(D))
+    perm = (np.arange(block) // 8) * 8 + PERM[np.arange(block) % 8]
+
+    def tile(x, r0, lim):
+        out = np.zeros((block, D), np.float32)
+        n = max(0, min(block, lim - r0))
+        out[:n] = x[r0:r0 + n]
+        return out
+
+    def p_ds(s_t, dp_t, rows, cols, row_lse, row_delta):
+        vis = (cols[None, :] < kv_len) & (cols[None, :] <= rows[:, None])
+        p = np.where(vis, np.exp(s_t * scale - row_lse[:, None]),
+                     0).astype(np.float32)
+        ds = (p * (dp_t - row_delta[:, None]) * scale).astype(np.float32)
+        return p, ds
+
+    def _in_order(parts):
+        out = parts[0]
+        for x in parts[1:]:
+            out = out + x
+        return out
+
+    dk = np.zeros((T, D), np.float32)
+    dv = np.zeros((T, D), np.float32)
+    for k0 in range(0, min(kv_len, T), block):
+        kt, vt = tile(k, k0, kv_len), tile(v, k0, kv_len)
+        keys = k0 + np.arange(block)
+        dks = np.zeros((groups, block, D), np.float32)
+        dvs = np.zeros((groups, block, D), np.float32)
+        for i0 in range(k0, T, block):
+            grp = (i0 - k0) // block % groups
+            qt, dot = tile(q, i0, T), tile(do, i0, T)
+            lt, dlt = np.zeros(block, np.float32), np.zeros(block, np.float32)
+            n = min(block, T - i0)
+            lt[:n], dlt[:n] = lse[i0:i0 + n], delta[i0:i0 + n]
+            s_t = _mm3(kt, np.ascontiguousarray(qt.T))      # S^T
+            dp_t = _mm3(vt, np.ascontiguousarray(dot.T))    # dP^T
+            # visibility by (query, key): transpose in, transpose out
+            p, ds = p_ds(s_t.T, dp_t.T, i0 + np.arange(block), keys, lt,
+                         dlt)
+            dvs[grp] += _mm3(np.ascontiguousarray(p.T[:, perm]), dot[perm])
+            dks[grp] += _mm3(np.ascontiguousarray(ds.T[:, perm]), qt[perm])
+        dks, dvs = _in_order(dks), _in_order(dvs)
+        n = min(block, T - k0)
+        live = keys[:n] < kv_len
+        dk[k0:k0 + n] = np.where(live[:, None], dks[:n], 0)
+        dv[k0:k0 + n] = np.where(live[:, None], dvs[:n], 0)
+
+    dq = np.zeros((T, D), np.float32)
+    for q0 in range(0, T, block):
+        qt, dot = tile(q, q0, T), tile(do, q0, T)
+        rows = q0 + np.arange(block)
+        rl = np.zeros(block, np.float32)
+        rd = np.zeros(block, np.float32)
+        n = min(block, T - q0)
+        rl[:n], rd[:n] = lse[q0:q0 + n], delta[q0:q0 + n]
+        dqs = np.zeros((groups, block, D), np.float32)
+        for k0 in range(0, min(kv_len, q0 + block), block):
+            grp = k0 // block % groups
+            kt, vt = tile(k, k0, kv_len), tile(v, k0, kv_len)
+            s = _mm3(qt, np.ascontiguousarray(kt.T))
+            dp = _mm3(dot, np.ascontiguousarray(vt.T))
+            _p, ds = p_ds(s, dp, rows, k0 + np.arange(block), rl, rd)
+            dqs[grp] += _mm3(np.ascontiguousarray(ds[:, perm]), kt[perm])
+        dq[q0:q0 + n] = _in_order(dqs)[:n]
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_emulated_kernel_arithmetic_holds_f32_accuracy(D):
+    """The backward kernels' tensor-core arithmetic, emulated, at T = 1024
+    causal with a ragged kv_len: dq, dk and dv within 1e-5 of the largest
+    entry of the f64 result. 1e-5: each 3xTF32 product keeps ~2^-21 of
+    each term, its truncating adds chain over one tile only, and a
+    tile's sum is added once in round-to-nearest f32, so the error stays
+    within a few f32 roundings (1.5e-6 to 5.8e-6 here); a lost lo pass
+    or a wrong permutation would exceed it, and so would, at D = 128,
+    truncating adds chained over the 16 tiles (~2.3e-5; ~1e-5 at D =
+    64). lse and delta come from the f32 forward, as the kernels receive
+    them."""
+    B, T = 2, 1024
+    rng = np.random.default_rng(D)
+    q, k, v, do = (rng.standard_normal((B, T, 1, D)).astype(np.float32)
+                   for _ in range(4))
+    kv = np.asarray([1000, 333], np.int32)
+    kvt = torch.from_numpy(kv)
+    out, lse = fa.attention_plain(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  causal=True, kv_len=kvt)
+    delta = torch.einsum("bqhd,bqhd->bhq", torch.from_numpy(do), out)
+    q64, k64, v64, do64 = (torch.from_numpy(x).double() for x in
+                           (q, k, v, do))
+    out64, lse64 = fa.attention_plain(q64, k64, v64, causal=True,
+                                      kv_len=kvt)
+    ref = fa.attention_bwd_plain(q64, k64, v64, out64, lse64, do64,
+                                 causal=True, kv_len=kvt)
+    for b in range(B):
+        got = _flash_bwd_emulated(q[b, :, 0], k[b, :, 0], v[b, :, 0],
+                                  do[b, :, 0], lse[b, 0].numpy(),
+                                  delta[b, 0].numpy(), int(kv[b]))
+        for g, r in zip(got, ref):
+            r = r[b, :, 0].numpy()
+            assert np.abs(g - r).max() <= 1e-5 * np.abs(r).max()
+
+
 @pytest.mark.cuda
 class TestOnCard:
     """The backward kernels against attention_bwd_plain on the card."""
@@ -193,6 +372,26 @@ class TestOnCard:
             assert (g - r).abs().max().item() / scale <= 1e-4
         dead = (lse >= fa.LSE_MASKED).permute(0, 2, 1)     # [B, Tq, H]
         assert (got[0][dead] == 0).all()
+        # keys at or past kv_len get exactly no gradient
+        if kv is not None:
+            for b, n in enumerate(kv.tolist()):
+                assert (got[1][b, n:] == 0).all()
+                assert (got[2][b, n:] == 0).all()
+
+    @pytest.mark.parametrize("name", sorted(CARD_CASES))
+    def test_kernels_are_bit_identical_on_a_repeat(self, name):
+        """No atomics and one writer an output: two calls on the same
+        inputs give the same bits."""
+        q, k, v, do, causal, kv, ql = (self._dev(x) if isinstance(
+            x, np.ndarray) else x for x in _inputs(CARD_CASES[name],
+                                                  seed=3))
+        kw = dict(causal=causal, kv_len=kv, q_len=ql)
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        runs = [fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
 
     def test_backward_reaches_q_k_v(self):
         """loss.backward() through flash_dense_attention on the card
