@@ -5,7 +5,8 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in nineteen phases, and any failure exits non-zero:
+`paddle_tpu` — in nineteen phases and four that run its paths under the
+bf16 flag (6c, 7b, 9c, 13b), and any failure exits non-zero:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA
    versions; TF32 off;
@@ -41,16 +42,25 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
 6. trains the Transformer LM at the same width through the port's
    trainer (`SGD.train`, attn_impl="flash", weights from a numpy
    seed): first one train step (`TrainStep`) of the flash conf
-   against the same step of the dense conf at B=32, T=128 (loss and
-   every gradient within 1e-4 relative; also reported at B=8, T=1024,
-   where a ReLU gate at a preactivation within rounding of 0 may flip
-   between the two, and the gradients are then held only when no gate
-   flipped), then (a) 20 steps of momentum SGD (lr 0.001, mu 0.9) at
+   against the same step of the dense conf at B=32, T=128 and at B=8,
+   T=1024 (loss and every gradient within 1e-4 relative; the dense step
+   runs at the flash step's ReLU gates, so that a gate whose
+   preactivation lies within rounding of 0 cannot open in one step and
+   not the other — the free dense step's flips are printed), then
+   (a) 20 steps of momentum SGD (lr 0.001, mu 0.9) at
    B=32, T=128 and (b) 300 steps of adam (lr 0.001) on one fixed batch
    at B=8, T=1024 with ragged lengths (next-token batches from a fixed
    random walk over the vocabulary); every loss finite, (b) falls to
    at most half its first value, and each flash kernel launched once
    per layer per step;
+6c. trains the LM at bench.py::bench_lm_train's settings (the same
+   width, B=32, T=128, dense attention, momentum 0.001 / 0.9) under the
+   bf16 flag (`matmul_precision`, the AMP cast rule): one step held
+   against the f32 step from the same weights (every gradient within
+   2e-2 plus twice the most bf16 moves the JAX package's gradient of
+   the LM at this width, capped at 0.3), then 20 steps on (a)'s batches:
+   every loss finite, the last below the first, the first within 5% of
+   the f32 loss, masters f32; tokens/s and profile;
 7. holds the fused BN->ReLU->1x1-conv kernels (B1 forward, B2 and B3
    backward, `csrc/bn_act_conv1x1.cu`) against their plain PyTorch
    versions at the nine ResNet-50 site shapes at batch 32 and four
@@ -61,6 +71,16 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    sites' batch-64 shapes beside the plain versions, the bare GEMM in
    torch.matmul (a yardstick only) and their bounds (on the tensor
    cores, three TF32 passes), with each kernel's launch plan;
+7b. holds the kernels' bf16 forms against their bf16 plain versions at
+   the nine sites at batch 32 and four ragged shapes (widths multiples
+   of 8), act relu or linear, with or without a residual, non-zero
+   cotangents of ssum and ssq: the f32 outputs (ssum, ssq, dscale,
+   dshift, dw before its cast) within 1e-4 of the largest, the bf16
+   ones (y, du, dres, dw after its cast) element by element within one
+   bf16 ulp plus 1e-4 of the largest, bit-identical on a repeat, no f32
+   form launched; then times them at the sites' batch-256 shapes beside
+   the bf16 plain versions, torch.matmul of the bf16 GEMM (a yardstick)
+   and their bounds (one bf16 pass, bf16 bytes);
 8. runs ResNet-50 (224x224x3, 1000 classes, weights from a seed)
    through `Inferencer` on [8, 224, 224, 3], plain and fused from the
    same weights and running statistics (advanced by three train-mode
@@ -76,6 +96,16 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
    finite, the last below the first, 29 launches of each fused kernel
    a step; then 10 plain steps for their step time; each run profiled
    for 5 more steps;
+9c. trains it under the bf16 flag at bench.py::bench_resnet50's
+   settings: (a) one step at B=8 three ways from one weight map, plain
+   f32, plain AMP and fused AMP: the fused AMP loss, new BN state and
+   each gradient within twice the plain AMP step's own distance from
+   the f32 step plus 1e-3 (relative), beside a witness, the f32 step
+   on weights and images rounded to bf16; (b) 20
+   fused steps of `SGD.train` at B=256 on one fixed batch: every loss
+   finite, the last below the first, 29 launches of each bf16 form a
+   step and none of an f32 form; (c) 10 plain AMP steps; images/s,
+   ms/step, peak memory and the profiles;
 10. holds the LSTM and GRU sequence kernels (B5 forward with and
     without the cell sequence, B6 backward, `csrc/lstm_seq.cu`; B7
     forward and B8 backward, `csrc/gru_seq.cu`) against their plain
@@ -109,6 +139,11 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
     loss falls, ms/step, tokens/s, peak memory and the profile table,
     and the kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
     (NMT) a step, every one on the cluster route;
+13b. one adam step of the classifier and of the NMT on the kernel arm
+    under the bf16 flag (B5-B8 cast bf16 up to f32 around the kernels):
+    loss finite and within 5% of the f32 step's, gradients f32 and
+    each held against the f32 step's as in 6c, B5 and B6 (classifier)
+    or B7 and B8 (NMT) launched twice each, on the cluster route;
 14. holds the sparse-row kernels (B9, `csrc/sparse_rows.cu`: the rule
     kernel and the generic route's gather and scatter) against their
     plain PyTorch version at the two bench shapes (V = 2^20 x 64, N =
@@ -156,6 +191,7 @@ import numpy as np
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 H100_BYTES_PER_S = 3.35e12
 H100_TF32_FLOPS = 495e12
+H100_BF16_FLOPS = 989e12     # dense bf16 mma
 TOL = 1e-4
 SEED = 0
 EOS = 1
@@ -203,6 +239,14 @@ def visible_pairs(B, Tq, Tk, causal, kv_len, q_len):
         for i in range(ql):
             n += min(kl, i + 1) if causal else kl
     return n
+
+
+def set_amp(on):
+    """The port's `matmul_precision` flag: "bfloat16" (the AMP cast rule,
+    as bench.py::_setup sets it for every bench row) or "default"."""
+    from paddle_tpu_torch.core import flags
+
+    flags.set_flag("matmul_precision", "bfloat16" if on else "default")
 
 
 def rel_err(got, ref):
@@ -582,6 +626,9 @@ PORT_KERNELS = {
     "B1 bn_act_conv1x1_fwd": "namespace)::fwd_kernel<",
     "B2 bn_act_conv1x1_bwd_dx": "bwd_dx_kernel<",
     "B3 bn_act_conv1x1_bwd_dw": "bwd_dw_kernel<",
+    "B1 bn_act_conv1x1_fwd_bf16": "fwd_bf16_kernel<",
+    "B2 bn_act_conv1x1_bwd_dx_bf16": "bwd_dx_bf16_kernel<",
+    "B3 bn_act_conv1x1_bwd_dw_bf16": "bwd_dw_bf16_kernel<",
     "B4f flash_attn_fwd": "flash_fwd_kernel<",
     "B4b flash_attn_bwd_dkv": "flash_bwd_dkv_kernel<",
     "B4b flash_attn_bwd_dq": "flash_bwd_dq_kernel<",
@@ -669,6 +716,12 @@ def train_lm(torch, fa):
     # state, so each new momentum slot is -lr * the parameter's gradient
     opt_a = OptimizationConf(learning_method="momentum",
                              learning_rate=0.001, momentum=0.9)
+    # A ReLU whose preactivation lies within f32 rounding of 0 can open in
+    # one step and not the other, and every gradient below it then differs
+    # by that token's share (LM (b) flips one). So the dense step runs at
+    # the flash step's gates: its feed-forward ReLUs become products with
+    # the flash step's 0/1 masks (the same function wherever the gates
+    # agree), and every gradient is held at TOL at both shapes.
     parity = {}
     for name, batch in (("b32_t128", batches_a[0]), ("b8_t1024", batch_b)):
         feed = lm_feed(batch)
@@ -676,37 +729,35 @@ def train_lm(torch, fa):
         for impl in ("flash", "dense"):
             net = Network(lm.transformer_lm(dataclasses.replace(
                 spec, attn_impl=impl)))
-            opt = create_optimizer(opt_a, net.param_confs)
-            step = TrainStep(net, opt, watchdog=True, device="cuda")
             params = params_from_numpy(np_params, device="cuda")
-            _p, mom, _s, health, _o = step(params, opt.init_state(params),
-                                           {}, feed, 0, None)
             with torch.no_grad():
                 gates = [net.forward(params, feed)[0][f"lm_ff{i}"].value > 0
                          for i in range(spec.num_layers)]
+            if impl == "dense":
+                for i, mask in enumerate(got["flash"][2]):
+                    net.layers[f"lm_ff{i}"].activation = (
+                        lambda m=mask: lambda y: y * m)
+            opt = create_optimizer(opt_a, net.param_confs)
+            step = TrainStep(net, opt, watchdog=True, device="cuda")
+            _p, mom, _s, health, _o = step(params, opt.init_state(params),
+                                           {}, feed, 0, None)
             got[impl] = (health, mom, gates)
         (hf, mf, gf), (hd, md, gd) = got["flash"], got["dense"]
         loss_rel = abs(hf[0].item() - hd[0].item()) / abs(hd[0].item())
         worst = max((rel_err(mf[k]["mom"], md[k]["mom"])[0], k) for k in md)
-        # a ReLU whose preactivation lies within f32 rounding of 0 can
-        # open in one step and not the other; every gradient below it
-        # then differs by that token's share
         flips = sum(int((a != b).sum().item()) for a, b in zip(gf, gd))
         parity[name] = {"loss_flash": hf[0].item(), "loss_dense": hd[0].item(),
                         "loss_rel": loss_rel, "grad_rel": worst[0],
-                        "worst_param": worst[1], "relu_gate_flips": flips,
+                        "worst_param": worst[1],
+                        "relu_gate_flips_of_the_free_dense_step": flips,
                         "finite": bool(hf[1].item() and hd[1].item())}
-        print("flash vs dense train step " + json.dumps(
+        print("flash vs dense (at the flash gates) train step " + json.dumps(
             {name: parity[name]}), flush=True)
         assert parity[name]["finite"] and loss_rel <= TOL, (
             f"flash and dense train steps disagree at {name}: "
             f"{parity[name]}")
-        if flips == 0:
-            assert worst[0] <= TOL, (
-                f"flash and dense gradients disagree at {name}: "
-                f"{parity[name]}")
-    assert parity["b32_t128"]["relu_gate_flips"] == 0, (
-        "the held train step needs a feed whose ReLU gates agree")
+        assert worst[0] <= TOL, (
+            f"flash and dense gradients disagree at {name}: {parity[name]}")
 
     runs = {}
     for name, opt, batches, ntok in (
@@ -766,6 +817,148 @@ def train_lm(torch, fa):
     return parity, runs
 
 
+# Phases 6c and 13b hold each gradient of one AMP step against the f32
+# step's from the same weights. A gradient's distance is the norm of the
+# difference over the norm of the f32 gradient, or over AMP_GRAD_FLOOR
+# of the model's largest such norm where its own is below that (the
+# NMT's attention decoder projection at init: 6e-9 of it, its bf16
+# value rounding noise in either package). The norm, not the largest
+# entry: a max pool's argmax or a ReLU gate that bf16 rounding flips
+# moves whole rows of a gradient (the classifier's T = 100 max pool: up
+# to 0.44 of the largest entry), and the norm reads them at their
+# weight. The bound is 2e-2 plus twice the largest such distance bf16
+# moves the JAX package's gradient of the same model at these widths
+# (tests/test_torch_amp.py::test_card_amp_readings measures them on the
+# CPU at a cut batch and holds these numbers), never more than 0.3 (a
+# zeroed gradient reads 1, a flipped one 2).
+AMP_GRAD_TOL, AMP_GRAD_CAP, AMP_GRAD_FLOOR = 2e-2, 0.3, 1e-4
+JAX_BF16_GRAD_MOVE = {"lm": 0.0616, "classifier": 0.125, "nmt": 0.0452}
+
+
+def amp_grad_distances(st_amp, st_f32, slot):
+    """{parameter: distance} of one AMP optimizer step's gradients from
+    the f32 step's, read from `slot` (momentum's, or adam's first moment:
+    after one step from zero, a fixed multiple of the gradient)."""
+    top = max(v[slot].norm().item() for v in st_f32.values())
+    return {k: (st_amp[k][slot] - v[slot]).norm().item()
+            / max(v[slot].norm().item(), AMP_GRAD_FLOOR * top)
+            for k, v in st_f32.items()}
+
+
+def amp_grads_held(name, model, st_amp, st_f32, slot):
+    """Every gradient of one AMP step within min(AMP_GRAD_TOL + 2 *
+    JAX_BF16_GRAD_MOVE[model], AMP_GRAD_CAP) of the f32 step's. Returns
+    the largest distance."""
+    bound = min(AMP_GRAD_TOL + 2 * JAX_BF16_GRAD_MOVE[model], AMP_GRAD_CAP)
+    d = amp_grad_distances(st_amp, st_f32, slot)
+    worst = max(d, key=d.get)
+    print(f"amp gradients vs f32 {name} " + json.dumps(
+        {"bound": bound, "worst": worst, "each": d}), flush=True)
+    assert d[worst] <= bound, (
+        f"{name}: gradient {worst} moved {d[worst]:.3g} from f32 under "
+        f"the flag, bound {bound:.3g}")
+    return d[worst]
+
+
+def train_lm_amp(torch, fa):
+    """Phase 6c: the LM at bench.py::bench_lm_train's settings (B=32,
+    T=128, d 256, 4 heads, 2 layers, vocab 2048, dense attention,
+    momentum 0.001 / 0.9) under the bf16 flag. First one momentum
+    TrainStep in f32 and one under the flag from the same weights on
+    phase 6(a)'s first batch: every gradient held (`amp_grads_held`).
+    Then 20 steps of `SGD.train` on (a)'s next-token batches: every loss
+    finite, the last below the first, the first within 5% of the f32
+    step's loss (tests/test_amp.py's bound), and no flash kernel
+    launched (dense attention). Returns the run's numbers."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models import lm
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+    from paddle_tpu_torch.trainer.events import EndIteration
+    from paddle_tpu_torch.trainer.trainer import SGD
+    from paddle_tpu_torch.weights import params_from_numpy
+
+    spec = lm.LMSpec(vocab=2048, d_model=256, num_heads=4, num_layers=2,
+                     attn_impl="dense")
+    conf = lm.transformer_lm(spec)
+    opt_conf = OptimizationConf(learning_method="momentum",
+                                learning_rate=0.001, momentum=0.9)
+    np_params = random_params(spec, lm)
+    rng = np.random.default_rng(SEED + 2)     # phase 6(a)'s batches
+    full = np.full((32,), 128, np.int32)
+    batches = lm_batches(rng, 20, 32, 128, full, spec.vocab)
+    net = Network(conf)
+    held = {}
+    for amp in (False, True):
+        set_amp(amp)
+        try:
+            opt = create_optimizer(opt_conf, net.param_confs)
+            p = params_from_numpy(np_params, "cuda")
+            step = TrainStep(net, opt, watchdog=True, device="cuda")
+            _p, mom, _s, health, _o = step(p, opt.init_state(p), {},
+                                           lm_feed(batches[0]), 0, None)
+            held[amp] = (health[0].item(), bool(health[1].item()), mom)
+        finally:
+            set_amp(False)
+    loss_f32 = held[False][0]
+    assert held[True][1], "lm amp: the held step is not finite"
+    grad_worst = amp_grads_held("lm_amp_dense_b32_t128", "lm", held[True][2],
+                                held[False][2], "mom")
+    set_amp(True)
+    try:
+        sgd = SGD(conf, opt_conf,
+                  params=params_from_numpy(np_params, "cuda"),
+                  device="cuda")
+        stamps, costs = [], []
+
+        def on_event(e):
+            if isinstance(e, EndIteration):
+                costs.append(e.cost)          # fetched: the step is done
+                stamps.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches = fa.bwd_dkv_launches = fa.bwd_dq_launches = 0
+        t0 = time.perf_counter()
+        sgd.train(reader=lambda: iter(batches), feeder=lm_feed,
+                  num_passes=1, event_handler=on_event)
+        torch.cuda.synchronize()
+        counts = (fa.launches, fa.bwd_dkv_launches, fa.bwd_dq_launches)
+        steady = float(np.median(np.diff(stamps))) * 1e3
+        ntok = int(full.sum())
+        r = {"steps": len(batches), "wall_s": time.perf_counter() - t0,
+             "ms_first_step": (stamps[0] - t0) * 1e3,
+             "ms_per_step_median": steady,
+             "train_tokens_per_s": ntok / (steady / 1e3),
+             "loss_f32_first_batch": loss_f32,
+             "held_step_loss_amp": held[True][0],
+             "held_step_grad_rel_vs_f32_max": grad_worst,
+             "loss_first": costs[0], "loss_last": costs[-1],
+             "first_vs_f32_rel": abs(costs[0] - loss_f32) / abs(loss_f32),
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "flash_launches": list(counts),
+             "master_dtypes": sorted({str(v.dtype)
+                                      for v in sgd.params.values()})}
+        print("train lm_amp_dense_b32_t128 " + json.dumps(r), flush=True)
+        prof = profile_steps(torch, sgd, lm_feed(batches[0]))
+        if prof is not None:
+            prof["idle_share"] = 1 - prof["device_ms_per_step"] / steady
+        print("profile lm_amp_dense_b32_t128 " + json.dumps(prof),
+              flush=True)
+    finally:
+        set_amp(False)
+    r["profile"] = prof
+    assert np.isfinite(costs).all(), "lm amp: a loss is not finite"
+    assert costs[-1] < costs[0], (
+        f"lm amp: loss rose from {costs[0]:.6g} to {costs[-1]:.6g}")
+    assert r["first_vs_f32_rel"] <= 0.05, (
+        f"lm amp: first loss {costs[0]:.6g} vs f32 {loss_f32:.6g}")
+    assert counts == (0, 0, 0), f"lm amp: flash launched {counts}"
+    assert r["master_dtypes"] == ["torch.float32"], r["master_dtypes"]
+    return r
+
+
 # ---- ResNet-50 and the fused BN->ReLU->1x1-conv kernels (B1-B3) ---------
 
 # the 29 fused sites of a ResNet-50 forward: (name, rows an image, Cin,
@@ -787,6 +980,10 @@ FUSED_RAGGED = [("n100_24_16", 100, 24, 16), ("n1_24_16", 1, 24, 16),
 RESNET_OPT = dict(learning_method="momentum", learning_rate=0.001,
                   momentum=0.9)
 RESNET_STEPS = 30
+# phase 9c: bench.py::bench_resnet50's batch under the bf16 flag
+RESNET_AMP_BATCH = 256
+RESNET_AMP_STEPS = 20
+RESNET_AMP_PLAIN_STEPS = 10
 
 
 def fused_inputs(torch, gen, n, cin, cout, with_res):
@@ -939,6 +1136,189 @@ def fused_kernels(torch, op):
     return worst, timings
 
 
+# the bf16 forms take widths that are multiples of 8: ragged rows against
+# the 128-row tile, a width past the 64/128-column tiles
+FUSED_RAGGED_BF16 = [("n100_24_16", 100, 24, 16), ("n1_24_16", 1, 24, 16),
+                     ("n517_72_136", 517, 72, 136),
+                     ("n300_200_72", 300, 200, 72)]
+FUSED_OUTS = ("y", "ssum", "ssq", "du", "dscale", "dshift", "dres", "dw")
+
+
+def bf16_off(torch, got, ref):
+    """Elements of got farther from ref than one bf16 ulp of the
+    reference value plus TOL of its largest entry (where the kernel's
+    and the plain version's f32 accumulators straddle a rounding
+    boundary, that single flip is all the bound admits)."""
+    got, ref = got.float(), ref.float()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - 8)
+    bad = (got - ref).abs() > ulp + TOL * ref.abs().max()
+    return int(bad.sum().item())
+
+
+def fused_inputs_bf16(torch, gen, n, cin, cout, with_res):
+    """fused_inputs with u, w, residual and dy in bf16 (scale, shift,
+    d1, d2 stay f32, as the AMP rule hands them to the op)."""
+    u, scale, shift, w, res, dy, d1, d2 = fused_inputs(torch, gen, n, cin,
+                                                       cout, with_res)
+    b = torch.bfloat16
+    return (u.to(b), scale, shift, w.to(b),
+            None if res is None else res.to(b), dy.to(b), d1, d2)
+
+
+def check_fused_bf16(torch, op, name, inputs, act):
+    """The bf16 forms of B1-B3 against their bf16 plain versions on one
+    case's inputs: the f32 outputs (ssum, ssq, dscale, dshift, and dw
+    before its cast) within TOL of the largest; the bf16 outputs (y, du,
+    dres, and dw after its cast) element by element within one bf16 ulp
+    plus TOL of the largest; every output bit-identical on a repeat; no
+    f32 form launched. Returns {output: (relative, absolute)}."""
+    u, scale, shift, w, res, dy, d1, d2 = inputs
+    ref = op.bn_act_conv1x1_plain(u, scale, shift, w, res, act)
+    y = ref[0]
+    ref += op.bn_act_conv1x1_bwd_dx_plain(u, scale, shift, w, res, y, dy, d1,
+                                          d2, act)
+    ref += (op.bn_act_conv1x1_bwd_dw_plain(u, scale, shift, res, y, dy, d1,
+                                           d2, act),)
+    f32_before = (op.fwd_launches, op.bwd_dx_launches, op.bwd_dw_launches)
+
+    def run():
+        return (op.bn_act_conv1x1_fwd(u, scale, shift, w, res, act)
+                + op.bn_act_conv1x1_bwd_dx(u, scale, shift, w, res, y, dy,
+                                           d1, d2, act)
+                + (op.bn_act_conv1x1_bwd_dw(u, scale, shift, res, y, dy, d1,
+                                            d2, act),))
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert (op.fwd_launches, op.bwd_dx_launches,
+            op.bwd_dw_launches) == f32_before, f"{name}: an f32 form ran"
+    where = f"{name} act={act!r} res={res is not None}"
+    errs = {}
+    for out, g, g2, r in zip(FUSED_OUTS, got, again, ref):
+        if r is None:
+            assert g is None and g2 is None, f"{name}: {out} should be None"
+            continue
+        assert torch.equal(g, g2), f"{where}: {out} not bit-identical"
+        assert g.dtype == r.dtype, f"{where}: {out} is {g.dtype}"
+        assert torch.isfinite(g).all().item(), f"{where}: {out} not finite"
+        errs[out] = rel_err(g.float(), r.float())
+        if g.dtype == torch.bfloat16:
+            off = bf16_off(torch, g, r)
+            assert off == 0, (f"{where}: {off} elements of {out} beyond one "
+                              f"bf16 ulp + {TOL}")
+        else:
+            assert errs[out][0] <= TOL, (
+                f"{where}: kernel vs plain {out} relative error "
+                f"{errs[out][0]:.3g} > {TOL}")
+    b = torch.bfloat16          # dw as the Function returns it to a bf16 w
+    off = bf16_off(torch, got[-1].to(b), ref[-1].to(b))
+    assert off == 0, f"{where}: {off} elements of bf16 dw beyond the bound"
+    errs["dw_bf16"] = rel_err(got[-1].to(b).float(), ref[-1].to(b).float())
+    return errs
+
+
+def time_fused_bf16(torch, op, site, batch, gen):
+    """The bf16 forms' kernel, plain, GEMM-alone (torch.matmul of the
+    bf16 operands: a yardstick the port never calls) and bound ms at one
+    site of the path (act as the layers call it, no residual). The
+    bound: bf16 u, w, y, dy, du in bytes, f32 vectors and dw (B3 writes
+    it in f32), and one bf16 pass on the tensor cores."""
+    name, rows, cin, cout, act, count = site
+    n = rows * batch
+    inputs = fused_inputs_bf16(torch, gen, n, cin, cout, False)
+    errs = check_fused_bf16(torch, op, f"{name}_b{batch}", inputs, act)
+    u, scale, shift, w, _res, dy, d1, d2 = inputs
+    y = op.bn_act_conv1x1_plain(u, scale, shift, w, None, act)[0]
+    z = u.float() * scale + shift
+    if act == "relu":
+        z = torch.clamp_min(z, 0.0)
+    z = z.to(torch.bfloat16)
+    flops = 2 * n * cin * cout
+
+    def bound(nbytes):
+        t_ops = flops / H100_BF16_FLOPS * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    nu, ny, nw = 2 * n * cin, 2 * n * cout, 2 * cin * cout
+    vin, vout = 2 * cin * 4, 2 * cout * 4
+    kern = {
+        # u, scale, shift, w read; y, ssum, ssq written
+        "fwd": (lambda: op.bn_act_conv1x1_fwd(u, scale, shift, w, None, act),
+                lambda: op.bn_act_conv1x1_plain(u, scale, shift, w, None,
+                                                act),
+                lambda: torch.matmul(z, w),
+                bound(nu + vin + nw + ny + vout)),
+        # u, scale, shift, w, y, dy, d1, d2 read; du, dscale, dshift
+        # written
+        "bwd_dx": (lambda: op.bn_act_conv1x1_bwd_dx(
+            u, scale, shift, w, None, y, dy, d1, d2, act),
+            lambda: op.bn_act_conv1x1_bwd_dx_plain(
+                u, scale, shift, w, None, y, dy, d1, d2, act),
+            lambda: torch.matmul(dy, w.t()),
+            bound(nu + vin + nw + 2 * ny + vout + nu + vin)),
+        # u, scale, shift, y, dy, d1, d2 read; dw (f32) written
+        "bwd_dw": (lambda: op.bn_act_conv1x1_bwd_dw(
+            u, scale, shift, None, y, dy, d1, d2, act),
+            lambda: op.bn_act_conv1x1_bwd_dw_plain(
+                u, scale, shift, None, y, dy, d1, d2, act),
+            lambda: torch.matmul(z.t(), dy),
+            bound(nu + vin + 2 * ny + vout + 2 * nw)),
+    }
+    res = {"site": name, "n": n, "cin": cin, "cout": cout, "act": act,
+           "sites": count, "flops": flops,
+           "max_abs_err": max(e[1] for e in errs.values()),
+           "max_rel_err": {k: v[0] for k, v in errs.items()},
+           "plan": op.launch_plan(n, cin, cout, dtype=torch.bfloat16)}
+    for k, (kfn, pfn, lfn, (b_ms, b_by)) in kern.items():
+        res[k] = {"ms": time_ms(torch, kfn), "plain_ms": time_ms(torch, pfn),
+                  "library_ms": time_ms(torch, lfn), "bound_ms": b_ms,
+                  "bound_by": b_by}
+    print("fused bf16 timing " + json.dumps(res), flush=True)
+    return res
+
+
+def fused_kernels_bf16(torch, op):
+    """Phase 7b: the bf16 forms at every site shape at batch 32 and the
+    bf16 ragged shapes, each with act in {relu, ""} x residual in {none,
+    given}; then times at the bench's training shapes (batch 256).
+    Returns (max abs error per kernel, timings)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst = {"fwd": 0.0, "bwd_dx": 0.0, "bwd_dw": 0.0}
+    # the kernels' own outputs (dw_bf16, the Function's cast of B3's f32
+    # dw, is held by check_fused_bf16 and printed, not a kernel's error)
+    which = {"y": "fwd", "ssum": "fwd", "ssq": "fwd", "du": "bwd_dx",
+             "dscale": "bwd_dx", "dshift": "bwd_dx", "dres": "bwd_dx",
+             "dw": "bwd_dw"}
+    cases = [(f"{s[0]}_b32", s[1] * 32, s[2], s[3]) for s in FUSED_SITES]
+    cases += FUSED_RAGGED_BF16
+    n_checked = 0
+    for name, n, cin, cout in cases:
+        rels = {}
+        for act in ("relu", ""):
+            for with_res in (False, True):
+                errs = check_fused_bf16(torch, op, name, fused_inputs_bf16(
+                    torch, gen, n, cin, cout, with_res), act)
+                n_checked += 1
+                for out, (rel, ab) in errs.items():
+                    if out in which:
+                        worst[which[out]] = max(worst[which[out]], ab)
+                    rels[out] = max(rels.get(out, 0.0), rel)
+        print(f"fused bf16 {name} N={n} {cin}->{cout}: max relative error "
+              + json.dumps(rels), flush=True)
+    print(f"fused bf16 forms meet their bounds in {n_checked} cases",
+          flush=True)
+    timings = [time_fused_bf16(torch, op, site, RESNET_AMP_BATCH, gen)
+               for site in FUSED_SITES]
+    per_step = {k: {m: sum(t["sites"] * t[k][m] for t in timings)
+                    for m in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                for k in ("fwd", "bwd_dx", "bwd_dw")}
+    print(f"fused bf16 forms, sum over the 29 sites of one step at batch "
+          f"{RESNET_AMP_BATCH} (ms) " + json.dumps(per_step), flush=True)
+    return worst, timings
+
+
 def image_feed(batch, seed):
     """bench.py::_image_feed on the card: N(0, 1) images, random labels."""
     from paddle_tpu_torch.core.arg import id_arg, non_seq
@@ -1006,7 +1386,7 @@ def relu_gates(torch, plain, fused, params, fparams, state, fstate, feed):
     """ReLU gate flips between the two graphs on one train-mode forward,
     per gate site of the fused graph: {fused layer: flips}. The tail's
     in-gate is recomputed from its input as the layer computes it."""
-    from paddle_tpu_torch.layers.fused import bn_affine, in_moments
+    from paddle_tpu_torch.layers.norm import bn_affine, moments
 
     with torch.no_grad():
         po, _ = plain.forward(params, feed, state=state, train=True)
@@ -1022,7 +1402,7 @@ def relu_gates(torch, plain, fused, params, fparams, state, fstate, feed):
                 blk = name[:-len("_tail")]
                 x = fo[lc.input_names()[0]].value
                 g = fparams[f"_{name}.bnig"], fparams[f"_{name}.bnib"]
-                scale, shift = bn_affine(*g, *in_moments(x), 1e-5)
+                scale, shift = bn_affine(*g, *moments(x), 1e-5)
                 pairs = [(fo[name].value, po[f"{blk}_add"].value),
                          (x * scale + shift, po[f"{blk}_b_bn"].value)]
             else:
@@ -1106,48 +1486,185 @@ def tiny_resnet(fused):
     return Network(g.conf)
 
 
-def resnet_train(torch, op, conf, batch, steps, name):
-    """Phase 9(b): SGD.train (momentum 0.001 / 0.9) on one fixed batch;
-    returns the run's numbers (launch counts read just after)."""
+FUSED_COUNTERS = ("fwd_launches", "bwd_dx_launches", "bwd_dw_launches",
+                  "fwd_bf16_launches", "bwd_dx_bf16_launches",
+                  "bwd_dw_bf16_launches")
+
+
+def resnet_train(torch, op, conf, batch, steps, name, amp=False):
+    """Phase 9(b) and 9c: SGD.train (momentum 0.001 / 0.9) on one fixed
+    batch, under the bf16 flag with `amp`; returns the run's numbers
+    (every fused kernel's launch count, f32 and bf16 forms, read just
+    after)."""
     from paddle_tpu_torch.core.config import OptimizationConf
     from paddle_tpu_torch.trainer.events import EndIteration
     from paddle_tpu_torch.trainer.trainer import SGD
 
-    sgd = SGD(conf, OptimizationConf(**RESNET_OPT), seed=SEED + 1,
-              device="cuda")
-    feed = image_feed(batch, SEED + 40)
-    stamps, costs = [], []
+    set_amp(amp)
+    try:
+        sgd = SGD(conf, OptimizationConf(**RESNET_OPT), seed=SEED + 1,
+                  device="cuda")
+        feed = image_feed(batch, SEED + 40)
+        stamps, costs = [], []
 
-    def on_event(e):
-        if isinstance(e, EndIteration):
-            costs.append(e.cost)          # fetched: the step is done
-            stamps.append(time.perf_counter())
+        def on_event(e):
+            if isinstance(e, EndIteration):
+                costs.append(e.cost)          # fetched: the step is done
+                stamps.append(time.perf_counter())
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    op.fwd_launches = op.bwd_dx_launches = op.bwd_dw_launches = 0
-    t0 = time.perf_counter()
-    sgd.train(reader=lambda: iter([feed] * steps), feeder=lambda b: b,
-              num_passes=1, event_handler=on_event)
-    torch.cuda.synchronize()
-    counts = (op.fwd_launches, op.bwd_dx_launches, op.bwd_dw_launches)
-    steady = float(np.median(np.diff(stamps))) * 1e3
-    r = {"steps": steps, "batch": batch, "wall_s": time.perf_counter() - t0,
-         "ms_first_step": (stamps[0] - t0) * 1e3,
-         "ms_per_step_median": steady,
-         "images_per_s": batch / (steady / 1e3),
-         "loss_first": costs[0], "loss_last": costs[-1],
-         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-         "launches_fwd": counts[0], "launches_bwd_dx": counts[1],
-         "launches_bwd_dw": counts[2]}
-    print(f"train {name} " + json.dumps(r), flush=True)
-    assert np.isfinite(costs).all(), f"{name}: a loss is not finite"
-    prof = profile_steps(torch, sgd, feed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in FUSED_COUNTERS:
+            setattr(op, c, 0)
+        t0 = time.perf_counter()
+        sgd.train(reader=lambda: iter([feed] * steps), feeder=lambda b: b,
+                  num_passes=1, event_handler=on_event)
+        torch.cuda.synchronize()
+        counts = {c: getattr(op, c) for c in FUSED_COUNTERS}
+        steady = float(np.median(np.diff(stamps))) * 1e3
+        r = {"steps": steps, "batch": batch, "amp": amp,
+             "wall_s": time.perf_counter() - t0,
+             "ms_first_step": (stamps[0] - t0) * 1e3,
+             "ms_per_step_median": steady,
+             "images_per_s": batch / (steady / 1e3),
+             "loss_first": costs[0], "loss_last": costs[-1],
+             "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "launches_fwd": counts["fwd_launches"],
+             "launches_bwd_dx": counts["bwd_dx_launches"],
+             "launches_bwd_dw": counts["bwd_dw_launches"],
+             "launches_bf16": {c: v for c, v in counts.items()
+                               if "bf16" in c}}
+        print(f"train {name} " + json.dumps(r), flush=True)
+        assert np.isfinite(costs).all(), f"{name}: a loss is not finite"
+        prof = profile_steps(torch, sgd, feed)
+    finally:
+        set_amp(False)
     if prof is not None:
         prof["idle_share"] = 1 - prof["device_ms_per_step"] / steady
     print(f"profile {name} " + json.dumps(prof), flush=True)
     r["profile"] = prof
     return r
+
+
+def held_amp_step(torch, plain, fused, params, state, feed):
+    """Phase 9c(a): one momentum TrainStep at B=8 three ways from one
+    weight map: plain f32, plain under the bf16 flag and fused under the
+    flag. The fused-AMP step's loss, new BN state and each gradient are
+    held against the plain f32 step's within twice the plain-AMP step's
+    own distance from it plus 1e-3 (relative; the state over all its
+    slots). A fourth arm, the witness, takes the plain f32 step on the
+    weights and images rounded to bf16 (a perturbation of 2^-9 of each
+    entry, no bf16 arithmetic): how far its gradients move from the f32
+    step's is how far this net at this batch carries bf16's rounding of
+    its inputs alone, and is printed beside the AMP arms' distances."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+    from paddle_tpu_torch.weights import fused_resnet_from_plain, \
+        fused_resnet_map
+
+    def rounded(t):
+        return t.to(torch.bfloat16).float() if t.is_floating_point() else t
+
+    fparams, fstate = fused_resnet_from_plain(fused, params, state)
+    pmap, smap = fused_resnet_map(fused)
+    rparams = {k: rounded(v) for k, v in params.items()}
+    rfeed = {k: a if a.value is None else
+             dataclasses.replace(a, value=rounded(a.value))
+             for k, a in feed.items()}
+    got = {}
+    for arm, net, p, st, f, amp in (
+            ("plain_f32", plain, params, state, feed, False),
+            ("plain_amp", plain, params, state, feed, True),
+            ("fused_amp", fused, fparams, fstate, feed, True),
+            ("witness_f32_rounded_inputs", plain, rparams, state, rfeed,
+             False)):
+        set_amp(amp)
+        try:
+            opt = create_optimizer(OptimizationConf(**RESNET_OPT),
+                                   net.param_confs)
+            step = TrainStep(net, opt, watchdog=True, device="cuda")
+            _p, mom, new_state, health, _o = step(p, opt.init_state(p), st,
+                                                  f, 0, None)
+        finally:
+            set_amp(False)
+        got[arm] = (health, mom, new_state)
+    (h32, m32, s32), (hp, mp, sp), (hf, mf, sf), (hw, mw, _sw) = (
+        got["plain_f32"], got["plain_amp"], got["fused_amp"],
+        got["witness_f32_rounded_inputs"])
+    ref = h32[0].item()
+    loss = {"plain_amp": abs(hp[0].item() - ref) / abs(ref),
+            "fused_amp": abs(hf[0].item() - ref) / abs(ref),
+            "witness": abs(hw[0].item() - ref) / abs(ref)}
+    st = {"plain_amp": max(rel_err(sp[pl][ps], s32[pl][ps])[0]
+                           for slots in smap.values()
+                           for (pl, ps) in slots.values()),
+          "fused_amp": max(rel_err(sf[layer][s], s32[pl][ps])[0]
+                           for layer, slots in smap.items()
+                           for s, (pl, ps) in slots.items())}
+    grads, outside = {}, []
+    for k, src in pmap.items():
+        g = {"fused_amp": rel_err(mf[k]["mom"].reshape(m32[src]["mom"].shape),
+                                  m32[src]["mom"])[0],
+             "plain_amp": rel_err(mp[src]["mom"], m32[src]["mom"])[0],
+             "witness": rel_err(mw[src]["mom"], m32[src]["mom"])[0]}
+        grads[k] = g
+        if g["fused_amp"] > 2 * g["plain_amp"] + 1e-3:
+            outside.append(k)
+
+    def spread(arm):
+        v = np.sort([g[arm] for g in grads.values()])
+        return {"min": float(v[0]), "median": float(np.median(v)),
+                "max": float(v[-1])}
+
+    r = {"loss_f32": ref, "loss_plain_amp": hp[0].item(),
+         "loss_fused_amp": hf[0].item(), "loss_witness": hw[0].item(),
+         "loss_rel_vs_f32": loss, "state_rel_vs_f32": st,
+         "finite": bool(h32[1].item() and hp[1].item() and hf[1].item()),
+         "grads_outside_the_bound": outside, "grads_total": len(pmap),
+         "grad_rel_vs_f32": {a: spread(a) for a in
+                             ("fused_amp", "plain_amp", "witness")},
+         "output_fc_grad_rel_vs_f32": {k: grads[k] for k in
+                                       ("_output.w0", "_output.wbias")},
+         "master_dtypes": sorted({str(v["mom"].dtype) for v in mf.values()})}
+    print("amp train step resnet50_b8 " + json.dumps(r), flush=True)
+    print("amp train step resnet50_b8 gradients vs f32 " + json.dumps(grads),
+          flush=True)
+    assert r["finite"], r
+    assert loss["fused_amp"] <= 2 * loss["plain_amp"] + 1e-3, r
+    assert st["fused_amp"] <= 2 * st["plain_amp"] + 1e-3, r
+    assert not outside, f"gradients outside the bound: {outside}"
+    assert r["master_dtypes"] == ["torch.float32"], r
+    return r
+
+
+def resnet_training_amp(torch, op, plain, fused, params, state):
+    """Phase 9c: ResNet-50 under the bf16 flag at bench_resnet50's
+    settings. (a) the held B=8 step three ways; (b) 20 fused steps at
+    B=256 (each bf16 form 29 launches a step, no f32 form); (c) 10 plain
+    steps at B=256."""
+    held = held_amp_step(torch, plain, fused, params, state,
+                         image_feed(8, SEED + 30))
+    b = resnet_train(torch, op, fused.conf, RESNET_AMP_BATCH,
+                     RESNET_AMP_STEPS,
+                     f"resnet50_fused_amp_b{RESNET_AMP_BATCH}", amp=True)
+    assert b["loss_last"] < b["loss_first"], (
+        f"loss rose from {b['loss_first']:.4g} to {b['loss_last']:.4g}")
+    want = 29 * RESNET_AMP_STEPS
+    assert b["launches_bf16"] == dict.fromkeys(
+        ("fwd_bf16_launches", "bwd_dx_bf16_launches",
+         "bwd_dw_bf16_launches"), want), (
+        f"bf16 launches {b['launches_bf16']}, want {want} of each")
+    assert (b["launches_fwd"], b["launches_bwd_dx"],
+            b["launches_bwd_dw"]) == (0, 0, 0), "an f32 form launched"
+    p = resnet_train(torch, op, plain.conf, RESNET_AMP_BATCH,
+                     RESNET_AMP_PLAIN_STEPS,
+                     f"resnet50_plain_amp_b{RESNET_AMP_BATCH}", amp=True)
+    assert p["loss_last"] < p["loss_first"], (
+        f"plain amp loss rose from {p['loss_first']:.4g} to "
+        f"{p['loss_last']:.4g}")
+    assert p["launches_fwd"] == 0 and not any(p["launches_bf16"].values())
+    return held, b, p
 
 
 def resnet_training(torch, op, plain, fused, params, state):
@@ -1182,6 +1699,7 @@ def resnet_training(torch, op, plain, fused, params, state):
     got = (b["launches_fwd"], b["launches_bwd_dx"], b["launches_bwd_dw"])
     assert got == (want, want, want), (
         f"launches {got}, want {want} of each fused kernel")
+    assert not any(b["launches_bf16"].values()), "a bf16 form launched"
     p = resnet_train(torch, op, plain.conf, 64, 10, "resnet50_plain_b64")
     assert p["launches_fwd"] == 0
     return (held, tiny), b, p
@@ -1620,6 +2138,55 @@ def text_train(torch, rnn, conf, feed, lr, steps, tokens, name):
     return r
 
 
+def amp_text_step(torch, rnn, conf, feed, lr, name, want):
+    """Phase 13b: one adam TrainStep of the kernel arm in f32 and under
+    the bf16 flag from one weight map (B5-B8 cast the bf16 inputs up to
+    f32 around the kernels, as the JAX wrappers do): the AMP loss finite
+    and within 5% of the f32 step's (tests/test_amp.py's bound), the
+    gradients f32 and each held against the f32 step's from adam's first
+    moment (`amp_grads_held`), and the AMP step's launches `want` (counts
+    read just after it), every one on the cluster route."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+
+    net = Network(conf)
+    params = net.init_params(torch.Generator().manual_seed(SEED + 1),
+                             device="cuda")
+    set_rnn_arm("kernels")
+    got = {}
+    for amp in (False, True):
+        set_amp(amp)
+        try:
+            opt = create_optimizer(OptimizationConf(learning_method="adam",
+                                                    learning_rate=lr),
+                                   net.param_confs)
+            step = TrainStep(net, opt, watchdog=True, device="cuda")
+            torch.cuda.synchronize()
+            zero_rnn_counts(rnn)
+            _p, st, _s, health, _o = step(params, opt.init_state(params), {},
+                                          feed, 0, None)
+            torch.cuda.synchronize()
+            got[amp] = (health, st, rnn_counts(rnn))
+        finally:
+            set_amp(False)
+    (h32, s32, _c32), (h16, s16, counts) = got[False], got[True]
+    r = {"loss_f32": h32[0].item(), "loss_amp": h16[0].item(),
+         "rel": abs(h16[0].item() - h32[0].item()) / abs(h32[0].item()),
+         "finite": bool(h16[1].item()),
+         "grad_dtypes": sorted({str(v["m"].dtype) for v in s16.values()}),
+         "launches": counts}
+    print(f"amp train step {name} " + json.dumps(r), flush=True)
+    assert r["finite"] and r["rel"] <= 0.05, f"{name}: {r}"
+    assert r["grad_dtypes"] == ["torch.float32"], r
+    r["grad_rel_vs_f32_max"] = amp_grads_held(name, name, s16, s32, "m")
+    expect = dict.fromkeys(RNN_COUNTERS, 0)
+    expect.update(want)
+    assert counts == expect, f"{name}: launches {counts}, want {expect}"
+    return r
+
+
 def text_training(torch, rnn):
     """Phases 12 and 13: the held steps at ragged lengths, then the
     training runs at the bench's full lengths, kernel arm then scan arm.
@@ -1665,7 +2232,17 @@ def text_training(torch, rnn):
     assert n == want_n, f"nmt launches {n}, want {want_n}"
     for arm in ("classifier_scan", "nmt_scan"):
         assert sum(runs[arm]["launches"].values()) == 0, runs[arm]
-    return held, runs
+    phase("13b. classifier and NMT adam steps under the bf16 flag")
+    amp = (amp_text_step(torch, rnn, cls_conf, cls_f, CLS_LR, "classifier",
+                         dict(lstm_fwd_launches=2,
+                              lstm_fwd_cluster_launches=2,
+                              lstm_bwd_launches=2,
+                              lstm_bwd_cluster_launches=2)),
+           amp_text_step(torch, rnn, nmt_conf, nmt_f, NMT_LR, "nmt",
+                         dict(gru_fwd_launches=2, gru_fwd_cluster_launches=2,
+                              gru_bwd_launches=2,
+                              gru_bwd_cluster_launches=2)))
+    return held, runs, amp
 
 
 # ---- the sparse CTR slice: B9, SparseUpdater, the sharded tier, CTR ------
@@ -2427,9 +3004,16 @@ def main() -> int:
     _parity, runs = train_lm(torch, fa)
     train_fwd = sum(r["launches_fwd"] for r in runs.values())
 
+    phase("6c. train the LM at bench_lm_train's settings under the bf16 "
+          "flag")
+    train_lm_amp(torch, fa)
+
     phase("7. fused BN-ReLU-1x1 kernels vs plain version")
     ptxas_report(_build.build_log(fop.KERNEL))
     fused_err, fused_times = fused_kernels(torch, fop)
+
+    phase("7b. the fused kernels' bf16 forms vs their bf16 plain versions")
+    fused_err_bf16, fused_times_bf16 = fused_kernels_bf16(torch, fop)
 
     phase("8. ResNet-50 inference through Inferencer")
     plain, fused, rparams, rstate = resnet_nets(torch)
@@ -2438,6 +3022,11 @@ def main() -> int:
     phase("9. ResNet-50 training through SGD")
     _held, train_b, _train_plain = resnet_training(torch, fop, plain, fused,
                                                    rparams, rstate)
+
+    phase("9c. ResNet-50 training under the bf16 flag at bench_resnet50's "
+          "settings")
+    _held_amp, train_amp, _train_plain_amp = resnet_training_amp(
+        torch, fop, plain, fused, rparams, rstate)
     del plain, fused, rparams, rstate
 
     phase("10. LSTM/GRU sequence kernels vs plain version")
@@ -2449,7 +3038,7 @@ def main() -> int:
     cls_infer = classifier_infer(torch, rnn)
 
     phase("12. held classifier and NMT train steps, kernels vs scan")
-    _held_text, text_runs = text_training(torch, rnn)
+    _held_text, text_runs, _amp_text = text_training(torch, rnn)
 
     phase("14. sparse-row kernels (B9) vs plain version")
     ptxas_report(_build.build_log(sr.KERNEL))
@@ -2497,15 +3086,18 @@ def main() -> int:
     # largest N of the training path)
     tail = next(t for t in fused_times if t["site"] == "res2_tail")
 
-    def fused_row(kernel, tpu_line, launched):
+    # the bf16 forms' at the same site at batch 256 (bench_resnet50's)
+    tail_bf16 = next(t for t in fused_times_bf16 if t["site"] == "res2_tail")
+
+    def fused_row(kernel, tpu_line, launched, bf16=False):
         return {
-            "name": f"bn_act_conv1x1_{kernel}",
+            "name": f"bn_act_conv1x1_{kernel}" + ("_bf16" if bf16 else ""),
             "route": "cuda",
             "source": "paddle_tpu_torch/csrc/bn_act_conv1x1.cu",
             "replaces": f"paddle_tpu/ops/pallas_fused.py:{tpu_line}",
             "launches": launched,
-            "max_abs_err": fused_err[kernel],
-            **tail[kernel],
+            "max_abs_err": (fused_err_bf16 if bf16 else fused_err)[kernel],
+            **(tail_bf16 if bf16 else tail)[kernel],
         }
 
     # the sequence kernels' numbers at the path shapes (classifier layers,
@@ -2552,6 +3144,14 @@ def main() -> int:
         fused_row("fwd", 71, infer["b1_launches"] + train_b["launches_fwd"]),
         fused_row("bwd_dx", 155, train_b["launches_bwd_dx"]),
         fused_row("bwd_dw", 203, train_b["launches_bwd_dw"]),
+        fused_row("fwd", 71, train_amp["launches_bf16"]["fwd_bf16_launches"],
+                  bf16=True),
+        fused_row("bwd_dx", 155,
+                  train_amp["launches_bf16"]["bwd_dx_bf16_launches"],
+                  bf16=True),
+        fused_row("bwd_dw", 203,
+                  train_amp["launches_bf16"]["bwd_dw_bf16_launches"],
+                  bf16=True),
         rnn_row("lstm_seq_fwd", "lstm", 311, "fwd",
                 cls_launches["lstm_fwd_launches"]),
         rnn_row("lstm_seq_fwd_infer", "lstm", 311, "fwd_infer",

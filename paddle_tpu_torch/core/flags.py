@@ -16,7 +16,8 @@ _DEFAULTS: dict[str, Any] = {
     # training (trainer/trainer.py, network.py): log every Nth batch;
     # the trainer's seed when SGD gets none (0 = from the OS); the
     # on-device non-finite skip; the matmul precision ("default" =
-    # f32 — the port has no bf16 cast rule yet and refuses it)
+    # f32; "bfloat16" or "bf16" = the mixed-precision cast rule of
+    # network.py: f32 masters, bf16 compute layers, f32 cost layers)
     "log_period": 100,
     "seed": 0,
     "watchdog": True,

@@ -1,5 +1,6 @@
 // Fused BN -> ReLU -> 1x1-conv GEMM with a statistics epilogue, and its two
-// backward GEMMs, for Hopper (sm_90a), f32.
+// backward GEMMs, for Hopper (sm_90a): the f32 forms, then the bf16 forms of
+// the AMP rule (their own section below, "the bf16 forms").
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas_fused.py:
 //   B1 _fwd_kernel     (via _fwd_call):  y = z @ w, ssum = sum_n y, ssq = sum_n y^2
@@ -69,6 +70,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -982,6 +984,691 @@ cudaError_t col_reduce(const float* part, float* out_a, float* out_b,
   return cudaGetLastError();
 }
 
+// ============================================================ the bf16 forms
+// B1, B2 and B3 on bf16 u, w, res, y and dy (the AMP rule), with the JAX
+// kernels' dtypes: z and dy_eff formed in f32 from the bf16 inputs (rounded
+// as PyTorch rounds, as above) and rounded to bf16 (cvt.rn.bf16x2) for the
+// products; mma.sync m16n8k16 bf16 with f32 accumulators, one pass; B1's
+// statistics from the f32 accumulators before y is rounded to bf16; B2's du
+// and dres rounded to bf16 on the way out, dscale and dshift f32; B3's dw
+// in f32 (split-K partials f32, summed by split_reduce_kernel).
+//
+// Each is a bf16 GEMM over a ring of STAGES shared-memory stages BK16 deep,
+// filled by 16-byte cp.async (8 bf16: Cin and Cout multiples of 8, every
+// array 16-byte aligned, which the wrapper checks). When a stage has landed
+// the block turns its operand tile(s) into z or dy_eff in place, each
+// element once, 8 at a time (one 16-byte word a thread); the warps then read
+// their fragments by ldmatrix (mma_stage). Forming the operand once a stage,
+// not once a fragment, matters: every warp along the other dimension would
+// form the same fragment again. The grids are not persistent: B1 and B2 a
+// block per (row tile, column tile), B3 a block per (Cin tile, Cout tile, row
+// chunk). No wgmma, no TMA.
+//
+// What bounds them: bytes at the wide ResNet-50 sites (bf16 halves the f32
+// forms' bytes) and the tensor cores' bf16 rate (989 TFLOP/s dense on an
+// H100 SXM at 700 W) at the deep ones. The tensor cores add each product sum
+// into the accumulator with truncation: B1's and B2's chains are K / 16 adds
+// (128 at Cin or Cout 2048); B3 flushes its accumulators into f32 sums in
+// shared memory every BF_FLUSH stages, as the f32 form does.
+constexpr int BK16 = 32;     // depth of a bf16 stage: two k16 steps
+constexpr int BF_FLUSH = 8;  // B3: stages between flushes (256 rows)
+
+// 8 bf16 (one 16-byte word) to f32 and back
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[2 * i] = bf16_lo(w[i]), f[2 * i + 1] = bf16_hi(w[i]);
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                    pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+}
+
+// One BK16-deep stage of a warp's MT x NT mma tiles, its fragments by
+// ldmatrix from shared memory: A stored [m][k] (A_KM false) or [k][m]
+// (true), B stored [n][k] (B_KN false) or [k][n] (true); (wa, wb) the warp's
+// first row of A and column of B.
+template <int MT, int NT, bool A_KM, bool B_KN>
+__device__ __forceinline__ void mma_stage(float (&acc)[MT][NT][4],
+                                          const bf16* a, int lda,
+                                          const bf16* b, int ldb, int wa,
+                                          int wb, int lane) {
+  static_assert(NT % 2 == 0, "ldmatrix.x4 loads two n-tiles");
+#pragma unroll
+  for (int kk = 0; kk < BK16; kk += 16) {
+    unsigned af[MT][4], bfr[NT][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (A_KM)
+        ldmatrix_x4_trans(af[i], a + (kk + rows_hi_row(lane)) * lda + wa +
+                                     i * 16 + rows_hi_col(lane));
+      else
+        ldmatrix_x4(af[i], a + (wa + i * 16 + rows_lo_row(lane)) * lda + kk +
+                               rows_lo_col(lane));
+    }
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      unsigned r[4];
+      if (B_KN)
+        ldmatrix_x4_trans(r, b + (kk + rows_lo_row(lane)) * ldb + wb +
+                                 jj * 16 + rows_lo_col(lane));
+      else
+        ldmatrix_x4(r, b + (wb + jj * 16 + rows_hi_row(lane)) * ldb + kk +
+                           rows_hi_col(lane));
+      bfr[2 * jj][0] = r[0], bfr[2 * jj][1] = r[1];
+      bfr[2 * jj + 1][0] = r[2], bfr[2 * jj + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
+  }
+}
+
+// The ROWS x COLS tile t (row stride tld, bf16) to the window at (r0, c0)
+// of a row-major [*, gld] array, rows < rlim and columns < clim, in 16-byte
+// words: a warp writes whole rows (COLS / 8 words a row)
+template <int ROWS, int COLS, int THREADS>
+__device__ __forceinline__ void store_tile_bf16(bf16* __restrict__ g, int gld,
+                                                int r0, int rlim, int c0,
+                                                int clim, const bf16* t,
+                                                int tld) {
+  constexpr int PER_ROW = COLS / 8;
+  for (int e = threadIdx.x; e < ROWS * PER_ROW; e += THREADS) {
+    const int r = e / PER_ROW, c = (e % PER_ROW) * 8;
+    if (r0 + r < rlim && c0 + c < clim)
+      *reinterpret_cast<uint4*>(g + (size_t)(r0 + r) * gld + c0 + c) =
+          *reinterpret_cast<const uint4*>(t + r * tld + c);
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+}
+
+// B1's stage: u (and res) [BM][BK16 + 8], w [BK16][BN + 8] (bf16), then
+// scale and shift [BK16] (f32); the column partials [WM][2][BN] (f32)
+// after the ring
+template <class T>
+struct FwdBf16Smem {
+  static constexpr int LD = BK16 + 8, WLD = T::BN + 8, YLD = T::BN + 8;
+  static constexpr int A = T::BM * LD, W = BK16 * WLD;   // bf16 elements
+  __host__ __device__ static constexpr int stage_bytes(bool has_res) {
+    return 2 * ((has_res ? 2 : 1) * A + W) + 2 * BK16 * 4;
+  }
+  static constexpr size_t bytes(bool has_res) {
+    return (size_t)T::STAGES * stage_bytes(has_res) +
+           sizeof(float) * 2 * T::WM * T::BN;
+  }
+  // the epilogue stages y [BM][YLD] in the ring
+  static_assert(2 * T::BM * YLD <= T::STAGES * (2 * (A + W) + 2 * BK16 * 4),
+                "y's tile fits the ring");
+};
+
+// The block's column partials a (and b) over its rows, in a fixed order:
+// over the 8 lanes of one t (a butterfly), then over the WM warps of one
+// column; written to part[which][blockIdx.x][col0 + c] for columns < C.
+template <class T>
+__device__ __forceinline__ void block_col_partials(float (&pa)[T::NT][2],
+                                                   float (&pb)[T::NT][2],
+                                                   float* red, float* part,
+                                                   int col0, int C) {
+  constexpr int BN = T::BN, NT = T::NT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp % T::WM, wb = (warp / T::WM) * NT * 8;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int x = 4; x < 32; x <<= 1) {
+        pa[j][q] += __shfl_xor_sync(0xffffffffu, pa[j][q], x);
+        pb[j][q] += __shfl_xor_sync(0xffffffffu, pb[j][q], x);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = wb + j * 8 + 2 * t + q;
+        red[(wm * 2) * BN + c] = pa[j][q];
+        red[(wm * 2 + 1) * BN + c] = pb[j][q];
+      }
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < 2 * BN; x += T::THREADS) {
+    const int which = x / BN, c = x % BN;
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < T::WM; ++r) s += red[(r * 2 + which) * BN + c];
+    if (col0 + c < C)
+      part[((size_t)which * gridDim.x + blockIdx.x) * C + col0 + c] = s;
+  }
+}
+
+// ------------------------------------------------------------- B1, bf16
+// y = z @ w: M = rows, N = Cout, K = Cin. Block (r, c) computes the row
+// tile r of Cout tile c. A landed stage's u tile becomes z = act(u * scale
+// + shift [+ res]) in place; A's fragments by ldmatrix, w's by
+// ldmatrix.trans. Rows past N compute relu(shift) @ w and are neither
+// stored nor summed.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
+fwd_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
+                const float* __restrict__ shift, const bf16* __restrict__ w,
+                const bf16* __restrict__ res, bf16* __restrict__ y,
+                float* __restrict__ part, int N, int Cin, int Cout,
+                int relu) {
+  using S = FwdBf16Smem<T>;
+  constexpr int BM = T::BM, BN = T::BN, MT = T::MT, NT = T::NT;
+  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const bool has_res = res != nullptr;
+  const int stage = S::stage_bytes(has_res);
+  const int wa_off = (has_res ? 2 : 1) * S::A;   // w after u (and res)
+  float* red = reinterpret_cast<float*>(smem_b + (size_t)STAGES * stage);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wa = (warp % T::WM) * MT * 16, wb = (warp / T::WM) * NT * 8;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int KT = (Cin + BK16 - 1) / BK16;
+
+  auto load = [&](int kt) {
+    bf16* us = reinterpret_cast<bf16*>(smem_b + (size_t)(kt % STAGES) * stage);
+    const int k0 = kt * BK16;
+    load_window_bf16<BM, BK16, THREADS>(us, S::LD, u, Cin, row0, N, k0, Cin);
+    if (has_res)
+      load_window_bf16<BM, BK16, THREADS>(us + S::A, S::LD, res, Cin, row0, N,
+                                          k0, Cin);
+    bf16* ws = us + wa_off;
+    load_window_bf16<BK16, BN, THREADS>(ws, S::WLD, w, Cout, k0, Cin, col0,
+                                        Cout);
+    float* e = reinterpret_cast<float*>(ws + S::W);
+    load_window<1, BK16, 4, THREADS>(e, 0, scale, 0, 0, 1, k0, Cin);
+    load_window<1, BK16, 4, THREADS>(e + BK16, 0, shift, 0, 0, 1, k0, Cin);
+  };
+
+  float acc[MT][NT][4];
+  zero_acc(acc);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt has landed; stage kt - 1 is free
+    if (kt + STAGES - 1 < KT) load(kt + STAGES - 1);
+    cp_async_commit();
+    bf16* us = reinterpret_cast<bf16*>(smem_b + (size_t)(kt % STAGES) * stage);
+    const bf16* ws = us + wa_off;
+    const float* sc = reinterpret_cast<const float*>(ws + S::W);
+    const float* sh = sc + BK16;
+    // z = act(u * scale + shift [+ res]), rounded as PyTorch rounds
+    for (int c = threadIdx.x; c < BM * BK16 / 8; c += THREADS) {
+      const int r = c / (BK16 / 8), k = (c % (BK16 / 8)) * 8;
+      uint4* p = reinterpret_cast<uint4*>(us + r * S::LD + k);
+      float f[8], q[8];
+      unpack8(*p, f);
+      if (has_res)
+        unpack8(*reinterpret_cast<const uint4*>(us + S::A + r * S::LD + k), q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        f[e] = __fadd_rn(__fmul_rn(f[e], sc[k + e]), sh[k + e]);
+        if (has_res) f[e] = __fadd_rn(f[e], q[e]);
+        if (relu) f[e] = fmaxf(f[e], 0.f);
+      }
+      *p = pack8(f);
+    }
+    __syncthreads();
+    mma_stage<MT, NT, false, true>(acc, us, S::LD, ws, S::WLD, wa, wb, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the y tile is staged there
+
+  // the sums of y and y^2 from the f32 accumulators; y's bf16 pairs into
+  // the tile [BM][BN + 8], then out in 16-byte words, whole rows at a time
+  bf16* yt = reinterpret_cast<bf16*>(smem_b);
+  float ps[NT][2], pq[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) ps[j][0] = ps[j][1] = pq[j][0] = pq[j][1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = wa + i * 16 + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = wb + j * 8 + 2 * t;  // and n + 1 (Cout % 8 == 0)
+        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        *reinterpret_cast<unsigned*>(yt + m * S::YLD + n) = pack_bf16x2(v0, v1);
+        if (row0 + m >= N || col0 + n >= Cout) continue;
+        ps[j][0] = __fadd_rn(ps[j][0], v0);
+        ps[j][1] = __fadd_rn(ps[j][1], v1);
+        pq[j][0] = fmaf(v0, v0, pq[j][0]);
+        pq[j][1] = fmaf(v1, v1, pq[j][1]);
+      }
+    }
+  __syncthreads();
+  store_tile_bf16<BM, BN, THREADS>(y, Cout, row0, N, col0, Cout, yt, S::YLD);
+  block_col_partials<T>(ps, pq, red, part, col0, Cout);
+}
+
+// B2's stage: dy and y [BM][BK16 + 8], w [BN channels][BK16 + 8] (bf16),
+// d1 and d2 [BK16] (f32); after the ring the column partials [WM][2][BN]
+// and the tile's scale and shift [BN] (f32)
+template <class T>
+struct DxBf16Smem {
+  static constexpr int LD = BK16 + 8, ULD = T::BN + 8;
+  static constexpr int A = T::BM * LD, W = T::BN * LD;   // bf16 elements
+  static constexpr int STAGE_BYTES = 2 * (2 * A + W) + 2 * BK16 * 4;
+  static constexpr size_t BYTES = (size_t)T::STAGES * STAGE_BYTES +
+                                  sizeof(float) * (2 * T::WM * T::BN + 2 * T::BN);
+  // the epilogue stages u and res [BM][ULD] in the ring
+  static_assert(2 * 2 * T::BM * ULD <= T::STAGES * STAGE_BYTES,
+                "u's and res's tiles fit the ring");
+};
+
+// ------------------------------------------------------------- B2, bf16
+// dz = dy_eff @ w^T: M = rows, N = Cin, K = Cout. Block (r, c) computes row
+// tile r of Cin tile c. A landed stage's dy tile becomes dy_eff = dy + d1 +
+// 2 y d2 in place; w [Cin][Cout] is B stored [n][k]. The epilogue reads u
+// (and res) from device memory in bf16 pairs, gates by the recomputed
+// preactivation, writes du and dres in bf16 and adds dz*u and dz into the
+// column partials.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
+bwd_dx_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
+                   const float* __restrict__ shift, const bf16* __restrict__ w,
+                   const bf16* __restrict__ res, const bf16* __restrict__ y,
+                   const bf16* __restrict__ dy, const float* __restrict__ d1,
+                   const float* __restrict__ d2, bf16* __restrict__ du,
+                   bf16* __restrict__ dres, float* __restrict__ part, int N,
+                   int Cin, int Cout, int relu) {
+  using S = DxBf16Smem<T>;
+  constexpr int BM = T::BM, BN = T::BN, MT = T::MT, NT = T::NT;
+  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  float* red = reinterpret_cast<float*>(smem_b + (size_t)STAGES * S::STAGE_BYTES);
+  float* sc = red + 2 * T::WM * BN;   // scale, shift of the tile's channels
+  float* sh = sc + BN;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wa = (warp % T::WM) * MT * 16, wb = (warp / T::WM) * NT * 8;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const int KT = (Cout + BK16 - 1) / BK16;
+
+  for (int c = threadIdx.x; c < BN; c += THREADS) {
+    sc[c] = col0 + c < Cin ? scale[col0 + c] : 0.f;
+    sh[c] = col0 + c < Cin ? shift[col0 + c] : 0.f;
+  }
+
+  auto load = [&](int kt) {
+    bf16* ds = reinterpret_cast<bf16*>(smem_b + (size_t)(kt % STAGES) * S::STAGE_BYTES);
+    const int k0 = kt * BK16;
+    load_window_bf16<BM, BK16, THREADS>(ds, S::LD, dy, Cout, row0, N, k0, Cout);
+    load_window_bf16<BM, BK16, THREADS>(ds + S::A, S::LD, y, Cout, row0, N, k0,
+                                        Cout);
+    load_window_bf16<BN, BK16, THREADS>(ds + 2 * S::A, S::LD, w, Cout, col0,
+                                        Cin, k0, Cout);
+    float* e = reinterpret_cast<float*>(ds + 2 * S::A + S::W);
+    load_window<1, BK16, 4, THREADS>(e, 0, d1, 0, 0, 1, k0, Cout);
+    load_window<1, BK16, 4, THREADS>(e + BK16, 0, d2, 0, 0, 1, k0, Cout);
+  };
+
+  float acc[MT][NT][4];
+  zero_acc(acc);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < KT) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage kt has landed; stage kt - 1 is free
+    if (kt + STAGES - 1 < KT) load(kt + STAGES - 1);
+    cp_async_commit();
+    bf16* ds = reinterpret_cast<bf16*>(
+        smem_b + (size_t)(kt % STAGES) * S::STAGE_BYTES);
+    const bf16* ws = ds + 2 * S::A;
+    const float* e1 = reinterpret_cast<const float*>(ws + S::W);
+    const float* e2 = e1 + BK16;
+    // dy_eff = dy + d1 + 2 y d2, rounded as PyTorch rounds
+    for (int c = threadIdx.x; c < BM * BK16 / 8; c += THREADS) {
+      const int r = c / (BK16 / 8), k = (c % (BK16 / 8)) * 8;
+      uint4* p = reinterpret_cast<uint4*>(ds + r * S::LD + k);
+      float f[8], q[8];
+      unpack8(*p, f);
+      unpack8(*reinterpret_cast<const uint4*>(ds + S::A + r * S::LD + k), q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        f[e] = __fadd_rn(__fadd_rn(f[e], e1[k + e]),
+                         __fmul_rn(q[e], 2.f * e2[k + e]));
+      *p = pack8(f);
+    }
+    __syncthreads();
+    mma_stage<MT, NT, false, false>(acc, ds, S::LD, ws, S::LD, wa, wb, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: u (and res) are staged there
+
+  // u's (and res's) tile [BM][BN + 8] by 16-byte cp.async; du and dres
+  // overwrite them in place, then leave in 16-byte words
+  const bool has_res = res != nullptr;
+  bf16* ut = reinterpret_cast<bf16*>(smem_b);
+  bf16* rt = ut + BM * S::ULD;
+  load_window_bf16<BM, BN, THREADS>(ut, S::ULD, u, Cin, row0, N, col0, Cin);
+  if (has_res)
+    load_window_bf16<BM, BN, THREADS>(rt, S::ULD, res, Cin, row0, N, col0,
+                                      Cin);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  float ps[NT][2], pt[NT][2];  // the thread's columns' sums of dz*u, dz
+#pragma unroll
+  for (int j = 0; j < NT; ++j) ps[j][0] = ps[j][1] = pt[j][0] = pt[j][1] = 0.f;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = wa + i * 16 + g + 8 * h;
+      const bool in = row0 + m < N;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = wb + j * 8 + 2 * t;  // and n + 1 (Cin % 8 == 0)
+        unsigned* up = reinterpret_cast<unsigned*>(ut + m * S::ULD + n);
+        unsigned* rp = reinterpret_cast<unsigned*>(rt + m * S::ULD + n);
+        const unsigned uw = *up, rw = has_res ? *rp : 0u;
+        const float uu[2] = {bf16_lo(uw), bf16_hi(uw)};
+        const float rr[2] = {bf16_lo(rw), bf16_hi(rw)};
+        float gv[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          float p = __fadd_rn(__fmul_rn(uu[q], sc[n + q]), sh[n + q]);
+          if (has_res) p = __fadd_rn(p, rr[q]);
+          if ((relu && !(p > 0.f)) || !in || col0 + n >= Cin) gv[q] = 0.f;
+        }
+        *up = pack_bf16x2(__fmul_rn(gv[0], sc[n]), __fmul_rn(gv[1], sc[n + 1]));
+        if (has_res) *rp = pack_bf16x2(gv[0], gv[1]);
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          ps[j][q] = fmaf(gv[q], uu[q], ps[j][q]);
+          pt[j][q] = __fadd_rn(pt[j][q], gv[q]);
+        }
+      }
+    }
+  __syncthreads();
+  store_tile_bf16<BM, BN, THREADS>(du, Cin, row0, N, col0, Cin, ut, S::ULD);
+  if (dres != nullptr)
+    store_tile_bf16<BM, BN, THREADS>(dres, Cin, row0, N, col0, Cin, rt,
+                                     S::ULD);
+  block_col_partials<T>(ps, pt, red, part, col0, Cin);
+}
+
+// B3's stage: u (and res) [BK16 rows][BM + 8] and y, dy [BK16][BN + 8]
+// (bf16), as they lie in device memory; after the ring the thread's f32
+// sums of its accumulators [MT * NT * 4][THREADS], then the tile's scale
+// and shift [BM] and d1, 2 * d2 [BN] (f32)
+template <class T>
+struct DwBf16Smem {
+  static constexpr int ULD = T::BM + 8, YLD = T::BN + 8;
+  static constexpr int U = BK16 * ULD, Y = BK16 * YLD;   // bf16 elements
+  __host__ __device__ static constexpr int stage_bytes(bool has_res) {
+    return 2 * ((has_res ? 2 : 1) * U + 2 * Y);
+  }
+  static constexpr int TOTAL = T::MT * T::NT * 4 * T::THREADS;  // floats
+  static constexpr size_t bytes(bool has_res) {
+    return (size_t)T::STAGES * stage_bytes(has_res) +
+           sizeof(float) * (TOTAL + 2 * T::BM + 2 * T::BN);
+  }
+};
+
+// ------------------------------------------------------------- B3, bf16
+// dw = z^T @ dy_eff: M = Cin, N = Cout, K = rows. Block (m, n, s) sums the
+// rows [s * chunk, + chunk) into out[s]. A landed stage's u tile becomes z =
+// act(pre) in place (rows past the chunk z = 0), its dy tile dy_eff; A is
+// stored [k][m] and B [k][n], both read by ldmatrix.trans.
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
+bwd_dw_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
+                   const float* __restrict__ shift, const bf16* __restrict__ res,
+                   const bf16* __restrict__ y, const bf16* __restrict__ dy,
+                   const float* __restrict__ d1, const float* __restrict__ d2,
+                   float* __restrict__ out, int N, int Cin, int Cout, int relu,
+                   int chunk) {
+  using S = DwBf16Smem<T>;
+  constexpr int BM = T::BM, BN = T::BN, MT = T::MT, NT = T::NT;
+  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
+  extern __shared__ __align__(16) unsigned char smem_b[];
+  const bool has_res = res != nullptr;
+  const int stage = S::stage_bytes(has_res);
+  const int ya = (has_res ? 2 : 1) * S::U;   // y after u (and res)
+  float* total = reinterpret_cast<float*>(smem_b + (size_t)STAGES * stage);
+  float* sc = total + S::TOTAL;   // the tile's channels' scale, shift
+  float* sh = sc + BM;
+  float* e1 = sh + BM;            // its outputs' d1, 2 * d2
+  float* e2 = e1 + BN;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wa = (warp % T::WM) * MT * 16, wb = (warp / T::WM) * NT * 8;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int r_begin = blockIdx.z * chunk;
+  const int r_end = min(r_begin + chunk, N);
+  const int steps = (r_end - r_begin + BK16 - 1) / BK16;
+
+  for (int c = threadIdx.x; c < BM; c += THREADS) {
+    sc[c] = m0 + c < Cin ? scale[m0 + c] : 0.f;
+    sh[c] = m0 + c < Cin ? shift[m0 + c] : 0.f;
+  }
+  for (int c = threadIdx.x; c < BN; c += THREADS) {
+    e1[c] = n0 + c < Cout ? d1[n0 + c] : 0.f;
+    e2[c] = n0 + c < Cout ? 2.f * d2[n0 + c] : 0.f;
+  }
+
+  auto load = [&](int step) {
+    bf16* us = reinterpret_cast<bf16*>(smem_b + (size_t)(step % STAGES) * stage);
+    const int r0 = r_begin + step * BK16;
+    load_window_bf16<BK16, BM, THREADS>(us, S::ULD, u, Cin, r0, r_end, m0, Cin);
+    if (has_res)
+      load_window_bf16<BK16, BM, THREADS>(us + S::U, S::ULD, res, Cin, r0,
+                                          r_end, m0, Cin);
+    load_window_bf16<BK16, BN, THREADS>(us + ya, S::YLD, y, Cout, r0, r_end,
+                                        n0, Cout);
+    load_window_bf16<BK16, BN, THREADS>(us + ya + S::Y, S::YLD, dy, Cout, r0,
+                                        r_end, n0, Cout);
+  };
+
+  float acc[MT][NT][4];
+  zero_acc(acc);
+  // total += acc, acc = 0 (each thread its own words: no barrier)
+  auto flush = [&]() {
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float* p = total + ((i * NT + j) * 4 + c) * THREADS + threadIdx.x;
+          *p = __fadd_rn(*p, acc[i][j][c]);
+          acc[i][j][c] = 0.f;
+        }
+  };
+#pragma unroll
+  for (int e = 0; e < MT * NT * 4; ++e) total[e * THREADS + threadIdx.x] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    if (it % BF_FLUSH == 0 && it > 0) flush();
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage it has landed; stage it - 1 is free
+    if (it + STAGES - 1 < steps) load(it + STAGES - 1);
+    cp_async_commit();
+    bf16* us = reinterpret_cast<bf16*>(smem_b + (size_t)(it % STAGES) * stage);
+    bf16* ys = us + ya;
+    bf16* ds = ys + S::Y;
+    const int live = r_end - (r_begin + it * BK16);   // rows of the chunk
+    // z = act(u * scale + shift [+ res]) of the channels, 0 past the chunk
+    for (int c = threadIdx.x; c < BK16 * BM / 8; c += THREADS) {
+      const int r = c / (BM / 8), m = (c % (BM / 8)) * 8;
+      uint4* p = reinterpret_cast<uint4*>(us + r * S::ULD + m);
+      float f[8], q[8];
+      unpack8(*p, f);
+      if (has_res)
+        unpack8(*reinterpret_cast<const uint4*>(us + S::U + r * S::ULD + m), q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        f[e] = __fadd_rn(__fmul_rn(f[e], sc[m + e]), sh[m + e]);
+        if (has_res) f[e] = __fadd_rn(f[e], q[e]);
+        if (relu) f[e] = fmaxf(f[e], 0.f);
+        if (r >= live) f[e] = 0.f;
+      }
+      *p = pack8(f);
+    }
+    // dy_eff = dy + d1 + 2 y d2 of the outputs
+    for (int c = threadIdx.x; c < BK16 * BN / 8; c += THREADS) {
+      const int r = c / (BN / 8), n = (c % (BN / 8)) * 8;
+      uint4* p = reinterpret_cast<uint4*>(ds + r * S::YLD + n);
+      float f[8], q[8];
+      unpack8(*p, f);
+      unpack8(*reinterpret_cast<const uint4*>(ys + r * S::YLD + n), q);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        f[e] = __fadd_rn(__fadd_rn(f[e], e1[n + e]), __fmul_rn(q[e], e2[n + e]));
+      *p = pack8(f);
+    }
+    __syncthreads();
+    mma_stage<MT, NT, true, true>(acc, us, S::ULD, ds, S::YLD, wa, wb, lane);
+  }
+  cp_async_wait<0>();
+  flush();
+
+  float* dst = out + (size_t)blockIdx.z * Cin * Cout;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wa + i * 16 + g + 8 * h;
+      if (m >= Cin) continue;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + wb + j * 8 + 2 * t;  // and n + 1 (Cout % 8 == 0)
+        if (n >= Cout) continue;
+        const float* tt = total + ((i * NT + j) * 4 + 2 * h) * THREADS + threadIdx.x;
+        *reinterpret_cast<float2*>(dst + (size_t)m * Cout + n) =
+            make_float2(tt[0], tt[THREADS]);
+      }
+    }
+}
+
+// The bf16 tiles. B1 and B2 take 128 rows by 64 columns (Cout or Cin <= 64;
+// 8 warps of 32 x 32) or by 128 (8 warps of 32 x 64), two blocks an SM; B3
+// 64 or 128 channels by 64 or 128 outputs.
+using Bf16Narrow = Tile<128, 64, 4, 2, 3, 2>;
+using Bf16Wide = Tile<128, 128, 4, 2, 3, 2>;
+using Bf16Dw64x64 = Tile<64, 64, 2, 2, 3, 3>;
+using Bf16Dw64x128 = Tile<64, 128, 2, 4, 3, 2>;
+using Bf16Dw128x64 = Tile<128, 64, 4, 2, 3, 2>;
+using Bf16Dw128x128 = Tile<128, 128, 4, 4, 3, 1>;
+static_assert(FwdBf16Smem<Bf16Wide>::bytes(true) <= SMEM_LIMIT / 2 &&
+                  DxBf16Smem<Bf16Wide>::BYTES <= SMEM_LIMIT / 2 &&
+                  DwBf16Smem<Bf16Dw128x128>::bytes(true) <= SMEM_LIMIT,
+              "the bf16 forms' shared memory");
+
+inline bool wide_bf16(int C) { return C > 64; }
+
+// B3's bf16 tile (by the widths) and split of the N rows: chunks of a
+// multiple of BK16 rows, ~2 blocks an SM in all, none shorter than 256
+DwPlan dw_plan_bf16(int N, int Cin, int Cout) {
+  DwPlan p;
+  p.bm = Cin <= 64 ? 64 : 128;
+  p.bn = Cout <= 64 ? 64 : 128;
+  const int tiles = cdiv(Cin, p.bm) * cdiv(Cout, p.bn);
+  int splits = 2 * SM_COUNT / tiles;
+  const int most = N / 256 > 1 ? N / 256 : 1;
+  if (splits > most) splits = most;
+  if (splits < 1) splits = 1;
+  p.chunk = cdiv(cdiv(N, splits), BK16) * BK16;
+  p.splits = cdiv(N, p.chunk);
+  return p;
+}
+
+template <class T>
+cudaError_t launch_fwd_bf16(const bf16* u, const float* scale,
+                            const float* shift, const bf16* w, const bf16* res,
+                            bf16* y, float* part, int N, int Cin, int Cout,
+                            int relu, cudaStream_t st) {
+  const size_t bytes = FwdBf16Smem<T>::bytes(res != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(N, T::BM), cdiv(Cout, T::BN));
+  fwd_bf16_kernel<T><<<grid, T::THREADS, bytes, st>>>(
+      u, scale, shift, w, res, y, part, N, Cin, Cout, relu);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_bwd_dx_bf16(const bf16* u, const float* scale,
+                               const float* shift, const bf16* w,
+                               const bf16* res, const bf16* y, const bf16* dy,
+                               const float* d1, const float* d2, bf16* du,
+                               bf16* dres, float* part, int N, int Cin,
+                               int Cout, int relu, cudaStream_t st) {
+  constexpr size_t bytes = DxBf16Smem<T>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dx_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(N, T::BM), cdiv(Cin, T::BN));
+  bwd_dx_bf16_kernel<T><<<grid, T::THREADS, bytes, st>>>(
+      u, scale, shift, w, res, y, dy, d1, d2, du, dres, part, N, Cin, Cout,
+      relu);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_bwd_dw_bf16(const bf16* u, const float* scale,
+                               const float* shift, const bf16* res,
+                               const bf16* y, const bf16* dy, const float* d1,
+                               const float* d2, float* out, int N, int Cin,
+                               int Cout, int relu, const DwPlan& plan,
+                               cudaStream_t st) {
+  const size_t bytes = DwBf16Smem<T>::bytes(res != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dw_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(cdiv(Cin, T::BM), cdiv(Cout, T::BN), plan.splits);
+  bwd_dw_bf16_kernel<T><<<grid, T::THREADS, bytes, st>>>(
+      u, scale, shift, res, y, dy, d1, d2, out, N, Cin, Cout, relu,
+      plan.chunk);
+  return cudaGetLastError();
+}
+
+// what the bf16 kernels take: widths multiples of 8, every array 16-byte
+// aligned (the copies move 8 bf16, the pair loads and stores 4 bytes)
+inline bool bf16_ok(int Cin, int Cout, const void* const* ptrs, int n) {
+  if (Cin % 8 != 0 || Cout % 8 != 0) return false;
+  for (int i = 0; i < n; ++i)
+    if (ptrs[i] != nullptr && !aligned16(ptrs[i])) return false;
+  return true;
+}
+
 }  // namespace
 
 // Floats of scratch a call needs: kind 0 = B1 ([2, blocks, Cout]),
@@ -1147,4 +1834,136 @@ extern "C" int bn_act_conv1x1_bwd_dw(const float* u, const float* scale,
 
 extern "C" const char* bn_act_conv1x1_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// ------------------------------------------------------ the bf16 entry points
+// As the f32 ones, with u, w, res, y, dy, du and dres bf16 (the pointers
+// are void* for C) and scale, shift, d1, d2, ssum, ssq, dscale, dshift and
+// dw f32. Widths not multiples of 8, or an array not 16-byte aligned,
+// return cudaErrorInvalidValue and launch nothing.
+extern "C" long long bn_act_conv1x1_scratch_floats_bf16(int kind, int N,
+                                                        int Cin, int Cout) {
+  if (kind == 0) return 2LL * cdiv(N, Bf16Narrow::BM) * Cout;
+  if (kind == 1) return 2LL * cdiv(N, Bf16Narrow::BM) * Cin;
+  const DwPlan plan = dw_plan_bf16(N, Cin, Cout);
+  return plan.splits > 1 ? (long long)plan.splits * Cin * Cout : 0;
+}
+
+extern "C" void bn_act_conv1x1_plan_bf16(int kind, int N, int Cin, int Cout,
+                                         int has_res, long long* out) {
+  const bool r = has_res != 0;
+  out[4] = 0;
+  if (kind == 0 || kind == 1) {
+    const bool wide = wide_bf16(kind == 0 ? Cout : Cin);
+    out[0] = wide ? Bf16Wide::BM : Bf16Narrow::BM;
+    out[1] = wide ? Bf16Wide::BN : Bf16Narrow::BN;
+    out[2] = (long long)cdiv(N, out[0]) * cdiv(kind == 0 ? Cout : Cin, out[1]);
+    if (kind == 0)
+      out[3] = wide ? FwdBf16Smem<Bf16Wide>::bytes(r)
+                    : FwdBf16Smem<Bf16Narrow>::bytes(r);
+    else
+      out[3] = wide ? DxBf16Smem<Bf16Wide>::BYTES : DxBf16Smem<Bf16Narrow>::BYTES;
+    return;
+  }
+  const DwPlan plan = dw_plan_bf16(N, Cin, Cout);
+  out[0] = plan.bm;
+  out[1] = plan.bn;
+  out[2] = (long long)cdiv(Cin, plan.bm) * cdiv(Cout, plan.bn) * plan.splits;
+  out[3] = plan.bm == 64 ? (plan.bn == 64 ? DwBf16Smem<Bf16Dw64x64>::bytes(r)
+                                          : DwBf16Smem<Bf16Dw64x128>::bytes(r))
+                         : (plan.bn == 64 ? DwBf16Smem<Bf16Dw128x64>::bytes(r)
+                                          : DwBf16Smem<Bf16Dw128x128>::bytes(r));
+}
+
+extern "C" int bn_act_conv1x1_fwd_bf16(const void* u, const float* scale,
+                                       const float* shift, const void* w,
+                                       const void* res, void* y, float* ssum,
+                                       float* ssq, float* scratch, int N,
+                                       int Cin, int Cout, int relu, int device,
+                                       void* stream) {
+  const void* ptrs[] = {u, scale, shift, w, res, y};
+  if (!bf16_ok(Cin, Cout, ptrs, 6)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bf16 *ub = static_cast<const bf16*>(u), *wb = static_cast<const bf16*>(w),
+             *rb = static_cast<const bf16*>(res);
+  bf16* yb = static_cast<bf16*>(y);
+  if (wide_bf16(Cout))
+    err = launch_fwd_bf16<Bf16Wide>(ub, scale, shift, wb, rb, yb, scratch, N,
+                                    Cin, Cout, relu, st);
+  else
+    err = launch_fwd_bf16<Bf16Narrow>(ub, scale, shift, wb, rb, yb, scratch, N,
+                                      Cin, Cout, relu, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)col_reduce(scratch, ssum, ssq, cdiv(N, Bf16Narrow::BM), Cout,
+                         st);
+}
+
+extern "C" int bn_act_conv1x1_bwd_dx_bf16(
+    const void* u, const float* scale, const float* shift, const void* w,
+    const void* res, const void* y, const void* dy, const float* d1,
+    const float* d2, void* du, void* dres, float* dscale, float* dshift,
+    float* scratch, int N, int Cin, int Cout, int relu, int device,
+    void* stream) {
+  const void* ptrs[] = {u, scale, shift, w, res, y, dy, d1, d2, du, dres};
+  if (!bf16_ok(Cin, Cout, ptrs, 11)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bf16 *ub = static_cast<const bf16*>(u), *wb = static_cast<const bf16*>(w),
+             *rb = static_cast<const bf16*>(res),
+             *yb = static_cast<const bf16*>(y),
+             *dyb = static_cast<const bf16*>(dy);
+  bf16 *dub = static_cast<bf16*>(du), *drb = static_cast<bf16*>(dres);
+  if (wide_bf16(Cin))
+    err = launch_bwd_dx_bf16<Bf16Wide>(ub, scale, shift, wb, rb, yb, dyb, d1,
+                                       d2, dub, drb, scratch, N, Cin, Cout,
+                                       relu, st);
+  else
+    err = launch_bwd_dx_bf16<Bf16Narrow>(ub, scale, shift, wb, rb, yb, dyb, d1,
+                                         d2, dub, drb, scratch, N, Cin, Cout,
+                                         relu, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)col_reduce(scratch, dscale, dshift, cdiv(N, Bf16Narrow::BM), Cin,
+                         st);
+}
+
+extern "C" int bn_act_conv1x1_bwd_dw_bf16(const void* u, const float* scale,
+                                          const float* shift, const void* res,
+                                          const void* y, const void* dy,
+                                          const float* d1, const float* d2,
+                                          float* dw, float* scratch, int N,
+                                          int Cin, int Cout, int relu,
+                                          int device, void* stream) {
+  const void* ptrs[] = {u, res, y, dy, dw};
+  if (!bf16_ok(Cin, Cout, ptrs, 5)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const bf16 *ub = static_cast<const bf16*>(u), *rb = static_cast<const bf16*>(res),
+             *yb = static_cast<const bf16*>(y),
+             *dyb = static_cast<const bf16*>(dy);
+  const DwPlan plan = dw_plan_bf16(N, Cin, Cout);
+  float* out = plan.splits > 1 ? scratch : dw;
+  if (plan.bm == 64 && plan.bn == 64)
+    err = launch_bwd_dw_bf16<Bf16Dw64x64>(ub, scale, shift, rb, yb, dyb, d1, d2,
+                                          out, N, Cin, Cout, relu, plan, st);
+  else if (plan.bm == 64)
+    err = launch_bwd_dw_bf16<Bf16Dw64x128>(ub, scale, shift, rb, yb, dyb, d1,
+                                           d2, out, N, Cin, Cout, relu, plan,
+                                           st);
+  else if (plan.bn == 64)
+    err = launch_bwd_dw_bf16<Bf16Dw128x64>(ub, scale, shift, rb, yb, dyb, d1,
+                                           d2, out, N, Cin, Cout, relu, plan,
+                                           st);
+  else
+    err = launch_bwd_dw_bf16<Bf16Dw128x128>(ub, scale, shift, rb, yb, dyb, d1,
+                                            d2, out, N, Cin, Cout, relu, plan,
+                                            st);
+  if (err != cudaSuccess || plan.splits == 1) return (int)err;
+  const size_t count = (size_t)Cin * Cout;
+  split_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(
+      scratch, dw, plan.splits, count);
+  return (int)cudaGetLastError();
 }

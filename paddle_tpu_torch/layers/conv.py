@@ -7,7 +7,9 @@ parameter dict feeds both packages. The convolution itself is
 channels-last, so the permute copies nothing, and the output's NHWC
 view is contiguous again. The JAX package leaves these convolutions to
 XLA (`lax.conv_general_dilated`) outside any Pallas kernel, as the port
-leaves them to cuDNN, with TF32 off (`core/device.py`).
+leaves them to cuDNN, with TF32 off (`core/device.py`). bf16 input (the
+AMP rule) gives bf16 output, cuDNN's bf16 convolution with f32
+accumulation, as the JAX layer keeps bf16 outputs.
 
 Left out, still to port (ROADMAP A9): `ConvTransLayer` and
 `ConvOperatorLayer`.

@@ -18,7 +18,10 @@ _bottleneck`, fused=True):
 Parameter names and state slots are the JAX package's (`w0`, `g`, `b`;
 `w0`, `gi`, `bi`, `go`, `bo`; `mean`/`var`; `in_mean`, `in_var`,
 `out_mean`, `out_var`). The running statistics are updated detached
-(`layers/norm.py::running_update`).
+(`layers/norm.py::running_update`). Under the AMP rule the activations,
+w and y are bf16 (the op's bf16 form), the folded affines and the
+statistics f32 (the in-BN's one-pass, `layers/norm.py::moments`), and
+the out-BN normalize runs in y's dtype, as in the JAX layers.
 """
 
 from __future__ import annotations
@@ -29,14 +32,8 @@ from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.config import ParameterConf
 from paddle_tpu_torch.core.registry import LAYERS
 from paddle_tpu_torch.layers.base import Layer, Spec
-from paddle_tpu_torch.layers.norm import running_update
+from paddle_tpu_torch.layers.norm import bn_affine, moments, running_update
 from paddle_tpu_torch.ops.bn_act_conv1x1 import bn_act_conv1x1
-
-
-def bn_affine(gamma, beta, mean, var, eps):
-    """BN normalize folded to per-channel (scale, shift), f32."""
-    scale = gamma * torch.rsqrt(var + eps)
-    return scale, beta - mean * scale
 
 
 def moments_from_epilogue(s1, s2, n):
@@ -44,14 +41,6 @@ def moments_from_epilogue(s1, s2, n):
     (clamped at 0), as the JAX layers take them."""
     mean = s1 / n
     return mean, torch.clamp_min(s2 / n - torch.square(mean), 0.0)
-
-
-def in_moments(x):
-    """The tail's in-BN statistics over the raw conv output, f32: the
-    mean and the centered variance (layers/norm.py's f32 form)."""
-    red = (0, 1, 2)
-    mean = x.mean(dim=red)
-    return mean, torch.square(x - mean).mean(dim=red)
 
 
 def _bn_param_confs(layer, c, prefix):
@@ -114,8 +103,8 @@ class FusedConv1x1BN(Layer):
         b, h, w, _c = x.shape
         n = b * h * w
         cin = self._in_shape[2]
-        ones = torch.ones((cin,), dtype=x.dtype, device=x.device)
-        zeros = torch.zeros((cin,), dtype=x.dtype, device=x.device)
+        ones = torch.ones((cin,), device=x.device)
+        zeros = torch.zeros((cin,), device=x.device)
         y2d, s1, s2 = bn_act_conv1x1(_rows(x), ones, zeros, params["w0"],
                                      act="")
         st = ctx.state[self.name]
@@ -127,7 +116,8 @@ class FusedConv1x1BN(Layer):
             ctx.updated_state[self.name] = running_update(
                 st, {"mean": mean, "var": var}, frac)
         scale, shift = bn_affine(params["g"], params["b"], mean, var, eps)
-        y = y2d.reshape(b, h, w, -1) * scale + shift
+        y = y2d.reshape(b, h, w, -1)
+        y = y * scale.to(y.dtype) + shift.to(y.dtype)
         y = self.apply_activation_and_dropout(y, ctx, arg.seq_lens)
         return Arg(value=y, seq_lens=arg.seq_lens)
 
@@ -178,11 +168,12 @@ class FusedBottleneckTail(Layer):
         n = b * h * w
         st = ctx.state[self.name]
 
-        # in-BN statistics over the raw conv output with plain ops
+        # in-BN statistics over the raw conv output with plain ops (one
+        # pass for bf16, layers/norm.py's rule)
         if use_global:
             in_mean, in_var = st["in_mean"], st["in_var"]
         else:
-            in_mean, in_var = in_moments(x)
+            in_mean, in_var = moments(x)
         scale_i, shift_i = bn_affine(params["gi"], params["bi"], in_mean,
                                      in_var, eps)
         # the residual joins after the out-BN, as in the JAX layer — the
@@ -199,7 +190,8 @@ class FusedBottleneckTail(Layer):
                 "out_mean": out_mean, "out_var": out_var}, frac)
         scale_o, shift_o = bn_affine(params["go"], params["bo"], out_mean,
                                      out_var, eps)
-        y = y2d.reshape(b, h, w, -1) * scale_o + shift_o
+        y = y2d.reshape(b, h, w, -1)
+        y = y * scale_o.to(y.dtype) + shift_o.to(y.dtype)
         if res is not None:
             y = y + res
         y = self.apply_activation_and_dropout(y, ctx, arg.seq_lens)

@@ -3,13 +3,16 @@ torch.
 
 Running mean and variance live in the network's state, not its
 parameters, and are never differentiated: the running-average update
-runs under `torch.no_grad()`. The statistics follow the JAX package for
-f32 input: the mean in one reduction, the centered variance
-E[(x - mean)^2] (no E[x^2] - E[x]^2 cancellation), over every axis but
-the channel one, with padded timesteps of a sequence masked out.
+runs under `torch.no_grad()`. The statistics follow the JAX package,
+over every axis but the channel one, with padded timesteps of a
+sequence masked out, accumulated in f32: for f32 input the mean and
+the centered variance E[(x - mean)^2] (no cancellation); for bf16
+input (the AMP rule) one pass, E[x] and E[x^2] - E[x]^2 clamped at 0,
+with x^2 rounded to bf16 as the JAX layer squares it. The affine
+y = x * scale + offset runs in x's dtype.
 
 Left out, still to port (ROADMAP A9): `norm` (cross-map LRN) and
-`row_l2_norm`, and the bf16 one-pass statistics of the AMP rule.
+`row_l2_norm`.
 """
 
 from __future__ import annotations
@@ -58,36 +61,54 @@ class BatchNormLayer(Layer):
     def forward(self, params, inputs, ctx):
         (arg,) = inputs
         a = self.conf.attrs
-        if arg.value.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{self.name}: batch_norm runs f32 only (the bf16 one-pass "
-                "statistics come with the AMP rule)")
         eps = a.get("epsilon", 1e-5)
         frac = a.get("moving_average_fraction", 0.9)
         use_global = a.get("use_global_stats", False) or not ctx.train
         x = arg.value
         st = ctx.state[self.name]
-        red = tuple(range(x.ndim - 1))
         if use_global:
             mean, var = st["mean"], st["var"]
             ctx.updated_state[self.name] = st
         else:
+            m = None
             if arg.is_seq:
                 # mask padded timesteps out of the statistics: padding
                 # must never affect results (core/arg.py)
                 m = arg.mask(x.dtype).reshape(
                     x.shape[:2] + (1,) * (x.ndim - 2))
-                n = torch.clamp(m.sum(), min=1.0) * (
-                    x.numel() / (x.shape[0] * x.shape[1] * x.shape[-1]))
-                mean = (x * m).sum(dim=red) / n
-                var = torch.square((x - mean) * m).sum(dim=red) / n
-            else:
-                mean = x.mean(dim=red)
-                var = torch.square(x - mean).mean(dim=red)
+            mean, var = moments(x, m)
             ctx.updated_state[self.name] = running_update(
                 st, {"mean": mean, "var": var}, frac)
-        scale = params["w0"] * torch.rsqrt(var + eps)
-        offset = params["b"] - mean * scale
-        y = x * scale + offset
+        scale, offset = bn_affine(params["w0"], params["b"], mean, var, eps)
+        y = x * scale.to(x.dtype) + offset.to(x.dtype)
         y = self.apply_activation_and_dropout(y, ctx, arg.seq_lens)
         return Arg(value=y, seq_lens=arg.seq_lens)
+
+
+def bn_affine(gamma, beta, mean, var, eps):
+    """BN normalize folded to per-channel (scale, shift), f32."""
+    f32 = torch.float32
+    scale = gamma.to(f32) * torch.rsqrt(var.to(f32) + eps)
+    return scale, beta.to(f32) - mean.to(f32) * scale
+
+
+def moments(x, m=None):
+    """f32 (mean, var) over every axis of x but the last; m, x's 0/1
+    mask broadcast over its trailing axes, leaves masked positions out.
+    f32 x: the centered variance; bf16 x: one pass, E[x^2] - E[x]^2
+    clamped at 0 (the JAX layers' two forms)."""
+    f32 = torch.float32
+    red = tuple(range(x.ndim - 1))
+    if m is None:
+        mean = x.mean(dim=red, dtype=f32)
+        if x.dtype == f32:
+            return mean, torch.square(x - mean).mean(dim=red)
+        msq = torch.square(x).mean(dim=red, dtype=f32)
+    else:
+        n = torch.clamp(m.sum(dtype=f32), min=1.0) * (
+            x.numel() / (x.shape[0] * x.shape[1] * x.shape[-1]))
+        mean = (x * m).sum(dim=red, dtype=f32) / n
+        if x.dtype == f32:
+            return mean, torch.square((x - mean) * m).sum(dim=red) / n
+        msq = (torch.square(x) * m).sum(dim=red, dtype=f32) / n
+    return mean, torch.clamp_min(msq - torch.square(mean), 0.0)

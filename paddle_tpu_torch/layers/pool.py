@@ -7,6 +7,8 @@ with -inf; average pooling leaves the padding out of the divisor
 the padding exceeds half the window, which PyTorch's pooling refuses,
 the input is padded explicitly: with -inf for max; for avg, a sum
 over the zero-padded input is divided by a count of real elements.
+Pooling runs in the input's dtype (bf16 under the AMP rule; PyTorch's
+average pooling accumulates a bf16 window in f32).
 
 Left out, still to port (ROADMAP A9): `maxout`, `spp` and
 `blockexpand`.

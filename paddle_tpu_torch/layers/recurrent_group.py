@@ -144,15 +144,20 @@ class RecurrentGroupLayer(Layer):
             outs, _ = self.step_net.forward(params, feed, train=ctx.train,
                                             rng=ctx.rng)
             m_t = mask[:, t, None]
+            # each carry keeps its dtype across steps (under the AMP rule
+            # a bf16 step output must not turn an f32 carry into bf16,
+            # nor the f32 mask a bf16 carry into f32), as the JAX scan
             carry = {
                 m["layer"]: (m_t * outs[m["layer"]].value
-                             + (1.0 - m_t) * carry[m["layer"]])
+                             + (1.0 - m_t) * carry[m["layer"]]
+                             ).to(carry[m["layer"]].dtype)
                 for m in self.memories
             }
             out = outs[out_name]
             y = out.ids if out.ids is not None else out.value
             if y.is_floating_point():
-                y = y * mask[:, t].reshape((bsz,) + (1,) * (y.ndim - 1))
+                y = y * mask[:, t].reshape(
+                    (bsz,) + (1,) * (y.ndim - 1)).to(y.dtype)
             ys.append(y)
         y = torch.stack(ys, dim=1)
         if self.reversed:

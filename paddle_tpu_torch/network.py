@@ -11,9 +11,15 @@ Layer state (BatchNorm's running statistics) is a {layer: {slot:
 tensor}} dict beside the parameters: `init_state` makes it on a device,
 `forward` returns the new one, and it is never differentiated.
 
-Left out, still to port: the mixed-precision cast rule (the
-`matmul_precision` flag asking for bf16 raises here), per-layer
-`out_sharding` placement, and extra outputs of layer groups.
+Mixed precision (the `matmul_precision` flag at "bfloat16" or "bf16"),
+the JAX package's cast rule: master parameters stay f32; on each
+consuming edge a compute layer gets bf16 operands and bf16 views of its
+parameters, and a cost layer gets f32 ones, so targets and the loss
+math keep full precision. The casts are `.to()` on the autograd graph,
+so gradients reach the f32 masters in f32.
+
+Left out, still to port: per-layer `out_sharding` placement (ROADMAP
+A8) and extra outputs of layer groups (ROADMAP A1).
 """
 
 from __future__ import annotations
@@ -30,6 +36,17 @@ from paddle_tpu_torch.layers.base import Ctx, create_layer, init_parameter
 
 # ensure all layer types are registered
 import paddle_tpu_torch.layers  # noqa: E402,F401
+
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _cast_arg(a: Arg, dtype) -> Arg:
+    """An Arg with its float value cast to `dtype` (ids and lens as
+    they are)."""
+    if a.value is None or a.value.dtype not in _FLOATS or (
+            a.value.dtype == dtype):
+        return a
+    return a.with_value(a.value.to(dtype))
 
 
 class Network:
@@ -148,12 +165,7 @@ class Network:
         new_state). `feed` maps data-layer names to Arg. With `outputs`,
         only their ancestors run (inference prunes cost layers and
         their label inputs)."""
-        if _flags.get_flag("matmul_precision") in ("bfloat16", "bf16"):
-            raise NotImplementedError(
-                "the port's Network runs f32 only: the bf16 mixed-"
-                "precision cast rule is not ported yet (set the "
-                "matmul_precision flag to 'default')"
-            )
+        amp = _flags.get_flag("matmul_precision") in ("bfloat16", "bf16")
         if state is None:
             # a stateful layer has parameters: its state starts on their
             # device
@@ -182,9 +194,20 @@ class Network:
                 continue
             inputs = [outs[n] for n in lc.input_names()]
             layer = self.layers[name]
+            layer_params = self._layer_param_view(name, params)
+            if amp:
+                # per consuming edge: a cost layer sees f32 (a target
+                # straight from the feed keeps full precision even where
+                # the same data layer feeds compute layers), every other
+                # layer computes in bf16
+                to = (torch.float32 if getattr(layer, "is_cost", False)
+                      else torch.bfloat16)
+                inputs = [_cast_arg(a, to) for a in inputs]
+                layer_params = {
+                    k: v.to(to) if v.dtype in _FLOATS else v
+                    for k, v in layer_params.items()}
             try:
-                outs[name] = layer.forward(
-                    self._layer_param_view(name, params), inputs, ctx)
+                outs[name] = layer.forward(layer_params, inputs, ctx)
             except Exception as e:
                 e.add_note(
                     f"  while running layer {name!r} "

@@ -6,7 +6,8 @@ _pallas_flash` — the Pallas flash-attention forward and its two
 backward calls (dkv and dq). The contract is the blocked oracle's,
 `ring.py::_blocked_fwd` and `ring.py::_flash_blocked_bwd`:
 
-- q [B, Tq, H, D], k and v [B, Tk, H, D], f32, the JAX layout;
+- q [B, Tq, H, D], k and v [B, Tk, H, D], f32, the JAX layout (bf16,
+  which the JAX flash takes under the AMP rule, raises: ROADMAP B-2);
 - `causal` (key j visible to query i only when j <= i);
 - optional `kv_len` [B] and `q_len` [B] int32: keys at or past
   kv_len[b] are masked, and a query row at or past q_len[b] sees no
@@ -184,6 +185,17 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _refuse_bf16(where, *tensors):
+    """The kernels and their plain versions run f32; their bf16 forms
+    (the JAX flash runs in q's dtype under the AMP rule) are ROADMAP
+    B-2. No upcast, no fallback to the dense path."""
+    if any(x.dtype == torch.bfloat16 for x in tensors):
+        raise NotImplementedError(
+            f"{where}: bf16 flash attention (the AMP rule's "
+            f"attn_impl='flash') is not ported yet, ROADMAP B-2; use "
+            f"attn_impl='dense' under the bf16 flag")
+
+
 def _check_cuda(where, q, tensors, kernel_dims=True):
     """Validate the kernels' inputs on a CUDA device; returns the dims
     (B, Tq, Tk, H, D). D must be one of KERNEL_HEAD_DIMS, or with
@@ -222,6 +234,7 @@ def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
     CUDA tensor goes through the Hopper kernel, a CPU tensor through
     attention_plain."""
     global launches
+    _refuse_bf16("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                q_len=q_len, scale=scale)
@@ -306,6 +319,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
     see the module docstring. A CUDA tensor goes through the two
     Hopper kernels (dkv, then dq), a CPU tensor through
     attention_bwd_plain."""
+    _refuse_bf16("flash_attention_bwd", q, k, v, dout)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
                                    kv_len=kv_len, q_len=q_len, scale=scale)

@@ -33,8 +33,13 @@ recompute onto the tensor cores first. `route="walk"` or `"cluster"`
 on a kernel's wrapper asks for that route, and raises where it does not
 take the shape.
 
-f32 only: the kernels raise on other types. The kernels take the bias
-as one vector — b7 = [gb | wci | wcf | wco] for the LSTM.
+The kernels run f32 and raise on other types. `lstm_fused` and
+`gru_fused` take bf16 (the AMP rule) as the JAX wrappers do
+(`pallas_rnn.py::_lstm_fwd_pallas`, `_gru_fwd_kernel`): x, the weights
+and the biases cast up to f32 around the kernels (or their plain
+versions on the CPU), y cast back to x's dtype; autograd casts the
+gradients back through the same casts. The kernels take the bias as one
+vector — b7 = [gb | wci | wcf | wco] for the LSTM.
 
 A CUDA tensor goes through the kernels of `csrc/lstm_seq.cu` and
 `csrc/gru_seq.cu` or the call raises — never a fallback. A CPU tensor
@@ -465,11 +470,17 @@ def _needs_grad(*tensors):
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+def _f32(*tensors):
+    return tuple(t.float() for t in tensors)
+
+
 def lstm_fused(x, w, gb, wci, wcf, wco, lens):
-    """y [B,T,h] of the LSTM contract (module docstring). With gradients
-    wanted: `LstmSeq` (B5 with c, then B6); without: B5's inference
-    variant, which skips the c output. CPU tensors take the plain
-    versions."""
+    """y [B,T,h] of the LSTM contract (module docstring), in x's dtype.
+    With gradients wanted: `LstmSeq` (B5 with c, then B6); without: B5's
+    inference variant, which skips the c output. CPU tensors take the
+    plain versions. bf16 runs in f32 inside (the module docstring)."""
+    if x.dtype == torch.bfloat16:
+        return lstm_fused(*_f32(x, w, gb, wci, wcf, wco), lens).to(x.dtype)
     x = x.contiguous()
     b7 = torch.cat([gb, wci, wcf, wco])
     lens = lens.to(device=x.device, dtype=torch.int32).contiguous()
@@ -483,8 +494,11 @@ def lstm_fused(x, w, gb, wci, wcf, wco, lens):
 
 def gru_fused(x, w_g, w_c, b, lens):
     """y [B,T,h] of the GRU contract (module docstring), through
-    `GruSeq` (B7, and B8 for the gradient); CPU tensors take the plain
-    versions."""
+    `GruSeq` (B7, and B8 for the gradient), in x's dtype; CPU tensors
+    take the plain versions. bf16 runs in f32 inside (the module
+    docstring)."""
+    if x.dtype == torch.bfloat16:
+        return gru_fused(*_f32(x, w_g, w_c, b), lens).to(x.dtype)
     lens = lens.to(device=x.device, dtype=torch.int32).contiguous()
     return GruSeq.apply(x.contiguous(), w_g.contiguous(), w_c.contiguous(),
                         b.contiguous(), lens)

@@ -6,7 +6,8 @@ the same masked-attention contract (q, k, v [B, T, H, D], kv_len [B]):
 - `dense_attention`: the reference path — materializes the
   [B, H, Tq, Tk] scores and masks with an additive NEG_INF, exactly
   as the JAX function does (so a fully-masked row attends uniformly,
-  as there).
+  as there). Scores, softmax and the product run in q's dtype (bf16
+  under the AMP rule), as there.
 - `flash_dense_attention`: flash attention, forward and backward. On
   the card they are the hand-written Hopper kernels
   (`ops/flash_attention.py`, replacing the Pallas kernels); on a CPU
@@ -33,7 +34,9 @@ def dense_attention(q, k, v, *, causal=False, kv_len=None, scale=None):
     K/V length (padding masked out)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if scale is None:
+        # 1/sqrt(D) in q's dtype, as the JAX function rounds it
+        scale = float(torch.tensor(1.0 / math.sqrt(D), dtype=q.dtype))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     mask = torch.zeros((B, 1, Tq, Tk), dtype=q.dtype, device=q.device)
     if kv_len is not None:
@@ -43,7 +46,7 @@ def dense_attention(q, k, v, *, causal=False, kv_len=None, scale=None):
     if causal:
         qpos = torch.arange(Tq, device=q.device)[:, None]
         kpos = torch.arange(Tk, device=q.device)[None, :]
-        mask = mask + torch.where(kpos > qpos, NEG_INF, 0.0)
+        mask = mask + torch.where(kpos > qpos, NEG_INF, 0.0).to(q.dtype)
     p = torch.softmax(s + mask, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 

@@ -25,7 +25,10 @@ pass is not.
 `TestOnCard` (marked `cuda`) holds the three Hopper kernels against
 their plain versions on the card at the nine ResNet-50 site shapes
 (batch 2) and ragged ones, shows B1, B2 and B3 bit-identical on a
-repeat, and that one autograd step launches each once. It skips here; on a
+repeat, and that one autograd step launches each once; and their bf16
+forms against the bf16 plain versions at the same shapes where the
+widths are multiples of 8 (`tests/test_torch_amp.py` holds the bf16
+plain versions against the JAX op). It skips here; on a
 machine with an H100 and no JAX: `python -m pytest --noconftest -m
 cuda tests/test_torch_fused.py`.
 """
@@ -265,6 +268,13 @@ CARD_SHAPES = {
 }
 
 
+# the bf16 forms take widths that are multiples of 8: the sites and the
+# ragged rows
+BF16_SHAPES = {k: v for k, v in CARD_SHAPES.items()
+               if v[1] % 8 == 0 and v[2] % 8 == 0}
+BF16_SHAPES["n517_72_136"] = (517, 72, 136)
+
+
 @pytest.mark.cuda
 class TestOnCard:
     """The kernels against their plain versions on the card: max |diff|
@@ -337,6 +347,60 @@ class TestOnCard:
         for nm, a, b in zip(("y", "ssum", "ssq", "du", "dscale", "dshift",
                              "dres", "dw"), *runs):
             assert (a is None and b is None) or torch.equal(a, b), nm
+
+    @staticmethod
+    def _bf16_off(got, ref):
+        """Elements of bf16 `got` farther from `ref` than one bf16 ulp of
+        the reference value plus 1e-4 of its largest entry."""
+        got, ref = got.float(), ref.float()
+        ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - 8)
+        return int(((got - ref).abs() > ulp + 1e-4 * ref.abs().max()).sum())
+
+    @pytest.mark.parametrize("act", ["relu", ""])
+    @pytest.mark.parametrize("with_res", [False, True])
+    @pytest.mark.parametrize("shape", sorted(BF16_SHAPES))
+    def test_bf16_kernels_match_plain(self, shape, act, with_res):
+        """The bf16 forms against the bf16 plain versions: the f32
+        outputs (ssum, ssq, dscale, dshift, dw) within 1e-4 of the
+        largest, the bf16 ones (y, du, dres) element by element within
+        one bf16 ulp plus 1e-4 of the largest; bit-identical on a
+        repeat."""
+        n, cin, cout = BF16_SHAPES[shape]
+        u, sc, sh, w, r = (torch.from_numpy(x).cuda() for x in
+                           _inputs(n, cin, cout, positive_shift=True))
+        u, w, r = (x.to(torch.bfloat16) for x in (u, w, r))
+        res = r if with_res else None
+        g = torch.Generator(device="cuda").manual_seed(0)
+        dy = torch.randn((n, cout), generator=g, device="cuda").to(
+            torch.bfloat16)
+        d1 = torch.randn((cout,), generator=g, device="cuda")
+        d2 = torch.randn((cout,), generator=g, device="cuda") * 0.01
+        ref = op.bn_act_conv1x1_plain(u, sc, sh, w, res, act)
+        y = ref[0]
+        ref += op.bn_act_conv1x1_bwd_dx_plain(u, sc, sh, w, res, y, dy, d1,
+                                              d2, act)
+        ref += (op.bn_act_conv1x1_bwd_dw_plain(u, sc, sh, res, y, dy, d1, d2,
+                                               act),)
+        before = (op.fwd_launches, op.bwd_dx_launches, op.bwd_dw_launches)
+        runs = [op.bn_act_conv1x1_fwd(u, sc, sh, w, res, act)
+                + op.bn_act_conv1x1_bwd_dx(u, sc, sh, w, res, y, dy, d1, d2,
+                                           act)
+                + (op.bn_act_conv1x1_bwd_dw(u, sc, sh, res, y, dy, d1, d2,
+                                            act),) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (op.fwd_launches, op.bwd_dx_launches,
+                op.bwd_dw_launches) == before   # no f32 form launched
+        names = ("y", "ssum", "ssq", "du", "dscale", "dshift", "dres", "dw")
+        for nm, a, b, again in zip(names, runs[0], ref, runs[1]):
+            if b is None:
+                assert a is None, nm
+                continue
+            assert a.dtype == b.dtype and torch.isfinite(a).all(), nm
+            assert torch.equal(a, again), nm
+            if a.dtype == torch.bfloat16:
+                assert self._bf16_off(a, b) == 0, (nm, self._bf16_off(a, b))
+            else:
+                assert self._rel(a, b) <= 1e-4, (nm, self._rel(a, b))
 
     def test_autograd_step_launches_each_kernel_once(self):
         u, sc, sh, w, r = (torch.from_numpy(x).cuda().requires_grad_(True)

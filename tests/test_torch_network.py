@@ -220,18 +220,6 @@ def test_shared_parameter_is_one_tensor():
         w.grad, torch.autograd.grad((x @ w @ w).sum(), w)[0])
 
 
-def test_bf16_precision_flag_is_refused():
-    from paddle_tpu_torch.core import flags
-
-    net = TNetwork(_conf(tdsl, "fc"))
-    flags.set_flag("matmul_precision", "bfloat16")
-    try:
-        with pytest.raises(NotImplementedError, match="f32 only"):
-            net.forward({}, {})
-    finally:
-        flags.reset_flags()
-
-
 def test_dropout_is_seeded_by_step_and_layer():
     """Dropout draws its mask from Ctx.split(layer name): the same step
     generator gives the same mask, another step another one; kept values
