@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), f32 accuracy on the tensor
-// cores: two kernels, dkv and dq.
+// Flash-attention backward for Hopper (sm_90a): two kernels, dkv and dq, in
+// an f32 form (f32 accuracy on the tensor cores) and a bf16 form of the AMP
+// rule (its own section below, "the bf16 forms").
 //
 // Replaces the TPU kernels behind paddle_tpu/parallel/ring.py::_pallas_flash's
 // gradient (jax.experimental.pallas.ops.tpu.flash_attention: the dkv and dq
@@ -638,4 +639,450 @@ extern "C" int flash_attn_bwd_dq(const float* q, const float* k,
 
 extern "C" const char* flash_attn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// ============================================================ the bf16 forms
+// dkv and dq on bf16 q, k, v and dout (lse, delta f32; dq, dk, dv bf16), with
+// the library kernels' roundings (jax/experimental/pallas/ops/tpu/
+// flash_attention.py, run in q's dtype under the AMP rule): S and dP from
+// bf16 operands in f32; p = exp(s * scale - lse) and ds = p * (dp - delta) *
+// scale in f32; p rounded to bf16 before dV += P^T.dO, ds before dK +=
+// dS^T.Q and dQ += dS.K; every sum in f32, each output rounded to bf16 once,
+// at the end. ops/flash_attention.py::attention_bwd_plain_bf16 states it.
+//
+// What bounds them on one H100 SXM: 8*D*H flops a visible pair for dkv and
+// 6*D*H for dq on the tensor cores' bf16 rate (989 TFLOP/s dense), one pass:
+// at the long-context trainer's shape (B=4, T=4096, H=8, D=64, causal,
+// 268.5 M visible pairs) ~0.139 and ~0.104 ms, well above their bytes.
+//
+// Design: the f32 kernels' split and grids (dkv one block per (h, b, 64-key
+// tile), dq one per (h, b, 64-query tile), one writer per output, heaviest
+// tiles first), one walk group, on mma.sync m16n8k16 bf16 (bf16_mma.cuh):
+// - dkv: S^T = K.Q^T and dP^T = V.dO^T, A = K or V by ldmatrix ([key][d] is
+//   A's [m][k]), B = Q or dO as they lie ([query][d] is B's [n][k]). P^T and
+//   dS^T are packed from their accumulators straight into A fragments (two
+//   adjacent n8 tiles of an accumulator are one m16n8k16 A fragment), and
+//   dV += P^T.dO, dK += dS^T.Q take dO and Q as B stored [query][d] =
+//   [k][n], by ldmatrix.trans. At D >= 96 two groups of four warps own the
+//   same keys, each summing half of dK's and dV's columns (registers), as
+//   the f32 kernel does.
+// - dq: S = Q.K^T, dP = dO.V^T, dS packed from registers, dQ += dS.K with K
+//   as B stored [key][d] = [k][n], by ldmatrix.trans.
+// - Shared rows of D + 8 bf16: 16-byte row starts, conflict-free ldmatrix.
+// - dk, dv of keys at or past kv_len and dq of rows at or past q_len are
+//   written as exact zeros, as in the f32 forms.
+
+#include "bf16_mma.cuh"
+
+namespace {
+
+template <int D>
+struct CfgBf16 {
+  static constexpr int LD = D + 8;            // bf16 row stride
+  static constexpr int TILE = BLOCK * LD;     // bf16 elements a tile
+  static constexpr size_t TILE_BYTES = sizeof(bf16) * TILE;
+  static constexpr int CG = D <= 64 ? 1 : 2;  // dkv's column groups
+  static constexpr int DKV_THREADS = THREADS * CG;
+  // dkv: K, V; a stage: Q, dO (bf16), then lse, delta (f32)
+  static constexpr size_t STAGE_DKV = 2 * TILE_BYTES + 2 * BLOCK * 4;
+  static constexpr size_t DKV_BYTES = 2 * TILE_BYTES + STAGES * STAGE_DKV;
+  // dq: Q, dO; a stage: K, V
+  static constexpr size_t DQ_BYTES = 2 * TILE_BYTES + STAGES * 2 * TILE_BYTES;
+};
+
+// acc[n] (n8 tiles over a walked tile's 64 rows) += A.B^T over D: A the
+// warp's 16 rows from row `rw` of `a`, B the walked tile `bt` as it lies
+// (both [row][d], row stride LD)
+template <int D>
+__device__ __forceinline__ void product_abt_bf16(float (&acc)[NT][4],
+                                                 const bf16* a, int rw,
+                                                 const bf16* bt) {
+  constexpr int LD = CfgBf16<D>::LD;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    unsigned af[4];
+    ldmatrix_x4(af, a + (rw + rows_lo_row(lane)) * LD + kk + rows_lo_col(lane));
+#pragma unroll
+    for (int jj = 0; jj < NT / 2; ++jj) {
+      unsigned r[4];
+      ldmatrix_x4(r, bt + (jj * 16 + rows_hi_row(lane)) * LD + kk +
+                         rows_hi_col(lane));
+      const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_bf16(acc[2 * jj], af, b0);
+      mma_bf16(acc[2 * jj + 1], af, b1);
+    }
+  }
+}
+
+// sum[n] (NC n8 tiles from column tile c0) += A.B over a walked tile's 64
+// rows: A = the accumulator `a` of an S-shaped product (rows g, g + 8;
+// columns 2t, 2t + 1 of each n8 tile) rounded to bf16, two n8 tiles a k16
+// step; B the walked tile `bt` stored [row][d] = [k][n], by ldmatrix.trans
+template <int D, int NC>
+__device__ __forceinline__ void product_ab_bf16(float (&sum)[NC][4],
+                                                const float (&a)[NT][4],
+                                                const bf16* bt, int c0) {
+  constexpr int LD = CfgBf16<D>::LD;
+  static_assert(NC % 2 == 0, "ldmatrix.x4 loads two n-tiles");
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kt = 0; kt < NT / 2; ++kt) {
+    const unsigned af[4] = {pack_bf16x2(a[2 * kt][0], a[2 * kt][1]),
+                            pack_bf16x2(a[2 * kt][2], a[2 * kt][3]),
+                            pack_bf16x2(a[2 * kt + 1][0], a[2 * kt + 1][1]),
+                            pack_bf16x2(a[2 * kt + 1][2], a[2 * kt + 1][3])};
+#pragma unroll
+    for (int dd = 0; dd < NC / 2; ++dd) {
+      unsigned r[4];
+      ldmatrix_x4_trans(r, bt + (kt * 16 + rows_lo_row(lane)) * LD +
+                               8 * c0 + dd * 16 + rows_lo_col(lane));
+      const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      mma_bf16(sum[2 * dd], af, b0);
+      mma_bf16(sum[2 * dd + 1], af, b1);
+    }
+  }
+}
+
+// rows r (fragment rows g, g + 8) of a warp's [16][8 NC] sum, rounded to
+// bf16, into out [*, ld] at row `row[r]` (skipped at or past `rows`, zeros
+// at or past `live`)
+template <int NC>
+__device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ out,
+                                                int ld,
+                                                const float (&sum)[NC][4],
+                                                const int (&row)[2], int rows,
+                                                int live) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= rows) continue;
+    bf16* o = out + (size_t)row[r] * ld;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      unsigned x = 0u;
+      if (row[r] < live) x = pack_bf16x2(sum[n][2 * r], sum[n][2 * r + 1]);
+      *reinterpret_cast<unsigned*>(o + 8 * n + 2 * t) = x;
+    }
+  }
+}
+
+// One block per (h, b, 64-key tile): dk and dv of the tile's keys.
+template <int D>
+__global__ void __launch_bounds__(CfgBf16<D>::DKV_THREADS)
+flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          const int* __restrict__ kv_len,
+                          const int* __restrict__ q_len, int Tq, int Tk,
+                          int H, int causal, float scale) {
+  using C = CfgBf16<D>;
+  constexpr int LD = C::LD, THR = C::DKV_THREADS;
+  constexpr int NC = D / 8 / C::CG;    // a warp's column tiles of dK and dV
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_bf16);   // the tile's K, V
+  bf16* vs = ks + C::TILE;
+  unsigned char* ring = smem_bf16 + 2 * C::TILE_BYTES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * BLOCK;   // low key tiles, the heaviest, first
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = (warp % WARPS) * 16;  // the warp's first key of the tile
+  const int c0 = (warp / WARPS) * NC;  // ... and its first column tile
+  const int key[2] = {k0 + rw + g, k0 + rw + g + 8};
+
+  const int klen = clamp_len(kv_len, b, Tk);
+  const int qlen = clamp_len(q_len, b, Tq);
+  const int qbeg = causal ? k0 : 0;
+  const int qend = k0 < klen ? qlen : 0;
+  const int ntiles = qbeg < qend ? (qend - qbeg + BLOCK - 1) / BLOCK : 0;
+
+  const int ld = H * D;
+  const size_t kvb = ((size_t)b * Tk * H + h) * D;
+  const bf16* qb = q + ((size_t)b * Tq * H + h) * D;
+  const bf16* dob = dout + ((size_t)b * Tq * H + h) * D;
+  const float* lseb = lse + ((size_t)b * H + h) * Tq;
+  const float* deltab = delta + ((size_t)b * H + h) * Tq;
+  auto stage = [&](int j) { return ring + (j % STAGES) * C::STAGE_DKV; };
+  auto load = [&](int j) {   // query tile j: Q, dO, lse, delta
+    bf16* st = reinterpret_cast<bf16*>(stage(j));
+    float* rows = reinterpret_cast<float*>(stage(j) + 2 * C::TILE_BYTES);
+    const int i0 = qbeg + j * BLOCK;
+    load_window_bf16<BLOCK, D, THR>(st, LD, qb, ld, i0, Tq, 0, D);
+    load_window_bf16<BLOCK, D, THR>(st + C::TILE, LD, dob, ld, i0, Tq, 0, D);
+    load_window<1, BLOCK, 1, THR>(rows, 0, lseb, 0, 0, 1, i0, Tq);
+    load_window<1, BLOCK, 1, THR>(rows + BLOCK, 0, deltab, 0, 0, 1, i0, Tq);
+  };
+  // the tile's K and V (keys at or past kv_len: zeros), with query tile 0
+  load_window_bf16<BLOCK, D, THR>(ks, LD, k + kvb, ld, k0, klen, 0, D);
+  load_window_bf16<BLOCK, D, THR>(vs, LD, v + kvb, ld, k0, klen, 0, D);
+  if (ntiles > 0) load(0);
+  cp_async_commit();
+
+  float dks[NC][4], dvs[NC][4];        // the warp's part of dk, dv
+  zero_acc(dks);
+  zero_acc(dvs);
+
+  for (int j = 0; j < ntiles; ++j) {
+    __syncthreads();                   // every warp is done with tile j - 1
+    if (j + 1 < ntiles) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                   // tile j (and K, V) visible to all
+    const bf16* qt = reinterpret_cast<const bf16*>(stage(j));
+    const bf16* dot = qt + C::TILE;
+    const float* lst =
+        reinterpret_cast<const float*>(stage(j) + 2 * C::TILE_BYTES);
+    const float* dlt = lst + BLOCK;
+    const int i0 = qbeg + j * BLOCK;
+    const bool masked = !(k0 + BLOCK <= klen && i0 + BLOCK <= qlen &&
+                          (!causal || k0 + BLOCK - 1 <= i0));
+
+    // S^T = K.Q^T and dP^T = V.dO^T: the warp's 16 keys x the tile's queries
+    float s[NT][4], dp[NT][4];
+    zero_acc(s);
+    zero_acc(dp);
+    product_abt_bf16<D>(s, ks, rw, qt);
+    product_abt_bf16<D>(dp, vs, rw, dot);
+
+    // P^T and dS^T in place: (key g + 8 (c >> 1), query 8n + 2t + (c & 1))
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int qc = 8 * n + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lst + qc);
+      const float2 d2 = *reinterpret_cast<const float2*>(dlt + qc);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float p = expf(s[n][c] * scale - ((c & 1) ? l2.y : l2.x));
+        if (masked) {
+          const int qi = i0 + qc + (c & 1), kj = key[c >> 1];
+          if (!(kj < klen && qi < qlen && (!causal || kj <= qi))) p = 0.f;
+        }
+        s[n][c] = p;
+        dp[n][c] = p * (dp[n][c] - ((c & 1) ? d2.y : d2.x)) * scale;
+      }
+    }
+
+    // dV += P^T.dO and dK += dS^T.Q over the tile's queries
+    product_ab_bf16<D, NC>(dvs, s, dot, c0);
+    product_ab_bf16<D, NC>(dks, dp, qt, c0);
+  }
+  cp_async_wait<0>();
+
+  store_rows_bf16<NC>(dk + kvb + 8 * c0, ld, dks, key, Tk, klen);
+  store_rows_bf16<NC>(dv + kvb + 8 * c0, ld, dvs, key, Tk, klen);
+}
+
+// One block per (h, b, 64-query tile): dq of the tile's queries.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq,
+                         const int* __restrict__ kv_len,
+                         const int* __restrict__ q_len, int Tq, int Tk, int H,
+                         int causal, float scale) {
+  using C = CfgBf16<D>;
+  constexpr int LD = C::LD, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_bf16);   // the tile's Q, dO
+  bf16* dos = qs + C::TILE;
+  bf16* ring = dos + C::TILE;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  // high query tiles, the heaviest when causal, first
+  const int tile = causal ? (int)gridDim.z - 1 - (int)blockIdx.z
+                          : (int)blockIdx.z;
+  const int q0 = tile * BLOCK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp * 16;            // the warp's first row of the tile
+  const int qi[2] = {q0 + rw + g, q0 + rw + g + 8};
+
+  const int klen = clamp_len(kv_len, b, Tk);
+  const int qlen = clamp_len(q_len, b, Tq);
+  int kend = klen;                     // keys any row of the tile may see
+  if (causal) kend = min(kend, q0 + BLOCK);
+  if (q0 >= qlen) kend = 0;
+  const int ntiles = (kend + BLOCK - 1) / BLOCK;
+
+  const int ld = H * D;
+  const size_t qdb = ((size_t)b * Tq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * Tk * H + h) * D;
+  const bf16* vb = v + ((size_t)b * Tk * H + h) * D;
+  auto load = [&](int j) {   // key tile j: K, V (zeros past kv_len)
+    bf16* st = ring + (j % STAGES) * 2 * C::TILE;
+    load_window_bf16<BLOCK, D, THREADS>(st, LD, kb, ld, j * BLOCK, klen, 0,
+                                        D);
+    load_window_bf16<BLOCK, D, THREADS>(st + C::TILE, LD, vb, ld, j * BLOCK,
+                                        klen, 0, D);
+  };
+  // the tile's Q and dO (rows past Tq: zeros), with key tile 0
+  load_window_bf16<BLOCK, D, THREADS>(qs, LD, q + qdb, ld, q0, Tq, 0, D);
+  load_window_bf16<BLOCK, D, THREADS>(dos, LD, dout + qdb, ld, q0, Tq, 0, D);
+  if (ntiles > 0) load(0);
+  cp_async_commit();
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t at = ((size_t)b * H + h) * Tq + qi[r];
+    row_lse[r] = qi[r] < Tq ? lse[at] : 1e30f;
+    row_delta[r] = qi[r] < Tq ? delta[at] : 0.f;
+  }
+
+  float dqs[DT][4];                    // the warp's rows' dq
+  zero_acc(dqs);
+
+  for (int j = 0; j < ntiles; ++j) {
+    __syncthreads();                   // every warp is done with tile j - 1
+    if (j + 1 < ntiles) load(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();                   // tile j (and Q, dO) visible to all
+    const bf16* kt = ring + (j % STAGES) * 2 * C::TILE;
+    const bf16* vt = kt + C::TILE;
+    const int k0 = j * BLOCK;
+    const bool masked = !(k0 + BLOCK <= klen && q0 + BLOCK <= qlen &&
+                          (!causal || k0 + BLOCK - 1 <= q0));
+
+    // S = Q.K^T and dP = dO.V^T: the warp's 16 rows x the tile's 64 keys
+    float s[NT][4], dp[NT][4];
+    zero_acc(s);
+    zero_acc(dp);
+    product_abt_bf16<D>(s, qs, rw, kt);
+    product_abt_bf16<D>(dp, dos, rw, vt);
+
+    // dS in place of S: (row g + 8 (c >> 1), key 8n + 2t + (c & 1))
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1;
+        float p = expf(s[n][c] * scale - row_lse[r]);
+        if (masked) {
+          const int kj = k0 + 8 * n + 2 * t + (c & 1);
+          if (!(qi[r] < qlen && kj < klen && (!causal || kj <= qi[r])))
+            p = 0.f;
+        }
+        s[n][c] = p * (dp[n][c] - row_delta[r]) * scale;
+      }
+
+    // dQ += dS.K over the tile's keys
+    product_ab_bf16<D, DT>(dqs, s, kt, 0);
+  }
+  cp_async_wait<0>();
+
+  store_rows_bf16<DT>(dq + qdb, ld, dqs, qi, Tq, qlen);
+}
+
+template <int D>
+cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
+                            const bf16* dout, const float* lse,
+                            const float* delta, bf16* dk, bf16* dv,
+                            const int* kv_len, const int* q_len, int B,
+                            int Tq, int Tk, int H, int causal, float scale,
+                            cudaStream_t stream) {
+  using C = CfgBf16<D>;
+  static_assert(C::DKV_BYTES <= 232448, "shared memory of a block");
+  const cudaError_t err =
+      allow_smem(flash_bwd_dkv_bf16_kernel<D>, C::DKV_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (Tk + BLOCK - 1) / BLOCK);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, C::DKV_THREADS, C::DKV_BYTES,
+                                 stream>>>(q, k, v, dout, lse, delta, dk, dv,
+                                           kv_len, q_len, Tq, Tk, H, causal,
+                                           scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
+                           const bf16* dout, const float* lse,
+                           const float* delta, bf16* dq, const int* kv_len,
+                           const int* q_len, int B, int Tq, int Tk, int H,
+                           int causal, float scale, cudaStream_t stream) {
+  using C = CfgBf16<D>;
+  static_assert(C::DQ_BYTES <= 232448, "shared memory of a block");
+  const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>,
+                                     C::DQ_BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, B, (Tq + BLOCK - 1) / BLOCK);
+  flash_bwd_dq_bf16_kernel<D><<<grid, THREADS, C::DQ_BYTES, stream>>>(
+      q, k, v, dout, lse, delta, dq, kv_len, q_len, Tq, Tk, H, causal,
+      scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The bf16 forms' entry points: as flash_attn_bwd_dkv and flash_attn_bwd_dq,
+// with q, k, v, dout, dq, dk and dv bf16 (lse and delta f32).
+extern "C" int flash_attn_bwd_dkv_bf16(const bf16* q, const bf16* k,
+                                       const bf16* v, const bf16* dout,
+                                       const float* lse, const float* delta,
+                                       bf16* dk, bf16* dv, const int* kv_len,
+                                       const int* q_len, int B, int Tq,
+                                       int Tk, int H, int D, int causal,
+                                       float scale, int device,
+                                       void* stream) {
+  cudaError_t err = prologue(B, Tq, Tk, H, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return (int)launch_dkv_bf16<32>(q, k, v, dout, lse, delta, dk, dv,
+                                      kv_len, q_len, B, Tq, Tk, H, causal,
+                                      scale, st);
+    case 64:
+      return (int)launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv,
+                                      kv_len, q_len, B, Tq, Tk, H, causal,
+                                      scale, st);
+    case 96:
+      return (int)launch_dkv_bf16<96>(q, k, v, dout, lse, delta, dk, dv,
+                                      kv_len, q_len, B, Tq, Tk, H, causal,
+                                      scale, st);
+    case 128:
+      return (int)launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv,
+                                       kv_len, q_len, B, Tq, Tk, H, causal,
+                                       scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int flash_attn_bwd_dq_bf16(const bf16* q, const bf16* k,
+                                      const bf16* v, const bf16* dout,
+                                      const float* lse, const float* delta,
+                                      bf16* dq, const int* kv_len,
+                                      const int* q_len, int B, int Tq, int Tk,
+                                      int H, int D, int causal, float scale,
+                                      int device, void* stream) {
+  cudaError_t err = prologue(B, Tq, Tk, H, device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return (int)launch_dq_bf16<32>(q, k, v, dout, lse, delta, dq, kv_len,
+                                     q_len, B, Tq, Tk, H, causal, scale, st);
+    case 64:
+      return (int)launch_dq_bf16<64>(q, k, v, dout, lse, delta, dq, kv_len,
+                                     q_len, B, Tq, Tk, H, causal, scale, st);
+    case 96:
+      return (int)launch_dq_bf16<96>(q, k, v, dout, lse, delta, dq, kv_len,
+                                     q_len, B, Tq, Tk, H, causal, scale, st);
+    case 128:
+      return (int)launch_dq_bf16<128>(q, k, v, dout, lse, delta, dq, kv_len,
+                                      q_len, B, Tq, Tk, H, causal, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -6,8 +6,9 @@ _pallas_flash` — the Pallas flash-attention forward and its two
 backward calls (dkv and dq). The contract is the blocked oracle's,
 `ring.py::_blocked_fwd` and `ring.py::_flash_blocked_bwd`:
 
-- q [B, Tq, H, D], k and v [B, Tk, H, D], f32, the JAX layout (bf16,
-  which the JAX flash takes under the AMP rule, raises: ROADMAP B-2);
+- q [B, Tq, H, D], k and v [B, Tk, H, D], the JAX layout, all f32 or
+  all bf16 (the JAX flash runs in q's dtype under the AMP rule; mixed
+  dtypes raise, nothing is upcast);
 - `causal` (key j visible to query i only when j <= i);
 - optional `kv_len` [B] and `q_len` [B] int32: keys at or past
   kv_len[b] are masked, and a query row at or past q_len[b] sees no
@@ -20,25 +21,37 @@ backward calls (dkv and dq). The contract is the blocked oracle's,
   zero columns of out, dq, dk and dv); `scale` stays that of the
   original D.
 
-The forward returns (out [B, Tq, H, D] f32, lse [B, H, Tq] f32). A row
-with no visible key gets out = 0 and lse = +1e30. The backward takes
-(q, k, v, out, lse, dout) and returns (dq, dk, dv) with
+The forward returns (out [B, Tq, H, D] in q's dtype, lse [B, H, Tq]
+f32). A row with no visible key gets out = 0 and lse = +1e30. The
+backward takes (q, k, v, out, lse, dout) and returns (dq, dk, dv) with
 
     p     = exp(s * scale - lse), exactly 0 at masked pairs
-    delta = sum_d dout * out                (per query row)
+    delta = sum_d dout * out                (per query row, f32)
     ds    = p * (dout . v - delta) * scale
     dq = ds @ k,  dk = ds^T @ q,  dv = p^T @ dout
 
-so a row with no visible key has dq = 0 and adds nothing to dk, dv.
+so a row with no visible key has dq = 0 and adds nothing to dk, dv;
+dq, dk and dv come back in q's dtype.
+
 A padded query row of self-attention (q_len unset, i >= kv_len) still
 sees the valid keys: its output is garbage the layer zeroes, its dout
 is 0, and the backward treats it as any other row.
 
+The bf16 forms keep the library kernel's roundings
+(`jax/experimental/pallas/ops/tpu/flash_attention.py`), which
+`attention_plain_bf16` / `attention_bwd_plain_bf16` state: every
+product takes bf16 operands and sums in f32; p is rounded to bf16
+before P.V and before dv = p^T.dout, ds before dk = ds^T.q and
+dq = ds.k; m, l, lse and delta stay f32; out, dq, dk and dv are
+rounded to bf16 once, at the end.
+
 A CUDA tensor goes through the kernels (`csrc/flash_attn_fwd.cu`,
-`csrc/flash_attn_bwd.cu`) or the call raises — never a fallback. A CPU
-tensor goes through `attention_plain` / `attention_bwd_plain`, the
-straightforward versions that state the contract; the CPU tests use
-them and the chip smoke holds the kernels against them on the card.
+`csrc/flash_attn_bwd.cu`; f32 or bf16 entry points by q's dtype) or
+the call raises — never a fallback. A CPU tensor goes through
+`attention_plain` / `attention_bwd_plain` (bf16: the `_bf16` forms),
+the straightforward versions that state the contract; the CPU tests
+use them and the chip smoke holds the kernels against them on the
+card.
 `FlashAttention` (an autograd Function) ties the two directions
 together; `parallel/ring.py::flash_dense_attention` calls it.
 """
@@ -58,12 +71,17 @@ KERNEL_HEAD_DIMS = (32, 64, 96, 128)   # the dims the kernels instantiate
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 LSE_MASKED = 1e30
 
-# kernel launches since the last reset, one counter per kernel (the
-# chip smoke zeroes them just before driving a path and reads them just
-# after)
-launches = 0            # forward
-bwd_dkv_launches = 0    # backward, dk and dv
-bwd_dq_launches = 0     # backward, dq
+# kernel launches since the last reset, one counter per kernel and form
+# (the chip smoke zeroes them just before driving a path and reads them
+# just after)
+launches = 0                # forward, f32
+bwd_dkv_launches = 0        # backward, dk and dv, f32
+bwd_dq_launches = 0         # backward, dq, f32
+bf16_launches = 0           # forward, bf16
+bwd_dkv_bf16_launches = 0   # backward, dk and dv, bf16
+bwd_dq_bf16_launches = 0    # backward, dq, bf16
+COUNTERS = ("launches", "bwd_dkv_launches", "bwd_dq_launches",
+            "bf16_launches", "bwd_dkv_bf16_launches", "bwd_dq_bf16_launches")
 
 
 def _visible(B, Tq, Tk, causal, kv_len, q_len, device):
@@ -84,10 +102,8 @@ def _scale(scale, D):
     return float(scale) if scale is not None else 1.0 / math.sqrt(D)
 
 
-def attention_plain(q, k, v, causal=False, kv_len=None, q_len=None,
-                    scale=None):
-    """The plain PyTorch forward: masked softmax in f32 over the
-    [B, H, Tq, Tk] scores. Same inputs and outputs as flash_attention."""
+def _attention(q, k, v, causal, kv_len, q_len, scale, bf16):
+    """attention_plain (bf16=False) or attention_plain_bf16 (True)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     scale = _scale(scale, D)
@@ -99,18 +115,49 @@ def attention_plain(q, k, v, causal=False, kv_len=None, q_len=None,
     p = torch.exp(s - m[..., None])                # exactly 0 where masked
     den = p.sum(dim=-1)
     safe = torch.where(alive, den, 1.0)
+    if bf16:
+        p = _round_bf16(p)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     out = out / safe.permute(0, 2, 1)[..., None]
     lse = torch.where(alive, m + torch.log(safe),
                       torch.tensor(LSE_MASKED, device=q.device))
-    return out, lse
+    return (out.to(q.dtype) if bf16 else out), lse
 
 
-def attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
-                        kv_len=None, q_len=None, scale=None):
-    """The plain PyTorch backward: recomputes p from lse over the
-    [B, H, Tq, Tk] scores. Returns (dq, dk, dv) f32; see the module
-    docstring for the contract."""
+def _round_bf16(x):
+    """x rounded to bf16 (to nearest even), kept in f32."""
+    return x.to(torch.bfloat16).float()
+
+
+def attention_plain(q, k, v, causal=False, kv_len=None, q_len=None,
+                    scale=None):
+    """The plain PyTorch forward: masked softmax in f32 over the
+    [B, H, Tq, Tk] scores. Same inputs and outputs as flash_attention;
+    out f32."""
+    return _attention(q, k, v, causal, kv_len, q_len, scale, bf16=False)
+
+
+def attention_plain_bf16(q, k, v, causal=False, kv_len=None, q_len=None,
+                         scale=None):
+    """The plain forward of the bf16 form, with the library kernel's
+    roundings: s from the bf16 operands in f32, p = exp(s - m) in f32
+    (its sum l too) rounded to bf16 before P.V, out summed in f32,
+    divided by l and rounded to bf16; lse f32. The kernel rounds p
+    against the running max, this version against the row's final
+    one: the two agree to about a bf16 ulp of out, not bit for bit."""
+    return _attention(q, k, v, causal, kv_len, q_len, scale, bf16=True)
+
+
+def row_delta(dout, out):
+    """delta [B, H, Tq] = sum_d dout * out, in f32 whatever the inputs'
+    dtype (a bf16 delta would cancel badly in dp - delta)."""
+    return torch.einsum("bqhd,bqhd->bhq", dout.float(),
+                        out.float()).contiguous()
+
+
+def _attention_bwd(q, k, v, out, lse, dout, causal, kv_len, q_len, scale,
+                   bf16):
+    """attention_bwd_plain (bf16=False) or attention_bwd_plain_bf16."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     scale = _scale(scale, D)
@@ -118,13 +165,38 @@ def attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     valid = _visible(B, Tq, Tk, causal, kv_len, q_len, q.device)
     p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
-    delta = torch.einsum("bqhd,bqhd->bhq", dof, out.float())
+    delta = row_delta(dout, out)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None]) * scale
+    if bf16:
+        p, ds = _round_bf16(p), _round_bf16(ds)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    if bf16:
+        return tuple(x.to(q.dtype) for x in (dq, dk, dv))
     return dq, dk, dv
+
+
+def attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
+                        kv_len=None, q_len=None, scale=None):
+    """The plain PyTorch backward: recomputes p from lse over the
+    [B, H, Tq, Tk] scores. Returns (dq, dk, dv) f32; see the module
+    docstring for the contract."""
+    return _attention_bwd(q, k, v, out, lse, dout, causal, kv_len, q_len,
+                          scale, bf16=False)
+
+
+def attention_bwd_plain_bf16(q, k, v, out, lse, dout, causal=False,
+                             kv_len=None, q_len=None, scale=None):
+    """The plain backward of the bf16 form, with the library kernels'
+    roundings: s and dp = dout.v^T from the bf16 operands in f32, p =
+    exp(s * scale - lse) and delta = sum_d dout * out in f32, ds = p *
+    (dp - delta) * scale in f32; p rounded to bf16 before dv = p^T.dout,
+    ds before dk = ds^T.q and dq = ds.k, each summed in f32 and rounded
+    to bf16 at the end."""
+    return _attention_bwd(q, k, v, out, lse, dout, causal, kv_len, q_len,
+                          scale, bf16=True)
 
 
 def _bind(name):
@@ -132,12 +204,13 @@ def _bind(name):
     p = ctypes.c_void_p
     i = ctypes.c_int
     if name == KERNEL:
-        fns = {"flash_attn_fwd": [p] * 7 + [i] * 6 + [ctypes.c_float, i, p]}
+        fwd = [p] * 7 + [i] * 6 + [ctypes.c_float, i, p]
+        fns = {"flash_attn_fwd": fwd, "flash_attn_fwd_bf16": fwd}
     else:
-        fns = {
-            "flash_attn_bwd_dkv": [p] * 10 + [i] * 6 + [ctypes.c_float, i, p],
-            "flash_attn_bwd_dq": [p] * 9 + [i] * 6 + [ctypes.c_float, i, p],
-        }
+        dkv = [p] * 10 + [i] * 6 + [ctypes.c_float, i, p]
+        dq = [p] * 9 + [i] * 6 + [ctypes.c_float, i, p]
+        fns = {"flash_attn_bwd_dkv": dkv, "flash_attn_bwd_dq": dq,
+               "flash_attn_bwd_dkv_bf16": dkv, "flash_attn_bwd_dq_bf16": dq}
     for fn, argtypes in fns.items():
         f = getattr(lib, fn)
         if f.argtypes is None:
@@ -185,32 +258,36 @@ def _aligned(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _refuse_bf16(where, *tensors):
-    """The kernels and their plain versions run f32; their bf16 forms
-    (the JAX flash runs in q's dtype under the AMP rule) are ROADMAP
-    B-2. No upcast, no fallback to the dense path."""
-    if any(x.dtype == torch.bfloat16 for x in tensors):
-        raise NotImplementedError(
-            f"{where}: bf16 flash attention (the AMP rule's "
-            f"attn_impl='flash') is not ported yet, ROADMAP B-2; use "
-            f"attn_impl='dense' under the bf16 flag")
+def _one_dtype(where, **tensors):
+    """The dtype every tensor of a call shares; mixed dtypes raise
+    (nothing is upcast)."""
+    dtypes = {x.dtype for x in tensors.values()}
+    if len(dtypes) != 1:
+        raise ValueError(
+            f"{where}: q, k, v (and out, dout) must share one dtype, got "
+            + ", ".join(f"{n} {x.dtype}" for n, x in tensors.items()))
+    return dtypes.pop()
 
 
 def _check_cuda(where, q, tensors, kernel_dims=True):
-    """Validate the kernels' inputs on a CUDA device; returns the dims
+    """Validate the kernels' inputs on a CUDA device: every tensor
+    contiguous, of q's dtype (f32 or bf16) and shape; returns the dims
     (B, Tq, Tk, H, D). D must be one of KERNEL_HEAD_DIMS, or with
     kernel_dims=False at most MAX_HEAD_DIM (the caller pads it)."""
     if q.device.type != "cuda":
         raise ValueError(f"{where}: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{where}: the flash kernels take f32 or bf16, "
+                         f"got {q.dtype}")
     B, Tq, H, D = q.shape
     Tk = tensors["k"].shape[1]
     for name, x in tensors.items():
         t = Tk if name in ("k", "v") else Tq
-        if (x.dtype != torch.float32 or x.device != q.device
+        if (x.dtype != q.dtype or x.device != q.device
                 or tuple(x.shape) != (B, t, H, D)
                 or not x.is_contiguous()):
             raise ValueError(
-                f"{where}: {name} must be contiguous f32 "
+                f"{where}: {name} must be contiguous {q.dtype} "
                 f"[{B},{t},{H},{D}] on {q.device}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}"
             )
@@ -231,13 +308,15 @@ def _launch(lib, fn, *args):
 def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
                     scale=None):
     """(out, lse) of masked attention; see the module docstring. A
-    CUDA tensor goes through the Hopper kernel, a CPU tensor through
-    attention_plain."""
-    global launches
-    _refuse_bf16("flash_attention", q, k, v)
+    CUDA tensor goes through the Hopper kernel of its dtype (f32 or
+    bf16), a CPU tensor through attention_plain (bf16:
+    attention_plain_bf16)."""
+    global launches, bf16_launches
+    bf16 = _one_dtype("flash_attention", q=q, k=k, v=v) == torch.bfloat16
     if q.device.type == "cpu":
-        return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
-                               q_len=q_len, scale=scale)
+        plain = attention_plain_bf16 if bf16 else attention_plain
+        return plain(q, k, v, causal=causal, kv_len=kv_len, q_len=q_len,
+                     scale=scale)
     B, Tq, Tk, H, D = _check_cuda("flash_attention", q,
                                   {"q": q, "k": k, "v": v},
                                   kernel_dims=False)
@@ -249,11 +328,15 @@ def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
     lib = _bind(KERNEL)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    _launch(lib, "flash_attn_fwd", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            _build.ptr(kv_len), _build.ptr(q_len), B, Tq, Tk, H, dk,
-            int(bool(causal)), scale, *_build.device_and_stream(q))
-    launches += 1
+    _launch(lib, "flash_attn_fwd_bf16" if bf16 else "flash_attn_fwd",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), _build.ptr(kv_len), _build.ptr(q_len), B, Tq,
+            Tk, H, dk, int(bool(causal)), scale,
+            *_build.device_and_stream(q))
+    if bf16:
+        bf16_launches += 1
+    else:
+        launches += 1
     return (out if dk == D else out[..., :D].contiguous()), lse
 
 
@@ -283,33 +366,43 @@ def _bwd_launch_args(where, q, k, v, dout, lse, delta, causal, kv_len,
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
                             kv_len=None, q_len=None, scale=None):
-    """(dk, dv) from the dkv kernel (CUDA tensors only); `delta` is
-    sum_d dout * out, [B, H, Tq]."""
-    global bwd_dkv_launches
+    """(dk, dv) from the dkv kernel of q's dtype (CUDA tensors only);
+    `delta` is sum_d dout * out, [B, H, Tq] f32."""
+    global bwd_dkv_launches, bwd_dkv_bf16_launches
     lib, lens, dims = _bwd_launch_args(
         "flash_attention_bwd_dkv", q, k, v, dout, lse, delta, causal,
         kv_len, q_len, scale)
+    bf16 = q.dtype == torch.bfloat16
+    fn = "flash_attn_bwd_dkv_bf16" if bf16 else "flash_attn_bwd_dkv"
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch(lib, "flash_attn_bwd_dkv", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *lens, *dims)
-    bwd_dkv_launches += 1
+    _launch(lib, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), *lens, *dims)
+    if bf16:
+        bwd_dkv_bf16_launches += 1
+    else:
+        bwd_dkv_launches += 1
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
                            kv_len=None, q_len=None, scale=None):
-    """dq from the dq kernel (CUDA tensors only)."""
-    global bwd_dq_launches
+    """dq from the dq kernel of q's dtype (CUDA tensors only)."""
+    global bwd_dq_launches, bwd_dq_bf16_launches
     lib, lens, dims = _bwd_launch_args(
         "flash_attention_bwd_dq", q, k, v, dout, lse, delta, causal,
         kv_len, q_len, scale)
+    bf16 = q.dtype == torch.bfloat16
+    fn = "flash_attn_bwd_dq_bf16" if bf16 else "flash_attn_bwd_dq"
     dq = torch.empty_like(q)
-    _launch(lib, "flash_attn_bwd_dq", q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), *lens, *dims)
-    bwd_dq_launches += 1
+    _launch(lib, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), *lens, *dims)
+    if bf16:
+        bwd_dq_bf16_launches += 1
+    else:
+        bwd_dq_launches += 1
     return dq
 
 
@@ -317,17 +410,19 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
                         kv_len=None, q_len=None, scale=None):
     """(dq, dk, dv) of masked attention from the forward's out and lse;
     see the module docstring. A CUDA tensor goes through the two
-    Hopper kernels (dkv, then dq), a CPU tensor through
-    attention_bwd_plain."""
-    _refuse_bf16("flash_attention_bwd", q, k, v, dout)
+    Hopper kernels of its dtype (dkv, then dq), a CPU tensor through
+    attention_bwd_plain (bf16: attention_bwd_plain_bf16)."""
+    bf16 = _one_dtype("flash_attention_bwd", q=q, k=k, v=v, out=out,
+                      dout=dout) == torch.bfloat16
     if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, out, lse, dout, causal=causal,
-                                   kv_len=kv_len, q_len=q_len, scale=scale)
+        plain = attention_bwd_plain_bf16 if bf16 else attention_bwd_plain
+        return plain(q, k, v, out, lse, dout, causal=causal,
+                     kv_len=kv_len, q_len=q_len, scale=scale)
     D = _check_cuda("flash_attention_bwd", q, {"q": q, "out": out, "k": k},
                     kernel_dims=False)[-1]
-    # the softmax-jacobian row term, a plain reduction as in the JAX
+    # the softmax-jacobian row term, a plain f32 reduction as in the JAX
     # package (the library computes it outside its kernels too)
-    delta = torch.einsum("bqhd,bqhd->bhq", dout, out).contiguous()
+    delta = row_delta(dout, out)
     kw = dict(causal=causal, kv_len=kv_len, q_len=q_len,
               scale=_scale(scale, D))
     d_k = kernel_head_dim(D)

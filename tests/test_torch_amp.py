@@ -10,7 +10,8 @@ cost layer f32 ones (`network.py`'s cast rule, per consuming edge).
   regression target consumed by a cost layer stays f32; so does one
   that also feeds a compute layer.
 - The port against the JAX package under the flag, on the same numpy
-  parameters and feed: the LM at test width (dense attention), the
+  parameters and feed: the LM at test width (dense and flash
+  attention), bench.py's long-context conf at a narrow width, the
   ResNet two-block net plain and fused (the JAX fused layers run their
   Pallas kernels in interpret mode), the IMDB classifier and the
   attention NMT at narrow widths (both of the port's RNN arms), and
@@ -38,7 +39,9 @@ cost layer f32 ones (`network.py`'s cast rule, per consuming edge).
   the JAX `bn_act_conv1x1` on bf16 inputs, forward and `jax.vjp`, at
   ragged shapes: bf16 outputs within one bf16 ulp of the JAX value plus
   1e-5 of the largest entry, f32 outputs within 1e-5 of the largest.
-- The flash path under the flag raises, naming ROADMAP B-2.
+- The flash path under the flag: the LM and bench.py's long-context
+  conf with attn_impl="flash", the port's bf16 flash forms against the
+  JAX package's flash in bf16.
 """
 
 import contextlib
@@ -257,29 +260,74 @@ LM_SPEC = dict(vocab=64, d_model=32, num_heads=2, num_layers=2,
 LM_LENS = np.asarray([24, 17, 5, 3], np.int32)
 
 
-def test_lm_matches_jax_under_the_flag():
-    jspec = jlm.LMSpec(**LM_SPEC)
+def _lm_parity(name, attn_impl):
+    spec = {**LM_SPEC, "attn_impl": attn_impl}
+    jspec = jlm.LMSpec(**spec)
     np_p = {k: np.asarray(v) for k, v in
             jlm.lm_init_params(jspec, jax.random.key(0)).items()}
     rng = np.random.default_rng(0)
     ids = rng.integers(2, 64, (4, 24)).astype(np.int32)
     lbl = rng.integers(2, 64, (4, 24)).astype(np.int32)
     _assert_parity(
-        "lm", JNetwork(jlm.transformer_lm(jspec)),
-        TNetwork(tlm.transformer_lm(tlm.LMSpec(**LM_SPEC))), np_p,
+        name, JNetwork(jlm.transformer_lm(jspec)),
+        TNetwork(tlm.transformer_lm(tlm.LMSpec(**spec))), np_p,
         {"ids": jarg.id_arg(ids, LM_LENS), "label": jarg.id_arg(lbl, LM_LENS)},
         {"ids": targ.id_arg(ids, LM_LENS), "label": targ.id_arg(lbl, LM_LENS)})
 
 
-def test_flash_attention_under_the_flag_names_roadmap_b2(amp):
-    tnet = TNetwork(tlm.transformer_lm(tlm.LMSpec(
-        **{**LM_SPEC, "attn_impl": "flash"})))
-    p = tnet.init_params(torch.Generator().manual_seed(0), device="cpu")
-    ids = np.ones((2, 8), np.int32)
-    lens = np.asarray([8, 5], np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP B-2"):
-        tnet.loss_fn(p, {"ids": targ.id_arg(ids, lens),
-                         "label": targ.id_arg(ids, lens)})
+def test_lm_matches_jax_under_the_flag():
+    _lm_parity("lm", "dense")
+
+
+def test_lm_flash_matches_jax_under_the_flag():
+    """attn_impl="flash" under the flag: the port's bf16 flash (its bf16
+    plain versions on the CPU) against the JAX package's flash (its
+    blocked lowering off a TPU), both in bf16."""
+    _lm_parity("lm_flash", "flash")
+
+
+def test_lm_forward_stays_f32_under_the_flag():
+    """models/lm.py::lm_forward, the served LM's functional forward,
+    under the flag in both packages with attn_impl="flash": it takes no
+    cast rule in either, so its logits stay f32 (the f32 flash forms:
+    their plain versions here) and agree with the JAX package's at
+    atol 1e-4 on the valid rows."""
+    spec = {**LM_SPEC, "attn_impl": "flash"}
+    jspec = jlm.LMSpec(**spec)
+    jp = jlm.lm_init_params(jspec, jax.random.key(0))
+    rng = np.random.default_rng(1)
+    ids = rng.integers(2, 64, (4, 24)).astype(np.int32)
+    with _flags("bfloat16"):
+        ref = np.asarray(jlm.lm_forward(jspec, jp, ids, lens=LM_LENS))
+        got = tlm.lm_forward(
+            tlm.LMSpec(**spec),
+            params_from_numpy({k: np.asarray(v) for k, v in jp.items()},
+                              device="cpu"),
+            torch.from_numpy(ids), lens=torch.from_numpy(LM_LENS))
+    assert ref.dtype == np.float32 and got.dtype == torch.float32
+    for r, n in enumerate(LM_LENS):
+        np.testing.assert_allclose(got[r, :n].numpy(), ref[r, :n],
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "dense"])
+def test_longctx_matches_jax_under_the_flag(attn_impl):
+    """bench.py::longctx_conf (the long-context trainer's model) at a
+    narrow width, 2 layers, under the flag in both packages: the JAX
+    conf from bench.py, the port's from chip_smoke.py's copy in its own
+    DSL, one weight map, bench.py::longctx_feed's batch."""
+    import bench
+
+    cs = _chip_smoke()
+    kw = dict(d=32, heads=2, layers=2, classes=16, vocab=64)
+    tnet = TNetwork(cs.longctx_conf(attn_impl=attn_impl, **kw))
+    np_p = params_to_numpy(tnet.init_params(
+        torch.Generator().manual_seed(0), device="cpu"))
+    _assert_parity(
+        f"longctx_{attn_impl}",
+        JNetwork(bench.longctx_conf(24, attn_impl=attn_impl, **kw)), tnet,
+        np_p, bench.longctx_feed(2, 24, classes=16, vocab=64),
+        cs.longctx_feed(2, 24, classes=16, vocab=64, device="cpu"))
 
 
 def _tiny(dsl, image, fused):
@@ -440,10 +488,20 @@ def _chip_smoke():
 
 def _card_case(cs, model):
     """(JAX net, port net, numpy params, JAX feed, port feed) of
-    chip_smoke.py's phase 6c (the LM) or 13b (the classifier, the NMT):
-    the card's widths and weights, the batch cut (4 rows; the classifier
-    8)."""
+    chip_smoke.py's phase 6c (the LM), 6d (the long-context conf, flash)
+    or 13b (the classifier, the NMT): the card's widths and weights, the
+    batch cut (4 rows; the classifier 8; the long-context conf 2 rows of
+    T = 256, bench.py::longctx_feed's)."""
     rng = np.random.default_rng(0)
+    if model == "longctx":
+        import bench
+
+        kw = dict(cs.LONGCTX, attn_impl="flash")
+        fkw = dict(classes=kw["classes"], vocab=kw["vocab"])
+        return (JNetwork(bench.longctx_conf(256, **kw)),
+                TNetwork(cs.longctx_conf(**kw)),
+                cs.longctx_params(torch), bench.longctx_feed(2, 256, **fkw),
+                cs.longctx_feed(2, 256, device="cpu", **fkw))
     if model == "lm":
         spec = dict(vocab=2048, d_model=256, num_heads=4, num_layers=2,
                     attn_impl="dense")
@@ -488,14 +546,14 @@ def _floored(grads, ref, floor):
             for k, v in ref.items()}
 
 
-@pytest.mark.parametrize("model", ["lm", "classifier", "nmt"])
+@pytest.mark.parametrize("model", ["lm", "classifier", "nmt", "longctx"])
 def test_card_amp_readings(model):
-    """The numbers behind chip_smoke.py's AMP gradient bound (phases 6c
-    and 13b): the largest distance bf16 moves the JAX package's gradient
-    of each model from f32 at the card's widths and weights (the batch
-    cut; the JAX RNNs on their masked scan), within 5% of
-    `JAX_BF16_GRAD_MOVE`; and the port's own distance here within the
-    bound the card holds it to."""
+    """The numbers behind chip_smoke.py's AMP gradient bound (phases 6c,
+    6d and 13b): the largest distance bf16 moves the JAX package's
+    gradient of each model from f32 at the card's widths and weights
+    (the batch cut; the JAX RNNs on their masked scan, its flash on the
+    blocked lowering), within 5% of `JAX_BF16_GRAD_MOVE`; and the port's
+    own distance here within the bound the card holds it to."""
     cs = _chip_smoke()
     jnet, tnet, np_p, jfeed, tfeed = _card_case(cs, model)
     with _flags("default"):

@@ -25,6 +25,8 @@ import torch
 
 try:  # the CPU parity tests need JAX; the on-card tests do not
     import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu import flash_attention as jlib
 
     from paddle_tpu.parallel import ring as jring
 except ImportError:
@@ -33,6 +35,18 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.parallel import ring as tring
 
 ATOL = 1e-5
+BF16 = torch.bfloat16
+# bf16 outputs are held element by element within one bf16 ulp of the
+# reference plus a fraction of its largest entry. The library kernel
+# rounds p after normalising it (one key block) or against its running
+# max, the kernel against its running max, attention_plain_bf16 against
+# the row's final max: each p's rounding differs. Readings (this file's
+# tests, the largest beyond one ulp over the largest entry): the library
+# 9.8e-4 (BF16_CASES), the emulated kernel 2.3e-4 (T = 1024).
+BF16_OUT_FRAC = 2e-3
+# the JAX blocked path in bf16 rounds at other places again (a bf16 p
+# under XLA's rules): readings up to 1.0e-3
+BF16_BLOCKED_FRAC = 5e-3
 
 # (B, Tq, Tk, H, D, causal, kv_len, q_len)
 CASES = {
@@ -60,6 +74,18 @@ CARD_CASES = {
     "causal_kvlen_0_and_1_t70_d64": (2, 70, 70, 2, 64, True, [0, 1], None),
     "causal_tq100_tk37_d64": (1, 100, 37, 2, 64, True, [37], None),
     "noncausal_tq7_tk300_d64": (2, 7, 300, 1, 64, False, [300, 129], None),
+}
+
+
+# (B, Tq, Tk, H, D, causal, kv_len, q_len) of the bf16 form against the
+# library kernel in interpret mode: ragged causal, cross-attention with
+# q_len, a kv_len = 0 row, a head dim the kernels pad (40 -> 64), T over
+# one key block of the library (128) and within one
+BF16_CASES = {
+    "causal_ragged_t200_d64": (2, 200, 200, 2, 64, True, [200, 77], None),
+    "cross_qlen_d32": (2, 100, 200, 2, 32, False, [200, 120], [100, 40]),
+    "causal_kvlen0_row_d96": (2, 200, 200, 2, 96, True, [0, 150], None),
+    "causal_full_t128_d40": (1, 128, 128, 2, 40, True, None, None),
 }
 
 
@@ -334,6 +360,195 @@ def test_wrapper_takes_plain_path_on_cpu_and_counts_nothing():
     np.testing.assert_array_equal(lse.numpy(), ref_lse)
 
 
+# ---- the bf16 form --------------------------------------------------------
+
+def _f32(x):
+    if torch.is_tensor(x):
+        return x.detach().float().cpu()
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 numbers (8 significant bits) at |x|."""
+    x = _f32(x)
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
+def bf16_close(got, ref, frac, name):
+    """Element by element within one bf16 ulp of the reference plus
+    `frac` of its largest entry."""
+    got, ref = _f32(got), _f32(ref)
+    top = ref.abs().max()
+    beyond = (got - ref).abs() - bf16_ulp(ref)
+    bad = beyond > frac * top
+    assert not bad.any(), (
+        f"{name}: {int(bad.sum())} of {bad.numel()} elements off, worst "
+        f"{(beyond.max() / top).item():.3g} of the largest beyond an ulp")
+
+
+def _bf16_inputs(case, seed=0):
+    """_inputs rounded to bf16 (numpy f32 holding bf16 values)."""
+    q, k, v, causal, kv, ql = _inputs(case, seed)
+    q, k, v = (torch.from_numpy(x).to(BF16).float().numpy()
+               for x in (q, k, v))
+    return q, k, v, causal, kv, ql
+
+
+def _query_rows(B, Tq, kv, ql):
+    """[B, Tq] bool: the rows the library computes (its segment ids mark
+    rows at or past q_len, or else kv_len, as padding that attends only
+    to padding)."""
+    n = ql if ql is not None else kv if kv is not None else [Tq] * B
+    return np.arange(Tq)[None, :] < np.asarray(n)[:, None]
+
+
+def _library_fwd(monkeypatch, q, k, v, causal, kv, ql):
+    """The JAX package's TPU path (`ring.flash_dense_attention`,
+    impl="pallas": `_pallas_flash` and the library kernel) on bf16
+    inputs, the kernel run in interpret mode: (out [B, Tq, H, D], lse
+    [B, H, Tq]) as f32 numpy, lse = m + log(l) from the library's own
+    residuals."""
+    saved = {}
+
+    def with_residuals(q, k, v, ab=None, segment_ids=None, *, causal,
+                       sm_scale, block_sizes=None, debug=False):
+        sizes = jlib.BlockSizes.get_default(*q.shape[:3], k.shape[2],
+                                            q.shape[3])
+        o, saved["l"], saved["m"] = jlib._flash_attention(
+            q, k, v, ab, segment_ids, True, causal, sm_scale, sizes, debug)
+        return o
+
+    monkeypatch.setattr(jlib, "flash_attention", with_residuals)
+    jb = lambda x: jnp.asarray(x, jnp.bfloat16)   # noqa: E731
+    with pltpu.force_tpu_interpret_mode():
+        out = jring.flash_dense_attention(
+            jb(q), jb(k), jb(v), causal=causal,
+            kv_len=None if kv is None else jnp.asarray(kv),
+            q_len=None if ql is None else jnp.asarray(ql), impl="pallas")
+        out = np.asarray(out.astype(jnp.float32))
+        lse = np.asarray(saved["m"] + jnp.log(saved["l"]))
+    return out, lse[:, :, :q.shape[1]]
+
+
+def _port_bf16(q, k, v, causal, kv, ql):
+    out, lse = fa.attention_plain_bf16(
+        *(torch.from_numpy(x).to(BF16) for x in (q, k, v)), causal=causal,
+        kv_len=_t(kv), q_len=_t(ql))
+    assert out.dtype == BF16 and lse.dtype == torch.float32
+    return out.float().numpy(), lse.numpy()
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_plain_matches_library_kernel(name, monkeypatch):
+    """attention_plain_bf16 against the TPU kernel's own arithmetic (the
+    library kernel in interpret mode, bf16 in): out within one bf16 ulp
+    plus BF16_OUT_FRAC of the largest entry and lse within 1e-4
+    relative, on the rows the library computes; rows that see no key
+    are the port's rule (out exactly 0, lse exactly 1e30)."""
+    needs_jax()
+    q, k, v, causal, kv, ql = _bf16_inputs(BF16_CASES[name])
+    B, Tq = q.shape[:2]
+    ref, ref_lse = _library_fwd(monkeypatch, q, k, v, causal, kv, ql)
+    out, lse = _port_bf16(q, k, v, causal, kv, ql)
+    rows = _query_rows(B, Tq, kv, ql)
+    bf16_close(out[rows], ref[rows], BF16_OUT_FRAC, name)
+    lse_t, ref_t = lse.transpose(0, 2, 1), ref_lse.transpose(0, 2, 1)
+    assert (np.abs(lse_t[rows] - ref_t[rows])
+            <= 1e-4 * np.abs(ref_t[rows])).all()
+    dead = ~_visible(B, Tq, k.shape[1], causal, kv, ql)
+    assert (out[dead] == 0).all() and (lse_t[dead] == fa.LSE_MASKED).all()
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_plain_matches_jax_blocked(name):
+    """attention_plain_bf16 against the JAX package's portable flash
+    (`flash_dense_attention(impl="blocked")`) on the same bf16 inputs,
+    on the rows that see a key: within one bf16 ulp plus
+    BF16_BLOCKED_FRAC of the largest entry."""
+    needs_jax()
+    q, k, v, causal, kv, ql = _bf16_inputs(BF16_CASES[name])
+    B, Tq = q.shape[:2]
+    jb = lambda x: jnp.asarray(x, jnp.bfloat16)   # noqa: E731
+    ref = jring.flash_dense_attention(
+        jb(q), jb(k), jb(v), causal=causal,
+        kv_len=None if kv is None else jnp.asarray(kv), impl="blocked")
+    out, _lse = _port_bf16(q, k, v, causal, kv, ql)
+    vis = _visible(B, Tq, k.shape[1], causal, kv, ql)
+    bf16_close(out[vis], np.asarray(ref.astype(jnp.float32))[vis],
+               BF16_BLOCKED_FRAC, name)
+
+
+def _flash_fwd_bf16_emulated(q, k, v, causal, kv_len, block=64):
+    """csrc/flash_attn_fwd.cu's bf16 form in torch for [B, T, H, D] bf16
+    q, k, v: 64-key tiles, S from the bf16 operands in f32, the online
+    softmax in f32 with the mask tested a pair (p = 0 exactly), p
+    rounded to bf16 against the running max before P.V, out divided by
+    the sum and rounded to bf16 at the end. Returns (out bf16, lse)."""
+    B, T, H, D = q.shape
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    valid = fa._visible(B, T, T, causal, kv_len, None, q.device)
+    m = torch.full((B, H, T), float("-inf"))
+    l = torch.zeros((B, H, T))
+    o = torch.zeros((B, H, T, D))
+    for k0 in range(0, T, block):
+        kt, vt = kf[:, k0:k0 + block], vf[:, k0:k0 + block]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt) / np.sqrt(D)
+        vis = valid[..., k0:k0 + block]
+        s = s.masked_fill(~vis, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        seen = m_new > float("-inf")
+        corr = torch.where(seen, torch.exp(m - m_new), 1.0)
+        p = torch.where(vis, torch.exp(s - torch.where(
+            seen, m_new, 0.0)[..., None]), 0.0)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.to(BF16).float(), vt)
+        m = m_new
+    alive = l > 0
+    out = torch.where(alive[..., None], o / torch.where(
+        alive, l, 1.0)[..., None], 0.0).permute(0, 2, 1, 3)
+    lse = torch.where(alive, m + torch.log(torch.where(alive, l, 1.0)),
+                      fa.LSE_MASKED)
+    return out.to(BF16), lse
+
+
+def test_emulated_bf16_kernel_is_within_the_card_bound():
+    """The bf16 kernel's arithmetic, emulated, at T = 1024 causal with a
+    ragged kv_len: out within one bf16 ulp plus BF16_OUT_FRAC of the
+    largest entry of attention_plain_bf16 (the bound the card holds the
+    kernel to) and lse within 1e-4; and no farther from the f32 plain
+    version on the same inputs than attention_plain_bf16 is, within one
+    bf16 ulp of the largest entry (the card's witness)."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, 1024, 2, 64)).astype(np.float32)).to(BF16) for _ in range(3))
+    kw = dict(causal=True, kv_len=torch.tensor([1000, 333], dtype=torch.int32))
+    out, lse = _flash_fwd_bf16_emulated(q, k, v, **kw)
+    plain, plain_lse = fa.attention_plain_bf16(q, k, v, **kw)
+    exact, _ = fa.attention_plain(q, k, v, **kw)
+    bf16_close(out, plain, BF16_OUT_FRAC, "emulated kernel")
+    assert (lse - plain_lse).abs().max().item() <= 1e-4
+    top = exact.abs().max()
+    assert ((out.float() - exact).abs().max()
+            <= (plain.float() - exact).abs().max() + bf16_ulp(top))
+
+
+def test_wrapper_takes_bf16_plain_path_on_cpu_and_counts_nothing():
+    """A bf16 call on the CPU goes through attention_plain_bf16 (out in
+    bf16, lse f32) and launches nothing; mixed dtypes raise."""
+    q, k, v, causal, kv, ql = _inputs(CASES["cross_qlen_kvlen"])
+    q, k, v = (_t(x).to(BF16) for x in (q, k, v))
+    kw = dict(causal=causal, kv_len=_t(kv), q_len=_t(ql))
+    before = [getattr(fa, n) for n in fa.COUNTERS]
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    ref_out, ref_lse = fa.attention_plain_bf16(q, k, v, **kw)
+    assert [getattr(fa, n) for n in fa.COUNTERS] == before
+    assert out.dtype == BF16 and lse.dtype == torch.float32
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention(q, k.float(), v, **kw)
+
+
 @pytest.mark.cuda
 class TestOnCard:
     """The kernel against its plain version on the card (run with
@@ -363,6 +578,37 @@ class TestOnCard:
         dead = ref_lse >= fa.LSE_MASKED
         assert (lse.cpu().numpy()[dead] == fa.LSE_MASKED).all()
         assert (out.cpu().numpy().transpose(0, 2, 1, 3)[dead] == 0).all()
+
+    @pytest.mark.parametrize("name", sorted(CARD_CASES))
+    def test_bf16_kernel_matches_bf16_plain(self, name):
+        """The bf16 form against attention_plain_bf16: out element by
+        element within one bf16 ulp plus BF16_OUT_FRAC of the largest
+        entry (the kernel rounds p against the running max), lse within
+        1e-4; rows without a visible key exactly out 0 and lse 1e30;
+        bit-identical on a repeat; only the bf16 form launched."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        q, k, v, causal, kv, ql = (
+            None if x is None else torch.from_numpy(x).cuda()
+            if isinstance(x, np.ndarray) else x
+            for x in _inputs(CARD_CASES[name]))
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        kw = dict(causal=causal, kv_len=kv, q_len=ql)
+        before = [getattr(fa, n) for n in fa.COUNTERS]
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        again = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        after = [getattr(fa, n) for n in fa.COUNTERS]
+        assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 2, 0, 0]
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        ref_out, ref_lse = fa.attention_plain_bf16(q, k, v, **kw)
+        assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        bf16_close(out, ref_out, BF16_OUT_FRAC, name)
+        alive = ref_lse < fa.LSE_MASKED
+        assert (lse - ref_lse)[alive].abs().max().item() <= 1e-4
+        dead = (~alive).permute(0, 2, 1)
+        assert (lse[~alive] == fa.LSE_MASKED).all()
+        assert (out[dead] == 0).all()
 
     @pytest.mark.parametrize("name", ["causal_ragged_t150_d40",
                                       "causal_kvlen_0_and_1_t70_d64",

@@ -31,6 +31,7 @@ import torch
 try:  # the CPU parity tests need JAX; the on-card tests do not
     import jax
     import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
 
     from paddle_tpu.parallel import ring as jring
 except ImportError:
@@ -40,6 +41,22 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.parallel import ring as tring
 
 TOL = 1e-5
+BF16 = torch.bfloat16
+# bf16 gradients are held element by element within one bf16 ulp of the
+# reference plus a fraction of its largest entry: p and ds are rounded to
+# bf16 in both, but from an s and a dp summed in another order, and the
+# library's T = 128 forward rounds p after normalising it. Readings
+# (BF16_CASES against the library kernel in interpret mode, the largest
+# beyond one ulp over the largest entry): dq 3.4e-3, dk 2.4e-3, dv 1.7e-4.
+BF16_GRAD_FRAC = 5e-3
+
+# (B, Tq, Tk, H, D, causal, kv_len, q_len), as tests/test_torch_attention.py's
+BF16_CASES = {
+    "causal_ragged_t200_d64": (2, 200, 200, 2, 64, True, [200, 77], None),
+    "cross_qlen_d32": (2, 100, 200, 2, 32, False, [200, 120], [100, 40]),
+    "causal_kvlen0_row_d96": (2, 200, 200, 2, 96, True, [0, 150], None),
+    "causal_full_t128_d40": (1, 128, 128, 2, 40, True, None, None),
+}
 
 # name: (B, Tq, Tk, H, D, causal, kv_len, q_len, block_k)
 CASES = {
@@ -167,6 +184,104 @@ def test_rows_without_keys_get_no_gradient():
     # padded query rows of self-attention are live (they see the valid
     # keys): a nonzero output gradient there reaches dq
     assert (dq[1, 20:] != 0).any()
+
+
+# ---- the bf16 forms -------------------------------------------------------
+
+def bf16_close(got, ref, frac, name):
+    """Element by element within one bf16 ulp of the reference plus
+    `frac` of its largest entry."""
+    got, ref = (torch.from_numpy(np.array(x, np.float32)) for x in (got,
+                                                                    ref))
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - 8)
+    beyond = (got - ref).abs() - ulp
+    top = ref.abs().max()
+    bad = beyond > frac * top
+    assert not bad.any(), (
+        f"{name}: {int(bad.sum())} of {bad.numel()} elements off, worst "
+        f"{(beyond.max() / top).item():.3g} of the largest beyond an ulp")
+
+
+def _bf16_inputs(case, seed=0):
+    """q, k, v and dout rounded to bf16 (numpy f32 holding bf16 values);
+    dout is 0 on the rows the attention layer zeroes (at or past q_len,
+    or else kv_len: the library's padding segment)."""
+    B, Tq, Tk, H, D, causal, kv_len, q_len = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, t, H, D)).astype(np.float32)).to(BF16).float().numpy()
+        for t in (Tq, Tk, Tk, Tq))
+    kv = None if kv_len is None else np.asarray(kv_len, np.int32)
+    ql = None if q_len is None else np.asarray(q_len, np.int32)
+    n = ql if ql is not None else kv if kv is not None else [Tq] * B
+    do = do * (np.arange(Tq)[None, :] < np.asarray(n)[:, None])[
+        ..., None, None]
+    return q, k, v, do, causal, kv, ql
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_plain_backward_matches_library_vjp(name):
+    """attention_bwd_plain_bf16 (from attention_plain_bf16's out and
+    lse) against `jax.vjp` of the JAX package's TPU path
+    (`flash_dense_attention(impl="pallas")`: the library's dkv and dq
+    kernels, in interpret mode) on the same bf16 inputs: dq, dk and dv
+    bf16, within one bf16 ulp plus BF16_GRAD_FRAC of the largest
+    entry."""
+    needs_jax()
+    q, k, v, do, causal, kv, ql = _bf16_inputs(BF16_CASES[name])
+    jb = lambda x: jnp.asarray(x, jnp.bfloat16)   # noqa: E731
+
+    def f(q, k, v):
+        return jring.flash_dense_attention(
+            q, k, v, causal=causal,
+            kv_len=None if kv is None else jnp.asarray(kv),
+            q_len=None if ql is None else jnp.asarray(ql), impl="pallas")
+
+    with pltpu.force_tpu_interpret_mode():
+        _out, vjp = jax.vjp(f, jb(q), jb(k), jb(v))
+        ref = [np.asarray(g.astype(jnp.float32)) for g in vjp(jb(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(BF16) for x in (q, k, v, do))
+    kw = dict(causal=causal, kv_len=_t(kv), q_len=_t(ql))
+    out, lse = fa.attention_plain_bf16(tq, tk, tv, **kw)
+    got = fa.attention_bwd_plain_bf16(tq, tk, tv, out, lse, tdo, **kw)
+    for n, g, r in zip(("dq", "dk", "dv"), got, ref):
+        assert g.dtype == BF16, n
+        bf16_close(g.float().numpy(), r, BF16_GRAD_FRAC, f"{name} {n}")
+
+
+def test_bf16_backward_takes_delta_in_f32_and_returns_bf16(monkeypatch):
+    """flash_attention_bwd on bf16 tensors (the CPU: the bf16 plain
+    version) forms delta = sum_d dout * out in f32 and returns dq, dk, dv
+    in bf16, launching nothing; the autograd Function hands bf16
+    gradients to bf16 leaves."""
+    q, k, v, do, causal, kv, ql = _bf16_inputs(
+        BF16_CASES["causal_ragged_t200_d64"])
+    q, k, v, do = (torch.from_numpy(x).to(BF16) for x in (q, k, v, do))
+    kw = dict(causal=causal, kv_len=_t(kv), q_len=_t(ql))
+    deltas = []
+    row_delta = fa.row_delta
+
+    def watched(dout, out):
+        deltas.append(row_delta(dout, out))
+        return deltas[-1]
+
+    monkeypatch.setattr(fa, "row_delta", watched)
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    before = [getattr(fa, n) for n in fa.COUNTERS]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    assert [getattr(fa, n) for n in fa.COUNTERS] == before
+    assert [d.dtype for d in deltas] == [torch.float32]
+    assert [g.dtype for g in got] == [BF16] * 3
+    ref = fa.attention_bwd_plain_bf16(q, k, v, out, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    y = tring.flash_dense_attention(*leaves, **kw)
+    assert y.dtype == BF16
+    y.backward(do)
+    assert all(x.grad.dtype == BF16 for x in leaves)
+    assert all(torch.equal(x.grad, r) for x, r in zip(leaves, ref))
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention_bwd(q, k, v, out, lse, do.float(), **kw)
 
 
 def _tf32(x):
@@ -392,6 +507,37 @@ class TestOnCard:
         torch.cuda.synchronize()
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("name", sorted(CARD_CASES))
+    def test_bf16_kernels_match_bf16_plain(self, name):
+        """The bf16 forms of dkv and dq against attention_bwd_plain_bf16
+        from the same out and lse: element by element within one bf16
+        ulp plus BF16_GRAD_FRAC of the largest entry, dq of rows without
+        keys and dk, dv of keys past kv_len exactly 0, bit-identical on a
+        repeat, only the bf16 forms launched."""
+        q, k, v, do, causal, kv, ql = (self._dev(x) if isinstance(
+            x, np.ndarray) else x for x in _inputs(CARD_CASES[name]))
+        q, k, v, do = (x.to(BF16) for x in (q, k, v, do))
+        kw = dict(causal=causal, kv_len=kv, q_len=ql)
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        before = [getattr(fa, n) for n in fa.COUNTERS]
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        after = [getattr(fa, n) for n in fa.COUNTERS]
+        assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 0, 2, 2]
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = fa.attention_bwd_plain_bf16(q, k, v, out, lse, do, **kw)
+        for n, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert g.dtype == BF16 and torch.isfinite(g).all(), n
+            bf16_close(g.float().cpu().numpy(), r.float().cpu().numpy(),
+                       BF16_GRAD_FRAC, f"{name} {n}")
+        dead = (lse >= fa.LSE_MASKED).permute(0, 2, 1)     # [B, Tq, H]
+        assert (got[0][dead] == 0).all()
+        if kv is not None:
+            for b, n in enumerate(kv.tolist()):
+                assert (got[1][b, n:] == 0).all()
+                assert (got[2][b, n:] == 0).all()
 
     def test_backward_reaches_q_k_v(self):
         """loss.backward() through flash_dense_attention on the card
