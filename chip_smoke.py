@@ -22,8 +22,11 @@ any failure exits non-zero:
    kernel, plain version and `scaled_dot_product_attention` (a
    yardstick only — the port never calls it);
 3b. holds the kernel's bf16 form against its bf16 plain version at the
-   same ten shapes and the long-context trainer's (B=4, T=4096, H=8,
-   D=64, causal): out element by element within one bf16 ulp plus
+   same ten shapes, the long-context trainer's (B=4, T=4096, H=8,
+   D=64, causal) and the edges of its 128-row tiles at D = 32, 64, 96
+   and 128 (`BF16_EDGE_SHAPES`: T = 127, 129, 200, kv_len mid-tile,
+   Tq != Tk with q_len and a kv_len = 0 row, K and V rows past kv_len
+   holding NaN): out element by element within one bf16 ulp plus
    2e-3 of the largest entry, lse within 1e-4, rows with no visible key
    exactly out 0 and lse 1e30, bit-identical on a repeat, only the bf16
    form launched, and no farther from the f32 plain version on the same
@@ -50,8 +53,8 @@ any failure exits non-zero:
    `scaled_dot_product_attention` (a yardstick only: forward+backward
    minus forward) beside their bounds (three TF32 passes, as phase 3's);
 5b. the same for the backward kernels' bf16 forms against their bf16
-   plain version at phase 5's six shapes and the long-context one
-   (within one bf16 ulp plus 5e-3 of the largest entry), from the bf16
+   plain version at phase 5's six shapes, the long-context one and
+   `BF16_EDGE_SHAPES` (within one bf16 ulp plus 5e-3 of the largest entry), from the bf16
    forward's out and lse, with SDPA's bf16 backward as the yardstick;
 6. trains the Transformer LM at the same width through the port's
    trainer (`SGD.train`, attn_impl="flash", weights from a numpy
@@ -637,6 +640,29 @@ BF16_OUT_FRAC, BF16_GRAD_FRAC = 2e-3, 5e-3
 # the long-context trainer's attention (phase 6d at B=4, T=4096)
 LONGCTX_SHAPE = dict(name="longctx_b4_t4096_h8_d64", B=4, Tq=4096, Tk=4096,
                      H=8, D=64, causal=True)
+# the edges of the bf16 kernels' tiles (128-row query and key blocks,
+# 64-key and 64- or 32-query walked tiles): T one short of and one past a
+# tile, a kv_len ending mid-tile, Tq != Tk with q_len and a kv_len = 0 row,
+# and K, V rows past kv_len holding NaN (TMA fills only rows past T: the
+# masks must keep them out), at every head dim the wrapper takes (96 runs
+# padded to 128); not profiled
+BF16_EDGE_SHAPES = [
+    dict(name=f"edge_{name}_d{D}", D=D, edge=True, **case)
+    for D in (32, 64, 96, 128)
+    for name, case in (
+        ("causal_t127_ragged", dict(B=2, Tq=127, Tk=127, H=2, causal=True,
+                                    kv_len=[127, 70])),
+        ("causal_t129", dict(B=1, Tq=129, Tk=129, H=2, causal=True)),
+        ("causal_t200_kvlen_mid_tile", dict(B=2, Tq=200, Tk=200, H=2,
+                                            causal=True, kv_len=[200, 150])),
+        ("cross_tq129_tk200_qlen_kvlen0", dict(
+            B=2, Tq=129, Tk=200, H=2, causal=False, kv_len=[0, 77],
+            q_len=[129, 100], expect_dead=True)),
+        ("causal_t200_nan_past_kvlen", dict(
+            B=2, Tq=200, Tk=200, H=2, causal=True, kv_len=[130, 61],
+            nan_past_kv_len=True)),
+    )
+]
 
 
 def bf16_beyond(torch, got, ref):
@@ -671,6 +697,19 @@ def bf16_qkv(torch, case, gen, with_dout=False):
             for s in shapes]
 
 
+def kernel_kv(case, k, v):
+    """k and v as the kernels get them: for a `nan_past_kv_len` case,
+    copies with every row at or past kv_len[b] set to NaN (no visible
+    pair reads them; the references take the finite k and v)."""
+    if not case.get("nan_past_kv_len"):
+        return k, v
+    k, v = k.clone(), v.clone()
+    for b, n in enumerate(case["kv_len"]):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+    return k, v
+
+
 def check_kernel_bf16(torch, fa, case, gen):
     """Phase 3b: the bf16 form of B4f against attention_plain_bf16 on the
     card at one shape: out within one bf16 ulp + BF16_OUT_FRAC of the
@@ -686,9 +725,10 @@ def check_kernel_bf16(torch, fa, case, gen):
     kv_len = lens_tensor(torch, case.get("kv_len"))
     q_len = lens_tensor(torch, case.get("q_len"))
     kw = dict(causal=case["causal"], kv_len=kv_len, q_len=q_len)
+    kk, vk = kernel_kv(case, k, v)
     before = {n: getattr(fa, n) for n in fa.COUNTERS}
-    out_k, lse_k = fa.flash_attention(q, k, v, **kw)
-    again = fa.flash_attention(q, k, v, **kw)
+    out_k, lse_k = fa.flash_attention(q, kk, vk, **kw)
+    again = fa.flash_attention(q, kk, vk, **kw)
     torch.cuda.synchronize()
     ran = {n: getattr(fa, n) - c for n, c in before.items() if
            getattr(fa, n) != c}
@@ -716,7 +756,7 @@ def check_kernel_bf16(torch, fa, case, gen):
     far_k, far_p = no_farther(torch, out_k, out_p, exact, case["name"])
     del exact, again
 
-    kernel_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw))
+    kernel_ms = time_ms(torch, lambda: fa.flash_attention(q, kk, vk, **kw))
     plain_ms = time_ms(torch, lambda: fa.attention_plain_bf16(q, k, v,
                                                               **kw),
                        reps=5, warmup=1)
@@ -761,10 +801,11 @@ def check_backward_bf16(torch, fa, case, gen):
     kv_len = lens_tensor(torch, case.get("kv_len"))
     q_len = lens_tensor(torch, case.get("q_len"))
     kw = dict(causal=case["causal"], kv_len=kv_len, q_len=q_len)
-    out, lse = fa.flash_attention(q, k, v, **kw)
+    kk, vk = kernel_kv(case, k, v)
+    out, lse = fa.flash_attention(q, kk, vk, **kw)
     before = {n: getattr(fa, n) for n in fa.COUNTERS}
-    got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
-    again = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    got = fa.flash_attention_bwd(q, kk, vk, out, lse, do, **kw)
+    again = fa.flash_attention_bwd(q, kk, vk, out, lse, do, **kw)
     torch.cuda.synchronize()
     ran = {n: getattr(fa, n) - c for n, c in before.items() if
            getattr(fa, n) != c}
@@ -802,16 +843,20 @@ def check_backward_bf16(torch, fa, case, gen):
         f"{case['name']}: bf16 dq of rows without keys is not exactly 0")
 
     delta = fa.row_delta(do, out)
+    # the kernels' own inputs: D padded as flash_attention_bwd pads it
+    d_pad = fa.kernel_head_dim(D, fa.BF16_KERNEL_HEAD_DIMS)
+    qp, kp, vp, dop = (fa.pad_head_dim(x, d_pad) for x in (q, kk, vk, do))
+    kwp = dict(kw, scale=1.0 / D ** 0.5)
 
     def dkv():
-        fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        fa.flash_attention_bwd_dkv(qp, kp, vp, dop, lse, delta, **kwp)
 
     def dq():
-        fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        fa.flash_attention_bwd_dq(qp, kp, vp, dop, lse, delta, **kwp)
 
     res["dkv_ms"], res["dq_ms"] = time_ms(torch, dkv), time_ms(torch, dq)
     for n, fn in (("dkv", dkv), ("dq", dq)):
-        prof = profile_fn(torch, fn, steps=20)
+        prof = None if case.get("edge") else profile_fn(torch, fn, steps=20)
         res[f"{n}_device_ms"] = (None if prof is None else
                                  prof["port_kernels_ms_per_step"].get(
                                      f"B4b flash_attn_bwd_{n}_bf16"))
@@ -882,9 +927,9 @@ PORT_KERNELS = {
     "B4f flash_attn_fwd": "flash_fwd_kernel<",
     "B4b flash_attn_bwd_dkv": "flash_bwd_dkv_kernel<",
     "B4b flash_attn_bwd_dq": "flash_bwd_dq_kernel<",
-    "B4f flash_attn_fwd_bf16": "flash_fwd_bf16_kernel<",
-    "B4b flash_attn_bwd_dkv_bf16": "flash_bwd_dkv_bf16_kernel<",
-    "B4b flash_attn_bwd_dq_bf16": "flash_bwd_dq_bf16_kernel<",
+    "B4f flash_attn_fwd_bf16": "flash_fwd_wgmma_kernel<",
+    "B4b flash_attn_bwd_dkv_bf16": "flash_bwd_dkv_wgmma_kernel<",
+    "B4b flash_attn_bwd_dq_bf16": "flash_bwd_dq_wgmma_kernel<",
     "B5 lstm_seq_fwd cluster walk": "lstm_fwd_cluster_kernel<",
     "B5 lstm_seq_fwd walk route": "lstm_fwd_kernel<",
     "B6 lstm_seq_bwd cluster walk": "lstm_bwd_cluster_kernel<",
@@ -3434,7 +3479,7 @@ def main() -> int:
 
     phase("3b. the flash kernel's bf16 form vs its bf16 plain version")
     results_bf16 = [check_kernel_bf16(torch, fa, c, gen)
-                    for c in cases + [LONGCTX_SHAPE]]
+                    for c in cases + [LONGCTX_SHAPE] + BF16_EDGE_SHAPES]
 
     phase("4. serve the paged LM through the port")
     launches = serve_lm(torch, fa)
@@ -3465,7 +3510,7 @@ def main() -> int:
     phase("5b. the flash backward kernels' bf16 forms vs their bf16 plain "
           "version")
     bwd_bf16 = [check_backward_bf16(torch, fa, c, gen)
-                for c in bwd_cases + [LONGCTX_SHAPE]]
+                for c in bwd_cases + [LONGCTX_SHAPE] + BF16_EDGE_SHAPES]
 
     phase("6. train the LM through SGD")
     _parity, runs = train_lm(torch, fa)

@@ -1,9 +1,25 @@
 #!/usr/bin/env python3
 """Variants of the two tensor-core forward kernels (B4f
 `paddle_tpu_torch/csrc/flash_attn_fwd.cu`, B1 `fwd_kernel` of
-`paddle_tpu_torch/csrc/bn_act_conv1x1.cu`) timed in turns on one card.
+`paddle_tpu_torch/csrc/bn_act_conv1x1.cu`) timed in turns on one card;
+with `bf16`, B4f's bf16 form against another revision's.
 
     python3 fwd_kernels_probe.py
+    mkdir -p _archive/parent
+    git archive <rev> paddle_tpu_torch/csrc | tar -x -C _archive/parent \
+        --strip-components=2
+    python3 fwd_kernels_probe.py bf16 _archive/parent
+
+The bf16 mode builds `flash_attn_fwd_bf16` of this revision, of the
+revision whose csrc files are in the directory given, and of the variants
+of this revision in `BF16_VARIANTS` (all at once, one nvcc each, with the
+port's flags), and at the long-context trainer's shape (B=4, T=4096, H=8,
+D=64, causal) and a D=128 one prints one `bf16` JSON line each: every
+build's largest distance from `attention_plain_bf16` beyond one bf16 ulp
+(over the largest entry), its ms timed in turns (forward, then backward
+order; CUDA events, 20 calls each), TFLOP/s and share of the bound (one
+bf16 pass over 989 TFLOP/s, or the bytes over 3.35 TB/s) at its faster
+turn, beside `scaled_dot_product_attention` with is_causal.
 
 Needs one CUDA card and nvcc. Each variant is the checkout's source with
 one design choice undone by a text substitution (`VARIANTS`), built with
@@ -94,12 +110,108 @@ def build(name, torch_build):
                             stderr=subprocess.STDOUT, text=True), lib
 
 
+# bf16 mode: name -> [(text, its substitute)] in this revision's
+# flash_attn_fwd.cu (a piece taken out gives wrong results: timed only)
+BF16_VARIANTS = {
+    # a three-stage K/V ring instead of four (D <= 64)
+    "stages3": [("STAGES = D <= 64 ? 4 : 3;", "STAGES = 3;")],
+    # S's A operand (Q) from shared memory at every D
+    "q_smem": [("constexpr bool Q_REGS = D <= 64;",
+                "constexpr bool Q_REGS = false;")],
+    # no exponentials (p = s * c - m): what MUFU.EX2 costs; wrong results
+    "no_ex2": [("ex2(fmaf(x, c, -mc[r]))", "fmaf(x, c, -mc[r])")],
+}
+BF16_RIGHT = ("this", "other", "stages3", "q_smem")
+BF16_SHAPES = [  # (name, B, T, H, D)
+    ("longctx_b4_t4096_h8_d64", 4, 4096, 8, 64),
+    ("b2_t4096_h8_d128", 2, 4096, 8, 128),
+]
+
+
+def bf16_main(other_dir) -> int:
+    """B4f's bf16 form: this revision, `other_dir`'s and the variants."""
+    import torch
+
+    import rnn_bwd_probe as bp
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    bp.OUT = OUT   # the helpers of rnn_bwd_probe log into this file
+    emit(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                         "--format=csv,noheader"], capture_output=True,
+                        text=True).stdout.strip())
+    out_dir = os.path.join(_build.BUILD_DIR, "probe_bf16")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc, flags, src = _build._nvcc(), _build.NVCC_FLAGS, "flash_attn_fwd.cu"
+    builds = {
+        "this": bp.start(nvcc, flags, os.path.join(_build.SRC_DIR, src),
+                         os.path.join(out_dir, "this.so")),
+        "other": bp.start(nvcc, flags, os.path.join(other_dir, src),
+                          os.path.join(out_dir, "other.so"))}
+    for n, subs in BF16_VARIANTS.items():
+        d = bp.variant_source(_build.SRC_DIR, out_dir, n,
+                              [(src, old, new) for old, new in subs])
+        builds[n] = bp.start(nvcc, flags, os.path.join(d, src),
+                             os.path.join(out_dir, f"{n}.so"))
+    libs = {n: bp.finish(st) for n, st in builds.items()}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.flash_attn_fwd_bf16.argtypes = [p] * 7 + [i] * 6 + [
+            ctypes.c_float, i, p]
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    order = list(libs)
+    for name, B, T, H, D in BF16_SHAPES:
+        q, k, v = (torch.randn((B, T, H, D), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+        out = torch.empty_like(q)
+        lse = torch.empty((B, H, T), device="cuda")
+        ref, _ = fa.attention_plain_bf16(q, k, v, causal=True)
+
+        def call(n):
+            rc = libs[n].flash_attn_fwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), None, None, B, T, T, H, D, 1,
+                1.0 / D ** 0.5, 0, stream)
+            assert rc == 0, (n, rc)
+
+        row = {"shape": name}
+        for n in order:
+            call(n)
+            torch.cuda.synchronize()
+            if n in BF16_RIGHT:
+                row[f"{n}_beyond_ulp"] = cs.bf16_beyond(torch, out, ref)
+        del ref
+        for n in order + order[::-1]:
+            row.setdefault(f"{n}_ms", []).append(
+                cs.time_ms(torch, lambda: call(n)))
+        pairs = cs.visible_pairs(B, T, T, True, None, None)
+        flops = 4 * D * H * pairs
+        nbytes = 2 * 4 * q.numel() + 4 * lse.numel()
+        bound = max(flops / cs.H100_BF16_FLOPS,
+                    nbytes / cs.H100_BYTES_PER_S) * 1e3
+        row["bound_ms"] = bound
+        for n in order:
+            best = min(row[f"{n}_ms"])
+            row[f"{n}_tflops"] = flops / best / 1e9
+            row[f"{n}_of_bound"] = bound / best
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["sdpa_ms"] = cs.time_ms(torch, lambda: sdpa(qt, kt, vt,
+                                                        is_causal=True))
+        emit("bf16 " + json.dumps(row))
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("fwd_kernels_probe: no CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "bf16":
+        os.makedirs(os.path.dirname(OUT), exist_ok=True)
+        return bf16_main(sys.argv[2])
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import bn_act_conv1x1 as op
     from paddle_tpu_torch.ops import flash_attention as fa

@@ -655,333 +655,510 @@ extern "C" const char* flash_attn_error_string(int code) {
 // at the long-context trainer's shape (B=4, T=4096, H=8, D=64, causal,
 // 268.5 M visible pairs) ~0.139 and ~0.104 ms, well above their bytes.
 //
-// Design: the f32 kernels' split and grids (dkv one block per (h, b, 64-key
-// tile), dq one per (h, b, 64-query tile), one writer per output, heaviest
-// tiles first), one walk group, on mma.sync m16n8k16 bf16 (bf16_mma.cuh):
-// - dkv: S^T = K.Q^T and dP^T = V.dO^T, A = K or V by ldmatrix ([key][d] is
-//   A's [m][k]), B = Q or dO as they lie ([query][d] is B's [n][k]). P^T and
-//   dS^T are packed from their accumulators straight into A fragments (two
-//   adjacent n8 tiles of an accumulator are one m16n8k16 A fragment), and
-//   dV += P^T.dO, dK += dS^T.Q take dO and Q as B stored [query][d] =
-//   [k][n], by ldmatrix.trans. At D >= 96 two groups of four warps own the
-//   same keys, each summing half of dK's and dV's columns (registers), as
-//   the f32 kernel does.
-// - dq: S = Q.K^T, dP = dO.V^T, dS packed from registers, dQ += dS.K with K
-//   as B stored [key][d] = [k][n], by ldmatrix.trans.
-// - Shared rows of D + 8 bf16: 16-byte row starts, conflict-free ldmatrix.
-// - dk, dv of keys at or past kv_len and dq of rows at or past q_len are
-//   written as exact zeros, as in the f32 forms.
+// Design (hopper_wgmma.cuh has the pieces and the tile layouts; the
+// forward's block shape and loop; the choices below were timed in turns
+// on one H100 by flash_bwd_probe.py): three warpgroups a block, two
+// consumers and a producer that hands them its registers (240 a consumer
+// thread) and whose one warp issues TMA loads into a four-stage ring with
+// full and empty mbarriers (three stages were up to 7% slower). p = 2^(s *
+// c - lse * log2(e)) with c = scale * log2(e): one FFMA, one MUFU.EX2.
+// Pairs are tested against the masks only on tiles that cross them, and a
+// masked pair's p and ds are 0 by selection, so rows past kv_len may hold
+// anything (NaN too). Within a warpgroup a walked tile's first two
+// products are issued before the previous tile's last ones, and its P and
+// dS are formed while those are in flight (the first and the last are
+// peeled off the loop: no product under a branch).
+// - dkv: one block per (h, b, 128-key tile), each warpgroup owning 64 keys'
+//   dK and dV accumulators; K and V arrive once, then the block walks the
+//   query tiles that can see its keys (64 queries at D <= 64, 32 at D = 128
+//   for registers), Q and dO by TMA and their lse (times log2(e)) and delta
+//   copied by the producer warp. S^T = K.Q^T and dP^T = V.dO^T are wgmma
+//   with B (Q, dO as they lie) K-major in shared memory and A the
+//   warpgroup's K and V rows, loaded once into registers by ldmatrix at D
+//   <= 64 (3% faster than A from shared memory) and from shared memory at
+//   D = 128. P^T and dS^T are formed in registers and packed
+//   (cvt.rn.bf16x2) into register A fragments of dV += P^T.dO and dK +=
+//   dS^T.Q, whose B (dO, Q) is MN-major. A warpgroup skips the causal
+//   tiles that lie wholly before its keys.
+// - dq: one block per (h, b, 128-query tile); Q and dO arrive once (their
+//   A fragments into registers at D <= 64, as dkv's K and V), the block
+//   walks 64-key tiles of K and V up to its last visible key (128-key
+//   tiles were 6% slower at D = 64). S = Q.K^T and dP = dO.V^T by wgmma
+//   (B K-major), dS in registers, dQ += dS.K with K MN-major as B. On the
+//   tile that crosses kv_len each warpgroup zeroes K's rows from kv_len (dS
+//   is 0 there, but 0 * NaN is not); causal tiles wholly past a
+//   warpgroup's rows are skipped.
+// - One writer an output (dq is not fused into dkv through atomics), a
+//   fixed order: bit-identical from run to run. dk, dv of keys at or past
+//   kv_len and dq of rows at or past q_len are written as exact zeros.
+// D = 96 is not instantiated: ops/flash_attention.py pads it to 128.
 
-#include "bf16_mma.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
+// the first products' A operand (K, V in dkv; Q, dO in dq) from registers
+// (at D = 128 they would not fit beside the sums: from shared memory)
 template <int D>
-struct CfgBf16 {
-  static constexpr int LD = D + 8;            // bf16 row stride
-  static constexpr int TILE = BLOCK * LD;     // bf16 elements a tile
-  static constexpr size_t TILE_BYTES = sizeof(bf16) * TILE;
-  static constexpr int CG = D <= 64 ? 1 : 2;  // dkv's column groups
-  static constexpr int DKV_THREADS = THREADS * CG;
-  // dkv: K, V; a stage: Q, dO (bf16), then lse, delta (f32)
-  static constexpr size_t STAGE_DKV = 2 * TILE_BYTES + 2 * BLOCK * 4;
-  static constexpr size_t DKV_BYTES = 2 * TILE_BYTES + STAGES * STAGE_DKV;
-  // dq: Q, dO; a stage: K, V
-  static constexpr size_t DQ_BYTES = 2 * TILE_BYTES + STAGES * 2 * TILE_BYTES;
+constexpr bool A_REGS = D <= 64;
+
+template <int D>
+struct DkvWg {
+  static constexpr int BK = 128;                   // keys a block
+  static constexpr int BQ = D <= 64 ? 64 : 32;     // queries a walked tile
+  static constexpr int STAGES = 4;
+  static constexpr int K_BYTES = BK * D * 2;       // K or V
+  static constexpr int QT_BYTES = BQ * D * 2;      // Q or dO of a stage
+  static constexpr int RING = 2 * K_BYTES;         // offsets in the block
+  static constexpr int ROWS = RING + STAGES * 2 * QT_BYTES;   // lse, delta
+  static constexpr int BARS = ROWS + STAGES * 2 * BQ * 4;
+  static constexpr size_t BYTES = wg_smem(BARS + 8 * (1 + 2 * STAGES) + 1024);
 };
 
-// acc[n] (n8 tiles over a walked tile's 64 rows) += A.B^T over D: A the
-// warp's 16 rows from row `rw` of `a`, B the walked tile `bt` as it lies
-// (both [row][d], row stride LD)
 template <int D>
-__device__ __forceinline__ void product_abt_bf16(float (&acc)[NT][4],
-                                                 const bf16* a, int rw,
-                                                 const bf16* bt) {
-  constexpr int LD = CfgBf16<D>::LD;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    unsigned af[4];
-    ldmatrix_x4(af, a + (rw + rows_lo_row(lane)) * LD + kk + rows_lo_col(lane));
-#pragma unroll
-    for (int jj = 0; jj < NT / 2; ++jj) {
-      unsigned r[4];
-      ldmatrix_x4(r, bt + (jj * 16 + rows_hi_row(lane)) * LD + kk +
-                         rows_hi_col(lane));
-      const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(acc[2 * jj], af, b0);
-      mma_bf16(acc[2 * jj + 1], af, b1);
-    }
-  }
-}
+struct DqWg {
+  static constexpr int BM = 128;                   // query rows a block
+  static constexpr int BN = 64;                    // keys a walked tile
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BYTES = BM * D * 2;       // Q or dO
+  static constexpr int KV_BYTES = BN * D * 2;      // K or V of a stage
+  static constexpr int RING = 2 * Q_BYTES;
+  static constexpr int BARS = RING + STAGES * 2 * KV_BYTES;
+  static constexpr size_t BYTES = wg_smem(BARS + 8 * (1 + 2 * STAGES) + 1024);
+};
 
-// sum[n] (NC n8 tiles from column tile c0) += A.B over a walked tile's 64
-// rows: A = the accumulator `a` of an S-shaped product (rows g, g + 8;
-// columns 2t, 2t + 1 of each n8 tile) rounded to bf16, two n8 tiles a k16
-// step; B the walked tile `bt` stored [row][d] = [k][n], by ldmatrix.trans
-template <int D, int NC>
-__device__ __forceinline__ void product_ab_bf16(float (&sum)[NC][4],
-                                                const float (&a)[NT][4],
-                                                const bf16* bt, int c0) {
-  constexpr int LD = CfgBf16<D>::LD;
-  static_assert(NC % 2 == 0, "ldmatrix.x4 loads two n-tiles");
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int kt = 0; kt < NT / 2; ++kt) {
-    const unsigned af[4] = {pack_bf16x2(a[2 * kt][0], a[2 * kt][1]),
-                            pack_bf16x2(a[2 * kt][2], a[2 * kt][3]),
-                            pack_bf16x2(a[2 * kt + 1][0], a[2 * kt + 1][1]),
-                            pack_bf16x2(a[2 * kt + 1][2], a[2 * kt + 1][3])};
-#pragma unroll
-    for (int dd = 0; dd < NC / 2; ++dd) {
-      unsigned r[4];
-      ldmatrix_x4_trans(r, bt + (kt * 16 + rows_lo_row(lane)) * LD +
-                               8 * c0 + dd * 16 + rows_lo_col(lane));
-      const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-      mma_bf16(sum[2 * dd], af, b0);
-      mma_bf16(sum[2 * dd + 1], af, b1);
-    }
-  }
-}
-
-// rows r (fragment rows g, g + 8) of a warp's [16][8 NC] sum, rounded to
-// bf16, into out [*, ld] at row `row[r]` (skipped at or past `rows`, zeros
-// at or past `live`)
-template <int NC>
-__device__ __forceinline__ void store_rows_bf16(bf16* __restrict__ out,
-                                                int ld,
-                                                const float (&sum)[NC][4],
-                                                const int (&row)[2], int rows,
-                                                int live) {
+// rows r (accumulator entries 4n + 2r, 4n + 2r + 1) of a warpgroup's
+// [64][D] sum, rounded to bf16, into out [*, ld] at row `row[r]` (skipped
+// at or past `rows`, zeros at or past `live`)
+template <int D>
+__device__ __forceinline__ void store_rows_wg(bf16* __restrict__ out, int ld,
+                                              const float (&sum)[D / 2],
+                                              const int (&row)[2], int rows,
+                                              int live) {
   const int t = threadIdx.x & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= rows) continue;
     bf16* o = out + (size_t)row[r] * ld;
 #pragma unroll
-    for (int n = 0; n < NC; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       unsigned x = 0u;
-      if (row[r] < live) x = pack_bf16x2(sum[n][2 * r], sum[n][2 * r + 1]);
+      if (row[r] < live)
+        x = pack_bf16x2(sum[4 * n + 2 * r], sum[4 * n + 2 * r + 1]);
       *reinterpret_cast<unsigned*>(o + 8 * n + 2 * t) = x;
     }
   }
 }
 
-// One block per (h, b, 64-key tile): dk and dv of the tile's keys.
+// One block per (h, b, 128-key tile): dk and dv of the tile's keys.
 template <int D>
-__global__ void __launch_bounds__(CfgBf16<D>::DKV_THREADS)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q,
-                          const bf16* __restrict__ k,
-                          const bf16* __restrict__ v,
-                          const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv,
-                          const int* __restrict__ kv_len,
-                          const int* __restrict__ q_len, int Tq, int Tk,
-                          int H, int causal, float scale) {
-  using C = CfgBf16<D>;
-  constexpr int LD = C::LD, THR = C::DKV_THREADS;
-  constexpr int NC = D / 8 / C::CG;    // a warp's column tiles of dK and dV
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_bf16);   // the tile's K, V
-  bf16* vs = ks + C::TILE;
-  unsigned char* ring = smem_bf16 + 2 * C::TILE_BYTES;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           const int* __restrict__ kv_len,
+                           const int* __restrict__ q_len, int Tq, int Tk,
+                           int H, int causal, float scale, float c) {
+  using C = DkvWg<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, STAGES = C::STAGES;
+  constexpr int AC = atom_cols(D);
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* sm = align1024(smem_wg);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + C::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+  float* rows = reinterpret_cast<float*>(sm + C::ROWS);
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * BLOCK;   // low key tiles, the heaviest, first
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int rw = (warp % WARPS) * 16;  // the warp's first key of the tile
-  const int c0 = (warp / WARPS) * NC;  // ... and its first column tile
-  const int key[2] = {k0 + rw + g, k0 + rw + g + 8};
-
-  const int klen = clamp_len(kv_len, b, Tk);
-  const int qlen = clamp_len(q_len, b, Tq);
+  const int k0 = blockIdx.z * BK;       // low key tiles, the heaviest, first
+  const int klen = warp_uniform(clamp_len(kv_len, b, Tk));
+  const int qlen = warp_uniform(clamp_len(q_len, b, Tq));
   const int qbeg = causal ? k0 : 0;
   const int qend = k0 < klen ? qlen : 0;
-  const int ntiles = qbeg < qend ? (qend - qbeg + BLOCK - 1) / BLOCK : 0;
+  const int ntiles = qbeg < qend ? (qend - qbeg + BQ - 1) / BQ : 0;
+  const size_t bh = (size_t)b * H + h;
 
-  const int ld = H * D;
-  const size_t kvb = ((size_t)b * Tk * H + h) * D;
-  const bf16* qb = q + ((size_t)b * Tq * H + h) * D;
-  const bf16* dob = dout + ((size_t)b * Tq * H + h) * D;
-  const float* lseb = lse + ((size_t)b * H + h) * Tq;
-  const float* deltab = delta + ((size_t)b * H + h) * Tq;
-  auto stage = [&](int j) { return ring + (j % STAGES) * C::STAGE_DKV; };
-  auto load = [&](int j) {   // query tile j: Q, dO, lse, delta
-    bf16* st = reinterpret_cast<bf16*>(stage(j));
-    float* rows = reinterpret_cast<float*>(stage(j) + 2 * C::TILE_BYTES);
-    const int i0 = qbeg + j * BLOCK;
-    load_window_bf16<BLOCK, D, THR>(st, LD, qb, ld, i0, Tq, 0, D);
-    load_window_bf16<BLOCK, D, THR>(st + C::TILE, LD, dob, ld, i0, Tq, 0, D);
-    load_window<1, BLOCK, 1, THR>(rows, 0, lseb, 0, 0, 1, i0, Tq);
-    load_window<1, BLOCK, 1, THR>(rows + BLOCK, 0, deltab, 0, 0, 1, i0, Tq);
-  };
-  // the tile's K and V (keys at or past kv_len: zeros), with query tile 0
-  load_window_bf16<BLOCK, D, THR>(ks, LD, k + kvb, ld, k0, klen, 0, D);
-  load_window_bf16<BLOCK, D, THR>(vs, LD, v + kvb, ld, k0, klen, 0, D);
-  if (ntiles > 0) load(0);
-  cp_async_commit();
+  init_ring(kv_full, STAGES);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wgi = warp_uniform(threadIdx.x >> 7);   // the warpgroup
 
-  float dks[NC][4], dvs[NC][4];        // the warp's part of dk, dv
-  zero_acc(dks);
-  zero_acc(dvs);
-
-  for (int j = 0; j < ntiles; ++j) {
-    __syncthreads();                   // every warp is done with tile j - 1
-    if (j + 1 < ntiles) load(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();                   // tile j (and K, V) visible to all
-    const bf16* qt = reinterpret_cast<const bf16*>(stage(j));
-    const bf16* dot = qt + C::TILE;
-    const float* lst =
-        reinterpret_cast<const float*>(stage(j) + 2 * C::TILE_BYTES);
-    const float* dlt = lst + BLOCK;
-    const int i0 = qbeg + j * BLOCK;
-    const bool masked = !(k0 + BLOCK <= klen && i0 + BLOCK <= qlen &&
-                          (!causal || k0 + BLOCK - 1 <= i0));
-
-    // S^T = K.Q^T and dP^T = V.dO^T: the warp's 16 keys x the tile's queries
-    float s[NT][4], dp[NT][4];
-    zero_acc(s);
-    zero_acc(dp);
-    product_abt_bf16<D>(s, ks, rw, qt);
-    product_abt_bf16<D>(dp, vs, rw, dot);
-
-    // P^T and dS^T in place: (key g + 8 (c >> 1), query 8n + 2t + (c & 1))
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int qc = 8 * n + 2 * t;
-      const float2 l2 = *reinterpret_cast<const float2*>(lst + qc);
-      const float2 d2 = *reinterpret_cast<const float2*>(dlt + qc);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float p = expf(s[n][c] * scale - ((c & 1) ? l2.y : l2.x));
-        if (masked) {
-          const int qi = i0 + qc + (c & 1), kj = key[c >> 1];
-          if (!(kj < klen && qi < qlen && (!causal || kj <= qi))) p = 0.f;
-        }
-        s[n][c] = p;
-        dp[n][c] = p * (dp[n][c] - ((c & 1) ? d2.y : d2.x)) * scale;
+  if (wgi == 2) {      // the producer: its first warp
+    producer_regs();
+    if (warp != WG_CONSUMER_WARPS || ntiles == 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * C::K_BYTES);
+      for (int a = 0; a < D / AC; ++a) {
+        tma_load(sm + a * BK * 2 * AC, &tk, kv_full, a * AC, h, k0, b);
+        tma_load(sm + C::K_BYTES + a * BK * 2 * AC, &tv, kv_full, a * AC, h,
+                 k0, b);
       }
     }
-
-    // dV += P^T.dO and dK += dS^T.Q over the tile's queries
-    product_ab_bf16<D, NC>(dvs, s, dot, c0);
-    product_ab_bf16<D, NC>(dks, dp, qt, c0);
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % STAGES, i0 = qbeg + j * BQ;
+      mbar_wait(empty + s, ((j / STAGES) & 1) ^ 1);
+      float* rs = rows + s * 2 * BQ;    // lse * log2(e), then delta
+      for (int x = lane; x < BQ; x += 32) {
+        const bool in = i0 + x < Tq;
+        rs[x] = in ? lse[bh * Tq + i0 + x] * LOG2E : 0.f;
+        rs[BQ + x] = in ? delta[bh * Tq + i0 + x] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_expect_tx(full + s, 2 * C::QT_BYTES);
+        unsigned char* qt = sm + C::RING + s * 2 * C::QT_BYTES;
+        for (int a = 0; a < D / AC; ++a) {
+          tma_load(qt + a * BQ * 2 * AC, &tq, full + s, a * AC, h, i0, b);
+          tma_load(qt + C::QT_BYTES + a * BQ * 2 * AC, &tdo, full + s,
+                   a * AC, h, i0, b);
+        }
+      }
+    }
+    return;
   }
-  cp_async_wait<0>();
+  consumer_regs();
 
-  store_rows_bf16<NC>(dk + kvb + 8 * c0, ld, dks, key, Tk, klen);
-  store_rows_bf16<NC>(dv + kvb + 8 * c0, ld, dvs, key, Tk, klen);
+  // a consumer warpgroup: keys kw0.., this thread's keys key[0] (entries
+  // 4n, 4n + 1) and key[1] (4n + 2, 4n + 3)
+  const int wg = wgi;
+  const int g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 64 * wg;
+  const int key[2] = {kw0 + 16 * (warp & 3) + g,
+                      kw0 + 16 * (warp & 3) + g + 8};
+  const unsigned ks = smem_u32(sm), vs = ks + C::K_BYTES;
+  auto qtile = [&](int j) {             // Q of walked tile j, then dO
+    return smem_u32(sm + C::RING + (j % STAGES) * 2 * C::QT_BYTES);
+  };
+  float dks[D / 2], dvs[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dks[i] = dvs[i] = 0.f;
+  float st[BQ / 2], dpt[BQ / 2];        // S^T, dP^T: 64 keys x BQ queries
+  unsigned pa[BQ / 16][4], da[BQ / 16][4];   // the previous P^T, dS^T
+
+  auto arrived = [&](int j) {
+    mbar_wait(full + j % STAGES, (j / STAGES) & 1);
+  };
+  auto release = [&](int j) {
+    mbar_arrive_if(empty + j % STAGES, lane == 0);
+  };
+  // at D <= 64 the warpgroup's K and V rows stay in registers as A
+  // fragments (half the shared-memory reads of S^T and dP^T)
+  unsigned ka[A_REGS<D> ? D / 16 : 1][4], va[A_REGS<D> ? D / 16 : 1][4];
+  auto issue_s = [&](int j) {           // S^T = K.Q^T, dP^T = V.dO^T
+    const unsigned qt = qtile(j), dot = qt + C::QT_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      if constexpr (A_REGS<D>)
+        wgmma_rs_k<BQ>(st, ka[kk], desc_k<D>(qt, BQ, 0, kk), kk);
+      else
+        wgmma_ss<BQ>(st, desc_k<D>(ks, BK, 64 * wg, kk),
+                     desc_k<D>(qt, BQ, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      if constexpr (A_REGS<D>)
+        wgmma_rs_k<BQ>(dpt, va[kk], desc_k<D>(dot, BQ, 0, kk), kk);
+      else
+        wgmma_ss<BQ>(dpt, desc_k<D>(vs, BK, 64 * wg, kk),
+                     desc_k<D>(dot, BQ, 0, kk), kk);
+    wgmma_commit();
+  };
+  auto issue_d = [&](int j) {           // dV += P^T.dO, dK += dS^T.Q
+    const unsigned qt = qtile(j), dot = qt + C::QT_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs<D>(dvs, pa[kk], desc_mn<D>(dot, BQ, kk), 1);
+      wgmma_rs<D>(dks, da[kk], desc_mn<D>(qt, BQ, kk), 1);
+    }
+    wgmma_commit();
+  };
+  // P^T, dS^T of tile j in place: (key[(e >> 1) & 1], query 8n + 2t +
+  // (e & 1)), then packed to bf16
+  auto form = [&](int j) {
+    const int i0 = qbeg + j * BQ;
+    const float* rs = rows + (j % STAGES) * 2 * BQ;
+    const bool masked = !(kw0 + 64 <= klen && i0 + BQ <= qlen &&
+                          (!causal || kw0 + 63 <= i0));
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n) {
+      const int qc = 8 * n + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(rs + qc);
+      const float2 d2 = *reinterpret_cast<const float2*>(rs + BQ + qc);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int e = 4 * n + x;
+        float p = ex2(fmaf(st[e], c, -((x & 1) ? l2.y : l2.x)));
+        float ds = p * (dpt[e] - ((x & 1) ? d2.y : d2.x)) * scale;
+        if (masked) {
+          const int kj = key[x >> 1], qi = i0 + qc + (x & 1);
+          if (!(kj < klen && qi < qlen && (!causal || kj <= qi)))
+            p = ds = 0.f;
+        }
+        st[e] = p;
+        dpt[e] = ds;
+      }
+    }
+  };
+
+  // The walk: the causal tiles wholly before the warpgroup's keys are
+  // skipped; on the others tile j's S^T and dP^T are issued before tile
+  // j - 1's dV and dK products, and P^T, dS^T formed while those are in
+  // flight (the first and the last are peeled off the loop, so no
+  // product is issued under a branch).
+  const int jbeg = causal ? min(ntiles, (kw0 - qbeg) / BQ) : 0;
+  if (ntiles > 0) {
+    mbar_wait(kv_full, 0);
+    if constexpr (A_REGS<D>) {
+      load_a<D>(ka, ks, BK, 64 * wg);
+      load_a<D>(va, vs, BK, 64 * wg);
+    }
+  }
+  for (int j = 0; j < jbeg; ++j) {
+    arrived(j);
+    release(j);
+  }
+  if (jbeg < ntiles) {
+    arrived(jbeg);
+    wgmma_fence();
+    issue_s(jbeg);
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+    form(jbeg);
+    pack_a<BQ>(pa, st);
+    pack_a<BQ>(da, dpt);
+    for (int j = jbeg + 1; j < ntiles; ++j) {
+      arrived(j);
+      wgmma_fence();
+      issue_s(j);
+      issue_d(j - 1);
+      wgmma_wait<1>();
+      fence_regs(st);
+      fence_regs(dpt);
+      form(j);
+      wgmma_wait<0>();                  // tile j - 1's products are done
+      fence_regs(dvs);
+      fence_regs(dks);
+      release(j - 1);
+      pack_a<BQ>(pa, st);
+      pack_a<BQ>(da, dpt);
+    }
+    wgmma_fence();
+    issue_d(ntiles - 1);
+    wgmma_wait<0>();
+    fence_regs(dvs);
+    fence_regs(dks);
+  }
+
+  const size_t kvb = ((size_t)b * Tk * H + h) * D;
+  store_rows_wg<D>(dk + kvb, H * D, dks, key, Tk, klen);
+  store_rows_wg<D>(dv + kvb, H * D, dvs, key, Tk, klen);
 }
 
-// One block per (h, b, 64-query tile): dq of the tile's queries.
+// One block per (h, b, 128-query tile): dq of the tile's queries.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v,
-                         const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         bf16* __restrict__ dq,
-                         const int* __restrict__ kv_len,
-                         const int* __restrict__ q_len, int Tq, int Tk, int H,
-                         int causal, float scale) {
-  using C = CfgBf16<D>;
-  constexpr int LD = C::LD, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_bf16);   // the tile's Q, dO
-  bf16* dos = qs + C::TILE;
-  bf16* ring = dos + C::TILE;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq,
+                          const int* __restrict__ kv_len,
+                          const int* __restrict__ q_len, int Tq, int Tk,
+                          int H, int causal, float scale, float c) {
+  using C = DqWg<D>;
+  constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES;
+  constexpr int AC = atom_cols(D);
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* sm = align1024(smem_wg);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int h = blockIdx.x, b = blockIdx.y;
   // high query tiles, the heaviest when causal, first
   const int tile = causal ? (int)gridDim.z - 1 - (int)blockIdx.z
                           : (int)blockIdx.z;
-  const int q0 = tile * BLOCK;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int rw = warp * 16;            // the warp's first row of the tile
-  const int qi[2] = {q0 + rw + g, q0 + rw + g + 8};
-
-  const int klen = clamp_len(kv_len, b, Tk);
-  const int qlen = clamp_len(q_len, b, Tq);
-  int kend = klen;                     // keys any row of the tile may see
-  if (causal) kend = min(kend, q0 + BLOCK);
+  const int q0 = tile * BM;
+  const int klen = warp_uniform(clamp_len(kv_len, b, Tk));
+  const int qlen = warp_uniform(clamp_len(q_len, b, Tq));
+  int kend = klen;                       // keys any row of the block sees
+  if (causal) kend = min(kend, q0 + BM);
   if (q0 >= qlen) kend = 0;
-  const int ntiles = (kend + BLOCK - 1) / BLOCK;
+  const int ntiles = (kend + BN - 1) / BN;
 
-  const int ld = H * D;
-  const size_t qdb = ((size_t)b * Tq * H + h) * D;
-  const bf16* kb = k + ((size_t)b * Tk * H + h) * D;
-  const bf16* vb = v + ((size_t)b * Tk * H + h) * D;
-  auto load = [&](int j) {   // key tile j: K, V (zeros past kv_len)
-    bf16* st = ring + (j % STAGES) * 2 * C::TILE;
-    load_window_bf16<BLOCK, D, THREADS>(st, LD, kb, ld, j * BLOCK, klen, 0,
-                                        D);
-    load_window_bf16<BLOCK, D, THREADS>(st + C::TILE, LD, vb, ld, j * BLOCK,
-                                        klen, 0, D);
-  };
-  // the tile's Q and dO (rows past Tq: zeros), with key tile 0
-  load_window_bf16<BLOCK, D, THREADS>(qs, LD, q + qdb, ld, q0, Tq, 0, D);
-  load_window_bf16<BLOCK, D, THREADS>(dos, LD, dout + qdb, ld, q0, Tq, 0, D);
-  if (ntiles > 0) load(0);
-  cp_async_commit();
-  float row_lse[2], row_delta[2];
+  init_ring(q_full, STAGES);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wgi = warp_uniform(threadIdx.x >> 7);   // the warpgroup
+
+  if (wgi == 2) {      // the producer
+    producer_regs();
+    if (warp != WG_CONSUMER_WARPS || lane != 0 || ntiles == 0) return;
+    mbar_expect_tx(q_full, 2 * C::Q_BYTES);
+    for (int a = 0; a < D / AC; ++a) {
+      tma_load(sm + a * BM * 2 * AC, &tq, q_full, a * AC, h, q0, b);
+      tma_load(sm + C::Q_BYTES + a * BM * 2 * AC, &tdo, q_full, a * AC, h,
+               q0, b);
+    }
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(empty + s, ((j / STAGES) & 1) ^ 1);
+      mbar_expect_tx(full + s, 2 * C::KV_BYTES);
+      unsigned char* kt = sm + C::RING + s * 2 * C::KV_BYTES;
+      for (int a = 0; a < D / AC; ++a) {
+        tma_load(kt + a * BN * 2 * AC, &tk, full + s, a * AC, h, j * BN, b);
+        tma_load(kt + C::KV_BYTES + a * BN * 2 * AC, &tv, full + s, a * AC,
+                 h, j * BN, b);
+      }
+    }
+    return;
+  }
+  consumer_regs();
+
+  // a consumer warpgroup: rows qw0.., this thread's rows row[0] (entries
+  // 4n, 4n + 1) and row[1] (4n + 2, 4n + 3)
+  const int wg = wgi, tid = threadIdx.x & 127;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + 64 * wg;
+  const int row[2] = {qw0 + 16 * (warp & 3) + g,
+                      qw0 + 16 * (warp & 3) + g + 8};
+  float lse2[2], dl[2];                  // lse * log2(e), delta of the rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const size_t at = ((size_t)b * H + h) * Tq + qi[r];
-    row_lse[r] = qi[r] < Tq ? lse[at] : 1e30f;
-    row_delta[r] = qi[r] < Tq ? delta[at] : 0.f;
+    const size_t at = ((size_t)b * H + h) * Tq + row[r];
+    lse2[r] = row[r] < Tq ? lse[at] * LOG2E : 1e30f;
+    dl[r] = row[r] < Tq ? delta[at] : 0.f;
   }
-
-  float dqs[DT][4];                    // the warp's rows' dq
-  zero_acc(dqs);
-
-  for (int j = 0; j < ntiles; ++j) {
-    __syncthreads();                   // every warp is done with tile j - 1
-    if (j + 1 < ntiles) load(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();                   // tile j (and Q, dO) visible to all
-    const bf16* kt = ring + (j % STAGES) * 2 * C::TILE;
-    const bf16* vt = kt + C::TILE;
-    const int k0 = j * BLOCK;
-    const bool masked = !(k0 + BLOCK <= klen && q0 + BLOCK <= qlen &&
-                          (!causal || k0 + BLOCK - 1 <= q0));
-
-    // S = Q.K^T and dP = dO.V^T: the warp's 16 rows x the tile's 64 keys
-    float s[NT][4], dp[NT][4];
-    zero_acc(s);
-    zero_acc(dp);
-    product_abt_bf16<D>(s, qs, rw, kt);
-    product_abt_bf16<D>(dp, dos, rw, vt);
-
-    // dS in place of S: (row g + 8 (c >> 1), key 8n + 2t + (c & 1))
+  const unsigned qs = smem_u32(sm), dos = qs + C::Q_BYTES;
+  auto ktile = [&](int j) {              // K of key tile j, then V
+    return smem_u32(sm + C::RING + (j % STAGES) * 2 * C::KV_BYTES);
+  };
+  float acc[D / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float sc[BN / 2], dp[BN / 2];          // S, dP: 64 rows x BN keys
+  unsigned da[BN / 16][4];               // the previous tile's dS, bf16
+
+  // key tile j arrived; K's rows from kv_len zeroed
+  auto arrived = [&](int j) {
+    mbar_wait(full + j % STAGES, (j / STAGES) & 1);
+    if (j * BN + BN > klen) {
+      zero_rows<D, BN>(sm + C::RING + (j % STAGES) * 2 * C::KV_BYTES,
+                       klen - j * BN, tid);
+      named_sync(1 + wg, 128);
+    }
+  };
+  auto release = [&](int j) {
+    mbar_arrive_if(empty + j % STAGES, lane == 0);
+  };
+  // at D <= 64 the warpgroup's Q and dO rows stay in registers as A
+  // fragments (half the shared-memory reads of S and dP)
+  unsigned qa[A_REGS<D> ? D / 16 : 1][4], oa[A_REGS<D> ? D / 16 : 1][4];
+  auto issue_s = [&](int j) {            // S = Q.K^T, dP = dO.V^T
+    const unsigned ka = ktile(j), va = ka + C::KV_BYTES;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1;
-        float p = expf(s[n][c] * scale - row_lse[r]);
-        if (masked) {
-          const int kj = k0 + 8 * n + 2 * t + (c & 1);
-          if (!(qi[r] < qlen && kj < klen && (!causal || kj <= qi[r])))
-            p = 0.f;
-        }
-        s[n][c] = p * (dp[n][c] - row_delta[r]) * scale;
+    for (int kk = 0; kk < D / 16; ++kk)
+      if constexpr (A_REGS<D>)
+        wgmma_rs_k<BN>(sc, qa[kk], desc_k<D>(ka, BN, 0, kk), kk);
+      else
+        wgmma_ss<BN>(sc, desc_k<D>(qs, BM, 64 * wg, kk),
+                     desc_k<D>(ka, BN, 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      if constexpr (A_REGS<D>)
+        wgmma_rs_k<BN>(dp, oa[kk], desc_k<D>(va, BN, 0, kk), kk);
+      else
+        wgmma_ss<BN>(dp, desc_k<D>(dos, BM, 64 * wg, kk),
+                     desc_k<D>(va, BN, 0, kk), kk);
+    wgmma_commit();
+  };
+  auto issue_dq = [&](int j) {           // dQ += dS.K of tile j
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<D>(acc, da[kk], desc_mn<D>(ktile(j), BN, kk), 1);
+    wgmma_commit();
+  };
+  // dS of tile j in place of S: (row[(e >> 1) & 1], key 8n + 2t + (e & 1))
+  auto form = [&](int j) {
+    const int k0 = j * BN;
+    const bool masked = !(k0 + BN <= klen && qw0 + 64 <= qlen &&
+                          (!causal || k0 + BN - 1 <= qw0));
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      const float p = ex2(fmaf(sc[e], c, -lse2[r]));
+      float ds = p * (dp[e] - dl[r]) * scale;
+      if (masked) {
+        const int kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        if (!(row[r] < qlen && kj < klen && (!causal || kj <= row[r])))
+          ds = 0.f;
       }
+      sc[e] = ds;
+    }
+  };
 
-    // dQ += dS.K over the tile's keys
-    product_ab_bf16<D, DT>(dqs, s, kt, 0);
+  // The walk, as dkv's: tile j's S and dP are issued before tile j - 1's
+  // dQ += dS.K, and dS is formed while that product is in flight; causal
+  // tiles wholly past the warpgroup's rows are skipped.
+  const int jend = causal ? min(ntiles, (qw0 + 63) / BN + 1) : ntiles;
+  if (ntiles > 0) {
+    mbar_wait(q_full, 0);
+    if constexpr (A_REGS<D>) {
+      load_a<D>(qa, qs, BM, 64 * wg);
+      load_a<D>(oa, dos, BM, 64 * wg);
+    }
   }
-  cp_async_wait<0>();
+  if (jend > 0) {
+    arrived(0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    form(0);
+    pack_a<BN>(da, sc);
+    for (int j = 1; j < jend; ++j) {
+      arrived(j);
+      wgmma_fence();
+      issue_s(j);
+      issue_dq(j - 1);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      fence_regs(dp);
+      form(j);
+      wgmma_wait<0>();                   // tile j - 1's dQ is done
+      fence_regs(acc);
+      release(j - 1);
+      pack_a<BN>(da, sc);
+    }
+    wgmma_fence();
+    issue_dq(jend - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(jend - 1);
+  }
+  for (int j = jend; j < ntiles; ++j) {
+    arrived(j);
+    release(j);
+  }
 
-  store_rows_bf16<DT>(dq + qdb, ld, dqs, qi, Tq, qlen);
+  store_rows_wg<D>(dq + ((size_t)b * Tq * H + h) * D, H * D, acc, row, Tq,
+                   qlen);
+}
+
+// the four tensor maps of a backward call: q and dout with `q_rows`-row
+// boxes, k and v with `k_rows`-row boxes
+inline bool bwd_maps(CUtensorMap (&m)[4], const bf16* q, const bf16* k,
+                     const bf16* v, const bf16* dout, int B, int Tq, int Tk,
+                     int H, int D, int q_rows, int k_rows) {
+  return bthd_map(&m[0], q, B, Tq, H, D, q_rows) &&
+         bthd_map(&m[1], k, B, Tk, H, D, k_rows) &&
+         bthd_map(&m[2], v, B, Tk, H, D, k_rows) &&
+         bthd_map(&m[3], dout, B, Tq, H, D, q_rows);
 }
 
 template <int D>
@@ -991,16 +1168,18 @@ cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                             const int* kv_len, const int* q_len, int B,
                             int Tq, int Tk, int H, int causal, float scale,
                             cudaStream_t stream) {
-  using C = CfgBf16<D>;
-  static_assert(C::DKV_BYTES <= 232448, "shared memory of a block");
+  using C = DkvWg<D>;
+  static_assert(C::BYTES <= 232448, "shared memory of a block");
+  CUtensorMap m[4];
+  if (!bwd_maps(m, q, k, v, dout, B, Tq, Tk, H, D, C::BQ, C::BK))
+    return cudaErrorInvalidValue;
   const cudaError_t err =
-      allow_smem(flash_bwd_dkv_bf16_kernel<D>, C::DKV_BYTES);
+      allow_smem(flash_bwd_dkv_wgmma_kernel<D>, C::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, B, (Tk + BLOCK - 1) / BLOCK);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, C::DKV_THREADS, C::DKV_BYTES,
-                                 stream>>>(q, k, v, dout, lse, delta, dk, dv,
-                                           kv_len, q_len, Tq, Tk, H, causal,
-                                           scale);
+  const dim3 grid(H, B, (Tk + C::BK - 1) / C::BK);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, WG_THREADS, C::BYTES, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, dk, dv, kv_len, q_len, Tq, Tk, H,
+      causal, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -1010,22 +1189,26 @@ cudaError_t launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
                            const float* delta, bf16* dq, const int* kv_len,
                            const int* q_len, int B, int Tq, int Tk, int H,
                            int causal, float scale, cudaStream_t stream) {
-  using C = CfgBf16<D>;
-  static_assert(C::DQ_BYTES <= 232448, "shared memory of a block");
-  const cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>,
-                                     C::DQ_BYTES);
+  using C = DqWg<D>;
+  static_assert(C::BYTES <= 232448, "shared memory of a block");
+  CUtensorMap m[4];
+  if (!bwd_maps(m, q, k, v, dout, B, Tq, Tk, H, D, C::BM, C::BN))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem(flash_bwd_dq_wgmma_kernel<D>, C::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, B, (Tq + BLOCK - 1) / BLOCK);
-  flash_bwd_dq_bf16_kernel<D><<<grid, THREADS, C::DQ_BYTES, stream>>>(
-      q, k, v, dout, lse, delta, dq, kv_len, q_len, Tq, Tk, H, causal,
-      scale);
+  const dim3 grid(H, B, (Tq + C::BM - 1) / C::BM);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, WG_THREADS, C::BYTES, stream>>>(
+      m[0], m[1], m[2], m[3], lse, delta, dq, kv_len, q_len, Tq, Tk, H,
+      causal, scale, scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The bf16 forms' entry points: as flash_attn_bwd_dkv and flash_attn_bwd_dq,
-// with q, k, v, dout, dq, dk and dv bf16 (lse and delta f32).
+// with q, k, v, dout, dq, dk and dv bf16 (lse and delta f32), D in 32, 64,
+// 128 and scale >= 0 (the wrapper pads D = 96 and negates q for a negative
+// scale).
 extern "C" int flash_attn_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                        const bf16* v, const bf16* dout,
                                        const float* lse, const float* delta,
@@ -1034,6 +1217,7 @@ extern "C" int flash_attn_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                        int Tk, int H, int D, int causal,
                                        float scale, int device,
                                        void* stream) {
+  if (!(scale >= 0.f)) return (int)cudaErrorInvalidValue;
   cudaError_t err = prologue(B, Tq, Tk, H, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -1044,10 +1228,6 @@ extern "C" int flash_attn_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                       scale, st);
     case 64:
       return (int)launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv,
-                                      kv_len, q_len, B, Tq, Tk, H, causal,
-                                      scale, st);
-    case 96:
-      return (int)launch_dkv_bf16<96>(q, k, v, dout, lse, delta, dk, dv,
                                       kv_len, q_len, B, Tq, Tk, H, causal,
                                       scale, st);
     case 128:
@@ -1066,6 +1246,7 @@ extern "C" int flash_attn_bwd_dq_bf16(const bf16* q, const bf16* k,
                                       const int* q_len, int B, int Tq, int Tk,
                                       int H, int D, int causal, float scale,
                                       int device, void* stream) {
+  if (!(scale >= 0.f)) return (int)cudaErrorInvalidValue;
   cudaError_t err = prologue(B, Tq, Tk, H, device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
@@ -1075,9 +1256,6 @@ extern "C" int flash_attn_bwd_dq_bf16(const bf16* q, const bf16* k,
                                      q_len, B, Tq, Tk, H, causal, scale, st);
     case 64:
       return (int)launch_dq_bf16<64>(q, k, v, dout, lse, delta, dq, kv_len,
-                                     q_len, B, Tq, Tk, H, causal, scale, st);
-    case 96:
-      return (int)launch_dq_bf16<96>(q, k, v, dout, lse, delta, dq, kv_len,
                                      q_len, B, Tq, Tk, H, causal, scale, st);
     case 128:
       return (int)launch_dq_bf16<128>(q, k, v, dout, lse, delta, dq, kv_len,

@@ -435,210 +435,272 @@ extern "C" const char* flash_attn_error_string(int code) {
 // GFLOP, ~0.069 ms, against ~0.020 ms for q, k, v, out and lse at 3.35
 // TB/s.
 //
-// Design: the f32 kernel's grid (one block per (h, b, 64-query tile), a
-// warp owning 16 rows, heaviest causal tiles first), one key group.
-// - mma.sync m16n8k16 bf16 with f32 accumulators (bf16_mma.cuh), one pass.
-//   Q's A fragments come by ldmatrix once a block and stay in registers;
-//   K's B fragments by ldmatrix as K lies ([key][d] is B's [n][k]).
-// - P.V without shared memory: the accumulators of two adjacent n8 tiles
-//   of S (keys 16j + 2t, +1 and 16j + 8 + 2t, +1 of rows g and g + 8) are
-//   exactly the A fragment of one m16n8k16, packed by cvt.rn.bf16x2 (the
-//   library's rounding of p); V is B stored [key][d] = [k][n], read by
-//   ldmatrix.trans.
-// - Shared rows of D + 8 bf16: 16-byte row starts for ldmatrix, and the
-//   eight rows of a matrix fall in distinct banks.
-// - K and V through a two-stage cp.async ring (16-byte copies), zero-filled
-//   past kv_len; the masks tested a pair only on tiles that cross them.
+// Design (hopper_wgmma.cuh has the pieces and the tile layouts; the
+// choices below were timed in turns on one H100 by fwd_kernels_probe.py):
+// - One block per (h, b, 128-query tile), three warpgroups: two consumers
+//   of 64 query rows each and a producer, which hands its registers to
+//   them (setmaxnreg: 240 a consumer thread); one block an SM. The
+//   heaviest causal tiles (the most keys) are dispatched first.
+// - One producer thread issues TMA loads through tensor maps over
+//   [B, T, H, D] (row stride H * D, swizzled as wgmma reads them): Q
+//   once, then the key tiles' K and V (128 keys at every D: 64 were
+//   slower, and 192 too) into a ring of four stages at D <= 64 (three at
+//   128, for shared memory; three were 5% slower at D = 64), with a full
+//   and an empty mbarrier a stage. A tile past the diagonal or past
+//   kv_len is never loaded.
+// - S = Q.K^T: wgmma m64n128k16 with B (K as it lies) K-major in shared
+//   memory and A the warpgroup's Q rows, loaded once into registers by
+//   ldmatrix at D <= 64 (6% faster than A from shared memory), from
+//   shared memory at D = 128 (registers).
+// - The online softmax runs on the accumulator's rows in f32: the running
+//   max m is kept of s * scale * log2(e), and p = 2^(s * c - m) is one FFMA
+//   and one MUFU.EX2 (c = scale * log2(e)); lse = (m + log2 l) * ln 2. A
+//   row's max and sum are taken as four partials. Only tiles that cross a
+//   mask (the diagonal, kv_len, q_len) test each pair, which gives p = 0 by
+//   selection, never through exp of -inf.
+// - O += P.V: P is packed by cvt.rn.bf16x2 straight from S's accumulators
+//   into wgmma's register A fragment (the library's rounding of p); V as it
+//   lies is B, MN-major: wgmma m64nDk16 with A from registers.
+// - Within a warpgroup, tile j's S is issued before tile j - 1's P.V, and
+//   tile j's softmax runs while that product is in flight; the first S and
+//   the last P.V are peeled off the loop, so that no product is issued
+//   under a branch (ptxas serialises wgmma on a divergent path, and the
+//   waits and arrivals keep their loops and predicates inside the asm for
+//   that reason). The two warpgroups run in step: making them take turns
+//   to issue their products (FlashAttention-3's ping-pong) was 33% slower.
+// - TMA fills rows past T with zeros but not rows past kv_len, which may
+//   hold anything (NaN too): on the tile that crosses kv_len each
+//   warpgroup zeroes V's rows from kv_len before P.V (K's give s that the
+//   mask replaces).
 // - No atomics, a fixed order: bit-identical from run to run.
+// D = 96 is not instantiated: ops/flash_attention.py pads it to 128.
 
-#include "bf16_mma.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
+// S's A operand (the warpgroup's Q rows) from registers (at D = 128 they
+// would not fit beside O: from shared memory)
 template <int D>
-struct CfgBf16 {
-  static constexpr int THREADS = 32 * WARPS;
-  static constexpr int LD = D + 8;               // bf16 row stride
-  static constexpr int TILE = BLOCK_M * LD;      // bf16 elements a tile
-  // Q, then STAGES stages of K and V
-  static constexpr size_t BYTES = sizeof(bf16) * TILE * (1 + 2 * STAGES);
+constexpr bool Q_REGS = D <= 64;
+
+template <int D>
+struct FwdWg {
+  static constexpr int BM = 128;                   // query rows a block
+  static constexpr int BN = 128;                   // keys a tile
+  static constexpr int STAGES = D <= 64 ? 4 : 3;   // shared memory
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;      // K or V of a stage
+  static constexpr int RING = Q_BYTES;             // offsets in the block
+  static constexpr int BARS = RING + STAGES * 2 * KV_BYTES;
+  static constexpr size_t BYTES = wg_smem(BARS + 8 * (1 + 2 * STAGES) + 1024);
 };
 
 template <int D>
-__global__ void __launch_bounds__(CfgBf16<D>::THREADS)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, const int* __restrict__ kv_len,
-                      const int* __restrict__ q_len, int Tq, int Tk, int H,
-                      int causal, float scale) {
-  using C = CfgBf16<D>;
-  constexpr int LD = C::LD, THREADS = C::THREADS;
-  constexpr int DT = D / 8;          // out's n8 tiles a warp
-  constexpr int DK = D / 16;         // k16 steps of Q.K^T
-  static_assert(BLOCK_M == BLOCK_N, "one tile shape");
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_bf16);
-  bf16* ring = qs + C::TILE;
+__global__ void __launch_bounds__(WG_THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       bf16* __restrict__ out, float* __restrict__ lse,
+                       const int* __restrict__ kv_len,
+                       const int* __restrict__ q_len, int Tq, int Tk, int H,
+                       int causal, float c) {
+  using C = FwdWg<D>;
+  constexpr int BM = C::BM, BN = C::BN, STAGES = C::STAGES;
+  constexpr int AC = atom_cols(D);
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* sm = align1024(smem_wg);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tile = causal ? (int)gridDim.z - 1 - (int)blockIdx.z
                           : (int)blockIdx.z;
-  const int q0 = tile * BLOCK_M;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int rw = warp * 16;                      // the warp's first row
-  const int qi[2] = {q0 + rw + g, q0 + rw + g + 8};
-
-  const int klen = kv_len ? min(max(kv_len[b], 0), Tk) : Tk;
-  const int qlen = q_len ? min(max(q_len[b], 0), Tq) : Tq;
-  int kend = klen;                               // keys the tile may see
-  if (causal) kend = min(kend, q0 + BLOCK_M);
+  const int q0 = tile * BM;
+  const int klen = warp_uniform(kv_len ? min(max(kv_len[b], 0), Tk) : Tk);
+  const int qlen = warp_uniform(q_len ? min(max(q_len[b], 0), Tq) : Tq);
+  int kend = klen;                       // keys any row of the block sees
+  if (causal) kend = min(kend, q0 + BM);
   if (q0 >= qlen) kend = 0;
-  const int ntiles = (kend + BLOCK_N - 1) / BLOCK_N;
+  const int ntiles = (kend + BN - 1) / BN;
 
-  const int ld = H * D;
-  const bf16* qb = q + ((size_t)b * Tq * H + h) * D;
-  const bf16* kb = k + ((size_t)b * Tk * H + h) * D;
-  const bf16* vb = v + ((size_t)b * Tk * H + h) * D;
-  auto load = [&](int j) {          // key tile j: K, V (zeros past kv_len)
-    bf16* st = ring + (j % STAGES) * 2 * C::TILE;
-    load_window_bf16<BLOCK_N, D, THREADS>(st, LD, kb, ld, j * BLOCK_N, klen,
-                                          0, D);
-    load_window_bf16<BLOCK_N, D, THREADS>(st + C::TILE, LD, vb, ld,
-                                          j * BLOCK_N, klen, 0, D);
+  init_ring(q_full, STAGES);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wgi = warp_uniform(threadIdx.x >> 7);   // the warpgroup
+
+  if (wgi == 2) {       // the producer
+    producer_regs();
+    if (warp != WG_CONSUMER_WARPS || lane != 0 || ntiles == 0) return;
+    mbar_expect_tx(q_full, C::Q_BYTES);
+    for (int a = 0; a < D / AC; ++a)
+      tma_load(sm + a * BM * 2 * AC, &tq, q_full, a * AC, h, q0, b);
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(empty + s, ((j / STAGES) & 1) ^ 1);
+      mbar_expect_tx(full + s, 2 * C::KV_BYTES);
+      unsigned char* ks = sm + C::RING + s * 2 * C::KV_BYTES;
+      for (int a = 0; a < D / AC; ++a) {
+        tma_load(ks + a * BN * 2 * AC, &tk, full + s, a * AC, h, j * BN, b);
+        tma_load(ks + C::KV_BYTES + a * BN * 2 * AC, &tv, full + s, a * AC,
+                 h, j * BN, b);
+      }
+    }
+    return;
+  }
+  consumer_regs();
+
+  // a consumer warpgroup: rows qw0.. of the block, this thread's rows
+  // row[0] (accumulator entries 4n, 4n + 1) and row[1] (4n + 2, 4n + 3)
+  const int wg = wgi, tid = threadIdx.x & 127;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + 64 * wg;
+  const int row[2] = {qw0 + 16 * (warp & 3) + g,
+                      qw0 + 16 * (warp & 3) + g + 8};
+  const unsigned qs = smem_u32(sm);
+  auto vtile = [&](int j) {              // V of key tile j
+    return smem_u32(sm + C::RING + (j % STAGES) * 2 * C::KV_BYTES +
+                    C::KV_BYTES);
   };
-  // Q (rows past Tq: zeros) in a group of its own, then key tile 0
-  load_window_bf16<BLOCK_M, D, THREADS>(qs, LD, qb, ld, q0, Tq, 0, D);
-  cp_async_commit();
-  if (ntiles > 0) load(0);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();                   // Q visible to all
-  unsigned qf[DK][4];                // the warp's Q as A fragments
+  float o[D / 2];
 #pragma unroll
-  for (int kk = 0; kk < DK; ++kk)
-    ldmatrix_x4(qf[kk], qs + (rw + rows_lo_row(lane)) * LD + kk * 16 +
-                            rows_lo_col(lane));
-  float o[DT][4];                    // the rows' unnormalised output
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};   // running max, rows g, g+8
-  float l[2] = {0.f, 0.f};           // the thread's part of the row sums
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};   // running max of s * c
+  float l[2] = {0.f, 0.f};               // the thread's part of the sums
+  float sc[BN / 2];                      // S, then P: 64 rows x BN keys
+  unsigned pa[BN / 16][4];               // P of the previous tile, bf16
 
-  for (int j = 0; j < ntiles; ++j) {
-    __syncthreads();                 // every warp is done with tile j - 1
-    if (j + 1 < ntiles) load(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();                 // tile j visible to all
-    const bf16* ks = ring + (j % STAGES) * 2 * C::TILE;
-    const bf16* vs = ks + C::TILE;
-    const int k0 = j * BLOCK_N;
-
-    // S = Q.K^T for the warp's 16 rows and the tile's 64 keys
-    float s[NT][4];
+  // key tile j arrived; V's rows from kv_len zeroed
+  auto arrived = [&](int j) {
+    mbar_wait(full + j % STAGES, (j / STAGES) & 1);
+    if (j * BN + BN > klen) {
+      zero_rows<D, BN>(sm + C::RING + (j % STAGES) * 2 * C::KV_BYTES +
+                           C::KV_BYTES,
+                       klen - j * BN, tid);
+      named_sync(1 + wg, 128);
+    }
+  };
+  // at D <= 64 the warpgroup's Q rows stay in registers as A fragments
+  // (a third fewer shared-memory reads of S)
+  unsigned qa[Q_REGS<D> ? D / 16 : 1][4];
+  auto issue_s = [&](int j) {            // S = Q.K^T, committed
+    const unsigned ks = smem_u32(sm + C::RING + (j % STAGES) * 2 * C::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      if constexpr (Q_REGS<D>)
+        wgmma_rs_k<BN>(sc, qa[kk], desc_k<D>(ks, BN, 0, kk), kk);
+      else
+        wgmma_ss<BN>(sc, desc_k<D>(qs, BM, 64 * wg, kk),
+                     desc_k<D>(ks, BN, 0, kk), kk);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int j) {           // O += P.V of tile j, committed
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk], desc_mn<D>(vtile(j), BN, kk), 1);
+    wgmma_commit();
+  };
+  // the online softmax of tile j on rows row[0] (e & 2 == 0) and row[1]:
+  // P in place of S, l and m updated; returns O's correction in corr
+  auto softmax = [&](int j, float (&corr)[2]) {
+    const int k0 = j * BN;
+    const bool masked = !(k0 + BN <= klen && qw0 + 64 <= qlen &&
+                          (!causal || k0 + BN - 1 <= qw0));
+    float mx[2][4];                      // four partial maxima a row
 #pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
+    for (int r = 0; r < 2; ++r)
 #pragma unroll
-      for (int jj = 0; jj < NT / 2; ++jj) {
-        unsigned r[4];
-        ldmatrix_x4(r, ks + (jj * 16 + rows_hi_row(lane)) * LD + kk * 16 +
-                           rows_hi_col(lane));
-        const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_bf16(s[2 * jj], qf[kk], b0);
-        mma_bf16(s[2 * jj + 1], qf[kk], b1);
+      for (int q = 0; q < 4; ++q) mx[r][q] = -CUDART_INF_F;
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) {
+      float x = sc[e];
+      if (masked) {
+        const int key = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+        const int r = row[(e >> 1) & 1];
+        if (!(r < qlen && key < klen && (!causal || key <= r)))
+          x = -CUDART_INF_F;
+        sc[e] = x;
       }
-
-    // the online softmax on the fragment rows g (c 0, 1) and g + 8 (c 2, 3)
-    const bool masked = !(k0 + BLOCK_N <= klen && q0 + BLOCK_M <= qlen &&
-                          (!causal || k0 + BLOCK_N - 1 <= q0));
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = s[n][c] * scale;
-        if (masked) {
-          const int key = k0 + 8 * n + 2 * t + (c & 1);
-          const int row = qi[c >> 1];
-          if (!(row < qlen && key < klen && (!causal || key <= row)))
-            x = -CUDART_INF_F;
-        }
-        s[n][c] = x;
-        mx[c >> 1] = fmaxf(mx[c >> 1], x);
-      }
-    float corr[2];
+      float& y = mx[(e >> 1) & 1][(e >> 2) & 3];
+      y = fmaxf(y, x);
+    }
+    float mc[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
+      const float mr = fmaxf(fmaxf(mx[r][0], mx[r][1]),
+                             fmaxf(mx[r][2], mx[r][3]));
+      const float m_new = fmaxf(m[r], quad_max(mr) * c);
       // 0 on the row's first visible tile; 1 while it has seen no key
-      corr[r] = m_new == -CUDART_INF_F ? 1.f : expf(m[r] - m_new);
+      corr[r] = m_new == -CUDART_INF_F ? 1.f : ex2(m[r] - m_new);
       m[r] = m_new;
+      mc[r] = m_new == -CUDART_INF_F ? 0.f : m_new;
     }
-    float psum[2] = {0.f, 0.f};
+    float ps[2][4] = {};                 // four partial sums a row
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int e = 0; e < BN / 2; ++e) {
+      const int r = (e >> 1) & 1;
+      const float x = sc[e];
+      const float p =
+          masked && x == -CUDART_INF_F ? 0.f : ex2(fmaf(x, c, -mc[r]));
+      sc[e] = p;
+      ps[r][(e >> 2) & 3] += p;
+    }
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float x = s[n][c];
-        const float p = x == -CUDART_INF_F ? 0.f : expf(x - m[c >> 1]);
-        s[n][c] = p;
-        psum[c >> 1] += p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + psum[r];
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[n][c] *= corr[c >> 1];
+    for (int r = 0; r < 2; ++r)
+      l[r] = l[r] * corr[r] + ((ps[r][0] + ps[r][1]) + (ps[r][2] + ps[r][3]));
+  };
 
-    // O += P.V: P packed to bf16 straight from S's accumulators
+  // Tile j's S is issued before tile j - 1's O += P.V, and its softmax
+  // runs while that product is in flight; the first S and the last P.V
+  // are peeled off the loop, so no product is issued under a branch.
+  if (ntiles > 0) {
+    mbar_wait(q_full, 0);
+    if constexpr (Q_REGS<D>) load_a<D>(qa, qs, BM, 64 * wg);
+    arrived(0);
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    float corr[2];
+    softmax(0, corr);
+    pack_a<BN>(pa, sc);                  // P rounded to bf16
+    for (int j = 1; j < ntiles; ++j) {
+      arrived(j);
+      wgmma_fence();
+      issue_s(j);
+      issue_pv(j - 1);
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax(j, corr);
+      wgmma_wait<0>();                   // tile j - 1's P.V is done
+      fence_regs(o);
+      mbar_arrive_if(empty + (j - 1) % STAGES, lane == 0);
 #pragma unroll
-    for (int kt = 0; kt < NT / 2; ++kt) {
-      const unsigned a[4] = {pack_bf16x2(s[2 * kt][0], s[2 * kt][1]),
-                             pack_bf16x2(s[2 * kt][2], s[2 * kt][3]),
-                             pack_bf16x2(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-                             pack_bf16x2(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-#pragma unroll
-      for (int dd = 0; dd < DT / 2; ++dd) {
-        unsigned r[4];
-        ldmatrix_x4_trans(r, vs + (kt * 16 + rows_lo_row(lane)) * LD +
-                                 dd * 16 + rows_lo_col(lane));
-        const unsigned b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
-        mma_bf16(o[2 * dd], a, b0);
-        mma_bf16(o[2 * dd + 1], a, b1);
-      }
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+      pack_a<BN>(pa, sc);
     }
+    wgmma_fence();
+    issue_pv(ntiles - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
   }
-  cp_async_wait<0>();
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qi[r] >= Tq) continue;
+    l[r] = quad_sum(l[r]);
+    if (row[r] >= Tq) continue;
     const bool alive = l[r] > 0.f;
-    bf16* orow = out + ((size_t)(b * Tq + qi[r]) * H + h) * D;
+    bf16* orow = out + ((size_t)(b * Tq + row[r]) * H + h) * D;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       unsigned x = 0u;
-      if (alive) x = pack_bf16x2(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+      if (alive)
+        x = pack_bf16x2(o[4 * n + 2 * r] / l[r], o[4 * n + 2 * r + 1] / l[r]);
       *reinterpret_cast<unsigned*>(orow + 8 * n + 2 * t) = x;
     }
     if (t == 0)
-      lse[((size_t)b * H + h) * Tq + qi[r]] =
-          alive ? m[r] + logf(l[r]) : 1e30f;
+      lse[((size_t)b * H + h) * Tq + row[r]] =
+          alive ? (m[r] + log2f(l[r])) * LN2 : 1e30f;
   }
 }
 
@@ -647,30 +709,36 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
                         bf16* out, float* lse, const int* kv_len,
                         const int* q_len, int B, int Tq, int Tk, int H,
                         int causal, float scale, cudaStream_t stream) {
-  using C = CfgBf16<D>;
-  constexpr size_t smem = C::BYTES;
-  static_assert(smem <= 232448, "shared memory of a block");
+  using C = FwdWg<D>;
+  static_assert(C::BYTES <= 232448, "shared memory of a block");
+  CUtensorMap tq, tk, tv;
+  if (!bthd_map(&tq, q, B, Tq, H, D, C::BM) ||
+      !bthd_map(&tk, k, B, Tk, H, D, C::BN) ||
+      !bthd_map(&tv, v, B, Tk, H, D, C::BN))
+    return cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, B, (Tq + BLOCK_M - 1) / BLOCK_M);
-  flash_fwd_bf16_kernel<D><<<grid, C::THREADS, smem, stream>>>(
-      q, k, v, out, lse, kv_len, q_len, Tq, Tk, H, causal, scale);
+  const dim3 grid(H, B, (Tq + C::BM - 1) / C::BM);
+  flash_fwd_wgmma_kernel<D><<<grid, WG_THREADS, C::BYTES, stream>>>(
+      tq, tk, tv, out, lse, kv_len, q_len, Tq, Tk, H, causal,
+      scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // The bf16 form's entry point: as flash_attn_fwd, with q, k, v and out bf16
-// (lse f32).
+// (lse f32), D in 32, 64, 128 and scale >= 0 (the wrapper pads D = 96 and
+// negates q for a negative scale).
 extern "C" int flash_attn_fwd_bf16(const bf16* q, const bf16* k,
                                    const bf16* v, bf16* out, float* lse,
                                    const int* kv_len, const int* q_len, int B,
                                    int Tq, int Tk, int H, int D, int causal,
                                    float scale, int device, void* stream) {
   if (B < 1 || Tq < 1 || Tk < 1 || H < 1 || B > 65535 ||
-      (Tq + BLOCK_M - 1) / BLOCK_M > 65535)
+      (Tq + 127) / 128 > 65535 || !(scale >= 0.f))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -681,9 +749,6 @@ extern "C" int flash_attn_fwd_bf16(const bf16* q, const bf16* k,
                                   Tk, H, causal, scale, st);
     case 64:
       return (int)launch_bf16<64>(q, k, v, out, lse, kv_len, q_len, B, Tq,
-                                  Tk, H, causal, scale, st);
-    case 96:
-      return (int)launch_bf16<96>(q, k, v, out, lse, kv_len, q_len, B, Tq,
                                   Tk, H, causal, scale, st);
     case 128:
       return (int)launch_bf16<128>(q, k, v, out, lse, kv_len, q_len, B, Tq,

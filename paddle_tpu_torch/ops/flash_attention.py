@@ -14,12 +14,18 @@ backward calls (dkv and dq). The contract is the blocked oracle's,
   kv_len[b] are masked, and a query row at or past q_len[b] sees no
   key at all;
 - `scale`, default 1/sqrt(D);
-- any head dim D <= 128: the kernels instantiate D in KERNEL_HEAD_DIMS,
-  and `flash_attention` / `flash_attention_bwd` pad another D with zero
-  columns of q, k, v (and dout) up to the next one and slice the
-  padding off the results (zero columns add nothing to q.k and give
-  zero columns of out, dq, dk and dv); `scale` stays that of the
-  original D.
+- any head dim D <= 128: the kernels instantiate D in KERNEL_HEAD_DIMS
+  (the bf16 forms in BF16_KERNEL_HEAD_DIMS), and `flash_attention` /
+  `flash_attention_bwd` pad another D with zero columns of q, k, v (and
+  dout) up to the next one and slice the padding off the results (zero
+  columns add nothing to q.k and give zero columns of out, dq, dk and
+  dv); `scale` stays that of the original D. The bf16 kernels' tiles
+  are TMA boxes of 32 or 64 columns, so a bf16 call at D = 96 runs at
+  128: a third more tensor-core work and bytes than D = 96 needs (no
+  model of the repo uses 96);
+- any `scale` (the bf16 kernels take the running max of q.k before
+  scaling, so for a negative scale the wrapper hands them -q and -scale,
+  which gives the same s exactly, and negates dq).
 
 The forward returns (out [B, Tq, H, D] in q's dtype, lse [B, H, Tq]
 f32). A row with no visible key gets out = 0 and lse = +1e30. The
@@ -68,6 +74,7 @@ from paddle_tpu_torch.ops import _build
 KERNEL = "flash_attn_fwd"
 BWD_KERNEL = "flash_attn_bwd"
 KERNEL_HEAD_DIMS = (32, 64, 96, 128)   # the dims the kernels instantiate
+BF16_KERNEL_HEAD_DIMS = (32, 64, 128)  # ... their bf16 forms
 MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 LSE_MASKED = 1e30
 
@@ -233,10 +240,11 @@ def _check_lens(x, B, name, device):
     return x
 
 
-def kernel_head_dim(D):
+def kernel_head_dim(D, dims=KERNEL_HEAD_DIMS):
     """The head dim the kernels run a call of head dim D at: the
-    smallest of KERNEL_HEAD_DIMS that is >= D."""
-    for d in KERNEL_HEAD_DIMS:
+    smallest of `dims` (KERNEL_HEAD_DIMS, or BF16_KERNEL_HEAD_DIMS for
+    the bf16 forms) that is >= D."""
+    for d in dims:
         if D <= d:
             return d
     raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}: the flash kernels "
@@ -269,11 +277,18 @@ def _one_dtype(where, **tensors):
     return dtypes.pop()
 
 
+def _head_dims(dtype):
+    """The head dims the kernels of `dtype` instantiate."""
+    return BF16_KERNEL_HEAD_DIMS if dtype == torch.bfloat16 else \
+        KERNEL_HEAD_DIMS
+
+
 def _check_cuda(where, q, tensors, kernel_dims=True):
     """Validate the kernels' inputs on a CUDA device: every tensor
     contiguous, of q's dtype (f32 or bf16) and shape; returns the dims
-    (B, Tq, Tk, H, D). D must be one of KERNEL_HEAD_DIMS, or with
-    kernel_dims=False at most MAX_HEAD_DIM (the caller pads it)."""
+    (B, Tq, Tk, H, D). D must be one the kernels of q's dtype
+    instantiate (`_head_dims`), or with kernel_dims=False at most
+    MAX_HEAD_DIM (the caller pads it)."""
     if q.device.type != "cuda":
         raise ValueError(f"{where}: unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -295,10 +310,21 @@ def _check_cuda(where, q, tensors, kernel_dims=True):
         raise ValueError(f"{where}: head dim {D} > {MAX_HEAD_DIM}: the "
                          f"flash kernels take head dims up to "
                          f"{MAX_HEAD_DIM}")
-    if kernel_dims and D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{where}: head dim {D} not in {KERNEL_HEAD_DIMS} "
-                         f"(flash_attention pads other dims)")
+    if kernel_dims and D not in _head_dims(q.dtype):
+        raise ValueError(f"{where}: head dim {D} not in "
+                         f"{_head_dims(q.dtype)} (flash_attention pads "
+                         f"other dims)")
     return B, Tq, Tk, H, D
+
+
+def _positive_scale(q, scale):
+    """(q, scale, flipped): a bf16 q with a negative scale becomes -q
+    and -scale (the same s = q.k * scale exactly; the bf16 kernels take
+    the running max of q.k before scaling), and flipped says dq must
+    be negated."""
+    if q.dtype == torch.bfloat16 and scale < 0:
+        return -q, -scale, True
+    return q, scale, False
 
 
 def _launch(lib, fn, *args):
@@ -323,8 +349,9 @@ def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
     kv_len = _check_lens(kv_len, B, "kv_len", q.device)
     q_len = _check_lens(q_len, B, "q_len", q.device)
     scale = _scale(scale, D)
-    dk = kernel_head_dim(D)
+    dk = kernel_head_dim(D, _head_dims(q.dtype))
     q, k, v = (_aligned(pad_head_dim(x, dk)) for x in (q, k, v))
+    q, scale, _ = _positive_scale(q, scale)
     lib = _bind(KERNEL)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
@@ -351,17 +378,21 @@ def _check_rows(where, name, x, B, H, Tq, device):
 
 def _bwd_launch_args(where, q, k, v, dout, lse, delta, causal, kv_len,
                      q_len, scale):
-    """Validate one backward kernel's inputs; returns (lib, lens, dims)
-    where dims are the trailing int/float/stream arguments."""
+    """Validate one backward kernel's inputs; returns (lib, q, lens,
+    dims, flipped) where q is what the kernel takes (`_positive_scale`),
+    dims the trailing int/float/stream arguments and flipped whether dq
+    must be negated."""
     B, Tq, Tk, H, D = _check_cuda(where, q,
                                   {"q": q, "k": k, "v": v, "dout": dout})
     _check_rows(where, "lse", lse, B, H, Tq, q.device)
     _check_rows(where, "delta", delta, B, H, Tq, q.device)
     kv_len = _check_lens(kv_len, B, "kv_len", q.device)
     q_len = _check_lens(q_len, B, "q_len", q.device)
-    dims = (B, Tq, Tk, H, D, int(bool(causal)), _scale(scale, D),
+    q, scale, flipped = _positive_scale(q, _scale(scale, D))
+    dims = (B, Tq, Tk, H, D, int(bool(causal)), scale,
             *_build.device_and_stream(q))
-    return _bind(BWD_KERNEL), (_build.ptr(kv_len), _build.ptr(q_len)), dims
+    return (_bind(BWD_KERNEL), q, (_build.ptr(kv_len), _build.ptr(q_len)),
+            dims, flipped)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
@@ -369,7 +400,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
     """(dk, dv) from the dkv kernel of q's dtype (CUDA tensors only);
     `delta` is sum_d dout * out, [B, H, Tq] f32."""
     global bwd_dkv_launches, bwd_dkv_bf16_launches
-    lib, lens, dims = _bwd_launch_args(
+    lib, q, lens, dims, _ = _bwd_launch_args(
         "flash_attention_bwd_dkv", q, k, v, dout, lse, delta, causal,
         kv_len, q_len, scale)
     bf16 = q.dtype == torch.bfloat16
@@ -390,7 +421,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
                            kv_len=None, q_len=None, scale=None):
     """dq from the dq kernel of q's dtype (CUDA tensors only)."""
     global bwd_dq_launches, bwd_dq_bf16_launches
-    lib, lens, dims = _bwd_launch_args(
+    lib, q, lens, dims, flipped = _bwd_launch_args(
         "flash_attention_bwd_dq", q, k, v, dout, lse, delta, causal,
         kv_len, q_len, scale)
     bf16 = q.dtype == torch.bfloat16
@@ -403,7 +434,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
         bwd_dq_bf16_launches += 1
     else:
         bwd_dq_launches += 1
-    return dq
+    return -dq if flipped else dq
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
@@ -425,7 +456,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
     delta = row_delta(dout, out)
     kw = dict(causal=causal, kv_len=kv_len, q_len=q_len,
               scale=_scale(scale, D))
-    d_k = kernel_head_dim(D)
+    d_k = kernel_head_dim(D, _head_dims(q.dtype))
     q, k, v, dout = (_aligned(pad_head_dim(x, d_k)) for x in (q, k, v, dout))
     dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)

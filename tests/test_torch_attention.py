@@ -89,6 +89,36 @@ BF16_CASES = {
 }
 
 
+# the bf16 kernels' tile edges (128-row query and key tiles): T one short
+# of and one past a tile, a kv_len ending mid-tile, Tq != Tk with q_len and
+# a kv_len = 0 row, and K, V rows past kv_len holding NaN (TMA fills only
+# rows past T, so the kernel's masks must keep them out), at every head dim
+# the wrapper takes (96 runs padded to 128)
+BF16_EDGE_CASES = {
+    f"{name}_d{D}": (*case[:4], D, *case[4:])
+    for D in (32, 64, 96, 128)
+    for name, case in {
+        "causal_t127_ragged": (2, 127, 127, 2, True, [127, 70], None),
+        "causal_t129": (1, 129, 129, 2, True, None, None),
+        "causal_t200_kvlen_mid_tile": (2, 200, 200, 2, True, [200, 150],
+                                       None),
+        "cross_tq129_tk200_qlen_kvlen0": (2, 129, 200, 2, False, [0, 77],
+                                          [129, 100]),
+        "causal_t200_nan_past_kvlen": (2, 200, 200, 2, True, [130, 61],
+                                       None),
+    }.items()
+}
+
+
+def nan_past_kv_len(x, kv):
+    """A copy of k or v [B, T, H, D] with every row at or past kv_len[b]
+    set to NaN."""
+    x = x.clone()
+    for b, n in enumerate(kv.tolist()):
+        x[b, n:] = float("nan")
+    return x
+
+
 def needs_jax():
     if jnp is None:
         pytest.skip("the CPU parity tests need JAX")
@@ -478,28 +508,42 @@ def test_bf16_plain_matches_jax_blocked(name):
                BF16_BLOCKED_FRAC, name)
 
 
-def _flash_fwd_bf16_emulated(q, k, v, causal, kv_len, block=64):
+def _flash_fwd_bf16_emulated(q, k, v, causal, kv_len, block=64,
+                             exp2=False):
     """csrc/flash_attn_fwd.cu's bf16 form in torch for [B, T, H, D] bf16
-    q, k, v: 64-key tiles, S from the bf16 operands in f32, the online
-    softmax in f32 with the mask tested a pair (p = 0 exactly), p
+    q, k, v: `block`-key tiles, S from the bf16 operands in f32, the
+    online softmax in f32 with the mask tested a pair (p = 0 exactly), p
     rounded to bf16 against the running max before P.V, out divided by
-    the sum and rounded to bf16 at the end. Returns (out bf16, lse)."""
+    the sum and rounded to bf16 at the end. exp2=False is the first
+    bf16 kernel's exponential (exp(s * scale - m)); exp2=True the wgmma
+    kernel's: the max kept of x = s * c with c = scale * log2(e), p =
+    2^fma(s, c, -m) (one rounding, emulated in f64), lse = (m + log2 l)
+    * ln 2. Returns (out bf16, lse)."""
     B, T, H, D = q.shape
     qf, kf, vf = (x.float() for x in (q, k, v))
+    scale = 1.0 / np.sqrt(D)
+    c = torch.tensor(scale * np.log2(np.e), dtype=torch.float32)
     valid = fa._visible(B, T, T, causal, kv_len, None, q.device)
     m = torch.full((B, H, T), float("-inf"))
     l = torch.zeros((B, H, T))
     o = torch.zeros((B, H, T, D))
     for k0 in range(0, T, block):
         kt, vt = kf[:, k0:k0 + block], vf[:, k0:k0 + block]
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt) / np.sqrt(D)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kt)
+        s = s * c if exp2 else s * np.float32(scale)
         vis = valid[..., k0:k0 + block]
         s = s.masked_fill(~vis, float("-inf"))
         m_new = torch.maximum(m, s.amax(-1))
         seen = m_new > float("-inf")
-        corr = torch.where(seen, torch.exp(m - m_new), 1.0)
-        p = torch.where(vis, torch.exp(s - torch.where(
-            seen, m_new, 0.0)[..., None]), 0.0)
+        mu = torch.where(seen, m_new, 0.0)[..., None]
+        if exp2:
+            corr = torch.where(seen, torch.exp2(m - m_new), 1.0)
+            raw = torch.einsum("bqhd,bkhd->bhqk", qf, kt).double()
+            x = (raw * c.double() - mu.double()).float()
+            p = torch.where(vis, torch.exp2(x), 0.0)
+        else:
+            corr = torch.where(seen, torch.exp(m - m_new), 1.0)
+            p = torch.where(vis, torch.exp(s - mu), 0.0)
         l = l * corr + p.sum(-1)
         o = o * corr[..., None] + torch.einsum(
             "bhqk,bkhd->bhqd", p.to(BF16).float(), vt)
@@ -507,23 +551,30 @@ def _flash_fwd_bf16_emulated(q, k, v, causal, kv_len, block=64):
     alive = l > 0
     out = torch.where(alive[..., None], o / torch.where(
         alive, l, 1.0)[..., None], 0.0).permute(0, 2, 1, 3)
-    lse = torch.where(alive, m + torch.log(torch.where(alive, l, 1.0)),
-                      fa.LSE_MASKED)
+    safe = torch.where(alive, l, 1.0)
+    lse = (m + torch.log2(safe)) * np.float32(np.log(2)) if exp2 else \
+        m + torch.log(safe)
+    lse = torch.where(alive, lse, fa.LSE_MASKED)
     return out.to(BF16), lse
 
 
-def test_emulated_bf16_kernel_is_within_the_card_bound():
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("exp2", [False, True], ids=["exp", "exp2"])
+def test_emulated_bf16_kernel_is_within_the_card_bound(block, exp2):
     """The bf16 kernel's arithmetic, emulated, at T = 1024 causal with a
-    ragged kv_len: out within one bf16 ulp plus BF16_OUT_FRAC of the
-    largest entry of attention_plain_bf16 (the bound the card holds the
-    kernel to) and lse within 1e-4; and no farther from the f32 plain
-    version on the same inputs than attention_plain_bf16 is, within one
-    bf16 ulp of the largest entry (the card's witness)."""
+    ragged kv_len, with the first bf16 kernel's tiles and exponential
+    (64 keys, exp) and the wgmma kernel's (128 keys, exp2 with the scale
+    folded into one FMA): out within one bf16 ulp plus BF16_OUT_FRAC of
+    the largest entry of attention_plain_bf16 (the bound the card holds
+    the kernel to) and lse within 1e-4; and no farther from the f32
+    plain version on the same inputs than attention_plain_bf16 is,
+    within one bf16 ulp of the largest entry (the card's witness)."""
     rng = np.random.default_rng(5)
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (2, 1024, 2, 64)).astype(np.float32)).to(BF16) for _ in range(3))
     kw = dict(causal=True, kv_len=torch.tensor([1000, 333], dtype=torch.int32))
-    out, lse = _flash_fwd_bf16_emulated(q, k, v, **kw)
+    out, lse = _flash_fwd_bf16_emulated(q, k, v, block=block, exp2=exp2,
+                                        **kw)
     plain, plain_lse = fa.attention_plain_bf16(q, k, v, **kw)
     exact, _ = fa.attention_plain(q, k, v, **kw)
     bf16_close(out, plain, BF16_OUT_FRAC, "emulated kernel")
@@ -531,6 +582,39 @@ def test_emulated_bf16_kernel_is_within_the_card_bound():
     top = exact.abs().max()
     assert ((out.float() - exact).abs().max()
             <= (plain.float() - exact).abs().max() + bf16_ulp(top))
+
+
+def test_bf16_kernels_take_a_positive_scale():
+    """The bf16 wrappers hand the kernels -q and -scale for a negative
+    scale: the same s = q.k * scale exactly (negation is exact), so the
+    same out and lse, and dq negated (ops/flash_attention.py::
+    _positive_scale), here with the bf16 plain versions."""
+    q, k, v, causal, kv, ql = _inputs(CASES["causal_ragged_odd_t"])
+    q, k, v = (_t(x).to(BF16) for x in (q, k, v))
+    do = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        q.shape).astype(np.float32)).to(BF16)
+    kw = dict(causal=causal, kv_len=_t(kv), q_len=_t(ql))
+    qn, sn, flipped = fa._positive_scale(q, -0.3)
+    assert flipped and sn == 0.3 and torch.equal(qn, -q)
+    assert fa._positive_scale(q, 0.3)[2] is False
+    assert fa._positive_scale(q.float(), -0.3)[2] is False
+    out, lse = fa.attention_plain_bf16(q, k, v, scale=-0.3, **kw)
+    outn, lsen = fa.attention_plain_bf16(qn, k, v, scale=sn, **kw)
+    assert torch.equal(out, outn) and torch.equal(lse, lsen)
+    grads = fa.attention_bwd_plain_bf16(q, k, v, out, lse, do, scale=-0.3,
+                                        **kw)
+    gradn = fa.attention_bwd_plain_bf16(qn, k, v, out, lse, do, scale=sn,
+                                        **kw)
+    assert torch.equal(grads[0], -gradn[0])
+    assert torch.equal(grads[1], gradn[1]) and torch.equal(grads[2],
+                                                           gradn[2])
+
+
+def test_bf16_head_dims():
+    """The bf16 kernels take D = 32, 64, 128: 96 runs at 128."""
+    assert [fa.kernel_head_dim(d, fa.BF16_KERNEL_HEAD_DIMS)
+            for d in (1, 32, 33, 64, 65, 96, 97, 128)] == [
+        32, 32, 64, 64, 128, 128, 128, 128]
 
 
 def test_wrapper_takes_bf16_plain_path_on_cpu_and_counts_nothing():
@@ -609,6 +693,59 @@ class TestOnCard:
         dead = (~alive).permute(0, 2, 1)
         assert (lse[~alive] == fa.LSE_MASKED).all()
         assert (out[dead] == 0).all()
+
+    @pytest.mark.parametrize("name", sorted(BF16_EDGE_CASES))
+    def test_bf16_kernel_at_tile_edges(self, name):
+        """The bf16 form at the edges of its tiles (BF16_EDGE_CASES)
+        against attention_plain_bf16 on the same inputs (with the NaN
+        rows past kv_len, which no visible pair reads, left finite):
+        out finite and within one bf16 ulp plus BF16_OUT_FRAC of the
+        largest entry, lse within 1e-4, rows without a visible key
+        exactly out 0 and lse 1e30, bit-identical on a repeat, only
+        the bf16 form launched."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        q, k, v, causal, kv, ql = (
+            None if x is None else torch.from_numpy(x).cuda()
+            if isinstance(x, np.ndarray) else x
+            for x in _inputs(BF16_EDGE_CASES[name]))
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        kn, vn = k, v
+        if "nan" in name:
+            kn, vn = (nan_past_kv_len(x, kv) for x in (k, v))
+        kw = dict(causal=causal, kv_len=kv, q_len=ql)
+        before = [getattr(fa, n) for n in fa.COUNTERS]
+        out, lse = fa.flash_attention(q, kn, vn, **kw)
+        again = fa.flash_attention(q, kn, vn, **kw)
+        torch.cuda.synchronize()
+        after = [getattr(fa, n) for n in fa.COUNTERS]
+        assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 2, 0, 0]
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert torch.isfinite(out).all()
+        ref_out, ref_lse = fa.attention_plain_bf16(q, k, v, **kw)
+        bf16_close(out, ref_out, BF16_OUT_FRAC, name)
+        alive = ref_lse < fa.LSE_MASKED
+        assert (lse - ref_lse)[alive].abs().max().item() <= 1e-4
+        assert (lse[~alive] == fa.LSE_MASKED).all()
+        assert (out[(~alive).permute(0, 2, 1)] == 0).all()
+
+    def test_bf16_kernel_takes_a_negative_scale(self):
+        """A negative scale through the bf16 form (the wrapper hands the
+        kernel -q and -scale) against attention_plain_bf16 at that scale:
+        out within one bf16 ulp plus BF16_OUT_FRAC, lse within 1e-4."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+        q, k, v, causal, kv, ql = (
+            None if x is None else torch.from_numpy(x).cuda()
+            if isinstance(x, np.ndarray) else x
+            for x in _inputs(CARD_CASES["causal_ragged_t150_d40"]))
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        kw = dict(causal=causal, kv_len=kv, q_len=ql, scale=-0.2)
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = fa.attention_plain_bf16(q, k, v, **kw)
+        bf16_close(out, ref_out, BF16_OUT_FRAC, "negative scale")
+        assert (lse - ref_lse).abs().max().item() <= 1e-4
 
     @pytest.mark.parametrize("name", ["causal_ragged_t150_d40",
                                       "causal_kvlen_0_and_1_t70_d64",

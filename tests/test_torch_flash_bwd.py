@@ -87,6 +87,36 @@ CARD_CASES = {
 }
 
 
+# the bf16 kernels' tile edges, as tests/test_torch_attention.py's
+# BF16_EDGE_CASES (128-key and 128-query blocks, 64-key and 64- or 32-query
+# walked tiles): T one short of and one past a tile, a kv_len ending
+# mid-tile, Tq != Tk with q_len and a kv_len = 0 row, and K, V rows past
+# kv_len holding NaN, at every head dim the wrapper takes
+BF16_EDGE_CASES = {
+    f"{name}_d{D}": (*case[:4], D, *case[4:])
+    for D in (32, 64, 96, 128)
+    for name, case in {
+        "causal_t127_ragged": (2, 127, 127, 2, True, [127, 70], None),
+        "causal_t129": (1, 129, 129, 2, True, None, None),
+        "causal_t200_kvlen_mid_tile": (2, 200, 200, 2, True, [200, 150],
+                                       None),
+        "cross_tq129_tk200_qlen_kvlen0": (2, 129, 200, 2, False, [0, 77],
+                                          [129, 100]),
+        "causal_t200_nan_past_kvlen": (2, 200, 200, 2, True, [130, 61],
+                                       None),
+    }.items()
+}
+
+
+def nan_past_kv_len(x, kv):
+    """A copy of k or v [B, T, H, D] with every row at or past kv_len[b]
+    set to NaN."""
+    x = x.clone()
+    for b, n in enumerate(kv.tolist()):
+        x[b, n:] = float("nan")
+    return x
+
+
 def needs_jax():
     if jax is None:
         pytest.skip("the CPU parity tests need JAX")
@@ -247,6 +277,65 @@ def test_bf16_plain_backward_matches_library_vjp(name):
     for n, g, r in zip(("dq", "dk", "dv"), got, ref):
         assert g.dtype == BF16, n
         bf16_close(g.float().numpy(), r, BF16_GRAD_FRAC, f"{name} {n}")
+
+
+def _flash_bwd_bf16_emulated(q, k, v, out, lse, do, causal, kv_len, exp2):
+    """csrc/flash_attn_bwd.cu's bf16 forms' arithmetic in torch for
+    [B, T, H, D] bf16 q, k, v, out, dout: s and dp from the bf16
+    operands in f32, p and ds = p * (dp - delta) * scale in f32 (0 where
+    masked), each rounded to bf16 before its products, every sum in f32,
+    the outputs rounded to bf16. exp2=False is the first bf16 kernels'
+    exponential (p = exp(s * scale - lse)); exp2=True the wgmma kernels'
+    (p = 2^fma(s, c, -lse * log2(e)) with c = scale * log2(e), the
+    product lse * log2(e) rounded to f32 as the producer warp stores it;
+    the FMA's one rounding emulated in f64). Returns (dq, dk, dv)."""
+    B, T, H, D = q.shape
+    scale = np.float32(1.0 / np.sqrt(D))
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    raw = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    valid = fa._visible(B, T, T, causal, kv_len, None, q.device)
+    if exp2:
+        c = np.float64(np.float32(scale * np.log2(np.e)))
+        lse2 = (lse * np.float32(np.log2(np.e))).double()[..., None]
+        p = torch.exp2((raw.double() * c - lse2).float())
+    else:
+        p = torch.exp(raw * scale - lse[..., None])
+    p = torch.where(valid, p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = torch.where(valid, p * (dp - fa.row_delta(do, out)[..., None])
+                     * scale, 0.0)
+    p, ds = p.to(BF16).float(), ds.to(BF16).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return tuple(x.to(BF16) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("exp2", [False, True], ids=["exp", "exp2"])
+def test_emulated_bf16_backward_is_within_the_card_bound(exp2):
+    """The bf16 backward kernels' arithmetic, emulated with either
+    exponential, at T = 1024 causal with a ragged kv_len, from the bf16
+    plain forward's out and lse: dq, dk and dv within one bf16 ulp plus
+    BF16_GRAD_FRAC of the largest entry of attention_bwd_plain_bf16 (the
+    card's bound; the rounding points are the plain version's), and no
+    farther from the f32 plain backward on the same inputs than the bf16
+    plain version is, within one bf16 ulp of the largest entry."""
+    rng = np.random.default_rng(6)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (2, 1024, 2, 64)).astype(np.float32)).to(BF16) for _ in range(4))
+    kw = dict(causal=True, kv_len=torch.tensor([1000, 333], dtype=torch.int32))
+    out, lse = fa.attention_plain_bf16(q, k, v, **kw)
+    got = _flash_bwd_bf16_emulated(q, k, v, out, lse, do, exp2=exp2, **kw)
+    plain = fa.attention_bwd_plain_bf16(q, k, v, out, lse, do, **kw)
+    out32, lse32 = fa.attention_plain(q, k, v, **kw)
+    exact = fa.attention_bwd_plain(q, k, v, out32, lse32, do, **kw)
+    for n, g, r, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        bf16_close(g.float().numpy(), r.float().numpy(), BF16_GRAD_FRAC,
+                   f"emulated {n}")
+        top = e.abs().max()
+        ulp = torch.ldexp(torch.ones_like(top), torch.frexp(top)[1] - 8)
+        assert ((g.float() - e).abs().max()
+                <= (r.float() - e).abs().max() + ulp), n
 
 
 def test_bf16_backward_takes_delta_in_f32_and_returns_bf16(monkeypatch):
@@ -538,6 +627,60 @@ class TestOnCard:
             for b, n in enumerate(kv.tolist()):
                 assert (got[1][b, n:] == 0).all()
                 assert (got[2][b, n:] == 0).all()
+
+    @pytest.mark.parametrize("name", sorted(BF16_EDGE_CASES))
+    def test_bf16_kernels_at_tile_edges(self, name):
+        """The bf16 forms of dkv and dq at the edges of their tiles
+        (tests/test_torch_attention.py's BF16_EDGE_CASES: 128-key and
+        128-query blocks, 64- and 32-row walked tiles) against
+        attention_bwd_plain_bf16 on the same inputs (with the NaN rows
+        past kv_len, which no visible pair reads, left finite): dq, dk
+        and dv finite and within one bf16 ulp plus BF16_GRAD_FRAC of the
+        largest entry, dq of rows without keys and dk, dv of keys past
+        kv_len exactly 0, bit-identical on a repeat, only the bf16 forms
+        launched."""
+        q, k, v, do, causal, kv, ql = (self._dev(x) if isinstance(
+            x, np.ndarray) else x for x in _inputs(BF16_EDGE_CASES[name]))
+        q, k, v, do = (x.to(BF16) for x in (q, k, v, do))
+        kn, vn = k, v
+        if "nan" in name:
+            kn, vn = (nan_past_kv_len(x, kv) for x in (k, v))
+        kw = dict(causal=causal, kv_len=kv, q_len=ql)
+        out, lse = fa.flash_attention(q, kn, vn, **kw)
+        before = [getattr(fa, n) for n in fa.COUNTERS]
+        got = fa.flash_attention_bwd(q, kn, vn, out, lse, do, **kw)
+        again = fa.flash_attention_bwd(q, kn, vn, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        after = [getattr(fa, n) for n in fa.COUNTERS]
+        assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 0, 2, 2]
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = fa.attention_bwd_plain_bf16(q, k, v, out, lse, do, **kw)
+        for n, g, r in zip(("dq", "dk", "dv"), got, ref):
+            assert g.dtype == BF16 and torch.isfinite(g).all(), n
+            bf16_close(g.float().cpu().numpy(), r.float().cpu().numpy(),
+                       BF16_GRAD_FRAC, f"{name} {n}")
+        dead = (lse >= fa.LSE_MASKED).permute(0, 2, 1)     # [B, Tq, H]
+        assert (got[0][dead] == 0).all()
+        for b, n in enumerate([] if kv is None else kv.tolist()):
+            assert (got[1][b, n:] == 0).all() and (got[2][b, n:] == 0).all()
+
+    def test_bf16_kernels_take_a_negative_scale(self):
+        """A negative scale through the bf16 forms (the wrapper hands the
+        kernels -q and -scale and negates dq) against
+        attention_bwd_plain_bf16 at that scale, from the same out and
+        lse: within one bf16 ulp plus BF16_GRAD_FRAC."""
+        q, k, v, do, causal, kv, ql = (self._dev(x) if isinstance(
+            x, np.ndarray) else x for x in _inputs(
+                CARD_CASES["causal_ragged_d64"]))
+        q, k, v, do = (x.to(BF16) for x in (q, k, v, do))
+        kw = dict(causal=causal, kv_len=kv, q_len=ql, scale=-0.2)
+        out, lse = fa.flash_attention(q, k, v, **kw)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        ref = fa.attention_bwd_plain_bf16(q, k, v, out, lse, do, **kw)
+        for n, g, r in zip(("dq", "dk", "dv"), got, ref):
+            bf16_close(g.float().cpu().numpy(), r.float().cpu().numpy(),
+                       BF16_GRAD_FRAC, f"negative scale {n}")
 
     def test_backward_reaches_q_k_v(self):
         """loss.backward() through flash_dense_attention on the card
