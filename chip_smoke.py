@@ -931,15 +931,16 @@ PORT_KERNELS = {
     "B4b flash_attn_bwd_dkv_bf16": "flash_bwd_dkv_wgmma_kernel<",
     "B4b flash_attn_bwd_dq_bf16": "flash_bwd_dq_wgmma_kernel<",
     "B5 lstm_seq_fwd cluster walk": "lstm_fwd_cluster_kernel<",
-    "B5 lstm_seq_fwd walk route": "lstm_fwd_kernel<",
+    "B5 lstm_seq_fwd grid route": "lstm_fwd_grid_kernel<",
     "B6 lstm_seq_bwd cluster walk": "lstm_bwd_cluster_kernel<",
-    "B6 lstm_seq_bwd walk route": "lstm_bwd_kernel<",
+    "B6 lstm_seq_bwd grid route": "lstm_bwd_grid_kernel<",
+    "B6 lstm_seq_bwd grid route's db7": "lstm_bias_grad_kernel",
     "B7 gru_seq_fwd cluster walk": "gru_fwd_cluster_kernel<",
     "B7 gru_seq_fwd walk route": "gru_fwd_kernel<",
     "B8 gru_seq_bwd cluster walk": "gru_bwd_cluster_kernel<",
     "B8 gru_seq_bwd walk route": "gru_bwd_kernel<",
-    # the cluster route's hoisted pre-activations and dW (B6's in the
-    # classifier's step, B8's in the NMT's)
+    # the cluster and grid routes' hoisted pre-activations and dW (B6's in
+    # the classifier's step, B8's in the NMT's)
     "B6/B8 tc_kernel (hoisted products, dW)": "tc_kernel<",
 }
 
@@ -2232,8 +2233,10 @@ RNN_CASES = [
     ("gru_ragged_b9_t37_h256", "gru", 9, 37, 256, RAGGED),
 ]
 RNN_COUNTERS = ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
-                "lstm_fwd_infer_launches", "lstm_fwd_infer_cluster_launches",
-                "lstm_bwd_launches", "lstm_bwd_cluster_launches",
+                "lstm_fwd_grid_launches", "lstm_fwd_infer_launches",
+                "lstm_fwd_infer_cluster_launches",
+                "lstm_fwd_infer_grid_launches", "lstm_bwd_launches",
+                "lstm_bwd_cluster_launches", "lstm_bwd_grid_launches",
                 "gru_fwd_launches", "gru_fwd_cluster_launches",
                 "gru_bwd_launches", "gru_bwd_cluster_launches")
 
@@ -2269,15 +2272,18 @@ def check_rnn(torch, rnn, case, gen):
     """B5 (both variants) and B6, or B7 and B8, against their plain
     versions at one case: max |diff| / max |plain| <= TOL for every
     output, exactly 0 past each row's length; each kernel on the route
-    of its rule (`rnn.fwd_plan`, `rnn.bwd_plan`) and, where that is the
-    cluster route, bit-identical on a repeat and on the walk too; then
-    kernel, plain, walk and cuDNN (torch.nn.LSTM/GRU: another function —
-    no peepholes, its own input GEMM, no masks; a reference point only)
-    times and the bounds. Returns the case's numbers."""
+    of its rule (`rnn.fwd_plan`, `rnn.bwd_plan`), bit-identical on a
+    repeat where that is the cluster or the grid route, and, where it is
+    the cluster route, on the cell's other route too (the LSTM's grid
+    route, the GRU's walk); then kernel, plain, other route and cuDNN
+    (torch.nn.LSTM/GRU: another function — no peepholes, its own input
+    GEMM, no masks; a reference point only) times and the bounds.
+    Returns the case's numbers."""
     name, cell, b, t, h, lens = case
     x, ws, lens_t, dy, live = rnn_inputs(torch, gen, cell, b, t, h, lens)
     dead = torch.arange(t, device="cuda")[None, :] >= lens_t[:, None]
     f32 = 4
+    second = "grid" if cell == "lstm" else "walk"   # beside the cluster route
     if cell == "lstm":
         w, b7 = ws
         parts = torch.split(b7, [4 * h, h, h, h])
@@ -2294,15 +2300,16 @@ def check_rnn(torch, rnn, case, gen):
             "fwd_infer": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t,
                                                   want_c=False),
             "bwd": lambda: rnn.lstm_seq_bwd(x, w, b7, lens_t, yp, cp, dy)}
-        fwd_walk = {
+        fwd_second = {
             "fwd": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t, want_c=True,
-                                            route="walk"),
+                                            route=second),
             "fwd_infer": lambda: rnn.lstm_seq_fwd(x, w, b7, lens_t,
-                                                  want_c=False, route="walk")}
+                                                  want_c=False,
+                                                  route=second)}
 
-        def walk():
+        def bwd_second():
             return rnn.lstm_seq_bwd(x, w, b7, lens_t, yp, cp, dy,
-                                    route="walk")
+                                    route=second)
 
         plain = {
             "fwd": lambda: rnn.lstm_plain(x, w, *parts, lens_t, want_c=True),
@@ -2332,12 +2339,12 @@ def check_rnn(torch, rnn, case, gen):
         kern = {"fwd": lambda: (rnn.gru_seq_fwd(x, w_g, w_c, bias, lens_t),),
                 "bwd": lambda: rnn.gru_seq_bwd(x, w_g, w_c, bias, lens_t, yp,
                                                dy)}
-        fwd_walk = {"fwd": lambda: (rnn.gru_seq_fwd(x, w_g, w_c, bias, lens_t,
-                                                    route="walk"),)}
+        fwd_second = {"fwd": lambda: (rnn.gru_seq_fwd(x, w_g, w_c, bias,
+                                                      lens_t, route=second),)}
 
-        def walk():
+        def bwd_second():
             return rnn.gru_seq_bwd(x, w_g, w_c, bias, lens_t, yp, dy,
-                                   route="walk")
+                                   route=second)
 
         plain = {"fwd": lambda: rnn.gru_plain(x, w_g, w_c, bias, lens_t),
                  "bwd": lambda: rnn.gru_bwd_plain(x, w_g, w_c, bias, lens_t,
@@ -2368,42 +2375,54 @@ def check_rnn(torch, rnn, case, gen):
     both = plan["route"] == "cluster"
     fboth = fplan["route"] == "cluster"
     first = 2 if cell == "lstm" else 1           # B6/B8's outputs in got
-    walk_err = {}
-    if fboth:   # B5/B7: bit-identical on a repeat; the walk holds too
-        again, by_walk = kern["fwd"](), fwd_walk["fwd"]()
-        walks = [by_walk]
+    # B5/B7 and B6/B8: bit-identical on a repeat on the cluster and grid
+    # routes (the inference variant too)
+    for kind, route, outs in (("fwd", fplan["route"], got[:first]),
+                              ("fwd_infer", fplan["route"], (y_noc,)
+                               if cell == "lstm" else None),
+                              ("bwd", plan["route"], got[first:])):
+        if route == "walk" or outs is None:
+            continue
+        again = kern[kind]()
+        torch.cuda.synchronize()
+        for n, g, a in zip(names if kind == "fwd_infer" else
+                           names[:first] if kind == "fwd" else names[first:],
+                           outs, again):
+            assert bool(torch.equal(g, a)), (
+                f"{name}: {kind} {n} differs on a repeat")
+    second_err = {}
+    if fboth:   # B5/B7 on the cluster route: the other route holds too
+        by_second = fwd_second["fwd"]()
+        seconds = [by_second]
         if cell == "lstm":
-            walks.append(fwd_walk["fwd_infer"]())
+            seconds.append(fwd_second["fwd_infer"]())
         torch.cuda.synchronize()
-        for n, g, a, wk, r in zip(names[:first], got, again, by_walk, ref):
-            assert bool(torch.equal(g, a)), f"{name}: {n} differs on a repeat"
-            walk_err[n] = rel_err(wk, r)[0]
-            assert walk_err[n] <= TOL, (
-                f"{name}: walk vs plain {n} relative error "
-                f"{walk_err[n]:.3g} > {TOL}")
-        for wk in walks:
-            assert bool((wk[0][dead] == 0).all().item()), (
-                f"{name}: walk y past len")
-            assert bool(torch.equal(wk[0], by_walk[0])), (
-                f"{name}: the walk's variants differ")
-    if both:                 # bit-identical on a repeat; the walk holds too
-        again, by_walk = kern["bwd"](), walk()
+        for n, sk, r in zip(names[:first], by_second, ref):
+            second_err[n] = rel_err(sk, r)[0]
+            assert second_err[n] <= TOL, (
+                f"{name}: {second} route vs plain {n} relative error "
+                f"{second_err[n]:.3g} > {TOL}")
+        for sk in seconds:
+            assert bool((sk[0][dead] == 0).all().item()), (
+                f"{name}: {second} route y past len")
+            assert bool(torch.equal(sk[0], by_second[0])), (
+                f"{name}: the {second} route's variants differ")
+    if both:                 # the other route holds too
+        by_second = bwd_second()
         torch.cuda.synchronize()
-        for n, g, a, wk, r in zip(names[first:], got[first:], again, by_walk,
-                                  ref[first:]):
-            assert bool(torch.equal(g, a)), f"{name}: {n} differs on a repeat"
-            walk_err[n] = rel_err(wk, r)[0]
-            assert walk_err[n] <= TOL, (
-                f"{name}: walk vs plain {n} relative error "
-                f"{walk_err[n]:.3g} > {TOL}")
-        assert bool((by_walk[0][dead] == 0).all().item()), (
-            f"{name}: walk dx past len")
+        for n, sk, r in zip(names[first:], by_second, ref[first:]):
+            second_err[n] = rel_err(sk, r)[0]
+            assert second_err[n] <= TOL, (
+                f"{name}: {second} route vs plain {n} relative error "
+                f"{second_err[n]:.3g} > {TOL}")
+        assert bool((by_second[0][dead] == 0).all().item()), (
+            f"{name}: {second} route dx past len")
 
     slow = h >= 1280
     res = {"name": name, "cell": cell, "B": b, "T": t, "h": h,
            "live_steps": live, "fwd_plan": fplan, "bwd_plan": plan,
            "rel_err": {n: e[0] for n, e in errs.items()},
-           "walk_rel_err": walk_err}
+           "second_route": second, "second_rel_err": second_err}
     for k in kern:
         flops, nbytes = work[k]
         # the card's f32-accurate peak whichever route runs: three TF32
@@ -2421,11 +2440,11 @@ def check_rnn(torch, rnn, case, gen):
             "max_abs_err": max((e[1] for n, e in errs.items()
                                 if which[n] == k[:3]), default=0.0),
         }
-    if fboth:   # the same functions on the walk route
-        for k, fn in fwd_walk.items():
-            res[f"{k}_walk_ms"] = time_ms(torch, fn)
+    if fboth:   # the same functions on the other route
+        for k, fn in fwd_second.items():
+            res[f"{k}_{second}_ms"] = time_ms(torch, fn)
     if both:
-        res["bwd_walk_ms"] = time_ms(torch, walk)
+        res[f"bwd_{second}_ms"] = time_ms(torch, bwd_second)
     # cuDNN's LSTM/GRU over [B, T, h] (its input GEMM included): forward,
     # and forward+backward minus forward
     xin = torch.randn((b, t, h), generator=gen, device="cuda",
@@ -2535,7 +2554,7 @@ def text_confs():
     return stacked_lstm_classifier(**CLS), seq2seq_attention(**NMT)
 
 
-def held_text_step(torch, conf, feed, lr, name):
+def held_text_step(torch, conf, feed, lr, name, fixed_pool=False):
     """One adam TrainStep of the kernel arm against the scan arm from one
     weight map, and of the scan arm in f64 (the exact reference): the
     loss within TOL, and every gradient (from the new first moment,
@@ -2545,15 +2564,67 @@ def held_text_step(torch, conf, feed, lr, name):
     f32 rounding alone moves it (a sum that cancels to a small
     remainder: the attention's score path at init), the bound widens by
     what f32 arithmetic itself gives there. The kernel arm must also be
-    as close to the f64 gradient as the scan arm, within TOL."""
+    as close to the f64 gradient as the scan arm, within TOL.
+
+    `fixed_pool`: every max pool over time takes, in all three arms, the
+    step the f64 arm's forward takes (a gather at its argmax; the same
+    value away from ties). At init the wide classifier's LSTM outputs
+    barely move over time, and a pool's top two steps can lie within
+    f32 rounding of each other (5.5e-9 apart at h = 1280): an arm that
+    breaks such a tie the other way routes that feature's whole gradient
+    to another step, which moves every gradient below the pool by ~1e-2,
+    a discontinuity and not a difference of the function. The count of
+    decisions each f32 arm would have taken otherwise is reported; every
+    max pool of the conf must have been recorded once and pinned once in
+    each arm."""
     from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.layers.sequence import SequencePoolLayer
     from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.ops import sequence_ops as sops
     from paddle_tpu_torch.optimizers import create_optimizer
     from paddle_tpu_torch.parallel.dp import TrainStep
 
     net = Network(conf)
     params = net.init_params(torch.Generator().manual_seed(SEED + 1),
                              device="cuda")
+    pool_ops = SequencePoolLayer._OPS
+    real_max = pool_ops["max"]
+    argmax, flips = [], {}
+    # the conf's max pools (SequencePoolLayer.forward's choice of kind)
+    max_pools = sum(
+        isinstance(l, SequencePoolLayer) and l.conf.attrs.get(
+            "pool_type", l.conf.type if l.conf.type in ("average", "max")
+            else "sum") == "max"
+        for l in net.layers.values())
+
+    def masked(x, lens):
+        keep = sops._mask(lens, x.shape[1], x.dtype) > 0
+        return torch.where(keep[..., None], x, torch.full_like(x, -1e30))
+
+    def record_max(x, lens):       # the f64 arm's steps, pool by pool
+        argmax.append(masked(x, lens).argmax(1))
+        return real_max(x, lens)
+
+    def fixed_max(x, lens, arm):   # the recorded steps, in pool order
+        i = len(flips[arm])
+        assert i < len(argmax), f"{name}: max pool {i} was not recorded"
+        idx = argmax[i]
+        flips[arm].append(int((masked(x.detach(), lens).argmax(1)
+                               != idx).sum().item()))
+        return x.gather(1, idx[:, None, :]).squeeze(1)
+
+    if fixed_pool:
+        set_rnn_arm("scan")
+        pool_ops["max"] = record_max
+        try:
+            with torch.no_grad():
+                net.loss_fn({k: v.double() for k, v in params.items()},
+                            feed)
+        finally:
+            pool_ops["max"] = real_max
+        assert max_pools > 0 and len(argmax) == max_pools, (
+            f"{name}: {len(argmax)} max pools recorded, the conf has "
+            f"{max_pools}")
     got = {}
     for arm, dtype in (("kernels", torch.float32), ("scan", torch.float32),
                        ("f64", torch.float64)):
@@ -2563,8 +2634,17 @@ def held_text_step(torch, conf, feed, lr, name):
                                                 learning_rate=lr),
                                net.param_confs)
         step = TrainStep(net, opt, watchdog=True, device="cuda")
-        _p, st, _s, health, _o = step(p, opt.init_state(p), {}, feed, 0,
-                                      None)
+        flips[arm] = []
+        if fixed_pool:
+            pool_ops["max"] = lambda x, lens, arm=arm: fixed_max(x, lens, arm)
+        try:
+            _p, st, _s, health, _o = step(p, opt.init_state(p), {}, feed, 0,
+                                          None)
+        finally:
+            pool_ops["max"] = real_max
+        assert not fixed_pool or len(flips[arm]) == max_pools, (
+            f"{name}: {len(flips[arm])} max pools pinned in the {arm} arm, "
+            f"the conf has {max_pools}")
         got[arm] = (health, st)
     set_rnn_arm("kernels")
     (hk, sk), (hs, ss), (_h64, s64) = (got["kernels"], got["scan"],
@@ -2590,7 +2670,10 @@ def held_text_step(torch, conf, feed, lr, name):
               if k not in noisy), default=0.0),
          "kernels_vs_f64_max": max(e["kernels_vs_f64"] for e in per.values()),
          "scan_vs_f64_max": max(e["scan_vs_f64"] for e in per.values()),
-         "f32_noisy_grads": noisy, "failing": bad}
+         "f32_noisy_grads": noisy, "failing": bad,
+         "pool_steps_fixed": fixed_pool,
+         "pool_decisions_off_the_f64_arms": {a: f for a, f in flips.items()
+                                             if a != "f64"}}
     print(f"kernel vs scan train step {name} " + json.dumps(r), flush=True)
     assert r["finite"] and loss_rel <= TOL, f"{name}: losses disagree: {r}"
     assert not bad, f"{name}: gradients disagree: {bad}"
@@ -2690,11 +2773,103 @@ def amp_text_step(torch, rnn, conf, feed, lr, name, want):
     return r
 
 
+# phase 13c: the classifier at bench_lstm's wider widths (bench.py's
+# lstm_bs*_h512 and lstm_bs*_h1280 rows), where B5 and B6 take the grid
+# route
+CLS_WIDE = (512, 1280)
+CLS_WIDE_STEPS, CLS_WIDE_SCAN_STEPS = 10, 3
+
+
+def wide_infer(torch, rnn, conf, name):
+    """One Inferencer forward of `conf` at [64, 100] ragged ids, the kernel
+    arm (B5's inference variant, twice on the grid route) against the scan
+    arm from the same weights: probabilities within 1e-5."""
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.trainer.trainer import Inferencer
+
+    net = Network(conf)
+    params = net.init_params(torch.Generator().manual_seed(SEED),
+                             device="cuda")
+    cls, _nmt = text_feeds(SEED + 60, ragged=True)
+    feed = {"words": cls["words"]}
+    out = {}
+    for arm in ("kernels", "scan"):
+        set_rnn_arm(arm)
+        inf = Inferencer(net, params, outputs=["output"], device="cuda")
+        torch.cuda.synchronize()
+        zero_rnn_counts(rnn)
+        t0 = time.perf_counter()
+        logits = inf.infer(feed)["output"]
+        ms = (time.perf_counter() - t0) * 1e3
+        out[arm] = (logits, ms, rnn_counts(rnn))
+    set_rnn_arm("kernels")
+    (lk, ms_k, counts), (ls, ms_s, counts_s) = out["kernels"], out["scan"]
+    pk, ps = (np.exp(z - z.max(axis=1, keepdims=True)) for z in (lk, ls))
+    diff = float(np.abs(pk / pk.sum(axis=1, keepdims=True)
+                        - ps / ps.sum(axis=1, keepdims=True)).max())
+    r = {"shape": list(lk.shape), "finite": bool(np.isfinite(lk).all()),
+         "prob_max_abs_diff": diff, "kernel_ms": ms_k, "scan_ms": ms_s,
+         "launches": counts}
+    print(f"inference {name} " + json.dumps(r), flush=True)
+    assert r["shape"] == [CLS_B, 2] and r["finite"], r
+    assert diff <= 1e-5, f"{name}: probabilities differ by {diff:.3g}"
+    want = dict.fromkeys(RNN_COUNTERS, 0)
+    want.update(lstm_fwd_infer_launches=2, lstm_fwd_infer_grid_launches=2)
+    assert counts == want, f"{name}: launches {counts}, want {want}"
+    assert sum(counts_s.values()) == 0, counts_s
+    return r
+
+
+def wide_classifier(torch, rnn):
+    """Phase 13c: bench_lstm's classifier (vocab 30000, emb 128, 2 LSTM
+    layers, B=64, T=100, adam 2e-3), f32, at h = 512 and 1280, where B5
+    and B6 take the grid route: the held adam step (`held_text_step`,
+    its max pool at the f64 arm's steps) at ragged lengths;
+    CLS_WIDE_STEPS kernel-arm and CLS_WIDE_SCAN_STEPS
+    scan-arm steps through SGD at full lengths with profiles, the loss
+    falling in both, the kernel arm launching 2 B5 + 2 B6 a step, every
+    one on the grid route (counts read just after the run); then one
+    inference forward (`wide_infer`). Returns the numbers by width."""
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+
+    cls_r, _nmt = text_feeds(SEED + 90, ragged=True)
+    cls_f, _nmt = text_feeds(SEED + 91, ragged=False)
+    out = {}
+    for h in CLS_WIDE:
+        conf = stacked_lstm_classifier(**dict(CLS, hidden=h))
+        name = f"classifier_h{h}"
+        held = held_text_step(torch, conf, cls_r, CLS_LR, name,
+                              fixed_pool=True)
+        runs = {}
+        for arm, steps in (("kernels", CLS_WIDE_STEPS),
+                           ("scan", CLS_WIDE_SCAN_STEPS)):
+            set_rnn_arm(arm)
+            runs[arm] = text_train(torch, rnn, conf, cls_f, CLS_LR, steps,
+                                   CLS_B * CLS_T,
+                                   f"{name}_{arm}_b{CLS_B}_t{CLS_T}")
+        set_rnn_arm("kernels")
+        for arm, r in runs.items():
+            assert r["loss_last"] < r["loss_first"], (
+                f"{name} {arm}: loss rose from {r['loss_first']:.4g} to "
+                f"{r['loss_last']:.4g}")
+        want = dict.fromkeys(RNN_COUNTERS, 0)
+        n = 2 * CLS_WIDE_STEPS
+        want.update(lstm_fwd_launches=n, lstm_fwd_grid_launches=n,
+                    lstm_bwd_launches=n, lstm_bwd_grid_launches=n)
+        got = runs["kernels"]["launches"]
+        assert got == want, f"{name} launches {got}, want {want}"
+        assert sum(runs["scan"]["launches"].values()) == 0, runs["scan"]
+        out[h] = {"held": held, "runs": runs,
+                  "infer": wide_infer(torch, rnn, conf, name)}
+    return out
+
+
 def text_training(torch, rnn):
-    """Phases 12 and 13: the held steps at ragged lengths, then the
+    """Phases 12, 13 and 13c: the held steps at ragged lengths, then the
     training runs at the bench's full lengths, kernel arm then scan arm.
     Each kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
-    (NMT) a step, every one on the cluster route, and its loss falls."""
+    (NMT) a step, every one on the cluster route (13c's classifier at
+    h = 512 and 1280: on the grid route), and its loss falls."""
     cls_conf, nmt_conf = text_confs()
     cls_r, nmt_r = text_feeds(SEED + 70, ragged=True)
     held = (held_text_step(torch, cls_conf, cls_r, CLS_LR, "classifier"),
@@ -2735,6 +2910,9 @@ def text_training(torch, rnn):
     assert n == want_n, f"nmt launches {n}, want {want_n}"
     for arm in ("classifier_scan", "nmt_scan"):
         assert sum(runs[arm]["launches"].values()) == 0, runs[arm]
+    phase("13c. the classifier at bench_lstm's h = 512 and 1280 through "
+          "SGD (the grid route)")
+    wide = wide_classifier(torch, rnn)
     phase("13b. classifier and NMT adam steps under the bf16 flag")
     amp = (amp_text_step(torch, rnn, cls_conf, cls_f, CLS_LR, "classifier",
                          dict(lstm_fwd_launches=2,
@@ -2745,7 +2923,7 @@ def text_training(torch, rnn):
                          dict(gru_fwd_launches=2, gru_fwd_cluster_launches=2,
                               gru_bwd_launches=2,
                               gru_bwd_cluster_launches=2)))
-    return held, runs, amp
+    return held, runs, amp, wide
 
 
 # ---- the sparse CTR slice: B9, SparseUpdater, the sharded tier, CTR ------
@@ -3554,7 +3732,7 @@ def main() -> int:
     cls_infer = classifier_infer(torch, rnn)
 
     phase("12. held classifier and NMT train steps, kernels vs scan")
-    _held_text, text_runs, _amp_text = text_training(torch, rnn)
+    _held_text, text_runs, _amp_text, wide = text_training(torch, rnn)
 
     phase("14. sparse-row kernels (B9) vs plain version")
     ptxas_report(_build.build_log(sr.KERNEL))
@@ -3650,6 +3828,38 @@ def main() -> int:
     cls_launches = text_runs["classifier_kernels"]["launches"]
     nmt_launches = text_runs["nmt_kernels"]["launches"]
 
+    # the grid route's numbers at bench_lstm's widest width (phase 10's
+    # lstm_b64_t100_h1280), its launches phase 13c's kernel arms' (both
+    # widths); max_abs_err over phase 10's LSTM cases on the grid route
+    grid_at = rnn_res["lstm_b64_t100_h1280"]
+    assert grid_at["fwd_plan"]["route"] == "grid", grid_at["fwd_plan"]
+    assert grid_at["bwd_plan"]["route"] == "grid", grid_at["bwd_plan"]
+
+    def wide_launched(counter, part="runs"):
+        if part == "runs":
+            return sum(w["runs"]["kernels"]["launches"][counter]
+                       for w in wide.values())
+        return sum(w["infer"]["launches"][counter] for w in wide.values())
+
+    def grid_row(name, tpu_line, kind, launched):
+        at = grid_at[kind]
+        plan = "bwd_plan" if kind == "bwd" else "fwd_plan"
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/lstm_seq.cu",
+            "replaces": f"paddle_tpu/ops/pallas_rnn.py:{tpu_line}",
+            "launches": launched,
+            "max_abs_err": max(r[kind]["max_abs_err"]
+                               for r in rnn_res.values()
+                               if r["cell"] == "lstm"
+                               and r[plan]["route"] == "grid"),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            # as the rnn rows': cuDNN's LSTM is another function
+            "library_ms": None,
+        }
+
     def rnn_row(name, cell, tpu_line, kind, launched):
         at = path[cell][kind]
         return {
@@ -3713,6 +3923,12 @@ def main() -> int:
                 cls_infer["launches"]["lstm_fwd_infer_launches"]),
         rnn_row("lstm_seq_bwd", "lstm", 358, "bwd",
                 cls_launches["lstm_bwd_launches"]),
+        grid_row("lstm_seq_fwd_grid", 311, "fwd",
+                 wide_launched("lstm_fwd_grid_launches")),
+        grid_row("lstm_seq_fwd_infer_grid", 311, "fwd_infer",
+                 wide_launched("lstm_fwd_infer_grid_launches", "infer")),
+        grid_row("lstm_seq_bwd_grid", 358, "bwd",
+                 wide_launched("lstm_bwd_grid_launches")),
         rnn_row("gru_seq_fwd", "gru", 724, "fwd",
                 nmt_launches["gru_fwd_launches"]),
         rnn_row("gru_seq_bwd", "gru", 657, "bwd",

@@ -11,19 +11,48 @@
 // At t >= len the state carries through and y = 0 (c carries too); a row of
 // length 0 gives zeros and gradients of 0. x [B, T, 4h] is pre-projected.
 //
-// The walk route of B5 and B6 (h past the cluster routes' reach). The TPU
-// kernel's grid is (batch blocks, time blocks) with the h/c carry in VMEM
-// across the sequential time blocks. Here one block owns BB batch rows and
-// walks the whole sequence itself: h_{t-1} (double-buffered) and c_{t-1} of
-// its rows live in shared memory, and each step computes the rows' [BB, h] @
-// [h, 4h] product with w read from device memory (L2 holds it: 1 MB at h =
-// 256, 26 MB at h = 1280). A thread owns hidden units j, j + 256, ...: it
-// accumulates the four gate columns of unit j for all BB rows in registers,
-// so the gate math needs no exchange, and one __syncthreads a step
-// publishes the new h. The walk backward recomputes the gates in the walk
-// (phase A, thread per unit) and forms dh_{t-1} = dg @ w^T (phase B, a warp
-// per unit k, w's row k read coalesced); dc stays in shared memory. Each
-// step of a block reads all of w from L2 twice (per SM ~64 B/clock).
+// The grid route of B5 and B6 (every h past the cluster routes' reach,
+// h > 320). The TPU kernel's grid is (batch blocks, time blocks) with the
+// h/c carry in VMEM across the sequential time blocks; here each step is
+// spread over the whole card. One persistent block an SM (cooperative
+// launch, G = ceil(h / U) blocks, U = ceil(h / SMs): 128 blocks of 10 units
+// at h = 1280 on an H100 SXM's 132 SMs) owns the hidden units J_s = [s U,
+// s U + U) and every batch row; the blocks meet at one grid barrier a step
+// (rnn::grid_sync).
+// B5: block s keeps in shared memory the columns of w of its units' four
+// gates, gate-interleaved ([4U][h], 206 KB at h = 1280; wider slices are
+// read from L2 each step: the streamed form). A step: the block's gate
+// pre-activations G_s = h_{t-1} [B, h] @ w[:, own] [h, 4U] on the tensor
+// cores (rnn::grid_product: 3xTF32 mma.sync, the batch rows as m, the 4U
+// gate columns as n; a warp's job holds FWD_MG m-tiles and all the n-tiles,
+// so a k-group's weights are split once for its rows; h_{t-1} read from L2
+// GPF k-groups ahead, the depth split in shares over the warps, added in
+// order) onto x_t (staged by cp.async during the previous barrier); the
+// cell of the own (row, unit) pairs, c in shared memory; h_t of the own
+// units into the global double buffer [2][B][h] (step t reads t & 1,
+// writes the other), y and c; the grid barrier. One barrier a step is
+// enough: a block writes buffer t & 1 again only in step t + 1, after every
+// block passed barrier t, that is, finished its product of step t.
+// B6: the gate recompute is hoisted as on the cluster route (one GEMM into
+// dx before the walk), dW and db7 follow the walk; only dh_{t-1} = dg @ w^T
+// stays serial. A step: the cell backward of the own pairs (a thread loads
+// the inputs of CELL_PAIRS pairs at once: dx's pre-activations, dy, c;
+// dg into dx and into the exchange), then the exchange: the block stores
+// dg[:, own] into a global [2][B][4h]; after the barrier it reads all of dg
+// (from L2: 1.3 MB at h = 1280, B = 64) and forms dh[:, own] = dg @
+// w[own, :]^T with w's own rows resident ([U][4h]), BWD_MG m-tiles a job:
+// 4 B h floats read a block a step. (The other exchange measured, each
+// block's partial dg[:, own] @ w[:, own]^T [B, h] reduced by the units'
+// owners, moves 2 B h floats a block a step but needs 84 MB of slabs at
+// h = 1280, more than L2 holds; it ran 1.2-1.7x slower and was dropped.)
+// Steps past every row's length take no barrier: their zeros (y, dx) and
+// carried c are written by each block for its own units, without barriers.
+// Every sum runs in a fixed order: a repeat is bit-identical. What bounds
+// it: the serial chain of T steps, each a product (at h = 1280, B = 64:
+// 3 x 3200 mma.sync a block and the split of its operands), the read of
+// h_{t-1} (or of dg) from L2 by every block, and the barrier;
+// -DRNN_SERIAL_FLOOR keeps only the exchanges and the barriers
+// (rnn_fwd_probe.py, rnn_bwd_probe.py measure that floor).
 //
 // B6's cluster route (every h whose weight slice fits a block's shared
 // memory: h <= 320). Two facts shape it: the gate recompute needs only
@@ -100,8 +129,6 @@
 
 namespace cg = cooperative_groups;
 using rnn::CL;
-using rnn::NT;
-using rnn::NW;
 
 #ifdef RNN_SERIAL_FLOOR
 constexpr bool kSerialFloor = true;   // the walk without cells or products
@@ -110,224 +137,6 @@ constexpr bool kSerialFloor = false;
 #endif
 
 namespace {
-
-size_t fwd_smem(int h, int bb) { return (size_t)3 * h * bb * sizeof(float); }
-size_t bwd_smem(int h, int bb) { return (size_t)7 * h * bb * sizeof(float); }
-
-// The most batch rows a block of `kind` (0 forward, 1 backward) can hold in
-// shared memory at width h: 8, 4, 2 or 1; 0 when not even one row fits.
-int block_rows(int kind, int h) {
-  for (int bb = 8; bb >= 1; bb /= 2)
-    if ((kind == 0 ? fwd_smem(h, bb) : bwd_smem(h, bb)) <= rnn::SMEM_LIMIT)
-      return bb;
-  return 0;
-}
-
-// acc[r][q] = sum_k hp[k][r] * w[k][q * h + j] (hp transposed [h][BB])
-template <int BB>
-__device__ __forceinline__ void gate_product(const float* __restrict__ w,
-                                             const float* hp, int h, int j,
-                                             float (&acc)[BB][4]) {
-#pragma unroll
-  for (int r = 0; r < BB; ++r)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[r][q] = 0.f;
-  const size_t h4 = 4 * (size_t)h;
-  const float* wj = w + j;
-#pragma unroll 4
-  for (int k = 0; k < h; ++k) {
-    const float* wk = wj + k * h4;
-    const float w0 = wk[0], w1 = wk[h], w2 = wk[2 * h], w3 = wk[3 * h];
-    float hv[BB];
-    rnn::load_rows<BB>(hp + (size_t)k * BB, hv);
-#pragma unroll
-    for (int r = 0; r < BB; ++r) {
-      acc[r][0] = fmaf(hv[r], w0, acc[r][0]);
-      acc[r][1] = fmaf(hv[r], w1, acc[r][1]);
-      acc[r][2] = fmaf(hv[r], w2, acc[r][2]);
-      acc[r][3] = fmaf(hv[r], w3, acc[r][3]);
-    }
-  }
-}
-
-template <int BB>
-__global__ void __launch_bounds__(NT)
-lstm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ b7, const int* __restrict__ lens,
-                float* __restrict__ y, float* __restrict__ c_out, int B, int T,
-                int h) {
-  extern __shared__ __align__(16) float smem[];
-  float* hbuf = smem;                   // [2][h][BB] h_{t-1}, double-buffered
-  float* cst = smem + 2 * h * BB;       // [h][BB] c_{t-1}, a unit's own thread
-  const int row0 = blockIdx.x * BB;
-  const size_t h4 = 4 * (size_t)h;
-  int len[BB];
-#pragma unroll
-  for (int r = 0; r < BB; ++r) len[r] = row0 + r < B ? lens[row0 + r] : 0;
-  for (int i = threadIdx.x; i < 3 * h * BB; i += NT) smem[i] = 0.f;
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    const float* hp = hbuf + (t & 1) * h * BB;
-    float* hn = hbuf + ((t + 1) & 1) * h * BB;
-    for (int j = threadIdx.x; j < h; j += NT) {
-      float acc[BB][4];
-      gate_product<BB>(w, hp, h, j, acc);
-      const float gbi = b7[j], gbf = b7[h + j], gbg = b7[2 * h + j],
-                  gbo = b7[3 * h + j];
-      const float wci = b7[4 * h + j], wcf = b7[5 * h + j],
-                  wco = b7[6 * h + j];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        const int row = row0 + r;
-        const float cp = cst[j * BB + r];
-        const float hpv = hp[j * BB + r];
-        const size_t o = ((size_t)row * T + t) * h + j;
-        if (t < len[r]) {
-          const float* xr = x + ((size_t)row * T + t) * h4;
-          const float ig = rnn::sigm((xr[j] + acc[r][0]) + gbi + wci * cp);
-          const float fg =
-              rnn::sigm((xr[h + j] + acc[r][1]) + gbf + wcf * cp);
-          const float cand = tanhf((xr[2 * h + j] + acc[r][2]) + gbg);
-          const float c = fg * cp + ig * cand;
-          const float og =
-              rnn::sigm((xr[3 * h + j] + acc[r][3]) + gbo + wco * c);
-          const float out = og * tanhf(c);
-          hn[j * BB + r] = out;
-          cst[j * BB + r] = c;
-          y[o] = out;
-          if (c_out != nullptr) c_out[o] = c;
-        } else {
-          hn[j * BB + r] = hpv;
-          if (row < B) {
-            y[o] = 0.f;
-            if (c_out != nullptr) c_out[o] = cp;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int BB>
-__global__ void __launch_bounds__(NT)
-lstm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ b7, const int* __restrict__ lens,
-                const float* __restrict__ y, const float* __restrict__ c_seq,
-                const float* __restrict__ dy, float* __restrict__ dx,
-                float* __restrict__ part_db, int B, int T, int h) {
-  extern __shared__ __align__(16) float smem[];
-  float* hp = smem;                     // [h][BB] h_{t-1} = y[t-1]
-  float* dg = hp + h * BB;              // [BB][4h] this step's gate grads
-  float* dh = dg + 4 * h * BB;          // [BB][h] dL/dh_t carried back
-  float* dc = dh + h * BB;              // [BB][h] dL/dc_t, a unit's own thread
-  const int row0 = blockIdx.x * BB;
-  const int h4 = 4 * h;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* part = part_db + (size_t)blockIdx.x * 7 * h;
-  int len[BB];
-#pragma unroll
-  for (int r = 0; r < BB; ++r) len[r] = row0 + r < B ? lens[row0 + r] : 0;
-  for (int i = threadIdx.x; i < 6 * h * BB; i += NT) dg[i] = 0.f;
-  for (int i = threadIdx.x; i < 7 * h; i += NT) part[i] = 0.f;
-  // h_{t-1} of step t into hp: y[t-1] by rows (coalesced), 0 at t = 0
-  auto load_hp = [&](int t) {
-    for (int i = threadIdx.x; i < h * BB; i += NT) {
-      const int r = i / h, k = i % h, row = row0 + r;
-      hp[k * BB + r] = (t > 0 && row < B)
-                           ? y[((size_t)row * T + t - 1) * h + k] : 0.f;
-    }
-  };
-  load_hp(T - 1);
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    // phase A: recompute the cell of unit j, backward through the step
-    for (int j = threadIdx.x; j < h; j += NT) {
-      float acc[BB][4];
-      gate_product<BB>(w, hp, h, j, acc);
-      const float gbi = b7[j], gbf = b7[h + j], gbg = b7[2 * h + j],
-                  gbo = b7[3 * h + j];
-      const float wci = b7[4 * h + j], wcf = b7[5 * h + j],
-                  wco = b7[6 * h + j];
-      float s[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        const int row = row0 + r;
-        const size_t base = (size_t)row * T + t;
-        float* dgr = dg + (size_t)r * h4;
-        if (t < len[r]) {
-          const float cp = t > 0 ? c_seq[(base - 1) * h + j] : 0.f;
-          const float* xr = x + base * h4;
-          const float ig = rnn::sigm((xr[j] + acc[r][0]) + gbi + wci * cp);
-          const float fg =
-              rnn::sigm((xr[h + j] + acc[r][1]) + gbf + wcf * cp);
-          const float cand = tanhf((xr[2 * h + j] + acc[r][2]) + gbg);
-          const float ct = fg * cp + ig * cand;
-          const float og =
-              rnn::sigm((xr[3 * h + j] + acc[r][3]) + gbo + wco * ct);
-          const float tc = tanhf(ct);
-          const float dout = dh[r * h + j] + dy[base * h + j];
-          const float dgo = dout * tc * og * (1.f - og);
-          const float dct =
-              dc[r * h + j] + dout * og * (1.f - tc * tc) + dgo * wco;
-          const float dgi = dct * cand * ig * (1.f - ig);
-          const float dgf = dct * cp * fg * (1.f - fg);
-          const float dgg = dct * ig * (1.f - cand * cand);
-          float* dxr = dx + base * h4;
-          dxr[j] = dgi;
-          dxr[h + j] = dgf;
-          dxr[2 * h + j] = dgg;
-          dxr[3 * h + j] = dgo;
-          dgr[j] = dgi;
-          dgr[h + j] = dgf;
-          dgr[2 * h + j] = dgg;
-          dgr[3 * h + j] = dgo;
-          dc[r * h + j] = dct * fg + dgi * wci + dgf * wcf;
-          s[0] += dgi;
-          s[1] += dgf;
-          s[2] += dgg;
-          s[3] += dgo;
-          s[4] += dgi * cp;
-          s[5] += dgf * cp;
-          s[6] += dgo * ct;
-        } else {
-          // masked step: dg = 0, dh and dc carry through
-          dgr[j] = dgr[h + j] = dgr[2 * h + j] = dgr[3 * h + j] = 0.f;
-          if (row < B) {
-            float* dxr = dx + base * h4;
-            dxr[j] = dxr[h + j] = dxr[2 * h + j] = dxr[3 * h + j] = 0.f;
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 7; ++q) part[q * h + j] += s[q];
-    }
-    __syncthreads();
-    // phase B: dh_{t-1}[r][k] = sum_c dg[r][c] * w[k][c] (+ dh_t where masked)
-    for (int k = warp; k < h; k += NW) {
-      float a[BB];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) a[r] = 0.f;
-      const float* wk = w + (size_t)k * h4;
-      for (int c = lane; c < h4; c += 32) {
-        const float wv = wk[c];
-#pragma unroll
-        for (int r = 0; r < BB; ++r) a[r] = fmaf(dg[r * h4 + c], wv, a[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < BB; ++r) a[r] = rnn::warp_sum(a[r]);
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < BB; ++r)
-          dh[r * h + k] = t < len[r] ? a[r] : dh[r * h + k] + a[r];
-      }
-    }
-    if (t > 0) load_hp(t - 1);
-    __syncthreads();
-  }
-}
 
 // The cluster walk's shared memory, in floats from the base, at width h and
 // R rows a cluster
@@ -676,37 +485,448 @@ lstm_fwd_cluster_kernel(const float* __restrict__ x,
   }
 }
 
-template <int BB>
-cudaError_t launch_fwd(const float* x, const float* w, const float* b7,
-                       const int* lens, float* y, float* c, int B, int T,
-                       int h, cudaStream_t st) {
-  const size_t smem = fwd_smem(h, BB);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_fwd_kernel<BB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  lstm_fwd_kernel<BB><<<rnn::cdiv(B, BB), NT, smem, st>>>(x, w, b7, lens, y,
-                                                          c, B, T, h);
-  return cudaGetLastError();
+// ------------------------------------------------------------ grid route
+inline __host__ __device__ int round16(int n) { return (n + 15) & ~15; }
+
+constexpr int GRID_HEAD = 32;     // scratch floats before a grid launch's
+                                  // buffers: its barrier counter
+constexpr int BIAS_PARTS = 64;    // row chunks of the grid route's db7
+
+// B5's grid block's shared memory, in floats from the base, at width h, U
+// units a block and Bp rows (a multiple of 16); the slice of w only where
+// it is resident
+struct FwdGrid {
+  int K, kst, nc, gps, gp, cs, sb, total;
+  __host__ __device__ FwdGrid(int h, int U, int Bp, bool resident) {
+    K = rnn::round8(h);              // the product's depth, zeros past h
+    kst = rnn::grad_stride(K);
+    nc = 4 * U;                      // the own gate columns q U + u
+    gps = rnn::round8(nc);
+    gp = resident ? nc * kst : 0;    // ws [nc][kst]: w[k][q h + j0 + u]
+    cs = gp + Bp * gps;              // gp [Bp][gps]: x_t + the product
+    sb = cs + Bp * U;                // cs [Bp][U]: c_{t-1}
+    total = sb + 7 * U;              // sb [7][U]: the own units' b7
+  }
+};
+
+// B6's grid block's shared memory, as FwdGrid's
+struct BwdGrid {
+  int nc, kst, pg, ps, dh, dc, sb, total;
+  __host__ __device__ BwdGrid(int h, int U, int Bp, bool resident) {
+    nc = 4 * U;
+    kst = rnn::grad_stride(rnn::round8(4 * h));  // ws [U][kst]: w[j0 + u]
+    ps = rnn::round8(U);             // pg [Bp][ps]: dg @ w[own, :]^T
+    pg = resident ? U * kst : 0;
+    dh = pg + Bp * ps;               // dh [Bp][U]: dL/dh_t, own units
+    dc = dh + Bp * U;                // dc [Bp][U]: dL/dc_t
+    sb = dc + Bp * U;                // sb [7][U]
+    total = sb + 7 * U;
+  }
+};
+
+size_t fwd_grid_smem(int h, int U, int Bp, bool resident) {
+  return (size_t)FwdGrid(h, U, Bp, resident).total * sizeof(float);
 }
 
-template <int BB>
-cudaError_t launch_bwd(const float* x, const float* w, const float* b7,
-                       const int* lens, const float* y, const float* c,
-                       const float* dy, float* dx, float* part, int B, int T,
-                       int h, cudaStream_t st) {
-  const size_t smem = bwd_smem(h, BB);
-  cudaError_t err = cudaFuncSetAttribute(
-      lstm_bwd_kernel<BB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  lstm_bwd_kernel<BB><<<rnn::cdiv(B, BB), NT, smem, st>>>(
-      x, w, b7, lens, y, c, dy, dx, part, B, T, h);
-  return cudaGetLastError();
+size_t bwd_grid_smem(int h, int U, int Bp, bool resident) {
+  return (size_t)BwdGrid(h, U, Bp, resident).total * sizeof(float);
 }
 
-// The two cluster walks of this file, for rnn_common.cuh's route rule and
-// launches
+// The floats of B6's grid exchange buffers (both parities): dg [2][Bp][4h]
+long long bwd_exchange_floats(int Bp, int h) {
+  return 2LL * Bp * rnn::round8(4 * h);
+}
+
+// The m-tiles (of 16 rows) a job of B5's per-step product holds (the
+// n-tiles follow the gate columns: rnn::grid_ng), and the m- and n-tiles
+// of B6's, over the own units
+constexpr int FWD_MG = 2;
+constexpr int BWD_MG = 4;
+constexpr int BWD_NG = 2;
+constexpr int CELL_PAIRS = 4;   // (row, unit) pairs B6's cell loads at once
+
+// B5's grid route (see the head of this file). hbuf [2][Bp][round8(h)] and
+// *bar are zero on entry; c_out may be null. RES: w's slice in shared
+// memory, else read from L2 each step; NG: the n-tiles of a product job
+// (rnn::grid_ng of the own gate columns' n-tiles).
+template <bool RES, int NG>
+__global__ void __launch_bounds__(rnn::GT, 1)
+lstm_fwd_grid_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ b7,
+                     const int* __restrict__ lens, float* __restrict__ y,
+                     float* __restrict__ c_out, float* hbuf, unsigned* bar,
+                     int B, int T, int h, int U) {
+  constexpr int GT = rnn::GT;
+  extern __shared__ __align__(16) float smem[];
+  const int Bp = round16(B);
+  const FwdGrid L(h, U, Bp, RES);
+  const int s = blockIdx.x, G = gridDim.x;
+  const int j0 = s * U, nu = min(U, h - j0), nc = L.nc, K = L.K;
+  const int h4 = 4 * h;
+  float* ws = smem;
+  float* gp = smem + L.gp;
+  float* cs = smem + L.cs;
+  float* sb = smem + L.sb;
+
+  int live = 0;  // the steps until every row is past its length
+  for (int r = 0; r < B; ++r) live = max(live, min(__ldg(lens + r), T));
+  for (int i = threadIdx.x; i < L.total; i += GT) smem[i] = 0.f;
+  __syncthreads();
+  if constexpr (RES)
+    for (int i = threadIdx.x; i < h * nc; i += GT) {
+      const int k = i / nc, c = i % nc, q = c / U, u = c % U;
+      if (u < nu) ws[c * L.kst + k] = w[(size_t)k * h4 + q * h + j0 + u];
+    }
+  for (int i = threadIdx.x; i < 7 * nu; i += GT) {
+    const int q = i / nu, u = i % nu;
+    sb[q * U + u] = b7[q * h + j0 + u];
+  }
+  // x_t of the own gate columns into gp (0 past len)
+  auto stage = [&](int t) {
+    for (int e = threadIdx.x; e < B * nc && !kSerialFloor; e += GT) {
+      const int r = e / nc, c = e % nc, q = c / U, u = c % U;
+      const bool ok = u < nu && t < __ldg(lens + r);
+      cp_async4(gp + r * L.gps + c,
+                ok ? x + ((size_t)r * T + t) * h4 + q * h + j0 + u : x,
+                ok ? 4 : 0);
+    }
+  };
+  // Bt(n, k) = w[k][q h + j0 + u] for the own gate column n = q U + u
+  auto wcol = [&](int n, int k) -> float2 {
+    if (n >= nc) return make_float2(0.f, 0.f);
+    if constexpr (RES) {
+      return *reinterpret_cast<const float2*>(ws + n * L.kst + k);
+    } else {
+      const int q = n / U, u = n % U;
+      if (u >= nu) return make_float2(0.f, 0.f);
+      const float* col = w + q * h + j0 + u;
+      return make_float2(k < h ? __ldg(col + (size_t)k * h4) : 0.f,
+                         k + 1 < h ? __ldg(col + (size_t)(k + 1) * h4) : 0.f);
+    }
+  };
+  __syncthreads();
+  if (live > 0) stage(0);
+  cp_async_commit();
+
+  unsigned passed = 0;
+  for (int t = 0; t < live; ++t) {
+    const float* hp = hbuf + (size_t)(t & 1) * Bp * K;
+    float* hn = hbuf + (size_t)((t + 1) & 1) * Bp * K;
+    cp_async_wait<0>();
+    __syncthreads();  // x_t has landed in gp
+    // gp += h_{t-1} [Bp, K] @ w[:, own] [K, nc], h_{t-1} from L2
+    rnn::grid_product_add<kSerialFloor, FWD_MG, NG>(
+        gp, L.gps, Bp, nc, K, rnn::GlobalRows{hp, K}, wcol);
+    // the cell of the own (row, unit) pairs; past len h and c carry
+    for (int pr = threadIdx.x; pr < B * U; pr += GT) {
+      const int r = pr / U, u = pr % U, j = j0 + u;
+      if (u >= nu) continue;
+      if (kSerialFloor) {
+        hn[r * K + j] = 0.f;
+        continue;
+      }
+      const size_t o = ((size_t)r * T + t) * h + j;
+      const float cv = cs[pr];
+      if (t < __ldg(lens + r)) {
+        const float* g = gp + r * L.gps;
+        const float wci = sb[4 * U + u], wcf = sb[5 * U + u],
+                    wco = sb[6 * U + u];
+        const float ig = rnn::sigm(g[u] + sb[u] + wci * cv);
+        const float fg = rnn::sigm(g[U + u] + sb[U + u] + wcf * cv);
+        const float cand = tanhf(g[2 * U + u] + sb[2 * U + u]);
+        const float c = fg * cv + ig * cand;
+        const float og = rnn::sigm(g[3 * U + u] + sb[3 * U + u] + wco * c);
+        const float out = og * tanhf(c);
+        cs[pr] = c;
+        hn[r * K + j] = out;
+        y[o] = out;
+        if (c_out != nullptr) c_out[o] = c;
+      } else {
+        hn[r * K + j] = __ldcg(hp + r * K + j);
+        y[o] = 0.f;
+        if (c_out != nullptr) c_out[o] = cv;
+      }
+    }
+    if (t + 1 == live) break;
+    __syncthreads();  // gp is read: x_{t+1} may land in it
+    stage(t + 1);
+    cp_async_commit();
+    rnn::grid_sync(bar, passed += G);  // h_t of every block is in hn
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // past every row's length: y = 0, c carries
+  for (int e = threadIdx.x; e < (T - live) * B * U && !kSerialFloor;
+       e += GT) {
+    const int t = live + e / (B * U), pr = e % (B * U), r = pr / U,
+              u = pr % U;
+    if (u >= nu) continue;
+    const size_t o = ((size_t)r * T + t) * h + j0 + u;
+    y[o] = 0.f;
+    if (c_out != nullptr) c_out[o] = cs[pr];
+  }
+}
+
+// B6's grid walk (see the head of this file). dx holds the hoisted
+// pre-activations x + h_{t-1} @ w on entry and the gate gradients on exit;
+// xbuf holds the exchange (bwd_exchange_floats); it and *bar are zero on
+// entry. RES as B5's.
+template <bool RES>
+__global__ void __launch_bounds__(rnn::GT, 1)
+lstm_bwd_grid_kernel(const float* __restrict__ w,
+                     const float* __restrict__ b7,
+                     const int* __restrict__ lens,
+                     const float* __restrict__ c_seq,
+                     const float* __restrict__ dy, float* __restrict__ dx,
+                     float* xbuf, unsigned* bar, int B, int T, int h, int U) {
+  constexpr int GT = rnn::GT;
+  extern __shared__ __align__(16) float smem[];
+  const int Bp = round16(B);
+  const BwdGrid L(h, U, Bp, RES);
+  const int s = blockIdx.x, G = gridDim.x;
+  const int j0 = s * U, nu = min(U, h - j0), nc = L.nc;
+  const int h4 = 4 * h, h4p = rnn::round8(h4);
+  float* ws = smem;
+  float* pg = smem + L.pg;
+  float* dhs = smem + L.dh;
+  float* dcs = smem + L.dc;
+  float* sb = smem + L.sb;
+  const size_t parity = (size_t)Bp * h4p;
+
+  int live = 0;
+  for (int r = 0; r < B; ++r) live = max(live, min(__ldg(lens + r), T));
+  for (int i = threadIdx.x; i < L.total; i += GT) smem[i] = 0.f;
+  __syncthreads();
+  if constexpr (RES)
+    for (int i = threadIdx.x; i < nu * h4; i += GT) {
+      const int u = i / h4, c = i % h4;
+      ws[u * L.kst + c] = w[(size_t)(j0 + u) * h4 + c];
+    }
+  for (int i = threadIdx.x; i < 7 * nu; i += GT) {
+    const int q = i / nu, u = i % nu;
+    sb[q * U + u] = b7[q * h + j0 + u];
+  }
+  // past every row's length: dx = 0, no barrier
+  for (int e = threadIdx.x; e < (T - live) * B * nc && !kSerialFloor;
+       e += GT) {
+    const int t = live + e / (B * nc), rc = e % (B * nc), r = rc / nc,
+              c = rc % nc, q = c / U, u = c % U;
+    if (u < nu) dx[((size_t)r * T + t) * h4 + q * h + j0 + u] = 0.f;
+  }
+  // Bt(n, k) = w[j0 + n][k] for the own unit n
+  auto wslice = [&](int n, int k) -> float2 {
+    if (n >= nu) return make_float2(0.f, 0.f);
+    if constexpr (RES) {
+      return *reinterpret_cast<const float2*>(ws + n * L.kst + k);
+    } else {
+      const float* row = w + (size_t)(j0 + n) * h4;
+      return make_float2(k < h4 ? __ldg(row + k) : 0.f,
+                         k + 1 < h4 ? __ldg(row + k + 1) : 0.f);
+    }
+  };
+  __syncthreads();
+
+  unsigned passed = 0;
+  for (int t = live - 1; t >= 0; --t) {
+    float* xb = xbuf + (t & 1) * parity;
+    for (int i = threadIdx.x; i < Bp * L.ps; i += GT) pg[i] = 0.f;
+    // the cell backward of the own (row, unit) pairs: dg into dx and into
+    // the exchange; past len dg = 0, dh and dc carry.
+    // A thread loads the inputs of CELL_PAIRS pairs before it computes
+    // any: one round trip to memory, not one a pair.
+    for (int p0 = threadIdx.x; p0 < B * U; p0 += CELL_PAIRS * GT) {
+      float in[CELL_PAIRS][6];
+#pragma unroll
+      for (int q = 0; q < CELL_PAIRS; ++q) {
+        const int pr = p0 + q * GT, r = pr / U, u = pr % U, j = j0 + u;
+        if (kSerialFloor || pr >= B * U || u >= nu || t >= __ldg(lens + r))
+          continue;
+        const size_t base = (size_t)r * T + t;
+        const float* pre = dx + base * h4 + j;
+        in[q][0] = pre[0];
+        in[q][1] = pre[h];
+        in[q][2] = pre[2 * h];
+        in[q][3] = pre[3 * h];
+        in[q][4] = dy[base * h + j];
+        in[q][5] = t > 0 ? c_seq[(base - 1) * h + j] : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < CELL_PAIRS; ++q) {
+        const int pr = p0 + q * GT, r = pr / U, u = pr % U, j = j0 + u;
+        if (pr >= B * U || u >= nu) continue;
+        const size_t base = (size_t)r * T + t;
+        float dg[4] = {0.f, 0.f, 0.f, 0.f};
+        if (!kSerialFloor && t < __ldg(lens + r)) {
+          const float cp = in[q][5];
+          const float wci = sb[4 * U + u], wcf = sb[5 * U + u],
+                      wco = sb[6 * U + u];
+          const float ig = rnn::sigm(in[q][0] + sb[u] + wci * cp);
+          const float fg = rnn::sigm(in[q][1] + sb[U + u] + wcf * cp);
+          const float cand = tanhf(in[q][2] + sb[2 * U + u]);
+          const float ct = fg * cp + ig * cand;
+          const float og = rnn::sigm(in[q][3] + sb[3 * U + u] + wco * ct);
+          const float tc = tanhf(ct);
+          const float dout = dhs[pr] + in[q][4];
+          const float dgo = dout * tc * og * (1.f - og);
+          const float dct =
+              dcs[pr] + dout * og * (1.f - tc * tc) + dgo * wco;
+          const float dgi = dct * cand * ig * (1.f - ig);
+          const float dgf = dct * cp * fg * (1.f - fg);
+          const float dgg = dct * ig * (1.f - cand * cand);
+          dcs[pr] = dct * fg + dgi * wci + dgf * wcf;
+          dg[0] = dgi;
+          dg[1] = dgf;
+          dg[2] = dgg;
+          dg[3] = dgo;
+        }
+#pragma unroll
+        for (int g4 = 0; g4 < 4; ++g4) {
+          if (!kSerialFloor) dx[base * h4 + g4 * h + j] = dg[g4];
+          xb[r * h4p + g4 * h + j] = dg[g4];
+        }
+      }
+    }
+    if (t == 0) break;  // dh_{-1} is not needed
+    __syncthreads();    // the own dg is complete
+    rnn::grid_sync(bar, passed += G);  // the step's exchange is complete
+    // dh_{t-1} of the own units = dg [Bp, 4h] (from L2) @ w[own, :]^T
+    rnn::grid_product_add<kSerialFloor, BWD_MG, BWD_NG>(
+        pg, L.ps, Bp, U, h4p, rnn::GlobalRows{xb, h4p}, wslice);
+    for (int pr = threadIdx.x; pr < B * U; pr += GT) {
+      const int r = pr / U, u = pr % U;
+      if (u < nu && t < __ldg(lens + r)) dhs[pr] = pg[r * L.ps + u];
+    }
+    __syncthreads();  // dh is complete
+  }
+}
+
+// db7's row-chunk partials from the gate gradients: part[chunk][q h + j]
+// sums over the chunk's rows of the B*T of dx's gates (q < 4), dg_i
+// c_{t-1}, dg_f c_{t-1} and dg_o c_t (dx is 0 on masked steps)
+__global__ void lstm_bias_grad_kernel(const float* __restrict__ dx,
+                                      const float* __restrict__ c_seq,
+                                      float* __restrict__ part, int N, int T,
+                                      int h, int rows) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= h) return;
+  const int n0 = blockIdx.y * rows, n1 = min(N, n0 + rows);
+  const size_t h4 = 4 * (size_t)h;
+  float s[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int n = n0; n < n1; ++n) {
+    const float* d = dx + n * h4 + j;
+    const float gi = d[0], gf = d[h], gg = d[2 * h], go = d[3 * h];
+    const float cp = n % T != 0 ? c_seq[(size_t)(n - 1) * h + j] : 0.f;
+    const float ct = c_seq[(size_t)n * h + j];
+    s[0] += gi;
+    s[1] += gf;
+    s[2] += gg;
+    s[3] += go;
+    s[4] += gi * cp;
+    s[5] += gf * cp;
+    s[6] += go * ct;
+  }
+  float* o = part + (size_t)blockIdx.y * 7 * h + j;
+#pragma unroll
+  for (int q = 0; q < 7; ++q) o[q * h] = s[q];
+}
+
+// db7 [7h] from dx and c over the N = B*T rows, through BIAS_PARTS
+// row-chunk partials in part (fixed order)
+cudaError_t bias_grad(const float* dx, const float* c, float* part,
+                      float* db7, int N, int T, int h, cudaStream_t st) {
+  const int rows = rnn::cdiv(N, BIAS_PARTS < N ? BIAS_PARTS : N);
+  const int parts = rnn::cdiv(N, rows);
+  lstm_bias_grad_kernel<<<dim3(rnn::cdiv(h, 128), parts), 128, 0, st>>>(
+      dx, c, part, N, T, h, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return rnn::block_sum(part, db7, parts, 7 * h, st);
+}
+
+// B5's grid kernel for w's slice resident or not and U units a block
+using FwdKern = void (*)(const float*, const float*, const float*,
+                         const int*, float*, float*, float*, unsigned*, int,
+                         int, int, int);
+
+template <bool RES>
+FwdKern fwd_kernel_ng(int ng) {
+  switch (ng) {
+    case 2: return &lstm_fwd_grid_kernel<RES, 2>;
+    case 4: return &lstm_fwd_grid_kernel<RES, 4>;
+    case 5: return &lstm_fwd_grid_kernel<RES, 5>;
+    default: return &lstm_fwd_grid_kernel<RES, 8>;
+  }
+}
+
+FwdKern fwd_grid_kernel(bool resident, int U) {
+  const int ng = rnn::grid_ng((4 * U + 7) / 8);
+  return resident ? fwd_kernel_ng<true>(ng) : fwd_kernel_ng<false>(ng);
+}
+
+// The grid route's plan (rnn::Plan, route 2) of the forward (kind 0) or
+// the backward at (B, h) on `device`: U = ceil(h / SMs) units a block,
+// ceil(h / U) blocks; all B rows in one launch with w's slices resident
+// where a block's shared memory holds them, else streamed, in launches of
+// the most rows (a multiple of 16) that fit. Route -1 where not even 16
+// rows fit. Returns a cudaError_t.
+int grid_plan(int kind, int B, int h, int device, rnn::Plan* p) {
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int U = rnn::cdiv(h, sms), G = rnn::cdiv(h, U);
+  auto smem = [&](int rows, bool res) {
+    return kind == 0 ? fwd_grid_smem(h, U, round16(rows), res)
+                     : bwd_grid_smem(h, U, round16(rows), res);
+  };
+  const bool res = smem(B, true) <= rnn::SMEM_LIMIT;
+  int rows = B;
+  if (!res && smem(B, false) > rnn::SMEM_LIMIT) {
+    rows = round16(B) - 16;
+    while (rows >= 16 && smem(rows, false) > rnn::SMEM_LIMIT) rows -= 16;
+    if (rows < 16) return 0;
+  }
+  const size_t bytes = smem(rows, res);
+  int active;
+  if (kind == 0)
+    active = rnn::max_active_blocks(fwd_grid_kernel(res, U), rnn::GT, bytes,
+                                    device);
+  else
+    active = res ? rnn::max_active_blocks(&lstm_bwd_grid_kernel<true>,
+                                          rnn::GT, bytes, device)
+                 : rnn::max_active_blocks(&lstm_bwd_grid_kernel<false>,
+                                          rnn::GT, bytes, device);
+  if (active < 0) return -active;
+  *p = {2, rows, G, active, U, res ? 0 : 1};
+  return 0;
+}
+
+// Scratch floats of a route's launch: B5's grid route (kind 0) its
+// barrier and h buffers; B6's (kind 1) the db7 partials of either route,
+// dW's split-K partials, then the grid route's barrier and exchange. The
+// offsets of B6's pieces, in floats.
+struct BwdScratch {
+  long long part, dw, grid, total;
+  BwdScratch(const rnn::Plan& p, int B, int T, int h) {
+    part = 0;
+    dw = (long long)(B > BIAS_PARTS ? B : BIAS_PARTS) * 7 * h;
+    grid = (dw + rnn::dw_scratch_floats((long long)B * T, h, 4 * h) + 31) &
+           ~31LL;
+    total = grid + (p.route == 2
+                        ? GRID_HEAD + bwd_exchange_floats(round16(p.rows), h)
+                        : 0);
+  }
+};
+
+long long fwd_scratch_floats(const rnn::Plan& p, int h) {
+  return p.route == 2
+             ? GRID_HEAD + 2LL * round16(p.rows) * rnn::round8(h)
+             : 0;
+}
+
+// The two cluster walks and the grid route of this file, for
+// rnn_common.cuh's route rule and launches; no walk: the grid route takes
+// every h the cluster route does not
 struct Walks {
   template <int KIND, int R>
   static auto kernel() {
@@ -718,7 +938,10 @@ struct Walks {
   static size_t smem(int kind, int h, int R) {
     return kind == 0 ? fwd_cluster_smem(h, R) : walk_smem(h, R);
   }
-  static int walk_rows(int kind, int h) { return block_rows(kind, h); }
+  static int walk_rows(int, int) { return 0; }
+  static int grid_plan(int kind, int B, int h, int device, rnn::Plan* p) {
+    return ::grid_plan(kind, B, h, device, p);
+  }
 };
 
 }  // namespace
@@ -735,22 +958,29 @@ extern "C" int lstm_seq_bwd_plan(int B, int h, int device, int request,
   return rnn::plan_entry<Walks>(1, B, h, device, request, out);
 }
 
-// Floats of scratch lstm_seq_bwd needs on either route: the db7 partials
-// of at most B blocks or clusters, then the split-K partials of dw.
-extern "C" long long lstm_seq_bwd_scratch_floats(int B, int T, int h) {
-  return (long long)B * 7 * h +
-         rnn::dw_scratch_floats((long long)B * T, h, 4 * h);
+// Floats of scratch lstm_seq_fwd (kind 0) or lstm_seq_bwd needs at (B, T,
+// h) on the route `route` asks for on `device` (-1: none takes h).
+extern "C" long long lstm_seq_scratch_floats(int kind, int B, int T, int h,
+                                             int device, int route) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  rnn::Plan p;
+  if (rnn::walk_plan<Walks>(kind, B, h, device, route, &p) != 0 ||
+      p.route < 0)
+    return -1;
+  return kind == 0 ? fwd_scratch_floats(p, h)
+                   : BwdScratch(p, B, T, h).total;
 }
 
 // B5. x [B, T, 4h], w [h, 4h], b7 [7h], lens [B] int32 -> y [B, T, h] and,
 // when c is not null, the carried cell sequence c [B, T, h], on the route
 // `route` asks for (rnn::make_plan), which it writes into *taken (-1: that
-// route does not take h, and nothing is launched). Launches on `stream` of
+// route does not take h, and nothing is launched); scratch of
+// lstm_seq_scratch_floats(0, ...) floats. Launches on `stream` of
 // `device`; returns the launch's cudaError_t (0 = launched or refused).
 extern "C" int lstm_seq_fwd(const float* x, const float* w, const float* b7,
-                            const int* lens, float* y, float* c, int B, int T,
-                            int h, int route, int* taken, int device,
-                            void* stream) {
+                            const int* lens, float* y, float* c,
+                            float* scratch, int B, int T, int h, int route,
+                            int* taken, int device, void* stream) {
   rnn::Plan p;
   const int rc = rnn::launch_plan<Walks>(0, B, h, device, route, taken, &p);
   if (rc != 0 || p.route < 0) return rc;
@@ -758,18 +988,31 @@ extern "C" int lstm_seq_fwd(const float* x, const float* w, const float* b7,
   if (p.route == 1)
     return (int)rnn::launch_walk<Walks, 0>(p, h, st, x, w, b7, lens, y, c, B,
                                            T, h);
-  switch (p.rows) {
-    case 8: return (int)launch_fwd<8>(x, w, b7, lens, y, c, B, T, h, st);
-    case 4: return (int)launch_fwd<4>(x, w, b7, lens, y, c, B, T, h, st);
-    case 2: return (int)launch_fwd<2>(x, w, b7, lens, y, c, B, T, h, st);
-    case 1: return (int)launch_fwd<1>(x, w, b7, lens, y, c, B, T, h, st);
-    default: return (int)cudaErrorInvalidValue;
+  // the grid route, a launch for every p.rows rows
+  unsigned* bar = reinterpret_cast<unsigned*>(scratch);
+  float* hbuf = scratch + GRID_HEAD;
+  const size_t h4 = 4 * (size_t)h;
+  for (int r0 = 0; r0 < B; r0 += p.rows) {
+    const int rows = B - r0 < p.rows ? B - r0 : p.rows;
+    rnn::Plan q = p;
+    q.rows = rows;
+    cudaError_t err = cudaMemsetAsync(
+        scratch, 0, fwd_scratch_floats(q, h) * sizeof(float), st);
+    if (err != cudaSuccess) return (int)err;
+    const size_t off = (size_t)r0 * T;
+    float* cr = c != nullptr ? c + off * h : nullptr;
+    const size_t smem = fwd_grid_smem(h, p.units, round16(rows), !p.streamed);
+    err = rnn::launch_grid(fwd_grid_kernel(!p.streamed, p.units), p.blocks,
+                           smem, st, x + off * h4, w, b7, lens + r0,
+                           y + off * h, cr, hbuf, bar, rows, T, h, p.units);
+    if (err != cudaSuccess) return (int)err;
   }
+  return 0;
 }
 
 // B6. Inputs as B5's plus y, c and dy [B, T, h]; writes dx [B, T, 4h],
 // dw [h, 4h] and db7 [7h], on the route `route` asks for, written into
-// *taken as B5's is.
+// *taken as B5's is; scratch of lstm_seq_scratch_floats(1, ...) floats.
 extern "C" int lstm_seq_bwd(const float* x, const float* w, const float* b7,
                             const int* lens, const float* y, const float* c,
                             const float* dy, float* dx, float* dw, float* db7,
@@ -779,28 +1022,46 @@ extern "C" int lstm_seq_bwd(const float* x, const float* w, const float* b7,
   const int rc = rnn::launch_plan<Walks>(1, B, h, device, route, taken, &p);
   if (rc != 0 || p.route < 0) return rc;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  float* part = scratch;
-  float* dw_part = scratch + (size_t)B * 7 * h;
+  const BwdScratch S(p, B, T, h);
+  float* part = scratch + S.part;
+  float* dw_part = scratch + S.dw;
+  // every step's x + h_{t-1} @ w (h_{t-1} = y shifted by one) into dx
+  cudaError_t err = rnn::pre_gemm<rnn::EPI_PRE>(
+      y, h, T, w, 4 * h, x, 4 * h, nullptr, dx, 4 * h, B * T, 4 * h, h,
+      nullptr, nullptr, h, st);
+  if (err != cudaSuccess) return (int)err;
   if (p.route == 1) {
-    // every step's x + h_{t-1} @ w (h_{t-1} = y shifted by one) into dx
-    err = rnn::pre_gemm<rnn::EPI_PRE>(y, h, T, w, 4 * h, x, 4 * h, nullptr,
-                                      dx, 4 * h, B * T, 4 * h, h, nullptr,
-                                      nullptr, h, st);
-    if (err != cudaSuccess) return (int)err;
     err = rnn::launch_walk<Walks, 1>(p, h, st, w, b7, lens, c, dy, dx, part,
                                      B, T, h);
+    if (err != cudaSuccess) return (int)err;
+    err = rnn::block_sum(part, db7, p.blocks, 7 * h, st);
   } else {
-    switch (p.rows) {
-      case 8: err = launch_bwd<8>(x, w, b7, lens, y, c, dy, dx, part, B, T, h, st); break;
-      case 4: err = launch_bwd<4>(x, w, b7, lens, y, c, dy, dx, part, B, T, h, st); break;
-      case 2: err = launch_bwd<2>(x, w, b7, lens, y, c, dy, dx, part, B, T, h, st); break;
-      case 1: err = launch_bwd<1>(x, w, b7, lens, y, c, dy, dx, part, B, T, h, st); break;
-      default: return (int)cudaErrorInvalidValue;
+    unsigned* bar = reinterpret_cast<unsigned*>(scratch + S.grid);
+    float* xbuf = scratch + S.grid + GRID_HEAD;
+    const size_t h4 = 4 * (size_t)h;
+    for (int r0 = 0; r0 < B; r0 += p.rows) {
+      const int rows = B - r0 < p.rows ? B - r0 : p.rows;
+      // the barrier, and the exchange buffers (their pads are read)
+      const long long zero =
+          GRID_HEAD + bwd_exchange_floats(round16(rows), h);
+      err = cudaMemsetAsync(scratch + S.grid, 0, zero * sizeof(float), st);
+      if (err != cudaSuccess) return (int)err;
+      const size_t off = (size_t)r0 * T;
+      const size_t smem =
+          bwd_grid_smem(h, p.units, round16(rows), !p.streamed);
+      err = p.streamed
+                ? rnn::launch_grid(lstm_bwd_grid_kernel<false>, p.blocks,
+                                   smem, st, w, b7, lens + r0, c + off * h,
+                                   dy + off * h, dx + off * h4, xbuf, bar,
+                                   rows, T, h, p.units)
+                : rnn::launch_grid(lstm_bwd_grid_kernel<true>, p.blocks,
+                                   smem, st, w, b7, lens + r0, c + off * h,
+                                   dy + off * h, dx + off * h4, xbuf, bar,
+                                   rows, T, h, p.units);
+      if (err != cudaSuccess) return (int)err;
     }
+    err = bias_grad(dx, c, part, db7, B * T, T, h, st);
   }
-  if (err != cudaSuccess) return (int)err;
-  err = rnn::block_sum(part, db7, p.blocks, 7 * h, st);
   if (err != cudaSuccess) return (int)err;
   // dW = sum over the B*T rows of h_{t-1}^T dg, h_{t-1} = y shifted by one
   return (int)rnn::weight_grad(y, h, T, dx, 4 * h, dw, dw_part, B * T, h,

@@ -17,7 +17,12 @@
 //   (tile_product), the forward's push of a block's rows into its peers'
 //   shared memory, the split cluster barrier, and the plan: how many
 //   clusters of CL blocks the card holds at once, how many batch rows each
-//   takes, and which route takes a width (make_plan, over a file's Walks).
+//   takes, and which route takes a width (make_plan, over a file's Walks);
+// - the grid route's pieces: a persistent grid of one block an SM whose
+//   blocks own slices of the hidden units and meet at one grid barrier a
+//   step (grid_sync, a generation counter), the per-step product of a
+//   block on the tensor cores with one operand streamed from L2
+//   (grid_product), and its cooperative launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,6 +32,7 @@
 #include <mutex>
 #include <tuple>
 #include <type_traits>
+#include <utility>
 
 #include "tf32_mma.cuh"
 
@@ -576,10 +582,14 @@ inline cudaError_t launch_clusters(Kern* kernel, int clusters, size_t smem,
 }
 
 // The plan of a walk: route 1 (cluster: `rows` batch rows a cluster,
-// `blocks` clusters, of which the card holds `active` at once) or 0 (the
-// walk: `rows` rows a block, `blocks` blocks); route -1: neither takes h.
+// `blocks` clusters, of which the card holds `active` at once), 0 (the
+// walk: `rows` rows a block, `blocks` blocks) or 2 (grid: `blocks` blocks
+// of `units` hidden units each walk `rows` batch rows a launch, the card
+// holds `active` blocks at once, `streamed` 1 where the blocks' slices of
+// the weights do not fit shared memory and are read from L2 each step);
+// route -1: no route asked for takes h.
 struct Plan {
-  int route, rows, blocks, active;
+  int route, rows, blocks, active, units, streamed;
 };
 
 // The cluster route's rows a cluster: the fewest of WALK_ROWS whose shared
@@ -603,32 +613,43 @@ inline int cluster_rows(int B, Smem smem, Active active) {
 
 // A walk's plan at B batch rows (see Plan): `request` -1 takes the rule
 // (the cluster route wherever its shared memory holds the width, else the
-// walk), 0 the walk, 1 the cluster route; `smem`, `active` as for
-// cluster_rows, `walk_rows` the walk's rows a block (0: it does not take
-// the width). Route -1 when the route asked for does not take the width.
-// Returns a cudaError_t.
-template <class Smem, class Active>
+// walk where the file has one, else the grid route), 0 the walk, 1 the
+// cluster route, 2 the grid route; `smem`, `active` as for cluster_rows,
+// `walk_rows` the walk's rows a block (0: no walk takes the width),
+// `grid(p)` the grid route's plan (route -1 where the file has none).
+// Route -1 when the route asked for does not take the width. Returns a
+// cudaError_t.
+template <class Smem, class Active, class Grid>
 inline int make_plan(int B, int request, Smem smem, Active active,
-                     int walk_rows, Plan* p) {
-  *p = {-1, 0, 0, 0};
-  if (request != 0) {
+                     int walk_rows, Grid grid, Plan* p) {
+  *p = {-1, 0, 0, 0, 0, 0};
+  if (request == -1 || request == 1) {
     const int R = cluster_rows(B, smem, active);
     if (R < 0) return -R;
     if (R > 0) {
-      *p = {1, R, cdiv(B, R), active(R)};
+      *p = {1, R, cdiv(B, R), active(R), 0, 0};
       return 0;
     }
     if (request == 1) return 0;
   }
-  if (walk_rows > 0) *p = {0, walk_rows, cdiv(B, walk_rows), 0};
+  if ((request == -1 || request == 0) && walk_rows > 0) {
+    *p = {0, walk_rows, cdiv(B, walk_rows), 0, 0, 0};
+    return 0;
+  }
+  if (request == -1 || request == 2) return grid(p);
   return 0;
 }
 
 // The route rule and the cluster launches of a file's two walks, over its
 // `Walks`: Walks::kernel<KIND, R>() is the cluster kernel of the forward
 // (KIND 0) or the backward (KIND 1) at R rows a cluster, Walks::smem(kind,
-// h, R) its dynamic shared memory in bytes, and Walks::walk_rows(kind, h)
-// the walk's rows a block (0: the walk does not take h).
+// h, R) its dynamic shared memory in bytes, Walks::walk_rows(kind, h) the
+// walk's rows a block (0: the walk does not take h), and, in a file with a
+// grid route, Walks::grid_plan(kind, B, h, device, Plan*) its plan.
+template <class W, class = void>
+struct HasGrid : std::false_type {};
+template <class W>
+struct HasGrid<W, std::void_t<decltype(&W::grid_plan)>> : std::true_type {};
 
 // The clusters of R rows the card holds at once of the kind's cluster walk
 // (negative: -cudaError_t)
@@ -651,13 +672,22 @@ inline int walk_plan(int kind, int B, int h, int device, int request,
   return make_plan(
       B, request, [&](int r) { return Walks::smem(kind, h, r); },
       [&](int r) { return walk_active<Walks>(kind, r, h, device); },
-      Walks::walk_rows(kind, h), p);
+      Walks::walk_rows(kind, h),
+      [&](Plan* q) {
+        if constexpr (HasGrid<Walks>::value)
+          return Walks::grid_plan(kind, B, h, device, q);
+        else
+          return 0;
+      },
+      p);
 }
 
 // The C entry points *_fwd_plan (kind 0) and *_bwd_plan (kind 1): the plan
-// at (B, h) on `device` into out = {route (1 cluster, 0 walk, -1 none),
-// rows a cluster or block, clusters or blocks, the clusters the card holds
-// at once}. Returns a cudaError_t.
+// at (B, h) on `device` into out = {route (1 cluster, 0 walk, 2 grid, -1
+// none), rows a cluster, block or grid launch, clusters or blocks, the
+// clusters (grid: blocks) the card holds at once, hidden units a grid
+// block, 1 where the grid route streams the weights}. Returns a
+// cudaError_t.
 template <class Walks>
 inline int plan_entry(int kind, int B, int h, int device, int request,
                       int* out) {
@@ -669,12 +699,15 @@ inline int plan_entry(int kind, int B, int h, int device, int request,
   out[1] = p.rows;
   out[2] = p.blocks;
   out[3] = p.active;
+  out[4] = p.units;
+  out[5] = p.streamed;
   return rc;
 }
 
 // The start of the C launch entry points: `device` set, and the plan at
 // (B, h) for `request` into p, its route written into *taken (1 cluster,
-// 0 walk; -1: the route asked for does not take h, nothing is launched).
+// 0 walk, 2 grid; -1: the route asked for does not take h, nothing is
+// launched).
 // Returns a cudaError_t.
 template <class Walks>
 inline int launch_plan(int kind, int B, int h, int device, int request,
@@ -697,6 +730,279 @@ inline cudaError_t launch_walk(const Plan& p, int h, cudaStream_t st,
     return launch_clusters(Walks::template kernel<KIND, r>(), p.blocks,
                            Walks::smem(KIND, h, r), st, args...);
   });
+}
+
+// --------------------------------------------------- the grid route
+// One persistent block an SM (cooperative launch: the card holds the whole
+// grid at once, or the launch fails); block s owns the hidden units [s U,
+// (s + 1) U) and every batch row of the launch. A step ends at one grid
+// barrier, where a block's slice of the step's exchange (h_t, or the
+// backward's gate gradients dg) becomes visible to every other block.
+constexpr int GT = 256;        // threads of a grid block
+constexpr int GW = GT / 32;    // its warps
+constexpr int GPF = 4;         // k-groups of the A operand in flight
+// a barrier that waits longer than this (ns) traps: a fault, never a hang
+constexpr unsigned long long GRID_SYNC_TIMEOUT_NS = 20000000000ull;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// The grid barrier: every block adds 1 to the counter *bar (zeroed before
+// the launch, in stream order) and waits until it reaches `target` (the
+// number of blocks times the barriers passed so far, this one included).
+// The __syncthreads and the fences around thread 0's release add and
+// acquire spin make every write of every block before the barrier visible
+// to every block after it (a reader of another block's data still loads
+// it with .cg: L1 is not coherent across SMs).
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n" ::"l"(bar)
+                 : "memory");
+    const unsigned long long t0 = global_ns();
+    unsigned v;
+    for (;;) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(v)
+                   : "l"(bar)
+                   : "memory");
+      if ((int)(v - target) >= 0) break;
+      if (global_ns() - t0 > GRID_SYNC_TIMEOUT_NS) __trap();
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Operand loader of grid_product: float2 {X(r, k), X(r, k + 1)} of a
+// row-major array (k even, rows and depth padded with zeros): rows other
+// blocks wrote this step, read through L2 (.cg).
+struct GlobalRows {
+  const float* p;
+  int ld;
+  __device__ __forceinline__ float2 operator()(int r, int k) const {
+    return __ldcg(reinterpret_cast<const float2*>(p + (size_t)r * ld + k));
+  }
+};
+
+// The grid route's per-step product of one warp's job: acc[i][j] = the
+// m16n8 tile (rows m0 + 16 i .., columns n0 + 8 j ..) of sum over k in
+// [k0, k1) of A(m, k) Bt(n, k), i < mm <= MG, j < nn <= NG, on the tensor
+// cores at f32 accuracy (3xTF32 mma.sync m16n8k8, split_tf32_alu);
+// la(r, k) and lb(n, k) give float2 {X(k), X(k + 1)}. A group of 8
+// depths is one mma k-step with its k permuted: fragment column t holds
+// depth 2t and t + 4 depth 2t + 1, so a thread's A and B elements are
+// adjacent (one 8-byte load each); in shared memory a row stride of 8 or
+// 24 (mod 32) floats (grad_stride) keeps a warp's loads in 32 banks. The
+// job's tiles share its fragments: a group's B is loaded and split once
+// for all its m-tiles, A once for all its n-tiles. A's loads (the operand
+// streamed from L2) run GPF groups ahead. Each pass runs over all the
+// job's tiles (no two dependent mma adjacent); the truncating tensor-core
+// sums chain over the job's depth only (the callers split the depth over
+// the warps). FLOOR keeps the loads of A and drops the rest (the serial
+// floor of a walk). acc[i][j][e] is C(m0 + 16 i + g + 8 (e >> 1), n0 +
+// 8 j + 2 t + (e & 1)).
+template <bool FLOOR, int MG, int NG, class LA, class LB>
+__device__ __forceinline__ void grid_product(float (&acc)[MG][NG][4],
+                                             const LA& la, const LB& lb,
+                                             int m0, int mm, int n0, int nn,
+                                             int k0, int k1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MG; ++i)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int groups = (k1 - k0) / 8;
+  float2 pa[GPF][MG][2];
+  auto load = [&](float2 (&a)[MG][2], int k) {
+#pragma unroll
+    for (int i = 0; i < MG; ++i)
+      if (i < mm) {
+        a[i][0] = la(m0 + 16 * i + g, k);
+        a[i][1] = la(m0 + 16 * i + g + 8, k);
+      }
+  };
+#pragma unroll
+  for (int q = 0; q < GPF; ++q)
+    if (q < groups) load(pa[q], k0 + 8 * q + 2 * t);
+  for (int i0 = 0; i0 < groups; i0 += GPF) {
+#pragma unroll
+    for (int q = 0; q < GPF; ++q) {
+      const int it = i0 + q;
+      if (it >= groups) break;
+      float2 a[MG][2];
+#pragma unroll
+      for (int i = 0; i < MG; ++i) {
+        a[i][0] = pa[q][i][0];
+        a[i][1] = pa[q][i][1];
+      }
+      if (it + GPF < groups) load(pa[q], k0 + 8 * (it + GPF) + 2 * t);
+      if (FLOOR) {
+#pragma unroll
+        for (int i = 0; i < MG; ++i)
+          if (i < mm)
+            acc[0][0][0] += (a[i][0].x + a[i][0].y) + (a[i][1].x + a[i][1].y);
+        continue;
+      }
+      const int kb = k0 + 8 * it + 2 * t;
+      unsigned bhi[NG][2], blo[NG][2];
+#pragma unroll
+      for (int j = 0; j < NG; ++j)
+        if (j < nn) {
+          const float2 b = lb(n0 + 8 * j + g, kb);
+          split_tf32_alu(b.x, bhi[j][0], blo[j][0]);   // (k t, n g)
+          split_tf32_alu(b.y, bhi[j][1], blo[j][1]);   // (k t + 4, n g)
+        }
+#pragma unroll
+      for (int i = 0; i < MG; ++i)
+        if (i < mm) {
+          unsigned ahi[4], alo[4];
+          split_tf32_alu(a[i][0].x, ahi[0], alo[0]);   // (g, t)
+          split_tf32_alu(a[i][1].x, ahi[1], alo[1]);   // (g + 8, t)
+          split_tf32_alu(a[i][0].y, ahi[2], alo[2]);   // (g, t + 4)
+          split_tf32_alu(a[i][1].y, ahi[3], alo[3]);   // (g + 8, t + 4)
+#pragma unroll
+          for (int j = 0; j < NG; ++j)
+            if (j < nn) mma_tf32(acc[i][j], alo, bhi[j]);
+#pragma unroll
+          for (int j = 0; j < NG; ++j)
+            if (j < nn) mma_tf32(acc[i][j], ahi, blo[j]);
+#pragma unroll
+          for (int j = 0; j < NG; ++j)
+            if (j < nn) mma_tf32(acc[i][j], ahi, bhi[j]);
+        }
+    }
+  }
+}
+
+// The jobs of a grid product of M rows (a multiple of 16) by N columns
+// over depth K (a multiple of 8): groups of MG m-tiles x groups of NG
+// n-tiles, and the depth split in `shares` where there are fewer of those
+// than warps (a warp a job then); shares == 1: each warp takes tiles w,
+// w + GW, ...
+struct GridJobs {
+  int mt, ntl, mgr, tiles, shares, per, mg, ng;   // per: k-groups a share
+  __device__ GridJobs(int M, int N, int K, int MG, int NG) : mg(MG), ng(NG) {
+    mt = M / 16;
+    ntl = (N + 7) / 8;
+    mgr = (mt + MG - 1) / MG;
+    tiles = mgr * ((ntl + NG - 1) / NG);
+    const int groups = K / 8;
+    shares = tiles >= GW ? 1 : GW / tiles;
+    if (shares > groups) shares = groups;
+    if (shares < 1) shares = 1;
+    per = (groups + shares - 1) / shares;
+  }
+  __device__ int m0(int tile) const { return (tile % mgr) * mg * 16; }
+  __device__ int mm(int tile) const {
+    const int m = mt - (tile % mgr) * mg;
+    return m < mg ? m : mg;
+  }
+  __device__ int n0(int tile) const { return (tile / mgr) * ng * 8; }
+  __device__ int nn(int tile) const {
+    const int n = ntl - (tile / mgr) * ng;
+    return n < ng ? n : ng;
+  }
+};
+
+// out [rows][ld] (shared memory) += the grid product of A (la) and B (lb)
+// over depth K, the shares added in order (bit-identical run to run); the
+// product's N columns must fit ld. Ends with a __syncthreads.
+template <bool FLOOR, int MG, int NG, class LA, class LB>
+__device__ __forceinline__ void grid_product_add(float* out, int ld, int M,
+                                                 int N, int K, const LA& la,
+                                                 const LB& lb) {
+  const GridJobs J(M, N, K, MG, NG);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[MG][NG][4];
+  auto add = [&](int tile) {
+    const int m0 = J.m0(tile), mm = J.mm(tile), n0 = J.n0(tile),
+              nn = J.nn(tile);
+#pragma unroll
+    for (int i = 0; i < MG; ++i)
+      if (i < mm)
+#pragma unroll
+        for (int j = 0; j < NG; ++j)
+          if (j < nn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              out[(m0 + 16 * i + g + 8 * (e >> 1)) * ld + n0 + 8 * j +
+                  2 * t + (e & 1)] += acc[i][j][e];
+  };
+  if (J.shares == 1) {
+    for (int tile = warp; tile < J.tiles; tile += GW) {
+      grid_product<FLOOR, MG, NG>(acc, la, lb, J.m0(tile), J.mm(tile),
+                              J.n0(tile), J.nn(tile), 0, K);
+      add(tile);
+    }
+    __syncthreads();
+    return;
+  }
+  const int tile = warp % J.tiles, share = warp / J.tiles;
+  const bool mine = share < J.shares;
+  if (mine) {
+    const int k0 = share * J.per * 8;
+    const int k1 = min(K, k0 + J.per * 8);
+    grid_product<FLOOR, MG, NG>(acc, la, lb, J.m0(tile), J.mm(tile), J.n0(tile),
+                            J.nn(tile), k0, k1);
+  }
+  for (int q = 0; q < J.shares; ++q) {
+    if (mine && share == q) add(tile);
+    __syncthreads();
+  }
+}
+
+// The n-tiles a forward job holds for `ntl` n-tiles of gate columns: one
+// of the instantiated 2, 4, 5 and 8 (wider: several jobs)
+inline __host__ __device__ int grid_ng(int ntl) {
+  return ntl <= 2 ? 2 : ntl <= 4 ? 4 : ntl <= 5 ? 5 : 8;
+}
+
+// The blocks of `threads` threads of `kernel`, at `smem` bytes of dynamic
+// shared memory each, the device holds at once (0: none); a negative
+// cudaError_t on failure. Cached per device, kernel and size.
+template <class Kern>
+inline int max_active_blocks(Kern* kernel, int threads, size_t smem,
+                             int device) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t>, int> cache;
+  const auto key = std::make_tuple(device, (const void*)kernel, smem);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = cache.find(key);
+  if (hit != cache.end()) return hit->second;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return -(int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return -(int)err;
+  cache[key] = per_sm * sms;
+  return per_sm * sms;
+}
+
+// Launch `kernel` as a cooperative grid of `blocks` blocks of GT threads:
+// the launch fails (and nothing runs) where the card cannot hold them all
+template <class Kern, class... Args>
+inline cudaError_t launch_grid(Kern* kernel, int blocks, size_t smem,
+                               cudaStream_t st, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  void* ptrs[] = {reinterpret_cast<void*>(&args)...};
+  err = cudaLaunchCooperativeKernel((const void*)kernel,
+                                    dim3(blocks), dim3(GT), ptrs, smem, st);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace rnn

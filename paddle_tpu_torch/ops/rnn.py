@@ -25,13 +25,19 @@ Each kernel takes one of two routes, by shape alone (`fwd_plan`,
 `bwd_plan`, whose rules live in the C entry points `*_seq_fwd_plan`
 and `*_seq_bwd_plan`): the cluster route wherever a block's shared
 memory holds its slice of the weights (h <= 320; B7: 352), else the
-walk (a block per few batch rows, the weights from L2). On the cluster route
-thread-block clusters keep the weights in shared memory and walk the
-sequence together: the forward (B5, B7) exchanges each step's h through
-distributed shared memory; the backward (B6, B8) hoists the gate
-recompute onto the tensor cores first. `route="walk"` or `"cluster"`
-on a kernel's wrapper asks for that route, and raises where it does not
-take the shape.
+grid route (B5, B6) or the walk (B7, B8: a block per few batch rows,
+the weights from L2). On the cluster route thread-block clusters keep
+the weights in shared memory and walk the sequence together: the
+forward (B5, B7) exchanges each step's h through distributed shared
+memory; the backward (B6, B8) hoists the gate recompute onto the tensor
+cores first. On the grid route one persistent block an SM owns a slice
+of the hidden units, with its columns of w in shared memory (or read
+from L2 where they do not fit), and the blocks meet at one grid barrier
+a step, exchanging h (B5) or the gate gradients dg (B6, whose gate
+recompute is hoisted as on the cluster route) through L2.
+`route="walk"`, `"cluster"` or `"grid"` on a kernel's wrapper asks for
+that route, and raises where it does not take the shape (the LSTM has
+no walk, the GRU no grid route).
 
 The kernels run f32 and raise on other types. `lstm_fused` and
 `gru_fused` take bf16 (the AMP rule) as the JAX wrappers do
@@ -54,6 +60,7 @@ not take raises, naming it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -69,14 +76,19 @@ lstm_fwd_launches = 0        # B5 with the cell sequence c (training)
 lstm_fwd_infer_launches = 0  # B5 without c (inference)
 lstm_fwd_cluster_launches = 0        # B5 with c on the cluster route
 lstm_fwd_infer_cluster_launches = 0  # B5 without c on the cluster route
+lstm_fwd_grid_launches = 0           # B5 with c on the grid route
+lstm_fwd_infer_grid_launches = 0     # B5 without c on the grid route
 lstm_bwd_launches = 0        # B6, either route
 lstm_bwd_cluster_launches = 0  # B6 on the cluster route
+lstm_bwd_grid_launches = 0     # B6 on the grid route
 gru_fwd_launches = 0         # B7, either route
 gru_fwd_cluster_launches = 0   # B7 on the cluster route
 gru_bwd_launches = 0         # B8, either route
 gru_bwd_cluster_launches = 0   # B8 on the cluster route
 
-ROUTES = ("walk", "cluster")   # the kernels' routes, by their C numbers
+# the kernels' routes, by their C numbers (the LSTM takes the cluster and
+# the grid route, the GRU the walk and the cluster route)
+ROUTES = ("walk", "cluster", "grid")
 
 
 # ---------------------------------------------------------------- plain
@@ -213,11 +225,13 @@ def _bind(name):
     # tensors, then B, T, h, route, the route taken (int *), device, stream
     tail = [i] * 4 + [ctypes.POINTER(i), i, p]
     if name == LSTM_KERNEL:
-        fns = {"lstm_seq_fwd": [p] * 6 + tail,
+        fns = {"lstm_seq_fwd": [p] * 7 + tail,
                "lstm_seq_bwd": [p] * 11 + tail}
+        scratch = {"lstm_seq_scratch_floats": [i] * 6}
     else:
         fns = {"gru_seq_fwd": [p] * 6 + tail,
                "gru_seq_bwd": [p] * 12 + tail}
+        scratch = {"gru_seq_bwd_scratch_floats": [i] * 3}
     for kind in ("fwd", "bwd"):
         fns[f"{name}_{kind}_plan"] = [i] * 4 + [p]
     for fn, argtypes in fns.items():
@@ -225,8 +239,9 @@ def _bind(name):
         if f.argtypes is None:
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-    getattr(lib, f"{name}_bwd_scratch_floats").argtypes = [i, i, i]
-    getattr(lib, f"{name}_bwd_scratch_floats").restype = ctypes.c_longlong
+    for fn, argtypes in scratch.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_longlong
     getattr(lib, f"{name}_error_string").argtypes = [i]
     getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
     return lib
@@ -245,14 +260,17 @@ def _request(route):
 
 def _refused(name, kind, route, b, h):
     which = "no route" if route is None else f"the {route} route"
-    return ValueError(f"{name} {kind}: {which} takes h = {h} (B={b}): a "
-                      f"block's shared memory does not hold it")
+    why = ("the LSTM has no walk" if name == LSTM_KERNEL and route == "walk"
+           else "the GRU has no grid route" if route == "grid"
+           else "a block's shared memory does not hold it")
+    return ValueError(f"{name} {kind}: {which} takes h = {h} (B={b}): "
+                      f"{why}")
 
 
 def _plan(kind, name, b, h, device, route):
     request = _request(route)
     lib = _bind(name)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     _build.launch(lib, f"{name}_{kind}_plan", f"{name}_error_string", b, h,
@@ -260,7 +278,7 @@ def _plan(kind, name, b, h, device, route):
     if out[0] < 0:
         raise _refused(name, kind, route, b, h)
     return {"route": ROUTES[out[0]], "rows": out[1], "blocks": out[2],
-            "active": out[3]}
+            "active": out[3], "units": out[4], "streamed": bool(out[5])}
 
 
 def _run(name, kind, route, x, *args):
@@ -281,12 +299,14 @@ def _run(name, kind, route, x, *args):
 
 def fwd_plan(name, b, h, device, route=None):
     """B5's (`name` LSTM_KERNEL) or B7's (GRU_KERNEL) plan at batch b and
-    width h on CUDA `device`: {"route": "cluster" or "walk", "rows": batch
-    rows a cluster or block takes, "blocks": clusters or blocks,
-    "active": the clusters the card holds at once (0 on the walk)}. `route`
-    None takes the rule (the cluster route wherever it holds h); "walk"
-    or "cluster" asks for that route, and raises where it does not take
-    h."""
+    width h on CUDA `device`: {"route": "cluster", "grid" or "walk",
+    "rows": batch rows a cluster, block or grid launch takes, "blocks":
+    clusters or blocks, "active": the clusters (grid route: blocks) the
+    card holds at once (0 on the walk), "units": hidden units a grid
+    block owns (else 0), "streamed": whether the grid route reads its
+    weights from L2 each step}. `route` None takes the rule (the cluster
+    route wherever it holds h); "walk", "cluster" or "grid" asks for that
+    route, and raises where it does not take h."""
     return _plan("fwd", name, b, h, device, route)
 
 
@@ -328,27 +348,48 @@ def _empty(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
+@functools.lru_cache(maxsize=None)
+def _lstm_scratch_floats(kind, b, t, h, device, request):
+    # the route, and so the size, follows from the shape and the card
+    return _bind(LSTM_KERNEL).lstm_seq_scratch_floats(kind, b, t, h, device,
+                                                      request)
+
+
+def _lstm_scratch(kind, b, t, h, x, route):
+    """The scratch lstm_seq_fwd (kind 0) or lstm_seq_bwd (1) needs on
+    x's device at `route`, or None where it needs none (B5's cluster
+    route) or no route takes h (the launch then refuses, nothing runs)."""
+    floats = _lstm_scratch_floats(kind, b, t, h,
+                                  _build.device_and_stream(x)[0],
+                                  _request(route))
+    return _empty((floats,), x) if floats > 0 else None
+
+
 def lstm_seq_fwd(x, w, b7, lens, want_c=True, route=None):
     """B5 on the card: (y, c) with `want_c` (training: the backward
     reads c), else (y, None), on the route of `fwd_plan` (`route` None:
     the rule)."""
     global lstm_fwd_launches, lstm_fwd_infer_launches
     global lstm_fwd_cluster_launches, lstm_fwd_infer_cluster_launches
+    global lstm_fwd_grid_launches, lstm_fwd_infer_grid_launches
     where = "lstm_seq_fwd"
     _request(route)
     b, t, h = _check(where, x, 4, lens, w=(w, ("h", "4h")),
                      b7=(b7, ("7h",)))
     y = _empty((b, t, h), x)
     c = _empty((b, t, h), x) if want_c else None
-    cluster = _run(LSTM_KERNEL, "fwd", route, x, x.data_ptr(), w.data_ptr(),
-                   b7.data_ptr(), lens.data_ptr(), y.data_ptr(),
-                   _build.ptr(c), b, t, h) == "cluster"
+    scratch = _lstm_scratch(0, b, t, h, x, route)
+    taken = _run(LSTM_KERNEL, "fwd", route, x, x.data_ptr(), w.data_ptr(),
+                 b7.data_ptr(), lens.data_ptr(), y.data_ptr(),
+                 _build.ptr(c), _build.ptr(scratch), b, t, h)
     if want_c:
         lstm_fwd_launches += 1
-        lstm_fwd_cluster_launches += cluster
+        lstm_fwd_cluster_launches += taken == "cluster"
+        lstm_fwd_grid_launches += taken == "grid"
     else:
         lstm_fwd_infer_launches += 1
-        lstm_fwd_infer_cluster_launches += cluster
+        lstm_fwd_infer_cluster_launches += taken == "cluster"
+        lstm_fwd_infer_grid_launches += taken == "grid"
     return y, c
 
 
@@ -356,6 +397,7 @@ def lstm_seq_bwd(x, w, b7, lens, y, c, dy, route=None):
     """B6 on the card: (dx [B,T,4h], dw [h,4h], db7 [7h]), on the route
     of `bwd_plan` (`route` None: the rule)."""
     global lstm_bwd_launches, lstm_bwd_cluster_launches
+    global lstm_bwd_grid_launches
     where = "lstm_seq_bwd"
     _request(route)
     seq = ("B", "T", "h")
@@ -364,14 +406,14 @@ def lstm_seq_bwd(x, w, b7, lens, y, c, dy, route=None):
     dx = _empty((b, t, 4 * h), x)
     dw = _empty((h, 4 * h), x)
     db7 = _empty((7 * h,), x)
-    scratch = _empty(
-        (_bind(LSTM_KERNEL).lstm_seq_bwd_scratch_floats(b, t, h),), x)
+    scratch = _lstm_scratch(1, b, t, h, x, route)
     taken = _run(LSTM_KERNEL, "bwd", route, x, x.data_ptr(), w.data_ptr(),
                  b7.data_ptr(), lens.data_ptr(), y.data_ptr(), c.data_ptr(),
                  dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db7.data_ptr(),
-                 scratch.data_ptr(), b, t, h)
+                 _build.ptr(scratch), b, t, h)
     lstm_bwd_launches += 1
     lstm_bwd_cluster_launches += taken == "cluster"
+    lstm_bwd_grid_launches += taken == "grid"
     return dx, dw, db7
 
 

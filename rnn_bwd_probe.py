@@ -1,32 +1,41 @@
 #!/usr/bin/env python3
 """B6 and B8 of `paddle_tpu_torch/csrc/{lstm,gru}_seq.cu` in turns against
-another revision of the same files, the serial floor of the cluster walk,
-and where a call's device time goes.
+another revision of the same files, the serial floor of the walks, and
+where a call's device time goes.
 
     mkdir -p _archive
     for f in lstm_seq.cu gru_seq.cu rnn_common.cuh tf32_mma.cuh; do
       git show <rev>:paddle_tpu_torch/csrc/$f > _archive/$f; done
-    python3 rnn_bwd_probe.py _archive
+    python3 rnn_bwd_probe.py _archive          # the cluster routes
+    python3 rnn_bwd_probe.py grid _archive     # B6's grid route
 
 Needs one CUDA card and nvcc. The other revision's entry points may take
 no route, the route alone, or the route and the route taken
-(`signature`). At the two path shapes of `chip_smoke.py`'s
-phase 10 (the classifier's LSTM layer, B=64, T=100, h=256; the NMT
-encoder's GRU, B=256, T=32, h=256) it prints one `case` JSON line each:
+(`signature`), and their own scratch (`scratch_floats`). At the two path
+shapes of `chip_smoke.py`'s phase 10 (the classifier's LSTM layer, B=64,
+T=100, h=256; the NMT encoder's GRU, B=256, T=32, h=256) it prints one
+`case` JSON line each:
 - the plan of this revision (route, rows a cluster, clusters, and the
   clusters the card holds at once; also printed first for B = 8 .. 512);
 - max |diff| / max |plain| of every output of both revisions;
 - ms of the other revision's call, of this revision's call on the route
-  its rule picks and on the walk, and of this revision built with
-  -DRNN_SERIAL_FLOOR (the walk keeps only its cluster barriers and
-  exchanges), timed in turns (CUDA events, 20 calls each);
+  its rule picks and on its other route (the LSTM's grid route, the
+  GRU's walk), and of this revision built with -DRNN_SERIAL_FLOOR (the
+  walk keeps only its cluster barriers and exchanges), timed in turns
+  (CUDA events, 20 calls each);
 - the device ms a call of each kernel of this revision's cluster route,
-  of its walk route and of the floor build (torch.profiler over 10
+  of its other route and of the floor build (torch.profiler over 10
   calls): the hoisted products, the walk, the dW GEMMs, the sums; the
   floor build's walk kernel over T is the serial floor a step.
 - ms of this revision with one piece of the walk taken out or changed
   by a text substitution (`VARIANTS`; wrong results, timed only), in
   turns with this revision.
+`grid` mode instead times B6 at the bench's wider classifier widths (B=64,
+T=100, h = 512 and 1280, `GRID_CASES`), where the rule takes the grid
+route: the other revision's call (a revision before the grid route runs
+the walk there), this revision's, and this revision built with
+-DRNN_SERIAL_FLOOR (the grid walk keeps only its exchanges and
+barriers), in turns; their device ms by kernel; the floor a step.
 Every build runs at once (one nvcc each). The ptxas report of every build
 is appended to `chiprun_out/rnn_bwd_probe.txt`, with every line printed
 here.
@@ -44,6 +53,11 @@ import chip_smoke as cs
 
 CASES = [("classifier_b64_t100_h256", "lstm", cs.CLS_B, cs.CLS_T, 256),
          ("nmt_enc_b256_t32_h256", "gru", cs.NMT_B, cs.NMT_T, 256)]
+GRID_CASES = [("lstm_b64_t100_h512", "lstm", cs.CLS_B, cs.CLS_T, 512),
+              ("lstm_b64_t100_h1280", "lstm", cs.CLS_B, cs.CLS_T, 1280)]
+# the route each cell's rule does not take at the path shapes, timed
+# beside it (its C number)
+SECOND = {"lstm": 2, "gru": 0}
 OUT = os.path.join("chiprun_out", "rnn_bwd_probe.txt")
 # name: [(file of csrc, text, its substitute)], applied to both cells'
 # sources where the text occurs
@@ -151,14 +165,30 @@ def tail_args(lib, cell, kind, route):
         route,)
 
 
+def scratch_floats(lib, cell, kind, b, t, h, route):
+    """The scratch floats a build's forward or backward (`kind`) entry
+    point takes at `route`: from `{cell}_seq_scratch_floats` (the
+    revisions whose LSTM forward takes scratch too), else from
+    `{cell}_seq_bwd_scratch_floats`; None for a forward without a
+    scratch pointer."""
+    i = ctypes.c_int
+    if hasattr(lib, f"{cell}_seq_scratch_floats"):
+        fn = getattr(lib, f"{cell}_seq_scratch_floats")
+        fn.argtypes, fn.restype = [i] * 6, ctypes.c_longlong
+        return fn(0 if kind == "fwd" else 1, b, t, h, 0, route)
+    if kind == "fwd":
+        return None
+    fn = getattr(lib, f"{cell}_seq_bwd_scratch_floats")
+    fn.argtypes, fn.restype = [i] * 3, ctypes.c_longlong
+    return fn(b, t, h)
+
+
 def bind(lib, cell):
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = getattr(lib, f"{cell}_seq_bwd")
     fn.argtypes = ([p] * (11 if cell == "lstm" else 12)
                    + tail_types(lib, cell, "bwd"))
     fn.restype = i
-    scr = getattr(lib, f"{cell}_seq_bwd_scratch_floats")
-    scr.argtypes, scr.restype = [i] * 3, ctypes.c_longlong
     return lib
 
 
@@ -167,13 +197,13 @@ def call(torch, lib, cell, ins, b, t, h, route):
     build whose backward has no route) into fresh outputs, and the
     outputs."""
     outs = [torch.empty_like(r) for r in ins["ref"]]
-    floats = getattr(lib, f"{cell}_seq_bwd_scratch_floats")(b, t, h)
+    floats = scratch_floats(lib, cell, "bwd", b, t, h, route)
     scratch = torch.empty(max(floats, 1), device="cuda")
     ptrs = [a.data_ptr() for a in (*ins["args"], *outs, scratch)]
     tail = tail_args(lib, cell, "bwd", route)
     fn = getattr(lib, f"{cell}_seq_bwd")
 
-    def run():
+    def run(_keep=scratch):   # the scratch lives as long as the call
         rc = fn(*ptrs, b, t, h, *tail, 0,
                 torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
@@ -197,10 +227,75 @@ def kernel_ms(torch, fn, calls=10):
             if e.device_type == cuda and e.self_device_time_total > 0}
 
 
+def lstm_bwd_inputs(torch, gen, b, t, h):
+    """The inputs of B6 at one case (chip_smoke.py's), its plain outputs
+    and their names."""
+    from paddle_tpu_torch.ops import rnn
+
+    x, (w, b7), lens, dy, _live = cs.rnn_inputs(torch, gen, "lstm", b, t, h,
+                                                None)
+    y, c = rnn.lstm_plain(x, w, *torch.split(b7, [4 * h, h, h, h]), lens,
+                          want_c=True)
+    return {"args": (x, w, b7, lens, y, c, dy),
+            "ref": rnn.lstm_bwd_plain(x, w, b7, lens, y, c, dy)}, (
+        "dx", "dw", "db7")
+
+
+def grid_mode(torch, archive):
+    """B6 at GRID_CASES: the other revision (the walk, before the grid
+    route), this revision's grid route and its serial floor, in turns (see
+    the module docstring)."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import rnn
+
+    out_dir = os.path.join(_build.BUILD_DIR, "grid_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc, flags, src = _build._nvcc(), _build.NVCC_FLAGS, \
+        _build.sources()["lstm_seq"]
+    defs = {"other": None, "floor": ("-DRNN_SERIAL_FLOOR",)}
+    builds = {k: start(nvcc, (*flags, *(d or ())),
+                       os.path.join(archive, "lstm_seq.cu") if d is None
+                       else src, os.path.join(out_dir, f"lstm_{k}.so"))
+              for k, d in defs.items()}
+    libs = {"this": bind(_build.load("lstm_seq"), "lstm")}
+    libs.update({k: bind(finish(st), "lstm") for k, st in builds.items()})
+    with open(OUT, "a") as f:
+        f.write(f"---- ptxas lstm_seq (this revision)\n"
+                f"{_build.build_log('lstm_seq')}")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 7)
+    for name, cell, b, t, h in GRID_CASES:
+        ins, names = lstm_bwd_inputs(torch, gen, b, t, h)
+        plan = rnn.bwd_plan(rnn.LSTM_KERNEL, b, h, ins["args"][0].device)
+        fns, outs = {}, {}
+        for k, lib in libs.items():
+            fns[k], outs[k] = call(torch, lib, cell, ins, b, t, h, -1)
+            fns[k]()
+        torch.cuda.synchronize()
+        row = {"case": name, "plan": plan, "err": {
+            k: {n: float(f"{cs.rel_err(g, r)[0]:.3g}")
+                for n, g, r in zip(names, outs[k], ins["ref"])}
+            for k in ("other", "this")}}
+        order = ["other", "this", "floor"]
+        ms = {k: [] for k in order}
+        for k in order + order[::-1]:
+            ms[k].append(cs.time_ms(torch, fns[k], reps=5 if k == "other"
+                                    else 20))
+        row["ms"] = ms
+        row["kernel_ms"] = {k: kernel_ms(torch, fns[k])
+                            for k in ("this", "floor")}
+        walk = sum(v for n, v in row["kernel_ms"]["floor"].items()
+                   if "grid_kernel" in n)
+        row["floor_walk_ms"] = walk
+        row["floor_us_a_step"] = walk * 1e3 / (t - 1)
+        log("grid case " + json.dumps(row))
+    return 0
+
+
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
+    grid = len(sys.argv) == 3 and sys.argv[1] == "grid"
+    if not torch.cuda.is_available() or not (len(sys.argv) == 2 or grid):
         print(__doc__, file=sys.stderr)
         return 2
     from paddle_tpu_torch.ops import _build
@@ -211,6 +306,8 @@ def main() -> int:
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True).stdout.strip())
+    if grid:
+        return grid_mode(torch, sys.argv[2])
     out_dir = os.path.join(_build.BUILD_DIR, "probe")
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _build._nvcc()
@@ -245,16 +342,12 @@ def main() -> int:
             f.write(f"---- ptxas {kern} (this revision)\n"
                     f"{_build.build_log(kern)}")
         other, floor = libs[(kern, "other")], libs[(kern, "floor")]
-        x, ws, lens, dy, _live = cs.rnn_inputs(torch, gen, cell, b, t, h,
-                                               None)
         if cell == "lstm":
-            w, b7 = ws
-            y, c = rnn.lstm_plain(x, w, *torch.split(b7, [4 * h, h, h, h]),
-                                  lens, want_c=True)
-            ins = {"args": (x, w, b7, lens, y, c, dy),
-                   "ref": rnn.lstm_bwd_plain(x, w, b7, lens, y, c, dy)}
-            names = ("dx", "dw", "db7")
+            ins, names = lstm_bwd_inputs(torch, gen, b, t, h)
+            x = ins["args"][0]
         else:
+            x, ws, lens, dy, _live = cs.rnn_inputs(torch, gen, cell, b, t,
+                                                   h, None)
             w_g, w_c, bias = ws
             y = rnn.gru_plain(x, w_g, w_c, bias, lens)
             ins = {"args": (x, w_g, w_c, bias, lens, y, dy),
@@ -263,21 +356,22 @@ def main() -> int:
         plan = rnn.bwd_plan(kern, b, h, x.device)
         fns, outs = {}, {}
         for k, lib, route in (("other", other, -1), ("this", this, -1),
-                              ("this_walk", this, 0), ("floor", floor, 1)):
+                              ("this_second", this, SECOND[cell]),
+                              ("floor", floor, 1)):
             fns[k], outs[k] = call(torch, lib, cell, ins, b, t, h, route)
             fns[k]()
         torch.cuda.synchronize()
         row = {"case": name, "plan": plan, "err": {
             k: {n: float(f"{cs.rel_err(g, r)[0]:.3g}")
                 for n, g, r in zip(names, outs[k], ins["ref"])}
-            for k in ("other", "this", "this_walk")}}
+            for k in ("other", "this", "this_second")}}
         ms = {k: [] for k in fns}
-        for k in ("other", "this", "this_walk", "floor", "floor",
-                  "this_walk", "this", "other"):
+        for k in ("other", "this", "this_second", "floor", "floor",
+                  "this_second", "this", "other"):
             ms[k].append(cs.time_ms(torch, fns[k]))
         row["ms"] = ms
         row["kernel_ms"] = {k: kernel_ms(torch, fns[k])
-                            for k in ("this", "this_walk", "floor")}
+                            for k in ("this", "this_second", "floor")}
         walk = [v for n, v in row["kernel_ms"]["floor"].items()
                 if "cluster_kernel" in n]
         row["serial_floor_ms"] = sum(walk)

@@ -6,11 +6,15 @@ and where a call's device time goes.
     mkdir -p _archive
     for f in lstm_seq.cu gru_seq.cu rnn_common.cuh tf32_mma.cuh; do
       git show <rev>:paddle_tpu_torch/csrc/$f > _archive/$f; done
-    python3 rnn_fwd_probe.py _archive
+    python3 rnn_fwd_probe.py _archive          # the cluster routes
+    python3 rnn_fwd_probe.py grid _archive     # B5's grid route
+    git archive <rev> | tar -x -C _parent      # a whole checkout
+    python3 rnn_fwd_probe.py step _parent      # phase 13's training run
 
 Needs one CUDA card and nvcc. The other revision's entry points may take
 no route (the walks only), the route alone, or the route and the route
-taken (`rnn_bwd_probe.signature` tells them apart).
+taken (`rnn_bwd_probe.signature` tells them apart), and a scratch
+pointer or none (`rnn_bwd_probe.scratch_floats`).
 At the two path shapes of `chip_smoke.py`'s phase 10 (the classifier's
 LSTM layer, B=64, T=100, h=256; the NMT encoder's GRU, B=256, T=32,
 h=256) it prints one `case` JSON line each:
@@ -18,15 +22,28 @@ h=256) it prints one `case` JSON line each:
   clusters the card holds at once; also printed first for B = 8 .. 512);
 - max |diff| / max |plain| of y (and c) of both revisions;
 - ms of the other revision's call, of this revision's call on the route
-  its rule picks and on the walk, of the LSTM's inference variant (no
-  c), and of this revision built with -DRNN_SERIAL_FLOOR (the cluster
-  walk keeps only its pushes of h and its cluster barriers), timed in
-  turns (CUDA events, 20 calls each);
+  its rule picks and on its other route (the LSTM's grid route, the
+  GRU's walk), of the LSTM's inference variant (no c), and of this
+  revision built with -DRNN_SERIAL_FLOOR (the cluster walk keeps only
+  its pushes of h and its cluster barriers), timed in turns (CUDA
+  events, 20 calls each);
 - the device ms a call of each kernel (torch.profiler over 10 calls);
   the floor build's over T is the serial floor a step;
 - ms of this revision with one piece of the walk taken out or changed by
   a text substitution (`VARIANTS`; wrong results, timed only), in turns
   with this revision.
+`grid` mode instead times B5 at `rnn_bwd_probe.GRID_CASES` (B=64, T=100,
+h = 512 and 1280), where the rule takes the grid route: the other
+revision's call (the walk, in a revision before the grid route), this
+revision's with c and without (inference), and this revision built with
+-DRNN_SERIAL_FLOOR (the grid walk keeps only its stores and loads of h
+and its barriers), in turns; their device ms by kernel; the floor a step.
+`step` mode instead runs phase 13's classifier training (`chip_smoke.py`
+`text_train`, the kernel arm: CLS_STEPS adam steps through SGD at B=64,
+T=100, h=256, the cluster route) in another revision's checkout and in
+this one, each in a process of its own, in turns (other, this, this,
+other; each tree builds its kernels on its first run): ms a step (the
+median, host clock), and the profile's device ms a step and idle share.
 Every build runs at once (one nvcc each). The ptxas report of every build
 is appended to `chiprun_out/rnn_fwd_probe.txt`, with every line printed
 here.
@@ -44,6 +61,20 @@ import chip_smoke as cs
 import rnn_bwd_probe as bp
 
 CASES = bp.CASES
+# step mode's run, in the checkout it is started in
+STEP = """
+import json, torch
+import chip_smoke as cs
+from paddle_tpu_torch.ops import rnn
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+conf, _ = cs.text_confs()
+feed, _ = cs.text_feeds(cs.SEED + 80, ragged=False)
+cs.set_rnn_arm("kernels")
+r = cs.text_train(torch, rnn, conf, feed, cs.CLS_LR, cs.CLS_STEPS,
+                  cs.CLS_B * cs.CLS_T, "classifier")
+print("STEP " + json.dumps(r))
+"""
 OUT = os.path.join("chiprun_out", "rnn_fwd_probe.txt")
 # name: [(file of csrc, text, its substitute)], applied to both cells'
 # sources where the text occurs
@@ -74,7 +105,9 @@ VARIANTS = {
 
 def bind(lib, cell):
     fn = getattr(lib, f"{cell}_seq_fwd")
-    fn.argtypes = [ctypes.c_void_p] * 6 + bp.tail_types(lib, cell, "fwd")
+    scratch = hasattr(lib, f"{cell}_seq_scratch_floats")
+    fn.argtypes = ([ctypes.c_void_p] * (6 + scratch)
+                   + bp.tail_types(lib, cell, "fwd"))
     fn.restype = ctypes.c_int
     return lib
 
@@ -89,10 +122,15 @@ def call(torch, lib, cell, ins, b, t, h, route, want_c=True):
     ptrs = [a.data_ptr() for a in (*ins["args"], *outs)]
     if cell == "lstm" and not want_c:
         ptrs.append(None)
+    floats = bp.scratch_floats(lib, cell, "fwd", b, t, h, route)
+    scratch = None
+    if floats is not None:
+        scratch = torch.empty(max(floats, 1), device="cuda")
+        ptrs.append(scratch.data_ptr())
     tail = bp.tail_args(lib, cell, "fwd", route)
     fn = getattr(lib, f"{cell}_seq_fwd")
 
-    def run():
+    def run(_keep=scratch):   # the scratch lives as long as the call
         rc = fn(*ptrs, b, t, h, *tail, 0,
                 torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
@@ -100,10 +138,91 @@ def call(torch, lib, cell, ins, b, t, h, route, want_c=True):
     return run, outs
 
 
+def grid_mode(torch, archive):
+    """B5 at GRID_CASES: the other revision (the walk, before the grid
+    route), this revision's grid route with c and without, and its
+    serial floor, in turns (see the module docstring)."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import rnn
+
+    out_dir = os.path.join(_build.BUILD_DIR, "grid_fwd_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc, flags = _build._nvcc(), _build.NVCC_FLAGS
+    builds = {
+        "other": bp.start(nvcc, flags, os.path.join(archive, "lstm_seq.cu"),
+                          os.path.join(out_dir, "lstm_other.so")),
+        "floor": bp.start(nvcc, (*flags, "-DRNN_SERIAL_FLOOR"),
+                          _build.sources()["lstm_seq"],
+                          os.path.join(out_dir, "lstm_floor.so"))}
+    libs = {"this": bind(_build.load("lstm_seq"), "lstm")}
+    libs.update({k: bind(bp.finish(st), "lstm") for k, st in builds.items()})
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 8)
+    for name, cell, b, t, h in bp.GRID_CASES:
+        x, (w, b7), lens, _dy, _live = cs.rnn_inputs(torch, gen, cell, b, t,
+                                                     h, None)
+        ref = rnn.lstm_plain(x, w, *torch.split(b7, [4 * h, h, h, h]), lens,
+                             want_c=True)
+        ins = {"args": (x, w, b7, lens), "ref": ref}
+        fns, outs = {}, {}
+        for k, lib in libs.items():
+            fns[k], outs[k] = call(torch, lib, cell, ins, b, t, h, -1)
+            fns[k]()
+        fns["this_infer"], outs["this_infer"] = call(
+            torch, libs["this"], cell, ins, b, t, h, -1, want_c=False)
+        fns["this_infer"]()
+        torch.cuda.synchronize()
+        row = {"case": name,
+               "plan": rnn.fwd_plan(rnn.LSTM_KERNEL, b, h, x.device),
+               "err": {k: {n: float(f"{cs.rel_err(g, r)[0]:.3g}")
+                           for n, g, r in zip(("y", "c"), outs[k], ref)}
+                       for k in ("other", "this", "this_infer")}}
+        order = ["other", "this", "this_infer", "floor"]
+        ms = {k: [] for k in order}
+        for k in order + order[::-1]:
+            ms[k].append(cs.time_ms(torch, fns[k], reps=5 if k == "other"
+                                    else 20))
+        row["ms"] = ms
+        row["kernel_ms"] = {k: bp.kernel_ms(torch, fns[k])
+                            for k in ("this", "floor")}
+        walk = sum(v for n, v in row["kernel_ms"]["floor"].items()
+                   if "grid_kernel" in n)
+        row["floor_walk_ms"] = walk
+        row["floor_us_a_step"] = walk * 1e3 / (t - 1)
+        bp.log("grid case " + json.dumps(row))
+    return 0
+
+
+def step_mode(other):
+    """Phase 13's classifier training run in the checkout `other` and in
+    this one, in turns (see the module docstring)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"other": [], "this": []}
+    for k in ("other", "this", "this", "other"):
+        out = subprocess.run([sys.executable, "-c", STEP],
+                             cwd=other if k == "other" else here,
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            raise RuntimeError(f"step run in {k} failed:\n{out.stdout}"
+                               f"\n{out.stderr}")
+        r = json.loads([ln for ln in out.stdout.splitlines()
+                        if ln.startswith("STEP ")][-1][5:])
+        prof = r["profile"] or {}
+        runs[k].append({"ms_per_step_median": r["ms_per_step_median"],
+                        "device_ms_per_step": prof.get("device_ms_per_step"),
+                        "idle_share": prof.get("idle_share"),
+                        "launches": r["launches"]})
+        bp.log(f"step {k} " + json.dumps(runs[k][-1]))
+    bp.log("step " + json.dumps({k: [x["ms_per_step_median"] for x in v]
+                                 for k, v in runs.items()}))
+    return 0
+
+
 def main() -> int:
     import torch
 
-    if not torch.cuda.is_available() or len(sys.argv) != 2:
+    mode = sys.argv[1] if len(sys.argv) == 3 else None
+    if not torch.cuda.is_available() or not (
+            len(sys.argv) == 2 or mode in ("grid", "step")):
         print(__doc__, file=sys.stderr)
         return 2
     from paddle_tpu_torch.ops import _build
@@ -115,6 +234,10 @@ def main() -> int:
     bp.log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip())
+    if mode == "grid":
+        return grid_mode(torch, sys.argv[2])
+    if mode == "step":
+        return step_mode(os.path.abspath(sys.argv[2]))
     out_dir = os.path.join(_build.BUILD_DIR, "fwd_probe")
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _build._nvcc()
@@ -164,7 +287,8 @@ def main() -> int:
         plan = rnn.fwd_plan(kern, b, h, x.device)
         fns, outs = {}, {}
         for k, lib, route in (("other", other, -1),
-                              ("this", this, -1), ("this_walk", this, 0),
+                              ("this", this, -1),
+                              ("this_second", this, bp.SECOND[cell]),
                               ("floor", floor, 1)):
             fns[k], outs[k] = call(torch, lib, cell, ins, b, t, h, route)
             fns[k]()
@@ -176,8 +300,8 @@ def main() -> int:
         row = {"case": name, "plan": plan, "err": {
             k: {n: float(f"{cs.rel_err(g, r)[0]:.3g}")
                 for n, g, r in zip(names, outs[k], ins["ref"])}
-            for k in ("other", "this", "this_walk")}}
-        order = ["other", "this", "this_walk", "floor"]
+            for k in ("other", "this", "this_second")}}
+        order = ["other", "this", "this_second", "floor"]
         if cell == "lstm":
             order.insert(2, "this_infer")
         ms = {k: [] for k in order}
@@ -185,7 +309,7 @@ def main() -> int:
             ms[k].append(cs.time_ms(torch, fns[k]))
         row["ms"] = ms
         row["kernel_ms"] = {k: bp.kernel_ms(torch, fns[k])
-                            for k in ("this", "this_walk", "floor")}
+                            for k in ("this", "this_second", "floor")}
         walk = [v for n, v in row["kernel_ms"]["floor"].items()
                 if "cluster_kernel" in n]
         row["serial_floor_ms"] = sum(walk)

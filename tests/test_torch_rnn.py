@@ -19,9 +19,11 @@ and through the port's plain versions and autograd Functions:
 
 `TestOnCard` (marked `cuda`) holds the four Hopper kernels against
 their plain versions on the card — each on the route its rule picks
-and on the walk, the cluster route bit-identical on a repeat — pins
-the width at which each kernel's cluster route gives way to the walk,
-and shows that one autograd step launches each kernel once. It skips here; on a machine
+and, where that is the cluster route, on the other route too (the LSTM's
+grid route, the GRU's walk), the cluster and grid routes bit-identical on
+a repeat — pins the width at which each kernel's cluster route gives way
+to the grid route (LSTM) or the walk (GRU), and shows that one autograd
+step launches each kernel once. It skips here; on a machine
 with an H100 and no JAX: `python -m pytest --noconftest -m cuda
 tests/test_torch_rnn.py`.
 """
@@ -217,13 +219,13 @@ def _kernel_calls(route):
 
 
 def test_kernel_wrappers_refuse_the_cpu():
-    for route in (None, "walk", "cluster"):
+    for route in (None, "walk", "cluster", "grid"):
         for call in _kernel_calls(route):
             with pytest.raises(ValueError, match="unsupported device"):
                 call()
 
 
-@pytest.mark.parametrize("route", ["fast", "Cluster", 0])
+@pytest.mark.parametrize("route", ["fast", "Cluster", 0, "Grid"])
 def test_unknown_route_is_refused_before_any_build(route, monkeypatch):
     """A route name that is not one of rnn.ROUTES raises ValueError, on
     any kernel's wrapper and plan, before a kernel is built or a device
@@ -324,23 +326,48 @@ CARD_CASES = {
     # more clusters than the card holds at once: the cluster routes run
     # in two waves (WAVE_CASE)
     "b512_t6_h256": (512, 6, 256, None),
+    # the LSTM's grid route at the bench's widest width and full length,
+    # ragged at a rows count no multiple of 16, and wider than a block's
+    # shared memory holds its slice of w (STREAMED_CASE: w read from L2),
+    # and more rows than even the streamed forward's block holds
+    # (CHUNKED_CASE: B5 in launches of fewer rows)
+    "b64_t100_h1280": (64, 100, 1280, None),
+    "ragged_b37_t9_h512": (37, 9, 512, [9, 0, 1] + [(4 * i) % 9 + 1
+                                                      for i in range(34)]),
+    "b3_t4_h2048": (3, 4, 2048, None),
+    "ragged_b1200_t3_h1280": (1200, 3, 1280,
+                              [3, 0, 1] + [i % 3 + 1 for i in range(1197)]),
 }
 WAVE_CASE = "b512_t6_h256"
+STREAMED_CASE = "b3_t4_h2048"
+CHUNKED_CASE = "ragged_b1200_t3_h1280"
 # the widest h each kernel takes on the cluster route: its slices of the
 # weights and buffers at one batch row a cluster fill a block's 227 KB
 # (csrc lstm_seq.cu / gru_seq.cu: FwdSmem, WalkSmem); wider h takes the
-# walk
+# grid route (LSTM) or the walk (GRU)
 CLUSTER_MAX_H = {"lstm": 320, "gru": 320}          # B6, B8
 FWD_CLUSTER_MAX_H = {"lstm": 320, "gru": 352}      # B5, B7
-# the launch counters of each kernel: (either route, the cluster route)
+# each cell's route past the cluster route's widest h, and the route it
+# does not have
+WIDE_ROUTE = {"lstm": "grid", "gru": "walk"}
+NO_ROUTE = {"lstm": "walk", "gru": "grid"}
+# the launch counters of each kernel: (either route, the cluster route,
+# the grid route; the GRU has none)
 COUNTERS = {
-    ("fwd", "lstm"): ("lstm_fwd_launches", "lstm_fwd_cluster_launches"),
+    ("fwd", "lstm"): ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
+                      "lstm_fwd_grid_launches"),
     ("fwd_infer", "lstm"): ("lstm_fwd_infer_launches",
-                            "lstm_fwd_infer_cluster_launches"),
-    ("bwd", "lstm"): ("lstm_bwd_launches", "lstm_bwd_cluster_launches"),
-    ("fwd", "gru"): ("gru_fwd_launches", "gru_fwd_cluster_launches"),
-    ("bwd", "gru"): ("gru_bwd_launches", "gru_bwd_cluster_launches"),
+                            "lstm_fwd_infer_cluster_launches",
+                            "lstm_fwd_infer_grid_launches"),
+    ("bwd", "lstm"): ("lstm_bwd_launches", "lstm_bwd_cluster_launches",
+                      "lstm_bwd_grid_launches"),
+    ("fwd", "gru"): ("gru_fwd_launches", "gru_fwd_cluster_launches", None),
+    ("bwd", "gru"): ("gru_bwd_launches", "gru_bwd_cluster_launches", None),
 }
+
+
+def _counts(counters):
+    return [getattr(rnn, c) if c else 0 for c in counters]
 
 
 @pytest.mark.cuda
@@ -411,11 +438,13 @@ class TestOnCard:
         """A kernel (`call(route)`, its outputs `names`; `kind` "fwd",
         "fwd_infer" or "bwd") against the plain version `ref` on the route
         the rule picks, which must be the cluster route exactly where h <=
-        its FWD_CLUSTER_MAX_H / CLUSTER_MAX_H, and on the walk: every
-        output within 1e-4, the first (y or dx) exactly 0 past len; the
-        cluster route bit-identical on a repeat, launches counted by
+        its FWD_CLUSTER_MAX_H / CLUSTER_MAX_H and else WIDE_ROUTE, and on
+        WIDE_ROUTE where the rule picks the cluster route: every output
+        within 1e-4, the first (y or dx) exactly 0 past len; the cluster
+        and grid routes bit-identical on a repeat, launches counted by
         route; where h is too wide for it, the cluster route refused with
-        nothing counted. Returns the rule's outputs."""
+        nothing counted, and NO_ROUTE refused at every h. Returns the
+        rule's outputs."""
         counts = COUNTERS[kind, cell]
         kernel = rnn.LSTM_KERNEL if cell == "lstm" else rnn.GRU_KERNEL
         b = ref[0].shape[0]
@@ -425,23 +454,29 @@ class TestOnCard:
             plan, limit = rnn.fwd_plan, FWD_CLUSTER_MAX_H[cell]
         plan = plan(kernel, b, h, ref[0].device)
         cluster = h <= limit
-        assert plan["route"] == ("cluster" if cluster else "walk"), plan
-        before = [getattr(rnn, c) for c in counts]
+        wide = WIDE_ROUTE[cell]
+        assert plan["route"] == ("cluster" if cluster else wide), plan
+        before = _counts(counts)
         got = call(None)
-        assert [getattr(rnn, c) for c in counts] == [
-            before[0] + 1, before[1] + cluster]
+        grid = plan["route"] == "grid"
+        assert _counts(counts) == [before[0] + 1, before[1] + cluster,
+                                   before[2] + grid]
         runs = [(plan["route"], got)]
         if cluster:
-            again = call(None)
+            runs.append((wide, call(wide)))
+        for route, outs in runs:
+            if route == "walk":
+                continue
+            again = call(route)
             torch.cuda.synchronize()
-            for name, a, r in zip(names, got, again):
-                assert torch.equal(a, r), f"{name}: a repeat differs"
-            runs.append(("walk", call("walk")))
-        else:
-            before = [getattr(rnn, c) for c in counts]
-            with pytest.raises(ValueError, match="the cluster route takes"):
-                call("cluster")
-            assert [getattr(rnn, c) for c in counts] == before
+            for name, a, r in zip(names, outs, again):
+                assert torch.equal(a, r), f"{route} {name}: a repeat differs"
+        refused = [NO_ROUTE[cell]] + ([] if cluster else ["cluster"])
+        for route in refused:
+            before = _counts(counts)
+            with pytest.raises(ValueError, match=f"the {route} route takes"):
+                call(route)
+            assert _counts(counts) == before
         torch.cuda.synchronize()
         for route, outs in runs:
             for name, a, r in zip(names, outs, ref):
@@ -450,6 +485,24 @@ class TestOnCard:
                                                  self._rel(a, r))
             assert (outs[0][dead] == 0).all(), route
         return got
+
+    def test_streamed_case_reads_w_from_l2(self):
+        """Past the widths whose slices of w fit a grid block's shared
+        memory, B5 and B6 stream them (the streamed form), on one launch
+        of every row; past the rows a streamed block holds, B5 launches
+        for a multiple of 16 rows at a time."""
+        b, _t, h, _lens = CARD_CASES[STREAMED_CASE]
+        for plan in (rnn.fwd_plan, rnn.bwd_plan):
+            p = plan(rnn.LSTM_KERNEL, b, h, torch.device("cuda"))
+            assert p["route"] == "grid" and p["streamed"], p
+            assert p["rows"] == b and p["blocks"] <= p["active"], p
+        for plan in (rnn.fwd_plan, rnn.bwd_plan):
+            p = plan(rnn.LSTM_KERNEL, 64, 1280, torch.device("cuda"))
+            assert p["route"] == "grid" and not p["streamed"], p
+        b, _t, h, _lens = CARD_CASES[CHUNKED_CASE]
+        p = rnn.fwd_plan(rnn.LSTM_KERNEL, b, h, torch.device("cuda"))
+        assert p["route"] == "grid" and p["streamed"], p
+        assert 16 <= p["rows"] < b and p["rows"] % 16 == 0, p
 
     @pytest.mark.parametrize("cell", ["lstm", "gru"])
     def test_wave_case_takes_more_clusters_than_the_card_holds(self, cell):
@@ -467,13 +520,14 @@ class TestOnCard:
         gleaves = [a.cuda().requires_grad_(True) for a in _t(gargs)]
         # h = 32: every kernel on the cluster route
         counters = [c for kind in ("fwd", "bwd") for cell in ("lstm", "gru")
-                    for c in COUNTERS[kind, cell]]
-        before = [getattr(rnn, c) for c in counters]
+                    for c in COUNTERS[kind, cell][:2]]
+        grid = [COUNTERS[kind, "lstm"][2] for kind in ("fwd", "bwd")]
+        before, grid_before = _counts(counters), _counts(grid)
         rnn.lstm_fused(*leaves, lens).backward(torch.from_numpy(dy).cuda())
         rnn.gru_fused(*gleaves, lens).backward(torch.from_numpy(gdy).cuda())
         torch.cuda.synchronize()
-        assert [getattr(rnn, c) for c in counters] == [
-            n + 1 for n in before]
+        assert _counts(counters) == [n + 1 for n in before]
+        assert _counts(grid) == grid_before
         for fn, ls, d in ((rnn.lstm_plain, leaves, dy),
                           (rnn.gru_plain, gleaves, gdy)):
             ref = [a.detach().requires_grad_(True) for a in ls]

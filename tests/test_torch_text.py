@@ -16,7 +16,8 @@ run their scan.
   recurrent_group with a boot layer and a static link (forward and
   reversed) — within 1e-5 (atol) of the JAX layer.
 - The IMDB stacked-LSTM classifier, the attention NMT and the
-  bidirectional LSTM tagger at narrow widths: the loss (rtol 1e-4) and
+  bidirectional LSTM tagger at narrow widths, and the classifier at the
+  bench's hidden 512 (small vocab, B and T): the loss (rtol 1e-4) and
   every gradient (1e-4 of its largest entry) on both arms, and three
   adam steps of `SGD.train` (the costs, rtol 1e-4, and every parameter
   after them), against the JAX `Network` and `SGD`.
@@ -187,11 +188,16 @@ CONFS = {
     "tagger": ("bidi_lstm_tagger", dict(vocab_size=50, emb_dim=8, hidden=16)),
 }
 # the bench rows' optimizers (bench.py bench_lstm, bench_nmt)
-ADAM = {"classifier": 2e-3, "nmt": 1e-3, "tagger": 2e-3}
+# bench_lstm's hidden 512 (on the card: the grid route of B5 and B6), at a
+# small vocab, B and T
+WIDE = {"classifier_h512": ("stacked_lstm_classifier",
+                            dict(vocab_size=50, emb_dim=8, hidden=512))}
+ADAM = {"classifier": 2e-3, "classifier_h512": 2e-3, "nmt": 1e-3,
+        "tagger": 2e-3}
 
 
 def _confs(name):
-    fn, kw = CONFS[name]
+    fn, kw = {**CONFS, **WIDE}[name]
     return getattr(jtext, fn)(**kw), getattr(ttext, fn)(**kw)
 
 
@@ -199,6 +205,12 @@ def _batch(name, seed):
     """Numpy ids for one batch of conf `name` (the NMT's lengths have no
     0: its decoder boots from the first step of the reversed encoder)."""
     rng = np.random.default_rng(seed)
+    if name == "classifier_h512":
+        # every row at least one step long: an empty row max-pools to -1e30
+        # (the JAX semantics, held at hidden 16), a loss of ~1e29 that
+        # would drown the recurrent weights' gradients this case holds
+        return {"words": (rng.integers(0, 50, (B, T)), np.maximum(LENS, 1)),
+                "label": (rng.integers(0, 2, B), None)}
     if name == "classifier":
         return {"words": (rng.integers(0, 50, (B, T)), LENS),
                 "label": (rng.integers(0, 2, B), None)}
@@ -220,7 +232,7 @@ def _tfeed(batch):
             for k, (ids, lens) in batch.items()}
 
 
-@pytest.mark.parametrize("name", sorted(CONFS))
+@pytest.mark.parametrize("name", sorted(CONFS) + sorted(WIDE))
 def test_conf_loss_and_gradients_match_jax(name, arm):
     jconf, tconf = _confs(name)
     jnet, tnet = JNetwork(jconf), TNetwork(tconf)
@@ -263,6 +275,41 @@ def test_sgd_adam_steps_match_jax(name, arm):
     np.testing.assert_allclose(tcosts, jcosts, rtol=NET_TOL)
     for k, v in params_to_numpy(tt.params).items():
         assert _rel(v, jt.params[k]) <= NET_TOL, k
+
+
+def test_sgd_adam_steps_match_jax_at_the_bench_width(arm):
+    """Three adam steps of the classifier at hidden 512 through `SGD.train`
+    against the JAX `SGD`, as test_sgd_adam_steps_match_jax: the costs
+    within rtol NET_TOL, and every parameter within NET_TOL of its largest
+    entry plus twice the port's own f32 noise there (its distance from
+    the same steps in f64: adam divides near-zero gradient components by
+    their own size, and 512-wide sums round differently in the two
+    packages, ~7e-5 after three steps), the rule of the chip smoke's held
+    step. The port's f32 run must also be as close to its f64 run as the
+    JAX run is, within NET_TOL."""
+    name = "classifier_h512"
+    jconf, tconf = _confs(name)
+    p0 = _np_params(JNetwork(jconf), 3)
+    opt = dict(learning_method="adam", learning_rate=ADAM[name])
+    batches = [_batch(name, 10 + i) for i in range(3)]
+    jt = JSGD(jconf, JOptConf(**opt), seed=1,
+              params={k: jnp.asarray(v) for k, v in p0.items()})
+    tt = TSGD(tconf, TOptConf(**opt), seed=1,
+              params=params_from_numpy(p0, device="cpu"), device="cpu")
+    t64 = TSGD(tconf, TOptConf(**opt), seed=1,
+               params={k: v.double() for k, v in params_from_numpy(
+                   p0, device="cpu").items()}, device="cpu")
+    jcosts = _train(jt, batches, _jfeed, JEnd)
+    tcosts = _train(tt, batches, _tfeed, TEnd)
+    _train(t64, batches, _tfeed, TEnd)
+    assert np.isfinite(tcosts).all() and len(tcosts) == 3
+    np.testing.assert_allclose(tcosts, jcosts, rtol=NET_TOL)
+    p64 = {k: v.detach().numpy() for k, v in t64.params.items()}
+    assert {str(v.dtype) for v in p64.values()} == {"float64"}
+    for k, v in params_to_numpy(tt.params).items():
+        noise = _rel(v, p64[k])
+        assert _rel(v, jt.params[k]) <= NET_TOL + 2 * noise, (k, noise)
+        assert noise <= NET_TOL + _rel(np.asarray(jt.params[k]), p64[k]), k
 
 
 def test_classifier_inference_matches_jax(arm):
