@@ -100,9 +100,13 @@ any failure exits non-zero:
    sites' batch-64 shapes beside the plain versions, the bare GEMM in
    torch.matmul (a yardstick only) and their bounds (on the tensor
    cores, three TF32 passes), with each kernel's launch plan;
-7b. holds the kernels' bf16 forms against their bf16 plain versions at
-   the nine sites at batch 32 and four ragged shapes (widths multiples
-   of 8), act relu or linear, with or without a residual, non-zero
+7b. holds the kernels' bf16 forms (B2 and B3 the wgmma kernels, whose
+   build must report no serialised wgmma) against their bf16 plain
+   versions at the nine sites at batch 32, four ragged shapes (widths
+   multiples of 8) and eight at the edges of B2/B3's tiles and stages
+   (rows 1, 127, 129, 255, 257; widths 8, 72, 136, 200, 2048; a B3 row
+   split whose chunk boundary falls inside a stage), act relu or
+   linear, with or without a residual, non-zero
    cotangents of ssum and ssq: the f32 outputs (ssum, ssq, dscale,
    dshift, dw before its cast) within 1e-4 of the largest, the bf16
    ones (y, du, dres, dw after its cast) element by element within one
@@ -922,8 +926,8 @@ PORT_KERNELS = {
     "B2 bn_act_conv1x1_bwd_dx": "bwd_dx_kernel<",
     "B3 bn_act_conv1x1_bwd_dw": "bwd_dw_kernel<",
     "B1 bn_act_conv1x1_fwd_bf16": "namespace)::fwd_bf16_kernel<",
-    "B2 bn_act_conv1x1_bwd_dx_bf16": "bwd_dx_bf16_kernel<",
-    "B3 bn_act_conv1x1_bwd_dw_bf16": "bwd_dw_bf16_kernel<",
+    "B2 bn_act_conv1x1_bwd_dx_bf16_wgmma": "bwd_dx_wgmma_kernel<",
+    "B3 bn_act_conv1x1_bwd_dw_bf16_wgmma": "bwd_dw_wgmma_kernel<",
     "B4f flash_attn_fwd": "flash_fwd_kernel<",
     "B4b flash_attn_bwd_dkv": "flash_bwd_dkv_kernel<",
     "B4b flash_attn_bwd_dq": "flash_bwd_dq_kernel<",
@@ -1648,11 +1652,22 @@ def fused_kernels(torch, op):
     return worst, timings
 
 
+# a B3 row split into two chunks whose boundary falls inside a 64-row
+# stage (304 rows a chunk): B3's plan must split it so
+FUSED_SPLIT_BF16 = ("n600_64_64_split2", 600, 64, 64)
 # the bf16 forms take widths that are multiples of 8: ragged rows against
-# the 128-row tile, a width past the 64/128-column tiles
+# the 128-row tile, a width past the 64/128-column tiles; then the edges of
+# the wgmma B2/B3's 128 x 128 tiles and 64-row stages (rows 1, 127, 129,
+# 255, 257; Cin and Cout 8, 72, 136, 200, 2048) and the split above
 FUSED_RAGGED_BF16 = [("n100_24_16", 100, 24, 16), ("n1_24_16", 1, 24, 16),
                      ("n517_72_136", 517, 72, 136),
-                     ("n300_200_72", 300, 200, 72)]
+                     ("n300_200_72", 300, 200, 72),
+                     ("n1_8_8", 1, 8, 8), ("n127_8_72", 127, 8, 72),
+                     ("n129_72_8", 129, 72, 8),
+                     ("n255_136_200", 255, 136, 200),
+                     ("n257_200_136", 257, 200, 136),
+                     ("n129_2048_72", 129, 2048, 72),
+                     ("n257_72_2048", 257, 72, 2048), FUSED_SPLIT_BF16]
 FUSED_OUTS = ("y", "ssum", "ssq", "du", "dscale", "dshift", "dres", "dw")
 
 
@@ -1797,6 +1812,11 @@ def fused_kernels_bf16(torch, op):
              "dw": "bwd_dw"}
     cases = [(f"{s[0]}_b32", s[1] * 32, s[2], s[3]) for s in FUSED_SITES]
     cases += FUSED_RAGGED_BF16
+    split = op.launch_plan(*FUSED_SPLIT_BF16[1:],
+                           dtype=torch.bfloat16)["bwd_dw"]
+    assert (split["blocks"] == 2 and split["chunk"] % 64
+            and split["chunk"] < FUSED_SPLIT_BF16[1]), (
+        f"{FUSED_SPLIT_BF16[0]}: B3's rows not split mid-stage: {split}")
     n_checked = 0
     for name, n, cin, cout in cases:
         rels = {}
@@ -3567,6 +3587,14 @@ def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
     ]
 
 
+def no_serialised_wgmma(log, name):
+    """Fail where ptxas serialised a kernel's wgmma (a wgmma on a path it
+    cannot prove warp-uniform: every product then waits for the last)."""
+    bad = [line for line in log.splitlines()
+           if "wgmma.mma_async instructions are serialized" in line]
+    assert not bad, f"{name}: ptxas serialised wgmma:\n" + "\n".join(bad)
+
+
 def ptxas_report(log):
     """One line a kernel of an nvcc -Xptxas -v log: its name, registers,
     shared memory and spills."""
@@ -3704,6 +3732,7 @@ def main() -> int:
 
     phase("7. fused BN-ReLU-1x1 kernels vs plain version")
     ptxas_report(_build.build_log(fop.KERNEL))
+    no_serialised_wgmma(_build.build_log(fop.KERNEL), fop.KERNEL)
     fused_err, fused_times = fused_kernels(torch, fop)
 
     phase("7b. the fused kernels' bf16 forms vs their bf16 plain versions")
@@ -3811,8 +3840,10 @@ def main() -> int:
     tail_bf16 = next(t for t in fused_times_bf16 if t["site"] == "res2_tail")
 
     def fused_row(kernel, tpu_line, launched, bf16=False):
+        # the bf16 B2 and B3 are the wgmma kernels (bwd_*_wgmma_kernel)
+        suffix = "_bf16" + ("_wgmma" if kernel != "fwd" else "")
         return {
-            "name": f"bn_act_conv1x1_{kernel}" + ("_bf16" if bf16 else ""),
+            "name": f"bn_act_conv1x1_{kernel}" + (suffix if bf16 else ""),
             "route": "cuda",
             "source": "paddle_tpu_torch/csrc/bn_act_conv1x1.cu",
             "replaces": f"paddle_tpu/ops/pallas_fused.py:{tpu_line}",

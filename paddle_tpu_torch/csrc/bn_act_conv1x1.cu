@@ -71,6 +71,7 @@
 #include <stdint.h>
 
 #include "bf16_mma.cuh"
+#include "hopper_wgmma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -988,30 +989,30 @@ cudaError_t col_reduce(const float* part, float* out_a, float* out_b,
 // B1, B2 and B3 on bf16 u, w, res, y and dy (the AMP rule), with the JAX
 // kernels' dtypes: z and dy_eff formed in f32 from the bf16 inputs (rounded
 // as PyTorch rounds, as above) and rounded to bf16 (cvt.rn.bf16x2) for the
-// products; mma.sync m16n8k16 bf16 with f32 accumulators, one pass; B1's
-// statistics from the f32 accumulators before y is rounded to bf16; B2's du
-// and dres rounded to bf16 on the way out, dscale and dshift f32; B3's dw
-// in f32 (split-K partials f32, summed by split_reduce_kernel).
+// products, which accumulate in f32, one pass; B1's statistics from the f32
+// accumulators before y is rounded to bf16; B2's du and dres rounded to
+// bf16 on the way out, dscale and dshift f32; B3's dw in f32 (split-K
+// partials f32, summed by split_reduce_kernel in a fixed order).
 //
-// Each is a bf16 GEMM over a ring of STAGES shared-memory stages BK16 deep,
-// filled by 16-byte cp.async (8 bf16: Cin and Cout multiples of 8, every
-// array 16-byte aligned, which the wrapper checks). When a stage has landed
-// the block turns its operand tile(s) into z or dy_eff in place, each
-// element once, 8 at a time (one 16-byte word a thread); the warps then read
-// their fragments by ldmatrix (mma_stage). Forming the operand once a stage,
-// not once a fragment, matters: every warp along the other dimension would
-// form the same fragment again. The grids are not persistent: B1 and B2 a
-// block per (row tile, column tile), B3 a block per (Cin tile, Cout tile, row
-// chunk). No wgmma, no TMA.
+// B1 is an mma.sync m16n8k16 GEMM over a ring of STAGES shared-memory
+// stages BK16 deep, filled by 16-byte cp.async (8 bf16: Cin and Cout
+// multiples of 8, every array 16-byte aligned, which the wrapper checks).
+// When a stage has landed the block turns its u tile into z in place, each
+// element once, 8 at a time; the warps then read their fragments by
+// ldmatrix (mma_stage). A block per (row tile, Cout tile).
+//
+// B2 and B3 are Hopper GEMMs (wgmma, TMA, an mbarrier ring, warp
+// specialisation; their own section below): the formed operand is built in
+// registers as wgmma's A fragments, B2 walks row tiles in a persistent grid
+// and B3 splits the rows over ~one block an SM.
 //
 // What bounds them: bytes at the wide ResNet-50 sites (bf16 halves the f32
 // forms' bytes) and the tensor cores' bf16 rate (989 TFLOP/s dense on an
 // H100 SXM at 700 W) at the deep ones. The tensor cores add each product sum
 // into the accumulator with truncation: B1's and B2's chains are K / 16 adds
-// (128 at Cin or Cout 2048); B3 flushes its accumulators into f32 sums in
-// shared memory every BF_FLUSH stages, as the f32 form does.
-constexpr int BK16 = 32;     // depth of a bf16 stage: two k16 steps
-constexpr int BF_FLUSH = 8;  // B3: stages between flushes (256 rows)
+// (128 at Cin or Cout 2048); B3 flushes its accumulators into f32 sums
+// every 256 rows, as the f32 form does.
+constexpr int BK16 = 32;     // depth of B1's bf16 stage: two k16 steps
 
 // 8 bf16 (one 16-byte word) to f32 and back
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
@@ -1262,346 +1263,628 @@ fwd_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
   block_col_partials<T>(ps, pq, red, part, col0, Cout);
 }
 
-// B2's stage: dy and y [BM][BK16 + 8], w [BN channels][BK16 + 8] (bf16),
-// d1 and d2 [BK16] (f32); after the ring the column partials [WM][2][BN]
-// and the tile's scale and shift [BN] (f32)
-template <class T>
-struct DxBf16Smem {
-  static constexpr int LD = BK16 + 8, ULD = T::BN + 8;
-  static constexpr int A = T::BM * LD, W = T::BN * LD;   // bf16 elements
-  static constexpr int STAGE_BYTES = 2 * (2 * A + W) + 2 * BK16 * 4;
-  static constexpr size_t BYTES = (size_t)T::STAGES * STAGE_BYTES +
-                                  sizeof(float) * (2 * T::WM * T::BN + 2 * T::BN);
-  // the epilogue stages u and res [BM][ULD] in the ring
-  static_assert(2 * 2 * T::BM * ULD <= T::STAGES * STAGE_BYTES,
-                "u's and res's tiles fit the ring");
+// ------------------------------------------- B2 and B3, bf16: wgmma + TMA
+// Hopper kernels over hopper_wgmma.cuh (the tensor maps, the mbarrier ring,
+// the wgmma wrappers and the tile layouts it describes). A block holds two
+// consumer warpgroups and a producer warpgroup whose one working thread
+// keeps a ring of stages filled by TMA through 2-D tensor maps over the
+// row-major bf16 arrays (64-column atoms, 128B swizzle; rows and columns
+// past the arrays' ends arrive as zeros); the producer hands its registers
+// to the consumers (setmaxnreg). A stage is 64 rows of K (WG_BK); an output
+// tile is 128 x 128, 64 rows of it a consumer warpgroup (m64n128k16, 64 f32
+// accumulators a thread). One block an SM (the shared memory asks for it).
+//
+// The formed operands (dy_eff in B2, z in B3) are built in registers as
+// wgmma's A fragments, by ldmatrix through the swizzle, the f32 formula and
+// cvt.rn.bf16x2: no pass over shared memory, and never while a product is
+// in flight (a non-wgmma write to a wgmma's input registers during a
+// product makes ptxas serialise every wgmma of the kernel). Only B3's B,
+// dy_eff, must lie in shared memory: a fourth warpgroup forms it there in
+// place, once a stage, then makes it visible to wgmma by fence.proxy.async.
+//
+// Consumer code holds no branch around a wgmma and no divergent one
+// anywhere: roles are tested on warp_uniform values, spins and arrivals are
+// in the asm (hopper_wgmma.cuh), bounds are predicates of the loads and
+// stores below, and B2's walk peels its last stage (ptxas serialises every
+// wgmma of a kernel that has one on a path it cannot prove uniform).
+//
+// Measured on an H100 (fused_bwd_probe.py, in turns against the mma.sync
+// kernels these replace, at ResNet-50's nine sites at batch 256; variants
+// that take one piece out): the wide sites stream at ~90% of HBM's rate;
+// at the deep ones each stage costs ~1.4 us, of which the loads (~1 us a
+// 48 KB stage an SM: the L2's rate, ~6 TB/s) are the floor.
+constexpr int WG_BK = 64;      // rows of K a stage: one 128-byte atom
+constexpr int WG_TILE = 128;   // an output tile: 128 x 128
+constexpr int WG_FLUSH = 4;    // B3: stages between flushes (256 rows)
+constexpr int DW_WG_MIN_CHUNK = 256;  // B3: fewest rows a split
+constexpr int ATOM_BYTES = WG_BK * 128;  // [64 rows][64 columns] bf16
+
+// p[0], p[1] where pred, else 0
+__device__ __forceinline__ float2 ld_f2_if(const float* p, bool pred) {
+  float2 v;
+  asm("{\n.reg .pred q;\nsetp.ne.u32 q, %3, 0;\nmov.b32 %0, 0;\n"
+      "mov.b32 %1, 0;\n@q ld.global.nc.v2.f32 {%0, %1}, [%2];\n}\n"
+      : "=f"(v.x), "=f"(v.y)
+      : "l"(p), "r"((unsigned)pred));
+  return v;
+}
+// *p = (a, b) / a where pred
+__device__ __forceinline__ void st_f2_if(float* p, float a, float b,
+                                         bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %3, 0;\n"
+      "@q st.global.v2.f32 [%0], {%1, %2};\n}\n" ::"l"(p),
+      "f"(a), "f"(b), "r"((unsigned)pred)
+      : "memory");
+}
+__device__ __forceinline__ void st_f32_if(float* p, float a, bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %2, 0;\n"
+      "@q st.global.f32 [%0], %1;\n}\n" ::"l"(p),
+      "f"(a), "r"((unsigned)pred)
+      : "memory");
+}
+
+// B2's block: the ring's stages (dy and y [128 rows][64], w [128 Cin][64]),
+// the epilogue's buffers of u (and res) [128 rows][128 Cin] (two without a
+// residual, one with: du and dres are written over them and leave by TMA),
+// then the tile's scale and shift [128] and the column partials [8 warps]
+// [2][128] (f32), then the mbarriers
+template <bool RES>
+struct DxWg {
+  static constexpr int STAGES = 3;
+  static constexpr int A_BYTES = WG_TILE * WG_BK * 2;   // dy or y
+  static constexpr int STAGE = 3 * A_BYTES;             // + w
+  static constexpr int U_ATOM = WG_TILE * 128;          // [128 rows][64]
+  static constexpr int U_BYTES = 2 * U_ATOM;            // u or res
+  static constexpr int UBUFS = RES ? 1 : 2;
+  static constexpr int UBUF = (RES ? 2 : 1) * U_BYTES;  // u (then res)
+  static constexpr int UOFF = STAGES * STAGE;
+  static constexpr int EPI = UOFF + UBUFS * UBUF;
+  static constexpr int BARS = EPI + 4 * (2 * WG_TILE + 16 * WG_TILE);
+  static constexpr size_t BYTES =
+      BARS + 8 * (1 + 2 * STAGES + 2 * UBUFS) + 1024;
 };
 
+// the [64 rows][64] box at smem src to (column c, row r) of a 2-D tensor
+// map, by the thread where pred; then its bulk group committed and waited
+// for until the box has been read (the buffer may be refilled)
+__device__ __forceinline__ void tma_store_2d_if(const CUtensorMap* map,
+                                                const void* src, int c, int r,
+                                                bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %4, 0;\n"
+      "@q cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n}\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c), "r"(r), "r"((unsigned)pred)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_wait_if(bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
+      "@q cp.async.bulk.commit_group;\n"
+      "@q cp.async.bulk.wait_group.read 0;\n}\n" ::"r"((unsigned)pred)
+      : "memory");
+}
+// the thread's TMA stores complete (written, not only read)
+__device__ __forceinline__ void tma_store_drain_if(bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
+      "@q cp.async.bulk.wait_group 0;\n}\n" ::"r"((unsigned)pred)
+      : "memory");
+}
+
 // ------------------------------------------------------------- B2, bf16
-// dz = dy_eff @ w^T: M = rows, N = Cin, K = Cout. Block (r, c) computes row
-// tile r of Cin tile c. A landed stage's dy tile becomes dy_eff = dy + d1 +
-// 2 y d2 in place; w [Cin][Cout] is B stored [n][k]. The epilogue reads u
-// (and res) from device memory in bf16 pairs, gates by the recomputed
-// preactivation, writes du and dres in bf16 and adds dz*u and dz into the
-// column partials.
-template <class T>
-__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
-bwd_dx_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
-                   const float* __restrict__ shift, const bf16* __restrict__ w,
-                   const bf16* __restrict__ res, const bf16* __restrict__ y,
-                   const bf16* __restrict__ dy, const float* __restrict__ d1,
-                   const float* __restrict__ d2, bf16* __restrict__ du,
-                   bf16* __restrict__ dres, float* __restrict__ part, int N,
-                   int Cin, int Cout, int relu) {
-  using S = DxBf16Smem<T>;
-  constexpr int BM = T::BM, BN = T::BN, MT = T::MT, NT = T::NT;
-  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  float* red = reinterpret_cast<float*>(smem_b + (size_t)STAGES * S::STAGE_BYTES);
-  float* sc = red + 2 * T::WM * BN;   // scale, shift of the tile's channels
-  float* sh = sc + BN;
+// dz = dy_eff @ w^T: M = rows, N = Cin, K = Cout. A persistent grid: block
+// (p, c) walks row tiles p, p + P, ... of Cin tile c (the blocks of a row
+// tile's Cin tiles run together, so that they read its dy and y from L2).
+// The producer's loads run across tile boundaries: a tile's K stages, then
+// its u (and res) tile into an epilogue buffer. A consumer warpgroup's A
+// fragments are dy_eff = dy + d1 + 2 y d2 from the landed dy and y tiles
+// (rounded as PyTorch rounds); w [Cin][Cout] is B stored [n][k]
+// (K-major). The epilogue gates by the preactivation from the landed u
+// (and res), writes du (and dres) over them in bf16 pairs, stores them by
+// TMA (rows past N and columns past Cin clipped) and adds dz*u and dz into
+// the thread's column sums, which the block reduces at its end in a fixed
+// order into part[which][p][Cin].
+template <bool RES>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_dx_wgmma_kernel(const __grid_constant__ CUtensorMap tdy,
+                    const __grid_constant__ CUtensorMap ty,
+                    const __grid_constant__ CUtensorMap tw,
+                    const __grid_constant__ CUtensorMap tu,
+                    const __grid_constant__ CUtensorMap tres,
+                    const __grid_constant__ CUtensorMap tdu,
+                    const __grid_constant__ CUtensorMap tdres,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ shift,
+                    const float* __restrict__ d1, const float* __restrict__ d2,
+                    float* __restrict__ part, int N, int Cin, int Cout,
+                    int relu, int store_dres) {
+  using C = DxWg<RES>;
+  constexpr int STAGES = C::STAGES, UBUFS = C::UBUFS;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* sm = align1024(smem_wg);
+  float* sc = reinterpret_cast<float*>(sm + C::EPI);
+  float* sh = sc + WG_TILE;
+  float* red = sh + WG_TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::BARS);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* ufull = empty + STAGES;
+  uint64_t* uempty = ufull + UBUFS;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wa = (warp % T::WM) * MT * 16, wb = (warp / T::WM) * NT * 8;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const int KT = (Cout + BK16 - 1) / BK16;
+  const int P = gridDim.x, p = blockIdx.x;
+  const int c0 = blockIdx.y * WG_TILE;
+  const int row_tiles = (N + WG_TILE - 1) / WG_TILE;
+  const int KT = (Cout + WG_BK - 1) / WG_BK;
 
-  for (int c = threadIdx.x; c < BN; c += THREADS) {
-    sc[c] = col0 + c < Cin ? scale[col0 + c] : 0.f;
-    sh[c] = col0 + c < Cin ? shift[col0 + c] : 0.f;
+  init_ring(bars, STAGES);
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < UBUFS; ++b) {
+      mbar_init(ufull + b, 1);
+      mbar_init(uempty + b, 2);   // a storing thread a consumer warpgroup
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wgi = warp_uniform(threadIdx.x >> 7);   // the warpgroup
 
-  auto load = [&](int kt) {
-    bf16* ds = reinterpret_cast<bf16*>(smem_b + (size_t)(kt % STAGES) * S::STAGE_BYTES);
-    const int k0 = kt * BK16;
-    load_window_bf16<BM, BK16, THREADS>(ds, S::LD, dy, Cout, row0, N, k0, Cout);
-    load_window_bf16<BM, BK16, THREADS>(ds + S::A, S::LD, y, Cout, row0, N, k0,
-                                        Cout);
-    load_window_bf16<BN, BK16, THREADS>(ds + 2 * S::A, S::LD, w, Cout, col0,
-                                        Cin, k0, Cout);
-    float* e = reinterpret_cast<float*>(ds + 2 * S::A + S::W);
-    load_window<1, BK16, 4, THREADS>(e, 0, d1, 0, 0, 1, k0, Cout);
-    load_window<1, BK16, 4, THREADS>(e + BK16, 0, d2, 0, 0, 1, k0, Cout);
+  if (wgi == 2) {       // the producer
+    producer_regs();
+    if (warp != WG_CONSUMER_WARPS || lane != 0) return;
+    int it = 0, tile = 0;
+    for (int rt = p; rt < row_tiles; rt += P, ++tile) {
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, C::STAGE);
+        unsigned char* st = sm + s * C::STAGE;
+        tma_load_2d(st, &tdy, full + s, kt * WG_BK, rt * WG_TILE);
+        tma_load_2d(st + C::A_BYTES, &ty, full + s, kt * WG_BK,
+                    rt * WG_TILE);
+        tma_load_2d(st + 2 * C::A_BYTES, &tw, full + s, kt * WG_BK, c0);
+      }
+      const int b = tile % UBUFS;
+      mbar_wait(uempty + b, ((tile / UBUFS) & 1) ^ 1);
+      mbar_expect_tx(ufull + b, C::UBUF);
+      unsigned char* ub = sm + C::UOFF + b * C::UBUF;
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        tma_load_2d(ub + a * C::U_ATOM, &tu, ufull + b, c0 + 64 * a,
+                    rt * WG_TILE);
+        if constexpr (RES)
+          tma_load_2d(ub + C::U_BYTES + a * C::U_ATOM, &tres, ufull + b,
+                      c0 + 64 * a, rt * WG_TILE);
+      }
+    }
+    return;
+  }
+  consumer_regs();
+
+  // the tile's scale and shift (both warpgroups write the same values)
+  {
+    const int c = threadIdx.x & (WG_TILE - 1);
+    const bool ok = c0 + c < Cin;
+    sc[c] = ok ? scale[c0 + c] : 0.f;
+    sh[c] = ok ? shift[c0 + c] : 0.f;
+  }
+  named_sync(1, 2 * 128);
+
+  const int wg = wgi, g = lane >> 2, t = lane & 3;
+  const int r_in = 64 * wg + 16 * (warp & 3) + g;   // and r_in + 8
+  const bool storer = (threadIdx.x & 127) == 0;     // a warpgroup's TMA
+  float acc[64];
+  float ps[16][2], pt[16][2];   // the thread's columns' sums of dz*u, dz
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    ps[j][0] = ps[j][1] = pt[j][0] = pt[j][1] = 0.f;
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+
+  // stage s's A fragments of k16 steps 0..3: dy_eff of the warpgroup's
+  // rows, columns k0..k0 + 63
+  auto build = [&](unsigned (&a)[4][4], int s, int k0) {
+    const unsigned st = smem_u32(sm + s * C::STAGE);
+    unsigned ya[4][4];
+    load_a<WG_BK>(a, st, WG_TILE, 64 * wg);
+    load_a<WG_BK>(ya, st + C::A_BYTES, WG_TILE, 64 * wg);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {   // columns 2t, 2t + 1 (+ 8 h)
+        const int col = k0 + 16 * kk + 2 * t + 8 * h;
+        const bool ok = col < Cout;
+        const float2 e1 = ld_f2_if(d1 + col, ok);
+        float2 e2 = ld_f2_if(d2 + col, ok);
+        e2.x *= 2.f;
+        e2.y *= 2.f;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {   // rows g, g + 8
+          unsigned& x = a[kk][2 * h + r];
+          const unsigned yv = ya[kk][2 * h + r];
+          x = pack_bf16x2(
+              __fadd_rn(__fadd_rn(bf16_lo(x), e1.x),
+                        __fmul_rn(bf16_lo(yv), e2.x)),
+              __fadd_rn(__fadd_rn(bf16_hi(x), e1.y),
+                        __fmul_rn(bf16_hi(yv), e2.y)));
+        }
+      }
+  };
+  auto issue = [&](const unsigned (&a)[4][4], int s, int kt) {
+    const unsigned wt = smem_u32(sm + s * C::STAGE + 2 * C::A_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs_k<WG_TILE>(acc, a[kk], desc_k<WG_BK>(wt, WG_TILE, 0, kk),
+                          kt | kk);   // the tile's first product: acc = 0
+    wgmma_commit();
   };
 
-  float acc[MT][NT][4];
-  zero_acc(acc);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt has landed; stage kt - 1 is free
-    if (kt + STAGES - 1 < KT) load(kt + STAGES - 1);
-    cp_async_commit();
-    bf16* ds = reinterpret_cast<bf16*>(
-        smem_b + (size_t)(kt % STAGES) * S::STAGE_BYTES);
-    const bf16* ws = ds + 2 * S::A;
-    const float* e1 = reinterpret_cast<const float*>(ws + S::W);
-    const float* e2 = e1 + BK16;
-    // dy_eff = dy + d1 + 2 y d2, rounded as PyTorch rounds
-    for (int c = threadIdx.x; c < BM * BK16 / 8; c += THREADS) {
-      const int r = c / (BK16 / 8), k = (c % (BK16 / 8)) * 8;
-      uint4* p = reinterpret_cast<uint4*>(ds + r * S::LD + k);
-      float f[8], q[8];
-      unpack8(*p, f);
-      unpack8(*reinterpret_cast<const uint4*>(ds + S::A + r * S::LD + k), q);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        f[e] = __fadd_rn(__fadd_rn(f[e], e1[k + e]),
-                         __fmul_rn(q[e], 2.f * e2[k + e]));
-      *p = pack8(f);
+  int it = 0, tile = 0;
+  for (int rt = p; rt < row_tiles; rt += P, ++tile) {
+    const int row0 = rt * WG_TILE;
+    unsigned a[4][4];
+    mbar_wait(full + it % STAGES, (it / STAGES) & 1);
+    build(a, it % STAGES, 0);
+    for (int kt = 0; kt < KT - 1; ++kt, ++it) {
+      wgmma_fence();
+      issue(a, it % STAGES, kt);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive_if(empty + it % STAGES, lane == 0);
+      mbar_wait(full + (it + 1) % STAGES, ((it + 1) / STAGES) & 1);
+      build(a, (it + 1) % STAGES, (kt + 1) * WG_BK);
     }
-    __syncthreads();
-    mma_stage<MT, NT, false, false>(acc, ds, S::LD, ws, S::LD, wa, wb, lane);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: u (and res) are staged there
+    wgmma_fence();
+    issue(a, it % STAGES, KT - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive_if(empty + it % STAGES, lane == 0);
+    ++it;
 
-  // u's (and res's) tile [BM][BN + 8] by 16-byte cp.async; du and dres
-  // overwrite them in place, then leave in 16-byte words
-  const bool has_res = res != nullptr;
-  bf16* ut = reinterpret_cast<bf16*>(smem_b);
-  bf16* rt = ut + BM * S::ULD;
-  load_window_bf16<BM, BN, THREADS>(ut, S::ULD, u, Cin, row0, N, col0, Cin);
-  if (has_res)
-    load_window_bf16<BM, BN, THREADS>(rt, S::ULD, res, Cin, row0, N, col0,
-                                      Cin);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  float ps[NT][2], pt[NT][2];  // the thread's columns' sums of dz*u, dz
+    // gate from the landed u (and res); du (and dres) over them; the
+    // column sums (rows past N and columns past Cin give 0)
+    const int b = tile % UBUFS;
+    mbar_wait(ufull + b, (tile / UBUFS) & 1);
+    unsigned char* ub = sm + C::UOFF + b * C::UBUF;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) ps[j][0] = ps[j][1] = pt[j][0] = pt[j][1] = 0.f;
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = wa + i * 16 + g + 8 * h;
-      const bool in = row0 + m < N;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = wb + j * 8 + 2 * t;  // and n + 1 (Cin % 8 == 0)
-        unsigned* up = reinterpret_cast<unsigned*>(ut + m * S::ULD + n);
-        unsigned* rp = reinterpret_cast<unsigned*>(rt + m * S::ULD + n);
-        const unsigned uw = *up, rw = has_res ? *rp : 0u;
+      for (int r = 0; r < 2; ++r) {
+        const int rl = r_in + 8 * r, n = 8 * j + 2 * t;
+        const bool ok = row0 + rl < N && c0 + n < Cin;
+        unsigned* up = reinterpret_cast<unsigned*>(
+            ub + (j >> 3) * C::U_ATOM + rl * 128 +
+            16 * ((j & 7) ^ (rl & 7)) + 4 * t);
+        const unsigned uw = *up;
         const float uu[2] = {bf16_lo(uw), bf16_hi(uw)};
-        const float rr[2] = {bf16_lo(rw), bf16_hi(rw)};
-        float gv[2] = {acc[i][j][2 * h], acc[i][j][2 * h + 1]};
+        unsigned rw = 0u;
+        if constexpr (RES) rw = up[C::U_BYTES / 4];
+        float gv[2] = {acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]};
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
-          float p = __fadd_rn(__fmul_rn(uu[q], sc[n + q]), sh[n + q]);
-          if (has_res) p = __fadd_rn(p, rr[q]);
-          if ((relu && !(p > 0.f)) || !in || col0 + n >= Cin) gv[q] = 0.f;
-        }
-        *up = pack_bf16x2(__fmul_rn(gv[0], sc[n]), __fmul_rn(gv[1], sc[n + 1]));
-        if (has_res) *rp = pack_bf16x2(gv[0], gv[1]);
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
+          float pre = __fadd_rn(__fmul_rn(uu[q], sc[n + q]), sh[n + q]);
+          if constexpr (RES)
+            pre = __fadd_rn(pre, q ? bf16_hi(rw) : bf16_lo(rw));
+          gv[q] = (relu && !(pre > 0.f)) || !ok ? 0.f : gv[q];
           ps[j][q] = fmaf(gv[q], uu[q], ps[j][q]);
           pt[j][q] = __fadd_rn(pt[j][q], gv[q]);
         }
+        *up = pack_bf16x2(__fmul_rn(gv[0], sc[n]), __fmul_rn(gv[1], sc[n + 1]));
+        if constexpr (RES) up[C::U_BYTES / 4] = pack_bf16x2(gv[0], gv[1]);
       }
+    // the warpgroup's 64 rows of du (and dres) out by TMA, then the
+    // buffer released to the producer
+    fence_async_shared();
+    named_sync(2 + wg, 128);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      const unsigned char* src = ub + a * C::U_ATOM + 64 * wg * 128;
+      tma_store_2d_if(&tdu, src, c0 + 64 * a, row0 + 64 * wg, storer);
+      if constexpr (RES)
+        tma_store_2d_if(&tdres, src + C::U_BYTES, c0 + 64 * a,
+                        row0 + 64 * wg, storer && store_dres);
     }
-  __syncthreads();
-  store_tile_bf16<BM, BN, THREADS>(du, Cin, row0, N, col0, Cin, ut, S::ULD);
-  if (dres != nullptr)
-    store_tile_bf16<BM, BN, THREADS>(dres, Cin, row0, N, col0, Cin, rt,
-                                     S::ULD);
-  block_col_partials<T>(ps, pt, red, part, col0, Cin);
+    tma_store_wait_if(storer);
+    mbar_arrive_if(uempty + b, storer);
+  }
+  tma_store_drain_if(storer);
+
+  // the block's column partials in a fixed order: over the 8 lanes of one
+  // t (a butterfly: every lane gets the same sums), then over the 8 warps
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int x = 4; x < 32; x <<= 1) {
+        ps[j][q] += __shfl_xor_sync(0xffffffffu, ps[j][q], x);
+        pt[j][q] += __shfl_xor_sync(0xffffffffu, pt[j][q], x);
+      }
+      red[(warp * 2) * WG_TILE + 8 * j + 2 * t + q] = ps[j][q];
+      red[(warp * 2 + 1) * WG_TILE + 8 * j + 2 * t + q] = pt[j][q];
+    }
+  named_sync(1, 2 * 128);
+  {
+    const int which = threadIdx.x >> 7, c = threadIdx.x & (WG_TILE - 1);
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WG_CONSUMER_WARPS; ++w)
+      s += red[(w * 2 + which) * WG_TILE + c];
+    st_f32_if(part + ((size_t)which * P + p) * Cin + c0 + c, s,
+              c0 + c < Cin);
+  }
 }
 
-// B3's stage: u (and res) [BK16 rows][BM + 8] and y, dy [BK16][BN + 8]
-// (bf16), as they lie in device memory; after the ring the thread's f32
-// sums of its accumulators [MT * NT * 4][THREADS], then the tile's scale
-// and shift [BM] and d1, 2 * d2 [BN] (f32)
-template <class T>
-struct DwBf16Smem {
-  static constexpr int ULD = T::BM + 8, YLD = T::BN + 8;
-  static constexpr int U = BK16 * ULD, Y = BK16 * YLD;   // bf16 elements
-  __host__ __device__ static constexpr int stage_bytes(bool has_res) {
-    return 2 * ((has_res ? 2 : 1) * U + 2 * Y);
-  }
-  static constexpr int TOTAL = T::MT * T::NT * 4 * T::THREADS;  // floats
-  static constexpr size_t bytes(bool has_res) {
-    return (size_t)T::STAGES * stage_bytes(has_res) +
-           sizeof(float) * (TOTAL + 2 * T::BM + 2 * T::BN);
-  }
+// B3's block: the ring's stages (u, and res, [64 rows][128 channels]; y, dy
+// [64 rows][128 outputs]), then d1 and 2 * d2 of the tile's outputs [128]
+// (f32), then the mbarriers (the ring's, and a "formed" one a stage)
+template <bool RES>
+struct DwWg {
+  static constexpr int STAGES = RES ? 3 : 4;
+  static constexpr int U_BYTES = 2 * ATOM_BYTES;          // u or res
+  static constexpr int Y_OFF = (RES ? 2 : 1) * U_BYTES;   // y, then dy
+  static constexpr int STAGE = Y_OFF + 2 * U_BYTES;
+  static constexpr int EPI = STAGES * STAGE;
+  static constexpr int BARS = EPI + 4 * 2 * WG_TILE;
+  static constexpr size_t BYTES = BARS + 8 * (1 + 3 * STAGES) + 1024;
 };
+// B3's block is four warpgroups: two consumers, the producer (warp 8 issues
+// the loads) and the formers of dy_eff (two chunks at a time), each share of
+// registers handed on by setmaxnreg: 2 * 128 * 200 + 128 * 24 + 128 * 88 =
+// 65 536
+constexpr int DW_THREADS = 512;
+constexpr int DW_FORMERS = 128;
+constexpr int DW_FORMER_REGS = 88, DW_CONSUMER_REGS = 200;
 
 // ------------------------------------------------------------- B3, bf16
 // dw = z^T @ dy_eff: M = Cin, N = Cout, K = rows. Block (m, n, s) sums the
-// rows [s * chunk, + chunk) into out[s]. A landed stage's u tile becomes z =
-// act(pre) in place (rows past the chunk z = 0), its dy tile dy_eff; A is
-// stored [k][m] and B [k][n], both read by ldmatrix.trans.
-template <class T>
-__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
-bwd_dw_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
-                   const float* __restrict__ shift, const bf16* __restrict__ res,
-                   const bf16* __restrict__ y, const bf16* __restrict__ dy,
-                   const float* __restrict__ d1, const float* __restrict__ d2,
-                   float* __restrict__ out, int N, int Cin, int Cout, int relu,
-                   int chunk) {
-  using S = DwBf16Smem<T>;
-  constexpr int BM = T::BM, BN = T::BN, MT = T::MT, NT = T::NT;
-  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  const bool has_res = res != nullptr;
-  const int stage = S::stage_bytes(has_res);
-  const int ya = (has_res ? 2 : 1) * S::U;   // y after u (and res)
-  float* total = reinterpret_cast<float*>(smem_b + (size_t)STAGES * stage);
-  float* sc = total + S::TOTAL;   // the tile's channels' scale, shift
-  float* sh = sc + BM;
-  float* e1 = sh + BM;            // its outputs' d1, 2 * d2
-  float* e2 = e1 + BN;
+// rows [s * chunk, + chunk) into out[s] (split-K: the blocks of one chunk
+// are neighbours in launch order, so they read its u, y and dy from L2).
+// Consumer warpgroup wg takes channels 64 wg.. of the tile: its A
+// fragments (z^T: m = channel, k = row) come from the landed u (and res)
+// tile by ldmatrix.trans, with the affine, the activation and the row
+// mask (rows at or past the chunk's end, or N, give z = 0) applied in
+// registers. dy_eff = dy + d1 + 2 y d2 is B, MN-major: a fourth
+// warpgroup, the formers, forms it in place in the landed dy tile and
+// arrives on the stage's "formed" barrier (fence.proxy.async first), so
+// that the consumers never wait on each other: one consumer's products run
+// while the other forms z. Every WG_FLUSH stages the accumulators are
+// added into f32 sums in registers (the tensor cores add with truncation;
+// a long chain drifts).
+template <bool RES>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tu,
+                    const __grid_constant__ CUtensorMap tres,
+                    const __grid_constant__ CUtensorMap ty,
+                    const __grid_constant__ CUtensorMap tdy,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ shift,
+                    const float* __restrict__ d1, const float* __restrict__ d2,
+                    float* __restrict__ out, int N, int Cin, int Cout,
+                    int relu, int chunk) {
+  using C = DwWg<RES>;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* sm = align1024(smem_wg);
+  float* e1 = reinterpret_cast<float*>(sm + C::EPI);
+  float* e2 = e1 + WG_TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::BARS);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+  uint64_t* formed = empty + STAGES;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wa = (warp % T::WM) * MT * 16, wb = (warp / T::WM) * NT * 8;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int m0 = blockIdx.x * WG_TILE, n0 = blockIdx.y * WG_TILE;
   const int r_begin = blockIdx.z * chunk;
   const int r_end = min(r_begin + chunk, N);
-  const int steps = (r_end - r_begin + BK16 - 1) / BK16;
+  const int steps = (r_end - r_begin + WG_BK - 1) / WG_BK;
 
-  for (int c = threadIdx.x; c < BM; c += THREADS) {
-    sc[c] = m0 + c < Cin ? scale[m0 + c] : 0.f;
-    sh[c] = m0 + c < Cin ? shift[m0 + c] : 0.f;
+  init_ring(bars, STAGES);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(formed + s, DW_FORMERS / 32);
+    mbar_init_fence();
   }
-  for (int c = threadIdx.x; c < BN; c += THREADS) {
-    e1[c] = n0 + c < Cout ? d1[n0 + c] : 0.f;
-    e2[c] = n0 + c < Cout ? 2.f * d2[n0 + c] : 0.f;
+  __syncthreads();
+  const int warp = warp_uniform(threadIdx.x >> 5), lane = threadIdx.x & 31;
+  const int wgi = warp_uniform(threadIdx.x >> 7);
+
+  if (wgi == 2) {       // the producer
+    producer_regs();
+    if (warp != WG_CONSUMER_WARPS || lane != 0) return;
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % STAGES, r0 = r_begin + i * WG_BK;
+      mbar_wait(empty + s, ((i / STAGES) & 1) ^ 1);
+      mbar_expect_tx(full + s, C::STAGE);
+      unsigned char* st = sm + s * C::STAGE;
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        tma_load_2d(st + a * ATOM_BYTES, &tu, full + s, m0 + 64 * a, r0);
+        if constexpr (RES)
+          tma_load_2d(st + C::U_BYTES + a * ATOM_BYTES, &tres, full + s,
+                      m0 + 64 * a, r0);
+        tma_load_2d(st + C::Y_OFF + a * ATOM_BYTES, &ty, full + s,
+                    n0 + 64 * a, r0);
+        tma_load_2d(st + C::Y_OFF + C::U_BYTES + a * ATOM_BYTES, &tdy,
+                    full + s, n0 + 64 * a, r0);
+      }
+    }
+    return;
+  }
+  if (wgi == 3) {       // the formers
+    regs_dec<DW_FORMER_REGS>();
+    // d1 and 2 * d2 of the tile's outputs, then dy_eff = dy + d1 + 2 y d2
+    // in place, a stage's 1024 16-byte chunks over 128 threads
+    const int f = threadIdx.x - 128 * 3;
+    for (int c = f; c < WG_TILE; c += DW_FORMERS) {
+      const bool ok = n0 + c < Cout;
+      e1[c] = ok ? d1[n0 + c] : 0.f;
+      e2[c] = ok ? 2.f * d2[n0 + c] : 0.f;
+    }
+    named_sync(1, DW_FORMERS);
+    for (int i = 0; i < steps; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(full + s, (i / STAGES) & 1);
+      unsigned char* yt = sm + s * C::STAGE + C::Y_OFF;
+#pragma unroll 2
+      for (int q = f; q < 2 * 512; q += DW_FORMERS) {
+        const int atom = q >> 9, row = (q >> 3) & 63, pc = q & 7;
+        const int n = 64 * atom + 8 * (pc ^ (row & 7));
+        const int off = atom * ATOM_BYTES + row * 128 + pc * 16;
+        uint4* dp = reinterpret_cast<uint4*>(yt + C::U_BYTES + off);
+        float v[8], yv[8], a1[8], a2[8];
+        unpack8(*dp, v);
+        unpack8(*reinterpret_cast<const uint4*>(yt + off), yv);
+        *reinterpret_cast<float4*>(a1) = *reinterpret_cast<const float4*>(e1 + n);
+        *reinterpret_cast<float4*>(a1 + 4) =
+            *reinterpret_cast<const float4*>(e1 + n + 4);
+        *reinterpret_cast<float4*>(a2) = *reinterpret_cast<const float4*>(e2 + n);
+        *reinterpret_cast<float4*>(a2 + 4) =
+            *reinterpret_cast<const float4*>(e2 + n + 4);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[e] = __fadd_rn(__fadd_rn(v[e], a1[e]), __fmul_rn(yv[e], a2[e]));
+        *dp = pack8(v);
+      }
+      fence_async_shared();
+      __syncwarp();
+      mbar_arrive_if(formed + s, lane == 0);
+    }
+    return;
   }
 
-  auto load = [&](int step) {
-    bf16* us = reinterpret_cast<bf16*>(smem_b + (size_t)(step % STAGES) * stage);
-    const int r0 = r_begin + step * BK16;
-    load_window_bf16<BK16, BM, THREADS>(us, S::ULD, u, Cin, r0, r_end, m0, Cin);
-    if (has_res)
-      load_window_bf16<BK16, BM, THREADS>(us + S::U, S::ULD, res, Cin, r0,
-                                          r_end, m0, Cin);
-    load_window_bf16<BK16, BN, THREADS>(us + ya, S::YLD, y, Cout, r0, r_end,
-                                        n0, Cout);
-    load_window_bf16<BK16, BN, THREADS>(us + ya + S::Y, S::YLD, dy, Cout, r0,
-                                        r_end, n0, Cout);
+  regs_inc<DW_CONSUMER_REGS>();
+  const int wg = wgi, wq = warp & 3, g = lane >> 2, t = lane & 3;
+  // the thread's channels m0 + 64 wg + 16 wq + g (+ 8): scale and shift
+  float csc[2], csh[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 64 * wg + 16 * wq + g + 8 * h;
+    const bool ok = m < Cin;
+    csc[h] = ok ? scale[m] : 0.f;
+    csh[h] = ok ? shift[m] : 0.f;
+  }
+  // ldmatrix.trans addresses: lane l gives row (l & 7) + 8 (l >> 4) of the
+  // k16 step, channels 16 wq + 8 ((l >> 3) & 1).. of the warpgroup's atom
+  const int lrow = (lane & 7) + 8 * (lane >> 4);
+  const int lchunk = 2 * wq + ((lane >> 3) & 1);
+
+  // stage i (rows r0.. of the chunk, `live` of them real): the
+  // warpgroup's z fragments (wgmma's input registers, written while no
+  // product is in flight: else ptxas serialises every wgmma)
+  auto prep = [&](unsigned (&a)[4][4], int i) {
+    const int s = i % STAGES;
+    mbar_wait(full + s, (i / STAGES) & 1);
+    const unsigned char* ut = sm + s * C::STAGE + wg * ATOM_BYTES;
+    const int live = r_end - (r_begin + i * WG_BK);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 16 * kk + lrow;
+      const unsigned char* at = ut + k * 128 + 16 * (lchunk ^ (k & 7));
+      unsigned uu[4], rr[4];
+      ldmatrix_x4_trans(uu, reinterpret_cast<const bf16*>(at));
+      if constexpr (RES)
+        ldmatrix_x4_trans(rr, reinterpret_cast<const bf16*>(at + C::U_BYTES));
+      // uu[e]: channel g + 8 (e & 1), rows 2t, 2t + 1 (+ 8 (e >> 1))
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * kk + 2 * t + 8 * (e >> 1);
+        float z[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          z[q] = q ? bf16_hi(uu[e]) : bf16_lo(uu[e]);
+          z[q] = __fadd_rn(__fmul_rn(z[q], csc[e & 1]), csh[e & 1]);
+          if constexpr (RES)
+            z[q] = __fadd_rn(z[q], q ? bf16_hi(rr[e]) : bf16_lo(rr[e]));
+          if (relu) z[q] = fmaxf(z[q], 0.f);
+          z[q] = row + q < live ? z[q] : 0.f;
+        }
+        a[kk][e] = pack_bf16x2(z[0], z[1]);
+      }
+    }
   };
-
-  float acc[MT][NT][4];
-  zero_acc(acc);
-  // total += acc, acc = 0 (each thread its own words: no barrier)
+  float acc[64], sums[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = sums[e] = 0.f;
+  // the products of stage i, once its dy_eff is formed; the first of a
+  // flush period starts from 0
+  auto issue = [&](const unsigned (&a)[4][4], int i) {
+    mbar_wait(formed + i % STAGES, (i / STAGES) & 1);
+    const unsigned dt =
+        smem_u32(sm + (i % STAGES) * C::STAGE + C::Y_OFF + C::U_BYTES);
+    const int keep = i % WG_FLUSH != 0;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<WG_TILE>(acc, a[kk], desc_mn<WG_TILE>(dt, WG_BK, kk),
+                        keep | kk);
+    wgmma_commit();
+  };
   auto flush = [&]() {
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float* p = total + ((i * NT + j) * 4 + c) * THREADS + threadIdx.x;
-          *p = __fadd_rn(*p, acc[i][j][c]);
-          acc[i][j][c] = 0.f;
-        }
+    for (int e = 0; e < 64; ++e) sums[e] = __fadd_rn(sums[e], acc[e]);
   };
-#pragma unroll
-  for (int e = 0; e < MT * NT * 4; ++e) total[e * THREADS + threadIdx.x] = 0.f;
 
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load(s);
-    cp_async_commit();
+  // a warpgroup's z and products in turn: the other warpgroup's products
+  // run while it forms z
+  unsigned a[4][4];
+  for (int i = 0; i < steps; ++i) {
+    prep(a, i);
+    issue(a, i);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive_if(empty + i % STAGES, lane == 0);
+    if ((i + 1) % WG_FLUSH == 0) flush();
   }
-  for (int it = 0; it < steps; ++it) {
-    if (it % BF_FLUSH == 0 && it > 0) flush();
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage it has landed; stage it - 1 is free
-    if (it + STAGES - 1 < steps) load(it + STAGES - 1);
-    cp_async_commit();
-    bf16* us = reinterpret_cast<bf16*>(smem_b + (size_t)(it % STAGES) * stage);
-    bf16* ys = us + ya;
-    bf16* ds = ys + S::Y;
-    const int live = r_end - (r_begin + it * BK16);   // rows of the chunk
-    // z = act(u * scale + shift [+ res]) of the channels, 0 past the chunk
-    for (int c = threadIdx.x; c < BK16 * BM / 8; c += THREADS) {
-      const int r = c / (BM / 8), m = (c % (BM / 8)) * 8;
-      uint4* p = reinterpret_cast<uint4*>(us + r * S::ULD + m);
-      float f[8], q[8];
-      unpack8(*p, f);
-      if (has_res)
-        unpack8(*reinterpret_cast<const uint4*>(us + S::U + r * S::ULD + m), q);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        f[e] = __fadd_rn(__fmul_rn(f[e], sc[m + e]), sh[m + e]);
-        if (has_res) f[e] = __fadd_rn(f[e], q[e]);
-        if (relu) f[e] = fmaxf(f[e], 0.f);
-        if (r >= live) f[e] = 0.f;
-      }
-      *p = pack8(f);
-    }
-    // dy_eff = dy + d1 + 2 y d2 of the outputs
-    for (int c = threadIdx.x; c < BK16 * BN / 8; c += THREADS) {
-      const int r = c / (BN / 8), n = (c % (BN / 8)) * 8;
-      uint4* p = reinterpret_cast<uint4*>(ds + r * S::YLD + n);
-      float f[8], q[8];
-      unpack8(*p, f);
-      unpack8(*reinterpret_cast<const uint4*>(ys + r * S::YLD + n), q);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        f[e] = __fadd_rn(__fadd_rn(f[e], e1[n + e]), __fmul_rn(q[e], e2[n + e]));
-      *p = pack8(f);
-    }
-    __syncthreads();
-    mma_stage<MT, NT, true, true>(acc, us, S::ULD, ds, S::YLD, wa, wb, lane);
-  }
-  cp_async_wait<0>();
-  flush();
+  if (steps % WG_FLUSH != 0) flush();
 
+  // the accumulator's layout: channel m0 + 64 wg + 16 wq + g (+ 8), output
+  // n0 + 8 j + 2 t (+ 1)
   float* dst = out + (size_t)blockIdx.z * Cin * Cout;
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wa + i * 16 + g + 8 * h;
-      if (m >= Cin) continue;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = n0 + wb + j * 8 + 2 * t;  // and n + 1 (Cout % 8 == 0)
-        if (n >= Cout) continue;
-        const float* tt = total + ((i * NT + j) * 4 + 2 * h) * THREADS + threadIdx.x;
-        *reinterpret_cast<float2*>(dst + (size_t)m * Cout + n) =
-            make_float2(tt[0], tt[THREADS]);
-      }
+      const int m = m0 + 64 * wg + 16 * wq + g + 8 * h;
+      const int n = n0 + 8 * j + 2 * t;
+      st_f2_if(dst + (size_t)m * Cout + n, sums[4 * j + 2 * h],
+               sums[4 * j + 2 * h + 1], m < Cin && n < Cout);
     }
 }
 
-// The bf16 tiles. B1 and B2 take 128 rows by 64 columns (Cout or Cin <= 64;
-// 8 warps of 32 x 32) or by 128 (8 warps of 32 x 64), two blocks an SM; B3
-// 64 or 128 channels by 64 or 128 outputs.
+// B1's bf16 tiles: 128 rows by 64 columns (Cout <= 64; 8 warps of 32 x
+// 32) or by 128 (8 warps of 32 x 64), two blocks an SM.
 using Bf16Narrow = Tile<128, 64, 4, 2, 3, 2>;
 using Bf16Wide = Tile<128, 128, 4, 2, 3, 2>;
-using Bf16Dw64x64 = Tile<64, 64, 2, 2, 3, 3>;
-using Bf16Dw64x128 = Tile<64, 128, 2, 4, 3, 2>;
-using Bf16Dw128x64 = Tile<128, 64, 4, 2, 3, 2>;
-using Bf16Dw128x128 = Tile<128, 128, 4, 4, 3, 1>;
 static_assert(FwdBf16Smem<Bf16Wide>::bytes(true) <= SMEM_LIMIT / 2 &&
-                  DxBf16Smem<Bf16Wide>::BYTES <= SMEM_LIMIT / 2 &&
-                  DwBf16Smem<Bf16Dw128x128>::bytes(true) <= SMEM_LIMIT,
+                  DxWg<true>::BYTES <= SMEM_LIMIT &&
+                  DxWg<false>::BYTES <= SMEM_LIMIT &&
+                  DwWg<true>::BYTES <= SMEM_LIMIT &&
+                  DwWg<false>::BYTES <= SMEM_LIMIT,
               "the bf16 forms' shared memory");
 
 inline bool wide_bf16(int C) { return C > 64; }
 
-// B3's bf16 tile (by the widths) and split of the N rows: chunks of a
-// multiple of BK16 rows, ~2 blocks an SM in all, none shorter than 256
-DwPlan dw_plan_bf16(int N, int Cin, int Cout) {
+// B2's persistent grid: P blocks a Cin tile, ~SM_COUNT (one an SM) in all
+int dx_wgmma_blocks(int N, int Cin) {
+  int p = SM_COUNT / cdiv(Cin, WG_TILE);
+  if (p < 1) p = 1;
+  const int row_tiles = cdiv(N, WG_TILE);
+  return p < row_tiles ? p : row_tiles;
+}
+
+// B3's split of the N rows: chunks of a multiple of 16 rows (one k16
+// step; a chunk's end may fall inside a stage, which the row mask
+// handles), ~SM_COUNT blocks (one an SM) in all, none shorter than
+// DW_WG_MIN_CHUNK
+DwPlan dw_plan_wgmma(int N, int Cin, int Cout) {
   DwPlan p;
-  p.bm = Cin <= 64 ? 64 : 128;
-  p.bn = Cout <= 64 ? 64 : 128;
-  const int tiles = cdiv(Cin, p.bm) * cdiv(Cout, p.bn);
-  int splits = 2 * SM_COUNT / tiles;
-  const int most = N / 256 > 1 ? N / 256 : 1;
+  const int tiles = cdiv(Cin, WG_TILE) * cdiv(Cout, WG_TILE);
+  int splits = SM_COUNT / tiles;
+  const int most = N / DW_WG_MIN_CHUNK > 1 ? N / DW_WG_MIN_CHUNK : 1;
   if (splits > most) splits = most;
   if (splits < 1) splits = 1;
-  p.chunk = cdiv(cdiv(N, splits), BK16) * BK16;
+  p.chunk = cdiv(cdiv(N, splits), 16) * 16;
   p.splits = cdiv(N, p.chunk);
   return p;
 }
@@ -1622,40 +1905,57 @@ cudaError_t launch_fwd_bf16(const bf16* u, const float* scale,
   return cudaGetLastError();
 }
 
-template <class T>
-cudaError_t launch_bwd_dx_bf16(const bf16* u, const float* scale,
-                               const float* shift, const bf16* w,
-                               const bf16* res, const bf16* y, const bf16* dy,
-                               const float* d1, const float* d2, bf16* du,
-                               bf16* dres, float* part, int N, int Cin,
-                               int Cout, int relu, cudaStream_t st) {
-  constexpr size_t bytes = DxBf16Smem<T>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dx_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <bool RES>
+cudaError_t launch_bwd_dx_wgmma(const bf16* u, const float* scale,
+                                const float* shift, const bf16* w,
+                                const bf16* res, const bf16* y,
+                                const bf16* dy, const float* d1,
+                                const float* d2, bf16* du, bf16* dres,
+                                float* part, int N, int Cin, int Cout,
+                                int relu, int blocks, cudaStream_t st) {
+  // without a dres to write, its map points at du (never stored through:
+  // store_dres is 0)
+  CUtensorMap tdy, ty, tw, tu, tres, tdu, tdres;
+  if (!rc_map(&tdy, dy, N, Cout, WG_TILE) ||
+      !rc_map(&ty, y, N, Cout, WG_TILE) ||
+      !rc_map(&tw, w, Cin, Cout, WG_TILE) ||
+      !rc_map(&tu, u, N, Cin, WG_TILE) ||
+      !rc_map(&tres, RES ? res : u, N, Cin, WG_TILE) ||
+      !rc_map(&tdu, du, N, Cin, 64) ||
+      !rc_map(&tdres, RES ? dres : du, N, Cin, 64))
+    return cudaErrorInvalidValue;
+  constexpr size_t bytes = DxWg<RES>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      bwd_dx_wgmma_kernel<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(N, T::BM), cdiv(Cin, T::BN));
-  bwd_dx_bf16_kernel<T><<<grid, T::THREADS, bytes, st>>>(
-      u, scale, shift, w, res, y, dy, d1, d2, du, dres, part, N, Cin, Cout,
-      relu);
+  const dim3 grid(blocks, cdiv(Cin, WG_TILE));
+  bwd_dx_wgmma_kernel<RES><<<grid, WG_THREADS, bytes, st>>>(
+      tdy, ty, tw, tu, tres, tdu, tdres, scale, shift, d1, d2, part, N, Cin,
+      Cout, relu, RES && dres != nullptr);
   return cudaGetLastError();
 }
 
-template <class T>
-cudaError_t launch_bwd_dw_bf16(const bf16* u, const float* scale,
-                               const float* shift, const bf16* res,
-                               const bf16* y, const bf16* dy, const float* d1,
-                               const float* d2, float* out, int N, int Cin,
-                               int Cout, int relu, const DwPlan& plan,
-                               cudaStream_t st) {
-  const size_t bytes = DwBf16Smem<T>::bytes(res != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      bwd_dw_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <bool RES>
+cudaError_t launch_bwd_dw_wgmma(const bf16* u, const float* scale,
+                                const float* shift, const bf16* res,
+                                const bf16* y, const bf16* dy,
+                                const float* d1, const float* d2, float* out,
+                                int N, int Cin, int Cout, int relu,
+                                const DwPlan& plan, cudaStream_t st) {
+  CUtensorMap tu, tres, ty, tdy;
+  if (!rc_map(&tu, u, N, Cin, WG_BK) ||
+      !rc_map(&tres, RES ? res : u, N, Cin, WG_BK) ||
+      !rc_map(&ty, y, N, Cout, WG_BK) || !rc_map(&tdy, dy, N, Cout, WG_BK))
+    return cudaErrorInvalidValue;
+  constexpr size_t bytes = DwWg<RES>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      bwd_dw_wgmma_kernel<RES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(Cin, T::BM), cdiv(Cout, T::BN), plan.splits);
-  bwd_dw_bf16_kernel<T><<<grid, T::THREADS, bytes, st>>>(
-      u, scale, shift, res, y, dy, d1, d2, out, N, Cin, Cout, relu,
+  const dim3 grid(cdiv(Cin, WG_TILE), cdiv(Cout, WG_TILE), plan.splits);
+  bwd_dw_wgmma_kernel<RES><<<grid, DW_THREADS, bytes, st>>>(
+      tu, tres, ty, tdy, scale, shift, d1, d2, out, N, Cin, Cout, relu,
       plan.chunk);
   return cudaGetLastError();
 }
@@ -1684,8 +1984,8 @@ extern "C" long long bn_act_conv1x1_scratch_floats(int kind, int N, int Cin,
 
 // The launch a call makes, for reports: kind 0 = B1, 1 = B2, 2 = B3; writes
 // the tile (rows or Cin, columns), the grid's blocks and the dynamic shared
-// memory in bytes into out[0..3], and for B1 the stages between flushes of
-// its accumulators (0: none) into out[4].
+// memory in bytes into out[0..3], and into out[4] for B1 the stages between
+// flushes of its accumulators (0: none), for B3 the rows of a split.
 extern "C" void bn_act_conv1x1_plan(int kind, int N, int Cin, int Cout,
                                     int has_res, long long* out) {
   if (kind == 0) {
@@ -1713,6 +2013,7 @@ extern "C" void bn_act_conv1x1_plan(int kind, int N, int Cin, int Cout,
   out[0] = plan.bm;
   out[1] = plan.bn;
   out[2] = (long long)cdiv(Cin, plan.bm) * cdiv(Cout, plan.bn) * plan.splits;
+  out[4] = plan.chunk;
   const bool r = has_res != 0;
   out[3] = plan.bm == 64 && plan.bn == 64 ? dw_smem_bytes<Dw64x64>(r)
            : plan.bm == 64                ? dw_smem_bytes<Dw64x256>(r)
@@ -1844,8 +2145,8 @@ extern "C" const char* bn_act_conv1x1_error_string(int code) {
 extern "C" long long bn_act_conv1x1_scratch_floats_bf16(int kind, int N,
                                                         int Cin, int Cout) {
   if (kind == 0) return 2LL * cdiv(N, Bf16Narrow::BM) * Cout;
-  if (kind == 1) return 2LL * cdiv(N, Bf16Narrow::BM) * Cin;
-  const DwPlan plan = dw_plan_bf16(N, Cin, Cout);
+  if (kind == 1) return 2LL * dx_wgmma_blocks(N, Cin) * Cin;
+  const DwPlan plan = dw_plan_wgmma(N, Cin, Cout);
   return plan.splits > 1 ? (long long)plan.splits * Cin * Cout : 0;
 }
 
@@ -1853,26 +2154,25 @@ extern "C" void bn_act_conv1x1_plan_bf16(int kind, int N, int Cin, int Cout,
                                          int has_res, long long* out) {
   const bool r = has_res != 0;
   out[4] = 0;
-  if (kind == 0 || kind == 1) {
-    const bool wide = wide_bf16(kind == 0 ? Cout : Cin);
+  if (kind == 0) {
+    const bool wide = wide_bf16(Cout);
     out[0] = wide ? Bf16Wide::BM : Bf16Narrow::BM;
     out[1] = wide ? Bf16Wide::BN : Bf16Narrow::BN;
-    out[2] = (long long)cdiv(N, out[0]) * cdiv(kind == 0 ? Cout : Cin, out[1]);
-    if (kind == 0)
-      out[3] = wide ? FwdBf16Smem<Bf16Wide>::bytes(r)
-                    : FwdBf16Smem<Bf16Narrow>::bytes(r);
-    else
-      out[3] = wide ? DxBf16Smem<Bf16Wide>::BYTES : DxBf16Smem<Bf16Narrow>::BYTES;
+    out[2] = (long long)cdiv(N, out[0]) * cdiv(Cout, out[1]);
+    out[3] = wide ? FwdBf16Smem<Bf16Wide>::bytes(r)
+                  : FwdBf16Smem<Bf16Narrow>::bytes(r);
     return;
   }
-  const DwPlan plan = dw_plan_bf16(N, Cin, Cout);
-  out[0] = plan.bm;
-  out[1] = plan.bn;
-  out[2] = (long long)cdiv(Cin, plan.bm) * cdiv(Cout, plan.bn) * plan.splits;
-  out[3] = plan.bm == 64 ? (plan.bn == 64 ? DwBf16Smem<Bf16Dw64x64>::bytes(r)
-                                          : DwBf16Smem<Bf16Dw64x128>::bytes(r))
-                         : (plan.bn == 64 ? DwBf16Smem<Bf16Dw128x64>::bytes(r)
-                                          : DwBf16Smem<Bf16Dw128x128>::bytes(r));
+  out[0] = out[1] = WG_TILE;
+  if (kind == 1) {
+    out[2] = (long long)dx_wgmma_blocks(N, Cin) * cdiv(Cin, WG_TILE);
+    out[3] = r ? DxWg<true>::BYTES : DxWg<false>::BYTES;
+    return;
+  }
+  const DwPlan plan = dw_plan_wgmma(N, Cin, Cout);
+  out[2] = (long long)cdiv(Cin, WG_TILE) * cdiv(Cout, WG_TILE) * plan.splits;
+  out[3] = r ? DwWg<true>::BYTES : DwWg<false>::BYTES;
+  out[4] = plan.chunk;
 }
 
 extern "C" int bn_act_conv1x1_fwd_bf16(const void* u, const float* scale,
@@ -1916,17 +2216,17 @@ extern "C" int bn_act_conv1x1_bwd_dx_bf16(
              *yb = static_cast<const bf16*>(y),
              *dyb = static_cast<const bf16*>(dy);
   bf16 *dub = static_cast<bf16*>(du), *drb = static_cast<bf16*>(dres);
-  if (wide_bf16(Cin))
-    err = launch_bwd_dx_bf16<Bf16Wide>(ub, scale, shift, wb, rb, yb, dyb, d1,
-                                       d2, dub, drb, scratch, N, Cin, Cout,
-                                       relu, st);
+  const int blocks = dx_wgmma_blocks(N, Cin);
+  if (rb != nullptr)
+    err = launch_bwd_dx_wgmma<true>(ub, scale, shift, wb, rb, yb, dyb, d1, d2,
+                                    dub, drb, scratch, N, Cin, Cout, relu,
+                                    blocks, st);
   else
-    err = launch_bwd_dx_bf16<Bf16Narrow>(ub, scale, shift, wb, rb, yb, dyb, d1,
-                                         d2, dub, drb, scratch, N, Cin, Cout,
-                                         relu, st);
+    err = launch_bwd_dx_wgmma<false>(ub, scale, shift, wb, rb, yb, dyb, d1,
+                                     d2, dub, drb, scratch, N, Cin, Cout,
+                                     relu, blocks, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)col_reduce(scratch, dscale, dshift, cdiv(N, Bf16Narrow::BM), Cin,
-                         st);
+  return (int)col_reduce(scratch, dscale, dshift, blocks, Cin, st);
 }
 
 extern "C" int bn_act_conv1x1_bwd_dw_bf16(const void* u, const float* scale,
@@ -1944,23 +2244,14 @@ extern "C" int bn_act_conv1x1_bwd_dw_bf16(const void* u, const float* scale,
   const bf16 *ub = static_cast<const bf16*>(u), *rb = static_cast<const bf16*>(res),
              *yb = static_cast<const bf16*>(y),
              *dyb = static_cast<const bf16*>(dy);
-  const DwPlan plan = dw_plan_bf16(N, Cin, Cout);
+  const DwPlan plan = dw_plan_wgmma(N, Cin, Cout);
   float* out = plan.splits > 1 ? scratch : dw;
-  if (plan.bm == 64 && plan.bn == 64)
-    err = launch_bwd_dw_bf16<Bf16Dw64x64>(ub, scale, shift, rb, yb, dyb, d1, d2,
-                                          out, N, Cin, Cout, relu, plan, st);
-  else if (plan.bm == 64)
-    err = launch_bwd_dw_bf16<Bf16Dw64x128>(ub, scale, shift, rb, yb, dyb, d1,
-                                           d2, out, N, Cin, Cout, relu, plan,
-                                           st);
-  else if (plan.bn == 64)
-    err = launch_bwd_dw_bf16<Bf16Dw128x64>(ub, scale, shift, rb, yb, dyb, d1,
-                                           d2, out, N, Cin, Cout, relu, plan,
-                                           st);
+  if (rb != nullptr)
+    err = launch_bwd_dw_wgmma<true>(ub, scale, shift, rb, yb, dyb, d1, d2,
+                                    out, N, Cin, Cout, relu, plan, st);
   else
-    err = launch_bwd_dw_bf16<Bf16Dw128x128>(ub, scale, shift, rb, yb, dyb, d1,
-                                            d2, out, N, Cin, Cout, relu, plan,
-                                            st);
+    err = launch_bwd_dw_wgmma<false>(ub, scale, shift, rb, yb, dyb, d1, d2,
+                                     out, N, Cin, Cout, relu, plan, st);
   if (err != cudaSuccess || plan.splits == 1) return (int)err;
   const size_t count = (size_t)Cin * Cout;
   split_reduce_kernel<<<(unsigned)((count + 255) / 256), 256, 0, st>>>(

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) pieces of the bf16 flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): tensor maps and TMA tile loads,
-// mbarriers, and wgmma on bf16 operands with f32 accumulators.
+// (flash_attn_fwd.cu, flash_attn_bwd.cu) and of the bf16 backward GEMMs of
+// the fused BN->ReLU->1x1-conv (bn_act_conv1x1.cu): tensor maps and TMA
+// tile loads, mbarriers, and wgmma on bf16 operands with f32 accumulators.
 //
 // Shared tiles. A [rows][D] bf16 tile of q, k, v or dout (D = 32, 64 or
-// 128) arrives by TMA as D / AC column blocks ("atoms") of AC = min(D, 64)
+// 128), or of a row-major [rows, C] matrix (64-column atoms, rc_map),
+// arrives by TMA as D / AC column blocks ("atoms") of AC = min(D, 64)
 // columns, each [rows][AC] with rows of SW = 2 * AC bytes (64 or 128),
 // swizzled by the tensor map (64B or 128B: the 16-byte chunks of a row are
 // permuted within the row, so a row stays at bytes [r * SW, (r + 1) * SW)
@@ -110,6 +112,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "r"(h), "r"(t), "r"(b)
       : "memory");
 }
+// the box at (column c, row r) of a 2-D [rows, C] tensor map (rc_map)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c),
+      "r"(r)
+      : "memory");
+}
 // generic-proxy writes to shared memory visible to TMA and wgmma
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -132,12 +144,18 @@ __host__ __device__ constexpr size_t wg_smem(size_t bytes) {
   return bytes < 120 * 1024 ? 120 * 1024 : bytes;
 }
 
-__device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+// a warpgroup's registers a thread lowered or raised to R (a multiple of
+// 8); a warpgroup that computes beside the producer keeps more than 24
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R) : "memory");
 }
-__device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R) : "memory");
 }
+__device__ __forceinline__ void producer_regs() { regs_dec<24>(); }
+__device__ __forceinline__ void consumer_regs() { regs_inc<240>(); }
 
 // the block's one-shot barrier, then a full and an empty one a stage of
 // its ring (a stage is released by each consumer warp)
@@ -523,6 +541,27 @@ inline bool bthd_map(CUtensorMap* map, const void* x, int B, int T, int H,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
                 ac == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                          : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over a row-major [rows, C] bf16 matrix x whose box is one
+// 64-column atom of `box_rows` rows, 128B-swizzled as wgmma reads it
+// (desc_k<64> / desc_mn and load_a read such atoms); rows past `rows` and
+// columns past C arrive as zeros. C % 8 == 0 and x 16-byte aligned (the
+// row stride a multiple of 16 bytes). Returns false where the driver
+// refuses it.
+inline bool rc_map(CUtensorMap* map, const void* x, int rows, int C,
+                   int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)C, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)C * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(x), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

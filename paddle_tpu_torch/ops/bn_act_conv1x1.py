@@ -30,7 +30,9 @@ dtypes (`pallas_fused.py`):
   before it is rounded to bf16; du and dres come out bf16, dscale and
   dshift f32; dw accumulates in f32 (the kernel's output) and the
   Function casts it to w's dtype. Cin and Cout must be multiples of 8
-  and every tensor 16-byte aligned (the kernels copy 8 bf16 at a time).
+  and every tensor 16-byte aligned (the kernels copy 8 bf16 at a time,
+  and B2 and B3 read and write them by TMA: Hopper kernels with wgmma,
+  `bwd_dx_wgmma_kernel` and `bwd_dw_wgmma_kernel`).
 
 No other dtype, and no upcast: a CUDA input of another dtype raises.
 
@@ -62,8 +64,8 @@ fwd_launches = 0      # B1 f32: y, ssum, ssq
 bwd_dx_launches = 0   # B2 f32: du, dres, dscale, dshift
 bwd_dw_launches = 0   # B3 f32: dw
 fwd_bf16_launches = 0     # B1 bf16
-bwd_dx_bf16_launches = 0  # B2 bf16
-bwd_dw_bf16_launches = 0  # B3 bf16
+bwd_dx_bf16_launches = 0  # B2 bf16 (bwd_dx_wgmma_kernel)
+bwd_dw_bf16_launches = 0  # B3 bf16 (bwd_dw_wgmma_kernel)
 DTYPES = (torch.float32, torch.bfloat16)
 
 # scratch kinds of bn_act_conv1x1_scratch_floats (csrc)
@@ -157,7 +159,8 @@ def launch_plan(n, cin, cout, residual=False, dtype=torch.float32):
     reports: {"fwd", "bwd_dx" or "bwd_dw": {"tile", "blocks",
     "smem_bytes"}} (the tile in rows or Cin by columns, the dynamic
     shared memory a block); "fwd" also has "flush", the stages between
-    B1's flushes of its accumulators into f32 sums (0: none)."""
+    B1's flushes of its accumulators into f32 sums (0: none), and
+    "bwd_dw" "chunk", the rows of one of B3's splits."""
     lib = _bind()
     plan = getattr(lib, "bn_act_conv1x1_plan" + _suffix(dtype))
     out = (ctypes.c_longlong * 5)()
@@ -169,6 +172,8 @@ def launch_plan(n, cin, cout, residual=False, dtype=torch.float32):
                        "smem_bytes": out[3]}
         if kind == _FWD:
             plans[name]["flush"] = out[4]
+        elif kind == _BWD_DW:
+            plans[name]["chunk"] = out[4]
     return plans
 
 

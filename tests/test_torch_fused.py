@@ -27,8 +27,11 @@ their plain versions on the card at the nine ResNet-50 site shapes
 (batch 2) and ragged ones, shows B1, B2 and B3 bit-identical on a
 repeat, and that one autograd step launches each once; and their bf16
 forms against the bf16 plain versions at the same shapes where the
-widths are multiples of 8 (`tests/test_torch_amp.py` holds the bf16
-plain versions against the JAX op). It skips here; on a
+widths are multiples of 8 and at the edges of the bf16 B2/B3's tiles and
+stages (rows 1, 127, 129, 255, 257; widths 8, 72, 136, 200, 2048; a B3
+row split whose chunk boundary falls inside a stage), and the bf16 B2
+and B3 bit-identical on a repeat (`tests/test_torch_amp.py` holds the
+bf16 plain versions against the JAX op). It skips here; on a
 machine with an H100 and no JAX: `python -m pytest --noconftest -m
 cuda tests/test_torch_fused.py`.
 """
@@ -269,10 +272,23 @@ CARD_SHAPES = {
 
 
 # the bf16 forms take widths that are multiples of 8: the sites and the
-# ragged rows
+# ragged rows, then the edges of the bf16 B2/B3's 128 x 128 tiles and
+# 64-row stages (rows 1, 127, 129, 255, 257; widths 8, 72, 136, 200, 2048)
+# and a B3 row split into two chunks whose boundary falls inside a stage
 BF16_SHAPES = {k: v for k, v in CARD_SHAPES.items()
                if v[1] % 8 == 0 and v[2] % 8 == 0}
 BF16_SHAPES["n517_72_136"] = (517, 72, 136)
+BF16_EDGE_SHAPES = {
+    "n1_8_8": (1, 8, 8),
+    "n127_8_72": (127, 8, 72),
+    "n129_72_8": (129, 72, 8),
+    "n255_136_200": (255, 136, 200),
+    "n257_200_136": (257, 200, 136),
+    "n129_2048_72": (129, 2048, 72),
+    "n257_72_2048": (257, 72, 2048),
+    "n600_64_64_split2": (600, 64, 64),
+}
+BF16_SHAPES.update(BF16_EDGE_SHAPES)
 
 
 @pytest.mark.cuda
@@ -401,6 +417,43 @@ class TestOnCard:
                 assert self._bf16_off(a, b) == 0, (nm, self._bf16_off(a, b))
             else:
                 assert self._rel(a, b) <= 1e-4, (nm, self._rel(a, b))
+
+    @pytest.mark.parametrize("with_res", [False, True])
+    @pytest.mark.parametrize("shape", ["n517_72_136", "n600_64_64_split2",
+                                       "res2_tail_b2", "res5bc_a_b2",
+                                       "res5_tail_b2"])
+    def test_bf16_backward_kernels_are_bit_identical_on_a_repeat(
+            self, shape, with_res):
+        """The bf16 B2's column partials and B3's split-K partials are
+        summed in a fixed order, without atomics: B2 and B3 repeat bit
+        for bit."""
+        n, cin, cout = BF16_SHAPES[shape]
+        u, sc, sh, w, r = (torch.from_numpy(x).cuda() for x in
+                           _inputs(n, cin, cout, seed=4))
+        u, w, r = (x.to(torch.bfloat16) for x in (u, w, r))
+        res = r if with_res else None
+        g = torch.Generator(device="cuda").manual_seed(1)
+        y = op.bn_act_conv1x1_plain(u, sc, sh, w, res)[0]
+        dy = torch.randn((n, cout), generator=g, device="cuda").to(
+            torch.bfloat16)
+        d1 = torch.randn((cout,), generator=g, device="cuda")
+        d2 = torch.randn((cout,), generator=g, device="cuda") * 0.01
+        runs = [op.bn_act_conv1x1_bwd_dx(u, sc, sh, w, res, y, dy, d1, d2)
+                + (op.bn_act_conv1x1_bwd_dw(u, sc, sh, res, y, dy, d1, d2),)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("du", "dscale", "dshift", "dres", "dw"), *runs):
+            assert (a is None and b is None) or torch.equal(a, b), nm
+
+    def test_bf16_dw_split_boundary_falls_inside_a_stage(self):
+        """n600_64_64_split2 splits B3's rows into two chunks whose
+        boundary is not a multiple of the 64-row stage: the first chunk's
+        last stage holds the second chunk's rows, which its row mask must
+        drop (test_bf16_kernels_match_plain holds the result)."""
+        n, cin, cout = BF16_SHAPES["n600_64_64_split2"]
+        plan = op.launch_plan(n, cin, cout, dtype=torch.bfloat16)["bwd_dw"]
+        assert plan["blocks"] == 2 and plan["chunk"] % 64 != 0, plan
+        assert plan["chunk"] < n, plan
 
     def test_autograd_step_launches_each_kernel_once(self):
         u, sc, sh, w, r = (torch.from_numpy(x).cuda().requires_grad_(True)
