@@ -100,12 +100,14 @@ any failure exits non-zero:
    sites' batch-64 shapes beside the plain versions, the bare GEMM in
    torch.matmul (a yardstick only) and their bounds (on the tensor
    cores, three TF32 passes), with each kernel's launch plan;
-7b. holds the kernels' bf16 forms (B2 and B3 the wgmma kernels, whose
-   build must report no serialised wgmma) against their bf16 plain
-   versions at the nine sites at batch 32, four ragged shapes (widths
-   multiples of 8) and eight at the edges of B2/B3's tiles and stages
-   (rows 1, 127, 129, 255, 257; widths 8, 72, 136, 200, 2048; a B3 row
-   split whose chunk boundary falls inside a stage), act relu or
+7b. holds the kernels' bf16 forms (the wgmma kernels B1
+   `fwd_wgmma_kernel`, B2 and B3, whose build must report no
+   serialised wgmma) against their bf16 plain versions at the nine
+   sites at batch 32, four ragged shapes (widths multiples of 8) and
+   fourteen at the edges of the tiles and stages (rows 1, 127, 129,
+   255, 257; widths 8, 72, 136, 200, 2048, Cout 264, Cin 520 and 2056;
+   a B3 row split whose chunk boundary falls inside a stage; three B1
+   walks whose ring and y buffers wrap), act relu or
    linear, with or without a residual, non-zero
    cotangents of ssum and ssq: the f32 outputs (ssum, ssq, dscale,
    dshift, dw before its cast) within 1e-4 of the largest, the bf16
@@ -137,8 +139,10 @@ any failure exits non-zero:
    on weights and images rounded to bf16; (b) 20
    fused steps of `SGD.train` at B=256 on one fixed batch: every loss
    finite, the last below the first, 29 launches of each bf16 form a
-   step and none of an f32 form; (c) 10 plain AMP steps; images/s,
-   ms/step, peak memory and the profiles;
+   step (B1 `fwd_wgmma_kernel`, B2 and B3 the backward wgmma kernels)
+   and none of an f32 form; (c) 10 plain AMP steps; images/s, ms/step,
+   peak memory and the profiles, with each port kernel's device ms a
+   step;
 10. holds the LSTM and GRU sequence kernels (B5 forward with and
     without the cell sequence, B6 backward, `csrc/lstm_seq.cu`; B7
     forward and B8 backward, `csrc/gru_seq.cu`) against their plain
@@ -925,7 +929,7 @@ PORT_KERNELS = {
     "B1 bn_act_conv1x1_fwd": "namespace)::fwd_kernel<",
     "B2 bn_act_conv1x1_bwd_dx": "bwd_dx_kernel<",
     "B3 bn_act_conv1x1_bwd_dw": "bwd_dw_kernel<",
-    "B1 bn_act_conv1x1_fwd_bf16": "namespace)::fwd_bf16_kernel<",
+    "B1 bn_act_conv1x1_fwd_bf16_wgmma": "namespace)::fwd_wgmma_kernel<",
     "B2 bn_act_conv1x1_bwd_dx_bf16_wgmma": "bwd_dx_wgmma_kernel<",
     "B3 bn_act_conv1x1_bwd_dw_bf16_wgmma": "bwd_dw_wgmma_kernel<",
     "B4f flash_attn_fwd": "flash_fwd_kernel<",
@@ -1657,8 +1661,12 @@ def fused_kernels(torch, op):
 FUSED_SPLIT_BF16 = ("n600_64_64_split2", 600, 64, 64)
 # the bf16 forms take widths that are multiples of 8: ragged rows against
 # the 128-row tile, a width past the 64/128-column tiles; then the edges of
-# the wgmma B2/B3's 128 x 128 tiles and 64-row stages (rows 1, 127, 129,
-# 255, 257; Cin and Cout 8, 72, 136, 200, 2048) and the split above
+# the wgmma kernels' 128 x 128 tiles (B1's 128 x 64 at Cout <= 64, 128 x
+# 256 at Cout >= 256) and 64-row stages (rows 1, 127, 129, 255, 257; Cin
+# and Cout 8, 72, 136, 200, 2048; Cout 264 past a 256-column tile; Cin 520
+# and 2056 with a partial last stage), the split above, and three of B1's
+# persistent walks (one a tile width) long enough that its ring and y
+# buffers wrap
 FUSED_RAGGED_BF16 = [("n100_24_16", 100, 24, 16), ("n1_24_16", 1, 24, 16),
                      ("n517_72_136", 517, 72, 136),
                      ("n300_200_72", 300, 200, 72),
@@ -1667,7 +1675,12 @@ FUSED_RAGGED_BF16 = [("n100_24_16", 100, 24, 16), ("n1_24_16", 1, 24, 16),
                      ("n255_136_200", 255, 136, 200),
                      ("n257_200_136", 257, 200, 136),
                      ("n129_2048_72", 129, 2048, 72),
-                     ("n257_72_2048", 257, 72, 2048), FUSED_SPLIT_BF16]
+                     ("n257_72_2048", 257, 72, 2048), FUSED_SPLIT_BF16,
+                     ("n127_64_8", 127, 64, 8), ("n129_520_64", 129, 520, 64),
+                     ("n257_2056_264", 257, 2056, 264),
+                     ("n4001_72_1032", 4001, 72, 1032),
+                     ("n20001_72_200", 20001, 72, 200),
+                     ("n118301_64_64", 118301, 64, 64)]
 FUSED_OUTS = ("y", "ssum", "ssq", "du", "dscale", "dshift", "dres", "dw")
 
 
@@ -3840,10 +3853,11 @@ def main() -> int:
     tail_bf16 = next(t for t in fused_times_bf16 if t["site"] == "res2_tail")
 
     def fused_row(kernel, tpu_line, launched, bf16=False):
-        # the bf16 B2 and B3 are the wgmma kernels (bwd_*_wgmma_kernel)
-        suffix = "_bf16" + ("_wgmma" if kernel != "fwd" else "")
+        # the bf16 B1, B2 and B3 are the wgmma kernels (fwd_wgmma_kernel,
+        # bwd_*_wgmma_kernel)
         return {
-            "name": f"bn_act_conv1x1_{kernel}" + (suffix if bf16 else ""),
+            "name": f"bn_act_conv1x1_{kernel}"
+                    + ("_bf16_wgmma" if bf16 else ""),
             "route": "cuda",
             "source": "paddle_tpu_torch/csrc/bn_act_conv1x1.cu",
             "replaces": f"paddle_tpu/ops/pallas_fused.py:{tpu_line}",

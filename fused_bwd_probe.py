@@ -5,13 +5,14 @@ and the card's mma.sync ceiling for each form's instruction (and, for
 bf16, wgmma's).
 
     mkdir -p _archive/other
-    for f in bn_act_conv1x1.cu tf32_mma.cuh bf16_mma.cuh; do
+    for f in bn_act_conv1x1.cu tf32_mma.cuh bf16_mma.cuh hopper_wgmma.cuh; do
         git show <rev>:paddle_tpu_torch/csrc/$f > _archive/other/$f; done
     python3 fused_bwd_probe.py _archive/other/bn_act_conv1x1.cu [f32|bf16]
 
-    python3 fused_bwd_probe.py variants
+    python3 fused_bwd_probe.py variants [fwd|dx|dw]
 
-(A revision before the bf16 forms has no bf16_mma.cuh.) Needs one CUDA
+(A revision before the bf16 forms has no bf16_mma.cuh, one before the
+wgmma kernels no hopper_wgmma.cuh.) Needs one CUDA
 card and nvcc. It probes the forms named, or else every form the other
 build exports (the bf16 entry points end in `_bf16`). At the nine
 ResNet-50 sites of `chip_smoke.py` (f32 at phase 7's batch 64, bf16 at
@@ -26,14 +27,16 @@ form's mma.sync (m16n8k8 TF32, m16n8k16 bf16) with 16 independent
 accumulators a warp (no memory traffic) at one, two and four blocks of
 8 warps an SM; for bf16 also wgmma's (m64n128k16 and m64n256k16, both
 operands in shared memory, two warpgroups a block, one block an SM), and
-the host time of one call of the bf16 B2 and B3 wrappers
-(`bn_act_conv1x1_bwd_dx` / `_bwd_dw`: checks, tensor maps, launch)
-beside the device time at the res4b-f_a site. It fails where either
-build's ptxas report says it serialised wgmma. Every line also goes to
+the host time of one call of the bf16 B1, B2 and B3 wrappers
+(`bn_act_conv1x1_fwd` / `_bwd_dx` / `_bwd_dw`: checks, tensor maps,
+scratch, launch) beside the device time at the res4b-f_a site. It
+fails where either build's ptxas report says it serialised wgmma. Every
+line also goes to
 `chiprun_out/fused_bwd_probe.txt`, with both builds' ptxas reports.
-`variants` mode instead times the bf16 B2 and B3 of this revision against
-`VARIANTS` of it (text substitutions that take one piece out: wrong
-results, timed only; all built at once) in turns, at `VARIANT_SITES`.
+`variants` mode instead times the bf16 B1, B2 and B3 of this revision
+against `VARIANTS` of it (text substitutions that take one
+piece out: wrong results, timed only; all built at once; only those of
+one kernel where it is named) in turns, at `VARIANT_SITES`.
 """
 
 from __future__ import annotations
@@ -194,8 +197,33 @@ extern "C" int wgmma_bench(float* out, int n, int blocks, int iters,
 
 SERIALISED = "wgmma.mma_async instructions are serialized"
 
-# name: substitutions in csrc/bn_act_conv1x1.cu (each must be found)
+# name: substitutions in csrc/bn_act_conv1x1.cu (each must be found); the
+# prefix names the kernel timed (fwd_: B1, dx_: B2, dw_: B3)
 VARIANTS = {
+    # B1's A fragments as u lies (no z formula, no scale and shift loads)
+    "fwd_no_z": [("          x = pack_bf16x2(z0, z1);",
+                  "          x = x + 0 * pack_bf16x2(z0, z1);")],
+    # B1 without its column sums (y still staged and stored)
+    "fwd_no_stats": [("          ps[j][0] = __fadd_rn(ps[j][0], s0);\n"
+                      "          ps[j][1] = __fadd_rn(ps[j][1], s1);\n"
+                      "          pq[j][0] = fmaf(s0, s0, pq[j][0]);\n"
+                      "          pq[j][1] = fmaf(s1, s1, pq[j][1]);\n", ""),
+                     ("        halve<8>(sy, sq, (lane >> 2) & 1, 4);\n"
+                      "        halve<4>(sy, sq, (lane >> 3) & 1, 8);\n"
+                      "        halve<2>(sy, sq, (lane >> 4) & 1, 16);\n", ""),
+                     ("        o = make_float2(__fadd_rn(o.x, sy[0]), "
+                      "__fadd_rn(o.y, sy[1]));\n"
+                      "        oq = make_float2(__fadd_rn(oq.x, sq[0]), "
+                      "__fadd_rn(oq.y, sq[1]));\n", "")],
+    # B1 without the TMA stores of y (staged, never written out)
+    "fwd_no_store": [("      tma_store_2d_if(&ty, yb + a * ATOM_BYTES, c0 + "
+                      "64 * a, row0, storer);", "      ;")],
+    # B1's tiles at most 128 columns wide (no 128 x 256)
+    "fwd_cols128": [("  return Cout <= 64 ? 64 : Cout >= 256 ? 256 : WG_TILE;",
+                     "  return Cout <= 64 ? 64 : WG_TILE;")],
+    # B1 without its products
+    "fwd_no_mma": [("      wgmma_rs<BN>(acc, a[kk], desc_mn<BN>(wt, WG_BK, "
+                    "kk),\n                   kt | kk);", "      ;")],
     # B3 without forming dy_eff in place (the fence and barrier stay)
     "dw_no_dy_eff": [("v[e] = __fadd_rn(__fadd_rn(v[e], a1[e]), "
                       "__fmul_rn(yv[e], a2[e]));", "v[e] = v[e];")],
@@ -351,10 +379,11 @@ def probe_form(torch, op, libs, form):
 
 
 def wrapper_host_ms(torch, op, u, sc, sh, w, y, dy, d1, d2, act):
-    """The host ms of one call of the bf16 B2 and B3 wrappers (the
-    checks, the tensor maps and the launch; enqueue only), beside their
-    device ms (CUDA events)."""
+    """The host ms of one call of the bf16 B1, B2 and B3 wrappers (the
+    checks, the tensor maps, the scratch and the launch; enqueue only),
+    beside their device ms (CUDA events)."""
     calls = {
+        "fwd": lambda: op.bn_act_conv1x1_fwd(u, sc, sh, w, None, act),
         "dx": lambda: op.bn_act_conv1x1_bwd_dx(u, sc, sh, w, None, y, dy, d1,
                                                d2, act),
         "dw": lambda: op.bn_act_conv1x1_bwd_dw(u, sc, sh, None, y, dy, d1,
@@ -374,13 +403,15 @@ def wrapper_host_ms(torch, op, u, sc, sh, w, y, dy, d1, d2, act):
            + json.dumps(row))
 
 
-def probe_variants(torch, op, nvcc, out_dir):
-    """This revision's bf16 B2 and B3 against each of VARIANTS, in turns
+def probe_variants(torch, op, nvcc, out_dir, kernel=None):
+    """This revision's bf16 B1, B2 and B3 against each of VARIANTS, in turns
     (this, variant, variant, this), at VARIANT_SITES."""
     from paddle_tpu_torch.ops import _build
 
     started = {}
     for name, subs in VARIANTS.items():
+        if kernel is not None and not name.startswith(kernel + "_"):
+            continue
         d = bp.variant_source(_build.SRC_DIR, out_dir, name,
                               [(op.KERNEL + ".cu", o, n) for o, n in subs])
         started[name] = bp.start(nvcc, _build.NVCC_FLAGS,
@@ -406,7 +437,7 @@ def probe_variants(torch, op, nvcc, out_dir):
         for vname, lib in libs.items():
             theirs, _o = calls(torch, lib, "_bf16", u, sc, sh, w, y, dy, d1,
                                d2, relu)
-            kern = "dw" if vname.startswith("dw") else "dx"
+            kern = vname.split("_")[0]
             ms = {"this": [], vname: []}
             for k in ("this", vname, vname, "this"):
                 fn = mine[kern] if k == "this" else theirs[kern]
@@ -469,8 +500,10 @@ def main() -> int:
     import torch
 
     if (not torch.cuda.is_available() or len(sys.argv) < 2
-            or not set(sys.argv[2:]) <= set(FORMS)
-            or (sys.argv[1] == "variants" and len(sys.argv) > 2)):
+            or (sys.argv[1] != "variants"
+                and not set(sys.argv[2:]) <= set(FORMS))
+            or (sys.argv[1] == "variants"
+                and sys.argv[2:] not in ([], ["fwd"], ["dx"], ["dw"]))):
         print(__doc__, file=sys.stderr)
         return 2
     from paddle_tpu_torch.ops import _build
@@ -486,7 +519,7 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _build._nvcc()
     if sys.argv[1] == "variants":
-        probe_variants(torch, op, nvcc, out_dir)
+        probe_variants(torch, op, nvcc, out_dir, *sys.argv[2:])
         return 0
     started = bp.start(nvcc, _build.NVCC_FLAGS, sys.argv[1],
                        os.path.join(out_dir, "other.so"))
@@ -503,7 +536,7 @@ def main() -> int:
         assert not bad, f"{k} build: ptxas serialised wgmma: {bad}"
     forms = sys.argv[2:] or [
         form for form, (suffix, *_rest) in FORMS.items()
-        if hasattr(other, f"bn_act_conv1x1_fwd{suffix}")]
+        if hasattr(libs["other"], f"bn_act_conv1x1_fwd{suffix}")]
     for form in forms:
         probe_form(torch, op, libs, form)
         mma_ceiling(torch, nvcc, out_dir, form)

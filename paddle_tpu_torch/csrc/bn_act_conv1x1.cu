@@ -994,17 +994,11 @@ cudaError_t col_reduce(const float* part, float* out_a, float* out_b,
 // bf16 on the way out, dscale and dshift f32; B3's dw in f32 (split-K
 // partials f32, summed by split_reduce_kernel in a fixed order).
 //
-// B1 is an mma.sync m16n8k16 GEMM over a ring of STAGES shared-memory
-// stages BK16 deep, filled by 16-byte cp.async (8 bf16: Cin and Cout
-// multiples of 8, every array 16-byte aligned, which the wrapper checks).
-// When a stage has landed the block turns its u tile into z in place, each
-// element once, 8 at a time; the warps then read their fragments by
-// ldmatrix (mma_stage). A block per (row tile, Cout tile).
-//
-// B2 and B3 are Hopper GEMMs (wgmma, TMA, an mbarrier ring, warp
-// specialisation; their own section below): the formed operand is built in
-// registers as wgmma's A fragments, B2 walks row tiles in a persistent grid
-// and B3 splits the rows over ~one block an SM.
+// All three are Hopper GEMMs (wgmma, TMA, an mbarrier ring, warp
+// specialisation; their own section below): the formed operand (z in B1
+// and B3, dy_eff in B2) is built in registers as wgmma's A fragments, B1
+// and B2 walk row tiles in a persistent grid and B3 splits the rows over
+// ~one block an SM.
 //
 // What bounds them: bytes at the wide ResNet-50 sites (bf16 halves the f32
 // forms' bytes) and the tensor cores' bf16 rate (989 TFLOP/s dense on an
@@ -1012,7 +1006,6 @@ cudaError_t col_reduce(const float* part, float* out_a, float* out_b,
 // into the accumulator with truncation: B1's and B2's chains are K / 16 adds
 // (128 at Cin or Cout 2048); B3 flushes its accumulators into f32 sums
 // every 256 rows, as the f32 form does.
-constexpr int BK16 = 32;     // depth of B1's bf16 stage: two k16 steps
 
 // 8 bf16 (one 16-byte word) to f32 and back
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
@@ -1025,245 +1018,7 @@ __device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
                     pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
 }
 
-// One BK16-deep stage of a warp's MT x NT mma tiles, its fragments by
-// ldmatrix from shared memory: A stored [m][k] (A_KM false) or [k][m]
-// (true), B stored [n][k] (B_KN false) or [k][n] (true); (wa, wb) the warp's
-// first row of A and column of B.
-template <int MT, int NT, bool A_KM, bool B_KN>
-__device__ __forceinline__ void mma_stage(float (&acc)[MT][NT][4],
-                                          const bf16* a, int lda,
-                                          const bf16* b, int ldb, int wa,
-                                          int wb, int lane) {
-  static_assert(NT % 2 == 0, "ldmatrix.x4 loads two n-tiles");
-#pragma unroll
-  for (int kk = 0; kk < BK16; kk += 16) {
-    unsigned af[MT][4], bfr[NT][2];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (A_KM)
-        ldmatrix_x4_trans(af[i], a + (kk + rows_hi_row(lane)) * lda + wa +
-                                     i * 16 + rows_hi_col(lane));
-      else
-        ldmatrix_x4(af[i], a + (wa + i * 16 + rows_lo_row(lane)) * lda + kk +
-                               rows_lo_col(lane));
-    }
-#pragma unroll
-    for (int jj = 0; jj < NT / 2; ++jj) {
-      unsigned r[4];
-      if (B_KN)
-        ldmatrix_x4_trans(r, b + (kk + rows_lo_row(lane)) * ldb + wb +
-                                 jj * 16 + rows_lo_col(lane));
-      else
-        ldmatrix_x4(r, b + (wb + jj * 16 + rows_hi_row(lane)) * ldb + kk +
-                           rows_hi_col(lane));
-      bfr[2 * jj][0] = r[0], bfr[2 * jj][1] = r[1];
-      bfr[2 * jj + 1][0] = r[2], bfr[2 * jj + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bfr[j]);
-  }
-}
-
-// The ROWS x COLS tile t (row stride tld, bf16) to the window at (r0, c0)
-// of a row-major [*, gld] array, rows < rlim and columns < clim, in 16-byte
-// words: a warp writes whole rows (COLS / 8 words a row)
-template <int ROWS, int COLS, int THREADS>
-__device__ __forceinline__ void store_tile_bf16(bf16* __restrict__ g, int gld,
-                                                int r0, int rlim, int c0,
-                                                int clim, const bf16* t,
-                                                int tld) {
-  constexpr int PER_ROW = COLS / 8;
-  for (int e = threadIdx.x; e < ROWS * PER_ROW; e += THREADS) {
-    const int r = e / PER_ROW, c = (e % PER_ROW) * 8;
-    if (r0 + r < rlim && c0 + c < clim)
-      *reinterpret_cast<uint4*>(g + (size_t)(r0 + r) * gld + c0 + c) =
-          *reinterpret_cast<const uint4*>(t + r * tld + c);
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_acc(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-}
-
-// B1's stage: u (and res) [BM][BK16 + 8], w [BK16][BN + 8] (bf16), then
-// scale and shift [BK16] (f32); the column partials [WM][2][BN] (f32)
-// after the ring
-template <class T>
-struct FwdBf16Smem {
-  static constexpr int LD = BK16 + 8, WLD = T::BN + 8, YLD = T::BN + 8;
-  static constexpr int A = T::BM * LD, W = BK16 * WLD;   // bf16 elements
-  __host__ __device__ static constexpr int stage_bytes(bool has_res) {
-    return 2 * ((has_res ? 2 : 1) * A + W) + 2 * BK16 * 4;
-  }
-  static constexpr size_t bytes(bool has_res) {
-    return (size_t)T::STAGES * stage_bytes(has_res) +
-           sizeof(float) * 2 * T::WM * T::BN;
-  }
-  // the epilogue stages y [BM][YLD] in the ring
-  static_assert(2 * T::BM * YLD <= T::STAGES * (2 * (A + W) + 2 * BK16 * 4),
-                "y's tile fits the ring");
-};
-
-// The block's column partials a (and b) over its rows, in a fixed order:
-// over the 8 lanes of one t (a butterfly), then over the WM warps of one
-// column; written to part[which][blockIdx.x][col0 + c] for columns < C.
-template <class T>
-__device__ __forceinline__ void block_col_partials(float (&pa)[T::NT][2],
-                                                   float (&pb)[T::NT][2],
-                                                   float* red, float* part,
-                                                   int col0, int C) {
-  constexpr int BN = T::BN, NT = T::NT;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp % T::WM, wb = (warp / T::WM) * NT * 8;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int x = 4; x < 32; x <<= 1) {
-        pa[j][q] += __shfl_xor_sync(0xffffffffu, pa[j][q], x);
-        pb[j][q] += __shfl_xor_sync(0xffffffffu, pb[j][q], x);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int c = wb + j * 8 + 2 * t + q;
-        red[(wm * 2) * BN + c] = pa[j][q];
-        red[(wm * 2 + 1) * BN + c] = pb[j][q];
-      }
-  }
-  __syncthreads();
-  for (int x = threadIdx.x; x < 2 * BN; x += T::THREADS) {
-    const int which = x / BN, c = x % BN;
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < T::WM; ++r) s += red[(r * 2 + which) * BN + c];
-    if (col0 + c < C)
-      part[((size_t)which * gridDim.x + blockIdx.x) * C + col0 + c] = s;
-  }
-}
-
-// ------------------------------------------------------------- B1, bf16
-// y = z @ w: M = rows, N = Cout, K = Cin. Block (r, c) computes the row
-// tile r of Cout tile c. A landed stage's u tile becomes z = act(u * scale
-// + shift [+ res]) in place; A's fragments by ldmatrix, w's by
-// ldmatrix.trans. Rows past N compute relu(shift) @ w and are neither
-// stored nor summed.
-template <class T>
-__global__ void __launch_bounds__(T::THREADS, T::BLOCKS)
-fwd_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
-                const float* __restrict__ shift, const bf16* __restrict__ w,
-                const bf16* __restrict__ res, bf16* __restrict__ y,
-                float* __restrict__ part, int N, int Cin, int Cout,
-                int relu) {
-  using S = FwdBf16Smem<T>;
-  constexpr int BM = T::BM, BN = T::BN, MT = T::MT, NT = T::NT;
-  constexpr int THREADS = T::THREADS, STAGES = T::STAGES;
-  extern __shared__ __align__(16) unsigned char smem_b[];
-  const bool has_res = res != nullptr;
-  const int stage = S::stage_bytes(has_res);
-  const int wa_off = (has_res ? 2 : 1) * S::A;   // w after u (and res)
-  float* red = reinterpret_cast<float*>(smem_b + (size_t)STAGES * stage);
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wa = (warp % T::WM) * MT * 16, wb = (warp / T::WM) * NT * 8;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const int KT = (Cin + BK16 - 1) / BK16;
-
-  auto load = [&](int kt) {
-    bf16* us = reinterpret_cast<bf16*>(smem_b + (size_t)(kt % STAGES) * stage);
-    const int k0 = kt * BK16;
-    load_window_bf16<BM, BK16, THREADS>(us, S::LD, u, Cin, row0, N, k0, Cin);
-    if (has_res)
-      load_window_bf16<BM, BK16, THREADS>(us + S::A, S::LD, res, Cin, row0, N,
-                                          k0, Cin);
-    bf16* ws = us + wa_off;
-    load_window_bf16<BK16, BN, THREADS>(ws, S::WLD, w, Cout, k0, Cin, col0,
-                                        Cout);
-    float* e = reinterpret_cast<float*>(ws + S::W);
-    load_window<1, BK16, 4, THREADS>(e, 0, scale, 0, 0, 1, k0, Cin);
-    load_window<1, BK16, 4, THREADS>(e + BK16, 0, shift, 0, 0, 1, k0, Cin);
-  };
-
-  float acc[MT][NT][4];
-  zero_acc(acc);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) load(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt has landed; stage kt - 1 is free
-    if (kt + STAGES - 1 < KT) load(kt + STAGES - 1);
-    cp_async_commit();
-    bf16* us = reinterpret_cast<bf16*>(smem_b + (size_t)(kt % STAGES) * stage);
-    const bf16* ws = us + wa_off;
-    const float* sc = reinterpret_cast<const float*>(ws + S::W);
-    const float* sh = sc + BK16;
-    // z = act(u * scale + shift [+ res]), rounded as PyTorch rounds
-    for (int c = threadIdx.x; c < BM * BK16 / 8; c += THREADS) {
-      const int r = c / (BK16 / 8), k = (c % (BK16 / 8)) * 8;
-      uint4* p = reinterpret_cast<uint4*>(us + r * S::LD + k);
-      float f[8], q[8];
-      unpack8(*p, f);
-      if (has_res)
-        unpack8(*reinterpret_cast<const uint4*>(us + S::A + r * S::LD + k), q);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        f[e] = __fadd_rn(__fmul_rn(f[e], sc[k + e]), sh[k + e]);
-        if (has_res) f[e] = __fadd_rn(f[e], q[e]);
-        if (relu) f[e] = fmaxf(f[e], 0.f);
-      }
-      *p = pack8(f);
-    }
-    __syncthreads();
-    mma_stage<MT, NT, false, true>(acc, us, S::LD, ws, S::WLD, wa, wb, lane);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: the y tile is staged there
-
-  // the sums of y and y^2 from the f32 accumulators; y's bf16 pairs into
-  // the tile [BM][BN + 8], then out in 16-byte words, whole rows at a time
-  bf16* yt = reinterpret_cast<bf16*>(smem_b);
-  float ps[NT][2], pq[NT][2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) ps[j][0] = ps[j][1] = pq[j][0] = pq[j][1] = 0.f;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = wa + i * 16 + g + 8 * h;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int n = wb + j * 8 + 2 * t;  // and n + 1 (Cout % 8 == 0)
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        *reinterpret_cast<unsigned*>(yt + m * S::YLD + n) = pack_bf16x2(v0, v1);
-        if (row0 + m >= N || col0 + n >= Cout) continue;
-        ps[j][0] = __fadd_rn(ps[j][0], v0);
-        ps[j][1] = __fadd_rn(ps[j][1], v1);
-        pq[j][0] = fmaf(v0, v0, pq[j][0]);
-        pq[j][1] = fmaf(v1, v1, pq[j][1]);
-      }
-    }
-  __syncthreads();
-  store_tile_bf16<BM, BN, THREADS>(y, Cout, row0, N, col0, Cout, yt, S::YLD);
-  block_col_partials<T>(ps, pq, red, part, col0, Cout);
-}
-
-// ------------------------------------------- B2 and B3, bf16: wgmma + TMA
+// -------------------------------------------- B1, B2 and B3, bf16: wgmma + TMA
 // Hopper kernels over hopper_wgmma.cuh (the tensor maps, the mbarrier ring,
 // the wgmma wrappers and the tile layouts it describes). A block holds two
 // consumer warpgroups and a producer warpgroup whose one working thread
@@ -1271,13 +1026,14 @@ fwd_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
 // row-major bf16 arrays (64-column atoms, 128B swizzle; rows and columns
 // past the arrays' ends arrive as zeros); the producer hands its registers
 // to the consumers (setmaxnreg). A stage is 64 rows of K (WG_BK); an output
-// tile is 128 x 128, 64 rows of it a consumer warpgroup (m64n128k16, 64 f32
-// accumulators a thread). One block an SM (the shared memory asks for it).
+// tile is 128 x 128 (B1 at Cout <= 64: 128 x 64), 64 rows of it a consumer
+// warpgroup (m64n128k16, 64 f32 accumulators a thread). One block an SM
+// (the shared memory asks for it).
 //
-// The formed operands (dy_eff in B2, z in B3) are built in registers as
-// wgmma's A fragments, by ldmatrix through the swizzle, the f32 formula and
-// cvt.rn.bf16x2: no pass over shared memory, and never while a product is
-// in flight (a non-wgmma write to a wgmma's input registers during a
+// The formed operands (z in B1 and B3, dy_eff in B2) are built in registers
+// as wgmma's A fragments, by ldmatrix through the swizzle, the f32 formula
+// and cvt.rn.bf16x2: no pass over shared memory, and never while a product
+// is in flight (a non-wgmma write to a wgmma's input registers during a
 // product makes ptxas serialise every wgmma of the kernel). Only B3's B,
 // dy_eff, must lie in shared memory: a fourth warpgroup forms it there in
 // place, once a stage, then makes it visible to wgmma by fence.proxy.async.
@@ -1285,14 +1041,18 @@ fwd_bf16_kernel(const bf16* __restrict__ u, const float* __restrict__ scale,
 // Consumer code holds no branch around a wgmma and no divergent one
 // anywhere: roles are tested on warp_uniform values, spins and arrivals are
 // in the asm (hopper_wgmma.cuh), bounds are predicates of the loads and
-// stores below, and B2's walk peels its last stage (ptxas serialises every
-// wgmma of a kernel that has one on a path it cannot prove uniform).
+// stores below, and B1's and B2's walks peel their last stage (ptxas
+// serialises every wgmma of a kernel that has one on a path it cannot
+// prove uniform).
 //
 // Measured on an H100 (fused_bwd_probe.py, in turns against the mma.sync
 // kernels these replace, at ResNet-50's nine sites at batch 256; variants
-// that take one piece out): the wide sites stream at ~90% of HBM's rate;
-// at the deep ones each stage costs ~1.4 us, of which the loads (~1 us a
-// 48 KB stage an SM: the L2's rate, ~6 TB/s) are the floor.
+// that take one piece out): B2's wide sites stream at ~90% of HBM's rate,
+// B1's at 72-83% (the stores of y hold them); at the deep ones the loads
+// from L2 (~6 TB/s in all; B2 ~1 us a 48 KB stage an SM) are the floor, to
+// which forming z adds ~20% in B1. B1's 128 x 256 tile (Cout >= 256) reads
+// u once for twice the columns and forms each z for twice the products:
+// 8-20% faster than 128 x 128 at the sites that take it.
 constexpr int WG_BK = 64;      // rows of K a stage: one 128-byte atom
 constexpr int WG_TILE = 128;   // an output tile: 128 x 128
 constexpr int WG_FLUSH = 4;    // B3: stages between flushes (256 rows)
@@ -1372,6 +1132,326 @@ __device__ __forceinline__ void tma_store_drain_if(bool pred) {
       "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
       "@q cp.async.bulk.wait_group 0;\n}\n" ::"r"((unsigned)pred)
       : "memory");
+}
+
+// the thread's TMA stores since the last commit made one bulk group
+__device__ __forceinline__ void tma_store_commit_if(bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
+      "@q cp.async.bulk.commit_group;\n}\n" ::"r"((unsigned)pred)
+      : "memory");
+}
+// wait until at most N of the thread's bulk groups are still reading
+// shared memory
+template <int N>
+__device__ __forceinline__ void tma_store_read_wait_if(bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.u32 q, %0, 0;\n"
+      "@q cp.async.bulk.wait_group.read %1;\n}\n" ::"r"((unsigned)pred),
+      "n"(N)
+      : "memory");
+}
+
+// one halving exchange of a warp's column sums a and b (16 each) between
+// the lanes whose g differ in one bit (lane ^ m; `bit` is the lane's): a
+// lane keeps entries i + H * bit (i < H) of each, plus its partner's same
+// entries, in x[i]
+template <int H>
+__device__ __forceinline__ void halve(float (&a)[16], float (&b)[16],
+                                      int bit, int m) {
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float sa = bit ? a[i] : a[i + H], sb = bit ? b[i] : b[i + H];
+    a[i] = __fadd_rn(bit ? a[i + H] : a[i],
+                     __shfl_xor_sync(0xffffffffu, sa, m));
+    b[i] = __fadd_rn(bit ? b[i + H] : b[i],
+                     __shfl_xor_sync(0xffffffffu, sb, m));
+  }
+}
+
+// B1's block: the ring's stages (u, and res, [128 rows][64 Cin]; w [64
+// Cin][BN] as BN / 64 atoms), as many as fit beside the rest (at most 6);
+// the staging of y, YBUFS buffers [64 rows][BN] a consumer warpgroup (one
+// at BN = 256); the column partials [8 warps][2][BN] (f32); then the
+// mbarriers
+template <bool RES, int BN>
+struct FwdWg {
+  static constexpr int U_BYTES = WG_TILE * 128;          // [128 rows][64]
+  static constexpr int W_OFF = (RES ? 2 : 1) * U_BYTES;  // w after u (res)
+  static constexpr int STAGE = W_OFF + BN / 64 * ATOM_BYTES;
+  static constexpr int YBUFS = BN == 256 ? 1 : 2;
+  static constexpr int Y_BYTES = BN / 64 * ATOM_BYTES;   // [64 rows][BN]
+  static constexpr int RED_BYTES = 4 * 2 * WG_CONSUMER_WARPS * BN;
+  static constexpr int FIT =
+      (SMEM_LIMIT - 2048 - 2 * YBUFS * Y_BYTES - RED_BYTES) / STAGE;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr int YOFF = STAGES * STAGE;
+  static constexpr int RED_OFF = YOFF + 2 * YBUFS * Y_BYTES;
+  static constexpr int BARS = RED_OFF + RED_BYTES;
+  static constexpr size_t BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// ------------------------------------------------------------- B1, bf16
+// y = z @ w: M = rows, N = Cout, K = Cin. A persistent grid: block (p, c)
+// walks row tiles p, p + P, ... of Cout tile c (the blocks of a row tile's
+// Cout tiles run together, so that they read its u from L2). The
+// producer's loads run across tile boundaries, so the next tile's first
+// stages land during a tile's epilogue. A consumer warpgroup's A fragments
+// are z = act(u * scale + shift [+ res]) of its 64 rows, from the landed u
+// (and res) tile (rounded as PyTorch rounds; scale and shift past Cin read
+// as 0, so z is 0 there); w [Cin][Cout] is B stored [k][n] (MN-major). The
+// epilogue packs y into bf16 pairs in the warpgroup's staging buffer
+// (128B-swizzled [64 rows][64] atoms; two buffers up to BN = 128, since at
+// Cin <= 64 a tile is one stage and the kernel a stream of stores), which
+// leaves by TMA (rows past N and columns past Cout clipped), and adds y
+// and y^2 of the rows before N from the f32 accumulators into the column
+// sums (w's columns past Cout arrive as zeros, so they add 0), which the
+// block reduces at its end in a fixed order into part[which][p][Cout].
+template <bool RES, int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tu,
+                 const __grid_constant__ CUtensorMap tres,
+                 const __grid_constant__ CUtensorMap tw,
+                 const __grid_constant__ CUtensorMap ty,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ shift, float* __restrict__ part,
+                 int N, int Cin, int Cout, int relu) {
+  using C = FwdWg<RES, BN>;
+  constexpr int STAGES = C::STAGES, YBUFS = C::YBUFS, NJ = BN / 8;
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  unsigned char* sm = align1024(smem_wg);
+  float* red = reinterpret_cast<float*>(sm + C::RED_OFF);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::BARS);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int P = gridDim.x, p = blockIdx.x;
+  const int c0 = blockIdx.y * BN;
+  const int row_tiles = (N + WG_TILE - 1) / WG_TILE;
+  const int KT = (Cin + WG_BK - 1) / WG_BK;
+
+  init_ring(bars, STAGES);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wgi = warp_uniform(threadIdx.x >> 7);   // the warpgroup
+
+  if (wgi == 2) {       // the producer
+    producer_regs();
+    if (warp != WG_CONSUMER_WARPS || lane != 0) return;
+    int it = 0;
+    for (int rt = p; rt < row_tiles; rt += P)
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty + s, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, C::STAGE);
+        unsigned char* st = sm + s * C::STAGE;
+        tma_load_2d(st, &tu, full + s, kt * WG_BK, rt * WG_TILE);
+        if constexpr (RES)
+          tma_load_2d(st + C::U_BYTES, &tres, full + s, kt * WG_BK,
+                      rt * WG_TILE);
+#pragma unroll
+        for (int a = 0; a < BN / 64; ++a)
+          tma_load_2d(st + C::W_OFF + a * ATOM_BYTES, &tw, full + s,
+                      c0 + 64 * a, kt * WG_BK);
+      }
+    return;
+  }
+  consumer_regs();
+
+  const int wg = wgi, g = lane >> 2, t = lane & 3;
+  const int ry = 16 * (warp & 3) + g;   // the thread's rows of the
+                                        // warpgroup's 64: ry, ry + 8
+  const bool storer = (threadIdx.x & 127) == 0;     // a warpgroup's TMA
+  float acc[BN / 2];
+  // the thread's columns' sums of y, y^2 over the block's tiles: in
+  // registers up to BN = 128; at 256 (beside 128 accumulators) the warp's
+  // sums of a tile are added into its own slots of red, in a fixed order
+  constexpr int NS = BN <= 128 ? NJ : 1;
+  float ps[NS][2], pq[NS][2];
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+    ps[j][0] = ps[j][1] = pq[j][0] = pq[j][1] = 0.f;
+#pragma unroll
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+  float2* slots = reinterpret_cast<float2*>(red) + warp * 2 * (BN / 2);
+  if constexpr (BN == 256)
+#pragma unroll
+    for (int i = 0; i < BN / 32; ++i)   // [which][64-column chunk][lane]
+      slots[32 * i + lane] = make_float2(0.f, 0.f);
+
+  // stage s's A fragments of k16 steps 0..3: z of the warpgroup's rows,
+  // channels k0..k0 + 63, from the landed u (and res) by ldmatrix through
+  // the swizzle, rewritten in place
+  auto build = [&](unsigned (&a)[4][4], int s, int k0) {
+    const unsigned st = smem_u32(sm + s * C::STAGE);
+    unsigned ra[4][4];
+    load_a<WG_BK>(a, st, WG_TILE, 64 * wg);
+    if constexpr (RES) load_a<WG_BK>(ra, st + C::U_BYTES, WG_TILE, 64 * wg);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {   // channels 2t, 2t + 1 (+ 8 h)
+        const int col = k0 + 16 * kk + 2 * t + 8 * h;
+        const bool ok = col < Cin;
+        const float2 sc = ld_f2_if(scale + col, ok);
+        const float2 sh = ld_f2_if(shift + col, ok);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {   // rows g, g + 8
+          unsigned& x = a[kk][2 * h + r];
+          float z0 = __fadd_rn(__fmul_rn(bf16_lo(x), sc.x), sh.x);
+          float z1 = __fadd_rn(__fmul_rn(bf16_hi(x), sc.y), sh.y);
+          if constexpr (RES) {
+            z0 = __fadd_rn(z0, bf16_lo(ra[kk][2 * h + r]));
+            z1 = __fadd_rn(z1, bf16_hi(ra[kk][2 * h + r]));
+          }
+          if (relu) z0 = fmaxf(z0, 0.f), z1 = fmaxf(z1, 0.f);
+          x = pack_bf16x2(z0, z1);
+        }
+      }
+  };
+  auto issue = [&](const unsigned (&a)[4][4], int s, int kt) {
+    const unsigned wt = smem_u32(sm + s * C::STAGE + C::W_OFF);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<BN>(acc, a[kk], desc_mn<BN>(wt, WG_BK, kk),
+                   kt | kk);   // the tile's first product: acc = 0
+    wgmma_commit();
+  };
+
+  // a warpgroup's z, then its products, in turn: the other warpgroup's
+  // products run while it forms z. Measured on an H100 and not kept:
+  // forming the next stage's z under the warpgroup's own products (in f32,
+  // packed after their wait; 13% slower over the 29 sites), and the two
+  // warpgroups taking strict turns on the tensor cores (named barriers;
+  // no change). Writing a wgmma's input registers while a product is in
+  // flight makes ptxas serialise every wgmma.
+  int it = 0, tile = 0;
+  for (int rt = p; rt < row_tiles; rt += P, ++tile) {
+    const int row0 = rt * WG_TILE + 64 * wg;   // the warpgroup's rows
+    unsigned a[4][4];
+    mbar_wait(full + it % STAGES, (it / STAGES) & 1);
+    build(a, it % STAGES, 0);
+    for (int kt = 0; kt < KT - 1; ++kt, ++it) {
+      wgmma_fence();
+      issue(a, it % STAGES, kt);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive_if(empty + it % STAGES, lane == 0);
+      mbar_wait(full + (it + 1) % STAGES, ((it + 1) / STAGES) & 1);
+      build(a, (it + 1) % STAGES, (kt + 1) * WG_BK);
+    }
+    wgmma_fence();
+    issue(a, it % STAGES, KT - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive_if(empty + it % STAGES, lane == 0);
+    ++it;
+
+    // y's bf16 pairs into the staging buffer once its last store has read
+    // it; the column sums of the rows before N
+    unsigned char* yb =
+        sm + C::YOFF + (wg * YBUFS + tile % YBUFS) * C::Y_BYTES;
+    tma_store_read_wait_if<YBUFS - 1>(storer);
+    named_sync(2 + wg, 128);
+    auto stage_y = [&](int j, int rl, float v0, float v1) {
+      *reinterpret_cast<unsigned*>(yb + (j >> 3) * ATOM_BYTES + rl * 128 +
+                                   16 * ((j & 7) ^ (rl & 7)) + 4 * t) =
+          pack_bf16x2(v0, v1);
+    };
+    if constexpr (BN <= 128) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int rl = ry + 8 * r;
+          const bool ok = row0 + rl < N;
+          const float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
+          stage_y(j, rl, v0, v1);
+          const float s0 = ok ? v0 : 0.f, s1 = ok ? v1 : 0.f;
+          ps[j][0] = __fadd_rn(ps[j][0], s0);
+          ps[j][1] = __fadd_rn(ps[j][1], s1);
+          pq[j][0] = fmaf(s0, s0, pq[j][0]);
+          pq[j][1] = fmaf(s1, s1, pq[j][1]);
+        }
+    } else {
+      // 64 columns at a time: the sums of the thread's two rows, then
+      // over the warp's 8 lanes of one t by halving exchanges (each lane
+      // keeps 2 of the 16 columns: 8 (8 c + jl) + 2 t + q, jl the bits
+      // of g reversed), added into the lane's slots
+#pragma unroll
+      for (int c = 0; c < NJ / 8; ++c) {
+        float sy[16], sq[16];   // [2 jl + q]
+#pragma unroll
+        for (int jl = 0; jl < 8; ++jl)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int j = 8 * c + jl, rl = ry + 8 * r;
+            const bool ok = row0 + rl < N;
+            const float v0 = acc[4 * j + 2 * r], v1 = acc[4 * j + 2 * r + 1];
+            stage_y(j, rl, v0, v1);
+            const float s0 = ok ? v0 : 0.f, s1 = ok ? v1 : 0.f;
+            if (r == 0) {
+              sy[2 * jl] = s0, sy[2 * jl + 1] = s1;
+              sq[2 * jl] = __fmul_rn(s0, s0);
+              sq[2 * jl + 1] = __fmul_rn(s1, s1);
+            } else {
+              sy[2 * jl] = __fadd_rn(sy[2 * jl], s0);
+              sy[2 * jl + 1] = __fadd_rn(sy[2 * jl + 1], s1);
+              sq[2 * jl] = fmaf(s0, s0, sq[2 * jl]);
+              sq[2 * jl + 1] = fmaf(s1, s1, sq[2 * jl + 1]);
+            }
+          }
+        halve<8>(sy, sq, (lane >> 2) & 1, 4);
+        halve<4>(sy, sq, (lane >> 3) & 1, 8);
+        halve<2>(sy, sq, (lane >> 4) & 1, 16);
+        float2& o = slots[32 * c + lane];
+        float2& oq = slots[32 * (NJ / 8 + c) + lane];
+        o = make_float2(__fadd_rn(o.x, sy[0]), __fadd_rn(o.y, sy[1]));
+        oq = make_float2(__fadd_rn(oq.x, sq[0]), __fadd_rn(oq.y, sq[1]));
+      }
+    }
+    fence_async_shared();
+    named_sync(2 + wg, 128);
+#pragma unroll
+    for (int a = 0; a < BN / 64; ++a)
+      tma_store_2d_if(&ty, yb + a * ATOM_BYTES, c0 + 64 * a, row0, storer);
+    tma_store_commit_if(storer);
+  }
+  tma_store_drain_if(storer);
+
+  // the block's column partials in a fixed order: over the 8 lanes of one
+  // t (up to BN = 128 a butterfly: every lane gets the same sums), then
+  // over the 8 warps
+  if constexpr (BN <= 128)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+#pragma unroll
+        for (int x = 4; x < 32; x <<= 1) {
+          ps[j][q] += __shfl_xor_sync(0xffffffffu, ps[j][q], x);
+          pq[j][q] += __shfl_xor_sync(0xffffffffu, pq[j][q], x);
+        }
+        red[(warp * 2) * BN + 8 * j + 2 * t + q] = ps[j][q];
+        red[(warp * 2 + 1) * BN + 8 * j + 2 * t + q] = pq[j][q];
+      }
+  named_sync(1, 2 * 128);
+#pragma unroll
+  for (int i = 0; i < (2 * BN + 255) / 256; ++i) {
+    const int x = threadIdx.x + 256 * i;
+    const int which = (x / BN) & 1, c = x % BN;
+    int at = c;   // c's slot: at BN = 256 in [chunk][lane][q]
+    if constexpr (BN == 256) {
+      const int jl = (c >> 3) & 7;
+      const int gl = ((jl >> 2) & 1) | (jl & 2) | ((jl & 1) << 2);
+      at = 2 * (32 * (c >> 6) + 4 * gl + ((c >> 1) & 3)) + (c & 1);
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WG_CONSUMER_WARPS; ++w)
+      s += red[(w * 2 + which) * BN + at];
+    st_f32_if(part + ((size_t)which * P + p) * Cout + c0 + c, s,
+              x < 2 * BN && c0 + c < Cout);
+  }
 }
 
 // ------------------------------------------------------------- B2, bf16
@@ -1852,22 +1932,30 @@ bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tu,
     }
 }
 
-// B1's bf16 tiles: 128 rows by 64 columns (Cout <= 64; 8 warps of 32 x
-// 32) or by 128 (8 warps of 32 x 64), two blocks an SM.
-using Bf16Narrow = Tile<128, 64, 4, 2, 3, 2>;
-using Bf16Wide = Tile<128, 128, 4, 2, 3, 2>;
-static_assert(FwdBf16Smem<Bf16Wide>::bytes(true) <= SMEM_LIMIT / 2 &&
+static_assert(FwdWg<true, 256>::BYTES <= SMEM_LIMIT &&
+                  FwdWg<false, 256>::BYTES <= SMEM_LIMIT &&
+                  FwdWg<true, 256>::BYTES > SMEM_LIMIT / 2 &&
+                  FwdWg<true, 128>::BYTES <= SMEM_LIMIT &&
+                  FwdWg<false, 128>::BYTES <= SMEM_LIMIT &&
+                  FwdWg<true, 64>::BYTES <= SMEM_LIMIT &&
+                  FwdWg<false, 64>::BYTES <= SMEM_LIMIT &&
+                  FwdWg<true, 128>::BYTES > SMEM_LIMIT / 2 &&
+                  FwdWg<true, 64>::BYTES > SMEM_LIMIT / 2 &&
                   DxWg<true>::BYTES <= SMEM_LIMIT &&
                   DxWg<false>::BYTES <= SMEM_LIMIT &&
                   DwWg<true>::BYTES <= SMEM_LIMIT &&
                   DwWg<false>::BYTES <= SMEM_LIMIT,
               "the bf16 forms' shared memory");
 
-inline bool wide_bf16(int C) { return C > 64; }
+// B1's columns a tile: 64 where Cout <= 64, 256 where Cout >= 256, else 128
+inline int fwd_wgmma_cols(int Cout) {
+  return Cout <= 64 ? 64 : Cout >= 256 ? 256 : WG_TILE;
+}
 
-// B2's persistent grid: P blocks a Cin tile, ~SM_COUNT (one an SM) in all
-int dx_wgmma_blocks(int N, int Cin) {
-  int p = SM_COUNT / cdiv(Cin, WG_TILE);
+// B1's and B2's persistent grids: P blocks a column tile (of `cols` of the
+// C output columns), ~SM_COUNT (one an SM) in all
+int wgmma_walk_blocks(int N, int C, int cols) {
+  int p = SM_COUNT / cdiv(C, cols);
   if (p < 1) p = 1;
   const int row_tiles = cdiv(N, WG_TILE);
   return p < row_tiles ? p : row_tiles;
@@ -1889,19 +1977,26 @@ DwPlan dw_plan_wgmma(int N, int Cin, int Cout) {
   return p;
 }
 
-template <class T>
-cudaError_t launch_fwd_bf16(const bf16* u, const float* scale,
-                            const float* shift, const bf16* w, const bf16* res,
-                            bf16* y, float* part, int N, int Cin, int Cout,
-                            int relu, cudaStream_t st) {
-  const size_t bytes = FwdBf16Smem<T>::bytes(res != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+template <bool RES, int BN>
+cudaError_t launch_fwd_wgmma(const bf16* u, const float* scale,
+                             const float* shift, const bf16* w,
+                             const bf16* res, bf16* y, float* part, int N,
+                             int Cin, int Cout, int relu, int blocks,
+                             cudaStream_t st) {
+  // without a residual, its map is u's (never loaded through)
+  CUtensorMap tu, tres, tw, ty;
+  if (!rc_map(&tu, u, N, Cin, WG_TILE) ||
+      !(RES ? rc_map(&tres, res, N, Cin, WG_TILE) : (tres = tu, true)) ||
+      !rc_map(&tw, w, Cin, Cout, WG_BK) || !rc_map(&ty, y, N, Cout, 64))
+    return cudaErrorInvalidValue;
+  constexpr size_t bytes = FwdWg<RES, BN>::BYTES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fwd_wgmma_kernel<RES, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(cdiv(N, T::BM), cdiv(Cout, T::BN));
-  fwd_bf16_kernel<T><<<grid, T::THREADS, bytes, st>>>(
-      u, scale, shift, w, res, y, part, N, Cin, Cout, relu);
+  const dim3 grid(blocks, cdiv(Cout, BN));
+  fwd_wgmma_kernel<RES, BN><<<grid, WG_THREADS, bytes, st>>>(
+      tu, tres, tw, ty, scale, shift, part, N, Cin, Cout, relu);
   return cudaGetLastError();
 }
 
@@ -2144,8 +2239,9 @@ extern "C" const char* bn_act_conv1x1_error_string(int code) {
 // return cudaErrorInvalidValue and launch nothing.
 extern "C" long long bn_act_conv1x1_scratch_floats_bf16(int kind, int N,
                                                         int Cin, int Cout) {
-  if (kind == 0) return 2LL * cdiv(N, Bf16Narrow::BM) * Cout;
-  if (kind == 1) return 2LL * dx_wgmma_blocks(N, Cin) * Cin;
+  if (kind == 0)
+    return 2LL * wgmma_walk_blocks(N, Cout, fwd_wgmma_cols(Cout)) * Cout;
+  if (kind == 1) return 2LL * wgmma_walk_blocks(N, Cin, WG_TILE) * Cin;
   const DwPlan plan = dw_plan_wgmma(N, Cin, Cout);
   return plan.splits > 1 ? (long long)plan.splits * Cin * Cout : 0;
 }
@@ -2155,17 +2251,22 @@ extern "C" void bn_act_conv1x1_plan_bf16(int kind, int N, int Cin, int Cout,
   const bool r = has_res != 0;
   out[4] = 0;
   if (kind == 0) {
-    const bool wide = wide_bf16(Cout);
-    out[0] = wide ? Bf16Wide::BM : Bf16Narrow::BM;
-    out[1] = wide ? Bf16Wide::BN : Bf16Narrow::BN;
-    out[2] = (long long)cdiv(N, out[0]) * cdiv(Cout, out[1]);
-    out[3] = wide ? FwdBf16Smem<Bf16Wide>::bytes(r)
-                  : FwdBf16Smem<Bf16Narrow>::bytes(r);
+    const int cols = fwd_wgmma_cols(Cout);
+    out[0] = WG_TILE;
+    out[1] = cols;
+    out[2] = (long long)wgmma_walk_blocks(N, Cout, cols) * cdiv(Cout, cols);
+    out[3] = cols == 64    ? (r ? FwdWg<true, 64>::BYTES
+                                : FwdWg<false, 64>::BYTES)
+             : cols == 128 ? (r ? FwdWg<true, 128>::BYTES
+                                : FwdWg<false, 128>::BYTES)
+                           : (r ? FwdWg<true, 256>::BYTES
+                                : FwdWg<false, 256>::BYTES);
     return;
   }
   out[0] = out[1] = WG_TILE;
   if (kind == 1) {
-    out[2] = (long long)dx_wgmma_blocks(N, Cin) * cdiv(Cin, WG_TILE);
+    out[2] = (long long)wgmma_walk_blocks(N, Cin, WG_TILE) *
+             cdiv(Cin, WG_TILE);
     out[3] = r ? DxWg<true>::BYTES : DxWg<false>::BYTES;
     return;
   }
@@ -2189,15 +2290,34 @@ extern "C" int bn_act_conv1x1_fwd_bf16(const void* u, const float* scale,
   const bf16 *ub = static_cast<const bf16*>(u), *wb = static_cast<const bf16*>(w),
              *rb = static_cast<const bf16*>(res);
   bf16* yb = static_cast<bf16*>(y);
-  if (wide_bf16(Cout))
-    err = launch_fwd_bf16<Bf16Wide>(ub, scale, shift, wb, rb, yb, scratch, N,
-                                    Cin, Cout, relu, st);
+  const int cols = fwd_wgmma_cols(Cout);
+  const int blocks = wgmma_walk_blocks(N, Cout, cols);
+  if (cols == 64)
+    err = rb != nullptr
+              ? launch_fwd_wgmma<true, 64>(ub, scale, shift, wb, rb, yb,
+                                           scratch, N, Cin, Cout, relu,
+                                           blocks, st)
+              : launch_fwd_wgmma<false, 64>(ub, scale, shift, wb, rb, yb,
+                                            scratch, N, Cin, Cout, relu,
+                                            blocks, st);
+  else if (cols == 128)
+    err = rb != nullptr
+              ? launch_fwd_wgmma<true, 128>(ub, scale, shift, wb, rb, yb,
+                                            scratch, N, Cin, Cout, relu,
+                                            blocks, st)
+              : launch_fwd_wgmma<false, 128>(ub, scale, shift, wb, rb, yb,
+                                             scratch, N, Cin, Cout, relu,
+                                             blocks, st);
   else
-    err = launch_fwd_bf16<Bf16Narrow>(ub, scale, shift, wb, rb, yb, scratch, N,
-                                      Cin, Cout, relu, st);
+    err = rb != nullptr
+              ? launch_fwd_wgmma<true, 256>(ub, scale, shift, wb, rb, yb,
+                                            scratch, N, Cin, Cout, relu,
+                                            blocks, st)
+              : launch_fwd_wgmma<false, 256>(ub, scale, shift, wb, rb, yb,
+                                             scratch, N, Cin, Cout, relu,
+                                             blocks, st);
   if (err != cudaSuccess) return (int)err;
-  return (int)col_reduce(scratch, ssum, ssq, cdiv(N, Bf16Narrow::BM), Cout,
-                         st);
+  return (int)col_reduce(scratch, ssum, ssq, blocks, Cout, st);
 }
 
 extern "C" int bn_act_conv1x1_bwd_dx_bf16(
@@ -2216,7 +2336,7 @@ extern "C" int bn_act_conv1x1_bwd_dx_bf16(
              *yb = static_cast<const bf16*>(y),
              *dyb = static_cast<const bf16*>(dy);
   bf16 *dub = static_cast<bf16*>(du), *drb = static_cast<bf16*>(dres);
-  const int blocks = dx_wgmma_blocks(N, Cin);
+  const int blocks = wgmma_walk_blocks(N, Cin, WG_TILE);
   if (rb != nullptr)
     err = launch_bwd_dx_wgmma<true>(ub, scale, shift, wb, rb, yb, dyb, d1, d2,
                                     dub, drb, scratch, N, Cin, Cout, relu,

@@ -30,8 +30,8 @@ dtypes (`pallas_fused.py`):
   before it is rounded to bf16; du and dres come out bf16, dscale and
   dshift f32; dw accumulates in f32 (the kernel's output) and the
   Function casts it to w's dtype. Cin and Cout must be multiples of 8
-  and every tensor 16-byte aligned (the kernels copy 8 bf16 at a time,
-  and B2 and B3 read and write them by TMA: Hopper kernels with wgmma,
+  and every tensor 16-byte aligned (the kernels read and write them by
+  TMA: Hopper kernels with wgmma, `fwd_wgmma_kernel`,
   `bwd_dx_wgmma_kernel` and `bwd_dw_wgmma_kernel`).
 
 No other dtype, and no upcast: a CUDA input of another dtype raises.
@@ -63,7 +63,7 @@ ACTS = ("relu", "")
 fwd_launches = 0      # B1 f32: y, ssum, ssq
 bwd_dx_launches = 0   # B2 f32: du, dres, dscale, dshift
 bwd_dw_launches = 0   # B3 f32: dw
-fwd_bf16_launches = 0     # B1 bf16
+fwd_bf16_launches = 0     # B1 bf16 (fwd_wgmma_kernel)
 bwd_dx_bf16_launches = 0  # B2 bf16 (bwd_dx_wgmma_kernel)
 bwd_dw_bf16_launches = 0  # B3 bf16 (bwd_dw_wgmma_kernel)
 DTYPES = (torch.float32, torch.bfloat16)

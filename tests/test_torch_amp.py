@@ -576,13 +576,18 @@ def test_card_amp_readings(model):
 # ---- the bf16 plain versions of B1-B3 against the JAX op ----------------
 
 # (N, Cin, Cout, act, with_res): ragged rows against any tile, and the
-# edges of the kernels' 128-row tiles (rows 1, 129, 257) at widths 8 x odd
+# edges of the kernels' 128-row tiles (rows 1, 65, 129, 257) at widths 8 x
+# odd, Cout 264 past B1's 256-column tile and Cin 520 with a
+# partial last 64-channel stage
 FUSED_CASES = {
     "relu_res_n100_24_16": (100, 24, 16, "relu", True),
     "linear_n37_40_56": (37, 40, 56, "", False),
     "relu_n1_8_72": (1, 8, 72, "relu", False),
     "linear_res_n129_72_136": (129, 72, 136, "", True),
     "relu_res_n257_136_72": (257, 136, 72, "relu", True),
+    "relu_n257_72_264": (257, 72, 264, "relu", False),
+    "linear_res_n129_520_72": (129, 520, 72, "", True),
+    "relu_n65_8_8": (65, 8, 8, "relu", False),
 }
 
 

@@ -272,9 +272,14 @@ CARD_SHAPES = {
 
 
 # the bf16 forms take widths that are multiples of 8: the sites and the
-# ragged rows, then the edges of the bf16 B2/B3's 128 x 128 tiles and
-# 64-row stages (rows 1, 127, 129, 255, 257; widths 8, 72, 136, 200, 2048)
-# and a B3 row split into two chunks whose boundary falls inside a stage
+# ragged rows, then the edges of the wgmma kernels' 128 x 128 tiles (B1's
+# 128 x 64 at Cout <= 64, 128 x 256 at Cout >= 256) and 64-row stages
+# (rows 1, 127, 129, 255, 257; widths 8, 72, 136, 200, 2048, 264 past a
+# 256-column tile, Cin 520 and 2056 with a partial last stage), a B3 row
+# split into two chunks whose boundary falls inside a stage, and three of
+# B1's persistent walks long enough that its ring and y buffers wrap, one
+# a tile width (118 301 rows: 925 row tiles over 132 blocks; 20 001: 157
+# over 66 blocks of 2 Cout tiles; 4001: 32 over 26 blocks of 5)
 BF16_SHAPES = {k: v for k, v in CARD_SHAPES.items()
                if v[1] % 8 == 0 and v[2] % 8 == 0}
 BF16_SHAPES["n517_72_136"] = (517, 72, 136)
@@ -287,6 +292,12 @@ BF16_EDGE_SHAPES = {
     "n129_2048_72": (129, 2048, 72),
     "n257_72_2048": (257, 72, 2048),
     "n600_64_64_split2": (600, 64, 64),
+    "n127_64_8": (127, 64, 8),
+    "n129_520_64": (129, 520, 64),
+    "n257_2056_264": (257, 2056, 264),
+    "n4001_72_1032": (4001, 72, 1032),
+    "n20001_72_200": (20001, 72, 200),
+    "n118301_64_64": (118301, 64, 64),
 }
 BF16_SHAPES.update(BF16_EDGE_SHAPES)
 
@@ -444,6 +455,45 @@ class TestOnCard:
         torch.cuda.synchronize()
         for nm, a, b in zip(("du", "dscale", "dshift", "dres", "dw"), *runs):
             assert (a is None and b is None) or torch.equal(a, b), nm
+
+    @pytest.mark.parametrize("with_res", [False, True])
+    @pytest.mark.parametrize("shape", ["n4001_72_1032", "n257_2056_264",
+                                       "res2_tail_b2", "res5bc_a_b2"])
+    def test_bf16_forward_kernel_is_bit_identical_on_a_repeat(
+            self, shape, with_res):
+        """The bf16 B1's column sums are reduced in a fixed order (a
+        block's rows, then its warps, then the blocks in col_reduce),
+        without atomics: y, ssum and ssq repeat bit for bit."""
+        n, cin, cout = BF16_SHAPES[shape]
+        u, sc, sh, w, r = (torch.from_numpy(x).cuda() for x in
+                           _inputs(n, cin, cout, seed=5))
+        u, w, r = (x.to(torch.bfloat16) for x in (u, w, r))
+        res = r if with_res else None
+        runs = [op.bn_act_conv1x1_fwd(u, sc, sh, w, res) for _ in range(2)]
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("y", "ssum", "ssq"), *runs):
+            assert torch.equal(a, b), nm
+
+    @pytest.mark.parametrize("with_res", [False, True])
+    @pytest.mark.parametrize("shape", sorted(BF16_SHAPES))
+    def test_bf16_forward_plan_is_a_persistent_grid(self, shape, with_res):
+        """The bf16 B1 walks row tiles in a persistent grid: at most one
+        block an SM (132 on an H100 SXM), each asking for more than half
+        an SM's shared memory so that no two share one; a 128-row tile 64
+        columns wide at Cout <= 64, 256 at Cout >= 256, else 128."""
+        n, cin, cout = BF16_SHAPES[shape]
+        plan = op.launch_plan(n, cin, cout, residual=with_res,
+                              dtype=torch.bfloat16)["fwd"]
+        cols = 64 if cout <= 64 else 256 if cout >= 256 else 128
+        assert plan["tile"] == [128, cols], plan
+        col_tiles = -(-cout // cols)
+        assert plan["blocks"] % col_tiles == 0, plan
+        walkers = plan["blocks"] // col_tiles
+        assert plan["blocks"] <= 132, plan
+        assert walkers == min(max(132 // col_tiles, 1), -(-n // 128)), plan
+        props = torch.cuda.get_device_properties(0)
+        per_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+        assert 2 * plan["smem_bytes"] > per_sm, (plan, per_sm)
 
     def test_bf16_dw_split_boundary_falls_inside_a_stage(self):
         """n600_64_64_split2 splits B3's rows into two chunks whose
