@@ -147,17 +147,19 @@ any failure exits non-zero:
     without the cell sequence, B6 backward, `csrc/lstm_seq.cu`; B7
     forward and B8 backward, `csrc/gru_seq.cu`) against their plain
     PyTorch versions at the path shapes (the classifier's layers, B=64,
-    T=100, h=256; the NMT encoder, B=256, T=32, h=256), at the bench's
-    other widths h=512 and 1280, and at ragged lengths with a 0 and a 1
-    (max |diff| / max |plain| <= 1e-4 for every output, exactly 0 past
-    each row's length), prints each case's routes (`fwd_plan`,
-    `bwd_plan`: the cluster route where the kernel's weight slice fits a
-    block, h <= 320, else the walk), holds each cluster route
-    bit-identical on a repeat and the walk against the plain version too
+    T=100, h=256; the NMT encoder, B=256, T=32, h=256; 13d's encoders,
+    B=256, T=32, h=512 and B=80, T=50, h=1000), at the bench's other
+    widths h=512 and 1280, at h=336 (B7 on the cluster route, B8 on the
+    grid route), and at ragged lengths with a 0 and a 1 (max |diff| /
+    max |plain| <= 1e-4 for every output, exactly 0 past each row's
+    length), prints each case's routes (`fwd_plan`, `bwd_plan`: the
+    cluster route where the kernel's weight slice fits a block, h <=
+    320, B7 352, else the grid route), holds every route bit-identical
+    on a repeat and the grid route against the plain version too
     wherever a case takes both routes, and times kernel, plain version,
-    each kernel on the walk where a case takes both routes, and cuDNN's
-    torch.nn.LSTM/GRU (another function: a reference point only) with
-    the bounds;
+    each kernel on the grid route where a case takes both routes, and
+    cuDNN's torch.nn.LSTM/GRU (another function: a reference point
+    only) with the bounds;
 11. runs the IMDB stacked-LSTM classifier (vocab 30000, emb 128, two
     layers of h=256; weights from a seed) through `Inferencer` on
     [64, 100] ids, the kernel arm against the scan arm
@@ -176,6 +178,16 @@ any failure exits non-zero:
     loss falls, ms/step, tokens/s, peak memory and the profile table,
     and the kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
     (NMT) a step, every one on the cluster route;
+13c. the classifier at bench_lstm's h = 512 and 1280, where B5 and B6
+    take the grid route: a held adam step as 12's (the max pool at the
+    f64 arm's steps), 10 kernel-arm and 3 scan-arm SGD steps with
+    profiles, one inference forward;
+13d. the attention NMT at encoder widths 512 (bench_nmt's settings at
+    hidden 1024) and 1000 (RNNsearch's widths: hidden 2000, emb 620,
+    B=80, T=50), where B7 and B8 take the grid route: a held adam step
+    as 12's, 10 kernel-arm and 3 scan-arm SGD steps with profiles (2 B7
+    + 2 B8 a step, all on the grid route), one adam step under the bf16
+    flag held as 13b holds the NMT;
 13b. one adam step of the classifier and of the NMT on the kernel arm
     under the bf16 flag (B5-B8 cast bf16 up to f32 around the kernels):
     loss finite and within 5% of the f32 step's, gradients f32 and
@@ -944,9 +956,10 @@ PORT_KERNELS = {
     "B6 lstm_seq_bwd grid route": "lstm_bwd_grid_kernel<",
     "B6 lstm_seq_bwd grid route's db7": "lstm_bias_grad_kernel",
     "B7 gru_seq_fwd cluster walk": "gru_fwd_cluster_kernel<",
-    "B7 gru_seq_fwd walk route": "gru_fwd_kernel<",
+    "B7 gru_seq_fwd grid route": "gru_fwd_grid_kernel<",
     "B8 gru_seq_bwd cluster walk": "gru_bwd_cluster_kernel<",
-    "B8 gru_seq_bwd walk route": "gru_bwd_kernel<",
+    "B8 gru_seq_bwd grid route": "gru_bwd_grid_kernel<",
+    "B8 gru_seq_bwd grid route's db": "gru_bias_grad_kernel",
     # the cluster and grid routes' hoisted pre-activations and dW (B6's in
     # the classifier's step, B8's in the NMT's)
     "B6/B8 tc_kernel (hoisted products, dW)": "tc_kernel<",
@@ -2252,8 +2265,11 @@ NMT = dict(src_vocab=30000, trg_vocab=30000, emb_dim=512, hidden=512)
 NMT_B, NMT_T, NMT_STEPS, NMT_LR = 256, 32, 20, 1e-3
 SCAN_STEPS = 10
 # (name, cell, B, T, h, lens or None for full): the path shapes (both
-# classifier layers; the NMT encoder, h = 512 / 2 a direction), the bench's
-# other LSTM widths, and ragged cases with a zero length and a length of 1
+# classifier layers; the NMT encoder, h = 512 / 2 a direction; phase 13d's
+# encoders, h = 512 at bench_nmt's B and T, and RNNsearch's h = 1000 at
+# its B = 80, T = 50), the bench's other LSTM and GRU widths, h = 336
+# (B7 on the cluster route, B8 on the grid route), and ragged cases with
+# a zero length and a length of 1
 RAGGED = [37, 0, 1, 20, 36, 5, 37, 2, 11]
 RNN_CASES = [
     ("classifier_b64_t100_h256", "lstm", CLS_B, CLS_T, 256, None),
@@ -2262,6 +2278,10 @@ RNN_CASES = [
     ("lstm_b64_t100_h1280", "lstm", CLS_B, CLS_T, 1280, None),
     ("gru_b256_t32_h512", "gru", NMT_B, NMT_T, 512, None),
     ("gru_b256_t32_h1280", "gru", NMT_B, NMT_T, 1280, None),
+    ("gru_b80_t50_h1000", "gru", 80, 50, 1000, None),
+    ("gru_ragged_b37_t9_h1000", "gru", 37, 9, 1000,
+     [9, 0, 1] + [(4 * i) % 9 + 1 for i in range(34)]),
+    ("gru_ragged_b6_t7_h336", "gru", 6, 7, 336, [7, 0, 1, 7, 3, 5]),
     ("lstm_ragged_b9_t37_h256", "lstm", 9, 37, 256, RAGGED),
     ("gru_ragged_b9_t37_h256", "gru", 9, 37, 256, RAGGED),
 ]
@@ -2271,7 +2291,8 @@ RNN_COUNTERS = ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
                 "lstm_fwd_infer_grid_launches", "lstm_bwd_launches",
                 "lstm_bwd_cluster_launches", "lstm_bwd_grid_launches",
                 "gru_fwd_launches", "gru_fwd_cluster_launches",
-                "gru_bwd_launches", "gru_bwd_cluster_launches")
+                "gru_fwd_grid_launches", "gru_bwd_launches",
+                "gru_bwd_cluster_launches", "gru_bwd_grid_launches")
 
 
 def zero_rnn_counts(rnn):
@@ -2306,9 +2327,8 @@ def check_rnn(torch, rnn, case, gen):
     versions at one case: max |diff| / max |plain| <= TOL for every
     output, exactly 0 past each row's length; each kernel on the route
     of its rule (`rnn.fwd_plan`, `rnn.bwd_plan`), bit-identical on a
-    repeat where that is the cluster or the grid route, and, where it is
-    the cluster route, on the cell's other route too (the LSTM's grid
-    route, the GRU's walk); then kernel, plain, other route and cuDNN
+    repeat, and, where it is the cluster route, on the grid route too;
+    then kernel, plain, other route and cuDNN
     (torch.nn.LSTM/GRU: another function — no peepholes, its own input
     GEMM, no masks; a reference point only) times and the bounds.
     Returns the case's numbers."""
@@ -2316,7 +2336,7 @@ def check_rnn(torch, rnn, case, gen):
     x, ws, lens_t, dy, live = rnn_inputs(torch, gen, cell, b, t, h, lens)
     dead = torch.arange(t, device="cuda")[None, :] >= lens_t[:, None]
     f32 = 4
-    second = "grid" if cell == "lstm" else "walk"   # beside the cluster route
+    second = "grid"          # beside the cluster route
     if cell == "lstm":
         w, b7 = ws
         parts = torch.split(b7, [4 * h, h, h, h])
@@ -2410,11 +2430,10 @@ def check_rnn(torch, rnn, case, gen):
     first = 2 if cell == "lstm" else 1           # B6/B8's outputs in got
     # B5/B7 and B6/B8: bit-identical on a repeat on the cluster and grid
     # routes (the inference variant too)
-    for kind, route, outs in (("fwd", fplan["route"], got[:first]),
-                              ("fwd_infer", fplan["route"], (y_noc,)
-                               if cell == "lstm" else None),
-                              ("bwd", plan["route"], got[first:])):
-        if route == "walk" or outs is None:
+    for kind, outs in (("fwd", got[:first]),
+                       ("fwd_infer", (y_noc,) if cell == "lstm" else None),
+                       ("bwd", got[first:])):
+        if outs is None:
             continue
         again = kern[kind]()
         torch.cuda.synchronize()
@@ -2757,14 +2776,14 @@ def text_train(torch, rnn, conf, feed, lr, steps, tokens, name):
     return r
 
 
-def amp_text_step(torch, rnn, conf, feed, lr, name, want):
+def amp_text_step(torch, rnn, conf, feed, lr, name, want, model=None):
     """Phase 13b: one adam TrainStep of the kernel arm in f32 and under
     the bf16 flag from one weight map (B5-B8 cast the bf16 inputs up to
     f32 around the kernels, as the JAX wrappers do): the AMP loss finite
     and within 5% of the f32 step's (tests/test_amp.py's bound), the
     gradients f32 and each held against the f32 step's from adam's first
-    moment (`amp_grads_held`), and the AMP step's launches `want` (counts
-    read just after it), every one on the cluster route."""
+    moment (`amp_grads_held`, with `model`'s bound, else `name`'s), and
+    the AMP step's launches `want` (counts read just after it)."""
     from paddle_tpu_torch.core.config import OptimizationConf
     from paddle_tpu_torch.network import Network
     from paddle_tpu_torch.optimizers import create_optimizer
@@ -2799,7 +2818,8 @@ def amp_text_step(torch, rnn, conf, feed, lr, name, want):
     print(f"amp train step {name} " + json.dumps(r), flush=True)
     assert r["finite"] and r["rel"] <= 0.05, f"{name}: {r}"
     assert r["grad_dtypes"] == ["torch.float32"], r
-    r["grad_rel_vs_f32_max"] = amp_grads_held(name, name, s16, s32, "m")
+    r["grad_rel_vs_f32_max"] = amp_grads_held(name, model or name, s16, s32,
+                                              "m")
     expect = dict.fromkeys(RNN_COUNTERS, 0)
     expect.update(want)
     assert counts == expect, f"{name}: launches {counts}, want {expect}"
@@ -2897,12 +2917,86 @@ def wide_classifier(torch, rnn):
     return out
 
 
+# phase 13d: the attention NMT where the encoder's GRUs take the grid route
+# (B7 above h = 352, B8 above h = 320): (name, conf kwargs, B, T). nmt_h1024
+# is bench.py::bench_nmt's settings (:1029; vocab 30000, emb 512, adam
+# 1e-3, B=256, T=32) at hidden 1024, a GRU of h = 512 a direction;
+# nmt_rnnsearch RNNsearch's widths (Bahdanau, Cho and Bengio, ICLR 2015,
+# 4.2 and appendix A: 1000 GRU units a direction, emb 620, vocab 30000,
+# minibatch 80, sentences of at most 50 words), hidden 2000. Its decoder
+# is `hidden` wide, not RNNsearch's 1000: the repo's model ties the
+# decoder's width to the encoder's concat.
+NMT_WIDE = (
+    ("nmt_h1024", dict(NMT, hidden=1024), NMT_B, NMT_T),
+    ("nmt_rnnsearch", dict(NMT, emb_dim=620, hidden=2000), 80, 50),
+)
+NMT_WIDE_STEPS, NMT_WIDE_SCAN_STEPS = 10, 3
+
+
+def nmt_feed(seed, b, t, ragged):
+    """The NMT's feed at (b, t): bench.py's random ids, at full lengths or
+    ragged (1 .. t, so that no row is empty)."""
+    from paddle_tpu_torch.core.arg import id_arg
+
+    rng = np.random.default_rng(seed)
+    lens = (rng.integers(1, t + 1, b) if ragged
+            else np.full(b, t)).astype(np.int32)
+    return {k: id_arg(rng.integers(2, NMT["src_vocab"], (b, t))
+                      .astype(np.int32), lens, device="cuda")
+            for k in ("src", "trg_in", "trg_out")}
+
+
+def wide_nmt(torch, rnn):
+    """Phase 13d: each NMT_WIDE configuration, f32: the held adam step
+    (`held_text_step`) at ragged lengths; NMT_WIDE_STEPS kernel-arm and
+    NMT_WIDE_SCAN_STEPS scan-arm steps through SGD at full lengths with
+    profiles, every loss finite and the last below the first in both,
+    the kernel arm launching 2 B7 + 2 B8 a step, every one on the grid
+    route (counts read just after the run), none on the cluster route;
+    one adam step under the bf16 flag, held against the f32 step as 13b
+    holds the NMT (`amp_text_step`, the NMT's bound). Returns the
+    numbers by name."""
+    from paddle_tpu_torch.models.text import seq2seq_attention
+
+    out = {}
+    for i, (name, kw, b, t) in enumerate(NMT_WIDE):
+        conf = seq2seq_attention(**kw)
+        held = held_text_step(torch, conf, nmt_feed(SEED + 100 + i, b, t,
+                                                     True), NMT_LR, name)
+        feed = nmt_feed(SEED + 110 + i, b, t, False)
+        runs = {}
+        for arm, steps in (("kernels", NMT_WIDE_STEPS),
+                           ("scan", NMT_WIDE_SCAN_STEPS)):
+            set_rnn_arm(arm)
+            runs[arm] = text_train(torch, rnn, conf, feed, NMT_LR, steps,
+                                   b * t, f"{name}_{arm}_b{b}_t{t}")
+        set_rnn_arm("kernels")
+        for arm, r in runs.items():
+            assert r["loss_last"] < r["loss_first"], (
+                f"{name} {arm}: loss rose from {r['loss_first']:.4g} to "
+                f"{r['loss_last']:.4g}")
+        want = dict.fromkeys(RNN_COUNTERS, 0)
+        n = 2 * NMT_WIDE_STEPS
+        want.update(gru_fwd_launches=n, gru_fwd_grid_launches=n,
+                    gru_bwd_launches=n, gru_bwd_grid_launches=n)
+        got = runs["kernels"]["launches"]
+        assert got == want, f"{name} launches {got}, want {want}"
+        assert sum(runs["scan"]["launches"].values()) == 0, runs["scan"]
+        amp = amp_text_step(torch, rnn, conf, feed, NMT_LR, name,
+                            dict(gru_fwd_launches=2, gru_fwd_grid_launches=2,
+                                 gru_bwd_launches=2,
+                                 gru_bwd_grid_launches=2), model="nmt")
+        out[name] = {"held": held, "runs": runs, "amp": amp}
+    return out
+
+
 def text_training(torch, rnn):
-    """Phases 12, 13 and 13c: the held steps at ragged lengths, then the
-    training runs at the bench's full lengths, kernel arm then scan arm.
-    Each kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
-    (NMT) a step, every one on the cluster route (13c's classifier at
-    h = 512 and 1280: on the grid route), and its loss falls."""
+    """Phases 12, 13, 13c, 13d and 13b: the held steps at ragged lengths,
+    then the training runs at the bench's full lengths, kernel arm then
+    scan arm. Each kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 +
+    2 B8 (NMT) a step, every one on the cluster route (13c's classifier
+    at h = 512 and 1280 and 13d's NMT at encoder widths 512 and 1000: on
+    the grid route), and its loss falls."""
     cls_conf, nmt_conf = text_confs()
     cls_r, nmt_r = text_feeds(SEED + 70, ragged=True)
     held = (held_text_step(torch, cls_conf, cls_r, CLS_LR, "classifier"),
@@ -2946,6 +3040,9 @@ def text_training(torch, rnn):
     phase("13c. the classifier at bench_lstm's h = 512 and 1280 through "
           "SGD (the grid route)")
     wide = wide_classifier(torch, rnn)
+    phase("13d. the NMT at encoder widths 512 and 1000 through SGD (the "
+          "grid route)")
+    wide_n = wide_nmt(torch, rnn)
     phase("13b. classifier and NMT adam steps under the bf16 flag")
     amp = (amp_text_step(torch, rnn, cls_conf, cls_f, CLS_LR, "classifier",
                          dict(lstm_fwd_launches=2,
@@ -2956,7 +3053,7 @@ def text_training(torch, rnn):
                          dict(gru_fwd_launches=2, gru_fwd_cluster_launches=2,
                               gru_bwd_launches=2,
                               gru_bwd_cluster_launches=2)))
-    return held, runs, amp, wide
+    return held, runs, amp, wide, wide_n
 
 
 # ---- the sparse CTR slice: B9, SparseUpdater, the sharded tier, CTR ------
@@ -3774,7 +3871,8 @@ def main() -> int:
     cls_infer = classifier_infer(torch, rnn)
 
     phase("12. held classifier and NMT train steps, kernels vs scan")
-    _held_text, text_runs, _amp_text, wide = text_training(torch, rnn)
+    _held_text, text_runs, _amp_text, wide, wide_n = text_training(torch,
+                                                                   rnn)
 
     phase("14. sparse-row kernels (B9) vs plain version")
     ptxas_report(_build.build_log(sr.KERNEL))
@@ -3905,6 +4003,34 @@ def main() -> int:
             "library_ms": None,
         }
 
+    # the GRU's grid route at the RNNsearch encoder's shape (phase 10's
+    # gru_b80_t50_h1000), its launches phase 13d's kernel arms' (both
+    # configurations); max_abs_err over phase 10's GRU cases on the grid
+    # route; cuDNN's GRU (another function) beside it
+    gru_grid_at = rnn_res["gru_b80_t50_h1000"]
+    assert gru_grid_at["fwd_plan"]["route"] == "grid", gru_grid_at
+    assert gru_grid_at["bwd_plan"]["route"] == "grid", gru_grid_at
+
+    def gru_grid_row(name, tpu_line, kind, counter):
+        at = gru_grid_at[kind]
+        plan = "bwd_plan" if kind == "bwd" else "fwd_plan"
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/gru_seq.cu",
+            "replaces": f"paddle_tpu/ops/pallas_rnn.py:{tpu_line}",
+            "launches": sum(w["runs"]["kernels"]["launches"][counter]
+                            for w in wide_n.values()),
+            "max_abs_err": max(r[kind]["max_abs_err"]
+                               for r in rnn_res.values()
+                               if r["cell"] == "gru"
+                               and r[plan]["route"] == "grid"),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": None,
+            "cudnn_ms": gru_grid_at[f"cudnn_{kind}_ms"],
+        }
+
     def rnn_row(name, cell, tpu_line, kind, launched):
         at = path[cell][kind]
         return {
@@ -3978,6 +4104,8 @@ def main() -> int:
                 nmt_launches["gru_fwd_launches"]),
         rnn_row("gru_seq_bwd", "gru", 657, "bwd",
                 nmt_launches["gru_bwd_launches"]),
+        gru_grid_row("gru_seq_fwd_grid", 724, "fwd", "gru_fwd_grid_launches"),
+        gru_grid_row("gru_seq_bwd_grid", 657, "bwd", "gru_bwd_grid_launches"),
         *sparse_kernel_rows(sparse_checks, sparse_times, standalone,
                             wide_deep, tier)]}),
         flush=True)

@@ -12,15 +12,64 @@
 // At t >= len the state carries through and y = 0; a row of length 0 gives
 // zeros and gradients of 0. x [B, T, 3h] is pre-projected.
 //
-// The walk route of B7 and B8 (h past the cluster routes' reach), as
-// lstm_seq.cu's: one block owns BB batch rows and walks the whole sequence,
-// h_{t-1} in shared memory, w_g and w_c read from device memory (L2) every
-// step, a thread per hidden unit for the pointwise math. The forward has two
-// products a step, the second on r * h_{t-1}, so two __syncthreads: one
-// publishes r * h_{t-1}, the other the new h. The walk backward recomputes
-// u, r and c in the walk (phases 1-2), then forms d(r h) = dg_c @ w_c^T and
-// dg_r (phase 3) and dh_{t-1} += dg_ur @ w_g^T (phase 4), reading w_g and
-// w_c from L2 twice a step.
+// Each kernel takes the cluster route wherever a block's shared memory holds
+// its slices of the weights (B7: h <= 352, B8: h <= 320), else the grid
+// route; there is no other route.
+//
+// The grid route of B7 and B8, as lstm_seq.cu's grid route of B5 and B6:
+// one persistent block an SM (cooperative launch, G = ceil(h / U) blocks,
+// U = ceil(h / SMs): 125 blocks of 8 units at h = 1000, 128 of 10 at
+// h = 1280 on an H100 SXM's 132 SMs) owns the hidden units J_s = [s U,
+// s U + U) and every batch row; the blocks meet at grid barriers
+// (rnn::grid_sync) and exchange through L2 (stores, then .cg loads).
+// B7: block s keeps in shared memory the columns of w_g (u and r) and of
+// w_c of its units, transposed ([3U][h], 154 KB at h = 1280; wider slices
+// are read from L2 each step: the streamed form). A step has two serial
+// products, so two barriers:
+// 1. G_ur = h_{t-1} [B, h] @ w_g[:, own u, r] [h, 2U] on the tensor cores
+//    (rnn::grid_product: 3xTF32 mma.sync, the batch rows as m, h_{t-1}
+//    read from L2 GPF k-groups ahead, the depth split in shares where the
+//    jobs are fewer than the warps, added in order) onto x_t + b (x staged
+//    by cp.async during the previous barrier, b added before the product:
+//    B7's order (x + b) + product); u, r and r * h_{t-1} of the own (row,
+//    unit) pairs; r * h_{t-1} of the own units into the global exchange rh
+//    [B][h]; barrier 1.
+// 2. C = (r h_{t-1}) [B, h] (from L2) @ w_c[:, own] [h, U] onto x_t + b;
+//    c and h_t of the own pairs; h_t of the own units into the global h
+//    [B][h] and y; barrier 2.
+// One buffer each for h and rh is enough, because the two barriers
+// alternate: a block writes rh in step t + 1 only after barrier 2 of step
+// t, at which every block has finished its c product of step t (rh's last
+// read); it writes h in step t after barrier 1 of step t, at which every
+// block has finished its u/r product of step t (h_{t-1}'s last read; the
+// own units' h_{t-1} a block reads from its own shared copy). Once every
+// row is past its length, the remaining steps store y = 0 with no product
+// and no barrier.
+// B8: the gate recompute is hoisted as on the cluster route (below), dW_g,
+// dW_c and db follow the walk; only the dh recurrence stays serial. Block s
+// keeps w_c's and w_g's rows of its units ([U][h] and [U][2h], 154 KB at
+// h = 1280). A step:
+// 1. the cell backward of the own pairs (a thread loads the inputs of
+//    CELL_PAIRS pairs at once: the hoisted pre-activations in dx, h_{t-1}
+//    = y[t-1], dy): dg_c and dg_u into dx and into the global exchange,
+//    dh's u-term kept; barrier 1;
+// 2. d(r h)[:, own] = dg_c [B, h] (from L2) @ w_c[own, :]^T, then dg_r of
+//    the own units into dx and into the exchange, dh's r-term; barrier 2;
+// 3. dh_{t-1}[:, own] = the own terms + dg_ur [B, 2h] (from L2) @
+//    w_g[own, :]^T (a masked row's dh carries).
+// dg_c needs one buffer: it is written in step t - 1 after barrier 2 of
+// step t, at which every block has read it (step 2). dg_ur is read after
+// barrier 2 (step 3) with no barrier before the next step's dg_u stores,
+// so it alternates between two buffers by the step's parity: a block
+// writes buffer t & 1 again in step t - 2, after barrier 1 of step t - 1,
+// at which every block has finished step 3 of step t. Steps past every
+// row's length: dx = 0, written by each block for its own units, without
+// barriers. Every sum runs in a fixed order: a repeat is bit-identical.
+// What bounds the grid route: the serial chain of T steps, each two (B7)
+// or three (B8) products whose A operand every block reads whole from L2
+// (B h floats, or 2 B h, per block and product: 1.3 MB at h = 1280, B =
+// 256), and two grid barriers; -DRNN_SERIAL_FLOOR keeps only the exchanges
+// and the barriers (rnn_fwd_probe.py, rnn_bwd_probe.py measure that floor).
 //
 // B8's cluster route (every h whose weight slices fit a block's shared
 // memory: h <= 320), as lstm_seq.cu's:
@@ -29,7 +78,8 @@
 //    whose epilogue also writes rh = sig(pre_r) * h_{t-1} (0 on a masked
 //    step) into the rh_seq scratch that dW_c reads; then dx[:, :, 2h:] =
 //    (x_c + b_c) + rh @ w_c. The walk overwrites each pre-activation with
-//    its gate gradient (0 on a masked step).
+//    its gate gradient (0 on a masked step). The grid route hoists the
+//    same products.
 // 2. The walk: a cluster of CL = 8 blocks of 512 threads owns R batch rows
 //    (B = 256 takes 18 on an H100 SXM's 15 clusters); block s owns the
 //    units J_s and keeps w_g's u and r columns and w_c's columns of them in
@@ -43,7 +93,8 @@
 //    alternate, so one buffer each for P and P' is safe.
 // 3. dW_g = sum h_{t-1}^T dg_ur and dW_c = sum rh^T dg_c on the tensor
 //    cores (split over the rows, fixed-order sums), db from the clusters'
-//    partials: bit-identical run to run.
+//    partials (the grid route's: from dx's row chunks, in order):
+//    bit-identical run to run.
 // What bounds it on one H100 SXM: the serial chain of T steps, each two
 // products, two cluster barriers and two exchanges, not the card-wide
 // bound the smoke reports. -DRNN_SERIAL_FLOOR keeps only the barriers and
@@ -63,14 +114,10 @@
 // 2. the c pre-activation (r h_{t-1}) @ w_c[:, own], then c and h_t, h_t
 //    pushed into every peer's h buffer; barrier 2's arrive, y's stores,
 //    its wait.
-// One buffer each for h and rh is enough, because the two barriers
-// alternate: a block pushes into a peer's rh in step t + 1 only after
-// barrier 2 of step t, at which every peer has finished the c product of
-// step t (rh's last read); it pushes into a peer's h after barrier 1 of a
-// step, at which every peer has finished that step's u/r product and the
-// reads of r * h_{t-1} (h_{t-1}'s last reads but its own units', which
-// only the block itself writes). Once every row of a cluster is past its
-// length, the remaining steps store y = 0 with no product and no barrier.
+// One buffer each for h and rh is enough, for the grid route's reason
+// above (the pushes take the place of the stores). Once every row of a
+// cluster is past its length, the remaining steps store y = 0 with no
+// product and no barrier.
 // What bounds it: the serial chain of T steps of two products, two cells,
 // two pushes and two cluster barriers; -DRNN_SERIAL_FLOOR keeps only the
 // pushes and the barriers (rnn_fwd_probe.py).
@@ -82,8 +129,6 @@
 
 namespace cg = cooperative_groups;
 using rnn::CL;
-using rnn::NT;
-using rnn::NW;
 
 #ifdef RNN_SERIAL_FLOOR
 constexpr bool kSerialFloor = true;   // the walk without cells or products
@@ -92,270 +137,6 @@ constexpr bool kSerialFloor = false;
 #endif
 
 namespace {
-
-size_t fwd_smem(int h, int bb) { return (size_t)3 * h * bb * sizeof(float); }
-size_t bwd_smem(int h, int bb) { return (size_t)9 * h * bb * sizeof(float); }
-
-int block_rows(int kind, int h) {
-  for (int bb = 8; bb >= 1; bb /= 2)
-    if ((kind == 0 ? fwd_smem(h, bb) : bwd_smem(h, bb)) <= rnn::SMEM_LIMIT)
-      return bb;
-  return 0;
-}
-
-// acc[r][q] = sum_k hp[k][r] * w_g[k][q * h + j] for q < 2 (u and r)
-template <int BB>
-__device__ __forceinline__ void ur_product(const float* __restrict__ w_g,
-                                           const float* hp, int h, int j,
-                                           float (&acc)[BB][2]) {
-#pragma unroll
-  for (int r = 0; r < BB; ++r) acc[r][0] = acc[r][1] = 0.f;
-  const size_t h2 = 2 * (size_t)h;
-  const float* wj = w_g + j;
-#pragma unroll 4
-  for (int k = 0; k < h; ++k) {
-    const float w0 = wj[k * h2], w1 = wj[k * h2 + h];
-    float hv[BB];
-    rnn::load_rows<BB>(hp + (size_t)k * BB, hv);
-#pragma unroll
-    for (int r = 0; r < BB; ++r) {
-      acc[r][0] = fmaf(hv[r], w0, acc[r][0]);
-      acc[r][1] = fmaf(hv[r], w1, acc[r][1]);
-    }
-  }
-}
-
-// acc[r] = sum_k rh[k][r] * w_c[k][j]
-template <int BB>
-__device__ __forceinline__ void c_product(const float* __restrict__ w_c,
-                                          const float* rh, int h, int j,
-                                          float (&acc)[BB]) {
-#pragma unroll
-  for (int r = 0; r < BB; ++r) acc[r] = 0.f;
-  const float* wj = w_c + j;
-#pragma unroll 4
-  for (int k = 0; k < h; ++k) {
-    const float wv = wj[(size_t)k * h];
-    float v[BB];
-    rnn::load_rows<BB>(rh + (size_t)k * BB, v);
-#pragma unroll
-    for (int r = 0; r < BB; ++r) acc[r] = fmaf(v[r], wv, acc[r]);
-  }
-}
-
-// a[r] = sum_c g[r][c] * w[k][c] over c < width, summed across the warp
-// (every lane gets the sums); g is [BB][width] in shared memory
-template <int BB>
-__device__ __forceinline__ void row_dot(const float* g,
-                                        const float* __restrict__ wk,
-                                        int width, int lane, float (&a)[BB]) {
-#pragma unroll
-  for (int r = 0; r < BB; ++r) a[r] = 0.f;
-  for (int c = lane; c < width; c += 32) {
-    const float wv = wk[c];
-#pragma unroll
-    for (int r = 0; r < BB; ++r) a[r] = fmaf(g[r * width + c], wv, a[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < BB; ++r) a[r] = rnn::warp_sum(a[r]);
-}
-
-template <int BB>
-__global__ void __launch_bounds__(NT)
-gru_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w_g,
-               const float* __restrict__ w_c, const float* __restrict__ b,
-               const int* __restrict__ lens, float* __restrict__ y, int B,
-               int T, int h) {
-  extern __shared__ __align__(16) float smem[];
-  float* hp = smem;                     // [h][BB] h_{t-1}
-  float* rh = hp + h * BB;              // [h][BB] r * h_{t-1}
-  float* us = rh + h * BB;              // [BB][h] u, a unit's own thread
-  const int row0 = blockIdx.x * BB;
-  const size_t h3 = 3 * (size_t)h;
-  int len[BB];
-#pragma unroll
-  for (int r = 0; r < BB; ++r) len[r] = row0 + r < B ? lens[row0 + r] : 0;
-  for (int i = threadIdx.x; i < 3 * h * BB; i += NT) smem[i] = 0.f;
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    for (int j = threadIdx.x; j < h; j += NT) {
-      float acc[BB][2];
-      ur_product<BB>(w_g, hp, h, j, acc);
-      const float bu = b[j], br = b[h + j];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        float rhv = 0.f;
-        if (t < len[r]) {
-          const float* xr = x + ((size_t)(row0 + r) * T + t) * h3;
-          const float u = rnn::sigm((xr[j] + bu) + acc[r][0]);
-          const float rg = rnn::sigm((xr[h + j] + br) + acc[r][1]);
-          rhv = rg * hp[j * BB + r];
-          us[r * h + j] = u;
-        }
-        rh[j * BB + r] = rhv;
-      }
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < h; j += NT) {
-      float acc[BB];
-      c_product<BB>(w_c, rh, h, j, acc);
-      const float bc = b[2 * h + j];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        const int row = row0 + r;
-        const size_t o = ((size_t)row * T + t) * h + j;
-        if (t < len[r]) {
-          const float* xr = x + ((size_t)row * T + t) * h3;
-          const float c = tanhf((xr[2 * h + j] + bc) + acc[r]);
-          const float u = us[r * h + j];
-          const float out = u * hp[j * BB + r] + (1.f - u) * c;
-          hp[j * BB + r] = out;         // only unit j's thread reads it now
-          y[o] = out;
-        } else if (row < B) {
-          y[o] = 0.f;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int BB>
-__global__ void __launch_bounds__(NT)
-gru_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w_g,
-               const float* __restrict__ w_c, const float* __restrict__ b,
-               const int* __restrict__ lens, const float* __restrict__ y,
-               const float* __restrict__ dy, float* __restrict__ dx,
-               float* __restrict__ rh_seq, float* __restrict__ part_db, int B,
-               int T, int h) {
-  extern __shared__ __align__(16) float smem[];
-  float* hp = smem;                     // [h][BB] h_{t-1} = y[t-1]
-  float* rh = hp + h * BB;              // [h][BB] r * h_{t-1}
-  float* us = rh + h * BB;              // [BB][h] u
-  float* rs = us + h * BB;              // [BB][h] r
-  float* dgc = rs + h * BB;             // [BB][h] dg_c
-  float* dgur = dgc + h * BB;           // [BB][2h] dg_u | dg_r
-  float* dh = dgur + 2 * h * BB;        // [BB][h] dL/dh carried back
-  const int row0 = blockIdx.x * BB;
-  const size_t h3 = 3 * (size_t)h;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* part = part_db + (size_t)blockIdx.x * 3 * h;
-  int len[BB];
-#pragma unroll
-  for (int r = 0; r < BB; ++r) len[r] = row0 + r < B ? lens[row0 + r] : 0;
-  for (int i = threadIdx.x; i < 9 * h * BB; i += NT) smem[i] = 0.f;
-  for (int i = threadIdx.x; i < 3 * h; i += NT) part[i] = 0.f;
-  __syncthreads();  // the zeros land before load_hp writes h_{t-1}
-  auto load_hp = [&](int t) {
-    for (int i = threadIdx.x; i < h * BB; i += NT) {
-      const int r = i / h, k = i % h, row = row0 + r;
-      hp[k * BB + r] = (t > 0 && row < B)
-                           ? y[((size_t)row * T + t - 1) * h + k] : 0.f;
-    }
-  };
-  load_hp(T - 1);
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    // phase 1: u, r and r * h_{t-1} of unit j
-    for (int j = threadIdx.x; j < h; j += NT) {
-      float acc[BB][2];
-      ur_product<BB>(w_g, hp, h, j, acc);
-      const float bu = b[j], br = b[h + j];
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        const int row = row0 + r;
-        float rhv = 0.f;
-        if (t < len[r]) {
-          const float* xr = x + ((size_t)row * T + t) * h3;
-          const float u = rnn::sigm((xr[j] + bu) + acc[r][0]);
-          const float rg = rnn::sigm((xr[h + j] + br) + acc[r][1]);
-          rhv = rg * hp[j * BB + r];
-          us[r * h + j] = u;
-          rs[r * h + j] = rg;
-        }
-        rh[j * BB + r] = rhv;
-        if (row < B) rh_seq[((size_t)row * T + t) * h + j] = rhv;
-      }
-    }
-    __syncthreads();
-    // phase 2: c of unit j; dg_c and dg_u
-    for (int j = threadIdx.x; j < h; j += NT) {
-      float acc[BB];
-      c_product<BB>(w_c, rh, h, j, acc);
-      const float bc = b[2 * h + j];
-      float su = 0.f, sc = 0.f;
-#pragma unroll
-      for (int r = 0; r < BB; ++r) {
-        const int row = row0 + r;
-        const size_t base = (size_t)row * T + t;
-        if (t < len[r]) {
-          const float c = tanhf((x[base * h3 + 2 * h + j] + bc) + acc[r]);
-          const float u = us[r * h + j];
-          const float hpv = hp[j * BB + r];
-          const float dout = dh[r * h + j] + dy[base * h + j];
-          const float dgc_v = dout * (1.f - u) * (1.f - c * c);
-          const float dgu_v = dout * (hpv - c) * u * (1.f - u);
-          dx[base * h3 + j] = dgu_v;
-          dx[base * h3 + 2 * h + j] = dgc_v;
-          dgc[r * h + j] = dgc_v;
-          dgur[r * 2 * h + j] = dgu_v;
-          dh[r * h + j] = dout * u;
-          su += dgu_v;
-          sc += dgc_v;
-        } else {
-          dgc[r * h + j] = 0.f;
-          dgur[r * 2 * h + j] = 0.f;
-          if (row < B) {
-            dx[base * h3 + j] = 0.f;
-            dx[base * h3 + 2 * h + j] = 0.f;
-          }
-        }
-      }
-      part[j] += su;
-      part[2 * h + j] += sc;
-    }
-    __syncthreads();
-    // phase 3: d(r h)[r][k] = sum_c dg_c[r][c] * w_c[k][c]; dg_r of unit k
-    for (int k = warp; k < h; k += NW) {
-      float a[BB];
-      row_dot<BB>(dgc, w_c + (size_t)k * h, h, lane, a);
-      if (lane == 0) {
-        float sr = 0.f;
-#pragma unroll
-        for (int r = 0; r < BB; ++r) {
-          const int row = row0 + r;
-          const size_t base = (size_t)row * T + t;
-          if (t < len[r]) {
-            const float rg = rs[r * h + k];
-            const float dgr = a[r] * hp[k * BB + r] * rg * (1.f - rg);
-            dx[base * h3 + h + k] = dgr;
-            dgur[r * 2 * h + h + k] = dgr;
-            dh[r * h + k] += a[r] * rg;
-            sr += dgr;
-          } else {
-            dgur[r * 2 * h + h + k] = 0.f;
-            if (row < B) dx[base * h3 + h + k] = 0.f;
-          }
-        }
-        part[h + k] += sr;
-      }
-    }
-    __syncthreads();
-    // phase 4: dh_{t-1}[r][k] += sum_c dg_ur[r][c] * w_g[k][c]
-    for (int k = warp; k < h; k += NW) {
-      float a[BB];
-      row_dot<BB>(dgur, w_g + (size_t)k * 2 * h, 2 * h, lane, a);
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < BB; ++r) dh[r * h + k] += a[r];
-      }
-    }
-    if (t > 0) load_hp(t - 1);
-    __syncthreads();
-  }
-}
 
 // The cluster walk's shared memory, in floats from the base, at width h and
 // R rows a cluster
@@ -727,38 +508,435 @@ gru_fwd_cluster_kernel(const float* __restrict__ x,
   }
 }
 
-template <int BB>
-cudaError_t launch_fwd(const float* x, const float* w_g, const float* w_c,
-                       const float* b, const int* lens, float* y, int B,
-                       int T, int h, cudaStream_t st) {
-  const size_t smem = fwd_smem(h, BB);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_fwd_kernel<BB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  gru_fwd_kernel<BB><<<rnn::cdiv(B, BB), NT, smem, st>>>(x, w_g, w_c, b,
-                                                         lens, y, B, T, h);
-  return cudaGetLastError();
+// ------------------------------------------------------------ grid route
+// B7's grid block's shared memory, in floats from the base, at width h, U
+// units a block and Bp rows (a multiple of 16); the slices of w_g and w_c
+// only where they are resident
+struct FwdGrid {
+  int K, kst, gs, cs, wc, gur, gc, us, hs, sb, total;
+  __host__ __device__ FwdGrid(int h, int U, int Bp, bool resident) {
+    K = rnn::round8(h);              // the products' depth, zeros past h
+    kst = rnn::grad_stride(K);
+    gs = rnn::round8(2 * U);         // the own u and r columns q U + u
+    cs = rnn::round8(U);             // the own c columns
+    wc = resident ? 2 * U * kst : 0;   // wg [2U][kst]: w_g[k][q h + j0 + u]
+    gur = wc + (resident ? U * kst : 0);  // wc [U][kst]: w_c[k][j0 + u]
+    gc = gur + Bp * gs;              // gur [Bp][gs]: x_t + b + the product
+    us = gc + Bp * cs;               // gc [Bp][cs]: x_t + b + the product
+    hs = us + Bp * U;                // us [Bp][U]: u of the step
+    sb = hs + Bp * U;                // hs [Bp][U]: h_{t-1} of the own units
+    total = sb + 3 * U;              // sb [3][U]: the own units' b
+  }
+};
+
+// B8's grid block's shared memory, as FwdGrid's
+struct BwdGrid {
+  int kc, kg, wg, ps, pg, dh, dho, rr, rf, total;
+  __host__ __device__ BwdGrid(int h, int U, int Bp, bool resident) {
+    kc = rnn::grad_stride(rnn::round8(h));      // wc [U][kc]: w_c[j0 + u]
+    kg = rnn::grad_stride(rnn::round8(2 * h));  // wg [U][kg]: w_g[j0 + u]
+    wg = resident ? U * kc : 0;
+    pg = wg + (resident ? U * kg : 0);
+    ps = rnn::round8(U);             // pg [Bp][ps]: d(r h) or dh's product
+    dh = pg + Bp * ps;               // dh [Bp][U]: dL/dh_t, own units
+    dho = dh + Bp * U;               // dho [Bp][U]: dh_{t-1}'s own terms
+    rr = dho + Bp * U;               // rr [Bp][U]: r
+    rf = rr + Bp * U;                // rf [Bp][U]: h_{t-1} r (1 - r)
+    total = rf + Bp * U;
+  }
+};
+
+size_t fwd_grid_smem(int h, int U, int Bp, bool resident) {
+  return (size_t)FwdGrid(h, U, Bp, resident).total * sizeof(float);
 }
 
-template <int BB>
-cudaError_t launch_bwd(const float* x, const float* w_g, const float* w_c,
-                       const float* b, const int* lens, const float* y,
-                       const float* dy, float* dx, float* rh_seq, float* part,
-                       int B, int T, int h, cudaStream_t st) {
-  const size_t smem = bwd_smem(h, BB);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_bwd_kernel<BB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  gru_bwd_kernel<BB><<<rnn::cdiv(B, BB), NT, smem, st>>>(
-      x, w_g, w_c, b, lens, y, dy, dx, rh_seq, part, B, T, h);
-  return cudaGetLastError();
+size_t bwd_grid_smem(int h, int U, int Bp, bool resident) {
+  return (size_t)BwdGrid(h, U, Bp, resident).total * sizeof(float);
 }
 
-// scratch layout of gru_seq_bwd: [B, 3h] db partials (of at most B blocks
-// or clusters) | rh [B, T, h] |
-// dW split-K partials (the larger of dW_g's and dW_c's; they run in turn)
+// The floats of B7's grid exchange buffers: h and r * h, [Bp][round8(h)]
+// each
+long long fwd_exchange_floats(int Bp, int h) {
+  return 2LL * Bp * rnn::round8(h);
+}
+
+// The floats of B8's grid exchange buffers: dg_c [Bp][round8(h)], then
+// dg_ur [2][Bp][round8(2h)] (both parities)
+long long bwd_exchange_floats(int Bp, int h) {
+  return (long long)Bp * rnn::round8(h) + 2LL * Bp * rnn::round8(2 * h);
+}
+
+// The m-tiles (of 16 rows) a job of B7's per-step products holds (the
+// n-tiles of its u/r product follow the gate columns, 2 or 4, and its c
+// product's are FWD_NG_C; more columns make more jobs), and the m- and
+// n-tiles of B8's, over the own units
+constexpr int FWD_MG = 2;
+constexpr int FWD_NG_C = 2;
+constexpr int BWD_MG = 4;
+constexpr int BWD_NG = 2;
+constexpr int CELL_PAIRS = 4;   // (row, unit) pairs B8's cell loads at once
+
+// B7's grid route (see the head of this file). hbuf and rhbuf
+// [Bp][round8(h)] and *bar are zero on entry. RES: the slices of w_g and
+// w_c in shared memory, else read from L2 each step; NG: the n-tiles of a
+// u/r product job (fwd_grid_kernel's choice).
+template <bool RES, int NG>
+__global__ void __launch_bounds__(rnn::GT, 1)
+gru_fwd_grid_kernel(const float* __restrict__ x,
+                    const float* __restrict__ w_g,
+                    const float* __restrict__ w_c,
+                    const float* __restrict__ b, const int* __restrict__ lens,
+                    float* __restrict__ y, float* hbuf, float* rhbuf,
+                    unsigned* bar, int B, int T, int h, int U) {
+  constexpr int GT = rnn::GT;
+  extern __shared__ __align__(16) float smem[];
+  const int Bp = rnn::round16(B);
+  const FwdGrid L(h, U, Bp, RES);
+  const int s = blockIdx.x, G = gridDim.x;
+  const int j0 = s * U, nu = min(U, h - j0), K = L.K, U3 = 3 * U;
+  const int h3 = 3 * h;
+  float* wg = smem;
+  float* wc = smem + L.wc;
+  float* gur = smem + L.gur;
+  float* gc = smem + L.gc;
+  float* us = smem + L.us;
+  float* hs = smem + L.hs;
+  float* sb = smem + L.sb;
+
+  int live = 0;  // the steps until every row is past its length
+  for (int r = 0; r < B; ++r) live = max(live, min(__ldg(lens + r), T));
+  // h_{-1} = 0, and every pad zero
+  for (int i = threadIdx.x; i < L.total; i += GT) smem[i] = 0.f;
+  __syncthreads();
+  if constexpr (RES) {
+    for (int i = threadIdx.x; i < h * 2 * U; i += GT) {
+      const int k = i / (2 * U), c = i % (2 * U), q = c / U, u = c % U;
+      if (u < nu) wg[c * L.kst + k] = w_g[(size_t)k * 2 * h + q * h + j0 + u];
+    }
+    for (int i = threadIdx.x; i < h * U; i += GT) {
+      const int k = i / U, u = i % U;
+      if (u < nu) wc[u * L.kst + k] = w_c[(size_t)k * h + j0 + u];
+    }
+  }
+  for (int i = threadIdx.x; i < 3 * nu; i += GT) {
+    const int q = i / nu, u = i % nu;
+    sb[q * U + u] = b[q * h + j0 + u];
+  }
+  // the gate column c = q U + u of row r: gur for u and r, gc for c
+  auto gate = [&](int r, int c) {
+    return c < 2 * U ? gur + r * L.gs + c : gc + r * L.cs + (c - 2 * U);
+  };
+  // x_t of the own gate columns into gur and gc (0 past len)
+  auto stage = [&](int t) {
+    for (int e = threadIdx.x; e < B * U3 && !kSerialFloor; e += GT) {
+      const int r = e / U3, c = e % U3, q = c / U, u = c % U;
+      const bool ok = u < nu && t < __ldg(lens + r);
+      cp_async4(gate(r, c),
+                ok ? x + ((size_t)r * T + t) * h3 + q * h + j0 + u : x,
+                ok ? 4 : 0);
+    }
+  };
+  // Bt(n, k) = w_g[k][q h + j0 + u] for the own u/r column n = q U + u,
+  // and w_c[k][j0 + n] for the own unit n
+  auto wgcol = [&](int n, int k) -> float2 {
+    if (n >= 2 * U) return make_float2(0.f, 0.f);
+    if constexpr (RES) {
+      return *reinterpret_cast<const float2*>(wg + n * L.kst + k);
+    } else {
+      const int q = n / U, u = n % U;
+      if (u >= nu) return make_float2(0.f, 0.f);
+      const float* col = w_g + q * h + j0 + u;
+      const size_t ld = 2 * (size_t)h;
+      return make_float2(k < h ? __ldg(col + k * ld) : 0.f,
+                         k + 1 < h ? __ldg(col + (k + 1) * ld) : 0.f);
+    }
+  };
+  auto wccol = [&](int n, int k) -> float2 {
+    if (n >= nu) return make_float2(0.f, 0.f);
+    if constexpr (RES) {
+      return *reinterpret_cast<const float2*>(wc + n * L.kst + k);
+    } else {
+      const float* col = w_c + j0 + n;
+      return make_float2(k < h ? __ldg(col + (size_t)k * h) : 0.f,
+                         k + 1 < h ? __ldg(col + (size_t)(k + 1) * h) : 0.f);
+    }
+  };
+  __syncthreads();
+  if (live > 0) stage(0);
+  cp_async_commit();
+
+  unsigned passed = 0;
+  for (int t = 0; t < live; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // x_t has landed in gur and gc
+    for (int e = threadIdx.x; e < B * U3 && !kSerialFloor; e += GT)
+      *gate(e / U3, e % U3) += sb[e % U3];   // x + b, B7's order
+    __syncthreads();
+    // gur += h_{t-1} [Bp, K] @ w_g[:, own u, r] [K, 2U], h_{t-1} from L2
+    rnn::grid_product_add<kSerialFloor, FWD_MG, NG>(
+        gur, L.gs, Bp, 2 * U, K, rnn::GlobalRows{hbuf, K}, wgcol);
+    // u, r and r * h_{t-1} of the own (row, unit) pairs (0 past len)
+    for (int pr = threadIdx.x; pr < B * U; pr += GT) {
+      const int r = pr / U, u = pr % U;
+      if (u >= nu) continue;
+      float rhv = 0.f;
+      if (!kSerialFloor && t < __ldg(lens + r)) {
+        const float* g = gur + r * L.gs;
+        const float ug = rnn::sigm(g[u]);
+        const float rg = rnn::sigm(g[U + u]);
+        us[pr] = ug;
+        rhv = rg * hs[pr];
+      }
+      rhbuf[(size_t)r * K + j0 + u] = rhv;
+    }
+    rnn::grid_sync(bar, passed += G);  // r * h_{t-1} of every block is in rh
+    // gc += (r h_{t-1}) [Bp, K] @ w_c[:, own] [K, U], r h_{t-1} from L2
+    rnn::grid_product_add<kSerialFloor, FWD_MG, FWD_NG_C>(
+        gc, L.cs, Bp, U, K, rnn::GlobalRows{rhbuf, K}, wccol);
+    // c and h_t of the own pairs; past len h carries and y = 0
+    for (int pr = threadIdx.x; pr < B * U; pr += GT) {
+      const int r = pr / U, u = pr % U, j = j0 + u;
+      if (u >= nu) continue;
+      if (kSerialFloor) {
+        hbuf[(size_t)r * K + j] = 0.f;
+        continue;
+      }
+      const size_t o = ((size_t)r * T + t) * h + j;
+      if (t < __ldg(lens + r)) {
+        const float c = tanhf(gc[r * L.cs + u]);
+        const float ug = us[pr];
+        const float out = ug * hs[pr] + (1.f - ug) * c;
+        hs[pr] = out;
+        hbuf[(size_t)r * K + j] = out;
+        y[o] = out;
+      } else {
+        y[o] = 0.f;
+      }
+    }
+    if (t + 1 == live) break;
+    __syncthreads();  // gur and gc are read: x_{t+1} may land in them
+    stage(t + 1);
+    cp_async_commit();
+    rnn::grid_sync(bar, passed += G);  // h_t of every block is in h
+  }
+  cp_async_wait<0>();
+  // past every row's length: y = 0
+  for (int e = threadIdx.x; e < (T - live) * B * U && !kSerialFloor;
+       e += GT) {
+    const int t = live + e / (B * U), pr = e % (B * U), r = pr / U,
+              u = pr % U;
+    if (u < nu) y[((size_t)r * T + t) * h + j0 + u] = 0.f;
+  }
+}
+
+// B8's grid walk (see the head of this file). dx holds the hoisted
+// pre-activations on entry and the gate gradients on exit; xbuf holds the
+// exchange (bwd_exchange_floats); it and *bar are zero on entry. RES as
+// B7's.
+template <bool RES>
+__global__ void __launch_bounds__(rnn::GT, 1)
+gru_bwd_grid_kernel(const float* __restrict__ w_g,
+                    const float* __restrict__ w_c,
+                    const int* __restrict__ lens,
+                    const float* __restrict__ y,
+                    const float* __restrict__ dy, float* __restrict__ dx,
+                    float* xbuf, unsigned* bar, int B, int T, int h, int U) {
+  constexpr int GT = rnn::GT;
+  extern __shared__ __align__(16) float smem[];
+  const int Bp = rnn::round16(B);
+  const BwdGrid L(h, U, Bp, RES);
+  const int s = blockIdx.x, G = gridDim.x;
+  const int j0 = s * U, nu = min(U, h - j0), U3 = 3 * U;
+  const int h2 = 2 * h, h3 = 3 * h;
+  const int hc = rnn::round8(h), hg = rnn::round8(h2);
+  float* wc = smem;
+  float* wg = smem + L.wg;
+  float* pg = smem + L.pg;
+  float* dhs = smem + L.dh;
+  float* dho = smem + L.dho;
+  float* rr = smem + L.rr;
+  float* rf = smem + L.rf;
+  float* dgc = xbuf;                       // [Bp][hc]
+  float* dgur_base = xbuf + (size_t)Bp * hc;   // [2][Bp][hg]
+
+  int live = 0;
+  for (int r = 0; r < B; ++r) live = max(live, min(__ldg(lens + r), T));
+  for (int i = threadIdx.x; i < L.total; i += GT) smem[i] = 0.f;
+  __syncthreads();
+  if constexpr (RES) {
+    for (int i = threadIdx.x; i < nu * h; i += GT) {
+      const int u = i / h, k = i % h;
+      wc[u * L.kc + k] = w_c[(size_t)(j0 + u) * h + k];
+    }
+    for (int i = threadIdx.x; i < nu * h2; i += GT) {
+      const int u = i / h2, k = i % h2;
+      wg[u * L.kg + k] = w_g[(size_t)(j0 + u) * h2 + k];
+    }
+  }
+  // past every row's length: dx = 0, no barrier
+  for (int e = threadIdx.x; e < (T - live) * B * U3 && !kSerialFloor;
+       e += GT) {
+    const int t = live + e / (B * U3), rc = e % (B * U3), r = rc / U3,
+              c = rc % U3, q = c / U, u = c % U;
+    if (u < nu) dx[((size_t)r * T + t) * h3 + q * h + j0 + u] = 0.f;
+  }
+  // Bt(n, k) = w_c[j0 + n][k], and w_g[j0 + n][k], for the own unit n
+  auto wcrow = [&](int n, int k) -> float2 {
+    if (n >= nu) return make_float2(0.f, 0.f);
+    if constexpr (RES) {
+      return *reinterpret_cast<const float2*>(wc + n * L.kc + k);
+    } else {
+      const float* row = w_c + (size_t)(j0 + n) * h;
+      return make_float2(k < h ? __ldg(row + k) : 0.f,
+                         k + 1 < h ? __ldg(row + k + 1) : 0.f);
+    }
+  };
+  auto wgrow = [&](int n, int k) -> float2 {
+    if (n >= nu) return make_float2(0.f, 0.f);
+    if constexpr (RES) {
+      return *reinterpret_cast<const float2*>(wg + n * L.kg + k);
+    } else {
+      const float* row = w_g + (size_t)(j0 + n) * h2;
+      return make_float2(k < h2 ? __ldg(row + k) : 0.f,
+                         k + 1 < h2 ? __ldg(row + k + 1) : 0.f);
+    }
+  };
+  __syncthreads();
+
+  unsigned passed = 0;
+  for (int t = live - 1; t >= 0; --t) {
+    float* dgur = dgur_base + (size_t)(t & 1) * Bp * hg;
+    // 1. the cell backward of the own (row, unit) pairs: dg_c and dg_u
+    // into dx and into the exchange; past len dg = 0 and dh carries. A
+    // thread loads the inputs of CELL_PAIRS pairs before it computes any:
+    // one round trip to memory, not one a pair.
+    for (int p0 = threadIdx.x; p0 < B * U; p0 += CELL_PAIRS * GT) {
+      float in[CELL_PAIRS][5];
+#pragma unroll
+      for (int q = 0; q < CELL_PAIRS; ++q) {
+        const int pr = p0 + q * GT, r = pr / U, u = pr % U, j = j0 + u;
+        if (kSerialFloor || pr >= B * U || u >= nu || t >= __ldg(lens + r))
+          continue;
+        const size_t base = (size_t)r * T + t;
+        const float* pre = dx + base * h3 + j;
+        in[q][0] = pre[0];
+        in[q][1] = pre[h];
+        in[q][2] = pre[2 * h];
+        in[q][3] = dy[base * h + j];
+        in[q][4] = t > 0 ? y[(base - 1) * h + j] : 0.f;
+      }
+#pragma unroll
+      for (int q = 0; q < CELL_PAIRS; ++q) {
+        const int pr = p0 + q * GT, r = pr / U, u = pr % U, j = j0 + u;
+        if (pr >= B * U || u >= nu) continue;
+        const size_t base = (size_t)r * T + t;
+        float dgu = 0.f, dgcv = 0.f;
+        if (!kSerialFloor && t < __ldg(lens + r)) {
+          const float ug = rnn::sigm(in[q][0]);
+          const float rg = rnn::sigm(in[q][1]);
+          const float c = tanhf(in[q][2]);
+          const float hp = in[q][4];
+          const float dout = dhs[pr] + in[q][3];
+          dgcv = dout * (1.f - ug) * (1.f - c * c);
+          dgu = dout * (hp - c) * ug * (1.f - ug);
+          dho[pr] = dout * ug;
+          rr[pr] = rg;
+          rf[pr] = hp * rg * (1.f - rg);
+        }
+        if (!kSerialFloor) {
+          dx[base * h3 + j] = dgu;
+          dx[base * h3 + 2 * h + j] = dgcv;
+        }
+        dgur[(size_t)r * hg + j] = dgu;
+        dgc[(size_t)r * hc + j] = dgcv;
+      }
+    }
+    rnn::grid_sync(bar, passed += G);  // every block's dg_c and dg_u
+    // 2. d(r h)[:, own] = dg_c [Bp, hc] (from L2) @ w_c[own, :]^T, then
+    // dg_r of the own units and dh's r-term
+    for (int i = threadIdx.x; i < Bp * L.ps; i += GT) pg[i] = 0.f;
+    __syncthreads();
+    rnn::grid_product_add<kSerialFloor, BWD_MG, BWD_NG>(
+        pg, L.ps, Bp, U, hc, rnn::GlobalRows{dgc, hc}, wcrow);
+    for (int pr = threadIdx.x; pr < B * U; pr += GT) {
+      const int r = pr / U, u = pr % U, j = j0 + u;
+      if (u >= nu) continue;
+      float dgr = 0.f;
+      if (!kSerialFloor && t < __ldg(lens + r)) {
+        const float drh = pg[r * L.ps + u];
+        dgr = drh * rf[pr];
+        dho[pr] += drh * rr[pr];
+      }
+      if (!kSerialFloor) dx[((size_t)r * T + t) * h3 + h + j] = dgr;
+      dgur[(size_t)r * hg + h + j] = dgr;
+    }
+    if (t == 0) break;  // dh_{-1} is not needed
+    rnn::grid_sync(bar, passed += G);  // every block's dg_r
+    // 3. dh_{t-1}[:, own] = the own terms + dg_ur [Bp, hg] (from L2) @
+    // w_g[own, :]^T; a masked row's dh carries
+    for (int i = threadIdx.x; i < Bp * L.ps; i += GT) pg[i] = 0.f;
+    __syncthreads();
+    rnn::grid_product_add<kSerialFloor, BWD_MG, BWD_NG>(
+        pg, L.ps, Bp, U, hg, rnn::GlobalRows{dgur, hg}, wgrow);
+    for (int pr = threadIdx.x; pr < B * U; pr += GT) {
+      const int r = pr / U, u = pr % U;
+      if (u < nu && t < __ldg(lens + r))
+        dhs[pr] = dho[pr] + pg[r * L.ps + u];
+    }
+  }
+}
+
+// db's row-chunk partials: part[chunk][j] sums dx[n][j] over the chunk's
+// rows of the N = B*T (dx is 0 on masked steps)
+__global__ void gru_bias_grad_kernel(const float* __restrict__ dx,
+                                     float* __restrict__ part, int N,
+                                     int width, int rows) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= width) return;
+  const int n0 = blockIdx.y * rows, n1 = min(N, n0 + rows);
+  float s = 0.f;
+  for (int n = n0; n < n1; ++n) s += dx[(size_t)n * width + j];
+  part[(size_t)blockIdx.y * width + j] = s;
+}
+
+// db [3h] from dx over the N = B*T rows, through BIAS_PARTS row-chunk
+// partials in part (fixed order)
+cudaError_t bias_grad(const float* dx, float* part, float* db, int N, int h,
+                      cudaStream_t st) {
+  const int rows = rnn::cdiv(N, rnn::BIAS_PARTS < N ? rnn::BIAS_PARTS : N);
+  const int parts = rnn::cdiv(N, rows);
+  gru_bias_grad_kernel<<<dim3(rnn::cdiv(3 * h, 128), parts), 128, 0, st>>>(
+      dx, part, N, 3 * h, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return rnn::block_sum(part, db, parts, 3 * h, st);
+}
+
+// B7's grid kernel for the slices resident or not and U units a block: a
+// u/r product job of 2 n-tiles where the 2U columns take at most 2 (U <= 8,
+// h <= 1056 on 132 SMs), else of 4, several jobs past 4 (h > 2112)
+using FwdKern = void (*)(const float*, const float*, const float*,
+                         const float*, const int*, float*, float*, float*,
+                         unsigned*, int, int, int, int);
+
+FwdKern fwd_grid_kernel(bool resident, int U) {
+  if ((2 * U + 7) / 8 <= 2)
+    return resident ? &gru_fwd_grid_kernel<true, 2>
+                    : &gru_fwd_grid_kernel<false, 2>;
+  return resident ? &gru_fwd_grid_kernel<true, 4>
+                  : &gru_fwd_grid_kernel<false, 4>;
+}
+
+using BwdKern = void (*)(const float*, const float*, const int*,
+                         const float*, const float*, float*, float*,
+                         unsigned*, int, int, int, int);
+
+BwdKern bwd_grid_kernel(bool resident) {
+  return resident ? &gru_bwd_grid_kernel<true> : &gru_bwd_grid_kernel<false>;
+}
+
+// dW's split-K partials at (B, T, h): the larger of dW_g's and dW_c's
+// (they run in turn)
 long long dw_floats(int B, int T, int h) {
   const long long n = (long long)B * T;
   const long long g = rnn::dw_scratch_floats(n, h, 2 * h);
@@ -766,8 +944,25 @@ long long dw_floats(int B, int T, int h) {
   return g > c ? g : c;
 }
 
-// The two cluster walks of this file, for rnn_common.cuh's route rule and
-// launches
+// Scratch floats of B8's launch: the db partials of either route (the
+// clusters', or the grid route's row chunks), rh [B, T, h], dW's split-K
+// partials, then the grid route's barrier and exchange (B7's grid route:
+// those alone). The offsets of the pieces, in floats (16-byte aligned).
+struct BwdScratch {
+  long long part, rh, dw, grid, total;
+  BwdScratch(const rnn::Plan& p, int B, int T, int h) {
+    part = 0;
+    const long long parts = B > rnn::BIAS_PARTS ? B : rnn::BIAS_PARTS;
+    rh = (parts * 3 * h + 31) & ~31LL;
+    dw = (rh + (long long)B * T * h + 31) & ~31LL;
+    grid = (dw + dw_floats(B, T, h) + 31) & ~31LL;
+    total = grid + rnn::grid_floats(p, h, bwd_exchange_floats);
+  }
+};
+
+// The two cluster walks and the grid route of this file, for
+// rnn_common.cuh's route rule and launches: the grid route takes every h
+// the cluster route does not
 struct Walks {
   template <int KIND, int R>
   static auto kernel() {
@@ -779,7 +974,17 @@ struct Walks {
   static size_t smem(int kind, int h, int R) {
     return kind == 0 ? fwd_cluster_smem(h, R) : walk_smem(h, R);
   }
-  static int walk_rows(int kind, int h) { return block_rows(kind, h); }
+  static size_t grid_smem(int kind, int h, int U, int Bp, bool res) {
+    return kind == 0 ? fwd_grid_smem(h, U, Bp, res)
+                     : bwd_grid_smem(h, U, Bp, res);
+  }
+  static int grid_active(int kind, int U, bool res, size_t bytes,
+                         int device) {
+    return kind == 0 ? rnn::max_active_blocks(fwd_grid_kernel(res, U),
+                                              rnn::GT, bytes, device)
+                     : rnn::max_active_blocks(bwd_grid_kernel(res), rnn::GT,
+                                              bytes, device);
+  }
 };
 
 }  // namespace
@@ -796,19 +1001,29 @@ extern "C" int gru_seq_bwd_plan(int B, int h, int device, int request,
   return rnn::plan_entry<Walks>(1, B, h, device, request, out);
 }
 
-extern "C" long long gru_seq_bwd_scratch_floats(int B, int T, int h) {
-  return (long long)B * 3 * h + (long long)B * T * h + dw_floats(B, T, h);
+// Floats of scratch gru_seq_fwd (kind 0) or gru_seq_bwd needs at (B, T, h)
+// on the route `route` asks for on `device` (-1: none takes h).
+extern "C" long long gru_seq_scratch_floats(int kind, int B, int T, int h,
+                                            int device, int route) {
+  if (cudaSetDevice(device) != cudaSuccess) return -1;
+  rnn::Plan p;
+  if (rnn::walk_plan<Walks>(kind, B, h, device, route, &p) != 0 ||
+      p.route < 0)
+    return -1;
+  return kind == 0 ? rnn::grid_floats(p, h, fwd_exchange_floats)
+                   : BwdScratch(p, B, T, h).total;
 }
 
 // B7. x [B, T, 3h], w_g [h, 2h], w_c [h, h], b [3h], lens [B] int32 ->
 // y [B, T, h], on the route `route` asks for (rnn::make_plan), which it
 // writes into *taken (-1: that route does not take h, and nothing is
-// launched). Launches on `stream` of `device`; returns the launch's
-// cudaError_t (0 = launched or refused).
+// launched); scratch of gru_seq_scratch_floats(0, ...) floats. Launches on
+// `stream` of `device`; returns the launch's cudaError_t (0 = launched or
+// refused).
 extern "C" int gru_seq_fwd(const float* x, const float* w_g, const float* w_c,
-                           const float* b, const int* lens, float* y, int B,
-                           int T, int h, int route, int* taken, int device,
-                           void* stream) {
+                           const float* b, const int* lens, float* y,
+                           float* scratch, int B, int T, int h, int route,
+                           int* taken, int device, void* stream) {
   rnn::Plan p;
   const int rc = rnn::launch_plan<Walks>(0, B, h, device, route, taken, &p);
   if (rc != 0 || p.route < 0) return rc;
@@ -816,18 +1031,26 @@ extern "C" int gru_seq_fwd(const float* x, const float* w_g, const float* w_c,
   if (p.route == 1)
     return (int)rnn::launch_walk<Walks, 0>(p, h, st, x, w_g, w_c, b, lens, y,
                                            B, T, h);
-  switch (p.rows) {
-    case 8: return (int)launch_fwd<8>(x, w_g, w_c, b, lens, y, B, T, h, st);
-    case 4: return (int)launch_fwd<4>(x, w_g, w_c, b, lens, y, B, T, h, st);
-    case 2: return (int)launch_fwd<2>(x, w_g, w_c, b, lens, y, B, T, h, st);
-    case 1: return (int)launch_fwd<1>(x, w_g, w_c, b, lens, y, B, T, h, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  // the grid route, a launch for every p.rows rows
+  unsigned* bar = reinterpret_cast<unsigned*>(scratch);
+  float* hbuf = scratch + rnn::GRID_HEAD;
+  const size_t h3 = 3 * (size_t)h;
+  return (int)rnn::grid_launches(
+      p, B, h, scratch, fwd_exchange_floats, st, [&](int r0, int rows) {
+        float* rhbuf = hbuf + (size_t)rnn::round16(rows) * rnn::round8(h);
+        const size_t off = (size_t)r0 * T;
+        return rnn::launch_grid(
+            fwd_grid_kernel(!p.streamed, p.units), p.blocks,
+            fwd_grid_smem(h, p.units, rnn::round16(rows), !p.streamed), st,
+            x + off * h3, w_g, w_c, b, lens + r0, y + off * h, hbuf, rhbuf,
+            bar, rows, T, h, p.units);
+      });
 }
 
 // B8. Inputs as B7's plus y and dy [B, T, h]; writes dx [B, T, 3h],
 // dw_g [h, 2h], dw_c [h, h] and db [3h], on the route `route` asks for,
-// written into *taken as B7's is.
+// written into *taken as B7's is; scratch of gru_seq_scratch_floats(1,
+// ...) floats.
 extern "C" int gru_seq_bwd(const float* x, const float* w_g, const float* w_c,
                            const float* b, const int* lens, const float* y,
                            const float* dy, float* dx, float* dw_g,
@@ -838,40 +1061,46 @@ extern "C" int gru_seq_bwd(const float* x, const float* w_g, const float* w_c,
   const int rc = rnn::launch_plan<Walks>(1, B, h, device, route, taken, &p);
   if (rc != 0 || p.route < 0) return rc;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  float* part = scratch;
-  float* rh_seq = part + (size_t)B * 3 * h;
-  float* dw_part = rh_seq + (size_t)B * T * h;
+  const BwdScratch S(p, B, T, h);
+  float* part = scratch + S.part;
+  float* rh_seq = scratch + S.rh;
+  float* dw_part = scratch + S.dw;
   const int h3 = 3 * h;
+  // u, r: (x + b) + h_{t-1} @ w_g, and rh = r * h_{t-1}; then c:
+  // (x_c + b_c) + rh @ w_c, all into dx
+  cudaError_t err = rnn::pre_gemm<rnn::EPI_PRE_RH>(
+      y, h, T, w_g, 2 * h, x, h3, b, dx, h3, B * T, 2 * h, h, rh_seq, lens,
+      h, st);
+  if (err != cudaSuccess) return (int)err;
+  err = rnn::pre_gemm<rnn::EPI_PRE>(rh_seq, h, 0, w_c, h, x + 2 * h, h3,
+                                    b + 2 * h, dx + 2 * h, h3, B * T, h, h,
+                                    nullptr, nullptr, h, st);
+  if (err != cudaSuccess) return (int)err;
   if (p.route == 1) {
-    // u, r: (x + b) + h_{t-1} @ w_g, and rh = r * h_{t-1}; then c:
-    // (x_c + b_c) + rh @ w_c, all into dx
-    err = rnn::pre_gemm<rnn::EPI_PRE_RH>(y, h, T, w_g, 2 * h, x, h3, b, dx,
-                                         h3, B * T, 2 * h, h, rh_seq, lens,
-                                         h, st);
-    if (err != cudaSuccess) return (int)err;
-    err = rnn::pre_gemm<rnn::EPI_PRE>(rh_seq, h, 0, w_c, h, x + 2 * h, h3,
-                                      b + 2 * h, dx + 2 * h, h3, B * T, h, h,
-                                      nullptr, nullptr, h, st);
-    if (err != cudaSuccess) return (int)err;
     err = rnn::launch_walk<Walks, 1>(p, h, st, w_g, w_c, lens, y, dy, dx, part,
                                      B, T, h);
+    if (err != cudaSuccess) return (int)err;
+    err = rnn::block_sum(part, db, p.blocks, h3, st);
   } else {
-    switch (p.rows) {
-      case 8: err = launch_bwd<8>(x, w_g, w_c, b, lens, y, dy, dx, rh_seq, part, B, T, h, st); break;
-      case 4: err = launch_bwd<4>(x, w_g, w_c, b, lens, y, dy, dx, rh_seq, part, B, T, h, st); break;
-      case 2: err = launch_bwd<2>(x, w_g, w_c, b, lens, y, dy, dx, rh_seq, part, B, T, h, st); break;
-      case 1: err = launch_bwd<1>(x, w_g, w_c, b, lens, y, dy, dx, rh_seq, part, B, T, h, st); break;
-      default: return (int)cudaErrorInvalidValue;
-    }
+    unsigned* bar = reinterpret_cast<unsigned*>(scratch + S.grid);
+    float* xbuf = scratch + S.grid + rnn::GRID_HEAD;
+    err = rnn::grid_launches(
+        p, B, h, scratch + S.grid, bwd_exchange_floats, st,
+        [&](int r0, int rows) {
+          const size_t off = (size_t)r0 * T;
+          return rnn::launch_grid(
+              bwd_grid_kernel(!p.streamed), p.blocks,
+              bwd_grid_smem(h, p.units, rnn::round16(rows), !p.streamed), st,
+              w_g, w_c, lens + r0, y + off * h, dy + off * h, dx + off * h3,
+              xbuf, bar, rows, T, h, p.units);
+        });
+    if (err != cudaSuccess) return (int)err;
+    err = bias_grad(dx, part, db, B * T, h, st);
   }
-  if (err != cudaSuccess) return (int)err;
-  err = rnn::block_sum(part, db, p.blocks, h3, st);
   if (err != cudaSuccess) return (int)err;
   // dW_g = sum h_{t-1}^T dg_ur (h_{t-1} = y shifted by one);
   // dW_c = sum (r h_{t-1})^T dg_c
-  err = rnn::weight_grad(y, h, T, dx, h3, dw_g, dw_part, B * T, h, 2 * h,
-                         st);
+  err = rnn::weight_grad(y, h, T, dx, h3, dw_g, dw_part, B * T, h, 2 * h, st);
   if (err != cudaSuccess) return (int)err;
   return (int)rnn::weight_grad(rh_seq, h, 0, dx + 2 * h, h3, dw_c, dw_part,
                                B * T, h, h, st);

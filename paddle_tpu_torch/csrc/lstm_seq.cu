@@ -486,12 +486,6 @@ lstm_fwd_cluster_kernel(const float* __restrict__ x,
 }
 
 // ------------------------------------------------------------ grid route
-inline __host__ __device__ int round16(int n) { return (n + 15) & ~15; }
-
-constexpr int GRID_HEAD = 32;     // scratch floats before a grid launch's
-                                  // buffers: its barrier counter
-constexpr int BIAS_PARTS = 64;    // row chunks of the grid route's db7
-
 // B5's grid block's shared memory, in floats from the base, at width h, U
 // units a block and Bp rows (a multiple of 16); the slice of w only where
 // it is resident
@@ -532,14 +526,19 @@ size_t bwd_grid_smem(int h, int U, int Bp, bool resident) {
   return (size_t)BwdGrid(h, U, Bp, resident).total * sizeof(float);
 }
 
+// The floats of B5's grid exchange buffers: h, twice [Bp][round8(h)]
+long long fwd_exchange_floats(int Bp, int h) {
+  return 2LL * Bp * rnn::round8(h);
+}
+
 // The floats of B6's grid exchange buffers (both parities): dg [2][Bp][4h]
 long long bwd_exchange_floats(int Bp, int h) {
   return 2LL * Bp * rnn::round8(4 * h);
 }
 
 // The m-tiles (of 16 rows) a job of B5's per-step product holds (the
-// n-tiles follow the gate columns: rnn::grid_ng), and the m- and n-tiles
-// of B6's, over the own units
+// n-tiles follow the gate columns: fwd_grid_kernel), and the m- and
+// n-tiles of B6's, over the own units
 constexpr int FWD_MG = 2;
 constexpr int BWD_MG = 4;
 constexpr int BWD_NG = 2;
@@ -548,7 +547,7 @@ constexpr int CELL_PAIRS = 4;   // (row, unit) pairs B6's cell loads at once
 // B5's grid route (see the head of this file). hbuf [2][Bp][round8(h)] and
 // *bar are zero on entry; c_out may be null. RES: w's slice in shared
 // memory, else read from L2 each step; NG: the n-tiles of a product job
-// (rnn::grid_ng of the own gate columns' n-tiles).
+// (fwd_grid_kernel's choice for the own gate columns' n-tiles).
 template <bool RES, int NG>
 __global__ void __launch_bounds__(rnn::GT, 1)
 lstm_fwd_grid_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -558,7 +557,7 @@ lstm_fwd_grid_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      int B, int T, int h, int U) {
   constexpr int GT = rnn::GT;
   extern __shared__ __align__(16) float smem[];
-  const int Bp = round16(B);
+  const int Bp = rnn::round16(B);
   const FwdGrid L(h, U, Bp, RES);
   const int s = blockIdx.x, G = gridDim.x;
   const int j0 = s * U, nu = min(U, h - j0), nc = L.nc, K = L.K;
@@ -681,7 +680,7 @@ lstm_bwd_grid_kernel(const float* __restrict__ w,
                      float* xbuf, unsigned* bar, int B, int T, int h, int U) {
   constexpr int GT = rnn::GT;
   extern __shared__ __align__(16) float smem[];
-  const int Bp = round16(B);
+  const int Bp = rnn::round16(B);
   const BwdGrid L(h, U, Bp, RES);
   const int s = blockIdx.x, G = gridDim.x;
   const int j0 = s * U, nu = min(U, h - j0), nc = L.nc;
@@ -834,7 +833,7 @@ __global__ void lstm_bias_grad_kernel(const float* __restrict__ dx,
 // row-chunk partials in part (fixed order)
 cudaError_t bias_grad(const float* dx, const float* c, float* part,
                       float* db7, int N, int T, int h, cudaStream_t st) {
-  const int rows = rnn::cdiv(N, BIAS_PARTS < N ? BIAS_PARTS : N);
+  const int rows = rnn::cdiv(N, rnn::BIAS_PARTS < N ? rnn::BIAS_PARTS : N);
   const int parts = rnn::cdiv(N, rows);
   lstm_bias_grad_kernel<<<dim3(rnn::cdiv(h, 128), parts), 128, 0, st>>>(
       dx, c, part, N, T, h, rows);
@@ -858,75 +857,39 @@ FwdKern fwd_kernel_ng(int ng) {
   }
 }
 
+// a product job of 2, 4, 5 or 8 n-tiles for the 4U gate columns' n-tiles
+// (wider: several jobs)
 FwdKern fwd_grid_kernel(bool resident, int U) {
-  const int ng = rnn::grid_ng((4 * U + 7) / 8);
+  const int ntl = (4 * U + 7) / 8;
+  const int ng = ntl <= 2 ? 2 : ntl <= 4 ? 4 : ntl <= 5 ? 5 : 8;
   return resident ? fwd_kernel_ng<true>(ng) : fwd_kernel_ng<false>(ng);
 }
 
-// The grid route's plan (rnn::Plan, route 2) of the forward (kind 0) or
-// the backward at (B, h) on `device`: U = ceil(h / SMs) units a block,
-// ceil(h / U) blocks; all B rows in one launch with w's slices resident
-// where a block's shared memory holds them, else streamed, in launches of
-// the most rows (a multiple of 16) that fit. Route -1 where not even 16
-// rows fit. Returns a cudaError_t.
-int grid_plan(int kind, int B, int h, int device, rnn::Plan* p) {
-  int sms = 0;
-  const cudaError_t err =
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const int U = rnn::cdiv(h, sms), G = rnn::cdiv(h, U);
-  auto smem = [&](int rows, bool res) {
-    return kind == 0 ? fwd_grid_smem(h, U, round16(rows), res)
-                     : bwd_grid_smem(h, U, round16(rows), res);
-  };
-  const bool res = smem(B, true) <= rnn::SMEM_LIMIT;
-  int rows = B;
-  if (!res && smem(B, false) > rnn::SMEM_LIMIT) {
-    rows = round16(B) - 16;
-    while (rows >= 16 && smem(rows, false) > rnn::SMEM_LIMIT) rows -= 16;
-    if (rows < 16) return 0;
-  }
-  const size_t bytes = smem(rows, res);
-  int active;
-  if (kind == 0)
-    active = rnn::max_active_blocks(fwd_grid_kernel(res, U), rnn::GT, bytes,
-                                    device);
-  else
-    active = res ? rnn::max_active_blocks(&lstm_bwd_grid_kernel<true>,
-                                          rnn::GT, bytes, device)
-                 : rnn::max_active_blocks(&lstm_bwd_grid_kernel<false>,
-                                          rnn::GT, bytes, device);
-  if (active < 0) return -active;
-  *p = {2, rows, G, active, U, res ? 0 : 1};
-  return 0;
+using BwdKern = void (*)(const float*, const float*, const int*,
+                         const float*, const float*, float*, float*,
+                         unsigned*, int, int, int, int);
+
+BwdKern bwd_grid_kernel(bool resident) {
+  return resident ? &lstm_bwd_grid_kernel<true> : &lstm_bwd_grid_kernel<false>;
 }
 
-// Scratch floats of a route's launch: B5's grid route (kind 0) its
-// barrier and h buffers; B6's (kind 1) the db7 partials of either route,
-// dW's split-K partials, then the grid route's barrier and exchange. The
-// offsets of B6's pieces, in floats.
+// Scratch floats of B6's launch: the db7 partials of either route, dW's
+// split-K partials, then the grid route's barrier and exchange (B5's grid
+// route: those alone). The offsets of the pieces, in floats.
 struct BwdScratch {
   long long part, dw, grid, total;
   BwdScratch(const rnn::Plan& p, int B, int T, int h) {
     part = 0;
-    dw = (long long)(B > BIAS_PARTS ? B : BIAS_PARTS) * 7 * h;
+    dw = (long long)(B > rnn::BIAS_PARTS ? B : rnn::BIAS_PARTS) * 7 * h;
     grid = (dw + rnn::dw_scratch_floats((long long)B * T, h, 4 * h) + 31) &
            ~31LL;
-    total = grid + (p.route == 2
-                        ? GRID_HEAD + bwd_exchange_floats(round16(p.rows), h)
-                        : 0);
+    total = grid + rnn::grid_floats(p, h, bwd_exchange_floats);
   }
 };
 
-long long fwd_scratch_floats(const rnn::Plan& p, int h) {
-  return p.route == 2
-             ? GRID_HEAD + 2LL * round16(p.rows) * rnn::round8(h)
-             : 0;
-}
-
 // The two cluster walks and the grid route of this file, for
-// rnn_common.cuh's route rule and launches; no walk: the grid route takes
-// every h the cluster route does not
+// rnn_common.cuh's route rule and launches: the grid route takes every h
+// the cluster route does not
 struct Walks {
   template <int KIND, int R>
   static auto kernel() {
@@ -938,9 +901,16 @@ struct Walks {
   static size_t smem(int kind, int h, int R) {
     return kind == 0 ? fwd_cluster_smem(h, R) : walk_smem(h, R);
   }
-  static int walk_rows(int, int) { return 0; }
-  static int grid_plan(int kind, int B, int h, int device, rnn::Plan* p) {
-    return ::grid_plan(kind, B, h, device, p);
+  static size_t grid_smem(int kind, int h, int U, int Bp, bool res) {
+    return kind == 0 ? fwd_grid_smem(h, U, Bp, res)
+                     : bwd_grid_smem(h, U, Bp, res);
+  }
+  static int grid_active(int kind, int U, bool res, size_t bytes,
+                         int device) {
+    return kind == 0 ? rnn::max_active_blocks(fwd_grid_kernel(res, U),
+                                              rnn::GT, bytes, device)
+                     : rnn::max_active_blocks(bwd_grid_kernel(res), rnn::GT,
+                                              bytes, device);
   }
 };
 
@@ -967,7 +937,7 @@ extern "C" long long lstm_seq_scratch_floats(int kind, int B, int T, int h,
   if (rnn::walk_plan<Walks>(kind, B, h, device, route, &p) != 0 ||
       p.route < 0)
     return -1;
-  return kind == 0 ? fwd_scratch_floats(p, h)
+  return kind == 0 ? rnn::grid_floats(p, h, fwd_exchange_floats)
                    : BwdScratch(p, B, T, h).total;
 }
 
@@ -990,24 +960,18 @@ extern "C" int lstm_seq_fwd(const float* x, const float* w, const float* b7,
                                            T, h);
   // the grid route, a launch for every p.rows rows
   unsigned* bar = reinterpret_cast<unsigned*>(scratch);
-  float* hbuf = scratch + GRID_HEAD;
+  float* hbuf = scratch + rnn::GRID_HEAD;
   const size_t h4 = 4 * (size_t)h;
-  for (int r0 = 0; r0 < B; r0 += p.rows) {
-    const int rows = B - r0 < p.rows ? B - r0 : p.rows;
-    rnn::Plan q = p;
-    q.rows = rows;
-    cudaError_t err = cudaMemsetAsync(
-        scratch, 0, fwd_scratch_floats(q, h) * sizeof(float), st);
-    if (err != cudaSuccess) return (int)err;
-    const size_t off = (size_t)r0 * T;
-    float* cr = c != nullptr ? c + off * h : nullptr;
-    const size_t smem = fwd_grid_smem(h, p.units, round16(rows), !p.streamed);
-    err = rnn::launch_grid(fwd_grid_kernel(!p.streamed, p.units), p.blocks,
-                           smem, st, x + off * h4, w, b7, lens + r0,
-                           y + off * h, cr, hbuf, bar, rows, T, h, p.units);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return (int)rnn::grid_launches(
+      p, B, h, scratch, fwd_exchange_floats, st, [&](int r0, int rows) {
+        const size_t off = (size_t)r0 * T;
+        float* cr = c != nullptr ? c + off * h : nullptr;
+        return rnn::launch_grid(
+            fwd_grid_kernel(!p.streamed, p.units), p.blocks,
+            fwd_grid_smem(h, p.units, rnn::round16(rows), !p.streamed), st,
+            x + off * h4, w, b7, lens + r0, y + off * h, cr, hbuf, bar, rows,
+            T, h, p.units);
+      });
 }
 
 // B6. Inputs as B5's plus y, c and dy [B, T, h]; writes dx [B, T, 4h],
@@ -1037,29 +1001,19 @@ extern "C" int lstm_seq_bwd(const float* x, const float* w, const float* b7,
     err = rnn::block_sum(part, db7, p.blocks, 7 * h, st);
   } else {
     unsigned* bar = reinterpret_cast<unsigned*>(scratch + S.grid);
-    float* xbuf = scratch + S.grid + GRID_HEAD;
+    float* xbuf = scratch + S.grid + rnn::GRID_HEAD;
     const size_t h4 = 4 * (size_t)h;
-    for (int r0 = 0; r0 < B; r0 += p.rows) {
-      const int rows = B - r0 < p.rows ? B - r0 : p.rows;
-      // the barrier, and the exchange buffers (their pads are read)
-      const long long zero =
-          GRID_HEAD + bwd_exchange_floats(round16(rows), h);
-      err = cudaMemsetAsync(scratch + S.grid, 0, zero * sizeof(float), st);
-      if (err != cudaSuccess) return (int)err;
-      const size_t off = (size_t)r0 * T;
-      const size_t smem =
-          bwd_grid_smem(h, p.units, round16(rows), !p.streamed);
-      err = p.streamed
-                ? rnn::launch_grid(lstm_bwd_grid_kernel<false>, p.blocks,
-                                   smem, st, w, b7, lens + r0, c + off * h,
-                                   dy + off * h, dx + off * h4, xbuf, bar,
-                                   rows, T, h, p.units)
-                : rnn::launch_grid(lstm_bwd_grid_kernel<true>, p.blocks,
-                                   smem, st, w, b7, lens + r0, c + off * h,
-                                   dy + off * h, dx + off * h4, xbuf, bar,
-                                   rows, T, h, p.units);
-      if (err != cudaSuccess) return (int)err;
-    }
+    err = rnn::grid_launches(
+        p, B, h, scratch + S.grid, bwd_exchange_floats, st,
+        [&](int r0, int rows) {
+          const size_t off = (size_t)r0 * T;
+          return rnn::launch_grid(
+              bwd_grid_kernel(!p.streamed), p.blocks,
+              bwd_grid_smem(h, p.units, rnn::round16(rows), !p.streamed), st,
+              w, b7, lens + r0, c + off * h, dy + off * h, dx + off * h4,
+              xbuf, bar, rows, T, h, p.units);
+        });
+    if (err != cudaSuccess) return (int)err;
     err = bias_grad(dx, c, part, db7, B * T, T, h, st);
   }
   if (err != cudaSuccess) return (int)err;

@@ -3,8 +3,6 @@
 //
 // - the activations, with expf/tanhf (never the fast intrinsics: the error of
 //   one step feeds the next, over the whole sequence);
-// - a block's rows of h_{t-1} loaded as a vector from shared memory;
-// - warp sums;
 // - the weight-gradient GEMM dW = sum_n A(n, :)^T B(n, :) over the B*T rows
 //   on the tensor cores, split over the rows (split-K) into partials that a
 //   second kernel sums in a fixed order, so dW is bit-identical from run to
@@ -19,10 +17,11 @@
 //   clusters of CL blocks the card holds at once, how many batch rows each
 //   takes, and which route takes a width (make_plan, over a file's Walks);
 // - the grid route's pieces: a persistent grid of one block an SM whose
-//   blocks own slices of the hidden units and meet at one grid barrier a
-//   step (grid_sync, a generation counter), the per-step product of a
-//   block on the tensor cores with one operand streamed from L2
-//   (grid_product), and its cooperative launch.
+//   blocks own slices of the hidden units and meet at grid barriers
+//   (grid_sync, a generation counter), the per-step product of a block on
+//   the tensor cores with one operand streamed from L2 (grid_product), the
+//   plan (grid_plan: resident or streamed weights, chunks of rows), and
+//   the cooperative launches, a chunk of rows at a time (grid_launches).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,40 +37,10 @@
 
 namespace rnn {
 
-constexpr int NT = 256;            // threads of a recurrence block
-constexpr int NW = NT / 32;        // its warps
 // dynamic shared memory a block may use on an H100 (227 KB)
 constexpr size_t SMEM_LIMIT = 232448;
 
 __device__ __forceinline__ float sigm(float v) { return 1.f / (1.f + expf(-v)); }
-
-// v[r] = s[r] for r < BB, from 16-byte (BB 4, 8) or 8-byte (BB 2) aligned s
-template <int BB>
-__device__ __forceinline__ void load_rows(const float* s, float (&v)[BB]) {
-  if constexpr (BB % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < BB / 4; ++q) {
-      const float4 f = reinterpret_cast<const float4*>(s)[q];
-      v[4 * q] = f.x;
-      v[4 * q + 1] = f.y;
-      v[4 * q + 2] = f.z;
-      v[4 * q + 3] = f.w;
-    }
-  } else if constexpr (BB == 2) {
-    const float2 f = *reinterpret_cast<const float2*>(s);
-    v[0] = f.x;
-    v[1] = f.y;
-  } else {
-#pragma unroll
-    for (int r = 0; r < BB; ++r) v[r] = s[r];
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // out[i] = sum_s part[s * count + i] over s < parts, in order
 __global__ void ordered_sum_kernel(const float* __restrict__ part,
@@ -399,6 +368,7 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 inline __host__ __device__ int round8(int n) { return (n + 7) & ~7; }
+inline __host__ __device__ int round16(int n) { return (n + 15) & ~15; }
 // the columns of a weight slice (or rows of the step's gradients) of n
 // own columns: zeros past n up to a multiple of 32 (four k-steps of 8)
 inline __host__ __device__ int slice_cols(int n) { return (n + 31) & ~31; }
@@ -582,15 +552,20 @@ inline cudaError_t launch_clusters(Kern* kernel, int clusters, size_t smem,
 }
 
 // The plan of a walk: route 1 (cluster: `rows` batch rows a cluster,
-// `blocks` clusters, of which the card holds `active` at once), 0 (the
-// walk: `rows` rows a block, `blocks` blocks) or 2 (grid: `blocks` blocks
-// of `units` hidden units each walk `rows` batch rows a launch, the card
-// holds `active` blocks at once, `streamed` 1 where the blocks' slices of
-// the weights do not fit shared memory and are read from L2 each step);
+// `blocks` clusters, of which the card holds `active` at once) or 2 (grid:
+// `blocks` blocks of `units` hidden units each walk `rows` batch rows a
+// launch, the card holds `active` blocks at once, `streamed` 1 where the
+// blocks' slices of the weights do not fit shared memory and are read
+// from L2 each step);
 // route -1: no route asked for takes h.
 struct Plan {
   int route, rows, blocks, active, units, streamed;
 };
+
+constexpr int GRID_HEAD = 32;     // scratch floats before a grid launch's
+                                  // buffers: its barrier counter
+constexpr int BIAS_PARTS = 64;    // row chunks of the grid route's bias
+                                  // gradient
 
 // The cluster route's rows a cluster: the fewest of WALK_ROWS whose shared
 // memory fits a block and whose clusters all fit the card at once, else
@@ -613,15 +588,13 @@ inline int cluster_rows(int B, Smem smem, Active active) {
 
 // A walk's plan at B batch rows (see Plan): `request` -1 takes the rule
 // (the cluster route wherever its shared memory holds the width, else the
-// walk where the file has one, else the grid route), 0 the walk, 1 the
-// cluster route, 2 the grid route; `smem`, `active` as for cluster_rows,
-// `walk_rows` the walk's rows a block (0: no walk takes the width),
-// `grid(p)` the grid route's plan (route -1 where the file has none).
-// Route -1 when the route asked for does not take the width. Returns a
-// cudaError_t.
+// grid route), 1 the cluster route, 2 the grid route; `smem`, `active` as
+// for cluster_rows,
+// `grid(p)` the grid route's plan. Route -1 when the route asked for does
+// not take the width. Returns a cudaError_t.
 template <class Smem, class Active, class Grid>
-inline int make_plan(int B, int request, Smem smem, Active active,
-                     int walk_rows, Grid grid, Plan* p) {
+inline int make_plan(int B, int request, Smem smem, Active active, Grid grid,
+                     Plan* p) {
   *p = {-1, 0, 0, 0, 0, 0};
   if (request == -1 || request == 1) {
     const int R = cluster_rows(B, smem, active);
@@ -632,10 +605,6 @@ inline int make_plan(int B, int request, Smem smem, Active active,
     }
     if (request == 1) return 0;
   }
-  if ((request == -1 || request == 0) && walk_rows > 0) {
-    *p = {0, walk_rows, cdiv(B, walk_rows), 0, 0, 0};
-    return 0;
-  }
   if (request == -1 || request == 2) return grid(p);
   return 0;
 }
@@ -643,13 +612,11 @@ inline int make_plan(int B, int request, Smem smem, Active active,
 // The route rule and the cluster launches of a file's two walks, over its
 // `Walks`: Walks::kernel<KIND, R>() is the cluster kernel of the forward
 // (KIND 0) or the backward (KIND 1) at R rows a cluster, Walks::smem(kind,
-// h, R) its dynamic shared memory in bytes, Walks::walk_rows(kind, h) the
-// walk's rows a block (0: the walk does not take h), and, in a file with a
-// grid route, Walks::grid_plan(kind, B, h, device, Plan*) its plan.
-template <class W, class = void>
-struct HasGrid : std::false_type {};
-template <class W>
-struct HasGrid<W, std::void_t<decltype(&W::grid_plan)>> : std::true_type {};
+// h, R) its dynamic shared memory in bytes; Walks::grid_smem(kind, h, U,
+// Bp, resident) a grid block's dynamic shared memory in bytes at U units
+// and Bp rows (a multiple of 16), the weights' slices resident or not, and
+// Walks::grid_active(kind, U, resident, bytes, device) the grid blocks the
+// card holds at once (negative: -cudaError_t).
 
 // The clusters of R rows the card holds at once of the kind's cluster walk
 // (negative: -cudaError_t)
@@ -664,6 +631,36 @@ inline int walk_active(int kind, int R, int h, int device) {
   });
 }
 
+// The grid route's plan (route 2) of the kind at (B, h) on `device`: U =
+// ceil(h / SMs) units a block, ceil(h / U) blocks; all B rows in one
+// launch with the weights' slices resident where a block's shared memory
+// holds them, else streamed, in launches of the most rows (a multiple of
+// 16) that fit. *p is left as it is where not even 16 rows fit. Returns a
+// cudaError_t.
+template <class Walks>
+inline int grid_plan(int kind, int B, int h, int device, Plan* p) {
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int U = cdiv(h, sms), G = cdiv(h, U);
+  auto smem = [&](int rows, bool res) {
+    return Walks::grid_smem(kind, h, U, round16(rows), res);
+  };
+  const bool res = smem(B, true) <= SMEM_LIMIT;
+  int rows = B;
+  if (!res && smem(B, false) > SMEM_LIMIT) {
+    rows = round16(B) - 16;
+    while (rows >= 16 && smem(rows, false) > SMEM_LIMIT) rows -= 16;
+    if (rows < 16) return 0;
+  }
+  const int active =
+      Walks::grid_active(kind, U, res, smem(rows, res), device);
+  if (active < 0) return -active;
+  *p = {2, rows, G, active, U, res ? 0 : 1};
+  return 0;
+}
+
 // The forward's (kind 0) or the backward's (kind 1) plan at (B, h) on
 // `device`, for make_plan's `request`. Returns a cudaError_t.
 template <class Walks>
@@ -672,19 +669,12 @@ inline int walk_plan(int kind, int B, int h, int device, int request,
   return make_plan(
       B, request, [&](int r) { return Walks::smem(kind, h, r); },
       [&](int r) { return walk_active<Walks>(kind, r, h, device); },
-      Walks::walk_rows(kind, h),
-      [&](Plan* q) {
-        if constexpr (HasGrid<Walks>::value)
-          return Walks::grid_plan(kind, B, h, device, q);
-        else
-          return 0;
-      },
-      p);
+      [&](Plan* q) { return grid_plan<Walks>(kind, B, h, device, q); }, p);
 }
 
 // The C entry points *_fwd_plan (kind 0) and *_bwd_plan (kind 1): the plan
-// at (B, h) on `device` into out = {route (1 cluster, 0 walk, 2 grid, -1
-// none), rows a cluster, block or grid launch, clusters or blocks, the
+// at (B, h) on `device` into out = {route (1 cluster, 2 grid, -1 none),
+// rows a cluster or grid launch, clusters or blocks, the
 // clusters (grid: blocks) the card holds at once, hidden units a grid
 // block, 1 where the grid route streams the weights}. Returns a
 // cudaError_t.
@@ -706,8 +696,7 @@ inline int plan_entry(int kind, int B, int h, int device, int request,
 
 // The start of the C launch entry points: `device` set, and the plan at
 // (B, h) for `request` into p, its route written into *taken (1 cluster,
-// 0 walk, 2 grid; -1: the route asked for does not take h, nothing is
-// launched).
+// 2 grid; -1: the route asked for does not take h, nothing is launched).
 // Returns a cudaError_t.
 template <class Walks>
 inline int launch_plan(int kind, int B, int h, int device, int request,
@@ -959,12 +948,6 @@ __device__ __forceinline__ void grid_product_add(float* out, int ld, int M,
   }
 }
 
-// The n-tiles a forward job holds for `ntl` n-tiles of gate columns: one
-// of the instantiated 2, 4, 5 and 8 (wider: several jobs)
-inline __host__ __device__ int grid_ng(int ntl) {
-  return ntl <= 2 ? 2 : ntl <= 4 ? 4 : ntl <= 5 ? 5 : 8;
-}
-
 // The blocks of `threads` threads of `kernel`, at `smem` bytes of dynamic
 // shared memory each, the device holds at once (0: none); a negative
 // cudaError_t on failure. Cached per device, kernel and size.
@@ -1003,6 +986,34 @@ inline cudaError_t launch_grid(Kern* kernel, int blocks, size_t smem,
                                     dim3(blocks), dim3(GT), ptrs, smem, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The scratch floats of plan p's grid launches: the barrier and the
+// exchange of `exchange(Bp, h)` floats at Bp = round16(p.rows) rows (0 off
+// the grid route)
+inline long long grid_floats(const Plan& p, int h,
+                             long long (*exchange)(int, int)) {
+  return p.route == 2 ? GRID_HEAD + exchange(round16(p.rows), h) : 0;
+}
+
+// The grid route's launches of plan p over B rows, p.rows at a time:
+// before each, the barrier at `head` and the exchange after it zeroed in
+// stream order (grid_floats of the launch's rows), then launch(r0, rows)
+// for the rows from r0. Returns a cudaError_t.
+template <class Launch>
+inline cudaError_t grid_launches(const Plan& p, int B, int h, float* head,
+                                 long long (*exchange)(int, int),
+                                 cudaStream_t st, Launch launch) {
+  for (int r0 = 0; r0 < B; r0 += p.rows) {
+    Plan q = p;
+    q.rows = B - r0 < p.rows ? B - r0 : p.rows;
+    cudaError_t err = cudaMemsetAsync(
+        head, 0, grid_floats(q, h, exchange) * sizeof(float), st);
+    if (err != cudaSuccess) return err;
+    err = launch(r0, q.rows);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace rnn

@@ -25,19 +25,18 @@ Each kernel takes one of two routes, by shape alone (`fwd_plan`,
 `bwd_plan`, whose rules live in the C entry points `*_seq_fwd_plan`
 and `*_seq_bwd_plan`): the cluster route wherever a block's shared
 memory holds its slice of the weights (h <= 320; B7: 352), else the
-grid route (B5, B6) or the walk (B7, B8: a block per few batch rows,
-the weights from L2). On the cluster route thread-block clusters keep
-the weights in shared memory and walk the sequence together: the
-forward (B5, B7) exchanges each step's h through distributed shared
-memory; the backward (B6, B8) hoists the gate recompute onto the tensor
-cores first. On the grid route one persistent block an SM owns a slice
-of the hidden units, with its columns of w in shared memory (or read
-from L2 where they do not fit), and the blocks meet at one grid barrier
-a step, exchanging h (B5) or the gate gradients dg (B6, whose gate
-recompute is hoisted as on the cluster route) through L2.
-`route="walk"`, `"cluster"` or `"grid"` on a kernel's wrapper asks for
-that route, and raises where it does not take the shape (the LSTM has
-no walk, the GRU no grid route).
+grid route. On the cluster route thread-block clusters keep the weights
+in shared memory and walk the sequence together: the forward (B5, B7)
+exchanges each step's h through distributed shared memory; the backward
+(B6, B8) hoists the gate recompute onto the tensor cores first. On the
+grid route one persistent block an SM owns a slice of the hidden units,
+with its columns of the weights in shared memory (or read from L2 where
+they do not fit), and the blocks meet at grid barriers, exchanging
+through L2: h (B5: one barrier a step), r * h and h (B7: two), the gate
+gradients dg (B6: one) or dg_c and dg_ur (B8: two; the gate recompute
+of both backwards hoisted as on the cluster route). `route="cluster"`
+or `"grid"` on a kernel's wrapper asks for that route, and raises where
+it does not take the shape.
 
 The kernels run f32 and raise on other types. `lstm_fused` and
 `gru_fused` take bf16 (the AMP rule) as the JAX wrappers do
@@ -83,12 +82,14 @@ lstm_bwd_cluster_launches = 0  # B6 on the cluster route
 lstm_bwd_grid_launches = 0     # B6 on the grid route
 gru_fwd_launches = 0         # B7, either route
 gru_fwd_cluster_launches = 0   # B7 on the cluster route
+gru_fwd_grid_launches = 0      # B7 on the grid route
 gru_bwd_launches = 0         # B8, either route
 gru_bwd_cluster_launches = 0   # B8 on the cluster route
+gru_bwd_grid_launches = 0      # B8 on the grid route
 
-# the kernels' routes, by their C numbers (the LSTM takes the cluster and
-# the grid route, the GRU the walk and the cluster route)
-ROUTES = ("walk", "cluster", "grid")
+# the kernels' routes, by their C numbers
+ROUTES = {"cluster": 1, "grid": 2}
+_ROUTE_NAMES = {n: r for r, n in ROUTES.items()}
 
 
 # ---------------------------------------------------------------- plain
@@ -227,11 +228,10 @@ def _bind(name):
     if name == LSTM_KERNEL:
         fns = {"lstm_seq_fwd": [p] * 7 + tail,
                "lstm_seq_bwd": [p] * 11 + tail}
-        scratch = {"lstm_seq_scratch_floats": [i] * 6}
     else:
-        fns = {"gru_seq_fwd": [p] * 6 + tail,
+        fns = {"gru_seq_fwd": [p] * 7 + tail,
                "gru_seq_bwd": [p] * 12 + tail}
-        scratch = {"gru_seq_bwd_scratch_floats": [i] * 3}
+    scratch = {f"{name}_scratch_floats": [i] * 6}
     for kind in ("fwd", "bwd"):
         fns[f"{name}_{kind}_plan"] = [i] * 4 + [p]
     for fn, argtypes in fns.items():
@@ -253,18 +253,15 @@ def _request(route):
     if route is None:
         return -1
     if route not in ROUTES:
-        raise ValueError(f"route must be None or one of {ROUTES}, got "
-                         f"{route!r}")
-    return ROUTES.index(route)
+        raise ValueError(f"route must be None or one of {tuple(ROUTES)}, "
+                         f"got {route!r}")
+    return ROUTES[route]
 
 
 def _refused(name, kind, route, b, h):
     which = "no route" if route is None else f"the {route} route"
-    why = ("the LSTM has no walk" if name == LSTM_KERNEL and route == "walk"
-           else "the GRU has no grid route" if route == "grid"
-           else "a block's shared memory does not hold it")
     return ValueError(f"{name} {kind}: {which} takes h = {h} (B={b}): "
-                      f"{why}")
+                      "a block's shared memory does not hold it")
 
 
 def _plan(kind, name, b, h, device, route):
@@ -277,7 +274,7 @@ def _plan(kind, name, b, h, device, route):
                   index, request, out)
     if out[0] < 0:
         raise _refused(name, kind, route, b, h)
-    return {"route": ROUTES[out[0]], "rows": out[1], "blocks": out[2],
+    return {"route": _ROUTE_NAMES[out[0]], "rows": out[1], "blocks": out[2],
             "active": out[3], "units": out[4], "streamed": bool(out[5])}
 
 
@@ -294,19 +291,19 @@ def _run(name, kind, route, x, *args):
                   *_build.device_and_stream(x))
     if taken.value < 0:
         raise _refused(name, kind, route, args[-3], args[-1])
-    return ROUTES[taken.value]
+    return _ROUTE_NAMES[taken.value]
 
 
 def fwd_plan(name, b, h, device, route=None):
     """B5's (`name` LSTM_KERNEL) or B7's (GRU_KERNEL) plan at batch b and
-    width h on CUDA `device`: {"route": "cluster", "grid" or "walk",
-    "rows": batch rows a cluster, block or grid launch takes, "blocks":
-    clusters or blocks, "active": the clusters (grid route: blocks) the
-    card holds at once (0 on the walk), "units": hidden units a grid
-    block owns (else 0), "streamed": whether the grid route reads its
-    weights from L2 each step}. `route` None takes the rule (the cluster
-    route wherever it holds h); "walk", "cluster" or "grid" asks for that
-    route, and raises where it does not take h."""
+    width h on CUDA `device`: {"route": "cluster" or "grid", "rows":
+    batch rows a cluster or grid launch takes, "blocks": clusters or
+    blocks, "active": the clusters (grid route: blocks) the card holds at
+    once, "units": hidden units a grid block owns (else 0), "streamed":
+    whether the grid route reads its weights from L2 each step}. `route`
+    None takes the rule (the cluster route wherever it holds h, else the
+    grid route); "cluster" or "grid" asks for that route, and raises
+    where it does not take h."""
     return _plan("fwd", name, b, h, device, route)
 
 
@@ -349,19 +346,20 @@ def _empty(shape, like):
 
 
 @functools.lru_cache(maxsize=None)
-def _lstm_scratch_floats(kind, b, t, h, device, request):
+def _scratch_floats(name, kind, b, t, h, device, request):
     # the route, and so the size, follows from the shape and the card
-    return _bind(LSTM_KERNEL).lstm_seq_scratch_floats(kind, b, t, h, device,
-                                                      request)
+    return getattr(_bind(name), f"{name}_scratch_floats")(kind, b, t, h,
+                                                           device, request)
 
 
-def _lstm_scratch(kind, b, t, h, x, route):
-    """The scratch lstm_seq_fwd (kind 0) or lstm_seq_bwd (1) needs on
-    x's device at `route`, or None where it needs none (B5's cluster
-    route) or no route takes h (the launch then refuses, nothing runs)."""
-    floats = _lstm_scratch_floats(kind, b, t, h,
-                                  _build.device_and_stream(x)[0],
-                                  _request(route))
+def _scratch(name, kind, b, t, h, x, route):
+    """The scratch `name`'s forward (kind 0) or backward (1) needs on
+    x's device at `route`, or None where it needs none (B5's and B7's
+    cluster routes) or no route takes h (the launch then refuses,
+    nothing runs)."""
+    floats = _scratch_floats(name, kind, b, t, h,
+                             _build.device_and_stream(x)[0],
+                             _request(route))
     return _empty((floats,), x) if floats > 0 else None
 
 
@@ -378,7 +376,7 @@ def lstm_seq_fwd(x, w, b7, lens, want_c=True, route=None):
                      b7=(b7, ("7h",)))
     y = _empty((b, t, h), x)
     c = _empty((b, t, h), x) if want_c else None
-    scratch = _lstm_scratch(0, b, t, h, x, route)
+    scratch = _scratch(LSTM_KERNEL, 0, b, t, h, x, route)
     taken = _run(LSTM_KERNEL, "fwd", route, x, x.data_ptr(), w.data_ptr(),
                  b7.data_ptr(), lens.data_ptr(), y.data_ptr(),
                  _build.ptr(c), _build.ptr(scratch), b, t, h)
@@ -406,7 +404,7 @@ def lstm_seq_bwd(x, w, b7, lens, y, c, dy, route=None):
     dx = _empty((b, t, 4 * h), x)
     dw = _empty((h, 4 * h), x)
     db7 = _empty((7 * h,), x)
-    scratch = _lstm_scratch(1, b, t, h, x, route)
+    scratch = _scratch(LSTM_KERNEL, 1, b, t, h, x, route)
     taken = _run(LSTM_KERNEL, "bwd", route, x, x.data_ptr(), w.data_ptr(),
                  b7.data_ptr(), lens.data_ptr(), y.data_ptr(), c.data_ptr(),
                  dy.data_ptr(), dx.data_ptr(), dw.data_ptr(), db7.data_ptr(),
@@ -421,16 +419,19 @@ def gru_seq_fwd(x, w_g, w_c, b, lens, route=None):
     """B7 on the card: y [B,T,h], on the route of `fwd_plan` (`route`
     None: the rule)."""
     global gru_fwd_launches, gru_fwd_cluster_launches
+    global gru_fwd_grid_launches
     where = "gru_seq_fwd"
     _request(route)
     bsz, t, h = _check(where, x, 3, lens, w_g=(w_g, ("h", "2h")),
                        w_c=(w_c, ("h", "h")), b=(b, ("3h",)))
     y = _empty((bsz, t, h), x)
+    scratch = _scratch(GRU_KERNEL, 0, bsz, t, h, x, route)
     taken = _run(GRU_KERNEL, "fwd", route, x, x.data_ptr(), w_g.data_ptr(),
                  w_c.data_ptr(), b.data_ptr(), lens.data_ptr(), y.data_ptr(),
-                 bsz, t, h)
+                 _build.ptr(scratch), bsz, t, h)
     gru_fwd_launches += 1
     gru_fwd_cluster_launches += taken == "cluster"
+    gru_fwd_grid_launches += taken == "grid"
     return y
 
 
@@ -438,6 +439,7 @@ def gru_seq_bwd(x, w_g, w_c, b, lens, y, dy, route=None):
     """B8 on the card: (dx [B,T,3h], dw_g [h,2h], dw_c [h,h], db [3h]),
     on the route of `bwd_plan` (`route` None: the rule)."""
     global gru_bwd_launches, gru_bwd_cluster_launches
+    global gru_bwd_grid_launches
     where = "gru_seq_bwd"
     _request(route)
     seq = ("B", "T", "h")
@@ -448,15 +450,15 @@ def gru_seq_bwd(x, w_g, w_c, b, lens, y, dy, route=None):
     dw_g = _empty((h, 2 * h), x)
     dw_c = _empty((h, h), x)
     db = _empty((3 * h,), x)
-    scratch = _empty(
-        (_bind(GRU_KERNEL).gru_seq_bwd_scratch_floats(bsz, t, h),), x)
+    scratch = _scratch(GRU_KERNEL, 1, bsz, t, h, x, route)
     taken = _run(GRU_KERNEL, "bwd", route, x, x.data_ptr(), w_g.data_ptr(),
                  w_c.data_ptr(), b.data_ptr(), lens.data_ptr(), y.data_ptr(),
                  dy.data_ptr(), dx.data_ptr(), dw_g.data_ptr(),
-                 dw_c.data_ptr(), db.data_ptr(), scratch.data_ptr(), bsz, t,
+                 dw_c.data_ptr(), db.data_ptr(), _build.ptr(scratch), bsz, t,
                  h)
     gru_bwd_launches += 1
     gru_bwd_cluster_launches += taken == "cluster"
+    gru_bwd_grid_launches += taken == "grid"
     return dx, dw_g, dw_c, db
 
 

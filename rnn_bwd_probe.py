@@ -8,6 +8,7 @@ where a call's device time goes.
       git show <rev>:paddle_tpu_torch/csrc/$f > _archive/$f; done
     python3 rnn_bwd_probe.py _archive          # the cluster routes
     python3 rnn_bwd_probe.py grid _archive     # B6's grid route
+    python3 rnn_bwd_probe.py gru_grid _archive # B8's grid route
 
 Needs one CUDA card and nvcc. The other revision's entry points may take
 no route, the route alone, or the route and the route taken
@@ -19,8 +20,8 @@ T=100, h=256; the NMT encoder's GRU, B=256, T=32, h=256) it prints one
   clusters the card holds at once; also printed first for B = 8 .. 512);
 - max |diff| / max |plain| of every output of both revisions;
 - ms of the other revision's call, of this revision's call on the route
-  its rule picks and on its other route (the LSTM's grid route, the
-  GRU's walk), and of this revision built with -DRNN_SERIAL_FLOOR (the
+  its rule picks and on its other route (the grid route), and of this
+  revision built with -DRNN_SERIAL_FLOOR (the
   walk keeps only its cluster barriers and exchanges), timed in turns
   (CUDA events, 20 calls each);
 - the device ms a call of each kernel of this revision's cluster route,
@@ -36,6 +37,12 @@ route: the other revision's call (a revision before the grid route runs
 the walk there), this revision's, and this revision built with
 -DRNN_SERIAL_FLOOR (the grid walk keeps only its exchanges and
 barriers), in turns; their device ms by kernel; the floor a step.
+`gru_grid` mode does the same for B8 at `GRU_GRID_CASES` (the NMT
+encoder's GRU at bench_nmt's B=256, T=32 and h = 512 and 1280, and the
+RNNsearch encoder's B=80, T=50, h = 1000), where the rule takes the grid
+route; the other revision (one before the GRU's grid route) runs the
+walk there. The floor a step is over the T - 1 steps that have the
+second barrier and the dh product.
 Every build runs at once (one nvcc each). The ptxas report of every build
 is appended to `chiprun_out/rnn_bwd_probe.txt`, with every line printed
 here.
@@ -55,9 +62,12 @@ CASES = [("classifier_b64_t100_h256", "lstm", cs.CLS_B, cs.CLS_T, 256),
          ("nmt_enc_b256_t32_h256", "gru", cs.NMT_B, cs.NMT_T, 256)]
 GRID_CASES = [("lstm_b64_t100_h512", "lstm", cs.CLS_B, cs.CLS_T, 512),
               ("lstm_b64_t100_h1280", "lstm", cs.CLS_B, cs.CLS_T, 1280)]
+GRU_GRID_CASES = [("gru_b256_t32_h512", "gru", cs.NMT_B, cs.NMT_T, 512),
+                  ("gru_b80_t50_h1000", "gru", 80, 50, 1000),
+                  ("gru_b256_t32_h1280", "gru", cs.NMT_B, cs.NMT_T, 1280)]
 # the route each cell's rule does not take at the path shapes, timed
-# beside it (its C number)
-SECOND = {"lstm": 2, "gru": 0}
+# beside it (its C number): the grid route
+SECOND = {"lstm": 2, "gru": 2}
 OUT = os.path.join("chiprun_out", "rnn_bwd_probe.txt")
 # name: [(file of csrc, text, its substitute)], applied to both cells'
 # sources where the text occurs
@@ -241,31 +251,48 @@ def lstm_bwd_inputs(torch, gen, b, t, h):
         "dx", "dw", "db7")
 
 
-def grid_mode(torch, archive):
-    """B6 at GRID_CASES: the other revision (the walk, before the grid
-    route), this revision's grid route and its serial floor, in turns (see
-    the module docstring)."""
+def gru_bwd_inputs(torch, gen, b, t, h):
+    """The inputs of B8 at one case (chip_smoke.py's), its plain outputs
+    and their names."""
+    from paddle_tpu_torch.ops import rnn
+
+    x, (w_g, w_c, bias), lens, dy, _live = cs.rnn_inputs(
+        torch, gen, "gru", b, t, h, None)
+    y = rnn.gru_plain(x, w_g, w_c, bias, lens)
+    return {"args": (x, w_g, w_c, bias, lens, y, dy),
+            "ref": rnn.gru_bwd_plain(x, w_g, w_c, bias, lens, y, dy)}, (
+        "dx", "dw_g", "dw_c", "db")
+
+
+def grid_mode(torch, archive, cell="lstm"):
+    """B6 (`cell` "lstm") at GRID_CASES or B8 ("gru") at GRU_GRID_CASES:
+    the other revision (the walk, before the cell's grid route), this
+    revision's grid route and its serial floor, in turns (see the module
+    docstring)."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import rnn
 
+    kern = f"{cell}_seq"
     out_dir = os.path.join(_build.BUILD_DIR, "grid_probe")
     os.makedirs(out_dir, exist_ok=True)
     nvcc, flags, src = _build._nvcc(), _build.NVCC_FLAGS, \
-        _build.sources()["lstm_seq"]
+        _build.sources()[kern]
     defs = {"other": None, "floor": ("-DRNN_SERIAL_FLOOR",)}
     builds = {k: start(nvcc, (*flags, *(d or ())),
-                       os.path.join(archive, "lstm_seq.cu") if d is None
-                       else src, os.path.join(out_dir, f"lstm_{k}.so"))
+                       os.path.join(archive, f"{kern}.cu") if d is None
+                       else src, os.path.join(out_dir, f"{cell}_{k}.so"))
               for k, d in defs.items()}
-    libs = {"this": bind(_build.load("lstm_seq"), "lstm")}
-    libs.update({k: bind(finish(st), "lstm") for k, st in builds.items()})
+    libs = {"this": bind(_build.load(kern), cell)}
+    libs.update({k: bind(finish(st), cell) for k, st in builds.items()})
     with open(OUT, "a") as f:
-        f.write(f"---- ptxas lstm_seq (this revision)\n"
-                f"{_build.build_log('lstm_seq')}")
+        f.write(f"---- ptxas {kern} (this revision)\n"
+                f"{_build.build_log(kern)}")
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 7)
-    for name, cell, b, t, h in GRID_CASES:
-        ins, names = lstm_bwd_inputs(torch, gen, b, t, h)
-        plan = rnn.bwd_plan(rnn.LSTM_KERNEL, b, h, ins["args"][0].device)
+    inputs = lstm_bwd_inputs if cell == "lstm" else gru_bwd_inputs
+    for name, _cell, b, t, h in (GRID_CASES if cell == "lstm"
+                                 else GRU_GRID_CASES):
+        ins, names = inputs(torch, gen, b, t, h)
+        plan = rnn.bwd_plan(kern, b, h, ins["args"][0].device)
         fns, outs = {}, {}
         for k, lib in libs.items():
             fns[k], outs[k] = call(torch, lib, cell, ins, b, t, h, -1)
@@ -294,7 +321,7 @@ def grid_mode(torch, archive):
 def main() -> int:
     import torch
 
-    grid = len(sys.argv) == 3 and sys.argv[1] == "grid"
+    grid = len(sys.argv) == 3 and sys.argv[1] in ("grid", "gru_grid")
     if not torch.cuda.is_available() or not (len(sys.argv) == 2 or grid):
         print(__doc__, file=sys.stderr)
         return 2
@@ -307,7 +334,8 @@ def main() -> int:
                         "--format=csv,noheader"], capture_output=True,
                        text=True).stdout.strip())
     if grid:
-        return grid_mode(torch, sys.argv[2])
+        return grid_mode(torch, sys.argv[2],
+                         "gru" if sys.argv[1] == "gru_grid" else "lstm")
     out_dir = os.path.join(_build.BUILD_DIR, "probe")
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _build._nvcc()
@@ -342,17 +370,9 @@ def main() -> int:
             f.write(f"---- ptxas {kern} (this revision)\n"
                     f"{_build.build_log(kern)}")
         other, floor = libs[(kern, "other")], libs[(kern, "floor")]
-        if cell == "lstm":
-            ins, names = lstm_bwd_inputs(torch, gen, b, t, h)
-            x = ins["args"][0]
-        else:
-            x, ws, lens, dy, _live = cs.rnn_inputs(torch, gen, cell, b, t,
-                                                   h, None)
-            w_g, w_c, bias = ws
-            y = rnn.gru_plain(x, w_g, w_c, bias, lens)
-            ins = {"args": (x, w_g, w_c, bias, lens, y, dy),
-                   "ref": rnn.gru_bwd_plain(x, w_g, w_c, bias, lens, y, dy)}
-            names = ("dx", "dw_g", "dw_c", "db")
+        inputs = lstm_bwd_inputs if cell == "lstm" else gru_bwd_inputs
+        ins, names = inputs(torch, gen, b, t, h)
+        x = ins["args"][0]
         plan = rnn.bwd_plan(kern, b, h, x.device)
         fns, outs = {}, {}
         for k, lib, route in (("other", other, -1), ("this", this, -1),

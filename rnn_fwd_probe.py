@@ -8,6 +8,7 @@ and where a call's device time goes.
       git show <rev>:paddle_tpu_torch/csrc/$f > _archive/$f; done
     python3 rnn_fwd_probe.py _archive          # the cluster routes
     python3 rnn_fwd_probe.py grid _archive     # B5's grid route
+    python3 rnn_fwd_probe.py gru_grid _archive # B7's grid route
     git archive <rev> | tar -x -C _parent      # a whole checkout
     python3 rnn_fwd_probe.py step _parent      # phase 13's training run
 
@@ -22,8 +23,8 @@ h=256) it prints one `case` JSON line each:
   clusters the card holds at once; also printed first for B = 8 .. 512);
 - max |diff| / max |plain| of y (and c) of both revisions;
 - ms of the other revision's call, of this revision's call on the route
-  its rule picks and on its other route (the LSTM's grid route, the
-  GRU's walk), of the LSTM's inference variant (no c), and of this
+  its rule picks and on its other route (the grid route), of the LSTM's
+  inference variant (no c), and of this
   revision built with -DRNN_SERIAL_FLOOR (the cluster walk keeps only
   its pushes of h and its cluster barriers), timed in turns (CUDA
   events, 20 calls each);
@@ -38,6 +39,11 @@ revision's call (the walk, in a revision before the grid route), this
 revision's with c and without (inference), and this revision built with
 -DRNN_SERIAL_FLOOR (the grid walk keeps only its stores and loads of h
 and its barriers), in turns; their device ms by kernel; the floor a step.
+`gru_grid` mode does the same for B7 at `rnn_bwd_probe.GRU_GRID_CASES`
+(B=256, T=32, h = 512 and 1280; B=80, T=50, h = 1000): the other
+revision's call (the walk, in a revision before the GRU's grid route),
+this revision's, and its floor (the exchanges of r * h and h and the two
+barriers a step); the floor a step is over T.
 `step` mode instead runs phase 13's classifier training (`chip_smoke.py`
 `text_train`, the kernel arm: CLS_STEPS adam steps through SGD at B=64,
 T=100, h=256, the cluster route) in another revision's checkout and in
@@ -138,45 +144,56 @@ def call(torch, lib, cell, ins, b, t, h, route, want_c=True):
     return run, outs
 
 
-def grid_mode(torch, archive):
-    """B5 at GRID_CASES: the other revision (the walk, before the grid
-    route), this revision's grid route with c and without, and its
-    serial floor, in turns (see the module docstring)."""
+def grid_mode(torch, archive, cell="lstm"):
+    """B5 (`cell` "lstm") at GRID_CASES or B7 ("gru") at GRU_GRID_CASES:
+    the other revision (the walk, before the cell's grid route), this
+    revision's grid route (B5: with c and without), and its serial floor,
+    in turns (see the module docstring)."""
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import rnn
 
+    kern = f"{cell}_seq"
+    lstm = cell == "lstm"
     out_dir = os.path.join(_build.BUILD_DIR, "grid_fwd_probe")
     os.makedirs(out_dir, exist_ok=True)
     nvcc, flags = _build._nvcc(), _build.NVCC_FLAGS
     builds = {
-        "other": bp.start(nvcc, flags, os.path.join(archive, "lstm_seq.cu"),
-                          os.path.join(out_dir, "lstm_other.so")),
+        "other": bp.start(nvcc, flags, os.path.join(archive, f"{kern}.cu"),
+                          os.path.join(out_dir, f"{cell}_other.so")),
         "floor": bp.start(nvcc, (*flags, "-DRNN_SERIAL_FLOOR"),
-                          _build.sources()["lstm_seq"],
-                          os.path.join(out_dir, "lstm_floor.so"))}
-    libs = {"this": bind(_build.load("lstm_seq"), "lstm")}
-    libs.update({k: bind(bp.finish(st), "lstm") for k, st in builds.items()})
+                          _build.sources()[kern],
+                          os.path.join(out_dir, f"{cell}_floor.so"))}
+    libs = {"this": bind(_build.load(kern), cell)}
+    libs.update({k: bind(bp.finish(st), cell) for k, st in builds.items()})
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 8)
-    for name, cell, b, t, h in bp.GRID_CASES:
-        x, (w, b7), lens, _dy, _live = cs.rnn_inputs(torch, gen, cell, b, t,
-                                                     h, None)
-        ref = rnn.lstm_plain(x, w, *torch.split(b7, [4 * h, h, h, h]), lens,
-                             want_c=True)
-        ins = {"args": (x, w, b7, lens), "ref": ref}
+    for name, _cell, b, t, h in (bp.GRID_CASES if lstm
+                                 else bp.GRU_GRID_CASES):
+        x, ws, lens, _dy, _live = cs.rnn_inputs(torch, gen, cell, b, t, h,
+                                                None)
+        if lstm:
+            w, b7 = ws
+            ref = rnn.lstm_plain(x, w, *torch.split(b7, [4 * h, h, h, h]),
+                                 lens, want_c=True)
+            ins, names = {"args": (x, w, b7, lens), "ref": ref}, ("y", "c")
+        else:
+            ref = (rnn.gru_plain(x, *ws, lens),)
+            ins, names = {"args": (x, *ws, lens), "ref": ref}, ("y",)
         fns, outs = {}, {}
         for k, lib in libs.items():
             fns[k], outs[k] = call(torch, lib, cell, ins, b, t, h, -1)
             fns[k]()
-        fns["this_infer"], outs["this_infer"] = call(
-            torch, libs["this"], cell, ins, b, t, h, -1, want_c=False)
-        fns["this_infer"]()
+        order = ["other", "this", "floor"]
+        if lstm:
+            fns["this_infer"], outs["this_infer"] = call(
+                torch, libs["this"], cell, ins, b, t, h, -1, want_c=False)
+            fns["this_infer"]()
+            order.insert(2, "this_infer")
         torch.cuda.synchronize()
         row = {"case": name,
-               "plan": rnn.fwd_plan(rnn.LSTM_KERNEL, b, h, x.device),
+               "plan": rnn.fwd_plan(kern, b, h, x.device),
                "err": {k: {n: float(f"{cs.rel_err(g, r)[0]:.3g}")
-                           for n, g, r in zip(("y", "c"), outs[k], ref)}
-                       for k in ("other", "this", "this_infer")}}
-        order = ["other", "this", "this_infer", "floor"]
+                           for n, g, r in zip(names, outs[k], ref)}
+                       for k in order if k != "floor"}}
         ms = {k: [] for k in order}
         for k in order + order[::-1]:
             ms[k].append(cs.time_ms(torch, fns[k], reps=5 if k == "other"
@@ -187,7 +204,8 @@ def grid_mode(torch, archive):
         walk = sum(v for n, v in row["kernel_ms"]["floor"].items()
                    if "grid_kernel" in n)
         row["floor_walk_ms"] = walk
-        row["floor_us_a_step"] = walk * 1e3 / (t - 1)
+        # B5: T - 1 barriers; B7: two a step, the last step's first only
+        row["floor_us_a_step"] = walk * 1e3 / (t - 1 if lstm else t)
         bp.log("grid case " + json.dumps(row))
     return 0
 
@@ -222,7 +240,7 @@ def main() -> int:
 
     mode = sys.argv[1] if len(sys.argv) == 3 else None
     if not torch.cuda.is_available() or not (
-            len(sys.argv) == 2 or mode in ("grid", "step")):
+            len(sys.argv) == 2 or mode in ("grid", "gru_grid", "step")):
         print(__doc__, file=sys.stderr)
         return 2
     from paddle_tpu_torch.ops import _build
@@ -234,8 +252,9 @@ def main() -> int:
     bp.log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip())
-    if mode == "grid":
-        return grid_mode(torch, sys.argv[2])
+    if mode in ("grid", "gru_grid"):
+        return grid_mode(torch, sys.argv[2],
+                         "gru" if mode == "gru_grid" else "lstm")
     if mode == "step":
         return step_mode(os.path.abspath(sys.argv[2]))
     out_dir = os.path.join(_build.BUILD_DIR, "fwd_probe")

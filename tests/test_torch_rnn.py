@@ -15,17 +15,22 @@ and through the port's plain versions and autograd Functions:
   `LstmSeq`/`GruSeq` within 2e-4 (atol) of `jax.vjp` of the
   interpret-mode kernels;
 - every function of `ops/sequence_ops.py` against the JAX original
-  (exact up to f32 summation order, 1e-6).
+  (exact up to f32 summation order, 1e-6);
+- the GRU's plain versions past the cluster routes' widths (h = 336,
+  where B8 alone takes the grid route on the card, and h = 1000, the
+  RNNsearch encoder's), ragged with a 0 length, against `gru_ref` and
+  the interpret-mode `gru_fused` and its `jax.vjp`.
 
 `TestOnCard` (marked `cuda`) holds the four Hopper kernels against
 their plain versions on the card — each on the route its rule picks
-and, where that is the cluster route, on the other route too (the LSTM's
-grid route, the GRU's walk), the cluster and grid routes bit-identical on
-a repeat — pins the width at which each kernel's cluster route gives way
-to the grid route (LSTM) or the walk (GRU), and shows that one autograd
-step launches each kernel once. It skips here; on a machine
-with an H100 and no JAX: `python -m pytest --noconftest -m cuda
-tests/test_torch_rnn.py`.
+and, where that is the cluster route, on the grid route too, the
+cluster and grid routes bit-identical on a repeat — pins the width at
+which each kernel's cluster route gives way to the grid route, checks
+the grid route's plans (one block an SM at most, the weights streamed
+and the rows chunked where a block's shared memory does not hold
+them), and shows that one autograd step launches each kernel once. It
+skips here; on a machine with an H100 and no JAX: `python -m pytest
+--noconftest -m cuda tests/test_torch_rnn.py`.
 """
 
 import numpy as np
@@ -219,13 +224,13 @@ def _kernel_calls(route):
 
 
 def test_kernel_wrappers_refuse_the_cpu():
-    for route in (None, "walk", "cluster", "grid"):
+    for route in (None, "cluster", "grid"):
         for call in _kernel_calls(route):
             with pytest.raises(ValueError, match="unsupported device"):
                 call()
 
 
-@pytest.mark.parametrize("route", ["fast", "Cluster", 0, "Grid"])
+@pytest.mark.parametrize("route", ["fast", "Cluster", 0, "Grid", "walk"])
 def test_unknown_route_is_refused_before_any_build(route, monkeypatch):
     """A route name that is not one of rnn.ROUTES raises ValueError, on
     any kernel's wrapper and plan, before a kernel is built or a device
@@ -243,6 +248,45 @@ def test_unknown_route_is_refused_before_any_build(route, monkeypatch):
     for call in calls:
         with pytest.raises(ValueError, match="route must be"):
             call()
+
+
+# (B, T, h, lens) of the GRU past the cluster routes' widths: h = 336 (B7
+# on the cluster route, B8 on the grid route on the card) and the RNNsearch
+# encoder's h = 1000, ragged with a 0 length; the recurrent weights at the
+# layers' init scale 1/sqrt(h)
+WIDE_GRU = {"h336": (4, 5, 336, [5, 0, 2, 4]),
+            "h1000": (3, 4, 1000, [4, 1, 0])}
+
+
+@needs_jax
+@pytest.mark.parametrize("case", sorted(WIDE_GRU))
+def test_gru_matches_jax_past_the_cluster_widths(case):
+    """gru_plain within 1e-5 of `gru_ref` and the interpret-mode
+    `gru_fused`; gru_bwd_plain and autograd through GruSeq within 2e-4
+    of `jax.vjp` of `gru_fused`, exactly 0 past each row's length."""
+    b, t, h, lens = WIDE_GRU[case]
+    args, dy = _gru_inputs(seed=11, b=b, t=t, h=h, w_scale=h ** -0.5)
+    ja = [jnp.asarray(a) for a in args]
+    jl = jnp.asarray(np.asarray(lens, np.int32))
+    tl = torch.tensor(lens, dtype=torch.int32)
+    targs = _t(args)
+    y = rnn.gru_plain(*targs, tl)
+    jy, vjp = jax.vjp(lambda *a: pr.gru_fused(*a, jl, True), *ja)
+    np.testing.assert_allclose(y.numpy(), np.asarray(pr.gru_ref(*ja, jl)),
+                               atol=1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-5)
+    dead = np.arange(t)[None, :] >= np.asarray(lens)[:, None]
+    np.testing.assert_array_equal(y.numpy()[dead], 0.0)
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    tdy = torch.from_numpy(dy)
+    got = rnn.gru_bwd_plain(*targs, tl, y, tdy)
+    for name, g, w in zip(("dx", "dw_g", "dw_c", "db"), got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=2e-4, err_msg=name)
+    np.testing.assert_array_equal(got[0].numpy()[dead], 0.0)
+    leaves = [v.clone().requires_grad_(True) for v in targs]
+    rnn.GruSeq.apply(*leaves, tl).backward(tdy)
+    for leaf, w in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), w, atol=2e-4)
 
 
 # ---- sequence ops ---------------------------------------------------------
@@ -337,6 +381,15 @@ CARD_CASES = {
     "b3_t4_h2048": (3, 4, 2048, None),
     "ragged_b1200_t3_h1280": (1200, 3, 1280,
                               [3, 0, 1] + [i % 3 + 1 for i in range(1197)]),
+    # the GRU's grid route at the NMT encoder's widths (bench_nmt's B and
+    # T at hidden 1024 and 2560, the RNNsearch encoder's h = 1000), and
+    # h = 336, where B7 takes the cluster route and B8 the grid route
+    "b256_t32_h1000": (256, 32, 1000, None),
+    "b256_t32_h1280": (256, 32, 1280, None),
+    "ragged_b6_t7_h336": (6, 7, 336, [7, 0, 1, 7, 3, 5]),
+    # past h = 2112 a block's forward gate columns outgrow one product job
+    # (the GRU's 4 n-tiles, the LSTM's 8): several jobs a block, streamed
+    "ragged_b3_t4_h2560": (3, 4, 2560, [4, 0, 2]),
 }
 WAVE_CASE = "b512_t6_h256"
 STREAMED_CASE = "b3_t4_h2048"
@@ -344,15 +397,15 @@ CHUNKED_CASE = "ragged_b1200_t3_h1280"
 # the widest h each kernel takes on the cluster route: its slices of the
 # weights and buffers at one batch row a cluster fill a block's 227 KB
 # (csrc lstm_seq.cu / gru_seq.cu: FwdSmem, WalkSmem); wider h takes the
-# grid route (LSTM) or the walk (GRU)
+# grid route
 CLUSTER_MAX_H = {"lstm": 320, "gru": 320}          # B6, B8
 FWD_CLUSTER_MAX_H = {"lstm": 320, "gru": 352}      # B5, B7
-# each cell's route past the cluster route's widest h, and the route it
-# does not have
-WIDE_ROUTE = {"lstm": "grid", "gru": "walk"}
-NO_ROUTE = {"lstm": "walk", "gru": "grid"}
+# each cell's route past the cluster route's widest h, and a route name it
+# does not have (refused as an unknown route)
+WIDE_ROUTE = {"lstm": "grid", "gru": "grid"}
+NO_ROUTE = {"lstm": "walk", "gru": "walk"}
 # the launch counters of each kernel: (either route, the cluster route,
-# the grid route; the GRU has none)
+# the grid route)
 COUNTERS = {
     ("fwd", "lstm"): ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
                       "lstm_fwd_grid_launches"),
@@ -361,13 +414,15 @@ COUNTERS = {
                             "lstm_fwd_infer_grid_launches"),
     ("bwd", "lstm"): ("lstm_bwd_launches", "lstm_bwd_cluster_launches",
                       "lstm_bwd_grid_launches"),
-    ("fwd", "gru"): ("gru_fwd_launches", "gru_fwd_cluster_launches", None),
-    ("bwd", "gru"): ("gru_bwd_launches", "gru_bwd_cluster_launches", None),
+    ("fwd", "gru"): ("gru_fwd_launches", "gru_fwd_cluster_launches",
+                     "gru_fwd_grid_launches"),
+    ("bwd", "gru"): ("gru_bwd_launches", "gru_bwd_cluster_launches",
+                     "gru_bwd_grid_launches"),
 }
 
 
 def _counts(counters):
-    return [getattr(rnn, c) if c else 0 for c in counters]
+    return [getattr(rnn, c) for c in counters]
 
 
 @pytest.mark.cuda
@@ -440,11 +495,11 @@ class TestOnCard:
         the rule picks, which must be the cluster route exactly where h <=
         its FWD_CLUSTER_MAX_H / CLUSTER_MAX_H and else WIDE_ROUTE, and on
         WIDE_ROUTE where the rule picks the cluster route: every output
-        within 1e-4, the first (y or dx) exactly 0 past len; the cluster
-        and grid routes bit-identical on a repeat, launches counted by
-        route; where h is too wide for it, the cluster route refused with
-        nothing counted, and NO_ROUTE refused at every h. Returns the
-        rule's outputs."""
+        within 1e-4, the first (y or dx) exactly 0 past len; both routes
+        bit-identical on a repeat, launches counted by route; where h is
+        too wide for it, the cluster route refused with nothing counted,
+        and NO_ROUTE refused as an unknown route at every h, with nothing
+        counted. Returns the rule's outputs."""
         counts = COUNTERS[kind, cell]
         kernel = rnn.LSTM_KERNEL if cell == "lstm" else rnn.GRU_KERNEL
         b = ref[0].shape[0]
@@ -465,16 +520,15 @@ class TestOnCard:
         if cluster:
             runs.append((wide, call(wide)))
         for route, outs in runs:
-            if route == "walk":
-                continue
             again = call(route)
             torch.cuda.synchronize()
             for name, a, r in zip(names, outs, again):
                 assert torch.equal(a, r), f"{route} {name}: a repeat differs"
-        refused = [NO_ROUTE[cell]] + ([] if cluster else ["cluster"])
-        for route in refused:
+        refused = [(NO_ROUTE[cell], "route must be")] + (
+            [] if cluster else [("cluster", "the cluster route takes")])
+        for route, match in refused:
             before = _counts(counts)
-            with pytest.raises(ValueError, match=f"the {route} route takes"):
+            with pytest.raises(ValueError, match=match):
                 call(route)
             assert _counts(counts) == before
         torch.cuda.synchronize()
@@ -504,6 +558,48 @@ class TestOnCard:
         assert p["route"] == "grid" and p["streamed"], p
         assert 16 <= p["rows"] < b and p["rows"] % 16 == 0, p
 
+    def test_gru_streamed_and_chunked_cases(self):
+        """B7 and B8 past the widths whose slices of the weights fit a grid
+        block's shared memory stream them from L2, on one launch of every
+        row (STREAMED_CASE); past the rows a streamed block holds, both
+        launch for a multiple of 16 rows at a time (CHUNKED_CASE); at the
+        NMT encoder's h = 1280 and B = 256 the slices are resident."""
+        dev = torch.device("cuda")
+        b, _t, h, _lens = CARD_CASES[STREAMED_CASE]
+        for plan in (rnn.fwd_plan, rnn.bwd_plan):
+            p = plan(rnn.GRU_KERNEL, b, h, dev)
+            assert p["route"] == "grid" and p["streamed"], p
+            assert p["rows"] == b and p["blocks"] <= p["active"], p
+            p = plan(rnn.GRU_KERNEL, 256, 1280, dev)
+            assert p["route"] == "grid" and not p["streamed"], p
+            assert p["rows"] == 256, p
+        b, _t, h, _lens = CARD_CASES[CHUNKED_CASE]
+        for plan in (rnn.fwd_plan, rnn.bwd_plan):
+            p = plan(rnn.GRU_KERNEL, b, h, dev)
+            assert p["route"] == "grid" and p["streamed"], p
+            assert 16 <= p["rows"] < b and p["rows"] % 16 == 0, p
+
+    @pytest.mark.parametrize("h", [336, 353, 512, 1000, 1280, 2048, 4096])
+    def test_gru_grid_plan_is_one_block_an_sm(self, h):
+        """Every h past a GRU kernel's cluster route (B7: 352, B8: 320)
+        takes the grid route, on G = ceil(h / U) blocks of U = ceil(h /
+        SMs) units: never more blocks than the card has SMs, and no more
+        than it holds at once (the cooperative launch needs them all)."""
+        dev = torch.device("cuda")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for plan, limit in ((rnn.fwd_plan, FWD_CLUSTER_MAX_H["gru"]),
+                            (rnn.bwd_plan, CLUSTER_MAX_H["gru"])):
+            for b in (1, 80, 256):
+                p = plan(rnn.GRU_KERNEL, b, h, dev)
+                if h <= limit:
+                    assert p["route"] == "cluster", (h, b, p)
+                    continue
+                units = -(-h // sms)
+                assert p["route"] == "grid", (h, b, p)
+                assert p["units"] == units, (h, b, p)
+                assert p["blocks"] == -(-h // units) <= sms, (h, b, p)
+                assert p["blocks"] <= p["active"], (h, b, p)
+
     @pytest.mark.parametrize("cell", ["lstm", "gru"])
     def test_wave_case_takes_more_clusters_than_the_card_holds(self, cell):
         b, _t, h, _lens = CARD_CASES[WAVE_CASE]
@@ -521,7 +617,8 @@ class TestOnCard:
         # h = 32: every kernel on the cluster route
         counters = [c for kind in ("fwd", "bwd") for cell in ("lstm", "gru")
                     for c in COUNTERS[kind, cell][:2]]
-        grid = [COUNTERS[kind, "lstm"][2] for kind in ("fwd", "bwd")]
+        grid = [COUNTERS[kind, cell][2] for kind in ("fwd", "bwd")
+                for cell in ("lstm", "gru")]
         before, grid_before = _counts(counters), _counts(grid)
         rnn.lstm_fused(*leaves, lens).backward(torch.from_numpy(dy).cuda())
         rnn.gru_fused(*gleaves, lens).backward(torch.from_numpy(gdy).cuda())

@@ -16,11 +16,15 @@ run their scan.
   recurrent_group with a boot layer and a static link (forward and
   reversed) — within 1e-5 (atol) of the JAX layer.
 - The IMDB stacked-LSTM classifier, the attention NMT and the
-  bidirectional LSTM tagger at narrow widths, and the classifier at the
-  bench's hidden 512 (small vocab, B and T): the loss (rtol 1e-4) and
-  every gradient (1e-4 of its largest entry) on both arms, and three
-  adam steps of `SGD.train` (the costs, rtol 1e-4, and every parameter
-  after them), against the JAX `Network` and `SGD`.
+  bidirectional LSTM tagger at narrow widths, the classifier at the
+  bench's hidden 512, and the NMT at hidden 1024 and 2000 (encoder GRUs
+  of h = 512 and RNNsearch's 1000, where B7 and B8 take the grid route
+  on the card; small vocab, B and T): the loss (rtol 1e-4) and every
+  gradient (1e-4 of its largest entry) on both arms, and three adam
+  steps of `SGD.train` (the costs, rtol 1e-4, and every parameter after
+  them; at the classifier's hidden 512 within the port's own f64 noise,
+  at the NMT's hidden 1024 in f64 in both packages), against the JAX
+  `Network` and `SGD`.
 - `Inferencer` of the classifier against the JAX `Inferencer`; the
   flag's policy; the step net's context; the flat JAX parameter names
   (the GRU's `_{name}.wc`, a group's renamed step parameters) carried
@@ -188,12 +192,20 @@ CONFS = {
     "tagger": ("bidi_lstm_tagger", dict(vocab_size=50, emb_dim=8, hidden=16)),
 }
 # the bench rows' optimizers (bench.py bench_lstm, bench_nmt)
-# bench_lstm's hidden 512 (on the card: the grid route of B5 and B6), at a
-# small vocab, B and T
+# bench_lstm's hidden 512 (on the card: the grid route of B5 and B6), and
+# the NMT at hidden 1024 and 2000 (encoder GRUs of h = 512 and 1000 a
+# direction, RNNsearch's width: on the card the grid route of B7 and B8),
+# at a small vocab, B and T
 WIDE = {"classifier_h512": ("stacked_lstm_classifier",
-                            dict(vocab_size=50, emb_dim=8, hidden=512))}
+                            dict(vocab_size=50, emb_dim=8, hidden=512)),
+        "nmt_h1024": ("seq2seq_attention",
+                      dict(src_vocab=40, trg_vocab=30, emb_dim=8,
+                           hidden=1024)),
+        "nmt_h2000": ("seq2seq_attention",
+                      dict(src_vocab=40, trg_vocab=30, emb_dim=8,
+                           hidden=2000))}
 ADAM = {"classifier": 2e-3, "classifier_h512": 2e-3, "nmt": 1e-3,
-        "tagger": 2e-3}
+        "nmt_h1024": 1e-3, "nmt_h2000": 1e-3, "tagger": 2e-3}
 
 
 def _confs(name):
@@ -287,7 +299,41 @@ def test_sgd_adam_steps_match_jax_at_the_bench_width(arm):
     packages, ~7e-5 after three steps), the rule of the chip smoke's held
     step. The port's f32 run must also be as close to its f64 run as the
     JAX run is, within NET_TOL."""
-    name = "classifier_h512"
+    run = _adam_runs("classifier_h512")
+    p64 = run["port64"]
+    for k, v in run["port"].items():
+        noise = _rel(v, p64[k])
+        assert _rel(v, run["jax"][k]) <= NET_TOL + 2 * noise, (k, noise)
+        assert noise <= NET_TOL + _rel(run["jax"][k], p64[k]), k
+
+
+def test_sgd_adam_steps_match_jax_at_the_nmt_width(arm):
+    """Three adam steps of the NMT at hidden 1024 (encoder GRUs of h =
+    512, the grid route's width on the card) through `SGD.train` against
+    the JAX `SGD`. In f64 in both packages, where adam's f32 noise is
+    gone, every parameter within NET_TOL of the JAX run's (~3e-5) and the
+    costs within rtol NET_TOL. In f32 the costs within rtol NET_TOL, and
+    the port's run as close to the JAX f64 run as the JAX f32 run is,
+    within NET_TOL: at this width adam's division by near-zero second
+    moments moves the decoder's boot and state weights by up to ~2e-3 in
+    either package's f32, in directions of their own, so the two f32
+    runs are held each against f64 and not against each other."""
+    run = _adam_runs("nmt_h1024", jax64=True)
+    np.testing.assert_allclose(run["port64_costs"], run["jax64_costs"],
+                               rtol=NET_TOL)
+    j64 = run["jax64"]
+    for k, v in run["port64"].items():
+        assert _rel(v, j64[k]) <= NET_TOL, (k, _rel(v, j64[k]))
+    for k, v in run["port"].items():
+        err, jerr = _rel(v, j64[k]), _rel(run["jax"][k], j64[k])
+        assert err <= NET_TOL + jerr, (k, err, jerr)
+
+
+def _adam_runs(name, jax64=False):
+    """Three adam steps of conf `name` from one set of parameters in the
+    port (f32 and f64) and in JAX (f32, and f64 if `jax64`), the f32
+    costs held within rtol NET_TOL; returns each run's parameters as
+    numpy (`port`, `port64`, `jax`, `jax64`) and the f64 runs' costs."""
     jconf, tconf = _confs(name)
     p0 = _np_params(JNetwork(jconf), 3)
     opt = dict(learning_method="adam", learning_rate=ADAM[name])
@@ -301,15 +347,21 @@ def test_sgd_adam_steps_match_jax_at_the_bench_width(arm):
                    p0, device="cpu").items()}, device="cpu")
     jcosts = _train(jt, batches, _jfeed, JEnd)
     tcosts = _train(tt, batches, _tfeed, TEnd)
-    _train(t64, batches, _tfeed, TEnd)
+    out = {"port64_costs": _train(t64, batches, _tfeed, TEnd)}
     assert np.isfinite(tcosts).all() and len(tcosts) == 3
     np.testing.assert_allclose(tcosts, jcosts, rtol=NET_TOL)
-    p64 = {k: v.detach().numpy() for k, v in t64.params.items()}
-    assert {str(v.dtype) for v in p64.values()} == {"float64"}
-    for k, v in params_to_numpy(tt.params).items():
-        noise = _rel(v, p64[k])
-        assert _rel(v, jt.params[k]) <= NET_TOL + 2 * noise, (k, noise)
-        assert noise <= NET_TOL + _rel(np.asarray(jt.params[k]), p64[k]), k
+    out["port"] = params_to_numpy(tt.params)
+    out["port64"] = {k: v.detach().numpy() for k, v in t64.params.items()}
+    out["jax"] = {k: np.asarray(v) for k, v in jt.params.items()}
+    if jax64:
+        with jax.enable_x64(True):
+            j64 = JSGD(jconf, JOptConf(**opt), seed=1, params={
+                k: jnp.asarray(v, jnp.float64) for k, v in p0.items()})
+            out["jax64_costs"] = _train(j64, batches, _jfeed, JEnd)
+            out["jax64"] = {k: np.asarray(v) for k, v in j64.params.items()}
+        assert {str(v.dtype) for v in out["jax64"].values()} == {"float64"}
+    assert {str(v.dtype) for v in out["port64"].values()} == {"float64"}
+    return out
 
 
 def test_classifier_inference_matches_jax(arm):
