@@ -5,7 +5,8 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in nineteen phases and six that run its paths or its
+`paddle_tpu` — in nineteen phases, two of multi-step dispatch (18b,
+18c), and six that run its paths or its
 kernels' forms under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and
 any failure exits non-zero:
 
@@ -220,6 +221,29 @@ any failure exits non-zero:
 18. the CTR models through SGD: ctr_wide_deep at its defaults, adam
     0.02, 30 steps on one batch of 256 x 64 features (the loss halves),
     and one ctr_linear step with adagrad;
+18b. multi-step dispatch on the main path: the classifier at
+    bench_lstm's settings (h = 256, B=64, adam 2e-3) through `SGD.train`
+    fed by the port's readers (`batched(shuffle(...))` over 1617 samples
+    of lengths 10-100) and `DataFeeder` (buckets 32/64/100), two passes
+    at steps_per_dispatch = 10 (two CUDA graphs: chunks of 10 and 5; the
+    short last batch eager) against two runs at 1: every cost and the
+    final params and slots bit-equal wherever the two K = 1 runs agree,
+    elsewhere within twice their distance; every wrapper launch counted;
+    ms a step, and a third pass profiled: device ms, idle share, B5/B6
+    on the cluster route and no other port kernel;
+18c. a CUDA graph of 10 steps against eager chunks for the classifier
+    at h = 512 (B5/B6 grid route: cooperative launches and their
+    memsets), the NMT at bench_nmt's settings (B7/B8 cluster route,
+    recurrent_group) and at hidden 1024 (B7/B8 grid route), LM (a) in
+    f32 with flash (B4f/B4b f32), the long-context flash step at B=4,
+    T=4096 and bench_lm_train's LM under the bf16 flag, ResNet-50 fused
+    AMP at B=256 (the bf16 B1-B3; a NaN image in the 5th batch of each
+    chunk, skipped) and ctr_wide_deep: two chunks eagerly, again, and as
+    two replays of one graph (the second at global step + 10 with
+    lr_scale 0.5, a poly schedule): params, slots, layer state and
+    health rows held as in 18b; each arm's ms a step; a third replay
+    profiled: the port kernels it runs, by route and form, and how often
+    the profiler saw each a step;
 19. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
@@ -3659,6 +3683,428 @@ def ctr_models(torch):
     return out
 
 
+# ---- multi-step dispatch: K train steps as one CUDA graph ----------------
+
+# phase 18b: the classifier at bench_lstm's settings through SGD.train fed
+# by the port's readers and DataFeeder, bench.py::bench_lstm's inner=10 as
+# steps_per_dispatch; 25 full batches and a short one a pass
+MS_K = 10
+MS_SAMPLES = CLS_B * 25 + 17
+MS_BUCKETS = (32, 64, 100)
+# phase 18c: both chunks at later global steps, the LR on a poly schedule
+MS_STEP0 = 1000
+MS_POLY = dict(learning_rate_schedule="poly", learning_rate_decay_a=1e-3,
+               learning_rate_decay_b=0.5)
+# kernels that serve a route's walk (its hoisted products and dW, its
+# bias gradient): present wherever the walk is
+MS_HELPERS = ("tc_kernel", "'s db")
+
+
+def counted_profile(torch, fn):
+    """fn() under torch.profiler. The profiler can miss a few kernels in
+    a long window (in the whole smoke it recorded 50 of a pass's 52 B5
+    launches, the wrappers' counts 52), so its counts show which
+    kernels ran, not exactly how often."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def kernel_calls(torch, fn):
+    """One call of fn() (a replay of a captured graph) under
+    torch.profiler: the device ms, each port kernel's launches
+    (PORT_KERNELS' labels) and the memsets the call ran on the card."""
+    return device_calls(torch, counted_profile(torch, fn), 1)
+
+
+def ran_only(calls, want, name):
+    """The profile's port kernels (`calls`, PORT_KERNELS' labels; the
+    walks' helper kernels aside) are exactly those of `want`, each
+    launched; the counts are printed beside `want`'s."""
+    got = {k for k in calls if not any(x in k for x in MS_HELPERS)}
+    assert got == set(want) and all(calls[k] for k in want), (
+        f"{name}: the profile shows {calls}, want {want}")
+
+
+def device_calls(torch, prof, steps):
+    """A profile's device ms a step, each port kernel's launches and the
+    memsets (all over `steps`)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages()
+              if e.device_type == cuda and e.self_device_time_total > 0]
+    calls = {label: sum(e.count for e in events if piece in e.key)
+             for label, piece in PORT_KERNELS.items()}
+    return {"device_ms_per_step": sum(e.self_device_time_total
+                                      for e in events) / steps / 1e3,
+            "calls": {k: v for k, v in calls.items() if v},
+            "memsets": sum(e.count for e in events
+                           if "memset" in e.key.lower())}
+
+
+def leaves(tree, prefix=""):
+    """{path: tensor} of nested dicts of tensors."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaves(v, f"{prefix}{k}/"))
+        return out
+    return {prefix.rstrip("/"): tree}
+
+
+def held_graph_vs_eager(torch, name, e1, e2, g):
+    """The graph arm's leaves against the eager arms' ({path: tensor}
+    each): bit-equal (NaN where NaN) wherever the two eager runs agree bit
+    for bit, elsewhere no farther than twice the eager runs' own distance.
+    Returns the leaves where the eager runs differ, with both
+    distances."""
+    def same(a, b):
+        return (torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+    def dist(a, b):
+        return float((a.nan_to_num(0.0) - b.nan_to_num(0.0)).abs().max())
+
+    nondet = {}
+    for k, a in e1.items():
+        b, c = e2[k], g[k]
+        if same(a, b):
+            assert same(c, a), (
+                f"{name}: {k} differs from two eager runs that agree bit "
+                f"for bit (by {dist(c, a):.3g})")
+            continue
+        own, far = dist(a, b), dist(c, a)
+        nondet[k] = {"eager_vs_eager": own, "graph_vs_eager": far}
+        assert torch.equal(c.isnan(), a.isnan()) and far <= 2 * own, (
+            f"{name}: {k} is {far:.3g} from the eager run, more than twice "
+            f"the eager runs' own {own:.3g}")
+    return nondet
+
+
+def classifier_multistep(torch):
+    """Phase 18b: the classifier (bench_lstm: vocab 30000, emb 128, two
+    LSTMs at h = 256, B=64, adam 2e-3) through `SGD.train`, the reader
+    `batched(shuffle(samples, 1000, seed), 64, drop_last=False)` over
+    MS_SAMPLES samples of lengths 10-100 and `DataFeeder(...,
+    buckets=MS_BUCKETS)`; two passes at steps_per_dispatch = 1 (twice)
+    and 10 from one start. The K = 10 arm captures two graphs (chunks of
+    10 and of 5; the short last batch runs eagerly), and its costs, final
+    params and slots are held against the K = 1 arms
+    (`held_graph_vs_eager`). The wrappers' launch counts over the two
+    passes are exact (the K = 10 arm's: its eager steps, warm-ups and
+    captures). ms a step of the second pass, then a third pass profiled:
+    device ms a step, idle share, and the port kernels it ran: B5 and
+    B6 on the cluster route and no other. Returns the arms' numbers."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.data import feeder as dfeeder
+    from paddle_tpu_torch.data import reader as dreader
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.trainer.events import BeginPass, EndIteration, \
+        EndPass
+    from paddle_tpu_torch.trainer.trainer import SGD
+
+    rng = np.random.default_rng(SEED + 200)
+    vocab = CLS["vocab_size"]
+    samples = [(rng.integers(0, vocab, n).tolist(), int(rng.integers(0, 2)))
+               for n in rng.integers(10, 101, MS_SAMPLES)]
+    reader = dreader.batched(
+        dreader.shuffle(lambda: iter(samples), 1000, seed=SEED), CLS_B,
+        drop_last=False)
+    feeder = dfeeder.DataFeeder(
+        {"words": 0, "label": 1},
+        {"words": dfeeder.integer_value_sequence(vocab),
+         "label": dfeeder.integer_value(2)}, buckets=MS_BUCKETS)
+    from paddle_tpu_torch.ops import rnn
+
+    steps = -(-MS_SAMPLES // CLS_B)
+    conf = stacked_lstm_classifier(**CLS)
+    p0 = Network(conf).init_params(torch.Generator().manual_seed(SEED),
+                                   device="cuda")
+    arms = {}
+    for arm, spd in (("k1", 1), ("k1_again", 1), ("k10", MS_K)):
+        sgd = SGD(conf, OptimizationConf(learning_method="adam",
+                                         learning_rate=CLS_LR),
+                  seed=SEED + 1, device="cuda", steps_per_dispatch=spd,
+                  params={k: v.clone() for k, v in p0.items()})
+        costs, stamps = [], {}
+
+        def on_event(e):
+            if isinstance(e, EndIteration):
+                costs.append(e.cost)
+            elif isinstance(e, (BeginPass, EndPass)):
+                stamps[(type(e).__name__, e.pass_id)] = time.perf_counter()
+
+        zero_rnn_counts(rnn)
+        sgd.train(reader=reader, feeder=feeder, num_passes=2,
+                  event_handler=on_event)
+        torch.cuda.synchronize()
+        # the wrappers count eager launches, the warm-up step and the
+        # captures, not the replays (the profile below counts those)
+        counts = {k: v for k, v in rnn_counts(rnn).items() if v}
+
+        def ms(p):
+            return (stamps[("EndPass", p)] - stamps[("BeginPass", p)]) \
+                / steps * 1e3
+
+        r = {"steps_per_dispatch": spd, "steps": len(costs),
+             "ms_per_step_pass1": ms(0), "ms_per_step": ms(1),
+             "graphs_captured": sgd.graphs_captured,
+             "loss_first": costs[0], "loss_last": costs[-1],
+             "launch_counts": counts}
+        # copies: the K = 10 arm's tensors are the graphs' own, and the
+        # profiled pass below moves them on
+        held = {"costs": torch.tensor(costs, dtype=torch.float64),
+                **{k: v.clone() for k, v in {
+                    **leaves(sgd.params, "param/"),
+                    **leaves(sgd.opt_state, "slot/")}.items()}}
+        prof = counted_profile(torch, lambda: sgd.train(
+            reader=reader, feeder=feeder, num_passes=1))
+        r.update(device_calls(torch, prof, steps))
+        r["idle_share"] = 1 - r["device_ms_per_step"] / r["ms_per_step"]
+        # the wrappers' launches over both passes: every step eagerly at
+        # K = 1; at K = 10 the short batch of each pass eagerly, one
+        # warm-up step a graph and the 10 + 5 captured steps
+        n = 2 * steps if spd == 1 else 2 + 2 + MS_K + 5
+        want = {"B5 lstm_seq_fwd cluster walk": 2 * steps,
+                "B6 lstm_seq_bwd cluster walk": 2 * steps}
+        r["calls_want"] = want
+        print(f"multistep classifier {arm} " + json.dumps(r), flush=True)
+        assert np.isfinite(costs).all() and len(costs) == 2 * steps, r
+        assert r["loss_last"] < r["loss_first"], r
+        assert counts == dict.fromkeys(
+            ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
+             "lstm_bwd_launches", "lstm_bwd_cluster_launches"), 2 * n), (
+            f"{arm}: the wrappers launched {counts}, want {2 * n} each")
+        ran_only(r["calls"], want, f"classifier {arm}")
+        arms[arm] = (r, held)
+        del sgd
+    # chunks of 10, 10 and 5, and the short batch alone: two graphs
+    assert arms["k10"][0]["graphs_captured"] == 2, arms["k10"][0]
+    nondet = held_graph_vs_eager(torch, "classifier k10", arms["k1"][1],
+                                 arms["k1_again"][1], arms["k10"][1])
+    print("multistep classifier held " + json.dumps(
+        {"leaves": len(arms["k1"][1]), "eager_runs_differ": nondet}),
+        flush=True)
+    torch.cuda.empty_cache()
+    return {arm: r for arm, (r, _h) in arms.items()}
+
+
+def ms_models(torch):
+    """Phase 18c's models: (name, conf, optimizer kwargs, params, state,
+    2 * MS_K feeds on the card, the bf16 flag, the port kernels a replay
+    must launch a step, the indices of feeds with a NaN image)."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+    from paddle_tpu_torch.models import ctr, lm
+    from paddle_tpu_torch.models.image import resnet
+    from paddle_tpu_torch.models.text import seq2seq_attention, \
+        stacked_lstm_classifier
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.weights import params_from_numpy
+
+    n = 2 * MS_K
+    rng = np.random.default_rng(SEED + 210)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 210)
+
+    def init(conf):
+        net = Network(conf)
+        return (net.init_params(torch.Generator().manual_seed(SEED), "cuda"),
+                net.init_state("cuda"))
+
+    def cls_feed():
+        lens = rng.integers(1, CLS_T + 1, CLS_B).astype(np.int32)
+        return {"words": id_arg(rng.integers(0, CLS["vocab_size"],
+                                             (CLS_B, CLS_T)), lens,
+                                device="cuda"),
+                "label": id_arg(rng.integers(0, 2, CLS_B), device="cuda")}
+
+    out = []
+    conf = stacked_lstm_classifier(**dict(CLS, hidden=512))
+    out.append(("classifier_h512", conf,
+                dict(learning_method="adam", learning_rate=CLS_LR),
+                *init(conf), [cls_feed() for _ in range(n)], False,
+                {"B5 lstm_seq_fwd grid route": 2,
+                 "B6 lstm_seq_bwd grid route": 2}, ()))
+    for name, kw, want in (
+            ("nmt", NMT, {"B7 gru_seq_fwd cluster walk": 2,
+                          "B8 gru_seq_bwd cluster walk": 2}),
+            ("nmt_h1024", dict(NMT, hidden=1024),
+             {"B7 gru_seq_fwd grid route": 2,
+              "B8 gru_seq_bwd grid route": 2})):
+        conf = seq2seq_attention(**kw)
+        out.append((name, conf, dict(learning_method="adam",
+                                     learning_rate=NMT_LR),
+                    *init(conf), [nmt_feed(SEED + 220 + i, NMT_B, NMT_T, True)
+                                  for i in range(n)], False, want, ()))
+    full = np.full((32,), 128, np.int32)
+    for name, impl, amp, want in (
+            ("lm_a_f32_flash", "flash", False,
+             {"B4f flash_attn_fwd": 2, "B4b flash_attn_bwd_dkv": 2,
+              "B4b flash_attn_bwd_dq": 2}),
+            ("lm_bench_lm_train_amp", "dense", True, {})):
+        spec = lm.LMSpec(vocab=2048, d_model=256, num_heads=4, num_layers=2,
+                         attn_impl=impl)
+        out.append((name, lm.transformer_lm(spec),
+                    dict(learning_method="momentum", learning_rate=0.001,
+                         momentum=0.9),
+                    params_from_numpy(random_params(spec, lm), "cuda"), {},
+                    [lm_feed(b) for b in lm_batches(rng, n, 32, 128, full,
+                                                    spec.vocab)],
+                    amp, want, ()))
+    lens = np.full((4,), 4096, np.int32)
+    out.append(("longctx_flash_amp_b4_t4096",
+                longctx_conf(**LONGCTX, attn_impl="flash"),
+                dict(learning_method="adam", learning_rate=LONGCTX_LR),
+                params_from_numpy(longctx_params(torch), "cuda"), {},
+                [{"ids": id_arg(rng.integers(0, LONGCTX["vocab"], (4, 4096)),
+                                lens, device="cuda"),
+                  "label": id_arg(rng.integers(0, LONGCTX["classes"],
+                                               (4, 4096)), lens,
+                                  device="cuda")} for _ in range(n)],
+                True, {"B4f flash_attn_fwd_bf16": 2,
+                       "B4b flash_attn_bwd_dkv_bf16": 2,
+                       "B4b flash_attn_bwd_dq_bf16": 2}, ()))
+    # ResNet-50 fused at bench_resnet50's B=256 under the flag: two image
+    # batches in turn, one NaN image in the 5th batch of each chunk
+    conf = resnet(50, (224, 224, 3), 1000, fused=True)
+    images = [torch.randn((RESNET_AMP_BATCH, 224, 224, 3), generator=gen,
+                          device="cuda") for _ in range(2)]
+    poisoned = images[0].clone()
+    poisoned[3, 100, 100, 1] = float("nan")
+    nan_at = (4, MS_K + 4)
+    out.append(("resnet50_fused_amp_b256", conf, dict(RESNET_OPT),
+                *init(conf),
+                [{"image": non_seq(poisoned if i in nan_at
+                                   else images[i % 2]),
+                  "label": id_arg(rng.integers(0, 1000, RESNET_AMP_BATCH),
+                                  device="cuda")} for i in range(n)],
+                True, {"B1 bn_act_conv1x1_fwd_bf16_wgmma": 29,
+                       "B2 bn_act_conv1x1_bwd_dx_bf16_wgmma": 29,
+                       "B3 bn_act_conv1x1_bwd_dw_bf16_wgmma": 29}, nan_at))
+    conf = ctr.ctr_wide_deep()
+    feats = [rng.integers(0, 100000, (CTR_B, CTR_F)) for _ in range(n)]
+    out.append(("ctr_wide_deep", conf,
+                dict(learning_method="adam", learning_rate=0.02),
+                *init(conf),
+                [{"features": id_arg(f, np.full(CTR_B, CTR_F, np.int32),
+                                     device="cuda"),
+                  "label": id_arg((f < CTR_CLICK).any(axis=1),
+                                  device="cuda")} for f in feats],
+                False, {}, ()))
+    return out
+
+
+def graph_vs_eager(torch, name, conf, opt_kw, params, state, feeds, amp,
+                   want, nan_at):
+    """Phase 18c for one model: two chunks of MS_K steps under a poly
+    schedule, the first at global step MS_STEP0, the second at MS_STEP0
+    + MS_K with lr_scale 0.5, with the watchdog: eagerly (TrainStep
+    calls), eagerly again, and as two replays of one graph
+    (`TrainStep.multi`), each from the same params. Holds the graph
+    arm's params, slots, layer state and health rows
+    (`held_graph_vs_eager`) and the skip of the NaN batches in every arm;
+    then profiles a third replay: it runs the port kernels of `want`
+    (their launches a step printed beside `want`'s), and no kernel of
+    another route or form. Returns the numbers."""
+    from paddle_tpu_torch.core import rng as trng
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep, stack_feeds
+
+    t_model = time.perf_counter()
+    set_amp(amp)
+    try:
+        net = Network(conf)
+        opt = create_optimizer(OptimizationConf(**opt_kw, **MS_POLY),
+                               net.param_confs)
+        root = trng.generator(SEED + 230, "cuda")
+        arms = {}
+        for arm in ("eager", "eager_again", "graph"):
+            step = TrainStep(net, opt, watchdog=True, device="cuda")
+            p = {k: v.clone() for k, v in params.items()}
+            o = opt.init_state(p)
+            s = {k: {slot: t.clone() for slot, t in v.items()}
+                 for k, v in state.items()}
+            healths, ms = [], []
+            for c in range(2):
+                step0, scale = MS_STEP0 + c * MS_K, (1.0, 0.5)[c]
+                chunk = feeds[c * MS_K:(c + 1) * MS_K]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if arm == "graph":
+                    p, o, s, h, _ = step.multi(p, o, s, stack_feeds(chunk),
+                                               step0, root, lr_scale=scale)
+                else:
+                    hs = []
+                    for k, f in enumerate(chunk):
+                        p, o, s, h1, _ = step(
+                            p, o, s, f, step0 + k,
+                            trng.split_for_step(root, step0 + k),
+                            lr_scale=scale)
+                        hs.append(h1)
+                    h = torch.stack(hs)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) / MS_K * 1e3)
+                healths.append(h)
+            arms[arm] = {"step": step, "ms": ms, "p": p, "o": o, "s": s,
+                         "held": {"health": torch.cat(healths),
+                                  **leaves(p, "param/"),
+                                  **leaves(o, "slot/"),
+                                  **leaves(s, "state/")}}
+        want_finite = [float(i not in nan_at) for i in range(2 * MS_K)]
+        for arm, a in arms.items():
+            got = a["held"]["health"][:, 1].tolist()
+            assert got == want_finite, f"{name} {arm}: finite {got}"
+        g = arms["graph"]
+        nondet = held_graph_vs_eager(torch, name, arms["eager"]["held"],
+                                     arms["eager_again"]["held"], g["held"])
+        stacked = stack_feeds(feeds[:MS_K])
+        replay = kernel_calls(torch, lambda: g["step"].multi(
+            g["p"], g["o"], g["s"], stacked, MS_STEP0 + 2 * MS_K, root,
+            lr_scale=0.5))
+        for k in replay["calls"]:
+            replay["calls"][k] /= MS_K
+        r = {"eager_ms_per_step": arms["eager"]["ms"],
+             "eager_again_ms_per_step": arms["eager_again"]["ms"],
+             "graph_ms_per_step": g["ms"],
+             "graph_device_ms_per_step": replay["device_ms_per_step"] / MS_K,
+             "graph_idle_share": 1 - replay["device_ms_per_step"] / MS_K
+             / g["ms"][1],
+             "graphs_captured": g["step"].graphs_captured,
+             "leaves_held": len(g["held"]),
+             "eager_runs_differ": nondet,
+             "nan_batches_skipped": [i for i, f in enumerate(want_finite)
+                                     if not f],
+             "replay_calls_per_step": replay["calls"],
+             "replay_calls_per_step_want": want,
+             "replay_memsets_per_step": replay["memsets"] / MS_K,
+             "seconds": time.perf_counter() - t_model}
+        print(f"multistep graph {name} " + json.dumps(r), flush=True)
+        assert r["graphs_captured"] == 1, r
+        ran_only(replay["calls"], want, f"{name} replay")
+        for a in arms.values():
+            if a["step"].graphs is not None:
+                a["step"].graphs.release()
+        return r
+    finally:
+        set_amp(False)
+
+
+def multistep_graphs(torch):
+    """Phase 18c: every model of ms_models, graph against eager
+    (`graph_vs_eager`); each model's graphs released before the next."""
+    out = {}
+    for model in ms_models(torch):
+        out[model[0]] = graph_vs_eager(torch, *model)
+        torch.cuda.empty_cache()
+    return out
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
@@ -3889,6 +4335,16 @@ def main() -> int:
 
     phase("18. the CTR models through SGD")
     ctr_models(torch)
+
+    phase("18b. multi-step dispatch: the classifier through SGD.train and "
+          "DataFeeder at steps_per_dispatch = 10")
+    print(smi, flush=True)
+    classifier_multistep(torch)
+
+    phase("18c. multi-step dispatch: a CUDA graph of 10 steps against eager "
+          "chunks, model by model")
+    multistep_graphs(torch)
+    print(smi, flush=True)
 
     phase("19. result")
     served = results[0]

@@ -26,3 +26,15 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def host_to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """Host tensor `t` on `device`. To a CUDA device it goes through
+    pinned memory with an asynchronous copy, so the host does not wait
+    for the work already queued on the stream (a copy from pageable
+    memory would). PyTorch's pinned-memory cache keeps the staging
+    buffer until the copy has run."""
+    device = torch.device(device)
+    if device.type != "cuda" or t.device.type == "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

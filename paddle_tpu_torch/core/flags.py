@@ -27,6 +27,10 @@ _DEFAULTS: dict[str, Any] = {
     # the masked scan otherwise; True = the kernels' path (their plain
     # versions on a CPU input); False = always the scan
     "use_pallas_rnn": None,
+    # multi-step dispatch (trainer/trainer.py): SGD's default
+    # steps_per_dispatch; K > 1 runs K consecutive train steps as one
+    # dispatch (on the card, the replay of a CUDA graph of K steps)
+    "steps_per_dispatch": 1,
 }
 
 _flags: dict[str, Any] = dict(_DEFAULTS)

@@ -6,11 +6,13 @@ declares the output spec and parameter confs from the input specs;
 `forward` maps (params, inputs) -> Arg. The backward is autograd over
 the whole network.
 
-Randomness: `Ctx.rng` is a torch.Generator and `Ctx.split(name)` a
-generator seeded from (rng, crc32(name)) — the rule of the JAX
-package's `jax.random.fold_in`, with other numbers. A dropout mask
-therefore cannot equal the JAX package's bit for bit; the LM has no
-dropout, and parity tests keep `drop_rate = 0`.
+Randomness: `Ctx.rng` is a step's `core/rng.py::StepKey` and
+`Ctx.split(name)` the key folded with crc32(name) on its device — the
+rule of the JAX package's `jax.random.fold_in`, with other numbers. A
+dropout mask therefore cannot equal the JAX package's bit for bit; the
+LM has no dropout, and parity tests keep `drop_rate = 0`. Dropout
+reads nothing on the host, so a step replayed in a CUDA graph draws
+the masks of the eager step at the same global step.
 """
 
 from __future__ import annotations
@@ -53,18 +55,15 @@ class Ctx:
     """Per-call context: train/test phase + RNG (for dropout)."""
 
     train: bool = False
-    rng: Optional[torch.Generator] = None
+    rng: Optional[_rng.StepKey] = None
     # non-parameter persistent state: layers read ctx.state[layer_name]
     # and write ctx.updated_state[layer_name]
     state: dict = field(default_factory=dict)
     updated_state: dict = field(default_factory=dict)
 
-    def split(self, name: str) -> torch.Generator:
+    def split(self, name: str) -> _rng.StepKey:
         assert self.rng is not None, "layer needs rng but Ctx.rng is None"
-        return _rng.generator(
-            _rng.fold_in(self.rng.initial_seed(), zlib.crc32(name.encode())),
-            self.rng.device,
-        )
+        return self.rng.fold_in(zlib.crc32(name.encode()))
 
 
 class Layer:
@@ -98,8 +97,7 @@ class Layer:
         rate = self.conf.drop_rate
         if rate > 0.0 and ctx.train:
             keep = 1.0 - rate
-            u = torch.rand(y.shape, generator=ctx.split(self.name + "/drop"),
-                           device=y.device)
+            u = ctx.split(self.name + "/drop").uniform(y.shape).to(y.device)
             y = torch.where(u < keep, y / keep, 0.0)
         return y
 

@@ -158,7 +158,7 @@ class Network:
         *,
         state: Optional[dict] = None,
         train: bool = False,
-        rng: Optional[torch.Generator] = None,
+        rng=None,
         outputs: Optional[list] = None,
     ):
         """Run the layers. Returns (outputs: {layer_name: Arg},

@@ -12,8 +12,16 @@ ParameterAverager and the static-pruning mask (a ParameterConf with
 sparsity_ratio raises).
 
 The schedule is evaluated on the host for the step's integer counter,
-in double precision; the update then runs in f32 on the parameters'
-device, as one plain PyTorch expression per parameter.
+in double precision, with every other scalar that moves from step to
+step: the LR times each `lr_mult` and the watchdog's `lr_scale`, the L1
+shrink, and adam's and adamax's bias corrections, adam's as
+reciprocals that the update multiplies by (`step_scalars`, in
+the order of `scalar_keys`). Each is rounded once to the parameters'
+dtype and read by the update from a device tensor (`scalars`), so a
+step replayed in a CUDA graph reads the values of its own step, and
+the eager and the replayed update agree bit for bit. The update then
+runs on the parameters' device, as one plain PyTorch expression per
+parameter.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Optional
 import torch
 
 from paddle_tpu_torch.core.config import OptimizationConf, ParameterConf
+from paddle_tpu_torch.core.device import host_to_device
 from paddle_tpu_torch.core.registry import LR_SCHEDULERS, OPTIMIZERS
 
 
@@ -159,20 +168,55 @@ class Optimizer:
                 f"static pruning (sparsity_ratio on {pruned}) is not "
                 f"ported yet"
             )
+        # the step's scalars: the LR at each lr_mult (a parameter
+        # without a conf takes 1.0), the L1 shrink at each (lr_mult,
+        # l1), then the optimizer's own
+        mults = sorted({1.0} | {h.lr_mult for h in hypers.values()})
+        l1s = sorted({(h.lr_mult, h.l1) for h in hypers.values()
+                      if h.l1 > 0.0})
+        self.scalar_keys = ([("lr", m) for m in mults]
+                            + [("l1", m, l1) for m, l1 in l1s]
+                            + self._own_scalar_keys(mults))
+        self._index = {k: i for i, k in enumerate(self.scalar_keys)}
 
     def init_state(self, params: dict) -> dict:
         return {k: self._init_one(v) for k, v in params.items()}
 
-    @torch.no_grad()
-    def update(self, grads: dict, params: dict, state: dict, step,
-               lr_scale=None) -> tuple:
-        """Returns (new_params, new_state). `step` is the global batch
-        counter (0-based). `lr_scale` scales the scheduled LR for this
-        step (not the gradients, so adaptive moments see the true
-        gradient)."""
+    def step_scalars(self, step, lr_scale=None) -> list:
+        """The step's scalars in the order of `scalar_keys`, computed on
+        the host in double."""
         lr = lr_at(self.conf, step)
         if lr_scale is not None:
             lr = lr * lr_scale
+        t = float(step) + 1.0
+        out = []
+        for key in self.scalar_keys:
+            if key[0] == "lr":
+                out.append(lr * key[1])
+            elif key[0] == "l1":
+                out.append(lr * key[1] * key[2])
+            else:
+                out.append(self._own_scalar(key, lr, t))
+        return out
+
+    def scalars_tensor(self, step, lr_scale, like) -> torch.Tensor:
+        """`step_scalars` as a [len(scalar_keys)] tensor in `like`'s
+        dtype on its device (copied there without a host sync)."""
+        return host_to_device(torch.tensor(self.step_scalars(step, lr_scale),
+                                           dtype=like.dtype), like.device)
+
+    @torch.no_grad()
+    def update(self, grads: dict, params: dict, state: dict, step,
+               lr_scale=None, scalars=None) -> tuple:
+        """Returns (new_params, new_state). `step` is the global batch
+        counter (0-based). `lr_scale` scales the scheduled LR for this
+        step (not the gradients, so adaptive moments see the true
+        gradient). `scalars`: the step's `scalars_tensor` (then `step`
+        and `lr_scale` are not read), else it is made here from them."""
+        if scalars is None:
+            scalars = self.scalars_tensor(step, lr_scale,
+                                          next(iter(params.values())))
+        sc = {k: scalars[i] for k, i in self._index.items()}
         new_p, new_s = {}, {}
         for k, p in params.items():
             h = self.hypers.get(k, ParamHyper())
@@ -185,20 +229,32 @@ class Optimizer:
             # L2 decay folded into the gradient
             if h.l2 > 0.0:
                 g = g + h.l2 * p
-            np_, ns_ = self._apply_one(p, g, state[k], lr * h.lr_mult, h,
-                                       step)
+            np_, ns_ = self._apply_one(p, g, state[k], sc[("lr", h.lr_mult)],
+                                       h, sc)
             # L1: proximal shrinkage after the step
             if h.l1 > 0.0:
-                shrink = lr * h.lr_mult * h.l1
+                shrink = sc[("l1", h.lr_mult, h.l1)]
                 np_ = torch.sign(np_) * torch.clamp(np_.abs() - shrink,
                                                     min=0.0)
             new_p[k], new_s[k] = np_, ns_
         return new_p, new_s
 
+    def _own_scalar_keys(self, mults) -> list:
+        """Keys of the optimizer's own per-step scalars."""
+        return []
+
+    def _own_scalar(self, key, lr, t) -> float:
+        """The value of own key `key` at LR `lr` (lr_scale applied) and
+        t = step + 1."""
+        raise NotImplementedError
+
     def _init_one(self, p):
         raise NotImplementedError
 
-    def _apply_one(self, p, g, s, lr, h, step):
+    def _apply_one(self, p, g, s, lr, h, sc):
+        """One parameter's update at LR `lr` (a 0-dim tensor: the step's
+        LR times h.lr_mult); `sc` maps every scalar key to its 0-dim
+        tensor."""
         raise NotImplementedError
 
 
@@ -209,7 +265,7 @@ class SgdOptimizer(Optimizer):
     def _init_one(self, p):
         return {"mom": torch.zeros_like(p)}
 
-    def _apply_one(self, p, g, s, lr, h, step):
+    def _apply_one(self, p, g, s, lr, h, sc):
         mu = h.momentum if h.momentum is not None else self.conf.momentum
         v = mu * s["mom"] - lr * g
         if self.conf.use_nesterov:
@@ -226,7 +282,7 @@ class AdagradOptimizer(Optimizer):
     def _init_one(self, p):
         return {"accum": torch.zeros_like(p)}
 
-    def _apply_one(self, p, g, s, lr, h, step):
+    def _apply_one(self, p, g, s, lr, h, sc):
         accum = s["accum"] + torch.square(g)
         p_new = p - lr * g / (torch.sqrt(accum) + self.conf.ada_epsilon)
         return p_new, {"accum": accum}
@@ -240,7 +296,7 @@ class DecayedAdagradOptimizer(Optimizer):
     def _init_one(self, p):
         return {"accum": torch.zeros_like(p)}
 
-    def _apply_one(self, p, g, s, lr, h, step):
+    def _apply_one(self, p, g, s, lr, h, sc):
         rou = self.conf.ada_rou
         accum = rou * s["accum"] + (1 - rou) * torch.square(g)
         p_new = p - lr * g / (torch.sqrt(accum) + self.conf.ada_epsilon)
@@ -256,7 +312,7 @@ class AdadeltaOptimizer(Optimizer):
         return {"accum": torch.zeros_like(p),
                 "accum_update": torch.zeros_like(p)}
 
-    def _apply_one(self, p, g, s, lr, h, step):
+    def _apply_one(self, p, g, s, lr, h, sc):
         rou, eps = self.conf.ada_rou, self.conf.ada_epsilon
         accum = rou * s["accum"] + (1 - rou) * torch.square(g)
         upd = g * torch.sqrt((s["accum_update"] + eps) / (accum + eps))
@@ -273,7 +329,7 @@ class RMSPropOptimizer(Optimizer):
     def _init_one(self, p):
         return {"g2": torch.zeros_like(p), "g1": torch.zeros_like(p)}
 
-    def _apply_one(self, p, g, s, lr, h, step):
+    def _apply_one(self, p, g, s, lr, h, sc):
         rou, eps = self.conf.ada_rou, self.conf.ada_epsilon
         g2 = rou * s["g2"] + (1 - rou) * torch.square(g)
         g1 = rou * s["g1"] + (1 - rou) * g
@@ -288,14 +344,23 @@ class AdamOptimizer(Optimizer):
     def _init_one(self, p):
         return {"m": torch.zeros_like(p), "v": torch.zeros_like(p)}
 
-    def _apply_one(self, p, g, s, lr, h, step):
+    def _own_scalar_keys(self, mults):
+        return [("inv_bc1",), ("inv_bc2",)]
+
+    def _own_scalar(self, key, lr, t):
+        # 1 / (1 - beta^t), the reciprocal taken in double: on the card
+        # this is the multiplier PyTorch used for a host scalar divisor
+        c = self.conf
+        beta = c.adam_beta1 if key == ("inv_bc1",) else c.adam_beta2
+        return 1 / (1 - beta ** t)
+
+    def _apply_one(self, p, g, s, lr, h, sc):
         b1, b2 = self.conf.adam_beta1, self.conf.adam_beta2
         eps = self.conf.adam_epsilon
-        t = float(step) + 1.0
         m = b1 * s["m"] + (1 - b1) * g
         v = b2 * s["v"] + (1 - b2) * torch.square(g)
-        mhat = m / (1 - b1 ** t)
-        vhat = v / (1 - b2 ** t)
+        mhat = m * sc[("inv_bc1",)]
+        vhat = v * sc[("inv_bc2",)]
         return p - lr * mhat / (torch.sqrt(vhat) + eps), {"m": m, "v": v}
 
 
@@ -307,12 +372,18 @@ class AdamaxOptimizer(Optimizer):
     def _init_one(self, p):
         return {"m": torch.zeros_like(p), "u": torch.zeros_like(p)}
 
-    def _apply_one(self, p, g, s, lr, h, step):
+    def _own_scalar_keys(self, mults):
+        # lr / (1 - b1^t) at each lr_mult, in double as one scalar
+        return [("lr_bc1", m) for m in mults]
+
+    def _own_scalar(self, key, lr, t):
+        return lr * key[1] / (1 - self.conf.adam_beta1 ** t)
+
+    def _apply_one(self, p, g, s, lr, h, sc):
         b1, b2 = self.conf.adam_beta1, self.conf.adam_beta2
-        t = float(step) + 1.0
         m = b1 * s["m"] + (1 - b1) * g
         u = torch.maximum(b2 * s["u"], torch.abs(g))
-        p_new = p - (lr / (1 - b1 ** t)) * m / (u + 1e-12)
+        p_new = p - sc[("lr_bc1", h.lr_mult)] * m / (u + 1e-12)
         return p_new, {"m": m, "u": u}
 
 

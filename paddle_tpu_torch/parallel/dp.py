@@ -10,16 +10,28 @@ The step then returns the 2-float health vector `[loss, all_finite]`
 in place of the scalar loss, and the caller's one fetch of it carries
 both.
 
+`multi` runs K consecutive steps in one dispatch, the counterpart of
+the JAX step's `lax.scan`: on the CPU one eager step after another, on
+the card the replay of a CUDA graph of the K steps
+(`parallel/graph.py`). Each step's scalars (the scheduled LR, the L1
+shrink, the bias corrections: `Optimizer.step_scalars`) and its random
+key (`core/rng.py::StepKey`) are device tensors made from the global
+step on the host, so K steps of `multi` walk the trajectory of K calls
+of the step.
+
 Left out, still to port: the mesh (data-parallel and sharded state,
-ROADMAP A8), the multi-step scan dispatch and AOT compilation (PyTorch
-runs eagerly; a CUDA graph is the analogue), the recompile guard.
+ROADMAP A8), AOT compilation, the recompile guard.
 """
 
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.core import rng as _rng
+from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.device import resolve_device
+
+ARG_FIELDS = ("value", "ids", "seq_lens", "subseq_lens")
 
 
 def _tree_map(fn, tree, *others):
@@ -31,11 +43,48 @@ def _tree_map(fn, tree, *others):
     return fn(tree, *others)
 
 
+def _arg_map(fn, *args) -> Arg:
+    """The Arg whose each present field is fn over that field of
+    `args`."""
+    return Arg(**{f: fn(*(getattr(a, f) for a in args))
+                  for f in ARG_FIELDS if getattr(args[0], f) is not None})
+
+
+def stack_feeds(feeds: list) -> dict:
+    """K feeds ({name: Arg}, one shape signature) as one feed whose
+    every tensor is stacked [K, ...] on a new leading axis."""
+    return {name: _arg_map(lambda *xs: torch.stack(xs),
+                           *(f[name] for f in feeds))
+            for name in feeds[0]}
+
+
+def feed_at(feeds: dict, k: int) -> dict:
+    """Step k's feed of a stacked feed (views)."""
+    return {name: _arg_map(lambda x: x[k], a) for name, a in feeds.items()}
+
+
+def feed_signature(feed: dict) -> tuple:
+    """What a graph of the step is captured for: the feed's names, and
+    each tensor's field, shape and dtype."""
+    return tuple(sorted(
+        (name, tuple((f, tuple(getattr(a, f).shape), getattr(a, f).dtype)
+                     for f in ARG_FIELDS if getattr(a, f) is not None))
+        for name, a in feed.items()))
+
+
+def stack_outs(outs: list) -> dict:
+    """K steps' kept outputs ({name: Arg}) stacked [K, ...]."""
+    return {name: _arg_map(lambda *xs: torch.stack(xs),
+                           *(o[name] for o in outs))
+            for name in outs[0]}
+
+
 class TrainStep:
     """Forward + grad + optimizer update, on the device of `device`.
     Call with (params, opt_state, state, feed, step_i, rng, lr_scale);
     returns (new_params, new_opt_state, new_state, loss or health,
-    kept outputs). The feed's tensors are moved to the device."""
+    kept outputs). `rng` is the step's `StepKey` (None for a net that
+    draws nothing). The feed's tensors are moved to the device."""
 
     def __init__(self, net, opt, keep_outputs=None, watchdog=False,
                  device=None):
@@ -48,10 +97,32 @@ class TrainStep:
         self.keep = set(keep_outputs or []) | set(net.output_names) | set(
             net.cost_names
         )
+        # parallel/graph.py::StepGraphs, made by the first multi on the
+        # card
+        self.graphs = None
 
-    def __call__(self, params, opt_state, state, feed, step_i, rng,
-                 lr_scale=None):
-        feed = {k: a.to(self.device) for k, a in feed.items()}
+    @property
+    def graphs_captured(self) -> int:
+        """How many CUDA graphs `multi` has captured (one per chunk
+        length and feed signature)."""
+        return 0 if self.graphs is None else len(self.graphs.graphs)
+
+    def step_tables(self, step_i: int, n: int, root_seed: int, lr_scale,
+                    like) -> tuple:
+        """Host tensors of steps step_i .. step_i + n - 1: their scalars
+        [n, len(opt.scalar_keys)] in `like`'s dtype and their keys'
+        seeds [n] int64."""
+        scalars = torch.tensor(
+            [self.opt.step_scalars(step_i + k, lr_scale) for k in range(n)],
+            dtype=like.dtype)
+        seeds = torch.tensor(
+            [_rng.step_seed(root_seed, step_i + k) for k in range(n)],
+            dtype=torch.int64)
+        return scalars, seeds
+
+    def body(self, params, opt_state, state, feed, scalars, rng):
+        """One step on a feed already on the device, with the step's
+        scalars (a device tensor) and key."""
         names = list(params)
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         with torch.enable_grad():
@@ -69,9 +140,7 @@ class TrainStep:
         # nodes from step to step
         new_state = _tree_map(torch.Tensor.detach, new_state)
         new_params, new_opt_state = self.opt.update(
-            grads, params, opt_state, step_i,
-            lr_scale=None if lr_scale is None else float(lr_scale),
-        )
+            grads, params, opt_state, None, scalars=scalars)
         outs = {k: v for k, v in outs.items() if k in self.keep}
         if not self.watchdog:
             return new_params, new_opt_state, new_state, loss, outs
@@ -95,3 +164,64 @@ class TrainStep:
                          if k in state else new_state[k] for k in new_state}
             health = torch.stack([loss.float(), finite.float()])
         return new_params, new_opt_state, new_state, health, outs
+
+    def __call__(self, params, opt_state, state, feed, step_i, rng,
+                 lr_scale=None):
+        feed = {k: a.to(self.device) for k, a in feed.items()}
+        scalars = self.opt.scalars_tensor(step_i, lr_scale,
+                                          next(iter(params.values())))
+        return self.body(params, opt_state, state, feed, scalars, rng)
+
+    def multi(self, params, opt_state, state, feeds, step_i, step_root,
+              lr_scale=None):
+        """Run K = leading-dim(feeds) consecutive steps in ONE dispatch.
+        `feeds` is the per-step feed stacked on a new leading axis
+        (`stack_feeds`); `step_root` is the trainer's step root (a
+        torch.Generator, or its seed): step k's key is derived from
+        (root, step_i + k) as `SGD.run_step` derives it, so the
+        trajectory is that of K sequential calls. Returns (params,
+        opt_state, state, losses, outs) with losses [K] (or [K, 2]
+        health vectors with the watchdog) and the kept outputs stacked
+        [K, ...].
+
+        On the CPU the steps run eagerly. On the card they run as the
+        replay of a CUDA graph, captured on the first call for each K
+        and feed signature; a capture that fails raises. On the card the
+        step writes the new values into the tensors it owns and returns
+        those (as the JAX step donates its inputs): pass them back in,
+        or a call first copies the given values into them."""
+        k_steps = next(iter(feeds.values()))
+        k_steps = next(getattr(k_steps, f) for f in ARG_FIELDS
+                       if getattr(k_steps, f) is not None).shape[0]
+        root_seed = (step_root.initial_seed()
+                     if isinstance(step_root, torch.Generator)
+                     else int(step_root))
+        like = next(iter(params.values()))
+        scalars, seeds = self.step_tables(step_i, k_steps, root_seed,
+                                          lr_scale, like)
+        if self.device.type == "cuda":
+            if self.graphs is None:
+                from paddle_tpu_torch.parallel.graph import StepGraphs
+
+                self.graphs = StepGraphs(self)
+            return self.graphs.run(params, opt_state, state, feeds, scalars,
+                                   seeds)
+        feeds = {k: a.to(self.device) for k, a in feeds.items()}
+        losses, outs = [], []
+        for k in range(k_steps):
+            params, opt_state, state, loss, out = self.body(
+                params, opt_state, state, feed_at(feeds, k),
+                scalars[k].to(like.device),
+                _rng.StepKey(seeds[k].to(like.device)))
+            losses.append(loss)
+            outs.append(out)
+        return params, opt_state, state, torch.stack(losses), stack_outs(outs)
+
+    def settle(self, params, opt_state, state) -> tuple:
+        """Where `multi` has captured graphs, copy these values into the
+        tensors the graphs read and write, and return those; else return
+        the values as they are. An eager step between two replays so
+        leaves its result where the next replay starts from."""
+        if self.graphs is None:
+            return params, opt_state, state
+        return self.graphs.adopt(params, opt_state, state)

@@ -45,28 +45,9 @@ import numpy as np
 
 from paddle_tpu_torch.analysis.lock_order import named_lock
 from paddle_tpu_torch.core import flags as _flags
+from paddle_tpu_torch.data.feeder import _bucket
 from paddle_tpu_torch.obs import metrics as _obs
 from paddle_tpu_torch.obs import tracing as _tracing
-
-
-def _bucket(n: int, buckets=None) -> int:
-    """Round up to a bucket (a copy of the JAX package's
-    `data/feeder._bucket`)."""
-    if buckets:
-        for b in buckets:
-            if n <= b:
-                return b
-        raise ValueError(
-            f"sequence of length {n} exceeds the largest bucket "
-            f"{buckets[-1]}; add a larger bucket or truncate upstream"
-        )
-    b = 8
-    while b < n:
-        b *= 2 if b < 128 else 1
-        if b >= 128:
-            b = ((n + 127) // 128) * 128
-            break
-    return b
 
 
 class ServeRejected(Exception):

@@ -13,13 +13,23 @@ batch whose loss or any gradient is non-finite is skipped on the
 device (`parallel/dp.py::TrainStep`): the model and optimizer state
 keep their old values and the batch's cost stays out of the pass mean.
 
+Multi-step dispatch: with `steps_per_dispatch` K > 1 (or the flag of
+that name) a pass buffers the fed batches and runs them K at a time
+through `run_steps`, one `TrainStep.multi` dispatch a chunk (on the
+card the replay of a CUDA graph of K steps, one graph per chunk length
+and feed signature: `graphs_captured`). BeginIteration fires when a
+batch is collected, EndIteration for each batch in order after its
+chunk lands; a change of the feed's shape signature (another length
+bucket, a short last batch) flushes the buffer early, and a chunk of
+one batch runs as an eager step. The trajectory is that of K = 1.
+
 `Inferencer(net, params, state)` runs the forward in test mode (layer
 state read, never advanced) and returns numpy outputs.
 
 Left out, still to port (ROADMAP A7; the mesh A8): evaluators,
-multi-step dispatch, checkpoints (sync and async), resume and
-preemption, the watchdog's escalation ladder beyond the skip (LR
-backoff, rollback, abort), the step timeline and spans, `test()`, and
+checkpoints (sync and async), resume and preemption, the watchdog's
+escalation ladder beyond the skip (LR backoff, rollback, abort), the
+step timeline and spans, parameter statistics, `test()`, and
 `Inferencer.from_merged` (it reads merged checkpoints).
 """
 
@@ -37,7 +47,12 @@ from paddle_tpu_torch.core.config import ModelConf, OptimizationConf
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.network import Network
 from paddle_tpu_torch.optimizers import create_optimizer
-from paddle_tpu_torch.parallel.dp import TrainStep
+from paddle_tpu_torch.parallel.dp import (
+    TrainStep,
+    feed_signature,
+    stack_feeds,
+    stack_outs,
+)
 from paddle_tpu_torch.trainer.events import (
     BeginIteration,
     BeginPass,
@@ -57,20 +72,29 @@ class SGD:
         params: Optional[dict] = None,
         watchdog=None,
         device=None,
+        steps_per_dispatch: Optional[int] = None,
     ):
         """`params`: {name: tensor} to start from (moved to the
         device), else drawn from `seed`. `watchdog`: None = the
         `watchdog` flag (default on); True enables the on-device
-        non-finite skip, False disables it."""
+        non-finite skip, False disables it. `steps_per_dispatch`: None =
+        the flag (default 1); K > 1 trains K batches a dispatch."""
         self.device = resolve_device(device)
         if watchdog is None:
             watchdog = bool(_flags.get_flag("watchdog"))
+        if steps_per_dispatch is None:
+            steps_per_dispatch = int(
+                _flags.get_flag("steps_per_dispatch") or 1)
+        if steps_per_dispatch < 1:
+            raise ValueError(
+                f"steps_per_dispatch must be >= 1, got {steps_per_dispatch}")
+        self.steps_per_dispatch = steps_per_dispatch
         self.net = Network(model_conf)
         self.opt_conf = opt_conf
         self.opt = create_optimizer(opt_conf, self.net.param_confs)
         root = _rng.root_generator(seed or _flags.get_flag("seed"))
-        init_gen = _rng.split_for_step(root, -1)
-        # per-step generators live on the device dropout draws on
+        init_gen = _rng.generator(_rng.step_seed(root.initial_seed(), -1))
+        # the step keys live on the device dropout draws on
         self.step_root = _rng.generator(root.initial_seed(), self.device)
         if params is not None:
             self.params = {k: v.detach().to(self.device)
@@ -105,11 +129,48 @@ class SGD:
             self.params, self.opt_state, self.state, feed,
             self.global_step, rng, lr_scale=lr_scale,
         )
+        # between graph replays the result lands in the tensors the
+        # graphs read
+        self.params, self.opt_state, self.state = self.step_fn.settle(
+            self.params, self.opt_state, self.state)
         self.global_step += 1
         if self.step_fn.watchdog:
             health = loss.cpu().numpy()  # the single host fetch
             return float(health[0]), bool(health[1]), outs
         return float(loss), True, outs
+
+    @property
+    def graphs_captured(self) -> int:
+        """CUDA graphs of K steps captured so far (0 off the card)."""
+        return self.step_fn.graphs_captured
+
+    def run_steps(self, feeds: list, lr_scale: float = 1.0) -> tuple:
+        """Run len(feeds) consecutive steps in ONE dispatch
+        (`TrainStep.multi`); one feed runs as `run_step`. Returns (costs,
+        finites, outs): per-batch cost and finiteness lists in step
+        order (one device->host fetch carries all of them), and the kept
+        outputs stacked [n, ...]. The trajectory is that of n calls of
+        run_step. All feeds of one call share one shape signature."""
+        n = len(feeds)
+        if n == 1:
+            cost, finite, outs = self.run_step(feeds[0], lr_scale)
+            return [cost], [finite], stack_outs([outs])
+        (
+            self.params,
+            self.opt_state,
+            self.state,
+            losses,
+            outs,
+        ) = self.step_fn.multi(
+            self.params, self.opt_state, self.state, stack_feeds(feeds),
+            self.global_step, self.step_root, lr_scale=lr_scale,
+        )
+        self.global_step += n
+        health = losses.cpu().numpy()  # the single host fetch
+        if self.step_fn.watchdog:
+            return ([float(h) for h in health[:, 0]],
+                    [bool(h) for h in health[:, 1]], outs)
+        return [float(h) for h in health], [True] * n, outs
 
     def train(
         self,
@@ -125,19 +186,62 @@ class SGD:
         for pass_id in range(num_passes):
             event_handler(BeginPass(pass_id))
             costs = []
+            if self.steps_per_dispatch > 1:
+                self._run_pass_pipelined(pass_id, reader(), feeder,
+                                         event_handler, costs, log_period)
+                event_handler(EndPass(pass_id, {}))
+                continue
             for batch_id, raw in enumerate(reader()):
                 event_handler(BeginIteration(pass_id, batch_id))
                 cost, finite, _outs = self.run_step(feeder(raw))
                 if finite:
                     costs.append(cost)
                 event_handler(EndIteration(pass_id, batch_id, cost, {}))
-                if (batch_id + 1) % log_period == 0:
-                    log.info(
-                        "pass %d batch %d cost %.5f", pass_id, batch_id,
-                        float(np.mean(costs[-log_period:]))
-                        if costs else float("nan"),
-                    )
+                self._log(pass_id, batch_id, costs, log_period)
             event_handler(EndPass(pass_id, {}))
+
+    @staticmethod
+    def _log(pass_id, batch_id, costs, log_period):
+        if (batch_id + 1) % log_period == 0:
+            log.info(
+                "pass %d batch %d cost %.5f", pass_id, batch_id,
+                float(np.mean(costs[-log_period:]))
+                if costs else float("nan"),
+            )
+
+    def _run_pass_pipelined(self, pass_id, batch_iter, feeder,
+                            event_handler, costs, log_period):
+        """One pass with steps_per_dispatch > 1: batches are buffered
+        and run as chunks of `run_steps`. BeginIteration fires when a
+        batch is collected (before its step runs), EndIteration for
+        every batch in order after its chunk lands. A change of the
+        feed's shape signature flushes the buffer early."""
+        buf = []  # (batch_id, feed)
+        sig = None
+
+        def flush():
+            nonlocal buf, sig
+            if not buf:
+                return
+            cs, fs, _outs = self.run_steps([f for _, f in buf])
+            for j, (bid, _feed) in enumerate(buf):
+                if fs[j]:
+                    costs.append(cs[j])
+                event_handler(EndIteration(pass_id, bid, cs[j], {}))
+                self._log(pass_id, bid, costs, log_period)
+            buf, sig = [], None
+
+        for batch_id, raw in enumerate(batch_iter):
+            event_handler(BeginIteration(pass_id, batch_id))
+            feed = feeder(raw)
+            fsig = feed_signature(feed)
+            if buf and fsig != sig:
+                flush()
+            buf.append((batch_id, feed))
+            sig = fsig
+            if len(buf) >= self.steps_per_dispatch:
+                flush()
+        flush()
 
 
 class Inferencer:

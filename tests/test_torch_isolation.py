@@ -117,6 +117,7 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         lambda: net.init_params(torch.Generator()),
         lambda: TrainStep(net, create_optimizer(opt_conf, net.param_confs)),
         lambda: SGD(conf, opt_conf, seed=1),
+        lambda: SGD(conf, opt_conf, seed=1, steps_per_dispatch=4),
         lambda: SparseUpdater.place(np.zeros((4, 2), np.float32)),
         lambda: ShardedEmbeddingTable(sparse_conf),
         lambda: ShardedEmbeddingTable(sparse_conf, num_shards=8,
@@ -149,6 +150,28 @@ def test_sparse_slice_modules_import_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == "5"
+
+
+def test_data_and_dispatch_modules_import_with_jax_blocked():
+    """The data feed and the multi-step dispatch by name (the walk above
+    covers them too): the feeder, the readers, the providers, the train
+    step and its graph runner, the trainer."""
+    names = ["paddle_tpu_torch.data.feeder", "paddle_tpu_torch.data.reader",
+             "paddle_tpu_torch.data.provider",
+             "paddle_tpu_torch.data.proto_provider",
+             "paddle_tpu_torch.parallel.dp",
+             "paddle_tpu_torch.parallel.graph",
+             "paddle_tpu_torch.trainer.trainer"]
+    assert all(os.path.join(PKG, *n.split(".")[1:]) + ".py" in _port_files()
+               for n in names)
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=names)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(names))
 
 
 def test_chip_smoke_fails_without_card_and_without_the_repo(tmp_path):
