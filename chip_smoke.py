@@ -3700,6 +3700,36 @@ MS_POLY = dict(learning_rate_schedule="poly", learning_rate_decay_a=1e-3,
 MS_HELPERS = ("tc_kernel", "'s db")
 
 
+def cls_data():
+    """Phase 18b's and 19a's data: (train reader, test reader, feeder).
+    The reader is `batched(shuffle(samples, 1000, seed), 64,
+    drop_last=False)` over MS_SAMPLES samples of lengths 10-100 from a
+    seed, the test reader LC_TEST_SAMPLES others from another seed, the
+    feeder `DataFeeder` with buckets MS_BUCKETS."""
+    from paddle_tpu_torch.data import feeder as dfeeder
+    from paddle_tpu_torch.data import reader as dreader
+
+    vocab = CLS["vocab_size"]
+
+    def samples(seed, n):
+        rng = np.random.default_rng(seed)
+        return [(rng.integers(0, vocab, t).tolist(),
+                 int(rng.integers(0, 2))) for t in rng.integers(10, 101, n)]
+
+    train, test = samples(SEED + 200, MS_SAMPLES), samples(SEED + 201,
+                                                           LC_TEST_SAMPLES)
+    reader = dreader.batched(
+        dreader.shuffle(lambda: iter(train), 1000, seed=SEED), CLS_B,
+        drop_last=False)
+    test_reader = dreader.batched(lambda: iter(test), CLS_B,
+                                  drop_last=False)
+    feeder = dfeeder.DataFeeder(
+        {"words": 0, "label": 1},
+        {"words": dfeeder.integer_value_sequence(vocab),
+         "label": dfeeder.integer_value(2)}, buckets=MS_BUCKETS)
+    return reader, test_reader, feeder
+
+
 def counted_profile(torch, fn):
     """fn() under torch.profiler. The profiler can miss a few kernels in
     a long window (in the whole smoke it recorded 50 of a pass's 52 B5
@@ -3800,25 +3830,14 @@ def classifier_multistep(torch):
     device ms a step, idle share, and the port kernels it ran: B5 and
     B6 on the cluster route and no other. Returns the arms' numbers."""
     from paddle_tpu_torch.core.config import OptimizationConf
-    from paddle_tpu_torch.data import feeder as dfeeder
-    from paddle_tpu_torch.data import reader as dreader
     from paddle_tpu_torch.models.text import stacked_lstm_classifier
     from paddle_tpu_torch.network import Network
     from paddle_tpu_torch.trainer.events import BeginPass, EndIteration, \
         EndPass
     from paddle_tpu_torch.trainer.trainer import SGD
+    from paddle_tpu_torch.trainer.watchdog import WatchdogConfig
 
-    rng = np.random.default_rng(SEED + 200)
-    vocab = CLS["vocab_size"]
-    samples = [(rng.integers(0, vocab, n).tolist(), int(rng.integers(0, 2)))
-               for n in rng.integers(10, 101, MS_SAMPLES)]
-    reader = dreader.batched(
-        dreader.shuffle(lambda: iter(samples), 1000, seed=SEED), CLS_B,
-        drop_last=False)
-    feeder = dfeeder.DataFeeder(
-        {"words": 0, "label": 1},
-        {"words": dfeeder.integer_value_sequence(vocab),
-         "label": dfeeder.integer_value(2)}, buckets=MS_BUCKETS)
+    reader, _test_reader, feeder = cls_data()
     from paddle_tpu_torch.ops import rnn
 
     steps = -(-MS_SAMPLES // CLS_B)
@@ -3826,11 +3845,17 @@ def classifier_multistep(torch):
     p0 = Network(conf).init_params(torch.Generator().manual_seed(SEED),
                                    device="cuda")
     arms = {}
+    # the ladder's spike rung armed past the run: this data's loss spikes
+    # at pass 1 batch 19, and the LR backoff then starts a batch later at
+    # K = 1 and a chunk later at K = 10 (the JAX trainer's rule), so the
+    # arms would part there (phase 19b drives the ladder)
+    no_spikes = WatchdogConfig(warmup_batches=2 * steps + 1)
     for arm, spd in (("k1", 1), ("k1_again", 1), ("k10", MS_K)):
         sgd = SGD(conf, OptimizationConf(learning_method="adam",
                                          learning_rate=CLS_LR),
                   seed=SEED + 1, device="cuda", steps_per_dispatch=spd,
-                  params={k: v.clone() for k, v in p0.items()})
+                  params={k: v.clone() for k, v in p0.items()},
+                  watchdog=no_spikes)
         costs, stamps = [], {}
 
         def on_event(e):
@@ -4105,6 +4130,524 @@ def multistep_graphs(torch):
     return out
 
 
+# ---- phase 19: the training lifecycle ------------------------------------
+
+# 19a: the classifier through the CLI at bench_lstm's settings (18b's
+# data and steps_per_dispatch); the run SIGTERMed once pass 1 has printed
+# a batch at or past LC_PREEMPT_AT
+LC_TEST_SAMPLES = CLS_B * 4 + 9
+LC_PREEMPT_AT = 12
+LC_TIME_BATCHES = 20
+LC_EVALS = [{"type": "classification_error", "name": "error",
+             "input": "output", "label": "label"},
+            {"type": "precision_recall", "name": "pr", "input": "output",
+             "label": "label"}]
+LC_CONFIG = '''"""chip_smoke.py phase 19a's training config: the IMDB classifier at
+bench_lstm's settings, steps_per_dispatch {k}, two evaluators."""
+import sys
+
+sys.path.insert(0, {smoke_dir!r})
+import {smoke} as cs  # noqa: E402
+
+from paddle_tpu_torch.core import flags  # noqa: E402
+from paddle_tpu_torch.core.config import OptimizationConf  # noqa: E402
+from paddle_tpu_torch.models.text import stacked_lstm_classifier  # noqa
+
+flags.set_flag("seed", cs.SEED + 1)
+flags.set_flag("steps_per_dispatch", cs.MS_K)
+# the ladder's EWMA lives in one train() call (in both packages): on this
+# data the uninterrupted run meets a loss spike at pass 1 batch 19 and
+# backs its LR off, which a run resumed after that point cannot know
+flags.set_flag("watchdog", False)
+_train, _test, feeder = cs.cls_data()
+evaluators = cs.LC_EVALS
+
+
+def get_config():
+    return (stacked_lstm_classifier(**cs.CLS),
+            OptimizationConf(learning_method="adam",
+                             learning_rate=cs.CLS_LR))
+
+
+def train_reader():
+    return _train
+
+
+def test_reader():
+    return _test
+'''
+# 19b/19c: bench_resnet50's fused AMP step (B = 256, momentum) with
+# steps_per_dispatch 10; pass 0 ten clean batches, pass 1 twenty with
+# NaN images at LC_NAN_AT: a skip, then skip_budget + 1 in a row roll
+# back to pass 0's checkpoint, promoted by the two clean batches before
+LC_IMAGE = (224, 224, 3)
+LC_WATCHDOG = dict(skip_budget=2, good_batches=2, warmup_batches=1000)
+LC_NAN_AT = (2, 4, 5, 6)
+
+
+def run_cli(args, log, on_line=None, timeout=300):
+    """`python -m paddle_tpu_torch <args>` from the checkout in a
+    subprocess; returns (exit code, [(seconds since start, stdout line)]).
+    Its stderr goes to `log`; `on_line(proc, line)` sees each line as it
+    comes. The process is killed if it outlives `timeout`."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch", *args], cwd=repo,
+            env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+        timer = threading.Timer(timeout, proc.kill)
+        timer.start()
+        lines, t0 = [], time.perf_counter()
+        try:
+            for line in proc.stdout:
+                lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+                if on_line is not None:
+                    on_line(proc, line)
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc not in (0, 75):
+        print(open(log).read()[-4000:], file=sys.stderr, flush=True)
+    return rc, lines
+
+
+def same_npz(a, b):
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+            for k in x.files)
+
+
+def lifecycle_cli(torch, rnn, work):
+    """Phase 19a: the classifier's lifecycle through `python -m
+    paddle_tpu_torch` (the config LC_CONFIG: 18b's reader and feeder, a
+    held-out test reader, classification_error and precision_recall,
+    steps_per_dispatch 10). Runs: A trains 2 passes; B the same into
+    another save_dir, SIGTERMed once pass 1 has printed a batch >=
+    LC_PREEMPT_AT (exit 75, `PREEMPTED`); B' relaunched (`resuming ...
+    skip N`, then exit 0), its pass-00001 params and slots bit-equal to
+    A's; `--job=test` on A; `--job=time`; `merge_model` of A's last pass
+    and `infer --example`. In process, on the card: two passes with the
+    evaluators and two without (ms a step of the second pass), `test()`
+    ms, a sync save's ms; `test()` on A's last pass prints what
+    `--job=test` printed; `Inferencer.from_merged` bit-equal to an
+    Inferencer on A's loaded params; B5/B6 launched on the cluster
+    route."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    from paddle_tpu_torch.trainer.events import BeginPass, EndPass
+    from paddle_tpu_torch.trainer.trainer import SGD, Inferencer
+
+    smoke = os.path.abspath(__file__)
+    conf_path = os.path.join(work, "classifier_conf.py")
+    with open(conf_path, "w") as f:
+        f.write(LC_CONFIG.format(
+            k=MS_K, smoke_dir=os.path.dirname(smoke),
+            smoke=os.path.splitext(os.path.basename(smoke))[0]))
+    dirs = {r: os.path.join(work, r) for r in ("a", "b")}
+    steps = -(-MS_SAMPLES // CLS_B)
+    train = ["train", "--config", conf_path, "--num_passes", "2",
+             "--log_period", "1", "--device", "cuda"]
+    out = {}
+
+    def timed(name, rc, lines, t_wall, **extra):
+        r = {"rc": rc, "wall_s": t_wall, **extra}
+        stamps = [t for t, ln in lines if ln.startswith("pass ")]
+        if len(stamps) > 1:
+            # between the first and the last printed batch (the chunks
+            # land in bursts; a pass's checkpoint included)
+            r["steps_printed"] = len(stamps)
+            r["ms_per_step"] = (stamps[-1] - stamps[0]) / (
+                len(stamps) - 1) * 1e3
+        out[name] = r
+        print(f"lifecycle cli {name} " + json.dumps(r), flush=True)
+
+    t0 = time.perf_counter()
+    rc, lines_a = run_cli(train + ["--save_dir", dirs["a"]],
+                          os.path.join(work, "a.log"))
+    timed("A", rc, lines_a, time.perf_counter() - t0)
+    assert rc == 0, f"run A exited {rc}"
+
+    sent = []
+
+    def preempt(proc, line):
+        if not sent and line.startswith("pass 1 batch ") and \
+                int(line.split()[3]) >= LC_PREEMPT_AT:
+            proc.send_signal(__import__("signal").SIGTERM)
+            sent.append(line.strip())
+
+    t0 = time.perf_counter()
+    rc, lines_b = run_cli(train + ["--save_dir", dirs["b"]],
+                          os.path.join(work, "b.log"), on_line=preempt)
+    timed("B", rc, lines_b, time.perf_counter() - t0)
+    pre = [ln for _t, ln in lines_b if ln.startswith("PREEMPTED ")]
+    assert rc == 75 and len(pre) == 1, (
+        f"run B: exit {rc}, SIGTERM after {sent}, PREEMPTED lines {pre}")
+    done = int(pre[0].split()[-1])
+    # the flush covers the chunks that ran before the flag was seen
+    assert pre[0] == f"PREEMPTED pass 1 batch {done}" and \
+        LC_PREEMPT_AT < done <= steps, pre
+    t0 = time.perf_counter()
+    rc, lines_b2 = run_cli(train + ["--save_dir", dirs["b"]],
+                           os.path.join(work, "b2.log"))
+    timed("B_relaunched", rc, lines_b2, time.perf_counter() - t0)
+    resumed = (f"resuming from {dirs['b']}: start pass 1, skip {done} "
+               f"batches")
+    assert rc == 0 and resumed in [ln for _t, ln in lines_b2], (
+        f"run B': exit {rc}, no line {resumed!r}")
+    first = [ln for _t, ln in lines_b2 if ln.startswith("pass ")][:1]
+    assert first == [] if done == steps else first[0].startswith(
+        f"pass 1 batch {done} "), first
+    final = {n: same_npz(os.path.join(dirs["a"], "pass-00001", n),
+                         os.path.join(dirs["b"], "pass-00001", n))
+             for n in ("params.npz", "opt_state.npz")}
+    print("lifecycle cli preempted " + json.dumps(
+        {"sigterm_after": sent[0], "preempted": pre[0], "resumed": resumed,
+         "pass1_bit_equal_to_A": final}), flush=True)
+    assert all(final.values()), final
+
+    # --job=test beside merge_model and infer (the card is shared only by
+    # processes whose time is not reported); then --job=time alone
+    from concurrent.futures import ThreadPoolExecutor
+
+    model = os.path.join(work, "classifier.npz")
+    with ThreadPoolExecutor(1) as pool:
+        t0 = time.perf_counter()
+        job_test = pool.submit(run_cli, [
+            "train", "--config", conf_path, "--job", "test", "--save_dir",
+            dirs["a"], "--device", "cuda"], os.path.join(work, "test.log"))
+        rc, lines_m = run_cli(["merge_model", "--config", conf_path,
+                               "--model_dir", dirs["a"], "--output", model],
+                              os.path.join(work, "merge.log"))
+        assert rc == 0 and lines_m[-1][1].endswith("-> " + model), lines_m
+        rc, lines_i = run_cli(["infer", "--model", model, "--example",
+                               "--batch", "2", "--device", "cuda"],
+                              os.path.join(work, "infer.log"))
+        got = [ln for _t, ln in lines_i]
+        print("lifecycle cli merge/infer " + json.dumps(
+            [lines_m[-1][1]] + got), flush=True)
+        assert rc == 0 and got == ["outputs: ['output']",
+                                   "output: shape (2, 2)"], got
+        rc, lines_t = job_test.result()
+    timed("test_merge_infer", rc, lines_t, time.perf_counter() - t0)
+    assert rc == 0 and lines_t[-1][1].startswith("test cost "), lines_t
+    t0 = time.perf_counter()
+    rc, lines_time = run_cli(["train", "--config", conf_path, "--job",
+                              "time", "--time_batches",
+                              str(LC_TIME_BATCHES), "--device", "cuda"],
+                             os.path.join(work, "time.log"))
+    assert rc == 0 and lines_time[-1][1].startswith("time: "), lines_time
+    timed("time", rc, lines_time, time.perf_counter() - t0,
+          ms_per_batch=float(lines_time[-1][1].split()[1]))
+
+    # in process: the same config on the card
+    flags.reset_flags()
+    reader, test_reader, feeder = cls_data()
+    conf = stacked_lstm_classifier(**CLS)
+    opt = OptimizationConf(learning_method="adam", learning_rate=CLS_LR)
+    p0 = Network(conf).init_params(torch.Generator().manual_seed(SEED),
+                                   device="cuda")
+    zero_rnn_counts(rnn)
+    runs = {}
+    for arm, evals in (("evaluators_off", []), ("evaluators_on", LC_EVALS)):
+        sgd = SGD(conf, opt, seed=SEED + 1, device="cuda",
+                  steps_per_dispatch=MS_K, evaluators=evals,
+                  params={k: v.clone() for k, v in p0.items()})
+        stamps = {}
+
+        def on_event(e):
+            if isinstance(e, (BeginPass, EndPass)):
+                stamps[(type(e).__name__, e.pass_id)] = time.perf_counter()
+
+        sgd.train(reader=reader, feeder=feeder, num_passes=2,
+                  event_handler=on_event)
+        runs[arm] = (stamps[("EndPass", 1)] - stamps[("BeginPass", 1)]) \
+            / steps * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sgd.test(test_reader, feeder)
+    test_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ckpt.save_pass(os.path.join(work, "sync"), 0, sgd.params, sgd.opt_state,
+                   sgd.state, meta={"global_step": sgd.global_step})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: v for k, v in rnn_counts(rnn).items() if v}
+    del sgd
+    # --job=test's line is the in-process test() of A's last pass
+    a = SGD(conf, opt, seed=SEED + 5, device="cuda", evaluators=LC_EVALS)
+    a.resume(dirs["a"])
+    res_a = a.test(test_reader, feeder)
+    line = (f"test cost {res_a['cost']:.6f} "
+            + " ".join(f"{k}={v}" for k, v in res_a["evaluators"].items()))
+    feed = feeder(next(iter(test_reader())))
+    merged = Inferencer.from_merged(model, device="cuda").infer(
+        feed)["output"]
+    held = Inferencer(Network(conf), a.params, device="cuda").infer(
+        feed)["output"]
+    r = {"ms_per_step_evaluators_off": runs["evaluators_off"],
+         "ms_per_step_evaluators_on": runs["evaluators_on"],
+         "test_ms": test_ms, "test_batches": -(-LC_TEST_SAMPLES // CLS_B),
+         "sync_save_ms": save_ms, "test": res, "job_test_line": line,
+         "from_merged_bit_equal": bool(np.array_equal(merged, held)),
+         "launch_counts": counts}
+    out["in_process"] = r
+    print("lifecycle classifier " + json.dumps(r), flush=True)
+    assert lines_t[-1][1] == line, (lines_t[-1][1], line)
+    assert r["from_merged_bit_equal"], "from_merged differs"
+    assert all(0 < r[k] for k in ("ms_per_step_evaluators_off",
+                                  "ms_per_step_evaluators_on"))
+    for c in ("lstm_fwd", "lstm_bwd", "lstm_fwd_infer"):
+        assert counts.get(f"{c}_launches", 0) > 0 and counts[
+            f"{c}_launches"] == counts.get(f"{c}_cluster_launches"), (
+            f"{c}: {counts}")
+    del a
+    torch.cuda.empty_cache()
+    return out
+
+
+def lc_resnet_conf():
+    from paddle_tpu_torch.models.image import resnet
+
+    return resnet(50, LC_IMAGE, 1000, fused=True)
+
+
+def lc_resnet_feeds(torch):
+    """Pass 0's ten clean feeds and pass 1's twenty, NaN images at
+    LC_NAN_AT, made on the card from a seed (two image batches in
+    turn)."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 300)
+    images = [torch.randn((RESNET_AMP_BATCH, *LC_IMAGE), generator=gen,
+                          device="cuda") for _ in range(2)]
+    poisoned = images[0].clone()
+    poisoned[3, 10, 10, 1] = float("nan")
+    rng = np.random.default_rng(SEED + 301)
+
+    def feed(image):
+        return {"image": non_seq(image),
+                "label": id_arg(rng.integers(0, 1000, RESNET_AMP_BATCH),
+                                device="cuda")}
+
+    return ([feed(images[i % 2]) for i in range(MS_K)],
+            [feed(poisoned if i in LC_NAN_AT else images[i % 2])
+             for i in range(2 * MS_K)])
+
+
+def lifecycle_watchdog(torch, op, work):
+    """Phase 19b: the watchdog ladder under graphs on bench_resnet50's
+    fused AMP step (B = 256, the bf16 flag, momentum), steps_per_dispatch
+    10, sync checkpoints each pass. Pass 0: ten clean batches; pass 1:
+    batches 0-1 clean (pass 0's checkpoint promoted), 2 NaN (a skip), 3
+    clean, 4-6 NaN (skip_budget + 1 in a row: a rollback to pass 0), then
+    clean. Checks: each ladder event at the batch the reader set up, with
+    the JAX trainer's global-step stamps (a chunk's events carry the
+    step at its end); right after the rollback the graphs' static trees
+    hold pass 0's checkpoint bit for bit; the next chunk's costs equal an
+    eager run from that checkpoint over the same batches; training ends
+    finite; B1-B3 bf16 launched (the wrappers' counts: the graph's
+    warm-up and capture, the eager run). Returns (numbers, the trainer,
+    pass 1's clean feeds)."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    from paddle_tpu_torch.trainer import watchdog as wdg
+    from paddle_tpu_torch.trainer.events import EndIteration
+    from paddle_tpu_torch.trainer.trainer import SGD
+
+    set_amp(True)
+    conf = lc_resnet_conf()
+    opt = OptimizationConf(**RESNET_OPT)
+    pass0, pass1 = lc_resnet_feeds(torch)
+    passes = [pass0, pass1]
+    calls = []
+
+    def reader():
+        calls.append(1)
+        return iter(passes[len(calls) - 1])
+
+    save_dir = os.path.join(work, "resnet_sync")
+    for c in FUSED_COUNTERS:
+        setattr(op, c, 0)
+    sgd = SGD(conf, opt, seed=SEED + 302, device="cuda",
+              steps_per_dispatch=MS_K,
+              watchdog=wdg.WatchdogConfig(**LC_WATCHDOG))
+    rolled = []
+    real_resume = sgd.resume
+
+    def resume(d, pass_id=-1):
+        # right after the rollback's load: the graphs' static trees
+        # against the checkpoint's bytes
+        start = real_resume(d, pass_id)
+        p, o, s, _meta = ckpt.load_pass(d, pass_id)
+        g = sgd.step_fn.graphs
+        seated = (g is not None and sgd.params is g.params
+                  and sgd.opt_state is g.opt_state and sgd.state is g.state)
+        want = {**leaves(p, "param/"), **leaves(o, "slot/"),
+                **leaves(s, "state/")}
+        got = {**leaves(g.params, "param/"), **leaves(g.opt_state, "slot/"),
+               **leaves(g.state, "state/")}
+        differ = [k for k, v in want.items()
+                  if not np.array_equal(got[k].cpu().numpy(), v)]
+        rolled.append({"pass_id": pass_id, "seated": seated,
+                       "leaves": len(want), "differ": differ,
+                       "global_step": sgd.global_step})
+        return start
+
+    sgd.resume = resume
+    costs, at = {}, []
+    seen = [0]
+
+    def on_event(e):
+        if isinstance(e, EndIteration):
+            costs[(e.pass_id, e.batch_id)] = e.cost
+            events = sgd.last_watchdog_report.events
+            at.extend((ev.kind, ev.global_step, e.pass_id, e.batch_id)
+                      for ev in events[seen[0]:])
+            seen[0] = len(events)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sgd.train(reader=reader, feeder=lambda b: b, num_passes=2,
+              event_handler=on_event, save_dir=save_dir,
+              checkpoint_mode="sync")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del sgd.resume  # the trainer's own again
+    graph_counts = {c: getattr(op, c) for c in FUSED_COUNTERS}
+    # the eager run from pass 0's checkpoint over the chunk after the
+    # rollback
+    eager = SGD(conf, opt, seed=SEED + 303, device="cuda")
+    eager.resume(save_dir, 0)
+    eager_costs = [eager.run_step(f)[0] for f in pass1[MS_K:]]
+    del eager
+    counts = {c: getattr(op, c) for c in FUSED_COUNTERS}
+    after = [costs[(1, b)] for b in range(MS_K, 2 * MS_K)]
+    finite = all(bool(torch.isfinite(v).all()) for v in sgd.params.values())
+    want_at = ([("promote", 2 * MS_K - 1, 1, 1)]
+               + [("skip", 2 * MS_K - 1, 1, b) for b in LC_NAN_AT]
+               + [("rollback", MS_K, 1, LC_NAN_AT[-1])])
+    r = {"wall_s": wall, "graphs_captured": sgd.graphs_captured,
+         "events": at, "report": sgd.last_watchdog_report.to_dict(),
+         "rollback": rolled, "costs_after_rollback": after,
+         "eager_costs": eager_costs,
+         "costs_equal_eager": after == eager_costs,
+         "finite": finite, "launch_counts": counts,
+         "graph_run_counts": graph_counts}
+    set_amp(False)
+    print("lifecycle watchdog " + json.dumps(r), flush=True)
+    assert [tuple(e) for e in at] == want_at, (at, want_at)
+    assert len(rolled) == 1 and rolled[0]["seated"] and \
+        not rolled[0]["differ"], rolled
+    assert r["costs_equal_eager"], (after, eager_costs)
+    assert finite and all(np.isfinite(after)), "training did not end finite"
+    # the graph run: one warm-up step and the capture of ten (the rest
+    # are replays); the eager run: ten steps; 29 fused sites a step
+    n = 1 + MS_K
+    assert graph_counts == dict.fromkeys(FUSED_COUNTERS[:3], 0) | \
+        dict.fromkeys(FUSED_COUNTERS[3:], 29 * n), graph_counts
+    assert counts == dict.fromkeys(FUSED_COUNTERS[:3], 0) | \
+        dict.fromkeys(FUSED_COUNTERS[3:], 29 * (n + MS_K)), counts
+    return r, sgd, pass1[MS_K:]
+
+
+def lifecycle_async(torch, sgd, feeds, work):
+    """Phase 19c: async checkpoints of 19b's trainer (the graphs' static
+    trees). Three saves, each followed by a chunk of ten steps: the ms
+    `save()` blocks the loop (the pinned device->host snapshot) against
+    a step's ms and a sync `save_pass`; then the chunk after the third
+    save is run again after `resume()` from that async pass (ms): costs,
+    params and slots equal to the uninterrupted run's, though the first
+    run overwrote the static trees while the writer serialized; a torn
+    shard (truncated on purpose) is skipped by `latest_complete_pass`."""
+    from paddle_tpu_torch.trainer import async_checkpoint as actp
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    set_amp(True)
+    d = os.path.join(work, "resnet_async")
+    cp = actp.AsyncCheckpointer(d)
+    stalls, steps_ms = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cp.save(i, sgd.params, sgd.opt_state, sgd.state,
+                meta={"global_step": sgd.global_step})
+        stalls.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        cs, fs, _outs = sgd.run_steps(feeds)
+        steps_ms.append((time.perf_counter() - t0) / len(feeds) * 1e3)
+    held = {k: v.clone() for k, v in {**leaves(sgd.params, "param/"),
+                                      **leaves(sgd.opt_state, "slot/"),
+                                      **leaves(sgd.state, "state/")}.items()}
+    step_after = sgd.global_step
+    cp.wait()
+    nbytes = os.path.getsize(os.path.join(d, "pass-00002", "shard-p0.npz"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start = sgd.resume(d)
+    torch.cuda.synchronize()
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    cs2, _fs2, _outs2 = sgd.run_steps(feeds)
+    again = {**leaves(sgd.params, "param/"), **leaves(sgd.opt_state, "slot/"),
+             **leaves(sgd.state, "state/")}
+    differ = [k for k, v in held.items() if not torch.equal(v, again[k])]
+    syncs = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_pass(os.path.join(work, "resnet_sync_timed"), i,
+                       sgd.params, sgd.opt_state, sgd.state,
+                       meta={"global_step": sgd.global_step})
+        syncs.append((time.perf_counter() - t0) * 1e3)
+    shard = os.path.join(d, "pass-00002", "shard-p0.npz")
+    with open(shard, "r+b") as f:
+        f.truncate(nbytes // 2)
+    latest = actp.latest_complete_pass(d)
+    cp.close()
+    set_amp(False)
+    step_ms = float(np.median(steps_ms))
+    r = {"snapshot_bytes": nbytes, "stall_ms": stalls,
+         "step_ms": steps_ms, "stall_share_of_step": [
+             s / step_ms for s in stalls],
+         "sync_save_ms": syncs, "resume_ms": resume_ms,
+         "resume_start_pass": start, "steps_equal_after_resume":
+         cs2 == cs and not differ, "leaves_differ": differ,
+         "torn_latest_complete_pass": latest}
+    print("lifecycle async " + json.dumps(r), flush=True)
+    assert start == 3 and sgd.global_step == step_after, (start,
+                                                          sgd.global_step)
+    assert cs2 == cs and not differ, (cs, cs2, differ)
+    assert latest == 1, latest
+    return r
+
+
+def lifecycle(torch, rnn, op):
+    """Phase 19: 19a, 19b and 19c in a scratch directory (TMPDIR);
+    returns their numbers."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    try:
+        phase("19a. the classifier's lifecycle through the CLI")
+        cli = lifecycle_cli(torch, rnn, work)
+        phase("19b. the watchdog ladder under graphs, ResNet-50 AMP B=256")
+        wd, sgd, feeds = lifecycle_watchdog(torch, op, work)
+        phase("19c. async checkpoints of the ResNet-50 AMP step")
+        asy = lifecycle_async(torch, sgd, feeds, work)
+        del sgd
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"cli": cli, "watchdog": wd, "async": asy}
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
@@ -4346,7 +4889,13 @@ def main() -> int:
     multistep_graphs(torch)
     print(smi, flush=True)
 
-    phase("19. result")
+    phase("19. the training lifecycle: evaluators, checkpoints, resume, "
+          "preemption, the watchdog ladder, the CLI")
+    print(smi, flush=True)
+    lifecycle(torch, rnn, fop)
+    print(smi, flush=True)
+
+    phase("20. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "

@@ -14,3 +14,5 @@ instead of continuing on the CPU.
 Importing the package imports nothing else: submodules are imported
 by path (`paddle_tpu_torch.serving.server`, ...).
 """
+
+__version__ = "0.1.0"

@@ -19,6 +19,7 @@ _DEFAULTS: dict[str, Any] = {
     # f32; "bfloat16" or "bf16" = the mixed-precision cast rule of
     # network.py: f32 masters, bf16 compute layers, f32 cost layers)
     "log_period": 100,
+    "show_parameter_stats_period": 0,
     "seed": 0,
     "watchdog": True,
     "matmul_precision": "default",
@@ -31,6 +32,16 @@ _DEFAULTS: dict[str, Any] = {
     # steps_per_dispatch; K > 1 runs K consecutive train steps as one
     # dispatch (on the card, the replay of a CUDA graph of K steps)
     "steps_per_dispatch": 1,
+    # checkpoints (trainer/trainer.py): "sync" = a blocking save_pass
+    # each pass; "async" = only the device->host snapshot blocks, the
+    # write overlaps the next pass (trainer/async_checkpoint.py);
+    # save_only_one keeps the newest pass only
+    "checkpoint_mode": "sync",
+    "save_only_one": False,
+    # per-step timeline attribution (obs/timeline.py): fence the card
+    # every Nth step, so device time is measured end to end there while
+    # the other steps stay asynchronous (0 = never fence)
+    "timeline_sample_period": 16,
 }
 
 _flags: dict[str, Any] = dict(_DEFAULTS)

@@ -23,7 +23,7 @@ Group layer conf:
     reversed     — run right-to-left
 
 Left out, still to port: secondary out_links (they wait for the
-Network's extra outputs, ROADMAP A1) and nested sequences (the
+Network's extra outputs, ROADMAP A3) and nested sequences (the
 hierarchical walk over sub-sequences, ROADMAP A3).
 """
 
@@ -57,7 +57,7 @@ class RecurrentGroupLayer(Layer):
             raise NotImplementedError(
                 f"recurrent_group {self.name}: secondary out_links "
                 f"{self.out_links[1:]} need the Network's extra outputs, "
-                f"not ported yet (ROADMAP A1)")
+                f"not ported yet (ROADMAP A3)")
         if in_specs and in_specs[0].has_subseq:
             raise NotImplementedError(
                 f"recurrent_group {self.name}: nested sequences are not "

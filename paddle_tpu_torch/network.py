@@ -19,7 +19,7 @@ math keep full precision. The casts are `.to()` on the autograd graph,
 so gradients reach the f32 masters in f32.
 
 Left out, still to port: per-layer `out_sharding` placement (ROADMAP
-A8) and extra outputs of layer groups (ROADMAP A1).
+A8) and extra outputs of layer groups (ROADMAP A3).
 """
 
 from __future__ import annotations

@@ -7,9 +7,10 @@ with per-parameter static hyperparameters (`ParamHyper`) from the
 ParameterConfs. Ported: the base with clipping, L2 folded into the
 gradient and L1 shrinkage after the step; all eight LR schedules; sgd /
 momentum (+ Nesterov), adagrad, decayed_adagrad, adadelta, rmsprop,
-adam and adamax, with the JAX formulas. Still to port (ROADMAP A7):
-ParameterAverager and the static-pruning mask (a ParameterConf with
-sparsity_ratio raises).
+adam and adamax, with the JAX formulas; the static-pruning mask
+(`prune_mask`: an optimizer slot "prune_mask" the update applies to the
+gradient and the new value, so it is a static leaf of the train step's
+CUDA graphs like every other slot) and `ParameterAverager`.
 
 The schedule is evaluated on the host for the step's integer counter,
 in double precision, with every other scalar that moves from step to
@@ -152,6 +153,19 @@ def hyper_from_conf(pc: ParameterConf, opt: OptimizationConf) -> ParamHyper:
     )
 
 
+def prune_mask(value: torch.Tensor, sparsity_ratio: float) -> torch.Tensor:
+    """0/1 mask keeping EXACTLY the (1 - ratio) largest |value| entries
+    (StaticPruningHook::generateMask). Index-based (a stable sort), so
+    ties (e.g. a constant- or zero-initialized parameter) still honor
+    the ratio, and pick the entries the JAX package's mask picks."""
+    flat = value.detach().abs().reshape(-1)
+    keep = max(int(round(flat.numel() * (1.0 - sparsity_ratio))), 1)
+    order = torch.argsort(-flat, stable=True)
+    mask = torch.zeros_like(flat)
+    mask[order[:keep]] = 1.0
+    return mask.reshape(value.shape).to(value.dtype)
+
+
 # ---------------- optimizer base ----------------
 
 class Optimizer:
@@ -162,12 +176,6 @@ class Optimizer:
     def __init__(self, conf: OptimizationConf, hypers: dict):
         self.conf = conf
         self.hypers = hypers  # param name -> ParamHyper
-        pruned = sorted(k for k, h in hypers.items() if h.sparsity_ratio)
-        if pruned:
-            raise NotImplementedError(
-                f"static pruning (sparsity_ratio on {pruned}) is not "
-                f"ported yet"
-            )
         # the step's scalars: the LR at each lr_mult (a parameter
         # without a conf takes 1.0), the L1 shrink at each (lr_mult,
         # l1), then the optimizer's own
@@ -180,7 +188,16 @@ class Optimizer:
         self._index = {k: i for i, k in enumerate(self.scalar_keys)}
 
     def init_state(self, params: dict) -> dict:
-        return {k: self._init_one(v) for k, v in params.items()}
+        st = {}
+        for k, v in params.items():
+            s = self._init_one(v)
+            h = self.hypers.get(k, ParamHyper())
+            if h.sparsity_ratio:
+                # the mask is fixed from the INITIAL weights (the
+                # reference generates it once at the first update)
+                s["prune_mask"] = prune_mask(v, h.sparsity_ratio)
+            st[k] = s
+        return st
 
     def step_scalars(self, step, lr_scale=None) -> list:
         """The step's scalars in the order of `scalar_keys`, computed on
@@ -224,6 +241,9 @@ class Optimizer:
             if g is None or h.is_static:
                 new_p[k], new_s[k] = p, state[k]
                 continue
+            mask = state[k].get("prune_mask")
+            if mask is not None:  # StaticPruningHook::update grad mask
+                g = g * mask
             if h.clip > 0.0:
                 g = torch.clamp(g, -h.clip, h.clip)
             # L2 decay folded into the gradient
@@ -236,6 +256,11 @@ class Optimizer:
                 shrink = sc[("l1", h.lr_mult, h.l1)]
                 np_ = torch.sign(np_) * torch.clamp(np_.abs() - shrink,
                                                     min=0.0)
+            if mask is not None:
+                # pruned weights stay exactly zero (decay and momentum
+                # must not revive them); the mask rides in the new state
+                np_ = np_ * mask
+                ns_["prune_mask"] = mask
             new_p[k], new_s[k] = np_, ns_
         return new_p, new_s
 
@@ -385,6 +410,60 @@ class AdamaxOptimizer(Optimizer):
         u = torch.maximum(b2 * s["u"], torch.abs(g))
         p_new = p - sc[("lr_bc1", h.lr_mult)] * m / (u + 1e-12)
         return p_new, {"m": m, "u": u}
+
+
+# ---------------- parameter averaging ----------------
+
+@dataclass
+class AverageState:
+    """Sliding parameter average (parameter/AverageOptimizer.h): the sum
+    of recent params and how many were summed; `average()` returns the
+    averaged params (functional: nothing is swapped in place)."""
+
+    accum: dict
+    count: int = 0
+
+
+class ParameterAverager:
+    """Sliding average via windowed restart: the accumulator is reset
+    whenever it covers more than `window * total_updates` (capped at
+    `max_window`) updates, so `average()` reflects recent parameters —
+    AverageOptimizer's bounded-window intent."""
+
+    def __init__(self, window: float, max_window: int):
+        self.window = window
+        self.max_window = max_window
+        self._total = 0
+
+    def init(self, params):
+        return AverageState(accum=_map(torch.zeros_like, params), count=0)
+
+    @torch.no_grad()
+    def accumulate(self, st: AverageState, params) -> AverageState:
+        self._total += 1
+        limit = self.window * self._total if self.window > 0 else float("inf")
+        if self.max_window > 0:
+            limit = min(limit, self.max_window)
+        if st.count >= max(limit, 1):
+            st = AverageState(accum=_map(torch.zeros_like, st.accum),
+                              count=0)
+        return AverageState(accum=_map(torch.add, st.accum, params),
+                            count=st.count + 1)
+
+    @torch.no_grad()
+    def average(self, st: AverageState, params):
+        if st.count == 0:
+            return params
+        return _map(lambda a: a / st.count, st.accum)
+
+
+def _map(fn, tree, *others):
+    """fn over the tensor leaves of nested dicts (others: the same
+    nesting)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
 
 
 def create_optimizer(conf: OptimizationConf, param_confs: dict) -> Optimizer:

@@ -32,7 +32,8 @@ from paddle_tpu_torch.parallel.sparse_shard import (
     ShardedEmbeddingTable,
     ShardedTableConfig,
 )
-from paddle_tpu_torch.trainer.trainer import SGD
+from paddle_tpu_torch.inference import infer
+from paddle_tpu_torch.trainer.trainer import SGD, Inferencer
 from paddle_tpu_torch.weights import opt_state_from_numpy, params_from_numpy
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -118,6 +119,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         lambda: TrainStep(net, create_optimizer(opt_conf, net.param_confs)),
         lambda: SGD(conf, opt_conf, seed=1),
         lambda: SGD(conf, opt_conf, seed=1, steps_per_dispatch=4),
+        lambda: SGD(conf, opt_conf, seed=1, evaluators=[
+            {"type": "classification_error", "input": "x", "label": "y"}]),
+        lambda: Inferencer(net, params),
+        lambda: infer(output="x", parameters=params, input={}, network=net),
         lambda: SparseUpdater.place(np.zeros((4, 2), np.float32)),
         lambda: ShardedEmbeddingTable(sparse_conf),
         lambda: ShardedEmbeddingTable(sparse_conf, num_shards=8,
@@ -162,6 +167,32 @@ def test_data_and_dispatch_modules_import_with_jax_blocked():
              "paddle_tpu_torch.parallel.dp",
              "paddle_tpu_torch.parallel.graph",
              "paddle_tpu_torch.trainer.trainer"]
+    assert all(os.path.join(PKG, *n.split(".")[1:]) + ".py" in _port_files()
+               for n in names)
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=names)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(names))
+
+
+def test_lifecycle_modules_import_with_jax_blocked():
+    """The training lifecycle by name (the walk above covers them too):
+    the evaluators and their CTC decode, sync and async checkpoints, the
+    watchdog, the timers, the timeline, the profiler, the trainer's
+    exports, the v2 inference front door and the command line."""
+    names = ["paddle_tpu_torch.evaluators", "paddle_tpu_torch.ops.ctc",
+             "paddle_tpu_torch.trainer.checkpoint",
+             "paddle_tpu_torch.trainer.async_checkpoint",
+             "paddle_tpu_torch.trainer.watchdog",
+             "paddle_tpu_torch.trainer.events",
+             "paddle_tpu_torch.trainer.trainer",
+             "paddle_tpu_torch.core.stat", "paddle_tpu_torch.core.profiler",
+             "paddle_tpu_torch.obs.timeline", "paddle_tpu_torch.inference",
+             "paddle_tpu_torch.__main__"]
     assert all(os.path.join(PKG, *n.split(".")[1:]) + ".py" in _port_files()
                for n in names)
     code = BLOCKED_IMPORT.replace(
