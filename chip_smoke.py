@@ -5,8 +5,8 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in nineteen phases, two of multi-step dispatch (18b,
-18c), and six that run its paths or its
+`paddle_tpu` — in twenty-one phases, two of multi-step dispatch (18b,
+18c), one of generation and serving (20), and six that run its paths or its
 kernels' forms under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and
 any failure exits non-zero:
 
@@ -244,7 +244,34 @@ any failure exits non-zero:
     health rows held as in 18b; each arm's ms a step; a third replay
     profiled: the port kernels it runs, by route and form, and how often
     the profiler saw each a step;
-19. prints the kernels' JSON line and, last, the device line.
+19. the training lifecycle: the classifier through the CLI (train,
+    a SIGTERM and a resume, test, time, merge_model, infer), the
+    watchdog ladder under graphs and async checkpoints on ResNet-50's
+    AMP step;
+20. beam-search generation and NMT serving at bench.py's widths
+    (hidden 512, emb 512, vocab 30000): (a) one step of
+    seq2seq_attention(fused_decoder=True) against the generic
+    recurrent_group arm from one weight map at ragged lengths (loss and
+    every gradient within 1e-4 of the largest entry), then each arm
+    through SGD at steps_per_dispatch 10 (bench_nmt's B=256, T=32, adam
+    1e-3; two passes of 10 batches, the second timed; B7/B8 on the
+    cluster route); (b) beam search from (a)'s fused parameters at
+    bench_beam_decode's settings (B=32, t_src=32, beam 4, max_len 32):
+    the encoder through B7 (held against its scan arm within 1e-4),
+    then eager at K = 1, CUDA-graph replays at K = 8 and 1 (seqs, lens
+    and scores `torch.equal` to eager, the same steps, chain depth
+    ceil(steps / K)), the host rung per token (tokens by the serving
+    rule: equal unless the reference's smallest top-(K+1) gap up to the
+    first differing token is below 1e-4) and chunked at K = 8 (equal to
+    eager), an adjust hook forbidding a token on the device and host
+    rungs (same tokens by the rule, no beam carrying it): tokens/s,
+    `last_timeline` and chain depth an arm; (c) `GenerationModel` with
+    `encode` and a named hook behind `InferenceServer` (max_batch 8,
+    buckets 16/32) and the TCP front end: 16 requests from 4 threads,
+    source lengths 8-32, one naming the hook (path "host"), each answer
+    against a lone generate() of its source by the rule; median and max
+    latency_ms, served tokens/s;
+21. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -4648,6 +4675,507 @@ def lifecycle(torch, rnn, op):
     return {"cli": cli, "watchdog": wd, "async": asy}
 
 
+# ---- phase 20: beam-search generation and NMT serving ----------------------
+
+GEN_STEPS = 10                # SGD batches a pass, and steps_per_dispatch
+GEN_B, GEN_T_SRC, GEN_BEAM, GEN_MAX_LEN, GEN_K = 32, 32, 4, 32, 8
+GEN_MARGIN = 1e-4             # PERF.md §2's serving rule
+GEN_REPS = 3                  # timed decodes an arm, after a warm one
+SERVE_GEN = dict(max_batch=8, buckets=(16, 32), requests=16, clients=4,
+                 src_lens=(8, 32))
+GRU_COUNTERS = ("gru_fwd_launches", "gru_fwd_cluster_launches",
+                "gru_bwd_launches", "gru_bwd_cluster_launches")
+
+
+def gru_counts(rnn):
+    """The B7/B8 wrappers' counts that moved, all other RNN counts 0."""
+    counts = rnn_counts(rnn)
+    assert not any(v for k, v in counts.items() if k not in GRU_COUNTERS), (
+        f"a kernel other than B7/B8 on the cluster route launched: {counts}")
+    return {k: counts[k] for k in GRU_COUNTERS}
+
+
+def fused_nmt(torch, rnn):
+    """Phase 20(a): bench_nmt's fused arm (hidden 512, emb 512, vocab
+    30000, B=256, T=32, adam 1e-3). One step of
+    seq2seq_attention(fused_decoder=True) against the generic
+    recurrent_group arm from one weight map at ragged lengths, with the
+    generic arm in f64 (scan encoder) as the exact reference: the loss
+    within TOL, every gradient within TOL of the largest entry plus
+    twice the generic arm's own f32 error against f64, and as close to
+    f64 as the generic arm, within TOL. Then each arm
+    through SGD at steps_per_dispatch GEN_STEPS, two passes of
+    GEN_STEPS batches (one CUDA graph: the first pass pays its warm-up
+    and capture, the second is timed): every cost finite, the last below
+    the first; the wrappers count the warm-up step and the captured
+    steps, 2 B7 + 2 B8 a step, all on the cluster route. Returns the
+    numbers and the fused arm's trained parameters."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models.text import seq2seq_attention
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.trainer.events import BeginPass, EndIteration, \
+        EndPass
+    from paddle_tpu_torch.trainer.trainer import SGD
+    from paddle_tpu_torch.trainer.watchdog import WatchdogConfig
+
+    confs = {"fused": seq2seq_attention(fused_decoder=True, **NMT),
+             "generic": seq2seq_attention(**NMT)}
+    p0 = Network(confs["fused"]).init_params(
+        torch.Generator().manual_seed(SEED + 200), device="cuda")
+    assert set(Network(confs["generic"]).param_confs) == set(p0)
+    ragged = nmt_feed(SEED + 201, NMT_B, NMT_T, ragged=True)
+    held = {}
+    for arm, conf, dtype in (("fused", "fused", torch.float32),
+                             ("generic", "generic", torch.float32),
+                             ("generic_f64", "generic", torch.float64)):
+        # the f64 arm on the scan encoder: the exact reference
+        set_rnn_arm("scan" if dtype == torch.float64 else "kernels")
+        p = {k: v.detach().to(dtype).clone().requires_grad_(True)
+             for k, v in p0.items()}
+        loss, _ = Network(confs[conf]).loss_fn(p, ragged)
+        loss.backward()
+        held[arm] = (loss.item(), {k: v.grad.double() for k, v in p.items()})
+        del p, loss
+    set_rnn_arm("kernels")
+    (lf, gf), (lg, gg), (l64, g64) = (held[a] for a in (
+        "fused", "generic", "generic_f64"))
+    # every gradient of the fused arm within TOL + twice the generic arm's
+    # own f32 error against f64 (phase 12's rule: the attention's
+    # projection gradient cancels — near-uniform attention weights at
+    # init — and f32 rounding alone moves it ~5e-4 at these widths), and
+    # as close to f64 as the generic arm, within TOL
+    rows = {}
+    for k in gf:
+        noise = rel_err(gg[k], g64[k])[0]
+        rows[k] = {"vs_generic": rel_err(gf[k], gg[k])[0], "noise": noise,
+                   "fused_vs_f64": rel_err(gf[k], g64[k])[0]}
+    worst = max(rows, key=lambda k: rows[k]["vs_generic"]
+                - 2 * rows[k]["noise"])
+    r = {"loss_fused": lf, "loss_generic": lg, "loss_f64": l64,
+         "loss_rel_err": abs(lf - lg) / abs(lg),
+         "grad_max_rel_err": max(v["vs_generic"] for v in rows.values()),
+         "grad_max_noise": max(v["noise"] for v in rows.values()),
+         "grad_worst": worst, **{f"worst_{k}": v
+                                 for k, v in rows[worst].items()}}
+    print("generation fused_held " + json.dumps(r), flush=True)
+    assert r["loss_rel_err"] <= TOL, r
+    for k, v in rows.items():
+        assert v["vs_generic"] <= TOL + 2 * v["noise"], (k, v)
+        assert v["fused_vs_f64"] <= v["noise"] + TOL, (k, v)
+    del held, gf, gg, g64
+    out = {"held": r}
+    feed = nmt_feed(SEED + 202, NMT_B, NMT_T, ragged=False)
+    for arm, conf in confs.items():
+        sgd = SGD(conf, OptimizationConf(learning_method="adam",
+                                         learning_rate=NMT_LR),
+                  seed=SEED + 1, device="cuda", steps_per_dispatch=GEN_STEPS,
+                  params={k: v.clone() for k, v in p0.items()},
+                  watchdog=WatchdogConfig(warmup_batches=2 * GEN_STEPS + 1))
+        costs, stamps = [], {}
+
+        def on_event(e):
+            if isinstance(e, EndIteration):
+                costs.append(e.cost)
+            elif isinstance(e, (BeginPass, EndPass)):
+                stamps[(type(e).__name__, e.pass_id)] = time.perf_counter()
+
+        torch.cuda.synchronize()
+        zero_rnn_counts(rnn)
+        sgd.train(reader=lambda: iter([feed] * GEN_STEPS),
+                  feeder=lambda b: b, num_passes=2, event_handler=on_event)
+        torch.cuda.synchronize()
+        counts = gru_counts(rnn)
+
+        def ms(p):
+            return (stamps[("EndPass", p)] - stamps[("BeginPass", p)]) \
+                / GEN_STEPS * 1e3
+
+        run = {"steps": len(costs), "ms_per_step_pass1": ms(0),
+               "ms_per_step": ms(1),
+               "tokens_per_s": NMT_B * NMT_T / (ms(1) / 1e3),
+               "graphs_captured": sgd.graphs_captured,
+               "loss_first": costs[0], "loss_last": costs[-1],
+               "launches": counts}
+        print(f"generation train_{arm} " + json.dumps(run), flush=True)
+        assert np.isfinite(costs).all() and len(costs) == 2 * GEN_STEPS, run
+        assert run["loss_last"] < run["loss_first"], run
+        assert run["graphs_captured"] == 1, run
+        # the wrappers count one warm-up step and the captured steps
+        n = 2 * (1 + GEN_STEPS)
+        assert counts == dict.fromkeys(GRU_COUNTERS, n), (
+            f"{arm}: B7/B8 launched {counts}, want {n} each")
+        out[arm] = run
+        if arm == "fused":
+            trained = {k: v.detach().clone() for k, v in sgd.params.items()}
+        # the graph freed here, not by a later collection
+        sgd.step_fn.graphs.release()
+        del sgd
+        torch.cuda.empty_cache()
+    return out, trained
+
+
+class MarginRecorder:
+    """Host-rung hooks that change nothing (or forbid a token, with
+    `inner`) and record, at each step, each row's smallest gap between
+    consecutive scores among its top K + 1 candidates: the margin of the
+    serving rule (a finished beam is one whose last word is eos)."""
+
+    def __init__(self, eos, inner=None):
+        self.eos, self.inner = eos, inner
+        self.margins = []
+        self.scores = self.finished = None
+
+    def adjust(self, logp, t):
+        if self.inner is not None:
+            logp = self.inner(logp, t)
+        b, k, v = logp.shape
+        if t == 0:
+            self.scores = np.full((b, k), -1e30, np.float32)
+            self.scores[:, 0] = 0.0
+            self.finished = np.zeros((b, k), bool)
+        fin_row = np.full((v,), -1e30, np.float32)
+        fin_row[self.eos] = 0.0
+        cand = (self.scores[..., None] + np.where(
+            self.finished[..., None], fin_row, logp)).reshape(b, -1)
+        top = -np.sort(np.partition(-cand, k, axis=1)[:, :k + 1], axis=1)
+        self.margins.append(np.min(top[:, :-1] - top[:, 1:], axis=1))
+        return logp
+
+    def drop(self, words, scores, t):
+        self.scores, self.finished = scores.copy(), words == self.eos
+        return scores, np.zeros(words.shape, bool)
+
+    def hooks(self):
+        from paddle_tpu_torch.beam_search import BeamHooks
+
+        return BeamHooks(adjust=self.adjust, drop=self.drop)
+
+
+def best_tokens(seqs, lens, i):
+    return [int(x) for x in seqs[i, 0, :int(lens[i, 0])]]
+
+
+def margin_rule(name, got, ref, margins):
+    """Each row's best-beam tokens of `got` equal `ref`'s, unless the
+    reference's margin at some step up to the first differing token is
+    below GEN_MARGIN (`margins`: [steps][rows], or a function of the
+    row giving its steps' margins). Returns (rows equal, rows excused)."""
+    equal = excused = 0
+    for i in range(len(got[0])):
+        a, b = best_tokens(got[0], got[1], i), best_tokens(ref[0], ref[1], i)
+        if a == b:
+            equal += 1
+            continue
+        t = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        m = margins(i) if callable(margins) else [s[i] for s in margins]
+        low = min(m[:t + 1])
+        assert low < GEN_MARGIN, (
+            f"{name}: row {i} differs at token {t} with the reference's "
+            f"smallest margin {low:.3g} >= {GEN_MARGIN} (got {a}, want {b})")
+        excused += 1
+    return equal, excused
+
+
+def beam_generation(torch, rnn, params):
+    """Phase 20(b): generation at bench_beam_decode's settings (B=32,
+    t_src=32, beam 4, max_len 32) from (a)'s trained parameters. The
+    encoder runs through B7 (2 launches, cluster route), held against
+    its scan arm (enc and dec_boot within TOL of the largest entry, the
+    decoded tokens by the margin rule). Arms: eager K=1, graphs at K=8
+    and K=1 (`torch.equal` seqs, lens and scores to the eager arm, its
+    steps, chain depth ceil(steps / K)), the host rung per token (by
+    the margin rule; its run records the margins) and chunked at K=8
+    (equal to the eager arm: the same device chunks); an adjust hook
+    forbidding the eager arm's most frequent token on the device rung
+    (eager, a substep a token) and on the host rung: the same tokens by
+    the margin rule, and no beam carries it. Each arm: best-beam
+    tokens/s (B * max_len over the best of GEN_REPS decodes, as
+    bench_beam_decode counts), `last_timeline` and the chain depth."""
+    from paddle_tpu_torch.beam_search import BeamHooks
+    from paddle_tpu_torch.core.arg import id_arg
+    from paddle_tpu_torch.models.text import seq2seq_attention, \
+        seq2seq_attention_decoder
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.serving.host_decode import host_generate
+
+    net = Network(seq2seq_attention(fused_decoder=True, **NMT))
+
+    def encode(ids, lens):
+        with torch.no_grad():
+            outs, _ = net.forward(params, {"src": id_arg(ids, lens,
+                                                         device="cuda")},
+                                  outputs=["enc", "dec_boot"])
+        return [outs["enc"]], {"dec_state": outs["dec_boot"].value}
+
+    def decoder(k_tok, graphs=True, hooks=None):
+        dec = seq2seq_attention_decoder(
+            trg_vocab=NMT["trg_vocab"], emb_dim=NMT["emb_dim"],
+            hidden=NMT["hidden"], bos_id=0, eos_id=EOS, beam_size=GEN_BEAM,
+            max_length=GEN_MAX_LEN, tokens_per_dispatch=k_tok)
+        dec.use_graphs = graphs
+        dec.hooks = hooks or dec.hooks
+        return dec
+
+    rng = np.random.default_rng(SEED + 210)
+    src = rng.integers(2, NMT["src_vocab"], (GEN_B, GEN_T_SRC)).astype(
+        np.int32)
+    lens = np.full(GEN_B, GEN_T_SRC, np.int32)
+    zero_rnn_counts(rnn)
+    statics, boots = encode(src, lens)
+    torch.cuda.synchronize()
+    enc_counts = gru_counts(rnn)
+    assert enc_counts == dict(gru_fwd_launches=2, gru_fwd_cluster_launches=2,
+                              gru_bwd_launches=0,
+                              gru_bwd_cluster_launches=0), enc_counts
+    set_rnn_arm("scan")
+    s_statics, s_boots = encode(src, lens)
+    set_rnn_arm("kernels")
+    enc_err = {"enc": rel_err(statics[0].value, s_statics[0].value)[0],
+               "dec_boot": rel_err(boots["dec_state"],
+                                   s_boots["dec_state"])[0]}
+    print("generation encoder " + json.dumps(
+        {"launches": enc_counts, "max_rel_err_vs_scan": enc_err}), flush=True)
+    assert max(enc_err.values()) <= TOL, enc_err
+
+    def timed(name, dec, fn, reps=GEN_REPS):
+        out = fn()
+        torch.cuda.synchronize()
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        r = {"tokens_per_s": GEN_B * GEN_MAX_LEN / best, "ms": best * 1e3,
+             "steps": dec.last_steps, "chain_depth": dec.last_chain_depth,
+             **dec.last_timeline}
+        print(f"generation decode_{name} " + json.dumps(r), flush=True)
+        return r, tuple(x.cpu().numpy() if torch.is_tensor(x) else x
+                        for x in out)
+
+    def device(dec, st=statics, bt=boots):
+        return lambda: dec.generate(params, st, bt)
+
+    arms, outs = {}, {}
+    dec = decoder(1, graphs=False)
+    arms["eager_k1"], outs["eager_k1"] = timed("eager_k1", dec, device(dec))
+    steps = arms["eager_k1"]["steps"]
+    for name, k_tok in (("graph_k8", GEN_K), ("graph_k1", 1)):
+        dec = decoder(k_tok)
+        arms[name], outs[name] = timed(name, dec, device(dec))
+        assert all(np.array_equal(a, b) for a, b in zip(
+            outs[name], outs["eager_k1"])), f"{name} differs from eager"
+        assert arms[name]["steps"] == steps, arms[name]
+        assert arms[name]["chain_depth"] == -(-steps // k_tok), arms[name]
+        if name == "graph_k8":
+            # where a replayed decode's device time goes
+            prof = profile_fn(torch, device(dec), steps=3)
+            if prof is not None:
+                prof["idle_share"] = 1 - prof["device_ms_per_step"] / \
+                    arms[name]["ms"]
+            print("generation profile_graph_k8 " + json.dumps(prof),
+                  flush=True)
+            arms[name]["profile"] = prof
+    dec = decoder(1)
+    arms["host_k1"], outs["host_k1"] = timed(
+        "host_k1", dec, lambda: host_generate(dec, params, statics, boots),
+        reps=1)
+    # the host rung again with hooks that only record its margins: the
+    # same decode
+    rec = MarginRecorder(EOS)
+    recorded = host_generate(dec, params, statics, boots, hooks=rec.hooks())
+    assert all(np.array_equal(a, b) for a, b in zip(
+        recorded, outs["host_k1"])), "recording hooks changed the decode"
+    margins = rec.margins
+    host_rule = margin_rule("host_k1", outs["eager_k1"], outs["host_k1"],
+                            margins)
+    dec = decoder(GEN_K)
+    arms["host_k8"], outs["host_k8"] = timed(
+        "host_k8", dec, lambda: host_generate(dec, params, statics, boots))
+    assert all(np.array_equal(a, b) for a, b in zip(
+        outs["host_k8"], outs["eager_k1"])), "the chunked host rung differs"
+    assert arms["host_k8"]["chain_depth"] == -(-steps // GEN_K)
+    # the tokens from the scan arm's encoder, by the margin rule
+    dec = decoder(GEN_K)
+    scan_out = tuple(x.cpu().numpy() for x in dec.generate(
+        params, s_statics, s_boots))
+    scan_rule = margin_rule("scan encoder", scan_out, outs["eager_k1"],
+                            margins)
+    # an adjust hook forbidding the most frequent generated token
+    words = np.concatenate([best_tokens(*outs["eager_k1"][:2], i)
+                            for i in range(GEN_B)])
+    words = words[words != EOS]
+    forbid = int(np.bincount(words).argmax())
+
+    def no_forbid(logp, t):
+        logp = logp.copy()
+        logp[:, :, forbid] = -1e30
+        return logp
+
+    dec = decoder(1, hooks=BeamHooks(adjust=no_forbid))
+    arms["hook_device"], outs["hook_device"] = timed(
+        "hook_device", dec, device(dec), reps=1)
+    recs = []
+
+    def hook_host():
+        recs.append(MarginRecorder(EOS, inner=no_forbid))
+        return host_generate(dec, params, statics, boots,
+                             hooks=recs[-1].hooks())
+
+    dec = decoder(1)
+    arms["hook_host"], outs["hook_host"] = timed("hook_host", dec,
+                                                 hook_host, reps=1)
+    hook_rule = margin_rule("hook", outs["hook_device"], outs["hook_host"],
+                            recs[-1].margins)
+    for name in ("hook_device", "hook_host"):
+        seqs, lens_ = outs[name][:2]
+        for i in range(GEN_B):
+            for k in range(GEN_BEAM):
+                assert forbid not in seqs[i, k, :lens_[i, k]], (
+                    f"{name}: row {i} beam {k} carries {forbid}")
+    r = {"forbidden_token": forbid, "host_vs_eager": host_rule,
+         "scan_encoder_vs_kernel": scan_rule,
+         "hook_device_vs_host": hook_rule}
+    print("generation checks " + json.dumps(r), flush=True)
+    return {"arms": arms, "checks": r, "encode": encode, "decoder": decoder,
+            "enc_launches": enc_counts}
+
+
+def serve_generation(torch, rnn, params, gen):
+    """Phase 20(c): an InferenceServer with GenerationModel(encode=...,
+    named_hooks={"forbid": ...}) behind the TCP front end, max_batch 8,
+    buckets (16, 32), the decoder at K = 8 (graphs). 16 requests from 4
+    client threads, source lengths 8-32 drawn from the seed, one naming
+    the hook; a first round warms the graphs, the second is checked and
+    timed. Each answer's tokens equal a lone generate() of its source at
+    its bucket (another decoder) by the margin rule; the hook answer's
+    path is "host", its tokens a lone host_generate with the hook's and
+    without the token. Prints the median and max latency_ms and the
+    served tokens/s."""
+    import threading
+
+    from paddle_tpu_torch.beam_search import BeamHooks
+    from paddle_tpu_torch.serving.host_decode import host_generate
+    from paddle_tpu_torch.serving.models import GenerationModel
+    from paddle_tpu_torch.serving.server import InferenceServer, ServeConfig
+    from paddle_tpu_torch.serving.tcp import ServeClient, ServingTCPServer
+
+    forbid = gen["checks"]["forbidden_token"]
+
+    def no_forbid(logp, t):
+        logp = logp.copy()
+        logp[:, :, forbid] = -1e30
+        return logp
+
+    cfg = SERVE_GEN
+    model = GenerationModel(gen["decoder"](GEN_K), params,
+                            encode=gen["encode"],
+                            named_hooks={"forbid": BeamHooks(
+                                adjust=no_forbid)})
+    server = InferenceServer(ServeConfig(
+        max_queue=64, max_batch=cfg["max_batch"], buckets=cfg["buckets"],
+        default_deadline_s=60.0))
+    server.add_model("nmt", model)
+    tcp = ServingTCPServer(server)
+    rng = np.random.default_rng(SEED + 220)
+    n_req = cfg["requests"]
+    src_lens = rng.integers(cfg["src_lens"][0], cfg["src_lens"][1] + 1,
+                            n_req)
+    sources = [rng.integers(2, NMT["src_vocab"], n).astype(np.int32)
+               for n in src_lens]
+    hooked = int(rng.integers(n_req))
+    per = n_req // cfg["clients"]
+
+    def round_trip():
+        answers = [None] * n_req
+
+        def client(c):
+            with ServeClient(f"127.0.0.1:{tcp.port}") as cl:
+                for j in range(c * per, (c + 1) * per):
+                    answers[j] = cl.call(
+                        "nmt", sources[j].tolist(), timeout=120,
+                        hooks="forbid" if j == hooked else None)
+
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(cfg["clients"])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        return answers, time.perf_counter() - t0
+
+    zero_rnn_counts(rnn)
+    try:
+        warm, _ = round_trip()
+        answers, wall = round_trip()
+    finally:
+        tcp.stop(drain=True)
+        server.shutdown(drain=True)
+    counts = gru_counts(rnn)
+    assert all(a is not None and a["ok"] for a in warm + answers), [
+        a for a in warm + answers if a is None or not a["ok"]]
+    lone = gen["decoder"](GEN_K)
+    equal = excused = 0
+    for j, a in enumerate(answers):
+        bucket = next(b for b in cfg["buckets"] if b >= len(sources[j]))
+        ids = np.zeros((1, bucket), np.int32)
+        ids[0, :len(sources[j])] = sources[j]
+        statics, boots = gen["encode"](ids, np.asarray([len(sources[j])],
+                                                       np.int32))
+        rec = MarginRecorder(EOS, inner=no_forbid if j == hooked else None)
+        if j == hooked:
+            assert a["path"] == "host", a
+            assert forbid not in a["tokens"], a
+            ref = host_generate(lone, params, statics, boots,
+                                hooks=rec.hooks())
+        else:
+            assert a["path"] == "jit", a
+            ref = tuple(x.cpu().numpy() for x in lone.generate(
+                params, statics, boots))
+        got = (np.asarray([[a["tokens"]]]), np.asarray([[len(a["tokens"])]]))
+
+        def margins(_i, ref_rec=rec, st=statics, bt=boots):
+            # the hook-free reference's margins, from a host run that
+            # records them (only where the tokens differ)
+            if not ref_rec.margins:
+                host_generate(gen["decoder"](1), params, st, bt,
+                              hooks=ref_rec.hooks())
+            return [m[0] for m in ref_rec.margins]
+
+        e, x = margin_rule(f"served request {j}", got, ref, margins)
+        equal, excused = equal + e, excused + x
+    lat = sorted(a["latency_ms"] for a in answers)
+    tokens = sum(len(a["tokens"]) for a in answers)
+    r = {"requests": n_req, "clients": cfg["clients"],
+         "src_lens": [int(x) for x in src_lens], "hooked": hooked,
+         "latency_ms_median": float(np.median(lat)),
+         "latency_ms_max": lat[-1], "wall_s": wall,
+         "served_tokens": tokens, "served_tokens_per_s": tokens / wall,
+         "tokens_equal": equal, "tokens_excused_by_margin": excused,
+         "launches": counts, "server": server.stats()}
+    print("generation serve " + json.dumps(r), flush=True)
+    assert counts["gru_fwd_launches"] > 0 and counts[
+        "gru_fwd_cluster_launches"] == counts["gru_fwd_launches"], counts
+    return r
+
+
+def generation(torch, rnn):
+    """Phase 20: (a) the fused decoder's training arm, (b) beam
+    generation from its parameters, (c) serving it over TCP."""
+    phase("20a. the attention NMT's fused decoder arm through SGD")
+    trained, params = fused_nmt(torch, rnn)
+    phase("20b. beam-search generation at bench_beam_decode's settings")
+    gen = beam_generation(torch, rnn, params)
+    phase("20c. the NMT served over TCP by GenerationModel")
+    served = serve_generation(torch, rnn, params, gen)
+    torch.cuda.empty_cache()
+    return {"train": trained, "generate": gen["arms"],
+            "checks": gen["checks"], "enc_launches": gen["enc_launches"],
+            "serve": served}
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
@@ -4895,7 +5423,14 @@ def main() -> int:
     lifecycle(torch, rnn, fop)
     print(smi, flush=True)
 
-    phase("20. result")
+    phase("20. beam-search generation and NMT serving: the fused decoder "
+          "arm, K-token decode graphs, the host rung, GenerationModel "
+          "over TCP")
+    print(smi, flush=True)
+    gen = generation(torch, rnn)
+    print(smi, flush=True)
+
+    phase("21. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -5056,6 +5591,14 @@ def main() -> int:
             "library_ms": None,
         }
 
+    def gen_launched(counter):
+        # phase 20's paths on the cluster route: both training arms, the
+        # generation encoder and the served encodes
+        return (sum(gen["train"][arm]["launches"][counter]
+                    for arm in ("fused", "generic"))
+                + gen["enc_launches"][counter]
+                + gen["serve"]["launches"][counter])
+
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -5106,9 +5649,11 @@ def main() -> int:
         grid_row("lstm_seq_bwd_grid", 358, "bwd",
                  wide_launched("lstm_bwd_grid_launches")),
         rnn_row("gru_seq_fwd", "gru", 724, "fwd",
-                nmt_launches["gru_fwd_launches"]),
+                nmt_launches["gru_fwd_launches"]
+                + gen_launched("gru_fwd_launches")),
         rnn_row("gru_seq_bwd", "gru", 657, "bwd",
-                nmt_launches["gru_bwd_launches"]),
+                nmt_launches["gru_bwd_launches"]
+                + gen_launched("gru_bwd_launches")),
         gru_grid_row("gru_seq_fwd_grid", 724, "fwd", "gru_fwd_grid_launches"),
         gru_grid_row("gru_seq_bwd_grid", 657, "bwd", "gru_bwd_grid_launches"),
         *sparse_kernel_rows(sparse_checks, sparse_times, standalone,

@@ -8,9 +8,11 @@ from paddle_tpu_torch.layers import (  # noqa: F401
     conv,
     cost,
     fused,
+    fused_text,
     norm,
     pool,
     recurrent,
     recurrent_group,
     sequence,
+    steps,
 )

@@ -22,9 +22,8 @@ Group layer conf:
     out_links    — step layer names to emit as sequences
     reversed     — run right-to-left
 
-Left out, still to port: secondary out_links (they wait for the
-Network's extra outputs, ROADMAP A3) and nested sequences (the
-hierarchical walk over sub-sequences, ROADMAP A3).
+Left out, still to port: secondary out_links and nested sequences (the
+hierarchical walk over sub-sequences), both ROADMAP A3b.
 """
 
 from __future__ import annotations
@@ -56,12 +55,11 @@ class RecurrentGroupLayer(Layer):
         if len(self.out_links) > 1:
             raise NotImplementedError(
                 f"recurrent_group {self.name}: secondary out_links "
-                f"{self.out_links[1:]} need the Network's extra outputs, "
-                f"not ported yet (ROADMAP A3)")
+                f"{self.out_links[1:]} are not ported yet (ROADMAP A3b)")
         if in_specs and in_specs[0].has_subseq:
             raise NotImplementedError(
                 f"recurrent_group {self.name}: nested sequences are not "
-                f"ported yet (ROADMAP A3)")
+                f"ported yet (ROADMAP A3b)")
 
         n_in = len(self.in_links)
         self._in_specs = in_specs

@@ -3,7 +3,7 @@ sequence slice runs: seqpool, seqlastins and expand, at the whole-
 sequence level. Mask semantics over dense [B,T,...] (see
 ops/sequence_ops.py).
 
-Left out, still to port (ROADMAP A3): the strided and sub-sequence
+Left out, still to port (ROADMAP A3b): the strided and sub-sequence
 levels and `output_max_index` of these three, and the module's ten
 other types.
 """
@@ -19,7 +19,7 @@ from paddle_tpu_torch.ops import sequence_ops as sops
 def _not_ported(layer, what):
     raise NotImplementedError(
         f"{layer.conf.type} {layer.name}: {what} is not ported yet "
-        f"(ROADMAP A3)")
+        f"(ROADMAP A3b)")
 
 
 @LAYERS.register("seqpool", "sequence_pool", "average", "max")

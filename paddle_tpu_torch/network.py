@@ -18,8 +18,13 @@ parameters, and a cost layer gets f32 ones, so targets and the loss
 math keep full precision. The casts are `.to()` on the autograd graph,
 so gradients reach the f32 masters in f32.
 
+Extra outputs: a layer with `extra_output_specs()` emits more values
+than its own, each under a name of its own (`lstm_step`'s cell state
+`<name>@state`), which a later layer or an `outputs=` list can read;
+the layer leaves them in `_extra_outs` after its forward.
+
 Left out, still to port: per-layer `out_sharding` placement (ROADMAP
-A8) and extra outputs of layer groups (ROADMAP A3).
+A8).
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ class Network:
         self.conf = conf
         self.layers = {}
         self.specs = {}
+        self._extra_producer: dict[str, str] = {}  # extra output -> layer
         self.param_confs: dict[str, ParameterConf] = {}  # global name -> conf
         self.layer_params: dict[str, dict] = {}  # layer -> {slot: global name}
         self._stateful: dict[str, object] = {}
@@ -86,6 +92,15 @@ class Network:
             self.layer_params[lc.name] = slot_map
             if hasattr(layer, "init_state"):
                 self._stateful[lc.name] = layer
+            if hasattr(layer, "extra_output_specs"):
+                for xname, xspec in layer.extra_output_specs().items():
+                    if xname in self.specs:
+                        raise KeyError(
+                            f"extra output {xname!r} of layer {lc.name!r} "
+                            f"collides with an existing layer name"
+                        )
+                    self.specs[xname] = xspec
+                    self._extra_producer[xname] = lc.name
             order.append(lc.name)
         self.order = order
         self.output_names = list(conf.output_layer_names) or (
@@ -100,6 +115,7 @@ class Network:
         derived = []
         absorbed = set()
         for out_name in self.output_names:
+            out_name = self._extra_producer.get(out_name, out_name)
             if getattr(self.layers.get(out_name), "is_cost", False):
                 continue
             cost_anc = [c for c in self.cost_names
@@ -116,11 +132,13 @@ class Network:
         ]
 
     def _ancestors(self, names) -> set:
-        """The layers `names` depend on, themselves included."""
+        """The layers `names` depend on, themselves included (an extra
+        output stands for the layer that emits it)."""
         run = set()
         frontier = list(names)
         while frontier:
             n = frontier.pop()
+            n = self._extra_producer.get(n, n)
             if n in run:
                 continue
             run.add(n)
@@ -214,6 +232,9 @@ class Network:
                     f"(type={lc.type!r}, inputs={lc.input_names()})"
                 )
                 raise
+            extra = getattr(layer, "_extra_outs", None)
+            if extra:
+                outs.update(extra)
         new_state = {**ctx.state, **ctx.updated_state}
         return outs, new_state
 

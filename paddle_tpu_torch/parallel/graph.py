@@ -15,7 +15,10 @@ The counterpart of the JAX step's `lax.scan` of K steps inside one jit
   seeds [K], filled from pinned host memory before each replay.
 - Capture: one warm-up step on a side stream (its results dropped: it
   leaves the static trees as they were), then `torch.cuda.graph` on the
-  same stream. A capture that fails raises; nothing falls back to
+  same stream, with the cyclic garbage collector run first and kept
+  off during the capture (`no_gc`): a graph that an unreachable owner
+  still held, freed by the collector mid-capture, would end the
+  capture in error. A capture that fails raises; nothing falls back to
   eager steps.
 - Outputs: the losses (or health rows) and the kept outputs are cloned
   out of the pool after each replay, before the next can overwrite
@@ -27,6 +30,9 @@ profiler's kernel names.
 """
 
 from __future__ import annotations
+
+import contextlib
+import gc
 
 import torch
 
@@ -50,6 +56,23 @@ def _same_layout(a, b) -> bool:
         return a.keys() == b.keys() and all(_same_layout(a[k], b[k])
                                             for k in a)
     return a.shape == b.shape and a.dtype == b.dtype
+
+
+@contextlib.contextmanager
+def no_gc():
+    """Collect garbage now, then keep the cyclic collector off for the
+    body (a CUDA graph capture): PyTorch no longer collects when a
+    capture begins, and a collection inside the capture that frees
+    another CUDA graph (an unreachable trainer's or decoder's) is an
+    operation a capturing stream does not permit."""
+    gc.collect()
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
 
 
 def _fill(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -120,7 +143,8 @@ class _Graph:
             self._steps(1, write_back=False)
         torch.cuda.current_stream().wait_stream(side)
         try:
-            with torch.cuda.graph(self.graph, pool=o.pool, stream=side):
+            with no_gc(), torch.cuda.graph(self.graph, pool=o.pool,
+                                           stream=side):
                 self.losses, self.outs = self._steps(self.k, write_back=True)
         except Exception as e:
             raise RuntimeError(

@@ -27,9 +27,11 @@ model. SLO machinery, in dispatch order:
   deadline-reject everything queued, and joins the workers. Every
   request ever admitted reaches a terminal state — nothing leaks.
 
-Not ported yet (the JAX server has them): co-dispatch of several
-models in one program (`MultiForwardHost`), the host-stepped fallback
-rung, recompile guards, and the flight-recorder anomaly dumps.
+Not ported yet (the JAX server has them, ROADMAP A6): co-dispatch of
+several models in one program (`MultiForwardHost`), the host-fallback
+rescue of a failed device dispatch (a request that names a hook already
+takes the model's host rung, `serving/models.py`), recompile guards,
+and the flight-recorder anomaly dumps.
 """
 
 from __future__ import annotations

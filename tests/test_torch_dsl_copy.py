@@ -103,8 +103,9 @@ def test_port_has_its_own_registries():
         "classification_cost", "concat", "concat2", "conv",
         "cross_entropy", "cudnn_batch_norm", "cudnn_conv", "cudnn_pool",
         "data", "embedding", "exconv", "expand", "fc",
-        "fused_bottleneck_tail", "fused_conv1x1_bn", "gated_recurrent",
-        "gru", "grumemory", "last_seq", "lstm", "lstmemory", "max", "mse",
+        "fused_att_decoder", "fused_bottleneck_tail", "fused_conv1x1_bn",
+        "gated_recurrent", "gru", "gru_step", "gru_step_naive", "grumemory",
+        "last_seq", "lstm", "lstm_step", "lstmemory", "max", "mixed", "mse",
         "multi-class-cross-entropy", "multi_head_attention", "pool",
         "recurrent", "recurrent_group", "recurrent_layer_group", "scaling",
         "seqlastins", "seqpool", "sequence_pool",

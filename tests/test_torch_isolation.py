@@ -215,3 +215,27 @@ def test_chip_smoke_fails_without_card_and_without_the_repo(tmp_path):
     res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_generation_modules_import_with_jax_blocked():
+    """Beam-search generation and NMT serving by name (the walk above
+    covers them too): the decoder, the host rung, the served model, the
+    serving package's lazy exports, mixed, the step cells and the fused
+    attention decoder."""
+    names = ["paddle_tpu_torch.beam_search",
+             "paddle_tpu_torch.serving.host_decode",
+             "paddle_tpu_torch.serving.models",
+             "paddle_tpu_torch.serving",
+             "paddle_tpu_torch.layers.basic",
+             "paddle_tpu_torch.layers.steps",
+             "paddle_tpu_torch.layers.fused_text"]
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=names)
+    code += ("from paddle_tpu_torch.serving import GenerationModel, "
+             "host_generate\nprint('IMPORTED', len(mods))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(names))

@@ -29,7 +29,8 @@ run their scan.
   flag's policy; the step net's context; the flat JAX parameter names
   (the GRU's `_{name}.wc`, a group's renamed step parameters) carried
   by `params_from_numpy`; the parts still to port raise, naming their
-  ROADMAP item.
+  ROADMAP item, and the generation decoder (ported) decodes the JAX
+  decoder's tokens from the trained conf's parameters.
 """
 
 import numpy as np
@@ -450,8 +451,35 @@ def test_params_from_numpy_keeps_the_flat_jax_names():
 def test_parts_still_to_port_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         TNetwork(ttext.hierarchical_lstm_classifier())
-    with pytest.raises(ImportError):
-        ttext.seq2seq_attention_decoder()
+    # the generation decoder is ported (A3a): it takes the trained NMT's
+    # parameters by name and decodes the JAX decoder's tokens
+    jconf, tconf = _confs("nmt")
+    jnet, tnet = JNetwork(jconf), TNetwork(tconf)
+    np_p = _np_params(jnet, 4)
+    src = _batch("nmt", 5)["src"]
+    jo, _ = jnet.forward({k: jnp.asarray(v) for k, v in np_p.items()},
+                         {"src": jarg.id_arg(src[0].astype(np.int32),
+                                             src[1])},
+                         outputs=["enc", "dec_boot"])
+    tp = params_from_numpy(np_p, device="cpu")
+    with torch.no_grad():
+        to, _ = tnet.forward(tp, {"src": targ.id_arg(src[0], src[1])},
+                             outputs=["enc", "dec_boot"])
+    kw = dict(trg_vocab=30, emb_dim=8, hidden=16, beam_size=3,
+              max_length=6)
+    jdec = jtext.seq2seq_attention_decoder(**kw)
+    tdec = ttext.seq2seq_attention_decoder(**kw)
+    assert set(tdec.param_confs([to["enc"]])) == set(
+        jdec.param_confs([jo["enc"]])) <= set(tnet.param_confs)
+    jseqs, jlens, jscores = jdec.generate(
+        {k: jnp.asarray(v) for k, v in np_p.items()}, [jo["enc"]],
+        {"dec_state": jo["dec_boot"].value})
+    tseqs, tlens, tscores = tdec.generate(
+        tp, [to["enc"]], {"dec_state": to["dec_boot"].value})
+    np.testing.assert_array_equal(tseqs.numpy(), np.asarray(jseqs))
+    np.testing.assert_array_equal(tlens.numpy(), np.asarray(jlens))
+    np.testing.assert_allclose(tscores.numpy(), np.asarray(jscores),
+                               rtol=0, atol=1e-5)
     with tdsl.model() as g:
         seq = tdsl.data("seq", 4, is_seq=True)
         tdsl.seq_pool(seq, pool_type="max", stride=2, name="out")
