@@ -5,8 +5,9 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in twenty-one phases, two of multi-step dispatch (18b,
-18c), one of generation and serving (20), and six that run its paths or its
+`paddle_tpu` — in twenty-two phases, two of multi-step dispatch (18b,
+18c), one of generation and serving (20), one of nested sequences and
+the structured heads (21), and seven that run its paths or its
 kernels' forms under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and
 any failure exits non-zero:
 
@@ -137,7 +138,11 @@ any failure exits non-zero:
    f32, plain AMP and fused AMP: the fused AMP loss, new BN state and
    each gradient within twice the plain AMP step's own distance from
    the f32 step plus 1e-3 (relative), beside a witness, the f32 step
-   on weights and images rounded to bf16; (b) 20
+   on weights and images rounded to bf16; the same four arms with every
+   BN on running statistics (this batch's own), where no gradient
+   cancels in the statistics: the loss and each gradient held by the
+   same rule, and every gradient's bound below 0.5, so that a zeroed or
+   doubled gradient (1.0 from f32) fails; (b) 20
    fused steps of `SGD.train` at B=256 on one fixed batch: every loss
    finite, the last below the first, 29 launches of each bf16 form a
    step (B1 `fwd_wgmma_kernel`, B2 and B3 the backward wgmma kernels)
@@ -271,7 +276,32 @@ any failure exits non-zero:
     source lengths 8-32, one naming the hook (path "host"), each answer
     against a lone generate() of its source by the rule; median and max
     latency_ms, served tokens/s;
-21. prints the kernels' JSON line and, last, the device line.
+21. nested sequences and the structured heads: (a) the document
+    classifiers at bench_lstm's widths (vocab 30000, emb 128, hidden
+    256; `hierarchical_lstm_classifier` and the same walk with an
+    `simple_lstm` sentence encoder, max_subseq_len 25) on 64 documents
+    of 8 sentence slots of 1-25 words (an empty sentence mid-document,
+    an all-zero last column) through `DataFeeder`: the loss and every
+    gradient on the card against the port on the CPU (the kernels'
+    plain versions; within 1e-4 of the largest entry plus twice the
+    CPU's own f32 distance from f64), then `SGD.train` two passes of 8
+    batches eagerly (twice) and at steps_per_dispatch 4 (one CUDA graph,
+    held bit for bit against the eager runs): ms a step each way; B5/B6
+    launch once per sentence slot a step on the cluster route; (b)
+    `linear_crf_tagger` and `rnn_crf_tagger` (defaults, and emb 128 /
+    hidden 256) at B=64, ragged lengths up to 100: loss and gradients
+    against the CPU, 6 adam steps through SGD (two B5 and two B6 a
+    step for the bidirectional LSTM), then `crf_decoding` of one batch
+    from the trained parameters, the ids equal to the CPU's; (c) AlexNet
+    at bench.py's alexnet_bs64 setting, 10 steps in f32 and 10 under the
+    bf16 flag (ms a step, images/s), and its `norm` layer on the card's
+    conv1 activation against the CPU; (d) every new layer type and
+    level (`LAYER_CASES`: the strided, sub-sequence and max-index
+    levels, the ten sequence types, CTC, CRF, the cross-map norm,
+    row_l2_norm) on the card against the CPU from one seeded input:
+    outputs and gradients within 1e-4 of the largest entry, ids and
+    lengths exactly;
+22. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -2147,28 +2177,21 @@ def resnet_train(torch, op, conf, batch, steps, name, amp=False):
     return r
 
 
-def held_amp_step(torch, plain, fused, params, state, feed):
-    """Phase 9c(a): one momentum TrainStep at B=8 three ways from one
-    weight map: plain f32, plain under the bf16 flag and fused under the
-    flag. The fused-AMP step's loss, new BN state and each gradient are
-    held against the plain f32 step's within twice the plain-AMP step's
-    own distance from it plus 1e-3 (relative; the state over all its
-    slots). A fourth arm, the witness, takes the plain f32 step on the
-    weights and images rounded to bf16 (a perturbation of 2^-9 of each
-    entry, no bf16 arithmetic): how far its gradients move from the f32
-    step's is how far this net at this batch carries bf16's rounding of
-    its inputs alone, and is printed beside the AMP arms' distances."""
+def amp_arms(torch, plain, fused, params, state, feed):
+    """One momentum TrainStep from one weight map four ways: plain f32,
+    plain under the bf16 flag, fused under the flag, and the witness, the
+    plain f32 step on the weights and images rounded to bf16 (a
+    perturbation of 2^-9 of each entry, no bf16 arithmetic). Returns
+    {arm: (health, momentum slots, new state)}."""
     from paddle_tpu_torch.core.config import OptimizationConf
     from paddle_tpu_torch.optimizers import create_optimizer
     from paddle_tpu_torch.parallel.dp import TrainStep
-    from paddle_tpu_torch.weights import fused_resnet_from_plain, \
-        fused_resnet_map
+    from paddle_tpu_torch.weights import fused_resnet_from_plain
 
     def rounded(t):
         return t.to(torch.bfloat16).float() if t.is_floating_point() else t
 
     fparams, fstate = fused_resnet_from_plain(fused, params, state)
-    pmap, smap = fused_resnet_map(fused)
     rparams = {k: rounded(v) for k, v in params.items()}
     rfeed = {k: a if a.value is None else
              dataclasses.replace(a, value=rounded(a.value))
@@ -2190,7 +2213,46 @@ def held_amp_step(torch, plain, fused, params, state, feed):
         finally:
             set_amp(False)
         got[arm] = (health, mom, new_state)
-    (h32, m32, s32), (hp, mp, sp), (hf, mf, sf), (hw, mw, _sw) = (
+    return got
+
+
+def amp_grads_vs_f32(fused, got, dist):
+    """{fused parameter: {arm: dist(its gradient, the plain f32 step's)}}
+    for the fused AMP, plain AMP and witness arms (gradients read from
+    the new momentum, -lr * grad)."""
+    from paddle_tpu_torch.weights import fused_resnet_map
+
+    pmap, _smap = fused_resnet_map(fused)
+    m32, mp, mf, mw = (got[a][1] for a in (
+        "plain_f32", "plain_amp", "fused_amp", "witness_f32_rounded_inputs"))
+    return {k: {"fused_amp": dist(mf[k]["mom"].reshape(
+                    m32[src]["mom"].shape), m32[src]["mom"]),
+                "plain_amp": dist(mp[src]["mom"], m32[src]["mom"]),
+                "witness": dist(mw[src]["mom"], m32[src]["mom"])}
+            for k, src in pmap.items()}
+
+
+def grad_spread(grads, arm):
+    v = np.sort([g[arm] for g in grads.values()])
+    return {"min": float(v[0]), "median": float(np.median(v)),
+            "max": float(v[-1])}
+
+
+def held_amp_step(torch, plain, fused, params, state, feed):
+    """Phase 9c(a): one momentum TrainStep at B=8 four ways from one
+    weight map (`amp_arms`). The fused-AMP step's loss, new BN state and
+    each gradient are held against the plain f32 step's within twice the
+    plain-AMP step's own distance from it plus 1e-3 (relative; the state
+    over all its slots). The witness's distances show how far this net
+    at this batch carries bf16's rounding of its inputs alone: on batch
+    statistics at init, most gradients move by more than half their norm
+    (so the gradient bound here is near 1 or above; `held_amp_blocks`
+    holds the same arms where it is small)."""
+    from paddle_tpu_torch.weights import fused_resnet_map
+
+    _pmap, smap = fused_resnet_map(fused)
+    got = amp_arms(torch, plain, fused, params, state, feed)
+    (h32, _m32, s32), (hp, _mp, sp), (hf, mf, sf), (hw, _mw, _sw) = (
         got["plain_f32"], got["plain_amp"], got["fused_amp"],
         got["witness_f32_rounded_inputs"])
     ref = h32[0].item()
@@ -2203,27 +2265,15 @@ def held_amp_step(torch, plain, fused, params, state, feed):
           "fused_amp": max(rel_err(sf[layer][s], s32[pl][ps])[0]
                            for layer, slots in smap.items()
                            for s, (pl, ps) in slots.items())}
-    grads, outside = {}, []
-    for k, src in pmap.items():
-        g = {"fused_amp": rel_err(mf[k]["mom"].reshape(m32[src]["mom"].shape),
-                                  m32[src]["mom"])[0],
-             "plain_amp": rel_err(mp[src]["mom"], m32[src]["mom"])[0],
-             "witness": rel_err(mw[src]["mom"], m32[src]["mom"])[0]}
-        grads[k] = g
-        if g["fused_amp"] > 2 * g["plain_amp"] + 1e-3:
-            outside.append(k)
-
-    def spread(arm):
-        v = np.sort([g[arm] for g in grads.values()])
-        return {"min": float(v[0]), "median": float(np.median(v)),
-                "max": float(v[-1])}
-
+    grads = amp_grads_vs_f32(fused, got, lambda a, b: rel_err(a, b)[0])
+    outside = [k for k, g in grads.items()
+               if g["fused_amp"] > 2 * g["plain_amp"] + 1e-3]
     r = {"loss_f32": ref, "loss_plain_amp": hp[0].item(),
          "loss_fused_amp": hf[0].item(), "loss_witness": hw[0].item(),
          "loss_rel_vs_f32": loss, "state_rel_vs_f32": st,
          "finite": bool(h32[1].item() and hp[1].item() and hf[1].item()),
-         "grads_outside_the_bound": outside, "grads_total": len(pmap),
-         "grad_rel_vs_f32": {a: spread(a) for a in
+         "grads_outside_the_bound": outside, "grads_total": len(grads),
+         "grad_rel_vs_f32": {a: grad_spread(grads, a) for a in
                              ("fused_amp", "plain_amp", "witness")},
          "output_fc_grad_rel_vs_f32": {k: grads[k] for k in
                                        ("_output.w0", "_output.wbias")},
@@ -2239,13 +2289,100 @@ def held_amp_step(torch, plain, fused, params, state, feed):
     return r
 
 
+# phase 9c(a)'s hold that can fail: the four arms of `amp_arms` on fewer
+# blocks at ResNet-50's widths, two fused bottlenecks at res4's (14 x 14 x
+# 1024 in, 256 wide; six ReLU layers), where a 2^-9 rounding of the inputs
+# moves no gradient by more than ~0.14 in relative L2 (at ResNet-50's 53
+# layers at init it moves most of them by more than their norm: the
+# witness of `held_amp_step`); every gradient's bound must be below the
+# ceiling, where a zeroed or a doubled gradient (1.0 from f32) fails
+AMP_BLOCKS = dict(image=(14, 14, 1024), ch=256, blocks=2, batch=32)
+AMP_BOUND_CEILING = 0.5
+
+
+def amp_blocks_net(fused):
+    """AMP_BLOCKS' net: its bottlenecks (`_bottleneck`, fused or plain),
+    an average pool and a 1000-way classifier."""
+    from paddle_tpu_torch import dsl
+    from paddle_tpu_torch.models.image import _bottleneck
+    from paddle_tpu_torch.network import Network
+
+    img = AMP_BLOCKS["image"]
+    with dsl.model() as g:
+        h = dsl.data("image", img)
+        lbl = dsl.data("label", (1,), is_ids=True)
+        for i in range(AMP_BLOCKS["blocks"]):
+            h = _bottleneck(f"blk{i}", h, AMP_BLOCKS["ch"], 1, project=False,
+                            fused=fused)
+        h = dsl.pool(h, img[0], 1, pool_type="avg")
+        dsl.classification_cost(dsl.fc(h, size=1000, name="output"), lbl,
+                                name="cost")
+    return Network(g.conf)
+
+
+def rel_l2(got, ref):
+    """|got - ref| / |ref| in the L2 norm, in f64."""
+    got, ref = got.double(), ref.double()
+    return float((got - ref).norm() / ref.norm())
+
+
+def held_amp_blocks(torch, op):
+    """Phase 9c(a), the hold that can fail: `amp_arms` on
+    `amp_blocks_net` (B1-B3's bf16 forms at res4's sites) at B = 32. The
+    fused AMP step's loss and each gradient against the plain f32 step's
+    within twice the plain AMP step's own distance plus 1e-3, in relative
+    L2, as `held_amp_step`'s rule; every gradient's bound below
+    AMP_BOUND_CEILING; B1-B3's bf16 forms launched in the fused arm."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+
+    plain, fused = amp_blocks_net(False), amp_blocks_net(True)
+    params = plain.init_params(torch.Generator().manual_seed(SEED),
+                               device="cuda")
+    rng = np.random.default_rng(SEED + 32)
+    b = AMP_BLOCKS["batch"]
+    feed = {"image": non_seq(rng.standard_normal(
+                (b,) + AMP_BLOCKS["image"]).astype(np.float32), device="cuda"),
+            "label": id_arg(rng.integers(0, 1000, b).astype(np.int32),
+                            device="cuda")}
+    before = {c: getattr(op, c) for c in FUSED_COUNTERS}
+    got = amp_arms(torch, plain, fused, params, plain.init_state("cuda"),
+                   feed)
+    launched = {c: getattr(op, c) - before[c] for c in FUSED_COUNTERS}
+    grads = amp_grads_vs_f32(fused, got, rel_l2)
+    bounds = {k: 2 * g["plain_amp"] + 1e-3 for k, g in grads.items()}
+    outside = [k for k, g in grads.items() if g["fused_amp"] > bounds[k]]
+    ref = got["plain_f32"][0][0].item()
+    loss = {a: abs(got[a][0][0].item() - ref) / abs(ref)
+            for a in ("plain_amp", "fused_amp")}
+    r = {"net": AMP_BLOCKS, "loss_f32": ref, "loss_rel_vs_f32": loss,
+         "finite": all(bool(got[a][0][1].item()) for a in got),
+         "bf16_launches": {c: v for c, v in launched.items() if v},
+         "grads": len(grads), "grads_outside_the_bound": outside,
+         "bound_max": max(bounds.values()),
+         "grad_rel_l2_vs_f32": {a: grad_spread(grads, a) for a in (
+             "fused_amp", "plain_amp", "witness")},
+         "worst_fused_over_bound": max((g["fused_amp"] / bounds[k], k)
+                                       for k, g in grads.items())}
+    print("amp train step two res4 blocks " + json.dumps(r), flush=True)
+    assert r["finite"], r
+    assert all(launched[c] for c in FUSED_COUNTERS if "bf16" in c), r
+    assert loss["fused_amp"] <= 2 * loss["plain_amp"] + 1e-3, r
+    assert not outside, f"gradients outside the bound: {outside}"
+    assert r["bound_max"] < AMP_BOUND_CEILING, (
+        f"a gradient bound of {r['bound_max']:.3g} would pass a zeroed "
+        "gradient")
+    return r
+
+
 def resnet_training_amp(torch, op, plain, fused, params, state):
     """Phase 9c: ResNet-50 under the bf16 flag at bench_resnet50's
-    settings. (a) the held B=8 step three ways; (b) 20 fused steps at
+    settings. (a) the held B=8 step four ways, and the same four arms on
+    two res4 blocks (`held_amp_blocks`); (b) 20 fused steps at
     B=256 (each bf16 form 29 launches a step, no f32 form); (c) 10 plain
     steps at B=256."""
     held = held_amp_step(torch, plain, fused, params, state,
                          image_feed(8, SEED + 30))
+    held_blocks = held_amp_blocks(torch, op)
     b = resnet_train(torch, op, fused.conf, RESNET_AMP_BATCH,
                      RESNET_AMP_STEPS,
                      f"resnet50_fused_amp_b{RESNET_AMP_BATCH}", amp=True)
@@ -2265,7 +2402,7 @@ def resnet_training_amp(torch, op, plain, fused, params, state):
         f"plain amp loss rose from {p['loss_first']:.4g} to "
         f"{p['loss_last']:.4g}")
     assert p["launches_fwd"] == 0 and not any(p["launches_bf16"].values())
-    return held, b, p
+    return (held, held_blocks), b, p
 
 
 def resnet_training(torch, op, plain, fused, params, state):
@@ -5176,6 +5313,593 @@ def generation(torch, rnn):
             "serve": served}
 
 
+# ---- phase 21: nested sequences and the structured heads ----------------
+
+# 21a: the document classifiers at bench_lstm's widths (the conf's
+# defaults, vocab 1000 / emb 16 / hidden 32, are a unit-test size):
+# DOC_B documents of DOC_S sentence slots, each sentence 1..DOC_WORDS
+# words, the last slot empty in every document (an all-zero subseq_lens
+# column) and one sentence mid-document empty in the first row of every
+# batch; the feeder pads every batch to DOC_T words, so all batches share
+# one shape (one graph)
+DOC = dict(vocab_size=30000, emb_dim=128, hidden=256)
+DOC_B, DOC_S, DOC_WORDS, DOC_T = 64, 8, 25, 200
+DOC_BATCHES, DOC_K, DOC_LR = 8, 4, 2e-3
+# a gradient on the card against the port on the CPU (plain versions), of
+# its largest entry, plus twice the CPU's own f32 distance from f64
+HELD_TOL = 1e-4
+# 21b: the CRF taggers, B = CRF_B, ragged lengths up to CRF_T (one row at
+# CRF_T in every batch)
+CRF_B, CRF_T, CRF_STEPS, CRF_LR = 64, 100, 6, 2e-3
+CRF_CONFS = (("linear_crf_tagger", "linear_crf_tagger", {}),
+             ("rnn_crf_tagger", "rnn_crf_tagger", {}),
+             ("rnn_crf_tagger_h256", "rnn_crf_tagger",
+              dict(emb_dim=128, hidden=256)))
+# 21c: bench.py's alexnet_bs64 row (bench_image: 224 x 224 x 3, 1000
+# classes, momentum 0.001 / 0.9)
+ALEX_B, ALEX_STEPS = 64, 10
+
+
+def doc_conf(kind):
+    """21a's confs: `hierarchical_lstm_classifier` at DOC, or the same
+    walk with the sentence encoder's `recurrent` replaced by
+    `simple_lstm(emb, hidden)` (B5/B6 once per sentence slot); the
+    group's max_subseq_len at DOC_WORDS, the data's longest sentence
+    (nothing is truncated; the inner walk is DOC_WORDS steps, not
+    DOC_T)."""
+    from paddle_tpu_torch import dsl
+    from paddle_tpu_torch.models.text import hierarchical_lstm_classifier
+
+    if kind == "hierarchical":
+        conf = hierarchical_lstm_classifier(**DOC)
+    else:
+        h = DOC["hidden"]
+        with dsl.model() as g:
+            words = dsl.data("words", (1,), is_seq=True, is_ids=True,
+                             has_subseq=True)
+            lbl = dsl.data("label", (1,), is_ids=True)
+
+            def sentence_step(w_sub):
+                doc_prev = dsl.memory("doc", size=h)
+                emb = dsl.embedding(w_sub, size=DOC["emb_dim"],
+                                    vocab_size=DOC["vocab_size"],
+                                    name="word_emb")
+                enc = dsl.simple_lstm(emb, h, name="sent_lstm")
+                last = dsl.last_seq(enc, name="sent_vec")
+                return dsl.mixed(h, [(last, "identity"),
+                                     (doc_prev, "full_matrix")],
+                                 act="tanh", bias=False, name="doc")
+
+            sent = dsl.recurrent_group(sentence_step, [words],
+                                       name="doc_enc")
+            out = dsl.fc(dsl.last_seq(sent, name="doc_vec"), size=2,
+                         name="output")
+            dsl.classification_cost(out, lbl)
+            g.conf.output_layer_names.append("output")
+        conf = g.conf
+    conf.layer("doc_enc").attrs["max_subseq_len"] = DOC_WORDS
+    return conf
+
+
+def doc_data():
+    """21a's batches (lists of (document, label) samples) and the
+    port's DataFeeder with a `sub_sequence` input."""
+    from paddle_tpu_torch.data import feeder as dfeeder
+
+    rng = np.random.default_rng(SEED + 300)
+    batches = []
+    for _ in range(DOC_BATCHES + 1):
+        docs = []
+        for b in range(DOC_B):
+            lens = rng.integers(1, DOC_WORDS + 1, DOC_S)
+            lens[-1] = 0
+            if b == 0:
+                lens[DOC_S // 2] = 0
+            docs.append(([rng.integers(0, DOC["vocab_size"], n).tolist()
+                          for n in lens], int(rng.integers(0, 2))))
+        batches.append(docs)
+    feeder = dfeeder.DataFeeder(
+        {"words": 0, "label": 1},
+        {"words": dfeeder.integer_value_sub_sequence(DOC["vocab_size"]),
+         "label": dfeeder.integer_value(2)}, buckets=(DOC_T,))
+    return batches, feeder
+
+
+def held_grads(torch, name, conf, params, feed):
+    """The loss and every gradient of `conf` on the card against the port
+    on the CPU (the kernels' plain versions) from the same parameters and
+    feed: each within HELD_TOL of its largest entry plus twice the CPU
+    f32 run's distance from the CPU f64 run, the loss at rtol HELD_TOL.
+    Returns the numbers."""
+    from paddle_tpu_torch.network import Network
+
+    from paddle_tpu_torch.core import flags
+
+    net = Network(conf)
+
+    def run(device, dtype):
+        p = {k: v.detach().to(device=device, dtype=dtype).requires_grad_(True)
+             for k, v in params.items()}
+        loss, _ = net.loss_fn(p, {k: a.to(device) for k, a in feed.items()})
+        loss.backward()
+        return loss.item(), {k: v.grad.detach().double().cpu()
+                             for k, v in p.items()}
+
+    # the kernels' path on both devices: B5/B6 on the card, their plain
+    # versions on the CPU
+    flags.set_flag("use_pallas_rnn", True)
+    try:
+        (lc, gc), (l32, g32), (l64, g64) = (run("cuda", torch.float32),
+                                            run("cpu", torch.float32),
+                                            run("cpu", torch.float64))
+    finally:
+        flags.set_flag("use_pallas_rnn", None)
+    errs = {k: (rel_err(gc[k], g32[k])[0], rel_err(g32[k], g64[k])[0])
+            for k in gc}
+    outside = [k for k, (e, noise) in errs.items()
+               if not e <= HELD_TOL + 2 * noise]
+    r = {"loss_card": lc, "loss_cpu": l32, "loss_cpu_f64": l64,
+         "loss_rel": abs(lc - l32) / abs(l32), "grads": len(errs),
+         "grad_rel_max": max(e for e, _n in errs.values()),
+         "cpu_f32_vs_f64_max": max(n for _e, n in errs.values()),
+         "grads_outside": outside}
+    print(f"held card vs cpu {name} " + json.dumps(r), flush=True)
+    assert np.isfinite(lc) and r["loss_rel"] <= HELD_TOL, r
+    assert not outside, f"{name}: gradients outside the bound: {outside}"
+    return r
+
+
+def sgd_arms(torch, rnn, name, conf, params, batches, feeder, lr, arms):
+    """`SGD.train` over `batches` for two passes from `params`, one run
+    for each (arm, steps_per_dispatch) of `arms`. Returns {arm: (numbers,
+    {path: tensor} of the costs, params and adam slots)}; the numbers:
+    ms a step of each pass, graphs captured, first and last loss, and
+    the LSTM wrappers' launch counts over both passes."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.trainer.events import BeginPass, EndIteration, \
+        EndPass
+    from paddle_tpu_torch.trainer.trainer import SGD
+    from paddle_tpu_torch.trainer.watchdog import WatchdogConfig
+
+    out = {}
+    for arm, spd in arms:
+        sgd = SGD(conf, OptimizationConf(learning_method="adam",
+                                         learning_rate=lr),
+                  seed=SEED + 1, device="cuda", steps_per_dispatch=spd,
+                  params={k: v.clone() for k, v in params.items()},
+                  watchdog=WatchdogConfig(
+                      warmup_batches=2 * len(batches) + 1))
+        costs, stamps = [], {}
+
+        def on_event(e):
+            if isinstance(e, EndIteration):
+                costs.append(e.cost)
+            elif isinstance(e, (BeginPass, EndPass)):
+                stamps[(type(e).__name__, e.pass_id)] = time.perf_counter()
+
+        zero_rnn_counts(rnn)
+        sgd.train(reader=lambda: iter(batches), feeder=feeder, num_passes=2,
+                  event_handler=on_event)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in rnn_counts(rnn).items() if v}
+        r = {"steps_per_dispatch": spd, "steps": len(costs),
+             "ms_per_step_pass1": (stamps[("EndPass", 0)]
+                                   - stamps[("BeginPass", 0)])
+             / len(batches) * 1e3,
+             "ms_per_step": (stamps[("EndPass", 1)]
+                             - stamps[("BeginPass", 1)])
+             / len(batches) * 1e3,
+             "graphs_captured": sgd.graphs_captured,
+             "loss_first": costs[0], "loss_last": costs[-1],
+             "launch_counts": counts}
+        print(f"train {name} {arm} " + json.dumps(r), flush=True)
+        assert np.isfinite(costs).all() and len(costs) == 2 * len(
+            batches), r
+        out[arm] = (r, {"costs": torch.tensor(costs, dtype=torch.float64),
+                        **{k: v.clone() for k, v in {
+                            **leaves(sgd.params, "param/"),
+                            **leaves(sgd.opt_state, "slot/")}.items()}})
+        del sgd
+    return out
+
+
+def nested_vs_flat_lstm(torch, rnn, sub):
+    """21a: B5 (training form, with c) and B6 over one batch's words as
+    the nested walk launches them, once a sentence slot on [B, DOC_WORDS]
+    with that slot's lengths, against one flat walk of the same words
+    ([B, T], a row's sentences back to back, T its longest row): CUDA
+    events over all of each side's launches (`time_ms`), random inputs
+    at DOC's hidden width."""
+    h = DOC["hidden"]
+    b, s = sub.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 301)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    flat_lens = sub.sum(dim=1, dtype=torch.int32)
+    t = int(flat_lens.max())
+    w, b7 = rand(h, 4 * h, scale=h ** -0.5), rand(7 * h, scale=0.1)
+    x_flat = rand(b, t, 4 * h)
+    x_sub = [rand(b, DOC_WORDS, 4 * h) for _ in range(s)]
+    lens_sub = [sub[:, i].contiguous() for i in range(s)]
+    ys = [rnn.lstm_seq_fwd(x_sub[i], w, b7, lens_sub[i]) for i in range(s)]
+    yf, cf = rnn.lstm_seq_fwd(x_flat, w, b7, flat_lens)
+    dys = [torch.randn_like(y) for y, _c in ys]
+    dyf = torch.randn_like(yf)
+    r = {"slots": s, "sub_t": DOC_WORDS, "flat_t": t, "words": int(
+        flat_lens.sum()),
+         "nested_fwd_ms": time_ms(torch, lambda: [
+             rnn.lstm_seq_fwd(x_sub[i], w, b7, lens_sub[i])
+             for i in range(s)]),
+         "flat_fwd_ms": time_ms(torch, lambda: rnn.lstm_seq_fwd(
+             x_flat, w, b7, flat_lens)),
+         "nested_bwd_ms": time_ms(torch, lambda: [
+             rnn.lstm_seq_bwd(x_sub[i], w, b7, lens_sub[i], ys[i][0],
+                              ys[i][1], dys[i]) for i in range(s)]),
+         "flat_bwd_ms": time_ms(torch, lambda: rnn.lstm_seq_bwd(
+             x_flat, w, b7, flat_lens, yf, cf, dyf))}
+    print("nested vs flat lstm walk " + json.dumps(r), flush=True)
+    return r
+
+
+def nested_docs(torch, rnn):
+    """Phase 21a: both document classifiers (`doc_conf`) at DOC through
+    the port's DataFeeder: the first batch's loss and gradients on the
+    card against the CPU (`held_grads`), then `SGD.train` two passes of
+    DOC_BATCHES batches eagerly (twice) and at steps_per_dispatch DOC_K
+    (one CUDA graph), the graph arm held bit for bit against the eager
+    ones (`held_graph_vs_eager`: costs, params, adam slots). The LSTM
+    conf's wrappers launch B5 and B6 once per sentence slot a step, all
+    on the cluster route: DOC_S each a step eagerly, and at K = DOC_K
+    only the warm-up step and the DOC_K captured ones. Returns each
+    conf's numbers."""
+    from paddle_tpu_torch.network import Network
+
+    batches, feeder = doc_data()
+    held_feed = feeder(batches[-1])
+    assert (held_feed["words"].subseq_lens[:, -1] == 0).all()
+    assert (held_feed["words"].subseq_lens[0, DOC_S // 2] == 0)
+    out = {}
+    for kind in ("hierarchical", "nested_lstm"):
+        conf = doc_conf(kind)
+        p0 = Network(conf).init_params(torch.Generator().manual_seed(SEED),
+                                       device="cpu")
+        held = held_grads(torch, f"doc {kind}", conf, p0, held_feed)
+        p0 = {k: v.to("cuda") for k, v in p0.items()}
+        arms = sgd_arms(torch, rnn, f"doc {kind}", conf, p0,
+                        batches[:DOC_BATCHES], feeder, DOC_LR,
+                        (("k1", 1), ("k1_again", 1), (f"k{DOC_K}", DOC_K)))
+        g, _ = arms[f"k{DOC_K}"]
+        assert g["graphs_captured"] == 1, g
+        nondet = held_graph_vs_eager(torch, f"doc {kind}", arms["k1"][1],
+                                     arms["k1_again"][1],
+                                     arms[f"k{DOC_K}"][1])
+        steps = 2 * DOC_BATCHES
+        if kind == "nested_lstm":
+            for arm, n in (("k1", steps), ("k1_again", steps),
+                           (f"k{DOC_K}", 1 + DOC_K)):
+                got = arms[arm][0]["launch_counts"]
+                want = dict.fromkeys(
+                    ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
+                     "lstm_bwd_launches", "lstm_bwd_cluster_launches"),
+                    n * DOC_S)
+                assert got == want, f"{kind} {arm}: launched {got}, want {want}"
+        else:
+            assert not any(a[0]["launch_counts"] for a in arms.values())
+        r = {"held": held,
+             "nested_vs_flat": (nested_vs_flat_lstm(
+                 torch, rnn, held_feed["words"].subseq_lens.to("cuda"))
+                 if kind == "nested_lstm" else None), "eager_ms_per_step": arms["k1"][0]["ms_per_step"],
+             "graph_ms_per_step": g["ms_per_step"],
+             "graph_ms_per_step_pass1": g["ms_per_step_pass1"],
+             "eager_runs_differ": nondet,
+             "launches": {arm: a[0]["launch_counts"]
+                          for arm, a in arms.items()}}
+        print(f"nested {kind} " + json.dumps(r), flush=True)
+        out[kind] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def crf_data(seed, n_batches):
+    """21b's batches: CRF_B sentences of 1..CRF_T words (one of CRF_T in
+    each batch) with random tags, and the port's DataFeeder (it pads ids
+    and tags with 0)."""
+    from paddle_tpu_torch.data import feeder as dfeeder
+
+    rng = np.random.default_rng(seed)
+    batches = []
+    for _ in range(n_batches):
+        lens = rng.integers(1, CRF_T + 1, CRF_B)
+        lens[0] = CRF_T
+        batches.append([(rng.integers(0, 5000, n).tolist(),
+                         rng.integers(0, 9, n).tolist()) for n in lens])
+    feeder = dfeeder.DataFeeder(
+        {"words": 0, "tags": 1},
+        {"words": dfeeder.integer_value_sequence(5000),
+         "tags": dfeeder.integer_value_sequence(9)})
+    return batches, feeder
+
+
+def crf_taggers(torch, rnn):
+    """Phase 21b: `linear_crf_tagger` and `rnn_crf_tagger` at their
+    defaults (vocab 5000, 9 tags) and `rnn_crf_tagger` at emb 128 /
+    hidden 256: one batch's loss and gradients on the card against the
+    CPU (`held_grads`), CRF_STEPS adam steps through `SGD.train` (two B5
+    and two B6 launches a step for the bidirectional LSTM), then
+    crf_decoding of one batch from the trained parameters: the ids on
+    the card equal the CPU's exactly. Returns each conf's numbers."""
+    from paddle_tpu_torch.models import text
+    from paddle_tpu_torch.network import Network
+
+    out = {}
+    for name, fn, kw in CRF_CONFS:
+        conf = getattr(text, fn)(**kw)
+        net = Network(conf)
+        batches, feeder = crf_data(SEED + 310, CRF_STEPS + 1)
+        p0 = net.init_params(torch.Generator().manual_seed(SEED),
+                             device="cpu")
+        held = held_grads(torch, f"crf {name}", conf, p0,
+                          feeder(batches[-1]))
+        runs = sgd_arms(torch, rnn, f"crf {name}", conf,
+                        {k: v.to("cuda") for k, v in p0.items()},
+                        batches[:CRF_STEPS], feeder, CRF_LR, (("k1", 1),))
+        r, trained = runs["k1"]
+        n_lstm = 2 * 2 * CRF_STEPS if fn == "rnn_crf_tagger" else 0
+        got = r["launch_counts"]
+        assert got.get("lstm_fwd_launches", 0) == n_lstm and got.get(
+            "lstm_bwd_launches", 0) == n_lstm, (name, got)
+        params = {k[len("param/"):]: v for k, v in trained.items()
+                  if k.startswith("param/")}
+        feed = feeder(batches[-1])
+        decoded = {}
+        for device in ("cuda", "cpu"):
+            with torch.no_grad():
+                o, _ = net.forward(
+                    {k: v.to(device) for k, v in params.items()},
+                    {k: a.to(device) for k, a in feed.items()},
+                    outputs=["decoded"])
+            decoded[device] = o["decoded"].ids.cpu()
+        lens = feed["words"].seq_lens
+        same = torch.equal(decoded["cuda"], decoded["cpu"])
+        r = {"held": held, "ms_per_step": r["ms_per_step"],
+             "loss_first": r["loss_first"], "loss_last": r["loss_last"],
+             "launches": got, "decoded_equal": same,
+             "decoded_tokens": int(lens.sum())}
+        print(f"crf {name} " + json.dumps(r), flush=True)
+        assert same, f"{name}: the card's decoded ids differ from the CPU's"
+        out[name] = r
+        torch.cuda.empty_cache()
+    return out
+
+
+def alexnet_steps(torch, op):
+    """Phase 21c: AlexNet at bench.py's alexnet_bs64 setting through
+    `SGD.train` (`resnet_train`: one fixed batch, ALEX_STEPS steps), in
+    f32 and under the bf16 flag; and its `norm` layer on the card's conv1
+    activation against the same layer on the CPU (within TOL of the
+    largest entry). Returns the numbers."""
+    from paddle_tpu_torch.core.arg import Arg
+    from paddle_tpu_torch.layers.base import Ctx
+    from paddle_tpu_torch.models.image import alexnet
+    from paddle_tpu_torch.network import Network
+
+    conf = alexnet()
+    out = {}
+    for amp in (False, True):
+        name = f"alexnet_b{ALEX_B}" + ("_amp" if amp else "")
+        out[name] = resnet_train(torch, op, conf, ALEX_B, ALEX_STEPS, name,
+                                 amp=amp)
+    net = Network(conf)
+    norm = next(lc for lc in conf.layers if lc.type == "norm")
+    (conv1,) = norm.input_names()
+    params = net.init_params(torch.Generator().manual_seed(SEED),
+                             device="cuda")
+    with torch.no_grad():
+        o, _ = net.forward(params, image_feed(8, SEED + 320),
+                           outputs=[norm.name])
+        cpu = net.layers[norm.name].forward(
+            {}, [Arg(value=o[conv1].value.cpu())], Ctx())
+    err = rel_err(o[norm.name].value.cpu(), cpu.value)[0]
+    r = {"norm_layer": norm.name, "input": conv1,
+         "shape": list(o[norm.name].value.shape), "rel_err": err}
+    print("alexnet norm card vs cpu " + json.dumps(r), flush=True)
+    assert err <= TOL, r
+    out["norm"] = r
+    torch.cuda.empty_cache()
+    return out
+
+
+# 21d: every new layer type and level, one small conf each: (inputs,
+# build(dsl, *refs) making "out"); inputs as in `layer_feeds`
+LAYER_D = 6
+
+
+def _window_conf(dsl, x):
+    ref = dsl._add("slice", [x], name="out", begin=2)
+    dsl.current().conf.layer("out").attrs["size"] = 5
+    return ref
+
+
+def _norm_conf(dsl, img):
+    ref = dsl._add("norm", [img], name="out")
+    dsl.current().conf.layer("out").attrs.update(size=5, scale=0.3)
+    return ref
+
+
+LAYER_CASES = {
+    **{f"seqpool_stride3_{p}": (("x",), lambda d, x, p=p: d.seq_pool(
+        x, p, stride=3, name="out")) for p in ("sum", "average", "max")},
+    **{f"seqpool_subseq_{p}": (("n",), lambda d, n, p=p: d.seq_pool(
+        n, p, level="subseq", name="out"))
+       for p in ("sum", "average", "sqrt_average", "max", "last", "first")},
+    "seqpool_subseq_plain": (("x",), lambda d, x: d.seq_pool(
+        x, "max", level="subseq", name="out")),
+    "seqpool_max_index": (("x",), lambda d, x: d.seq_pool(
+        x, "max", output_max_index=True, name="out")),
+    "last_seq_stride3": (("x",), lambda d, x: d.last_seq(x, stride=3,
+                                                         name="out")),
+    "first_seq_stride3": (("x",), lambda d, x: d.first_seq(x, stride=3,
+                                                           name="out")),
+    "last_seq_subseq": (("n",), lambda d, n: d.last_seq(n, level="subseq",
+                                                        name="out")),
+    "first_seq_subseq": (("n",), lambda d, n: d.first_seq(
+        n, level="subseq", name="out")),
+    "expand_nested": (("v", "n"), lambda d, v, n: d.expand(
+        v, n, level="seq", name="out")),
+    "seqconcat": (("x", "y"), lambda d, x, y: d.seq_concat(x, y,
+                                                           name="out")),
+    "seqreshape": (("x",), lambda d, x: d._add("seqreshape", [x],
+                                               name="out", size=3)),
+    "seqreverse": (("x",), lambda d, x: d.seq_reverse(x, name="out")),
+    "slice": (("x",), _window_conf),
+    "padding": (("img",), lambda d, i: d._add(
+        "padding", [i], name="out", pad_c=(1, 2), pad_h=(0, 1),
+        pad_w=(2, 0))),
+    "crop": (("img",), lambda d, i: d._add("crop", [i], name="out",
+                                           crop_h=(1, 3), crop_w=(2, 4))),
+    "rotate": (("flat",), lambda d, f: d._add("rotate", [f], name="out",
+                                              height=3, width=4)),
+    "subseq": (("x", "off", "size"), lambda d, x, o, s: d.sub_seq(
+        x, o, s, name="out")),
+    "sub_nested_seq": (("n", "sel"), lambda d, n, s: d.sub_nested_seq(
+        n, s, name="out")),
+    "ctc": (("x", "lab"), lambda d, x, lab: d._add(
+        "warp_ctc", [x, lab], name="out", bias=False, blank=0,
+        norm_by_times=True)),
+    "crf": (("x", "tags"), lambda d, x, t: d.crf(x, t, num_tags=LAYER_D,
+                                                 name="out")),
+    "crf_decoding": (("x",), lambda d, x: d.crf_decoding(
+        x, num_tags=LAYER_D, name="out")),
+    "norm": (("img",), _norm_conf),
+    "row_l2_norm": (("x",), lambda d, x: d._add("row_l2_norm", [x],
+                                                name="out")),
+}
+
+
+def layer_feeds(seed):
+    """{name: Arg} on the CPU: sequences with an empty row and one at
+    the full length, a nested sequence with an empty sentence mid-row and
+    an all-zero last column, images, ids."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq, seq, sub_seq
+
+    rng = np.random.default_rng(seed)
+    b, t, d = 8, 40, LAYER_D
+    lens = rng.integers(0, t + 1, b).astype(np.int32)
+    lens[:2] = (0, t)
+    sub = rng.integers(0, 9, (b, 5)).astype(np.int32)
+    sub[:, -1] = 0
+    sub[0, 2] = 0
+    n_sub = (sub > 0).sum(axis=1).astype(np.int32)
+    flat = sub.sum(axis=1)
+
+    def values(shape, lengths):
+        v = rng.standard_normal(shape).astype(np.float32)
+        return v * (np.arange(shape[1])[None, :, None]
+                    < lengths[:, None, None])
+
+    lab = [rng.integers(1, d, n // 3).tolist() for n in lens]
+    lab_lens = np.asarray([len(x) for x in lab], np.int32)
+    lab_ids = np.zeros((b, t), np.int32)
+    for i, x in enumerate(lab):
+        lab_ids[i, :len(x)] = x
+    return {
+        "x": seq(values((b, t, d), lens), lens),
+        "y": seq(values((b, 9, d), lens % 9), lens % 9),
+        "n": sub_seq(values((b, int(flat.max()), d), flat), sub),
+        "v": seq(values((b, 5, d), n_sub), n_sub),
+        "img": non_seq(rng.standard_normal((b, 9, 7, d)).astype(
+            np.float32)),
+        "flat": non_seq(rng.standard_normal((b, 24)).astype(np.float32)),
+        "off": id_arg(rng.integers(0, t, b).astype(np.int32)),
+        "size": id_arg(rng.integers(0, t, b).astype(np.int32)),
+        "sel": id_arg(rng.integers(-1, 5, (b, 3)).astype(np.int32),
+                      rng.integers(0, 4, b).astype(np.int32)),
+        "lab": id_arg(lab_ids, lab_lens),
+        "tags": id_arg(rng.integers(0, d, (b, t)).astype(np.int32), lens),
+    }
+
+
+def new_layers(torch):
+    """Phase 21d: each of LAYER_CASES on the card against the same conf on
+    the CPU from one seeded input: the output within TOL of its largest
+    entry (ids and lengths exactly), and the gradient of a seeded
+    projection of it in every float input and parameter within TOL."""
+    from paddle_tpu_torch import dsl
+    from paddle_tpu_torch.network import Network
+
+    feeds = layer_feeds(SEED + 330)
+    worst = {}
+    for case, (names, build) in LAYER_CASES.items():
+        with dsl.model() as g:
+            refs = []
+            for n in names:
+                a = feeds[n]
+                dim = (1 if a.ids is not None
+                       else tuple(a.value.shape[2 if a.is_seq else 1:]))
+                refs.append(dsl.data(n, dim, is_seq=a.is_seq,
+                                     is_ids=a.ids is not None,
+                                     has_subseq=a.has_subseq))
+            build(dsl, *refs)
+        net = Network(g.conf)
+        p0 = net.init_params(torch.Generator().manual_seed(SEED),
+                             device="cpu")
+        got = {}
+        for device in ("cuda", "cpu"):
+            p = {k: v.to(device).requires_grad_(True) for k, v in p0.items()}
+            feed = {n: feeds[n].to(device) for n in names}
+            xs = {n: a.value.clone().requires_grad_(True)
+                  for n, a in feed.items() if a.value is not None}
+            feed = {n: a.with_value(xs[n]) if n in xs else a
+                    for n, a in feed.items()}
+            o = net.forward(p, feed, outputs=["out"])[0]["out"]
+            grads = {}
+            if o.value is not None and o.value.requires_grad:
+                r = torch.randn(o.value.shape, generator=torch.Generator(
+                    ).manual_seed(SEED), dtype=o.value.dtype)
+                (o.value * r.to(device)).sum().backward()
+                grads = {k: v.grad for k, v in {**xs, **p}.items()
+                         if v.grad is not None}
+            got[device] = (o, grads)
+        (oc, gc), (o32, g32) = got["cuda"], got["cpu"]
+        for f in ("ids", "seq_lens", "subseq_lens"):
+            a, b = getattr(oc, f), getattr(o32, f)
+            assert (a is None) == (b is None) and (
+                a is None or torch.equal(a.cpu(), b)), f"{case}: {f}"
+        errs = [0.0]
+        if oc.value is not None:
+            # max pooling's -1e30 fill of an empty (sub-)sequence must
+            # match exactly, and stays out of the scale of the rest
+            got, ref = oc.value.detach().cpu(), o32.value.detach()
+            fill = ref.abs() >= 1e29
+            assert torch.equal(got[fill], ref[fill]), case
+            errs.append(rel_err(got[~fill], ref[~fill])[0]
+                        if (~fill).any() else 0.0)
+        assert sorted(gc) == sorted(g32), case
+        errs += [rel_err(gc[k].cpu(), g32[k])[0] for k in gc]
+        worst[case] = max(errs)
+        assert worst[case] <= TOL, f"{case}: card vs cpu {worst[case]:.3g}"
+    print("new layers card vs cpu " + json.dumps(worst), flush=True)
+    return worst
+
+
+def nested_and_structured(torch, rnn, op):
+    """Phase 21: (a) nested sequences, (b) the CRF taggers, (c) AlexNet,
+    (d) every new layer type on the card."""
+    phase("21a. the document classifiers over nested sequences through "
+          "SGD and DataFeeder, eager and as a CUDA graph")
+    docs = nested_docs(torch, rnn)
+    phase("21b. the CRF taggers through SGD, then crf_decoding")
+    crf = crf_taggers(torch, rnn)
+    phase("21c. AlexNet at bench.py's alexnet_bs64 setting, f32 and under "
+          "the bf16 flag")
+    alex = alexnet_steps(torch, op)
+    phase("21d. every new layer type and level, card against CPU")
+    layers = new_layers(torch)
+    return {"docs": docs, "crf": crf, "alexnet": alex, "layers": layers}
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
@@ -5430,7 +6154,13 @@ def main() -> int:
     gen = generation(torch, rnn)
     print(smi, flush=True)
 
-    phase("21. result")
+    phase("21. nested sequences and the structured heads: the document "
+          "classifiers, the CRF taggers, AlexNet, every new layer type")
+    print(smi, flush=True)
+    slice21 = nested_and_structured(torch, rnn, fop)
+    print(smi, flush=True)
+
+    phase("22. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -5591,6 +6321,15 @@ def main() -> int:
             "library_ms": None,
         }
 
+    def slice21_launched(counter):
+        # phase 21's training runs: 21a's LSTM document classifier (every
+        # arm: eager steps, the graph's warm-up and capture) and 21b's
+        # taggers
+        docs = slice21["docs"]["nested_lstm"]["launches"]
+        return (sum(a.get(counter, 0) for a in docs.values())
+                + sum(r["launches"].get(counter, 0)
+                      for r in slice21["crf"].values()))
+
     def gen_launched(counter):
         # phase 20's paths on the cluster route: both training arms, the
         # generation encoder and the served encodes
@@ -5637,11 +6376,13 @@ def main() -> int:
                   train_amp["launches_bf16"]["bwd_dw_bf16_launches"],
                   bf16=True),
         rnn_row("lstm_seq_fwd", "lstm", 311, "fwd",
-                cls_launches["lstm_fwd_launches"]),
+                cls_launches["lstm_fwd_launches"]
+                + slice21_launched("lstm_fwd_launches")),
         rnn_row("lstm_seq_fwd_infer", "lstm", 311, "fwd_infer",
                 cls_infer["launches"]["lstm_fwd_infer_launches"]),
         rnn_row("lstm_seq_bwd", "lstm", 358, "bwd",
-                cls_launches["lstm_bwd_launches"]),
+                cls_launches["lstm_bwd_launches"]
+                + slice21_launched("lstm_bwd_launches")),
         grid_row("lstm_seq_fwd_grid", 311, "fwd",
                  wide_launched("lstm_fwd_grid_launches")),
         grid_row("lstm_seq_fwd_infer_grid", 311, "fwd_infer",

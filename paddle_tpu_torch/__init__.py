@@ -13,6 +13,9 @@ instead of continuing on the CPU.
 
 Importing the package imports nothing else: submodules are imported
 by path (`paddle_tpu_torch.serving.server`, ...).
+
+Left out, still to port (ROADMAP A13): the JAX package's top-level API
+(`init(**flags)` and its lazy attributes) and `data/dataset/`.
 """
 
 __version__ = "0.1.0"

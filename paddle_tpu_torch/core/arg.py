@@ -8,6 +8,9 @@ as there: value [B, T, ...] padded to the batch's length, `seq_lens`
 Dtypes: `ids` are int64, the index type `torch.gather` and advanced
 indexing take (the JAX package keeps int32); `seq_lens` and
 `subseq_lens` stay int32, the type the flash kernels read.
+
+Left out, still to port: `pad_ragged`, the ragged-to-dense boundary
+of the C ABI and SWIG surfaces (ROADMAP A12).
 """
 
 from __future__ import annotations
@@ -32,6 +35,15 @@ class Arg:
     @property
     def is_seq(self) -> bool:
         return self.seq_lens is not None
+
+    @property
+    def has_subseq(self) -> bool:
+        return self.subseq_lens is not None
+
+    @property
+    def batch(self) -> int:
+        a = self.value if self.value is not None else self.ids
+        return a.shape[0]
 
     @property
     def max_len(self) -> int:
@@ -84,3 +96,16 @@ def id_arg(ids, seq_lens=None, device=None) -> Arg:
     moves the feed to the parameters' device."""
     return Arg(ids=_tensor(ids, torch.int64, device),
                seq_lens=_tensor(seq_lens, torch.int32, device))
+
+
+def sub_seq(value, subseq_lens, is_ids=False, device=None) -> Arg:
+    """Nested sequence: flat-packed [B, T, ...] value (or ids with
+    `is_ids`) with [B, S] int32 per-sub-sequence lengths, zero-padded;
+    `seq_lens` is their row sum, the flat length."""
+    subseq_lens = _tensor(subseq_lens, torch.int32, device)
+    lens = torch.sum(subseq_lens, dim=1, dtype=torch.int32)
+    if is_ids:
+        return Arg(ids=_tensor(value, torch.int64, device), seq_lens=lens,
+                   subseq_lens=subseq_lens)
+    return Arg(value=_tensor(value, torch.float32, device), seq_lens=lens,
+               subseq_lens=subseq_lens)

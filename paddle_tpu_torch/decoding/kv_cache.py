@@ -24,6 +24,9 @@ Pages are a host-side free list; a sequence holds
 `ceil(len/page_size)` pages (+1 as it grows), so the serving engine
 (`serving/lm_engine.py`) can evict a request mid-generation and
 re-prefill it later byte-identically.
+
+Left out, still to port (ROADMAP A5): beam decode over pages
+(`_beam_decode_program`, `beam_generate`) and `SpeculativePagedLM`.
 """
 
 from __future__ import annotations

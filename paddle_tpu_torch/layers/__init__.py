@@ -15,4 +15,5 @@ from paddle_tpu_torch.layers import (  # noqa: F401
     recurrent_group,
     sequence,
     steps,
+    structured,
 )

@@ -1,9 +1,9 @@
 """Cost (loss) layers of `paddle_tpu/layers/cost.py` the port runs:
 the base (masked per-token reduction, label alignment, per-example
 weight), classification_cost (fused softmax + cross entropy on
-logits), cross_entropy on probabilities, and square_error. The other
-nine types are still to port, each with the slice whose path runs it
-(ROADMAP A2-A4, A9).
+logits), cross_entropy on probabilities, and square_error; the CRF
+and CTC costs are `layers/structured.py`'s. The other nine types are
+still to port (ROADMAP A9).
 
 Each outputs a per-example cost [B]; for sequence inputs padding
 tokens contribute exactly zero and the per-example cost is the sum

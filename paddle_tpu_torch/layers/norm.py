@@ -1,5 +1,5 @@
-"""Batch normalization: `paddle_tpu/layers/norm.py::BatchNormLayer` on
-torch.
+"""Normalization layers of `paddle_tpu/layers/norm.py` on torch: batch
+normalization, the cross-map (local response) norm and row_l2_norm.
 
 Running mean and variance live in the network's state, not its
 parameters, and are never differentiated: the running-average update
@@ -11,13 +11,16 @@ input (the AMP rule) one pass, E[x] and E[x^2] - E[x]^2 clamped at 0,
 with x^2 rounded to bf16 as the JAX layer squares it. The affine
 y = x * scale + offset runs in x's dtype.
 
-Left out, still to port (ROADMAP A9): `norm` (cross-map LRN) and
-`row_l2_norm`.
+The cross-map norm divides by (1 + scale * sum of x^2 over a window of
+`size` channels)^pow, over the last (channel) axis of the NHWC value,
+with `scale` NOT divided by `size`: `F.local_response_norm` divides it,
+which is another function.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.config import ParameterConf
@@ -112,3 +115,42 @@ def moments(x, m=None):
             return mean, torch.square((x - mean) * m).sum(dim=red) / n
         msq = (torch.square(x) * m).sum(dim=red, dtype=f32) / n
     return mean, torch.clamp_min(msq - torch.square(mean), 0.0)
+
+
+@LAYERS.register("norm", "cmrnorm-projection")
+class CrossMapNormLayer(Layer):
+    """Local response normalization across channels
+    (function/CrossMapNormalOp.cpp): y = x / (1 + scale * sum x^2)^pow
+    over a window of `size` channels centred on each. attrs: size (5),
+    scale (1e-4), pow (0.75)."""
+
+    def build(self, in_specs):
+        return in_specs[0], {}
+
+    def forward(self, params, inputs, ctx):
+        (arg,) = inputs
+        a = self.conf.attrs
+        n = a.get("size", 5)
+        x = arg.value
+        half = n // 2
+        padded = F.pad(torch.square(x), (half, n - 1 - half))
+        c = x.shape[-1]
+        # summed in the JAX layer's order, window offset by offset
+        window = sum(padded[..., i:i + c] for i in range(n))
+        denom = torch.pow(1.0 + a.get("scale", 1e-4) * window,
+                          a.get("pow", 0.75))
+        return arg.with_value(x / denom)
+
+
+@LAYERS.register("row_l2_norm")
+class RowL2NormLayer(Layer):
+    """Row-wise L2 normalization (RowL2NormLayer.cpp): x / max(|x|,
+    1e-12) over the last axis."""
+
+    def build(self, in_specs):
+        return in_specs[0], {}
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0].value
+        n = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        return inputs[0].with_value(x / torch.clamp_min(n, 1e-12))

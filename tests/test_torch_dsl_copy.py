@@ -109,7 +109,14 @@ def test_port_has_its_own_registries():
         "multi-class-cross-entropy", "multi_head_attention", "pool",
         "recurrent", "recurrent_group", "recurrent_layer_group", "scaling",
         "seqlastins", "seqpool", "sequence_pool",
-        "softmax_with_cross_entropy", "square_error", "sum_of_squares"])
+        "softmax_with_cross_entropy", "square_error", "sum_of_squares",
+        # nested sequences and the structured heads
+        "cmrnorm-projection", "crf", "crf_decoding", "crop", "ctc",
+        "gen_output", "norm", "pad", "padding", "rotate", "row_l2_norm",
+        "seq_slice", "seqconcat", "seqreshape", "seqreverse",
+        "sequence_reverse", "slice", "sub_nested_seq", "sub_seq", "subseq",
+        "warp_ctc"])
+    assert len(tregistry.LAYERS.names()) == 66
     assert tregistry.OPTIMIZERS.names() == [
         "adadelta", "adagrad", "adam", "adamax", "decayed_adagrad",
         "momentum", "rmsprop", "sgd"]

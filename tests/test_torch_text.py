@@ -28,9 +28,10 @@ run their scan.
 - `Inferencer` of the classifier against the JAX `Inferencer`; the
   flag's policy; the step net's context; the flat JAX parameter names
   (the GRU's `_{name}.wc`, a group's renamed step parameters) carried
-  by `params_from_numpy`; the parts still to port raise, naming their
-  ROADMAP item, and the generation decoder (ported) decodes the JAX
-  decoder's tokens from the trained conf's parameters.
+  by `params_from_numpy`; the parts once missing (the nested document
+  classifier, a strided seqpool) equal the JAX confs, and the generation
+  decoder (ported) decodes the JAX decoder's tokens from the trained
+  conf's parameters.
 """
 
 import numpy as np
@@ -449,8 +450,26 @@ def test_params_from_numpy_keeps_the_flat_jax_names():
 
 
 def test_parts_still_to_port_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TNetwork(ttext.hierarchical_lstm_classifier())
+    """The parts this test once found missing are ported: the nested
+    document classifier and a strided seqpool now equal the JAX confs
+    (loss; outputs and lengths), and the generation decoder decodes the
+    JAX decoder's tokens from the trained conf's parameters."""
+    jnet = JNetwork(jtext.hierarchical_lstm_classifier())
+    tnet = TNetwork(ttext.hierarchical_lstm_classifier())
+    np_p = _np_params(jnet, 6)
+    rng = np.random.default_rng(6)
+    sub = np.asarray([[3, 0, 4], [2, 2, 2], [1, 0, 0]], np.int32)
+    ids = rng.integers(0, 1000, (3, 7)) * (
+        np.arange(7)[None, :] < sub.sum(axis=1)[:, None])
+    label = rng.integers(0, 2, 3)
+    jloss, _ = jnet.loss_fn({k: jnp.asarray(v) for k, v in np_p.items()}, {
+        "words": jarg.sub_seq(jnp.asarray(ids, jnp.int32), sub, is_ids=True),
+        "label": jarg.id_arg(label.astype(np.int32))})
+    with torch.no_grad():
+        tloss, _ = tnet.loss_fn(params_from_numpy(np_p, device="cpu"), {
+            "words": targ.sub_seq(ids, sub, is_ids=True),
+            "label": targ.id_arg(label)})
+    np.testing.assert_allclose(tloss.item(), float(jloss), rtol=NET_TOL)
     # the generation decoder is ported (A3a): it takes the trained NMT's
     # parameters by name and decodes the JAX decoder's tokens
     jconf, tconf = _confs("nmt")
@@ -480,8 +499,20 @@ def test_parts_still_to_port_raise():
     np.testing.assert_array_equal(tlens.numpy(), np.asarray(jlens))
     np.testing.assert_allclose(tscores.numpy(), np.asarray(jscores),
                                rtol=0, atol=1e-5)
-    with tdsl.model() as g:
-        seq = tdsl.data("seq", 4, is_seq=True)
-        tdsl.seq_pool(seq, pool_type="max", stride=2, name="out")
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        TNetwork(g.conf)
+    outs = []
+    for dsl, mod in ((jdsl, jarg), (tdsl, targ)):
+        with dsl.model() as g:
+            seq = dsl.data("seq", 4, is_seq=True)
+            dsl.seq_pool(seq, pool_type="max", stride=2, name="out")
+        v = np.random.default_rng(7).standard_normal((B, T, 4)).astype(
+            np.float32)
+        if mod is jarg:
+            out = JNetwork(g.conf).forward(
+                {}, {"seq": jarg.seq(jnp.asarray(v), LENS)})[0]["out"]
+        else:
+            out = TNetwork(g.conf).forward(
+                {}, {"seq": targ.seq(v, LENS)})[0]["out"]
+        outs.append((np.asarray(out.value), np.asarray(out.seq_lens)))
+    (jv, jl), (tv, tl) = outs
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_allclose(tv, jv, atol=LAYER_TOL)
