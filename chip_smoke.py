@@ -5,19 +5,22 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in twenty-two phases, two of multi-step dispatch (18b,
+`paddle_tpu` — in twenty-three phases, two of multi-step dispatch (18b,
 18c), one of generation and serving (20), one of nested sequences and
-the structured heads (21), and seven that run its paths or its
-kernels' forms under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and
-any failure exits non-zero:
+the structured heads (21), one of beam and speculative decode over the
+paged KV pool (22), and seven that run its paths or its kernels' forms
+under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and any failure
+exits non-zero:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA
    versions; TF32 off;
 2. builds every kernel from `paddle_tpu_torch/csrc` (one nvcc per
    source, in parallel) and prints the build seconds and ptxas report;
 3. holds the flash-attention kernel against its plain PyTorch version
-   on the card at ten shapes, four of them the prefill shapes of phase
-   4 and one LM (b)'s training forward of phase 6 (max |diff| <= 1e-4
+   on the card at eleven shapes, four of them the prefill shapes of
+   phase 4, one phase 22's beam and speculative prefill (B=4, T=1024,
+   kv_len 9, 960, 500, 64) and one LM (b)'s training forward of phase 6
+   (max |diff| <= 1e-4
    on out and on the lse of rows with a visible key: f32 with another
    summation order; rows with no visible key exactly out == 0 and lse
    == 1e30; bit-identical on a repeat), and times
@@ -181,7 +184,8 @@ any failure exits non-zero:
 13. trains both through `SGD.train` at the bench's full lengths on one
     fixed batch — the classifier 30 steps at B=64, T=100, the NMT 20
     steps at B=256, T=32 — then 10 steps of each on the scan arm: every
-    loss falls, ms/step, tokens/s, peak memory and the profile table,
+    loss falls, ms/step, tokens/s, peak memory and the profile table
+    (a kernel arm's over 5 steps, a scan arm's over 1),
     and the kernel arm launches 2 B5 + 2 B6 (classifier) or 2 B7 + 2 B8
     (NMT) a step, every one on the cluster route;
 13c. the classifier at bench_lstm's h = 512 and 1280, where B5 and B6
@@ -301,7 +305,38 @@ any failure exits non-zero:
     row_l2_norm) on the card against the CPU from one seeded input:
     outputs and gradients within 1e-4 of the largest entry, ids and
     lengths exactly;
-22. prints the kernels' JSON line and, last, the device line.
+22. beam and speculative decode over the paged KV pool, the
+    speculative NMT rung and the top-level API: (a)
+    `PagedLM.beam_generate` at the served LM's width (phase 4's spec
+    and weights) over 1280 16-token pages, prompts of 9, 960, 500 and
+    64 tokens (page 0 is the first group's and holds generated
+    tokens), K = 4, 32 new tokens: one prefill of the four rows through
+    B4f (a launch a layer), each group's beams as a set against the
+    port's dense full recompute on the card (tokens exact, scores
+    within 1e-4, unless the reference's smallest gap among a group's
+    top K + 1 candidates up to the first differing step is below
+    1e-4), another request's pages 0-3 and every page the free list
+    never hands out holding a sentinel before and after, a second
+    decode equal to the first: ms, tokens/s, chain depth, the
+    dispatch/device split, the parent copy's bytes a step; (b)
+    `SpeculativePagedLM` with (a)'s target and prompts, propose_k 4,
+    the target as its own draft (accept rate 1.0, a chain shorter than
+    32) and a draft of vocab 2048, d_model 128, 2 heads, 1 layer (its
+    own seed and pool): tokens equal to the target's
+    `PagedLM.generate` by phase 4's rule, scores within 1e-4, B4f once
+    a layer of each net a run; (c) `SpeculativeGreedyDecoder` on the
+    NMT at bench_beam_decode's widths from 20(a)'s weights (B=32,
+    t_src 32, max_len 32; the target a beam-1 decoder as CUDA graphs),
+    a self-draft and a draft of weights moved by 0.3 of their standard
+    deviation: seqs and lens equal to the target's generate() by the
+    serving rule, scores within 1e-5; then `GenerationModel(...,
+    speculative=..., draft_params=...)` over TCP with 20(c)'s traffic,
+    answers on path "spec" and one hook request on the host rung, each
+    equal to a lone call by the rule; (d) `paddle_tpu_torch.init`,
+    then `paddle.dataset.imdb.train()` through `paddle.reader.batched`,
+    `DataFeeder` and `paddle.SGD` on the classifier at bench_lstm's
+    settings for two passes: every loss finite, B5 and B6 twice a step;
+23. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -327,6 +362,9 @@ SEED = 0
 EOS = 1
 MAX_NEW = 32
 PROMPT_LENS = (990, 700, 513, 620, 850, 300, 64, 17)
+# the served LM (phases 4 and 22): the repo's served width
+SERVED_LM = dict(vocab=2048, d_model=256, num_heads=4, num_layers=2,
+                 attn_impl="flash")
 # phase 6(b): adam's learning rate and the steps it needs on one batch of
 # this width to halve the loss. On an H100, lr 0.01 took 30 steps of
 # random labels only to 0.80x, and 200 steps of the next-token batch
@@ -471,8 +509,8 @@ def check_kernel(torch, fa, case, gen):
     return res
 
 
-def random_params(spec, lm):
-    rng = np.random.default_rng(SEED)
+def random_params(spec, lm, seed=SEED):
+    rng = np.random.default_rng(seed)
     out = {}
     for name, shape in lm.lm_param_shapes(spec).items():
         if len(shape) == 1:
@@ -491,8 +529,7 @@ def serve_lm(torch, fa):
     from paddle_tpu_torch.serving.tcp import ServeClient, ServingTCPServer
     from paddle_tpu_torch.weights import params_from_numpy
 
-    spec = lm.LMSpec(vocab=2048, d_model=256, num_heads=4, num_layers=2,
-                     attn_impl="flash")
+    spec = lm.LMSpec(**SERVED_LM)
     params = params_from_numpy(random_params(spec, lm), device="cuda")
     cache = PagedKVCache(spec, num_pages=256, page_size=16,
                          max_pages_per_seq=64, device="cuda")
@@ -1050,21 +1087,32 @@ PORT_KERNELS = {
 def profile_fn(torch, fn, steps=5):
     """Where the time of fn() goes: `steps` calls under torch.profiler.
     Returns the device's kernel ms per call, the eight kernels with the
-    most device time and the port's kernels' ms per call (all their
-    instantiations); None when the profiler sees no device time."""
+    most device time, the port's kernels' ms per call (all their
+    instantiations), and the profile's own wall time with the
+    profiler's post-processing; None when the profiler sees no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == cuda and e.self_device_time_total > 0]
-    if not kernels:
+    # the profiler now and then records no device activity at all (on an
+    # H100, about once a smoke, at phase 5's smallest backward case): such
+    # a window is taken again
+    for attempt in range(3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == cuda and e.self_device_time_total > 0]
+        if kernels:
+            break
+        print(f"profiler: no device time in window {attempt + 1}",
+              flush=True)
+    else:
         return None
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
@@ -1080,6 +1128,7 @@ def profile_fn(torch, fn, steps=5):
         "top": [{"name": e.key[:60], "ms_per_step":
                  e.self_device_time_total / steps / 1e3,
                  "calls_per_step": e.count / steps} for e in top],
+        "steps": steps, "wall_s": time.perf_counter() - t0,
     }
 
 
@@ -2920,9 +2969,18 @@ def held_text_step(torch, conf, feed, lr, name, fixed_pool=False):
     return r
 
 
-def text_train(torch, rnn, conf, feed, lr, steps, tokens, name):
+# steps a training run's profile covers: the scan arms (the kernels'
+# reference) launch 7 000-15 000 kernels a step, and the profiler's
+# post-processing of 5 such steps took 20-44 s a run on an H100's host,
+# most of phases 13-13d; one step gives their device ms and top kernels
+PROFILE_STEPS = {"kernels": 5, "scan": 1}
+
+
+def text_train(torch, rnn, conf, feed, lr, steps, tokens, name,
+               prof_steps=5):
     """SGD.train (adam) on one fixed batch; returns the run's numbers
-    (launch counts read just after the run, before the profile)."""
+    (launch counts read just after the run, before a profile of
+    `prof_steps` steps)."""
     from paddle_tpu_torch.core.config import OptimizationConf
     from paddle_tpu_torch.trainer.events import EndIteration
     from paddle_tpu_torch.trainer.trainer import SGD
@@ -2956,7 +3014,7 @@ def text_train(torch, rnn, conf, feed, lr, steps, tokens, name):
          "launches": counts}
     print(f"train {name} " + json.dumps(r), flush=True)
     assert np.isfinite(costs).all(), f"{name}: a loss is not finite"
-    prof = profile_steps(torch, sgd, feed)
+    prof = profile_steps(torch, sgd, feed, prof_steps)
     if prof is not None:
         prof["idle_share"] = 1 - prof["device_ms_per_step"] / steady
     print(f"profile {name} " + json.dumps(prof), flush=True)
@@ -3087,7 +3145,8 @@ def wide_classifier(torch, rnn):
             set_rnn_arm(arm)
             runs[arm] = text_train(torch, rnn, conf, cls_f, CLS_LR, steps,
                                    CLS_B * CLS_T,
-                                   f"{name}_{arm}_b{CLS_B}_t{CLS_T}")
+                                   f"{name}_{arm}_b{CLS_B}_t{CLS_T}",
+                                   PROFILE_STEPS[arm])
         set_rnn_arm("kernels")
         for arm, r in runs.items():
             assert r["loss_last"] < r["loss_first"], (
@@ -3157,7 +3216,8 @@ def wide_nmt(torch, rnn):
                            ("scan", NMT_WIDE_SCAN_STEPS)):
             set_rnn_arm(arm)
             runs[arm] = text_train(torch, rnn, conf, feed, NMT_LR, steps,
-                                   b * t, f"{name}_{arm}_b{b}_t{t}")
+                                   b * t, f"{name}_{arm}_b{b}_t{t}",
+                                   PROFILE_STEPS[arm])
         set_rnn_arm("kernels")
         for arm, r in runs.items():
             assert r["loss_last"] < r["loss_first"], (
@@ -3200,10 +3260,10 @@ def text_training(torch, rnn):
         n_nmt = NMT_STEPS if arm == "kernels" else SCAN_STEPS
         runs[f"classifier_{arm}"] = text_train(
             torch, rnn, cls_conf, cls_f, CLS_LR, n_cls, cls_tok,
-            f"classifier_{arm}_b{CLS_B}_t{CLS_T}")
+            f"classifier_{arm}_b{CLS_B}_t{CLS_T}", PROFILE_STEPS[arm])
         runs[f"nmt_{arm}"] = text_train(
             torch, rnn, nmt_conf, nmt_f, NMT_LR, n_nmt, nmt_tok,
-            f"nmt_{arm}_b{NMT_B}_t{NMT_T}")
+            f"nmt_{arm}_b{NMT_B}_t{NMT_T}", PROFILE_STEPS[arm])
     set_rnn_arm("kernels")
     for name, r in runs.items():
         assert r["loss_last"] < r["loss_first"], (
@@ -5045,10 +5105,10 @@ def beam_generation(torch, rnn, params):
                                   outputs=["enc", "dec_boot"])
         return [outs["enc"]], {"dec_state": outs["dec_boot"].value}
 
-    def decoder(k_tok, graphs=True, hooks=None):
+    def decoder(k_tok, graphs=True, hooks=None, beam=GEN_BEAM):
         dec = seq2seq_attention_decoder(
             trg_vocab=NMT["trg_vocab"], emb_dim=NMT["emb_dim"],
-            hidden=NMT["hidden"], bos_id=0, eos_id=EOS, beam_size=GEN_BEAM,
+            hidden=NMT["hidden"], bos_id=0, eos_id=EOS, beam_size=beam,
             max_length=GEN_MAX_LEN, tokens_per_dispatch=k_tok)
         dec.use_graphs = graphs
         dec.hooks = hooks or dec.hooks
@@ -5179,7 +5239,8 @@ def beam_generation(torch, rnn, params):
             "enc_launches": enc_counts}
 
 
-def serve_generation(torch, rnn, params, gen):
+def serve_generation(torch, rnn, params, gen, speculative=None,
+                     draft_params=None):
     """Phase 20(c): an InferenceServer with GenerationModel(encode=...,
     named_hooks={"forbid": ...}) behind the TCP front end, max_batch 8,
     buckets (16, 32), the decoder at K = 8 (graphs). 16 requests from 4
@@ -5189,7 +5250,13 @@ def serve_generation(torch, rnn, params, gen):
     its bucket (another decoder) by the margin rule; the hook answer's
     path is "host", its tokens a lone host_generate with the hook's and
     without the token. Prints the median and max latency_ms and the
-    served tokens/s."""
+    served tokens/s.
+
+    With `speculative` (phase 22(c)): the model serves its target (a
+    beam-1 decoder) with the speculative rung, `draft_params` and the
+    target's encoding for the draft (`draft_encode`); the hook-free
+    answers' path is "spec", and every answer is held against a lone
+    call of a beam-1 decoder."""
     import threading
 
     from paddle_tpu_torch.beam_search import BeamHooks
@@ -5206,10 +5273,13 @@ def serve_generation(torch, rnn, params, gen):
         return logp
 
     cfg = SERVE_GEN
-    model = GenerationModel(gen["decoder"](GEN_K), params,
-                            encode=gen["encode"],
-                            named_hooks={"forbid": BeamHooks(
-                                adjust=no_forbid)})
+    beam = GEN_BEAM if speculative is None else 1
+    model = GenerationModel(
+        gen["decoder"](GEN_K) if speculative is None else speculative.target,
+        params, encode=gen["encode"],
+        named_hooks={"forbid": BeamHooks(adjust=no_forbid)},
+        speculative=speculative, draft_params=draft_params,
+        draft_encode=None if speculative is None else gen["encode"])
     server = InferenceServer(ServeConfig(
         max_queue=64, max_batch=cfg["max_batch"], buckets=cfg["buckets"],
         default_deadline_s=60.0))
@@ -5253,7 +5323,7 @@ def serve_generation(torch, rnn, params, gen):
     counts = gru_counts(rnn)
     assert all(a is not None and a["ok"] for a in warm + answers), [
         a for a in warm + answers if a is None or not a["ok"]]
-    lone = gen["decoder"](GEN_K)
+    lone = gen["decoder"](GEN_K, beam=beam)
     equal = excused = 0
     for j, a in enumerate(answers):
         bucket = next(b for b in cfg["buckets"] if b >= len(sources[j]))
@@ -5268,7 +5338,8 @@ def serve_generation(torch, rnn, params, gen):
             ref = host_generate(lone, params, statics, boots,
                                 hooks=rec.hooks())
         else:
-            assert a["path"] == "jit", a
+            assert a["path"] == ("jit" if speculative is None
+                                 else "spec"), a
             ref = tuple(x.cpu().numpy() for x in lone.generate(
                 params, statics, boots))
         got = (np.asarray([[a["tokens"]]]), np.asarray([[len(a["tokens"])]]))
@@ -5277,7 +5348,7 @@ def serve_generation(torch, rnn, params, gen):
             # the hook-free reference's margins, from a host run that
             # records them (only where the tokens differ)
             if not ref_rec.margins:
-                host_generate(gen["decoder"](1), params, st, bt,
+                host_generate(gen["decoder"](1, beam=beam), params, st, bt,
                               hooks=ref_rec.hooks())
             return [m[0] for m in ref_rec.margins]
 
@@ -5292,7 +5363,8 @@ def serve_generation(torch, rnn, params, gen):
          "served_tokens": tokens, "served_tokens_per_s": tokens / wall,
          "tokens_equal": equal, "tokens_excused_by_margin": excused,
          "launches": counts, "server": server.stats()}
-    print("generation serve " + json.dumps(r), flush=True)
+    print(("generation serve " if speculative is None
+           else "speculative serve ") + json.dumps(r), flush=True)
     assert counts["gru_fwd_launches"] > 0 and counts[
         "gru_fwd_cluster_launches"] == counts["gru_fwd_launches"], counts
     return r
@@ -5310,7 +5382,8 @@ def generation(torch, rnn):
     torch.cuda.empty_cache()
     return {"train": trained, "generate": gen["arms"],
             "checks": gen["checks"], "enc_launches": gen["enc_launches"],
-            "serve": served}
+            "serve": served, "params": params, "encode": gen["encode"],
+            "decoder": gen["decoder"]}
 
 
 # ---- phase 21: nested sequences and the structured heads ----------------
@@ -5900,6 +5973,408 @@ def nested_and_structured(torch, rnn, op):
     return {"docs": docs, "crf": crf, "alexnet": alex, "layers": layers}
 
 
+# ---- phase 22: beam and speculative decode over the paged KV pool --------
+
+# 22(a): four prompts, the short one first, so that page 0 (its first beam
+# row's first page) holds generated tokens; BEAM_K beams, BEAM_MAX_NEW
+# tokens. The pool: 16 rows at the 1024 bucket (64 pages each) and their
+# growth, and FOREIGN pages (0..3, where the page table's padded slots
+# point) that another request holds
+BEAM_LENS = (9, 960, 500, 64)
+BEAM_K, BEAM_MAX_NEW = 4, 32
+BEAM_PAGES, FOREIGN = 1280, 4
+SENTINEL = 12345.0
+# 22(b): the draft LM (its own seed and pool) and the proposal length; a
+# speculative pool holds 4 rows at the 1024 bucket and their growth
+DRAFT_LM = dict(vocab=2048, d_model=128, num_heads=2, num_layers=1,
+                attn_impl="flash")
+PROPOSE_K, SPEC_PAGES = 4, 300
+# 22(c): the NMT's draft with other parameters: each weight moved by
+# DRAFT_NOISE of its own standard deviation
+DRAFT_NOISE = 0.3
+
+
+def beam_prompts(spec):
+    rng = np.random.default_rng(SEED + 230)
+    lens = np.asarray(BEAM_LENS, np.int32)
+    ids = np.zeros((len(lens), int(lens.max())), np.int32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = rng.integers(2, spec.vocab, n)
+    return ids, lens
+
+
+def beam_reference(torch, lm, spec, params, ids, lens):
+    """The port's full-recompute beam, dense attention in plain torch on
+    the card, with each step's margins: per group, the smallest gap
+    between consecutive candidates among its top K + 1 (the serving
+    rule's margin, as MarginRecorder's). Returns (tokens, scores,
+    margins [steps, B])."""
+    margins = []
+    init, step = lm.beam_init_select, lm.beam_step_select
+
+    def gap(cand, k):
+        top = torch.topk(cand.reshape(cand.shape[0], -1), k + 1).values
+        margins.append((top[:, :-1] - top[:, 1:]).min(1).values.cpu()
+                       .numpy())
+
+    def rec_init(logp0, k):
+        gap(logp0, k)
+        return init(logp0, k)
+
+    def rec_step(scores, logp, finished, eos_id):
+        eos = torch.arange(logp.shape[-1], device=logp.device) == eos_id
+        fin = torch.where(eos, scores[..., None],
+                          torch.full_like(logp, -1e30))
+        gap(torch.where(finished[..., None], fin, scores[..., None] + logp),
+            scores.shape[1])
+        return step(scores, logp, finished, eos_id)
+
+    lm.beam_init_select, lm.beam_step_select = rec_init, rec_step
+    try:
+        toks, scores = lm.beam_decode_recompute(
+            dataclasses.replace(spec, attn_impl="dense"), params, ids, lens,
+            BEAM_K, BEAM_MAX_NEW, EOS)
+    finally:
+        lm.beam_init_select, lm.beam_step_select = init, step
+    return toks, scores, np.stack(margins)
+
+
+def beam_groups_held(got, ref, margins):
+    """Each group's beams as a set equal to the reference's (tokens
+    exact, each beam's score within 1e-4 of |score| + 1e-4), unless the
+    reference's margin at some step up to the first step whose set of
+    prefixes differs is below GEN_MARGIN. Returns (groups equal, groups
+    excused)."""
+    (gt, gs), (rt, rs) = got, ref
+    equal = excused = 0
+    for g in range(rt.shape[0]):
+        a = {tuple(int(x) for x in gt[g, j]): float(gs[g, j])
+             for j in range(gt.shape[1])}
+        b = {tuple(int(x) for x in rt[g, j]): float(rs[g, j])
+             for j in range(rt.shape[1])}
+        if set(a) == set(b):
+            for toks, sc in b.items():
+                assert abs(a[toks] - sc) <= 1e-4 * (1 + abs(sc)), (
+                    f"group {g}: score {a[toks]} vs {sc}")
+            equal += 1
+            continue
+        t = next(t for t in range(rt.shape[2])
+                 if sorted(x[:t + 1] for x in a)
+                 != sorted(x[:t + 1] for x in b))
+        low = float(margins[:t + 1, g].min())
+        assert low < GEN_MARGIN, (
+            f"group {g}: beams differ at step {t} with the reference's "
+            f"smallest margin {low:.3g} >= {GEN_MARGIN}")
+        excused += 1
+    return equal, excused
+
+
+def paged_beam(torch, fa):
+    """Phase 22(a): `PagedLM.beam_generate` at the served LM's width over
+    a pool of BEAM_PAGES 16-token pages (64 a sequence), prompts
+    BEAM_LENS, K = BEAM_K, BEAM_MAX_NEW tokens. The pages no row owns
+    (FOREIGN, held by another request, and every page the free list
+    never hands out) hold SENTINEL before and after the decode. One
+    prefill of the B rows through B4f (a launch a layer). Held against
+    the port's dense full recompute on the card (`beam_groups_held`); a
+    second decode, timed, equal to the first. Prints ms, tokens/s, the
+    chain depth, the dispatch/device split, the B4f launches and the
+    parent copy's bytes a step. Returns (numbers, spec, params, prompts)."""
+    from paddle_tpu_torch.decoding.kv_cache import PagedKVCache, PagedLM
+    from paddle_tpu_torch.models import lm
+    from paddle_tpu_torch.weights import params_from_numpy
+
+    spec = lm.LMSpec(**SERVED_LM)
+    params = params_from_numpy(random_params(spec, lm), device="cuda")
+    ids, lens = beam_prompts(spec)
+    cache = PagedKVCache(spec, num_pages=BEAM_PAGES, page_size=16,
+                         max_pages_per_seq=64, device="cuda")
+    foreign = cache.alloc(FOREIGN)
+    assert foreign == list(range(FOREIGN)), foreign
+    handed = set()
+    alloc = cache.alloc
+
+    def recording_alloc(n):
+        got = alloc(n)
+        handed.update(got)
+        return got
+
+    cache.alloc = recording_alloc
+    pool_k, pool_v = cache.ensure_pool()
+    pool_k.fill_(SENTINEL)
+    pool_v.fill_(SENTINEL)
+    plm = PagedLM(spec, params, cache, eos_id=EOS)
+    torch.cuda.synchronize()
+    fa.launches = 0
+    got = plm.beam_generate(ids, lens, BEAM_K, BEAM_MAX_NEW)
+    torch.cuda.synchronize()
+    launches = fa.launches
+    unowned = [p for p in range(cache.num_pages) if p not in handed]
+    assert set(foreign) <= set(unowned)
+    untouched = all(bool((pool[:, unowned] == SENTINEL).all().item())
+                    for pool in (pool_k, pool_v))
+    assert untouched, "the beam decode wrote a page no row owns"
+    assert launches == spec.num_layers, (
+        f"B4f launched {launches} times, want one prefill of "
+        f"{spec.num_layers} layers")
+    copy_per_step = plm.last_copy_bytes / (BEAM_MAX_NEW - 1)
+    t0 = time.perf_counter()
+    again = plm.beam_generate(ids, lens, BEAM_K, BEAM_MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert all(np.array_equal(a, b) for a, b in zip(again, got)), (
+        "the beam decode differs run to run")
+    ref_t, ref_s, margins = beam_reference(torch, lm, spec, params, ids,
+                                           lens)
+    equal, excused = beam_groups_held(got, (ref_t, ref_s), margins)
+    b = len(lens)
+    r = {"prompt_lens": list(BEAM_LENS), "beam": BEAM_K,
+         "max_new": BEAM_MAX_NEW, "ms": wall * 1e3,
+         "tokens_per_s": b * BEAM_MAX_NEW / wall,
+         "beam_tokens_per_s": b * BEAM_K * BEAM_MAX_NEW / wall,
+         "chain_depth": plm.last_chain_depth, **plm.last_timeline,
+         "b4f_launches": launches, "copy_bytes_per_step": copy_per_step,
+         "copy_bytes": plm.last_copy_bytes,
+         "pages_never_handed_out": len(unowned),
+         "sentinel_pages_untouched": untouched,
+         "groups_equal": equal, "groups_excused_by_margin": excused,
+         "reference_min_margin": float(margins.min()),
+         "prefilled_tokens": cache.prefilled_tokens,
+         "appended_tokens": cache.appended_tokens,
+         "cached_prefix_tokens": cache.cached_prefix_tokens}
+    print("paged beam " + json.dumps(r), flush=True)
+    assert plm.last_chain_depth == BEAM_MAX_NEW, r
+    assert cache.free_page_count() == cache.num_pages - FOREIGN, r
+    return r, spec, params, (ids, lens)
+
+
+def greedy_held(torch, lm, spec, params, ids, lens, got, ref, name):
+    """Each row's tokens of `got` equal the target's greedy paged output
+    `ref`, unless the dense reference's top-2 log-prob margin at the
+    first differing step is below GEN_MARGIN (phase 4's rule); the
+    scores of equal rows within 1e-4 of |score| + 1e-4. Returns (rows
+    equal, rows excused)."""
+    equal = excused = 0
+    dense = dataclasses.replace(spec, attn_impl="dense")
+    for i in range(len(lens)):
+        a, b = got[0][i].tolist(), ref[0][i].tolist()
+        if a == b:
+            assert abs(got[1][i] - ref[1][i]) <= 1e-4 * (
+                1 + abs(ref[1][i])), (name, i, got[1][i], ref[1][i])
+            equal += 1
+            continue
+        t = next(j for j in range(len(b)) if a[j] != b[j])
+        seq = np.concatenate([ids[i, :lens[i]], np.asarray(b[:t], np.int32)])
+        with torch.no_grad():
+            logits = lm.lm_forward(dense, params,
+                                   torch.as_tensor(seq[None], device="cuda"))
+        top2 = torch.topk(lm.lm_logp(logits[0, -1]), 2).values
+        margin = (top2[0] - top2[1]).item()
+        assert margin < GEN_MARGIN, (
+            f"{name}: row {i} differs at step {t}, reference margin "
+            f"{margin:.3g}")
+        excused += 1
+    return equal, excused
+
+
+def speculative_lm(torch, fa, spec, params, prompts):
+    """Phase 22(b): `SpeculativePagedLM` with (a)'s target (its own pool of
+    SPEC_PAGES pages) over (a)'s prompts, PROPOSE_K, BEAM_MAX_NEW tokens,
+    against the target's `PagedLM.generate` (`greedy_held`): the target
+    as its own draft (accept rate 1.0, a chain shorter than
+    BEAM_MAX_NEW) and a DRAFT_LM draft (its own seed and pool). Each
+    run's prefills go through B4f (a launch a layer of each net). Prints
+    the accept rate, chain depth, ms and tokens/s of each."""
+    from paddle_tpu_torch.decoding.kv_cache import PagedKVCache, PagedLM, \
+        SpeculativePagedLM
+    from paddle_tpu_torch.models import lm
+    from paddle_tpu_torch.weights import params_from_numpy
+
+    ids, lens = prompts
+
+    def plm(s, p):
+        return PagedLM(s, p, PagedKVCache(s, num_pages=SPEC_PAGES,
+                                          page_size=16, max_pages_per_seq=64,
+                                          device="cuda"), eos_id=EOS)
+
+    ref = plm(spec, params).generate(ids, lens, BEAM_MAX_NEW)
+    dspec = lm.LMSpec(**DRAFT_LM)
+    drafts = {"self_draft": (spec, params),
+              "draft": (dspec, params_from_numpy(
+                  random_params(dspec, lm, SEED + 22), device="cuda"))}
+    out = {}
+    for name, (ds, dp) in drafts.items():
+        sp = SpeculativePagedLM(plm(spec, params), plm(ds, dp),
+                                propose_k=PROPOSE_K)
+        torch.cuda.synchronize()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        got = sp.generate(ids, lens, BEAM_MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fa.launches
+        equal, excused = greedy_held(torch, lm, spec, params, ids, lens,
+                                     got, ref, name)
+        r = {"propose_k": PROPOSE_K, "accept_rate": sp.last_accept_rate,
+             "chain_depth": sp.last_chain_depth, "ms": wall * 1e3,
+             "tokens_per_s": len(lens) * BEAM_MAX_NEW / wall,
+             "b4f_launches": launches,
+             "rows_equal": equal, "rows_excused_by_margin": excused}
+        print(f"speculative paged {name} " + json.dumps(r), flush=True)
+        assert launches == spec.num_layers + ds.num_layers, r
+        if name == "self_draft":
+            assert sp.last_accept_rate == 1.0, r
+            assert sp.last_chain_depth < BEAM_MAX_NEW, r
+        for p in (sp.target, sp.draft):
+            assert p.cache.free_page_count() == p.cache.num_pages
+        out[name] = r
+    return out
+
+
+def speculative_nmt(torch, rnn, gen):
+    """Phase 22(c): `SpeculativeGreedyDecoder` over the attention NMT at
+    bench_beam_decode's widths (B=32, t_src 32, max_len 32) from 20(a)'s
+    trained parameters: the target a beam-1 decoder (CUDA graphs at
+    K = 1), the drafts the target's net with the same parameters and
+    with each weight moved by DRAFT_NOISE of its standard deviation
+    (seeded), both on the target's encoding. Each: seqs and lens equal
+    to the target's generate() by the margin rule (exact where no near
+    tie), scores within 1e-5 of |score|; accept rate, chain depth,
+    steps, ms and tokens/s. Then `GenerationModel(target, params,
+    encode, speculative=..., draft_params=...)` over TCP with 20(c)'s
+    traffic (`serve_generation`): answers on path "spec" and one hook
+    request on the host rung, each equal to a lone call. Returns the
+    numbers and the encoder's B7 launches."""
+    from paddle_tpu_torch.decoding import SpeculativeGreedyDecoder
+
+    params, encode, decoder = gen["params"], gen["encode"], gen["decoder"]
+    rng = np.random.default_rng(SEED + 240)
+    src = rng.integers(2, NMT["src_vocab"], (GEN_B, GEN_T_SRC)).astype(
+        np.int32)
+    lens = np.full(GEN_B, GEN_T_SRC, np.int32)
+    zero_rnn_counts(rnn)
+    statics, boots = encode(src, lens)
+    torch.cuda.synchronize()
+    enc = gru_counts(rnn)
+    target = decoder(1, beam=1)
+    ref = tuple(x.cpu().numpy() for x in target.generate(params, statics,
+                                                         boots))
+    gen_rng = torch.Generator(device="cuda").manual_seed(SEED + 241)
+    other = {k: v + DRAFT_NOISE * v.std() * torch.randn(
+        v.shape, generator=gen_rng, device="cuda") if v.numel() > 1
+        else v for k, v in params.items()}
+    rec = MarginRecorder(EOS)
+
+    def margins(_i):
+        if not rec.margins:
+            from paddle_tpu_torch.serving.host_decode import host_generate
+
+            host_generate(decoder(1, beam=1), params, statics, boots,
+                          hooks=rec.hooks())
+        return [m[_i] for m in rec.margins]
+
+    out, specs = {}, {}
+    for name, dp in (("self_draft", params), ("draft", other)):
+        sp = SpeculativeGreedyDecoder(target, decoder(1, beam=1),
+                                      propose_k=PROPOSE_K)
+        t0 = time.perf_counter()
+        got = sp.generate(params, dp, statics=statics, boots=boots,
+                          draft_statics=statics, draft_boots=boots)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        equal, excused = margin_rule(f"speculative nmt {name}", got[:2],
+                                     ref[:2], margins)
+        same = [i for i in range(GEN_B)
+                if best_tokens(*got[:2], i) == best_tokens(*ref[:2], i)]
+        score_err = max(abs(float(got[2][i, 0]) - float(ref[2][i, 0]))
+                        / max(1.0, abs(float(ref[2][i, 0]))) for i in same)
+        r = {"propose_k": PROPOSE_K, "accept_rate": sp.last_accept_rate,
+             "chain_depth": sp.last_chain_depth, "steps": sp.last_steps,
+             "ms": wall * 1e3, "tokens_per_s": GEN_B * GEN_MAX_LEN / wall,
+             "rows_equal": equal, "rows_excused_by_margin": excused,
+             "score_max_rel_err": score_err}
+        print(f"speculative nmt {name} " + json.dumps(r), flush=True)
+        assert score_err <= 1e-5, r
+        if name == "self_draft":
+            assert sp.last_accept_rate == 1.0, r
+        out[name], specs[name] = r, sp
+    served = serve_generation(torch, rnn, params, gen,
+                              speculative=specs["draft"], draft_params=other)
+    out["serve"] = served
+    return out, {k: enc[k] + served["launches"][k] for k in enc}
+
+
+def api_imdb(torch, rnn):
+    """Phase 22(d): the top-level API: `paddle_tpu_torch.init(...)`, then
+    `paddle.dataset.imdb.train(word_dict)` through
+    `paddle.reader.batched` (64 a batch), `DataFeeder` and `paddle.SGD`
+    on the classifier at bench_lstm's settings (CLS, adam 2e-3), two
+    passes on the card: every loss finite, B5 and B6 twice a step on the
+    cluster route. Returns the numbers."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.data import feeder as dfeeder
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.trainer.events import EndIteration
+
+    old = flags.get_flag("log_period")
+    paddle.init(log_period=1000)
+    try:
+        word_dict = paddle.dataset.imdb.word_dict()
+        reader = paddle.reader.batched(paddle.dataset.imdb.train(word_dict),
+                                       CLS_B, drop_last=False)
+        feeder = dfeeder.DataFeeder(
+            {"words": 0, "label": 1},
+            {"words": dfeeder.integer_value_sequence(CLS["vocab_size"]),
+             "label": dfeeder.integer_value(2)}, buckets=(32, 64))
+        sgd = paddle.SGD(stacked_lstm_classifier(**CLS),
+                         OptimizationConf(learning_method="adam",
+                                          learning_rate=CLS_LR),
+                         seed=SEED + 1, device="cuda")
+        costs = []
+        zero_rnn_counts(rnn)
+        t0 = time.perf_counter()
+        sgd.train(reader=reader, feeder=feeder, num_passes=2,
+                  event_handler=lambda e: costs.append(e.cost)
+                  if isinstance(e, EndIteration) else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        flags.set_flag("log_period", old)
+    counts = {k: v for k, v in rnn_counts(rnn).items() if v}
+    r = {"words": len(word_dict), "steps": len(costs), "wall_s": wall,
+         "loss_first": costs[0], "loss_last": costs[-1],
+         "launches": counts}
+    print("api imdb " + json.dumps(r), flush=True)
+    assert np.isfinite(costs).all() and len(costs) == 8, r
+    n = 2 * len(costs)
+    assert counts == dict.fromkeys(
+        ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
+         "lstm_bwd_launches", "lstm_bwd_cluster_launches"), n), r
+    return r
+
+
+def paged_and_speculative(torch, fa, rnn, gen):
+    """Phase 22: (a) paged beam, (b) the speculative paged LM, (c) the
+    speculative NMT and its serving, (d) the top-level API."""
+    phase("22a. paged beam search at the served LM's width")
+    beam, spec, params, prompts = paged_beam(torch, fa)
+    phase("22b. SpeculativePagedLM with (a)'s target")
+    spec_lm = speculative_lm(torch, fa, spec, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    phase("22c. SpeculativeGreedyDecoder on the NMT and its serving rung")
+    spec_nmt, nmt_launches = speculative_nmt(torch, rnn, gen)
+    phase("22d. the top-level API: dataset.imdb through reader, DataFeeder "
+          "and SGD")
+    api = api_imdb(torch, rnn)
+    b4f = (beam["b4f_launches"]
+           + sum(r["b4f_launches"] for r in spec_lm.values()))
+    return {"beam": beam, "spec_lm": spec_lm, "spec_nmt": spec_nmt,
+            "api": api, "b4f_launches": b4f, "gru_launches": nmt_launches}
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
@@ -6031,6 +6506,10 @@ def main() -> int:
         # a head dim the kernel instantiates beyond 32/64/128
         dict(name="b2_t300_h3_d96_ragged", B=2, Tq=300, Tk=300, H=3, D=96,
              causal=True, kv_len=[300, 151]),
+        # phase 22's beam and speculative prefill (B rows at the 1024
+        # bucket, kv_len = the prompt lengths)
+        dict(name="beam_prefill_b4_t1024_h4_d64", B=4, Tq=1024, Tk=1024,
+             H=4, D=64, causal=True, kv_len=list(BEAM_LENS)),
     ]
     results = [check_kernel(torch, fa, c, gen) for c in cases]
 
@@ -6160,11 +6639,18 @@ def main() -> int:
     slice21 = nested_and_structured(torch, rnn, fop)
     print(smi, flush=True)
 
-    phase("22. result")
+    phase("22. beam and speculative decode over the paged KV pool, the "
+          "speculative NMT rung, the top-level API and the datasets")
+    print(smi, flush=True)
+    slice22 = paged_and_speculative(torch, fa, rnn, gen)
+    print(smi, flush=True)
+
+    phase("23. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
-          f"{train_fwd}", flush=True)
+          f"{train_fwd}, paged beam and speculative "
+          f"{slice22['b4f_launches']}", flush=True)
 
     def bwd_row(kernel, key):
         return {
@@ -6332,18 +6818,24 @@ def main() -> int:
 
     def gen_launched(counter):
         # phase 20's paths on the cluster route: both training arms, the
-        # generation encoder and the served encodes
+        # generation encoder and the served encodes; phase 22(c)'s
+        # encoder and its served encodes
         return (sum(gen["train"][arm]["launches"][counter]
                     for arm in ("fused", "generic"))
                 + gen["enc_launches"][counter]
-                + gen["serve"]["launches"][counter])
+                + gen["serve"]["launches"][counter]
+                + slice22["gru_launches"][counter])
+
+    def api_launched(counter):
+        # phase 22(d)'s classifier through the top-level API
+        return slice22["api"]["launches"].get(counter, 0)
 
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "paddle_tpu/parallel/ring.py:265",
-        "launches": launches + train_fwd,
+        "launches": launches + train_fwd + slice22["b4f_launches"],
         "max_abs_err": max(max(r["err_out"], r["err_lse"])
                            for r in results),
         "ms": served["kernel_ms"],
@@ -6377,12 +6869,14 @@ def main() -> int:
                   bf16=True),
         rnn_row("lstm_seq_fwd", "lstm", 311, "fwd",
                 cls_launches["lstm_fwd_launches"]
-                + slice21_launched("lstm_fwd_launches")),
+                + slice21_launched("lstm_fwd_launches")
+                + api_launched("lstm_fwd_launches")),
         rnn_row("lstm_seq_fwd_infer", "lstm", 311, "fwd_infer",
                 cls_infer["launches"]["lstm_fwd_infer_launches"]),
         rnn_row("lstm_seq_bwd", "lstm", 358, "bwd",
                 cls_launches["lstm_bwd_launches"]
-                + slice21_launched("lstm_bwd_launches")),
+                + slice21_launched("lstm_bwd_launches")
+                + api_launched("lstm_bwd_launches")),
         grid_row("lstm_seq_fwd_grid", 311, "fwd",
                  wide_launched("lstm_fwd_grid_launches")),
         grid_row("lstm_seq_fwd_infer_grid", 311, "fwd_infer",

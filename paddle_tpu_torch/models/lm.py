@@ -9,8 +9,16 @@ The same pure functions over the same flat parameter dict (`_lm_emb.w0`,
   on the card (`parallel/ring.py::flash_dense_attention`).
 - `lm_decode_chunk` — n new tokens against a gathered cache context
   (slot s of the context is absolute position s).
-- `greedy_decode_recompute` — the full-recompute reference: every new
-  token re-runs the whole prefix through `lm_forward`.
+- `beam_init_select` / `beam_step_select` — the beam expansion rule,
+  shared by the paged and the full-recompute paths, so the tests
+  between them compare only the logits' source (cache or recompute).
+  Equal scores order by the lower flat index, as `lax.top_k` does
+  (`beam_search._top_k_stable`).
+- `greedy_decode_recompute` / `beam_decode_recompute` — the
+  full-recompute references: every new token re-runs the whole prefix
+  through `lm_forward`.
+- `lm_prefix_recompute_bytes_saved` — the bytes a recompute decode
+  would have streamed for the prefix tokens the page pool served.
 - `transformer_lm` — the train conf, through the port's copy of the
   DSL: the same ModelConf the JAX package builds, run by the port's
   `Network` and `trainer.SGD`.
@@ -31,6 +39,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import dsl
+from paddle_tpu_torch.beam_search import _top_k_stable
 from paddle_tpu_torch.core.config import ModelConf
 from paddle_tpu_torch.network import Network
 from paddle_tpu_torch.parallel import ring
@@ -215,7 +224,34 @@ def lm_logp(logits):
     return torch.log_softmax(logits.float(), dim=-1)
 
 
-# ---- full-recompute reference (what the pins compare against) -------
+# ---- beam expansion rule (shared by paged + recompute paths) -------
+
+def beam_init_select(logp0, k: int):
+    """First expansion from the prompt's next-token distribution:
+    logp0 [B, vocab] -> (scores [B, k], tokens [B, k] int32)."""
+    scores, tokens = _top_k_stable(logp0, k)
+    return scores, tokens.to(torch.int32)
+
+
+def beam_step_select(scores, logp, finished, eos_id: int):
+    """One beam expansion: scores [B, K] f32, logp [B, K, vocab] f32,
+    finished [B, K] bool -> (scores, parent, token, finished), each
+    [B, K]. A finished beam contributes exactly one candidate — eos at
+    its frozen score — so it survives top-k without growing."""
+    b, k, v = logp.shape
+    live = scores[..., None] + logp
+    eos = torch.arange(v, device=logp.device) == eos_id
+    fin = torch.where(eos, scores[..., None],
+                      torch.full_like(logp, ring.NEG_INF))
+    cand = torch.where(finished[..., None], fin, live)
+    top, idx = _top_k_stable(cand.reshape(b, k * v), k)
+    parent = (idx // v).to(torch.int32)
+    token = (idx % v).to(torch.int32)
+    was_fin = torch.gather(finished, 1, parent.long())
+    return top, parent, token, was_fin | (token == eos_id)
+
+
+# ---- full-recompute references (what the pins compare against) ------
 
 def _last_logp(spec, params, buf, lens):
     logits = lm_forward(spec, params, buf, lens=lens)
@@ -257,6 +293,50 @@ def greedy_decode_recompute(spec: LMSpec, params: dict, ids, lens,
     return out, scores
 
 
+@torch.no_grad()
+def beam_decode_recompute(spec: LMSpec, params: dict, ids, lens,
+                          beam_k: int, max_new: int, eos_id: int):
+    """Full-recompute beam search under the shared expansion rule, on
+    the params' device. Returns (tokens [B, K, max_new] int32, scores
+    [B, K] f32) as numpy."""
+    dev = next(iter(params.values())).device
+    ids_np = np.asarray(ids.cpu() if torch.is_tensor(ids) else ids)
+    b, t0 = ids_np.shape
+    k = beam_k
+    lens_np = np.asarray(lens).astype(np.int32)
+
+    def last_logp(buf, ln):
+        return _last_logp(spec, params, torch.as_tensor(buf, device=dev),
+                          torch.as_tensor(ln, device=dev))
+
+    sc, tok = beam_init_select(last_logp(ids_np, lens_np), k)
+    scores = sc
+    hist = np.zeros((b, k, max_new), np.int32)
+    hist[:, :, 0] = tok.cpu().numpy()
+    finished = torch.as_tensor(hist[:, :, 0] == eos_id, device=dev)
+
+    buf = np.zeros((b, k, t0 + max_new), np.int32)
+    buf[:, :, :t0] = ids_np[:, None, :]
+    rows = np.arange(b)[:, None], np.arange(k)[None, :]
+    buf[rows[0], rows[1], lens_np[:, None]] = hist[:, :, 0]
+    blens = np.broadcast_to(lens_np[:, None] + 1, (b, k)).copy()
+    gi = np.arange(b)[:, None]
+    for t in range(1, max_new):
+        logp = last_logp(buf.reshape(b * k, -1),
+                         blens.reshape(b * k)).reshape(b, k, -1)
+        scores, parent, tok, finished = beam_step_select(
+            scores, logp, finished, eos_id)
+        parent_np = parent.cpu().numpy()
+        tok_np = tok.cpu().numpy()
+        hist = hist[gi, parent_np]
+        buf = buf[gi, parent_np]
+        blens = blens[gi, parent_np]
+        hist[:, :, t] = tok_np
+        buf[rows[0], rows[1], blens] = tok_np
+        blens += 1
+    return hist, scores.cpu().numpy().astype(np.float32)
+
+
 # ---- analytic accounting -------------------------------------------
 
 def lm_prefix_token_recompute_bytes(spec: LMSpec,
@@ -270,6 +350,16 @@ def lm_prefix_token_recompute_bytes(spec: LMSpec,
     d, l = spec.d_model, spec.num_layers
     per_layer = 8 * d * dtype_bytes      # x,q,k,v,att,wo-out,ff,res
     return d * dtype_bytes + l * per_layer
+
+
+def lm_prefix_recompute_bytes_saved(spec: LMSpec,
+                                    cached_prefix_tokens: int,
+                                    dtype_bytes: int = 4) -> int:
+    """Turn the cache's MEASURED counter (sum over decode steps of the
+    prefix tokens served from the page pool) into the bytes a recompute
+    decode would have streamed for those same tokens."""
+    return int(cached_prefix_tokens) * lm_prefix_token_recompute_bytes(
+        spec, dtype_bytes)
 
 
 def lm_train_flops_per_batch(spec: LMSpec, bs: int, t: int) -> int:

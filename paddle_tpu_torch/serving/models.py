@@ -13,11 +13,18 @@ boots (the seq2seq encoder's forward). `tokens_per_dispatch` is part of
 the server's dispatch-key accounting, as the length and batch buckets
 are.
 
+An optional speculative rung (`speculative=` a
+`decoding.SpeculativeGreedyDecoder` over the served decoder, with
+`draft_params` and an optional `draft_encode`) serves hook-free
+requests that do not ask for the host draft-first, token for token
+equal to the target's greedy output (path "spec"). It has no fallback:
+a failing speculative decode raises, it never serves
+`decoder.generate()` instead.
+
 Ported: `GenerationModel` (`encode`, `named_hooks`,
-`tokens_per_dispatch`, `can_host`, `run_batch`) (ROADMAP A3a). Left
-out: the speculative rung (`speculative=`, ROADMAP A5) and
-`MultiForwardHost`, which needs `multi_network.merge_confs` (ROADMAP
-A6, A12).
+`tokens_per_dispatch`, `can_host`, `run_batch`) (ROADMAP A3a) and its
+speculative rung (ROADMAP A5). Left out: `MultiForwardHost`, which
+needs `multi_network.merge_confs` (ROADMAP A6, A12).
 """
 
 from __future__ import annotations
@@ -42,15 +49,21 @@ class GenerationModel:
     def __init__(self, decoder, params, encode: Optional[Callable] = None,
                  named_hooks: Optional[Dict] = None, speculative=None,
                  draft_params=None, draft_encode: Optional[Callable] = None):
-        if speculative is not None or draft_params is not None or (
-                draft_encode is not None):
-            raise NotImplementedError(
-                "speculative serving (speculative=, draft_params=, "
-                "draft_encode=) is not ported yet (ROADMAP A5)")
         self.decoder = decoder
         self.params = params
         self.encode = encode
         self.named_hooks = named_hooks or {}
+        self.speculative = speculative
+        self.draft_params = draft_params
+        self.draft_encode = draft_encode
+        if speculative is not None:
+            assert draft_params is not None, (
+                "speculative serving needs draft_params"
+            )
+            assert speculative.target is decoder, (
+                "speculative.target must be the served decoder — "
+                "anything else would serve a different model's tokens"
+            )
 
     @property
     def tokens_per_dispatch(self):
@@ -82,6 +95,16 @@ class GenerationModel:
                 dec, self.params, statics=statics, boots=boots,
                 batch_size=bs, hooks=hooks)
             path = "host"
+        elif self.speculative is not None:
+            if self.draft_encode is not None:
+                d_statics, d_boots = self.draft_encode(ids, lens)
+            else:
+                d_statics, d_boots = None, None
+            seqs, out_lens, scores = self.speculative.generate(
+                self.params, self.draft_params, statics=statics,
+                boots=boots, batch_size=bs, draft_statics=d_statics,
+                draft_boots=d_boots)
+            path = "spec"
         else:
             seqs, out_lens, scores = (
                 x.cpu().numpy() for x in dec.generate(

@@ -239,3 +239,56 @@ def test_generation_modules_import_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-1] == str(len(names))
+
+
+def test_decoding_datasets_and_api_import_with_jax_blocked():
+    """Beam and speculative decode over the page pool, speculative greedy
+    decoding, the datasets and the top-level API's lazy names by name
+    (the walk above covers the modules too)."""
+    datasets = ["cifar", "common", "conll05", "flowers", "imdb", "imikolov",
+                "mnist", "movielens", "mq2007", "sentiment", "uci_housing",
+                "voc2012", "wmt14"]
+    names = (["paddle_tpu_torch.decoding",
+              "paddle_tpu_torch.decoding.kv_cache",
+              "paddle_tpu_torch.decoding.speculative",
+              "paddle_tpu_torch.serving.models",
+              "paddle_tpu_torch.data.dataset"]
+             + [f"paddle_tpu_torch.data.dataset.{d}" for d in datasets])
+    assert all(os.path.join(PKG, *n.split(".")[1:]) + ".py" in _port_files()
+               for n in names if n.count(".") > 1
+               and not n.endswith(("decoding", "dataset")))
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=names)
+    code += ("import paddle_tpu_torch as p\n"
+             "for n in ('Arg', 'Network', 'SGD', 'infer', 'dataset', "
+             "'reader', 'dsl', 'layers', 'models', 'optimizers', "
+             "'evaluators', 'inference'):\n"
+             "    getattr(p, n)\n"
+             "p.dataset.imdb.word_dict()\n"
+             "assert not any(k.split('.')[0] in {forbidden!r} "
+             "for k in sys.modules)\n"
+             "print('IMPORTED', len(mods))\n").format(
+                 forbidden=set(FORBIDDEN))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(names))
+
+
+def test_paged_decoders_refuse_the_cpu_unless_asked(monkeypatch):
+    """The beam and speculative paths go through a PagedKVCache, which
+    takes the card unless the caller asks for the CPU."""
+    from paddle_tpu_torch.decoding.kv_cache import PagedLM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = tlm.LMSpec(vocab=16, d_model=8, num_heads=2, num_layers=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache(spec, num_pages=8)
+    params = tlm.lm_init_params(spec, device="cpu")
+    plm = PagedLM(spec, params, PagedKVCache(spec, num_pages=8,
+                                             page_size=4, device="cpu"))
+    toks, scores = plm.beam_generate(np.full((1, 3), 2, np.int32),
+                                     np.asarray([3]), 2, 3)
+    assert toks.shape == (1, 2, 3) and np.isfinite(scores).all()
