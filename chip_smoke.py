@@ -5,10 +5,11 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in twenty-three phases, two of multi-step dispatch (18b,
+`paddle_tpu` — in twenty-four phases, two of multi-step dispatch (18b,
 18c), one of generation and serving (20), one of nested sequences and
 the structured heads (21), one of beam and speculative decode over the
-paged KV pool (22), and seven that run its paths or its kernels' forms
+paged KV pool (22), one of the layer tail, the VAE and GAN and the v1
+front end (23), and seven that run its paths or its kernels' forms
 under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and any failure
 exits non-zero:
 
@@ -336,7 +337,30 @@ exits non-zero:
     then `paddle.dataset.imdb.train()` through `paddle.reader.batched`,
     `DataFeeder` and `paddle.SGD` on the classifier at bench_lstm's
     settings for two passes: every loss finite, B5 and B6 twice a step;
-23. prints the kernels' JSON line and, last, the device line.
+23. the layer tail, the VAE and GAN confs and the v1 front end: (a)
+    every layer type the tail added (`TAIL_CASES`: basic, cost, extras,
+    maxout / spp / blockexpand, conv_trans, conv_operator, mdlstm in
+    every direction and on a 28 x 28 grid at h = 32, hsigmoid, nce in
+    eval mode, sampling_id, max_id, multiplex, priorbox, multibox_loss,
+    detection_output) on the card against the port on the CPU from one
+    seeded input: outputs and gradients within 1e-4 of the largest
+    entry plus twice the CPU's f32-vs-f64 distance, ids and lengths
+    exactly, each type's forward ms; (b) `vae_conf` at its defaults, B =
+    128, 20 eager steps then 20 as CUDA graphs of 10, held against two
+    eager runs (bit-equal where they agree), both costs finite and
+    their sum falling; (c) the GAN at `gan_conf`'s defaults, B = 256 on
+    an 8-Gaussian ring: the first train_d and train_g held against the
+    CPU, then 200 alternating steps with finite losses; (d) a
+    quick_start-style v1 LSTM config and its @provider at bench_lstm's
+    widths through `python -m paddle_tpu_torch train` (one pass, in
+    this process through runpy so that B5/B6 are counted), `--job=test`
+    and `dump_config` (subprocesses): the dumped conf equal to the
+    parse here, the first cost equal to a CPU forward from the same
+    seed, B5 and B6 once a step; (e) SSD300's heads (8 732 priors, 21
+    classes, nms_top_k 400, keep_top_k 200, B = 8): multibox_loss and
+    its gradients, detection_output's rows (labels exact) against the
+    CPU, and their ms;
+24. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -4409,16 +4433,18 @@ LC_WATCHDOG = dict(skip_budget=2, good_batches=2, warmup_batches=1000)
 LC_NAN_AT = (2, 4, 5, 6)
 
 
-def run_cli(args, log, on_line=None, timeout=300):
-    """`python -m paddle_tpu_torch <args>` from the checkout in a
-    subprocess; returns (exit code, [(seconds since start, stdout line)]).
+def run_cli(args, log, on_line=None, timeout=300, cwd=None):
+    """`python -m paddle_tpu_torch <args>` from the checkout (or `cwd`) in
+    a subprocess; returns (exit code, [(seconds since start, stdout
+    line)]).
     Its stderr goes to `log`; `on_line(proc, line)` sees each line as it
     comes. The process is killed if it outlives `timeout`."""
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
     with open(log, "w") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "paddle_tpu_torch", *args], cwd=repo,
+            [sys.executable, "-m", "paddle_tpu_torch", *args],
+            cwd=cwd or repo,
             env=env, stdout=subprocess.PIPE, stderr=err, text=True)
         timer = threading.Timer(timeout, proc.kill)
         timer.start()
@@ -6375,6 +6401,803 @@ def paged_and_speculative(torch, fa, rnn, gen):
             "api": api, "b4f_launches": b4f, "gru_launches": nmt_launches}
 
 
+# ---- phase 23: the layer tail, the VAE and GAN, the v1 front end --------
+
+# 23(d): a quick_start-style v1 LSTM text classifier at bench_lstm's
+# widths (vocab 30000, emb 128, lstm h 256, B 64, lengths 10-100), as a
+# user's unmodified v1 config file and its @provider module; the
+# provider draws each label's words from its own half of the vocabulary
+V1_LSTM_CONFIG = """\
+from paddle.trainer_config_helpers import *
+
+vocab = get_config_arg("vocab", int, 30000)
+hidden = get_config_arg("hidden", int, 256)
+define_py_data_sources2(train_list="train.list", test_list="test.list",
+                        module="imdb_like_provider", obj="process",
+                        args={"vocab": vocab,
+                              "n": get_config_arg("n", int, 512),
+                              "seed": get_config_arg("seed", int, 0)})
+settings(batch_size=get_config_arg("batch_size", int, 64),
+         learning_rate=2e-3, learning_method=AdamOptimizer(),
+         gradient_clipping_threshold=25)
+
+word = data_layer(name="word", size=vocab)
+emb = embedding_layer(input=word, size=get_config_arg("emb", int, 128))
+lstm = simple_lstm(input=emb, size=hidden)
+pooled = pooling_layer(input=lstm, pooling_type=MaxPooling())
+output = fc_layer(input=pooled, size=2, act=SoftmaxActivation())
+label = data_layer(name="label", size=2)
+cost = classification_cost(input=output, label=label)
+classification_error_evaluator(input=output, label=label, name="err")
+outputs(cost)
+"""
+V1_LSTM_PROVIDER = """\
+from paddle.trainer.PyDataProvider2 import *
+import numpy as np
+
+
+def hook(settings, vocab, n, seed, file_list, **_):
+    settings.vocab, settings.n, settings.seed = vocab, n, seed
+    settings.input_types = [integer_value_sequence(vocab), integer_value(2)]
+
+
+@provider(init_hook=hook, should_shuffle=False)
+def process(settings, filename):
+    rng = np.random.default_rng([settings.seed, sum(map(ord, filename))])
+    half = settings.vocab // 2
+    for _ in range(settings.n):
+        length = int(rng.integers(10, 101))
+        lab = int(rng.integers(0, 2))
+        ids = rng.integers(lab * half, (lab + 1) * half, length)
+        yield ids.tolist(), lab
+"""
+
+
+def write_v1_config(work, **config_args):
+    """The v1 config, its provider and its file lists in `work`; returns
+    the config's path and its --config_args string."""
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "v1_lstm.py"), "w") as f:
+        f.write(V1_LSTM_CONFIG)
+    with open(os.path.join(work, "imdb_like_provider.py"), "w") as f:
+        f.write(V1_LSTM_PROVIDER)
+    for part in ("train", "test"):
+        with open(os.path.join(work, f"{part}.list"), "w") as f:
+            f.write(f"{part}-0\n")
+    args = ",".join(f"{k}={v}" for k, v in sorted(config_args.items()))
+    return os.path.join(work, "v1_lstm.py"), args
+
+
+# 23(a): each new layer type at small widths (TAIL_B examples, TAIL_D
+# features, ragged sequences up to TAIL_T), mdlstm also on a 28 x 28 grid
+# at h = 32 (MD_GRID), card against the port on the CPU in f32 and f64
+TAIL_B, TAIL_T, TAIL_D = 8, 12, 6
+MD_GRID = (28, 28, 32)
+# 23(b): vae_conf's defaults, B = 128, adam 1e-3: 20 steps eagerly, then
+# 20 as graphs of VAE_K (against two eager runs of all 40)
+VAE_B, VAE_STEPS, VAE_K, VAE_LR = 128, 20, 10, 1e-3
+# 23(c): gan_conf's defaults, B = 256 real and 256 fake, on a mixture of
+# 8 Gaussians on a circle; momentum 1e-3 / 0.9 as gan_trainer.py;
+# GAN_STEPS alternating D and G steps
+GAN_B, GAN_STEPS, GAN_LR = 256, 200, 1e-3
+# 23(e): SSD300's heads (Liu et al. 2016): 300 x 300 images, feature maps
+# 38/19/10/5/3/1 with (min, max) sizes and aspect ratios of the
+# reference's ssd300 config, 8 732 priors, 21 classes (VOC), nms_top_k
+# 400, keep_top_k 200, B = 8, up to SSD_G ground-truth boxes an image
+SSD_MAPS = ((38, 30, 60, (2.0,)), (19, 60, 111, (2.0, 3.0)),
+            (10, 111, 162, (2.0, 3.0)), (5, 162, 213, (2.0, 3.0)),
+            (3, 213, 264, (2.0,)), (1, 264, 315, (2.0,)))
+SSD_B, SSD_C, SSD_G = 8, 21, 6
+# priors a map: a min and a max box, two for each aspect ratio (flipped)
+SSD_PRIORS = tuple(s * s * (2 + 2 * len(ars)) for s, _mn, _mx, ars in SSD_MAPS)
+
+
+def tail_feeds(seed):
+    """{name: Arg} on the CPU for 23(a): dense rows, ragged sequences (an
+    empty row, one at TAIL_T), scores with ties, images, ids, ground
+    truth."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq, seq
+
+    rng = np.random.default_rng(seed)
+    b, t, d = TAIL_B, TAIL_T, TAIL_D
+    lens = rng.integers(1, t + 1, b).astype(np.int32)
+    lens[:2] = (0, t)
+    mask = np.arange(t)[None, :, None] < lens[:, None, None]
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def uniform(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    lo = rng.uniform(0.0, 0.6, (b, 3, 2))
+    box = np.concatenate([lo, lo + rng.uniform(0.1, 0.4, (b, 3, 2))],
+                         -1).astype(np.float32)
+    box_lens = rng.integers(0, 4, b).astype(np.int32)
+    return {
+        "a": non_seq(normal(b, d)), "b": non_seq(normal(b, d)),
+        "c": non_seq(normal(b, d)), "w1": non_seq(uniform(0.1, 0.9, b, 1)),
+        "b18": non_seq(normal(b, 3 * d)),
+        "pos": non_seq(uniform(0.5, 2.0, b, d)),
+        "prob": non_seq(uniform(0.05, 0.95, b, d)),
+        "soft": non_seq(uniform(0, 1, b, d)),
+        "bin": non_seq(rng.integers(0, 2, (b, d)).astype(np.float32)),
+        "sel": non_seq(rng.integers(0, 2, (b, 5)).astype(np.float32)),
+        "s1": non_seq(normal(b, 1)), "s2": non_seq(normal(b, 1)),
+        "t": non_seq(uniform(0, 1, b, 1)),
+        "lab": id_arg(rng.integers(0, d, b)),
+        "lab7": id_arg(rng.integers(0, 7, b)),
+        "lab2": id_arg(rng.integers(0, 2, b)),
+        "pick": id_arg(rng.integers(0, 3, b)),
+        "x": seq(normal(b, t, d) * mask, lens),
+        "tied": seq((rng.integers(-2, 3, (b, t, 1)) * 0.5).astype(
+            np.float32) * mask, lens),
+        "rel": seq(rng.integers(0, 4, (b, t, 1)).astype(np.float32) * mask,
+                   lens),
+        "tok": id_arg(rng.integers(0, 4, (b, t)), lens),
+        "probs": seq(rng.dirichlet(np.ones(d), (b, t)).astype(np.float32),
+                     lens),
+        "img": non_seq(normal(b, 6, 5, 4)),
+        "sq": non_seq(normal(b, 4, 4, 2)),
+        "flt": non_seq(normal(b, 3 * 3 * 2 * 3)),
+        "grid": non_seq(normal(b, 3, 4, 5 * 3)),
+        "md": non_seq(0.5 * normal(2, MD_GRID[0], MD_GRID[1],
+                                   5 * MD_GRID[2])),
+        "x4": non_seq(normal(b, 12)), "h": non_seq(normal(b, 3)),
+        "cst": non_seq(normal(b, 3)),
+        "fmap": non_seq(normal(b, 3, 3, 2)),
+        "image": non_seq(np.zeros((b, 12, 12, 1), np.float32)),
+        "gt": seq(box, box_lens),
+        "gt_lab": id_arg(rng.integers(1, 4, (b, 3)), box_lens),
+        "loc": non_seq(0.5 * normal(b, 36 * 4)),
+        "conf": non_seq(normal(b, 36 * 4)),
+    }
+
+
+def _tail_out(d, type_, inputs, size=0, act="", bias=False, **attrs):
+    return d._add(type_, inputs, name="out", size=size, act=act, bias=bias,
+                  **attrs)
+
+
+def _tail_get_output(d, x4, h, c):
+    ls = d._add("lstm_step", [x4, h, c], name="ls", size=3)
+    ref = _tail_out(d, "get_output", [ls])
+    d.current().conf.layer("out").inputs[0].attrs[
+        "input_layer_argument"] = "state"
+    return ref
+
+
+def _tail_priorbox(d, fmap, image):
+    return d.priorbox(fmap, image, min_size=[4.0], max_size=[8.0],
+                      aspect_ratio=[2.0], name="pb")
+
+
+TAIL_CASES = {
+    "cos": (("a", "b"), lambda d, a, b: _tail_out(d, "cos", [a, b],
+                                                  scale=2.0)),
+    "cos_k3": (("a", "b18"), lambda d, a, b: _tail_out(d, "cos", [a, b],
+                                                       size=3)),
+    "interpolation": (("w1", "a", "b"), lambda d, w, a, b: _tail_out(
+        d, "interpolation", [w, a, b])),
+    "dot_mul": (("a", "b"), lambda d, a, b: _tail_out(d, "dot_mul", [a, b],
+                                                      act="tanh")),
+    "slope_intercept": (("a",), lambda d, a: _tail_out(
+        d, "slope_intercept", [a], slope=-1.5, intercept=0.25)),
+    "tensor": (("a", "b"), lambda d, a, b: _tail_out(
+        d, "tensor", [a, b], size=4, act="tanh", bias=True)),
+    **{t: (("a", "w1"), lambda d, a, w, t=t: _tail_out(d, t, [a, w]))
+       for t in ("outer_prod", "out_prod")},
+    "sum_to_one_norm": (("pos",), lambda d, a: _tail_out(
+        d, "sum_to_one_norm", [a])),
+    "trans": (("b18",), lambda d, a: _tail_out(d, "trans", [a], height=3,
+                                               width=6)),
+    "resize": (("img",), lambda d, a: _tail_out(d, "resize", [a], size=120)),
+    "smooth_l1": (("a", "b"), lambda d, a, b: _tail_out(d, "smooth_l1",
+                                                        [a, b])),
+    "sum_cost": (("x",), lambda d, x: _tail_out(d, "sum_cost", [x])),
+    **{t: (("prob", s), lambda d, p, y, t=t: _tail_out(d, t, [p, y]))
+       for t, s in (("soft_binary_class_cross_entropy", "soft"),
+                    ("multi_binary_label_cross_entropy", "bin"))},
+    "rank-cost": (("s1", "s2", "t"), lambda d, a, b, t: _tail_out(
+        d, "rank-cost", [a, b, t])),
+    **{t: (("s1", "lab2"), lambda d, s, y, t=t: _tail_out(d, t, [s, y]))
+       for t in ("huber", "huber-two-class", "huber_classification")},
+    "lambda_cost": (("tied", "rel"), lambda d, s, r: _tail_out(
+        d, "lambda_cost", [s, r], NDCG_num=3)),
+    "softmax": (("a",), lambda d, a: _tail_out(d, "softmax", [a])),
+    "multi_class_cross_entropy_with_selfnorm": (
+        ("pos", "lab"), lambda d, p, y: _tail_out(
+            d, "multi_class_cross_entropy_with_selfnorm", [p, y])),
+    "selective_fc": (("a", "sel"), lambda d, a, s: _tail_out(
+        d, "selective_fc", [a, s], size=5, act="softmax", bias=True)),
+    "conv_shift": (("a",), lambda d, a: d.conv_shift(
+        a, d.fc(a, size=3, name="filt"), name="out")),
+    "bilinear_interp": (("img",), lambda d, i: _tail_out(
+        d, "bilinear_interp", [i], out_size_x=7, out_size_y=4)),
+    **{t: (("w1", "b18"), lambda d, w, x, t=t: _tail_out(
+        d, t, [d.fc(w, size=3, name="wts"), x], size=TAIL_D))
+       for t in ("convex_comb", "linear_comb")},
+    "eos_id": (("tok",), lambda d, t: _tail_out(d, "eos_id", [t], eos_id=2)),
+    "power": (("w1", "pos"), lambda d, w, x: _tail_out(d, "power", [w, x])),
+    "clip": (("a",), lambda d, a: _tail_out(d, "clip", [a], min=-0.5,
+                                            max=0.7)),
+    "row_conv": (("x",), lambda d, x: _tail_out(d, "row_conv", [x],
+                                                context_length=3)),
+    "featmap_expand": (("a",), lambda d, a: _tail_out(
+        d, "featmap_expand", [a], num_filters=3)),
+    "prelu": (("img",), lambda d, a: _tail_out(d, "prelu", [a],
+                                               partial_sum=30)),
+    "gated_unit": (("a",), lambda d, a: _tail_out(
+        d, "gated_unit", [a], size=4, act="tanh", bias=True)),
+    "repeat": (("x",), lambda d, x: _tail_out(d, "repeat", [x],
+                                              num_repeats=3)),
+    "kmax_seq_score": (("tied",), lambda d, s: _tail_out(
+        d, "kmax_seq_score", [s], beam_size=4)),
+    "cos_vm": (("a", "b18"), lambda d, v, m: _tail_out(d, "cos_vm", [v, m],
+                                                       size=3)),
+    "data_norm": (("a",), lambda d, a: _tail_out(d, "data_norm", [a])),
+    "print": (("c",), lambda d, a: _tail_out(d, "print", [a])),
+    "get_output": (("x4", "h", "cst"), _tail_get_output),
+    "eltmul": (("a", "b"), lambda d, a, b: _tail_out(d, "eltmul", [a, b],
+                                                     scale=0.5)),
+    "maxout": (("img",), lambda d, i: _tail_out(d, "maxout", [i], groups=2)),
+    "spp": (("img",), lambda d, i: _tail_out(d, "spp", [i],
+                                             pyramid_height=3)),
+    **{t: (("img",), lambda d, i, t=t: _tail_out(
+        d, t, [i], block=(2, 3), stride=(2, 1), padding=1))
+       for t in ("blockexpand", "block_expand")},
+    **{t: (("img",), lambda d, i, t=t, f=f, s=s, p=p: _tail_out(
+        d, t, [i], size=3, bias=True, act="tanh", num_filters=3,
+        filter_size=f, stride=s, padding=p))
+       for t, f, s, p in (("exconvt", 3, 1, 0), ("conv_trans", 3, 2, 1),
+                          ("cudnn_convt", 4, 3, 2))},
+    "conv_operator": (("sq", "flt"), lambda d, i, f: _tail_out(
+        d, "conv_operator", [i, f], num_filters=3, num_channels=2,
+        filter_size=3, stride=2, padding=1)),
+    "conv_operator_trans": (("sq", "flt"), lambda d, i, f: _tail_out(
+        d, "conv_operator", [i, f], num_filters=3, num_channels=2,
+        filter_size=3, stride=2, padding=1, trans=True)),
+    **{f"{t}_{int(r)}{int(c)}": (("grid",), lambda d, g, t=t, r=r, c=c:
+                                 _tail_out(d, t, [g], size=3, bias=True,
+                                           act="tanh", directions=(r, c)))
+       for t, r, c in (("mdlstm", True, True), ("mdlstm", False, True),
+                       ("mdlstmemory", True, False),
+                       ("mdlstmemory", False, False))},
+    "mdlstm_28x28_h32": (("md",), lambda d, g: _tail_out(
+        d, "mdlstm", [g], size=MD_GRID[2], bias=True, act="tanh")),
+    "hsigmoid": (("a", "b", "lab7"), lambda d, a, b, y: _tail_out(
+        d, "hsigmoid", [a, b, y], bias=True, num_classes=7)),
+    "nce": (("a", "b", "lab7"), lambda d, a, b, y: _tail_out(
+        d, "nce", [a, b, y], bias=True, num_classes=7, num_neg_samples=5)),
+    **{t: (("a",), lambda d, a, t=t: _tail_out(d, t, [a]))
+       for t in ("max_id", "maxid")},
+    "sampling_id": (("probs",), lambda d, p: _tail_out(d, "sampling_id",
+                                                       [p])),
+    "multiplex": (("pick", "a", "b", "c"), lambda d, s, a, b, c: _tail_out(
+        d, "multiplex", [s, a, b, c])),
+    "priorbox": (("fmap", "image"), lambda d, f, i: _tail_out(
+        d, "priorbox", [f, i], min_size=[4.0], max_size=[8.0],
+        aspect_ratio=[2.0])),
+    "multibox_loss": (("fmap", "image", "gt", "gt_lab", "loc", "conf"),
+                      lambda d, f, i, g, gl, lo, co: _tail_out(
+                          d, "multibox_loss",
+                          [_tail_priorbox(d, f, i), g, gl, lo, co],
+                          num_classes=4, overlap_threshold=0.3)),
+    # random heads: a tie within an ulp orders by the device's rounding
+    # (the CPU tests hold exact ties against the JAX layer)
+    "detection_output": (("fmap", "image", "loc", "conf"),
+                         lambda d, f, i, lo, co: _tail_out(
+                             d, "detection_output",
+                             [_tail_priorbox(d, f, i), lo, co],
+                             num_classes=4, nms_threshold=0.3, nms_top_k=10,
+                             keep_top_k=12)),
+}
+
+
+def tail_run(torch, net, p0, feed, names, device, dtype, seed):
+    """The output Arg of `net` on `device` in `dtype`, and the gradients
+    of sum(out * R) (R seeded) in every parameter and float input."""
+    from paddle_tpu_torch.core import rng as trng
+
+    p = {k: v.to(device=device, dtype=dtype, copy=True).requires_grad_(True)
+         for k, v in p0.items()}
+    feed = {n: feed[n].to(device) for n in names}
+    xs = {n: a.value.to(dtype=dtype, copy=True).requires_grad_(True)
+          for n, a in feed.items() if a.value is not None}
+    feed = {n: a.with_value(xs[n]) if n in xs else a for n, a in feed.items()}
+    key = trng.StepKey(torch.tensor(seed, device=device))
+    o = net.forward(p, feed, outputs=["out"], rng=key)[0]["out"]
+    grads = {}
+    if o.value is not None and o.value.requires_grad:
+        r = torch.randn(o.value.shape, generator=torch.Generator(
+            ).manual_seed(seed), dtype=torch.float64).to(device, dtype)
+        (o.value * r).sum().backward()
+        grads = {k: v.grad for k, v in {**xs, **p}.items()
+                 if v.grad is not None}
+    return o, grads
+
+
+def tail_layers(torch):
+    """Phase 23(a): each of TAIL_CASES on the card against the same conf
+    on the CPU from one seeded input (parameters drawn from a seed, no
+    constant among them): the output and the gradients of a seeded
+    projection of it in every float input and parameter within
+    HELD_TOL of the largest entry plus twice the CPU's f32-vs-f64
+    distance, non-finite entries (an spp bin wholly in padding) equal,
+    ids and lengths exactly. Prints each case's forward ms on the card
+    (the print layer's aside)."""
+    from paddle_tpu_torch import dsl
+    from paddle_tpu_torch.core import rng as trng
+    from paddle_tpu_torch.network import Network
+
+    feeds = tail_feeds(SEED + 230)
+    worst, noises, ms, types = {}, {}, {}, set()
+    for case, (names, build) in TAIL_CASES.items():
+        with dsl.model() as g:
+            refs = []
+            for n in names:
+                a = feeds[n]
+                dim = (1 if a.ids is not None
+                       else tuple(a.value.shape[2 if a.is_seq else 1:]))
+                refs.append(dsl.data(n, dim, is_seq=a.is_seq,
+                                     is_ids=a.ids is not None))
+            build(dsl, *refs)
+        types |= {lc.type for lc in g.conf.layers}
+        net = Network(g.conf)
+        gen = torch.Generator().manual_seed(SEED + 231)
+        p0 = {k: 0.5 * torch.randn(pc.dims, generator=gen)
+              for k, pc in sorted(net.param_confs.items())}
+        (oc, gc), (o32, g32), (o64, g64) = (
+            tail_run(torch, net, p0, feeds, names, dev, dt, SEED + 232)
+            for dev, dt in (("cuda", torch.float32), ("cpu", torch.float32),
+                            ("cpu", torch.float64)))
+        for f in ("ids", "seq_lens", "subseq_lens"):
+            a, b = getattr(oc, f), getattr(o32, f)
+            assert (a is None) == (b is None) and (
+                a is None or torch.equal(a.cpu(), b)), f"{case}: {f}"
+
+        def held(got, ref, ref64, what):
+            got, ref, ref64 = got.detach().cpu(), ref.detach(), ref64.detach()
+            fin = torch.isfinite(ref)
+            assert torch.equal(got[~fin], ref[~fin]), f"{case} {what}"
+            if not fin.any():
+                return 0.0, 0.0
+            e = rel_err(got[fin], ref[fin])[0]
+            noise = rel_err(ref[fin].double(), ref64[fin])[0]
+            assert e <= HELD_TOL + 2 * noise, (
+                f"{case} {what}: card vs cpu {e:.3g}, cpu f32 vs f64 "
+                f"{noise:.3g}")
+            return e, noise
+
+        errs = [(0.0, 0.0)]
+        if oc.value is not None:
+            errs.append(held(oc.value, o32.value, o64.value, "out"))
+        assert sorted(gc) == sorted(g32), case
+        errs += [held(gc[k], g32[k], g64[k], k) for k in gc]
+        worst[case] = max(e for e, _n in errs)
+        noises[case] = max(n_ for _e, n_ in errs)
+        if case != "print":
+            feed = {n: feeds[n].to("cuda") for n in names}
+            pc = {k: v.to("cuda") for k, v in p0.items()}
+            key = trng.StepKey(torch.tensor(SEED, device="cuda"))
+            with torch.no_grad():
+                ms[case] = time_ms(torch, lambda: net.forward(
+                    pc, feed, outputs=["out"], rng=key), reps=5, warmup=1)
+    r = {"cases": len(TAIL_CASES), "types": len(types), "max_err": worst,
+         "cpu_f32_vs_f64": noises, "forward_ms": ms}
+    print("tail layers card vs cpu " + json.dumps(r), flush=True)
+    return r
+
+
+def vae_train(torch):
+    """Phase 23(b): vae_conf at its defaults (x 784, hidden 256, latent 16)
+    on VAE_B synthetic [0, 1] images a batch (eps from the seed), adam:
+    two eager runs of 2 * VAE_STEPS steps, and a third run of VAE_STEPS
+    eager steps, then VAE_STEPS as graphs of VAE_K (`TrainStep.multi`).
+    The third run's params, slots and cost rows are held against the
+    eager runs (`held_graph_vs_eager`: bit-equal where the two eager
+    runs agree); both costs stay finite, and their sum falls. Returns
+    the numbers."""
+    from paddle_tpu_torch.core import rng as trng
+    from paddle_tpu_torch.core.arg import non_seq
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models.vae import vae_conf
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep, stack_feeds
+
+    conf = vae_conf()
+    net = Network(conf)
+    opt = create_optimizer(OptimizationConf(learning_method="adam",
+                                            learning_rate=VAE_LR),
+                           net.param_confs)
+    params = net.init_params(torch.Generator().manual_seed(SEED + 233),
+                             device="cuda")
+    rng = np.random.default_rng(SEED + 234)
+    n = 2 * VAE_STEPS
+    # a few fixed "digits" (smooth blobs) with noise, in [0, 1]
+    protos = rng.uniform(0, 1, (10, 784)).astype(np.float32) ** 3
+    feeds = []
+    for _ in range(n):
+        x = np.clip(protos[rng.integers(0, 10, VAE_B)]
+                    + 0.1 * rng.standard_normal((VAE_B, 784)), 0, 1)
+        feeds.append({
+            "x": non_seq(x.astype(np.float32), device="cuda"),
+            "eps": non_seq(rng.standard_normal((VAE_B, 16)).astype(
+                np.float32), device="cuda")})
+    root = trng.generator(SEED + 235, "cuda")
+    arms = {}
+    for arm in ("eager", "eager_again", "graph"):
+        step = TrainStep(net, opt, watchdog=True, device="cuda")
+        p = {k: v.clone() for k, v in params.items()}
+        o = opt.init_state(p)
+        costs, ms = [], []
+        for c in range(n // VAE_K):
+            chunk = feeds[c * VAE_K:(c + 1) * VAE_K]
+            step0 = c * VAE_K
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if arm == "graph" and step0 >= VAE_STEPS:
+                p, o, _s, h, outs = step.multi(p, o, {}, stack_feeds(chunk),
+                                               step0, root)
+                costs.append(torch.stack(
+                    [outs["recon_cost"].value.detach().mean(1),
+                     outs["kl_cost"].value.detach().mean(1), h[:, 0]], 1))
+            else:
+                rows = []
+                for k, f in enumerate(chunk):
+                    p, o, _s, h, outs = step(p, o, {}, f, step0 + k, None)
+                    rows.append(torch.stack(
+                        [outs["recon_cost"].value.detach().mean(),
+                         outs["kl_cost"].value.detach().mean(), h[0]]))
+                costs.append(torch.stack(rows))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) / VAE_K * 1e3)
+        arms[arm] = {"step": step, "ms": ms,
+                     "held": {"costs": torch.cat(costs), **leaves(p, "param/"),
+                              **leaves(o, "slot/")}}
+    nondet = held_graph_vs_eager(torch, "vae", arms["eager"]["held"],
+                                 arms["eager_again"]["held"],
+                                 arms["graph"]["held"])
+    costs = arms["graph"]["held"]["costs"].cpu().numpy()
+    r = {"steps": n, "graphs_captured": arms["graph"]["step"].graphs_captured,
+         "eager_ms_per_step": arms["eager"]["ms"],
+         "graph_ms_per_step": arms["graph"]["ms"],
+         "recon_first": float(costs[0, 0]), "recon_last": float(costs[-1, 0]),
+         "kl_first": float(costs[0, 1]), "kl_last": float(costs[-1, 1]),
+         "loss_first5": float(costs[:5, 2].mean()),
+         "loss_last5": float(costs[-5:, 2].mean()),
+         "eager_runs_differ": nondet}
+    print("vae " + json.dumps(r), flush=True)
+    assert np.isfinite(costs).all(), r
+    assert r["loss_last5"] < r["loss_first5"], r
+    assert r["graphs_captured"] == 1, r
+    arms["graph"]["step"].graphs.release()
+    return r
+
+
+def gan_train(torch):
+    """Phase 23(c): the GAN at gan_conf's defaults on GAN_B samples of an
+    8-Gaussian ring: the first train_d and train_g on the card against
+    the port on the CPU from the same numpy parameters (losses at rtol
+    HELD_TOL, every parameter within HELD_TOL of its largest entry plus
+    twice the CPU's f32-vs-f64 distance), then GAN_STEPS alternating
+    steps on the card with finite losses. Returns the numbers."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models.gan import GAN
+
+    opt = OptimizationConf(learning_method="momentum", momentum=0.9,
+                           learning_rate=GAN_LR)
+    rng = np.random.default_rng(SEED + 236)
+
+    def real(n):
+        ang = rng.integers(0, 8, n) * (np.pi / 4)
+        c = np.stack([np.cos(ang), np.sin(ang)], 1) * 2.0
+        return (c + 0.05 * rng.standard_normal((n, 2))).astype(np.float32)
+
+    def noise(n):
+        return rng.standard_normal((n, 10)).astype(np.float32)
+
+    start = {k: v.cpu().numpy() for k, v in GAN(
+        opt, seed=SEED + 237, device="cpu").params.items()}
+    r0, z0, z1 = real(GAN_B), noise(GAN_B), noise(GAN_B)
+    arms = {}
+    for arm, dev, dt in (("card", "cuda", np.float32),
+                         ("cpu", "cpu", np.float32),
+                         ("cpu64", "cpu", np.float64)):
+        gan = GAN(opt, params={k: v.astype(dt) for k, v in start.items()},
+                  device=dev)
+        d = gan.train_d(r0, z0, 0)
+        g = gan.train_g(z1, 0)
+        arms[arm] = (gan, d, g, {k: v.detach().cpu().double()
+                                 for k, v in gan.params.items()})
+    gan, dl, gl, pc = arms["card"]
+    _, dl32, gl32, p32 = arms["cpu"]
+    p64 = arms["cpu64"][3]
+    errs = {k: (rel_err(pc[k], p32[k])[0], rel_err(p32[k], p64[k])[0])
+            for k in pc}
+    outside = [k for k, (e, noise_) in errs.items()
+               if not e <= HELD_TOL + 2 * noise_]
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, GAN_STEPS + 1):
+        losses.append((gan.train_d(real(GAN_B), noise(GAN_B), i),
+                       gan.train_g(noise(GAN_B), i)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    losses = np.asarray(losses)
+    fake = gan.sample(noise(1024)).cpu().numpy()
+    r = {"d_loss_card": dl, "d_loss_cpu": dl32, "g_loss_card": gl,
+         "g_loss_cpu": gl32, "param_rel_max": max(e for e, _ in errs.values()),
+         "cpu_f32_vs_f64_max": max(n_ for _, n_ in errs.values()),
+         "params_outside": outside, "steps": GAN_STEPS,
+         "ms_per_step_pair": wall / GAN_STEPS * 1e3,
+         "d_loss_last": float(losses[-1, 0]),
+         "g_loss_last": float(losses[-1, 1]),
+         "fake_radius_mean": float(np.linalg.norm(fake, axis=1).mean())}
+    print("gan " + json.dumps(r), flush=True)
+    assert abs(dl - dl32) <= HELD_TOL * abs(dl32), r
+    assert abs(gl - gl32) <= HELD_TOL * abs(gl32), r
+    assert not outside, r
+    assert np.isfinite(losses).all() and np.isfinite(fake).all(), r
+    return r
+
+
+def v1_cli(torch, rnn, work):
+    """Phase 23(d): the smoke's v1 LSTM config at bench_lstm's widths
+    through the port's CLI on the card: `python -m paddle_tpu_torch
+    train` for one pass (run in this process with runpy, so that the
+    B5/B6 wrappers' counts are this process's), then `--job=test` on its
+    checkpoint and `dump_config` as subprocesses. Holds the dumped conf
+    against the conf the same file parses to here, and the first printed
+    cost against a CPU forward of the first batch from the same initial
+    parameters (the same root seed, through the `seed` flag: the
+    kernels' plain versions, f32, with the f32-vs-f64 distance as in
+    held_grads). Returns the numbers."""
+    import contextlib
+    import io
+    import runpy
+
+    from paddle_tpu_torch.__main__ import _v1_setup
+    from paddle_tpu_torch.compat.config_parser import parse_config
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.trainer.trainer import SGD
+
+    path, args = write_v1_config(work, seed=SEED + 238)
+    seed = SEED + 239
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        parsed = parse_config(path, args)
+        model, opt, reader, feeder, evals = _v1_setup(path, args)
+        sgd = SGD(model, opt, seed=seed, evaluators=evals, device="cpu")
+        feed = feeder(next(iter(reader())))
+        flags.set_flag("use_pallas_rnn", True)
+        try:
+            want = {}
+            for dt in (torch.float32, torch.float64):
+                p = {k: v.to(dt) for k, v in sgd.params.items()}
+                f = {k: a.with_value(a.value.to(dt)) if a.value is not None
+                     and a.value.is_floating_point() else a
+                     for k, a in feed.items()}
+                with torch.no_grad():
+                    want[dt] = sgd.net.loss_fn(p, f, train=True)[0].item()
+        finally:
+            flags.set_flag("use_pallas_rnn", None)
+        out = io.StringIO()
+        argv = sys.argv
+        sys.argv = ["paddle_tpu_torch", "train", f"--config={path}",
+                    f"--config_args={args}", "--log_period=1",
+                    "--save_dir", os.path.join(work, "ck")]
+        # the trainer's root seed when SGD gets none: the CLI's initial
+        # parameters are the reference's
+        flags.set_flag("seed", seed)
+        zero_rnn_counts(rnn)
+        # a fresh __main__, as `python -m` runs it
+        sys.modules.pop("paddle_tpu_torch.__main__", None)
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                runpy.run_module("paddle_tpu_torch", run_name="__main__",
+                                 alter_sys=True)
+        except SystemExit as e:
+            assert e.code in (0, None), f"train exited {e.code}"
+        finally:
+            sys.argv = argv
+            flags.set_flag("seed", 0)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = {k: v for k, v in rnn_counts(rnn).items() if v}
+    finally:
+        os.chdir(here)
+    costs = [float(ln.split()[-1]) for ln in out.getvalue().splitlines()
+             if ln.startswith("pass 0 batch")]
+    rc, test_lines = run_cli(
+        ["train", f"--config={path}", f"--config_args={args}", "--job=test",
+         "--save_dir", os.path.join(work, "ck")],
+        os.path.join(work, "test.log"), cwd=work)
+    assert rc == 0, "--job=test failed"
+    rc, dump = run_cli(["dump_config", f"--config={path}",
+                        f"--config_args={args}"],
+                       os.path.join(work, "dump.log"), cwd=work)
+    assert rc == 0, "dump_config failed"
+    dumped = json.loads("\n".join(line for _t, line in dump))
+    test_line = [ln for _t, ln in test_lines if ln.startswith("test cost")]
+    noise = abs(want[torch.float32] - want[torch.float64]) / abs(
+        want[torch.float64])
+    r = {"steps": len(costs), "train_s": train_s,
+         "cost_first_card": costs[0] if costs else None,
+         "cost_first_cpu": want[torch.float32],
+         "cost_first_cpu_f64": want[torch.float64],
+         "cost_last": costs[-1] if costs else None,
+         "test": test_line, "launches": counts}
+    print("v1 cli " + json.dumps(r), flush=True)
+    assert dumped["model"] == json.loads(parsed.model.to_json()), (
+        "dumped conf")
+    assert dumped["optimization"] == json.loads(json.dumps(
+        vars(parsed.opt), default=str)), "dumped optimization"
+    assert len(costs) == 8 and np.isfinite(costs).all(), r
+    # the CLI prints 6 decimals
+    assert abs(costs[0] - want[torch.float32]) <= (
+        (HELD_TOL + 2 * noise) * abs(want[torch.float32]) + 1e-6), r
+    assert len(test_line) == 1 and "err=" in test_line[0], r
+    assert counts == dict.fromkeys(
+        ("lstm_fwd_launches", "lstm_fwd_cluster_launches",
+         "lstm_bwd_launches", "lstm_bwd_cluster_launches"), 8), r
+    return r
+
+
+def ssd_conf():
+    """SSD300's priors over SSD_MAPS, concatenated, feeding
+    multibox_loss and detection_output; the heads are data layers."""
+    from paddle_tpu_torch import dsl
+
+    with dsl.model() as g:
+        image = dsl.data("image", (300, 300, 1))
+        pbs = []
+        for i, (s, mn, mx, ars) in enumerate(SSD_MAPS):
+            fmap = dsl.data(f"fmap{i}", (s, s, 1))
+            pbs.append(dsl.priorbox(fmap, image, min_size=[float(mn)],
+                                    max_size=[float(mx)],
+                                    aspect_ratio=list(ars),
+                                    variance=[0.1, 0.1, 0.2, 0.2],
+                                    name=f"pb{i}"))
+        pb = dsl.concat(*pbs, name="priors")
+        p = sum(SSD_PRIORS)
+        loc = dsl.data("loc", 4 * p)
+        conf = dsl.data("conf", SSD_C * p)
+        gt = dsl.data("gt", 4, is_seq=True)
+        gt_lab = dsl.data("gt_lab", 1, is_seq=True, is_ids=True)
+        dsl.multibox_loss(pb, gt, gt_lab, loc, conf, num_classes=SSD_C,
+                          name="loss")
+        dsl.detection_output(pb, loc, conf, num_classes=SSD_C,
+                             nms_top_k=400, keep_top_k=200, name="dets")
+    return g.conf
+
+
+def ssd_feeds(seed):
+    """{name: Arg} on the CPU: SSD_B images' random heads (loc, conf),
+    1..SSD_G ground-truth boxes an image with labels 1..SSD_C-1, and the
+    shape-only image and feature maps."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq, seq
+
+    rng = np.random.default_rng(seed)
+    p = sum(SSD_PRIORS)
+    lo = rng.uniform(0.0, 0.7, (SSD_B, SSD_G, 2))
+    box = np.concatenate([lo, lo + rng.uniform(0.05, 0.3, (SSD_B, SSD_G, 2))],
+                         -1).astype(np.float32)
+    lens = rng.integers(1, SSD_G + 1, SSD_B).astype(np.int32)
+    feeds = {
+        "image": non_seq(np.zeros((SSD_B, 300, 300, 1), np.float32)),
+        "loc": non_seq((0.5 * rng.standard_normal((SSD_B, 4 * p))).astype(
+            np.float32)),
+        "conf": non_seq(rng.standard_normal((SSD_B, SSD_C * p)).astype(
+            np.float32)),
+        "gt": seq(box, lens),
+        "gt_lab": id_arg(rng.integers(1, SSD_C, (SSD_B, SSD_G)), lens),
+    }
+    for i, (s, *_rest) in enumerate(SSD_MAPS):
+        feeds[f"fmap{i}"] = non_seq(np.zeros((SSD_B, s, s, 1), np.float32))
+    return feeds
+
+
+def detection_heads(torch):
+    """Phase 23(e): SSD300's multibox_loss (forward and the gradients in
+    loc and conf) and detection_output on the card against the port on
+    the CPU from the same random heads: the loss and gradients within
+    HELD_TOL of the largest entry plus twice the CPU's f32-vs-f64
+    distance; detection_output's rows, each image's in (label, -score)
+    order, with equal labels and scores and boxes within HELD_TOL.
+    Prints the ms of each on the card. Returns the numbers."""
+    from paddle_tpu_torch.network import Network
+
+    net = Network(ssd_conf())
+    assert net.specs["priors"].size == 8 * 8732, net.specs["priors"]
+    feeds = ssd_feeds(SEED + 240)
+
+    def loss_run(device, dtype):
+        f = {k: a.to(device) for k, a in feeds.items()}
+        x = {k: f[k].value.to(dtype=dtype, copy=True).requires_grad_(True)
+             for k in ("loc", "conf")}
+        f.update({k: f[k].with_value(v) for k, v in x.items()})
+        o = net.forward({}, f, outputs=["loss"])[0]["loss"].value
+        o.mean().backward()
+        return o.detach(), {k: v.grad for k, v in x.items()}
+
+    (lc, gc), (l32, g32), (l64, g64) = (loss_run(d, t) for d, t in (
+        ("cuda", torch.float32), ("cpu", torch.float32),
+        ("cpu", torch.float64)))
+    errs = {"loss": (rel_err(lc.cpu(), l32)[0],
+                     rel_err(l32.double(), l64)[0])}
+    errs.update({k: (rel_err(gc[k].cpu(), g32[k])[0],
+                     rel_err(g32[k].double(), g64[k])[0]) for k in gc})
+    outside = [k for k, (e, n_) in errs.items() if not e <= HELD_TOL + 2 * n_]
+
+    def dets(device):
+        f = {k: a.to(device) for k, a in feeds.items()}
+        with torch.no_grad():
+            o = net.forward({}, f, outputs=["dets"])[0]["dets"].value
+        return o.reshape(SSD_B, -1, 6).cpu()
+
+    dc, d32 = dets("cuda"), dets("cpu")
+    kept = []
+    for b in range(SSD_B):
+        rows = []
+        for d in (dc[b], d32[b]):
+            key = d[:, 0] * 10 - d[:, 1]
+            rows.append(d[torch.argsort(key, stable=True)])
+        assert torch.equal(rows[0][:, 0], rows[1][:, 0]), f"image {b} labels"
+        kept.append(int((rows[1][:, 1] > 0).sum()))
+        errs[f"dets{b}"] = (rel_err(rows[0][:, 1:], rows[1][:, 1:])[0], 0.0)
+    outside += [k for k, (e, _n) in errs.items()
+                if k.startswith("dets") and e > HELD_TOL]
+    fc = {k: a.to("cuda") for k, a in feeds.items()}
+    xc = {k: fc[k].value.clone().requires_grad_(True)
+          for k in ("loc", "conf")}
+    fc.update({k: fc[k].with_value(v) for k, v in xc.items()})
+
+    def loss_step():
+        net.forward({}, fc, outputs=["loss"])[0]["loss"].value.mean(
+            ).backward()
+
+    with torch.no_grad():
+        dets_ms = time_ms(torch, lambda: net.forward(
+            {}, fc, outputs=["dets"]), reps=3, warmup=1)
+    r = {"priors": sum(SSD_PRIORS), "loss_card": float(lc.mean()),
+         "loss_cpu": float(l32.mean()),
+         "max_err": {k: e for k, (e, _n) in errs.items()},
+         "cpu_f32_vs_f64": {k: n_ for k, (_e, n_) in errs.items()
+                            if not k.startswith("dets")},
+         "outside": outside, "kept_rows": kept,
+         "multibox_loss_fwd_bwd_ms": time_ms(torch, loss_step, reps=5,
+                                             warmup=1),
+         "detection_output_ms": dets_ms}
+    print("ssd heads " + json.dumps(r), flush=True)
+    assert not outside, r
+    assert np.isfinite(r["loss_card"]) and min(kept) > 0, r
+    return r
+
+
+def layer_tail(torch, rnn):
+    """Phase 23: (a) every new layer type, (b) the VAE, (c) the GAN,
+    (d) a v1 config through the CLI, (e) the SSD heads."""
+    import tempfile
+
+    phase("23a. every new layer type, card against CPU")
+    layers = tail_layers(torch)
+    phase("23b. the VAE at vae_conf's defaults, eager and as CUDA graphs")
+    vae = vae_train(torch)
+    phase("23c. the GAN at gan_conf's defaults")
+    gan = gan_train(torch)
+    phase("23d. a v1 LSTM config through the CLI")
+    with tempfile.TemporaryDirectory() as work:
+        v1 = v1_cli(torch, rnn, work)
+    phase("23e. SSD300's detection heads, card against CPU")
+    ssd = detection_heads(torch)
+    return {"layers": layers, "vae": vae, "gan": gan, "v1": v1, "ssd": ssd}
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
@@ -6645,7 +7468,13 @@ def main() -> int:
     slice22 = paged_and_speculative(torch, fa, rnn, gen)
     print(smi, flush=True)
 
-    phase("23. result")
+    phase("23. the layer tail, the VAE and the GAN, a v1 config through "
+          "the CLI, SSD300's detection heads")
+    print(smi, flush=True)
+    slice23 = layer_tail(torch, rnn)
+    print(smi, flush=True)
+
+    phase("24. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -6827,8 +7656,10 @@ def main() -> int:
                 + slice22["gru_launches"][counter])
 
     def api_launched(counter):
-        # phase 22(d)'s classifier through the top-level API
-        return slice22["api"]["launches"].get(counter, 0)
+        # phase 22(d)'s classifier through the top-level API and phase
+        # 23(d)'s v1 config through the CLI
+        return (slice22["api"]["launches"].get(counter, 0)
+                + slice23["v1"]["launches"].get(counter, 0))
 
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",

@@ -4,13 +4,14 @@ trainer/TrainerMain.cpp and trainer/MergeModel.cpp) with the same
 output lines.
 
     python -m paddle_tpu_torch train --config conf.py [--job train|test|time]
-        [--save_dir D] [--num_passes N] [--log_period N] [--pass_id P]
-        [--from_scratch] [--device cpu]
+        [--config_args a=1,b=2] [--save_dir D] [--num_passes N]
+        [--log_period N] [--pass_id P] [--from_scratch] [--device cpu]
     python -m paddle_tpu_torch merge_model --config conf.py --model_dir D
         [--pass_id P] --output model.npz
     python -m paddle_tpu_torch infer --model model.npz [--example]
         [--device cpu]
-    python -m paddle_tpu_torch dump_config --config conf.py [--output F]
+    python -m paddle_tpu_torch dump_config --config conf.py [--config_args ..]
+        [--output F]
     python -m paddle_tpu_torch version
     python -m paddle_tpu_torch serve --config conf.py [--port N]
         [--drain_timeout S]
@@ -27,6 +28,15 @@ prints `resuming from ...`; on SIGTERM it flushes a checkpoint, prints
 rungs it prints `WATCHDOG_ABORT {report}` and exits 1. Training and
 inference run on the card unless `--device cpu` is given.
 
+An unmodified reference v1 config file (`settings(...)`, `from
+paddle.trainer_config_helpers import *`, `define_py_data_sources2`,
+`outputs(...)`; it binds no `get_config`) runs through `train` (all
+three jobs) and `dump_config`: `compat/config_parser.py::parse_config`
+execs it (its `paddle.*` imports resolve to the port's
+`compat/v1_namespace/`), its provider module gives the reader and the
+slot types, and `DataFeeder` + `batched` feed the trainer
+(`_v1_setup`, the JAX CLI's).
+
 A serving config defines `get_server() -> serving.server.InferenceServer`
 with its models registered (and optionally `load_model(name, tag)` for
 the `{"admin": "swap_model"}` frame). `serve` owns the TCP front end and
@@ -34,11 +44,8 @@ the drain-on-shutdown lifecycle: it prints `LISTENING <port>`, and on
 SIGTERM/SIGINT stops admission, finishes or cleanly rejects in-flight
 work, prints `DRAINED {stats}` and exits 0.
 
-Left out, still to port: reference v1 config files (`settings()` /
-`outputs()` sources without `get_config`, the compat front end of
-ROADMAP A9/A12 — such a file is refused with that message), and the JAX
-CLI's `master`, `metrics`, `fleetz`, `make_diagram`, `bench` and
-`launch` commands.
+Left out, still to port (ROADMAP A12): the JAX CLI's `master`,
+`metrics`, `fleetz`, `make_diagram`, `bench` and `launch` commands.
 """
 
 from __future__ import annotations
@@ -54,9 +61,10 @@ import time
 def _load_config(path: str):
     if _is_v1_config(path):
         raise SystemExit(
-            f"{path} is a v1 config (it defines no get_config): the port "
-            "does not read v1 configs yet — their compat front end is "
-            "ROADMAP A9/A12")
+            f"{path} is a v1 config (it defines no get_config): `train` and "
+            "`dump_config` read v1 configs, as the JAX CLI's do; the other "
+            "commands take a get_config config (`make_diagram`, which "
+            "reads v1 configs in the JAX CLI, is ROADMAP A12)")
     spec = importlib.util.spec_from_file_location("_paddle_config", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -129,9 +137,52 @@ def cmd_version(args) -> int:
     return 0
 
 
+def _v1_setup(config_path, config_args, which="train"):
+    """(model, opt, batched reader, feeder, evaluators) from an
+    unmodified v1 config: parse it once, load the data-provider module
+    of the requested source (train or test), annotate the data layers'
+    slot types from that provider's declaration, and wire the feeder by
+    data-layer order (tuple samples) or by name (dict samples)."""
+    from paddle_tpu_torch.compat.config_parser import (
+        apply_data_types,
+        parse_config,
+    )
+    from paddle_tpu_torch.data.feeder import DataFeeder
+    from paddle_tpu_torch.data.reader import batched
+
+    tc = parse_config(config_path, config_args)
+    ds = tc.data_sources
+    if ds is None or not getattr(ds, f"{which}_list"):
+        raise SystemExit(
+            f"{config_path} declares no {which} data source "
+            "(define_py_data_sources2)")
+    reader_creator, types = (ds.train_reader() if which == "train"
+                             else ds.test_reader())
+    apply_data_types(tc.model, types)
+    data_names = [lc.name for lc in tc.model.layers if lc.type == "data"]
+    # the config's inputs() declaration fixes the provider-slot order
+    order = [n for n in (tc.model.input_layer_names or data_names)
+             if n in data_names] or data_names
+    if isinstance(types, dict):
+        feeding = {n: n for n in types}
+        type_map = dict(types)
+    else:
+        feeding = {n: i for i, n in enumerate(order)}
+        type_map = dict(zip(order, types))
+    feeder = DataFeeder(feeding, type_map)
+    reader = batched(reader_creator, tc.opt.batch_size, drop_last=False)
+    return tc.model, tc.opt, reader, feeder, tc.evaluators
+
+
 def cmd_dump_config(args) -> int:
-    mod = _load_config(args.config)
-    model_conf, opt_conf = mod.get_config()
+    if _is_v1_config(args.config):
+        from paddle_tpu_torch.compat.config_parser import parse_config
+
+        tc = parse_config(args.config, args.config_args)
+        model_conf, opt_conf = tc.model, tc.opt
+    else:
+        mod = _load_config(args.config)
+        model_conf, opt_conf = mod.get_config()
     doc = {
         "model": json.loads(model_conf.to_json()),
         "optimization": vars(opt_conf),
@@ -151,20 +202,28 @@ def cmd_train(args) -> int:
     from paddle_tpu_torch.trainer.trainer import SGD
 
     # --job=test needs only the config's test data source; everything
-    # else drives the train source
-    mod = _load_config(args.config)
-    model_conf, opt_conf = mod.get_config()
-    if args.job == "test":
-        if not hasattr(mod, "test_reader"):
-            raise SystemExit(
-                f"{args.config} must define test_reader() for --job=test")
-        reader = mod.test_reader()
+    # else drives the train source. The config is parsed once.
+    which = "test" if args.job == "test" else "train"
+    if _is_v1_config(args.config):
+        # an unmodified v1 config: model, optimizer and data provider
+        # all come from the file itself
+        model_conf, opt_conf, reader, feeder, evaluators = _v1_setup(
+            args.config, args.config_args, which)
     else:
-        reader = mod.train_reader()
-    feeder = getattr(mod, "feeder", None)
-    if feeder is None:
-        raise SystemExit(f"{args.config} must define feeder(batch)")
-    evaluators = getattr(mod, "evaluators", None) or []
+        mod = _load_config(args.config)
+        model_conf, opt_conf = mod.get_config()
+        if which == "test":
+            if not hasattr(mod, "test_reader"):
+                raise SystemExit(
+                    f"{args.config} must define test_reader() for "
+                    "--job=test")
+            reader = mod.test_reader()
+        else:
+            reader = mod.train_reader()
+        feeder = getattr(mod, "feeder", None)
+        if feeder is None:
+            raise SystemExit(f"{args.config} must define feeder(batch)")
+        evaluators = getattr(mod, "evaluators", None) or []
     trainer = SGD(model_conf, opt_conf, evaluators=evaluators,
                   device=args.device)
 
@@ -324,6 +383,8 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("train", help="train a config")
     p.add_argument("--config", required=True)
+    p.add_argument("--config_args", default="",
+                   help="v1 config interpolation, e.g. batch_size=64")
     p.add_argument("--job", choices=["train", "time", "test"],
                    default="train",
                    help="time = ms/batch harness (TrainerBenchmark.cpp); "
@@ -344,6 +405,7 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("dump_config", help="print config as JSON")
     p.add_argument("--config", required=True)
+    p.add_argument("--config_args", default="")
     p.add_argument("--output", default="")
     p.set_defaults(fn=cmd_dump_config)
 

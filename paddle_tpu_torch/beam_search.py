@@ -63,6 +63,7 @@ from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.config import LayerConf, ModelConf
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.network import Network
+from paddle_tpu_torch.ops.topk import top_k_stable as _top_k_stable
 from paddle_tpu_torch.parallel.dp import ARG_FIELDS, _arg_map, feed_signature
 from paddle_tpu_torch.parallel.graph import _fill, no_gc
 
@@ -93,21 +94,6 @@ class BeamHooks:
     def any(self) -> bool:
         return (self.adjust is not None or self.drop is not None
                 or self.stop is not None)
-
-
-def _top_k_stable(flat: torch.Tensor, k: int):
-    """Row-wise top-k of [R, N] f32, equal scores ordered by the lower
-    index (the `lax.top_k` contract). The key is the score's bits mapped
-    to an order-preserving int32 (negative floats' magnitude bits
-    flipped; -0.0 added to 0.0 first, so that the two are equal) above
-    N - 1 - index: every key is distinct, and `torch.topk` of it is
-    deterministic on any device."""
-    bits = (flat.float() + 0.0).view(torch.int32)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    rev = torch.arange(flat.shape[1] - 1, -1, -1, device=flat.device)
-    key = ordered.to(torch.int64) * (1 << 32) + rev
-    idx = torch.topk(key, k, dim=1).indices
-    return torch.gather(flat, 1, idx), idx
 
 
 def _to_np(x: torch.Tensor) -> np.ndarray:

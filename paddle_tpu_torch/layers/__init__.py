@@ -7,12 +7,15 @@ from paddle_tpu_torch.layers import (  # noqa: F401
     basic,
     conv,
     cost,
+    detection,
+    extras,
     fused,
     fused_text,
     norm,
     pool,
     recurrent,
     recurrent_group,
+    sampling,
     sequence,
     steps,
     structured,

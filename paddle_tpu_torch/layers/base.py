@@ -157,5 +157,14 @@ def init_parameter(gen: torch.Generator, pc: ParameterConf,
                                                dtype=dtype, device=dev)
 
 
+# the JAX package's layer types the port does not run yet, and the
+# ROADMAP item that ports each
+NOT_PORTED = {"moe": "ROADMAP A8 (layers/moe.py, ops/moe.py)"}
+
+
 def create_layer(conf: LayerConf, model: ModelConf) -> Layer:
+    if conf.type in NOT_PORTED and conf.type not in LAYERS:
+        raise NotImplementedError(
+            f"layer {conf.name!r}: type {conf.type!r} is not ported to "
+            f"paddle_tpu_torch yet — {NOT_PORTED[conf.type]}")
     return LAYERS.get(conf.type)(conf, model)

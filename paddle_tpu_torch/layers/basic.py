@@ -1,9 +1,9 @@
 """Core dense layers of `paddle_tpu/layers/basic.py`: data, fc,
-embedding and addto (the Transformer LM's), concat and scaling (the
-sequence models'), and mixed with all of its projections (the beam
-decoders' and the served bigram model's step; the first item of
-ROADMAP A9, ported with A3a). The other nine types of that module are
-still to port (ROADMAP A9).
+embedding, addto, concat, scaling, mixed with all of its projections,
+and the combinators cos, interpolation, dot_mul, slope_intercept,
+tensor, outer_prod, sum_to_one_norm, trans and resize. Every type of
+that module is here; the products are `torch.matmul` / `torch.einsum`,
+as the JAX layers leave them to XLA outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -315,3 +315,175 @@ class MixedLayer(Layer):
             y = y + b
         y = self.apply_activation_and_dropout(y, ctx, seq_lens)
         return Arg(value=y, seq_lens=seq_lens, subseq_lens=subseq_lens)
+
+
+@LAYERS.register("cos")
+class CosSimLayer(Layer):
+    """Cosine similarity of two inputs, scaled (CosSimLayer.cpp). attrs:
+    scale (default 1). With size=k > 1, input b packs k vectors of a's
+    width and the output is the k similarities per example."""
+
+    def build(self, in_specs):
+        seq = any(s.is_seq for s in in_specs)
+        k = self.conf.size or 1
+        if k > 1:
+            assert in_specs[1].size == k * in_specs[0].size, (
+                f"cos {self.name}: size={k} needs b of width "
+                f"{k}*{in_specs[0].size}, got {in_specs[1].size}")
+        return Spec(dim=(k,), is_seq=seq), {}
+
+    def forward(self, params, inputs, ctx):
+        a, b = inputs[0].value, inputs[1].value
+        scale = self.conf.attrs.get("scale", 1.0)
+        k = self.conf.size or 1
+        keep = k == 1
+        if not keep:
+            b = b.reshape(b.shape[:-1] + (k, a.shape[-1]))
+            a = a[..., None, :]
+        num = torch.sum(a * b, dim=-1, keepdim=keep)
+        den = (torch.linalg.vector_norm(a, dim=-1, keepdim=keep)
+               * torch.linalg.vector_norm(b, dim=-1, keepdim=keep))
+        return Arg(value=scale * num / torch.clamp(den, min=1e-8),
+                   seq_lens=inputs[0].seq_lens)
+
+
+@LAYERS.register("interpolation")
+class InterpolationLayer(Layer):
+    """y = w*x1 + (1-w)*x2 with a per-example scalar w
+    (InterpolationLayer.cpp). inputs: [w (1 wide), x1, x2]."""
+
+    def build(self, in_specs):
+        return in_specs[1], {}
+
+    def forward(self, params, inputs, ctx):
+        w = inputs[0].value
+        y = w * inputs[1].value + (1.0 - w) * inputs[2].value
+        return inputs[1].with_value(y)
+
+
+@LAYERS.register("dot_mul")
+class DotMulLayer(Layer):
+    """Elementwise product of two inputs (the mixed layer's
+    DotMulOperator)."""
+
+    def build(self, in_specs):
+        return in_specs[0], {}
+
+    def forward(self, params, inputs, ctx):
+        y = inputs[0].value * inputs[1].value
+        y = self.apply_activation_and_dropout(y, ctx, inputs[0].seq_lens)
+        return inputs[0].with_value(y)
+
+
+@LAYERS.register("slope_intercept")
+class SlopeInterceptLayer(Layer):
+    """y = slope*x + intercept (SlopeInterceptLayer.cpp)."""
+
+    def build(self, in_specs):
+        return in_specs[0], {}
+
+    def forward(self, params, inputs, ctx):
+        a = self.conf.attrs
+        y = a.get("slope", 1.0) * inputs[0].value + a.get("intercept", 0.0)
+        return inputs[0].with_value(y)
+
+
+@LAYERS.register("tensor")
+class TensorLayer(Layer):
+    """Bilinear tensor product y_k = x1 @ W_k @ x2 (TensorLayer.cpp);
+    w0 is [out, size1, size2]."""
+
+    def build(self, in_specs):
+        s1, s2 = in_specs
+        out = self.conf.size
+        pcs = {"w0": self.weight_conf(0, (out, s1.size, s2.size))}
+        b = self.bias_conf((out,))
+        if b is not None:
+            pcs["b"] = b
+        return Spec(dim=(out,), is_seq=s1.is_seq), pcs
+
+    def forward(self, params, inputs, ctx):
+        x1, x2 = inputs[0].value, inputs[1].value
+        # (x1 @ W_k) . x2 for every k: one matmul against [s1, out*s2]
+        w = params["w0"]
+        k, s1, s2 = w.shape
+        t = torch.matmul(x1, w.permute(1, 0, 2).reshape(s1, k * s2))
+        y = torch.sum(t.reshape(t.shape[:-1] + (k, s2)) * x2[..., None, :],
+                      dim=-1)
+        if "b" in params:
+            y = y + params["b"]
+        y = self.apply_activation_and_dropout(y, ctx, inputs[0].seq_lens)
+        return inputs[0].with_value(y)
+
+
+@LAYERS.register("outer_prod", "out_prod")
+class OuterProdLayer(Layer):
+    """Outer product of two vectors, flattened (OuterProdLayer.cpp)."""
+
+    def build(self, in_specs):
+        s1, s2 = in_specs
+        return Spec(dim=(s1.size * s2.size,), is_seq=s1.is_seq), {}
+
+    def forward(self, params, inputs, ctx):
+        x1, x2 = inputs[0].value, inputs[1].value
+        y = x1[..., :, None] * x2[..., None, :]
+        return inputs[0].with_value(y.reshape(y.shape[:-2] + (-1,)))
+
+
+@LAYERS.register("sum_to_one_norm")
+class SumToOneNormLayer(Layer):
+    """Row-normalize to sum 1 (SumToOneNormLayer.cpp); a row summing to
+    0 stays as it is."""
+
+    def build(self, in_specs):
+        return in_specs[0], {}
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0].value
+        s = torch.sum(x, dim=-1, keepdim=True)
+        return inputs[0].with_value(x / torch.where(s == 0, 1.0, s))
+
+
+@LAYERS.register("trans")
+class TransLayer(Layer):
+    """Matrix transpose of the per-example [H, W] view (TransLayer.cpp).
+    attrs: height, width; else the input spec's (H, W[, C]) or a square
+    flat width."""
+
+    def build(self, in_specs):
+        (s,) = in_specs
+        a = self.conf.attrs
+        h, w = a.get("height"), a.get("width")
+        if not (h and w):
+            if len(s.dim) >= 2:
+                h, w = s.dim[0], s.dim[1] * (s.dim[2] if len(s.dim) == 3
+                                             else 1)
+            else:
+                hw = int(round(s.size ** 0.5))
+                assert hw * hw == s.size, (
+                    f"trans {self.name}: flat width {s.size} is not "
+                    "square; pass height/width")
+                h = w = hw
+        self._hw = (h, w)
+        return Spec(dim=(w * h,), is_seq=s.is_seq), {}
+
+    def forward(self, params, inputs, ctx):
+        h, w = self._hw
+        x = inputs[0].value
+        lead = x.shape[:-1]
+        y = x.reshape(lead + (h, w)).transpose(-1, -2).reshape(lead + (h * w,))
+        return inputs[0].with_value(y)
+
+
+@LAYERS.register("resize")
+class ResizeLayer(Layer):
+    """Reshape the feature dim (ResizeLayer.cpp)."""
+
+    def build(self, in_specs):
+        return Spec(dim=(self.conf.size,), is_seq=in_specs[0].is_seq), {}
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0].value
+        lead = 2 if inputs[0].is_seq else 1
+        return inputs[0].with_value(
+            x.reshape(x.shape[:lead] + (self.conf.size,)))

@@ -27,7 +27,10 @@ rule of `pallas_rnn.use_fused_default`) and the scan for a CPU input.
 `True` takes the kernels' path on either device; `False` always takes
 the scan, the A/B arm of the chip smoke.
 
-Left out, still to port: `mdlstm` (ROADMAP A9).
+`mdlstm` (the 2-D multi-dimensional LSTM) walks its grid by
+anti-diagonals: every cell of one anti-diagonal depends only on cells
+of the one before, so gh + gw - 1 steps replace the JAX layer's gh x gw
+(a row scan around a column scan); it has no kernel of its own.
 """
 
 from __future__ import annotations
@@ -220,4 +223,90 @@ class GruLayer(Layer):
 
         h0 = arg.value.new_zeros((arg.value.shape[0], h))
         y = _scan_rnn(step, arg.value, arg.seq_lens, h0, rev)
+        return Arg(value=y, seq_lens=arg.seq_lens)
+
+
+@LAYERS.register("mdlstm", "mdlstmemory")
+class MDLstmLayer(Layer):
+    """2-D multi-dimensional LSTM (MDLstmLayer.cpp): each grid cell
+    takes the hidden and cell states of its row and column
+    predecessors, with one shared recurrent weight applied to the sum
+    of the two hidden states and a forget gate per dimension.
+
+    Input [B, H, W, 5h] pre-projected (gates [i | f_row | f_col | g |
+    o]); output [B, H, W, h]. Missing neighbours at the grid's edges
+    are zero states. attrs: directions = (bool, bool), True = ascending;
+    active_gate_type / active_state_type as in lstmemory. Params: w0
+    [h, 5h]; bias [5h gates + h wci + 2h wcf + h wco = 9h].
+
+    The walk: step d computes the cells (i, d - i) of anti-diagonal d
+    for every row i at once (cells off the grid are computed and
+    zeroed), from step d-1's states: the top neighbour is row i-1 of
+    step d-1, the left one row i."""
+
+    def build(self, in_specs):
+        (s,) = in_specs
+        h = self.conf.size
+        gh, gw, gc = s.dim
+        assert gc == 5 * h, (
+            f"mdlstm input must be (3+2)*size wide, got {gc} != {5 * h}")
+        self._grid = (gh, gw)
+        pcs = {"w0": self.weight_conf(0, (h, 5 * h))}
+        b = self.bias_conf((9 * h,))
+        if b is not None:
+            pcs["b"] = b
+        return Spec(dim=(gh, gw, h), is_seq=s.is_seq), pcs
+
+    def forward(self, params, inputs, ctx):
+        (arg,) = inputs
+        h = self.conf.size
+        gh, gw = self._grid
+        act = activations.get(self.conf.active_type or "tanh")
+        gate_act = activations.get(
+            self.conf.attrs.get("active_gate_type", "sigmoid"))
+        state_act = activations.get(
+            self.conf.attrs.get("active_state_type", "tanh"))
+        dirs = self.conf.attrs.get("directions", (True, True))
+        x = arg.value.reshape((arg.value.shape[0], gh, gw, 5 * h))
+        w = params["w0"]
+        if "b" in params:
+            gb, wci, wcf_r, wcf_c, wco = torch.split(
+                params["b"], [5 * h, h, h, h, h])
+        else:
+            gb = torch.zeros(5 * h, dtype=x.dtype, device=x.device)
+            wci = wcf_r = wcf_c = wco = gb[:h]
+        # descending directions walk the flipped grid
+        flip = [ax for ax, up in ((1, dirs[0]), (2, dirs[1])) if not up]
+        if flip:
+            x = torch.flip(x, dims=flip)
+        bsz, n_diag = x.shape[0], gh + gw - 1
+        rows = torch.arange(gh, device=x.device)
+        cols = torch.arange(n_diag, device=x.device)[:, None] - rows[None, :]
+        on_grid = (cols >= 0) & (cols < gw)               # [n_diag, gh]
+        cols = torch.clamp(cols, 0, gw - 1)
+        zero = torch.zeros((bsz, 1, h), dtype=x.dtype, device=x.device)
+        h_prev = c_prev = torch.zeros((bsz, gh, h), dtype=x.dtype,
+                                      device=x.device)
+        outs = []
+        for d in range(n_diag):
+            x_d = x[:, rows, cols[d]]                     # [B, gh, 5h]
+            h_top = torch.cat([zero, h_prev[:, :-1]], dim=1)
+            c_top = torch.cat([zero, c_prev[:, :-1]], dim=1)
+            pre = x_d + torch.matmul(h_top + h_prev, w) + gb
+            ig = gate_act(pre[..., :h] + (c_top + c_prev) * wci)
+            f_r = gate_act(pre[..., h:2 * h] + c_top * wcf_r)
+            f_c = gate_act(pre[..., 2 * h:3 * h] + c_prev * wcf_c)
+            g = act(pre[..., 3 * h:4 * h])
+            c = f_r * c_top + f_c * c_prev + ig * g
+            o = gate_act(pre[..., 4 * h:] + c * wco)
+            keep = on_grid[d][None, :, None]
+            h_prev = torch.where(keep, o * state_act(c), 0.0)
+            c_prev = torch.where(keep, c, 0.0)
+            outs.append(h_prev)
+        # cell (i, j) is row i of step i + j
+        diag = torch.stack(outs, dim=1)                   # [B, n_diag, gh, h]
+        jj = torch.arange(gw, device=x.device)
+        y = diag[:, rows[:, None] + jj[None, :], rows[:, None]]
+        if flip:
+            y = torch.flip(y, dims=flip)
         return Arg(value=y, seq_lens=arg.seq_lens)

@@ -25,7 +25,7 @@ from paddle_tpu_torch.models import text as ttext
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIES = ["core/config.py", "dsl.py", "core/registry.py",
           "trainer/events.py", "models/image.py", "models/text.py",
-          "models/ctr.py"]
+          "models/ctr.py", "models/vae.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -98,25 +98,10 @@ def test_port_has_its_own_registries():
 
     for name in ("LAYERS", "ACTIVATIONS", "OPTIMIZERS", "LR_SCHEDULERS"):
         assert getattr(tregistry, name) is not getattr(jregistry, name)
-    assert tregistry.LAYERS.names() == sorted([
-        "addto", "attention", "average", "batch_norm",
-        "classification_cost", "concat", "concat2", "conv",
-        "cross_entropy", "cudnn_batch_norm", "cudnn_conv", "cudnn_pool",
-        "data", "embedding", "exconv", "expand", "fc",
-        "fused_att_decoder", "fused_bottleneck_tail", "fused_conv1x1_bn",
-        "gated_recurrent", "gru", "gru_step", "gru_step_naive", "grumemory",
-        "last_seq", "lstm", "lstm_step", "lstmemory", "max", "mixed", "mse",
-        "multi-class-cross-entropy", "multi_head_attention", "pool",
-        "recurrent", "recurrent_group", "recurrent_layer_group", "scaling",
-        "seqlastins", "seqpool", "sequence_pool",
-        "softmax_with_cross_entropy", "square_error", "sum_of_squares",
-        # nested sequences and the structured heads
-        "cmrnorm-projection", "crf", "crf_decoding", "crop", "ctc",
-        "gen_output", "norm", "pad", "padding", "rotate", "row_l2_norm",
-        "seq_slice", "seqconcat", "seqreshape", "seqreverse",
-        "sequence_reverse", "slice", "sub_nested_seq", "sub_seq", "subseq",
-        "warp_ctc"])
-    assert len(tregistry.LAYERS.names()) == 66
+    # every layer type of the JAX package but moe (ROADMAP A8)
+    assert tregistry.LAYERS.names() == sorted(
+        set(jregistry.LAYERS.names()) - {"moe"})
+    assert len(tregistry.LAYERS.names()) == 125
     assert tregistry.OPTIMIZERS.names() == [
         "adadelta", "adagrad", "adam", "adamax", "decayed_adagrad",
         "momentum", "rmsprop", "sgd"]

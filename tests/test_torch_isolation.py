@@ -292,3 +292,71 @@ def test_paged_decoders_refuse_the_cpu_unless_asked(monkeypatch):
     toks, scores = plm.beam_generate(np.full((1, 3), 2, np.int32),
                                      np.asarray([3]), 2, 3)
     assert toks.shape == (1, 2, 3) and np.isfinite(scores).all()
+
+
+def test_layer_tail_and_v1_front_end_import_with_jax_blocked():
+    """The layer tail, the VAE and GAN confs and the v1 front end by name
+    (the walk above covers them too)."""
+    names = ["paddle_tpu_torch.layers.basic", "paddle_tpu_torch.layers.cost",
+             "paddle_tpu_torch.layers.extras", "paddle_tpu_torch.layers.pool",
+             "paddle_tpu_torch.layers.conv",
+             "paddle_tpu_torch.layers.recurrent",
+             "paddle_tpu_torch.layers.sampling",
+             "paddle_tpu_torch.layers.detection",
+             "paddle_tpu_torch.ops.detection", "paddle_tpu_torch.ops.topk",
+             "paddle_tpu_torch.models.vae", "paddle_tpu_torch.models.gan",
+             "paddle_tpu_torch.compat", "paddle_tpu_torch.compat.layers_v1",
+             "paddle_tpu_torch.compat.layer_math",
+             "paddle_tpu_torch.compat.raw_config",
+             "paddle_tpu_torch.compat.config_parser",
+             "paddle_tpu_torch.compat.v1_namespace",
+             "paddle_tpu_torch.compat.v1_namespace.trainer_config_helpers",
+             "paddle_tpu_torch.compat.v1_namespace.PyDataProvider2",
+             "paddle_tpu_torch.compat.v1_namespace.config_parser"]
+    files = _port_files()
+    assert all(os.path.join(PKG, *n.split(".")[1:]) + ".py" in files
+               or os.path.join(PKG, *n.split(".")[1:], "__init__.py") in files
+               for n in names)
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=names)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(names))
+
+
+V1_PARSE = """
+import os, sys
+import chip_smoke
+from paddle_tpu_torch.compat import config_parser as cp
+from paddle_tpu_torch.network import Network
+
+path, args = chip_smoke.write_v1_config({work!r}, vocab=40, hidden=4, emb=4)
+tc = cp.parse_config(path, args)
+net = Network(tc.model)
+reader, types = tc.data_sources.train_reader()
+sample = next(iter(reader()))
+assert len(sample) == 2 and types[0].seq == 1
+bad = [k for k in sys.modules
+       if k.split(".")[0] in ("paddle", "paddle_tpu", "jax", "jaxlib")]
+assert not bad, bad
+print("PARSED", len(tc.model.layers))
+"""
+
+
+def test_v1_config_and_provider_parse_with_jax_and_the_shim_blocked(tmp_path):
+    """A v1 config (`from paddle.trainer_config_helpers import *`) and its
+    provider (`from paddle.trainer.PyDataProvider2 import *`) parse and
+    load through the port in a process where jax, the JAX package and
+    the repo-root `paddle` package cannot be imported; none of them is
+    in sys.modules after."""
+    block = BLOCKED_IMPORT.split("import paddle_tpu_torch")[0].format(
+        forbidden=set(FORBIDDEN) | {"paddle"})
+    code = block + V1_PARSE.format(work=str(tmp_path))
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-2] == "PARSED"

@@ -431,10 +431,13 @@ def test_cli_preempt_relaunch_test_time_merge_infer(tmp_path):
         == "adam"
     version = _cli(["version"])
     assert version.returncode == 0 and "paddle_tpu_torch" in version.stdout
+    # a v1 config goes through the v1 front end, which stops on a file
+    # that declares no data source
     v1 = tmp_path / "v1.py"
     v1.write_text("settings(batch_size=4)\n")
     refused = _cli(["train", "--config", str(v1), "--device", "cpu"])
-    assert refused.returncode != 0 and "A9/A12" in refused.stderr
+    assert refused.returncode != 0
+    assert "declares no train data source" in refused.stderr
 
 
 def test_help_lists_every_command():
