@@ -5,11 +5,12 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in twenty-four phases, two of multi-step dispatch (18b,
+`paddle_tpu` — in twenty-five phases, two of multi-step dispatch (18b,
 18c), one of generation and serving (20), one of nested sequences and
 the structured heads (21), one of beam and speculative decode over the
 paged KV pool (22), one of the layer tail, the VAE and GAN and the v1
-front end (23), and seven that run its paths or its kernels' forms
+front end (23), one of the flight recorder and the fleet (24), and
+seven that run its paths or its kernels' forms
 under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and any failure
 exits non-zero:
 
@@ -360,7 +361,32 @@ exits non-zero:
     classes, nms_top_k 400, keep_top_k 200, B = 8): multibox_loss and
     its gradients, detection_output's rows (labels exact) against the
     CPU, and their ms;
-24. prints the kernels' JSON line and, last, the device line.
+24. the flight recorder and the fleet (subprocess replicas and workers
+    on the card, `testing_faults.py`): (a) phase 20's GenerationModel
+    served with a flight recorder and its torch.profiler capture on,
+    an SLO below any latency and a model failing three times: exactly
+    one `slo_breach` bundle holding the requests' serve.request /
+    queued / dispatch spans, the captured profile and its trace, the
+    `breaker_open` trigger suppressed, the bundle lint's rc 0, and a
+    dump's ms with and without the capture; (b) the host-fallback
+    rescue: the decoder's device decode raising once, the request
+    answered on the host rung with the device decode's tokens by the
+    serving rule, one breaker failure, B7 on both rungs; (c) two
+    phase-13 classifiers co-dispatched through MultiForwardHost:
+    `batches_codispatch` >= 1, each batch's scores equal to the model
+    served alone and within 1e-5 (probabilities) of the scan arm, B5's
+    inference form; (d) bench_serve_fleet_loadtest: three replicas from
+    the verified cache, 8 clients, 3 s a point, one SIGKILLed halfway
+    and restarted from the cache: zero admitted requests lost, goodput,
+    p99 and the rejoin s; (e) bench_serve_coldstart (48 x 256): store_s,
+    compile-mode and cache-mode boot s; (f) the elastic CTR worker at
+    _bench_ctr_bigvocab's full setting SIGKILLed and respawned
+    (batches lost and retrained 0, kill_recover_s, B9 from its done
+    record), then the online loop through one ctr replica with a
+    rollout() every 10 batches (zero lost, the served logloss falling);
+    (g) one stitched incident bundle read by tools/fleet_view.py and
+    `python -m paddle_tpu_torch fleetz --json`;
+25. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -7198,18 +7224,1014 @@ def layer_tail(torch, rnn):
     return {"layers": layers, "vae": vae, "gan": gan, "v1": v1, "ssd": ssd}
 
 
-def sparse_kernel_rows(checks, times, standalone, wide_deep, tier):
+# ---- phase 24: the flight recorder and the fleet --------------------------
+
+# 24a: GEN_FLIGHT requests (traced) from FLIGHT_CLIENTS threads at 20(c)'s
+# buckets, an admitted-p99 SLO below any latency (slo_breach after the
+# 20th), then a model failing BREAKER_THRESHOLD times (breaker_open,
+# suppressed inside the recorder's interval)
+GEN_FLIGHT, FLIGHT_CLIENTS, FLIGHT_SLO_MS, BREAKER_THRESHOLD = 24, 4, 0.001, 3
+# 24c: CODISPATCH requests a classifier, lengths 10..CLS_T, one batch a
+# model of up to CODISPATCH_BATCH
+CODISPATCH, CODISPATCH_BATCH = 32, 32
+# 24d: bench_serve_fleet_loadtest's settings
+FLEET = dict(replicas=3, clients=8, window_s=3.0, layers=4, d=32,
+             max_queue=64, breaker_reset_s=0.4)
+# 24e: bench_serve_coldstart's settings
+COLDSTART = dict(layers=48, d=256)
+# 24f: bench_multichip.py::_bench_ctr_bigvocab's full setting (8 logical
+# shards on the one card) for the elastic worker, then the online loop of
+# tests/test_online_learning.py over a table of that size
+CTR_BIG = dict(SHARDS=8, ROWS_TOTAL=1 << 30, BATCHES=48, CAPACITY=4096,
+               NUM_SLOTS=1024, HOT=4096, BATCH=8, FEATS=4, DIM=8,
+               BATCH_SLEEP=0.05)
+ONLINE = dict(hot=32, batch=32, feats=4, batches=40, lr=1.0, swap_every=10,
+              seed=11)
+# 24f: the card's CTR tables and losses against a CPU table's (phase 15's)
+CTR_TOL = 1e-5
+# 24g: a slow and a fast toy replica against a 100 ms p99 SLO
+INCIDENT = dict(slow_s=0.3, fast_s=0.004, slo_ms=100.0)
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def until(pred, timeout, step=0.01):
+    """Poll `pred` until it holds or `timeout` s pass; its last value."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(step)
+    return pred()
+
+
+def flight_bundles(d):
+    """The flight bundles that have landed in `d` (the final .json, not
+    the .json.tmp a dump writes first nor the .attrib.json beside it)."""
+    if not os.path.isdir(d):
+        return []
+    return sorted(f for f in os.listdir(d) if f.startswith("flight-")
+                  and f.endswith(".json") and ".json." not in f)
+
+
+def registry_total(family):
+    from paddle_tpu_torch.obs import aggregate, metrics
+
+    return aggregate.family_total(
+        metrics.get_registry().snapshot()["counters"], family)
+
+
+def start_replicas(n, dev, **env):
+    """Start n serving replicas in parallel on `dev`; [(proc, port)].
+    If one fails to boot, all are killed."""
+    from paddle_tpu_torch import testing_faults as tf
+
+    out = [None] * n
+
+    def go(i):
+        out[i] = tf.start_serving_replica(REPO, boot_timeout=240,
+                                          DEVICE=dev, **env)
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    if any(o is None or o[1] is None for o in out):
+        for o in out:
+            if o is not None:
+                tf.kill_process(o[0])
+        raise AssertionError([o and o[0].boot_line for o in out])
+    return out
+
+
+class Booting:
+    """`start_replicas` on a thread, so that replicas boot while other
+    sub-phases run; `wait()` returns its [(proc, port)] (or raises its
+    error) and `kill()` stops whatever it started."""
+
+    def __init__(self, n, dev, **env):
+        self._out = {}
+        self._thread = threading.Thread(target=self._run,
+                                        args=(n, dev, env))
+        self._thread.start()
+
+    def _run(self, n, dev, env):
+        try:
+            self._out["ok"] = start_replicas(n, dev, **env)
+        except BaseException as e:  # handed to wait()
+            self._out["error"] = e
+
+    def alive(self):
+        """Whether its replicas are still booting."""
+        return self._thread.is_alive()
+
+    def wait(self):
+        self._thread.join(360)
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["ok"]
+
+    def kill(self):
+        from paddle_tpu_torch import testing_faults as tf
+
+        self._thread.join(360)
+        for p, _ in self._out.get("ok", ()):
+            tf.kill_process(p)
+
+
+def serve_anomalies(torch, rnn, gen, work, dev):
+    """24a: phase 20's GenerationModel behind an InferenceServer with a
+    flight recorder writing bundles under its profiler capture. An SLO below
+    any latency trips `slo_breach` once 20 traced requests completed; a
+    model failing BREAKER_THRESHOLD times trips `breaker_open` inside
+    the recorder's interval: exactly one bundle, the rest counted on
+    `flight.dumps_suppressed`. The bundle holds the requests' spans,
+    a captured profile and its trace, and the bundle lint accepts it.
+    Then a dump's ms with and without the capture."""
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.obs import flight_recorder as fr
+    from paddle_tpu_torch.obs import metrics, tracing
+    from paddle_tpu_torch.serving.models import GenerationModel
+    from paddle_tpu_torch.serving.server import (InferenceServer,
+                                                 ServeConfig, ServeError)
+
+    class Poisoned:
+        can_host = False
+        engine = None
+        named_hooks = {}
+
+        def run_batch(self, ids, lens, hooks, host):
+            raise RuntimeError("poisoned program")
+
+    d = os.path.join(work, "flight")
+    rec = fr.enable_flight_recorder(dump_dir=d, min_interval_s=3600.0,
+                                    max_bundles=8, profiler_capture=True)
+    flags.set_flag("serve_p99_slo_ms", FLIGHT_SLO_MS)
+    suppressed0 = registry_total("flight.dumps_suppressed")
+    model = GenerationModel(gen["decoder"](GEN_K), gen["params"],
+                            encode=gen["encode"])
+    server = InferenceServer(ServeConfig(
+        max_queue=64, max_batch=SERVE_GEN["max_batch"],
+        buckets=SERVE_GEN["buckets"], default_deadline_s=120.0,
+        breaker_threshold=BREAKER_THRESHOLD, breaker_reset_s=60.0))
+    server.add_model("nmt", model)
+    server.add_model("bad", Poisoned())
+    rng = np.random.default_rng(SEED + 240)
+    sources = [rng.integers(2, NMT["src_vocab"], int(n)).tolist()
+               for n in rng.integers(SERVE_GEN["src_lens"][0],
+                                     SERVE_GEN["src_lens"][1] + 1,
+                                     GEN_FLIGHT)]
+    answers = [None] * GEN_FLIGHT
+    per = GEN_FLIGHT // FLIGHT_CLIENTS
+
+    def client(c):
+        for j in range(c * per, (c + 1) * per):
+            answers[j] = server.submit(
+                "nmt", sources[j],
+                trace={"trace_id": tracing.new_trace_id(),
+                       "span_id": ""}).result(300)
+
+    zero_rnn_counts(rnn)
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(FLIGHT_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        serve_s = time.perf_counter() - t0
+        assert all(a is not None and "tokens" in a for a in answers), \
+            answers
+        assert until(lambda: len(flight_bundles(d)) == 1, 60), os.listdir(d)
+        failures = []
+        for _ in range(BREAKER_THRESHOLD):
+            try:
+                server.submit("bad", [2, 3]).result(60)
+            except ServeError as e:
+                failures.append(str(e))
+        assert len(failures) == BREAKER_THRESHOLD, failures
+        assert until(lambda: registry_total("flight.dumps_suppressed")
+                     > suppressed0, 30)
+        stats = server.stats()
+    finally:
+        server.shutdown(drain=True)
+        flags.set_flag("serve_p99_slo_ms", 0)
+    counts = gru_counts(rnn)
+    files = flight_bundles(d)
+    assert len(files) == 1, files
+    path = os.path.join(d, files[0])
+    doc = json.load(open(path))
+    spans = {e["name"] for e in rec.spans()}
+    bundle_spans = {e["name"] for e in doc["events"]
+                    if e.get("kind") == "span"}
+    events = [(e.get("event"), e.get("model")) for e in rec.snapshot()
+              if e.get("kind") == "serving"]
+    lint = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools",
+                                      "check_bench_record.py"),
+         "bundle", path], capture_output=True, text=True, timeout=120)
+    # a dump's own cost, with and without the capture; the capture's
+    # window sees a matmul loop on the card (the serving worker above
+    # waits in its own capture, so that trace holds no kernel)
+    timed, busy = {}, threading.Event()
+
+    def matmuls():
+        n = 2048 if dev == "cuda" else 256
+        a = torch.randn(n, n, device=dev) / n ** 0.5
+        while not busy.is_set():
+            a = torch.tanh(a @ a)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+
+    for capture in (False, True):
+        r2 = fr.FlightRecorder(dump_dir=os.path.join(work, f"t{capture}"),
+                               registry=metrics.get_registry(),
+                               min_interval_s=0.0,
+                               profiler_capture=capture)
+        for e in rec.snapshot():
+            r2.record(e)
+        side = threading.Thread(target=matmuls)
+        busy.clear()
+        side.start()
+        try:
+            t0 = time.perf_counter()
+            assert r2.maybe_dump("timed") is not None
+            timed[capture] = (time.perf_counter() - t0) * 1e3
+        finally:
+            busy.set()
+            side.join(60)
+    fr.disable_flight_recorder()
+    attrib = r2.last_bundle["profile"].get("attrib")
+    shares = json.load(open(attrib))["shares"] if attrib else None
+    r = {"requests": GEN_FLIGHT, "serve_s": serve_s,
+         "bundle": files[0], "reason": doc["reason"],
+         "context": doc["context"], "bundle_events": len(doc["events"]),
+         "bundle_spans": sorted(bundle_spans), "ring_spans": sorted(spans),
+         "serving_events": events,
+         "suppressed": registry_total("flight.dumps_suppressed")
+         - suppressed0,
+         "profile": {k: doc["profile"].get(k) for k in
+                     ("captured", "attrib")},
+         "trace_bytes": (os.path.getsize(doc["profile"]["trace"])
+                         if doc["profile"].get("trace") else 0),
+         "lint_rc": lint.returncode,
+         "dump_ms": timed[False], "dump_with_capture_ms": timed[True],
+         "timed_capture_attrib_shares": shares,
+         "launches": counts, "server": stats}
+    print("flight serve " + json.dumps(r), flush=True)
+    assert doc["reason"] == "slo_breach", doc["reason"]
+    assert {"serve.request", "serve.queued", "serve.dispatch"} <= spans
+    assert {"serve.request", "serve.queued", "serve.dispatch"} <= \
+        bundle_spans
+    assert ("slo_breach", None) in events and ("breaker_open",
+                                               "bad") in events
+    assert r["suppressed"] >= 1, r
+    assert doc["profile"]["captured"] is True, doc["profile"]
+    assert os.path.exists(doc["profile"]["trace"]), doc["profile"]
+    assert lint.returncode == 0, lint.stdout + lint.stderr
+    if dev == "cuda":
+        assert counts["gru_fwd_launches"] > 0, counts
+        # the card's kernels reached the attribution tool
+        assert shares is not None, r2.last_bundle["profile"]
+    return r
+
+
+class FailOnce:
+    """A decoder whose device `generate` raises once (the rescue's
+    fault; everything else is the wrapped decoder's)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.failed = 0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def generate(self, *a, **k):
+        if not self.failed:
+            self.failed += 1
+            raise RuntimeError("device decode failed")
+        return self.inner.generate(*a, **k)
+
+
+def rescue(torch, rnn, gen, dev):
+    """24b: the host-fallback rescue. The decoder's device decode raises
+    once: the request is answered on the host rung (path "host"), its
+    tokens those of a device decode of the same request by the serving
+    rule, the breaker counts exactly one failure, `completed_host` is 1,
+    and B7 ran on both rungs (the encoder, twice each)."""
+    from paddle_tpu_torch.serving.host_decode import host_generate
+    from paddle_tpu_torch.serving.models import GenerationModel
+    from paddle_tpu_torch.serving.server import InferenceServer, ServeConfig
+
+    params = gen["params"]
+    model = GenerationModel(FailOnce(gen["decoder"](GEN_K)), params,
+                            encode=gen["encode"])
+    server = InferenceServer(ServeConfig(
+        max_queue=8, max_batch=1, buckets=SERVE_GEN["buckets"],
+        default_deadline_s=120.0, host_fallback=True))
+    server.add_model("rescue", model)
+    rng = np.random.default_rng(SEED + 241)
+    src = rng.integers(2, NMT["src_vocab"], 20).astype(np.int32)
+    before = registry_total("serving.dispatch_failures")
+    zero_rnn_counts(rnn)
+    try:
+        t0 = time.perf_counter()
+        out = server.submit("rescue", src.tolist()).result(300)
+        ms = (time.perf_counter() - t0) * 1e3
+        stats = server.stats()
+    finally:
+        server.shutdown(drain=True)
+    counts = gru_counts(rnn)
+    bucket = next(b for b in SERVE_GEN["buckets"] if b >= len(src))
+    ids = np.zeros((1, bucket), np.int32)
+    ids[0, :len(src)] = src
+    statics, boots = gen["encode"](ids, np.asarray([len(src)], np.int32))
+    lone = gen["decoder"](GEN_K)
+    ref = tuple(x.cpu().numpy() for x in lone.generate(params, statics,
+                                                        boots))
+    got = (np.asarray([[out["tokens"]]]), np.asarray([[len(out["tokens"])]]))
+    rec = MarginRecorder(EOS)
+
+    def margins(_i):
+        host_generate(gen["decoder"](1), params, statics, boots,
+                      hooks=rec.hooks())
+        return [m[0] for m in rec.margins]
+
+    equal, excused = margin_rule("rescued request", got, ref, margins)
+    r = {"path": out["path"], "tokens": len(out["tokens"]),
+         "tokens_equal": equal, "tokens_excused_by_margin": excused,
+         "breaker_failures": registry_total("serving.dispatch_failures")
+         - before, "completed_host": stats["completed_host"],
+         "failed": stats["failed"], "ms": ms, "launches": counts}
+    print("flight rescue " + json.dumps(r), flush=True)
+    assert out["path"] == "host", out
+    assert r["breaker_failures"] == 1, r
+    assert stats["completed_host"] == 1 and stats["failed"] == 0, stats
+    assert stats["models"]["rescue"]["breaker"] == "closed", stats
+    if dev == "cuda":
+        # the encoder (two B7 launches) on the device rung before its
+        # decode raised, and again on the host rung
+        assert counts["gru_fwd_launches"] == 4, counts
+    return r
+
+
+def codispatch(torch, rnn, dev):
+    """24c: two phase-13 classifiers (h = 256, T up to CLS_T) merged by
+    MultiForwardHost behind one server; a gate model holds the worker
+    while both models' requests queue, so the next dispatch takes one
+    batch of each (`batches_codispatch`). Every co-dispatched batch's
+    scores equal each model's batch served alone (torch.equal), and its
+    probabilities the scan arm's within 1e-5 (phase 11's tolerance);
+    B5's inference form launched."""
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.serving.models import MultiForwardHost
+    from paddle_tpu_torch.serving.server import InferenceServer, ServeConfig
+
+    host = MultiForwardHost(
+        {"a": stacked_lstm_classifier(**CLS),
+         "b": stacked_lstm_classifier(**{**CLS, "num_classes": 3})},
+        generator=torch.Generator().manual_seed(SEED + 242), device=dev)
+    groups = []
+    run_group = host.run_group
+
+    def recording(packed):
+        out = run_group(packed)
+        groups.append((packed, out))
+        return out
+
+    host.run_group = recording
+    started, release = threading.Event(), threading.Event()
+
+    class Gate:
+        can_host = False
+        engine = None
+        named_hooks = {}
+
+        def run_batch(self, ids, lens, hooks, host):
+            started.set()
+            release.wait(60)
+            return [{"tokens": [], "score": 0.0}] * ids.shape[0]
+
+    server = InferenceServer(ServeConfig(
+        max_queue=4 * CODISPATCH, max_batch=CODISPATCH_BATCH,
+        buckets=(CLS_T,), default_deadline_s=120.0))
+    server.add_model("gate", Gate())
+    for name in host.names:
+        server.add_model(name, host.sub(name))
+    rng = np.random.default_rng(SEED + 243)
+    reqs = [(name, rng.integers(1, CLS["vocab_size"],
+                                int(rng.integers(10, CLS_T + 1))).tolist())
+            for name in host.names for _ in range(CODISPATCH)]
+    zero_rnn_counts(rnn)
+    try:
+        gate = server.submit("gate", [1])
+        assert started.wait(60)
+        pend = [(n, server.submit(n, ids)) for n, ids in reqs]
+        release.set()
+        gate.result(60)
+        t0 = time.perf_counter()
+        answers = [(n, p.result(300)) for n, p in pend]
+        wall = time.perf_counter() - t0
+        stats = server.stats()
+    finally:
+        release.set()
+        server.shutdown(drain=True)
+    counts = rnn_counts(rnn)
+    co = [(p, o) for p, o in groups if len(p) > 1]
+    assert co, [sorted(p) for p, _ in groups]
+    alone_equal, scan_diff = True, 0.0
+
+    def probs(rows):
+        z = np.asarray([r["scores"] for r in rows], np.float64)
+        e = np.exp(z - z.max(axis=1, keepdims=True))
+        return e / e.sum(axis=1, keepdims=True)
+
+    for packed, out in co:
+        for name in packed:
+            alone = run_group({name: packed[name]})[name]
+            alone_equal &= all(np.array_equal(a["scores"], b["scores"])
+                               for a, b in zip(alone, out[name]))
+        set_rnn_arm("scan")
+        scan = run_group(packed)
+        set_rnn_arm("kernels")
+        for name in packed:
+            scan_diff = max(scan_diff, float(np.abs(
+                probs(scan[name]) - probs(out[name])).max()))
+    r = {"requests": len(reqs), "wall_s": wall,
+         "batches_codispatch": stats["batches_codispatch"],
+         "batches": stats["batches"], "codispatch_groups": len(co),
+         "alone_equal": bool(alone_equal), "scan_prob_max_abs_diff":
+         scan_diff, "b5_infer_launches": counts["lstm_fwd_infer_launches"],
+         "launches": {k: v for k, v in counts.items() if v}}
+    print("flight codispatch " + json.dumps(r), flush=True)
+    assert all(a["path"] == "device" for _, a in answers)
+    assert stats["batches_codispatch"] >= 1, stats
+    assert alone_equal, r
+    assert scan_diff <= 1e-5, r
+    if dev == "cuda":
+        assert counts["lstm_fwd_infer_launches"] > 0, counts
+        assert counts["lstm_fwd_infer_launches"] == counts[
+            "lstm_fwd_infer_cluster_launches"], counts
+    return r
+
+
+def fleet_point(router, secs, on_half=None, clients=FLEET["clients"]):
+    """bench_serve_fleet_loadtest's closed-loop point: `clients` threads
+    calling for `secs` s (with `on_half` run halfway); goodput, p50/p99
+    and the admitted requests lost (anything but ok or an explicit
+    overloaded shed)."""
+    lock = threading.Lock()
+    stop = threading.Event()
+    lat, shed, lost = [], [0], [0]
+
+    def loop():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                r = router.call("m", [1, 2, 3], deadline_ms=5000,
+                                trace=False)
+            except Exception:
+                with lock:
+                    lost[0] += 1
+                continue
+            with lock:
+                if r.get("ok"):
+                    lat.append(time.perf_counter() - t0)
+                elif r.get("error") == "overloaded":
+                    shed[0] += 1
+                else:
+                    lost[0] += 1
+
+    workers = [threading.Thread(target=loop, daemon=True)
+               for _ in range(clients)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    if on_half is not None:
+        time.sleep(secs / 2)
+        on_half()
+    time.sleep(max(t0 + secs - time.perf_counter(), 0.0))
+    stop.set()
+    for w in workers:
+        w.join(timeout=30)
+    span = time.perf_counter() - t0
+    lat.sort()
+    n = len(lat)
+    return {"completed": n, "goodput_rps": n / span,
+            "p50_ms": lat[n // 2] * 1e3 if n else None,
+            "p99_ms": lat[int(0.99 * (n - 1))] * 1e3 if n else None,
+            "shed": shed[0], "admitted_lost": lost[0], "seconds": span}
+
+
+def fleet_cache(torch, work, dev):
+    """24d's verified cache entry: replica_program_fn(4, 32) on `dev`.
+    Returns the module and the replicas' environment."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch import testing_faults as tf
+
+    cache = os.path.join(work, "fleet-cache")
+    fn = tf.replica_program_fn(FLEET["layers"], FLEET["d"]).to(dev)
+    inference.store_verified(cache, "fleet", fn,
+                             (torch.zeros((1, 8), device=dev),))
+    return fn, dict(REPLICA_MODE="cache", CACHE_DIR=cache,
+                    CACHE_KEY="fleet", MODEL_TAG="v1",
+                    MAX_QUEUE=FLEET["max_queue"])
+
+
+def fleet_sigkill(torch, dev, fn, env, booting):
+    """24d: three cache-mode replicas on the card (replica_program_fn(4,
+    32) from the verified cache, `booting` since the phase began) behind
+    a FleetRouter, 8 closed-loop clients, 3 s a point: one point whole,
+    then one with r1 SIGKILLed halfway. Zero admitted requests lost; r1
+    rotated out, restarted from the cache and rejoined through the
+    half-open probe; its answer the program's."""
+    from paddle_tpu_torch import testing_faults as tf
+    from paddle_tpu_torch.serving.fleet import FleetConfig, FleetRouter
+    from paddle_tpu_torch.serving.tcp import ServeClient
+
+    started = booting.wait()
+    procs = {f"r{i}": p for i, (p, _) in enumerate(started)}
+    addrs = {f"r{i}": f"127.0.0.1:{port}"
+             for i, (_, port) in enumerate(started)}
+    fcfg = FleetConfig(poll_interval_s=0.05,
+                       breaker_reset_s=FLEET["breaker_reset_s"])
+    router = FleetRouter(dict(addrs), fcfg)
+    try:
+        assert until(lambda: all(router.handle(n).metricz for n in addrs),
+                     30)
+        whole = fleet_point(router, FLEET["window_s"])
+        rotated, t_kill = [None], [None]
+
+        def kill_r1():
+            t_kill[0] = time.monotonic()
+            tf.kill_process(procs["r1"])
+            rotated[0] = until(
+                lambda: router.states()["r1"]["breaker"] != "closed",
+                fcfg.breaker_reset_s * 4)
+
+        kill = fleet_point(router, FLEET["window_s"], on_half=kill_r1)
+        (p, port), = start_replicas(1, dev, **{**env, "MODEL_TAG": "v2"})
+        procs["r1"] = p
+        t_set = time.monotonic()
+        router.set_address("r1", f"127.0.0.1:{port}")
+        rejoined = until(
+            lambda: router.states()["r1"]["breaker"] == "closed", 30)
+        t_rejoin = time.monotonic()
+        with ServeClient(f"127.0.0.1:{port}") as c:
+            out = c.call("m", [1, 2, 3], deadline_ms=10000, timeout=60)
+        x = torch.tensor([[1.0, 2.0, 3.0] + [0.0] * 5], device=dev)
+        want = float(fn(x))
+    finally:
+        router.close()
+        for proc in procs.values():
+            tf.kill_process(proc)
+    r = {"replicas": FLEET["replicas"], "clients": FLEET["clients"],
+         "window_s": FLEET["window_s"],
+         "boot_s": [tf.replica_boot_seconds(q) for q, _ in started],
+         "whole": whole, "kill": kill, "rotated_out": rotated[0],
+         "rejoined": rejoined,
+         "restart_boot_s": tf.replica_boot_seconds(p),
+         "rejoin_s": t_rejoin - t_set, "kill_to_rejoin_s": t_rejoin
+         - t_kill[0], "rejoined_answer": out,
+         "admitted_lost": whole["admitted_lost"] + kill["admitted_lost"]}
+    print("fleet sigkill " + json.dumps(r), flush=True)
+    assert r["admitted_lost"] == 0, r
+    assert rotated[0] and rejoined, r
+    assert p.boot_line.startswith("BOOT cache"), p.boot_line
+    assert out["ok"] and out["tag"] == "v2", out
+    assert abs(out["score"] - want) <= 1e-6, (out, want)
+    return r
+
+
+def coldstart(torch, work, dev):
+    """24e: bench_serve_coldstart on the card: the replica's program at
+    48 layers x 256 stored in the verified cache (store_s), then one
+    replica booted in compile mode (build and export, nothing
+    published) and one in cache mode (digests, audit, torch.export.load);
+    both boot times printed, no ordering asserted (the JAX row's premise,
+    an XLA compile, does not carry over), both answers the program's."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch import testing_faults as tf
+    from paddle_tpu_torch.serving.tcp import ServeClient
+
+    cache = os.path.join(work, "coldstart-cache")
+    fn = tf.replica_program_fn(COLDSTART["layers"], COLDSTART["d"]).to(dev)
+    t0 = time.perf_counter()
+    meta = inference.store_verified(cache, "cold", fn,
+                                    (torch.zeros((1, 8), device=dev),))
+    store_s = time.perf_counter() - t0
+    x = torch.tensor([[0.0, 1.0, 2.0] + [0.0] * 5], device=dev)
+    want = float(fn(x))
+    boots, scores = {}, {}
+    for mode, env in (("compile", dict(FN_LAYERS=COLDSTART["layers"],
+                                       FN_DIM=COLDSTART["d"])),
+                      ("cache", dict(CACHE_DIR=cache, CACHE_KEY="cold"))):
+        (p, port), = start_replicas(1, dev, REPLICA_MODE=mode, **env)
+        try:
+            boots[mode] = tf.replica_boot_seconds(p)
+            assert p.boot_line.startswith(f"BOOT {mode}"), p.boot_line
+            with ServeClient(f"127.0.0.1:{port}") as c:
+                scores[mode] = c.call("m", [0, 1, 2], deadline_ms=10000,
+                                      timeout=60)["score"]
+        finally:
+            tf.kill_process(p)
+    r = {"layers": COLDSTART["layers"], "d": COLDSTART["d"],
+         "store_s": store_s, "compile_boot_s": boots["compile"],
+         "cache_boot_s": boots["cache"],
+         "compile_over_cache": boots["compile"] / boots["cache"],
+         "n_instructions": meta["n_instructions"],
+         "total_bytes": meta["total_bytes"], "scores": scores,
+         "want": want}
+    print("fleet coldstart " + json.dumps(r), flush=True)
+    for mode, s in scores.items():
+        assert abs(s - want) <= 1e-6, (mode, s, want)
+    return r
+
+
+def online_cpu_run(work, name, table_cfg, shards, lr, traffic,
+                   warm_ids=None):
+    """The plain reference of 24f: an OnlineCTRTrainer over a CPU table
+    of the same config (the sparse-row kernels' plain versions) fed the
+    same traffic. Returns (table, per-batch losses)."""
+    from paddle_tpu_torch.parallel import sparse_shard as tss
+    from paddle_tpu_torch.trainer import online
+
+    table = tss.ShardedEmbeddingTable(
+        tss.ShardedTableConfig(**table_cfg), num_shards=shards,
+        update_fn=tss.sgd_row_update(lr), device="cpu")
+    if warm_ids is not None:
+        table.lookup(warm_ids)
+    trainer = online.OnlineCTRTrainer(table, os.path.join(work, name))
+    try:
+        losses = [trainer.train_step(ids, labels) for ids, labels in traffic]
+    finally:
+        trainer.close()
+    return table, losses
+
+
+def hold_tables(card, cpu, tol):
+    """Largest |card - cpu| over the exported shards (resident ids in
+    LRU order and the spill store must be equal)."""
+    err = 0.0
+    for a, b in zip(card.export_shards(), cpu.export_shards()):
+        for ki, kr in (("ids", "rows"), ("spill_ids", "spill_rows")):
+            assert np.array_equal(np.asarray(a[ki]), np.asarray(b[ki])), ki
+            ra, rb = np.asarray(a[kr]), np.asarray(b[kr])
+            if ra.size:
+                err = max(err, float(np.max(np.abs(ra - rb))))
+    assert err <= tol, (err, tol)
+    return err
+
+
+def ctr_worker(torch, work, dev):
+    """24f (i): the elastic CTR worker at _bench_ctr_bigvocab's full
+    setting, SIGKILLed after three acknowledged batches and respawned:
+    every batch acknowledged exactly once (batches_lost ==
+    batches_retrained == 0), kill_recover_s from the respawn to its
+    first newly acknowledged batch, B9's launches from the done
+    record."""
+    from paddle_tpu_torch import testing_faults as tf
+
+    save = os.path.join(work, "ctr-gens")
+    os.makedirs(save)
+    out = os.path.join(work, "ctr-ledger.jsonl")
+    env = {**CTR_BIG, "DEVICE": dev}
+
+    def trained():
+        return [r["trained"] for r in tf.read_worker_records(out)
+                if "trained" in r]
+
+    p = tf.start_sharded_ctr_trainer(REPO, save, out, **env)
+    try:
+        ok = until(lambda: len(trained()) >= 3 or p.poll() is not None,
+                   300, 0.02)
+        assert ok and p.poll() is None, p.communicate(timeout=60)
+    finally:
+        tf.kill_process(p)
+    acked = set(trained())
+    assert len(acked) < CTR_BIG["BATCHES"], "kill landed after the epoch"
+    t1 = time.monotonic()
+    p2 = tf.start_sharded_ctr_trainer(REPO, save, out, **env)
+    try:
+        assert until(lambda: set(trained()) - acked or
+                     p2.poll() is not None, 300, 0.02)
+        kill_recover_s = time.monotonic() - t1
+        _out, err = p2.communicate(timeout=600)
+    finally:
+        tf.kill_process(p2)
+    assert p2.returncode == 0, err[-3000:]
+    respawn_s = time.monotonic() - t1
+    recs = tf.read_worker_records(out)
+    done = [x for x in recs if x.get("done")][-1]
+    got = trained()
+    r = {"batches": CTR_BIG["BATCHES"], "acked_before_kill": len(acked),
+         "batches_lost": len(set(range(CTR_BIG["BATCHES"])) - set(got)),
+         "batches_retrained": len(got) - len(set(got)),
+         "kill_recover_s": kill_recover_s, "respawn_to_done_s": respawn_s,
+         "rows_total": done["rows_total"],
+         "rows_materialized": done["rows_materialized"],
+         "evictions": done["evictions"], "device": done["device"],
+         "launches": done["launches"],
+         "resume": [x for x in recs if "resume" in x][-1]}
+    # the ledger's losses against the same traffic through a CPU table
+    # (seed 7, SGD at lr 0.5: the worker's fixed settings)
+    from paddle_tpu_torch.trainer import online
+
+    hot = online.hot_id_set(7, CTR_BIG["HOT"], CTR_BIG["ROWS_TOTAL"])
+    _, want = online_cpu_run(
+        work, "ctr-cpu",
+        dict(rows_total=CTR_BIG["ROWS_TOTAL"], dim=CTR_BIG["DIM"],
+             capacity=CTR_BIG["CAPACITY"], num_slots=CTR_BIG["NUM_SLOTS"],
+             seed=7),
+        CTR_BIG["SHARDS"], 0.5,
+        [online.make_batch(7, b, CTR_BIG["BATCH"], CTR_BIG["FEATS"], hot)
+         for b in range(CTR_BIG["BATCHES"])])
+    held = [x for x in recs if x.get("loss") is not None]
+    r["loss_max_abs_err"] = max(abs(x["loss"] - want[x["trained"]])
+                                for x in held)
+    r["losses_held"] = len(held)
+    print("fleet ctr worker " + json.dumps(r), flush=True)
+    assert r["batches_lost"] == 0 and r["batches_retrained"] == 0, r
+    assert held and r["loss_max_abs_err"] <= CTR_TOL, r
+    if dev == "cuda":
+        assert done["launches"]["sparse_row_update_launches"] > 0, done
+    return r
+
+
+def online_loop(torch, sr, work, dev):
+    """24f (ii): the online loop of tests/test_online_learning.py on the
+    card over a table of CTR_BIG's size: 40 batches of traffic scored
+    through the router by one ctr replica before the trainer learns from
+    them (B9 through `table.update`), a rollout() onto the newest
+    committed generation every 10 batches. Zero requests lost across the
+    swaps, the served logloss over the last 10 batches below the first
+    10's, each swap's ms."""
+    from paddle_tpu_torch import testing_faults as tf
+    from paddle_tpu_torch.parallel import sparse_shard as tss
+    from paddle_tpu_torch.serving.fleet import FleetConfig, FleetRouter
+    from paddle_tpu_torch.trainer import online
+
+    o = ONLINE
+    save = os.path.join(work, "online-gens")
+    os.makedirs(save)
+    table = tss.ShardedEmbeddingTable(
+        tss.ShardedTableConfig(rows_total=CTR_BIG["ROWS_TOTAL"],
+                               dim=CTR_BIG["DIM"],
+                               capacity=CTR_BIG["CAPACITY"],
+                               num_slots=CTR_BIG["NUM_SLOTS"],
+                               seed=o["seed"]),
+        num_shards=CTR_BIG["SHARDS"], update_fn=tss.sgd_row_update(o["lr"]),
+        device=dev)
+    trainer = online.OnlineCTRTrainer(table, save)
+    hot = online.hot_id_set(o["seed"], o["hot"], CTR_BIG["ROWS_TOTAL"])
+    table.lookup(hot.reshape(-1, 1))
+    trainer.save_generation(0, 0)
+    trainer.drain()
+    sr.sparse_row_update_launches = 0
+    (p, port), = start_replicas(1, dev, REPLICA_MODE="ctr", MODEL_NAME="ctr",
+                                MODEL_TAG="gen0", MODEL_DIR=save)
+    router = FleetRouter({"r0": f"127.0.0.1:{port}"},
+                         FleetConfig(monitor=False))
+    served, swaps, lost, requests, traffic = [], [], 0, 0, []
+    try:
+        for b in range(o["batches"]):
+            ids, labels = online.make_batch(o["seed"], b, o["batch"],
+                                            o["feats"], hot)
+            traffic.append((ids, labels))
+            ps = []
+            for row in ids:
+                resp = router.call("ctr", row.tolist(), deadline_ms=10_000)
+                requests += 1
+                if resp.get("ok"):
+                    ps.append(float(resp["score"]))
+                else:
+                    lost += 1
+                    ps.append(0.5)
+            served.append(online.logloss(np.array(ps), labels))
+            trainer.train_step(ids, labels)
+            if b % o["swap_every"] == o["swap_every"] - 1:
+                gen_id = b // o["swap_every"] + 1
+                trainer.save_generation(gen_id, b + 1)
+                trainer.drain()
+                t0 = time.perf_counter()
+                report = router.rollout("ctr", tag=f"gen{gen_id}")
+                swaps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                              **report.per_replica["r0"]})
+                assert report["r0"].get("tag") == f"gen{gen_id}", report
+        final = router.call("ctr", ids[0].tolist(), deadline_ms=10_000)
+    finally:
+        router.close()
+        tf.kill_process(p)
+        trainer.close()
+    launches = sr.sparse_row_update_launches
+    # the card's table against the same traffic through a CPU table
+    cpu_table, _ = online_cpu_run(
+        work, "online-cpu",
+        dict(rows_total=CTR_BIG["ROWS_TOTAL"], dim=CTR_BIG["DIM"],
+             capacity=CTR_BIG["CAPACITY"], num_slots=CTR_BIG["NUM_SLOTS"],
+             seed=o["seed"]),
+        CTR_BIG["SHARDS"], o["lr"], traffic, warm_ids=hot.reshape(-1, 1))
+    table_err = hold_tables(table, cpu_table, CTR_TOL)
+    probe = np.stack([ids for ids, _ in traffic])
+    probe = probe.reshape(-1, probe.shape[-1])
+    logit_err = float(np.max(np.abs(online.predict_logits(table, probe)
+                                    - online.predict_logits(cpu_table,
+                                                            probe))))
+    r = {"batches": o["batches"], "requests": requests,
+         "swap_downtime_requests_lost": lost, "swaps": swaps,
+         "logloss_first10": float(np.mean(served[:10])),
+         "logloss_last10": float(np.mean(served[-10:])),
+         "final": final, "b9_launches": launches,
+         "rows_materialized": table.rows_materialized,
+         "table_max_abs_err": table_err, "logit_max_abs_err": logit_err}
+    print("fleet online loop " + json.dumps(r), flush=True)
+    assert lost == 0, r
+    assert logit_err <= CTR_TOL, r
+    assert r["logloss_last10"] < r["logloss_first10"] - 0.05, r
+    assert final["ok"] and final["tag"] == f"gen{len(swaps)}", final
+    if dev == "cuda":
+        assert launches >= o["batches"], launches
+    return r
+
+
+def incident_and_cli(torch, work, booting):
+    """24g: a slow and a fast toy replica on the card (`booting` since
+    the phase began) behind a router
+    with the burn-rate monitor at a 100 ms p99 SLO: exactly one stitched
+    incident bundle (both replicas' rings over flightz, the router's
+    ring, the merged fleet view) naming the slow replica, accepted by the
+    bundle lint and read by tools/fleet_view.py (a subprocess, rc 0);
+    then `python -m paddle_tpu_torch fleetz --json` against the live
+    replicas names each."""
+    from paddle_tpu_torch.obs import flight_recorder as fr
+    from paddle_tpu_torch import testing_faults as tf
+    from paddle_tpu_torch.serving.fleet import FleetConfig, FleetRouter
+
+    d = os.path.join(work, "incidents")
+    started = dict(zip(("slow", "fast"), [b.wait()[0] for b in booting]))
+    procs = {n: p for n, (p, _) in started.items()}
+    addrs = {n: f"127.0.0.1:{port}" for n, (_, port) in started.items()}
+
+    def files():
+        if not os.path.isdir(d):
+            return []
+        return [f for f in os.listdir(d)
+                if f.startswith("incident-") and f.endswith(".json")]
+
+    fr.enable_flight_recorder(dump_dir=None, capacity=512)
+    router = FleetRouter(dict(addrs), FleetConfig(
+        poll_interval_s=0.05, monitor=True, slo_p99_ms=INCIDENT["slo_ms"],
+        burn_windows=((0.9, 2.7, 14.4),), burn_min_decisions=20,
+        incident_dir=d, incident_min_interval_s=3600.0,
+        incident_max_bundles=4))
+    suppressed0 = registry_total("fleet.incidents_suppressed")
+    stop = threading.Event()
+
+    def load():
+        while not stop.is_set():
+            try:
+                router.call("m", [1, 2], deadline_ms=20000, trace=True)
+            except Exception:
+                pass
+
+    workers = [threading.Thread(target=load, daemon=True)
+               for _ in range(3)]
+    try:
+        assert until(lambda: all(router.handle(n).metricz for n in addrs),
+                     30)
+        t0 = time.perf_counter()
+        for w in workers:
+            w.start()
+        assert until(files, 60), "no incident bundle"
+        to_incident = time.perf_counter() - t0
+        assert until(lambda: registry_total("fleet.incidents_suppressed")
+                     > suppressed0, 30)
+        stop.set()
+        for w in workers:
+            w.join(30)
+        fleetz = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch", "fleetz", "--json",
+             "--interval", "0.5"] + [a for n, ad in addrs.items()
+                                     for a in ("--addr", f"{n}={ad}")],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+    finally:
+        stop.set()
+        router.close()
+        fr.disable_flight_recorder()
+        for p in procs.values():
+            tf.kill_process(p)
+    got = files()
+    assert len(got) == 1, got
+    path = os.path.join(d, got[0])
+    doc = json.load(open(path))
+    view = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "fleet_view.py"), path],
+        capture_output=True, text=True, timeout=120)
+    lint = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "check_bench_record.py"),
+         "bundle", path], capture_output=True, text=True, timeout=120)
+    fz = json.loads(fleetz.stdout)
+    r = {"to_incident_s": to_incident, "bundle": got[0],
+         "alerts": [a["alert"] for a in doc["alerts"]],
+         "offending": doc["offending"], "replicas": sorted(doc["replicas"]),
+         "ring_events": {n: len(v.get("events", []))
+                         for n, v in doc["replicas"].items()},
+         "router_events": len(doc["events"]), "fleet_view_rc":
+         view.returncode, "lint_rc": lint.returncode,
+         "fleetz_rc": fleetz.returncode, "fleetz_fleet": fz["fleet"],
+         "fleetz_replicas": sorted(x["replica"] for x in fz["replicas"])}
+    print("fleet incident " + json.dumps(r), flush=True)
+    assert doc["schema"] == "paddle-tpu-fleet-incident/v1"
+    assert doc["offending"] == "slow", r
+    assert set(doc["replicas"]) == {"slow", "fast"}, r
+    for name in ("slow", "fast"):
+        ring = doc["replicas"][name]
+        assert ring.get("enabled") and ring["pid"] == procs[name].pid, name
+        assert any(e.get("kind") == "span" for e in ring["events"]), name
+    assert view.returncode == 0 and "offending=slow" in view.stdout, (
+        view.stdout + view.stderr)
+    assert lint.returncode == 0, lint.stdout + lint.stderr
+    assert fleetz.returncode in (0, 1), fleetz.stderr
+    assert r["fleetz_replicas"] == ["fast", "slow"], r
+    assert all(x["up"] for x in fz["replicas"]), fz
+    return r
+
+
+def flight_and_fleet(torch, rnn, sr, gen, dev="cuda"):
+    """Phase 24: the flight recorder and the fleet, (a)-(g). Returns the
+    sub-phases' numbers; the kernels line adds their B5, B7 and B9
+    launches."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    out = {}
+    # 24d's and 24g's replicas boot (a process reaching the card) while
+    # 24a-24c run in this one
+    fn, env = fleet_cache(torch, work, dev)
+    booting = {"fleet": Booting(FLEET["replicas"], dev, **env),
+               "incident": [Booting(1, dev, REPLICA_MODE="toy",
+                                    TOY_DELAY_S=s)
+                            for s in (INCIDENT["slow_s"],
+                                      INCIDENT["fast_s"])]}
+    groups = [booting["fleet"], *booting["incident"]]
+    # how many of the booting groups were still starting when each of
+    # 24a-24c began and ended: their times share the host and the card
+    # with those boots
+    overlap = {}
+
+    def beside_boots(name, fn, *args):
+        before = sum(g.alive() for g in groups)
+        r = fn(*args)
+        overlap[name] = [before, sum(g.alive() for g in groups)]
+        return r
+
+    try:
+        phase("24a. the flight recorder on a serving anomaly")
+        out["flight"] = beside_boots("24a", serve_anomalies, torch, rnn,
+                                     gen, work, dev)
+        phase("24b. the host-fallback rescue of a failed device decode")
+        out["rescue"] = beside_boots("24b", rescue, torch, rnn, gen, dev)
+        phase("24c. co-dispatch of two classifiers through MultiForwardHost")
+        out["codispatch"] = beside_boots("24c", codispatch, torch, rnn, dev)
+        out["boots_overlapping"] = overlap
+        print("fleet 24a-c beside booting groups (of %d, before / after) %s"
+              % (len(groups), json.dumps(overlap)), flush=True)
+        phase("24d. the fleet under a SIGKILL, the rejoin from the verified "
+              "cache")
+        out["fleet"] = fleet_sigkill(torch, dev, fn, env, booting["fleet"])
+        phase("24e. cold start: compile mode against the verified cache")
+        out["coldstart"] = coldstart(torch, work, dev)
+        phase("24f. the elastic CTR worker and the online loop")
+        out["ctr"] = ctr_worker(torch, work, dev)
+        out["online"] = online_loop(torch, sr, work, dev)
+        phase("24g. a fleet incident bundle and the fleetz command")
+        out["incident"] = incident_and_cli(torch, work,
+                                           booting["incident"])
+    finally:
+        for b in [booting["fleet"], *booting["incident"]]:
+            b.kill()
+        shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def sparse_kernel_rows(checks, times, standalone, wide_deep, tier, slice24):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
     (no single PyTorch call computes a momentum row update; SGD's
     index_add_ is printed in phase 14) and the generic route's kernels
-    with the bench's own update function. Launches: phases 15-17."""
+    with the bench's own update function. Launches: phases 15-17, and
+    24(f)'s CTR worker (its done record) and online loop."""
     bench = times["bench_momentum_v1m_d64_n65536"]
     generic = times["bench_lambda_state_v1m_d64_n65536"]
     launches = standalone["launches"]
     update = (launches["sparse_row_update_launches"] + wide_deep["launches"]
               + sum(r["launches"]["sparse_row_update_launches"]
-                    for r in tier.values()))
+                    for r in tier.values())
+              + slice24["ctr"]["launches"]["sparse_row_update_launches"]
+              + slice24["online"]["b9_launches"])
 
     def row(name, at, ms, bound, launched, rules):
         return {
@@ -7474,7 +8496,15 @@ def main() -> int:
     slice23 = layer_tail(torch, rnn)
     print(smi, flush=True)
 
-    phase("24. result")
+    phase("24. the flight recorder and the fleet: anomaly dumps, the "
+          "host-fallback rescue, co-dispatch, FleetRouter under a SIGKILL, "
+          "the verified cache, the online CTR loop, an incident and fleetz")
+    print(smi, flush=True)
+    torch.cuda.empty_cache()
+    slice24 = flight_and_fleet(torch, rnn, sr, gen)
+    print(smi, flush=True)
+
+    phase("25. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -7648,12 +8678,15 @@ def main() -> int:
     def gen_launched(counter):
         # phase 20's paths on the cluster route: both training arms, the
         # generation encoder and the served encodes; phase 22(c)'s
-        # encoder and its served encodes
+        # encoder and its served encodes; phase 24(a)'s served encodes
+        # and 24(b)'s on both rungs
         return (sum(gen["train"][arm]["launches"][counter]
                     for arm in ("fused", "generic"))
                 + gen["enc_launches"][counter]
                 + gen["serve"]["launches"][counter]
-                + slice22["gru_launches"][counter])
+                + slice22["gru_launches"][counter]
+                + slice24["flight"]["launches"][counter]
+                + slice24["rescue"]["launches"][counter])
 
     def api_launched(counter):
         # phase 22(d)'s classifier through the top-level API and phase
@@ -7703,7 +8736,8 @@ def main() -> int:
                 + slice21_launched("lstm_fwd_launches")
                 + api_launched("lstm_fwd_launches")),
         rnn_row("lstm_seq_fwd_infer", "lstm", 311, "fwd_infer",
-                cls_infer["launches"]["lstm_fwd_infer_launches"]),
+                cls_infer["launches"]["lstm_fwd_infer_launches"]
+                + slice24["codispatch"]["b5_infer_launches"]),
         rnn_row("lstm_seq_bwd", "lstm", 358, "bwd",
                 cls_launches["lstm_bwd_launches"]
                 + slice21_launched("lstm_bwd_launches")
@@ -7723,7 +8757,7 @@ def main() -> int:
         gru_grid_row("gru_seq_fwd_grid", 724, "fwd", "gru_fwd_grid_launches"),
         gru_grid_row("gru_seq_bwd_grid", 657, "bwd", "gru_bwd_grid_launches"),
         *sparse_kernel_rows(sparse_checks, sparse_times, standalone,
-                            wide_deep, tier)]}),
+                            wide_deep, tier, slice24)]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

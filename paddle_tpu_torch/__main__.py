@@ -15,6 +15,8 @@ output lines.
     python -m paddle_tpu_torch version
     python -m paddle_tpu_torch serve --config conf.py [--port N]
         [--drain_timeout S]
+    python -m paddle_tpu_torch metrics [--json] [--stream F [--spans]]
+    python -m paddle_tpu_torch fleetz --addr [name=]host:port ... [--json]
 
 A training config file is a Python source that defines
 `get_config() -> (ModelConf, OptimizationConf)`, `train_reader()` and
@@ -44,8 +46,14 @@ the drain-on-shutdown lifecycle: it prints `LISTENING <port>`, and on
 SIGTERM/SIGINT stops admission, finishes or cleanly rejects in-flight
 work, prints `DRAINED {stats}` and exits 0.
 
+`metrics [--json] [--stream FILE [--spans [--top N]]]` prints this
+process's registry snapshot or summarises a JSONL event stream another
+process wrote; `fleetz --addr [name=]host:port ... [--json]` scrapes
+live replicas' `metricz` twice and prints the merged fleet view (rc 1
+while an alert is active). Neither needs a card.
+
 Left out, still to port (ROADMAP A12): the JAX CLI's `master`,
-`metrics`, `fleetz`, `make_diagram`, `bench` and `launch` commands.
+`make_diagram`, `bench` and `launch` commands.
 """
 
 from __future__ import annotations
@@ -377,6 +385,290 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_metrics(args):
+    """One-shot telemetry dump. Without arguments, prints
+    the CURRENT process's registry snapshot (text or --json) — mostly
+    useful from code or a REPL. With --stream FILE, summarizes a JSONL
+    event stream another process wrote (enable_event_stream /
+    METRICS_FILE): event counts by kind, watchdog rungs, the last
+    per-pass timeline record. Needs no card: inspecting telemetry
+    must not initialize a device runtime."""
+    from paddle_tpu_torch.obs import metrics as om
+
+    if args.spans:
+        if not args.stream:
+            raise SystemExit("--spans needs --stream FILE")
+        return _metrics_spans(args)
+    if args.stream:
+        from paddle_tpu_torch.testing_faults import read_metrics_records
+
+        recs = read_metrics_records(args.stream)
+        kinds = {}
+        for r in recs:
+            kinds[r.get("kind", "?")] = kinds.get(r.get("kind", "?"), 0) + 1
+        wd = {}
+        for r in recs:
+            if r.get("kind") == "watchdog":
+                wd[r["event"]] = wd.get(r["event"], 0) + 1
+        timelines = [r for r in recs if r.get("kind") == "timeline"]
+        summary = {
+            "stream": args.stream,
+            "events": len(recs),
+            "by_kind": kinds,
+            "watchdog_events": wd,
+            "last_timeline": timelines[-1] if timelines else None,
+        }
+        if args.json:
+            print(json.dumps(summary, indent=2))
+        else:
+            print(f"event stream {args.stream}: {len(recs)} events")
+            for k, n in sorted(kinds.items()):
+                print(f"  {k:20s} {n}")
+            if wd:
+                print("watchdog ladder:")
+                for k, n in sorted(wd.items()):
+                    print(f"  {k:20s} {n}")
+            if timelines:
+                t = timelines[-1]
+                print(
+                    "last timeline: pass %s step %s  "
+                    "data_wait=%.1f%% host=%.1f%% device=%.1f%% "
+                    "ckpt=%.1f%%" % (
+                        t.get("pass_id"), t.get("global_step"),
+                        100 * t.get("data_wait_frac", 0),
+                        100 * t.get("host_overhead_frac", 0),
+                        100 * t.get("device_frac", 0),
+                        100 * t.get("checkpoint_stall_frac", 0),
+                    )
+                )
+        return 0
+    reg = om.get_registry()
+    if args.json:
+        print(json.dumps(reg.snapshot(), indent=2))
+    else:
+        print(reg.render_text())
+    return 0
+
+
+def _metrics_spans(args):
+    """`metrics --stream FILE --spans`: per-span-name count/p50/p99
+    table plus the top-N slowest traces, computed from the span events
+    on a JSONL stream. Needs no card — span analytics must run on any
+    box the stream was copied to."""
+    from paddle_tpu_torch.testing_faults import read_metrics_records
+
+    spans = read_metrics_records(args.stream, kind="span")
+    if not spans:
+        print(f"event stream {args.stream}: no span events")
+        return 0
+
+    def pctl(sorted_vals, q):
+        return sorted_vals[int(q * (len(sorted_vals) - 1))]
+
+    by_name = {}
+    for s in spans:
+        by_name.setdefault(s.get("name", "?"), []).append(
+            float(s.get("dur_s", 0.0))
+        )
+    rows = []
+    for name, durs in by_name.items():
+        durs.sort()
+        rows.append({
+            "name": name,
+            "count": len(durs),
+            "p50_ms": round(pctl(durs, 0.50) * 1e3, 3),
+            "p99_ms": round(pctl(durs, 0.99) * 1e3, 3),
+            "max_ms": round(durs[-1] * 1e3, 3),
+        })
+    rows.sort(key=lambda r: r["p99_ms"] * r["count"], reverse=True)
+
+    # slowest traces: each trace scored by its root span (no parent
+    # within the trace), falling back to its longest span. Root
+    # semantics mirror tools/trace_view.py::_root_of — that file must
+    # stay standalone-stdlib (copyable to any box without this
+    # package), so the few lines are duplicated, not imported; change
+    # both together.
+    by_trace = {}
+    for s in spans:
+        by_trace.setdefault(s.get("trace_id", "?"), []).append(s)
+    traces = []
+    for tid, group in by_trace.items():
+        ids = {g.get("span_id") for g in group}
+        roots = [g for g in group
+                 if g.get("parent_id", "") not in ids]
+        root = max(roots or group,
+                   key=lambda g: float(g.get("dur_s", 0.0)))
+        traces.append({
+            "trace_id": tid,
+            "root": root.get("name"),
+            "dur_ms": round(float(root.get("dur_s", 0.0)) * 1e3, 3),
+            "spans": len(group),
+            "status": root.get("status", "ok"),
+        })
+    traces.sort(key=lambda t: t["dur_ms"], reverse=True)
+    traces = traces[: args.top]
+
+    if args.json:
+        print(json.dumps(
+            {"stream": args.stream, "span_count": len(spans),
+             "by_name": rows, "slowest_traces": traces}, indent=2,
+        ))
+        return 0
+    print(f"event stream {args.stream}: {len(spans)} spans")
+    print(f"{'span':28s} {'count':>7s} {'p50_ms':>10s} "
+          f"{'p99_ms':>10s} {'max_ms':>10s}")
+    for r in rows:
+        print(f"{r['name']:28s} {r['count']:7d} {r['p50_ms']:10.3f} "
+              f"{r['p99_ms']:10.3f} {r['max_ms']:10.3f}")
+    print(f"top {len(traces)} slowest traces:")
+    for t in traces:
+        print(f"  {t['trace_id'][:16]:16s} {t['root'] or '?':24s} "
+              f"{t['dur_ms']:10.3f} ms  {t['spans']:4d} spans  "
+              f"{t['status']}")
+    return 0
+
+
+def cmd_fleetz(args):
+    """Live fleet snapshot: scrape every replica's metricz
+    twice, `--interval` apart, merge the snapshots into one fleet
+    view (counters summed, histograms merged bucket-wise), and print
+    a per-replica health table + fleet quantiles + active threshold
+    breaches. Needs no card, like `metrics`: the operator box watching
+    a fleet must not need a device runtime."""
+    import time as _t
+
+    from paddle_tpu_torch.obs import aggregate as agg
+    from paddle_tpu_torch.serving.tcp import ServeClient
+
+    replicas = {}
+    for i, spec in enumerate(args.addr):
+        if "=" in spec:
+            name, _, a = spec.partition("=")
+        else:
+            name, a = f"r{i}", spec
+        replicas[name] = a
+
+    def scrape():
+        snaps, stats, errors = {}, {}, {}
+        for name, a in replicas.items():
+            try:
+                c = ServeClient(a, retries=0,
+                                admin_timeout=args.timeout)
+                resp = c.metricz()
+                c.close()
+                snaps[name] = resp.get("metricz", {})
+                stats[name] = resp.get("stats", {})
+            except Exception as e:
+                errors[name] = f"{type(e).__name__}: {e}"
+        return snaps, stats, errors
+
+    t0 = _t.time()
+    first, _, _ = scrape()
+    _t.sleep(args.interval)
+    second, stats, errors = scrape()
+    dt = _t.time() - t0
+
+    both = {n: s for n, s in second.items() if n in first}
+    prev = agg.merge_snapshots({n: first[n] for n in both})
+    cur = agg.merge_snapshots(second)
+    delta = agg.snapshot_delta(prev, cur)
+    rates = agg.counter_rates(delta, dt)
+
+    family_sum = agg.family_total
+
+    def merged_latency(histograms):
+        """All serving.admitted_latency_s series (one per model)
+        folded into one distribution."""
+        return agg.family_histogram(histograms,
+                                    "serving.admitted_latency_s")
+
+    table = []
+    for name in sorted(replicas):
+        if name in errors:
+            table.append({"replica": name, "up": False,
+                          "error": errors[name]})
+            continue
+        st = stats.get(name, {}) or {}
+        dsnap = agg.snapshot_delta(
+            agg.merge_snapshots({name: first.get(name, {})}),
+            agg.merge_snapshots({name: second.get(name, {})}),
+        )
+        admitted = family_sum(dsnap["counters"], "serving.admitted")
+        shed = family_sum(dsnap["counters"], "serving.shed")
+        total = admitted + shed
+        lat = merged_latency(dsnap["histograms"])
+        p99 = agg.quantile(lat, 0.99) if lat else None
+        table.append({
+            "replica": name,
+            "up": True,
+            "queue_depth": st.get("queue_depth"),
+            "admitted": admitted,
+            "shed": shed,
+            "shed_frac": round(shed / total, 4) if total else 0.0,
+            "p99_ms": round(p99 * 1e3, 3) if p99 is not None else None,
+        })
+
+    fleet_lat = merged_latency(delta["histograms"])
+    fleet = {
+        "replicas_up": sum(1 for r in table if r.get("up")),
+        "replicas_down": sum(1 for r in table if not r.get("up")),
+        "admitted_rate_rps": round(
+            family_sum(rates, "serving.admitted"), 3),
+        "shed_rate_rps": round(family_sum(rates, "serving.shed"), 3),
+        "p50_ms": None,
+        "p99_ms": None,
+    }
+    for q, key in ((0.50, "p50_ms"), (0.99, "p99_ms")):
+        v = agg.quantile(fleet_lat, q) if fleet_lat else None
+        fleet[key] = round(v * 1e3, 3) if v is not None else None
+
+    alerts = []
+    for r in table:
+        if not r.get("up"):
+            alerts.append({"alert": "replica_down",
+                           "replica": r["replica"]})
+            continue
+        if args.slo_ms > 0 and r.get("p99_ms") is not None \
+                and r["p99_ms"] > args.slo_ms:
+            alerts.append({"alert": "p99_slo", "replica": r["replica"],
+                           "p99_ms": r["p99_ms"],
+                           "slo_ms": args.slo_ms})
+        if r.get("shed_frac", 0.0) > args.shed_threshold:
+            alerts.append({"alert": "shedding", "replica": r["replica"],
+                           "shed_frac": r["shed_frac"]})
+
+    if args.json:
+        print(json.dumps({"interval_s": round(dt, 3),
+                          "replicas": table, "fleet": fleet,
+                          "alerts": alerts}, indent=2))
+        return 1 if alerts else 0
+    print(f"fleet of {len(replicas)} replicas "
+          f"({fleet['replicas_up']} up), {dt:.1f}s window")
+    print(f"{'replica':12s} {'state':6s} {'queue':>6s} {'adm':>8s} "
+          f"{'shed':>8s} {'shed%':>7s} {'p99_ms':>9s}")
+    for r in table:
+        if not r.get("up"):
+            print(f"{r['replica']:12s} {'DOWN':6s} {r['error']}")
+            continue
+        p99 = f"{r['p99_ms']:9.3f}" if r["p99_ms"] is not None \
+            else f"{'-':>9s}"
+        print(f"{r['replica']:12s} {'up':6s} "
+              f"{str(r['queue_depth'] if r['queue_depth'] is not None else '-'):>6s} "
+              f"{r['admitted']:8.0f} {r['shed']:8.0f} "
+              f"{100 * r['shed_frac']:6.1f}% {p99}")
+    print(f"fleet: {fleet['admitted_rate_rps']} rps admitted, "
+          f"{fleet['shed_rate_rps']} rps shed, "
+          f"p50={fleet['p50_ms']} ms p99={fleet['p99_ms']} ms "
+          f"(merged buckets)")
+    if alerts:
+        print("active alerts:")
+        for a in alerts:
+            print("  " + json.dumps(a))
+    else:
+        print("no active alerts")
+    return 1 if alerts else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -433,6 +725,46 @@ def main(argv=None) -> int:
     p.add_argument("--drain_timeout", type=float, default=30.0,
                    help="seconds to finish in-flight work on shutdown")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser(
+        "metrics",
+        help="one-shot telemetry snapshot (process registry, or "
+             "--stream FILE to summarize a JSONL event stream)",
+    )
+    p.add_argument("--json", action="store_true",
+                   help="JSON instead of text")
+    p.add_argument("--stream", default="",
+                   help="summarize this JSONL event-stream file "
+                        "instead of the in-process registry")
+    p.add_argument("--spans", action="store_true",
+                   help="with --stream: per-span-name count/p50/p99 "
+                        "table and the top-N slowest traces")
+    p.add_argument("--top", type=int, default=10,
+                   help="with --spans: slowest traces to list")
+    p.set_defaults(fn=cmd_metrics)
+
+    p = sub.add_parser(
+        "fleetz",
+        help="live fleet snapshot: scrape replicas' metricz, merge "
+             "into one fleet view (per-replica health table, fleet "
+             "p50/p99 from merged buckets, active alerts)",
+    )
+    p.add_argument("--addr", action="append", required=True,
+                   help="replica address, repeatable: host:port or "
+                        "name=host:port")
+    p.add_argument("--interval", type=float, default=1.0,
+                   help="seconds between the two scrapes the "
+                        "delta/rate view is computed over")
+    p.add_argument("--timeout", type=float, default=2.0,
+                   help="per-replica scrape timeout")
+    p.add_argument("--slo-ms", type=float, default=0.0,
+                   dest="slo_ms",
+                   help="admitted-p99 SLO in ms (0 = no p99 alert)")
+    p.add_argument("--shed-threshold", type=float, default=0.5,
+                   dest="shed_threshold",
+                   help="per-replica shed-fraction alert threshold")
+    p.add_argument("--json", action="store_true")
+    p.set_defaults(fn=cmd_fleetz)
 
     p = sub.add_parser("version", help="print versions")
     p.set_defaults(fn=cmd_version)

@@ -42,6 +42,33 @@ _DEFAULTS: dict[str, Any] = {
     # every Nth step, so device time is measured end to end there while
     # the other steps stay asynchronous (0 = never fence)
     "timeline_sample_period": 16,
+    # flight recorder (obs/flight_recorder.py): ring size, dump rate
+    # limit, dump-dir bound, and the torch.profiler capture a dump runs
+    "flight_ring_capacity": 4096,
+    "flight_min_dump_interval_s": 60.0,
+    "flight_max_bundles": 8,
+    "flight_profiler_capture": False,
+    # anomaly thresholds that trip a flight-recorder dump on the
+    # serving path: admitted-p99 SLO (ms over a 128-request sliding
+    # window; 0 disables) and shed-rate spike (shed fraction over a
+    # serve_shed_window_s window, needing >= 20 decisions)
+    "serve_p99_slo_ms": 0,
+    "serve_shed_rate_threshold": 0.5,
+    "serve_shed_window_s": 5.0,
+    # fleet SLO burn-rate monitor (obs/aggregate.py wired into
+    # serving/fleet.py): availability target, the fast/slow
+    # multi-window burn-rate pairs (an alert needs the budget burning in
+    # both the short window and its long companion), and the
+    # incident-bundle dump discipline (the flight recorder's rate limit
+    # and bounded dir)
+    "fleet_availability_target": 0.999,
+    "fleet_burn_fast_window_s": 60.0,
+    "fleet_burn_fast_threshold": 14.4,
+    "fleet_burn_slow_window_s": 300.0,
+    "fleet_burn_slow_threshold": 6.0,
+    "fleet_burn_min_decisions": 20,
+    "fleet_incident_min_interval_s": 60.0,
+    "fleet_incident_max_bundles": 8,
 }
 
 _flags: dict[str, Any] = dict(_DEFAULTS)

@@ -318,6 +318,7 @@ class MetricsRegistry:
         self._lock = named_lock("obs.registry")
         self._metrics: dict = {}
         self._stream: Optional[EventStream] = None
+        self._recorder = None
 
     def _get(self, cls, name: str, **kw):
         with self._lock:
@@ -350,13 +351,31 @@ class MetricsRegistry:
     def stream(self) -> Optional[EventStream]:
         return self._stream
 
+    def attach_recorder(self, recorder) -> None:
+        """Tap every event() into a flight-recorder ring (see
+        obs/flight_recorder.py) alongside — or instead of — the
+        stream. None detaches."""
+        self._recorder = recorder
+
+    @property
+    def recorder(self):
+        return self._recorder
+
     def event(self, kind: str, **fields) -> None:
-        """Emit one structured event; no-op until a stream is
-        attached, so hot-loop call sites cost one None check."""
+        """Emit one structured event; no-op until a stream or a
+        flight recorder is attached, so hot-loop call sites cost two
+        None checks."""
         s = self._stream
-        if s is None:
+        r = self._recorder
+        if s is None and r is None:
             return
-        s.emit({"kind": kind, **fields})
+        obj = {"kind": kind, **fields}
+        if s is not None:
+            s.emit(obj)
+        if r is not None:
+            if "ts" not in obj:
+                obj = {"ts": round(time.time(), 6), **obj}
+            r.record(obj)
 
     # ---- export ----
     def snapshot(self) -> dict:

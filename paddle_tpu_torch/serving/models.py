@@ -21,10 +21,13 @@ equal to the target's greedy output (path "spec"). It has no fallback:
 a failing speculative decode raises, it never serves
 `decoder.generate()` instead.
 
-Ported: `GenerationModel` (`encode`, `named_hooks`,
-`tokens_per_dispatch`, `can_host`, `run_batch`) (ROADMAP A3a) and its
-speculative rung (ROADMAP A5). Left out: `MultiForwardHost`, which
-needs `multi_network.merge_confs` (ROADMAP A6, A12).
+`MultiForwardHost` co-dispatches several single-ids-input scorers in
+one forward: their confs are merged (`multi_network.merge_confs`) into
+one `Network`, each submodel is served through its `sub(name)` face,
+and the server's co-dispatch (`server.py`) pulls sibling batches into
+one `run_group`. The merged forward runs the port's `Network` eagerly
+under `torch.no_grad()` (the LSTM layers launch B5's inference form on
+the card); no program cache is keyed by shape.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch
 
 
 class GenerationModel:
@@ -121,3 +125,120 @@ class GenerationModel:
                 "path": path,
             })
         return rows
+
+
+class _ForwardSub:
+    """One submodel's face toward the server: run_batch packs this
+    submodel alone; the scheduler upgrades to run_group when siblings
+    have pending work."""
+
+    can_host = False
+
+    def __init__(self, host: "MultiForwardHost", name: str):
+        self.engine = host
+        self.name = name
+        self.named_hooks = {}
+
+    @property
+    def recompile_guards(self):
+        return self.engine.recompile_guards
+
+    def run_batch(self, ids, lens, hooks, host: bool):
+        out = self.engine.run_group({self.name: (ids, lens)})
+        return out[self.name]
+
+
+class MultiForwardHost:
+    """confs: {name: ModelConf}; every submodel is a single-ids-input
+    scorer (data layer `input_name`, output layer `output_name`).
+    Parameters with explicit shared names alias across submodels
+    exactly as MultiNetwork shared them. `params` (a trained merged
+    dict) or `init_params` from `generator` provides the weights for
+    the MERGED conf. Runs on the card unless `device="cpu"`."""
+
+    def __init__(self, confs: Dict[str, object], params=None,
+                 input_names: Dict[str, str] = None,
+                 output_names: Dict[str, str] = None,
+                 generator: Optional[torch.Generator] = None,
+                 device=None):
+        from paddle_tpu_torch.core.device import resolve_device
+        from paddle_tpu_torch.multi_network import merge_confs
+        from paddle_tpu_torch.network import Network
+
+        self.device = resolve_device(device)
+        self.confs = dict(confs)
+        self.names = tuple(self.confs)
+        self.input_names = input_names or {}
+        self.output_names = output_names or {}
+        self.merged = merge_confs(self.confs)
+        self.net = Network(self.merged)
+        if params is None:
+            if generator is None:
+                raise ValueError(
+                    "MultiForwardHost needs params or a torch.Generator "
+                    "to draw them from")
+            params = self.net.init_params(generator, device=self.device)
+        self.params = params
+
+    @property
+    def recompile_guards(self):
+        """Empty, as the port's other models' (see
+        GenerationModel.recompile_guards)."""
+        return ()
+
+    def sub(self, name: str) -> _ForwardSub:
+        assert name in self.confs, name
+        return _ForwardSub(self, name)
+
+    def _io(self, name):
+        conf = self.confs[name]
+        inp = self.input_names.get(name) or next(
+            lc.name for lc in conf.layers if lc.type == "data"
+        )
+        out = self.output_names.get(name) or (
+            conf.output_layer_names[-1] if conf.output_layer_names
+            else conf.layers[-1].name
+        )
+        return inp, out
+
+    def run_group(self, packed: Dict[str, tuple]) -> Dict[str, list]:
+        """packed: {name: (ids [B,T] i32, lens [B] i32)} for the models
+        with pending work. Absent submodels get a 1-row zero feed (the
+        merged network needs every data layer); their outputs are
+        discarded. One merged forward serves every present model."""
+        from paddle_tpu_torch.core.arg import Arg
+        from paddle_tpu_torch.multi_network import prefix_feed
+
+        dev = self.device
+        feed = {}
+        want = []
+        for name in self.names:
+            inp, out = self._io(name)
+            if name in packed:
+                ids, lens = packed[name]
+                sub_feed = {inp: Arg(
+                    ids=torch.as_tensor(np.asarray(ids, np.int32),
+                                        device=dev),
+                    seq_lens=torch.as_tensor(np.asarray(lens, np.int32),
+                                             device=dev),
+                )}
+            else:
+                sub_feed = {inp: Arg(
+                    ids=torch.zeros((1, 1), dtype=torch.int32, device=dev),
+                    seq_lens=torch.ones((1,), dtype=torch.int32,
+                                        device=dev),
+                )}
+            feed.update(prefix_feed(name, sub_feed))
+            want.append(f"{name}/{out}")
+        with torch.no_grad():
+            outs, _ = self.net.forward(self.params, feed, outputs=want,
+                                       train=False)
+        results = {}
+        for name in packed:
+            _, out = self._io(name)
+            val = outs[f"{name}/{out}"].value.float().cpu().numpy()
+            results[name] = [
+                {"scores": val[i].ravel().tolist(), "path": "device"}
+                for i in range(val.shape[0])
+            ]
+        return results

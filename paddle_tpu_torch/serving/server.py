@@ -18,6 +18,15 @@ model. SLO machinery, in dispatch order:
   reaches the device, not after.
 - **Bucketed packing.** Sequence lengths round up to the configured
   buckets and batch sizes round up to power-of-two batch buckets.
+- **Degradation ladder.** Rung 1: the model's device dispatch. Rung 2
+  (hooks present, or rung 1 raised and `host_fallback` is on and the
+  model `can_host`): the model's host rung (`host_decode.py` for a
+  `GenerationModel`) — the failure still counts on the breaker, and the
+  result is labelled `path: "host"`. Rung 3: explicit failure.
+- **Co-dispatch.** When the head batch belongs to a multi-model engine
+  (`models.MultiForwardHost`), one hook-free batch of each sibling
+  model joins it, and one merged forward serves them all
+  (`batches_codispatch`).
 - **Circuit breaker per model.** `breaker_threshold` consecutive
   dispatch failures quarantine the model: submits reject instantly
   with `ServeRejected("quarantined")` for `breaker_reset_s`, then one
@@ -27,11 +36,13 @@ model. SLO machinery, in dispatch order:
   deadline-reject everything queued, and joins the workers. Every
   request ever admitted reaches a terminal state — nothing leaks.
 
-Not ported yet (the JAX server has them, ROADMAP A6): co-dispatch of
-several models in one program (`MultiForwardHost`), the host-fallback
-rescue of a failed device dispatch (a request that names a hook already
-takes the model's host rung, `serving/models.py`), recompile guards,
-and the flight-recorder anomaly dumps.
+Anomalies — a shed-rate spike, an admitted-p99 SLO breach, a breaker
+opening — emit a `serving` event and a flight-recorder dump
+(`obs/flight_recorder.py`, rate-limited there).
+
+Not ported yet (ROADMAP A6b): the recompile guard (in the port, a
+CUDA-graph capture in steady state). Every model of the port already
+answers `recompile_guards` with ().
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ import numpy as np
 from paddle_tpu_torch.analysis.lock_order import named_lock
 from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.data.feeder import _bucket
+from paddle_tpu_torch.obs import flight_recorder as _flight
 from paddle_tpu_torch.obs import metrics as _obs
 from paddle_tpu_torch.obs import tracing as _tracing
 
@@ -63,7 +75,7 @@ class ServeRejected(Exception):
 
 
 class ServeError(Exception):
-    """The request was dispatched but execution failed."""
+    """The request was dispatched but execution failed on every rung."""
 
 
 @dataclass
@@ -74,6 +86,7 @@ class ServeConfig:
     buckets: tuple = (8, 16, 32, 64, 128)  # sequence-length buckets
     breaker_threshold: int = 3    # consecutive failures -> quarantine
     breaker_reset_s: float = 5.0  # quarantine window before half-open
+    host_fallback: bool = True    # rung 2 on a failed device dispatch
     workers: int = 1              # scheduler/dispatch threads
     # margin multiplier on the EWMA service time used by the
     # deadline-aware batch former (drop if remaining < ewma * margin)
@@ -166,6 +179,10 @@ class _Breaker:
         self.failures = 0
         self.opened_at = None
         self.probing = False
+        # set on a closed->open transition; the dispatch path reads
+        # and clears it OUTSIDE the server lock to fire the flight-
+        # recorder dump (file I/O must not run under the hot lock)
+        self.just_opened = False
         self._lock = named_lock("serving.breaker")
 
     @property
@@ -211,6 +228,7 @@ class _Breaker:
                     was_open = self.opened_at is not None
                     self.opened_at = time.monotonic()
                     if not was_open:
+                        self.just_opened = True
                         _obs.get_registry().counter(
                             "serving.breaker_opens"
                         ).inc(model=self.model)
@@ -224,6 +242,75 @@ class _ModelEntry:
     dispatch_keys: set = field(default_factory=set)
 
 
+class _AnomalyWatch:
+    """Serving-side flight-recorder triggers (thresholds are flags;
+    see core/flags.py): a shed-rate spike over a sliding window, and
+    an admitted-p99 SLO breach over the last 128 request latencies.
+    All methods are called OUTSIDE the server lock and never raise —
+    anomaly detection must not be able to fail the request path. The
+    recorder's own rate limit is the storm control; this class only
+    decides "is this moment anomalous"."""
+
+    MIN_DECISIONS = 20  # below this a window's shed rate is noise
+
+    def __init__(self):
+        self.window_s = float(_flags.get_flag("serve_shed_window_s"))
+        self.shed_threshold = float(
+            _flags.get_flag("serve_shed_rate_threshold")
+        )
+        self.p99_slo_s = float(_flags.get_flag("serve_p99_slo_ms")) / 1e3
+        self._lock = threading.Lock()
+        self._win_start = time.monotonic()
+        self._admitted = 0
+        self._shed = 0
+        self._lats = deque(maxlen=128)
+
+    def admission(self, shed: bool) -> None:
+        fire = None
+        with self._lock:
+            if shed:
+                self._shed += 1
+            else:
+                self._admitted += 1
+            now = time.monotonic()
+            if now - self._win_start >= self.window_s:
+                total = self._admitted + self._shed
+                rate = self._shed / total if total else 0.0
+                if (total >= self.MIN_DECISIONS
+                        and rate >= self.shed_threshold):
+                    fire = (rate, total)
+                self._win_start = now
+                self._admitted = self._shed = 0
+        if fire is not None:
+            reg = _obs.get_registry()
+            reg.event("serving", event="shed_spike",
+                      shed_rate=round(fire[0], 3), decisions=fire[1])
+            _flight.maybe_dump("shed_spike",
+                               shed_rate=round(fire[0], 3),
+                               decisions=fire[1])
+
+    def latency(self, lat_s: float) -> None:
+        if self.p99_slo_s <= 0:
+            return
+        fire = None
+        with self._lock:
+            self._lats.append(lat_s)
+            if len(self._lats) >= self.MIN_DECISIONS:
+                ordered = sorted(self._lats)
+                p99 = ordered[int(0.99 * (len(ordered) - 1))]
+                if p99 > self.p99_slo_s:
+                    fire = p99
+                    self._lats.clear()  # re-arm on fresh evidence
+        if fire is not None:
+            reg = _obs.get_registry()
+            reg.event("serving", event="slo_breach",
+                      p99_ms=round(fire * 1e3, 3),
+                      slo_ms=round(self.p99_slo_s * 1e3, 3))
+            _flight.maybe_dump("slo_breach",
+                               p99_ms=round(fire * 1e3, 3),
+                               slo_ms=round(self.p99_slo_s * 1e3, 3))
+
+
 class InferenceServer:
     """Register models with add_model(), feed it with submit(), stop it
     with shutdown(). Thread-safe; owns `config.workers` scheduler
@@ -233,7 +320,9 @@ class InferenceServer:
                   hooks, host: bool) -> list of per-row result dicts
 
     plus optional `named_hooks` (str -> hooks, the TCP-addressable
-    hook registry)."""
+    hook registry), optional `can_host` (the model has a host rung the
+    rescue may retry on) and optional `engine` (a co-dispatch group —
+    see models.MultiForwardHost)."""
 
     def __init__(self, config: ServeConfig = None):
         self.config = config or ServeConfig()
@@ -247,11 +336,12 @@ class InferenceServer:
         self._draining = False
         self._stopped = False
         self._stats = {
-            "admitted": 0, "completed": 0,
+            "admitted": 0, "completed": 0, "completed_host": 0,
             "shed_overload": 0, "shed_deadline": 0, "shed_quarantined": 0,
             "shed_shutdown": 0, "failed": 0, "batches": 0,
-            "max_queue_depth": 0,
+            "batches_codispatch": 0, "max_queue_depth": 0,
         }
+        self._anomaly = _AnomalyWatch()
         # recent completed-request exemplars for the `tracez` scrape
         self._slow: deque = deque(maxlen=256)
         self._trace_seq = itertools.count(1)  # anonymous-trace sampler
@@ -372,10 +462,12 @@ class InferenceServer:
                     tr[1], dur_s=0.0, status=e.reason,
                     labels={"model": model},
                 )
+            self._anomaly.admission(shed=True)
             raise
         reg.counter("serving.admitted").inc(model=model)
         reg.gauge("serving.queue_depth").set(depth)
         reg.gauge("serving.queue_depth_hwm").set_max(depth)
+        self._anomaly.admission(shed=False)
         return req
 
     def stats(self) -> dict:
@@ -496,6 +588,47 @@ class InferenceServer:
                 self._queue.appendleft(r)
         return entry, key, batch
 
+    def _pop_sibling_batches_locked(self, engine, exclude_model: str):
+        """Co-dispatch: when the head batch belongs to a multi-model
+        engine, opportunistically pull one hook-free batch for each
+        sibling model so a single merged forward serves several models'
+        traffic (the `multi_network` batching-across-models story)."""
+        extra = {}
+        for name in getattr(engine, "names", ()):
+            if name == exclude_model:
+                continue
+            entry = self._models.get(name)
+            # only fully-healthy siblings join a co-dispatch: half-open
+            # probes stay on the head path where they are capped at one
+            # request and individually accounted
+            if entry is None or entry.breaker.state != "closed":
+                continue
+            picked, rest, key = [], [], None
+            now = time.monotonic()
+            margin = entry.ewma_batch_s * self.config.service_margin
+            while self._queue and len(picked) < self.config.max_batch:
+                r = self._queue.popleft()
+                if r.model != name or r.hooks_key is not None:
+                    rest.append(r)
+                    continue
+                if now + margin > r.deadline:
+                    # same budget rule as the head path: expired or
+                    # budget-short work never reaches the model
+                    self._reject_locked(r, "deadline")
+                    continue
+                if key is None:
+                    key = r.bucket
+                if r.bucket == key:
+                    r.t_popped = time.monotonic()
+                    picked.append(r)
+                else:
+                    rest.append(r)
+            for r in reversed(rest):
+                self._queue.appendleft(r)
+            if picked:
+                extra[name] = (entry, picked)
+        return extra
+
     def _worker(self):
         while True:
             with self._work:
@@ -513,7 +646,14 @@ class InferenceServer:
                         # half-open probe: yield, don't hot-spin
                         self._work.wait(timeout=0.01)
                     continue
-            self._dispatch(*popped)
+                entry, key, batch = popped
+                engine = getattr(entry.model, "engine", None)
+                extra = {}
+                if engine is not None and key[2] is None:
+                    extra = self._pop_sibling_batches_locked(
+                        engine, key[0]
+                    )
+            self._dispatch(entry, key, batch, engine, extra)
 
     # ------------------------------------------------------- dispatch
     def _pack(self, batch, bucket):
@@ -564,102 +704,175 @@ class InferenceServer:
             labels={"batch": batch_n} if batch_n else {},
         )
 
-    def _dispatch(self, entry, key, batch):
+    def _fire_opened_breakers(self, groups):
+        """Outside-the-lock half of the breaker-open anomaly: the
+        transition was flagged under the lock; the event + flight
+        dump (file I/O) happen here."""
+        opened = []
+        with self._lock:
+            for name, (en, _reqs) in groups.items():
+                if en.breaker.just_opened:
+                    en.breaker.just_opened = False
+                    opened.append(name)
+        reg = _obs.get_registry()
+        for name in opened:
+            reg.event("serving", event="breaker_open", model=name)
+            _flight.maybe_dump("breaker_open", model=name)
+
+    def _dispatch(self, entry, key, batch, engine=None, extra=None):
         model_name, bucket, _hooks_key = key
         hooks = batch[0].hooks
-        host = hooks is not None
+        host = hooks is not None  # rung 2 whenever hooks are present
+        groups = {model_name: (entry, batch)}
+        if extra:
+            groups.update(extra)
         # the first traced request's dispatch span is pre-allocated and
         # attached as thread context while the model runs, so spans the
-        # model emits land under it
-        rep = next((r for r in batch if r.trace_id is not None), None)
-        rep_dispatch = _tracing.new_span_id() if rep is not None else None
-        run_ctx = _tracing.attach(
-            {"trace_id": rep.trace_id, "span_id": rep_dispatch}
-            if rep is not None else None
+        # model emits (host_decode's per-token spans) land under it
+        rep = next(
+            (r for _, (_e, reqs) in groups.items() for r in reqs
+             if r.trace_id is not None), None,
         )
+        rep_dispatch = _tracing.new_span_id() if rep is not None else None
+
+        def run_ctx():
+            return _tracing.attach(
+                {"trace_id": rep.trace_id, "span_id": rep_dispatch}
+                if rep is not None else None
+            )
+
         t0 = time.monotonic()
+        device_failure_counted = False
         try:
-            ids, lens = self._pack(batch, bucket)
-            with run_ctx:
-                rows = entry.model.run_batch(ids, lens, hooks, host)
+            if engine is not None and len(groups) > 1:
+                packed = {
+                    name: self._pack(reqs, reqs[0].bucket)
+                    for name, (_, reqs) in groups.items()
+                }
+                with run_ctx():
+                    results = engine.run_group(packed)
+                with self._lock:
+                    self._stats["batches_codispatch"] += 1
+            else:
+                ids, lens = self._pack(batch, bucket)
+                try:
+                    with run_ctx():
+                        rows = entry.model.run_batch(ids, lens, hooks,
+                                                     host)
+                except Exception:
+                    if host or not self.config.host_fallback or not \
+                            getattr(entry.model, "can_host", False):
+                        raise
+                    # rung 2: the device dispatch failed; retry on the
+                    # model's host rung. The device failure counts
+                    # toward the breaker ONCE, here — the outer handler
+                    # must not count the same dispatch again if the
+                    # retry fails too.
+                    with self._lock:
+                        entry.breaker.record(False)
+                    device_failure_counted = True
+                    with run_ctx():
+                        rows = entry.model.run_batch(ids, lens, hooks,
+                                                     True)
+                    host = True
+                results = {model_name: rows}
         except Exception as e:
             # a failed dispatch fails its requests (and counts toward
             # the breaker); the worker keeps serving
             t_end = time.monotonic()
             failed = []
             with self._lock:
-                entry.breaker.record(False)
-                self._stats["failed"] += len(batch)
-                for r in batch:
-                    r._finish(exc=ServeError(f"{type(e).__name__}: {e}"))
-                    if r.trace_id is not None:
-                        failed.append(r)
+                for name, (en, reqs) in groups.items():
+                    if not (device_failure_counted and en is entry):
+                        en.breaker.record(False)
+                    self._stats["failed"] += len(reqs)
+                    for r in reqs:
+                        r._finish(exc=ServeError(
+                            f"{type(e).__name__}: {e}"
+                        ))
+                        if r.trace_id is not None:
+                            failed.append(r)
             for r in failed:
                 self._emit_request_spans(
                     r, t0, t_end, status="error",
                     dispatch_span=rep_dispatch if r is rep else None,
                     batch_n=len(batch),
                 )
+            self._fire_opened_breakers(groups)
             return
         dt = time.monotonic() - t0
         # per-request latencies are collected under the lock but
         # published to the registry AFTER it: submit() contends on
         # self._lock, and the registry takes its own locks
-        lats, waits = [], []
+        telemetry = []
         with self._lock:
             self._stats["batches"] += 1
-            entry.breaker.record(True)
-            entry.ewma_batch_s = (
-                dt if entry.ewma_batch_s == 0.0
-                else 0.7 * entry.ewma_batch_s + 0.3 * dt
-            )
-            entry.dispatch_keys.add(
-                (bucket, self.config.batch_bucket(len(batch)),
-                 hooks is not None,
-                 getattr(entry.model, "tokens_per_dispatch", 1))
-            )
-            for i, r in enumerate(batch):
-                out = dict(rows[i])
-                out.setdefault("path", "host" if host else "device")
-                r._finish(result=out)
-                self._stats["completed"] += 1
-                lats.append(r.t_done - r.t_submit)
-                waits.append(max(t0 - r.t_submit, 0.0))
+            for name, (en, reqs) in groups.items():
+                en.breaker.record(True)
+                en.ewma_batch_s = (
+                    dt if en.ewma_batch_s == 0.0
+                    else 0.7 * en.ewma_batch_s + 0.3 * dt
+                )
+                en.dispatch_keys.add(
+                    (reqs[0].bucket, self.config.batch_bucket(len(reqs)),
+                     reqs[0].hooks_key is not None,
+                     getattr(en.model, "tokens_per_dispatch", 1))
+                )
+                rows = results[name]
+                lats, waits = [], []
+                for i, r in enumerate(reqs):
+                    out = dict(rows[i])
+                    out.setdefault("path", "host" if host else "device")
+                    r._finish(result=out)
+                    self._stats["completed"] += 1
+                    if host:
+                        self._stats["completed_host"] += 1
+                    lats.append(r.t_done - r.t_submit)
+                    waits.append(max(t0 - r.t_submit, 0.0))
+                telemetry.append((name, lats, waits, list(reqs)))
         t_end = t0 + dt
         path_label = "host" if host else "device"
         reg = _obs.get_registry()
         reg.counter("serving.dispatch_s").inc(dt)
-        for r in batch:
-            self._emit_request_spans(
-                r, t0, t_end, status="ok", path=path_label,
-                dispatch_span=rep_dispatch if r is rep else None,
-                batch_n=len(batch),
+        for name, lats, waits, reqs in telemetry:
+            for r in reqs:
+                self._emit_request_spans(
+                    r, t0, t_end, status="ok", path=path_label,
+                    dispatch_span=rep_dispatch if r is rep else None,
+                    batch_n=len(reqs),
+                )
+                lat = r.t_done - r.t_submit
+                tp = r.t_popped if r.t_popped is not None else t0
+                # lint: unlocked-ok — deque.append is atomic under the
+                # GIL and exemplars tolerate interleaving; the admission
+                # lock must not cover span bookkeeping
+                self._slow.append({
+                    "id": r.id,
+                    "model": r.model,
+                    "trace_id": r.trace_id,
+                    "latency_ms": round(lat * 1e3, 3),
+                    "queued_ms": round(max(tp - r.t_submit, 0.0) * 1e3, 3),
+                    "dispatch_ms": round(dt * 1e3, 3),
+                    "path": path_label,
+                    "ts": round(time.time(), 3),
+                })
+                self._anomaly.latency(lat)
+            # occupancy bookkeeping: one formed batch per group, its
+            # real (un-padded) request count alongside
+            reg.counter("serving.batches").inc(model=name)
+            reg.counter("serving.batch_requests").inc(
+                len(lats), model=name
             )
-            tp = r.t_popped if r.t_popped is not None else t0
-            # lint: unlocked-ok — deque.append is atomic under the GIL
-            # and exemplars tolerate interleaving; the admission lock
-            # must not cover span bookkeeping
-            self._slow.append({
-                "id": r.id,
-                "model": r.model,
-                "trace_id": r.trace_id,
-                "latency_ms": round((r.t_done - r.t_submit) * 1e3, 3),
-                "queued_ms": round(max(tp - r.t_submit, 0.0) * 1e3, 3),
-                "dispatch_ms": round(dt * 1e3, 3),
-                "path": path_label,
-                "ts": round(time.time(), 3),
-            })
-        # occupancy bookkeeping: one formed batch, its real (un-padded)
-        # request count alongside
-        reg.counter("serving.batches").inc(model=model_name)
-        reg.counter("serving.batch_requests").inc(
-            len(lats), model=model_name
-        )
-        # admitted-request time attribution: queued vs executing vs
-        # (residual) scheduling overhead
-        reg.counter("serving.request_latency_s").inc(sum(lats))
-        reg.counter("serving.request_queue_wait_s").inc(sum(waits))
-        reg.counter("serving.request_dispatch_s").inc(dt * len(lats))
-        hist = reg.histogram("serving.admitted_latency_s")
-        for lat in lats:
-            hist.observe(lat, model=model_name)
+            # admitted-request time attribution: queued vs executing vs
+            # (residual) scheduling overhead
+            reg.counter("serving.request_latency_s").inc(sum(lats))
+            reg.counter("serving.request_queue_wait_s").inc(sum(waits))
+            reg.counter("serving.request_dispatch_s").inc(dt * len(lats))
+            hist = reg.histogram("serving.admitted_latency_s")
+            for lat in lats:
+                hist.observe(lat, model=name)
+        # a breaker can open on THIS dispatch even though it completed:
+        # a device failure rescued by the host rung counts toward the
+        # breaker mid-dispatch, so the open is fired from the success
+        # path too, not only the except path
+        self._fire_opened_breakers(groups)

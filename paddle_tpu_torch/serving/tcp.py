@@ -10,6 +10,7 @@ Frame = 4-byte LE length + UTF-8 JSON. Request:
      "trace": {"trace_id": str, "span_id": str}?}   # trace carrier
   | {"metricz": true}          # telemetry scrape (no inference)
   | {"tracez": true, "top": int?}   # slow-request exemplars
+  | {"flightz": true}          # flight-ring dump (incident stitch)
   | {"admin": "swap_model", "model": str, "tag": str?}  # hot-swap
 
 Response:
@@ -22,6 +23,8 @@ Response:
   | {"ok": true, "metricz": <registry snapshot>, "stats": <server
      stats>}                   # for a metricz request
   | {"ok": true, "tracez": [exemplar, ...]}   # for a tracez request
+  | {"ok": true, "flightz": {"pid": int, "enabled": bool,
+     "events": [...], "capacity": int}}   # for a flightz request
 
 The `trace` carrier makes one trace_id span the whole request path:
 the client's `client.request` span, the server's `serve.request` root
@@ -48,12 +51,14 @@ being served.
 from __future__ import annotations
 
 import json
+import os
 import random
 import socket
 import struct
 import threading
 import time
 
+from paddle_tpu_torch.obs import flight_recorder as _flight
 from paddle_tpu_torch.obs import metrics as _obs
 from paddle_tpu_torch.obs import tracing as _tracing
 from paddle_tpu_torch.serving.server import (
@@ -207,6 +212,21 @@ class ServingTCPServer:
                 "ok": True,
                 "tracez": self.server.slow_exemplars(top=top),
             }
+        if isinstance(msg, dict) and msg.get("flightz"):
+            # flight-ring dump for cross-process incident stitching:
+            # like metricz, answered OUTSIDE the admission queue — an
+            # overloaded replica is exactly the one whose ring an
+            # incident bundle needs
+            rec = _flight.get_flight_recorder()
+            return {
+                "ok": True,
+                "flightz": {
+                    "pid": os.getpid(),
+                    "enabled": rec is not None,
+                    "events": rec.snapshot() if rec is not None else [],
+                    "capacity": rec.capacity if rec is not None else 0,
+                },
+            }
         if isinstance(msg, dict) and msg.get("admin") == "swap_model":
             # zero-downtime hot swap: runs on this connection's handler
             # thread while every other connection keeps serving. The
@@ -348,9 +368,9 @@ class ServeClient:
         self._retries = max(0, int(retries))
         self._backoff_s = backoff_s
         self._backoff_max_s = backoff_max_s
-        # admin frames (metricz/tracez) default to a BOUNDED timeout
-        # distinct from the request path: a black-holed replica must
-        # cost a poller `admin_timeout`, not a thread wedged forever
+        # admin frames (metricz/tracez/flightz) default to a BOUNDED
+        # timeout distinct from the request path: a black-holed replica
+        # must cost a poller `admin_timeout`, not a thread wedged forever
         self._admin_timeout = admin_timeout
         self._sock = None
 
@@ -411,6 +431,11 @@ class ServeClient:
     def tracez(self, top: int = 10, timeout: float = None) -> dict:
         """Scrape the server's slow-request exemplars."""
         return self._roundtrip({"tracez": True, "top": int(top)},
+                               self._admin(timeout))
+
+    def flightz(self, timeout: float = None) -> dict:
+        """Fetch the server's flight-ring dump (incident stitching)."""
+        return self._roundtrip({"flightz": True},
                                self._admin(timeout))
 
     def _admin(self, timeout):

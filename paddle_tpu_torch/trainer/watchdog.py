@@ -62,6 +62,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import List, Optional
 
+from paddle_tpu_torch.obs import flight_recorder as _flight
 from paddle_tpu_torch.obs import metrics as _metrics
 
 # ladder rungs that count as anomalies: each one trips a flight-recorder
@@ -73,10 +74,11 @@ ANOMALY_RUNGS = frozenset(
 
 
 def _flight_dump(trigger: str, /, **detail) -> None:
-    """The flight recorder's dump of the JAX package
-    (`obs/flight_recorder.py::maybe_dump`). The recorder is still to
-    port (ROADMAP A6); until then an anomaly rung dumps nothing — its
-    event is on the report, the registry and the JSONL stream."""
+    """Dump a flight-recorder bundle for an anomaly rung
+    (`obs/flight_recorder.py::maybe_dump`): a no-op unless a recorder is
+    enabled, rate-limited when one is."""
+    _flight.maybe_dump(trigger, **detail)
+
 
 # EX_TEMPFAIL: "temporary failure, retry" — the one exit code in the
 # sysexits range that means exactly what a preemption is. A launcher

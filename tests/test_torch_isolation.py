@@ -360,3 +360,65 @@ def test_v1_config_and_provider_parse_with_jax_and_the_shim_blocked(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.split()[-2] == "PARSED"
+
+
+def test_flight_recorder_and_fleet_modules_import_with_jax_blocked():
+    """The flight recorder and the fleet by name (the walk above covers
+    them too): the recorder and the aggregation, the server's A6 parts,
+    the fleet router, the merged-conf host, the verified cache, the
+    online trainer and the replica/worker harness."""
+    names = ["paddle_tpu_torch.obs", "paddle_tpu_torch.obs.flight_recorder",
+             "paddle_tpu_torch.obs.aggregate",
+             "paddle_tpu_torch.serving.server",
+             "paddle_tpu_torch.serving.tcp",
+             "paddle_tpu_torch.serving.fleet",
+             "paddle_tpu_torch.serving.models",
+             "paddle_tpu_torch.multi_network", "paddle_tpu_torch.inference",
+             "paddle_tpu_torch.trainer.online",
+             "paddle_tpu_torch.testing_faults"]
+    files = _port_files()
+    assert all(os.path.join(PKG, *n.split(".")[1:]) + ".py" in files
+               or os.path.join(PKG, *n.split(".")[1:], "__init__.py") in files
+               for n in names)
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=names)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(names))
+
+
+@pytest.mark.parametrize("src", ["SERVING_REPLICA_SRC",
+                                 "SHARDED_CTR_TRAINER_SRC"])
+def test_harness_sources_import_only_the_port(src):
+    """The replica and worker sources are strings the harness runs in a
+    subprocess: they import the port, the stdlib and numpy only."""
+    from paddle_tpu_torch import testing_faults
+
+    roots = set()
+    for node in ast.walk(ast.parse(getattr(testing_faults, src))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "paddle_tpu_torch" in roots
+    assert not roots & set(FORBIDDEN)
+    assert roots <= {"paddle_tpu_torch", "numpy", "torch", "json", "os",
+                     "sys", "time", "threading", "math", "signal"}
+
+
+def test_fleet_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving.models import MultiForwardHost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = tlm.LMSpec(vocab=16, d_model=8, num_heads=2, num_layers=1)
+    conf = tlm.transformer_lm(spec)
+    for call in (
+        lambda: MultiForwardHost({"a": conf}, generator=torch.Generator()),
+        lambda: inference.load_verified("/nonexistent", "k"),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
