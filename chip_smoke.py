@@ -386,7 +386,25 @@ exits non-zero:
     rollout() every 10 batches (zero lost, the served logloss falling);
     (g) one stitched incident bundle read by tools/fleet_view.py and
     `python -m paddle_tpu_torch fleetz --json`;
-25. prints the kernels' JSON line and, last, the device line.
+25. the kernels as custom ops, export and the recompile guard (A6b) and
+    the moe layer: (a) `torch.library.opcheck` of each kernel's
+    `paddle_tpu_torch::` op on CUDA tensors at one shape of PERF.md's
+    table (B1-B3 also bf16), each op's outputs against its plain
+    version; (b) export_compiled / load_compiled of ResNet-50 (fused,
+    B = 256, f32 and under the bf16 flag), the IMDB classifier at h =
+    512 and the LM's forward with flash attention: export, load and
+    call times, the blob's bytes, the loaded outputs against eager
+    `infer`, the op nodes, the kernels' counters rising in the loaded
+    call; (c) ResNet-50's forward through store_verified /
+    load_verified, a policy that passes and one that fails on
+    n_instructions_max; (d) the recompile guard, strict: the classifier
+    through SGD at steps_per_dispatch 4 (the second pass clean, a new
+    length raising RecompileError before its capture) and a
+    GenerationModel server (a cold bucket fails its request, the warm
+    one keeps serving); (e) the moe layer (D 512, hidden 2048, 8
+    experts, 4096 tokens) trained 3 adam steps on the card, f32 and
+    under the bf16 flag, against the same steps on the CPU;
+26. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -8217,6 +8235,553 @@ def flight_and_fleet(torch, rnn, sr, gen, dev="cuda"):
     return out
 
 
+# ---- phase 25: the kernels as custom ops, export / load, the recompile
+# guard, the moe layer
+
+# 25a: one shape a kernel from PERF.md's table (B1-B3 at the res2 tail
+# site, f32 at batch 64 and bf16 at batch 256; B4f/B4b at the LM's
+# training shape; B5/B6 at the classifier's, B7/B8 at the NMT encoder's;
+# B9 at the wide&deep step's). An op's outputs against its plain version
+# on the same card inputs: f32 within TOL of the largest entry, bf16
+# within OPS_BF16_TOL, B9 within SPARSE_TOL.
+OPS_BF16_TOL = 1e-2
+OPS_FUSED = dict(n=64 * 3136, cin=64, cout=256)
+OPS_FLASH = dict(B=32, T=128, H=4, D=64)
+OPS_LSTM = dict(B=CLS_B, T=CLS_T, h=256)
+OPS_GRU = dict(B=NMT_B, T=NMT_T, h=256)
+OPS_SPARSE = dict(rows=1 << 20, d=64, n=16384)
+# 25b: the three exported forwards
+EXPORT_RESNET_B = 256
+EXPORT_LM = dict(B=8, T=1024)
+EXPORT_REPS = 3
+EXPORT_BF16_TOL = 1e-2
+# 25d: the guarded classifier's passes (steps_per_dispatch 4: chunks of
+# 4, 4 and 1) and the cold length
+GUARD_K, GUARD_BATCHES, GUARD_COLD_T = 4, 9, 50
+# 25e: the moe layer: D 512, hidden 2048, 8 experts, capacity factor
+# 1.25, 4096 tokens (groups of 1024), adam, 3 steps; the card against the
+# port on the CPU from the same start: losses and aux within MOE_TOL (f32)
+# and MOE_BF16_TOL under the bf16 flag (CPU and card bf16 GEMMs round
+# differently)
+MOE = dict(d=512, hidden=2048, experts=8, cf=1.25, tokens=4096, classes=16,
+           steps=3, lr=1e-3)
+MOE_TOL, MOE_BF16_TOL = 1e-4, 3e-2
+
+
+def _held(name, got, ref, tol):
+    """max rel err of each output pair; asserts within tol."""
+    errs = []
+    for g, r in zip(got, ref):
+        if r is None or r.numel() == 0:
+            continue
+        errs.append(rel_err(g.float(), r.float())[0])
+    err = max(errs)
+    assert err <= tol, f"{name}: {err:.3g} relative to max > {tol}"
+    return err
+
+
+def op_checks(torch, fop, fa, rnn, sr, dev="cuda"):
+    """25a: `torch.library.opcheck` of every kernel's op on CUDA tensors
+    (schema, fake against real, autograd registration, AOT dispatch with
+    dynamic shapes), and each op's outputs against its plain version."""
+    from paddle_tpu_torch.ops import _library
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 250)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32, grad=False):
+        x = (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+        return x.requires_grad_(True) if grad else x
+
+    out = {}
+
+    def check(name, op, args, got_ref, tol):
+        t0 = time.perf_counter()
+        torch.library.opcheck(op, args)
+        err = _held(name, *got_ref(), tol)
+        out[name] = {"max_rel_err": err, "tol": tol,
+                     "s": time.perf_counter() - t0}
+
+    def no_grad(args):
+        return tuple(a.detach() if torch.is_tensor(a) else a for a in args)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        n = OPS_FUSED["n"] * (4 if dtype == torch.bfloat16 else 1)
+        cin, cout = OPS_FUSED["cin"], OPS_FUSED["cout"]
+        tol = OPS_BF16_TOL if dtype == torch.bfloat16 else TOL
+        u = randn(n, cin, dtype=dtype, grad=True)
+        r = randn(n, cin, dtype=dtype, grad=True)
+        sc, sh = randn(cin, grad=True), randn(cin, grad=True)
+        w = randn(cin, cout, scale=0.1, dtype=dtype, grad=True)
+        args = (u, sc, sh, w, r, "relu")
+        check(f"bn_act_conv1x1_fwd_{tag}", fop.fwd_op, args,
+              lambda: (fop.fwd_op(*no_grad(args)),
+                       fop.bn_act_conv1x1_plain(*no_grad(args))), tol)
+        y, _s1, _s2 = fop.bn_act_conv1x1_plain(*no_grad(args))
+        dy = randn(n, cout, dtype=dtype)
+        d1, d2 = randn(cout), randn(cout, scale=0.01)
+        dx_args = (*no_grad(args[:5]), y, dy, d1, d2, "relu")
+        check(f"bn_act_conv1x1_bwd_dx_{tag}", fop.bwd_dx_op, dx_args,
+              lambda: (fop.bwd_dx_op(*dx_args),
+                       fop.bn_act_conv1x1_bwd_dx_plain(*dx_args)), tol)
+        dw_args = (*no_grad(args[:3]), r.detach(), y, dy, d1, d2, "relu")
+        check(f"bn_act_conv1x1_bwd_dw_{tag}", fop.bwd_dw_op, dw_args,
+              lambda: ((fop.bwd_dw_op(*dw_args),),
+                       (fop.bn_act_conv1x1_bwd_dw_plain(*dw_args),)), tol)
+        del u, r, w, y, dy, args, dx_args, dw_args
+
+    B, T, H, D = (OPS_FLASH[k] for k in ("B", "T", "H", "D"))
+    q, k, v = (randn(B, T, H, D, grad=True) for _ in range(3))
+    f_args = (q, k, v, True, None, None, None)
+    check("flash_attention_fwd", fa.fwd_op, f_args,
+          lambda: (fa.fwd_op(*no_grad(f_args)),
+                   fa.attention_plain(*no_grad(f_args[:3]), causal=True)),
+          TOL)
+    qd, kd, vd = (x.detach() for x in (q, k, v))
+    o, lse = fa.attention_plain(qd, kd, vd, causal=True)
+    dout = randn(B, T, H, D)
+    delta = fa.row_delta(dout, o)
+    b_args = (qd, kd, vd, dout, lse, delta, True, None, None, None)
+    ref = fa.attention_bwd_plain(qd, kd, vd, o, lse, dout, causal=True)
+    check("flash_attention_bwd_dkv", fa.bwd_dkv_op, b_args,
+          lambda: (fa.bwd_dkv_op(*b_args), ref[1:]), TOL)
+    check("flash_attention_bwd_dq", fa.bwd_dq_op, b_args,
+          lambda: ((fa.bwd_dq_op(*b_args),), ref[:1]), TOL)
+
+    B, T, h = (OPS_LSTM[k] for k in ("B", "T", "h"))
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    x, w = randn(B, T, 4 * h, grad=True), randn(h, 4 * h, scale=h ** -0.5,
+                                                grad=True)
+    b7 = randn(7 * h, scale=0.1, grad=True)
+    l_args = (x, w, b7, lens, True, None)
+    split = [4 * h, h, h, h]
+    check("lstm_seq_fwd", rnn.lstm_fwd_op, l_args,
+          lambda: (rnn.lstm_fwd_op(*no_grad(l_args)),
+                   rnn.lstm_plain(x.detach(), w.detach(),
+                                  *torch.split(b7.detach(), split), lens,
+                                  want_c=True)), TOL)
+    yl, cl = rnn.lstm_plain(x.detach(), w.detach(),
+                            *torch.split(b7.detach(), split), lens,
+                            want_c=True)
+    dy = randn(B, T, h)
+    lb_args = (x.detach(), w.detach(), b7.detach(), lens, yl, cl, dy, None)
+    check("lstm_seq_bwd", rnn.lstm_bwd_op, lb_args,
+          lambda: (rnn.lstm_bwd_op(*lb_args),
+                   rnn.lstm_bwd_plain(*lb_args[:7])), TOL)
+
+    B, T, h = (OPS_GRU[k] for k in ("B", "T", "h"))
+    lens = torch.randint(1, T + 1, (B,), generator=g, device=dev,
+                         dtype=torch.int32)
+    gru = (randn(B, T, 3 * h, grad=True),
+           randn(h, 2 * h, scale=h ** -0.5, grad=True),
+           randn(h, h, scale=h ** -0.5, grad=True),
+           randn(3 * h, scale=0.1, grad=True))
+    g_args = (*gru, lens, None)
+    gd = tuple(t.detach() for t in gru)
+    check("gru_seq_fwd", rnn.gru_fwd_op, g_args,
+          lambda: ((rnn.gru_fwd_op(*gd, lens),), (rnn.gru_plain(*gd, lens),)),
+          TOL)
+    yg = rnn.gru_plain(*gd, lens)
+    gb_args = (*gd, lens, yg, randn(B, T, h), None)
+    check("gru_seq_bwd", rnn.gru_bwd_op, gb_args,
+          lambda: (rnn.gru_bwd_op(*gb_args), rnn.gru_bwd_plain(*gb_args[:7])),
+          TOL)
+
+    rows, d, n = (OPS_SPARSE[k] for k in ("rows", "d", "n"))
+    table = randn(rows + 1, 1, d)
+    slot = randn(rows + 1, 1, d).abs()
+    ids = torch.randint(0, rows, (n,), generator=g, device=dev)
+    grads = randn(n, d)
+
+    def tabs():
+        return [table.clone(), slot.clone()]
+
+    def updated(fn):
+        t = tabs()
+        fn(t)
+        return t
+
+    u_args = (tabs(), ids, grads, "momentum", 0.01, 0.9, n, rows)
+    check("sparse_row_update", sr.rule_update_op, u_args,
+          lambda: (updated(lambda t: sr.rule_update_op(t, *u_args[1:])),
+                   updated(lambda t: sr._rule_update_plain(t, *u_args[1:]))),
+          SPARSE_TOL)
+    ga_args = (tabs(), ids, grads, n, rows)
+    got = sr.gather_op(*ga_args)
+    check("sparse_row_gather", sr.gather_op, ga_args,
+          lambda: ((got[0], got[1], *got[2]),
+                   (lambda p: (p[0], p[1], *p[2]))(
+                       sr._gather_plain(*ga_args))), SPARSE_TOL)
+    new = [x + 1.0 for x in got[2]]
+    s_args = (tabs(), new, got[0], rows)
+    check("sparse_row_scatter", sr.scatter_op, s_args,
+          lambda: (updated(lambda t: sr.scatter_op(t, *s_args[1:])),
+                   updated(lambda t: sr._scatter_plain(t, *s_args[1:]))),
+          SPARSE_TOL)
+    checked = {k.rsplit("_f32", 1)[0].rsplit("_bf16", 1)[0] for k in out}
+    assert checked == set(_library.OPS), (checked, _library.OPS)
+    print("ops opcheck " + json.dumps(out), flush=True)
+    return out
+
+
+def _outs_equal(name, got, want, tol):
+    """The loaded program's {name: Arg} against eager `infer`'s numpy
+    outputs: (bit-equal, max relative diff); asserts within tol."""
+    worst, equal = 0.0, True
+    for n, ref in want.items():
+        a = got[n].value if got[n].value is not None else got[n].ids
+        a = a.float().cpu().numpy()
+        equal &= bool(np.array_equal(a, ref))
+        scale = float(np.abs(ref).max()) or 1.0
+        worst = max(worst, float(np.abs(a - ref).max()) / scale)
+    assert worst <= tol, f"{name}: loaded vs eager {worst:.3g} > {tol}"
+    return equal, worst
+
+
+def export_round_trip(torch, name, inf, feed, counters, tol, dev="cuda"):
+    """export_compiled / load_compiled of `inf`'s forward at `feed`: the
+    times, the blob's bytes, the loaded call against eager `infer` (ms,
+    outputs), the `paddle_tpu_torch::` nodes and the launch counters'
+    rise during the loaded call (`counters`: [(module, counter name)])."""
+    from paddle_tpu_torch import inference
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    eager = inf.infer(feed)      # warm
+    blob, export_ms = wall(lambda: inference.export_compiled(inf, feed))
+    fn, load_ms = wall(lambda: inference.load_compiled(blob, source=name))
+    nodes = sorted({str(n.target) for n in fn.graph.nodes
+                    if str(n.target).startswith("paddle_tpu_torch.")})
+
+    def call():
+        outs = fn(inf.params, inf.state, feed)
+        return {n: (a.value if a.value is not None else a.ids).cpu()
+                for n, a in outs.items()}
+
+    call()                       # warm
+    for mod, c in counters:
+        setattr(mod, c, 0)
+    got = fn(inf.params, inf.state, feed)
+    torch.cuda.synchronize()
+    rose = {c: getattr(mod, c) for mod, c in counters}
+    loaded_ms = min(wall(call)[1] for _ in range(EXPORT_REPS))
+    eager_ms = min(wall(lambda: inf.infer(feed))[1]
+                   for _ in range(EXPORT_REPS))
+    equal, worst = _outs_equal(name, got, eager, tol)
+    r = {"export_s": export_ms / 1e3, "blob_bytes": len(blob),
+         "load_s": load_ms / 1e3, "loaded_ms": loaded_ms,
+         "eager_ms": eager_ms, "bit_equal": equal, "max_rel_diff": worst,
+         "op_nodes": nodes, "launches": rose}
+    print(f"export {name} " + json.dumps(r), flush=True)
+    assert nodes, f"{name}: no paddle_tpu_torch node in the graph"
+    if dev != "cpu":
+        assert all(v > 0 for v in rose.values()), f"{name}: counters {rose}"
+    return r
+
+
+def exports(torch, fop, fa, rnn, dev="cuda"):
+    """25b and 25c: ResNet-50 (fused, B1) in f32 and under the bf16 flag,
+    the IMDB classifier at h = 512 (B5 on the grid route) and the LM's
+    forward with flash attention (B4f) through export_compiled /
+    load_compiled; then ResNet-50's forward through the verified cache,
+    with an audit policy that passes and one that fails."""
+    import tempfile
+
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.core.arg import id_arg
+    from paddle_tpu_torch.models import lm as tlm
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.trainer.trainer import Inferencer
+    from paddle_tpu_torch.weights import fused_resnet_from_plain
+
+    out = {}
+    plain, fused, params, state = resnet_nets(torch)
+    fparams, fstate = fused_resnet_from_plain(fused, params, state)
+    del plain, params, state
+    feed = {"image": image_feed(EXPORT_RESNET_B, SEED + 251)["image"]}
+    inf = Inferencer(fused, fparams, fstate, outputs=["output"], device=dev)
+    for amp in (False, True):
+        set_amp(amp)
+        counter = "fwd_bf16_launches" if amp else "fwd_launches"
+        name = f"resnet50_b{EXPORT_RESNET_B}" + ("_bf16" if amp else "")
+        out[name] = export_round_trip(
+            torch, name, inf, feed, [(fop, counter)],
+            EXPORT_BF16_TOL if amp else 1e-5, dev)
+        if dev != "cpu":
+            assert out[name]["launches"][counter] == 29, out[name]
+    set_amp(False)
+
+    # 25c: the verified cache over ResNet-50's exported forward
+    cache = tempfile.mkdtemp(prefix="phase25_cache_")
+    args = (inf.params, inf.state, feed)
+    t0 = time.perf_counter()
+    meta = inference.store_verified(cache, "resnet50",
+                                    inference.InferencerForward(inf), args,
+                                    policy={"host_transfer_budget": 0})
+    store_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog = inference.load_verified(cache, "resnet50", device=dev)
+    boot_s = time.perf_counter() - t0
+    fop.fwd_launches = 0
+    got = prog(*args)
+    torch.cuda.synchronize()
+    b1 = fop.fwd_launches
+    equal, worst = _outs_equal("verified resnet50", got, inf.infer(feed),
+                               1e-5)
+    refused = None
+    try:
+        inference.load_verified(cache, "resnet50", device=dev, policy={
+            "n_instructions_max": meta["n_instructions"] - 1})
+    except inference.VerifiedCacheError as e:
+        refused = str(e)
+    out["verified_resnet50"] = r = {
+        "store_s": store_s, "boot_s": boot_s,
+        "n_instructions": meta["n_instructions"],
+        "host_transfers": meta["host_transfers"],
+        "total_bytes": meta["total_bytes"], "bit_equal": equal,
+        "max_rel_diff": worst, "b1_launches": b1, "refused": refused}
+    print("verified cache " + json.dumps(r), flush=True)
+    assert b1 == (0 if dev == "cpu" else 29), r
+    assert meta["host_transfers"] == 0, r
+    assert refused is not None and "n_instructions" in refused, r
+    del inf, prog, got, fparams, fstate, fused
+    torch.cuda.empty_cache()
+
+    conf = stacked_lstm_classifier(**dict(CLS, hidden=CLS_WIDE[0]))
+    net = Network(conf)
+    cls, _nmt = text_feeds(SEED + 252, ragged=True)
+    inf = Inferencer(net, net.init_params(
+        torch.Generator().manual_seed(SEED), device=dev),
+        outputs=["output"], device=dev)
+    out["classifier_h512"] = export_round_trip(
+        torch, "classifier_h512", inf, {"words": cls["words"]},
+        [(rnn, "lstm_fwd_infer_launches"),
+         (rnn, "lstm_fwd_infer_grid_launches")], 1e-5, dev)
+    if dev != "cpu":
+        assert out["classifier_h512"]["launches"] == {
+            "lstm_fwd_infer_launches": 2, "lstm_fwd_infer_grid_launches": 2}
+
+    spec = tlm.LMSpec(**SERVED_LM)
+    net = Network(tlm.transformer_lm(spec))
+    rng = np.random.default_rng(SEED + 253)
+    B, T = EXPORT_LM["B"], EXPORT_LM["T"]
+    lens = np.asarray(PROMPT_LENS[:B], np.int32)
+    ids = rng.integers(2, spec.vocab, (B, T)).astype(np.int32)
+    inf = Inferencer(net, net.init_params(
+        torch.Generator().manual_seed(SEED), device=dev), device=dev)
+    out["lm_flash"] = export_round_trip(
+        torch, "lm_flash", inf, {"ids": id_arg(ids, lens, device=dev)},
+        [(fa, "launches")], 1e-5, dev)
+    if dev != "cpu":
+        assert out["lm_flash"]["launches"]["launches"] == spec.num_layers
+    return out
+
+
+def guarded_classifier(torch, dev="cuda"):
+    """25d(1): the classifier (h = 256) for two passes of GUARD_BATCHES
+    under recompile_guard "strict" and steps_per_dispatch GUARD_K: the
+    first pass captures its graph (the tail runs eagerly), the second is
+    clean; then a batch of a new length raises RecompileError from the
+    capture, before it begins (no graph is added)."""
+    from paddle_tpu_torch.analysis.recompile_guard import RecompileError
+    from paddle_tpu_torch.core import flags
+    from paddle_tpu_torch.core.arg import id_arg
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.trainer.trainer import SGD
+
+    rng = np.random.default_rng(SEED + 254)
+
+    def batches(n, t):
+        return [(rng.integers(0, CLS["vocab_size"], (CLS_B, t)).astype(
+            np.int32), np.full(CLS_B, t, np.int32),
+            rng.integers(0, 2, CLS_B).astype(np.int32)) for _ in range(n)]
+
+    def feeder(raw):
+        return {"words": id_arg(raw[0], raw[1]), "label": id_arg(raw[2])}
+
+    flags.set_flag("recompile_guard", "strict")
+    try:
+        sgd = SGD(stacked_lstm_classifier(**CLS),
+                  OptimizationConf(learning_method="adam",
+                                   learning_rate=CLS_LR),
+                  steps_per_dispatch=GUARD_K, device=dev)
+        warm = batches(GUARD_BATCHES, CLS_T)
+        sgd.train(reader=lambda: iter(warm), feeder=feeder, num_passes=2)
+        guard = sgd.step_fn.recompile_guard
+        r = {"armed": guard.armed, "warmup_traces": guard.warmup_traces,
+             "graphs_captured": sgd.graphs_captured,
+             "violations_after_pass_2": len(sgd.recompile_violations())}
+        raised = None
+        try:
+            sgd.train(reader=lambda: iter(batches(GUARD_K, GUARD_COLD_T)),
+                      feeder=feeder, num_passes=1)
+        except RecompileError as e:
+            raised = str(e)
+        r.update(raised=raised, violations=len(sgd.recompile_violations()),
+                 graphs_after=sgd.graphs_captured)
+    finally:
+        flags.set_flag("recompile_guard", "off")
+    print("guard classifier " + json.dumps(r), flush=True)
+    assert r["armed"] and r["violations_after_pass_2"] == 0
+    # the K = 4 chunk's capture (two notes, the chunk and its body) and
+    # the eager tail's (a chunk of one: two notes)
+    assert r["warmup_traces"] == 4, r
+    want_graphs = 0 if dev == "cpu" else 1
+    assert r["graphs_captured"] == want_graphs, r
+    assert raised is not None and "train_step" in raised, r
+    assert r["violations"] == 1 and r["graphs_after"] == want_graphs, r
+    return r
+
+
+def guarded_server(torch, gen):
+    """25d(2): a GenerationModel server armed strictly after warmup: a
+    request of a cold (batch, bucket) fails loudly (RecompileError, not
+    rescued on the host rung), and the server keeps serving the warm
+    bucket, its answer equal to the warmup's."""
+    from paddle_tpu_torch.serving.models import GenerationModel
+    from paddle_tpu_torch.serving.server import (
+        InferenceServer,
+        ServeConfig,
+        ServeError,
+    )
+
+    dec = gen["decoder"](GEN_K)
+    model = GenerationModel(dec, gen["params"], encode=gen["encode"])
+    server = InferenceServer(ServeConfig(
+        max_queue=8, max_batch=1, buckets=SERVE_GEN["buckets"],
+        default_deadline_s=120.0, host_fallback=True))
+    server.add_model("guarded", model)
+    rng = np.random.default_rng(SEED + 255)
+    warm_src = rng.integers(2, NMT["src_vocab"], 12).tolist()
+    cold_src = rng.integers(2, NMT["src_vocab"], 20).tolist()
+    try:
+        first = server.submit("guarded", warm_src).result(300)
+        armed = server.arm_recompile_guard(strict=True)
+        t0 = time.perf_counter()
+        failed = None
+        try:
+            server.submit("guarded", cold_src).result(300)
+        except ServeError as e:
+            failed = str(e)
+        fail_ms = (time.perf_counter() - t0) * 1e3
+        again = server.submit("guarded", warm_src).result(300)
+        stats = server.stats()
+        violations = server.recompile_violations()
+    finally:
+        server.disarm_recompile_guard()
+        server.shutdown(drain=True)
+    r = {"armed": [g.label for g in armed], "cold_failed": failed,
+         "cold_ms": fail_ms, "warm_equal": again["tokens"] == first["tokens"],
+         "violations": len(violations), "completed_host":
+         stats["completed_host"], "failed": stats["failed"]}
+    print("guard server " + json.dumps(r), flush=True)
+    assert r["armed"] == ["beam_decode"], r
+    assert failed is not None and "RecompileError" in failed, r
+    assert r["warm_equal"] and r["violations"] == 1, r
+    assert r["completed_host"] == 0 and r["failed"] == 1, r
+    return r
+
+
+def moe_conf():
+    from paddle_tpu_torch import dsl
+
+    with dsl.model() as g:
+        x = dsl.data("x", MOE["d"])
+        y = dsl.data("label", (1,), is_ids=True)
+        m = dsl.moe(x, num_experts=MOE["experts"], hidden=MOE["hidden"],
+                    capacity_factor=MOE["cf"], name="moe")
+        out = dsl.fc(m, size=MOE["classes"], name="output")
+        dsl.classification_cost(out, y, name="cost")
+    return g.conf
+
+
+def moe_steps(torch, dev, amp, params, feed):
+    """MOE["steps"] adam steps of the moe conf on `dev` from `params`:
+    each step's loss and aux."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+
+    set_amp(amp)
+    try:
+        net = Network(moe_conf())
+        opt = create_optimizer(OptimizationConf(
+            learning_method="adam", learning_rate=MOE["lr"]),
+            net.param_confs)
+        step = TrainStep(net, opt, keep_outputs=["moe@aux"], device=dev)
+        p = {k: v.to(dev) for k, v in params.items()}
+        st, s = opt.init_state(p), net.init_state(dev)
+        losses, auxes = [], []
+        t0 = time.perf_counter()
+        for i in range(MOE["steps"]):
+            p, st, s, loss, outs = step(p, st, s, feed, i, None)
+            losses.append(float(loss))
+            auxes.append(float(outs["moe@aux"].value.detach().float().sum()))
+        return losses, auxes, time.perf_counter() - t0
+    finally:
+        set_amp(False)
+
+
+def moe_train(torch, dev="cuda"):
+    """25e: the moe layer trained on the card, in f32 and under the bf16
+    flag, against the same steps of the port on the CPU."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+    from paddle_tpu_torch.network import Network
+
+    net = Network(moe_conf())
+    params = net.init_params(torch.Generator().manual_seed(SEED + 256),
+                             device="cpu")
+    rng = np.random.default_rng(SEED + 257)
+    feed = {"x": non_seq(rng.standard_normal(
+        (MOE["tokens"], MOE["d"])).astype(np.float32)),
+        "label": id_arg(rng.integers(0, MOE["classes"], MOE["tokens"])
+                        .astype(np.int32))}
+    out = {}
+    for amp in (False, True):
+        card = moe_steps(torch, dev, amp, params, feed)
+        cpu = moe_steps(torch, "cpu", amp, params, feed)
+        tol = MOE_BF16_TOL if amp else MOE_TOL
+        err = max(abs(a - b) / max(abs(b), 1e-6)
+                  for a, b in zip(card[0] + card[1], cpu[0] + cpu[1]))
+        name = "bf16" if amp else "f32"
+        out[name] = r = {"losses": card[0], "aux": card[1],
+                         "cpu_losses": cpu[0], "cpu_aux": cpu[1],
+                         "max_rel_diff": err, "tol": tol, "card_s": card[2],
+                         "cpu_s": cpu[2]}
+        print(f"moe train {name} " + json.dumps(r), flush=True)
+        assert all(np.isfinite(card[0] + card[1])), r
+        assert err <= tol, f"moe {name}: card vs CPU {err:.3g} > {tol}"
+    return out
+
+
+def ops_export_guard_moe(torch, fop, fa, rnn, sr, gen, dev="cuda"):
+    """Phase 25: 25a-25e, each under a phase line of its own."""
+    out = {}
+    phase("25a. every kernel's custom op: opcheck on the card, output "
+          "against its plain version")
+    out["ops"] = op_checks(torch, fop, fa, rnn, sr, dev)
+    torch.cuda.empty_cache()
+    phase("25b/c. export_compiled / load_compiled of ResNet-50, the IMDB "
+          "classifier at h = 512 and the flash LM; the verified cache")
+    out["exports"] = exports(torch, fop, fa, rnn, dev)
+    torch.cuda.empty_cache()
+    phase("25d. the recompile guard: the trainer and the server, strict")
+    out["guard"] = {"classifier": guarded_classifier(torch, dev),
+                    "server": guarded_server(torch, gen)}
+    phase("25e. the moe layer trained on the card against the CPU")
+    out["moe"] = moe_train(torch, dev)
+    return out
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier, slice24):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
@@ -8504,7 +9069,13 @@ def main() -> int:
     slice24 = flight_and_fleet(torch, rnn, sr, gen)
     print(smi, flush=True)
 
-    phase("25. result")
+    phase("25. the kernels as custom ops, export_compiled / load_compiled "
+          "and the verified cache, the recompile guard, the moe layer")
+    print(smi, flush=True)
+    slice25 = ops_export_guard_moe(torch, fop, fa, rnn, sr, gen)
+    print(smi, flush=True)
+
+    phase("26. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "

@@ -45,9 +45,16 @@ sub-model, `static_sizes`, `tokens_per_dispatch`, `param_confs`,
 `prepare`, `generate` with `last_steps`, `last_chain_depth` and
 `last_timeline`, `_expand_step`, the decode semantics) (ROADMAP A3a).
 The JAX decoder's `_chunk_step_program` is the chunk here, shared by
-`generate` and `serving/host_decode.py`. The JAX cache key holds a
-`RecompileGuard`, which reads XLA programs (not to port, ROADMAP A12):
-the port has none.
+`generate` and `serving/host_decode.py`.
+
+The recompile guard (`analysis/recompile_guard.py`, label
+"beam_decode", `_recompile_guard`): a cached decode program notes the
+first sight of each (batch, static-feed and memory signature), where
+the JAX decoder traces, and every `_DecodeGraph` capture is a note (the
+host rung's chunk programs note their captures only, as the JAX chunk
+program notes nothing). Each program is its own namespace of the
+guard's keys, dropped with the program. The server arms it after
+warmup.
 """
 
 from __future__ import annotations
@@ -59,6 +66,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch.analysis.recompile_guard import RecompileGuard
 from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.config import LayerConf, ModelConf
 from paddle_tpu_torch.core.device import resolve_device
@@ -173,6 +181,7 @@ class BeamSearchDecoder:
         self._net: Optional[Network] = None
         self._decode_cache: dict = {}
         self._chunk_cache: dict = {}
+        self._recompile_guard = RecompileGuard("beam_decode")
         # the CUDA graphs' shared pieces: one pool, one capture stream
         # and the static parameter tree every graph reads
         self._graph_pool = self._graph_stream = self._graph_params = None
@@ -267,12 +276,17 @@ class BeamSearchDecoder:
         hk = (self.hooks.adjust, self.hooks.drop, self.hooks.stop,
               self.logprob_fn, self.k, self.max_length, self.eos_id,
               self.bos_id, self.tokens_per_dispatch)
-        cache = self._decode_cache
-        if hk not in cache:
+        return self._cached(self._decode_cache, hk, lambda: _DecodeProgram(
+            self, self.hooks, traced=True))
+
+    def _cached(self, cache: dict, key, make) -> "_DecodeProgram":
+        """cache[key], made by `make` if missing; the oldest of
+        CACHE_ENTRIES goes first, and the guard forgets its keys."""
+        if key not in cache:
             if len(cache) >= CACHE_ENTRIES:
-                cache.pop(next(iter(cache)))
-            cache[hk] = _DecodeProgram(self, self.hooks)
-        return cache[hk]
+                self._recompile_guard.forget(cache.pop(next(iter(cache))))
+            cache[key] = make()
+        return cache[key]
 
     def _chunk_program(self, n_steps: int) -> "_DecodeProgram":
         """The hook-free decode in chunks of `n_steps`: the serving host
@@ -280,12 +294,8 @@ class BeamSearchDecoder:
         `_decode_program` is, keyed on what it closes over."""
         key = (n_steps, self.logprob_fn, self.k, self.max_length,
                self.eos_id, self.bos_id)
-        cache = self._chunk_cache
-        if key not in cache:
-            if len(cache) >= CACHE_ENTRIES:
-                cache.pop(next(iter(cache)))
-            cache[key] = _DecodeProgram(self, BeamHooks(), k_tok=n_steps)
-        return cache[key]
+        return self._cached(self._chunk_cache, key, lambda: _DecodeProgram(
+            self, BeamHooks(), k_tok=n_steps))
 
     # ---- one step, one substep, one chunk ---------------------------
 
@@ -437,24 +447,43 @@ class _DecodeProgram:
     CUDA graphs, one graph per (batch, static-feed signature)."""
 
     def __init__(self, dec: BeamSearchDecoder, hooks: BeamHooks,
-                 k_tok: Optional[int] = None):
+                 k_tok: Optional[int] = None, traced: bool = False):
         self.dec = dec
         self.hooks = hooks
         self.k_tok = min(k_tok or dec.tokens_per_dispatch,
                          max(dec.max_length, 1))
         self.graphs: dict = {}
         self._g = None
+        # whether the JAX decoder traces this program (and so the guard
+        # notes the first sight of each signature, in this program's
+        # namespace)
+        self.traced = traced
 
     def begin(self, params, static_feed, init_carry_mem, b) -> dict:
         """The carry at t = 0: in a graph's static state where the chunks
-        replay (hook-free, on a CUDA device, `use_graphs`), else fresh."""
+        replay (hook-free, on a CUDA device, `use_graphs`), else fresh.
+        A capture, or the first sight of a signature of a traced
+        program, is noted with the decoder's guard first (a strict armed
+        guard raises before anything runs)."""
         dec = self.dec
         dev = next(iter(params.values())).device
         self._g = None
+        key = (b, feed_signature(static_feed), tuple(
+            (n, tuple(v.shape), v.dtype)
+            for n, v in sorted(init_carry_mem.items())))
+        guard = dec._recompile_guard
         if self._graphed(dev):
-            self._g = self._graph(params, static_feed, init_carry_mem, b)
-            self._g.start(params, static_feed, init_carry_mem)
-            return self._g.state
+            g = self.graphs.get(key)
+            if g is None or not g.captured:
+                guard.note_once(key, static_feed, init_carry_mem, cache=self,
+                                force=True, b=b)
+            g = self._g = self._graph(key, params, static_feed,
+                                      init_carry_mem, b)
+            g.start(params, static_feed, init_carry_mem)
+            return g.state
+        if self.traced:
+            guard.note_once(key, static_feed, init_carry_mem, cache=self,
+                            b=b)
         return dec._init_state(init_carry_mem, b, dev)
 
     def _graphed(self, dev) -> bool:
@@ -513,9 +542,7 @@ class _DecodeProgram:
                              "device_s": wait}
         return seqs, lens, scores
 
-    def _graph(self, params, static_feed, mems, b) -> "_DecodeGraph":
-        key = (b, feed_signature(static_feed), tuple(
-            (n, tuple(v.shape), v.dtype) for n, v in sorted(mems.items())))
+    def _graph(self, key, params, static_feed, mems, b) -> "_DecodeGraph":
         g = self.graphs.get(key)
         if g is None:
             g = self.graphs[key] = _DecodeGraph(self, params, static_feed,

@@ -32,6 +32,14 @@ _DEFAULTS: dict[str, Any] = {
     # steps_per_dispatch; K > 1 runs K consecutive train steps as one
     # dispatch (on the card, the replay of a CUDA graph of K steps)
     "steps_per_dispatch": 1,
+    # recompile guard (analysis/recompile_guard.py): after the first pass
+    # (warmup: every expected shape, the ragged reader tail included, has
+    # been seen once) the trainer arms the TrainStep's guard. "off" =
+    # never arm; "record" = count steady-state traces and CUDA-graph
+    # captures (recompile_guard.violations metric +
+    # SGD.recompile_violations()) without failing; "strict" = raise
+    # RecompileError from the step that would trace or capture
+    "recompile_guard": "off",
     # checkpoints (trainer/trainer.py): "sync" = a blocking save_pass
     # each pass; "async" = only the device->host snapshot blocks, the
     # write overlaps the next pass (trainer/async_checkpoint.py);

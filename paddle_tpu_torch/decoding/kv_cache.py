@@ -16,9 +16,15 @@ splits into two steps over a pool of fixed-size KV pages:
 Where the JAX programs donate the pool buffers to get an in-place
 update, the port simply writes the pool in place (`pool_k[:, pages] =
 ...`). PyTorch runs eagerly, so there are no compiled programs to
-cache and no recompile guards; the returned tokens and scores stay on
-the device, unfetched, so callers can chain steps without a host
-round trip.
+cache; the returned tokens and scores stay on the device, unfetched,
+so callers can chain steps without a host round trip. The recompile
+guard (`analysis/recompile_guard.py`, label "paged_lm",
+`recompile_guards`) notes the first sight of each program key the JAX
+PagedLM compiles — ("prefill", B, bucket, beam_k), ("decode", B),
+("beam_decode", B, K), and the speculative rounds' ("propose", B, n)
+on the draft's guard and ("verify", B, n) on the target's — with the
+JAX program caches' bounds (the oldest key dropped first), so a server
+armed after warmup sees a cold bucket or batch.
 
 Pages are a host-side free list; a sequence holds
 `ceil(len/page_size)` pages (+1 as it grows), so the serving engine
@@ -50,11 +56,13 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.analysis.recompile_guard import RecompileGuard
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.models import lm as lmm
 
@@ -163,6 +171,8 @@ class PagedLM:
     into enqueue-vs-device seconds: the enqueue window is host work,
     the blocking fetch of the selected tokens is device time."""
 
+    _MAX_PROGS = 8   # the JAX PagedLM's program cache bound
+
     def __init__(self, spec, params, cache: PagedKVCache,
                  eos_id: int = 1):
         assert cache.spec == spec
@@ -170,6 +180,7 @@ class PagedLM:
         self.params = params
         self.cache = cache
         self.eos_id = int(eos_id)
+        self._recompile_guard = RecompileGuard("paged_lm")
         self.last_chain_depth: Optional[int] = None
         self.last_timeline: Optional[dict] = None
         # bytes the last beam_generate's parent copies moved (read and
@@ -178,6 +189,14 @@ class PagedLM:
 
     def _dev(self, x, dtype):
         return torch.as_tensor(x, dtype=dtype, device=self.cache.device)
+
+    @property
+    def recompile_guards(self):
+        return [self._recompile_guard]
+
+    def _note(self, key, *args, **kw) -> None:
+        self._recompile_guard.note_once(key, *args, limit=self._MAX_PROGS,
+                                        **kw)
 
     def _append_chunk(self, toks, start, tbl):
         """Run toks [R, n] at absolute positions start[r] .. start[r]+n-1
@@ -215,6 +234,8 @@ class PagedLM:
         assert t % ps == 0 and t >= int(np.max(lens))
         n_pages = t // ps
         pages = self._dev([p[:n_pages] for p in page_lists], torch.long)
+        self._note(("prefill", b, t, beam_k), ids, pages, b=b, t=t,
+                   beam_k=beam_k, kind="prefill")
         lens_d = self._dev(lens, torch.int32)
         pool_k, pool_v = self.cache.ensure_pool()
         logits, ks, vs = lmm.lm_forward(
@@ -245,6 +266,7 @@ class PagedLM:
         b = len(tok)
         tbl = self._dev(_page_table(page_lists,
                                     self.cache.max_pages_per_seq), torch.long)
+        self._note(("decode", b), tok, tbl, b=b, kind="decode")
         tok = self._dev(tok, torch.long)
         scores = self._dev(scores, torch.float32)
         finished = self._dev(finished, torch.bool)
@@ -416,9 +438,10 @@ class PagedLM:
         (tok, parent, scores, finished) device tensors [B, K] and the
         copy's bytes."""
         b, k = toks.shape
-        moved = self._parent_copy(parent, rows)
         tbl = self._dev(_page_table([p for g in rows for p in g],
                                     self.cache.max_pages_per_seq), torch.long)
+        self._note(("beam_decode", b, k), toks, tbl, b=b, k=k, kind="beam")
+        moved = self._parent_copy(parent, rows)
         logits = self._append_chunk(
             self._dev(toks.reshape(b * k, 1), torch.long),
             self._dev(np.repeat(pos, k), torch.long), tbl)
@@ -449,11 +472,23 @@ class SpeculativePagedLM:
         self.propose_k = int(propose_k)
         self.last_chain_depth: Optional[int] = None
         self.last_accept_rate: Optional[float] = None
+        # the JAX LM's one cache of 8 programs holds both kinds of key:
+        # here a namespace of the draft's guard, dropped with this LM
+        self._ns = ("speculative", id(self))
+        weakref.finalize(self, draft._recompile_guard.forget, self._ns)
+
+    @property
+    def recompile_guards(self):
+        return self.target.recompile_guards + self.draft.recompile_guards
 
     def _propose(self, first, pos, page_tbl, n: int):
         """The draft's n greedy tokens from `first` [B] at pos [B], each
         appended to the draft's pool before the next: [n, B] on the
         device."""
+        b = first.shape[0]
+        self.draft._recompile_guard.note_once(
+            ("propose", b, n), first, page_tbl, limit=8, cache=self._ns,
+            b=b, n=n, kind="propose")
         w, props = first, []
         for j in range(n):
             logits = self.draft._append_chunk(w[:, None], pos + j, page_tbl)
@@ -465,6 +500,10 @@ class SpeculativePagedLM:
         """The target over all n positions of words [B, n] in one chunk,
         appended to its pool: greedy tokens and their log-probs, [B, n]
         each, on the device."""
+        b, n = words.shape
+        self.draft._recompile_guard.note_once(
+            ("verify", b, n), words, page_tbl, limit=8, cache=self._ns,
+            via=self.target._recompile_guard, b=b, n=n, kind="verify")
         logp = lmm.lm_logp(self.target._append_chunk(words, pos, page_tbl))
         gs = torch.argmax(logp, dim=-1)
         return gs, logp.gather(2, gs[..., None])[..., 0]

@@ -33,9 +33,11 @@ per-row rates, while one round stamps a single base `t0` (here
 t = t0 + j at substep j, as the port's decoder calls it).
 
 Ported: `make_draft_decoder`, `SpeculativeGreedyDecoder` (`generate`,
-`last_chain_depth`, `last_steps`, `last_accept_rate`). The JAX
-decoder's `RecompileGuard` reads XLA programs (not to port, ROADMAP
-A12): `recompile_guards` is empty.
+`last_chain_depth`, `last_steps`, `last_accept_rate`,
+`recompile_guards`). The recompile guard (label "spec_decode") notes
+the first sight of each scan-program key the JAX decoder compiles —
+(role, B, n, self_feed, logprob_fn, eos_id), at most 16 kept, the
+oldest dropped first — with the static feed and memories.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch.analysis.recompile_guard import RecompileGuard
 from paddle_tpu_torch.core.arg import Arg
 
 
@@ -96,10 +99,18 @@ class SpeculativeGreedyDecoder:
         self.last_chain_depth: Optional[int] = None
         self.last_steps: Optional[int] = None
         self.last_accept_rate: Optional[float] = None
+        self._recompile_guard = RecompileGuard("spec_decode")
 
     @property
     def recompile_guards(self):
-        return []
+        return [self._recompile_guard]
+
+    def _note(self, role: str, dec, static_feed, mems, b: int, n: int,
+              self_feed: bool) -> None:
+        """The first sight of a scan-program key of the JAX decoder."""
+        self._recompile_guard.note_once(
+            (role, b, n, self_feed, dec.logprob_fn, dec.eos_id), static_feed,
+            mems, limit=16, b=b, n=n, role=role)
 
     @staticmethod
     def _substeps(dec, params, static_feed, mems, first_word, words,
@@ -175,6 +186,7 @@ class SpeculativeGreedyDecoder:
             n = min(kp, t_max - base)
             last_d = torch.as_tensor(last, dtype=torch.long, device=dev)
             # the draft proposes n tokens autoregressively
+            self._note("draft", drf, d_feed, d_mems, b, n, True)
             props, _, d_stack = self._substeps(
                 drf, draft_params, d_feed, d_mems, last_d, None, base, n,
                 True)
@@ -182,6 +194,7 @@ class SpeculativeGreedyDecoder:
             # the target verifies all n positions — position j consumes
             # [last, props[:-1]][j]
             vwords = torch.cat([last_d[None, :], props[:-1]], 0)
+            self._note("target", tgt, t_feed, t_mems, b, n, False)
             gs, glps, t_stack = self._substeps(
                 tgt, params, t_feed, t_mems, last_d, vwords, base, n,
                 False)

@@ -19,9 +19,20 @@ refused, never silently passed). Entries are published atomically (a
 temp dir, then a rename), so a writer SIGKILLed mid-store leaves no
 half-visible entry.
 
-Not ported: `export_compiled` / `load_compiled` (ROADMAP A6b: tracing a
-`Network` with `torch.export` needs the port's kernels registered as
-`torch.library` custom ops first).
+Compiled artifacts: `export_compiled(inferencer, example_feed)` exports
+the Inferencer's forward, `(params, state, feed) -> {name: Arg}`, with
+`torch.export` at the example feed's shapes (as the JAX export is
+specialised to them) and returns the checksummed envelope around
+`torch.export.save`'s bytes; `load_compiled(blob, source=...)` checks
+the envelope first (a torn or corrupt blob raises CompiledArtifactError
+naming `source` before `torch.export.load` sees a byte) and returns
+`fn(params, state, feed) -> {name: Arg}`. The port's kernels are the
+`paddle_tpu_torch::` custom ops (`ops/_library.py`), so the exported
+graph holds them as nodes: loading needs their registrations (this
+module imports the op modules), not the model-building code. `Arg` is a
+pytree node with a stable serialized type name. The verified cache
+stores such a program as well (`store_verified` takes a Network forward
+as any other module).
 """
 
 from __future__ import annotations
@@ -29,11 +40,19 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.core.arg import Arg
+# the kernels' custom ops: a loaded program's nodes need them registered
+from paddle_tpu_torch.ops import (  # noqa: F401
+    bn_act_conv1x1,
+    flash_attention,
+    rnn,
+    sparse_rows,
+)
 from paddle_tpu_torch.trainer.trainer import Inferencer
 
 Inference = Inferencer  # v2 name
 
-__all__ = ["Inference", "Inferencer", "infer", "CompiledArtifactError",
+__all__ = ["Inference", "Inferencer", "infer", "export_compiled",
+           "load_compiled", "InferencerForward", "CompiledArtifactError",
            "VerifiedCacheError", "store_verified", "load_verified",
            "has_verified", "audit_graph", "VerifiedProgram",
            "CACHE_META_SCHEMA"]
@@ -114,6 +133,74 @@ def _unwrap_envelope(blob: bytes, source: str):
             f"checksum mismatch over {len(payload)} payload bytes "
             f"— re-run export")
     return payload
+
+
+# Arg as a pytree node torch.export carries across save and load
+_ARG_TYPE_NAME = "paddle_tpu_torch.core.arg.Arg"
+_ARG_REGISTERED = False
+
+
+def _register_arg() -> None:
+    """Register Arg as a pytree node with torch.export."""
+    global _ARG_REGISTERED
+    if not _ARG_REGISTERED:
+        torch.export.register_dataclass(Arg,
+                                        serialized_type_name=_ARG_TYPE_NAME)
+        _ARG_REGISTERED = True
+
+
+class InferencerForward(torch.nn.Module):
+    """The Inferencer's forward as the Module torch.export takes:
+    (params, state, feed) -> {name: Arg} of its outputs, in test mode."""
+
+    def __init__(self, inferencer: Inferencer):
+        super().__init__()
+        self.net = inferencer.net
+        self.output_names = list(inferencer.output_names)
+
+    def forward(self, params, state, feed):
+        outs, _ = self.net.forward(params, feed, state=state, train=False,
+                                   outputs=self.output_names)
+        return {n: outs[n] for n in self.output_names}
+
+
+def export_compiled(inferencer: Inferencer, example_feed: dict) -> bytes:
+    """Serialize the Inferencer's forward, specialised to
+    `example_feed`'s shapes and dtypes (the feed moved to its device),
+    traced under no_grad as `infer` runs it, as a checksummed
+    `torch.export` artifact (bytes)."""
+    import io
+
+    feed = {k: a.to(inferencer.device) for k, a in example_feed.items()}
+    with torch.no_grad():
+        ep = export_program(InferencerForward(inferencer),
+                            (inferencer.params, inferencer.state, feed))
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    return _wrap_envelope(buf.getvalue())
+
+
+def load_compiled(blob: bytes, source: str = "<compiled blob>"):
+    """Rehydrate an export_compiled artifact; returns
+    fn(params, state, feed) -> {name: Arg}, on the device it was
+    exported on. Runs without the model-building code (config, layers):
+    the graph's kernels are the custom ops this module registers.
+    `source` names the artifact (e.g. its path) in error messages. A
+    truncated or corrupt blob raises CompiledArtifactError (a
+    ValueError) naming the artifact before any byte reaches
+    `torch.export.load`."""
+    import io
+
+    payload = _unwrap_envelope(blob, source)
+    _register_arg()
+    try:
+        ep = torch.export.load(io.BytesIO(payload))
+    except Exception as e:
+        raise CompiledArtifactError(
+            source, "deserialize",
+            f"payload failed to deserialize (truncated/corrupt or "
+            f"version-skewed torch?): {type(e).__name__}: {e}") from e
+    return ep.module()
 
 
 def infer(output=None, parameters=None, input=None, network=None,
@@ -275,8 +362,13 @@ def export_program(fn, example_args: tuple):
     """`torch.export.export` of `fn` (an nn.Module or a function over
     plain tensors) at `example_args`: the program a verified entry
     stores, and what a replica's compile mode builds."""
+    _register_arg()
     mod = fn if isinstance(fn, torch.nn.Module) else _Fn(fn)
-    return torch.export.export(mod, tuple(example_args))
+    ep = torch.export.export(mod, tuple(example_args))
+    # the program without its example inputs: a saved artifact then
+    # holds no parameters or data, as the JAX export's StableHLO
+    ep.example_inputs = None
+    return ep
 
 
 def store_verified(cache_dir: str, key: str, fn, example_args: tuple,
@@ -305,7 +397,8 @@ def store_verified(cache_dir: str, key: str, fn, example_args: tuple,
                      f"policy: {_audit_failure(report)}")
     buf = io.BytesIO()
     torch.export.save(ep, buf)
-    devices = sorted({str(a.device) for a in example_args
+    leaves = torch.utils._pytree.tree_leaves(tuple(example_args))
+    devices = sorted({str(a.device) for a in leaves
                       if isinstance(a, torch.Tensor)})
 
     os.makedirs(cache_dir, exist_ok=True)
@@ -432,6 +525,7 @@ def load_verified(cache_dir: str, key: str, policy: dict = None,
                      f"{_audit_failure(audit)}")
     pt2 = os.path.join(entry, "program.pt2")
     payload = _unwrap_envelope(blobs["program.pt2"], pt2)
+    _register_arg()
     try:
         ep = torch.export.load(io.BytesIO(payload))
     except Exception as e:

@@ -11,6 +11,7 @@ from paddle_tpu_torch.layers import (  # noqa: F401
     extras,
     fused,
     fused_text,
+    moe,
     norm,
     pool,
     recurrent,

@@ -158,8 +158,8 @@ def init_parameter(gen: torch.Generator, pc: ParameterConf,
 
 
 # the JAX package's layer types the port does not run yet, and the
-# ROADMAP item that ports each
-NOT_PORTED = {"moe": "ROADMAP A8 (layers/moe.py, ops/moe.py)"}
+# ROADMAP item that ports each: none (every JAX layer type runs here)
+NOT_PORTED: dict = {}
 
 
 def create_layer(conf: LayerConf, model: ModelConf) -> Layer:

@@ -1,6 +1,6 @@
 """Fused BN -> ReLU -> 1x1-conv GEMM with a statistics epilogue: the
-Hopper kernels, their plain versions, the autograd Function and the
-launch counters.
+Hopper kernels, their plain versions, the custom ops and the launch
+counters.
 
 Replaces the TPU kernels of `paddle_tpu/ops/pallas_fused.py` — B1
 `_fwd_kernel`, B2 `_bwd_dx_kernel` and B3 `_bwd_dw_kernel` — with the
@@ -29,7 +29,7 @@ dtypes (`pallas_fused.py`):
   products, which accumulate in f32; ssum and ssq come from that f32 y
   before it is rounded to bf16; du and dres come out bf16, dscale and
   dshift f32; dw accumulates in f32 (the kernel's output) and the
-  Function casts it to w's dtype. Cin and Cout must be multiples of 8
+  autograd formula casts it to w's dtype. Cin and Cout must be multiples of 8
   and every tensor 16-byte aligned (the kernels read and write them by
   TMA: Hopper kernels with wgmma, `fwd_wgmma_kernel`,
   `bwd_dx_wgmma_kernel` and `bwd_dw_wgmma_kernel`).
@@ -41,9 +41,12 @@ the call raises — never a fallback. A CPU tensor goes through
 `bn_act_conv1x1_plain`, `bn_act_conv1x1_bwd_dx_plain` and
 `bn_act_conv1x1_bwd_dw_plain`, the straightforward versions that state
 the contract; the CPU tests use them and the chip smoke holds the
-kernels against them on the card. `BnActConv1x1` (an autograd
-Function) ties the directions together; `bn_act_conv1x1` is the entry
-`layers/fused.py` calls.
+kernels against them on the card. The three are the custom ops
+`paddle_tpu_torch::bn_act_conv1x1_fwd`, `_bwd_dx` and `_bwd_dw`
+(`ops/_library.py`): the CUDA implementation launches the kernel, the
+CPU one runs the plain version. The forward op's autograd formula calls
+the two backward ops; `bn_act_conv1x1` is the entry `layers/fused.py`
+calls.
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, _library
 
 KERNEL = "bn_act_conv1x1"
 ACTS = ("relu", "")
@@ -309,42 +312,106 @@ def bn_act_conv1x1_bwd_dw(u, scale, shift, residual, y, dy, d1, d2,
     return dw
 
 
-# --------------------------------------------------------------- autograd
-class BnActConv1x1(torch.autograd.Function):
-    """(y, ssum, ssq) of the contract, differentiable in u, scale,
-    shift, w and residual, with the JAX custom VJP's dtypes: y and du in
-    u's dtype, ssum, ssq, dscale and dshift f32, dw in w's dtype. The
-    forward saves its inputs and y; the backward recomputes z from u (B2
-    and B3). A cotangent autograd leaves undefined (ssum or ssq unused)
-    arrives as zeros."""
+# ------------------------------------------------------------ custom ops
+def _dims(u, w_or_y, act):
+    """(N, Cin, Cout) from u [N, Cin] and w [Cin, Cout] (or y [N,
+    Cout]), with the shape rules the kernels' launch plans take: act
+    known, 2-D, nothing empty; bf16 widths multiples of 8."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if u.dim() != 2 or w_or_y.dim() != 2:
+        raise ValueError(f"u and w/y must be 2-D, got {tuple(u.shape)} and "
+                         f"{tuple(w_or_y.shape)}")
+    n, cin, cout = u.shape[0], u.shape[1], w_or_y.shape[1]
+    if u.dtype == torch.bfloat16 and (cin % 8 or cout % 8):
+        raise ValueError(f"the bf16 kernels take Cin and Cout multiples of "
+                         f"8, got {cin} and {cout}")
+    return n, cin, cout
 
-    @staticmethod
-    def forward(ctx, u, scale, shift, w, residual, act):
-        cpu = u.device.type == "cpu"
-        fwd = bn_act_conv1x1_plain if cpu else bn_act_conv1x1_fwd
-        y, ssum, ssq = fwd(u, scale, shift, w, residual, act)
-        ctx.save_for_backward(u, scale, shift, w, residual, y)
-        ctx.act = act
-        return y, ssum, ssq
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dy, d1, d2):
-        u, scale, shift, w, residual, y = ctx.saved_tensors
-        dy = dy.contiguous()
-        cpu = u.device.type == "cpu"
-        dx = bn_act_conv1x1_bwd_dx_plain if cpu else bn_act_conv1x1_bwd_dx
-        dw = bn_act_conv1x1_bwd_dw_plain if cpu else bn_act_conv1x1_bwd_dw
-        du, dscale, dshift, dres = dx(u, scale, shift, w, residual, y, dy,
-                                      d1, d2, ctx.act)
-        dw = dw(u, scale, shift, residual, y, dy, d1, d2, ctx.act)
-        return du, dscale, dshift, dw.to(w.dtype), dres, None
+def _no_dres(u):
+    """The op's dres where there is no residual: an empty tensor."""
+    return u.new_empty((0,))
+
+
+def _fwd_fake(u, scale, shift, w, residual, act):
+    n, _cin, cout = _dims(u, w, act)
+    return (u.new_empty((n, cout)),
+            u.new_empty((cout,), dtype=torch.float32),
+            u.new_empty((cout,), dtype=torch.float32))
+
+
+def _bwd_dx_cuda(u, scale, shift, w, residual, y, dy, d1, d2, act):
+    du, dscale, dshift, dres = bn_act_conv1x1_bwd_dx(
+        u, scale, shift, w, residual, y, dy, d1, d2, act)
+    return du, dscale, dshift, _no_dres(u) if dres is None else dres
+
+
+def _bwd_dx_cpu(u, scale, shift, w, residual, y, dy, d1, d2, act):
+    du, dscale, dshift, dres = bn_act_conv1x1_bwd_dx_plain(
+        u, scale, shift, w, residual, y, dy, d1, d2, act)
+    return du, dscale, dshift, _no_dres(u) if dres is None else dres
+
+
+def _bwd_dx_fake(u, scale, shift, w, residual, y, dy, d1, d2, act):
+    n, cin, _cout = _dims(u, w, act)
+    return (u.new_empty((n, cin)),
+            u.new_empty((cin,), dtype=torch.float32),
+            u.new_empty((cin,), dtype=torch.float32),
+            _no_dres(u) if residual is None else u.new_empty((n, cin)))
+
+
+def _bwd_dw_fake(u, scale, shift, residual, y, dy, d1, d2, act):
+    _n, cin, cout = _dims(u, y, act)
+    return u.new_empty((cin, cout), dtype=torch.float32)
+
+
+_U = "Tensor u, Tensor scale, Tensor shift"
+fwd_op = _library.define(
+    "bn_act_conv1x1_fwd",
+    f"({_U}, Tensor w, Tensor? residual, str act) -> (Tensor, Tensor, Tensor)",
+    bn_act_conv1x1_fwd, bn_act_conv1x1_plain, _fwd_fake)
+bwd_dx_op = _library.define(
+    "bn_act_conv1x1_bwd_dx",
+    f"({_U}, Tensor w, Tensor? residual, Tensor y, Tensor dy, Tensor d1, "
+    "Tensor d2, str act) -> (Tensor, Tensor, Tensor, Tensor)",
+    _bwd_dx_cuda, _bwd_dx_cpu, _bwd_dx_fake)
+bwd_dw_op = _library.define(
+    "bn_act_conv1x1_bwd_dw",
+    f"({_U}, Tensor? residual, Tensor y, Tensor dy, Tensor d1, Tensor d2, "
+    "str act) -> Tensor",
+    bn_act_conv1x1_bwd_dw, bn_act_conv1x1_bwd_dw_plain, _bwd_dw_fake)
+
+
+def _setup(ctx, inputs, output):
+    u, scale, shift, w, residual, act = inputs
+    ctx.save_for_backward(u, scale, shift, w, residual, output[0])
+    ctx.act = act
+
+
+def _backward(ctx, dy, d1, d2):
+    """The JAX custom VJP's dtypes: du in u's dtype, dscale and dshift
+    f32, dw in w's dtype. A cotangent autograd leaves undefined (ssum or
+    ssq unused) arrives as zeros."""
+    u, scale, shift, w, residual, y = ctx.saved_tensors
+    dy, d1, d2 = dy.contiguous(), d1.contiguous(), d2.contiguous()
+    du, dscale, dshift, dres = bwd_dx_op(u, scale, shift, w, residual, y, dy,
+                                         d1, d2, ctx.act)
+    dw = bwd_dw_op(u, scale, shift, residual, y, dy, d1, d2, ctx.act)
+    return (du, dscale, dshift, dw.to(w.dtype),
+            None if residual is None else dres, None)
+
+
+_library.register_autograd(fwd_op, _backward, _setup)
 
 
 def bn_act_conv1x1(u, scale, shift, w, residual=None, act="relu"):
     """y, ssum, ssq = act(u*scale + shift [+ residual]) @ w with the
     output statistics from the GEMM's epilogue; see the module
-    docstring. Differentiable in u, scale, shift, w and residual."""
+    docstring. Differentiable in u, scale, shift, w and residual (B2
+    and B3 recompute z from u). The op `paddle_tpu_torch::
+    bn_act_conv1x1_fwd`: the kernels on a CUDA tensor, the plain
+    versions on a CPU one."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
-    return BnActConv1x1.apply(u, scale, shift, w, residual, act)
+    return fwd_op(u, scale, shift, w, residual, act)

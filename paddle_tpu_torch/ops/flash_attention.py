@@ -1,5 +1,5 @@
 """Flash attention forward and backward: the Hopper kernels, their plain
-versions, the autograd Function and the launch counters.
+versions, the custom ops and the launch counters.
 
 Replaces the TPU kernels behind `paddle_tpu/parallel/ring.py::
 _pallas_flash` — the Pallas flash-attention forward and its two
@@ -58,18 +58,22 @@ the call raises — never a fallback. A CPU tensor goes through
 the straightforward versions that state the contract; the CPU tests
 use them and the chip smoke holds the kernels against them on the
 card.
-`FlashAttention` (an autograd Function) ties the two directions
-together; `parallel/ring.py::flash_dense_attention` calls it.
+The forward, dkv and dq are the custom ops `paddle_tpu_torch::
+flash_attention_fwd`, `_bwd_dkv` and `_bwd_dq` (`ops/_library.py`):
+the CUDA implementation launches the kernel, the CPU one runs the plain
+version. The forward op's autograd formula calls the two backward ops;
+`parallel/ring.py::flash_dense_attention` calls `flash_attention`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, _library
 
 KERNEL = "flash_attn_fwd"
 BWD_KERNEL = "flash_attn_bwd"
@@ -165,6 +169,14 @@ def row_delta(dout, out):
 def _attention_bwd(q, k, v, out, lse, dout, causal, kv_len, q_len, scale,
                    bf16):
     """attention_bwd_plain (bf16=False) or attention_bwd_plain_bf16."""
+    return _attention_bwd_delta(q, k, v, lse, row_delta(dout, out), dout,
+                                causal, kv_len, q_len, scale, bf16)
+
+
+def _attention_bwd_delta(q, k, v, lse, delta, dout, causal, kv_len, q_len,
+                         scale, bf16, want=("dq", "dk", "dv")):
+    """The plain backward from delta = row_delta(dout, out): the
+    gradients named in `want`, in that order (f32; bf16 when bf16)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     scale = _scale(scale, D)
@@ -172,17 +184,17 @@ def _attention_bwd(q, k, v, out, lse, dout, causal, kv_len, q_len, scale,
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     valid = _visible(B, Tq, Tk, causal, kv_len, q_len, q.device)
     p = torch.where(valid, torch.exp(s - lse[..., None]), 0.0)
-    delta = row_delta(dout, out)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta[..., None]) * scale
     if bf16:
         p, ds = _round_bf16(p), _round_bf16(ds)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
-    if bf16:
-        return tuple(x.to(q.dtype) for x in (dq, dk, dv))
-    return dq, dk, dv
+    grads = {
+        "dq": lambda: torch.einsum("bhqk,bkhd->bqhd", ds, kf),
+        "dk": lambda: torch.einsum("bhqk,bqhd->bkhd", ds, qf),
+        "dv": lambda: torch.einsum("bhqk,bqhd->bkhd", p, dof),
+    }
+    return tuple(grads[g]().to(q.dtype) if bf16 else grads[g]()
+                 for g in want)
 
 
 def attention_bwd_plain(q, k, v, out, lse, dout, causal=False,
@@ -331,18 +343,11 @@ def _launch(lib, fn, *args):
     _build.launch(lib, fn, "flash_attn_error_string", *args)
 
 
-def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
-                    scale=None):
-    """(out, lse) of masked attention; see the module docstring. A
-    CUDA tensor goes through the Hopper kernel of its dtype (f32 or
-    bf16), a CPU tensor through attention_plain (bf16:
-    attention_plain_bf16)."""
+def _fwd_cuda(q, k, v, causal, kv_len, q_len, scale):
+    """The forward op's CUDA implementation: the Hopper kernel of q's
+    dtype, any D <= 128 padded to the kernels' head dims."""
     global launches, bf16_launches
     bf16 = _one_dtype("flash_attention", q=q, k=k, v=v) == torch.bfloat16
-    if q.device.type == "cpu":
-        plain = attention_plain_bf16 if bf16 else attention_plain
-        return plain(q, k, v, causal=causal, kv_len=kv_len, q_len=q_len,
-                     scale=scale)
     B, Tq, Tk, H, D = _check_cuda("flash_attention", q,
                                   {"q": q, "k": k, "v": v},
                                   kernel_dims=False)
@@ -365,6 +370,23 @@ def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
     else:
         launches += 1
     return (out if dk == D else out[..., :D].contiguous()), lse
+
+
+def _fwd_cpu(q, k, v, causal, kv_len, q_len, scale):
+    bf16 = _one_dtype("flash_attention", q=q, k=k, v=v) == torch.bfloat16
+    plain = attention_plain_bf16 if bf16 else attention_plain
+    out, lse = plain(q, k, v, causal=causal, kv_len=kv_len, q_len=q_len,
+                     scale=scale)
+    return out.contiguous(), lse
+
+
+def _fwd_fake(q, k, v, causal, kv_len, q_len, scale):
+    _one_dtype("flash_attention", q=q, k=k, v=v)
+    B, Tq, H, D = q.shape
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}: the flash "
+                         f"kernels take head dims up to {MAX_HEAD_DIM}")
+    return q.new_empty(q.shape), q.new_empty((B, H, Tq), dtype=torch.float32)
 
 
 def _check_rows(where, name, x, B, H, Tq, device):
@@ -437,54 +459,96 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
     return -dq if flipped else dq
 
 
-def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
-                        kv_len=None, q_len=None, scale=None):
-    """(dq, dk, dv) of masked attention from the forward's out and lse;
-    see the module docstring. A CUDA tensor goes through the two
-    Hopper kernels of its dtype (dkv, then dq), a CPU tensor through
-    attention_bwd_plain (bf16: attention_bwd_plain_bf16)."""
-    bf16 = _one_dtype("flash_attention_bwd", q=q, k=k, v=v, out=out,
-                      dout=dout) == torch.bfloat16
-    if q.device.type == "cpu":
-        plain = attention_bwd_plain_bf16 if bf16 else attention_bwd_plain
-        return plain(q, k, v, out, lse, dout, causal=causal,
-                     kv_len=kv_len, q_len=q_len, scale=scale)
-    D = _check_cuda("flash_attention_bwd", q, {"q": q, "out": out, "k": k},
-                    kernel_dims=False)[-1]
-    # the softmax-jacobian row term, a plain f32 reduction as in the JAX
-    # package (the library computes it outside its kernels too)
-    delta = row_delta(dout, out)
+def _bwd_cuda(which, q, k, v, dout, lse, delta, causal, kv_len, q_len,
+              scale):
+    """The backward ops' CUDA implementation: the dkv or dq kernel of
+    q's dtype, any D <= 128 padded to the kernels' head dims."""
+    _one_dtype(f"flash_attention_bwd_{which}", q=q, k=k, v=v, dout=dout)
+    D = _check_cuda(f"flash_attention_bwd_{which}", q,
+                    {"q": q, "dout": dout, "k": k}, kernel_dims=False)[-1]
     kw = dict(causal=causal, kv_len=kv_len, q_len=q_len,
               scale=_scale(scale, D))
     d_k = kernel_head_dim(D, _head_dims(q.dtype))
     q, k, v, dout = (_aligned(pad_head_dim(x, d_k)) for x in (q, k, v, dout))
-    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
-    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw)
+    if which == "dkv":
+        grads = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, **kw)
+    else:
+        grads = (flash_attention_bwd_dq(q, k, v, dout, lse, delta, **kw),)
     if d_k != D:
-        dq, dk, dv = (x[..., :D].contiguous() for x in (dq, dk, dv))
-    return dq, dk, dv
+        grads = tuple(x[..., :D].contiguous() for x in grads)
+    return grads if which == "dkv" else grads[0]
 
 
-class FlashAttention(torch.autograd.Function):
-    """out = flash attention of (q, k, v), differentiable in q, k, v.
-    The forward saves q, k, v, out and lse; the backward recomputes p
-    from lse (flash_attention_bwd). kv_len / q_len are int32 [B] or
-    None; causal and scale are plain values."""
+def _bwd_cpu(which, q, k, v, dout, lse, delta, causal, kv_len, q_len,
+             scale):
+    bf16 = _one_dtype(f"flash_attention_bwd_{which}", q=q, k=k, v=v,
+                      dout=dout) == torch.bfloat16
+    want = ("dk", "dv") if which == "dkv" else ("dq",)
+    grads = tuple(g.contiguous() for g in _attention_bwd_delta(
+        q, k, v, lse, delta, dout, causal, kv_len, q_len, scale, bf16, want))
+    return grads if which == "dkv" else grads[0]
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_len, q_len, causal, scale):
-        out, lse = flash_attention(q, k, v, causal=causal, kv_len=kv_len,
-                                   q_len=q_len, scale=scale)
-        ctx.save_for_backward(q, k, v, out, lse, kv_len, q_len)
-        ctx.causal = causal
-        ctx.scale = scale
-        return out
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dout):
-        q, k, v, out, lse, kv_len, q_len = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, out, lse, dout.contiguous(), causal=ctx.causal,
-            kv_len=kv_len, q_len=q_len, scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None
+_ATTN = "Tensor q, Tensor k, Tensor v"
+_MASKS = "bool causal, Tensor? kv_len, Tensor? q_len, float? scale"
+fwd_op = _library.define(
+    "flash_attention_fwd", f"({_ATTN}, {_MASKS}) -> (Tensor, Tensor)",
+    _fwd_cuda, _fwd_cpu, _fwd_fake)
+bwd_dkv_op = _library.define(
+    "flash_attention_bwd_dkv",
+    f"({_ATTN}, Tensor dout, Tensor lse, Tensor delta, {_MASKS}) -> "
+    "(Tensor, Tensor)",
+    functools.partial(_bwd_cuda, "dkv"), functools.partial(_bwd_cpu, "dkv"),
+    lambda q, k, v, *_: (k.new_empty(k.shape), v.new_empty(v.shape)))
+bwd_dq_op = _library.define(
+    "flash_attention_bwd_dq",
+    f"({_ATTN}, Tensor dout, Tensor lse, Tensor delta, {_MASKS}) -> Tensor",
+    functools.partial(_bwd_cuda, "dq"), functools.partial(_bwd_cpu, "dq"),
+    lambda q, *_: q.new_empty(q.shape))
+
+
+def flash_attention(q, k, v, causal=False, kv_len=None, q_len=None,
+                    scale=None):
+    """(out, lse) of masked attention; see the module docstring. The op
+    `paddle_tpu_torch::flash_attention_fwd`: a CUDA tensor goes through
+    the Hopper kernel of its dtype (f32 or bf16), a CPU tensor through
+    attention_plain (bf16: attention_plain_bf16). Differentiable in q, k
+    and v through `flash_attention_bwd`'s two ops."""
+    return fwd_op(q, k, v, bool(causal), kv_len, q_len,
+                  None if scale is None else float(scale))
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal=False,
+                        kv_len=None, q_len=None, scale=None):
+    """(dq, dk, dv) of masked attention from the forward's out and lse;
+    see the module docstring. The ops `paddle_tpu_torch::
+    flash_attention_bwd_dkv`, then `_bwd_dq`: on a CUDA tensor the two
+    Hopper kernels of its dtype, on a CPU tensor the plain backward
+    (bf16: attention_bwd_plain_bf16's roundings). delta, the
+    softmax-jacobian row term, is a plain f32 reduction outside them, as
+    in the JAX package (the library computes it outside its kernels
+    too)."""
+    _one_dtype("flash_attention_bwd", q=q, k=k, v=v, out=out, dout=dout)
+    delta = row_delta(dout, out)
+    args = (q, k, v, dout, lse, delta, bool(causal), kv_len, q_len,
+            None if scale is None else float(scale))
+    dk, dv = bwd_dkv_op(*args)
+    return bwd_dq_op(*args), dk, dv
+
+
+def _setup(ctx, inputs, output):
+    q, k, v, causal, kv_len, q_len, scale = inputs
+    ctx.save_for_backward(q, k, v, output[0], output[1], kv_len, q_len)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _backward(ctx, dout, _dlse):
+    """p recomputed from lse; lse's cotangent is not used (the layers
+    read only out)."""
+    q, k, v, out, lse, kv_len, q_len = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
+                                     ctx.causal, kv_len, q_len, ctx.scale)
+    return dq, dk, dv, None, None, None, None
+
+
+_library.register_autograd(fwd_op, _backward, _setup)

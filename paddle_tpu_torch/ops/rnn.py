@@ -1,5 +1,5 @@
 """LSTM and GRU over whole sequences: the Hopper kernels, their plain
-versions, the autograd Functions and the launch counters.
+versions, the custom ops and the launch counters.
 
 Replaces the TPU kernels of `paddle_tpu/ops/pallas_rnn.py` — B5
 `_lstm_fwd_pallas`, B6 `_lstm_bwd_pallas`, B7 `_gru_fwd_kernel` and B8
@@ -53,7 +53,11 @@ and `gru_ref`) and `lstm_bwd_plain` / `gru_bwd_plain`, written with the
 kernels' recompute formulas; the CPU tests use them and the chip smoke
 holds the kernels against them on the card. There is no VMEM planning,
 no scan fallback and no small-batch fallback: a shape the kernels do
-not take raises, naming it.
+not take raises, naming it. The four kernels are the custom ops
+`paddle_tpu_torch::lstm_seq_fwd`, `lstm_seq_bwd`, `gru_seq_fwd` and
+`gru_seq_bwd` (`ops/_library.py`): the CUDA implementation launches the
+kernel, the CPU one runs the plain version, and the forward ops'
+autograd formulas call the backward ops.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ import functools
 
 import torch
 
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, _library
 from paddle_tpu_torch.ops.sequence_ops import _mask
 
 LSTM_KERNEL = "lstm_seq"
@@ -462,52 +466,131 @@ def gru_seq_bwd(x, w_g, w_c, b, lens, y, dy, route=None):
     return dx, dw_g, dw_c, db
 
 
-# --------------------------------------------------------------- autograd
-class LstmSeq(torch.autograd.Function):
-    """y = LSTM(x; w, b7) over the sequence, differentiable in x, w and
-    b7. The forward saves y and the cell sequence c; the backward
-    recomputes the gates from them (B6, or `lstm_bwd_plain` on the
-    CPU)."""
-
-    @staticmethod
-    def forward(ctx, x, w, b7, lens):
-        if x.device.type == "cpu":
-            h = w.shape[0]
-            y, c = lstm_plain(x, w, *torch.split(b7, [4 * h, h, h, h]), lens,
-                              want_c=True)
-        else:
-            y, c = lstm_seq_fwd(x, w, b7, lens, want_c=True)
-        ctx.save_for_backward(x, w, b7, lens, y, c)
-        return y
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dy):
-        x, w, b7, lens, y, c = ctx.saved_tensors
-        bwd = lstm_bwd_plain if x.device.type == "cpu" else lstm_seq_bwd
-        dx, dw, db7 = bwd(x, w, b7, lens, y, c, dy.contiguous())
-        return dx, dw, db7, None
+# ------------------------------------------------------------ custom ops
+def _no_c(x):
+    """B5's c where the inference variant wrote none: an empty tensor."""
+    return x.new_empty((0,))
 
 
-class GruSeq(torch.autograd.Function):
-    """y = GRU(x; w_g, w_c, b) over the sequence, differentiable in x,
-    w_g, w_c and b. The forward saves y; the backward recomputes the
-    gates from it (B8, or `gru_bwd_plain` on the CPU)."""
+def _lstm_fwd_cuda(x, w, b7, lens, want_c, route=None):
+    y, c = lstm_seq_fwd(x, w, b7, lens, want_c=want_c, route=route)
+    return y, _no_c(x) if c is None else c
 
-    @staticmethod
-    def forward(ctx, x, w_g, w_c, b, lens):
-        fwd = gru_plain if x.device.type == "cpu" else gru_seq_fwd
-        y = fwd(x, w_g, w_c, b, lens)
-        ctx.save_for_backward(x, w_g, w_c, b, lens, y)
-        return y
 
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, dy):
-        x, w_g, w_c, b, lens, y = ctx.saved_tensors
-        bwd = gru_bwd_plain if x.device.type == "cpu" else gru_seq_bwd
-        dx, dw_g, dw_c, db = bwd(x, w_g, w_c, b, lens, y, dy.contiguous())
-        return dx, dw_g, dw_c, db, None
+def _lstm_fwd_cpu(x, w, b7, lens, want_c, route=None):
+    _request(route)
+    h = w.shape[0]
+    out = lstm_plain(x, w, *torch.split(b7, [4 * h, h, h, h]), lens,
+                     want_c=want_c)
+    return out if want_c else (out, _no_c(x))
+
+
+def _seq_dims(x, width, w):
+    """(B, T, h) of x [B, T, width*h] against w's h rows."""
+    if x.dim() != 3 or x.shape[2] != width * w.shape[0]:
+        raise ValueError(f"x must be [B, T, {width}*h] with h = "
+                         f"{w.shape[0]}, got {tuple(x.shape)}")
+    return x.shape[0], x.shape[1], w.shape[0]
+
+
+def _lstm_fwd_fake(x, w, b7, lens, want_c, route=None):
+    _request(route)
+    b, t, h = _seq_dims(x, 4, w)
+    return (x.new_empty((b, t, h)),
+            x.new_empty((b, t, h)) if want_c else _no_c(x))
+
+
+def _lstm_bwd_fake(x, w, b7, lens, y, c, dy, route=None):
+    _request(route)
+    b, t, h = _seq_dims(x, 4, w)
+    return (x.new_empty((b, t, 4 * h)), x.new_empty((h, 4 * h)),
+            x.new_empty((7 * h,)))
+
+
+def _gru_fwd_cpu(x, w_g, w_c, b, lens, route=None):
+    _request(route)
+    return gru_plain(x, w_g, w_c, b, lens)
+
+
+def _gru_fwd_fake(x, w_g, w_c, b, lens, route=None):
+    _request(route)
+    bsz, t, h = _seq_dims(x, 3, w_c)
+    return x.new_empty((bsz, t, h))
+
+
+def _gru_bwd_cpu(x, w_g, w_c, b, lens, y, dy, route=None):
+    _request(route)
+    return gru_bwd_plain(x, w_g, w_c, b, lens, y, dy)
+
+
+def _gru_bwd_fake(x, w_g, w_c, b, lens, y, dy, route=None):
+    _request(route)
+    bsz, t, h = _seq_dims(x, 3, w_c)
+    return (x.new_empty((bsz, t, 3 * h)), x.new_empty((h, 2 * h)),
+            x.new_empty((h, h)), x.new_empty((3 * h,)))
+
+
+def _lstm_bwd_cpu(x, w, b7, lens, y, c, dy, route=None):
+    _request(route)
+    return lstm_bwd_plain(x, w, b7, lens, y, c, dy)
+
+
+lstm_fwd_op = _library.define(
+    "lstm_seq_fwd",
+    "(Tensor x, Tensor w, Tensor b7, Tensor lens, bool want_c, "
+    "str? route=None) -> (Tensor, Tensor)",
+    _lstm_fwd_cuda, _lstm_fwd_cpu, _lstm_fwd_fake)
+lstm_bwd_op = _library.define(
+    "lstm_seq_bwd",
+    "(Tensor x, Tensor w, Tensor b7, Tensor lens, Tensor y, Tensor c, "
+    "Tensor dy, str? route=None) -> (Tensor, Tensor, Tensor)",
+    lstm_seq_bwd, _lstm_bwd_cpu, _lstm_bwd_fake)
+gru_fwd_op = _library.define(
+    "gru_seq_fwd",
+    "(Tensor x, Tensor w_g, Tensor w_c, Tensor b, Tensor lens, "
+    "str? route=None) -> Tensor",
+    gru_seq_fwd, _gru_fwd_cpu, _gru_fwd_fake)
+gru_bwd_op = _library.define(
+    "gru_seq_bwd",
+    "(Tensor x, Tensor w_g, Tensor w_c, Tensor b, Tensor lens, Tensor y, "
+    "Tensor dy, str? route=None) -> (Tensor, Tensor, Tensor, Tensor)",
+    gru_seq_bwd, _gru_bwd_cpu, _gru_bwd_fake)
+
+
+def _lstm_setup(ctx, inputs, output):
+    x, w, b7, lens, want_c, route = inputs
+    if not want_c:
+        raise RuntimeError("lstm_seq_fwd: the inference variant (want_c "
+                           "False) writes no c; differentiate the "
+                           "training variant")
+    ctx.save_for_backward(x, w, b7, lens, *output)
+    ctx.route = route
+
+
+def _lstm_backward(ctx, dy, _dc):
+    """B6 from the saved y and c; c's cotangent is not used (the layers
+    read only y)."""
+    x, w, b7, lens, y, c = ctx.saved_tensors
+    dx, dw, db7 = lstm_bwd_op(x, w, b7, lens, y, c, dy.contiguous(),
+                              ctx.route)
+    return dx, dw, db7, None, None, None
+
+
+def _gru_setup(ctx, inputs, output):
+    x, w_g, w_c, b, lens, route = inputs
+    ctx.save_for_backward(x, w_g, w_c, b, lens, output)
+    ctx.route = route
+
+
+def _gru_backward(ctx, dy):
+    x, w_g, w_c, b, lens, y = ctx.saved_tensors
+    dx, dw_g, dw_c, db = gru_bwd_op(x, w_g, w_c, b, lens, y, dy.contiguous(),
+                                    ctx.route)
+    return dx, dw_g, dw_c, db, None, None
+
+
+_library.register_autograd(lstm_fwd_op, _lstm_backward, _lstm_setup)
+_library.register_autograd(gru_fwd_op, _gru_backward, _gru_setup)
 
 
 def _needs_grad(*tensors):
@@ -518,31 +601,41 @@ def _f32(*tensors):
     return tuple(t.float() for t in tensors)
 
 
+def lstm_seq(x, w, b7, lens, route=None):
+    """y = LSTM(x; w, b7) over the sequence through the op
+    `paddle_tpu_torch::lstm_seq_fwd`, differentiable in x, w and b7:
+    with gradients wanted B5 writes the cell sequence c too and B6
+    (`paddle_tpu_torch::lstm_seq_bwd`) recomputes the gates from y and
+    c; without, B5's inference variant skips c. CPU tensors take the
+    plain versions."""
+    return lstm_fwd_op(x, w, b7, lens, _needs_grad(x, w, b7), route)[0]
+
+
 def lstm_fused(x, w, gb, wci, wcf, wco, lens):
-    """y [B,T,h] of the LSTM contract (module docstring), in x's dtype.
-    With gradients wanted: `LstmSeq` (B5 with c, then B6); without: B5's
-    inference variant, which skips the c output. CPU tensors take the
-    plain versions. bf16 runs in f32 inside (the module docstring)."""
+    """y [B,T,h] of the LSTM contract (module docstring), in x's dtype,
+    through `lstm_seq`. bf16 runs in f32 inside (the module
+    docstring)."""
     if x.dtype == torch.bfloat16:
         return lstm_fused(*_f32(x, w, gb, wci, wcf, wco), lens).to(x.dtype)
-    x = x.contiguous()
     b7 = torch.cat([gb, wci, wcf, wco])
     lens = lens.to(device=x.device, dtype=torch.int32).contiguous()
-    w = w.contiguous()
-    if _needs_grad(x, w, b7):
-        return LstmSeq.apply(x, w, b7, lens)
-    if x.device.type == "cpu":
-        return lstm_plain(x, w, gb, wci, wcf, wco, lens)
-    return lstm_seq_fwd(x, w, b7, lens, want_c=False)[0]
+    return lstm_seq(x.contiguous(), w.contiguous(), b7, lens)
+
+
+def gru_seq(x, w_g, w_c, b, lens, route=None):
+    """y = GRU(x; w_g, w_c, b) over the sequence through the op
+    `paddle_tpu_torch::gru_seq_fwd` (B7), differentiable in x, w_g, w_c
+    and b (B8, `paddle_tpu_torch::gru_seq_bwd`, recomputes the gates
+    from y). CPU tensors take the plain versions."""
+    return gru_fwd_op(x, w_g, w_c, b, lens, route)
 
 
 def gru_fused(x, w_g, w_c, b, lens):
-    """y [B,T,h] of the GRU contract (module docstring), through
-    `GruSeq` (B7, and B8 for the gradient), in x's dtype; CPU tensors
-    take the plain versions. bf16 runs in f32 inside (the module
+    """y [B,T,h] of the GRU contract (module docstring), in x's dtype,
+    through `gru_seq`. bf16 runs in f32 inside (the module
     docstring)."""
     if x.dtype == torch.bfloat16:
         return gru_fused(*_f32(x, w_g, w_c, b), lens).to(x.dtype)
     lens = lens.to(device=x.device, dtype=torch.int32).contiguous()
-    return GruSeq.apply(x.contiguous(), w_g.contiguous(), w_c.contiguous(),
-                        b.contiguous(), lens)
+    return gru_seq(x.contiguous(), w_g.contiguous(), w_c.contiguous(),
+                   b.contiguous(), lens)

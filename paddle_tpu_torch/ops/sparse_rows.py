@@ -1,5 +1,6 @@
 """In-place sparse-row updates of an embedding table and its optimizer
-slots: the Hopper kernels, their plain version and the launch counters.
+slots: the Hopper kernels, their plain version, the custom ops and the
+launch counters.
 
 Replaces the TPU kernel B9 of `paddle_tpu/parallel/sparse.py`
 (`SparseUpdater._make_call` :322, kernel :330) together with the
@@ -30,6 +31,12 @@ raises — never a fallback. A `RowRule` (sgd, momentum, adagrad) runs in
 A CPU table goes through `sparse_rows_plain`: the same preparation,
 `index_add_` for the sums, gather, `update_fn`, and `index_copy_` of the
 valid rows. There is no backward: this is an optimizer step.
+
+The routes are the custom ops `paddle_tpu_torch::sparse_row_update`
+(the rule's kernel) and `sparse_row_gather` / `sparse_row_scatter` (the
+generic route's kernels; `ops/_library.py`), the tables declared as
+mutated: the CUDA implementations launch the kernels, the CPU ones run
+the plain version.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import ctypes
 
 import torch
 
-from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import _build, _library
 
 KERNEL = "sparse_rows"
 MAX_TABLES = 8      # the kernels take a table and up to 7 slot tables
@@ -133,24 +140,14 @@ def _num_state(update_fn, n_tables, where):
 def sparse_rows_plain(update_fn, tables, ids, grads, num_slots: int,
                       num_rows: int):
     """The plain version, in place: the same preparation, `index_add_`
-    for the sums, gather, `update_fn`, `index_copy_` of the valid
-    rows."""
-    views = _views(tables, "sparse_rows_plain")
+    for the sums, gather (zero rows for the skipped slots, as the gather
+    kernel reads them), `update_fn`, `index_copy_` of the valid rows."""
+    _views(tables, "sparse_rows_plain")
     _num_state(update_fn, len(tables), "sparse_rows_plain")
-    d = views[0].shape[1]
-    flat = ids.reshape(-1).to(torch.int64)
-    g = grads.reshape(flat.shape[0], d)
-    k = int(num_slots)
-    uids, _perm, _off, slot = prepare(flat, k)
-    gsum = g.new_zeros((k + 1, d)).index_add_(0, slot, g)[:k]
-    valid = (uids >= 0) & (uids < num_rows)
-    safe = torch.where(valid, uids, 0)
-    rows = [v.index_select(0, safe) for v in views]
+    uids, gsum, rows = _gather_plain(tables, ids, grads, num_slots, num_rows)
     out = update_fn(rows[0], gsum, *rows[1:])
-    new = list(out) if len(views) > 1 else [out]
-    idx = safe[valid]
-    for v, nw in zip(views, new):
-        v.index_copy_(0, idx, nw[valid])
+    _scatter_plain(tables, list(out) if len(tables) > 1 else [out], uids,
+                   num_rows)
     return tables
 
 
@@ -265,32 +262,93 @@ def scatter_kernel(views, new, uids, num_rows: int):
     sparse_row_scatter_launches += 1
 
 
-def sparse_rows_kernel(update_fn, tables, ids, grads, num_slots: int,
+def sparse_rows_kernel(rule, tables, ids, grads, num_slots: int,
                        num_rows: int):
-    """B9 on the card, in place: `sparse_row_update_kernel` for a
-    `RowRule`, else the gather kernel, `update_fn` in PyTorch and the
-    scatter kernel."""
+    """B9's rule kernel on the card, in place: `sparse_row_update_kernel`
+    applies the `RowRule` to the touched rows (the CUDA implementation
+    of the op `sparse_row_update`)."""
     where = "sparse_rows"
     views = _views(tables, where)
-    _num_state(update_fn, len(tables), where)
-    g, d = _check(where, views, ids, grads)
+    _num_state(rule, len(tables), where)
+    g, _d = _check(where, views, ids, grads)
     k = int(num_slots)
-    if k < 1 or g.shape[0] == 0:
-        return tables
-    uids, perm, off = kernel_indices(ids, k)
-    if isinstance(update_fn, RowRule):
-        update_kernel(update_fn, views, g, uids, perm, off, num_rows)
-        return tables
+    if k >= 1 and g.shape[0]:
+        uids, perm, off = kernel_indices(ids, k)
+        update_kernel(rule, views, g, uids, perm, off, num_rows)
+
+
+# ------------------------------------------------------------ custom ops
+def _rule_update_cuda(tables, ids, grads, rule, lr, hyper, num_slots,
+                      num_rows):
+    sparse_rows_kernel(RowRule(rule, lr, hyper), tables, ids, grads,
+                       num_slots, num_rows)
+
+
+def _rule_update_plain(tables, ids, grads, rule, lr, hyper, num_slots,
+                     num_rows):
+    sparse_rows_plain(RowRule(rule, lr, hyper), tables, ids, grads,
+                      num_slots, num_rows)
+
+
+def _gather_cuda(tables, ids, grads, num_slots, num_rows):
+    """(uids [k] int32, gsum [k, D], [rows [k, D] of each table]) by
+    `sparse_row_gather_kernel`."""
+    where = "sparse_row_gather"
+    views = _views(tables, where)
+    g, _d = _check(where, views, ids, grads)
+    uids, perm, off = kernel_indices(ids, int(num_slots))
     gsum, rows = gather_kernel(views, g, uids, perm, off, num_rows)
-    out = update_fn(rows[0], gsum, *rows[1:])
-    new = list(out) if len(views) > 1 else [out]
-    new = [x.to(torch.float32).contiguous() for x in new]
-    if len(new) != len(views) or any(x.shape != (k, d) for x in new):
-        raise ValueError(f"{where}: update_fn must return {len(views)} "
-                         f"[{k}, {d}] tensors, got "
-                         f"{[tuple(x.shape) for x in new]}")
-    scatter_kernel(views, new, uids, num_rows)
-    return tables
+    return uids, gsum, rows
+
+
+def _gather_plain(tables, ids, grads, num_slots, num_rows):
+    views = _views(tables, "sparse_row_gather")
+    k = int(num_slots)
+    flat = ids.reshape(-1).to(torch.int64)
+    g = grads.reshape(flat.shape[0], views[0].shape[1])
+    uids, _perm, _off, slot = prepare(flat, k)
+    gsum = g.new_zeros((k + 1, g.shape[1])).index_add_(0, slot, g)[:k]
+    valid = (uids >= 0) & (uids < num_rows)
+    safe = torch.where(valid, uids, 0)
+    rows = [torch.where(valid[:, None], v.index_select(0, safe), 0.0)
+            for v in views]
+    return uids.to(torch.int32), gsum, rows
+
+
+def _gather_fake(tables, ids, grads, num_slots, num_rows):
+    k, d = int(num_slots), tables[0].numel() // tables[0].shape[0]
+    return (ids.new_empty((k,), dtype=torch.int32),
+            grads.new_empty((k, d)), [t.new_empty((k, d)) for t in tables])
+
+
+def _scatter_cuda(tables, new, uids, num_rows):
+    scatter_kernel(_views(tables, "sparse_row_scatter"),
+                   [x.to(torch.float32).contiguous() for x in new], uids,
+                   num_rows)
+
+
+def _scatter_plain(tables, new, uids, num_rows):
+    uids = uids.to(torch.int64)
+    valid = (uids >= 0) & (uids < num_rows)
+    idx = uids[valid]
+    for v, nw in zip(_views(tables, "sparse_row_scatter"), new):
+        v.index_copy_(0, idx, nw[valid].to(v.dtype))
+
+
+rule_update_op = _library.define(
+    "sparse_row_update",
+    "(Tensor(a!)[] tables, Tensor ids, Tensor grads, str rule, float lr, "
+    "float hyper, int num_slots, int num_rows) -> ()",
+    _rule_update_cuda, _rule_update_plain, lambda *args: None)
+gather_op = _library.define(
+    "sparse_row_gather",
+    "(Tensor[] tables, Tensor ids, Tensor grads, int num_slots, "
+    "int num_rows) -> (Tensor, Tensor, Tensor[])",
+    _gather_cuda, _gather_plain, _gather_fake)
+scatter_op = _library.define(
+    "sparse_row_scatter",
+    "(Tensor(a!)[] tables, Tensor[] new, Tensor uids, int num_rows) -> ()",
+    _scatter_cuda, _scatter_plain, lambda *args: None)
 
 
 def sparse_rows(update_fn, tables, ids, grads, num_slots: int,
@@ -299,10 +357,29 @@ def sparse_rows(update_fn, tables, ids, grads, num_slots: int,
     table, then its slot tables: contiguous, one shape, rows first) for
     occurrence ids `ids` and their gradients `grads` [N, D]; `num_slots`
     unique rows at most (the k smallest ids), rows >= `num_rows`
-    skipped. The kernels for a CUDA table, the plain version for a CPU
-    one. Returns `tables`."""
-    if tables[0].device.type == "cpu":
-        return sparse_rows_plain(update_fn, tables, ids, grads, num_slots,
-                                 num_rows)
-    return sparse_rows_kernel(update_fn, tables, ids, grads, num_slots,
-                              num_rows)
+    skipped. Returns `tables`.
+
+    A `RowRule` runs in the op `paddle_tpu_torch::sparse_row_update`;
+    any other callable between `sparse_row_gather` and
+    `sparse_row_scatter`. Each op runs the kernels on a CUDA table, the
+    plain version on a CPU one (the generic route's plain gather reads
+    zero rows for the skipped slots, as the gather kernel does)."""
+    tables = list(tables)
+    _num_state(update_fn, len(tables), "sparse_rows")
+    k = int(num_slots)
+    if k < 1 or ids.numel() == 0:
+        return tables
+    if isinstance(update_fn, RowRule):
+        rule_update_op(tables, ids, grads, update_fn.name, update_fn.lr,
+                       update_fn.hyper, k, int(num_rows))
+        return tables
+    uids, gsum, rows = gather_op(tables, ids, grads, k, int(num_rows))
+    out = update_fn(rows[0], gsum, *rows[1:])
+    new = list(out) if len(tables) > 1 else [out]
+    d = gsum.shape[1]
+    if len(new) != len(tables) or any(x.shape != (k, d) for x in new):
+        raise ValueError(f"sparse_rows: update_fn must return {len(tables)} "
+                         f"[{k}, {d}] tensors, got "
+                         f"{[tuple(x.shape) for x in new]}")
+    scatter_op(tables, new, uids, int(num_rows))
+    return tables

@@ -19,14 +19,22 @@ key (`core/rng.py::StepKey`) are device tensors made from the global
 step on the host, so K steps of `multi` walk the trajectory of K calls
 of the step.
 
+The recompile guard (`analysis/recompile_guard.py`, label
+"train_step"): the step notes the first sight of each (feed signature,
+parameter names) of a single step and of each (K, feed signature) of
+`multi` (two notes: the JAX scan traces its step body too), where the
+JAX step traces; on the card `multi`'s notes are the CUDA-graph capture
+itself (`parallel/graph.py`). The trainer arms it after warmup.
+
 Left out, still to port: the mesh (data-parallel and sharded state,
-ROADMAP A8), AOT compilation, the recompile guard.
+ROADMAP A8), AOT compilation.
 """
 
 from __future__ import annotations
 
 import torch
 
+from paddle_tpu_torch.analysis.recompile_guard import RecompileGuard
 from paddle_tpu_torch.core import rng as _rng
 from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.device import resolve_device
@@ -100,12 +108,27 @@ class TrainStep:
         # parallel/graph.py::StepGraphs, made by the first multi on the
         # card
         self.graphs = None
+        # steady-state traces and captures; the trainer arms it after
+        # warmup
+        self.recompile_guard = RecompileGuard("train_step")
 
     @property
     def graphs_captured(self) -> int:
         """How many CUDA graphs `multi` has captured (one per chunk
         length and feed signature)."""
         return 0 if self.graphs is None else len(self.graphs.graphs)
+
+    def note(self, key, params, feed, body=None, capture: bool = False):
+        """Note `key` with the guard where the JAX step traces: the first
+        time it is seen or, on the card, at every CUDA-graph capture of
+        a chunk. A chunk is noted with the feed of its step `body` a
+        second time, as the JAX scan traces the step body inside it. A
+        strict armed guard raises before the key is kept, so the next
+        call raises again."""
+        guard = self.recompile_guard
+        if guard.note_once(key, params, feed, force=capture) and \
+                body is not None:
+            guard.note(params, body)
 
     def step_tables(self, step_i: int, n: int, root_seed: int, lr_scale,
                     like) -> tuple:
@@ -166,8 +189,16 @@ class TrainStep:
         return new_params, new_opt_state, new_state, health, outs
 
     def __call__(self, params, opt_state, state, feed, step_i, rng,
-                 lr_scale=None):
+                 lr_scale=None, chunk: bool = False):
+        """One step. `chunk`: the step is a chunk of one batch (the
+        trainer's tail of a pass with K > 1), noted as the JAX trainer's
+        scan of one step is."""
         feed = {k: a.to(self.device) for k, a in feed.items()}
+        sig = feed_signature(feed)
+        if chunk:
+            self.note(("multi", 1, sig), params, feed, body=feed)
+        else:
+            self.note(("step", sig, tuple(params)), params, feed)
         scalars = self.opt.scalars_tensor(step_i, lr_scale,
                                           next(iter(params.values())))
         return self.body(params, opt_state, state, feed, scalars, rng)
@@ -207,6 +238,8 @@ class TrainStep:
             return self.graphs.run(params, opt_state, state, feeds, scalars,
                                    seeds)
         feeds = {k: a.to(self.device) for k, a in feeds.items()}
+        self.note(("multi", k_steps, feed_signature(feeds)), params, feeds,
+                  body=feed_at(feeds, 0))
         losses, outs = [], []
         for k in range(k_steps):
             params, opt_state, state, loss, out = self.body(

@@ -27,6 +27,10 @@ The counterpart of the JAX step's `lax.scan` of K steps inside one jit
 The kernels' Python launch counters count the warm-up step and the
 capture, not the replays: which kernels a replay runs shows in the
 profiler's kernel names.
+
+Every capture is noted with the step's recompile guard
+(`TrainStep.note`): armed after warmup, a capture in steady
+state is a violation, and a strict guard raises before it begins.
 """
 
 from __future__ import annotations
@@ -198,6 +202,10 @@ class StepGraphs:
         key = (scalars.shape[0], feed_signature(feeds))
         g = self.graphs.get(key)
         if g is None:
+            # a capture is a trace of the JAX step's scan: the guard
+            # notes it, and a strict armed guard raises before it begins
+            self.step.note(("multi",) + key, params, feeds,
+                           body=feed_at(feeds, 0), capture=True)
             g = _Graph(self, feeds, scalars, seeds)
             g.fill(feeds, scalars, seeds)
             g.capture()

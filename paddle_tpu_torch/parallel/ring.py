@@ -63,7 +63,7 @@ def flash_dense_attention(q, k, v, *, causal=False, kv_len=None,
         kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     if q_len is not None:
         q_len = q_len.to(device=q.device, dtype=torch.int32).contiguous()
-    return _fa.FlashAttention.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), kv_len, q_len,
-        bool(causal), scale,
-    )
+    return _fa.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+        kv_len=kv_len, q_len=q_len, scale=scale,
+    )[0]

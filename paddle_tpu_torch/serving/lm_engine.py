@@ -325,8 +325,7 @@ class PagedLMModel:
 
     @property
     def recompile_guards(self):
-        # eager PyTorch compiles nothing per shape: nothing to guard
-        return ()
+        return tuple(self.plm.recompile_guards)
 
     def run_batch(self, ids, lens, hooks, host: bool):
         assert hooks is None, "paged LM serving has no hook rung"

@@ -27,7 +27,14 @@ one `Network`, each submodel is served through its `sub(name)` face,
 and the server's co-dispatch (`server.py`) pulls sibling batches into
 one `run_group`. The merged forward runs the port's `Network` eagerly
 under `torch.no_grad()` (the LSTM layers launch B5's inference form on
-the card); no program cache is keyed by shape.
+the card); no program cache is keyed by shape, but its recompile guard
+("serve_forward") notes the first sight of each feed signature, where
+the JAX host's jitted forward traces, so a server armed after warmup
+sees a cold bucket.
+
+Every model answers `recompile_guards` with the guards of what it runs
+(`analysis/recompile_guard.py`), which `InferenceServer.
+arm_recompile_guard` arms.
 """
 
 from __future__ import annotations
@@ -36,6 +43,9 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+
+from paddle_tpu_torch.analysis.recompile_guard import RecompileGuard
+from paddle_tpu_torch.parallel.dp import feed_signature
 
 
 class GenerationModel:
@@ -78,11 +88,15 @@ class GenerationModel:
 
     @property
     def recompile_guards(self):
-        """Empty: the JAX decoder's guard tracks XLA retraces, which the
-        port does not have (`analysis/recompile_guard.py` is not to
-        port). A new (batch, feed signature) captures a new CUDA graph,
-        counted on the decoder's programs (`_decode_cache[...].graphs`)."""
-        return ()
+        """The decoder's recompile guard (`beam_search.py`: a new (batch,
+        feed signature) is noted, and on the card captures a new CUDA
+        graph), and the speculative rung's, surfaced so
+        InferenceServer.arm_recompile_guard can arm every served model's
+        guards after warmup."""
+        out = (self.decoder._recompile_guard,)
+        if self.speculative is not None:
+            out = out + tuple(self.speculative.recompile_guards)
+        return out
 
     def run_batch(self, ids, lens, hooks, host: bool):
         from paddle_tpu_torch.serving.host_decode import host_generate
@@ -179,12 +193,14 @@ class MultiForwardHost:
                     "to draw them from")
             params = self.net.init_params(generator, device=self.device)
         self.params = params
+        # the merged forward's guard: the first sight of each (output
+        # set, feed signature), where the JAX host's jitted forward
+        # traces
+        self._recompile_guard = RecompileGuard("serve_forward")
 
     @property
     def recompile_guards(self):
-        """Empty, as the port's other models' (see
-        GenerationModel.recompile_guards)."""
-        return ()
+        return (self._recompile_guard,)
 
     def sub(self, name: str) -> _ForwardSub:
         assert name in self.confs, name
@@ -230,6 +246,8 @@ class MultiForwardHost:
                 )}
             feed.update(prefix_feed(name, sub_feed))
             want.append(f"{name}/{out}")
+        self._recompile_guard.note_once(
+            (tuple(want), feed_signature(feed)), feed)
         with torch.no_grad():
             outs, _ = self.net.forward(self.params, feed, outputs=want,
                                        train=False)

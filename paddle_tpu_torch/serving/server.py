@@ -40,9 +40,13 @@ Anomalies — a shed-rate spike, an admitted-p99 SLO breach, a breaker
 opening — emit a `serving` event and a flight-recorder dump
 (`obs/flight_recorder.py`, rate-limited there).
 
-Not ported yet (ROADMAP A6b): the recompile guard (in the port, a
-CUDA-graph capture in steady state). Every model of the port already
-answers `recompile_guards` with ().
+The recompile guard (`analysis/recompile_guard.py`):
+`arm_recompile_guard` arms every registered model's guards after
+warmup, so a steady-state trace or CUDA-graph capture (a batch or
+length bucket the warmup never saw) is recorded
+(`recompile_violations`) or, strict, raises RecompileError out of the
+dispatch: the request that caused it fails loudly, never rescued on
+the host rung, and the server keeps serving the warm ones.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from typing import Optional
 import numpy as np
 
 from paddle_tpu_torch.analysis.lock_order import named_lock
+from paddle_tpu_torch.analysis.recompile_guard import RecompileError
 from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.data.feeder import _bucket
 from paddle_tpu_torch.obs import flight_recorder as _flight
@@ -470,6 +475,36 @@ class InferenceServer:
         self._anomaly.admission(shed=False)
         return req
 
+    def arm_recompile_guard(self, strict: bool = False) -> list:
+        """Arm every registered model's recompile guards: call after
+        warmup traffic has touched every batch and length bucket the
+        server serves. From then on a trace or CUDA-graph capture is
+        recorded (`recompile_guard.violations` metric, flight-recorder
+        trigger) and, with `strict`, raises RecompileError out of the
+        dispatch, so the failure is loud. Returns the guards armed;
+        models registered later arm on the next call."""
+        return [
+            g.arm(strict=strict) for g in self._iter_recompile_guards()
+        ]
+
+    def disarm_recompile_guard(self) -> None:
+        for g in self._iter_recompile_guards():
+            g.disarm()
+
+    def recompile_violations(self) -> list:
+        out = []
+        for g in self._iter_recompile_guards():
+            out.extend(g.violations)
+        return out
+
+    def _iter_recompile_guards(self):
+        with self._lock:
+            entries = list(self._models.values())
+        for entry in entries:
+            for g in getattr(entry.model, "recompile_guards", ()):
+                if g is not None:
+                    yield g
+
     def stats(self) -> dict:
         with self._lock:
             out = dict(self._stats)
@@ -759,7 +794,13 @@ class InferenceServer:
                     with run_ctx():
                         rows = entry.model.run_batch(ids, lens, hooks,
                                                      host)
-                except Exception:
+                except Exception as dispatch_exc:
+                    if isinstance(dispatch_exc, RecompileError):
+                        # a strict armed guard stays loud: the capture
+                        # or trace it stopped left nothing behind, so a
+                        # host rescue would repeat raise -> fallback on
+                        # every request of this bucket
+                        raise
                     if host or not self.config.host_fallback or not \
                             getattr(entry.model, "can_host", False):
                         raise

@@ -63,9 +63,15 @@ K = 1 loop emit a `train.step` span tree (`obs/tracing.py`); the
 state read, never advanced) and returns numpy outputs;
 `Inferencer.from_merged(path)` loads a merged model.
 
-Left out: the mesh (ROADMAP A8), and the recompile guard (A6); the JAX
-trainer's FP trap and PRNG choice are JAX configuration, with no
-counterpart here.
+The recompile guard (`analysis/recompile_guard.py`; the
+`recompile_guard` flag "off", "record" or "strict"): after the first
+pass the trainer arms the TrainStep's guard, so a steady-state trace or
+CUDA-graph capture is recorded (`recompile_violations()`) or, strict,
+raises RecompileError from the step. The eval forward has its own guard
+("eval_forward", noted at the first sight of each feed signature).
+
+Left out: the mesh (ROADMAP A8); the JAX trainer's FP trap and PRNG
+choice are JAX configuration, with no counterpart here.
 """
 
 from __future__ import annotations
@@ -77,6 +83,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch.analysis.recompile_guard import RecompileGuard
 from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.core import rng as _rng
 from paddle_tpu_torch.core.config import ModelConf, OptimizationConf
@@ -229,6 +236,7 @@ class SGD:
                                  watchdog=self.watchdog_conf is not None,
                                  device=self.device)
         self.global_step = 0
+        self._eval_guard = RecompileGuard("eval_forward")
 
     def _eval_layers(self) -> set:
         return {c[k] for c in self.evaluator_confs
@@ -239,6 +247,7 @@ class SGD:
         keep = (set(self.net.output_names) | set(self.net.cost_names)
                 | self._eval_layers())
         feed = {k: a.to(self.device) for k, a in feed.items()}
+        self._eval_guard.note_once(feed_signature(feed), feed)
         with torch.no_grad():
             outs, _ = self.net.forward(self.params, feed, state=self.state,
                                        train=False)
@@ -273,7 +282,8 @@ class SGD:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def run_step(self, feed, lr_scale: float = 1.0, timeline=None) -> tuple:
+    def run_step(self, feed, lr_scale: float = 1.0, timeline=None,
+                 chunk: bool = False) -> tuple:
         """One step on an already-fed Arg dict; returns (cost, finite,
         outs). With the watchdog, the step's health vector [loss,
         all_finite] comes back in ONE device->host copy, and a
@@ -282,7 +292,9 @@ class SGD:
         `timeline`: an obs.StepTimeline splitting this step's wall time
         into host dispatch (launching the step) and device (waiting for
         the health fetch; on the timeline's sampled steps also for the
-        whole update, `torch.cuda.synchronize`)."""
+        whole update, `torch.cuda.synchronize`). `chunk`: the step is a
+        chunk of one batch of `run_steps` (the recompile guard notes it as
+        the JAX trainer's scan of one step)."""
         rng = _rng.split_for_step(self.step_root, self.global_step)
         t0 = time.perf_counter() if timeline is not None else 0.0
         (
@@ -293,7 +305,7 @@ class SGD:
             outs,
         ) = self.step_fn(
             self.params, self.opt_state, self.state, feed,
-            self.global_step, rng, lr_scale=lr_scale,
+            self.global_step, rng, lr_scale=lr_scale, chunk=chunk,
         )
         # between graph replays the result lands in the tensors the
         # graphs read
@@ -329,7 +341,8 @@ class SGD:
         run_step. All feeds of one call share one shape signature."""
         n = len(feeds)
         if n == 1:
-            cost, finite, outs = self.run_step(feeds[0], lr_scale, timeline)
+            cost, finite, outs = self.run_step(feeds[0], lr_scale, timeline,
+                                               chunk=True)
             return [cost], [finite], stack_outs([outs])
         t0 = time.perf_counter() if timeline is not None else 0.0
         (
@@ -499,6 +512,15 @@ class SGD:
                     tl.emit_pass(pass_id, self.global_step)
                     log.info("pass %d timeline %s", pass_id, tl.fractions())
                     event_handler(EndPass(pass_id, results))
+                    if pass_id == start_pass:
+                        # warmup over: every steady-state shape (the
+                        # ragged reader tail included) has been seen
+                        # once; a trace or capture from here on is a
+                        # stall in the hot loop
+                        mode = _flags.get_flag("recompile_guard")
+                        if mode and mode != "off":
+                            self.step_fn.recompile_guard.arm(
+                                strict=(mode == "strict"))
             ok = True
         finally:
             # drain in-flight async writes on every exit path, so a
@@ -692,6 +714,12 @@ class SGD:
         log.warning("preempted: flushed pass %d at batch %d to %s; exiting "
                     "for resume", pass_id, batches_done, save_dir)
 
+    def recompile_violations(self) -> list:
+        """Steady-state traces and captures recorded by the train step's
+        armed recompile guard (the `recompile_guard` flag): empty means
+        the hot loop never traced or captured again after warmup."""
+        return list(self.step_fn.recompile_guard.violations)
+
     def test(self, reader: Callable, feeder: Callable) -> dict:
         """Evaluation pass (reference: trainer/Tester.h): the forward in
         test mode over `reader`; returns {"cost": mean batch cost,
@@ -799,11 +827,18 @@ class Inferencer:
         return cls(Network(conf), params, state, outputs, device=device)
 
     def infer(self, feed: dict) -> dict:
+        """{name: numpy array}; a bf16 output (the bf16 flag) comes back
+        as f32, its values exact (numpy has no bf16)."""
         feed = {k: a.to(self.device) for k, a in feed.items()}
         with torch.no_grad():
             outs, _ = self.net.forward(self.params, feed, state=self.state,
                                        train=False,
                                        outputs=self.output_names)
-        return {n: (outs[n].value if outs[n].value is not None
-                    else outs[n].ids).cpu().numpy()
+
+        def host(x):
+            return (x.float() if x.dtype == torch.bfloat16 else x).cpu() \
+                .numpy()
+
+        return {n: host(outs[n].value if outs[n].value is not None
+                        else outs[n].ids)
                 for n in self.output_names}

@@ -734,7 +734,8 @@ def test_generation_model_rows_and_paths():
     hooked = model.run_batch(ids, np.asarray([4, 2], np.int32),
                              model.named_hooks["no3"], True)
     assert seen and all(3 not in r["tokens"] for r in hooked)
-    assert model.recompile_guards == () and model.can_host
+    assert model.recompile_guards == (dec._recompile_guard,) and \
+        model.can_host
     assert model.tokens_per_dispatch == 1
     # the speculative rung needs the draft's parameters
     with pytest.raises(AssertionError, match="draft_params"):

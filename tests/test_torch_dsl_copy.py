@@ -98,10 +98,9 @@ def test_port_has_its_own_registries():
 
     for name in ("LAYERS", "ACTIVATIONS", "OPTIMIZERS", "LR_SCHEDULERS"):
         assert getattr(tregistry, name) is not getattr(jregistry, name)
-    # every layer type of the JAX package but moe (ROADMAP A8)
-    assert tregistry.LAYERS.names() == sorted(
-        set(jregistry.LAYERS.names()) - {"moe"})
-    assert len(tregistry.LAYERS.names()) == 125
+    # every layer type of the JAX package (moe since its port)
+    assert tregistry.LAYERS.names() == jregistry.LAYERS.names()
+    assert len(tregistry.LAYERS.names()) == 126
     assert tregistry.OPTIMIZERS.names() == [
         "adadelta", "adagrad", "adam", "adamax", "decayed_adagrad",
         "momentum", "rmsprop", "sgd"]

@@ -4,9 +4,9 @@ The same numpy q, k, v and output gradient go through
 `jax.vjp(paddle_tpu/parallel/ring.py::flash_blocked_attention)` (the
 blocked oracle whose custom VJP, `_flash_blocked_bwd`, states the
 contract the TPU kernels implement) and through the port's
-`ops/flash_attention.attention_bwd_plain` and the autograd Function
-behind `parallel/ring.flash_dense_attention`. f32 on the CPU in both:
-rtol = atol = 1e-5 (the summation orders differ).
+`ops/flash_attention.attention_bwd_plain` and the custom op's autograd
+formula behind `parallel/ring.flash_dense_attention`. f32 on the CPU in
+both: rtol = atol = 1e-5 (the summation orders differ).
 
 The JAX function has no `q_len`: for cross-attention the output
 gradient of rows at or past q_len is 0 there (the attention layer
@@ -341,7 +341,7 @@ def test_emulated_bf16_backward_is_within_the_card_bound(exp2):
 def test_bf16_backward_takes_delta_in_f32_and_returns_bf16(monkeypatch):
     """flash_attention_bwd on bf16 tensors (the CPU: the bf16 plain
     version) forms delta = sum_d dout * out in f32 and returns dq, dk, dv
-    in bf16, launching nothing; the autograd Function hands bf16
+    in bf16, launching nothing; the op's autograd formula hands bf16
     gradients to bf16 leaves."""
     q, k, v, do, causal, kv, ql = _bf16_inputs(
         BF16_CASES["causal_ragged_t200_d64"])

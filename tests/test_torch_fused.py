@@ -239,7 +239,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="act must be"):
         op.bn_act_conv1x1(u, sc, sh, w, act="tanh")
     # the kernel wrappers take CUDA tensors only; the CPU path is the
-    # autograd Function's, through the plain versions
+    # custom op's CPU implementation, the plain versions
     with pytest.raises(ValueError, match="unsupported device"):
         op.bn_act_conv1x1_fwd(u, sc, sh, w)
     y = torch.zeros((10, 4))

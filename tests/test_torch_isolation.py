@@ -390,6 +390,52 @@ def test_flight_recorder_and_fleet_modules_import_with_jax_blocked():
     assert res.stdout.split()[-1] == str(len(names))
 
 
+def test_custom_ops_guard_export_and_moe_modules_import_with_jax_blocked():
+    """The custom ops, the recompile guard, export / load and the moe
+    layer by name (the walk above covers them too); with jax and the JAX
+    package blocked every kernel's op registers, and a compiled artifact
+    exports and loads."""
+    names = ["paddle_tpu_torch.ops._library",
+             "paddle_tpu_torch.ops.bn_act_conv1x1",
+             "paddle_tpu_torch.ops.flash_attention",
+             "paddle_tpu_torch.ops.rnn", "paddle_tpu_torch.ops.sparse_rows",
+             "paddle_tpu_torch.analysis.recompile_guard",
+             "paddle_tpu_torch.ops.moe", "paddle_tpu_torch.layers.moe",
+             "paddle_tpu_torch.inference"]
+    files = _port_files()
+    assert all(os.path.join(PKG, *n.split(".")[1:]) + ".py" in files
+               for n in names)
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=names) + """
+import torch
+from paddle_tpu_torch import dsl, inference
+from paddle_tpu_torch.core.arg import non_seq
+from paddle_tpu_torch.network import Network
+from paddle_tpu_torch.ops import _library
+assert len(_library.OPS) == 13
+for op in _library.OPS:
+    getattr(torch.ops.paddle_tpu_torch, op)
+with dsl.model() as g:
+    dsl.moe(dsl.data("x", 8), num_experts=2, hidden=8, name="m")
+    g.conf.output_layer_names.append("m")
+net = Network(g.conf)
+inf = inference.Inferencer(net, net.init_params(
+    torch.Generator().manual_seed(0), device="cpu"), device="cpu")
+feed = {"x": non_seq(torch.ones((4, 8)))}
+out = inference.load_compiled(inference.export_compiled(inf, feed))(
+    inf.params, inf.state, feed)
+assert out["m"].value.shape == (4, 8)
+assert not any(k.split(".")[0] in FORBIDDEN for k in sys.modules)
+print("EXPORTED", len(mods))
+""".replace("FORBIDDEN", repr(set(FORBIDDEN)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(names))
+
+
 @pytest.mark.parametrize("src", ["SERVING_REPLICA_SRC",
                                  "SHARDED_CTR_TRAINER_SRC"])
 def test_harness_sources_import_only_the_port(src):

@@ -149,5 +149,5 @@ def test_serving_model_contract(params):
         if want and want[-1] == EOS:
             want = want[:-1]
         assert row["tokens"] == want
-    assert model.recompile_guards == ()
+    assert [g.label for g in model.recompile_guards] == ["paged_lm"]
     assert model.tokens_per_dispatch == 1

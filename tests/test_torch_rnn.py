@@ -7,12 +7,12 @@ references `lstm_ref`/`gru_ref` and its Pallas kernels in interpret
 mode, as `test_pallas_kernels.py` runs them, once with the default VMEM
 budget (one time block) and once with the budget patched down so that
 the kernels walk two time blocks and carry h/c across the boundary —
-and through the port's plain versions and autograd Functions:
+and through the port's plain versions and custom ops:
 
 - forward: `lstm_plain` (y and the cell sequence c) and `gru_plain`
   within 1e-5 (atol) of both JAX versions;
 - backward: `lstm_bwd_plain`/`gru_bwd_plain` and autograd through
-  `LstmSeq`/`GruSeq` within 2e-4 (atol) of `jax.vjp` of the
+  `lstm_seq`/`gru_seq` (the ops) within 2e-4 (atol) of `jax.vjp` of the
   interpret-mode kernels;
 - every function of `ops/sequence_ops.py` against the JAX original
   (exact up to f32 summation order, 1e-6);
@@ -152,7 +152,7 @@ def test_lstm_backward_matches_jax(budget):
                                    atol=2e-4, err_msg=name)
     leaves = [v.clone().requires_grad_(True) for v in (x, w, b7)]
     before = (rnn.lstm_fwd_launches, rnn.lstm_bwd_launches)
-    rnn.LstmSeq.apply(*leaves, lens).backward(tdy)
+    rnn.lstm_seq(*leaves, lens).backward(tdy)
     assert (rnn.lstm_fwd_launches, rnn.lstm_bwd_launches) == before
     for leaf, want in zip(leaves, (jx, jw, jb7)):
         np.testing.assert_allclose(leaf.grad.numpy(), want, atol=2e-4)
@@ -173,7 +173,7 @@ def test_gru_backward_matches_jax(budget):
         np.testing.assert_allclose(got.numpy(), w, atol=2e-4, err_msg=name)
     leaves = [v.clone().requires_grad_(True) for v in targs]
     before = (rnn.gru_fwd_launches, rnn.gru_bwd_launches)
-    rnn.GruSeq.apply(*leaves, lens).backward(tdy)
+    rnn.gru_seq(*leaves, lens).backward(tdy)
     assert (rnn.gru_fwd_launches, rnn.gru_bwd_launches) == before
     for leaf, w in zip(leaves, want):
         np.testing.assert_allclose(leaf.grad.numpy(), w, atol=2e-4)
@@ -181,7 +181,7 @@ def test_gru_backward_matches_jax(budget):
 
 def test_entry_points_take_the_plain_versions_on_the_cpu():
     """lstm_fused without gradients is the plain forward; with them the
-    autograd Function, whose gradient is autograd's through the plain
+    op's autograd formula, whose gradient is autograd's through the plain
     forward. gru_fused likewise. No kernel is counted."""
     args, dy = _lstm_inputs(seed=4, h=8)
     lens = torch.from_numpy(LENS)
@@ -262,7 +262,7 @@ WIDE_GRU = {"h336": (4, 5, 336, [5, 0, 2, 4]),
 @pytest.mark.parametrize("case", sorted(WIDE_GRU))
 def test_gru_matches_jax_past_the_cluster_widths(case):
     """gru_plain within 1e-5 of `gru_ref` and the interpret-mode
-    `gru_fused`; gru_bwd_plain and autograd through GruSeq within 2e-4
+    `gru_fused`; gru_bwd_plain and autograd through gru_seq within 2e-4
     of `jax.vjp` of `gru_fused`, exactly 0 past each row's length."""
     b, t, h, lens = WIDE_GRU[case]
     args, dy = _gru_inputs(seed=11, b=b, t=t, h=h, w_scale=h ** -0.5)
@@ -284,7 +284,7 @@ def test_gru_matches_jax_past_the_cluster_widths(case):
         np.testing.assert_allclose(g.numpy(), w, atol=2e-4, err_msg=name)
     np.testing.assert_array_equal(got[0].numpy()[dead], 0.0)
     leaves = [v.clone().requires_grad_(True) for v in targs]
-    rnn.GruSeq.apply(*leaves, tl).backward(tdy)
+    rnn.gru_seq(*leaves, tl).backward(tdy)
     for leaf, w in zip(leaves, want):
         np.testing.assert_allclose(leaf.grad.numpy(), w, atol=2e-4)
 

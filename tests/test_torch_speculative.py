@@ -174,8 +174,8 @@ def test_rejects_beam_search_decoders_and_mismatched_ids():
                      bos_id=BOS, eos_id=2, beam_size=1, max_length=17)
     with pytest.raises(AssertionError, match="eos_id"):
         TSpec(_target("torch"), other_eos)
-    assert TSpec(_target("torch"), _draft("torch", "d")).recompile_guards \
-        == []
+    assert [g.label for g in TSpec(_target("torch"), _draft(
+        "torch", "d")).recompile_guards] == ["spec_decode"]
 
 
 def test_position_independent_logprob_fn_matches_jax():
@@ -285,7 +285,9 @@ def test_generation_model_spec_path_behind_the_server():
     ref = _greedy(table, 1)
     model = _spec_model(_rand_table(99), table,
                         named_hooks={"noop": BeamHooks()})
-    assert model.tokens_per_dispatch == 1 and model.recompile_guards == ()
+    assert model.tokens_per_dispatch == 1
+    assert [g.label for g in model.recompile_guards] == ["beam_decode",
+                                                         "spec_decode"]
     srv = InferenceServer(ServeConfig(max_queue=8, max_batch=1))
     srv.add_model("gen", model)
     try:

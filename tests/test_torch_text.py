@@ -6,7 +6,7 @@ on the same numpy parameters and feed (numpy seeds; B = 5, T = 13,
 lengths with a 0 and a 1). f32 on the CPU in both. The port's RNN layers
 run both of their arms: the sequence kernels' path (`use_pallas_rnn =
 True`, which on a CPU tensor runs the kernels' plain versions through
-the autograd Functions) and the masked scan (`False`); the JAX layers
+the custom ops) and the masked scan (`False`); the JAX layers
 run their scan.
 
 - Each new layer type — lstmemory and grumemory (forward and reversed,

@@ -233,8 +233,15 @@ def test_moe_in_a_v1_config_names_roadmap_a8(tmp_path):
         'Layer(name="x", type="data", size=8)\n'
         'Layer(name="m", type="moe", size=8, inputs=["x"], num_experts=2)\n')
     conf = tcp.parse_config(str(path)).model
-    with pytest.raises(NotImplementedError, match="moe.*A8"):
-        TNetwork(conf)
+    assert conf.to_json() == jcp.parse_config(str(path)).model.to_json()
+    # the layer runs on one card since the moe port; the expert weights
+    # carry the `expert_sharded` mark that ROADMAP A8's mesh placement
+    # reads
+    net = TNetwork(conf)
+    pcs = net.param_confs
+    assert sorted(pcs) == ["_m.w0", "_m.w0_in", "_m.w0_out"]
+    assert pcs["_m.w0_in"].expert_sharded and pcs["_m.w0_out"].expert_sharded
+    assert not pcs["_m.w0"].expert_sharded
 
 
 def _cli(pkg, args, cwd, timeout=300):
