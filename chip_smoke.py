@@ -404,7 +404,20 @@ exits non-zero:
     one keeps serving); (e) the moe layer (D 512, hidden 2048, 8
     experts, 4096 tokens) trained 3 adam steps on the card, f32 and
     under the bf16 flag, against the same steps on the CPU;
-26. prints the kernels' JSON line and, last, the device line.
+26. the mesh (`core/mesh.py`, `parallel/`): (a) a one-rank NCCL world,
+    the fused ResNet-50 AMP step at B = 256 through TrainStep(mesh=
+    {data: 1}) bit-equal to the meshless step for 3 steps, and `multi`
+    at K = 10 as a CUDA graph with its NCCL calls captured, bit-equal to
+    eager by 18c's rule; then one gloo world of 2 ranks sharing the card
+    (spawned once): (b) DP ResNet-50 at a global B = 256 and
+    mc_lstm_h512_tbs256_dp2's classifier against the one-rank step, f32
+    and under the bf16 flag, the bf16 hold on two res4 blocks, and an
+    async pass of the DP ranks loaded back; (c) Ulysses (flash) and the
+    ring at T = 32 768 over {data: 1, seq: 2} against the one-rank flash
+    step; (d) GPipe over 2 stages; (e) moe with its experts over model =
+    2; (f) the sharded tier with one shard a rank against the
+    one-process two-shard tier;
+27. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -414,8 +427,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1715,6 +1730,10 @@ RESNET_STEPS = 30
 RESNET_AMP_BATCH = 256
 RESNET_AMP_STEPS = 20
 RESNET_AMP_PLAIN_STEPS = 10
+# steps a ResNet-50 run's profile covers (~5 800 kernels a step): cut
+# from 5 to 2 when phase 26 brought the smoke's result line to 1052.9 s
+# on an H100, where the four 5-step windows took 87 s
+RESNET_PROFILE_STEPS = 2
 
 
 def fused_inputs(torch, gen, n, cin, cout, with_res):
@@ -2284,7 +2303,7 @@ def resnet_train(torch, op, conf, batch, steps, name, amp=False):
                                if "bf16" in c}}
         print(f"train {name} " + json.dumps(r), flush=True)
         assert np.isfinite(costs).all(), f"{name}: a loss is not finite"
-        prof = profile_steps(torch, sgd, feed)
+        prof = profile_steps(torch, sgd, feed, RESNET_PROFILE_STEPS)
     finally:
         set_amp(False)
     if prof is not None:
@@ -3040,8 +3059,11 @@ def held_text_step(torch, conf, feed, lr, name, fixed_pool=False):
 # steps a training run's profile covers: the scan arms (the kernels'
 # reference) launch 7 000-15 000 kernels a step, and the profiler's
 # post-processing of 5 such steps took 20-44 s a run on an H100's host,
-# most of phases 13-13d; one step gives their device ms and top kernels
-PROFILE_STEPS = {"kernels": 5, "scan": 1}
+# most of phases 13-13d; one step gives their device ms and top kernels.
+# The kernel arms' windows were cut from 5 steps to 2 when phase 26 made
+# the whole smoke reach its result line at 1052.9 s on an H100: the
+# NMT's 5-step profile took 15.2 s
+PROFILE_STEPS = {"kernels": 2, "scan": 1}
 
 
 def text_train(torch, rnn, conf, feed, lr, steps, tokens, name,
@@ -8782,13 +8804,1041 @@ def ops_export_guard_moe(torch, fop, fa, rnn, sr, gen, dev="cuda"):
     return out
 
 
-def sparse_kernel_rows(checks, times, standalone, wide_deep, tier, slice24):
+# ---- phase 26: the mesh ----------------------------------------------------
+
+# 26a/26b: bench_resnet50's fused ResNet-50 at B = 256 (momentum, as
+# phases 9 and 9c); 26a's multi-step chunk
+MESH_RESNET_B, MESH_K = 256, 10
+# 26b: mc_lstm_h512_tbs256_dp2 (bench_multichip.py:178-196, :849-864):
+# h = 512, 2 layers, total batch 256, T = 100, adam 2e-3
+MESH_CLS = dict(CLS, hidden=512)
+MESH_CLS_B, MESH_CLS_LR = 256, 2e-3
+# 26c: mc_longctx_{ulysses,ring}_t32768_sp2 (bench_multichip.py:262-330):
+# LONGCTX's widths at B = 1, T = 32 768, adam 1e-3, under the bf16 flag
+MESH_LONGCTX_T, MESH_LONGCTX_STEPS = 32768, 3
+# 26d: two fc stages at d = 1024, 8 microbatches of 256 rows
+MESH_PIPE = dict(d=1024, micro=8, rows=256, steps=3)
+# 26f: the tier at _bench_ctr_bigvocab's setting (24f's CTR_BIG), one
+# shard a rank
+MESH_TIER = dict(rows_total=CTR_BIG["ROWS_TOTAL"], dim=CTR_BIG["DIM"],
+                 capacity=CTR_BIG["CAPACITY"],
+                 num_slots=CTR_BIG["NUM_SLOTS"])
+MESH_TIER_LR = 0.5
+MESH_MOE_TOL = 1e-5
+MESH_RANKS = 2
+
+
+def mesh_resnet(fused=True):
+    from paddle_tpu_torch.models.image import resnet
+    from paddle_tpu_torch.network import Network
+
+    return Network(resnet(50, (224, 224, 3), 1000, fused=fused))
+
+
+def mesh_image_feed(batch, seed, dev="cuda"):
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+
+    rng = np.random.default_rng(seed)
+    image = rng.standard_normal((batch, 224, 224, 3)).astype(np.float32)
+    label = rng.integers(0, 1000, batch).astype(np.int32)
+    return {"image": non_seq(image, device=dev),
+            "label": id_arg(label, device=dev)}
+
+
+def mesh_step(torch, net, opt_kw, p, st, feed, mesh=None, amp=False,
+              keep=None, steps=1, save_dir=None):
+    """`steps` TrainSteps of `net` from (p, st) on `feed` (one feed, or
+    a list), with a mesh or without: {loss, health, slots, state,
+    params, ms, peak_gb, step}."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+
+    set_amp(amp)
+    try:
+        opt = create_optimizer(OptimizationConf(**opt_kw), net.param_confs)
+        step = TrainStep(net, opt, watchdog=True, device="cuda", mesh=mesh,
+                         keep_outputs=keep)
+        o = opt.init_state(p)
+        if mesh is not None:
+            p, o, st = step.place(p, o, st)
+        feeds = feed if isinstance(feed, list) else [feed] * steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        healths, outs, ms = [], [], []
+        for i, f in enumerate(feeds):
+            t0 = time.perf_counter()
+            p, o, st, h, out = step(p, o, st, f, i, None)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            healths.append(h)
+            outs.append(out)
+        if save_dir is not None:
+            from paddle_tpu_torch.trainer.async_checkpoint import \
+                AsyncCheckpointer
+
+            with AsyncCheckpointer(save_dir) as ck:
+                ck.save(0, p, o, st, shards=step.shard_layout(o))
+            if mesh is not None and mesh.distributed:
+                import torch.distributed as dist
+
+                dist.barrier()  # every rank's shard file has landed
+        return {"health": torch.stack(healths), "slots": o, "state": st,
+                "params": p, "outs": outs, "ms": ms, "step": step,
+                "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finally:
+        set_amp(False)
+
+
+def tree_np(tree):
+    """Nested dicts of tensors as numpy on the host."""
+    if isinstance(tree, dict):
+        return {k: tree_np(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
+
+
+def tree_sums(tree):
+    """{leaf path: (sum, sum of |x|)} in f64: a cross-rank fingerprint."""
+    return {k: (float(v.double().sum()), float(v.double().abs().sum()))
+            for k, v in leaves(tree).items()}
+
+
+def max_rel(got, want):
+    """max |got - want| / max |want| (numpy), 0 for an all-zero want."""
+    scale = float(np.abs(want).max()) if want.size else 0.0
+    return float(np.abs(got - want).max()) / scale if scale else 0.0
+
+
+def rel_l2_np(got, want):
+    n = float(np.linalg.norm(want.astype(np.float64)))
+    d = float(np.linalg.norm((got - want).astype(np.float64)))
+    return d / n if n else d
+
+
+def rank_result(mesh, out, full=False):
+    """What a rank hands back: the health rows, ms and peak memory, its
+    host-staged bytes, a fingerprint of its slots and state; with `full`
+    (rank 0) the slots and state themselves."""
+    r = {"rank": mesh.rank, "health": out["health"].cpu().numpy().tolist(),
+         "ms": out["ms"], "peak_gb": out["peak_gb"],
+         "host_bytes": mesh.host_bytes,
+         "sums": tree_sums({"slots": out["slots"], "state": out["state"]})}
+    if full:
+        r["slots"] = tree_np(out["slots"])
+        r["state"] = tree_np(out["state"])
+    return r
+
+
+def rank_counts(mod, names):
+    return {n: getattr(mod, n) for n in names}
+
+
+def gate_fingerprints(torch, net, p, st, feed, mesh=None):
+    """{gate site: [rows] int64}: per row of the batch a fingerprint of
+    the ReLU gates (the signs) at each gate site of the fused ResNet
+    graph (relu_gates' sites, the tail's in-gate recomputed), from one
+    train-mode forward; on a mesh this rank's rows of the global batch.
+    Two rows with one flipped gate differ (a sum of position hashes)."""
+    from paddle_tpu_torch.core.mesh import batch_context
+    from paddle_tpu_torch.layers.norm import bn_affine, moments
+
+    def rows(v):
+        g = (v > 0).reshape(v.shape[0], -1)
+        pos = torch.arange(g.shape[1], device=g.device, dtype=torch.int64)
+        h = (pos * 2654435761 + 12345) % 2147483647
+        return (g * h).sum(1).cpu().numpy()
+
+    out = {}
+    with torch.no_grad(), batch_context(mesh):
+        outs, _ = net.forward(p, feed, state=st, train=True)
+        for name in net.order:
+            lc = net.conf.layer(name)
+            if (lc.type == "batch_norm" and lc.active_type == "relu"
+                    or lc.type == "fused_conv1x1_bn"):
+                vs = [outs[name].value]
+            elif lc.type == "fused_bottleneck_tail":
+                x = outs[lc.input_names()[0]].value
+                scale, shift = bn_affine(p[f"_{name}.bnig"],
+                                         p[f"_{name}.bnib"], *moments(x),
+                                         1e-5)
+                vs = [outs[name].value, x * scale + shift]
+            else:
+                continue
+            out[name] = np.stack([rows(v) for v in vs])
+        del outs
+    return out
+
+
+def mesh_rank_resnet(amp, save_dir=None):
+    """26b's rank: the fused ResNet-50 DP step at a global B = 256 over
+    the world's data axis (128 a rank), from the seed's weights; with
+    `save_dir`, the step's pass saved async (every rank its shard file)
+    and loaded back by rank 0, bit for bit."""
+    import torch
+
+    from paddle_tpu_torch.core import mesh as tmesh
+    from paddle_tpu_torch.ops import bn_act_conv1x1 as fop
+
+    mesh = tmesh.make_mesh({"data": -1})
+    net = mesh_resnet()
+    p = net.init_params(torch.Generator().manual_seed(SEED), device="cuda")
+    feed = mesh_image_feed(MESH_RESNET_B, SEED + 260)
+    for c in FUSED_COUNTERS:
+        setattr(fop, c, 0)
+    out = mesh_step(torch, net, RESNET_OPT, p, net.init_state("cuda"), feed,
+                    mesh=mesh, amp=amp, save_dir=save_dir)
+    r = rank_result(mesh, out, full=mesh.rank == 0)
+    r["launches"] = rank_counts(fop, FUSED_COUNTERS)
+    if not amp:
+        del out["outs"]
+        torch.cuda.empty_cache()
+        set_amp(amp)
+        try:
+            from paddle_tpu_torch.parallel.dp import shard_feed
+
+            r["gates"] = gate_fingerprints(torch, net, p,
+                                           net.init_state("cuda"),
+                                           shard_feed(feed, mesh), mesh)
+        finally:
+            set_amp(False)
+    if save_dir is not None and mesh.rank == 0:
+        from paddle_tpu_torch.trainer.async_checkpoint import load_pass
+
+        tree, _meta = load_pass(save_dir)
+        r["pass_bit_equal"] = all(
+            np.array_equal(tree["params"][k], v.cpu().numpy())
+            for k, v in out["params"].items()) and all(
+            np.array_equal(tree["opt_state"][k][s], t.cpu().numpy())
+            for k, slots in out["slots"].items() for s, t in slots.items())
+    return r
+
+
+def mesh_rank_blocks(feed_np, amp=True):
+    """26b's holds on AMP_BLOCKS' net: the fused DP step (under the bf16
+    flag with `amp`) over the data axis from the seed's weights (mapped
+    from the plain net's); in f32 also the gate fingerprints of the
+    rank's rows."""
+    import torch
+
+    from paddle_tpu_torch.core import mesh as tmesh
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+    from paddle_tpu_torch.weights import fused_resnet_from_plain
+
+    mesh = tmesh.make_mesh({"data": -1})
+    plain, fused = amp_blocks_net(False), amp_blocks_net(True)
+    params = plain.init_params(torch.Generator().manual_seed(SEED),
+                               device="cuda")
+    fp, fs = fused_resnet_from_plain(fused, params, plain.init_state("cuda"))
+    feed = {"image": non_seq(feed_np["image"], device="cuda"),
+            "label": id_arg(feed_np["label"], device="cuda")}
+    out = mesh_step(torch, fused, RESNET_OPT, fp, fs, feed, mesh=mesh,
+                    amp=amp)
+    r = rank_result(mesh, out, full=mesh.rank == 0)
+    if not amp:
+        from paddle_tpu_torch.parallel.dp import shard_feed
+
+        r["gates"] = gate_fingerprints(torch, fused, fp, fs,
+                                       shard_feed(feed, mesh), mesh)
+    return r
+
+
+def mesh_cls_feed(dev="cuda"):
+    from paddle_tpu_torch.core.arg import id_arg
+
+    rng = np.random.default_rng(SEED + 261)
+    lens = rng.integers(1, CLS_T + 1, MESH_CLS_B).astype(np.int32)
+    return {"words": id_arg(rng.integers(0, MESH_CLS["vocab_size"],
+                                         (MESH_CLS_B, CLS_T))
+                            .astype(np.int32), lens, device=dev),
+            "label": id_arg(rng.integers(0, 2, MESH_CLS_B).astype(np.int32),
+                            device=dev)}
+
+
+def mesh_cls_net():
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.network import Network
+
+    return Network(stacked_lstm_classifier(**MESH_CLS))
+
+
+def mesh_rank_classifier(amp):
+    """26b's rank: mc_lstm_h512_tbs256_dp2's classifier, one adam DP step
+    at a global B = 256 with ragged lengths (B5/B6 on the grid route)."""
+    import torch
+
+    from paddle_tpu_torch.core import mesh as tmesh
+    from paddle_tpu_torch.ops import rnn
+
+    mesh = tmesh.make_mesh({"data": -1})
+    net = mesh_cls_net()
+    p = net.init_params(torch.Generator().manual_seed(SEED + 262),
+                        device="cuda")
+    zero_rnn_counts(rnn)
+    out = mesh_step(torch, net, dict(learning_method="adam",
+                                     learning_rate=MESH_CLS_LR), p, {},
+                    mesh_cls_feed(), mesh=mesh, amp=amp)
+    r = rank_result(mesh, out, full=mesh.rank == 0)
+    r["launches"] = rnn_counts(rnn)
+    return r
+
+
+def mesh_longctx_conf(mode):
+    """longctx_conf at LONGCTX's widths with `seq_parallel` = mode
+    ("none": the one-rank flash step)."""
+    conf = longctx_conf(attn_impl="flash", **LONGCTX)
+    for lc in conf.layers:
+        if lc.type == "multi_head_attention":
+            lc.attrs["seq_parallel"] = mode
+    return conf
+
+
+def mesh_longctx_steps(torch, mode, mesh=None):
+    """MESH_LONGCTX_STEPS adam steps of the long-context model under the
+    bf16 flag at B = 1, T = 32 768 from the seed's weights: the health
+    rows, the first step's first moments, ms, peak memory."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+    from paddle_tpu_torch.weights import params_from_numpy
+
+    net = Network(mesh_longctx_conf(mode))
+    opt = create_optimizer(OptimizationConf(
+        learning_method="adam", learning_rate=LONGCTX_LR), net.param_confs)
+    p = params_from_numpy(longctx_params(torch), "cuda")
+    feed = longctx_feed(1, MESH_LONGCTX_T, classes=LONGCTX["classes"],
+                        vocab=LONGCTX["vocab"])
+    step = TrainStep(net, opt, watchdog=True, device="cuda", mesh=mesh)
+    o = opt.init_state(p)
+    set_amp(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        healths, ms, first = [], [], None
+        for i in range(MESH_LONGCTX_STEPS):
+            t0 = time.perf_counter()
+            p, o, _s, h, _o = step(p, o, {}, feed, i, None)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            healths.append(h.cpu().numpy().tolist())
+            if first is None:
+                first = {k: {"m": v["m"].clone()} for k, v in o.items()}
+        return {"health": healths, "m": first, "ms": ms,
+                "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finally:
+        set_amp(False)
+
+
+def mesh_rank_longctx(mode):
+    """26c's rank: the long-context model with seq_parallel = mode over
+    a {data: 1, seq: 2} mesh (the flash kernels' bf16 forms on the
+    Ulysses arm, counted)."""
+    import torch
+
+    from paddle_tpu_torch.core import mesh as tmesh
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    mesh = tmesh.make_mesh({"data": 1, "seq": -1})
+    tmesh.set_mesh(mesh)
+    for c in fa.COUNTERS:
+        setattr(fa, c, 0)
+    out = mesh_longctx_steps(torch, mode, mesh)
+    r = {"rank": mesh.rank, "health": out["health"], "ms": out["ms"],
+         "peak_gb": out["peak_gb"], "host_bytes": mesh.host_bytes,
+         "launches": rank_counts(fa, fa.COUNTERS)}
+    if mesh.rank == 0:
+        r["m"] = tree_np(out["m"])
+    return r
+
+
+def mesh_pipe_inputs(torch):
+    g = torch.Generator().manual_seed(SEED + 263)
+    d, s = MESH_PIPE["d"], MESH_RANKS
+    w = torch.randn((s, d, d), generator=g) / d ** 0.5
+    b = 0.1 * torch.randn((s, d), generator=g)
+    xs = torch.randn((MESH_PIPE["micro"], MESH_PIPE["rows"], d), generator=g)
+    ct = torch.randn(xs.shape, generator=g)
+    return w, b, xs, ct
+
+
+def _pipe_stage(p, x):
+    import torch
+
+    return torch.relu(x @ p["w"] + p["b"])
+
+
+def mesh_rank_pipeline():
+    """26d's rank: GPipe over a {pipe: 2} mesh, one fc stage a rank, held
+    against the sequential stack on the same rank: outputs and the
+    gradients of its stage and of the microbatches under one cotangent
+    within TOL of the largest entry."""
+    import torch
+
+    from paddle_tpu_torch.core import mesh as tmesh
+    from paddle_tpu_torch.parallel import pipeline as tpipe
+
+    mesh = tmesh.make_mesh({"pipe": -1})
+    w, b, xs, ct = (t.to("cuda") for t in mesh_pipe_inputs(torch))
+    stage = tpipe.shard_stacked_params(mesh, "pipe", {"w": w, "b": b})
+    ms = []
+    for _ in range(MESH_PIPE["steps"]):
+        p = {k: v.detach().requires_grad_(True) for k, v in stage.items()}
+        x = xs.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tpipe.pipeline_apply(mesh, "pipe", _pipe_stage, p, x)
+        grads = torch.autograd.grad(out, [p["w"], p["b"], x], ct)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    i = mesh.axis_index("pipe")
+    ps = [{"w": w[s].detach().requires_grad_(True),
+           "b": b[s].detach().requires_grad_(True)}
+          for s in range(MESH_RANKS)]
+    x = xs.detach().requires_grad_(True)
+    h = x
+    for sp in ps:
+        h = _pipe_stage(sp, h)
+    want = torch.autograd.grad(h, [ps[i]["w"], ps[i]["b"], x], ct)
+    err = {"out": max_rel(out.detach().cpu().numpy(),
+                          h.detach().cpu().numpy())}
+    for name, a, c in zip(("dw", "db", "dx"), grads, want):
+        if name == "dx" and i != 0:
+            continue  # the microbatches' gradient reaches stage 0
+        err[name] = max_rel(a.cpu().numpy(), c.cpu().numpy())
+    return {"rank": mesh.rank, "stage": i, "ms": ms, "err": err,
+            "host_bytes": mesh.host_bytes,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def mesh_moe_inputs(torch):
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+    from paddle_tpu_torch.network import Network
+
+    params = Network(moe_conf()).init_params(
+        torch.Generator().manual_seed(SEED + 256), device="cpu")
+    rng = np.random.default_rng(SEED + 257)
+    feed = {"x": non_seq(rng.standard_normal(
+        (MOE["tokens"], MOE["d"])).astype(np.float32), device="cuda"),
+        "label": id_arg(rng.integers(0, MOE["classes"], MOE["tokens"])
+                        .astype(np.int32), device="cuda")}
+    return params, feed
+
+
+def mesh_rank_moe():
+    """26e's rank: the moe conf's adam steps with the experts over
+    {data: 1, model: 2} (4 experts a rank, the dispatch an all-to-all)."""
+    import torch
+
+    from paddle_tpu_torch.core import mesh as tmesh
+    from paddle_tpu_torch.network import Network
+
+    mesh = tmesh.make_mesh({"data": 1, "model": -1})
+    tmesh.set_mesh(mesh)
+    params, feed = mesh_moe_inputs(torch)
+    net = Network(moe_conf())
+    out = mesh_step(torch, net, dict(learning_method="adam",
+                                     learning_rate=MOE["lr"]),
+                    {k: v.to("cuda") for k, v in params.items()},
+                    net.init_state("cuda"), feed, mesh=mesh,
+                    keep=["moe@aux"], steps=MOE["steps"])
+    return {"rank": mesh.rank,
+            "losses": [float(h[0]) for h in out["health"]],
+            "aux": [float(o["moe@aux"].value.float().sum())
+                    for o in out["outs"]],
+            "experts_local": tuple(out["params"]["_moe.w0_in"].shape),
+            "ms": out["ms"], "peak_gb": out["peak_gb"],
+            "host_bytes": mesh.host_bytes}
+
+
+def mesh_tier_stream():
+    rng = np.random.default_rng(SEED + 264)
+    hot = rng.integers(0, MESH_TIER["rows_total"], CTR_BIG["HOT"])
+    n = CTR_BIG["BATCH"] * CTR_BIG["FEATS"]
+    return [(hot[rng.integers(0, len(hot), n)],
+             rng.standard_normal((n, MESH_TIER["dim"])).astype(np.float32))
+            for _ in range(CTR_BIG["BATCHES"])]
+
+
+def mesh_tier_run(torch, tss, table):
+    for ids, grads in mesh_tier_stream():
+        table.lookup(ids)
+        table.update(ids, grads)
+    torch.cuda.synchronize()
+    return table.export_shards()
+
+
+def mesh_rank_tier():
+    """26f's rank: the sharded tier with one of its 2 shards on each rank
+    of the data axis, every rank given the same stream; B9 updates the
+    rank's rows."""
+    import torch
+
+    from paddle_tpu_torch.core import mesh as tmesh
+    from paddle_tpu_torch.ops import sparse_rows as sr
+    from paddle_tpu_torch.parallel import sparse_shard as tss
+
+    mesh = tmesh.make_mesh({"data": -1})
+    table = tss.ShardedEmbeddingTable(
+        tss.ShardedTableConfig(**MESH_TIER), num_shards=MESH_RANKS,
+        update_fn=tss.sgd_row_update(MESH_TIER_LR), device="cuda",
+        mesh=mesh, axis="data")
+    zero_sparse_counts(sr)
+    t0 = time.perf_counter()
+    payloads = mesh_tier_run(torch, tss, table)
+    r = {"rank": mesh.rank, "wall_s": time.perf_counter() - t0,
+         "local_shards": table.local_shards, "stats": dict(table.stats),
+         "launches": sparse_counts(sr), "cache_rows": table._S}
+    if mesh.rank == 0:
+        r["payloads"] = payloads
+    return r
+
+
+def print_mesh(name, r):
+    print(f"mesh {name} " + json.dumps(r, default=float), flush=True)
+
+
+def mesh_one_rank_nccl(torch, op, work):
+    """26a: a one-rank NCCL world on the card. The fused ResNet-50 AMP
+    step at B = 256 through TrainStep(mesh={data: 1}) (its BN sums, the
+    gradients' and the loss's all-reduces and the watchdog's min are
+    NCCL calls) against the meshless step, 3 steps, bit-equal where two
+    meshless runs agree (18c's rule); then `multi` at K = 10 as a CUDA
+    graph with the NCCL calls captured, against two eager chunks of the
+    mesh step by the same rule, and a second replay timed (it issues no
+    collective from Python: they are in the graph)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core import mesh as tmesh
+    from paddle_tpu_torch.core import rng as trng
+    from paddle_tpu_torch.parallel.dp import stack_feeds
+
+    tmesh.distributed_init(num_processes=1, process_id=0, device="cuda",
+                           store=dist.FileStore(
+                               os.path.join(work, "nccl_store"), 1))
+    out = {}
+    try:
+        mesh = tmesh.make_mesh({"data": 1})
+        assert mesh.backend == "nccl" and mesh.distributed, mesh
+        net = mesh_resnet()
+        p0 = net.init_params(torch.Generator().manual_seed(SEED),
+                             device="cuda")
+        s0 = net.init_state("cuda")
+        feeds = [mesh_image_feed(MESH_RESNET_B, SEED + 265 + i)
+                 for i in range(MESH_K)]
+        for c in FUSED_COUNTERS:
+            setattr(op, c, 0)
+        arms = {}
+        for arm, m in (("meshless", None), ("meshless_again", None),
+                       ("mesh", mesh)):
+            got = mesh_step(torch, net, RESNET_OPT, p0, s0, feeds[:3],
+                            mesh=m, amp=True)
+            arms[arm] = {"health": got["health"], **leaves(got["params"],
+                         "param/"), **leaves(got["slots"], "slot/"),
+                         **leaves(got["state"], "state/")}
+            arms[arm + "_ms"] = got["ms"]
+            del got
+        nondet = held_graph_vs_eager(torch, "26a mesh vs meshless",
+                                     arms["meshless"],
+                                     arms["meshless_again"], arms["mesh"])
+        out["three_steps"] = {
+            "ms_meshless": arms["meshless_ms"], "ms_mesh": arms["mesh_ms"],
+            "leaves_held": len(arms["mesh"]), "meshless_runs_differ": nondet,
+            "health": arms["mesh"]["health"].cpu().numpy().tolist()}
+        del arms
+        torch.cuda.empty_cache()
+        # K = 10: two eager chunks of the mesh step, then the graph
+        from paddle_tpu_torch.core.config import OptimizationConf
+        from paddle_tpu_torch.optimizers import create_optimizer
+        from paddle_tpu_torch.parallel.dp import TrainStep
+
+        root = trng.generator(SEED + 266, "cuda")
+        chunks = {}
+        set_amp(True)
+        try:
+            for arm in ("eager", "eager_again", "graph"):
+                opt = create_optimizer(OptimizationConf(**RESNET_OPT),
+                                       net.param_confs)
+                step = TrainStep(net, opt, watchdog=True, device="cuda",
+                                 mesh=mesh)
+                p = {k: v.clone() for k, v in p0.items()}
+                o = opt.init_state(p)
+                s = {k: {sl: t.clone() for sl, t in v.items()}
+                     for k, v in s0.items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                calls0 = mesh.calls
+                if arm == "graph":
+                    # the first call: one warm-up step, then the capture
+                    p, o, s, h, _ = step.multi(p, o, s, stack_feeds(feeds),
+                                               0, root)
+                else:
+                    hs = []
+                    for k, f in enumerate(feeds):
+                        p, o, s, h1, _ = step(p, o, s, f, k,
+                                              trng.split_for_step(root, k))
+                        hs.append(h1)
+                    h = torch.stack(hs)
+                torch.cuda.synchronize()
+                chunks[arm] = {"ms": (time.perf_counter() - t0) / MESH_K
+                               * 1e3, "calls": mesh.calls - calls0,
+                               "step": step, "p": p, "o": o, "s": s,
+                               "held": {"health": h, **leaves(p, "param/"),
+                                        **leaves(o, "slot/"),
+                                        **leaves(s, "state/")}}
+            g = chunks["graph"]
+            nondet = held_graph_vs_eager(torch, "26a graph vs eager",
+                                         chunks["eager"]["held"],
+                                         chunks["eager_again"]["held"],
+                                         g["held"])
+            stacked = stack_feeds(feeds)
+            calls0 = mesh.calls
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g["step"].multi(g["p"], g["o"], g["s"], stacked, MESH_K, root)
+            torch.cuda.synchronize()
+            replay_ms = (time.perf_counter() - t0) * 1e3
+            replay_calls = mesh.calls - calls0
+        finally:
+            set_amp(False)
+        out["graph"] = {
+            "k": MESH_K, "graphs_captured": g["step"].graphs_captured,
+            "ms_per_step_eager": chunks["eager"]["ms"],
+            "ms_per_step_graph_first_chunk": g["ms"],
+            "ms_per_step_replay": replay_ms / MESH_K,
+            "collectives_per_eager_chunk": chunks["eager"]["calls"],
+            "collectives_in_warmup_and_capture": g["calls"],
+            "collectives_issued_by_a_replay": replay_calls,
+            "eager_runs_differ": nondet,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "host_bytes": mesh.host_bytes}
+        out["launches"] = rank_counts(op, FUSED_COUNTERS)
+        print_mesh("26a one-rank nccl resnet50 amp b256", out)
+        gr = out["graph"]
+        assert gr["graphs_captured"] == 1, gr
+        # the capture recorded the K steps' NCCL calls (and a warm-up
+        # step's); a replay runs them without issuing any from Python
+        assert gr["collectives_in_warmup_and_capture"] == \
+            (MESH_K + 1) * gr["collectives_per_eager_chunk"] // MESH_K, gr
+        assert gr["collectives_issued_by_a_replay"] == 0, gr
+        assert mesh.host_bytes == 0, "a host copy under NCCL"
+        for c in chunks.values():
+            if c["step"].graphs is not None:
+                c["step"].graphs.release()
+        del chunks, g
+    finally:
+        dist.destroy_process_group()
+        tmesh.set_mesh(None)
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dp_resnet(torch, world, work):
+    """26b (ResNet-50): the DP step over 2 gloo ranks sharing the card
+    against the one-rank step at B = 256: f32 (loss, BN running
+    statistics and every gradient within TOL of the largest entry) and
+    under the bf16 flag (held as 9c(a) holds the fused AMP step: each
+    gradient against the one-rank f32 step's within twice the one-rank
+    AMP step's own distance + 1e-3, relative L2); then the bf16 hold
+    that can fail, on AMP_BLOCKS' net (held_amp_blocks' rule and
+    ceiling). The f32 ranks save an async pass, which rank 0 loads bit
+    for bit and this process loads whole."""
+    from paddle_tpu_torch.weights import fused_resnet_map
+
+    net = mesh_resnet()
+    p = net.init_params(torch.Generator().manual_seed(SEED), device="cuda")
+    feed = mesh_image_feed(MESH_RESNET_B, SEED + 260)
+    one = {}
+    for amp in (False, True):
+        got = mesh_step(torch, net, RESNET_OPT, p, net.init_state("cuda"),
+                        feed, amp=amp)
+        one[amp] = {"health": got["health"].cpu().numpy().tolist(),
+                    "slots": tree_np(got["slots"]),
+                    "state": tree_np(got["state"]), "ms": got["ms"],
+                    "peak_gb": got["peak_gb"]}
+        del got
+        torch.cuda.empty_cache()
+    gates = gate_fingerprints(torch, net, p, net.init_state("cuda"), feed)
+    del p, feed
+    torch.cuda.empty_cache()
+    save_dir = os.path.join(work, "mesh_pass")
+    ranks = {False: world.run(mesh_rank_resnet, False, save_dir),
+             True: world.run(mesh_rank_resnet, True)}
+    out = {}
+    for amp, rs in ranks.items():
+        r0, ref = rs[0], one[amp]
+        assert all(r["sums"] == r0["sums"] for r in rs), "ranks differ"
+        loss_rel = abs(r0["health"][0][0] - ref["health"][0][0]) / abs(
+            ref["health"][0][0])
+        state_rel = max(max_rel(r0["state"][l][s], ref["state"][l][s])
+                        for l in ref["state"] for s in ref["state"][l])
+        grad = {k: max_rel(r0["slots"][k]["mom"], ref["slots"][k]["mom"])
+                for k in ref["slots"]}
+        name = "bf16" if amp else "f32"
+        r = {"loss_dp": r0["health"][0][0], "loss_one": ref["health"][0][0],
+             "loss_rel": loss_rel, "state_rel_max": state_rel,
+             "grad_rel_max": max(grad.values()),
+             "grad_worst": max(grad, key=grad.get),
+             "grad_rel_l2_max": max(
+                 rel_l2_np(r0["slots"][k]["mom"], ref["slots"][k]["mom"])
+                 for k in ref["slots"]),
+             "finite": all(h[0][1] == 1.0 for h in (r0["health"],
+                                                     ref["health"])),
+             "ms_dp_rank": [r["ms"] for r in rs], "ms_one": ref["ms"],
+             "peak_gb_rank": [r["peak_gb"] for r in rs],
+             "peak_gb_one": ref["peak_gb"],
+             "host_bytes_rank": [r["host_bytes"] for r in rs],
+             "launches": {c: sum(r["launches"][c] for r in rs)
+                          for c in FUSED_COUNTERS}}
+        if amp:
+            f32 = one[False]["slots"]
+            own = {k: rel_l2_np(ref["slots"][k]["mom"], f32[k]["mom"])
+                   for k in f32}
+            dp = {k: rel_l2_np(r0["slots"][k]["mom"], f32[k]["mom"])
+                  for k in f32}
+            outside = [k for k in f32 if dp[k] > 2 * own[k] + 1e-3]
+            r.update(bound="2 x the one-rank AMP step's relative L2 from "
+                     "f32 + 1e-3", grads_outside_the_bound=outside,
+                     dp_vs_f32_rel_l2_max=max(dp.values()),
+                     one_vs_f32_rel_l2_max=max(own.values()))
+        else:
+            # phase 9's rule (`held_step`): a ReLU gate that flipped
+            # between the two forwards moves every gradient below it, so
+            # a gradient is held at TOL when its layer comes after every
+            # gate site where a row of the DP forward flipped
+            b = MESH_RESNET_B // MESH_RANKS
+            flips = {n: sum(int((x["gates"][n] != gates[n][:, i * b:
+                                                           (i + 1) * b])
+                                .any(0).sum()) for i, x in enumerate(rs))
+                     for n in gates}
+            index = {n: i for i, n in enumerate(net.order)}
+            top = max((index[n] for n, f in flips.items() if f), default=-1)
+            owner = {g: layer for layer, slots in net.layer_params.items()
+                     for g in slots.values()}
+            held = {k: e for k, e in grad.items() if index[owner[k]] > top}
+            free = {k: e for k, e in grad.items() if k not in held}
+            r.update(bound=TOL, pass_bit_equal=r0["pass_bit_equal"],
+                     gate_sites=len(gates),
+                     rows_with_flips_by_site={n: f for n, f in flips.items()
+                                              if f},
+                     grads_held=len(held), grads_total=len(grad),
+                     grad_rel_held_max=max(held.values(), default=0.0),
+                     grad_rel_unheld_max=max(free.values(), default=0.0))
+        print_mesh(f"26b dp resnet50 {name} b256 over {MESH_RANKS} ranks",
+                   r)
+        assert r["finite"], r
+        if amp:
+            assert r["loss_rel"] <= 0.05, r
+            assert not outside, f"26b bf16: outside the bound: {outside}"
+            assert all(r["launches"][c] for c in FUSED_COUNTERS
+                       if "bf16" in c), r
+        else:
+            assert loss_rel <= TOL and state_rel <= TOL, r
+            assert r["grad_rel_held_max"] <= TOL, r
+            assert r0["pass_bit_equal"], "the saved pass did not load back"
+            assert all(r["launches"][c] for c in FUSED_COUNTERS
+                       if "bf16" not in c), r
+        out[name] = r
+    # this process loads the ranks' pass whole
+    from paddle_tpu_torch.trainer.async_checkpoint import load_pass
+
+    tree, meta = load_pass(save_dir)
+    pmap, _smap = fused_resnet_map(net)
+    out["pass"] = {"leaves": len(leaves(tree)), "meta": meta,
+                   "shard_files": sorted(n for n in os.listdir(
+                       os.path.join(save_dir, "pass-00000"))
+                       if n.endswith(".npz"))}
+    assert out["pass"]["shard_files"] == ["shard-p0.npz", "shard-p1.npz"]
+    mom = ranks[False][0]["slots"]
+    for k in mom:
+        assert np.array_equal(tree["opt_state"][k]["mom"], mom[k]["mom"]), k
+    print_mesh("26f async pass of the dp ranks", out["pass"])
+    out["blocks"] = mesh_dp_blocks(torch, world)
+    return out
+
+
+def mesh_dp_blocks(torch, world):
+    """26b's bf16 hold that can fail: held_amp_blocks' arms on one rank
+    (plain f32, plain AMP) and the fused AMP DP step over 2 ranks; each
+    DP gradient within twice the one-rank plain AMP step's distance from
+    f32 + 1e-3 (relative L2), every bound below AMP_BOUND_CEILING."""
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+    from paddle_tpu_torch.weights import fused_resnet_map
+
+    plain, fused = amp_blocks_net(False), amp_blocks_net(True)
+    params = plain.init_params(torch.Generator().manual_seed(SEED),
+                               device="cuda")
+    rng = np.random.default_rng(SEED + 32)
+    b = AMP_BLOCKS["batch"]
+    feed_np = {"image": rng.standard_normal(
+        (b,) + AMP_BLOCKS["image"]).astype(np.float32),
+        "label": rng.integers(0, 1000, b).astype(np.int32)}
+    feed = {"image": non_seq(feed_np["image"], device="cuda"),
+            "label": id_arg(feed_np["label"], device="cuda")}
+    got = amp_arms(torch, plain, fused, params, plain.init_state("cuda"),
+                   feed)
+    rs = world.run(mesh_rank_blocks, feed_np)
+    r0 = rs[0]
+    pmap, _smap = fused_resnet_map(fused)
+    m32, mp = got["plain_f32"][1], got["plain_amp"][1]
+    dist, bounds = {}, {}
+    for k, src in pmap.items():
+        ref = m32[src]["mom"].float().cpu().numpy()
+        own = rel_l2_np(mp[src]["mom"].float().cpu().numpy(), ref)
+        bounds[k] = 2 * own + 1e-3
+        dist[k] = rel_l2_np(r0["slots"][k]["mom"].reshape(ref.shape), ref)
+    outside = [k for k in dist if dist[k] > bounds[k]]
+    ref_loss = got["plain_f32"][0][0].item()
+    r = {"net": AMP_BLOCKS, "ranks": MESH_RANKS,
+         "loss_rel_vs_f32": abs(r0["health"][0][0] - ref_loss)
+         / abs(ref_loss),
+         "plain_amp_loss_rel": abs(got["plain_amp"][0][0].item() - ref_loss)
+         / abs(ref_loss),
+         "grads": len(dist), "grads_outside_the_bound": outside,
+         "bound_max": max(bounds.values()),
+         "worst_over_bound": max((dist[k] / bounds[k], k) for k in dist),
+         "ms_rank": [x["ms"] for x in rs]}
+    print_mesh("26b dp bf16 two res4 blocks", r)
+    assert all(x["sums"] == r0["sums"] for x in rs), "ranks differ"
+    assert r["loss_rel_vs_f32"] <= 2 * r["plain_amp_loss_rel"] + 1e-3, r
+    assert not outside, f"26b blocks: outside the bound: {outside}"
+    assert r["bound_max"] < AMP_BOUND_CEILING, r
+    # f32 on the same net: loss, BN state and every gradient above the
+    # highest gate site where a row flipped within TOL of the one-rank
+    # fused step's (phase 9's rule)
+    from paddle_tpu_torch.weights import fused_resnet_from_plain
+
+    fp, fs = fused_resnet_from_plain(fused, params, plain.init_state("cuda"))
+    one = mesh_step(torch, fused, RESNET_OPT, fp, fs, feed)
+    gates = gate_fingerprints(torch, fused, fp, fs, feed)
+    rs = world.run(mesh_rank_blocks, feed_np, False)
+    r0, half = rs[0], b // MESH_RANKS
+    flips = {n: sum(int((x["gates"][n] != gates[n][:, i * half:
+                                                   (i + 1) * half])
+                        .any(0).sum()) for i, x in enumerate(rs))
+             for n in gates}
+    index = {n: i for i, n in enumerate(fused.order)}
+    top = max((index[n] for n, f in flips.items() if f), default=-1)
+    owner = {g: layer for layer, slots in fused.layer_params.items()
+             for g in slots.values()}
+    grad = {k: max_rel(r0["slots"][k]["mom"],
+                       v["mom"].float().cpu().numpy())
+            for k, v in one["slots"].items()}
+    held = {k: e for k, e in grad.items() if index[owner[k]] > top}
+    state = tree_np(one["state"])
+    r32 = {"loss_rel": abs(r0["health"][0][0] - one["health"][0][0].item())
+           / abs(one["health"][0][0].item()),
+           "state_rel_max": max(max_rel(r0["state"][l][s], state[l][s])
+                                for l in state for s in state[l]),
+           "rows_with_flips_by_site": {n: f for n, f in flips.items() if f},
+           "grads_held": len(held), "grads_total": len(grad),
+           "grad_rel_held_max": max(held.values(), default=0.0),
+           "grad_rel_max": max(grad.values()), "bound": TOL}
+    print_mesh("26b dp f32 two res4 blocks", r32)
+    assert r32["loss_rel"] <= TOL and r32["state_rel_max"] <= TOL, r32
+    assert r32["grad_rel_held_max"] <= TOL, r32
+    r["f32"] = r32
+    return r
+
+
+def mesh_dp_classifier(torch, world):
+    """26b (classifier): mc_lstm_h512_tbs256_dp2's DP adam step over 2
+    ranks against the one-rank step at B = 256: f32 within TOL of the
+    largest entry (loss, every first moment); under the bf16 flag the DP
+    step's gradients against the one-rank f32 step's as 13b holds the
+    classifier's (`amp_grads_held`)."""
+    net = mesh_cls_net()
+    p = net.init_params(torch.Generator().manual_seed(SEED + 262),
+                        device="cuda")
+    ref = mesh_step(torch, net, dict(learning_method="adam",
+                                     learning_rate=MESH_CLS_LR), p, {},
+                    mesh_cls_feed())
+    ref_m = tree_np(ref["slots"])
+    ref_loss = float(ref["health"][0][0])
+    out = {}
+    for amp in (False, True):
+        rs = world.run(mesh_rank_classifier, amp)
+        r0 = rs[0]
+        assert all(x["sums"] == r0["sums"] for x in rs), "ranks differ"
+        grad = {k: max_rel(r0["slots"][k]["m"], ref_m[k]["m"])
+                for k in ref_m}
+        name = "bf16" if amp else "f32"
+        r = {"loss_dp": r0["health"][0][0], "loss_one": ref_loss,
+             "loss_rel": abs(r0["health"][0][0] - ref_loss) / abs(ref_loss),
+             "grad_rel_max": max(grad.values()),
+             "ms_dp_rank": [x["ms"] for x in rs], "ms_one": ref["ms"],
+             "peak_gb_rank": [x["peak_gb"] for x in rs],
+             "host_bytes_rank": [x["host_bytes"] for x in rs],
+             "launches": {c: sum(x["launches"][c] for x in rs)
+                          for c in RNN_COUNTERS
+                          if any(x["launches"][c] for x in rs)}}
+        print_mesh(f"26b dp classifier h512 {name} b256 over {MESH_RANKS} "
+                   "ranks", r)
+        assert r0["health"][0][1] == 1.0, r
+        assert r["launches"].get("lstm_fwd_grid_launches") and \
+            r["launches"].get("lstm_bwd_grid_launches"), r
+        if amp:
+            assert r["loss_rel"] <= 0.05, r
+            got = {k: {"m": torch.from_numpy(v["m"])}
+                   for k, v in r0["slots"].items()}
+            want = {k: {"m": torch.from_numpy(v["m"])}
+                    for k, v in ref_m.items()}
+            r["grad_rel_vs_f32_max"] = amp_grads_held(
+                "26b dp classifier", "classifier", got, want, "m")
+        else:
+            assert r["loss_rel"] <= TOL and r["grad_rel_max"] <= TOL, r
+        out[name] = r
+    return out
+
+
+def mesh_seq_parallel(torch, world):
+    """26c: the long-context model at T = 32 768 with Ulysses (flash
+    locally: B4f/B4b's bf16 forms) and with the ring over {data: 1,
+    seq: 2}, 3 adam steps each under the bf16 flag, against the one-rank
+    flash step: every loss within 5% and the first step's gradients
+    (adam's first moments) held as 6d holds its own (`amp_grads_held`)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    ref = mesh_longctx_steps(torch, "none")
+    ref_m = {k: {"m": v["m"].float().cpu()} for k, v in ref["m"].items()}
+    del ref["m"]
+    torch.cuda.empty_cache()
+    out = {}
+    for mode in ("ulysses", "ring"):
+        rs = world.run(mesh_rank_longctx, mode)
+        r0 = rs[0]
+        losses = [h[0] for h in r0["health"]]
+        rel = [abs(a - h[0]) / abs(h[0])
+               for a, h in zip(losses, ref["health"])]
+        r = {"losses": losses, "one_rank_losses": [h[0] for h in
+                                                   ref["health"]],
+             "loss_rel": rel, "bound_loss_rel": 0.05,
+             "ms_rank": [x["ms"] for x in rs], "ms_one": ref["ms"],
+             "peak_gb_rank": [x["peak_gb"] for x in rs],
+             "peak_gb_one": ref["peak_gb"],
+             "host_bytes_rank": [x["host_bytes"] for x in rs],
+             "launches": {c: sum(x["launches"][c] for x in rs)
+                          for c in fa.COUNTERS}}
+        print_mesh(f"26c {mode} t{MESH_LONGCTX_T} seq2", r)
+        assert all(h[1] == 1.0 for h in r0["health"]), r
+        assert max(rel) <= 0.05, r
+        got = {k: {"m": torch.from_numpy(v["m"])} for k, v in r0["m"].items()}
+        r["grad_rel_max"] = amp_grads_held(f"26c {mode}", "longctx", got,
+                                           ref_m, "m")
+        if mode == "ulysses":
+            layers = LONGCTX["layers"] * MESH_LONGCTX_STEPS * MESH_RANKS
+            assert r["launches"]["bf16_launches"] == layers, r
+            assert r["launches"]["bwd_dkv_bf16_launches"] == layers, r
+            assert r["launches"]["bwd_dq_bf16_launches"] == layers, r
+        else:
+            assert not any(r["launches"].values()), r
+        out[mode] = r
+    return out
+
+
+def mesh_pipeline(torch, world):
+    """26d: GPipe over 2 ranks, held on each rank against the stack."""
+    rs = world.run(mesh_rank_pipeline)
+    r = {"stages": MESH_RANKS, **MESH_PIPE, "ms_rank": [x["ms"] for x in rs],
+         "err": [x["err"] for x in rs], "bound": TOL,
+         "peak_gb_rank": [x["peak_gb"] for x in rs],
+         "host_bytes_rank": [x["host_bytes"] for x in rs]}
+    print_mesh("26d pipeline 2 stages d1024", r)
+    assert sorted(x["stage"] for x in rs) == list(range(MESH_RANKS))
+    assert all(e <= TOL for x in rs for e in x["err"].values()), r
+    assert all(x["host_bytes"] > 0 for x in rs), "no hop went through host"
+    return r
+
+
+def mesh_moe(torch, world):
+    """26e: the moe conf with its experts over model = 2 against one
+    rank's steps: losses and aux within MESH_MOE_TOL (f32)."""
+    params, feed = mesh_moe_inputs(torch)
+    one = moe_steps(torch, "cuda", False, params, feed)
+    rs = world.run(mesh_rank_moe)
+    r0 = rs[0]
+    err = max(abs(a - b) / max(abs(b), 1e-6) for a, b in
+              zip(r0["losses"] + r0["aux"], one[0] + one[1]))
+    r = {"losses": r0["losses"], "aux": r0["aux"], "one_rank_losses": one[0],
+         "one_rank_aux": one[1], "max_rel_diff": err, "tol": MESH_MOE_TOL,
+         "experts_local": r0["experts_local"],
+         "ms_rank": [x["ms"] for x in rs],
+         "peak_gb_rank": [x["peak_gb"] for x in rs],
+         "host_bytes_rank": [x["host_bytes"] for x in rs]}
+    print_mesh("26e moe experts over model 2", r)
+    assert all(x["losses"] == r0["losses"] for x in rs), r
+    assert r0["experts_local"][0] == MOE["experts"] // MESH_RANKS, r
+    assert err <= MESH_MOE_TOL, r
+    return r
+
+
+def mesh_tier(torch, world):
+    """26f: the tier with one shard a rank against the one-process
+    two-shard tier on the card: the export payloads equal."""
+    from paddle_tpu_torch.parallel import sparse_shard as tss
+
+    one = tss.ShardedEmbeddingTable(
+        tss.ShardedTableConfig(**MESH_TIER), num_shards=MESH_RANKS,
+        update_fn=tss.sgd_row_update(MESH_TIER_LR), device="cuda")
+    want = mesh_tier_run(torch, tss, one)
+    rs = world.run(mesh_rank_tier)
+    err = payloads_close(rs[0]["payloads"], want, "26f tier")
+    r = {"shards": MESH_RANKS, **MESH_TIER, "batches": CTR_BIG["BATCHES"],
+         "export_max_rel_err": err, "wall_s_rank": [x["wall_s"] for x in rs],
+         "stats_rank": [x["stats"] for x in rs], "one_stats": one.stats,
+         "cache_rows_rank": [x["cache_rows"] for x in rs],
+         "launches": {c: sum(x["launches"][c] for x in rs)
+                      for c in SPARSE_COUNTERS}}
+    print_mesh("26f tier one shard a rank", r)
+    assert [x["local_shards"] for x in rs] == [[i] for i in
+                                              range(MESH_RANKS)], r
+    for key in ("hits", "misses", "evictions"):
+        assert sum(x["stats"][key] for x in rs) == one.stats[key], r
+    assert all(x["launches"]["sparse_row_update_launches"]
+               == CTR_BIG["BATCHES"] for x in rs), r
+    return r
+
+
+def the_mesh(torch, op, work):
+    """Phase 26: 26a in this process (a one-rank NCCL world), 26b-26f in
+    one gloo world of 2 ranks sharing the card (spawned once, after the
+    kernels were built in phase 2)."""
+    from paddle_tpu_torch.parallel.world import World
+
+    out = {}
+    t0 = time.perf_counter()
+    phase("26a. a one-rank NCCL world: ResNet-50 AMP at B = 256 through "
+          "TrainStep(mesh={data: 1}), and a CUDA graph of 10 steps with "
+          "the NCCL calls captured")
+    out["a"] = mesh_one_rank_nccl(torch, op, work)
+    with World(MESH_RANKS, os.path.join(work, "world"), device="cuda",
+               timeout=600) as world:
+        phase("26b. DP over 2 gloo ranks sharing the card: ResNet-50 and "
+              "the h = 512 classifier against the one-rank step")
+        out["b"] = mesh_dp_resnet(torch, world, work)
+        out["b_cls"] = mesh_dp_classifier(torch, world)
+        phase("26c. sequence parallel at T = 32 768: Ulysses (flash) and "
+              "the ring over {data: 1, seq: 2}")
+        out["c"] = mesh_seq_parallel(torch, world)
+        phase("26d. the pipeline: 2 fc stages at d = 1024, 8 microbatches")
+        out["d"] = mesh_pipeline(torch, world)
+        phase("26e. moe with its experts over model = 2")
+        out["e"] = mesh_moe(torch, world)
+        phase("26f. the sharded tier with one shard a rank")
+        out["f"] = mesh_tier(torch, world)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"mesh phase 26 seconds {out['seconds']:.1f}", flush=True)
+    return out
+
+
+def sparse_kernel_rows(checks, times, standalone, wide_deep, tier, slice24,
+                       slice26):
     """The B9 kernels' rows of the kernels line, at the standalone bench
     shape (V = 2^20, D = 64, N = 65 536): the rule kernel with momentum
     (no single PyTorch call computes a momentum row update; SGD's
     index_add_ is printed in phase 14) and the generic route's kernels
-    with the bench's own update function. Launches: phases 15-17, and
-    24(f)'s CTR worker (its done record) and online loop."""
+    with the bench's own update function. Launches: phases 15-17,
+    24(f)'s CTR worker (its done record) and online loop, and 26(f)'s
+    ranks."""
     bench = times["bench_momentum_v1m_d64_n65536"]
     generic = times["bench_lambda_state_v1m_d64_n65536"]
     launches = standalone["launches"]
@@ -8796,7 +9846,8 @@ def sparse_kernel_rows(checks, times, standalone, wide_deep, tier, slice24):
               + sum(r["launches"]["sparse_row_update_launches"]
                     for r in tier.values())
               + slice24["ctr"]["launches"]["sparse_row_update_launches"]
-              + slice24["online"]["b9_launches"])
+              + slice24["online"]["b9_launches"]
+              + slice26["f"]["launches"]["sparse_row_update_launches"])
 
     def row(name, at, ms, bound, launched, rules):
         return {
@@ -9075,7 +10126,18 @@ def main() -> int:
     slice25 = ops_export_guard_moe(torch, fop, fa, rnn, sr, gen)
     print(smi, flush=True)
 
-    phase("26. result")
+    phase("26. the mesh: a one-rank NCCL world, then data-parallel, "
+          "sequence-parallel, pipeline, expert-sharded and sharded-tier "
+          "training over 2 gloo ranks sharing the card")
+    print(smi, flush=True)
+    mesh_work = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        slice26 = the_mesh(torch, fop, mesh_work)
+    finally:
+        shutil.rmtree(mesh_work, ignore_errors=True)
+    print(smi, flush=True)
+
+    phase("27. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -9110,7 +10172,20 @@ def main() -> int:
                     if r["name"] == LONGCTX_SHAPE["name"])
 
     def bf16_launched(counter):
-        return sum(r["flash"]["launches"][counter] for r in longctx_runs)
+        # phase 6d's flash arms and 26(c)'s Ulysses ranks
+        return (sum(r["flash"]["launches"][counter] for r in longctx_runs)
+                + slice26["c"]["ulysses"]["launches"][counter])
+
+    def mesh_fused(counter):
+        # 26(a)'s one-rank NCCL steps and 26(b)'s DP ranks
+        return (slice26["a"]["launches"][counter]
+                + slice26["b"]["f32"]["launches"][counter]
+                + slice26["b"]["bf16"]["launches"][counter])
+
+    def mesh_lstm(counter):
+        # 26(b)'s DP classifier ranks (f32 and under the bf16 flag)
+        return sum(slice26["b_cls"][a]["launches"].get(counter, 0)
+                   for a in ("f32", "bf16"))
 
     def bwd_bf16_row(kernel, key):
         return {
@@ -9291,17 +10366,20 @@ def main() -> int:
         "bound_by": long_fwd["bound_by"],
         "library_ms": long_fwd["library_ms"],
     }, bwd_bf16_row("dkv", ("dk", "dv")), bwd_bf16_row("dq", ("dq",)),
-        fused_row("fwd", 71, infer["b1_launches"] + train_b["launches_fwd"]),
-        fused_row("bwd_dx", 155, train_b["launches_bwd_dx"]),
-        fused_row("bwd_dw", 203, train_b["launches_bwd_dw"]),
-        fused_row("fwd", 71, train_amp["launches_bf16"]["fwd_bf16_launches"],
-                  bf16=True),
+        fused_row("fwd", 71, infer["b1_launches"] + train_b["launches_fwd"]
+                  + mesh_fused("fwd_launches")),
+        fused_row("bwd_dx", 155, train_b["launches_bwd_dx"]
+                  + mesh_fused("bwd_dx_launches")),
+        fused_row("bwd_dw", 203, train_b["launches_bwd_dw"]
+                  + mesh_fused("bwd_dw_launches")),
+        fused_row("fwd", 71, train_amp["launches_bf16"]["fwd_bf16_launches"]
+                  + mesh_fused("fwd_bf16_launches"), bf16=True),
         fused_row("bwd_dx", 155,
-                  train_amp["launches_bf16"]["bwd_dx_bf16_launches"],
-                  bf16=True),
+                  train_amp["launches_bf16"]["bwd_dx_bf16_launches"]
+                  + mesh_fused("bwd_dx_bf16_launches"), bf16=True),
         fused_row("bwd_dw", 203,
-                  train_amp["launches_bf16"]["bwd_dw_bf16_launches"],
-                  bf16=True),
+                  train_amp["launches_bf16"]["bwd_dw_bf16_launches"]
+                  + mesh_fused("bwd_dw_bf16_launches"), bf16=True),
         rnn_row("lstm_seq_fwd", "lstm", 311, "fwd",
                 cls_launches["lstm_fwd_launches"]
                 + slice21_launched("lstm_fwd_launches")
@@ -9314,11 +10392,13 @@ def main() -> int:
                 + slice21_launched("lstm_bwd_launches")
                 + api_launched("lstm_bwd_launches")),
         grid_row("lstm_seq_fwd_grid", 311, "fwd",
-                 wide_launched("lstm_fwd_grid_launches")),
+                 wide_launched("lstm_fwd_grid_launches")
+                 + mesh_lstm("lstm_fwd_grid_launches")),
         grid_row("lstm_seq_fwd_infer_grid", 311, "fwd_infer",
                  wide_launched("lstm_fwd_infer_grid_launches", "infer")),
         grid_row("lstm_seq_bwd_grid", 358, "bwd",
-                 wide_launched("lstm_bwd_grid_launches")),
+                 wide_launched("lstm_bwd_grid_launches")
+                 + mesh_lstm("lstm_bwd_grid_launches")),
         rnn_row("gru_seq_fwd", "gru", 724, "fwd",
                 nmt_launches["gru_fwd_launches"]
                 + gen_launched("gru_fwd_launches")),
@@ -9328,7 +10408,7 @@ def main() -> int:
         gru_grid_row("gru_seq_fwd_grid", 724, "fwd", "gru_fwd_grid_launches"),
         gru_grid_row("gru_seq_bwd_grid", 657, "bwd", "gru_bwd_grid_launches"),
         *sparse_kernel_rows(sparse_checks, sparse_times, standalone,
-                            wide_deep, tier, slice24)]}),
+                            wide_deep, tier, slice24, slice26)]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,9 @@ resolve lazily, on first use:
 
 `Arg`, `Network`, `SGD`, `infer`, `dataset`, `reader`, `dsl`, `layers`,
 `models`, `optimizers`, `evaluators` and `inference` are the port's
-modules. `api`, `plot`, `image` and `framework` are not ported yet and
-raise naming ROADMAP A12; `get_mesh` and `set_mesh` raise naming
-ROADMAP A8.
+modules, and `get_mesh` / `set_mesh` its mesh's (`core/mesh.py`).
+`api`, `plot`, `image` and `framework` are not ported yet and raise
+naming ROADMAP A12.
 """
 
 __version__ = "0.1.0"
@@ -65,8 +65,6 @@ _NOT_PORTED = {
     "plot": "A12",
     "image": "A12",
     "framework": "A12",
-    "get_mesh": "A8",
-    "set_mesh": "A8",
 }
 
 
@@ -86,6 +84,10 @@ def __getattr__(name):
         from paddle_tpu_torch.trainer import SGD
 
         return SGD
+    if name in ("get_mesh", "set_mesh"):
+        from paddle_tpu_torch.core import mesh
+
+        return getattr(mesh, name)
     if name == "infer":
         from paddle_tpu_torch.inference import infer
 

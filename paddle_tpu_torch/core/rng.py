@@ -89,14 +89,16 @@ class StepKey:
         return StepKey(_srl(_mix_t(self.seed ^ _signed(_mix(data & _MASK64))),
                             1))
 
-    def uniform(self, shape, dtype=torch.float32) -> torch.Tensor:
+    def uniform(self, shape, dtype=torch.float32,
+                offset: int = 0) -> torch.Tensor:
         """Uniform [0, 1) draws of `shape` on the key's device: element i
-        takes the top 24 bits of splitmix64's i-th output from the
-        seed."""
+        takes the top 24 bits of splitmix64's (offset + i)-th output
+        from the seed (an offset: a slice of a larger draw)."""
         n = 1
         for d in shape:
             n *= int(d)
-        i = torch.arange(n, dtype=torch.int64, device=self.seed.device)
+        i = torch.arange(offset, offset + n, dtype=torch.int64,
+                         device=self.seed.device)
         x = _mix_t(self.seed + i * _signed(0x9E3779B97F4A7C15))
         return (_srl(x, 40).to(dtype) * (1.0 / (1 << 24))).reshape(shape)
 

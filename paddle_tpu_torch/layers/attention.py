@@ -1,13 +1,17 @@
-"""Multi-head attention layer: `paddle_tpu/layers/attention.py` for
-`seq_parallel="none"` (one device). attrs:
-  num_heads  — head count (must divide size)
-  causal     — bool, autoregressive mask
-  attn_impl  — "dense" (materializes [B,H,T,T] scores, the reference
-               path) | "flash" (the Hopper flash kernels forward and
-               backward on the card, their plain versions on the CPU;
-               parallel/ring.py::flash_dense_attention)
-Ring and Ulysses sequence parallelism are still to port (ROADMAP A8);
-asking for them raises.
+"""Multi-head attention layer: `paddle_tpu/layers/attention.py` on
+torch. attrs:
+  num_heads     — head count (must divide size)
+  causal        — bool, autoregressive mask
+  attn_impl     — "dense" (materializes [B,H,T,T] scores, the reference
+                  path) | "flash" (the Hopper flash kernels forward and
+                  backward on the card, their plain versions on the CPU;
+                  parallel/ring.py::flash_dense_attention). Applies to
+                  seq_parallel "none" and "ulysses" (the local per-head-
+                  group attention); "ring" is flash-class by
+                  construction.
+  seq_parallel  — "none" | "ring" | "ulysses": ring and Ulysses split
+                  the time dim over the `seq` axis of the mesh
+                  `core/mesh.py::set_mesh` set (parallel/ring.py).
 Inputs: one sequence Arg (self-attention) or (query, keyvalue).
 """
 
@@ -16,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch.core.arg import Arg
+from paddle_tpu_torch.core.mesh import get_mesh
 from paddle_tpu_torch.core.registry import LAYERS
 from paddle_tpu_torch.layers.base import Ctx, Layer, Spec
 from paddle_tpu_torch.parallel import ring
@@ -28,11 +33,8 @@ class MultiHeadAttentionLayer(Layer):
         h = self.conf.attrs.get("num_heads", 1)
         assert d % h == 0, f"size {d} not divisible by num_heads {h}"
         mode = self.conf.attrs.get("seq_parallel", "none")
-        if mode != "none":
-            raise NotImplementedError(
-                f"{self.name}: seq_parallel={mode!r} is not ported yet; "
-                f"only 'none' runs on one device"
-            )
+        if mode not in ("none", "ring", "ulysses"):
+            raise ValueError(f"{self.name}: seq_parallel={mode!r}")
         sq = in_specs[0]
         skv = in_specs[-1]
         assert sq.is_seq and skv.is_seq, "attention needs sequence inputs"
@@ -67,7 +69,16 @@ class MultiHeadAttentionLayer(Layer):
         q = split_heads(torch.matmul(qa.value, params["wq"]))
         k = split_heads(torch.matmul(kva.value, params["wk"]))
         v = split_heads(torch.matmul(kva.value, params["wv"]))
-        if self.conf.attrs.get("attn_impl", "dense") == "flash":
+        mode = self.conf.attrs.get("seq_parallel", "none")
+        impl = self.conf.attrs.get("attn_impl", "dense")
+        if mode == "ring":
+            out = ring.ring_attention(q, k, v, get_mesh(), causal=causal,
+                                      kv_lens=kva.seq_lens)
+        elif mode == "ulysses":
+            out = ring.ulysses_attention(q, k, v, get_mesh(), causal=causal,
+                                         kv_lens=kva.seq_lens,
+                                         attn_impl=impl)
+        elif impl == "flash":
             out = ring.flash_dense_attention(
                 q, k, v, causal=causal, kv_len=kva.seq_lens,
                 # cross-attention masks query padding on its own; in

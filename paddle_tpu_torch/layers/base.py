@@ -26,9 +26,22 @@ import torch
 
 from paddle_tpu_torch.core import rng as _rng
 from paddle_tpu_torch.core.config import LayerConf, ModelConf, ParameterConf
+from paddle_tpu_torch.core.mesh import batch_rows
 from paddle_tpu_torch.core.registry import LAYERS
 from paddle_tpu_torch.ops import activations
 from paddle_tpu_torch.ops.sequence_ops import masked_softmax
+
+
+def batch_uniform(key: _rng.StepKey, shape) -> torch.Tensor:
+    """`key.uniform(shape)` for a [B, ...] value; inside a batch context
+    (`core/mesh.py`) this rank's rows of the global batch's draw, so a
+    data-parallel step masks as the one-rank step at the global batch
+    does."""
+    first, _rows = batch_rows(int(shape[0]))
+    inner = 1
+    for d in shape[1:]:
+        inner *= int(d)
+    return key.uniform(shape, offset=first * inner)
 
 
 @dataclass(frozen=True)
@@ -97,7 +110,8 @@ class Layer:
         rate = self.conf.drop_rate
         if rate > 0.0 and ctx.train:
             keep = 1.0 - rate
-            u = ctx.split(self.name + "/drop").uniform(y.shape).to(y.device)
+            u = batch_uniform(ctx.split(self.name + "/drop"), y.shape).to(
+                y.device)
             y = torch.where(u < keep, y / keep, 0.0)
         return y
 

@@ -21,7 +21,9 @@ Parameter names and state slots are the JAX package's (`w0`, `g`, `b`;
 (`layers/norm.py::running_update`). Under the AMP rule the activations,
 w and y are bf16 (the op's bf16 form), the folded affines and the
 statistics f32 (the in-BN's one-pass, `layers/norm.py::moments`), and
-the out-BN normalize runs in y's dtype, as in the JAX layers.
+the out-BN normalize runs in y's dtype, as in the JAX layers. On a
+mesh the statistics are the global batch's: B1's column sums and the
+in-BN's are all-reduced over the data axis before the moments.
 """
 
 from __future__ import annotations
@@ -30,15 +32,31 @@ import torch
 
 from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.config import ParameterConf
+from paddle_tpu_torch.core.mesh import batch_mesh
 from paddle_tpu_torch.core.registry import LAYERS
 from paddle_tpu_torch.layers.base import Layer, Spec
-from paddle_tpu_torch.layers.norm import bn_affine, moments, running_update
+from paddle_tpu_torch.layers.norm import (
+    bn_affine,
+    global_sums,
+    moments,
+    running_update,
+)
 from paddle_tpu_torch.ops.bn_act_conv1x1 import bn_act_conv1x1
 
 
 def moments_from_epilogue(s1, s2, n):
     """Mean and variance from the epilogue's sums: E[y], E[y^2]-E[y]^2
-    (clamped at 0), as the JAX layers take them."""
+    (clamped at 0), as the JAX layers take them. Inside a batch context
+    the sums and the count are the global batch's, all-reduced over the
+    data axis first (`layers/norm.py::global_sums`)."""
+    # the count as a tensor (a fill, not a host-to-device copy: a CUDA
+    # graph captures it), with or without a mesh: on the card a division
+    # by a Python number multiplies by its reciprocal, and a one-rank
+    # mesh's moments must be the meshless step's bits
+    n = torch.full((1,), float(n), dtype=s1.dtype, device=s1.device)
+    mesh = batch_mesh()
+    if mesh is not None:
+        s1, s2, n = global_sums(mesh, s1, s2, n)
     mean = s1 / n
     return mean, torch.clamp_min(s2 / n - torch.square(mean), 0.0)
 

@@ -1,16 +1,20 @@
-"""The MoE layer: `paddle_tpu/layers/moe.py` on torch, on one device.
+"""The MoE layer: `paddle_tpu/layers/moe.py` on torch.
 
 A sparsely-activated expert FFN with a load-balancing loss. The layer
 emits its aux loss as the extra output `<name>@aux`, which the DSL
 wires into a sum_cost (`dsl.moe`), so the trainer's multi-cost
 reduction applies it. The expert weights carry a leading expert dim and
 the `expert_sharded` mark on their parameter confs, which the mesh
-placement (ROADMAP A8) will read; on one device nothing reads it.
+placement reads (`parallel/sharding.py`: experts over `model`). A
+mesh train step (`parallel/dp.py`) hands the layer the rank's shard of
+the experts, and the layer runs expert-parallel over the `model` axis
+of the step's mesh (`ops/moe.py`).
 """
 
 from __future__ import annotations
 
 from paddle_tpu_torch.core.arg import Arg
+from paddle_tpu_torch.core.mesh import MODEL_AXIS, batch_mesh, get_mesh
 from paddle_tpu_torch.core.registry import LAYERS
 from paddle_tpu_torch.layers.base import Layer, Spec
 from paddle_tpu_torch.ops import activations
@@ -61,10 +65,12 @@ class MoELayer(Layer):
         # padded tokens are excluded from routing itself (capacity and
         # balance statistics), not only masked at the output
         token_mask = x.mask(v.dtype).reshape(-1) if x.is_seq else None
+        mesh = batch_mesh() or get_mesh()
         y, aux = moe_ops.moe_ffn(
             flat, params["w0"], params["w_in"], params["w_out"],
             capacity_factor=a.get("capacity_factor", 1.25),
-            activation=act, token_mask=token_mask)
+            activation=act, token_mask=token_mask, mesh=mesh,
+            axis=MODEL_AXIS)
         self._extra_outs = {
             f"{self.name}@aux": Arg(value=aux.reshape(1, 1))
         }

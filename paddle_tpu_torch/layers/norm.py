@@ -15,6 +15,12 @@ The cross-map norm divides by (1 + scale * sum of x^2 over a window of
 `size` channels)^pow, over the last (channel) axis of the NHWC value,
 with `scale` NOT divided by `size`: `F.local_response_norm` divides it,
 which is another function.
+
+On a mesh (inside `core/mesh.py::batch_context`) the statistics are
+those of the global batch, as the JAX step's under GSPMD: the sums and
+the count are all-reduced over the data axis before the moments
+(`moments`), so the running averages agree on every rank and the
+gradients compose.
 """
 
 from __future__ import annotations
@@ -24,8 +30,10 @@ import torch.nn.functional as F
 
 from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.config import ParameterConf
+from paddle_tpu_torch.core.mesh import DATA_AXIS, batch_mesh
 from paddle_tpu_torch.core.registry import LAYERS
 from paddle_tpu_torch.layers.base import Layer
+from paddle_tpu_torch.parallel import collectives as C
 
 
 def running_update(old: dict, new: dict, frac: float) -> dict:
@@ -99,22 +107,49 @@ def moments(x, m=None):
     """f32 (mean, var) over every axis of x but the last; m, x's 0/1
     mask broadcast over its trailing axes, leaves masked positions out.
     f32 x: the centered variance; bf16 x: one pass, E[x^2] - E[x]^2
-    clamped at 0 (the JAX layers' two forms)."""
+    clamped at 0 (the JAX layers' two forms). Each moment is a sum over
+    a count; inside a batch context (`core/mesh.py::batch_context`) the
+    sums and the count are all-reduced over the mesh's data axis first,
+    so they are the global batch's (the f32 centered variance takes a
+    second all-reduce, of the squared deviations from the global mean).
+    On a one-rank mesh the all-reduce returns its operand's bits, and
+    the moments are the meshless step's."""
+    mesh = batch_mesh()
+
+    def total(*parts):
+        return global_sums(mesh, *parts) if mesh is not None else parts
+
     f32 = torch.float32
     red = tuple(range(x.ndim - 1))
+    inner = x.numel() // (x.shape[0] * x.shape[-1])
     if m is None:
-        mean = x.mean(dim=red, dtype=f32)
-        if x.dtype == f32:
-            return mean, torch.square(x - mean).mean(dim=red)
-        msq = torch.square(x).mean(dim=red, dtype=f32)
+        cnt = torch.full((1,), float(x.numel() // x.shape[-1]), dtype=f32,
+                         device=x.device)
+        xm = x
     else:
-        n = torch.clamp(m.sum(dtype=f32), min=1.0) * (
-            x.numel() / (x.shape[0] * x.shape[1] * x.shape[-1]))
-        mean = (x * m).sum(dim=red, dtype=f32) / n
-        if x.dtype == f32:
-            return mean, torch.square((x - mean) * m).sum(dim=red) / n
-        msq = (torch.square(x) * m).sum(dim=red, dtype=f32) / n
-    return mean, torch.clamp_min(msq - torch.square(mean), 0.0)
+        inner //= x.shape[1]
+        cnt = (m.sum(dtype=f32) * inner).reshape(1)
+        xm = x * m
+    s1, n = total(xm.sum(dim=red, dtype=f32), cnt)
+    if m is not None:
+        n = torch.clamp(n, min=float(inner))
+    mean = s1 / n
+    if x.dtype == f32:
+        d = x - mean if m is None else (x - mean) * m
+        (s2,) = total(torch.square(d).sum(dim=red))
+        return mean, s2 / n
+    (s2,) = total(torch.square(xm).sum(dim=red, dtype=f32))
+    return mean, torch.clamp_min(s2 / n - torch.square(mean), 0.0)
+
+
+def global_sums(mesh, *parts):
+    """Per-rank partial sums (f32 tensors) summed over the data axis,
+    in one all-reduce (`parallel/collectives.py::all_reduce`, whose
+    backward all-reduces)."""
+    sizes = [p.numel() for p in parts]
+    flat = C.all_reduce(torch.cat([p.reshape(-1) for p in parts]), mesh,
+                        DATA_AXIS)
+    return [t.view(p.shape) for t, p in zip(flat.split(sizes), parts)]
 
 
 @LAYERS.register("norm", "cmrnorm-projection")

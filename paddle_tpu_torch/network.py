@@ -23,8 +23,12 @@ than its own, each under a name of its own (`lstm_step`'s cell state
 `<name>@state`), which a later layer or an `outputs=` list can read;
 the layer leaves them in `_extra_outs` after its forward.
 
-Left out, still to port: per-layer `out_sharding` placement (ROADMAP
-A8).
+Per-layer `out_sharding` (a layer attr, the JAX package's placement
+hint, `paddle_tpu/network.py`): the layer's output is checked against
+the mesh of `core/mesh.py::get_mesh` by `parallel/sharding.py::
+constrain` — the spec's axes must be the mesh's and divide the
+dimensions they split — and kept as it is: the port holds activations
+whole on every axis but `data` (`parallel/dp.py`), the same function.
 """
 
 from __future__ import annotations
@@ -232,6 +236,12 @@ class Network:
                     f"(type={lc.type!r}, inputs={lc.input_names()})"
                 )
                 raise
+            spec = lc.attrs.get("out_sharding")
+            if spec is not None:
+                from paddle_tpu_torch.core.mesh import get_mesh
+                from paddle_tpu_torch.parallel.sharding import constrain
+
+                constrain(outs[name].value, get_mesh(), spec)
             extra = getattr(layer, "_extra_outs", None)
             if extra:
                 outs.update(extra)

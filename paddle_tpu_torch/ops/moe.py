@@ -1,5 +1,5 @@
 """Mixture-of-Experts routing and the expert FFN:
-`paddle_tpu/ops/moe.py` on torch, on one device.
+`paddle_tpu/ops/moe.py` on torch.
 
 Switch-style fixed-capacity top-1 routing: the token -> expert
 assignment becomes dense dispatch and combine tensors (static shapes).
@@ -8,8 +8,22 @@ the dispatch tensors stay O(N * group_size) instead of O(N^2). The aux
 load-balancing loss is GShard/Switch's eq. 4. The JAX package runs this
 as dense einsums with no Pallas kernel; so does the port.
 
-The expert sharding of the JAX package (the `expert_sharded`
-placement, through `parallel/sharding.py`) needs a mesh (ROADMAP A8).
+Expert parallelism (the `expert_sharded` placement of
+`parallel/sharding.py`, which the JAX package leaves to GSPMD): with
+the rank's shard of the experts ([E / m, ...] over the mesh's `model`
+axis of m ranks), the routing and the dispatch tensor run on every rank
+of the axis (they hold the same tokens), each rank takes its slice of
+every expert's capacity slots, an all-to-all sends each expert's slots
+to the rank that owns it, the rank runs its experts over every slot, an
+all-to-all sends the results back, and an all-gather makes the
+combine's input whole (`parallel/collectives.py`: split, all_to_all,
+gather). A capacity that does not divide over the axis is padded with
+empty slots, which the combine weights with 0.
+
+Inside a data-parallel step (`core/mesh.py::batch_context`) tokens
+route in the groups of the global batch (a rank's tokens must be whole
+groups) and the balance loss is the global batch's, its sums
+all-reduced over the data axis.
 """
 
 from __future__ import annotations
@@ -70,8 +84,38 @@ def top1_routing(gate_logits, capacity: int, token_mask=None):
     return _route(gate_logits, capacity, token_mask)
 
 
+def _experts(xin, w_in, w_out, activation, mesh, axis):
+    """yout [G, E, C, D] of the experts over their input buffers xin
+    [G, E, C, D]; with a shard of the experts, expert-parallel over
+    `axis`."""
+    e, e_local = xin.shape[1], w_in.shape[0]
+    if e_local == e:
+        h = activation(torch.einsum("gecd,edh->gech", xin, w_in))
+        return torch.einsum("gech,ehd->gecd", h, w_out)
+    from paddle_tpu_torch.parallel import collectives as C
+
+    m = mesh.axis_size(axis) if mesh is not None else 1
+    if m * e_local != e:
+        raise ValueError(
+            f"{e_local} local experts of {e} need a {axis!r} axis of "
+            f"{e // e_local} ranks (mesh {getattr(mesh, 'shape', None)})")
+    c = xin.shape[2]
+    pad = -c % m
+    if pad:
+        xin = torch.nn.functional.pad(xin, (0, 0, 0, pad))
+    # this rank's slice of every expert's slots, then each expert's
+    # slots to its owner: [G, E/m, C, D]
+    xe = C.all_to_all(C.split(xin, mesh, axis, 2), mesh, axis, 1, 2)
+    h = activation(torch.einsum("gecd,edh->gech", xe, w_in))
+    ye = torch.einsum("gech,ehd->gecd", h, w_out)
+    # back to the slots' ranks [G, E, C/m, D], whole again [G, E, C, D]
+    yout = C.gather(C.all_to_all(ye, mesh, axis, 2, 1), mesh, axis, 2)
+    return yout[:, :, :c]
+
+
 def moe_ffn(x, router_w, w_in, w_out, capacity_factor: float = 1.25,
-            activation=torch.relu, token_mask=None, group_size: int = 1024):
+            activation=torch.relu, token_mask=None, group_size: int = 1024,
+            mesh=None, axis: str = "model"):
     """x [N, D]; router_w [D, E]; w_in [E, D, H]; w_out [E, H, D].
     Returns (y [N, D], aux_loss). token_mask [N] excludes padding from
     routing entirely.
@@ -80,10 +124,22 @@ def moe_ffn(x, router_w, w_in, w_out, capacity_factor: float = 1.25,
     up to a multiple of S with masked tokens (a prime N must not
     collapse to one-token groups, which would disable the capacity
     discipline), so dispatch and combine are [G, S, E, C] with C =
-    cf * S / E."""
+    cf * S / E.
+
+    w_in / w_out may be this rank's shard of the experts over `axis` of
+    `mesh` (expert parallelism, see the module's docstring)."""
+    from paddle_tpu_torch.core.mesh import DATA_AXIS, batch_mesh
+
     n = x.shape[0]
     e = router_w.shape[1]
-    s = min(group_size, n)
+    bm = batch_mesh()
+    ranks = bm.axis_size(DATA_AXIS) if bm is not None else 1
+    s = min(group_size, n * ranks)
+    if ranks > 1 and n % s:
+        raise ValueError(
+            f"{n} tokens a rank are not whole routing groups of {s} (the "
+            f"global batch's {n * ranks} tokens in groups of "
+            f"{group_size}); each data rank must hold whole groups")
     g = -(-n // s)
     pad = g * s - n
     mask = (token_mask.float() if token_mask is not None
@@ -98,11 +154,16 @@ def moe_ffn(x, router_w, w_in, w_out, capacity_factor: float = 1.25,
     dispatch, combine, aux = _route(logits, capacity, mg)
     # [G, E, C, D]: each group's expert input buffers
     xin = torch.einsum("gsd,gsec->gecd", xg, dispatch)
-    h = activation(torch.einsum("gecd,edh->gech", xin, w_in))
-    yout = torch.einsum("gech,ehd->gecd", h, w_out)
+    yout = _experts(xin, w_in, w_out, activation, mesh, axis)
     y = torch.einsum("gecd,gsec->gsd", yout, combine)
     # aux weighted by each group's real tokens: an all-padding group adds
     # nothing, as the ungrouped loss
     real_g = mg.sum(1)
-    aux = (aux * real_g).sum() / torch.clamp_min(real_g.sum(), 1.0)
+    num, den = (aux * real_g).sum(), real_g.sum()
+    if ranks > 1:
+        from paddle_tpu_torch.parallel import collectives as C
+
+        num, den = C.all_reduce(torch.stack([num, den.to(num.dtype)]), bm,
+                                DATA_AXIS).unbind(0)
+    aux = num / torch.clamp_min(den, 1.0)
     return y.reshape(g * s, -1)[:n], aux

@@ -26,8 +26,35 @@ parameter names) of a single step and of each (K, feed signature) of
 JAX step traces; on the card `multi`'s notes are the CUDA-graph capture
 itself (`parallel/graph.py`). The trainer arms it after warmup.
 
-Left out, still to port: the mesh (data-parallel and sharded state,
-ROADMAP A8), AOT compilation.
+The mesh (`TrainStep(mesh=..., sharding_rules=...)`, the JAX step's
+GSPMD program on torch.distributed ranks):
+
+- The feed is the global batch; each rank takes its slice on the
+  `data` axis (`shard_feed`), which must divide it: the ranks' cost
+  means average to the global mean only over equal slices.
+- Parameters the `Sharder` (`parallel/sharding.py`) splits are stored
+  as the rank's shard only, with their optimizer slots (`place`): the
+  counterpart of the pserver's block shards and of ZeRO. The body
+  all-gathers each at use (but MoE experts: the layer runs its shard,
+  expert-parallel, `ops/moe.py`); over `data` the gather's backward
+  reduce-scatters the gradient, over another axis (whose ranks compute
+  the same values) it takes the rank's slice.
+- Replicated parameters' gradients are averaged over `data` in one
+  all-reduce per dtype; the loss the step returns is the global mean.
+- The network runs inside `core/mesh.py::batch_context`: BN takes its
+  statistics over the global batch and dropout draws the global mask
+  and keeps its rows (`layers/norm.py`, `layers/base.py`).
+- The watchdog's all-finite flag is the minimum over every rank, so the
+  ranks skip or apply an update together.
+- After each step a sharded parameter that is no longer its shard's
+  shape raises (`check_shards`).
+- `multi` runs K steps eagerly under gloo (a gloo collective is a host
+  call, which a CUDA graph cannot capture) and as a CUDA graph with its
+  NCCL collectives captured under NCCL.
+
+This computes the JAX step's function; the compute split that a
+Megatron layout gives sharded weights is speed work (ROADMAP B).
+Left out: AOT compilation.
 """
 
 from __future__ import annotations
@@ -38,6 +65,8 @@ from paddle_tpu_torch.analysis.recompile_guard import RecompileGuard
 from paddle_tpu_torch.core import rng as _rng
 from paddle_tpu_torch.core.arg import Arg
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, batch_context
+from paddle_tpu_torch.parallel import collectives as C
 
 ARG_FIELDS = ("value", "ids", "seq_lens", "subseq_lens")
 
@@ -80,6 +109,23 @@ def feed_signature(feed: dict) -> tuple:
         for name, a in feed.items()))
 
 
+def shard_feed(feed: dict, mesh, dim: int = 0) -> dict:
+    """This rank's slice on the `data` axis of a global feed's batch
+    dimension `dim` (1 for a stacked feed [K, B, ...]). A batch that
+    does not divide over the axis raises, as the JAX sharding does."""
+    n = mesh.axis_size(DATA_AXIS)
+    i = mesh.axis_index(DATA_AXIS)
+
+    def take(x):
+        if x.shape[dim] % n:
+            raise ValueError(
+                f"the global batch ({x.shape[dim]} rows) does not divide "
+                f"over the {n} ranks of the data axis")
+        return x.chunk(n, dim)[i]
+
+    return {name: _arg_map(take, a) for name, a in feed.items()}
+
+
 def stack_outs(outs: list) -> dict:
     """K steps' kept outputs ({name: Arg}) stacked [K, ...]."""
     return {name: _arg_map(lambda *xs: torch.stack(xs),
@@ -95,9 +141,18 @@ class TrainStep:
     draws nothing). The feed's tensors are moved to the device."""
 
     def __init__(self, net, opt, keep_outputs=None, watchdog=False,
-                 device=None):
+                 device=None, mesh=None, sharding_rules=None):
         self.net = net
         self.opt = opt
+        self.mesh = mesh
+        self.specs = {}
+        if mesh is not None:
+            from paddle_tpu_torch.parallel.sharding import Sharder
+
+            self.specs = Sharder(mesh, sharding_rules).param_specs(
+                net.param_confs)
+            if device is None and mesh.device is not None:
+                device = mesh.device
         self.device = resolve_device(device)
         self.watchdog = watchdog
         # only declared outputs leave the step: returning every layer's
@@ -148,9 +203,12 @@ class TrainStep:
         scalars (a device tensor) and key."""
         names = list(params)
         leaves = {k: params[k].detach().requires_grad_(True) for k in names}
-        with torch.enable_grad():
+        mesh = self.mesh
+        with torch.enable_grad(), batch_context(mesh):
+            full = leaves if mesh is None else {
+                k: self.gather_param(k, v) for k, v in leaves.items()}
             loss, (outs, new_state) = self.net.loss_fn(
-                leaves, feed, state=state, train=True, rng=rng)
+                full, feed, state=state, train=True, rng=rng)
             got = torch.autograd.grad(loss, [leaves[k] for k in names],
                                       allow_unused=True)
         # a parameter the loss does not reach has gradient 0, as jax.grad
@@ -158,6 +216,8 @@ class TrainStep:
         grads = {k: torch.zeros_like(params[k]) if g is None else g
                  for k, g in zip(names, got)}
         loss = loss.detach()
+        if mesh is not None:
+            grads, loss = self.average(grads, loss)
         # layer state is never differentiated (the JAX step carries it
         # as aux): a running mean kept attached would chain autograd
         # nodes from step to step
@@ -171,6 +231,10 @@ class TrainStep:
             finite = torch.isfinite(loss)
             for g in grads.values():
                 finite = finite & torch.isfinite(g).all()
+            if mesh is not None:
+                # one verdict for every rank: a rank that skipped while
+                # the others applied would leave the replicas apart
+                finite = C.all_min(mesh, finite.to(torch.int32)).bool()
 
             def keep(new, old):
                 return torch.where(finite, new, old)
@@ -194,6 +258,8 @@ class TrainStep:
         trainer's tail of a pass with K > 1), noted as the JAX trainer's
         scan of one step is."""
         feed = {k: a.to(self.device) for k, a in feed.items()}
+        if self.mesh is not None:
+            feed = shard_feed(feed, self.mesh)
         sig = feed_signature(feed)
         if chunk:
             self.note(("multi", 1, sig), params, feed, body=feed)
@@ -201,7 +267,9 @@ class TrainStep:
             self.note(("step", sig, tuple(params)), params, feed)
         scalars = self.opt.scalars_tensor(step_i, lr_scale,
                                           next(iter(params.values())))
-        return self.body(params, opt_state, state, feed, scalars, rng)
+        out = self.body(params, opt_state, state, feed, scalars, rng)
+        self.check_shards(out[0])
+        return out
 
     def multi(self, params, opt_state, state, feeds, step_i, step_root,
               lr_scale=None):
@@ -230,7 +298,10 @@ class TrainStep:
         like = next(iter(params.values()))
         scalars, seeds = self.step_tables(step_i, k_steps, root_seed,
                                           lr_scale, like)
-        if self.device.type == "cuda":
+        if self.mesh is not None:
+            feeds = shard_feed(feeds, self.mesh, dim=1)
+        if self.device.type == "cuda" and (
+                self.mesh is None or self.mesh.backend == "nccl"):
             if self.graphs is None:
                 from paddle_tpu_torch.parallel.graph import StepGraphs
 
@@ -248,7 +319,127 @@ class TrainStep:
                 _rng.StepKey(seeds[k].to(like.device)))
             losses.append(loss)
             outs.append(out)
+        self.check_shards(params)
         return params, opt_state, state, torch.stack(losses), stack_outs(outs)
+
+    # ---- the mesh ------------------------------------------------------
+
+    def local_shape(self, name: str) -> tuple:
+        """The shape of this rank's shard of parameter `name`."""
+        from paddle_tpu_torch.parallel.sharding import shard_slices
+
+        dims = tuple(self.net.param_confs[name].dims)
+        return tuple(sl.stop - sl.start for sl in shard_slices(
+            self.specs.get(name, ()), dims, self.mesh))
+
+    def place(self, params, opt_state=None, state=None) -> tuple:
+        """Full parameters, optimizer state and layer state (tensors or
+        numpy) as this rank's: each sharded parameter and its slots cut
+        to the rank's shard (`weights.place_on_mesh`), on the step's
+        device. Without a mesh, the values on the device."""
+        from paddle_tpu_torch import weights
+
+        specs = self.specs if self.mesh is not None else {}
+        p = weights.place_on_mesh(params, self.mesh, specs, self.device)
+        o = None if opt_state is None else {
+            k: weights.place_on_mesh(slots, self.mesh,
+                                     {s: specs.get(k, ()) for s in slots},
+                                     self.device)
+            for k, slots in opt_state.items()}
+        s = None if state is None else _tree_map(
+            lambda x: torch.as_tensor(x).to(self.device), state)
+        return p, o, s
+
+    def gather_param(self, name: str, shard: torch.Tensor) -> torch.Tensor:
+        """The whole parameter from this rank's shard: an all-gather over
+        each axis its spec splits. Over `data` (ranks with different
+        data) the backward reduce-scatters; over another axis it takes
+        the rank's slice of a gradient every rank of it computed."""
+        from paddle_tpu_torch.parallel.sharding import sharded_dims
+
+        dims = sharded_dims(self.specs.get(name, ()))
+        if getattr(self.net.param_confs[name], "expert_sharded", False) \
+                and dims == [(0, MODEL_AXIS)]:
+            # the MoE layer runs its shard of the experts (ops/moe.py)
+            return shard
+        x = shard
+        for dim, axis in dims:
+            if axis == DATA_AXIS:
+                x = C.all_gather(x, self.mesh, axis, dim)
+            else:
+                x = C.gather(x, self.mesh, axis, dim)
+        return x
+
+    def average(self, grads: dict, loss) -> tuple:
+        """Gradients and loss averaged over the data axis: one all-reduce
+        per dtype for the replicated parameters' gradients (those
+        gathered over `data` were reduce-scattered already)."""
+        from paddle_tpu_torch.parallel.sharding import sharded_dims
+
+        mesh = self.mesh
+        n = mesh.axis_size(DATA_AXIS)
+        on_data = {k for k in grads
+                   if any(a == DATA_AXIS for _d, a in sharded_dims(
+                       self.specs.get(k, ())))}
+        out = {k: grads[k] / n for k in on_data}
+        rest = [k for k in grads if k not in on_data]
+        for dtype in {grads[k].dtype for k in rest}:
+            ks = [k for k in rest if grads[k].dtype == dtype]
+            flat = torch.cat([grads[k].reshape(-1) for k in ks]
+                             + [loss.reshape(1).to(dtype)])
+            flat = C.all_reduce_(mesh, DATA_AXIS, flat) / n
+            off = 0
+            for k in ks:
+                m = grads[k].numel()
+                out[k] = flat[off:off + m].view(grads[k].shape)
+                off += m
+            loss = flat[-1].to(loss.dtype)
+        if not rest:
+            loss = C.all_reduce_(mesh, DATA_AXIS, loss) / n
+        return out, loss
+
+    def shard_layout(self, opt_state=None) -> dict:
+        """{tree path: (global shape, [[start, stop], ...])} of this
+        rank's sharded leaves of the tree {"params": ..., "opt_state":
+        ...} (a parameter's and its slots of the same shape), what a
+        checkpoint records for them (`trainer/async_checkpoint.py::
+        snapshot_shards`)."""
+        from paddle_tpu_torch.parallel.sharding import (
+            shard_slices,
+            sharded_dims,
+        )
+
+        out = {}
+        for k, spec in self.specs.items():
+            if not sharded_dims(spec):
+                continue
+            dims = tuple(self.net.param_confs[k].dims)
+            sig = [[sl.start, sl.stop]
+                   for sl in shard_slices(spec, dims, self.mesh)]
+            out[f"params/{k}"] = (dims, sig)
+            for slot, t in (opt_state or {}).get(k, {}).items():
+                if tuple(t.shape) == self.local_shape(k):
+                    out[f"opt_state/{k}/{slot}"] = (dims, sig)
+        return out
+
+    def shard_slices_of(self, opt_state=None) -> dict:
+        """{tree path: tuple of slices}: `shard_layout` as the slices a
+        loader cuts from whole arrays (`checkpoint.load_sharded`)."""
+        return {k: tuple(slice(a, b) for a, b in sig)
+                for k, (_shape, sig) in self.shard_layout(opt_state).items()}
+
+    def check_shards(self, params) -> None:
+        """A sharded parameter that is no longer its shard's shape
+        raises: its sharding was dropped."""
+        for k in self.specs:
+            if not any(a is not None for a in self.specs[k]):
+                continue
+            want = self.local_shape(k)
+            if k in params and tuple(params[k].shape) != want:
+                raise RuntimeError(
+                    f"parameter {k!r} is {tuple(params[k].shape)} after the "
+                    f"step, not its shard's {want} under "
+                    f"{self.specs[k]!r}: a sharding was dropped")
 
     def settle(self, params, opt_state, state) -> tuple:
         """Where `multi` has captured graphs, copy these values into the

@@ -21,8 +21,12 @@ The JAX class's `_format`, `_salt_scratch`, `_jit_pinned`,
 layouts across compiled programs, and PyTorch has no such programs — a
 contiguous row-major tensor is the kernel's layout.
 
-`embedding_lookup` over a row-sharded table needs a mesh (ROADMAP A8) and
-raises.
+`embedding_lookup`: rows of a table sharded by rows over a mesh axis
+(the JAX shard_map program): each rank takes the ids it owns from its
+row shard, masks the rest to 0, and an all-reduce over the axis
+combines the partial rows. The backward is row-sparse: each rank's
+table gradient is a sparse COO tensor of the rows it owns that the ids
+touch.
 """
 
 from __future__ import annotations
@@ -32,15 +36,46 @@ import torch
 
 from paddle_tpu_torch.core.device import resolve_device
 from paddle_tpu_torch.ops import sparse_rows as _rows
+from paddle_tpu_torch.parallel import collectives as C
 
 
-def embedding_lookup(table, ids, mesh=None, *, axis: str = "model"):
-    """Rows of a row-sharded table: needs the mesh of ROADMAP A8."""
-    raise NotImplementedError(
-        "embedding_lookup over a row-sharded table needs a device mesh, "
-        "which is not ported yet (ROADMAP A8); on one device index the "
-        "table directly"
-    )
+class _OwnedRows(torch.autograd.Function):
+    """rows = shard[local ids] where owned, else 0; backward: a sparse
+    COO gradient of the owned rows the ids touch."""
+
+    @staticmethod
+    def forward(ctx, shard, local, ok):
+        safe = torch.where(ok, local, 0)
+        rows = shard.index_select(0, safe.reshape(-1)).reshape(
+            tuple(local.shape) + tuple(shard.shape[1:]))
+        ctx.save_for_backward(local, ok)
+        ctx.shard_shape = tuple(shard.shape)
+        return torch.where(ok[..., None], rows, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        local, ok = ctx.saved_tensors
+        sel = ok.reshape(-1)
+        idx = local.reshape(-1)[sel]
+        vals = g.reshape(-1, g.shape[-1])[sel]
+        grad = torch.sparse_coo_tensor(idx[None], vals, ctx.shard_shape)
+        return grad.coalesce(), None, None
+
+
+def embedding_lookup(table, ids, mesh, *, axis: str = "model"):
+    """Rows of a row-sharded table.
+
+    table: THIS rank's row shard [V / n, D] of a [V, D] table split over
+    `axis` (n ranks; shard i holds rows [i V/n, (i+1) V/n)); ids: int
+    [...], the same on every rank of the axis. Returns [..., D], whole
+    on every rank."""
+    rows_local = table.shape[0]
+    shard = mesh.axis_index(axis)
+    ids = torch.as_tensor(ids).to(device=table.device, dtype=torch.int64)
+    local = ids - shard * rows_local
+    ok = (local >= 0) & (local < rows_local)
+    rows = _OwnedRows.apply(table, local, ok)
+    return C.reduce(rows, mesh, axis)
 
 
 def touched_rows(ids, vocab_size: int):

@@ -1,5 +1,5 @@
 """Sharded embedding tier for 100M–1B-row CTR tables:
-`paddle_tpu/parallel/sparse_shard.py` on torch, on one device.
+`paddle_tpu/parallel/sparse_shard.py` on torch.
 
 A logical table of up to 2^30 rows lives as per-shard hot caches:
 
@@ -14,19 +14,25 @@ A logical table of up to 2^30 rows lives as per-shard hot caches:
   device buffers and every launch depend on (capacity, dim, batch),
   never on `rows_total`.
 
-On one card the `num_shards` logical shards lie in one [num_shards ·
-capacity, D] cache: the same global view the JAX mesh array has, with
-global slot = shard · capacity + local slot. Owner arithmetic, per-shard
-LRU, spill, and the export and restore payloads are the JAX table's
-with the same number of shards. `update` applies the row rule through
-B9 (`ops/sparse_rows.py`); lookup, pull and push are plain indexing
-(`index_select` / `index_copy_`), as they are plain XLA in the JAX
-package. Placing the shards over several cards waits for the mesh
-(ROADMAP A8).
+Without a mesh the `num_shards` logical shards lie in one [num_shards ·
+capacity, D] cache on one device: the same global view the JAX mesh
+array has, with cache slot = shard · capacity + local slot. With a mesh
+(`mesh=`, `axis=`) shard s lives on the axis' rank s mod n: each rank
+holds the hot cache, the LRU maps and the spill store of its shards
+only. Every rank of the axis is given the same ids; a rank looks up and
+updates the rows it owns, and a lookup's rows are all-reduced over the
+axis (each id has one owner, the others give 0). Owner arithmetic,
+per-shard LRU, spill, and the export and restore payloads are the JAX
+table's with the same number of shards; the one-batch miss check counts
+the misses of every rank (an all-reduce). `update` applies the row rule
+through B9 (`ops/sparse_rows.py`) on each rank's rows; lookup, pull and
+push are plain indexing (`index_select` / `index_copy_`), as they are
+plain XLA in the JAX package.
 
 Checkpointing: `export_shards()` returns one payload dict per shard
-(resident rows in LRU order + spill store + optimizer slots),
-`restore_shards()` takes them back — the JAX table's payloads too.
+(resident rows in LRU order + spill store + optimizer slots; on a mesh
+every rank's, gathered), `restore_shards()` takes them back (on a mesh
+each rank keeps its shards') — the JAX table's payloads too.
 """
 
 from __future__ import annotations
@@ -146,8 +152,11 @@ class ShardedEmbeddingTable:
     """
 
     def __init__(self, config: ShardedTableConfig, num_shards: int = 1,
-                 update_fn=None, num_state: int = 0, device=None):
+                 update_fn=None, num_state: int = 0, device=None,
+                 mesh=None, axis: str = "model"):
         self.config = config
+        if device is None and mesh is not None and mesh.device is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.num_shards = int(num_shards)
         if self.num_shards < 1:
@@ -156,8 +165,14 @@ class ShardedEmbeddingTable:
                           else sgd_row_update(0.1))
         self.num_state = int(num_state)
         self.rows_per_shard = ceil(config.rows_total / self.num_shards)
+        self.mesh, self.axis = mesh, axis
+        n = mesh.axis_size(axis) if mesh is not None else 1
+        r = mesh.axis_index(axis) if mesh is not None else 0
+        # the shards this rank holds, and each one's block of the cache
+        self.local_shards = [s for s in range(self.num_shards) if s % n == r]
+        self._pos = {s: i for i, s in enumerate(self.local_shards)}
         C, D = config.capacity, config.dim
-        self._S = self.num_shards * C  # total hot slots
+        self._S = len(self.local_shards) * C  # this rank's hot slots
         self._cache = torch.zeros((self._S, D), dtype=torch.float32,
                                   device=self.device)
         self._state = tuple(torch.zeros_like(self._cache)
@@ -194,7 +209,21 @@ class ShardedEmbeddingTable:
 
     # ---- residency ----
     def _global_slot(self, shard: int, local: int) -> int:
-        return shard * self.config.capacity + local
+        return self._pos[shard] * self.config.capacity + local
+
+    def _owned(self, ids: np.ndarray) -> np.ndarray:
+        """Which of `ids` this rank's shards own."""
+        if self.mesh is None:
+            return np.ones(len(ids), bool)
+        n = self.mesh.axis_size(self.axis)
+        return self.owners(ids) % n == self.mesh.axis_index(self.axis)
+
+    def _axis_sum(self, t: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        from paddle_tpu_torch.parallel import collectives
+
+        return collectives.all_reduce_(self.mesh, self.axis, t)
 
     def ensure_resident(self, uids: np.ndarray) -> None:
         """Make every id in `uids` (unique, any order) resident,
@@ -209,6 +238,7 @@ class ShardedEmbeddingTable:
                 f"ids must lie in [0, {self.config.rows_total}); got "
                 f"range [{int(uids.min())}, {int(uids.max())}]"
             )
+        uids = uids[self._owned(uids)]
         shards = self.owners(uids)
         misses = []  # (shard, id)
         for i, s in zip(uids.tolist(), shards.tolist()):
@@ -219,13 +249,20 @@ class ShardedEmbeddingTable:
             else:
                 misses.append((s, i))
                 self.stats["misses"] += 1
-        if not misses:
+        n_miss = len(misses)
+        if self.mesh is not None:
+            # the batch's misses on every rank: the one-table check
+            n_miss = int(self._axis_sum(torch.tensor(
+                [n_miss], dtype=torch.int64, device=self.device)).item())
+        if not misses and n_miss == 0:
             return
-        if len(misses) > self.config.num_slots:
+        if n_miss > self.config.num_slots:
             raise ValueError(
-                f"{len(misses)} misses in one batch > num_slots "
+                f"{n_miss} misses in one batch > num_slots "
                 f"{self.config.num_slots}"
             )
+        if not misses:
+            return
         evict = []   # (shard, id, local slot)
         assign = []  # (shard, id, local slot)
         for s, i in misses:
@@ -297,8 +334,20 @@ class ShardedEmbeddingTable:
         flat = ids.reshape(-1)
         uids, inv = np.unique(flat, return_inverse=True)
         self.ensure_resident(uids)
-        slots = torch.from_numpy(self._slots_for(uids)[inv.reshape(-1)])
-        out = self._cache.index_select(0, slots.to(self.device))
+        if self.mesh is None:
+            slots = torch.from_numpy(self._slots_for(uids)[inv.reshape(-1)])
+            out = self._cache.index_select(0, slots.to(self.device))
+            return out.reshape(ids.shape + (self.config.dim,))
+        # this rank's rows, 0 for ids another rank owns, summed over the
+        # axis
+        own = self._owned(uids)[inv.reshape(-1)]
+        out = torch.zeros((len(flat), self.config.dim), dtype=torch.float32,
+                          device=self.device)
+        if own.any():
+            slots = torch.from_numpy(self._slots_for(flat[own]))
+            out[torch.from_numpy(np.flatnonzero(own)).to(self.device)] = \
+                self._cache.index_select(0, slots.to(self.device))
+        out = self._axis_sum(out)
         return out.reshape(ids.shape + (self.config.dim,))
 
     def update(self, ids, grads):
@@ -317,17 +366,25 @@ class ShardedEmbeddingTable:
                 f"{len(uids)} unique ids in one step > num_slots {k}"
             )
         self.ensure_resident(uids)
-        slots = torch.from_numpy(self._slots_for(uids)[inv.reshape(-1)])
-        _rows.sparse_rows(self.update_fn, [self._cache, *self._state],
-                          slots.to(self.device), grads.contiguous(), k,
-                          self._S)
+        own = self._owned(uids)[inv.reshape(-1)]
+        if own.all():
+            slots = torch.from_numpy(self._slots_for(uids)[inv.reshape(-1)])
+        else:
+            # this rank's rows: the occurrences of the ids it owns
+            slots = torch.from_numpy(self._slots_for(ids[own]))
+            grads = grads[torch.from_numpy(np.flatnonzero(own)).to(
+                self.device)]
+        if len(slots):
+            _rows.sparse_rows(self.update_fn, [self._cache, *self._state],
+                              slots.to(self.device), grads.contiguous(), k,
+                              self._S)
         self.stats["steps"] += 1
 
     # ---- introspection ----
     @property
     def rows_materialized(self) -> int:
         """Distinct rows this table has ever touched (resident +
-        spilled)."""
+        spilled; on a mesh, this rank's shards')."""
         return sum(len(d) for d in self._slot_of) + sum(
             len(sp) for sp in self._spill
         )
@@ -339,16 +396,31 @@ class ShardedEmbeddingTable:
     def export_shards(self) -> list:
         """One payload dict per shard, each self-contained: resident
         ids in LRU order (oldest first) with their slots + rows +
-        optimizer slots, and the spill store. Bytes are COPIED."""
+        optimizer slots, and the spill store. Bytes are COPIED. On a
+        mesh every rank returns every shard's (gathered over the
+        axis)."""
+        local = self.export_local()
+        if self.mesh is None:
+            return [local[s] for s in range(self.num_shards)]
+        import torch.distributed as dist
+
+        parts = [None] * self.mesh.axis_size(self.axis)
+        dist.all_gather_object(parts, local,
+                               group=self.mesh.group(self.axis))
+        merged = {s: p for part in parts for s, p in part.items()}
+        return [merged[s] for s in range(self.num_shards)]
+
+    def export_local(self) -> dict:
+        """{shard: payload} of this rank's shards."""
         C, D = self.config.capacity, self.config.dim
         cache = self._cache.cpu().numpy().copy()
         state = [st.cpu().numpy().copy() for st in self._state]
-        out = []
-        for s in range(self.num_shards):
+        out = {}
+        for s in self.local_shards:
             d = self._slot_of[s]
             rids = np.fromiter(d.keys(), np.int64, len(d))
             slots = np.fromiter(d.values(), np.int32, len(d))
-            g = s * C + slots
+            g = self._pos[s] * C + slots
             payload = {
                 "ids": rids,
                 "slots": slots,
@@ -371,7 +443,7 @@ class ShardedEmbeddingTable:
                     np.stack([sp[i][1 + t] for i in sids.tolist()])
                     if len(sp) else np.zeros((0, D), np.float32)
                 )
-            out.append(payload)
+            out[s] = payload
         return out
 
     def table_meta(self) -> dict:
@@ -387,8 +459,9 @@ class ShardedEmbeddingTable:
 
     def restore_shards(self, payloads) -> None:
         """Rebuild residency + device buffers from `export_shards`
-        payloads. LRU order, slot assignment, optimizer slots and the
-        spill store all come back exactly."""
+        payloads (every shard's; on a mesh each rank keeps its own).
+        LRU order, slot assignment, optimizer slots and the spill store
+        all come back exactly."""
         if len(payloads) != self.num_shards:
             raise ValueError(
                 f"{len(payloads)} shard payloads for "
@@ -403,6 +476,9 @@ class ShardedEmbeddingTable:
                       for _ in range(self.num_shards)]
         self._spill = [dict() for _ in range(self.num_shards)]
         for s, p in enumerate(payloads):
+            if s not in self._pos:
+                continue
+            base = self._pos[s] * C
             rids = np.asarray(p["ids"], np.int64)
             slots = np.asarray(p["slots"], np.int32)
             rows = np.asarray(p["rows"], np.float32)
@@ -412,9 +488,9 @@ class ShardedEmbeddingTable:
             ):
                 self._slot_of[s][i] = slot
                 used.add(slot)
-                cache[s * C + slot] = rows[j]
+                cache[base + slot] = rows[j]
                 for t in range(self.num_state):
-                    state[t][s * C + slot] = np.asarray(
+                    state[t][base + slot] = np.asarray(
                         p[f"state{t}"], np.float32
                     )[j]
             self._free[s] = [sl for sl in range(C - 1, -1, -1)

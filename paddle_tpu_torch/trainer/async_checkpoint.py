@@ -27,7 +27,7 @@ Format (`async-shard-v1`) — one directory per pass:
         shard-p0.ok.json     # per-shard commit record: keys, nbytes,
                              # sha256 — written AFTER the npz rename
         shard-p1.npz ...     # one pair per process (the port runs
-                             # one process until the mesh)
+                             # one a rank on a mesh)
 
 A pass is COMPLETE iff the manifest exists and every shard it names
 has a matching `.ok.json` whose checksum verifies. Every file lands
@@ -71,11 +71,26 @@ from paddle_tpu_torch.trainer.checkpoint import (
 MANIFEST = "manifest.json"
 FORMAT = "async-shard-v1"
 _PASS_RE = re.compile(r"^pass-(\d{5})$")
-# this process's index and the number of processes that write a pass
-# (the JAX package's jax.process_index() / process_count()): one until
-# the mesh (ROADMAP A8)
-PROCESS_INDEX = 0
-PROCESS_COUNT = 1
+
+
+def process_index() -> int:
+    """This process's index among those that write a pass (the JAX
+    package's `jax.process_index()`): its torch.distributed rank, 0
+    without a process group."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+_rank = process_index  # write_shard's argument shadows the name
+
+
+def process_count() -> int:
+    """The number of processes that write a pass: the world's size."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
 
 # ---- sharded-table generations ---------------------------------------
 # A second on-disk format for ShardedEmbeddingTable checkpoints. One
@@ -165,12 +180,18 @@ def _index_sig(index, shape) -> list:
 _copy_streams: dict = {}  # device -> the side stream snapshots copy on
 
 
-def snapshot_shards(tree) -> dict:
+def snapshot_shards(tree, shards=None) -> dict:
     """Device->host snapshot of this process's shard of a tree (params /
     opt_state / state of tensors or numpy arrays) — the only part of an
     async save that blocks training. Keys `<tree path>##r<process
     index>`, the JAX package's keys for an array with one distinct
-    shard on the process.
+    shard on the process. `shards` ({tree path: (global shape,
+    [[start, stop], ...])}, `TrainStep.shard_layout`) names the leaves
+    that are this rank's slice of a mesh-sharded array: those are keyed
+    `<tree path>##<rank>` (the rank in the JAX device id's place) and
+    their global shape and slice recorded in the `__shard_index__`
+    entry, as the JAX package records its sharded arrays, so a save at
+    one world size loads at another.
 
     The payload owns its bytes: the caller's tensors are overwritten in
     place by the next train step (a CUDA graph's replay writes the
@@ -178,7 +199,18 @@ def snapshot_shards(tree) -> dict:
     Tensors on the card are copied into pinned host buffers on a side
     stream that first waits for the work queued on the current stream,
     and this call returns once those copies have landed."""
-    rtag = f"r{PROCESS_INDEX}"
+    pidx = process_index()
+    shards = shards or {}
+    idxmeta = {}
+
+    def key(name):
+        if name in shards:
+            shape, sig = shards[name]
+            idxmeta[name] = {"global_shape": list(shape),
+                             "index": {str(pidx): [list(p) for p in sig]}}
+            return f"{name}##{pidx}"
+        return f"{name}##r{pidx}"
+
     payload = {}
     on_card = []
     for name, x in _walk_arrays(tree).items():
@@ -186,8 +218,7 @@ def snapshot_shards(tree) -> dict:
             check_leaf(x, name)
             on_card.append((name, x))
         else:
-            payload[f"{name}##{rtag}"] = np.array(host_array(x, name),
-                                                  copy=True)
+            payload[key(name)] = np.array(host_array(x, name), copy=True)
     if on_card:
         dev = on_card[0][1].device
         side = _copy_streams.get(dev)
@@ -203,7 +234,10 @@ def snapshot_shards(tree) -> dict:
         side.synchronize()
         for name, buf in bufs:
             # the array keeps its pinned buffer alive
-            payload[f"{name}##{rtag}"] = buf.numpy()
+            payload[key(name)] = buf.numpy()
+    if idxmeta:
+        payload[INDEX_KEY] = np.frombuffer(
+            json.dumps(idxmeta).encode(), np.uint8).copy()
     return payload
 
 
@@ -214,8 +248,8 @@ def write_shard(save_dir: str, pass_id: int, payload: dict,
     checksum sidecar); process 0 also writes the manifest. Safe to call
     from any thread/process; used by both the async writer thread and
     synchronous callers that want the manifested format."""
-    pidx = PROCESS_INDEX if process_index is None else process_index
-    nsh = PROCESS_COUNT if num_shards is None else num_shards
+    pidx = _rank() if process_index is None else process_index
+    nsh = process_count() if num_shards is None else num_shards
     d = _pass_dir(save_dir, pass_id)
     os.makedirs(d, exist_ok=True)
     shard = os.path.join(d, _shard_name(pidx))
@@ -705,10 +739,13 @@ class AsyncCheckpointer:
 
     # ---- producer ----
     def save(self, pass_id: int, params, opt_state=None, state=None,
-             meta=None) -> None:
+             meta=None, shards=None) -> None:
         """Snapshot to host and enqueue the write. The tree layout
         mirrors `checkpoint.save_pass` (params/opt_state/state roots)
-        so loaders can hand back the same triple."""
+        so loaders can hand back the same triple. On a mesh every rank
+        calls it, with `shards` (`TrainStep.shard_layout`) naming its
+        sharded leaves; each writes its own shard file and rank 0 the
+        manifest."""
         if self._closed:
             raise RuntimeError("AsyncCheckpointer is closed")
         self._raise_if_failed()
@@ -718,7 +755,7 @@ class AsyncCheckpointer:
         if state:
             tree["state"] = state
         with self._snap_lock:
-            payload = snapshot_shards(tree)
+            payload = snapshot_shards(tree, shards)
         self._q.put(("pass", pass_id, payload, dict(meta or {})))
 
     def save_table(self, generation: int, payloads, meta=None) -> None:
@@ -757,7 +794,7 @@ class AsyncCheckpointer:
             _k, pass_id, payload, meta = item
             self._retrying(self._write_shard, self.save_dir, pass_id,
                            payload, meta=meta)
-            if self.keep_last and PROCESS_INDEX == 0:
+            if self.keep_last and process_index() == 0:
                 self._rotate(pass_id)
         else:
             _k, generation, payloads, meta = item

@@ -265,15 +265,18 @@ def _walk_arrays(tree, prefix=""):
     return out
 
 
-def save_sharded(save_dir: str, tree, tag: str = "ckpt") -> str:
-    """Write this process's shard of a tree: atomically commits
-    `{tag}.p0.npz` (keys `<name>##r0`, async_checkpoint.snapshot_shards's
-    scheme)."""
+def save_sharded(save_dir: str, tree, tag: str = "ckpt",
+                 shards=None) -> str:
+    """Write this process's shard of a tree: call from EVERY rank; each
+    atomically commits `{tag}.p{rank}.npz` (async_checkpoint.
+    snapshot_shards's keys; `shards`, `TrainStep.shard_layout`, names
+    the leaves that are the rank's slice of a mesh-sharded array, whose
+    global shape and slice are recorded)."""
     from paddle_tpu_torch.trainer import async_checkpoint as actp
 
     os.makedirs(save_dir, exist_ok=True)
-    payload = actp.snapshot_shards(tree)
-    path = os.path.join(save_dir, f"{tag}.p{actp.PROCESS_INDEX}.npz")
+    payload = actp.snapshot_shards(tree, shards)
+    path = os.path.join(save_dir, f"{tag}.p{actp.process_index()}.npz")
     tmp = path[:-4] + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **payload)
@@ -283,15 +286,29 @@ def save_sharded(save_dir: str, tree, tag: str = "ckpt") -> str:
     return path
 
 
-def load_sharded(save_dir: str, template=None, tag: str = "ckpt"):
-    """Restore this process's shard written by `save_sharded` as a tree
-    of numpy arrays; with `template` (a tree of tensors), as tensors on
-    each template leaf's device."""
+def load_sharded(save_dir: str, template=None, tag: str = "ckpt",
+                 slices=None):
+    """Restore a tree written by `save_sharded` (this package's or the
+    JAX package's), at any world size: every `{tag}.p*.npz` is merged
+    and each array reassembled whole by its recorded slice map. With
+    `slices` ({tree path: tuple of slices}, e.g. `TrainStep.
+    shard_slices_of`), those leaves are cut to this rank's slice. Returns
+    numpy arrays; with `template` (a tree of tensors), tensors on each
+    template leaf's device."""
     from paddle_tpu_torch.trainer import async_checkpoint as actp
 
-    path = os.path.join(save_dir, f"{tag}.p{actp.PROCESS_INDEX}.npz")
-    flat, idxmeta = actp.merge_npz_shards([path])
+    pat = re.compile(rf"^{re.escape(tag)}\.p(\d+)\.npz$")
+    paths = sorted((int(m.group(1)), os.path.join(save_dir, n))
+                   for n in os.listdir(save_dir)
+                   if (m := pat.match(n)))
+    if not paths:
+        raise FileNotFoundError(f"no {tag}.p*.npz in {save_dir}")
+    flat, idxmeta = actp.merge_npz_shards(p for _i, p in paths)
     tree = actp.assemble_host(flat, idxmeta)
+    if slices:
+        leaves = _walk_arrays(tree)
+        tree = _unflatten({k: v[slices[k]] if k in slices else v
+                           for k, v in leaves.items()})
     if template is None:
         return tree
     return actp.place_like(tree, template)

@@ -1,5 +1,5 @@
 """SGD trainer — the event-driven training loop of
-`paddle_tpu/trainer/trainer.py` on torch, on one device.
+`paddle_tpu/trainer/trainer.py` on torch.
 
     trainer = SGD(model_conf, opt_conf, evaluators=[...])  # on the card
     trainer = SGD(model_conf, opt_conf, device="cpu")
@@ -70,8 +70,22 @@ CUDA-graph capture is recorded (`recompile_violations()`) or, strict,
 raises RecompileError from the step. The eval forward has its own guard
 ("eval_forward", noted at the first sight of each feed signature).
 
-Left out: the mesh (ROADMAP A8); the JAX trainer's FP trap and PRNG
-choice are JAX configuration, with no counterpart here.
+The mesh (`SGD(..., mesh=..., sharding_rules=...)`, the JAX trainer's
+mesh): every rank runs the same loop over the same reader and seed, so
+each reads the same global batch and the train step
+(`parallel/dp.py`) takes the rank's slice; parameters start whole from
+the seed on every rank and are cut to the rank's shards. The
+evaluators see the global batch: the kept outputs are all-gathered over
+the data axis before they reach them, and `test()` runs the forward on
+the whole batch with the whole parameters. Checkpoints: an async pass
+is written by every rank (its shard file, the sharded leaves with their
+global shape and slice) and its manifest by rank 0; a sync pass holds
+whole arrays, gathered, and rank 0 writes it. A resume loads whole
+arrays and cuts them to the rank's shards, so a pass saved at one world
+size resumes at another. Rank 0 alone logs.
+
+Left out: the JAX trainer's FP trap and PRNG choice are JAX
+configuration, with no counterpart here.
 """
 
 from __future__ import annotations
@@ -88,6 +102,7 @@ from paddle_tpu_torch.core import flags as _flags
 from paddle_tpu_torch.core import rng as _rng
 from paddle_tpu_torch.core.config import ModelConf, OptimizationConf
 from paddle_tpu_torch.core.device import resolve_device
+from paddle_tpu_torch.core.mesh import DATA_AXIS
 from paddle_tpu_torch.core.stat import GLOBAL_STATS
 from paddle_tpu_torch.evaluators import create_evaluator
 from paddle_tpu_torch.network import Network
@@ -95,6 +110,7 @@ from paddle_tpu_torch.obs import metrics as _obs
 from paddle_tpu_torch.obs import tracing as _tracing
 from paddle_tpu_torch.obs.timeline import StepTimeline
 from paddle_tpu_torch.optimizers import create_optimizer
+from paddle_tpu_torch.parallel import collectives as C
 from paddle_tpu_torch.parallel.dp import (
     TrainStep,
     _arg_map,
@@ -120,6 +136,18 @@ from paddle_tpu_torch.weights import (
 )
 
 log = logging.getLogger("paddle_tpu_torch.trainer")
+
+
+class _RankZero(logging.Filter):
+    """On a mesh, only rank 0's trainer logs."""
+
+    def filter(self, record) -> bool:
+        import torch.distributed as dist
+
+        return not dist.is_initialized() or dist.get_rank() == 0
+
+
+log.addFilter(_RankZero())
 
 
 class _NullPreemptionGuard:
@@ -192,6 +220,8 @@ class SGD:
         device=None,
         steps_per_dispatch: Optional[int] = None,
         evaluators: Optional[list] = None,
+        mesh=None,
+        sharding_rules=None,
     ):
         """`params`: {name: tensor} to start from (moved to the
         device), else drawn from `seed`. `watchdog`: None = the
@@ -199,7 +229,13 @@ class SGD:
         `WatchdogConfig` enables the on-device non-finite skip and the
         host ladder with the given knobs. `steps_per_dispatch`: None =
         the flag (default 1); K > 1 trains K batches a dispatch.
-        `evaluators`: evaluator config dicts (`evaluators.py`)."""
+        `evaluators`: evaluator config dicts (`evaluators.py`). `mesh`
+        (`core/mesh.py`): train data-parallel and sharded over it, with
+        the `Sharder`'s `sharding_rules`; the device is then the rank's
+        unless given."""
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         if watchdog is None:
             watchdog = bool(_flags.get_flag("watchdog"))
@@ -234,13 +270,58 @@ class SGD:
         self.step_fn = TrainStep(self.net, self.opt,
                                  keep_outputs=self._eval_layers(),
                                  watchdog=self.watchdog_conf is not None,
-                                 device=self.device)
+                                 device=self.device, mesh=mesh,
+                                 sharding_rules=sharding_rules)
+        if mesh is not None:
+            from paddle_tpu_torch.core.mesh import set_mesh
+
+            # layers that read the mesh (moe's experts) find this one
+            set_mesh(mesh)
+            self.params, self.opt_state, self.state = self.step_fn.place(
+                self.params, self.opt_state, self.state)
         self.global_step = 0
         self._eval_guard = RecompileGuard("eval_forward")
 
     def _eval_layers(self) -> set:
         return {c[k] for c in self.evaluator_confs
                 for k in ("input", "label", "query_id") if k in c}
+
+    # ---- the mesh ----
+    def _whole(self, name: str, t):
+        """Parameter `name`'s shard `t` (or a slot of its shape) gathered
+        whole over every axis its spec splits."""
+        from paddle_tpu_torch.parallel.sharding import sharded_dims
+
+        if tuple(t.shape) != self.step_fn.local_shape(name):
+            return t
+        for dim, axis in sharded_dims(self.step_fn.specs.get(name, ())):
+            t = C.all_gather_(self.mesh, axis, t, dim)
+        return t
+
+    def whole_params(self) -> dict:
+        """The parameters whole (on a mesh: each sharded one all-gathered;
+        else `params` itself)."""
+        if self.mesh is None:
+            return self.params
+        return {k: self._whole(k, v) for k, v in self.params.items()}
+
+    def _whole_opt_state(self) -> dict:
+        if self.mesh is None:
+            return self.opt_state
+        return {k: {sl: self._whole(k, t) for sl, t in slots.items()}
+                for k, slots in self.opt_state.items()}
+
+    def _global_outs(self, outs: dict, dim: int = 0) -> dict:
+        """Kept outputs of the rank's slice all-gathered over the data
+        axis: the global batch's, which the evaluators see."""
+        if self.mesh is None:
+            return outs
+        return {n: _arg_map(lambda x: C.all_gather_(self.mesh, DATA_AXIS, x,
+                                                    dim), a)
+                for n, a in outs.items()}
+
+    def _rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
 
     # ---- eval-only forward (no grad) ----
     def _eval_forward(self, feed):
@@ -249,8 +330,10 @@ class SGD:
         feed = {k: a.to(self.device) for k, a in feed.items()}
         self._eval_guard.note_once(feed_signature(feed), feed)
         with torch.no_grad():
-            outs, _ = self.net.forward(self.params, feed, state=self.state,
-                                       train=False)
+            # on a mesh every rank runs the whole batch on the whole
+            # parameters
+            outs, _ = self.net.forward(self.whole_params(), feed,
+                                       state=self.state, train=False)
         costs = [outs[n].value for n in self.net.cost_names]
         return {k: v for k, v in outs.items() if k in keep}, costs
 
@@ -312,6 +395,7 @@ class SGD:
         self.params, self.opt_state, self.state = self.step_fn.settle(
             self.params, self.opt_state, self.state)
         self.global_step += 1
+        outs = self._global_outs(outs)
         t1 = time.perf_counter() if timeline is not None else 0.0
         if self.step_fn.watchdog:
             health = loss.cpu().numpy()  # the single host fetch
@@ -356,6 +440,7 @@ class SGD:
             self.global_step, self.step_root, lr_scale=lr_scale,
         )
         self.global_step += n
+        outs = self._global_outs(outs, dim=1)
         t1 = time.perf_counter()
         health = losses.cpu().numpy()  # the single host fetch
         if self.step_fn.watchdog:
@@ -562,12 +647,13 @@ class SGD:
                 # only the host snapshot inside save() blocks the loop
                 self._async_ckpt.save(
                     pass_id, self.params, self.opt_state, self.state,
-                    meta={"global_step": self.global_step})
+                    meta={"global_step": self.global_step},
+                    shards=self._shards())
             else:
-                ckpt.save_pass(
-                    save_dir, pass_id, self.params, self.opt_state,
-                    self.state, meta={"global_step": self.global_step},
-                    save_only_one=_flags.get_flag("save_only_one"))
+                self._save_sync(save_dir, pass_id,
+                                {"global_step": self.global_step},
+                                save_only_one=_flags.get_flag(
+                                    "save_only_one"))
         dt_ck = time.perf_counter() - t_ck
         tl.add_checkpoint(dt_ck)
         _tracing.emit_span(
@@ -702,17 +788,35 @@ class SGD:
             if ckpt_mode == "async":
                 self._ensure_async_ckpt(save_dir)
                 self._async_ckpt.save(pass_id, self.params, self.opt_state,
-                                      self.state, meta=meta)
+                                      self.state, meta=meta,
+                                      shards=self._shards())
                 self._async_ckpt.wait()
             else:
-                ckpt.save_pass(save_dir, pass_id, self.params,
-                               self.opt_state, self.state, meta=meta)
+                self._save_sync(save_dir, pass_id, meta)
         _obs.get_registry().counter("trainer.preemptions").inc()
         _obs.get_registry().event(
             "preempt_flush", global_step=self.global_step, pass_id=pass_id,
             batch_in_pass=batches_done)
         log.warning("preempted: flushed pass %d at batch %d to %s; exiting "
                     "for resume", pass_id, batches_done, save_dir)
+
+    def _shards(self):
+        """The sharded leaves of this rank's checkpoint tree."""
+        if self.mesh is None:
+            return None
+        return self.step_fn.shard_layout(self.opt_state)
+
+    def _save_sync(self, save_dir, pass_id, meta, **kw) -> None:
+        """A sync pass of whole arrays (on a mesh gathered, and written
+        by rank 0)."""
+        params, opt_state = self.whole_params(), self._whole_opt_state()
+        if self._rank0():
+            ckpt.save_pass(save_dir, pass_id, params, opt_state, self.state,
+                           meta=meta, **kw)
+        if self.mesh is not None and self.mesh.distributed:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def recompile_violations(self) -> list:
         """Steady-state traces and captures recorded by the train step's
@@ -784,9 +888,13 @@ class SGD:
                                                             pass_id)
         params = params_from_numpy(params, self.device)
         opt_state = (opt_state_from_numpy(opt_state, self.device)
-                     if opt_state is not None else self.opt_state)
+                     if opt_state is not None else self._whole_opt_state())
         state = (state_from_numpy(state, self.device) if state is not None
                  else self.state)
+        if self.mesh is not None:
+            # whole arrays cut to this rank's shards, at any world size
+            params, opt_state, state = self.step_fn.place(params, opt_state,
+                                                          state)
         self.params, self.opt_state, self.state = self.step_fn.settle(
             params, opt_state, state)
         self.global_step = meta.get("global_step", 0)

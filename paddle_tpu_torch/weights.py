@@ -103,3 +103,23 @@ def fused_resnet_from_plain(fused_net, params: dict, state=None) -> tuple:
     return new_params, {layer: {s: state[pl][ps]
                                 for s, (pl, ps) in slots.items()}
                         for layer, slots in smap.items()}
+
+
+def place_on_mesh(np_params: dict, mesh, specs: dict, device=None) -> dict:
+    """Full parameters ({name: numpy array or tensor}, e.g. the JAX
+    package's) onto a mesh: each rank keeps its slice of every
+    parameter `specs` ({name: partition spec}, a `Sharder`'s) splits,
+    and the whole of the rest, as tensors on `device`. Without a mesh,
+    the whole of each."""
+    from paddle_tpu_torch.parallel.sharding import local_shard
+
+    dev = resolve_device(device)
+    out = {}
+    for name, value in np_params.items():
+        x = (value.detach() if torch.is_tensor(value)
+             else torch.from_numpy(np.array(value, copy=True)))
+        spec = specs.get(name, ())
+        if mesh is not None and any(a is not None for a in spec):
+            x = local_shard(x, spec, mesh)
+        out[name] = x.contiguous().clone().to(dev)
+    return out

@@ -316,14 +316,22 @@ def test_lazy_classes_and_functions():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("api", "A12"), ("plot", "A12"), ("image", "A12"), ("framework", "A12"),
-    ("get_mesh", "A8"), ("set_mesh", "A8")])
+    ("api", "A12"), ("plot", "A12"), ("image", "A12"), ("framework", "A12")])
 def test_names_not_ported_raise_naming_their_item(name, item):
     import paddle_tpu_torch as paddle
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         getattr(paddle, name)
     assert not hasattr(paddle, name)
+
+
+@pytest.mark.parametrize("name", ["get_mesh", "set_mesh"])
+def test_mesh_names_resolve_to_the_port_mesh(name):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core import mesh
+
+    assert getattr(paddle, name) is getattr(mesh, name)
+    assert hasattr(paddle, name)
 
 
 def test_import_loads_no_submodule():

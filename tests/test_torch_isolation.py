@@ -468,3 +468,89 @@ def test_fleet_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_mesh_modules_import_and_run_with_jax_blocked(tmp_path):
+    """The mesh slice's modules by name (the walk above covers them too);
+    with jax and the JAX package blocked, a one-rank gloo world on a
+    FileStore builds its mesh and runs a data-parallel step, the ring,
+    Ulysses, the pipeline and the row-sharded lookup."""
+    names = ["paddle_tpu_torch.core.mesh",
+             "paddle_tpu_torch.parallel.collectives",
+             "paddle_tpu_torch.parallel.sharding",
+             "paddle_tpu_torch.parallel.pipeline",
+             "paddle_tpu_torch.parallel.world",
+             "paddle_tpu_torch.parallel.ring",
+             "paddle_tpu_torch.parallel.dp",
+             "paddle_tpu_torch.parallel.sparse",
+             "paddle_tpu_torch.parallel.sparse_shard"]
+    files = _port_files()
+    assert all(os.path.join(PKG, *n.split(".")[1:]) + ".py" in files
+               for n in names)
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=names) + """
+import torch
+import torch.distributed as dist
+from paddle_tpu_torch import dsl
+from paddle_tpu_torch.core import mesh
+from paddle_tpu_torch.core.arg import id_arg, non_seq
+from paddle_tpu_torch.core.config import OptimizationConf
+from paddle_tpu_torch.network import Network
+from paddle_tpu_torch.optimizers import create_optimizer
+from paddle_tpu_torch.parallel import pipeline, ring, sparse
+from paddle_tpu_torch.parallel.dp import TrainStep
+
+mesh.distributed_init(num_processes=1, process_id=0, device="cpu",
+                      store=dist.FileStore(STORE, 1))
+m = mesh.make_mesh({"data": 1, "seq": 1, "pipe": 1, "model": 1})
+assert m.distributed and m.backend == "gloo"
+with dsl.model() as g:
+    y = dsl.fc(dsl.data("x", 4), size=2, act="softmax", name="y")
+    dsl.classification_cost(y, dsl.data("l", 1, is_ids=True))
+net = Network(g.conf)
+opt = create_optimizer(OptimizationConf(learning_method="sgd"),
+                       net.param_confs)
+step = TrainStep(net, opt, mesh=m, device="cpu")
+p = net.init_params(torch.Generator().manual_seed(0), device="cpu")
+p, o, s = step.place(p, opt.init_state(p), {})
+feed = {"x": non_seq(torch.ones((2, 4))), "l": id_arg(torch.tensor([0, 1]))}
+p, o, s, loss, _ = step(p, o, s, feed, 0, None)
+assert torch.isfinite(loss)
+q = torch.randn(1, 8, 2, 4)
+for f in (ring.ring_attention, ring.ulysses_attention):
+    out = f(q, q, q, m, causal=True)
+    assert torch.allclose(out, ring.dense_attention(q, q, q, causal=True),
+                          atol=1e-5)
+xs = torch.randn(3, 2, 4)
+out = pipeline.pipeline_apply(m, "pipe", lambda w, x: x @ w, torch.eye(4),
+                              xs)
+assert torch.allclose(out, xs)
+t = torch.randn(6, 3)
+assert torch.equal(sparse.embedding_lookup(t, torch.tensor([5, 0]), m),
+                   t[[5, 0]])
+dist.destroy_process_group()
+assert not any(k.split(".")[0] in FORBIDDEN for k in sys.modules)
+print("MESH", len(mods))
+""".replace("FORBIDDEN", repr(set(FORBIDDEN))).replace(
+        "STORE", repr(str(tmp_path / "store")))
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(names))
+
+
+def test_mesh_entry_points_refuse_the_cpu_unless_asked(monkeypatch,
+                                                       tmp_path):
+    from paddle_tpu_torch.core import mesh as tmesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: tmesh.rank_device(None),
+        lambda: tmesh.distributed_init(num_processes=2, process_id=0,
+                                       store=object()),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert tmesh.rank_device("cpu") == torch.device("cpu")

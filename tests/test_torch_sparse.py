@@ -189,8 +189,15 @@ def test_sparse_apply_leaves_its_inputs():
 
 
 def test_embedding_lookup_raises_naming_a8():
-    with pytest.raises(NotImplementedError, match="A8"):
-        tsp.embedding_lookup(torch.zeros(4, 2), torch.zeros(3))
+    """The mesh (ROADMAP A8) is ported: the lookup no longer raises. On a
+    one-rank mesh the row-sharded lookup is the table's rows (the
+    multi-rank program against JAX's: tests/test_torch_mesh_sparse.py)."""
+    from paddle_tpu_torch.core.mesh import make_mesh
+
+    table = torch.arange(8.0).reshape(4, 2)
+    ids = torch.tensor([3, 0, 3])
+    out = tsp.embedding_lookup(table, ids, make_mesh({"model": 1}))
+    assert torch.equal(out, table[ids])
 
 
 # ---- SparseUpdater ------------------------------------------------------
