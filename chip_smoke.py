@@ -9,8 +9,9 @@ CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
 18c), one of generation and serving (20), one of nested sequences and
 the structured heads (21), one of beam and speculative decode over the
 paged KV pool (22), one of the layer tail, the VAE and GAN and the v1
-front end (23), one of the flight recorder and the fleet (24), and
-seven that run its paths or its kernels' forms
+front end (23), one of the flight recorder and the fleet (24), one of
+the custom ops and export (25), one of the mesh (26), one of the
+v1-era runtime (27), and seven that run its paths or its kernels' forms
 under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and any failure
 exits non-zero:
 
@@ -417,7 +418,30 @@ exits non-zero:
     step; (d) GPipe over 2 stages; (e) moe with its experts over model =
     2; (f) the sharded tier with one shard a rank against the
     one-process two-shard tier;
-27. prints the kernels' JSON line and, last, the device line.
+27. the v1-era runtime (`native/`, `data/master_*`, `compat/swig_api`,
+    `compat/py2run`, `api`, `capi_bridge`) on the IMDB classifier at
+    bench_lstm's setting and h = 512 (`V1_CLS`, a v1 config): (a) the
+    native runtime built with g++ from the port's sources, bench_lstm's
+    seeded feed (64 batches) through `dataset.common.convert` into
+    recordio chunks, read back equal; (b) `python -m paddle_tpu_torch
+    master` over them, one pass through `reader.elastic(MasterClient)`,
+    `DataProviderConverter`, `GradientMachine.forwardBackward` and
+    `ParameterUpdater` with every parameter mirrored on the host, the
+    first 3 steps bit-equal to `TrainStep` (loss, parameters, slots), the
+    master SIGKILLed after 7 chunks and restarted from its snapshot
+    (every chunk and record trained once), B5/B6 on the grid route twice
+    a step; ms a step against `TrainStep`'s, the mirrors' bytes and ms;
+    (c) `libpaddle_tpu_torch_capi.so` and the four example programs
+    (cc) on the card: `sequence` on (b)'s merged model equal to
+    `Inferencer.infer` within 1e-6, `dense` / `sparse_binary` /
+    `multi_thread` on a small dense model, then the model through
+    `ctypes` in this process (B5's inference form counted; the first
+    call's ms; 4 threads at once) and a bad path's error; (d)
+    `api.SequenceGenerator` over phase 20's NMT, bit-equal to
+    `BeamSearchDecoder.generate` (B7 twice on the encoder); (e) a
+    python-2 API driver (`PY2_DRIVER`) through `run_py2_script` for 5
+    steps, its losses equal to the same steps called directly;
+28. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -9830,6 +9854,731 @@ def the_mesh(torch, op, work):
     return out
 
 
+# ---- phase 27: the v1-era runtime ----------------------------------------
+
+# the IMDB classifier at bench.py::bench_lstm's setting (:536-556; vocab
+# 30 000, emb 128, 2 LSTM layers, fixed T = 100, adam 2e-3, B = 64) at
+# h = 512, written as a v1 config (the reference's own benchmark model,
+# benchmark/paddle/rnn/rnn.py, is one; max-pooled as
+# models/text.py::stacked_lstm_classifier) and driven through the v1 API
+V1_CLS = dict(vocab=30000, emb=128, hidden=512, layers=2, batch_size=64)
+V1_T = 100
+V1_BATCHES = 64           # one pass: bench_lstm's seeded feed, 64 batches
+V1_CHUNK = 256            # samples a recordio file (convert's line_count)
+V1_HELD = 3               # v1 steps held against TrainStep, bit for bit
+V1_KILL_AT = 7            # chunks acked before the master is SIGKILLed
+V1_TIME_STEPS = 10        # TrainStep eager steps timed beside the v1 loop
+PY2_STEPS = 5
+CAPI_EXAMPLES = ("dense", "sequence", "sparse_binary", "multi_thread")
+CAPI_CALLS = 5            # in-process C ABI calls after the first
+CAPI_THREADS = 4          # threads calling the C ABI at once
+CAPI_TOL = 1e-6           # the examples print %.6f
+PROC_TIMEOUT = 300        # any subprocess of phase 27
+
+V1_CLS_CONFIG = """\
+from paddle.trainer_config_helpers import *
+
+vocab = get_config_arg("vocab", int, 30000)
+settings(batch_size=get_config_arg("batch_size", int, 64),
+         learning_rate=2e-3, learning_method=AdamOptimizer())
+
+net = data_layer(name="words", size=vocab)
+net = embedding_layer(input=net, size=get_config_arg("emb", int, 128))
+for i in range(get_config_arg("layers", int, 2)):
+    net = simple_lstm(input=net, size=get_config_arg("hidden", int, 512),
+                      name="lstm%d" % i)
+net = pooling_layer(input=net, pooling_type=MaxPooling())
+output = fc_layer(input=net, size=2, act=SoftmaxActivation(), name="output")
+label = data_layer(name="label", size=2)
+outputs(classification_cost(input=output, label=label))
+"""
+
+# a python-2 API driver in the shape of v1_api_demo/quick_start/
+# api_train.py: argv = config, config args, a model to load, a pickle of
+# batches, steps, use_gpu
+PY2_DRIVER = """\
+import sys
+import cPickle
+
+from py_paddle import swig_paddle, DataProviderConverter
+from paddle.trainer.PyDataProvider2 import (integer_value,
+                                           integer_value_sequence)
+from paddle.trainer.config_parser import parse_config
+
+LOSSES = []
+
+
+def main():
+    config, config_args, model, data, steps, use_gpu = sys.argv[1:7]
+    swig_paddle.initPaddle("--use_gpu=" + use_gpu)
+    conf = parse_config(config, config_args)
+    args = dict(kv.split("=") for kv in config_args.split(","))
+    m = swig_paddle.GradientMachine.createFromConfigProto(conf.model_config)
+    m.loadParameters(model)
+    updater = swig_paddle.ParameterUpdater.createLocalUpdater(
+        conf.opt_config)
+    updater.init(m)
+    converter = DataProviderConverter(
+        [integer_value_sequence(int(args["vocab"])), integer_value(2)])
+    batches = cPickle.load(open(data, "rb"))
+    out_args = swig_paddle.Arguments.createArguments(0)
+    updater.startPass()
+    for i in xrange(int(steps)):
+        batch = batches[i % len(batches)]
+        updater.startBatch(len(batch))
+        cost = m.forwardBackward(converter(batch), out_args,
+                                 swig_paddle.PASS_TRAIN)
+        for param in m.getParameters():
+            updater.update(param)
+        updater.finishBatch(cost)
+        LOSSES.append(cost)
+        print "step %d cost %.6f" % (i, cost)
+    updater.finishPass()
+
+
+if __name__ == "__main__":
+    main()
+"""
+
+
+def write_v1_cls(work, **config_args):
+    """The v1 classifier config in `work`; returns its path and its
+    --config_args string (V1_CLS, overridden by `config_args`)."""
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "v1_cls.py")
+    with open(path, "w") as f:
+        f.write(V1_CLS_CONFIG)
+    args = dict(V1_CLS, **config_args)
+    return path, ",".join(f"{k}={v}" for k, v in sorted(args.items()))
+
+
+class SmokeProc:
+    """A subprocess of the checkout whose stdout lines are read on a
+    thread, so that every wait has its own timeout; `stop()` kills it."""
+
+    def __init__(self, cmd, env=None):
+        import queue
+
+        self.cmd = cmd
+        self.p = subprocess.Popen(
+            cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env or dict(os.environ, PYTHONPATH=REPO))
+        self.lines, self.err = queue.Queue(), []
+        for f, out in ((self.p.stdout, True), (self.p.stderr, False)):
+            threading.Thread(target=self._pump, args=(f, out),
+                             daemon=True).start()
+
+    def _pump(self, f, out):
+        for line in f:
+            (self.lines.put if out else self.err.append)(line.rstrip("\n"))
+
+    def wait_line(self, prefix, timeout=PROC_TIMEOUT):
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                line = self.lines.get(timeout=0.5)
+            except queue.Empty:
+                if self.p.poll() is not None:
+                    break
+                continue
+            if line.startswith(prefix):
+                return line
+        self.stop()
+        raise AssertionError(f"no {prefix!r} line from {self.cmd}:\n"
+                             + "\n".join(self.err[-40:]))
+
+    def join(self, timeout=PROC_TIMEOUT):
+        try:
+            return self.p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"{self.cmd} did not exit in {timeout} s")
+
+    def stop(self):
+        if self.p.poll() is None:
+            self.p.kill()
+            self.p.wait(timeout=30)
+
+
+def v1_records(work):
+    """Phase 27(a): the port's native runtime and C ABI library built
+    with g++ from their own sources, then bench_lstm's seeded
+    feed, V1_BATCHES batches of (ids, label, index) records, written
+    through dataset.common.convert into recordio chunks and read back
+    equal."""
+    from paddle_tpu_torch.data import reader as R
+    from paddle_tpu_torch.data.dataset import common
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.native.recordio import count_chunks
+
+    built = {}
+    for name, build in (("native_build_s", native.build),
+                        ("capi_build_s", native.build_capi)):
+        t0 = time.perf_counter()
+        build()
+        built[name] = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    bs, records = V1_CLS["batch_size"], []
+    for _ in range(V1_BATCHES):
+        # bench_lstm's draws: the first batch is its feed
+        ids = rng.integers(0, V1_CLS["vocab"], (bs, V1_T)).astype(np.int32)
+        lab = rng.integers(0, 2, bs).astype(np.int32)
+        records += [(ids[i].tolist(), int(lab[i]), len(records) + i)
+                    for i in range(bs)]
+    t3 = time.perf_counter()
+    paths = common.convert(os.path.join(work, "records"),
+                           lambda: iter(records), V1_CHUNK, "imdb_lstm")
+    t4 = time.perf_counter()
+    back = list(R.recordio(paths)())
+    t5 = time.perf_counter()
+    assert back == records, "recordio read back differs"
+    r = {**built, "records": len(records), "files": len(paths),
+         "chunks": sum(count_chunks(p) for p in paths),
+         "bytes": sum(os.path.getsize(p) for p in paths),
+         "write_s": t4 - t3, "read_s": t5 - t4}
+    print("v1 records " + json.dumps(r), flush=True)
+    return paths, records, r
+
+
+def v1_elastic(torch, rnn, work, paths, records, dev="cuda"):
+    """Phase 27(b): `python -m paddle_tpu_torch master` over the chunks
+    (a subprocess), and the classifier trained one pass through
+    `reader.elastic(MasterClient)` -> DataProviderConverter ->
+    Arguments -> GradientMachine.forwardBackward(PASS_TRAIN) +
+    ParameterUpdater, every parameter set through its inplace mirror
+    first (the testTrain idiom, so each step syncs and refreshes them).
+    The first V1_HELD steps are held bit for bit (loss, every parameter
+    and slot) against TrainStep from the same weights on the same
+    batches. After V1_KILL_AT acked chunks the master is SIGKILLed and
+    restarted from its snapshot on the same port: every chunk is trained
+    exactly once, every record once. B5 and B6 on the grid route, twice
+    a step (the held arm's launches taken out)."""
+    from paddle_tpu_torch.compat import swig_api as api
+    from paddle_tpu_torch.compat.config_parser import parse_config
+    from paddle_tpu_torch.compat.py_paddle import DataProviderConverter
+    from paddle_tpu_torch.data import reader as R
+    from paddle_tpu_torch.data.feeder import integer_value, \
+        integer_value_sequence
+    from paddle_tpu_torch.data.master_client import MasterClient
+    from paddle_tpu_torch.native.recordio import count_chunks
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.optimizers import create_optimizer
+    from paddle_tpu_torch.parallel.dp import TrainStep
+    from paddle_tpu_torch.weights import params_from_numpy
+
+    config, config_args = write_v1_cls(work)
+    tc = parse_config(config, config_args)
+    api.initPaddle(f"--use_gpu={int(dev == 'cuda')}")
+    gm = api.GradientMachine.createFromConfigProto(tc.model_config)
+    gm.randParameters(SEED + 27)
+    init = {k: v.cpu().numpy() for k, v in gm.params.items()}
+    for p in gm.getParameters():
+        p.getBuf(api.PARAMETER_VALUE).toNumpyArrayInplace()[:] = \
+            init[p.getName()].ravel()
+    updater = api.ParameterUpdater.createLocalUpdater(tc.opt_config)
+    updater.init(gm)
+    converter = DataProviderConverter(
+        [integer_value_sequence(V1_CLS["vocab"]), integer_value(2)])
+    net = Network(tc.model_config)
+    step = TrainStep(net, create_optimizer(tc.opt_config, net.param_confs),
+                     device=dev)
+    ref_p = params_from_numpy(init, device=dev)
+    ref_o = step.opt.init_state(ref_p)
+    ref_s = net.init_state(dev)
+
+    snap = os.path.join(work, "master.snap")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch", "master", *paths,
+           "--timeout", "600", "--snapshot", snap]
+    procs = [SmokeProc(cmd)]
+    procs[0].wait_line("elastic master over")
+    port = int(procs[0].wait_line("LISTENING").split()[1])
+    restart = {}
+
+    class Acking(MasterClient):
+        """Logs the acked chunks and snapshots the master after each ack
+        (a deterministic snapshot point); the V1_KILL_AT-th ack SIGKILLs
+        the master and restarts it from the snapshot."""
+
+        acked, leases = [], {}
+
+        def get_task(self):
+            t = super().get_task()
+            if t is not None:
+                self.leases[t[0]] = t[1].decode()
+            return t
+
+        def task_done(self, task_id):
+            ok = super().task_done(task_id)
+            assert ok, f"lease {task_id} lost"
+            self.acked.append(self.leases[task_id])
+            self.snapshot()
+            if len(self.acked) == V1_KILL_AT:
+                t0 = time.perf_counter()
+                procs[-1].p.kill()
+                procs[-1].join()
+                procs.append(SmokeProc(cmd + ["--port", str(port)]))
+                line = procs[-1].wait_line("elastic master")
+                assert "restored from" in line, line
+                procs[-1].wait_line("LISTENING")
+                restart.update(s=time.perf_counter() - t0, line=line)
+            return ok
+
+    client = Acking(f"127.0.0.1:{port}", retry_seconds=120)
+    out_args = api.Arguments.createArguments(0)
+    losses, step_ms, trained, feeds, held = [], [], [], [], []
+    ref_launched = dict.fromkeys(RNN_COUNTERS, 0)
+    mb0 = dict(gm.mirror_bytes)
+    try:
+        zero_rnn_counts(rnn)
+        t_pass = time.perf_counter()
+        for i, batch in enumerate(R.batched(R.elastic(client),
+                                            V1_CLS["batch_size"])()):
+            t0 = time.perf_counter()
+            in_args = converter(batch)
+            updater.startBatch(len(batch))
+            cost = gm.forwardBackward(in_args, out_args, api.PASS_TRAIN)
+            for p in gm.getParameters():
+                updater.update(p)
+            updater.finishBatch(cost)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(cost)
+            trained += [s[2] for s in batch]
+            if len(feeds) < V1_TIME_STEPS:
+                feeds.append(in_args._feed(net.input_names))
+            if i < V1_HELD:
+                before = rnn_counts(rnn)
+                ref_p, ref_o, ref_s, loss, _ = step(ref_p, ref_o, ref_s,
+                                                    feeds[i], i, None)
+                for c, n in rnn_counts(rnn).items():
+                    ref_launched[c] += n - before[c]
+                d = {"loss": abs(float(loss) - cost)}
+                d["params"] = max(float((gm.params[k] - v).abs().max())
+                                  for k, v in ref_p.items())
+                d["slots"] = max(float((updater._opt_state[k][s] - t)
+                                       .abs().max())
+                                 for k, v in ref_o.items()
+                                 for s, t in v.items())
+                d["bit_equal"] = (float(loss) == cost and all(
+                    torch.equal(gm.params[k], v) for k, v in ref_p.items())
+                    and all(torch.equal(updater._opt_state[k][s], t)
+                            for k, v in ref_o.items()
+                            for s, t in v.items()))
+                held.append(d)
+        pass_s = time.perf_counter() - t_pass
+        launched = {c: n - ref_launched[c]
+                    for c, n in rnn_counts(rnn).items()}
+        assert client.pass_finished()
+        client.shutdown()
+        assert procs[-1].join() == 0
+    finally:
+        for p in procs:
+            p.stop()
+    steps = len(losses)
+    n_tasks = sum(count_chunks(p) for p in paths)
+    chunks = [json.loads(a) for a in client.acked]
+    mirror = {k: (gm.mirror_bytes[k] - mb0[k]) / steps for k in mb0}
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in gm.params.values())
+    # TrainStep's eager ms on the same feeds, the mirrors' sync and
+    # refresh alone, and v1 steps with no mirror registered: where the
+    # v1 loop's host time goes
+    def timed(fn):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(torch, dev)
+        return (time.perf_counter() - t0) * 1e3
+
+    def ref_step(f):
+        nonlocal ref_p, ref_o, ref_s
+        ref_p, ref_o, ref_s, loss, _ = step(ref_p, ref_o, ref_s, f, 0, None)
+        float(loss)
+
+    def v1_step(f):
+        args = api.Arguments.createArguments(0)
+        for k, a in zip(net.input_names, f.values()):
+            args._setSlotArg(len(args._slots), a)
+        updater.startBatch(V1_CLS["batch_size"])
+        cost = gm.forwardBackward(args, out_args, api.PASS_TRAIN)
+        for p in gm.getParameters():
+            updater.update(p)
+        updater.finishBatch(cost)
+
+    times = [timed(lambda: ref_step(f)) for f in feeds]
+    sync_ms = [timed(gm._sync_views) for _ in range(5)]
+    refresh_ms = [timed(gm._refresh_views) for _ in range(5)]
+    views, gm._inplace_views = gm._inplace_views, {}
+    bare_ms = [timed(lambda: v1_step(f)) for f in feeds]
+    gm._inplace_views = views
+    gm._refresh_views()
+    r = {"steps": steps, "loss_first": losses[0], "loss_last": losses[-1],
+         "held": held, "pass_s": pass_s,
+         "v1_ms_per_step_median": float(np.median(step_ms[V1_HELD:])),
+         "v1_ms_per_step": [round(x, 3) for x in step_ms],
+         "trainstep_eager_ms_median": float(np.median(times[1:])),
+         "mirror_sync_ms_median": float(np.median(sync_ms)),
+         "mirror_refresh_ms_median": float(np.median(refresh_ms)),
+         "v1_no_mirror_ms_median": float(np.median(bare_ms[1:])),
+         "mirror_bytes_per_step": mirror, "param_bytes": param_bytes,
+         "master_restart_s": restart.get("s"), "acked": len(chunks),
+         "tasks": n_tasks, "launches": {k: v for k, v in launched.items()
+                                        if v}}
+    print("v1 elastic " + json.dumps(r), flush=True)
+    assert steps == V1_BATCHES and np.isfinite(losses).all(), r
+    assert len(procs) == 2 and restart, "the master was not restarted"
+    assert sorted(json.dumps(c, sort_keys=True) for c in chunks) == sorted(
+        json.dumps({"chunk": k, "path": p}, sort_keys=True)
+        for p in paths for k in range(count_chunks(p))), chunks
+    assert sorted(trained) == list(range(len(records))), "a record twice"
+    for d in held:
+        assert d["bit_equal"], f"v1 step vs TrainStep: {held}"
+    if dev == "cuda":
+        assert mirror == {"h2d": param_bytes, "d2h": param_bytes}, mirror
+        n = 2 * steps
+        want = dict.fromkeys(RNN_COUNTERS, 0)
+        want.update(lstm_fwd_launches=n, lstm_fwd_grid_launches=n,
+                    lstm_bwd_launches=n, lstm_bwd_grid_launches=n)
+        assert launched == want, f"v1 loop launches {launched}"
+    return {"r": r, "gm": gm, "tc": tc, "config": (config, config_args),
+            "launches": launched}
+
+
+def sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _capi_small_model(work):
+    """The JAX C-ABI tests' dense model (x: 8 -> fc 16 tanh -> fc 3
+    "output"), seeded, merged; returns (path, Network, params)."""
+    from paddle_tpu_torch import dsl
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.network import Network
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    with dsl.model() as g:
+        x = dsl.data("x", 8)
+        y = dsl.data("y", 1, is_ids=True)
+        h = dsl.fc(x, size=16, act="tanh")
+        out = dsl.fc(h, size=3, name="output")
+        dsl.classification_cost(out, y, name="cost")
+    net = Network(g.conf)
+    params = {k: v.numpy() for k, v in
+              net.init_params(_rng.generator(SEED + 28), "cpu").items()}
+    path = os.path.join(work, "dense_merged.npz")
+    ckpt.merge_model(path, g.conf, params)
+    return path, net, params
+
+
+def capi_examples(torch, rnn, work, gm, tc, dev="cuda"):
+    """Phase 27(c): the C inference ABI. `libpaddle_tpu_torch_capi.so`
+    (built in (a)) and the four example programs built with cc from the
+    port's copy; 27(b)'s model merged. Each example runs in its own
+    process on `dev` (all four at once): `sequence` on the classifier,
+    its output equal to in-process `Inferencer.infer` on the card at
+    CAPI_TOL; `dense`, `sparse_binary` and `multi_thread` (4 threads x 5
+    calls, all equal) on the JAX tests' small dense model. Then the
+    classifier through `ctypes` in this process (`pt_capi_init` reuses
+    the running interpreter), counting B5's inference launches: the
+    first call's ms and CAPI_CALLS more; a bad path's error text."""
+    import ctypes as C
+
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch.core.arg import id_arg, non_seq
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+    from paddle_tpu_torch.trainer.trainer import Inferencer
+    from paddle_tpu_torch.weights import params_to_numpy, state_to_numpy
+
+    lib = native.build_capi()
+    merged = os.path.join(work, "cls_merged.npz")
+    ckpt.merge_model(merged, tc.model_config, params_to_numpy(gm.params),
+                     state_to_numpy(gm.state))
+    small, _snet, _sp = _capi_small_model(work)
+    t0 = time.perf_counter()
+    builds = {n: subprocess.Popen(
+        ["cc", os.path.join(native.EXAMPLES_DIR, n, "main.c"), "-o",
+         os.path.join(work, f"ex_{n}"), "-ldl", "-lpthread"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n in CAPI_EXAMPLES}
+    for n, p in builds.items():
+        out, _ = p.communicate(timeout=PROC_TIMEOUT)
+        assert p.returncode == 0, f"cc {n}: {out}"
+    cc_s = time.perf_counter() - t0
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in sys.path if p]))
+    env.pop("PADDLE_TPU_FORCE_CPU", None)
+    if dev == "cpu":
+        env["PADDLE_TPU_FORCE_CPU"] = "1"
+    argv = {"dense": [small, "output"], "sequence": [merged, "output"],
+            "sparse_binary": [small, "output", "8"],
+            "multi_thread": [small, "output"]}
+    runs, started = {}, {}
+    for n in CAPI_EXAMPLES:
+        started[n] = time.perf_counter()
+        runs[n] = subprocess.Popen(
+            [os.path.join(work, f"ex_{n}"), lib, REPO, *argv[n]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+    outs, wall = {}, {}
+    try:
+        for n, p in runs.items():
+            out, err = p.communicate(timeout=PROC_TIMEOUT)
+            wall[n] = time.perf_counter() - started[n]
+            assert p.returncode == 0, f"example {n}: rc {p.returncode}\n" \
+                                      f"{out}\n{err[-3000:]}"
+            outs[n] = out
+    finally:
+        for p in runs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert "OK" in outs["multi_thread"], outs["multi_thread"]
+    vals = {n: np.asarray([float(x) for x in outs[n].split()], np.float32)
+            for n in ("dense", "sequence", "sparse_binary")}
+    # the same feeds in this process, on the card
+    ids = np.zeros((2, 5), np.int32)
+    ids[0] = [13, 8, 2, 14, 9]
+    ids[1, :4] = [7, 3, 14, 5]
+    cls = Inferencer.from_merged(merged, outputs=["output"], device=dev)
+    want_seq = cls.infer({"words": id_arg(ids, np.asarray([5, 4],
+                                                          np.int32))})
+    small_inf = Inferencer.from_merged(small, outputs=["output"], device=dev)
+    x = (np.arange(16, dtype=np.float32) / 16.0).reshape(2, 8)
+    sparse = np.zeros((2, 8), np.float32)
+    sparse[0, [1, 3]] = 1.0
+    sparse[1, [0, 5, 6]] = 1.0
+    want = {"sequence": want_seq["output"],
+            "dense": small_inf.infer({"x": non_seq(x)})["output"],
+            "sparse_binary": small_inf.infer({"x": non_seq(sparse)})[
+                "output"]}
+    err = {n: float(np.abs(vals[n] - want[n].ravel()).max()) for n in want}
+
+    # in-process through ctypes: pt_capi_init reuses this interpreter
+    so = C.CDLL(lib)
+    so.pt_capi_init.argtypes = [C.c_char_p]
+    so.pt_capi_create.restype = C.c_int64
+    so.pt_capi_create.argtypes = [C.c_char_p, C.c_char_p]
+    so.pt_capi_error.restype = C.c_char_p
+    so.pt_capi_forward_slots.argtypes = [C.c_int64, C.c_void_p, C.c_int,
+                                         C.POINTER(C.c_float), C.c_int64,
+                                         C.POINTER(C.c_int64)]
+    so.pt_capi_destroy.argtypes = [C.c_int64]
+    env_cpu = os.environ.pop("PADDLE_TPU_FORCE_CPU", None)
+    if dev == "cpu":
+        os.environ["PADDLE_TPU_FORCE_CPU"] = "1"
+    try:
+        assert so.pt_capi_init(REPO.encode()) == 0, so.pt_capi_error()
+        assert so.pt_capi_create(b"/nonexistent/model.npz", b"output") == 0
+        bad = so.pt_capi_error().decode()
+        assert "create failed" in bad and "nonexistent" in bad, bad
+        h = so.pt_capi_create(merged.encode(), b"output")
+        assert h > 0, so.pt_capi_error()
+        from paddle_tpu_torch.capi_bridge import Slot
+        flat = np.ascontiguousarray([13, 8, 2, 14, 9, 7, 3, 14, 5], np.int32)
+        pos = np.ascontiguousarray([0, 5, 9], np.int32)
+        s = Slot(name=b"words", kind=2,
+                 buf=flat.ctypes.data_as(C.c_void_p),
+                 seq_pos=pos.ctypes.data_as(C.POINTER(C.c_int32)), n_seq=3)
+        out = (C.c_float * 64)()
+        oshape = (C.c_int64 * 8)()
+        zero_rnn_counts(rnn)
+        call_ms = []
+        for _ in range(1 + CAPI_CALLS):
+            t0 = time.perf_counter()
+            rank = so.pt_capi_forward_slots(h, C.byref(s), 1, out, 64,
+                                            oshape)
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            assert rank == 2 and list(oshape[:2]) == [2, 2], \
+                so.pt_capi_error()
+        # CAPI_THREADS threads calling at once: the calls hold the GIL
+        # while they run, so they serialise
+        errors = []
+
+        def worker():
+            o, sh = (C.c_float * 64)(), (C.c_int64 * 8)()
+            for _ in range(CAPI_CALLS):
+                if so.pt_capi_forward_slots(h, C.byref(s), 1, o, 64,
+                                            sh) != 2 or list(o[:4]) != \
+                        list(out[:4]):
+                    errors.append(so.pt_capi_error())
+        threads = [threading.Thread(target=worker)
+                   for _ in range(CAPI_THREADS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=PROC_TIMEOUT)
+        threaded_s = time.perf_counter() - t0
+        assert not errors and not any(t.is_alive() for t in threads), errors
+        launched = rnn_counts(rnn)
+        got = np.asarray(out[:4], np.float32)
+        so.pt_capi_destroy(h)
+    finally:
+        os.environ.pop("PADDLE_TPU_FORCE_CPU", None)
+        if env_cpu is not None:
+            os.environ["PADDLE_TPU_FORCE_CPU"] = env_cpu
+    err["in_process"] = float(np.abs(got - want_seq["output"].ravel()).max())
+    r = {"cc_s": cc_s, "example_wall_s": wall, "max_abs_err": err,
+         "bound": CAPI_TOL, "first_call_ms": call_ms[0],
+         "call_ms_median": float(np.median(call_ms[1:])),
+         "threads": CAPI_THREADS,
+         "threaded_ms_per_call": threaded_s * 1e3
+         / (CAPI_THREADS * CAPI_CALLS),
+         "launches": {k: v for k, v in launched.items() if v}}
+    print("capi " + json.dumps(r), flush=True)
+    assert max(err.values()) <= CAPI_TOL, err
+    if dev == "cuda":
+        n = 2 * (1 + CAPI_CALLS + CAPI_THREADS * CAPI_CALLS)
+        assert launched["lstm_fwd_infer_launches"] == n and \
+            launched["lstm_fwd_launches"] == 0 and \
+            launched["lstm_bwd_launches"] == 0, launched
+    return {"r": r, "merged": merged, "launches": launched}
+
+
+def api_generator(torch, rnn, gen, dev="cuda"):
+    """Phase 27(d): `api.SequenceGenerator` over phase 20's attention NMT
+    at its settings (B=32, t_src 32, beam 4, max_len 32, its trained
+    parameters): the encoder through `api.GradientMachine.forward` (B7
+    twice, cluster route), then the generator; tokens, lengths and
+    scores bit-equal to `BeamSearchDecoder.generate` on the same
+    params and statics."""
+    from paddle_tpu_torch import api
+    from paddle_tpu_torch.core.arg import id_arg
+    from paddle_tpu_torch.models.text import seq2seq_attention
+
+    params = gen["params"]
+    gm = api.GradientMachine(seq2seq_attention(fused_decoder=True, **NMT),
+                             device=dev)
+    for k, v in params.items():
+        gm.setParameter(k, v)
+    rng = np.random.default_rng(SEED + 270)
+    src = rng.integers(2, NMT["src_vocab"], (GEN_B, GEN_T_SRC)).astype(
+        np.int32)
+    lens = np.full(GEN_B, GEN_T_SRC, np.int32)
+    zero_rnn_counts(rnn)
+    t0 = time.perf_counter()
+    outs = gm.forward({"src": id_arg(src, lens)}, outputs=["enc",
+                                                           "dec_boot"])
+    sync(torch, dev)
+    launched = gru_counts(rnn)
+    sg = api.SequenceGenerator(gen["decoder"](1), params,
+                               num_results=GEN_BEAM, device=dev)
+    res = sg.generate([outs["enc"]],
+                      boots={"dec_state": outs["dec_boot"].value})
+    sync(torch, dev)
+    gen_s = time.perf_counter() - t0
+    ref = gen["decoder"](1).generate(
+        params, [outs["enc"]], boots={"dec_state": outs["dec_boot"].value})
+    equal = all(torch.equal(a, b) for a, b in zip(sg.last_result, ref))
+    r = {"rows": len(res), "beams": len(res[0]), "seconds": gen_s,
+         "bit_equal": equal, "launches": launched}
+    print("api generator " + json.dumps(r), flush=True)
+    assert equal and len(res) == GEN_B and len(res[0]) == GEN_BEAM, r
+    if dev == "cuda":
+        assert launched["gru_fwd_launches"] == 2 and \
+            launched["gru_fwd_cluster_launches"] == 2 and \
+            launched["gru_bwd_launches"] == 0, launched
+    return {"r": r, "launches": launched}
+
+
+def py2_driver(torch, rnn, work, b, merged, records, dev="cuda"):
+    """Phase 27(e): PY2_DRIVER (a python-2 API driver: print statements,
+    xrange, cPickle, `from py_paddle import swig_paddle`) trains (b)'s
+    classifier from (c)'s merged model for PY2_STEPS steps through
+    `run_py2_script`; its losses equal the same steps through
+    GradientMachine called directly, and its `py_paddle` is the port's
+    namespace. B5 and B6 on the grid route, twice a step."""
+    import pickle
+
+    from paddle_tpu_torch.compat import py_paddle, swig_api as api
+    from paddle_tpu_torch.compat.py2run import run_py2_script
+    from paddle_tpu_torch.compat.py_paddle import DataProviderConverter
+    from paddle_tpu_torch.data.feeder import integer_value, \
+        integer_value_sequence
+
+    driver = os.path.join(work, "py2_api_train.py")
+    with open(driver, "w") as f:
+        f.write(PY2_DRIVER)
+    bs = V1_CLS["batch_size"]
+    batches = [records[i * bs:(i + 1) * bs] for i in range(PY2_STEPS)]
+    data = os.path.join(work, "batches.pkl")
+    with open(data, "wb") as f:
+        pickle.dump(batches, f, 2)
+    config, config_args = b["config"]
+    mods = set(sys.modules)
+    zero_rnn_counts(rnn)
+    t0 = time.perf_counter()
+    g = run_py2_script(driver, argv=[config, config_args, merged, data,
+                                     str(PY2_STEPS),
+                                     "1" if dev == "cuda" else "0"])
+    sync(torch, dev)
+    driver_s = time.perf_counter() - t0
+    launched = rnn_counts(rnn)
+    assert g["swig_paddle"] is py_paddle.swig_paddle
+    assert g["DataProviderConverter"] is DataProviderConverter
+    assert not any(m.split(".")[0] in ("py_paddle", "paddle")
+                   for m in set(sys.modules) - mods)
+    # the same steps through GradientMachine called directly
+    gm = api.GradientMachine.createFromConfigProto(b["tc"].model_config)
+    gm.loadParameters(merged)
+    up = api.ParameterUpdater.createLocalUpdater(b["tc"].opt_config)
+    up.init(gm)
+    conv = DataProviderConverter(
+        [integer_value_sequence(V1_CLS["vocab"]), integer_value(2)])
+    direct = []
+    for batch in batches:
+        up.startBatch(len(batch))
+        cost = gm.forwardBackward(conv(batch),
+                                  api.Arguments.createArguments(0),
+                                  api.PASS_TRAIN)
+        for p in gm.getParameters():
+            up.update(p)
+        up.finishBatch(cost)
+        direct.append(cost)
+    try:
+        import lib2to3  # noqa: F401
+        converter = "lib2to3"
+    except ImportError:
+        converter = "tokens (no lib2to3 here)"
+    r = {"losses": g["LOSSES"], "direct": direct, "driver_s": driver_s,
+         "converter": converter,
+         "launches": {k: v for k, v in launched.items() if v}}
+    print("py2 driver " + json.dumps(r), flush=True)
+    assert g["LOSSES"] == direct and len(direct) == PY2_STEPS, r
+    if dev == "cuda":
+        n = 2 * PY2_STEPS
+        want = dict.fromkeys(RNN_COUNTERS, 0)
+        want.update(lstm_fwd_launches=n, lstm_fwd_grid_launches=n,
+                    lstm_bwd_launches=n, lstm_bwd_grid_launches=n)
+        assert launched == want, launched
+    return {"r": r, "launches": launched}
+
+
+def v1_runtime(torch, rnn, gen, work, dev="cuda"):
+    """Phase 27: 27a-27e (the v1-era runtime)."""
+    t0 = time.perf_counter()
+    phase("27a. the native runtime built from the port's sources; "
+          "bench_lstm's feed through dataset.common.convert into recordio")
+    paths, records, a = v1_records(work)
+    phase("27b. the elastic job through the v1 API: the master command, "
+          "reader.elastic, GradientMachine + ParameterUpdater, the master "
+          "SIGKILLed and restarted")
+    b = v1_elastic(torch, rnn, work, paths, records, dev)
+    phase("27c. the C inference ABI: the four example programs and the "
+          "classifier through ctypes")
+    c = capi_examples(torch, rnn, work, b["gm"], b["tc"], dev)
+    phase("27d. api.SequenceGenerator over phase 20's NMT")
+    d = api_generator(torch, rnn, gen, dev)
+    phase("27e. a py2 API driver through run_py2_script")
+    e = py2_driver(torch, rnn, work, b, c["merged"], records, dev)
+    seconds = time.perf_counter() - t0
+    print(f"v1 runtime phase 27 seconds {seconds:.1f}", flush=True)
+    return {"a": a, "b": b["launches"], "c": c["launches"],
+            "d": d["launches"], "e": e["launches"], "seconds": seconds}
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier, slice24,
                        slice26):
     """The B9 kernels' rows of the kernels line, at the standalone bench
@@ -10137,7 +10886,18 @@ def main() -> int:
         shutil.rmtree(mesh_work, ignore_errors=True)
     print(smi, flush=True)
 
-    phase("27. result")
+    phase("27. the v1-era runtime: the native runtime and recordio, the "
+          "elastic master, the v1 API on the card, the C inference ABI, "
+          "api.SequenceGenerator and a py2 driver")
+    print(smi, flush=True)
+    v1_work = tempfile.mkdtemp(prefix="chip_smoke_v1_")
+    try:
+        slice27 = v1_runtime(torch, rnn, gen, v1_work)
+    finally:
+        shutil.rmtree(v1_work, ignore_errors=True)
+    print(smi, flush=True)
+
+    phase("28. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -10340,6 +11100,11 @@ def main() -> int:
         return (slice22["api"]["launches"].get(counter, 0)
                 + slice23["v1"]["launches"].get(counter, 0))
 
+    def v1_launched(counter):
+        # phase 27: (b) the v1 loop, (c) the C ABI in this process, (d)
+        # the NMT encoder under api.SequenceGenerator, (e) the py2 driver
+        return sum(slice27[k].get(counter, 0) for k in "bcde")
+
     print(json.dumps({"kernels": [{
         "name": "flash_attn_fwd",
         "route": "cuda",
@@ -10386,22 +11151,27 @@ def main() -> int:
                 + api_launched("lstm_fwd_launches")),
         rnn_row("lstm_seq_fwd_infer", "lstm", 311, "fwd_infer",
                 cls_infer["launches"]["lstm_fwd_infer_launches"]
-                + slice24["codispatch"]["b5_infer_launches"]),
+                + slice24["codispatch"]["b5_infer_launches"]
+                + v1_launched("lstm_fwd_infer_cluster_launches")),
         rnn_row("lstm_seq_bwd", "lstm", 358, "bwd",
                 cls_launches["lstm_bwd_launches"]
                 + slice21_launched("lstm_bwd_launches")
                 + api_launched("lstm_bwd_launches")),
         grid_row("lstm_seq_fwd_grid", 311, "fwd",
                  wide_launched("lstm_fwd_grid_launches")
-                 + mesh_lstm("lstm_fwd_grid_launches")),
+                 + mesh_lstm("lstm_fwd_grid_launches")
+                 + v1_launched("lstm_fwd_grid_launches")),
         grid_row("lstm_seq_fwd_infer_grid", 311, "fwd_infer",
-                 wide_launched("lstm_fwd_infer_grid_launches", "infer")),
+                 wide_launched("lstm_fwd_infer_grid_launches", "infer")
+                 + v1_launched("lstm_fwd_infer_grid_launches")),
         grid_row("lstm_seq_bwd_grid", 358, "bwd",
                  wide_launched("lstm_bwd_grid_launches")
-                 + mesh_lstm("lstm_bwd_grid_launches")),
+                 + mesh_lstm("lstm_bwd_grid_launches")
+                 + v1_launched("lstm_bwd_grid_launches")),
         rnn_row("gru_seq_fwd", "gru", 724, "fwd",
                 nmt_launches["gru_fwd_launches"]
-                + gen_launched("gru_fwd_launches")),
+                + gen_launched("gru_fwd_launches")
+                + v1_launched("gru_fwd_launches")),
         rnn_row("gru_seq_bwd", "gru", 657, "bwd",
                 nmt_launches["gru_bwd_launches"]
                 + gen_launched("gru_bwd_launches")),

@@ -21,10 +21,10 @@ resolve lazily, on first use:
     reader = paddle.reader.batched(paddle.dataset.imdb.train(), 64)
 
 `Arg`, `Network`, `SGD`, `infer`, `dataset`, `reader`, `dsl`, `layers`,
-`models`, `optimizers`, `evaluators` and `inference` are the port's
-modules, and `get_mesh` / `set_mesh` its mesh's (`core/mesh.py`).
-`api`, `plot`, `image` and `framework` are not ported yet and raise
-naming ROADMAP A12.
+`models`, `optimizers`, `evaluators`, `inference` and `api` (the SWIG
+surface's thin views, `api.py`) are the port's modules, and
+`get_mesh` / `set_mesh` its mesh's (`core/mesh.py`). `plot`, `image`
+and `framework` are not ported yet and raise naming ROADMAP A12.
 """
 
 __version__ = "0.1.0"
@@ -50,6 +50,7 @@ _LAZY = {
     "inference": "paddle_tpu_torch.inference",
     "dataset": "paddle_tpu_torch.data.dataset",
     "reader": "paddle_tpu_torch.data.reader",
+    "api": "paddle_tpu_torch.api",
 }
 
 
@@ -61,7 +62,6 @@ class NotPorted(NotImplementedError, AttributeError):
 # the JAX package's names the port does not have yet, and the ROADMAP
 # item that ports each
 _NOT_PORTED = {
-    "api": "A12",
     "plot": "A12",
     "image": "A12",
     "framework": "A12",

@@ -52,8 +52,16 @@ process wrote; `fleetz --addr [name=]host:port ... [--json]` scrapes
 live replicas' `metricz` twice and prints the merged fleet view (rc 1
 while an alert is active). Neither needs a card.
 
-Left out, still to port (ROADMAP A12): the JAX CLI's `master`,
-`make_diagram`, `bench` and `launch` commands.
+`master CHUNKS... [--port P] [--snapshot F]` runs the elastic input
+master (the JAX CLI's `cmd_master`) over the port's native build: one
+task per recordio chunk, served over TCP to `data.master_client`
+clients (it prints `LISTENING <port>`), snapshotted every 30 s and
+on shutdown; restarted with an existing `--snapshot` it restores that
+instead of adding the chunks again.
+SIGTERM/SIGINT or a client's SHUTDOWN stops it.
+
+Left out, still to port: the JAX CLI's `make_diagram` and `launch`
+(ROADMAP A12) and `bench` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -669,6 +677,31 @@ def cmd_fleetz(args):
     return 1 if alerts else 0
 
 
+def cmd_master(args) -> int:
+    import os
+
+    from paddle_tpu_torch.data.master_serve import serve_until_stopped
+    from paddle_tpu_torch.native.master import Master
+    from paddle_tpu_torch.native.recordio import count_chunks
+
+    if args.snapshot and os.path.exists(args.snapshot):
+        m = Master.restore(args.snapshot)
+        m.set_lease(args.timeout)
+        print(f"elastic master restored from {args.snapshot}: {m.counts}",
+              flush=True)
+    else:
+        m = Master(lease_seconds=args.timeout, failure_max=args.failure_max)
+        total = 0
+        for path in args.chunks:
+            n = count_chunks(path)
+            m.add_chunk_tasks(path, n)
+            total += n
+        print(f"elastic master over {len(args.chunks)} files / {total} "
+              f"chunk tasks", flush=True)
+    # every 30 s, as the JAX command's loop
+    return serve_until_stopped(m, args.port, args.snapshot, 30.0)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="python -m paddle_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -765,6 +798,18 @@ def main(argv=None) -> int:
                    help="per-replica shed-fraction alert threshold")
     p.add_argument("--json", action="store_true")
     p.set_defaults(fn=cmd_fleetz)
+
+    p = sub.add_parser("master", help="run the elastic input master")
+    p.add_argument("chunks", nargs="+", help="recordio files")
+    p.add_argument("--timeout", type=float, default=60.0,
+                   help="task lease seconds")
+    p.add_argument("--failure_max", type=int, default=3)
+    p.add_argument("--snapshot", default="",
+                   help="snapshot file; restored on start if it exists")
+    p.add_argument("--port", type=int, default=0,
+                   help="TCP port (0 = ephemeral, printed as "
+                        "LISTENING <port>)")
+    p.set_defaults(fn=cmd_master)
 
     p = sub.add_parser("version", help="print versions")
     p.set_defaults(fn=cmd_version)

@@ -7,8 +7,10 @@
 Layer / Projection / RecurrentLayerGroup surface, and
 `config_parser.parse_config` execs an unmodified v1 config file
 (`v1_namespace/` holds the modules its `paddle.*` imports resolve to).
-
-Left out, still to port (ROADMAP A12): `swig_api.py` and `py2run.py`.
+`swig_api` is the `py_paddle.swig_paddle` surface (GradientMachine,
+ParameterUpdater, Trainer, Arguments, ... on the card), `py_paddle/`
+the namespace a py2-era API driver's `from py_paddle import ...`
+resolves to, and `py2run.run_py2_script` runs such a driver unmodified.
 """
 
 from paddle_tpu_torch.compat import layers_v1  # noqa: F401

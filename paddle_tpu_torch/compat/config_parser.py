@@ -124,11 +124,19 @@ def _v1_package(name: str) -> types.ModuleType:
     return pkg
 
 
+PY_PADDLE = "paddle_tpu_torch.compat.py_paddle"
+
+
 def _v1_import(name, globals=None, locals=None, fromlist=(), level=0):
     """`__import__` for exec'd v1 sources: the mapped `paddle` modules
     are the port's; another `paddle` module raises ImportError (the JAX
-    package's shim is never imported); any other name is the builtin
+    package's shim is never imported); `py_paddle[.x]` is the port's
+    namespace `compat/py_paddle`; any other name is the builtin
     import."""
+    if not level and (name == "py_paddle" or name.startswith("py_paddle.")):
+        mod = importlib.import_module(PY_PADDLE + name[len("py_paddle"):])
+        # `import py_paddle.x [as y]` binds the top package
+        return mod if fromlist else importlib.import_module(PY_PADDLE)
     if level or not (name == "paddle" or name.startswith("paddle.")):
         return builtins.__import__(name, globals, locals, fromlist, level)
     if name not in V1_MODULES and name not in ("paddle", "paddle.trainer"):

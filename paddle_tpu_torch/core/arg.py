@@ -9,8 +9,9 @@ Dtypes: `ids` are int64, the index type `torch.gather` and advanced
 indexing take (the JAX package keeps int32); `seq_lens` and
 `subseq_lens` stay int32, the type the flash kernels read.
 
-Left out, still to port: `pad_ragged`, the ragged-to-dense boundary
-of the C ABI and SWIG surfaces (ROADMAP A12).
+`pad_ragged` is the ragged-to-dense boundary of the C ABI and SWIG
+surfaces (`capi_bridge.py`, `compat/swig_api.py`): numpy in, numpy out,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -79,6 +80,24 @@ def _tensor(x, dtype, device=None):
     if torch.is_tensor(x):
         return x.to(dtype=dtype, device=device or x.device)
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def pad_ragged(flat, pos):
+    """Flat [total, ...] rows + start positions (len B+1, first 0,
+    last total) -> (padded [B, T, ...], lens [B] int32), numpy arrays.
+    The reference keeps the padding-free layout
+    (Argument.sequenceStartPositions); the port packs sequences dense,
+    so the API boundaries (C ABI, SWIG compat) convert here."""
+    import numpy as np
+
+    flat = np.asarray(flat)
+    pos = np.asarray(pos)
+    lens = np.diff(pos).astype(np.int32)
+    b, t = len(lens), int(lens.max(initial=1))
+    out = np.zeros((b, max(t, 1)) + flat.shape[1:], flat.dtype)
+    for i in range(b):
+        out[i, : lens[i]] = flat[pos[i] : pos[i + 1]]
+    return out, lens
 
 
 def non_seq(value, device=None) -> Arg:

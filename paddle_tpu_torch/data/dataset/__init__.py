@@ -4,9 +4,9 @@ files under common.DATA_HOME when present and otherwise emit
 deterministic synthetic streams with the reference schemas.
 
 The port's copy of `paddle_tpu/data/dataset/` (ROADMAP A13): the same
-modules, numpy and the standard library only, the same streams. Left
-out: `common.convert` and the modules' `convert` writers, which need the
-native recordio writer (ROADMAP A12)."""
+modules, numpy and the standard library only, the same streams, and
+`common.convert` with each module's `convert`, which write recordio
+chunks through the port's native writer (`paddle_tpu_torch/native/`)."""
 
 from paddle_tpu_torch.data.dataset import (  # noqa: F401
     cifar,

@@ -13,7 +13,9 @@ trainers and tests exercise the same code paths. Set
 The port's copy of `paddle_tpu/data/dataset/common.py`: the same cache
 directory (`PADDLE_TPU_DATA_HOME`, default
 `~/.cache/paddle_tpu/dataset`), the same synthetic streams. `convert`
-raises: it needs the native recordio writer (ROADMAP A12).
+writes through the port's own build of the native recordio writer
+(`paddle_tpu_torch/native/recordio.py`), byte-equal to the JAX
+package's files.
 """
 
 from __future__ import annotations
@@ -140,9 +142,31 @@ def cluster_files_reader(files_pattern: str, trainer_count: int,
 
 def convert(output_path: str, reader, line_count: int, name_prefix: str):
     """Serialize a reader into chunked recordio files for the elastic
-    master (common.py convert). The JAX package writes them with its
-    native chunked record writer (`native/recordio`), which the port
-    does not have yet: this raises (ROADMAP A12)."""
-    raise NotImplementedError(
-        "common.convert needs the native recordio writer, which is not "
-        "ported yet (ROADMAP A12)")
+    master (common.py convert; go/master RecordIO tasks) using the
+    port's native chunked record writer: `line_count` samples a file,
+    each pickled with protocol 2, the files byte-equal to the JAX
+    package's. Returns the paths written."""
+    from paddle_tpu_torch.native.recordio import RecordWriter
+
+    os.makedirs(output_path, exist_ok=True)
+    buf, index = [], 0
+    paths = []
+
+    def flush(buf, index):
+        path = os.path.join(
+            output_path, f"{name_prefix}-{index:05d}.recordio"
+        )
+        w = RecordWriter(path)
+        for sample in buf:
+            w.write(pickle.dumps(sample, 2))
+        w.close()
+        paths.append(path)
+
+    for sample in reader():
+        buf.append(sample)
+        if len(buf) == line_count:
+            flush(buf, index)
+            buf, index = [], index + 1
+    if buf:
+        flush(buf, index)
+    return paths

@@ -9,10 +9,11 @@ double-buffer thread of the reference's C++ DataProvider
 (gserver/dataproviders/DataProvider.h:249 DoubleBuffer) maps to
 `buffered`, which prefetches on a background thread.
 
-Left out, still to port (ROADMAP A12): `recordio` and `elastic`, which
-read through the native C++ record reader and the data master, and the
-native (non-reference) chunk format in `recordio_interop`; the
-reference recordio wire format is read here.
+`recordio` and `elastic` read through the port's own build of the native
+C++ record reader (`paddle_tpu_torch/native/recordio.py`), `elastic`
+leasing chunks from an in-process `native.master.Master` or a networked
+one through `data.master_client.MasterClient`; `recordio_interop` reads
+both the reference recordio wire format and the native chunks.
 """
 
 from __future__ import annotations
@@ -156,22 +157,25 @@ def recordio_records(path: str):
 
 
 def _file_records(path: str):
-    """Raw records of one record file in the reference recordio
-    format (magic 0x01020304)."""
+    """Raw records of one record file, sniffing the container: the
+    reference recordio magic 0x01020304 decodes in-process; anything
+    else goes through the native C++ prefetch reader (PTRC chunks)."""
     with open(path, "rb") as f:
         magic = f.read(4)
-    if magic != b"\x04\x03\x02\x01":
-        raise NotImplementedError(
-            f"{path}: not a reference recordio file; the native chunk "
-            f"format's reader is not ported yet")
-    yield from recordio_records(path)
+    if magic == b"\x04\x03\x02\x01":
+        yield from recordio_records(path)
+    else:
+        from paddle_tpu_torch.native.recordio import RecordReader
+
+        with RecordReader([path]) as rd:
+            yield from rd
 
 
 def recordio_interop(paths, buf_size=100):
     """Reader over pickled records in recordio files; `paths` is a
     path, a comma-separated list, or a list (glob patterns allowed) —
-    the reference reader/creator.py:60 surface, reading the reference
-    wire format."""
+    the reference reader/creator.py:60 surface, reading BOTH the
+    reference wire format and the native chunks."""
     import glob as _glob
     import pickle
 
@@ -322,5 +326,82 @@ def batched(reader_fn, batch_size, drop_last=True):
                 buf = []
         if buf and not drop_last:
             yield buf
+
+    return reader
+
+
+def recordio(paths, decode=None, start_chunk=0, step_chunk=1):
+    """Stream records from chunked record files through the native C++
+    async-prefetch reader (paddle_tpu_torch/native/recordio.py — the
+    DoubleBuffer analogue, gserver/dataproviders/DataProvider.h:249).
+    `decode` maps raw bytes -> sample (default: pickle.loads)."""
+    import pickle
+
+    from paddle_tpu_torch.native.recordio import RecordReader
+
+    dec = decode if decode is not None else pickle.loads
+
+    def reader():
+        with RecordReader(
+            paths, start_chunk=start_chunk, step_chunk=step_chunk
+        ) as rd:
+            for rec in rd:
+                yield dec(rec)
+
+    return reader
+
+
+def elastic(master, decode=None):
+    """Task-leased reading: pull (path, chunk) tasks from a
+    `native.master.Master` or a `data.master_client.MasterClient` and
+    stream those chunks — the fault-tolerant input dispatch loop of the
+    reference's Go master (go/master/service.go). On reader failure the
+    task lease expires and another worker re-reads the chunk."""
+    import json
+    import pickle
+
+    from paddle_tpu_torch.native.recordio import RecordReader, count_chunks
+
+    dec = decode if decode is not None else pickle.loads
+
+    def reader():
+        import time
+
+        chunk_counts = {}
+        while not master.pass_finished():
+            t = master.get_task()
+            if t is None:
+                # nothing leasable *right now*, but a peer still holds a
+                # lease — if it fails, the chunk returns to todo and we
+                # must pick it up, so poll instead of exiting
+                time.sleep(0.05)
+                continue
+            task_id, payload = t
+            task = json.loads(payload)
+            path = task["path"]
+            if path not in chunk_counts:
+                chunk_counts[path] = count_chunks(path)
+            try:
+                with RecordReader(
+                    path,
+                    start_chunk=task["chunk"],
+                    step_chunk=chunk_counts[path],
+                ) as rd:
+                    for rec in rd:
+                        yield dec(rec)
+            except Exception:
+                master.task_failed(task_id)
+                raise
+            if not master.task_done(task_id):
+                # lease expired while we were yielding: the chunk was
+                # requeued and will be re-read (duplicate records this
+                # pass) — surface it so the operator can raise the lease
+                import logging
+
+                logging.getLogger("paddle_tpu_torch.data").warning(
+                    "task %d lease expired before completion; chunk will "
+                    "be re-served (raise Master lease_seconds?)",
+                    task_id,
+                )
 
     return reader

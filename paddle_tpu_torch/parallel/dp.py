@@ -87,6 +87,33 @@ def _arg_map(fn, *args) -> Arg:
                   for f in ARG_FIELDS if getattr(args[0], f) is not None})
 
 
+def loss_and_grads(net, params, feed, state, rng, gather=None):
+    """(loss, grads, outs, new_state) of `net.loss_fn` in train mode:
+    the gradient half of `TrainStep.body`, and of the v1 API's
+    `GradientMachine`. A parameter the loss does not reach has
+    gradient 0, as jax.grad gives it. `gather(name, leaf)`, where
+    given, maps a parameter's local shard to the tensor the loss reads
+    (a mesh's tensor-sharded parameters); the gradients are the
+    shards'. Loss, outputs and layer state come back detached."""
+    names = list(params)
+    leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+    with torch.enable_grad():
+        full = leaves if gather is None else {
+            k: gather(k, v) for k, v in leaves.items()}
+        loss, (outs, new_state) = net.loss_fn(
+            full, feed, state=state, train=True, rng=rng)
+        got = torch.autograd.grad(loss, [leaves[k] for k in names],
+                                  allow_unused=True)
+    grads = {k: torch.zeros_like(params[k]) if g is None else g
+             for k, g in zip(names, got)}
+    # layer state is never differentiated (the JAX step carries it as
+    # aux): a running mean kept attached would chain autograd nodes
+    # from step to step
+    new_state = _tree_map(torch.Tensor.detach, new_state)
+    outs = {n: _arg_map(torch.Tensor.detach, a) for n, a in outs.items()}
+    return loss.detach(), grads, outs, new_state
+
+
 def stack_feeds(feeds: list) -> dict:
     """K feeds ({name: Arg}, one shape signature) as one feed whose
     every tensor is stacked [K, ...] on a new leading axis."""
@@ -201,27 +228,13 @@ class TrainStep:
     def body(self, params, opt_state, state, feed, scalars, rng):
         """One step on a feed already on the device, with the step's
         scalars (a device tensor) and key."""
-        names = list(params)
-        leaves = {k: params[k].detach().requires_grad_(True) for k in names}
         mesh = self.mesh
-        with torch.enable_grad(), batch_context(mesh):
-            full = leaves if mesh is None else {
-                k: self.gather_param(k, v) for k, v in leaves.items()}
-            loss, (outs, new_state) = self.net.loss_fn(
-                full, feed, state=state, train=True, rng=rng)
-            got = torch.autograd.grad(loss, [leaves[k] for k in names],
-                                      allow_unused=True)
-        # a parameter the loss does not reach has gradient 0, as jax.grad
-        # gives it
-        grads = {k: torch.zeros_like(params[k]) if g is None else g
-                 for k, g in zip(names, got)}
-        loss = loss.detach()
+        with batch_context(mesh):
+            loss, grads, outs, new_state = loss_and_grads(
+                self.net, params, feed, state, rng,
+                gather=None if mesh is None else self.gather_param)
         if mesh is not None:
             grads, loss = self.average(grads, loss)
-        # layer state is never differentiated (the JAX step carries it
-        # as aux): a running mean kept attached would chain autograd
-        # nodes from step to step
-        new_state = _tree_map(torch.Tensor.detach, new_state)
         new_params, new_opt_state = self.opt.update(
             grads, params, opt_state, None, scalars=scalars)
         outs = {k: v for k, v in outs.items() if k in self.keep}
@@ -239,11 +252,11 @@ class TrainStep:
             def keep(new, old):
                 return torch.where(finite, new, old)
 
-            new_params = {k: keep(new_params[k], params[k]) for k in names}
+            new_params = {k: keep(new_params[k], params[k]) for k in params}
             new_opt_state = {
                 k: {slot: keep(t, opt_state[k][slot])
                     for slot, t in new_opt_state[k].items()}
-                for k in names
+                for k in params
             }
             # a layer's state is a dict of slots ({"mean", "var"}): keep
             # each slot, as the JAX step's tree_map does

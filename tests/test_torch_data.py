@@ -212,10 +212,24 @@ def test_recordio_reference_format(tmp_path, compressor):
 
 
 def test_recordio_native_chunks_are_still_to_port(tmp_path):
+    """The native chunks read through the port's own native reader now
+    (the name is from before it was ported): a file the JAX package's
+    writer wrote reads equal to the JAX reader's, and a torn one raises
+    as there."""
+    from paddle_tpu.native.recordio import RecordWriter
+
+    samples = [(i, [i] * i) for i in range(9)]
+    good = str(tmp_path / "good.rec")
+    with RecordWriter(good, max_chunk_bytes=64) as w:
+        for s in samples:
+            w.write(pickle.dumps(s))
+    assert _items(treader.recordio_interop(good)) == _items(
+        jreader.recordio_interop(good)) == samples
     p = tmp_path / "native.rec"
     p.write_bytes(b"PTRC" + bytes(32))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _items(treader.recordio_interop(str(p)))
+    for rd in (treader, jreader):
+        with pytest.raises(IOError, match="bad chunk magic"):
+            _items(rd.recordio_interop(str(p)))
 
 
 # ---- proto data and providers ---------------------------------------------

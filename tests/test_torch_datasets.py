@@ -8,7 +8,8 @@
   tar, imdb's review tar, uci_housing's table) under a temporary
   `DATA_HOME` of both packages: the same parsed streams. `split` and
   `cluster_files_reader` round trip as the JAX tests do them;
-  `common.convert` and the modules' `convert` raise naming ROADMAP A12.
+  `common.convert` and the modules' `convert` write files byte-equal to
+  the JAX package's.
 - `init(**flags)` sets the port's flags, the lazy attributes resolve to
   the port's modules, the names not ported raise naming their ROADMAP
   item, and `import paddle_tpu_torch` imports no submodule.
@@ -241,12 +242,22 @@ def test_split_and_cluster_files_reader(tmp_path):
             assert fa.read() == fb.read()
 
 
-def test_convert_raises_naming_a12(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        tcommon.convert(str(tmp_path), lambda: iter([(1, 2)]), 4, "toy")
+def test_convert_writes_files_equal_to_jax(tmp_path):
+    def files(d):
+        return {f: open(os.path.join(d, f), "rb").read()
+                for f in sorted(os.listdir(d))}
+
+    rows = [(i, [i, 2 * i]) for i in range(9)]
+    assert len(tcommon.convert(str(tmp_path / "t"), lambda: iter(rows), 4,
+                               "toy")) == 3
+    jcommon.convert(str(tmp_path / "j"), lambda: iter(rows), 4, "toy")
     for name in ("mnist", "uci_housing", "imdb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            getattr(tds, name).convert(str(tmp_path))
+        getattr(tds, name).convert(str(tmp_path / "t"))
+        getattr(jds, name).convert(str(tmp_path / "j"))
+    got, want = files(str(tmp_path / "t")), files(str(tmp_path / "j"))
+    assert len(got) == 3 + 3 + 2 + 2 and got == want
+    assert list(TR.recordio(str(tmp_path / "t" / "toy-00002.recordio"))()) \
+        == [(8, [8, 16])]
 
 
 def test_streams_through_the_port_readers():
@@ -315,8 +326,17 @@ def test_lazy_classes_and_functions():
         paddle.nope
 
 
+def test_api_resolves_to_the_ports_api_module():
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import api
+
+    assert paddle.api is api and hasattr(paddle, "api")
+    assert api.__name__ == "paddle_tpu_torch.api"
+    assert api.SequenceGenerator.__module__ == "paddle_tpu_torch.api"
+
+
 @pytest.mark.parametrize("name,item", [
-    ("api", "A12"), ("plot", "A12"), ("image", "A12"), ("framework", "A12")])
+    ("plot", "A12"), ("image", "A12"), ("framework", "A12")])
 def test_names_not_ported_raise_naming_their_item(name, item):
     import paddle_tpu_torch as paddle
 

@@ -554,3 +554,101 @@ def test_mesh_entry_points_refuse_the_cpu_unless_asked(monkeypatch,
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert tmesh.rank_device("cpu") == torch.device("cpu")
+
+
+V1_RUNTIME_MODULES = [
+    "paddle_tpu_torch.native", "paddle_tpu_torch.native.recordio",
+    "paddle_tpu_torch.native.master", "paddle_tpu_torch.native.optimizer",
+    "paddle_tpu_torch.data.master_client",
+    "paddle_tpu_torch.data.master_serve", "paddle_tpu_torch.data.reader",
+    "paddle_tpu_torch.compat.swig_api", "paddle_tpu_torch.compat.py2run",
+    "paddle_tpu_torch.compat.py_paddle",
+    "paddle_tpu_torch.compat.py_paddle.swig_paddle",
+    "paddle_tpu_torch.compat.py_paddle.dataprovider_converter",
+    "paddle_tpu_torch.api", "paddle_tpu_torch.capi_bridge"]
+
+
+def test_v1_runtime_modules_import_with_jax_blocked():
+    """The v1-era runtime by name (the walk above covers them too): the
+    native loader and its wrappers, the networked master's client and
+    server, the readers, the SWIG surface, py2run, the py_paddle
+    namespace, api and the C ABI's bridge. Importing them builds
+    nothing."""
+    for n in V1_RUNTIME_MODULES:
+        rel = os.path.join(PKG, *n.split(".")[1:])
+        assert rel + ".py" in _port_files() or \
+            os.path.join(rel, "__init__.py") in _port_files(), n
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=set(FORBIDDEN), names=V1_RUNTIME_MODULES)
+    code += ("from paddle_tpu_torch import native\n"
+             "assert native._lib is None\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(V1_RUNTIME_MODULES))
+
+
+def test_port_native_sources_name_only_the_port():
+    """The port's C/C++ sources, header, Makefile and examples name no
+    `paddle_tpu.` / `paddle_tpu/` (only `paddle_tpu_torch`), and no port
+    file builds or loads the JAX package's `native/lib`."""
+    import re
+
+    native_dir = os.path.join(PKG, "native")
+    sources = [os.path.join(root, n) for root, _d, names in
+               os.walk(native_dir) for n in names
+               if n.endswith((".cc", ".h", ".c")) or n == "Makefile"]
+    assert len(sources) >= 12
+    jax_name = re.compile(r"\bpaddle_tpu[./]")
+    bad = [(os.path.relpath(f, REPO), i + 1, line.strip())
+           for f in sources for i, line in enumerate(open(f))
+           if jax_name.search(line)]
+    assert bad == []
+    capi = open(os.path.join(native_dir, "src", "capi.cc")).read()
+    assert 'PyImport_ImportModule("paddle_tpu_torch.capi_bridge")' in capi
+    lib_refs = [(os.path.relpath(f, REPO), i + 1)
+                for f in _port_files() + sources
+                for i, line in enumerate(open(f))
+                if "native/lib/" in line or "libpaddle_tpu_native" in line
+                or "libpaddle_tpu_capi" in line]
+    assert lib_refs == []
+    from paddle_tpu_torch import native
+
+    build = os.path.join(PKG, "build", "native")
+    assert os.path.dirname(native.LIB_PATH) == build
+    assert os.path.dirname(native.CAPI_PATH) == build
+    assert native.EXAMPLES_DIR.startswith(native_dir)
+
+
+def test_v1_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
+    from paddle_tpu_torch import api, capi_bridge
+    from paddle_tpu_torch.compat import swig_api
+    from paddle_tpu_torch.models.text import stacked_lstm_classifier
+    from paddle_tpu_torch.trainer import checkpoint as ckpt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("PADDLE_TPU_FORCE_CPU", raising=False)
+    conf = stacked_lstm_classifier(vocab_size=10, emb_dim=4, hidden=4,
+                                   num_layers=1)
+    net = Network(conf)
+    merged = str(tmp_path / "m.npz")
+    ckpt.merge_model(merged, conf, {
+        k: v.numpy() for k, v in net.init_params(torch.Generator(),
+                                                 device="cpu").items()})
+    assert swig_api.isUsingGpu()
+    for call in (
+        lambda: swig_api.GradientMachine(conf),
+        lambda: swig_api.GradientMachine.createFromConfigProto(conf),
+        lambda: api.GradientMachine(conf),
+        lambda: api.SequenceGenerator(None, None),
+        lambda: capi_bridge.create(merged, "output"),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    monkeypatch.setenv("PADDLE_TPU_FORCE_CPU", "1")
+    h = capi_bridge.create(merged, "output")
+    assert capi_bridge._HANDLES[h].device.type == "cpu"
+    capi_bridge.destroy(h)
+    assert swig_api.GradientMachine(conf, device="cpu").device.type == "cpu"
