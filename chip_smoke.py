@@ -5,15 +5,16 @@
 
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the
 CUDA toolkit's nvcc. It drives the port only — nothing of JAX or of
-`paddle_tpu` — in twenty-five phases, two of multi-step dispatch (18b,
+`paddle_tpu` — in twenty-seven phases, two of multi-step dispatch (18b,
 18c), one of generation and serving (20), one of nested sequences and
 the structured heads (21), one of beam and speculative decode over the
 paged KV pool (22), one of the layer tail, the VAE and GAN and the v1
 front end (23), one of the flight recorder and the fleet (24), one of
 the custom ops and export (25), one of the mesh (26), one of the
-v1-era runtime (27), and seven that run its paths or its kernels' forms
-under the bf16 flag (3b, 5b, 6c, 6d, 7b, 9c, 13b), and any failure
-exits non-zero:
+v1-era runtime (27), one of head dim 256 (28), one of the op framework
+(29), seven that run its paths or its kernels' forms under the bf16
+flag (3b, 5b, 6c, 6d, 7b, 9c, 13b) and one of the flash kernels at head
+dims above 128 (3c), and any failure exits non-zero:
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA
    versions; TF32 off;
@@ -41,6 +42,17 @@ exits non-zero:
    inputs than the bf16 plain version is (within an ulp); times it, the
    bf16 plain version and SDPA on bf16 with is_causal and no mask (a
    yardstick) beside the bound (bf16 bytes; one pass at 989 TFLOP/s);
+3c. holds the D-split forms (head dim > 128, `csrc/flash_dsplit.cuh`) of
+   the forward and both backward kernels, f32 and bf16, against their
+   plain versions at D = 160, 256 and 384 (a causal ragged batch,
+   cross-attention with q_len and a kv_len = 0 row, causal with q_len at
+   T = 127) and at phase 28's shapes: f32 at 1e-4 (out, lse; the
+   gradients of the largest entry), bf16 at one ulp + 2e-3 (out) and +
+   5e-3 (the gradients) with the witness, rows without a key and keys
+   past kv_len exactly 0, bit-identical repeats, only the D-split forms
+   launched; times them at phase 28's shapes beside the plain versions,
+   SDPA (a yardstick) and two bounds: the function's and the D-split's
+   as it runs (S recomputed once per output chunk);
 4. serves the paged Transformer LM at the repo's served width
    (LMSpec(vocab=2048, d_model=256, num_heads=4, num_layers=2,
    attn_impl="flash") over PagedKVCache(num_pages=256, page_size=16,
@@ -441,7 +453,24 @@ exits non-zero:
     `BeamSearchDecoder.generate` (B7 twice on the encoder); (e) a
     python-2 API driver (`PY2_DRIVER`) through `run_py2_script` for 5
     steps, its losses equal to the same steps called directly;
-28. prints the kernels' JSON line and, last, the device line.
+28. head dim 256 (Gemma's) on the main paths, through the D-split forms
+    of the flash kernels (`csrc/flash_dsplit.cuh`), each path with every
+    flash counter zeroed just before it and read just after, only the
+    D-split forms launched: (a) phase 4's server at d_model 1024, 4
+    heads, the answers held as phase 4's; (b) LM (b) at d_model 1024, 4
+    heads: the flash step held against the dense step at its ReLU gates
+    (phase 6's hold), then 20 adam steps through SGD.train (the loss
+    falls); (c) bench_longctx's conf at d 1024, 4 heads under the bf16
+    flag: 6d's held step and 10 steps an arm at B = 4, T = 4096;
+29. the Fluid-style op framework (`framework/`): the reference's MLP as
+    an op net (mul, rowwise_add, sigmoid, softmax, onehot_cross_entropy,
+    mean, backward(), sgd) trained 20 steps eagerly op by op (the loss
+    falls), the same steps through `net_to_fn` captured as one CUDA
+    graph bit-equal to them, the first step within 1e-4 of the port on
+    the CPU; a one-memory RNN RecurrentOp (T = 16) eagerly and through
+    `scan_fn`, equal, its grad op within 1e-4 of autograd over
+    `scan_fn`, both within 1e-4 of the CPU;
+30. prints the kernels' JSON line and, last, the device line.
 
 Exits 2 without printing a result when no CUDA device is present.
 """
@@ -628,7 +657,11 @@ def random_params(spec, lm, seed=SEED):
     return out
 
 
-def serve_lm(torch, fa):
+def serve_lm(torch, fa, spec_kw=SERVED_LM):
+    """Phase 4 (and 28(a) at head dim 256): the paged LM `spec_kw`
+    served over TCP, every answer held against the dense full-recompute
+    reference; every flash counter zeroed just before the requests and
+    read just after, one form launched. Returns {that form: launches}."""
     from paddle_tpu_torch.decoding.kv_cache import PagedKVCache, PagedLM
     from paddle_tpu_torch.models import lm
     from paddle_tpu_torch.serving.lm_engine import PagedLMModel
@@ -636,7 +669,7 @@ def serve_lm(torch, fa):
     from paddle_tpu_torch.serving.tcp import ServeClient, ServingTCPServer
     from paddle_tpu_torch.weights import params_from_numpy
 
-    spec = lm.LMSpec(**SERVED_LM)
+    spec = lm.LMSpec(**spec_kw)
     params = params_from_numpy(random_params(spec, lm), device="cuda")
     cache = PagedKVCache(spec, num_pages=256, page_size=16,
                          max_pages_per_seq=64, device="cuda")
@@ -660,14 +693,17 @@ def serve_lm(torch, fa):
 
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(len(prompts))]
-    fa.launches = 0
+    for n in fa.COUNTERS:
+        setattr(fa, n, 0)
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=900)
     wall = time.perf_counter() - t0
-    launches = fa.launches
+    launched = {n: getattr(fa, n) for n in fa.COUNTERS if getattr(fa, n)}
+    assert len(launched) == 1, f"flash forms launched: {launched}"
+    (launches,) = launched.values()
     assert not any(t.is_alive() for t in threads), "a request hung"
 
     tcp.stop_accepting()
@@ -736,7 +772,7 @@ def serve_lm(torch, fa):
         print(f"request {i} (len {lens[i]}): differs at step {t}; "
               f"reference top-2 log-prob margin {margin:.3g}", flush=True)
         assert margin < 1e-4, f"request {i} disagrees with the reference"
-    return launches
+    return launched
 
 
 def bwd_bounds(B, Tq, Tk, H, D, pairs, n_lens, bf16=False):
@@ -1134,6 +1170,249 @@ def check_backward_bf16(torch, fa, case, gen):
     return res
 
 
+# ---- B4f and B4b at head dim D > 128: the D-split forms (phase 3c) -----
+
+# the D-split's kernel-vs-plain shapes at D = 160 (padded to 192), 256 and
+# 384: a causal ragged batch, cross-attention with q_len and a kv_len = 0
+# row, and causal self-attention with q_len at an odd T
+DSPLIT_DIMS = (160, 256, 384)
+DSPLIT_SHAPES = [
+    dict(name=f"{name}_d{D}", D=D, **case)
+    for D in DSPLIT_DIMS
+    for name, case in (
+        ("causal_t200_ragged", dict(B=2, Tq=200, Tk=200, H=2, causal=True,
+                                    kv_len=[200, 131])),
+        ("cross_tq129_tk200_qlen_kvlen0", dict(
+            B=2, Tq=129, Tk=200, H=2, causal=False, kv_len=[0, 77],
+            q_len=[129, 100], expect_dead=True)),
+        ("causal_t127_qlen", dict(B=1, Tq=127, Tk=127, H=3, causal=True,
+                                  q_len=[100])),
+    )
+]
+# the main paths' attention at head dim 256 (phase 28), where phase 3c
+# also times the forms: (a) the served LM's longest prefill, (b) LM (b)'s
+# training batch (f32), (c) the long-context trainer's (bf16)
+DSPLIT_PATHS = {
+    "served": dict(name="served_b1_t1024_h4_d256", B=1, Tq=1024, Tk=1024,
+                   H=4, D=256, causal=True, kv_len=[PROMPT_LENS[0]]),
+    "lm": dict(name="lm_b8_t1024_h4_d256_ragged", B=8, Tq=1024, Tk=1024,
+               H=4, D=256, causal=True, kv_len=list(PROMPT_LENS)),
+    "longctx": dict(name="longctx_b4_t4096_h4_d256", B=4, Tq=4096, Tk=4096,
+                    H=4, D=256, causal=True),
+}
+DSPLIT_FORMS = {False: ("dsplit_launches", "bwd_dkv_dsplit_launches",
+                        "bwd_dq_dsplit_launches"),
+                True: ("dsplit_bf16_launches", "bwd_dkv_dsplit_bf16_launches",
+                       "bwd_dq_dsplit_bf16_launches")}
+
+
+def dsplit_bounds(B, Tq, Tk, H, D, pairs, n_lens, bf16):
+    """{form: {"unsplit" | "split": (ms, "bytes" | "operations")}} of the
+    forward, dkv and dq at head dim D with `pairs` visible pairs a head:
+    the unsplit bound is the function's (each input read once, each
+    output written once; 4 D flops a pair forward, 8 D dkv, 6 D dq), the
+    split one the D-split's as it runs at the padded dim Dp (S, and in
+    the backward dP, once per output chunk: ceil(Dp / 128) forward
+    chunks, Dp / 64 backward ones; q and k, in the backward also dO, v,
+    lse and delta, read once per chunk, every chunk's blocks needing all
+    of them). f32: three TF32 passes over 495 TFLOP/s; bf16: one pass
+    over 989."""
+    Dp = -(-D // 64) * 64
+    el, f32 = (2 if bf16 else 4), 4
+    passes, peak = (1, H100_BF16_FLOPS) if bf16 else (3, H100_TF32_FLOPS)
+    nc_f, nc_b = -(-Dp // 128), Dp // 64
+
+    def tq(d):
+        return B * Tq * H * d * el
+
+    def tk(d):
+        return B * Tk * H * d * el
+
+    rows = B * H * Tq * f32
+    lens = f32 * B * n_lens
+
+    def bound(flops, nbytes):
+        t_ops = passes * flops * H * pairs / peak * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                     else "operations")
+
+    return {
+        "fwd": {"unsplit": bound(4 * D, 2 * tq(D) + 2 * tk(D) + rows + lens),
+                "split": bound((2 * nc_f + 2) * Dp,
+                               nc_f * (tq(Dp) + tk(Dp)) + tk(Dp) + tq(Dp)
+                               + rows + lens)},
+        "dkv": {"unsplit": bound(8 * D, 2 * tq(D) + 4 * tk(D) + 2 * rows
+                                 + lens),
+                "split": bound((4 * nc_b + 4) * Dp,
+                               nc_b * (2 * tq(Dp) + 2 * tk(Dp) + 2 * rows)
+                               + 2 * tk(Dp) + lens)},
+        "dq": {"unsplit": bound(6 * D, 3 * tq(D) + 2 * tk(D) + 2 * rows
+                                + lens),
+               "split": bound((4 * nc_b + 2) * Dp,
+                              nc_b * (2 * tq(Dp) + 2 * tk(Dp)) + 2 * rows
+                              + tq(Dp) + lens)},
+    }
+
+
+def check_dsplit(torch, fa, case, gen, bf16, timed=False):
+    """Phase 3c: the D-split forms of B4f and B4b (f32, or bf16) against
+    their plain versions on the card at one shape of head dim D > 128:
+    f32 out and lse within TOL, dq, dk, dv within TOL of the largest
+    entry; bf16 out within one bf16 ulp + BF16_OUT_FRAC of the largest,
+    lse within TOL, the gradients within an ulp + BF16_GRAD_FRAC and no
+    farther from the f32 plain backward than the bf16 plain one (within
+    an ulp); rows without a visible key exactly out 0, lse 1e30 and dq 0,
+    dk and dv of keys past kv_len exactly 0, everything finite and
+    bit-identical on a repeat, and only the D-split forms launched (two
+    of each). With `timed`, times the kernels (CUDA events), the plain
+    versions and scaled_dot_product_attention's forward and backward (a
+    yardstick the port never calls; f32 with the masks, bf16 with
+    is_causal and no mask) beside the unsplit and the split bounds."""
+    B, Tq, Tk, H, D = (case[k] for k in ("B", "Tq", "Tk", "H", "D"))
+    if bf16:
+        q, k, v, do = bf16_qkv(torch, case, gen, with_dout=True)
+    else:
+        q, k, v, do = (torch.randn(s, generator=gen, device="cuda")
+                       for s in ((B, Tq, H, D), (B, Tk, H, D),
+                                 (B, Tk, H, D), (B, Tq, H, D)))
+    kv_len = lens_tensor(torch, case.get("kv_len"))
+    q_len = lens_tensor(torch, case.get("q_len"))
+    kw = dict(causal=case["causal"], kv_len=kv_len, q_len=q_len)
+    before = {n: getattr(fa, n) for n in fa.COUNTERS}
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    again = fa.flash_attention(q, k, v, **kw)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    grads2 = fa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    ran = flash_launched(fa, before)
+    assert ran == dict.fromkeys(DSPLIT_FORMS[bf16], 2), (
+        f"{case['name']}: launched {ran}")
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1]) and all(
+        torch.equal(a, b) for a, b in zip(grads, grads2)), (
+        f"{case['name']}: D-split kernels not bit-identical on a repeat")
+    del again, grads2
+    plain = fa.attention_plain_bf16 if bf16 else fa.attention_plain
+    plain_bwd = (fa.attention_bwd_plain_bf16 if bf16
+                 else fa.attention_bwd_plain)
+    out_p, lse_p = plain(q, k, v, **kw)
+    ref = plain_bwd(q, k, v, out, lse, do, **kw)
+    alive = lse_p < 1e29
+    dead = ~alive
+    err_lse = (lse - lse_p).abs()[alive].max().item()
+    res = {"name": case["name"], "dtype": "bf16" if bf16 else "f32",
+           "err_lse": err_lse, "max_abs_err": {}, "err": {}}
+    res["max_abs_err"]["out"] = (out.float() - out_p.float()).abs().max(
+    ).item()
+    res["err"]["out"] = (bf16_beyond(torch, out, out_p) if bf16
+                         else res["max_abs_err"]["out"])
+    bound = {"out": BF16_OUT_FRAC if bf16 else TOL}
+    for n, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        assert g.dtype == q.dtype and torch.isfinite(g).all().item(), (
+            f"{case['name']}: {n}")
+        res["max_abs_err"][n] = (g.float() - r.float()).abs().max().item()
+        res["err"][n] = (bf16_beyond(torch, g, r) if bf16
+                         else rel_err(g, r)[0])
+        bound[n] = BF16_GRAD_FRAC if bf16 else TOL
+    assert torch.isfinite(out).all().item() and err_lse <= TOL and all(
+        res["err"][n] <= bound[n] for n in bound), (
+        f"{case['name']}: D-split vs plain {res['err']}, lse {err_lse:.3g} "
+        f"(bounds {bound})")
+    if bf16:
+        out32, lse32 = fa.attention_plain(q, k, v, **kw)
+        exact = fa.attention_bwd_plain(q, k, v, out32, lse32, do, **kw)
+        res["witness"] = {"out": no_farther(torch, out, out_p, out32,
+                                            f"{case['name']} out")}
+        for n, g, r, e in zip(("dq", "dk", "dv"), grads, ref, exact):
+            res["witness"][n] = no_farther(torch, g, r, e,
+                                           f"{case['name']} {n}")
+        del out32, lse32, exact
+    del ref
+    res["masked_rows"] = int(dead.sum().item())
+    if case.get("expect_dead"):
+        assert res["masked_rows"] > 0, f"{case['name']}: expected dead rows"
+    dead_q = dead.permute(0, 2, 1)
+    assert bool((out[dead_q] == 0).all().item()
+                and (lse[dead] == fa.LSE_MASKED).all().item()
+                and (grads[0][dead_q] == 0).all().item()), (
+        f"{case['name']}: rows without a key not exactly out 0, lse 1e30, "
+        "dq 0")
+    for b, n in enumerate(case.get("kv_len") or []):
+        assert bool((grads[1][b, n:] == 0).all().item()
+                    and (grads[2][b, n:] == 0).all().item()), (
+            f"{case['name']}: dk, dv of keys past kv_len not exactly 0")
+    if timed:
+        res.update(time_dsplit(torch, fa, case, q, k, v, do, out, lse, kw,
+                               bf16))
+    print("dsplit " + json.dumps(res), flush=True)
+    return res
+
+
+def time_dsplit(torch, fa, case, q, k, v, do, out, lse, kw, bf16):
+    """Phase 3c's times of the D-split forms at a path shape (D a
+    multiple of 64, as the kernels take it): see check_dsplit."""
+    B, Tq, Tk, H, D = (case[k] for k in ("B", "Tq", "Tk", "H", "D"))
+    delta = fa.row_delta(do, out)
+    r = {
+        "fwd_ms": time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw)),
+        "dkv_ms": time_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+            q, k, v, do, lse, delta, **kw)),
+        "dq_ms": time_ms(torch, lambda: fa.flash_attention_bwd_dq(
+            q, k, v, do, lse, delta, **kw)),
+    }
+    plain = fa.attention_plain_bf16 if bf16 else fa.attention_plain
+    plain_bwd = (fa.attention_bwd_plain_bf16 if bf16
+                 else fa.attention_bwd_plain)
+    r["plain_fwd_ms"] = time_ms(torch, lambda: plain(q, k, v, **kw), reps=5,
+                                warmup=1)
+    r["plain_bwd_ms"] = time_ms(torch, lambda: plain_bwd(
+        q, k, v, out, lse, do, **kw), reps=5, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = (None if bf16 else sdpa_mask(torch, B, Tq, Tk, case["causal"],
+                                        kw["kv_len"], kw["q_len"]))
+    causal = bf16 and case["causal"]
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            sdpa(qt, kt, vt, attn_mask=mask, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(qt, kt, vt, attn_mask=mask,
+                                 is_causal=causal), (qt, kt, vt), dot)
+
+    r["library_fwd_ms"] = time_ms(torch, sdpa_fwd)
+    r["library_bwd_ms"] = time_ms(torch, sdpa_fwd_bwd) - r["library_fwd_ms"]
+    pairs = visible_pairs(B, Tq, Tk, case["causal"], case.get("kv_len"),
+                          case.get("q_len"))
+    bounds = dsplit_bounds(B, Tq, Tk, H, D, pairs,
+                           (kw["kv_len"] is not None)
+                           + (kw["q_len"] is not None), bf16)
+    for form, b in bounds.items():
+        r[f"{form}_bound_ms"], r[f"{form}_bound_by"] = b["unsplit"]
+        r[f"{form}_split_bound_ms"], r[f"{form}_split_bound_by"] = b["split"]
+    r["pairs_per_head"] = pairs
+    return r
+
+
+def dsplit_kernels(torch, fa, gen):
+    """Phase 3c: every D-split form against its plain version at
+    DSPLIT_SHAPES and at the paths' shapes (DSPLIT_PATHS: f32 at the
+    served prefill and LM (b)'s batch, bf16 at the long-context
+    trainer's), timed at the latter. Returns {"checks": [...], "paths":
+    {path: numbers}}."""
+    checks = [check_dsplit(torch, fa, c, gen, bf16)
+              for bf16 in (False, True) for c in DSPLIT_SHAPES]
+    paths = {}
+    for name, bf16 in (("served", False), ("lm", False), ("longctx", True)):
+        paths[name] = check_dsplit(torch, fa, DSPLIT_PATHS[name], gen, bf16,
+                                   timed=True)
+        torch.cuda.empty_cache()
+    return {"checks": checks + list(paths.values()), "paths": paths}
+
+
 def lm_batches(rng, n, B, T, lens, vocab):
     """n next-token batches (ids, labels, lens): each row walks one
     fixed random permutation of the vocabulary from a random start and
@@ -1175,6 +1454,18 @@ PORT_KERNELS = {
     "B4f flash_attn_fwd_bf16": "flash_fwd_wgmma_kernel<",
     "B4b flash_attn_bwd_dkv_bf16": "flash_bwd_dkv_wgmma_kernel<",
     "B4b flash_attn_bwd_dq_bf16": "flash_bwd_dq_wgmma_kernel<",
+    "B4f flash_attn_fwd_dsplit":
+        "fwd_kernel<(anonymous namespace)::dsplit::F32>",
+    "B4b flash_attn_bwd_dkv_dsplit":
+        "dkv_kernel<(anonymous namespace)::dsplit::F32>",
+    "B4b flash_attn_bwd_dq_dsplit":
+        "dq_kernel<(anonymous namespace)::dsplit::F32>",
+    "B4f flash_attn_fwd_dsplit_bf16":
+        "fwd_kernel<(anonymous namespace)::dsplit::BF16>",
+    "B4b flash_attn_bwd_dkv_dsplit_bf16":
+        "dkv_kernel<(anonymous namespace)::dsplit::BF16>",
+    "B4b flash_attn_bwd_dq_dsplit_bf16":
+        "dq_kernel<(anonymous namespace)::dsplit::BF16>",
     "B5 lstm_seq_fwd cluster walk": "lstm_fwd_cluster_kernel<",
     "B5 lstm_seq_fwd grid route": "lstm_fwd_grid_kernel<",
     "B6 lstm_seq_bwd cluster walk": "lstm_bwd_cluster_kernel<",
@@ -1246,14 +1537,67 @@ def profile_steps(torch, sgd, feed, steps=5):
     return profile_fn(torch, lambda: sgd.train_batch(feed), steps)
 
 
-def train_lm(torch, fa):
-    """Phase 6: the LM through the port's trainer on the card. Returns
-    the numbers of both runs."""
+def held_flash_dense_step(torch, spec, np_params, name, batch):
+    """One TrainStep of the LM's flash conf against the same step of its
+    dense conf (plain torch): same params, same feed, momentum from a
+    zero state, so each new momentum slot is -lr * the parameter's
+    gradient. A ReLU whose preactivation lies within f32 rounding of 0
+    can open in one step and not the other, and every gradient below it
+    then differs by that token's share (LM (b) flips one). So the dense
+    step runs at the flash step's gates: its feed-forward ReLUs become
+    products with the flash step's 0/1 masks (the same function
+    wherever the gates agree), and the loss and every gradient are held
+    at TOL. Returns the numbers."""
     from paddle_tpu_torch.core.config import OptimizationConf
     from paddle_tpu_torch.models import lm
     from paddle_tpu_torch.network import Network
     from paddle_tpu_torch.optimizers import create_optimizer
     from paddle_tpu_torch.parallel.dp import TrainStep
+    from paddle_tpu_torch.weights import params_from_numpy
+
+    opt_a = OptimizationConf(learning_method="momentum",
+                             learning_rate=0.001, momentum=0.9)
+    feed = lm_feed(batch)
+    got = {}
+    for impl in ("flash", "dense"):
+        net = Network(lm.transformer_lm(dataclasses.replace(
+            spec, attn_impl=impl)))
+        params = params_from_numpy(np_params, device="cuda")
+        with torch.no_grad():
+            gates = [net.forward(params, feed)[0][f"lm_ff{i}"].value > 0
+                     for i in range(spec.num_layers)]
+        if impl == "dense":
+            for i, mask in enumerate(got["flash"][2]):
+                net.layers[f"lm_ff{i}"].activation = (
+                    lambda m=mask: lambda y: y * m)
+        opt = create_optimizer(opt_a, net.param_confs)
+        step = TrainStep(net, opt, watchdog=True, device="cuda")
+        _p, mom, _s, health, _o = step(params, opt.init_state(params),
+                                       {}, feed, 0, None)
+        got[impl] = (health, mom, gates)
+    (hf, mf, gf), (hd, md, gd) = got["flash"], got["dense"]
+    loss_rel = abs(hf[0].item() - hd[0].item()) / abs(hd[0].item())
+    worst = max((rel_err(mf[k]["mom"], md[k]["mom"])[0], k) for k in md)
+    flips = sum(int((a != b).sum().item()) for a, b in zip(gf, gd))
+    r = {"loss_flash": hf[0].item(), "loss_dense": hd[0].item(),
+         "loss_rel": loss_rel, "grad_rel": worst[0],
+         "worst_param": worst[1],
+         "relu_gate_flips_of_the_free_dense_step": flips,
+         "finite": bool(hf[1].item() and hd[1].item())}
+    print("flash vs dense (at the flash gates) train step " + json.dumps(
+        {name: r}), flush=True)
+    assert r["finite"] and loss_rel <= TOL, (
+        f"flash and dense train steps disagree at {name}: {r}")
+    assert worst[0] <= TOL, (
+        f"flash and dense gradients disagree at {name}: {r}")
+    return r
+
+
+def train_lm(torch, fa):
+    """Phase 6: the LM through the port's trainer on the card. Returns
+    the numbers of both runs."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models import lm
     from paddle_tpu_torch.trainer.events import EndIteration
     from paddle_tpu_torch.trainer.trainer import SGD
     from paddle_tpu_torch.weights import params_from_numpy
@@ -1268,53 +1612,10 @@ def train_lm(torch, fa):
     batches_a = lm_batches(rng, 20, 32, 128, full, spec.vocab)
     batch_b = lm_batches(rng, 1, 8, 1024, ragged, spec.vocab)[0]
 
-    # one TrainStep of the flash conf against the same step of the dense
-    # conf (plain torch): same params, same feed, momentum from a zero
-    # state, so each new momentum slot is -lr * the parameter's gradient
-    opt_a = OptimizationConf(learning_method="momentum",
-                             learning_rate=0.001, momentum=0.9)
-    # A ReLU whose preactivation lies within f32 rounding of 0 can open in
-    # one step and not the other, and every gradient below it then differs
-    # by that token's share (LM (b) flips one). So the dense step runs at
-    # the flash step's gates: its feed-forward ReLUs become products with
-    # the flash step's 0/1 masks (the same function wherever the gates
-    # agree), and every gradient is held at TOL at both shapes.
-    parity = {}
-    for name, batch in (("b32_t128", batches_a[0]), ("b8_t1024", batch_b)):
-        feed = lm_feed(batch)
-        got = {}
-        for impl in ("flash", "dense"):
-            net = Network(lm.transformer_lm(dataclasses.replace(
-                spec, attn_impl=impl)))
-            params = params_from_numpy(np_params, device="cuda")
-            with torch.no_grad():
-                gates = [net.forward(params, feed)[0][f"lm_ff{i}"].value > 0
-                         for i in range(spec.num_layers)]
-            if impl == "dense":
-                for i, mask in enumerate(got["flash"][2]):
-                    net.layers[f"lm_ff{i}"].activation = (
-                        lambda m=mask: lambda y: y * m)
-            opt = create_optimizer(opt_a, net.param_confs)
-            step = TrainStep(net, opt, watchdog=True, device="cuda")
-            _p, mom, _s, health, _o = step(params, opt.init_state(params),
-                                           {}, feed, 0, None)
-            got[impl] = (health, mom, gates)
-        (hf, mf, gf), (hd, md, gd) = got["flash"], got["dense"]
-        loss_rel = abs(hf[0].item() - hd[0].item()) / abs(hd[0].item())
-        worst = max((rel_err(mf[k]["mom"], md[k]["mom"])[0], k) for k in md)
-        flips = sum(int((a != b).sum().item()) for a, b in zip(gf, gd))
-        parity[name] = {"loss_flash": hf[0].item(), "loss_dense": hd[0].item(),
-                        "loss_rel": loss_rel, "grad_rel": worst[0],
-                        "worst_param": worst[1],
-                        "relu_gate_flips_of_the_free_dense_step": flips,
-                        "finite": bool(hf[1].item() and hd[1].item())}
-        print("flash vs dense (at the flash gates) train step " + json.dumps(
-            {name: parity[name]}), flush=True)
-        assert parity[name]["finite"] and loss_rel <= TOL, (
-            f"flash and dense train steps disagree at {name}: "
-            f"{parity[name]}")
-        assert worst[0] <= TOL, (
-            f"flash and dense gradients disagree at {name}: {parity[name]}")
+    parity = {name: held_flash_dense_step(torch, spec, np_params, name,
+                                          batch)
+              for name, batch in (("b32_t128", batches_a[0]),
+                                  ("b8_t1024", batch_b))}
 
     runs = {}
     for name, opt, batches, ntok in (
@@ -1568,13 +1869,13 @@ def longctx_feed(bs, t, classes=512, vocab=32000, device="cuda"):
     }
 
 
-def longctx_params(torch):
+def longctx_params(torch, cfg=LONGCTX):
     """The long-context model's weights from a seed, as numpy (both arms
     and tests/test_torch_amp.py's reading start from them)."""
     from paddle_tpu_torch.network import Network
     from paddle_tpu_torch.weights import params_to_numpy
 
-    return params_to_numpy(Network(longctx_conf(**LONGCTX)).init_params(
+    return params_to_numpy(Network(longctx_conf(**cfg)).init_params(
         torch.Generator().manual_seed(SEED + 3), device="cpu"))
 
 
@@ -1584,14 +1885,20 @@ def flash_launched(fa, before):
             if getattr(fa, n) != c}
 
 
-def longctx_held_step(torch, fa, np_params, feed):
+BF16_FORMS = ("bf16_launches", "bwd_dkv_bf16_launches",
+              "bwd_dq_bf16_launches")
+
+
+def longctx_held_step(torch, fa, np_params, feed, cfg=LONGCTX,
+                      forms=BF16_FORMS):
     """Phase 6d (a): one adam TrainStep of the flash conf and one of the
     dense conf from one weight map, both under the bf16 flag: both
     finite, the losses within 5% (tests/test_amp.py's bound), every
     gradient (adam's first moment) held as 6c holds its own
     (`amp_grads_held`, the bound from the JAX package's bf16 distance of
-    this conf), the flash step's bf16 forms launched once a layer and
-    no f32 form, the dense step no flash form."""
+    this conf), the flash step's bf16 forms (`forms`: the D-split's at
+    28(c)) launched once a layer and no other flash form, the dense step
+    no flash form."""
     from paddle_tpu_torch.core.config import OptimizationConf
     from paddle_tpu_torch.network import Network
     from paddle_tpu_torch.optimizers import create_optimizer
@@ -1602,7 +1909,7 @@ def longctx_held_step(torch, fa, np_params, feed):
     set_amp(True)
     try:
         for impl in ("flash", "dense"):
-            net = Network(longctx_conf(attn_impl=impl, **LONGCTX))
+            net = Network(longctx_conf(attn_impl=impl, **cfg))
             opt = create_optimizer(OptimizationConf(
                 learning_method="adam", learning_rate=LONGCTX_LR),
                 net.param_confs)
@@ -1619,7 +1926,7 @@ def longctx_held_step(torch, fa, np_params, feed):
     finally:
         set_amp(False)
     (lf, ff, sf, cf), (ld, fd, sd, cd) = got["flash"], got["dense"]
-    layers = LONGCTX["layers"]
+    layers = cfg["layers"]
     r = {"loss_flash": lf, "loss_dense": ld, "rel": abs(lf - ld) / abs(ld),
          "finite": ff and fd, "launches_flash": cf, "launches_dense": cd,
          "grad_dtypes": sorted({str(v["m"].dtype) for v in sf.values()})}
@@ -1627,15 +1934,16 @@ def longctx_held_step(torch, fa, np_params, feed):
           flush=True)
     assert r["finite"] and r["rel"] <= 0.05, f"longctx held step: {r}"
     assert r["grad_dtypes"] == ["torch.float32"], r
-    assert cf == dict.fromkeys(("bf16_launches", "bwd_dkv_bf16_launches",
-                                "bwd_dq_bf16_launches"), layers), cf
+    assert cf == dict.fromkeys(forms, layers), cf
     assert cd == {}, f"the dense step launched {cd}"
-    r["grad_rel_max"] = amp_grads_held("longctx_flash_vs_dense_b4_t4096",
-                                       "longctx", sf, sd, "m")
+    r["grad_rel_max"] = amp_grads_held(
+        f"longctx_flash_vs_dense_b4_t4096_d{cfg['d']}_h{cfg['heads']}",
+        "longctx", sf, sd, "m")
     return r
 
 
-def longctx_train(torch, fa, np_params, B, T, steps):
+def longctx_train(torch, fa, np_params, B, T, steps, cfg=LONGCTX,
+                  forms=BF16_FORMS):
     """Phase 6d (b), (c): `steps` adam steps of the flash arm and of the
     dense arm under the bf16 flag through `SGD.train_batch`, each arm its
     own SGD from one weight map on bench.py::longctx_feed's fixed batch,
@@ -1643,18 +1951,19 @@ def longctx_train(torch, fa, np_params, B, T, steps):
     bench.py::_interleaved_best takes them (each arm's best window is
     its ms/step). Every loss finite and each arm's last below its first;
     the flash arm launches each bf16 form once a layer a step and no f32
-    form, the dense arm no flash form. Reports ms/step, tokens/s (B*T a
+    form (`forms`: the D-split's at 28(c)), the dense arm no flash form.
+    Reports ms/step, tokens/s (B*T a
     step), fused_speedup (dense ms / flash ms), the peak memory of each
     arm's windows, and each arm's profile. Returns the numbers."""
     from paddle_tpu_torch.core.config import OptimizationConf
     from paddle_tpu_torch.trainer.trainer import SGD
     from paddle_tpu_torch.weights import params_from_numpy
 
-    feed = longctx_feed(B, T, LONGCTX["classes"], LONGCTX["vocab"])
+    feed = longctx_feed(B, T, cfg["classes"], cfg["vocab"])
     opt = OptimizationConf(learning_method="adam", learning_rate=LONGCTX_LR)
     set_amp(True)
     try:
-        arms = {impl: SGD(longctx_conf(attn_impl=impl, **LONGCTX), opt,
+        arms = {impl: SGD(longctx_conf(attn_impl=impl, **cfg), opt,
                           params=params_from_numpy(np_params, "cuda"),
                           device="cuda")
                 for impl in ("flash", "dense")}
@@ -1699,16 +2008,16 @@ def longctx_train(torch, fa, np_params, B, T, steps):
                              / r["flash"]["ms_per_step"]),
            **{impl: {k: v for k, v in a.items() if k != "profile"}
               for impl, a in r.items()}}
-    print(f"train longctx_amp_b{B}_t{T} " + json.dumps(out), flush=True)
-    want = steps * LONGCTX["layers"]
+    print(f"train longctx_amp_b{B}_t{T}_d{cfg['d']} " + json.dumps(out),
+          flush=True)
+    want = steps * cfg["layers"]
     for impl, a in r.items():
         assert np.isfinite(a["losses"]).all(), f"longctx {impl}: a loss"
         assert a["loss_last"] < a["loss_first"], (
             f"longctx {impl} B={B} T={T}: loss rose from "
             f"{a['loss_first']:.6g} to {a['loss_last']:.6g}")
-    assert r["flash"]["launches"] == dict.fromkeys(
-        ("bf16_launches", "bwd_dkv_bf16_launches", "bwd_dq_bf16_launches"),
-        want), f"longctx flash arm launched {r['flash']['launches']}"
+    assert r["flash"]["launches"] == dict.fromkeys(forms, want), (
+        f"longctx flash arm launched {r['flash']['launches']}")
     assert r["dense"]["launches"] == {}, (
         f"longctx dense arm launched {r['dense']['launches']}")
     return out
@@ -8293,6 +8602,7 @@ def flight_and_fleet(torch, rnn, sr, gen, dev="cuda"):
 OPS_BF16_TOL = 1e-2
 OPS_FUSED = dict(n=64 * 3136, cin=64, cout=256)
 OPS_FLASH = dict(B=32, T=128, H=4, D=64)
+OPS_FLASH_SPLIT = dict(B=2, T=128, H=2, D=256)   # the D-split forms
 OPS_LSTM = dict(B=CLS_B, T=CLS_T, h=256)
 OPS_GRU = dict(B=NMT_B, T=NMT_T, h=256)
 OPS_SPARSE = dict(rows=1 << 20, d=64, n=16384)
@@ -8376,23 +8686,25 @@ def op_checks(torch, fop, fa, rnn, sr, dev="cuda"):
                        (fop.bn_act_conv1x1_bwd_dw_plain(*dw_args),)), tol)
         del u, r, w, y, dy, args, dx_args, dw_args
 
-    B, T, H, D = (OPS_FLASH[k] for k in ("B", "T", "H", "D"))
-    q, k, v = (randn(B, T, H, D, grad=True) for _ in range(3))
-    f_args = (q, k, v, True, None, None, None)
-    check("flash_attention_fwd", fa.fwd_op, f_args,
-          lambda: (fa.fwd_op(*no_grad(f_args)),
-                   fa.attention_plain(*no_grad(f_args[:3]), causal=True)),
-          TOL)
-    qd, kd, vd = (x.detach() for x in (q, k, v))
-    o, lse = fa.attention_plain(qd, kd, vd, causal=True)
-    dout = randn(B, T, H, D)
-    delta = fa.row_delta(dout, o)
-    b_args = (qd, kd, vd, dout, lse, delta, True, None, None, None)
-    ref = fa.attention_bwd_plain(qd, kd, vd, o, lse, dout, causal=True)
-    check("flash_attention_bwd_dkv", fa.bwd_dkv_op, b_args,
-          lambda: (fa.bwd_dkv_op(*b_args), ref[1:]), TOL)
-    check("flash_attention_bwd_dq", fa.bwd_dq_op, b_args,
-          lambda: ((fa.bwd_dq_op(*b_args),), ref[:1]), TOL)
+    # the flash ops at OPS_FLASH's head dim and, as D-splits, at 256
+    for flash, tag in ((OPS_FLASH, ""), (OPS_FLASH_SPLIT, "_d256")):
+        B, T, H, D = (flash[k] for k in ("B", "T", "H", "D"))
+        q, k, v = (randn(B, T, H, D, grad=True) for _ in range(3))
+        f_args = (q, k, v, True, None, None, None)
+        check(f"flash_attention_fwd{tag}", fa.fwd_op, f_args,
+              lambda: (fa.fwd_op(*no_grad(f_args)),
+                       fa.attention_plain(*no_grad(f_args[:3]),
+                                          causal=True)), TOL)
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        o, lse = fa.attention_plain(qd, kd, vd, causal=True)
+        dout = randn(B, T, H, D)
+        delta = fa.row_delta(dout, o)
+        b_args = (qd, kd, vd, dout, lse, delta, True, None, None, None)
+        ref = fa.attention_bwd_plain(qd, kd, vd, o, lse, dout, causal=True)
+        check(f"flash_attention_bwd_dkv{tag}", fa.bwd_dkv_op, b_args,
+              lambda: (fa.bwd_dkv_op(*b_args), ref[1:]), TOL)
+        check(f"flash_attention_bwd_dq{tag}", fa.bwd_dq_op, b_args,
+              lambda: ((fa.bwd_dq_op(*b_args),), ref[:1]), TOL)
 
     B, T, h = (OPS_LSTM[k] for k in ("B", "T", "h"))
     lens = torch.randint(1, T + 1, (B,), generator=g, device=dev,
@@ -8465,7 +8777,8 @@ def op_checks(torch, fop, fa, rnn, sr, dev="cuda"):
           lambda: (updated(lambda t: sr.scatter_op(t, *s_args[1:])),
                    updated(lambda t: sr._scatter_plain(t, *s_args[1:]))),
           SPARSE_TOL)
-    checked = {k.rsplit("_f32", 1)[0].rsplit("_bf16", 1)[0] for k in out}
+    checked = {k.rsplit("_f32", 1)[0].rsplit("_bf16", 1)[0]
+               .rsplit("_d256", 1)[0] for k in out}
     assert checked == set(_library.OPS), (checked, _library.OPS)
     print("ops opcheck " + json.dumps(out), flush=True)
     return out
@@ -10579,6 +10892,363 @@ def v1_runtime(torch, rnn, gen, work, dev="cuda"):
             "d": d["launches"], "e": e["launches"], "seconds": seconds}
 
 
+# ---- phase 28: the main paths at head dim 256 (the D-split forms) ------
+
+# Gemma's head dim (Gemma Team 2024: 256 at every size) on the repo's
+# paths: (a) phase 4's served LM and (b) LM (b) of phase 6 at d_model
+# 1024 with 4 heads; (c) bench_longctx's conf at d 1024, 4 heads
+SERVED_LM_D256 = dict(SERVED_LM, d_model=1024)
+LM_D256_STEPS = 20
+LONGCTX_D256 = dict(LONGCTX, d=1024, heads=4)
+LONGCTX_D256_STEPS = 10
+
+
+def serve_d256(torch, fa):
+    """28(a): phase 4's serving path at head dim 256: every prefill's
+    attention through the f32 D-split forward."""
+    launched = serve_lm(torch, fa, SERVED_LM_D256)
+    assert list(launched) == ["dsplit_launches"], f"28(a): {launched}"
+    return launched
+
+
+def train_lm_d256(torch, fa):
+    """28(b): LM (b)'s setting (B = 8 x 1024 ragged, adam 0.001) at
+    d_model 1024, 4 heads: the flash step held against the dense step at
+    the flash step's ReLU gates (phase 6's hold), then LM_D256_STEPS
+    adam steps through SGD.train, every loss finite and the last below
+    the first, each f32 D-split form launched once a layer a step and no
+    other flash form. Returns the numbers."""
+    from paddle_tpu_torch.core.config import OptimizationConf
+    from paddle_tpu_torch.models import lm
+    from paddle_tpu_torch.trainer.events import EndIteration
+    from paddle_tpu_torch.trainer.trainer import SGD
+    from paddle_tpu_torch.weights import params_from_numpy
+
+    spec = lm.LMSpec(**SERVED_LM_D256)
+    np_params = random_params(spec, lm)
+    rng = np.random.default_rng(SEED + 2)
+    ragged = np.asarray(PROMPT_LENS, np.int32)
+    batch = lm_batches(rng, 1, 8, 1024, ragged, spec.vocab)[0]
+    held = held_flash_dense_step(torch, spec, np_params, "d256_b8_t1024",
+                                 batch)
+    sgd = SGD(lm.transformer_lm(spec),
+              OptimizationConf(learning_method="adam", learning_rate=LR_B),
+              params=params_from_numpy(np_params, "cuda"), device="cuda")
+    costs, stamps = [], []
+
+    def on_event(e):
+        if isinstance(e, EndIteration):
+            costs.append(e.cost)
+            stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    for n in fa.COUNTERS:
+        setattr(fa, n, 0)
+    t0 = time.perf_counter()
+    sgd.train(reader=lambda: iter([batch] * LM_D256_STEPS), feeder=lm_feed,
+              num_passes=1, event_handler=on_event)
+    torch.cuda.synchronize()
+    launched = {n: getattr(fa, n) for n in fa.COUNTERS if getattr(fa, n)}
+    assert launched == dict.fromkeys(
+        DSPLIT_FORMS[False], spec.num_layers * LM_D256_STEPS), (
+        f"28(b): flash launches {launched}")
+    steady = float(np.median(np.diff(stamps))) * 1e3
+    r = {"held": held, "steps": LM_D256_STEPS,
+         "wall_s": time.perf_counter() - t0, "ms_per_step_median": steady,
+         "ms_first_step": (stamps[0] - t0) * 1e3,
+         "train_tokens_per_s": int(ragged.sum()) / (steady / 1e3),
+         "loss_first": costs[0], "loss_last": costs[-1],
+         "launches": launched}
+    print("train lm_d256_b8_t1024 " + json.dumps(r), flush=True)
+    assert np.isfinite(costs).all(), "28(b): a loss is not finite"
+    assert costs[-1] < costs[0], f"28(b): loss rose: {costs}"
+    prof = profile_steps(torch, sgd, lm_feed(batch), steps=2)
+    if prof is not None:
+        prof["idle_share"] = 1 - prof["device_ms_per_step"] / steady
+    print("profile lm_d256_b8_t1024 " + json.dumps(prof), flush=True)
+    return r
+
+
+def train_longctx_d256(torch, fa):
+    """28(c): bench_longctx's conf at d 1024, 4 heads under the bf16
+    flag, flash against dense: 6d's held step and LONGCTX_D256_STEPS
+    steps an arm at B = 4, T = 4096 (6d's bounds), the flash arm through
+    the bf16 D-split forms only. Returns ((held), (run))."""
+    np_params = longctx_params(torch, LONGCTX_D256)
+    B, T = 4, 4096
+    forms = DSPLIT_FORMS[True]
+    held = longctx_held_step(
+        torch, fa, np_params,
+        longctx_feed(B, T, LONGCTX_D256["classes"], LONGCTX_D256["vocab"]),
+        cfg=LONGCTX_D256, forms=forms)
+    # longctx_train holds its windows' launches of every flash form to
+    # `forms`, once a layer a step (its profiles launch more)
+    for n in fa.COUNTERS:
+        setattr(fa, n, 0)
+    run = longctx_train(torch, fa, np_params, B, T, LONGCTX_D256_STEPS,
+                        cfg=LONGCTX_D256, forms=forms)
+    return held, run
+
+
+def head_dim_256(torch, fa):
+    """Phase 28: (a), (b) and (c), each with every flash counter zeroed
+    just before it and read just after. Returns {path: numbers}."""
+    out = {}
+    phase("28a. the served LM at d_model 1024, 4 heads (head dim 256)")
+    out["a"] = serve_d256(torch, fa)
+    phase("28b. LM (b) at d_model 1024, 4 heads through SGD (f32)")
+    out["b"] = train_lm_d256(torch, fa)
+    torch.cuda.empty_cache()
+    phase("28c. the long-context trainer at d 1024, 4 heads under the "
+          "bf16 flag, flash vs dense")
+    out["c"] = train_longctx_d256(torch, fa)
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 29: the Fluid-style op framework (ROADMAP A12) ---------------
+
+# the reference's MLP on MNIST-sized rows, and a one-memory RNN step net
+FW_MLP = dict(batch=128, inputs=784, classes=10, steps=20, lr=0.5)
+FW_RNN = dict(T=16, batch=64, inputs=128, hidden=256)
+
+
+def fw_mlp(F, G):
+    """The MLP as an op net (mul, rowwise_add, sigmoid, softmax,
+    onehot_cross_entropy, mean), its backward() net and the sgd ops on w
+    and b, as one training step net."""
+    net = F.NetOp()
+    net.add_op("mul", {"X": "x", "Y": "w"}, {"Out": "xw"})
+    net.add_op("rowwise_add", {"X": "xw", "b": "b"}, {"Out": "z"})
+    net.add_op("sigmoid", {"X": "z"}, {"Y": "h"})
+    net.add_op("softmax", {"X": "h"}, {"Y": "p"})
+    net.add_op("onehot_cross_entropy", {"X": "p", "label": "label"},
+               {"Y": "ce"})
+    net.add_op("mean", {"X": "ce"}, {"Out": "loss"})
+    net.complete_add_op()
+    bwd = F.backward(net, no_grad={"x", "label"}, seeded={"loss"})
+    step = F.NetOp()
+    for o in net.ops + bwd.ops:
+        step.append_op(o)
+    for p in ("w", "b"):
+        step.add_op("sgd", {"param": p, "grad": p + G}, {"param_out": p},
+                    {"learning_rate": FW_MLP["lr"]})
+    step.complete_add_op()
+    return net, bwd, step
+
+
+def fw_data(torch, dev):
+    """The MLP's data and weights from a seed: labels a linear teacher's
+    argmax, so the loss can fall."""
+    rng = np.random.default_rng(SEED + 29)
+    n, d, c = FW_MLP["batch"], FW_MLP["inputs"], FW_MLP["classes"]
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    teacher = rng.standard_normal((d, c)).astype(np.float32)
+    vals = {"x": x, "label": np.argmax(x @ teacher, 1).astype(np.int32),
+            "w": (rng.standard_normal((d, c)) / np.sqrt(d)).astype(
+                np.float32),
+            "b": np.zeros(c, np.float32)}
+    return {k: torch.from_numpy(v).to(dev) for k, v in vals.items()}
+
+
+def fw_eager(torch, F, G, dev, steps):
+    """`steps` eager steps op by op; returns (losses, w, b, grads of the
+    first step)."""
+    net, bwd, _step = fw_mlp(F, G)
+    scope = F.Scope(device=dev)
+    for k, v in fw_data(torch, dev).items():
+        scope.set(k, v)
+    one = torch.tensor(1.0, device=dev)
+    upd = F.NetOp()
+    for p in ("w", "b"):
+        upd.add_op("sgd", {"param": p, "grad": p + G}, {"param_out": p},
+                   {"learning_rate": FW_MLP["lr"]})
+    losses, first = [], None
+    for i in range(steps):
+        net.run(scope)
+        losses.append(scope.get("loss").clone())
+        scope.set("loss" + G, one)
+        bwd.run(scope)
+        if i == 0:
+            first = {n: scope.get(n + G).clone() for n in ("w", "b")}
+        upd.run(scope)
+    return torch.stack(losses), scope.get("w"), scope.get("b"), first
+
+
+def fw_graph(torch, F, G, steps):
+    """The same steps as `net_to_fn` of the step net captured as one
+    CUDA graph, replayed `steps` times with w and b written back."""
+    from paddle_tpu_torch.parallel.graph import no_gc
+
+    _net, _bwd, step = fw_mlp(F, G)
+    fn = F.net_to_fn(step, ["x", "label", "w", "b", "loss" + G],
+                     ["loss", "w", "b"])
+    d = fw_data(torch, "cuda")
+    static = [d["x"], d["label"], d["w"].clone(), d["b"].clone(),
+              torch.tensor(1.0, device="cuda")]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static)                       # warm-up, outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with no_gc(), torch.cuda.graph(graph):
+        outs = fn(*static)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        graph.replay()
+        losses.append(outs[0].clone())
+        static[2].copy_(outs[1])
+        static[3].copy_(outs[2])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return torch.stack(losses), static[2], static[3], ms
+
+
+def fw_rnn(torch, F, dev):
+    """The one-memory RNN step net over T = 16: eager (per-step scopes)
+    and through scan_fn, its grad op and torch.autograd over scan_fn;
+    returns the numbers on `dev`."""
+    step = F.NetOp()
+    step.add_op("mul", {"X": "x", "Y": "W"}, {"Out": "xw"})
+    step.add_op("mul", {"X": "h_pre", "Y": "U"}, {"Out": "hu"})
+    step.add_op("add", {"X": "xw", "Y": "hu"}, {"Out": "z"})
+    step.add_op("sigmoid", {"X": "z"}, {"Y": "h"})
+    step.complete_add_op()
+    op = F.RecurrentOp(stepnet=step, inlinks=["x"], outlinks=["h"],
+                       memories=[F.MemoryAttr(var="h", pre_var="h_pre",
+                                              boot_var="h0")])
+    rng = np.random.default_rng(SEED + 30)
+    t, b, i, h = (FW_RNN[k] for k in ("T", "batch", "inputs", "hidden"))
+    vals = {"x": rng.standard_normal((t, b, i)),
+            "W": rng.standard_normal((i, h)) / np.sqrt(i),
+            "U": rng.standard_normal((h, h)) / np.sqrt(h),
+            "h0": np.zeros((b, h))}
+    vals = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+            for k, v in vals.items()}
+    scope = F.Scope(device=dev)
+    for k, v in vals.items():
+        scope.set(k, v)
+    op.run(scope)
+    eager = scope.get("h")
+    scope.set("h@GRAD", torch.ones_like(eager))
+    op.build_grad_op().run(scope)
+    names = ("W", "U", "h0", "x")
+    grad_op = {n: scope.get(n + "@GRAD") for n in names}
+    xs = [vals[n].clone().requires_grad_(True) for n in names]
+    (scan,) = op.scan_fn(op.extern_names())(xs[:2], [xs[2]], [xs[3]])
+    auto = dict(zip(names, torch.autograd.grad(scan.sum(), xs)))
+    return {"eager": eager, "scan": scan.detach(), "grad_op": grad_op,
+            "autograd": auto}
+
+
+def fw_card_default(torch, F):
+    """The reference op tests' pattern with no device named anywhere:
+    gaussian_random weights into mul with a numpy x, both on the card
+    (the scope's default); then the v2 op-test harness (an OpTestMeta
+    case and GradientChecker.check_grad of mul), which runs each op on
+    the CPU and on the card. Returns mul's error against x @ w on the
+    CPU."""
+    import io
+    import unittest
+
+    from paddle_tpu_torch.compat.v2_framework import core
+    from paddle_tpu_torch.compat.v2_framework import gradient_checker as gc
+    from paddle_tpu_torch.compat.v2_framework.op_test_util import OpTestMeta
+
+    rng = np.random.default_rng(SEED + 31)
+    x = rng.standard_normal((32, 64)).astype(np.float32)
+    scope = F.Scope()
+    scope.set("x", x)
+    net = F.NetOp()
+    net.add_op("gaussian_random", {}, {"Out": "w"}, dict(dims=[64, 16],
+                                                         seed=3))
+    net.add_op("mul", {"X": "x", "Y": "w"}, {"Out": "y"})
+    net.run(scope)
+    w, y = scope.get("w"), scope.get("y")
+    assert w.is_cuda and y.is_cuda, (w.device, y.device)
+    err = rel_err(y.cpu(), torch.from_numpy(x) @ w.cpu())[0]
+
+    a = rng.uniform(0.1, 1, (8, 12)).astype(np.float32)
+    b = rng.uniform(0.1, 1, (12, 5)).astype(np.float32)
+
+    class MulOp(unittest.TestCase, metaclass=OpTestMeta):
+        def setUp(self):
+            self.type = "mul"
+            self.inputs = {"X": a, "Y": b}
+            self.outputs = {"Out": a @ b}
+
+    class MulGrad(gc.GradientChecker):
+        def test_mul(self):
+            self.check_grad(gc.create_op("mul"), {"X": a, "Y": b},
+                            {"X", "Y"}, "Out", max_relative_error=0.01)
+
+    assert core.is_compile_gpu()
+    suite = unittest.TestSuite(
+        [unittest.defaultTestLoader.loadTestsFromTestCase(c)
+         for c in (MulOp, MulGrad)])
+    res = unittest.TextTestRunner(stream=io.StringIO()).run(suite)
+    assert res.wasSuccessful() and res.testsRun == 2, (
+        f"29: the op-test harness failed: {res.failures + res.errors}")
+    return err
+
+
+def op_framework(torch):
+    """Phase 29: the op framework on the card. The MLP trained
+    FW_MLP["steps"] steps eagerly, op by op (the loss falls); the same
+    steps through `net_to_fn` captured as a CUDA graph, bit-equal to the
+    eager steps; the first step's loss, gradients and update within TOL
+    of the port on the CPU; the RNN eager and through scan_fn equal on
+    the card, its grad op within TOL of autograd over scan_fn, and both
+    within TOL of the CPU; random weights into mul with a numpy input
+    and the v2 op-test harness on the card with no device named
+    (`fw_card_default`). Returns the numbers."""
+    from paddle_tpu_torch import framework as F
+
+    G = F.GRAD_SUFFIX
+    steps = FW_MLP["steps"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, w, b, first = fw_eager(torch, F, G, "cuda", steps)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / steps
+    g_losses, gw, gb, graph_ms = fw_graph(torch, F, G, steps)
+    c_losses, cw, cb, cfirst = fw_eager(torch, F, G, "cpu", 1)
+    rnn, rnn_cpu = fw_rnn(torch, F, "cuda"), fw_rnn(torch, F, "cpu")
+    card_default_err = fw_card_default(torch, F)
+    r = {"loss_first": losses[0].item(), "loss_last": losses[-1].item(),
+         "eager_ms_per_step": eager_ms, "graph_ms_per_step": graph_ms,
+         "graph_bit_equal": bool(torch.equal(losses, g_losses)
+                                 and torch.equal(w, gw)
+                                 and torch.equal(b, gb)),
+         "first_step_vs_cpu": max(
+             [abs(losses[0].item() - c_losses[0].item())
+              / abs(c_losses[0].item())]
+             + [rel_err(first[n].cpu(), cfirst[n])[0] for n in ("w", "b")]),
+         "rnn_scan_equals_eager": bool(torch.equal(rnn["scan"],
+                                                   rnn["eager"])),
+         "rnn_grad_op_vs_autograd": max(
+             rel_err(rnn["grad_op"][n], rnn["autograd"][n])[0]
+             for n in rnn["grad_op"]),
+         "rnn_vs_cpu": max(
+             [rel_err(rnn["eager"].cpu(), rnn_cpu["eager"])[0]]
+             + [rel_err(rnn["grad_op"][n].cpu(), rnn_cpu["grad_op"][n])[0]
+                for n in rnn["grad_op"]]),
+         "numpy_mul_on_card_vs_cpu": card_default_err}
+    print("op framework " + json.dumps(r), flush=True)
+    assert torch.isfinite(losses).all() and r["loss_last"] < r["loss_first"], (
+        f"29: the MLP's loss did not fall: {losses.tolist()}")
+    assert r["graph_bit_equal"], "29: the graph's steps differ from eager"
+    assert r["first_step_vs_cpu"] <= TOL, f"29: card vs CPU {r}"
+    assert r["rnn_scan_equals_eager"], "29: the RNN's scan differs"
+    assert r["rnn_grad_op_vs_autograd"] <= TOL, f"29: RNN grads {r}"
+    assert r["rnn_vs_cpu"] <= TOL, f"29: RNN card vs CPU {r}"
+    assert r["numpy_mul_on_card_vs_cpu"] <= TOL, f"29: numpy mul {r}"
+    return r
+
+
 def sparse_kernel_rows(checks, times, standalone, wide_deep, tier, slice24,
                        slice26):
     """The B9 kernels' rows of the kernels line, at the standalone bench
@@ -10620,6 +11290,55 @@ def sparse_kernel_rows(checks, times, standalone, wide_deep, tier, slice24,
             launches["sparse_row_gather_launches"], generic_rules),
         row("sparse_row_scatter", generic, "scatter_ms", "scatter_bound_ms",
             launches["sparse_row_scatter_launches"], generic_rules),
+    ]
+
+
+def dsplit_kernel_rows(dsplit, slice28):
+    """The D-split forms' rows of the kernels line: f32 at phase 28's
+    shapes (the forward at (a)'s longest prefill, dkv and dq at (b)'s
+    batch), bf16 at (c)'s; max_abs_err over phase 3c's cases of the form;
+    bound_ms the function's (unsplit), split_bound_ms the D-split's as it
+    runs (S recomputed per chunk). Launches: phase 28's runs."""
+    paths = dsplit["paths"]
+    b, c = slice28["b"]["launches"], slice28["c"][1]["flash"]["launches"]
+
+    def row(name, form, at, bf16, launched, keys):
+        r = paths[at]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_dsplit.cuh",
+            "replaces": "paddle_tpu/parallel/ring.py:265",
+            "launches": launched,
+            "max_abs_err": max(x["max_abs_err"][k]
+                               for x in dsplit["checks"]
+                               if (x["dtype"] == "bf16") == bf16
+                               for k in keys),
+            "ms": r[f"{form}_ms"],
+            "plain_ms": r[f"plain_{'fwd' if form == 'fwd' else 'bwd'}_ms"],
+            "bound_ms": r[f"{form}_bound_ms"],
+            "bound_by": r[f"{form}_bound_by"],
+            "split_bound_ms": r[f"{form}_split_bound_ms"],
+            "library_ms": r[f"library_{'fwd' if form == 'fwd' else 'bwd'}"
+                            "_ms"],
+            "at": r["name"],
+        }
+
+    fwd32, dkv32, dq32 = DSPLIT_FORMS[False]
+    fwd16, dkv16, dq16 = DSPLIT_FORMS[True]
+    return [
+        row("flash_attn_fwd_dsplit", "fwd", "served", False,
+            slice28["a"][fwd32] + b[fwd32], ("out",)),
+        row("flash_attn_bwd_dkv_dsplit", "dkv", "lm", False, b[dkv32],
+            ("dk", "dv")),
+        row("flash_attn_bwd_dq_dsplit", "dq", "lm", False, b[dq32],
+            ("dq",)),
+        row("flash_attn_fwd_dsplit_bf16", "fwd", "longctx", True, c[fwd16],
+            ("out",)),
+        row("flash_attn_bwd_dkv_dsplit_bf16", "dkv", "longctx", True,
+            c[dkv16], ("dk", "dv")),
+        row("flash_attn_bwd_dq_dsplit_bf16", "dq", "longctx", True,
+            c[dq16], ("dq",)),
     ]
 
 
@@ -10727,8 +11446,14 @@ def main() -> int:
     results_bf16 = [check_kernel_bf16(torch, fa, c, gen)
                     for c in cases + [LONGCTX_SHAPE] + BF16_EDGE_SHAPES]
 
+    phase("3c. the flash kernels' D-split forms (head dim > 128) vs their "
+          "plain versions")
+    dsplit = dsplit_kernels(torch, fa, gen)
+
     phase("4. serve the paged LM through the port")
-    launches = serve_lm(torch, fa)
+    served = serve_lm(torch, fa)
+    assert list(served) == ["launches"], f"4: flash forms {served}"
+    launches = served["launches"]
 
     phase("5. flash backward kernels vs plain version")
     for line in _build.build_log(fa.BWD_KERNEL).splitlines():
@@ -10897,7 +11622,18 @@ def main() -> int:
         shutil.rmtree(v1_work, ignore_errors=True)
     print(smi, flush=True)
 
-    phase("28. result")
+    phase("28. head dim 256 on the main paths: (a) serving, (b) f32 LM "
+          "training, (c) bf16 long-context training, through the D-split "
+          "forms")
+    print(smi, flush=True)
+    slice28 = head_dim_256(torch, fa)
+    print(smi, flush=True)
+
+    phase("29. the Fluid-style op framework: the MLP op net eagerly and as "
+          "a CUDA graph, a RecurrentOp eagerly and through scan_fn")
+    op_framework(torch)
+
+    phase("30. result")
     served = results[0]
     train = bwd[0]
     print(f"flash_attn_fwd launches: serving {launches}, training "
@@ -11178,7 +11914,8 @@ def main() -> int:
         gru_grid_row("gru_seq_fwd_grid", 724, "fwd", "gru_fwd_grid_launches"),
         gru_grid_row("gru_seq_bwd_grid", 657, "bwd", "gru_bwd_grid_launches"),
         *sparse_kernel_rows(sparse_checks, sparse_times, standalone,
-                            wide_deep, tier, slice24, slice26)]}),
+                            wide_deep, tier, slice24, slice26),
+        *dsplit_kernel_rows(dsplit, slice28)]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,10 +21,11 @@ resolve lazily, on first use:
     reader = paddle.reader.batched(paddle.dataset.imdb.train(), 64)
 
 `Arg`, `Network`, `SGD`, `infer`, `dataset`, `reader`, `dsl`, `layers`,
-`models`, `optimizers`, `evaluators`, `inference` and `api` (the SWIG
-surface's thin views, `api.py`) are the port's modules, and
-`get_mesh` / `set_mesh` its mesh's (`core/mesh.py`). `plot`, `image`
-and `framework` are not ported yet and raise naming ROADMAP A12.
+`models`, `optimizers`, `evaluators`, `inference`, `api` (the SWIG
+surface's thin views, `api.py`) and `framework` (the Fluid-style op
+framework) are the port's modules, and `get_mesh` / `set_mesh` its
+mesh's (`core/mesh.py`). `plot` and `image` are not ported yet and
+raise naming ROADMAP A12.
 """
 
 __version__ = "0.1.0"
@@ -51,6 +52,7 @@ _LAZY = {
     "dataset": "paddle_tpu_torch.data.dataset",
     "reader": "paddle_tpu_torch.data.reader",
     "api": "paddle_tpu_torch.api",
+    "framework": "paddle_tpu_torch.framework",
 }
 
 
@@ -64,7 +66,6 @@ class NotPorted(NotImplementedError, AttributeError):
 _NOT_PORTED = {
     "plot": "A12",
     "image": "A12",
-    "framework": "A12",
 }
 
 

@@ -17,8 +17,9 @@ packages may live in one process): `parse_config` and
 namespace's `__builtins__` (`v1_builtins`), which maps
 `paddle.trainer_config_helpers`, `paddle.trainer.PyDataProvider2` and
 `paddle.trainer.config_parser` to the port's
-`compat/v1_namespace/` modules and refuses any other `paddle` module;
-every other name goes to the builtin import.
+`compat/v1_namespace/` modules, `paddle.v2.framework[.x]` (the
+reference's op-test namespace) to `compat/v2_framework/`, and refuses
+any other `paddle` module; every other name goes to the builtin import.
 
 Python-2-era configs are supported: `xrange` is injected into the exec
 namespace, and `load_provider_module` execs provider modules the same
@@ -108,19 +109,30 @@ V1_MODULES = {
         "paddle_tpu_torch.compat.v1_namespace.PyDataProvider2",
     "paddle.trainer.config_parser":
         "paddle_tpu_torch.compat.v1_namespace.config_parser",
+    **{"paddle.v2.framework" + sub:
+       "paddle_tpu_torch.compat.v2_framework" + sub
+       for sub in ("", ".core", ".op", ".default_scope_funcs",
+                   ".gradient_checker", ".op_test_util", ".tests",
+                   ".tests.gradient_checker", ".tests.op_test_util")},
 }
+# the packages above the mapped modules: an import binds stand-ins for
+# them (`paddle.v2` only on the way to `paddle.v2.framework`, which
+# refuses the rest of the v2 API)
+V1_PACKAGES = ("paddle", "paddle.trainer", "paddle.v2")
 
 
 def _v1_package(name: str) -> types.ModuleType:
-    """A stand-in for the package `name` ("paddle" or "paddle.trainer")
+    """A stand-in for the package `name` (one of V1_PACKAGES)
     whose attributes are the mapped modules under it."""
     pkg = types.ModuleType(name)
     for full, target in V1_MODULES.items():
         head, _, leaf = full.rpartition(".")
         if head == name:
             setattr(pkg, leaf, importlib.import_module(target))
-    if name == "paddle":
-        pkg.trainer = _v1_package("paddle.trainer")
+    for sub in V1_PACKAGES:
+        head, _, leaf = sub.rpartition(".")
+        if head == name:
+            setattr(pkg, leaf, _v1_package(sub))
     return pkg
 
 

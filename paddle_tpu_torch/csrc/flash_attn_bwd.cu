@@ -88,6 +88,7 @@
 
 #include <cuda_runtime.h>
 
+#include "flash_dsplit.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -576,7 +577,8 @@ cudaError_t prologue(int B, int Tq, int Tk, int H, int device) {
 }  // namespace
 
 // Plain C entry points, loaded with ctypes. D is 32, 64, 96 or 128 (the
-// wrapper pads any other D <= 128 with zero columns); q, k, v and dout
+// wrapper pads any other D <= 128 with zero columns), or a multiple of 64
+// above 128 (the D-split; the wrapper pads to it); q, k, v and dout
 // 16-byte aligned. kv_len and q_len may be null (no mask). Each launches one
 // kernel on `stream` of `device`, does not synchronise, and returns the
 // launch's cudaError_t (0 = launched). dk and dv are fully written (0 for
@@ -604,8 +606,11 @@ extern "C" int flash_attn_bwd_dkv(const float* q, const float* k,
     case 128:
       return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, kv_len,
                                   q_len, B, Tq, Tk, H, causal, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:   // D > 128, a multiple of 64: the D-split (flash_dsplit.cuh)
+      return (int)dsplit::launch_dkv<dsplit::F32>(q, k, v, dout, lse, delta,
+                                                  dk, dv, kv_len, q_len, B,
+                                                  Tq, Tk, H, D, causal, scale,
+                                                  st);
   }
 }
 
@@ -632,8 +637,10 @@ extern "C" int flash_attn_bwd_dq(const float* q, const float* k,
     case 128:
       return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, kv_len,
                                  q_len, B, Tq, Tk, H, causal, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:   // D > 128, a multiple of 64: the D-split (flash_dsplit.cuh)
+      return (int)dsplit::launch_dq<dsplit::F32>(q, k, v, dout, lse, delta,
+                                                 dq, kv_len, q_len, B, Tq, Tk,
+                                                 H, D, causal, scale, st);
   }
 }
 
@@ -1207,7 +1214,7 @@ cudaError_t launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
 
 // The bf16 forms' entry points: as flash_attn_bwd_dkv and flash_attn_bwd_dq,
 // with q, k, v, dout, dq, dk and dv bf16 (lse and delta f32), D in 32, 64,
-// 128 and scale >= 0 (the wrapper pads D = 96 and negates q for a negative
+// 128 or a multiple of 64 above 128 (the D-split) and scale >= 0 (the wrapper pads D = 96 and negates q for a negative
 // scale).
 extern "C" int flash_attn_bwd_dkv_bf16(const bf16* q, const bf16* k,
                                        const bf16* v, const bf16* dout,
@@ -1234,8 +1241,11 @@ extern "C" int flash_attn_bwd_dkv_bf16(const bf16* q, const bf16* k,
       return (int)launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv,
                                        kv_len, q_len, B, Tq, Tk, H, causal,
                                        scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:   // D > 128, a multiple of 64: the D-split (flash_dsplit.cuh)
+      return (int)dsplit::launch_dkv<dsplit::BF16>(q, k, v, dout, lse, delta,
+                                                   dk, dv, kv_len, q_len, B,
+                                                   Tq, Tk, H, D, causal,
+                                                   scale, st);
   }
 }
 
@@ -1260,7 +1270,10 @@ extern "C" int flash_attn_bwd_dq_bf16(const bf16* q, const bf16* k,
     case 128:
       return (int)launch_dq_bf16<128>(q, k, v, dout, lse, delta, dq, kv_len,
                                       q_len, B, Tq, Tk, H, causal, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:   // D > 128, a multiple of 64: the D-split (flash_dsplit.cuh)
+      return (int)dsplit::launch_dq<dsplit::BF16>(q, k, v, dout, lse, delta,
+                                                  dq, kv_len, q_len, B, Tq,
+                                                  Tk, H, D, causal, scale,
+                                                  st);
   }
 }

@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "flash_dsplit.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
@@ -377,7 +378,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. D is 32, 64, 96 or 128 (the
-// wrapper pads any other D <= 128 with zero columns); q, k, v 16-byte
+// wrapper pads any other D <= 128 with zero columns), or a multiple of 64
+// above 128 (the D-split; the wrapper pads to it); q, k, v 16-byte
 // aligned. kv_len and q_len may be null (no mask). Launches on `stream` of
 // `device`, does not synchronise, and returns the launch's cudaError_t
 // (0 = launched).
@@ -409,8 +411,10 @@ extern "C" int flash_attn_fwd(const float* q, const float* k, const float* v,
       err = launch<128>(q, k, v, out, lse, kv_len, q_len, B, Tq, Tk, H,
                         causal, scale, st);
       break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:   // D > 128, a multiple of 64: the D-split (flash_dsplit.cuh)
+      err = dsplit::launch_fwd<dsplit::F32>(q, k, v, out, lse, kv_len, q_len,
+                                            B, Tq, Tk, H, D, causal, scale,
+                                            st);
   }
   return (int)err;
 }
@@ -473,7 +477,8 @@ extern "C" const char* flash_attn_error_string(int code) {
 //   warpgroup zeroes V's rows from kv_len before P.V (K's give s that the
 //   mask replaces).
 // - No atomics, a fixed order: bit-identical from run to run.
-// D = 96 is not instantiated: ops/flash_attention.py pads it to 128.
+// D = 96 is not instantiated: ops/flash_attention.py pads it to 128. D > 128
+// runs the D-split of flash_dsplit.cuh.
 
 #include "hopper_wgmma.cuh"
 
@@ -730,8 +735,9 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v,
 }  // namespace
 
 // The bf16 form's entry point: as flash_attn_fwd, with q, k, v and out bf16
-// (lse f32), D in 32, 64, 128 and scale >= 0 (the wrapper pads D = 96 and
-// negates q for a negative scale).
+// (lse f32), D in 32, 64, 128 or a multiple of 64 above 128 (the D-split)
+// and scale >= 0 (the wrapper pads D = 96 and negates q for a negative
+// scale).
 extern "C" int flash_attn_fwd_bf16(const bf16* q, const bf16* k,
                                    const bf16* v, bf16* out, float* lse,
                                    const int* kv_len, const int* q_len, int B,
@@ -753,7 +759,9 @@ extern "C" int flash_attn_fwd_bf16(const bf16* q, const bf16* k,
     case 128:
       return (int)launch_bf16<128>(q, k, v, out, lse, kv_len, q_len, B, Tq,
                                    Tk, H, causal, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
+    default:   // D > 128, a multiple of 64: the D-split (flash_dsplit.cuh)
+      return (int)dsplit::launch_fwd<dsplit::BF16>(q, k, v, out, lse, kv_len,
+                                                   q_len, B, Tq, Tk, H, D,
+                                                   causal, scale, st);
   }
 }

@@ -14,15 +14,21 @@ backward calls (dkv and dq). The contract is the blocked oracle's,
   kv_len[b] are masked, and a query row at or past q_len[b] sees no
   key at all;
 - `scale`, default 1/sqrt(D);
-- any head dim D <= 128: the kernels instantiate D in KERNEL_HEAD_DIMS
-  (the bf16 forms in BF16_KERNEL_HEAD_DIMS), and `flash_attention` /
+- any head dim D: up to 128 the kernels instantiate D in
+  KERNEL_HEAD_DIMS (the bf16 forms in BF16_KERNEL_HEAD_DIMS); above 128
+  they run the D-split (`csrc/flash_dsplit.cuh`: a grid axis over
+  chunks of the output's head dims, S recomputed over the whole D in
+  each, the D > 128 forms with counters of their own; COUNTERS names
+  all twelve)
+  at any multiple of SPLIT_HEAD_DIM. `flash_attention` /
   `flash_attention_bwd` pad another D with zero columns of q, k, v (and
-  dout) up to the next one and slice the padding off the results (zero
-  columns add nothing to q.k and give zero columns of out, dq, dk and
-  dv); `scale` stays that of the original D. The bf16 kernels' tiles
-  are TMA boxes of 32 or 64 columns, so a bf16 call at D = 96 runs at
-  128: a third more tensor-core work and bytes than D = 96 needs (no
-  model of the repo uses 96);
+  dout) up to the next dim the kernels take (`kernel_head_dim`) and
+  slice the padding off the results (zero columns add nothing to q.k
+  and give zero columns of out, dq, dk and dv); `scale` stays that of
+  the original D. The bf16 kernels' tiles are TMA boxes of 32 or 64
+  columns, so a bf16 call at D = 96 runs at 128: a third more
+  tensor-core work and bytes than D = 96 needs (no model of the repo
+  uses 96);
 - any `scale` (the bf16 kernels take the running max of q.k before
   scaling, so for a negative scale the wrapper hands them -q and -scale,
   which gives the same s exactly, and negates dq).
@@ -79,7 +85,7 @@ KERNEL = "flash_attn_fwd"
 BWD_KERNEL = "flash_attn_bwd"
 KERNEL_HEAD_DIMS = (32, 64, 96, 128)   # the dims the kernels instantiate
 BF16_KERNEL_HEAD_DIMS = (32, 64, 128)  # ... their bf16 forms
-MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+SPLIT_HEAD_DIM = 64   # above 128: the D-split takes multiples of this
 LSE_MASKED = 1e30
 
 # kernel launches since the last reset, one counter per kernel and form
@@ -91,8 +97,18 @@ bwd_dq_launches = 0         # backward, dq, f32
 bf16_launches = 0           # forward, bf16
 bwd_dkv_bf16_launches = 0   # backward, dk and dv, bf16
 bwd_dq_bf16_launches = 0    # backward, dq, bf16
+# ... and the D-split forms, at D > 128 (`csrc/flash_dsplit.cuh`)
+dsplit_launches = 0               # forward, f32
+bwd_dkv_dsplit_launches = 0       # backward, dk and dv, f32
+bwd_dq_dsplit_launches = 0        # backward, dq, f32
+dsplit_bf16_launches = 0          # forward, bf16
+bwd_dkv_dsplit_bf16_launches = 0  # backward, dk and dv, bf16
+bwd_dq_dsplit_bf16_launches = 0   # backward, dq, bf16
 COUNTERS = ("launches", "bwd_dkv_launches", "bwd_dq_launches",
-            "bf16_launches", "bwd_dkv_bf16_launches", "bwd_dq_bf16_launches")
+            "bf16_launches", "bwd_dkv_bf16_launches", "bwd_dq_bf16_launches",
+            "dsplit_launches", "bwd_dkv_dsplit_launches",
+            "bwd_dq_dsplit_launches", "dsplit_bf16_launches",
+            "bwd_dkv_dsplit_bf16_launches", "bwd_dq_dsplit_bf16_launches")
 
 
 def _visible(B, Tq, Tk, causal, kv_len, q_len, device):
@@ -255,12 +271,17 @@ def _check_lens(x, B, name, device):
 def kernel_head_dim(D, dims=KERNEL_HEAD_DIMS):
     """The head dim the kernels run a call of head dim D at: the
     smallest of `dims` (KERNEL_HEAD_DIMS, or BF16_KERNEL_HEAD_DIMS for
-    the bf16 forms) that is >= D."""
+    the bf16 forms) that is >= D; above them the D-split's, D rounded up
+    to a multiple of SPLIT_HEAD_DIM."""
     for d in dims:
         if D <= d:
             return d
-    raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}: the flash kernels "
-                     f"take head dims up to {MAX_HEAD_DIM}")
+    return -(-D // SPLIT_HEAD_DIM) * SPLIT_HEAD_DIM
+
+
+def is_split(D):
+    """Whether the kernels run head dim D (as padded) as a D-split."""
+    return D > KERNEL_HEAD_DIMS[-1]
 
 
 def pad_head_dim(x, dk):
@@ -298,9 +319,9 @@ def _head_dims(dtype):
 def _check_cuda(where, q, tensors, kernel_dims=True):
     """Validate the kernels' inputs on a CUDA device: every tensor
     contiguous, of q's dtype (f32 or bf16) and shape; returns the dims
-    (B, Tq, Tk, H, D). D must be one the kernels of q's dtype
-    instantiate (`_head_dims`), or with kernel_dims=False at most
-    MAX_HEAD_DIM (the caller pads it)."""
+    (B, Tq, Tk, H, D). With kernel_dims D must be one the kernels of q's
+    dtype take (`_head_dims`, or a multiple of SPLIT_HEAD_DIM above
+    them); without, any D (the caller pads it)."""
     if q.device.type != "cuda":
         raise ValueError(f"{where}: unsupported device {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -318,14 +339,11 @@ def _check_cuda(where, q, tensors, kernel_dims=True):
                 f"[{B},{t},{H},{D}] on {q.device}, got {x.dtype} "
                 f"{tuple(x.shape)} on {x.device}"
             )
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{where}: head dim {D} > {MAX_HEAD_DIM}: the "
-                         f"flash kernels take head dims up to "
-                         f"{MAX_HEAD_DIM}")
-    if kernel_dims and D not in _head_dims(q.dtype):
+    if kernel_dims and kernel_head_dim(D, _head_dims(q.dtype)) != D:
         raise ValueError(f"{where}: head dim {D} not in "
-                         f"{_head_dims(q.dtype)} (flash_attention pads "
-                         f"other dims)")
+                         f"{_head_dims(q.dtype)} nor a multiple of "
+                         f"{SPLIT_HEAD_DIM} above them (flash_attention "
+                         f"pads other dims)")
     return B, Tq, Tk, H, D
 
 
@@ -345,8 +363,9 @@ def _launch(lib, fn, *args):
 
 def _fwd_cuda(q, k, v, causal, kv_len, q_len, scale):
     """The forward op's CUDA implementation: the Hopper kernel of q's
-    dtype, any D <= 128 padded to the kernels' head dims."""
-    global launches, bf16_launches
+    dtype, any D padded to the kernels' head dims (the D-split above
+    128)."""
+    global launches, bf16_launches, dsplit_launches, dsplit_bf16_launches
     bf16 = _one_dtype("flash_attention", q=q, k=k, v=v) == torch.bfloat16
     B, Tq, Tk, H, D = _check_cuda("flash_attention", q,
                                   {"q": q, "k": k, "v": v},
@@ -365,7 +384,12 @@ def _fwd_cuda(q, k, v, causal, kv_len, q_len, scale):
             lse.data_ptr(), _build.ptr(kv_len), _build.ptr(q_len), B, Tq,
             Tk, H, dk, int(bool(causal)), scale,
             *_build.device_and_stream(q))
-    if bf16:
+    if is_split(dk):
+        if bf16:
+            dsplit_bf16_launches += 1
+        else:
+            dsplit_launches += 1
+    elif bf16:
         bf16_launches += 1
     else:
         launches += 1
@@ -383,9 +407,6 @@ def _fwd_cpu(q, k, v, causal, kv_len, q_len, scale):
 def _fwd_fake(q, k, v, causal, kv_len, q_len, scale):
     _one_dtype("flash_attention", q=q, k=k, v=v)
     B, Tq, H, D = q.shape
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}: the flash "
-                         f"kernels take head dims up to {MAX_HEAD_DIM}")
     return q.new_empty(q.shape), q.new_empty((B, H, Tq), dtype=torch.float32)
 
 
@@ -422,6 +443,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
     """(dk, dv) from the dkv kernel of q's dtype (CUDA tensors only);
     `delta` is sum_d dout * out, [B, H, Tq] f32."""
     global bwd_dkv_launches, bwd_dkv_bf16_launches
+    global bwd_dkv_dsplit_launches, bwd_dkv_dsplit_bf16_launches
     lib, q, lens, dims, _ = _bwd_launch_args(
         "flash_attention_bwd_dkv", q, k, v, dout, lse, delta, causal,
         kv_len, q_len, scale)
@@ -432,7 +454,12 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal=False,
     _launch(lib, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), *lens, *dims)
-    if bf16:
+    if is_split(q.shape[-1]):
+        if bf16:
+            bwd_dkv_dsplit_bf16_launches += 1
+        else:
+            bwd_dkv_dsplit_launches += 1
+    elif bf16:
         bwd_dkv_bf16_launches += 1
     else:
         bwd_dkv_launches += 1
@@ -443,6 +470,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
                            kv_len=None, q_len=None, scale=None):
     """dq from the dq kernel of q's dtype (CUDA tensors only)."""
     global bwd_dq_launches, bwd_dq_bf16_launches
+    global bwd_dq_dsplit_launches, bwd_dq_dsplit_bf16_launches
     lib, q, lens, dims, flipped = _bwd_launch_args(
         "flash_attention_bwd_dq", q, k, v, dout, lse, delta, causal,
         kv_len, q_len, scale)
@@ -452,7 +480,12 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
     _launch(lib, fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), *lens, *dims)
-    if bf16:
+    if is_split(q.shape[-1]):
+        if bf16:
+            bwd_dq_dsplit_bf16_launches += 1
+        else:
+            bwd_dq_dsplit_launches += 1
+    elif bf16:
         bwd_dq_bf16_launches += 1
     else:
         bwd_dq_launches += 1
@@ -462,7 +495,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal=False,
 def _bwd_cuda(which, q, k, v, dout, lse, delta, causal, kv_len, q_len,
               scale):
     """The backward ops' CUDA implementation: the dkv or dq kernel of
-    q's dtype, any D <= 128 padded to the kernels' head dims."""
+    q's dtype, any D padded to the kernels' head dims (the D-split above
+    128)."""
     _one_dtype(f"flash_attention_bwd_{which}", q=q, k=k, v=v, dout=dout)
     D = _check_cuda(f"flash_attention_bwd_{which}", q,
                     {"q": q, "dout": dout, "k": k}, kernel_dims=False)[-1]

@@ -713,6 +713,8 @@ class AsyncCheckpointer:
         self._err_lock = named_lock("ckpt.error")
         self._last_error: Exception | None = None
         self._verified: set = set()  # pass ids already proven complete
+        # a pass enqueued on a mesh since the last wait()
+        self._mesh_pass_pending = False
         self._thread = threading.Thread(
             target=self._worker, name="async-ckpt-writer", daemon=True
         )
@@ -756,6 +758,9 @@ class AsyncCheckpointer:
             tree["state"] = state
         with self._snap_lock:
             payload = snapshot_shards(tree, shards)
+        # on a mesh the pass is complete only once every rank's shard and
+        # rank 0's manifest exist: wait() then meets the other ranks
+        self._mesh_pass_pending |= process_count() > 1
         self._q.put(("pass", pass_id, payload, dict(meta or {})))
 
     def save_table(self, generation: int, payloads, meta=None) -> None:
@@ -851,10 +856,35 @@ class AsyncCheckpointer:
                 )
 
     # ---- draining ----
+    def drain(self) -> None:
+        """Block until this process's enqueued saves have committed;
+        raise the first background write error if one occurred. It
+        never meets the other ranks of a mesh: the drain of a rank that
+        unwinds on its own (an error, a preemption) while the others
+        may sit in another collective. A pass saved on a mesh may then
+        still lack another rank's shard or rank 0's manifest."""
+        self._q.join()
+        self._raise_if_failed()
+
     def wait(self) -> None:
         """Block until every enqueued save has committed; raise the
-        first background write error if one occurred."""
+        first background write error if one occurred.
+
+        On a mesh every rank saves a pass and writes only its own shard
+        (rank 0 also the manifest), so draining this rank's writer is
+        not enough: after a pass was saved on more than one process,
+        the ranks meet at a barrier of the world once each has drained
+        its writer. Every rank then sees the pass complete
+        (`latest_complete_pass`) when wait() returns. Every rank that
+        saved must call wait() at the same point of its program, as it
+        called save(); a rank whose write failed still meets the others
+        before it raises. A rank that unwinds alone calls drain()."""
         self._q.join()
+        if self._mesh_pass_pending:
+            import torch.distributed as dist
+
+            self._mesh_pass_pending = False
+            dist.barrier()
         self._raise_if_failed()
 
     def close(self) -> None:

@@ -610,13 +610,17 @@ class SGD:
         finally:
             # drain in-flight async writes on every exit path, so a
             # background failure surfaces here; when already unwinding,
-            # a drain failure must not mask the training error
+            # a drain failure must not mask the training error. Only
+            # the success path, which every rank of a mesh takes
+            # together, meets the other ranks (wait); a rank unwinding
+            # alone drains its own writer, never waiting in a
+            # collective the others are not in
             if save_dir and ckpt_mode == "async":
                 if ok:
                     self._async_ckpt.wait()
                 else:
                     try:
-                        self._async_ckpt.wait()
+                        self._async_ckpt.drain()
                     except Exception:
                         log.exception(
                             "async checkpoint drain failed while handling "
@@ -790,7 +794,9 @@ class SGD:
                 self._async_ckpt.save(pass_id, self.params, self.opt_state,
                                       self.state, meta=meta,
                                       shards=self._shards())
-                self._async_ckpt.wait()
+                # each rank sees the signal at its own batch boundary:
+                # no meeting of the ranks here (drain, not wait)
+                self._async_ckpt.drain()
             else:
                 self._save_sync(save_dir, pass_id, meta)
         _obs.get_registry().counter("trainer.preemptions").inc()

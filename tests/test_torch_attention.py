@@ -200,6 +200,28 @@ def test_lse_matches_jax_blocked_fwd(name):
         assert (ref_lse[~vis] == 1e30).all()
 
 
+@pytest.mark.parametrize("D", [160, 256, 384])
+def test_plain_matches_jax_blocked_past_head_dim_128(D):
+    """Head dims the JAX package's kernel takes and the port runs as a
+    D-split on the card (`csrc/flash_dsplit.cuh`): the plain forward,
+    the kernels' reference, against the JAX blocked path (out within
+    1e-5 of the largest entry) and its lse (`_blocked_fwd`, 1e-5)."""
+    needs_jax()
+    case = (2, 45, 45, 2, D, True, [45, 28], None)
+    q, k, v, causal, kv, ql = _inputs(case, seed=D)
+    out, lse = _port(q, k, v, causal, kv, ql)
+    kvj = jnp.asarray(kv)
+    ref = np.asarray(jring.flash_dense_attention(
+        q, k, v, causal=causal, kv_len=kvj, impl="blocked"))
+    assert np.abs(out - ref).max() <= ATOL * np.abs(ref).max()
+    kbias = np.where(np.arange(45)[None, :] >= kv[:, None],
+                     np.float32(jring.NEG_INF), 0.0).astype(np.float32)
+    _o, ref_lse = jring._blocked_fwd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(kbias), causal, 1.0 / np.sqrt(D), 16)
+    np.testing.assert_allclose(lse, np.asarray(ref_lse), atol=ATOL)
+
+
 def test_port_ring_matches_jax_ring():
     """The port's ring.dense_attention is the JAX one (fully-masked
     rows included: both attend uniformly there), and its
@@ -255,12 +277,17 @@ def test_padded_head_dim_gives_the_unpadded_result(D):
 
 
 def test_kernel_head_dims():
-    """D <= 128 runs at the next instantiated dim; D > 128 raises."""
+    """D <= 128 runs at the next instantiated dim; D > 128 runs as a
+    D-split at the next multiple of SPLIT_HEAD_DIM (64), in both
+    dtypes' forms."""
     assert [fa.kernel_head_dim(d) for d in (1, 32, 33, 64, 65, 96, 97,
                                             128)] == [32, 32, 64, 64, 96,
                                                       96, 128, 128]
-    with pytest.raises(ValueError, match="head dim 129 > 128"):
-        fa.kernel_head_dim(129)
+    for dims in (fa.KERNEL_HEAD_DIMS, fa.BF16_KERNEL_HEAD_DIMS):
+        assert [fa.kernel_head_dim(d, dims) for d in (
+            129, 160, 192, 193, 256, 257, 384)] == [
+            192, 192, 192, 256, 256, 320, 384]
+    assert [fa.is_split(d) for d in (128, 192)] == [False, True]
 
 
 def _tf32(x):
@@ -683,7 +710,9 @@ class TestOnCard:
         again = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         after = [getattr(fa, n) for n in fa.COUNTERS]
-        assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 2, 0, 0]
+        # only the bf16 forward (no D-split form)
+        assert [a - b for a, b in zip(after, before)] == \
+            [0, 0, 0, 2] + [0] * 8
         assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
         ref_out, ref_lse = fa.attention_plain_bf16(q, k, v, **kw)
         assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
@@ -719,7 +748,9 @@ class TestOnCard:
         again = fa.flash_attention(q, kn, vn, **kw)
         torch.cuda.synchronize()
         after = [getattr(fa, n) for n in fa.COUNTERS]
-        assert [a - b for a, b in zip(after, before)] == [0, 0, 0, 2, 0, 0]
+        # only the bf16 forward (no D-split form)
+        assert [a - b for a, b in zip(after, before)] == \
+            [0, 0, 0, 2] + [0] * 8
         assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
         assert torch.isfinite(out).all()
         ref_out, ref_lse = fa.attention_plain_bf16(q, k, v, **kw)

@@ -79,16 +79,16 @@ def _bn_bwd(rng, dtype=torch.float32, res=True):
         rng, w.shape[1])
 
 
-def _attn(rng, dtype=torch.float32, grad=False):
-    b, t, h, d = 2, 6, 2, 8
+def _attn(rng, dtype=torch.float32, grad=False, d=8):
+    b, t, h = 2, 6, 2
     q, k, v = (_f32(rng, b, t, h, d).to(dtype) for _ in range(3))
     if grad:
         q, k, v = (x.requires_grad_(True) for x in (q, k, v))
     return q, k, v
 
 
-def _attn_bwd(rng, dtype=torch.float32):
-    q, k, v = _attn(rng, dtype)
+def _attn_bwd(rng, dtype=torch.float32, d=8):
+    q, k, v = _attn(rng, dtype, d=d)
     kv_len = torch.tensor([6, 4], dtype=torch.int32)
     out, lse = fa.attention_plain(q, k, v, True, kv_len)
     dout = _f32(rng, *q.shape).to(dtype)
@@ -150,6 +150,14 @@ def _cases():
         for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
             out.append((name, d, (q, k, v, dout, lse, delta, True, kvl, None,
                                   None)))
+        # a head dim the card runs as a D-split (> 128)
+        out.append(("flash_attention_fwd", f"{d}_d160_causal_kvlen",
+                    (*_attn(rng, dtype, grad=True, d=160), True, kv, None,
+                     None)))
+        q, k, v, dout, lse, delta, kvl = _attn_bwd(rng, dtype, d=160)
+        for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+            out.append((name, f"{d}_d160", (q, k, v, dout, lse, delta, True,
+                                            kvl, None, None)))
     x, w, b7 = _lstm(rng, grad=True)
     out.append(("lstm_seq_fwd", "train", (x, w, b7, LENS, True, None)))
     out.append(("lstm_seq_fwd", "infer", (*(t.detach() for t in (x, w, b7)),

@@ -335,8 +335,15 @@ def test_api_resolves_to_the_ports_api_module():
     assert api.SequenceGenerator.__module__ == "paddle_tpu_torch.api"
 
 
-@pytest.mark.parametrize("name,item", [
-    ("plot", "A12"), ("image", "A12"), ("framework", "A12")])
+def test_framework_resolves_to_the_ports_op_framework():
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import framework
+
+    assert paddle.framework is framework and hasattr(paddle, "framework")
+    assert framework.NetOp.__module__ == "paddle_tpu_torch.framework.op"
+
+
+@pytest.mark.parametrize("name,item", [("plot", "A12"), ("image", "A12")])
 def test_names_not_ported_raise_naming_their_item(name, item):
     import paddle_tpu_torch as paddle
 

@@ -652,3 +652,53 @@ def test_v1_entry_points_refuse_the_cpu_unless_asked(monkeypatch, tmp_path):
     assert capi_bridge._HANDLES[h].device.type == "cpu"
     capi_bridge.destroy(h)
     assert swig_api.GradientMachine(conf, device="cpu").device.type == "cpu"
+
+
+FRAMEWORK_MODULES = [
+    "paddle_tpu_torch.framework", "paddle_tpu_torch.framework.scope",
+    "paddle_tpu_torch.framework.op", "paddle_tpu_torch.framework.ops",
+    "paddle_tpu_torch.framework.backward",
+    "paddle_tpu_torch.framework.recurrent",
+    "paddle_tpu_torch.compat.v2_framework",
+    "paddle_tpu_torch.compat.v2_framework.core",
+    "paddle_tpu_torch.compat.v2_framework.op",
+    "paddle_tpu_torch.compat.v2_framework.default_scope_funcs",
+    "paddle_tpu_torch.compat.v2_framework.gradient_checker",
+    "paddle_tpu_torch.compat.v2_framework.op_test_util",
+    "paddle_tpu_torch.compat.v2_framework.tests",
+    "paddle_tpu_torch.compat.v2_framework.tests.gradient_checker",
+    "paddle_tpu_torch.compat.v2_framework.tests.op_test_util"]
+
+
+def test_op_framework_modules_import_with_jax_and_the_shim_blocked():
+    """The op framework and the port's `paddle.v2.framework` by name,
+    with jax, `paddle_tpu` and the repo-root `paddle` import-blocked: they
+    import, `paddle_tpu_torch.framework` resolves, an op net runs, and a
+    reference-style import through `v1_builtins` reaches the port's
+    namespace."""
+    for n in FRAMEWORK_MODULES:
+        rel = os.path.join(PKG, *n.split(".")[1:])
+        assert rel + ".py" in _port_files() or \
+            os.path.join(rel, "__init__.py") in _port_files(), n
+    blocked = set(FORBIDDEN) | {"paddle"}
+    code = BLOCKED_IMPORT.replace(
+        "for m in mods:", "mods = {names!r}\nfor m in mods:").format(
+        forbidden=blocked, names=FRAMEWORK_MODULES)
+    code += (
+        "import numpy as np\n"
+        "from paddle_tpu_torch.compat.config_parser import v1_builtins\n"
+        "ns = {'__builtins__': v1_builtins()}\n"
+        "exec('from paddle.v2.framework.op import Operator\\n'\n"
+        "     'import paddle.v2.framework.core as core', ns)\n"
+        "s = ns['core'].Scope(device='cpu')\n"
+        "s.set('x', np.ones((2, 3), np.float32))\n"
+        "ns['Operator']('scale', X='x', Out='y', scale=2.0).run(s)\n"
+        "assert float(s.get('y').sum()) == 12.0\n"
+        "assert paddle_tpu_torch.framework.NetOp\n"
+        f"assert not any(k.split('.')[0] in {blocked!r} "
+        "for k in sys.modules)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split()[-1] == str(len(FRAMEWORK_MODULES))

@@ -571,3 +571,127 @@ def test_sgd_on_a_mesh_matches_the_jax_trainer(world2, tmp_path):
     assert meta["global_step"] == len(batches)
     for k, v in ranks[0]["params"].items():
         np.testing.assert_array_equal(tree["params"][k], v)
+
+
+HOLD_S = 3.0  # how long rank 0 holds its commit back at most
+
+
+def rank_async_wait_sees_the_pass(save_dir):
+    """Each rank saves pass 0 asynchronously and waits. Rank 0's writer
+    holds its shard and manifest back until rank 1 says its wait() has
+    returned (a marker file), or HOLD_S has passed. If wait() returned
+    on rank 1 before the pass was complete, rank 1 reads it incomplete;
+    with the ranks meeting after their writers drain, rank 1's wait()
+    cannot return while rank 0 holds, so rank 0 always runs out its
+    hold and rank 1 reads the pass complete."""
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    marker = os.path.join(save_dir, "rank1-returned")
+    ck = tactp.AsyncCheckpointer(save_dir)
+    held = {}
+    if rank == 0:
+        write = ck._write_shard
+
+        def held_write(*a, **kw):
+            end = time.monotonic() + HOLD_S
+            while not os.path.exists(marker) and time.monotonic() < end:
+                time.sleep(0.01)
+            held["rank1_returned_first"] = os.path.exists(marker)
+            return write(*a, **kw)
+
+        ck._write_shard = held_write
+    w = {"w": torch.ones(4, 3)}
+    ck.save(0, w, meta={"global_step": 1}, shards={})
+    ck.wait()
+    seen = tactp.latest_complete_pass(save_dir)
+    if rank == 1:
+        with open(marker, "w"):
+            pass
+    ck.wait()  # nothing enqueued since: no second meeting
+    ck.close()
+    return {"seen": seen, **held}
+
+
+def test_async_wait_on_a_mesh_returns_with_the_pass_complete(world2,
+                                                            tmp_path):
+    d = str(tmp_path / "ckpt")
+    import os
+
+    os.makedirs(d)
+    r0, r1 = world2.run(rank_async_wait_sees_the_pass, d)
+    assert r1["seen"] == 0, "rank 1's wait() returned before the pass was "\
+        "complete"
+    assert r0["seen"] == 0
+    assert r0["rank1_returned_first"] is False
+    tree, meta = tactp.load_pass(d)
+    assert meta["global_step"] == 1
+
+
+RAISE_WAIT_S = 10.0  # how long rank 0 waits for rank 1 to have raised
+
+
+class _Fault(Exception):
+    """A fault inside a training pass, on one rank."""
+
+
+def rank_raises_after_an_async_save(batches, save_dir):
+    """Pass 0 is saved asynchronously on both ranks; in pass 1 rank 1's
+    event handler raises after the first batch. Rank 0's, at the same
+    batch, waits for rank 1's train() to have raised (a marker file)
+    up to RAISE_WAIT_S, then raises too: meanwhile rank 0 sits in no
+    collective, as a rank still at work would not be in the one rank 1
+    calls. A rank that met the others on its way out would wait there
+    for rank 0 (RAISE_WAIT_S); one that drains its own writer raises at
+    once."""
+    import os
+    import time
+
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.core import mesh as tmesh
+
+    rank = dist.get_rank()
+    marker = os.path.join(save_dir, "rank1-raised")
+    sgd = TSGD(_conf("mlp", port=True), TOptConf(**OPT), device="cpu",
+               watchdog=False, mesh=tmesh.make_mesh({"data": -1}))
+    out = {}
+
+    def on(e):
+        if not (isinstance(e, EndIteration) and e.pass_id == 1):
+            return
+        if rank == 1:
+            out["t_fault"] = time.monotonic()
+            raise _Fault("rank 1")
+        end = time.monotonic() + RAISE_WAIT_S
+        while not os.path.exists(marker) and time.monotonic() < end:
+            time.sleep(0.01)
+        out["saw_rank1_raise"] = os.path.exists(marker)
+        raise _Fault("rank 0")
+
+    try:
+        sgd.train(_reader(batches), _tfeeder, num_passes=2,
+                  event_handler=on, save_dir=save_dir,
+                  checkpoint_mode="async")
+    except _Fault:
+        if rank == 1:
+            out["raised_after_s"] = time.monotonic() - out["t_fault"]
+            with open(marker, "w"):
+                pass
+    return out
+
+
+def test_a_rank_failing_after_an_async_save_raises_at_once(world2,
+                                                           tmp_path):
+    """A rank that fails mid-pass drains its own checkpoint writer and
+    raises; it does not wait at a barrier for ranks that are elsewhere
+    (on NCCL such a barrier can pair with another collective)."""
+    d = str(tmp_path / "ckpt")
+    r0, r1 = world2.run(rank_raises_after_an_async_save,
+                        _batches("mlp", 8, seed=5), d)
+    assert r1["raised_after_s"] < RAISE_WAIT_S / 2, r1
+    assert r0["saw_rank1_raise"], r0
+    assert tactp.latest_complete_pass(d) == 0
